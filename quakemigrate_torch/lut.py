@@ -1,0 +1,31 @@
+# -*- coding: utf-8 -*-
+"""
+Traveltime state carried over from a lookup table: the node-major
+sample-offset table the detect path migrates with, and the mapping of
+flat node indices back to grid indices.
+
+"""
+
+import numpy as np
+
+
+def traveltime_table(tables, scan_rate):
+    """
+    Per-slot traveltime grids (seconds; numpy arrays, one per canonical
+    (phase, station) slot, phase-major, as ``lut[station][phase]``) ->
+    node-major int32 sample offsets [n_nodes, n_slots], as the JAX
+    ``QuakeScan._build_device_state`` builds them: ``rint(t * rate)``,
+    raveled in C order.
+
+    """
+
+    return np.stack(
+        [np.rint(t * scan_rate).astype(np.int32).ravel() for t in tables],
+        axis=-1,
+    )
+
+
+def unravel(max_idx, node_count):
+    """Flat node indices [S] -> grid indices (i, j, k) [S, 3]."""
+
+    return np.column_stack(np.unravel_index(np.asarray(max_idx), node_count))

@@ -1,0 +1,353 @@
+# -*- coding: utf-8 -*-
+"""
+Fused migrate-and-reduce on the GPU: the node-tile plan, the wrapper of
+the CUDA kernel ``csrc/migrate_detect.cu``, its plain PyTorch version,
+and the cross-tile combine.
+
+Counterpart of quakemigrate_tpu.ops.pallas_migrate (``PallasDetectMXU``
+and its kernel ``_mxu_detect_kernel``). The flat node axis is reordered
+into spatially compact bricks, so every node of a tile has a traveltime
+close to the tile's minimum: per (tile, onset) a base shift, and per node
+a small residual ``fine < r_span``. One shared-memory window of each
+onset row then feeds every node of the tile.
+
+Contract of the kernel, per node tile i and scan sample t:
+
+    coa[n, t] = exp(sum_o L[o, fsmp + base[i, o] + fine[i, o, n] + t]
+                    * inv_available) * valid[i, n]
+    tmax[i, t] = max_n coa;  targ[i, t] = first n attaining it;
+    tsum[i, t] = sum_n coa
+
+with ``L`` the clipped, logged and masked onsets. ``combine_tiles`` then
+takes the first tile attaining the max and maps the winner through
+``perm`` to its flat node index. Ties therefore follow BRICK order (the
+first node in the brick-permuted order), as the TPU kernels do; the
+plain flat-order path (ops.migrate) breaks ties by flat index. Both pick
+a node whose coalescence equals the maximum.
+
+"""
+
+import ctypes
+
+import numpy as np
+import torch
+
+from quakemigrate_torch.device import resolve_device
+from quakemigrate_torch.util import round_up
+from .migrate import _prepare_onsets
+
+# Scan samples per thread block and warps per block; both are fixed in
+# csrc/migrate_detect.cu (QM_SBLK, QM_NWARPS).
+SBLK = 128
+NWARPS = 8
+
+# Dynamic shared memory one block may use on Hopper (227 KB).
+SMEM_LIMIT = 232448
+
+
+def brick_permutation(node_count, brick_shape):
+    """
+    Permutation reordering the flat (C-order) node axis into spatially
+    compact bricks. Returns (perm, n_padded): ``perm[new] = old`` flat
+    index, with -1 marking padding nodes (bricks overhanging the grid).
+
+    """
+
+    node_count = np.asarray(node_count, dtype=int)
+    brick_shape = np.asarray(brick_shape, dtype=int)
+    n_bricks = -(-node_count // brick_shape)
+
+    # Index grids over the padded volume, brick-major
+    bi, bj, bk = [np.arange(n) for n in n_bricks]
+    li, lj, lk = [np.arange(b) for b in brick_shape]
+
+    # full index arrays: (Bi, Bj, Bk, bi, bj, bk)
+    gi = (bi[:, None, None, None, None, None] * brick_shape[0]
+          + li[None, None, None, :, None, None])
+    gj = (bj[None, :, None, None, None, None] * brick_shape[1]
+          + lj[None, None, None, None, :, None])
+    gk = (bk[None, None, :, None, None, None] * brick_shape[2]
+          + lk[None, None, None, None, None, :])
+    gi, gj, gk = np.broadcast_arrays(gi, gj, gk)
+
+    valid = (gi < node_count[0]) & (gj < node_count[1]) & (gk < node_count[2])
+    flat = (gi * node_count[1] + gj) * node_count[2] + gk
+    perm = np.where(valid, flat, -1).ravel()
+
+    return perm.astype(np.int64), perm.size
+
+
+class DetectPlan:
+    """
+    Host-side (numpy) plan of the detect kernel, built once per
+    traveltime table:
+
+    - ``perm``  int32 [n_tiles * tile]: brick order -> flat node index
+      (0 for padding);
+    - ``base``  int32 [n_tiles, O]: per-tile minimum traveltime over the
+      tile's real nodes;
+    - ``fine``  int32 [n_tiles, O, tile]: residual shift of each node
+      (0 for padding, so padding never widens a span);
+    - ``valid`` float32 [n_tiles, tile]: 1 for real nodes;
+    - ``r_spans``: per onset, the largest residual + 1; ``r_span`` is
+      their maximum, the width of a staged window beyond the sample block.
+
+    Traveltimes are clamped at 0.
+
+    """
+
+    def __init__(self, traveltimes, node_count, tile=256,
+                 brick_shape=(8, 8, 4)):
+        traveltimes = np.asarray(traveltimes)
+        n_nodes, n_onsets = traveltimes.shape
+        if int(np.prod(node_count)) != n_nodes:
+            raise ValueError(
+                f"node_count {tuple(node_count)} does not match the "
+                f"{n_nodes} traveltime rows"
+            )
+
+        perm, n_padded = brick_permutation(node_count, brick_shape)
+        n_padded = round_up(n_padded, tile)
+        if perm.size < n_padded:
+            perm = np.concatenate(
+                [perm, np.full(n_padded - perm.size, -1, dtype=perm.dtype)]
+            )
+
+        tt_perm = np.zeros((n_padded, n_onsets), dtype=np.int32)
+        live = perm >= 0
+        tt_perm[live] = np.maximum(traveltimes[perm[live]], 0)
+
+        n_tiles = n_padded // tile
+        tt_tiles = tt_perm.reshape(n_tiles, tile, n_onsets)
+        live_tiles = live.reshape(n_tiles, tile)
+        masked = np.where(
+            live_tiles[..., None], tt_tiles, np.iinfo(np.int32).max
+        )
+        base = masked.min(axis=1)
+        base = np.where(base == np.iinfo(np.int32).max, 0, base)
+        fine = np.where(live_tiles[..., None], tt_tiles - base[:, None, :], 0)
+
+        self.tile = tile
+        self.n_tiles = n_tiles
+        self.n_onsets = n_onsets
+        self.n_nodes = n_nodes
+        self.perm = np.where(live, perm, 0).astype(np.int32)
+        self.base = base.astype(np.int32)
+        self.fine = np.ascontiguousarray(fine.transpose(0, 2, 1), np.int32)
+        self.valid = live_tiles.astype(np.float32)
+        self.r_spans = tuple(
+            int(fine[..., o].max()) + 1 for o in range(n_onsets)
+        )
+        self.r_span = max(self.r_spans)
+
+
+def _check_onset_length(onsets, fsmp, nsamples, max_shift):
+    """
+    The plan clamps traveltimes at 0 but cannot clamp above: migration
+    reads ``onsets[fsmp + tt + t]``, so an onset block shorter than the
+    plan's largest shift would read past the row. On the card that read
+    is silent, so fail loudly on the host first.
+
+    """
+
+    t_len = onsets.shape[-1]
+    if fsmp + nsamples + max_shift > t_len:
+        raise ValueError(
+            f"Onset block too short for this detect plan: migration reads "
+            f"up to sample {fsmp + nsamples + max_shift - 1} (fsmp {fsmp} "
+            f"+ nsamples {nsamples} + max traveltime shift {max_shift}) "
+            f"but the block has {t_len} samples. Rebuild the plan for "
+            "this scan geometry."
+        )
+
+
+def combine_tiles(tmax, targ, tsum, perm, tile):
+    """
+    Cross-tile combine of the per-tile ``[n_tiles, S]`` outputs: the
+    per-sample max with the FIRST tile winning ties, the winner's local
+    index mapped through ``perm`` to its flat node index, and the grid
+    sum. Returns (max_coa, max_idx int32, coa_sum).
+
+    """
+
+    best_tile = torch.argmax(tmax, dim=0)
+    max_coa = tmax.gather(0, best_tile[None])[0]
+    local = targ.gather(0, best_tile[None])[0].long()
+    max_idx = perm[best_tile * tile + local]
+    coa_sum = torch.sum(tsum, dim=0)
+    return max_coa, max_idx, coa_sum
+
+
+def detect_reduce_plan_reference(onsets_log, base, fine, valid,
+                                 inv_available, fsmp, nsamples,
+                                 max_elements=2**23):
+    """
+    Plain PyTorch version of the CUDA kernel, with the kernel's exact
+    contract: per node tile (in brick order) and sample, the max, the
+    first local argmax, and the sum of the coalescence. Onsets are summed
+    in order o = 0..O-1, as the kernel does. Tiles are processed in
+    chunks of at most ``max_elements`` coalescence values.
+
+    Returns (tmax f32, targ int32, tsum f32), each [n_tiles, nsamples].
+
+    """
+
+    n_tiles, n_onsets, tile = fine.shape
+    t = torch.arange(nsamples, device=onsets_log.device)
+    chunk = max(1, max_elements // (tile * nsamples))
+    tmax, targ, tsum = [], [], []
+    for c0 in range(0, n_tiles, chunk):
+        b = base[c0:c0 + chunk].long()
+        f = fine[c0:c0 + chunk].long()
+        acc = torch.zeros(
+            (b.shape[0], tile, nsamples), dtype=onsets_log.dtype,
+            device=onsets_log.device,
+        )
+        for o in range(n_onsets):
+            cols = fsmp + b[:, o, None, None] + f[:, o, :, None] + t
+            acc = acc + onsets_log[o][cols]
+        coa = torch.exp(acc * inv_available) * valid[c0:c0 + chunk, :, None]
+        arg = torch.argmax(coa, dim=1)
+        tmax.append(coa.gather(1, arg[:, None])[:, 0])
+        targ.append(arg.to(torch.int32))
+        tsum.append(torch.sum(coa, dim=1))
+    return torch.cat(tmax), torch.cat(targ), torch.cat(tsum)
+
+
+def migrate_detect_cuda(onsets_log, base, fine, valid, inv_available,
+                        fsmp, nsamples, r_span):
+    """
+    Launch the CUDA kernel on tensors on the card. Checks device, dtype,
+    contiguity and shapes, and raises on what the kernel does not take.
+    Returns (tmax f32, targ int32, tsum f32), each [n_tiles, nsamples].
+    The launch is asynchronous on the current stream.
+
+    """
+
+    from quakemigrate_torch import _build
+
+    device = onsets_log.device
+    if device.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {device}")
+    expected = (
+        ("onsets_log", onsets_log, torch.float32, 2),
+        ("base", base, torch.int32, 2),
+        ("fine", fine, torch.int32, 3),
+        ("valid", valid, torch.float32, 2),
+        ("inv_available", inv_available, torch.float32, 1),
+    )
+    for name, x, dtype, ndim in expected:
+        if x.device != device:
+            raise ValueError(f"{name} is on {x.device}, not {device}")
+        if x.dtype != dtype or x.dim() != ndim:
+            raise ValueError(
+                f"{name} must be a {ndim}-D {dtype} tensor, got "
+                f"{x.dim()}-D {x.dtype}"
+            )
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    n_onsets, t_len = onsets_log.shape
+    n_tiles, _, tile = fine.shape
+    if (base.shape != (n_tiles, n_onsets)
+            or fine.shape != (n_tiles, n_onsets, tile)
+            or valid.shape != (n_tiles, tile)
+            or inv_available.numel() != 1):
+        raise ValueError(
+            f"inconsistent plan shapes: onsets {tuple(onsets_log.shape)}, "
+            f"base {tuple(base.shape)}, fine {tuple(fine.shape)}, valid "
+            f"{tuple(valid.shape)}, inv_available {tuple(inv_available.shape)}"
+        )
+    if tile % NWARPS:
+        raise ValueError(f"tile ({tile}) must be a multiple of {NWARPS}")
+    if nsamples < 1 or r_span < 1:
+        raise ValueError(f"bad geometry: nsamples {nsamples}, r_span {r_span}")
+    # One staged window of r_span + SBLK floats per onset, reused for the
+    # block reduction
+    smem = 4 * max(n_onsets * (r_span + SBLK), 3 * NWARPS * SBLK)
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"staged windows need {smem} bytes of shared memory "
+            f"({n_onsets} onsets x ({r_span} + {SBLK}) floats), over the "
+            f"{SMEM_LIMIT} a block may use; use a smaller tile or brick"
+        )
+
+    tmax = torch.empty((n_tiles, nsamples), dtype=torch.float32, device=device)
+    targ = torch.empty((n_tiles, nsamples), dtype=torch.int32, device=device)
+    tsum = torch.empty((n_tiles, nsamples), dtype=torch.float32, device=device)
+    lib = _build.load_library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.qm_migrate_detect(
+            onsets_log.data_ptr(), t_len, base.data_ptr(), fine.data_ptr(),
+            valid.data_ptr(), inv_available.data_ptr(), tmax.data_ptr(),
+            targ.data_ptr(), tsum.data_ptr(), n_onsets, n_tiles, tile, fsmp,
+            nsamples, r_span, ctypes.c_void_p(stream),
+        )
+    if err != 0:
+        raise RuntimeError(
+            "qm_migrate_detect launch failed: "
+            + lib.qm_error_string(err).decode()
+        )
+    return tmax, targ, tsum
+
+
+class CudaDetect:
+    """
+    Fused migrate-and-reduce for one (traveltimes, scan geometry), built
+    once and called per window like ``PallasDetectMXU``:
+    ``__call__(onsets [O, T], mask [O], available)`` returns
+    (max_coa, max_idx int32, coa_sum), each [nsamples]; the caller
+    normalises.
+
+    The plan lives on ``device``. For onsets on a CUDA device the CUDA
+    kernel runs and ``launches`` counts it; for onsets on the CPU the
+    plain version (:func:`detect_reduce_plan_reference`) runs.
+
+    """
+
+    def __init__(self, traveltimes, node_count, fsmp, nsamples, device,
+                 tile=256, brick_shape=(8, 8, 4)):
+        plan = DetectPlan(traveltimes, node_count, tile=tile,
+                          brick_shape=brick_shape)
+        self.device = resolve_device(device)
+        self.fsmp = int(fsmp)
+        self.nsamples = int(nsamples)
+        self.tile = plan.tile
+        self.n_nodes = plan.n_nodes
+        self.r_span = plan.r_span
+        self._max_shift = int(np.maximum(np.asarray(traveltimes), 0).max())
+
+        def put(a):
+            return torch.from_numpy(a).to(self.device)
+
+        self.base = put(plan.base)
+        self.fine = put(plan.fine)
+        self.valid = put(plan.valid)
+        self.perm = put(plan.perm)
+        self.launches = 0
+
+    def __call__(self, onsets, mask, available):
+        if onsets.device != self.device:
+            raise ValueError(
+                f"onsets are on {onsets.device}, the plan on {self.device}"
+            )
+        _check_onset_length(
+            onsets, self.fsmp, self.nsamples, self._max_shift
+        )
+        onsets_log = _prepare_onsets(onsets, mask).to(torch.float32)
+        inv_available = (
+            1.0 / torch.as_tensor(available, dtype=torch.float32,
+                                  device=self.device)
+        ).reshape(1)
+        if onsets_log.is_cuda:
+            parts = migrate_detect_cuda(
+                onsets_log.contiguous(), self.base, self.fine, self.valid,
+                inv_available, self.fsmp, self.nsamples, self.r_span,
+            )
+            self.launches += 1
+        else:
+            parts = detect_reduce_plan_reference(
+                onsets_log, self.base, self.fine, self.valid,
+                inv_available, self.fsmp, self.nsamples,
+            )
+        return combine_tiles(*parts, self.perm, self.tile)
