@@ -21,6 +21,21 @@ Smoke run of quakemigrate_torch on one NVIDIA GPU.
    within 1e-5, max_coa_n within 1e-4 relative: sums over 2.6e5 nodes
    in another order; tie-consistent argmax); and the planted window's
    peak above every other window's, within one grid node of the source.
+5. The VPU-plan kernel (csrc/migrate_detect_vpu.cu) against its plain
+   version on a small plan and at the Icequake grid (tile 512, bricks
+   8 x 8 x 8), timed; then its path: the 16 windows' onsets from
+   fused_onsets through CudaDetectVPU, with 16 launches, max_coa and
+   max_coa_n within 1e-5 and 1e-4 of DetectScan's results, argmax
+   tie-consistent, and the planted node found within one grid node.
+6. The detect-kernel breakdown (quakemigrate_torch.ops.cuda_breakdown):
+   each ablation of the production kernel against its own plain
+   contract, the resident-staging kernel and the pipelined kernel (2, 3
+   and 4 stages, and per-onset spans) against the plain version, at the
+   day-scale workload cut to a 625-sample window; then the breakdown's
+   entry point (experiments/exp_kernel_breakdown.run) at the full
+   30,000-sample window, which holds the resident and pipelined kernels
+   to the production kernel's outputs, and the production kernel held
+   against its plain version (timed once) at that size.
 
 Every failure raises. The last two lines are the kernels' JSON record
 and {"ok": true, "device": {...}}.
@@ -97,20 +112,21 @@ def icequake_traveltimes(rng):
 
 
 def kernel_case(name, tt, node_count, fsmp, nsamples, tile, brick, rng,
-                device, n_masked=1, time_it=False):
-    """Kernel against its plain version on the same staged onsets."""
+                device, n_masked=1, time_it=False, detector=None):
+    """Kernel of ``detector`` (a CudaDetect class; the production kernel
+    by default) against its plain version on the same staged onsets."""
 
     from quakemigrate_torch.ops.cuda_migrate import (
         CudaDetect,
         detect_reduce_plan_reference,
-        migrate_detect_cuda,
     )
     from quakemigrate_torch.ops.migrate import _prepare_onsets
 
     n_onsets = tt.shape[1]
     t_len = fsmp + nsamples + int(tt.max()) + 7
-    det = CudaDetect(tt, node_count, fsmp, nsamples, device, tile=tile,
-                     brick_shape=brick)
+    det = (detector or CudaDetect)(tt, node_count, fsmp, nsamples, device,
+                                   tile=tile, brick_shape=brick)
+    kernel = det.kernel
     onsets = torch.from_numpy(
         rng.gamma(2.0, 1.5, size=(n_onsets, t_len)).astype(np.float32)
     ).to(device)
@@ -121,7 +137,7 @@ def kernel_case(name, tt, node_count, fsmp, nsamples, tile, brick, rng,
     args = (onsets_log, det.base, det.fine, det.valid, inv_available,
             fsmp, nsamples)
 
-    kmax, karg, ksum = migrate_detect_cuda(*args, det.r_span)
+    kmax, karg, ksum = kernel(*args, det.r_span)
     pmax, parg, psum = detect_reduce_plan_reference(*args)
     torch.cuda.synchronize()
 
@@ -155,7 +171,7 @@ def kernel_case(name, tt, node_count, fsmp, nsamples, tile, brick, rng,
               "max_rel_err_tsum": rel_sum, "tie_rel_err": tie_err}
     if time_it:
         record["ms"] = cuda_ms(
-            lambda: migrate_detect_cuda(*args, det.r_span), reps=20
+            lambda: kernel(*args, det.r_span), reps=20
         )
         record["plain_ms"] = cuda_ms(
             lambda: detect_reduce_plan_reference(*args), reps=3, warmup=1
@@ -329,7 +345,181 @@ def run_slice(tt, rng, device):
         warmup=1)
     print(f"slice: window compute {kernel_ms:.4f} ms with the kernel, "
           f"{plain_ms:.4f} ms plain")
+    return launches, windows, results, planted_ijk
+
+
+def run_vpu_path(tt, windows, scan_results, planted_ijk, device):
+    """The VPU-plan kernel's path: each window's onsets (fused_onsets)
+    through CudaDetectVPU, held against DetectScan's results."""
+
+    from quakemigrate_torch.lut import unravel
+    from quakemigrate_torch.ops.cuda_migrate import CudaDetectVPU
+    from quakemigrate_torch.ops.scan_window import fused_onsets
+
+    detector = CudaDetectVPU(tt, NODE_COUNT, FSMP, NSAMPLES, device)
+    blocks = [[torch.from_numpy(a).to(device) for a in block]
+              for block in windows]
+    torch.cuda.synchronize()
+
+    detector.launches = 0
+    outs = []
+    for channels, chan_mask, slot_mask, nsta, nlta in blocks:
+        combined, available = fused_onsets(
+            channels, chan_mask, slot_mask, nsta, nlta, "classic", "energy",
+            0.4,
+        )
+        outs.append(detector(combined, slot_mask, available))
+    torch.cuda.synchronize()
+    launches = detector.launches
+    print(f"vpu path: {N_WINDOWS} windows, kernel launches {launches}")
+    check(launches == N_WINDOWS,
+          f"{launches} VPU kernel launches for {N_WINDOWS} windows")
+
+    tt_dev = torch.from_numpy(tt).to(device)
+    peaks = []
+    for w, (block, out, ref) in enumerate(zip(windows, outs, scan_results)):
+        max_coa, max_coa_n, max_idx = (x.cpu().numpy() for x in out)
+        check(np.isfinite(max_coa).all() and np.isfinite(max_coa_n).all(),
+              f"vpu window {w}: non-finite coalescence")
+        rel = np.abs(max_coa - ref[0]) / np.abs(ref[0])
+        rel_n = np.abs(max_coa_n - ref[1]) / np.abs(ref[1])
+        tie = np.abs(ref[0] - plain_coa_at(block, tt_dev, max_idx, device))
+        tie = tie / np.abs(ref[0])
+        check(rel.max() <= MAX_COA_RTOL, f"vpu window {w}: max_coa {rel.max()}")
+        check(rel_n.max() <= MAX_COA_N_RTOL,
+              f"vpu window {w}: max_coa_n {rel_n.max()}")
+        check(tie.max() <= MAX_COA_RTOL,
+              f"vpu window {w}: argmax tie {tie.max()}")
+        peak = int(np.argmax(max_coa))
+        peaks.append((float(max_coa[peak]),
+                      unravel(max_idx[peak:peak + 1], NODE_COUNT)[0]))
+        print(f"vpu window {w:2d}: vs DetectScan: max_coa {rel.max():.2e}, "
+              f"max_coa_n {rel_n.max():.2e}, tie {tie.max():.2e}, argmax "
+              f"equal {(max_idx == ref[2]).mean():.4f}")
+    values = np.array([p[0] for p in peaks])
+    dist = int(np.abs(peaks[PLANT_WINDOW][1] - planted_ijk).max())
+    print(f"vpu path: planted window peak {values[PLANT_WINDOW]:.6f}, best "
+          f"other {np.delete(values, PLANT_WINDOW).max():.6f}; node "
+          f"distance {dist}")
+    check(values[PLANT_WINDOW] > np.delete(values, PLANT_WINDOW).max(),
+          "vpu path: the planted window's peak is not the highest")
+    check(dist <= 1, f"vpu path: peak node {dist} nodes from the planted node")
     return launches
+
+
+def scaled_err(got, ref):
+    """Largest |got - ref| over max(|ref|, 1): relative where values are
+    large, absolute near zero (the ablations' sums of logs can be 0)."""
+
+    return ((got - ref).abs() / ref.abs().clamp(min=1.0)).max().item()
+
+
+def coa_at(s, idx, variant):
+    """Plain coalescence of ablation ``variant`` ("full" or "noexp") at
+    the local node idx[tile, t] of each tile, from setup ``s``."""
+
+    onsets_log, base, fine, valid, inv_available, fsmp, nsamples = s.args
+    t = torch.arange(nsamples, device=onsets_log.device)
+    idx = idx.long()
+    acc = torch.zeros(idx.shape, dtype=torch.float32,
+                      device=onsets_log.device)
+    for o in range(base.shape[1]):
+        cols = fsmp + base[:, o, None] + fine[:, o, :].gather(1, idx)
+        acc = acc + onsets_log[o][cols + t]
+    coa = acc * inv_available
+    if variant == "full":
+        coa = torch.exp(coa)
+    return coa * valid.gather(1, idx)
+
+
+def hold(name, outs, ref, s, variant):
+    """A breakdown kernel's outputs against its plain contract; returns
+    the largest absolute error of tmax and tsum."""
+
+    err = max(scaled_err(outs[0], ref[0]), scaled_err(outs[2], ref[2]))
+    if variant in ("full", "noexp"):
+        tie = scaled_err(coa_at(s, outs[1], variant), ref[0])
+    else:
+        tie = 0.0 if bool((outs[1] == 0).all()) else float("inf")
+    abs_err = max((outs[0] - ref[0]).abs().max().item(),
+                  (outs[2] - ref[2]).abs().max().item())
+    print(f"breakdown[{name}]: err {err:.3e}, argmax tie err {tie:.3e}, "
+          f"abs err {abs_err:.3e}")
+    check(err <= KERNEL_RTOL, f"{name}: error {err}")
+    check(tie <= KERNEL_RTOL, f"{name}: argmax tie error {tie}")
+    return abs_err
+
+
+def breakdown_checks(device):
+    """Every breakdown kernel against its plain version at the day-scale
+    workload cut to a 625-sample window; kernel and plain timed there."""
+
+    from quakemigrate_torch.experiments import exp_kernel_breakdown as exp
+    from quakemigrate_torch.ops import cuda_breakdown as cb
+
+    s = exp.setup(nsamples=NSAMPLES, device=device)
+    r_span = s.plan.r_span
+    full_ref = cb.detect_reduce_ablate_reference(*s.args, "full")
+    records = {}
+    for variant in cb.ABLATIONS:
+        ref = cb.detect_reduce_ablate_reference(*s.args, variant)
+        outs = cb.migrate_detect_ablate_cuda(*s.args, r_span, variant)
+        records[variant] = {
+            "max_abs_err": hold(variant, outs, ref, s, variant),
+            "ms_625": cuda_ms(lambda: cb.migrate_detect_ablate_cuda(
+                *s.args, r_span, variant), reps=20),
+            "plain_ms_625": cuda_ms(lambda: cb.detect_reduce_ablate_reference(
+                *s.args, variant), reps=3, warmup=1),
+        }
+        print(f"breakdown[{variant}] at {NSAMPLES} samples: "
+              f"{records[variant]['ms_625']:.4f} ms, plain "
+              f"{records[variant]['plain_ms_625']:.4f} ms")
+
+    group, gbase, gwidth = cb.resident_groups(s.args[1], r_span)
+    outs = cb.migrate_detect_resident_cuda(*s.args, group, gbase, gwidth)
+    records["resident"] = {
+        "max_abs_err": hold(f"resident group {group}", outs, full_ref, s,
+                            "full"),
+    }
+    errs = []
+    for per_onset, n_stages in [(False, n) for n in cb.STAGES] + [(True, 3)]:
+        offs = cb.span_offsets(s.plan.r_spans, per_onset)
+        outs = cb.migrate_detect_pipelined_cuda(
+            *s.args, torch.from_numpy(offs).to(device), int(offs[-1]),
+            n_stages)
+        errs.append(hold(f"pipelined stages={n_stages} per_onset="
+                         f"{per_onset}", outs, full_ref, s, "full"))
+    records["pipelined"] = {"max_abs_err": max(errs)}
+    torch.cuda.synchronize()
+    return records
+
+
+def breakdown_path(device):
+    """The breakdown's entry point at the full day-scale window, with the
+    launch counts set to 0 just before it; and the production kernel
+    against its plain version (timed once) at that size."""
+
+    from quakemigrate_torch.experiments import exp_kernel_breakdown as exp
+    from quakemigrate_torch.ops import cuda_breakdown as cb
+
+    s = exp.setup(device=device)
+    torch.cuda.synchronize()
+    cb.reset_launches()
+    results = exp.run(s)
+    counts = dict(cb.launches)
+    print(f"breakdown path: launches {counts}")
+    for name, n in counts.items():
+        check(n > 0, f"breakdown path: {name} was never launched")
+
+    t0 = time.perf_counter()
+    ref = cb.detect_reduce_ablate_reference(*s.args, "full")
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    outs = cb.migrate_detect_ablate_cuda(*s.args, s.plan.r_span, "full")
+    abs_err = hold(f"full at {s.nsamples} samples", outs, ref, s, "full")
+    print(f"breakdown path: plain version at {s.nsamples} samples "
+          f"{plain_ms:.1f} ms (one run)")
+    return counts, results, plain_ms, abs_err
 
 
 def main():
@@ -358,7 +548,21 @@ def main():
     record = kernel_case("icequake", tt, NODE_COUNT, FSMP, NSAMPLES, 256,
                          (8, 8, 4), rng, device, n_masked=2, time_it=True)
 
-    launches = run_slice(tt, rng, device)
+    from quakemigrate_torch.ops.cuda_migrate import CudaDetectVPU
+
+    rng_vpu = np.random.default_rng(2025)
+    kernel_case("vpu small", small_tt, (10, 9, 8), 16, 100, 64, (4, 4, 4),
+                rng_vpu, device, detector=CudaDetectVPU)
+    vpu_record = kernel_case("vpu icequake", tt, NODE_COUNT, FSMP, NSAMPLES,
+                             512, (8, 8, 8), rng_vpu, device, n_masked=2,
+                             time_it=True, detector=CudaDetectVPU)
+
+    launches, windows, results, planted_ijk = run_slice(tt, rng, device)
+    vpu_launches = run_vpu_path(tt, windows, results, planted_ijk, device)
+
+    checks = breakdown_checks(device)
+    counts, e1, e1_plain_ms, e1_abs_err = breakdown_path(device)
+    by_name = {r["name"]: r for part in e1.values() for r in part}
 
     kernels = [{
         "name": "migrate_detect",
@@ -371,6 +575,51 @@ def main():
         "max_rel_err_tsum": record["max_rel_err_tsum"],
         "ms": record["ms"],
         "plain_ms": record["plain_ms"],
+    }, {
+        "name": "migrate_detect_vpu",
+        "route": "cuda",
+        "source": "quakemigrate_torch/csrc/migrate_detect_vpu.cu",
+        "replaces": "quakemigrate_tpu/ops/pallas_migrate.py:242",
+        "launches": vpu_launches,
+        "max_abs_err": vpu_record["max_abs_err"],
+        "max_rel_err_tmax": vpu_record["max_rel_err_tmax"],
+        "max_rel_err_tsum": vpu_record["max_rel_err_tsum"],
+        "ms": vpu_record["ms"],
+        "plain_ms": vpu_record["plain_ms"],
+    }, {
+        "name": "migrate_detect_ablate",
+        "route": "cuda",
+        "source": "quakemigrate_torch/csrc/migrate_detect.cu",
+        "replaces": "experiments/exp_kernel_breakdown.py:36",
+        "launches": counts["migrate_detect_ablate"],
+        "max_abs_err": max([e1_abs_err] + [
+            checks[r["name"]]["max_abs_err"] for r in e1["ablate"]]),
+        "ms": by_name["full"]["ms"],
+        "plain_ms": e1_plain_ms,
+        "variants": {
+            r["name"]: {"ms": r["ms"], **checks[r["name"]]}
+            for r in e1["ablate"]
+        },
+    }, {
+        "name": "migrate_detect_resident",
+        "route": "cuda",
+        "source": "quakemigrate_torch/csrc/migrate_detect_resident.cu",
+        "replaces": "experiments/exp_kernel_breakdown.py:261",
+        "launches": counts["migrate_detect_resident"],
+        "max_abs_err": checks["resident"]["max_abs_err"],
+        "ms": min(r["ms"] for r in e1["resident"]),
+        "plain_ms": e1_plain_ms,
+        "configs": {r["name"]: r["ms"] for r in e1["resident"]},
+    }, {
+        "name": "migrate_detect_pipelined",
+        "route": "cuda",
+        "source": "quakemigrate_torch/csrc/migrate_detect_pipelined.cu",
+        "replaces": "experiments/exp_kernel_breakdown.py:459",
+        "launches": counts["migrate_detect_pipelined"],
+        "max_abs_err": checks["pipelined"]["max_abs_err"],
+        "ms": min(r["ms"] for r in e1["deep"] + e1["pspan"]),
+        "plain_ms": e1_plain_ms,
+        "configs": {r["name"]: r["ms"] for r in e1["deep"] + e1["pspan"]},
     }]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,7 @@
 # -*- coding: utf-8 -*-
 """
 quakemigrate_torch -- the detect stage of QuakeMigrate on an NVIDIA GPU,
-in PyTorch with a hand-written CUDA migrate-and-reduce kernel.
+in PyTorch with hand-written CUDA migrate-and-reduce kernels.
 
 A port of the device path of :mod:`quakemigrate_tpu` (the JAX reference,
 which it is tested against). It is self-contained: it imports torch,
@@ -12,6 +12,8 @@ The slice ported so far is continuous detect: fixed-shape channel blocks
 (the layout ``STALTAOnset.prepare_device_inputs`` builds) go through the
 fused onset front end, the migrate-and-reduce kernel and the
 normalisation, window after window (:class:`DetectScan`).
+:class:`CudaDetectVPU` is the counterpart of the JAX ``PallasDetect``;
+``experiments/`` holds the kernel-breakdown probes.
 
 """
 
@@ -19,5 +21,9 @@ __version__ = "0.1.0"
 
 from quakemigrate_torch.device import resolve_device  # noqa: F401
 from quakemigrate_torch.lut import traveltime_table, unravel  # noqa: F401
-from quakemigrate_torch.ops.cuda_migrate import CudaDetect, DetectPlan  # noqa: F401
+from quakemigrate_torch.ops.cuda_migrate import (  # noqa: F401
+    CudaDetect,
+    CudaDetectVPU,
+    DetectPlan,
+)
 from quakemigrate_torch.signal.scan import DetectScan  # noqa: F401

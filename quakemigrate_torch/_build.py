@@ -2,12 +2,14 @@
 """
 Build and load the CUDA kernels of ``csrc/``.
 
-At first use, ``nvcc`` compiles every ``csrc/*.cu`` for Hopper (sm_90a)
-into one shared library with a plain C interface, under ``_build/`` in
-the package (not versioned). The file name carries a hash of the sources
-and flags, so an edited kernel is rebuilt and an unchanged one is
-reused. The library is loaded with ctypes: pointers and the stream go
-over as ``c_void_p``. A missing ``nvcc`` or a failed build raises.
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` for Hopper (sm_90a),
+one process per source, all started together, and links the objects into
+one shared library with a plain C interface, under ``_build/`` in the
+package (not versioned). The file name carries a hash of the sources,
+their headers and the flags, so an edited kernel is rebuilt and an
+unchanged one is reused. The library is loaded with ctypes: pointers and
+the stream go over as ``c_void_p``. A missing ``nvcc`` or a failed build
+raises.
 
 """
 
@@ -23,13 +25,34 @@ PACKAGE_DIR = pathlib.Path(__file__).resolve().parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _VOID_P = ctypes.c_void_p
 _INT = ctypes.c_int
+
+# Argument types of the C API, per symbol (csrc/*.cu, extern "C").
+_PLAN = [_VOID_P, _INT, _VOID_P, _VOID_P, _VOID_P, _VOID_P]  # L .. inv_avail
+_OUTS = [_VOID_P, _VOID_P, _VOID_P]  # tmax, targ, tsum
+SIGNATURES = {
+    # ... O, tiles, tile, fsmp, S, span, stream
+    "qm_migrate_detect": _PLAN + _OUTS + [_INT] * 6 + [_VOID_P],
+    "qm_migrate_detect_vpu": _PLAN + _OUTS + [_INT] * 6 + [_VOID_P],
+    # ... O, tiles, tile, fsmp, S, span, variant, stream
+    "qm_migrate_detect_ablate": _PLAN + _OUTS + [_INT] * 7 + [_VOID_P],
+    # L, t_len, base, gbase, fine, valid, inv_avail, outs,
+    # O, tiles, tile, group, fsmp, S, gwidth, stream
+    "qm_migrate_detect_resident": (
+        [_VOID_P, _INT, _VOID_P, _VOID_P, _VOID_P, _VOID_P, _VOID_P] + _OUTS
+        + [_INT] * 7 + [_VOID_P]
+    ),
+    # L, t_len, base, span_off, fine, valid, inv_avail, outs,
+    # O, tiles, tile, fsmp, S, slot_floats, n_stages, blocks_per_sm, stream
+    "qm_migrate_detect_pipelined": (
+        [_VOID_P, _INT, _VOID_P, _VOID_P, _VOID_P, _VOID_P, _VOID_P] + _OUTS
+        + [_INT] * 8 + [_VOID_P]
+    ),
+}
 
 
 def _nvcc():
@@ -46,6 +69,24 @@ def _nvcc():
     )
 
 
+def _run_all(cmds):
+    """Start every command at once, wait for all; raise on the first
+    failure with its output. Returns the outputs in order."""
+
+    procs = [
+        subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True)
+        for cmd in cmds
+    ]
+    outputs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, out in zip(cmds, procs, outputs):
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}"
+            )
+    return outputs
+
+
 def build():
     """
     Compile ``csrc/*.cu`` unless the library for these sources and flags
@@ -58,23 +99,29 @@ def build():
     sources = sorted(CSRC_DIR.glob("*.cu"))
     if not sources:
         raise RuntimeError(f"no CUDA sources in {CSRC_DIR}")
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    digest = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
+    for src in sorted(CSRC_DIR.glob("*.cu*")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     lib_path = BUILD_DIR / f"libqm_torch_{digest.hexdigest()[:16]}.so"
     if lib_path.is_file():
         return lib_path
     BUILD_DIR.mkdir(exist_ok=True)
+    tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+    nvcc = _nvcc()
+    objects = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
+    logs = _run_all([
+        [nvcc, *COMPILE_FLAGS, "-c", "-o", str(obj), str(src)]
+        for src, obj in zip(sources, objects)
+    ])
     tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    lib_path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+               *map(str, objects)]])
+    for obj in objects:
+        obj.unlink()
+    lib_path.with_suffix(".log").write_text("".join(
+        f"== {src.name}\n{log}" for src, log in zip(sources, logs)
+    ))
     os.replace(tmp, lib_path)
     return lib_path
 
@@ -84,13 +131,10 @@ def load_library():
     """Build if needed, load once per process, and declare the C API."""
 
     lib = ctypes.CDLL(str(build()))
-    lib.qm_migrate_detect.argtypes = [
-        _VOID_P, _INT, _VOID_P, _VOID_P, _VOID_P, _VOID_P,  # L .. inv_avail
-        _VOID_P, _VOID_P, _VOID_P,  # tmax, targ, tsum
-        _INT, _INT, _INT, _INT, _INT, _INT,  # O, tiles, tile, fsmp, S, span
-        _VOID_P,  # stream
-    ]
-    lib.qm_migrate_detect.restype = _INT
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = _INT
     lib.qm_error_string.argtypes = [_INT]
     lib.qm_error_string.restype = ctypes.c_char_p
     return lib

@@ -20,27 +20,30 @@
 // Design. One block per (node tile, block of QM_SBLK samples). For each
 // onset the block stages the row window L[o, fsmp+base[i,o]+s0 :
 // + r_span + QM_SBLK] in shared memory once; every node of the tile then
-// reads its shifted samples from it. A warp owns one node at a time and
-// its 32 lanes read 32 consecutive samples, so each shared-memory read
-// is conflict-free; each thread keeps QM_SBLK/32 sums in registers and
-// adds the onsets in order o = 0..O-1, the same order as the plain
-// version. The epilogue takes exp, applies valid, and reduces the tile's
-// nodes per sample: first per thread over its nodes, then across warps.
+// reads its shifted samples from it (qm_reduce_tile, detect_core.cuh).
+// A warp owns one node at a time and its 32 lanes read 32 consecutive
+// samples, so each shared-memory read is conflict-free; each thread
+// keeps QM_SBLK/32 sums in registers and adds the onsets in order
+// o = 0..O-1, the same order as the plain version. The epilogue takes
+// exp, applies valid, and reduces the tile's nodes per sample: first per
+// thread over its nodes, then across warps.
 //
 // Bound on the card: shared-memory gather bandwidth. A block makes
 // O * tile * QM_SBLK 4-byte shared reads against O * (r_span + QM_SBLK)
 // floats staged, so each staged value is read about `tile` times and
 // device-memory traffic is small (L is a few hundred KB and stays in
 // L2). The staging has no double buffering (no cp.async or TMA yet).
+//
+// The kernel is a template on the reduction variant (QmVariant):
+// QM_FULL is the production kernel (qm_migrate_detect); the others are
+// its ablations for the cost breakdown (qm_migrate_detect_ablate), the
+// counterpart of the TPU experiment kernel _kernel
+// (experiments/exp_kernel_breakdown.py:36). Being the same template,
+// they cannot drift from it.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "detect_core.cuh"
 
-#define QM_SBLK 128
-#define QM_NWARPS 8
-#define QM_THREADS (32 * QM_NWARPS)
-#define QM_SPT (QM_SBLK / 32)
-
+template <int V>
 __global__ void __launch_bounds__(QM_THREADS)
 qm_migrate_detect_kernel(const float* __restrict__ L, int t_len,
                          const int* __restrict__ base,
@@ -54,8 +57,6 @@ qm_migrate_detect_kernel(const float* __restrict__ L, int t_len,
   const int tile_i = blockIdx.x;
   const int s0 = blockIdx.y * QM_SBLK;
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
 
   // Stage every onset's row window; reads past the row end become 0.
   // They feed only samples at or beyond nsamples, which are not stored
@@ -69,76 +70,47 @@ qm_migrate_detect_kernel(const float* __restrict__ L, int t_len,
   }
   __syncthreads();
 
-  const float inv = *inv_available;
-  const int* fine_i = fine + (long long)tile_i * n_onsets * tile;
-  const float* valid_i = valid + (long long)tile_i * tile;
-
-  float best[QM_SPT], total[QM_SPT];
-  int arg[QM_SPT];
-#pragma unroll
-  for (int k = 0; k < QM_SPT; ++k) {
-    best[k] = -INFINITY;
-    total[k] = 0.0f;
-    arg[k] = 0;
+  const long long out_row = (long long)tile_i * nsamples;
+  if constexpr (V == QM_NOGATHER) {
+    qm_staged_sum(smem, QmStride{width}, n_onsets, tmax, targ, tsum, out_row,
+                  s0, nsamples);
+  } else {
+    // The cross-warp reduction reuses the windows' shared memory.
+    qm_reduce_tile<V>(smem, QmStride{width},
+                      fine + (long long)tile_i * n_onsets * tile,
+                      valid + (long long)tile_i * tile, *inv_available,
+                      n_onsets, tile, smem, tmax, targ, tsum, out_row, s0,
+                      nsamples);
   }
+}
 
-  // Warp w takes nodes w, w + QM_NWARPS, ... in ascending order, so a
-  // strict > keeps the first node attaining each thread's max.
-  for (int n = warp; n < tile; n += QM_NWARPS) {
-    float acc[QM_SPT];
-#pragma unroll
-    for (int k = 0; k < QM_SPT; ++k) acc[k] = 0.0f;
-    for (int o = 0; o < n_onsets; ++o) {
-      const float* w = smem + o * width + __ldg(fine_i + o * tile + n) + lane;
-#pragma unroll
-      for (int k = 0; k < QM_SPT; ++k) acc[k] += w[32 * k];
-    }
-    const float v = __ldg(valid_i + n);
-#pragma unroll
-    for (int k = 0; k < QM_SPT; ++k) {
-      // __fmul_rn: no contraction into expf's range reduction, so the
-      // exponent argument is rounded exactly as in the plain version.
-      const float coa = __fmul_rn(expf(__fmul_rn(acc[k], inv)), v);
-      if (coa > best[k]) {
-        best[k] = coa;
-        arg[k] = n;
-      }
-      total[k] += coa;
-    }
+template <int V>
+static int qm_launch_detect(const void* L, int t_len, const void* base,
+                            const void* fine, const void* valid,
+                            const void* inv_available, void* tmax, void* targ,
+                            void* tsum, int n_onsets, int n_tiles, int tile,
+                            int fsmp, int nsamples, int r_span, void* stream) {
+  if (n_onsets < 1 || n_tiles < 1 || tile < QM_NWARPS ||
+      tile % QM_NWARPS != 0 || nsamples < 1 || r_span < 1) {
+    return (int)cudaErrorInvalidValue;
   }
-  __syncthreads();  // all reads of the staged windows are done
-
-  // Cross-warp reduction through shared memory (reusing the windows).
-  float* red_max = smem;
-  int* red_arg = reinterpret_cast<int*>(smem + QM_NWARPS * QM_SBLK);
-  float* red_sum = smem + 2 * QM_NWARPS * QM_SBLK;
-#pragma unroll
-  for (int k = 0; k < QM_SPT; ++k) {
-    const int s = warp * QM_SBLK + lane + 32 * k;
-    red_max[s] = best[k];
-    red_arg[s] = arg[k];
-    red_sum[s] = total[k];
-  }
-  __syncthreads();
-
-  if (tid < QM_SBLK && s0 + tid < nsamples) {
-    float m = red_max[tid];
-    int a = red_arg[tid];
-    float s = red_sum[tid];
-    for (int w = 1; w < QM_NWARPS; ++w) {
-      const float mw = red_max[w * QM_SBLK + tid];
-      const int aw = red_arg[w * QM_SBLK + tid];
-      if (mw > m || (mw == m && aw < a)) {
-        m = mw;
-        a = aw;
-      }
-      s += red_sum[w * QM_SBLK + tid];
-    }
-    const long long out = (long long)tile_i * nsamples + s0 + tid;
-    tmax[out] = m;
-    targ[out] = a;
-    tsum[out] = s;
-  }
+  const int width = r_span + QM_SBLK;
+  int floats = n_onsets * width;
+  if (floats < QM_RED_FLOATS) floats = QM_RED_FLOATS;
+  const int smem = floats * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      qm_migrate_detect_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(n_tiles, (nsamples + QM_SBLK - 1) / QM_SBLK);
+  qm_migrate_detect_kernel<V><<<grid, QM_THREADS, smem,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(L), t_len, static_cast<const int*>(base),
+      static_cast<const int*>(fine), static_cast<const float*>(valid),
+      static_cast<const float*>(inv_available), static_cast<float*>(tmax),
+      static_cast<int*>(targ), static_cast<float*>(tsum), n_onsets, tile,
+      fsmp, nsamples, width);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int qm_migrate_detect(const void* L, int t_len, const void* base,
@@ -147,27 +119,32 @@ extern "C" int qm_migrate_detect(const void* L, int t_len, const void* base,
                                  void* targ, void* tsum, int n_onsets,
                                  int n_tiles, int tile, int fsmp, int nsamples,
                                  int r_span, void* stream) {
-  if (n_onsets < 1 || n_tiles < 1 || tile < QM_NWARPS ||
-      tile % QM_NWARPS != 0 || nsamples < 1 || r_span < 1) {
-    return (int)cudaErrorInvalidValue;
+  return qm_launch_detect<QM_FULL>(L, t_len, base, fine, valid, inv_available,
+                                   tmax, targ, tsum, n_onsets, n_tiles, tile,
+                                   fsmp, nsamples, r_span, stream);
+}
+
+// The same launch with the reduction variant `variant` (a QmVariant).
+extern "C" int qm_migrate_detect_ablate(
+    const void* L, int t_len, const void* base, const void* fine,
+    const void* valid, const void* inv_available, void* tmax, void* targ,
+    void* tsum, int n_onsets, int n_tiles, int tile, int fsmp, int nsamples,
+    int r_span, int variant, void* stream) {
+#define QM_ABLATE_CASE(V)                                                   \
+  case V:                                                                   \
+    return qm_launch_detect<V>(L, t_len, base, fine, valid, inv_available, \
+                               tmax, targ, tsum, n_onsets, n_tiles, tile,  \
+                               fsmp, nsamples, r_span, stream);
+  switch (variant) {
+    QM_ABLATE_CASE(QM_FULL)
+    QM_ABLATE_CASE(QM_NOEXP)
+    QM_ABLATE_CASE(QM_NOARGMAX)
+    QM_ABLATE_CASE(QM_NOREDUCE)
+    QM_ABLATE_CASE(QM_NOGATHER)
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  const int width = r_span + QM_SBLK;
-  int floats = n_onsets * width;
-  if (floats < 3 * QM_NWARPS * QM_SBLK) floats = 3 * QM_NWARPS * QM_SBLK;
-  const int smem = floats * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      qm_migrate_detect_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(n_tiles, (nsamples + QM_SBLK - 1) / QM_SBLK);
-  qm_migrate_detect_kernel<<<grid, QM_THREADS, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(L), t_len, static_cast<const int*>(base),
-      static_cast<const int*>(fine), static_cast<const float*>(valid),
-      static_cast<const float*>(inv_available), static_cast<float*>(tmax),
-      static_cast<int*>(targ), static_cast<float*>(tsum), n_onsets, tile,
-      fsmp, nsamples, width);
-  return (int)cudaGetLastError();
+#undef QM_ABLATE_CASE
 }
 
 extern "C" const char* qm_error_string(int err) {

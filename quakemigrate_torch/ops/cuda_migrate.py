@@ -1,17 +1,19 @@
 # -*- coding: utf-8 -*-
 """
-Fused migrate-and-reduce on the GPU: the node-tile plan, the wrapper of
-the CUDA kernel ``csrc/migrate_detect.cu``, its plain PyTorch version,
-and the cross-tile combine.
+Fused migrate-and-reduce on the GPU: the node-tile plan, the wrappers of
+the CUDA kernels ``csrc/migrate_detect.cu`` and
+``csrc/migrate_detect_vpu.cu``, their plain PyTorch version, and the
+cross-tile combine.
 
-Counterpart of quakemigrate_tpu.ops.pallas_migrate (``PallasDetectMXU``
-and its kernel ``_mxu_detect_kernel``). The flat node axis is reordered
+Counterpart of quakemigrate_tpu.ops.pallas_migrate: ``CudaDetect`` of
+``PallasDetectMXU`` (kernel ``_mxu_detect_kernel``), ``CudaDetectVPU`` of
+``PallasDetect`` (kernel ``_detect_kernel``). The flat node axis is reordered
 into spatially compact bricks, so every node of a tile has a traveltime
 close to the tile's minimum: per (tile, onset) a base shift, and per node
 a small residual ``fine < r_span``. One shared-memory window of each
 onset row then feeds every node of the tile.
 
-Contract of the kernel, per node tile i and scan sample t:
+Contract of both kernels, per node tile i and scan sample t:
 
     coa[n, t] = exp(sum_o L[o, fsmp + base[i, o] + fine[i, o, n] + t]
                     * inv_available) * valid[i, n]
@@ -43,6 +45,12 @@ NWARPS = 8
 
 # Dynamic shared memory one block may use on Hopper (227 KB).
 SMEM_LIMIT = 232448
+
+# Geometry of the VPU-plan kernel (csrc/migrate_detect_vpu.cu: QV_SBLK,
+# QV_WARPS): 32 samples and 16 warps a block, tile / 16 nodes a thread.
+VPU_SBLK = 32
+VPU_NWARPS = 16
+VPU_TILES = (64, 128, 256, 512)
 
 
 def brick_permutation(node_count, brick_shape):
@@ -90,7 +98,10 @@ class DetectPlan:
       (0 for padding, so padding never widens a span);
     - ``valid`` float32 [n_tiles, tile]: 1 for real nodes;
     - ``r_spans``: per onset, the largest residual + 1; ``r_span`` is
-      their maximum, the width of a staged window beyond the sample block.
+      their maximum, the width of a staged window beyond the sample block;
+    - ``bits`` and ``r_pow2 = 2**bits``: the shift-network depth and the
+      power-of-two span of the TPU VPU kernel's plan (``PallasDetectPlan``),
+      kept for parity only; no kernel here uses them.
 
     Traveltimes are clamped at 0.
 
@@ -139,6 +150,9 @@ class DetectPlan:
             int(fine[..., o].max()) + 1 for o in range(n_onsets)
         )
         self.r_span = max(self.r_spans)
+        r_max = self.r_span - 1
+        self.bits = max(1, int(np.ceil(np.log2(r_max + 1)))) if r_max else 1
+        self.r_pow2 = 1 << self.bits
 
 
 def _check_onset_length(onsets, fsmp, nsamples, max_shift):
@@ -178,24 +192,19 @@ def combine_tiles(tmax, targ, tsum, perm, tile):
     return max_coa, max_idx, coa_sum
 
 
-def detect_reduce_plan_reference(onsets_log, base, fine, valid,
-                                 inv_available, fsmp, nsamples,
-                                 max_elements=2**23):
+def plan_acc_chunks(onsets_log, base, fine, fsmp, nsamples,
+                    max_elements=2**23):
     """
-    Plain PyTorch version of the CUDA kernel, with the kernel's exact
-    contract: per node tile (in brick order) and sample, the max, the
-    first local argmax, and the sum of the coalescence. Onsets are summed
-    in order o = 0..O-1, as the kernel does. Tiles are processed in
-    chunks of at most ``max_elements`` coalescence values.
-
-    Returns (tmax f32, targ int32, tsum f32), each [n_tiles, nsamples].
+    The kernels' gather in plain PyTorch: yields ``(c0, acc)`` for chunks
+    of consecutive tiles, ``acc[c, n, t] = sum_o L[o, fsmp + base[c0+c, o]
+    + fine[c0+c, o, n] + t]`` summed in order o = 0..O-1 as the kernels
+    do, each chunk holding at most ``max_elements`` values.
 
     """
 
     n_tiles, n_onsets, tile = fine.shape
     t = torch.arange(nsamples, device=onsets_log.device)
     chunk = max(1, max_elements // (tile * nsamples))
-    tmax, targ, tsum = [], [], []
     for c0 in range(0, n_tiles, chunk):
         b = base[c0:c0 + chunk].long()
         f = fine[c0:c0 + chunk].long()
@@ -206,7 +215,27 @@ def detect_reduce_plan_reference(onsets_log, base, fine, valid,
         for o in range(n_onsets):
             cols = fsmp + b[:, o, None, None] + f[:, o, :, None] + t
             acc = acc + onsets_log[o][cols]
-        coa = torch.exp(acc * inv_available) * valid[c0:c0 + chunk, :, None]
+        yield c0, acc
+
+
+def detect_reduce_plan_reference(onsets_log, base, fine, valid,
+                                 inv_available, fsmp, nsamples,
+                                 max_elements=2**23):
+    """
+    Plain PyTorch version of the CUDA kernels, with their exact contract:
+    per node tile (in brick order) and sample, the max, the first local
+    argmax, and the sum of the coalescence. Onsets are summed in order
+    o = 0..O-1, as the kernels do. Tiles are processed in chunks of at
+    most ``max_elements`` coalescence values.
+
+    Returns (tmax f32, targ int32, tsum f32), each [n_tiles, nsamples].
+
+    """
+
+    tmax, targ, tsum = [], [], []
+    for c0, acc in plan_acc_chunks(onsets_log, base, fine, fsmp, nsamples,
+                                   max_elements):
+        coa = torch.exp(acc * inv_available) * valid[c0:c0 + len(acc), :, None]
         arg = torch.argmax(coa, dim=1)
         tmax.append(coa.gather(1, arg[:, None])[:, 0])
         targ.append(arg.to(torch.int32))
@@ -214,17 +243,14 @@ def detect_reduce_plan_reference(onsets_log, base, fine, valid,
     return torch.cat(tmax), torch.cat(targ), torch.cat(tsum)
 
 
-def migrate_detect_cuda(onsets_log, base, fine, valid, inv_available,
-                        fsmp, nsamples, r_span):
+def check_kernel_args(onsets_log, base, fine, valid, inv_available):
     """
-    Launch the CUDA kernel on tensors on the card. Checks device, dtype,
-    contiguity and shapes, and raises on what the kernel does not take.
-    Returns (tmax f32, targ int32, tsum f32), each [n_tiles, nsamples].
-    The launch is asynchronous on the current stream.
+    Checks shared by the kernel wrappers: CUDA tensors on one device, the
+    kernels' dtypes, contiguity, and plan shapes that agree. Raises on
+    what the kernels do not take. Returns (n_onsets, t_len, n_tiles,
+    tile).
 
     """
-
-    from quakemigrate_torch import _build
 
     device = onsets_log.device
     if device.type != "cuda":
@@ -257,38 +283,131 @@ def migrate_detect_cuda(onsets_log, base, fine, valid, inv_available,
             f"base {tuple(base.shape)}, fine {tuple(fine.shape)}, valid "
             f"{tuple(valid.shape)}, inv_available {tuple(inv_available.shape)}"
         )
+    return n_onsets, t_len, n_tiles, tile
+
+
+def check_smem(smem, what):
+    """Raise when one block would need more shared memory than Hopper
+    gives it."""
+
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"{what} need {smem} bytes of shared memory, over the "
+            f"{SMEM_LIMIT} a block may use; use a smaller tile or brick"
+        )
+
+
+def empty_outputs(n_tiles, nsamples, device):
+    """Uninitialised (tmax f32, targ int32, tsum f32) [n_tiles, S]."""
+
+    return tuple(
+        torch.empty((n_tiles, nsamples), dtype=dtype, device=device)
+        for dtype in (torch.float32, torch.int32, torch.float32)
+    )
+
+
+def launch_kernel(name, device, *args):
+    """Call the C entry ``name`` of the kernel library with ``args`` and
+    the current stream of ``device``; raise if the launch failed."""
+
+    from quakemigrate_torch import _build
+
+    lib = _build.load_library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, name)(*args, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(
+            f"{name} launch failed: {lib.qm_error_string(err).decode()}"
+        )
+
+
+def launch_staged(entry, onsets_log, base, fine, valid, inv_available,
+                  fsmp, nsamples, r_span, *extra):
+    """
+    Check and launch ``entry``, a kernel that stages every onset's window
+    per (tile, SBLK-sample block): the production kernel
+    (``qm_migrate_detect``) or its ablations (``extra`` = the variant).
+    Returns (tmax f32, targ int32, tsum f32), each [n_tiles, nsamples].
+
+    """
+
+    n_onsets, t_len, n_tiles, tile = check_kernel_args(
+        onsets_log, base, fine, valid, inv_available
+    )
     if tile % NWARPS:
         raise ValueError(f"tile ({tile}) must be a multiple of {NWARPS}")
     if nsamples < 1 or r_span < 1:
         raise ValueError(f"bad geometry: nsamples {nsamples}, r_span {r_span}")
     # One staged window of r_span + SBLK floats per onset, reused for the
     # block reduction
-    smem = 4 * max(n_onsets * (r_span + SBLK), 3 * NWARPS * SBLK)
-    if smem > SMEM_LIMIT:
-        raise ValueError(
-            f"staged windows need {smem} bytes of shared memory "
-            f"({n_onsets} onsets x ({r_span} + {SBLK}) floats), over the "
-            f"{SMEM_LIMIT} a block may use; use a smaller tile or brick"
-        )
+    check_smem(4 * max(n_onsets * (r_span + SBLK), 3 * NWARPS * SBLK),
+               f"staged windows ({n_onsets} onsets x ({r_span} + {SBLK}) "
+               "floats)")
 
-    tmax = torch.empty((n_tiles, nsamples), dtype=torch.float32, device=device)
-    targ = torch.empty((n_tiles, nsamples), dtype=torch.int32, device=device)
-    tsum = torch.empty((n_tiles, nsamples), dtype=torch.float32, device=device)
-    lib = _build.load_library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.qm_migrate_detect(
-            onsets_log.data_ptr(), t_len, base.data_ptr(), fine.data_ptr(),
-            valid.data_ptr(), inv_available.data_ptr(), tmax.data_ptr(),
-            targ.data_ptr(), tsum.data_ptr(), n_onsets, n_tiles, tile, fsmp,
-            nsamples, r_span, ctypes.c_void_p(stream),
-        )
-    if err != 0:
-        raise RuntimeError(
-            "qm_migrate_detect launch failed: "
-            + lib.qm_error_string(err).decode()
-        )
-    return tmax, targ, tsum
+    outs = empty_outputs(n_tiles, nsamples, onsets_log.device)
+    launch_kernel(
+        entry, onsets_log.device,
+        onsets_log.data_ptr(), t_len, base.data_ptr(), fine.data_ptr(),
+        valid.data_ptr(), inv_available.data_ptr(),
+        *(x.data_ptr() for x in outs), n_onsets, n_tiles, tile, fsmp,
+        nsamples, r_span, *extra,
+    )
+    return outs
+
+
+def migrate_detect_cuda(onsets_log, base, fine, valid, inv_available,
+                        fsmp, nsamples, r_span):
+    """
+    Launch the CUDA kernel on tensors on the card. Checks device, dtype,
+    contiguity and shapes, and raises on what the kernel does not take.
+    Returns (tmax f32, targ int32, tsum f32), each [n_tiles, nsamples].
+    The launch is asynchronous on the current stream.
+
+    """
+
+    return launch_staged("qm_migrate_detect", onsets_log, base, fine, valid,
+                         inv_available, fsmp, nsamples, r_span)
+
+
+def migrate_detect_vpu_cuda(onsets_log, base, fine, valid, inv_available,
+                            fsmp, nsamples, r_span):
+    """
+    Launch the VPU-plan kernel (``csrc/migrate_detect_vpu.cu``, the
+    counterpart of the TPU ``_detect_kernel``) on tensors on the card:
+    the production kernel's contract, with the block's partial sums held
+    in registers while the onsets stream past. ``tile`` must be one of
+    ``VPU_TILES``. Returns (tmax f32, targ int32, tsum f32), each
+    [n_tiles, nsamples], asynchronously on the current stream.
+
+    """
+
+    n_onsets, t_len, n_tiles, tile = check_kernel_args(
+        onsets_log, base, fine, valid, inv_available
+    )
+    if tile not in VPU_TILES:
+        raise ValueError(f"tile ({tile}) must be one of {VPU_TILES}")
+    if fine.data_ptr() % 16:
+        raise ValueError("fine must be 16-byte aligned")
+    if nsamples < 1 or r_span < 1:
+        raise ValueError(f"bad geometry: nsamples {nsamples}, r_span {r_span}")
+    # Two buffers of (fine column + row window), and the reduction
+    check_smem(
+        4 * (2 * tile + 2 * round_up(r_span + VPU_SBLK, 4)
+             + 3 * VPU_NWARPS * VPU_SBLK),
+        f"the double-buffered fine column ({tile}) and window ({r_span} + "
+        f"{VPU_SBLK} floats)",
+    )
+
+    outs = empty_outputs(n_tiles, nsamples, onsets_log.device)
+    launch_kernel(
+        "qm_migrate_detect_vpu", onsets_log.device,
+        onsets_log.data_ptr(), t_len, base.data_ptr(), fine.data_ptr(),
+        valid.data_ptr(), inv_available.data_ptr(),
+        *(x.data_ptr() for x in outs), n_onsets, n_tiles, tile, fsmp,
+        nsamples, r_span,
+    )
+    return outs
 
 
 class CudaDetect:
@@ -304,6 +423,8 @@ class CudaDetect:
     plain version (:func:`detect_reduce_plan_reference`) runs.
 
     """
+
+    kernel = staticmethod(migrate_detect_cuda)
 
     def __init__(self, traveltimes, node_count, fsmp, nsamples, device,
                  tile=256, brick_shape=(8, 8, 4)):
@@ -340,7 +461,7 @@ class CudaDetect:
                                   device=self.device)
         ).reshape(1)
         if onsets_log.is_cuda:
-            parts = migrate_detect_cuda(
+            parts = self.kernel(
                 onsets_log.contiguous(), self.base, self.fine, self.valid,
                 inv_available, self.fsmp, self.nsamples, self.r_span,
             )
@@ -351,3 +472,30 @@ class CudaDetect:
                 inv_available, self.fsmp, self.nsamples,
             )
         return combine_tiles(*parts, self.perm, self.tile)
+
+
+class CudaDetectVPU(CudaDetect):
+    """
+    The counterpart of ``PallasDetect`` (the TPU VPU kernel's wrapper):
+    the same plan and contract as :class:`CudaDetect` with the VPU plan's
+    defaults (tile 512, bricks 8 x 8 x 8) and the kernel
+    :func:`migrate_detect_vpu_cuda`. ``__call__(onsets, mask, available)``
+    returns ``(max_coa, max_coa_n, max_idx)`` like ``PallasDetect``, with
+    ``max_coa_n = max_coa * n_nodes / coa_sum``. CPU onsets take the
+    plain version (:func:`detect_reduce_plan_reference`) and count no
+    launch.
+
+    """
+
+    kernel = staticmethod(migrate_detect_vpu_cuda)
+
+    def __init__(self, traveltimes, node_count, fsmp, nsamples, device,
+                 tile=512, brick_shape=(8, 8, 8)):
+        if tile not in VPU_TILES:
+            raise ValueError(f"tile ({tile}) must be one of {VPU_TILES}")
+        super().__init__(traveltimes, node_count, fsmp, nsamples, device,
+                         tile=tile, brick_shape=brick_shape)
+
+    def __call__(self, onsets, mask, available):
+        max_coa, max_idx, coa_sum = super().__call__(onsets, mask, available)
+        return max_coa, max_coa * self.n_nodes / coa_sum, max_idx
