@@ -36,12 +36,36 @@ Smoke run of quakemigrate_torch on one NVIDIA GPU.
    30,000-sample window, which holds the resident and pipelined kernels
    to the production kernel's outputs, and the production kernel held
    against its plain version (timed once) at that size.
+7. The shifted-copy kernel (csrc/migrate_detect_x16.cu) in both layouts
+   against its plain version (the stride-table reference) on a small
+   plan; then, at the day-scale workload and the TPU experiment's plan
+   (tile 512, bricks 8 x 8 x 8), its entry point's run
+   (experiments/exp_x16.run) at 625 and at 30,000 samples, which holds
+   both layouts bit for bit (tmax, targ, tsum) to the production kernel
+   at the same plan and times them beside it; at 30,000 samples both
+   layouts are also held to the plain version (timed once).
+8. The staging probes (csrc/migrate_detect_pipelined.cu, static2 and
+   packed) through experiments/exp_dma_probe.main_probe at 625 and
+   30,000 samples: static2 bit for bit to the production kernel and to
+   its plain version within 1e-5, packed equal to its closed form.
+9. The streaming probe (csrc/stream_probe.cu) through
+   experiments/exp_dma_probe.main_stream at rows 64, 256 and 1024, 2 GiB
+   streamed each from a seeded random bf16 source of 512 MiB, its output
+   equal to its plain version, with torch.sum over the same bytes timed.
+
+Every kernel line carries its launches on its path (each path run with
+the counts set to 0 just before it), its time and its plain version's,
+and its bound: the larger of the bytes it must move (inputs read once,
+outputs written once) over 3.35 TB/s and its float32 operations over
+67 TFLOP/s; for the detect kernels also the floor of their shared-memory
+gather (each 4-byte read at 33.5 TB/s).
 
 Every failure raises. The last two lines are the kernels' JSON record
 and {"ok": true, "device": {...}}.
 
 """
 
+import functools
 import json
 import subprocess
 import time
@@ -64,6 +88,16 @@ DEAD_WINDOW, DEAD_STATION = 3, 5
 KERNEL_RTOL = 1e-5
 MAX_COA_RTOL = 1e-5
 MAX_COA_N_RTOL = 1e-4
+
+# Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): HBM3
+# bandwidth, float32 rate outside the tensor cores, and shared-memory
+# bandwidth (32 banks x 4 B x 132 SMs at 1980 MHz).
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+SMEM_BYTES_PER_S = 33.5e12
+# The streaming probe streams 2 GiB per rows value here (16 GiB in
+# experiments/exp_dma_probe.py), to keep the smoke short.
+SMOKE_STREAM_BYTES = 2 * 2**30
 
 
 def check(cond, msg):
@@ -94,6 +128,37 @@ def cuda_ms(fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
+def roofline(nbytes, flops):
+    """The least time for a function that must move ``nbytes`` through
+    device memory and do ``flops`` float32 operations: (ms, "bytes" or
+    "operations"), whichever bounds it."""
+
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / FP32_FLOP_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def detect_bound(args, n_nodes):
+    """Bound of the detect contract on the kernel arguments ``args``
+    (onsets_log, base, fine, valid, inv_available, fsmp, nsamples) for a
+    grid of ``n_nodes`` real nodes: every input read once and the three
+    [n_tiles, S] outputs written once, against O adds and four more
+    operations (scale, exp, valid, sum) per node and sample. Also the
+    floor of the gather itself: each of the kernel's n_tiles x tile x O x
+    S_pad 4-byte shared-memory reads at the shared-memory bandwidth."""
+
+    tensors, nsamples = args[:5], args[6]
+    n_tiles, n_onsets, tile = args[2].shape
+    nbytes = (sum(x.numel() * x.element_size() for x in tensors)
+              + 3 * 4 * n_tiles * nsamples)
+    bound_ms, bound_by = roofline(
+        nbytes, n_nodes * nsamples * (n_onsets + 4))
+    s_pad = -(-nsamples // 128) * 128
+    smem_ms = n_tiles * tile * n_onsets * s_pad * 4 / SMEM_BYTES_PER_S * 1e3
+    return {"bound_ms": bound_ms, "bound_by": bound_by,
+            "smem_bound_ms": smem_ms}
+
+
 def icequake_traveltimes(rng):
     """Homogeneous-moveout tables of 12 surface stations, phase-major
     (P for every station, then S), and the station positions."""
@@ -112,21 +177,30 @@ def icequake_traveltimes(rng):
 
 
 def kernel_case(name, tt, node_count, fsmp, nsamples, tile, brick, rng,
-                device, n_masked=1, time_it=False, detector=None):
+                device, n_masked=1, time_it=False, detector=None,
+                x16_layout=None):
     """Kernel of ``detector`` (a CudaDetect class; the production kernel
-    by default) against its plain version on the same staged onsets."""
+    by default), or the shifted-copy kernel in ``x16_layout``, against its
+    plain version on the same staged onsets."""
 
     from quakemigrate_torch.ops.cuda_migrate import (
         CudaDetect,
         detect_reduce_plan_reference,
     )
+    from quakemigrate_torch.ops.cuda_x16 import migrate_detect_x16_cuda
     from quakemigrate_torch.ops.migrate import _prepare_onsets
+    from quakemigrate_torch.ops.x16 import detect_reduce_stride_reference
 
     n_onsets = tt.shape[1]
     t_len = fsmp + nsamples + int(tt.max()) + 7
     det = (detector or CudaDetect)(tt, node_count, fsmp, nsamples, device,
                                    tile=tile, brick_shape=brick)
-    kernel = det.kernel
+    kernel, plain = det.kernel, detect_reduce_plan_reference
+    if x16_layout:
+        kernel = functools.partial(migrate_detect_x16_cuda,
+                                   max_shift=int(np.maximum(tt, 0).max()),
+                                   layout=x16_layout)
+        plain = detect_reduce_stride_reference
     onsets = torch.from_numpy(
         rng.gamma(2.0, 1.5, size=(n_onsets, t_len)).astype(np.float32)
     ).to(device)
@@ -138,7 +212,7 @@ def kernel_case(name, tt, node_count, fsmp, nsamples, tile, brick, rng,
             fsmp, nsamples)
 
     kmax, karg, ksum = kernel(*args, det.r_span)
-    pmax, parg, psum = detect_reduce_plan_reference(*args)
+    pmax, parg, psum = plain(*args)
     torch.cuda.synchronize()
 
     rel_max = ((kmax - pmax).abs() / pmax.abs()).max().item()
@@ -168,14 +242,13 @@ def kernel_case(name, tt, node_count, fsmp, nsamples, tile, brick, rng,
     check(tie_err <= KERNEL_RTOL, f"{name}: argmax tie err {tie_err}")
 
     record = {"max_abs_err": abs_err, "max_rel_err_tmax": rel_max,
-              "max_rel_err_tsum": rel_sum, "tie_rel_err": tie_err}
+              "max_rel_err_tsum": rel_sum, "tie_rel_err": tie_err,
+              **detect_bound(args, det.n_nodes)}
     if time_it:
         record["ms"] = cuda_ms(
             lambda: kernel(*args, det.r_span), reps=20
         )
-        record["plain_ms"] = cuda_ms(
-            lambda: detect_reduce_plan_reference(*args), reps=3, warmup=1
-        )
+        record["plain_ms"] = cuda_ms(lambda: plain(*args), reps=3, warmup=1)
         print(f"kernel[{name}]: {record['ms']:.4f} ms per launch, plain "
               f"version {record['plain_ms']:.4f} ms")
     return record
@@ -519,7 +592,121 @@ def breakdown_path(device):
     abs_err = hold(f"full at {s.nsamples} samples", outs, ref, s, "full")
     print(f"breakdown path: plain version at {s.nsamples} samples "
           f"{plain_ms:.1f} ms (one run)")
-    return counts, results, plain_ms, abs_err
+    return counts, results, plain_ms, abs_err, detect_bound(
+        s.args, s.plan.n_nodes)
+
+
+def x16_and_probe_checks(small_tt, rng, device):
+    """The shifted-copy kernel against its plain version on the small plan
+    (both layouts); then the shifted-copy kernel and the staging probes at
+    the day-scale workload cut to a 625-sample window (tile 512), through
+    the experiments' own runs: each held bit for bit to the production
+    kernel at that plan (packed: to its closed form), and timed."""
+
+    from quakemigrate_torch.experiments import exp_dma_probe, exp_x16
+    from quakemigrate_torch.ops.cuda_x16 import LAYOUTS
+
+    small_err = max(
+        kernel_case(f"x16 {layout} small", small_tt, (10, 9, 8), 16, 100, 64,
+                    (4, 4, 4), rng, device, x16_layout=layout)["max_abs_err"]
+        for layout in LAYOUTS)
+    s = exp_x16.setup(nsamples=NSAMPLES, device=device)
+    x16 = {r["name"]: r for r in exp_x16.run(s)}
+    probe = {r["name"]: r for r in exp_dma_probe.main_probe(s)}
+    return small_err, x16, probe
+
+
+def x16_path(s):
+    """The shifted-copy experiment's run at the full day-scale window, with
+    the launch count set to 0 just before it; then both layouts against
+    the kernel's plain version (timed once) at that size."""
+
+    from quakemigrate_torch.experiments import exp_x16
+    from quakemigrate_torch.ops import cuda_x16 as cx
+    from quakemigrate_torch.ops.x16 import detect_reduce_stride_reference
+
+    torch.cuda.synchronize()
+    cx.reset_launches()
+    records = exp_x16.run(s)
+    launches = cx.launches["migrate_detect_x16"]
+    print(f"x16 path: launches {launches}")
+    check(launches > 0, "x16 path: migrate_detect_x16 was never launched")
+
+    t0 = time.perf_counter()
+    ref = detect_reduce_stride_reference(*s.args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    errs = [hold(f"x16 {layout} at {s.nsamples} samples",
+                 cx.migrate_detect_x16_cuda(*s.args, s.plan.r_span,
+                                            s.plan.max_shift, layout),
+                 ref, s, "full")
+            for layout in cx.LAYOUTS]
+    print(f"x16 path: plain version at {s.nsamples} samples {plain_ms:.1f} "
+          "ms (one run)")
+    return launches, {r["name"]: r for r in records}, plain_ms, max(errs)
+
+
+def probe_path(s):
+    """The staging probes' run at the full day-scale window, with the
+    launch count set to 0 just before it; then static2 against its plain
+    version (timed once) and packed against its closed form."""
+
+    from quakemigrate_torch.experiments import exp_dma_probe
+    from quakemigrate_torch.ops import cuda_breakdown as cb
+    from quakemigrate_torch.ops import cuda_probe as cp
+    from quakemigrate_torch.ops.cuda_migrate import (
+        detect_reduce_plan_reference,
+    )
+
+    torch.cuda.synchronize()
+    cp.reset_launches()
+    records = exp_dma_probe.main_probe(s)
+    launches = cp.launches["migrate_detect_probe"]
+    print(f"probe path: launches {launches}")
+    check(launches > 0, "probe path: migrate_detect_probe was never launched")
+
+    offs = cb.span_offsets(s.plan.r_spans, per_onset=False, align=4)
+    span_off, slot = torch.from_numpy(offs).to(s.device), int(offs[-1])
+    t0 = time.perf_counter()
+    ref = detect_reduce_plan_reference(*s.args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = hold(f"probe static2 at {s.nsamples} samples",
+               cp.migrate_detect_probe_cuda(*s.args, span_off, slot,
+                                            "static2"), ref, s, "full")
+    packed = cp.migrate_detect_probe_cuda(
+        *s.args, span_off, slot, "packed",
+        cp.packed_zeros(s.nsamples, slot, s.device))
+    closed = cp.packed_reference(s.args[3], s.nsamples)
+    packed_err = max((a.float() - b.float()).abs().max().item()
+                     for a, b in zip(packed, closed))
+    check(packed_err == 0.0, f"probe packed: differs from its closed form "
+                             f"by {packed_err}")
+    packed_plain_ms = cuda_ms(
+        lambda: cp.packed_reference(s.args[3], s.nsamples), reps=3)
+    print(f"probe path: static2's plain version at {s.nsamples} samples "
+          f"{plain_ms:.1f} ms (one run); packed's closed form "
+          f"{packed_plain_ms:.4f} ms")
+    return (launches, {r["name"]: r for r in records}, plain_ms,
+            packed_plain_ms, max(err, packed_err))
+
+
+def stream_path(device):
+    """The streaming probe's run at rows 64, 256 and 1024, 2 GiB streamed
+    each, with the launch count set to 0 just before it; each output is
+    held to its plain version inside the run."""
+
+    from quakemigrate_torch.experiments import exp_dma_probe
+    from quakemigrate_torch.ops import cuda_probe as cp
+
+    torch.cuda.synchronize()
+    cp.reset_launches()
+    records = exp_dma_probe.main_stream(device,
+                                        stream_bytes=SMOKE_STREAM_BYTES)
+    launches = cp.launches["stream_probe"]
+    print(f"stream path: launches {launches}")
+    check(launches > 0, "stream path: stream_probe was never launched")
+    return launches, records
 
 
 def main():
@@ -561,8 +748,23 @@ def main():
     vpu_launches = run_vpu_path(tt, windows, results, planted_ijk, device)
 
     checks = breakdown_checks(device)
-    counts, e1, e1_plain_ms, e1_abs_err = breakdown_path(device)
+    counts, e1, e1_plain_ms, e1_abs_err, e1_bound = breakdown_path(device)
     by_name = {r["name"]: r for part in e1.values() for r in part}
+
+    from quakemigrate_torch.experiments import exp_x16
+
+    x16_small_err, x16_625, probe_625 = x16_and_probe_checks(
+        small_tt, np.random.default_rng(2026), device)
+    s30 = exp_x16.setup(device=device)
+    day_bound = detect_bound(s30.args, s30.plan.n_nodes)
+    x16_launches, x16_30k, x16_plain_ms, x16_err = x16_path(s30)
+    (probe_launches, probe_30k, probe_plain_ms, packed_plain_ms,
+     probe_err) = probe_path(s30)
+    del s30
+    torch.cuda.empty_cache()
+    stream_launches, streams = stream_path(device)
+    stream = min(streams, key=lambda r: r["ms"])
+    stream_bound_ms, stream_bound_by = roofline(stream["stream_bytes"], 0)
 
     kernels = [{
         "name": "migrate_detect",
@@ -575,6 +777,10 @@ def main():
         "max_rel_err_tsum": record["max_rel_err_tsum"],
         "ms": record["ms"],
         "plain_ms": record["plain_ms"],
+        "bound_ms": record["bound_ms"],
+        "bound_by": record["bound_by"],
+        "smem_bound_ms": record["smem_bound_ms"],
+        "library_ms": None,
     }, {
         "name": "migrate_detect_vpu",
         "route": "cuda",
@@ -586,6 +792,10 @@ def main():
         "max_rel_err_tsum": vpu_record["max_rel_err_tsum"],
         "ms": vpu_record["ms"],
         "plain_ms": vpu_record["plain_ms"],
+        "bound_ms": vpu_record["bound_ms"],
+        "bound_by": vpu_record["bound_by"],
+        "smem_bound_ms": vpu_record["smem_bound_ms"],
+        "library_ms": None,
     }, {
         "name": "migrate_detect_ablate",
         "route": "cuda",
@@ -596,6 +806,8 @@ def main():
             checks[r["name"]]["max_abs_err"] for r in e1["ablate"]]),
         "ms": by_name["full"]["ms"],
         "plain_ms": e1_plain_ms,
+        **e1_bound,
+        "library_ms": None,
         "variants": {
             r["name"]: {"ms": r["ms"], **checks[r["name"]]}
             for r in e1["ablate"]
@@ -609,6 +821,8 @@ def main():
         "max_abs_err": checks["resident"]["max_abs_err"],
         "ms": min(r["ms"] for r in e1["resident"]),
         "plain_ms": e1_plain_ms,
+        **e1_bound,
+        "library_ms": None,
         "configs": {r["name"]: r["ms"] for r in e1["resident"]},
     }, {
         "name": "migrate_detect_pipelined",
@@ -619,8 +833,68 @@ def main():
         "max_abs_err": checks["pipelined"]["max_abs_err"],
         "ms": min(r["ms"] for r in e1["deep"] + e1["pspan"]),
         "plain_ms": e1_plain_ms,
+        **e1_bound,
+        "library_ms": None,
         "configs": {r["name"]: r["ms"] for r in e1["deep"] + e1["pspan"]},
+    }, {
+        "name": "migrate_detect_x16",
+        "route": "cuda",
+        "source": "quakemigrate_torch/csrc/migrate_detect_x16.cu",
+        "replaces": "experiments/exp_x16.py:46",
+        "launches": x16_launches,
+        "max_abs_err": max(x16_small_err, x16_err),
+        "ms": x16_30k["x16a"]["ms"],
+        "plain_ms": x16_plain_ms,
+        **day_bound,
+        "library_ms": None,
+        "layouts": {
+            layout: {"ms": x16_30k[layout]["ms"],
+                     "ms_625": x16_625[layout]["ms"],
+                     "blocks_per_sm": x16_30k[layout]["blocks_per_sm"]}
+            for layout in ("x16a", "x16b")
+        },
+        "full": {"ms": x16_30k["full"]["ms"],
+                 "ms_625": x16_625["full"]["ms"],
+                 "blocks_per_sm": x16_30k["full"]["blocks_per_sm"]},
+        "ref_ms": x16_30k["ref"]["ms"],
+    }, {
+        "name": "migrate_detect_probe",
+        "route": "cuda",
+        "source": "quakemigrate_torch/csrc/migrate_detect_pipelined.cu",
+        "replaces": "experiments/exp_dma_probe.py:117",
+        "launches": probe_launches,
+        "max_abs_err": probe_err,
+        "ms": probe_30k["static2"]["ms"],
+        "plain_ms": probe_plain_ms,
+        **day_bound,
+        "library_ms": None,
+        "modes": {
+            name: {"ms": probe_30k[name]["ms"],
+                   "ms_625": probe_625[name]["ms"]}
+            for name in ("full", "ref", "static2", "packed")
+        },
+        "packed_plain_ms": packed_plain_ms,
+    }, {
+        "name": "stream_probe",
+        "route": "cuda",
+        "source": "quakemigrate_torch/csrc/stream_probe.cu",
+        "replaces": "experiments/exp_dma_probe.py:48",
+        "launches": stream_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in streams),
+        "ms": stream["ms"],
+        "plain_ms": stream["plain_ms"],
+        "bound_ms": stream_bound_ms,
+        "bound_by": stream_bound_by,
+        "library_ms": stream["library_ms"],
+        "rows": stream["rows"],
+        "configs": {
+            str(r["rows"]): {k: r[k] for k in (
+                "ms", "gbps", "plain_ms", "library_ms", "source_sum_gbps")}
+            for r in streams
+        },
     }]
+    for k in kernels:
+        check(k["launches"] > 0, f"{k['name']}: no launch on its path")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

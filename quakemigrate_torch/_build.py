@@ -52,6 +52,18 @@ SIGNATURES = {
         [_VOID_P, _INT, _VOID_P, _VOID_P, _VOID_P, _VOID_P, _VOID_P] + _OUTS
         + [_INT] * 8 + [_VOID_P]
     ),
+    # L, t_len, base, span_off, fine, valid, inv_available, zeros, outs,
+    # O, tiles, tile, fsmp, S, slot_floats, packed, stream
+    "qm_migrate_detect_probe": (
+        [_VOID_P, _INT] + [_VOID_P] * 6 + _OUTS + [_INT] * 7 + [_VOID_P]
+    ),
+    # ... O, tiles, tile, fsmp, S, r_span, layout, stream
+    "qm_migrate_detect_x16": _PLAN + _OUTS + [_INT] * 7 + [_VOID_P],
+    # src, n_chunks, rows, n_total, out, stream
+    "qm_stream_probe": [_VOID_P, _INT, _INT, _INT, _VOID_P, _VOID_P],
+    # occupancy queries: (O, r_span) and (O, r_span, layout)
+    "qm_migrate_detect_blocks_per_sm": [_INT] * 2,
+    "qm_migrate_detect_x16_blocks_per_sm": [_INT] * 3,
 }
 
 

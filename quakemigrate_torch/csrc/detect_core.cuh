@@ -1,8 +1,9 @@
 // Shared pieces of the detect kernels for Hopper (sm_90a): the block
 // geometry of the K1-family kernels, cp.async helpers, and the per-tile
 // gather-and-reduce that K1 (migrate_detect.cu), its ablations, the
-// resident-staging kernel (migrate_detect_resident.cu) and the pipelined
-// kernel (migrate_detect_pipelined.cu) run on their staged windows.
+// resident-staging kernel (migrate_detect_resident.cu), the pipelined
+// kernel (migrate_detect_pipelined.cu) and, with its own gather, the
+// shifted-copy kernel (migrate_detect_x16.cu) run on their staged windows.
 //
 // Contract of qm_reduce_tile<QM_FULL>, per node tile and scan sample t of
 // the block's QM_SBLK samples starting at s0:
@@ -96,17 +97,46 @@ __device__ __forceinline__ void qm_staged_sum(
   }
 }
 
-// Gather, epilogue and cross-warp reduction of one node tile over the
-// block's QM_SBLK samples, for every variant but QM_NOGATHER; thread
-// tid < QM_SBLK stores sample s0 + tid of row `out_row` (element offset
-// of the tile's output row). `red` holds QM_RED_FLOATS floats and may
-// alias `win`: the windows are last read before the first barrier. Every
-// thread of the block must call it.
-template <int V, class Offsets>
-__device__ __forceinline__ void qm_reduce_tile(
-    const float* win, Offsets woff, const int* __restrict__ fine_i,
-    const float* __restrict__ valid_i, float inv, int n_onsets, int tile,
-    float* red, float* __restrict__ tmax, int* __restrict__ targ,
+// K1's gather of one node: lane reads samples lane + 32k (k < QM_SPT) of
+// each onset's staged window with 4-byte loads. A warp owns one node at
+// a time and its lanes read consecutive samples, so every shared-memory
+// read is free of bank conflicts.
+template <class Offsets>
+struct QmLaneGather {
+  const float* win;
+  Offsets woff;
+  const int* fine_i;
+  int n_onsets;
+  int tile;
+
+  // The block sample that register k of lane `lane` holds.
+  static __device__ __forceinline__ int sample(int lane, int k) {
+    return lane + 32 * k;
+  }
+
+  __device__ __forceinline__ void operator()(int n, float (&acc)[QM_SPT]) const {
+    const int lane = threadIdx.x & 31;
+    for (int o = 0; o < n_onsets; ++o) {
+      const float* w = win + woff(o) + __ldg(fine_i + o * tile + n) + lane;
+#pragma unroll
+      for (int k = 0; k < QM_SPT; ++k) acc[k] += w[32 * k];
+    }
+  }
+};
+
+// Epilogue and cross-warp reduction of one node tile over the block's
+// QM_SBLK samples, for every variant but QM_NOGATHER, with the per-node
+// sums of `gather` (a QmLaneGather or the like: `gather(n, acc)` adds the
+// onsets of node n in order o = 0..O-1 into acc, whose register k holds
+// block sample Gather::sample(lane, k)). Thread tid < QM_SBLK stores
+// sample s0 + tid of row `out_row` (element offset of the tile's output
+// row). `red` holds QM_RED_FLOATS floats and may alias the staged
+// windows: they are last read before the first barrier. Every thread of
+// the block must call it.
+template <int V, class Gather>
+__device__ __forceinline__ void qm_reduce_nodes(
+    const Gather& gather, const float* __restrict__ valid_i, float inv,
+    int tile, float* red, float* __restrict__ tmax, int* __restrict__ targ,
     float* __restrict__ tsum, long long out_row, int s0, int nsamples) {
   static_assert(V != QM_NOGATHER, "QM_NOGATHER is qm_staged_sum");
   const int tid = threadIdx.x;
@@ -123,18 +153,12 @@ __device__ __forceinline__ void qm_reduce_tile(
   }
 
   // Warp w takes nodes w, w + QM_NWARPS, ... in ascending order, so a
-  // strict > keeps the first node attaining each thread's max. A warp
-  // owns one node at a time and its lanes read consecutive samples, so
-  // every shared-memory read is free of bank conflicts.
+  // strict > keeps the first node attaining each thread's max.
   for (int n = warp; n < tile; n += QM_NWARPS) {
     float acc[QM_SPT];
 #pragma unroll
     for (int k = 0; k < QM_SPT; ++k) acc[k] = 0.0f;
-    for (int o = 0; o < n_onsets; ++o) {
-      const float* w = win + woff(o) + __ldg(fine_i + o * tile + n) + lane;
-#pragma unroll
-      for (int k = 0; k < QM_SPT; ++k) acc[k] += w[32 * k];
-    }
+    gather(n, acc);
     if (V == QM_NOREDUCE) {
 #pragma unroll
       for (int k = 0; k < QM_SPT; ++k) {
@@ -172,7 +196,7 @@ __device__ __forceinline__ void qm_reduce_tile(
   float* red_sum = red + 2 * QM_NWARPS * QM_SBLK;
 #pragma unroll
   for (int k = 0; k < QM_SPT; ++k) {
-    const int s = warp * QM_SBLK + lane + 32 * k;
+    const int s = warp * QM_SBLK + Gather::sample(lane, k);
     red_max[s] = best[k];
     red_arg[s] = arg[k];
     red_sum[s] = total[k];
@@ -208,4 +232,17 @@ __device__ __forceinline__ void qm_reduce_tile(
     targ[out_row + s0 + tid] = a;
     tsum[out_row + s0 + tid] = s;
   }
+}
+
+// qm_reduce_nodes with K1's gather from the staged windows `win`, onset
+// o's at woff(o).
+template <int V, class Offsets>
+__device__ __forceinline__ void qm_reduce_tile(
+    const float* win, Offsets woff, const int* __restrict__ fine_i,
+    const float* __restrict__ valid_i, float inv, int n_onsets, int tile,
+    float* red, float* __restrict__ tmax, int* __restrict__ targ,
+    float* __restrict__ tsum, long long out_row, int s0, int nsamples) {
+  qm_reduce_nodes<V>(QmLaneGather<Offsets>{win, woff, fine_i, n_onsets, tile},
+                     valid_i, inv, tile, red, tmax, targ, tsum, out_row, s0,
+                     nsamples);
 }

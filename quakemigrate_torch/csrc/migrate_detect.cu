@@ -147,6 +147,22 @@ extern "C" int qm_migrate_detect_ablate(
 #undef QM_ABLATE_CASE
 }
 
+// Resident blocks per SM of the production kernel at this plan, from the
+// occupancy API; a negative value is minus a CUDA error code.
+extern "C" int qm_migrate_detect_blocks_per_sm(int n_onsets, int r_span) {
+  int floats = n_onsets * (r_span + QM_SBLK);
+  if (floats < QM_RED_FLOATS) floats = QM_RED_FLOATS;
+  const int smem = floats * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      qm_migrate_detect_kernel<QM_FULL>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return -(int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, qm_migrate_detect_kernel<QM_FULL>, QM_THREADS, smem);
+  return err == cudaSuccess ? blocks : -(int)err;
+}
+
 extern "C" const char* qm_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -1,0 +1,111 @@
+# -*- coding: utf-8 -*-
+"""
+Loop census of the detect kernels' machine code (SASS), to read what a
+kernel's inner loop issues per (node, onset): for each kernel whose
+mangled name contains one of the patterns, every loop (a backward
+branch and the instructions it jumps over) with its instruction count,
+its shared-memory loads by width (LDS, LDS.64, LDS.128), its global
+loads (LDG) and its float adds (FADD).
+
+It reads the library that ``quakemigrate_torch._build.build()`` makes
+(built first if needed) through ``cuobjdump -sass`` from the CUDA toolkit,
+so it needs nvcc and cuobjdump but no card.
+
+    python3 -m quakemigrate_torch.experiments.sass_loops [PATTERN ...]
+
+The default patterns are the production kernel (K1 FULL) and the
+shifted-copy kernel in both layouts.
+
+"""
+
+import argparse
+import os
+import re
+import shutil
+import subprocess
+import sys
+
+DEFAULT_PATTERNS = ("qm_migrate_detect_kernelILi0E", "qm_migrate_detect_x16")
+
+_FUNCTION = re.compile(r"^\s*Function : (\S+)", re.M)
+_INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);")
+_BRANCH = re.compile(r"\bBRA\s+(?:`\(\S+\)|(0x[0-9a-f]+))")
+
+
+def parse_sass(text):
+    """``cuobjdump -sass`` output -> {kernel name: [(address, instruction
+    text)]} in address order."""
+
+    kernels = {}
+    marks = list(_FUNCTION.finditer(text))
+    for mark, nxt in zip(marks, marks[1:] + [None]):
+        body = text[mark.end():nxt.start() if nxt else len(text)]
+        kernels[mark.group(1)] = [
+            (int(m.group(1), 16), " ".join(m.group(2).split()))
+            for m in _INSTR.finditer(body)
+        ]
+    return kernels
+
+
+def loops(instrs):
+    """Every backward branch of ``instrs`` as a loop record: its first
+    and last address, its instruction count and its loads and adds."""
+
+    found = []
+    for addr, ins in instrs:
+        m = _BRANCH.search(ins)
+        if not m or not m.group(1) or int(m.group(1), 16) >= addr:
+            continue
+        start = int(m.group(1), 16)
+        body = [i for a, i in instrs if start <= a <= addr]
+        ops = [i.split()[1] if i.startswith("@") else i.split()[0]
+               for i in body]
+        found.append({
+            "start": start, "end": addr, "n": len(body),
+            "lds32": sum(o == "LDS" for o in ops),
+            "lds64": sum(o == "LDS.64" for o in ops),
+            "lds128": sum(o == "LDS.128" for o in ops),
+            "ldg": sum(o.startswith("LDG") for o in ops),
+            "fadd": sum(o == "FADD" for o in ops),
+        })
+    return found
+
+
+def _cuobjdump():
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    candidate = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                             "bin", "cuobjdump")
+    if os.access(candidate, os.X_OK):
+        return candidate
+    raise SystemExit("sass_loops: cuobjdump not found on PATH or under "
+                     "CUDA_HOME")
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("patterns", nargs="*", default=DEFAULT_PATTERNS,
+                        help="substrings of the mangled kernel names")
+    opts = parser.parse_args(argv)
+    from quakemigrate_torch import _build
+
+    text = subprocess.run(
+        [_cuobjdump(), "-sass", str(_build.build())], capture_output=True,
+        text=True, check=True,
+    ).stdout
+    for name, instrs in parse_sass(text).items():
+        if not any(p in name for p in opts.patterns):
+            continue
+        print(f"{name}: {len(instrs)} instructions")
+        for rec in loops(instrs):
+            if rec["lds32"] + rec["lds64"] + rec["lds128"] == 0:
+                continue
+            print(f"  loop {rec['start']:#06x}-{rec['end']:#06x}: "
+                  f"{rec['n']} instructions, LDS {rec['lds32']}, LDS.64 "
+                  f"{rec['lds64']}, LDS.128 {rec['lds128']}, LDG "
+                  f"{rec['ldg']}, FADD {rec['fadd']}")
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -226,18 +226,20 @@ def migrate_detect_resident_cuda(onsets_log, base, fine, valid, inv_available,
     return outs
 
 
-def span_offsets(r_spans, per_onset=True):
+def span_offsets(r_spans, per_onset=True, align=1):
     """
     Offsets of the onsets' windows in one slot of the pipelined kernel:
     int32 [O + 1], onset o's window spanning ``r_spans[o] + SBLK`` floats
-    (``per_onset``) or the uniform ``max(r_spans) + SBLK``. The last entry
-    is the slot's size in floats.
+    (``per_onset``) or the uniform ``max(r_spans) + SBLK``, each rounded
+    up to a multiple of ``align``. The last entry is the slot's size in
+    floats.
 
     """
 
     widths = np.asarray(r_spans, dtype=np.int64) + SBLK
     if not per_onset:
         widths[:] = widths.max()
+    widths = -(-widths // align) * align
     return np.concatenate([[0], np.cumsum(widths)]).astype(np.int32)
 
 
@@ -245,6 +247,29 @@ def pipelined_smem(n_onsets, slot_floats, n_stages):
     """Shared-memory bytes of one pipelined block."""
 
     return 4 * (((n_onsets + 4) & ~3) + _RED_FLOATS + n_stages * slot_floats)
+
+
+def check_pipelined_args(onsets_log, base, fine, valid, inv_available,
+                         nsamples, span_off, slot_floats, n_stages):
+    """The checks of :func:`check_kernel_args`, and the slot layout and
+    shared memory of the pipelined kernel at ``n_stages``. Returns
+    (n_onsets, t_len, n_tiles, tile)."""
+
+    n_onsets, t_len, n_tiles, tile = check_kernel_args(
+        onsets_log, base, fine, valid, inv_available
+    )
+    _check_geometry(tile, nsamples)
+    if (span_off.device != onsets_log.device or span_off.dtype != torch.int32
+            or span_off.shape != (n_onsets + 1,)):
+        raise ValueError(
+            f"span_off must be an int32 [{n_onsets + 1}] tensor on "
+            f"{onsets_log.device}"
+        )
+    if slot_floats < n_onsets * (SBLK + 1):
+        raise ValueError(f"slot_floats ({slot_floats}) is too small")
+    check_smem(pipelined_smem(n_onsets, slot_floats, n_stages),
+               f"{n_stages} slots of {slot_floats} floats")
+    return n_onsets, t_len, n_tiles, tile
 
 
 def migrate_detect_pipelined_cuda(onsets_log, base, fine, valid,
@@ -262,22 +287,12 @@ def migrate_detect_pipelined_cuda(onsets_log, base, fine, valid,
 
     """
 
-    n_onsets, t_len, n_tiles, tile = check_kernel_args(
-        onsets_log, base, fine, valid, inv_available
-    )
-    _check_geometry(tile, nsamples)
     if n_stages not in STAGES:
         raise ValueError(f"n_stages ({n_stages}) must be one of {STAGES}")
-    if (span_off.device != onsets_log.device or span_off.dtype != torch.int32
-            or span_off.shape != (n_onsets + 1,)):
-        raise ValueError(
-            f"span_off must be an int32 [{n_onsets + 1}] tensor on "
-            f"{onsets_log.device}"
-        )
-    if slot_floats < n_onsets * (SBLK + 1):
-        raise ValueError(f"slot_floats ({slot_floats}) is too small")
-    check_smem(pipelined_smem(n_onsets, slot_floats, n_stages),
-               f"{n_stages} slots of {slot_floats} floats")
+    n_onsets, t_len, n_tiles, tile = check_pipelined_args(
+        onsets_log, base, fine, valid, inv_available, nsamples, span_off,
+        slot_floats, n_stages,
+    )
     outs = empty_outputs(n_tiles, nsamples, onsets_log.device)
     launch_kernel(
         "qm_migrate_detect_pipelined", onsets_log.device,

@@ -99,6 +99,8 @@ class DetectPlan:
     - ``valid`` float32 [n_tiles, tile]: 1 for real nodes;
     - ``r_spans``: per onset, the largest residual + 1; ``r_span`` is
       their maximum, the width of a staged window beyond the sample block;
+    - ``max_shift``: the largest traveltime, ``max(base + fine)``; a scan
+      of ``nsamples`` reads onsets up to ``fsmp + nsamples + max_shift``;
     - ``bits`` and ``r_pow2 = 2**bits``: the shift-network depth and the
       power-of-two span of the TPU VPU kernel's plan (``PallasDetectPlan``),
       kept for parity only; no kernel here uses them.
@@ -150,6 +152,7 @@ class DetectPlan:
             int(fine[..., o].max()) + 1 for o in range(n_onsets)
         )
         self.r_span = max(self.r_spans)
+        self.max_shift = int(tt_perm.max())
         r_max = self.r_span - 1
         self.bits = max(1, int(np.ceil(np.log2(r_max + 1)))) if r_max else 1
         self.r_pow2 = 1 << self.bits
@@ -232,9 +235,23 @@ def detect_reduce_plan_reference(onsets_log, base, fine, valid,
 
     """
 
+    return reduce_acc_chunks(
+        plan_acc_chunks(onsets_log, base, fine, fsmp, nsamples, max_elements),
+        valid, inv_available,
+    )
+
+
+def reduce_acc_chunks(chunks, valid, inv_available):
+    """
+    The kernels' epilogue in plain PyTorch over ``(c0, acc)`` chunks of
+    per-node onset sums (:func:`plan_acc_chunks`): per tile and sample the
+    max, first local argmax and sum of ``exp(acc * inv_available) *
+    valid``. Returns (tmax f32, targ int32, tsum f32), each [n_tiles, S].
+
+    """
+
     tmax, targ, tsum = [], [], []
-    for c0, acc in plan_acc_chunks(onsets_log, base, fine, fsmp, nsamples,
-                                   max_elements):
+    for c0, acc in chunks:
         coa = torch.exp(acc * inv_available) * valid[c0:c0 + len(acc), :, None]
         arg = torch.argmax(coa, dim=1)
         tmax.append(coa.gather(1, arg[:, None])[:, 0])
@@ -320,6 +337,30 @@ def launch_kernel(name, device, *args):
         raise RuntimeError(
             f"{name} launch failed: {lib.qm_error_string(err).decode()}"
         )
+
+
+def blocks_per_sm(name, device, *args):
+    """Resident blocks per SM that the occupancy API reports for the C
+    query ``name`` (``qm_*_blocks_per_sm``) on ``device``; raises on a
+    CUDA error."""
+
+    from quakemigrate_torch import _build
+
+    lib = _build.load_library()
+    with torch.cuda.device(device):
+        blocks = getattr(lib, name)(*args)
+    if blocks < 0:
+        raise RuntimeError(
+            f"{name} failed: {lib.qm_error_string(-blocks).decode()}"
+        )
+    return blocks
+
+
+def detect_blocks_per_sm(n_onsets, r_span, device):
+    """Resident blocks per SM of the production kernel at a plan."""
+
+    return blocks_per_sm("qm_migrate_detect_blocks_per_sm", device,
+                         n_onsets, r_span)
 
 
 def launch_staged(entry, onsets_log, base, fine, valid, inv_available,
@@ -436,7 +477,7 @@ class CudaDetect:
         self.tile = plan.tile
         self.n_nodes = plan.n_nodes
         self.r_span = plan.r_span
-        self._max_shift = int(np.maximum(np.asarray(traveltimes), 0).max())
+        self._max_shift = plan.max_shift
 
         def put(a):
             return torch.from_numpy(a).to(self.device)

@@ -49,16 +49,17 @@ class DetectScan:
     position, transform, min_onset_value
         The STA/LTA onset's settings ("classic"/"centred"; "energy",
         "abs", "env" or "env_squared"; the onset floor).
-    device : str or torch.device
-        Where the windows run. On a CUDA device the migration is the CUDA
-        kernel (ops.cuda_migrate.CudaDetect); on the CPU it is the plain
-        flat-order reduction (ops.migrate).
+    device : str or torch.device, default "cuda"
+        Where the windows run: the card unless the caller asks for the
+        CPU; "cuda" raises where CUDA is absent. On a CUDA device the
+        migration is the CUDA kernel (ops.cuda_migrate.CudaDetect); on the
+        CPU it is the plain flat-order reduction (ops.migrate).
 
     """
 
     def __init__(self, traveltimes, node_count, fsmp, lsmp,
                  position="classic", transform="energy",
-                 min_onset_value=0.4, device="cpu"):
+                 min_onset_value=0.4, device="cuda"):
         self.device = resolve_device(device)
         self.traveltimes = np.ascontiguousarray(traveltimes, dtype=np.int32)
         self.node_count = tuple(int(n) for n in node_count)

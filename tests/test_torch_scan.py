@@ -201,6 +201,21 @@ def test_resolve_device():
         resolve_device("meta")
 
 
+def test_detect_scan_defaults_to_cuda():
+    """Without a device DetectScan targets the card: here, where CUDA is
+    absent, it raises rather than run on the CPU."""
+
+    tt = np.zeros((2 * 2 * 2, 4), np.int32)
+    if torch.cuda.is_available():
+        scan = DetectScan(tt, (2, 2, 2), 10, 10)
+        assert scan.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            DetectScan(tt, (2, 2, 2), 10, 10)
+    assert DetectScan(tt, (2, 2, 2), 10, 10, device="cpu").device == (
+        torch.device("cpu"))
+
+
 _ISOLATION = r"""
 import importlib, pkgutil, sys
 
@@ -233,6 +248,11 @@ from quakemigrate_torch.ops.cuda_breakdown import (
     detect_reduce_ablate_reference, migrate_detect_ablate_cuda,
     migrate_detect_pipelined_cuda, migrate_detect_resident_cuda,
     resident_groups, span_offsets)
+from quakemigrate_torch.experiments import exp_dma_probe, exp_x16
+from quakemigrate_torch.ops.cuda_x16 import migrate_detect_x16_cuda
+from quakemigrate_torch.ops.cuda_probe import (
+    migrate_detect_probe_cuda, stream_probe_cuda)
+from quakemigrate_torch.ops.x16 import detect_reduce_stride_reference
 assert "quakemigrate_torch.experiments.exp_kernel_breakdown" in names
 assert not [m for m in sys.modules if blocked(m)]
 print(len(names))
@@ -245,4 +265,4 @@ def test_port_imports_without_jax_pandas_or_reference():
         text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 16  # every module of the slices
+    assert int(proc.stdout.strip()) >= 21  # every module of the slices
