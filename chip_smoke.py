@@ -52,13 +52,33 @@ Smoke run of quakemigrate_torch on one NVIDIA GPU.
    experiments/exp_dma_probe.main_stream at rows 64, 256 and 1024, 2 GiB
    streamed each from a seeded random bf16 source of 512 MiB, its output
    equal to its plain version, with torch.sum over the same bytes timed.
+10. The one-hot product layouts on the tensor cores (csrc/dot_layout.cu,
+   mma.sync) in every mode at a small shape, equal to the plain version;
+   then its entry point's run (experiments/exp_dot_layout.run): every
+   mode at the three TPU shapes and 4096 steps, held to the plain version
+   (rtol 1e-6) and timed beside torch.matmul on the same bf16 operands.
+11. The stride-16 table detect kernel on the tensor cores
+   (csrc/migrate_detect_x16g.cu) in both forms against its plain version
+   on the small plan (tmax and tsum within 1e-5, argmax tie-consistent;
+   noreduce within 1e-5); then its entry point's run
+   (experiments/exp_x16g.run) at 625 and at 30,000 samples, tile 512,
+   which holds both forms to the production kernel at the same plan
+   within the hi/lo bound computed from the onsets (argmax
+   tie-consistent at that bound), noreduce to its plain version and the
+   ablations that zero an operand to their closed form, and times them
+   all; at 30,000 samples both forms are also held to their plain
+   version (timed once).
 
 Every kernel line carries its launches on its path (each path run with
 the counts set to 0 just before it), its time and its plain version's,
 and its bound: the larger of the bytes it must move (inputs read once,
-outputs written once) over 3.35 TB/s and its float32 operations over
-67 TFLOP/s; for the detect kernels also the floor of their shared-memory
-gather (each 4-byte read at 33.5 TB/s).
+outputs written once) over 3.35 TB/s and the operations of the function
+it computes over the peak for their type: float32 at 67 TFLOP/s, or
+bf16 products on the tensor cores at 989 TFLOP/s for the product
+layouts. The detect kernels also carry the floor of their shared-memory
+gather (each 4-byte read at 33.5 TB/s); the tensor-core detect kernel,
+whose bound is the detect contract read through its hi/lo tables, also
+carries the floor of its one-hot products on the tensor cores.
 
 Every failure raises. The last two lines are the kernels' JSON record
 and {"ok": true, "device": {...}}.
@@ -94,6 +114,7 @@ MAX_COA_N_RTOL = 1e-4
 # bandwidth (32 banks x 4 B x 132 SMs at 1980 MHz).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_TC_FLOP_PER_S = 989e12  # tensor cores, dense bf16
 SMEM_BYTES_PER_S = 33.5e12
 # The streaming probe streams 2 GiB per rows value here (16 GiB in
 # experiments/exp_dma_probe.py), to keep the smoke short.
@@ -128,13 +149,13 @@ def cuda_ms(fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
-def roofline(nbytes, flops):
+def roofline(nbytes, flops, flop_per_s=FP32_FLOP_PER_S):
     """The least time for a function that must move ``nbytes`` through
-    device memory and do ``flops`` float32 operations: (ms, "bytes" or
-    "operations"), whichever bounds it."""
+    device memory and do ``flops`` operations at ``flop_per_s`` (float32
+    by default): (ms, "bytes" or "operations"), whichever bounds it."""
 
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / FP32_FLOP_PER_S * 1e3
+    ops_ms = flops / flop_per_s * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
@@ -709,6 +730,166 @@ def stream_path(device):
     return launches, records
 
 
+def dot_layout_checks(device):
+    """The one-hot product layouts (csrc/dot_layout.cu) in every mode at a
+    small shape, equal to the plain version: every value there is exact."""
+
+    from quakemigrate_torch.ops import cuda_dot_layout as cdl
+    from quakemigrate_torch.ops import dot_layout as dl
+
+    K, M, N, steps = 64, 256, 384, 3
+    for mode in dl.MODES:
+        out = cdl.dot_layout_cuda(mode, K, M, N, steps, device)
+        ref = dl.dot_layout_reference(mode, K, M, N, steps, device)
+        check(torch.equal(out, ref),
+              f"dot_layout {mode} at {(K, M, N, steps)} differs from its "
+              f"plain version by {(out - ref).abs().max().item()}")
+    print(f"dot_layout: every mode at (K, M, N, steps) = {(K, M, N, steps)} "
+          "equal to its plain version")
+
+
+def dot_layout_path(device):
+    """The layouts' entry point (experiments/exp_dot_layout.run): every
+    mode at the TPU shapes and 4096 steps, each held to its plain version
+    (rtol 1e-6) and timed beside torch.matmul, with the launch count set
+    to 0 just before it. Returns (launches, records with their bounds)."""
+
+    from quakemigrate_torch.experiments import exp_dot_layout
+    from quakemigrate_torch.ops import cuda_dot_layout as cdl
+    from quakemigrate_torch.ops import dot_layout as dl
+
+    torch.cuda.synchronize()
+    cdl.reset_launches()
+    records = exp_dot_layout.run(device)
+    launches = cdl.launches["dot_layout"]
+    print(f"dot_layout path: launches {launches}")
+    check(launches > 0, "dot_layout path: dot_layout was never launched")
+    for r in records:
+        K, M, N, mode = r["K"], r["M"], r["N"], r["mode"]
+        nb = N * (2 if dl.MODES[mode] else 1)
+        nbytes = 2 * K * M + 2 * K * nb + 4 * r["steps"] * N
+        r["bound_ms"], r["bound_by"] = roofline(
+            nbytes, dl.flops_per_step(mode, K, M, N) * r["steps"],
+            BF16_TC_FLOP_PER_S)
+    return launches, records
+
+
+def x16g_small_checks(small_tt, rng, device):
+    """The stride-16 tensor-core kernel (csrc/migrate_detect_x16g.cu) in
+    both forms against its plain version on the small plan: tmax and tsum
+    within 1e-5 relative, the argmax tie-consistent (the plain hi/lo
+    coalescence at the kernel's node within 1e-5 of the max); noreduce
+    within 1e-5 (node 1's truncation within 1). Returns the largest
+    absolute error."""
+
+    from quakemigrate_torch.ops import cuda_x16g as cg
+    from quakemigrate_torch.ops import x16g
+    from quakemigrate_torch.ops.cuda_migrate import DetectPlan
+    from quakemigrate_torch.ops.migrate import _prepare_onsets
+
+    fsmp, nsamples, node_count = 16, 100, (10, 9, 8)
+    n_onsets = small_tt.shape[1]
+    plan = DetectPlan(small_tt, node_count, tile=64, brick_shape=(4, 4, 4))
+    p = cg.plan_on_device(plan, device)
+    t_len = fsmp + nsamples + int(small_tt.max()) + 7
+    onsets = torch.from_numpy(
+        rng.gamma(2.0, 1.5, size=(n_onsets, t_len)).astype(np.float32)
+    ).to(device)
+    mask = torch.ones(n_onsets, dtype=torch.float32, device=device)
+    mask[-1] = 0.0
+    onsets_log = _prepare_onsets(onsets, mask).contiguous()
+    inv = (1.0 / mask.sum()).reshape(1)
+    hi, lo, want, a_pad = cg.build_inputs(p, onsets_log, fsmp, nsamples)
+    plain = (hi, lo, a_pad, p.base16_dev, p.fine16, p.valid, inv, nsamples)
+    ref = x16g.detect_reduce_x16g_reference(*plain)
+    abs_err = 0.0
+    for fuse in (False, True):
+        outs = cg.migrate_detect_x16g_cuda(p, hi, lo, want, inv, nsamples,
+                                           fuse=fuse)
+        at_arg = x16g.coa_at_nodes(*plain[:-1], outs[1])
+        errs = [((a - b).abs() / b.abs()).max().item()
+                for a, b in ((outs[0], ref[0]), (outs[2], ref[2]),
+                             (at_arg, ref[0]))]
+        abs_err = max(abs_err, (outs[0] - ref[0]).abs().max().item())
+        print(f"x16g small fuse={fuse}: rel err tmax {errs[0]:.3e} tsum "
+              f"{errs[1]:.3e}, tie err {errs[2]:.3e}, argmax equal "
+              f"{(outs[1] == ref[1]).float().mean().item():.6f}")
+        check(max(errs) <= KERNEL_RTOL, f"x16g small fuse={fuse}: {errs}")
+    outs = cg.migrate_detect_x16g_cuda(p, hi, lo, want, inv, nsamples,
+                                       ablate="noreduce")
+    ref = x16g.detect_reduce_x16g_reference(*plain, ablate="noreduce")
+    err = max(scaled_err(outs[0], ref[0]), scaled_err(outs[2], ref[2]))
+    arg_err = (outs[1] - ref[1]).abs().max().item()
+    print(f"x16g small noreduce: err {err:.3e}, node 1 {arg_err}")
+    check(err <= KERNEL_RTOL and arg_err <= 1, "x16g small noreduce differs")
+    return abs_err
+
+
+def x16g_path(s):
+    """The stride-16 experiment's run (experiments/exp_x16g.run) at the
+    setup ``s``, with the launch count set to 0 just before it; then both
+    forms against the plain version (timed once). Returns (launches,
+    records, plain ms, abs err, bounds).
+
+    The bound is that of the function the kernel computes, the detect
+    contract read through the hi/lo tables: its inputs read once and
+    outputs written once, against 2 O adds (hi and lo words) and four
+    more operations (scale, exp, valid, sum) per node and sample in
+    float32. The floor of the one-hot design on the tensor cores (4 K bf16
+    flop per padded node and padded sample) is kept apart as
+    ``tc_floor_ms``, and the float32 contract's bound as
+    ``contract_bound_ms``."""
+
+    from quakemigrate_torch.experiments import exp_x16g
+    from quakemigrate_torch.ops import cuda_x16g as cg
+    from quakemigrate_torch.ops import x16g
+
+    torch.cuda.synchronize()
+    cg.reset_launches()
+    records, inputs = exp_x16g.run(s)
+    launches = cg.launches["migrate_detect_x16g"]
+    print(f"x16g path at {s.nsamples} samples: launches {launches}")
+    check(launches > 0, "x16g path: migrate_detect_x16g was never launched")
+
+    hi, lo, want, a_pad = inputs
+    plain = (hi, lo, a_pad, s.p.base16_dev, s.p.fine16, s.p.valid,
+             s.args[4], s.nsamples)
+    t0 = time.perf_counter()
+    ref = x16g.detect_reduce_x16g_reference(*plain)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    abs_err = 0.0
+    for form in ("expand", "fuse"):
+        outs = exp_x16g.launch(s, inputs, form)
+        errs = [((outs[0] - ref[0]).abs() / ref[0]).max().item(),
+                ((outs[2] - ref[2]).abs() / ref[2]).max().item(),
+                ((x16g.coa_at_nodes(*plain[:-1], outs[1]) - ref[0]).abs()
+                 / ref[0]).max().item()]
+        abs_err = max(abs_err, (outs[0] - ref[0]).abs().max().item())
+        print(f"x16g path: {form} against its plain version at {s.nsamples} "
+              f"samples: rel err tmax {errs[0]:.3e} tsum {errs[1]:.3e}, tie "
+              f"err {errs[2]:.3e}, argmax equal "
+              f"{(outs[1] == ref[1]).float().mean().item():.6f}")
+        check(max(errs) <= KERNEL_RTOL,
+              f"x16g {form} at {s.nsamples}: rel errs {errs}")
+    print(f"x16g path: plain version {plain_ms:.1f} ms (one run)")
+    nbytes = (2 * hi.numel() * 2 + want.numel() * 4 + s.p.fine16.numel() * 4
+              + s.p.valid.numel() * 4 + s.p.a_off.numel() * 4 + 4
+              + 3 * 4 * s.plan.n_tiles * s.nsamples)
+    bound_ms, bound_by = roofline(
+        nbytes, s.plan.n_nodes * s.nsamples * (2 * s.p.n_onsets + 4))
+    tc_floor_ms, _ = roofline(nbytes, s.flops, BF16_TC_FLOP_PER_S)
+    contract = detect_bound(s.args, s.plan.n_nodes)
+    bounds = {"bound_ms": bound_ms, "bound_by": bound_by,
+              "tc_floor_ms": tc_floor_ms,
+              "contract_bound_ms": contract["bound_ms"],
+              "contract_bound_by": contract["bound_by"]}
+    print(f"x16g path: bound {bound_ms:.4f} ms ({bound_by}); one-hot "
+          f"tensor-core floor {tc_floor_ms:.4f} ms; float32 contract "
+          f"{contract['bound_ms']:.4f} ms")
+    return launches, records, plain_ms, abs_err, bounds
+
+
 def main():
     from quakemigrate_torch import _build
     from quakemigrate_torch.device import resolve_device
@@ -765,6 +946,19 @@ def main():
     stream_launches, streams = stream_path(device)
     stream = min(streams, key=lambda r: r["ms"])
     stream_bound_ms, stream_bound_by = roofline(stream["stream_bytes"], 0)
+
+    from quakemigrate_torch.experiments import exp_x16g
+
+    dot_layout_checks(device)
+    dl_launches, dl_records = dot_layout_path(device)
+    dl_head = next(r for r in dl_records if r["mode"] == "kk"
+                   and (r["K"], r["M"], r["N"]) == (1536, 1024, 2048))
+    x16g_small_err = x16g_small_checks(small_tt, np.random.default_rng(2027),
+                                       device)
+    x16g_625, _ = exp_x16g.run(exp_x16g.setup(NSAMPLES, device))
+    torch.cuda.empty_cache()
+    (x16g_launches, x16g_30k, x16g_plain_ms, x16g_err,
+     x16g_bounds) = x16g_path(exp_x16g.setup(device=device))
 
     kernels = [{
         "name": "migrate_detect",
@@ -892,6 +1086,58 @@ def main():
                 "ms", "gbps", "plain_ms", "library_ms", "source_sum_gbps")}
             for r in streams
         },
+    }, {
+        "name": "dot_layout",
+        "route": "cuda",
+        "source": "quakemigrate_torch/csrc/dot_layout.cu",
+        "replaces": "experiments/exp_dot_layout.py:31",
+        "launches": dl_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in dl_records),
+        "ms": dl_head["ms"],
+        "plain_ms": dl_head["plain_ms"],
+        "bound_ms": dl_head["bound_ms"],
+        "bound_by": dl_head["bound_by"],
+        "library_ms": dl_head["library_ms"],
+        "mode": "kk",
+        "shape": [1536, 1024, 2048],
+        "steps": dl_head["steps"],
+        "configs": {
+            f"{r['mode']} {r['K']}x{r['M']}x{r['N']}": {k: r[k] for k in (
+                "ms", "us_per_step", "tflops", "plain_ms", "bound_ms",
+                "library_ms", "library_us_per_step", "library_tflops")}
+            for r in dl_records
+        },
+    }, {
+        "name": "migrate_detect_x16g",
+        "route": "cuda",
+        "source": "quakemigrate_torch/csrc/migrate_detect_x16g.cu",
+        "replaces": "experiments/exp_x16g.py:53",
+        "launches": x16g_launches,
+        "max_abs_err": max(x16g_small_err, x16g_err),
+        "ms": x16g_30k["expand"]["ms"],
+        "plain_ms": x16g_plain_ms,
+        **x16g_bounds,
+        "library_ms": None,
+        "forms": {
+            name: {"ms": x16g_30k[name]["ms"],
+                   "ms_625": x16g_625[name]["ms"],
+                   "tflops": x16g_30k[name]["tflops"],
+                   "blocks_per_sm": x16g_30k[name]["blocks_per_sm"],
+                   "max_rel_err_tmax_vs_k1":
+                       x16g_30k[name]["max_rel_err_tmax"],
+                   "tie_rel_err_vs_k1": x16g_30k[name]["tie_rel_err"]}
+            for name in ("expand", "fuse")
+        },
+        "ablations": {
+            name: {"ms": x16g_30k[name]["ms"], "ms_625": x16g_625[name]["ms"]}
+            for name in exp_x16g.ABLATION_CASES
+        },
+        "k1_full": {"ms": x16g_30k["full"]["ms"],
+                    "ms_625": x16g_625["full"]["ms"],
+                    "blocks_per_sm": x16g_30k["full"]["blocks_per_sm"]},
+        "tables_ms": x16g_30k["tables"]["ms"],
+        "tables_ms_625": x16g_625["tables"]["ms"],
+        "hilo_bound": x16g_30k["expand"]["bound"],
     }]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']}: no launch on its path")

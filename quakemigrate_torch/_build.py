@@ -61,9 +61,21 @@ SIGNATURES = {
     "qm_migrate_detect_x16": _PLAN + _OUTS + [_INT] * 7 + [_VOID_P],
     # src, n_chunks, rows, n_total, out, stream
     "qm_stream_probe": [_VOID_P, _INT, _INT, _INT, _VOID_P, _VOID_P],
+    # lhs, rhs, mode, K, M, N, stream
+    "qm_dot_layout_fill": [_VOID_P, _VOID_P] + [_INT] * 4 + [_VOID_P],
+    # lhs, rhs, out, mode, K, M, N, steps, stream
+    "qm_dot_layout": [_VOID_P] * 3 + [_INT] * 5 + [_VOID_P],
+    # hi, lo, width, want, m_pad, a_off, fine, valid, inv_available, outs,
+    # O, tiles, tile, S, a_sum, a_max, fuse, ablate, stream
+    "qm_migrate_detect_x16g": (
+        [_VOID_P, _VOID_P, _INT, _VOID_P, _INT] + [_VOID_P] * 4 + _OUTS
+        + [_INT] * 8 + [_VOID_P]
+    ),
     # occupancy queries: (O, r_span) and (O, r_span, layout)
     "qm_migrate_detect_blocks_per_sm": [_INT] * 2,
     "qm_migrate_detect_x16_blocks_per_sm": [_INT] * 3,
+    # (O, a_sum, a_max, fuse)
+    "qm_migrate_detect_x16g_blocks_per_sm": [_INT] * 4,
 }
 
 

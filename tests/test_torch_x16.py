@@ -9,10 +9,14 @@ shift; the host-side shared-memory sizing; the wrapper refusing CPU
 tensors; the machine-code loop census (experiments/sass_loops.py) on a
 SASS excerpt; and the entry point exiting without CUDA.
 
-The JAX kernel ``_x16_kernel`` (experiments/exp_x16.py) cannot run on the
-CPU: it takes no ``interpret`` argument and stages with TPU DMAs. The CUDA
-kernel runs only on the card (chip_smoke.py holds it against the plain
-version tested here, and bit for bit against the production kernel).
+The JAX experiment's ``run_x16`` passes no ``interpret`` argument, so it
+does not run on the CPU as it stands; the kernel body ``_x16_kernel``
+(experiments/exp_x16.py) does, wrapped in a ``pl.pallas_call`` with
+``interpret=True``: layout ``x16b`` gives the MXU bf16 result, while
+``x16a`` reads uninitialised padding rows and gives NaN there. Its
+contract is held here through the MXU kernel instead. The CUDA kernel
+runs only on the card (chip_smoke.py holds it against the plain version
+tested here, and bit for bit against the production kernel).
 Float32; values at rtol 2e-6 against the JAX kernel, argmax
 tie-consistent.
 
