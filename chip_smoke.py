@@ -8,12 +8,16 @@ Smoke run of quakemigrate_torch on one NVIDIA GPU.
    and power limit from nvidia-smi.
 2. Builds the CUDA kernels from quakemigrate_torch/csrc with nvcc
    (sm_90a) and prints the build time and the compiler's resource report.
-3. Holds the migrate-and-reduce kernel against its plain PyTorch version
-   on the card, on a small random plan and at the Icequake detect
-   geometry: tmax and tsum within 1e-5 relative (same summation order,
-   so only expf ulps remain), and the kernel's argmax node tie-consistent
-   (the plain coalescence there within 1e-5 of the tile max).
-4. Drives the port's main path, DetectScan.detect, over 16 consecutive
+3. Holds the migrate-and-reduce kernels K1 (csrc/migrate_detect.cu) and
+   K1 v2 (csrc/migrate_detect_v2.cu, the main path's) against their
+   plain PyTorch version on the card, on a small random plan and at the
+   Icequake detect geometry: tmax and tsum within 1e-5 relative (same
+   summation order, so only expf ulps remain), and the kernel's argmax
+   node tie-consistent (the plain coalescence there within 1e-5 of the
+   tile max). K1 v2 is also held bit for bit to K1 (tmax, targ, tsum) at
+   Icequake, and the two are timed in turns (v2, K1, K1, v2; 20
+   launches a turn), with their resident blocks per SM.
+4. Drives the port's main path, DetectScan.detect (K1 v2), over 16 consecutive
    windows at the Icequake detect geometry (71 x 64 x 57 nodes, 12
    stations x P/S, 3 channels, 250 Hz, 2.5 s timestep) with one planted
    source, and checks: 16 kernel launches; finite outputs of the right
@@ -28,25 +32,25 @@ Smoke run of quakemigrate_torch on one NVIDIA GPU.
    max_coa_n within 1e-5 and 1e-4 of DetectScan's results, argmax
    tie-consistent, and the planted node found within one grid node.
 6. The detect-kernel breakdown (quakemigrate_torch.ops.cuda_breakdown):
-   each ablation of the production kernel against its own plain
+   each ablation of K1 against its own plain
    contract, the resident-staging kernel and the pipelined kernel (2, 3
    and 4 stages, and per-onset spans) against the plain version, at the
    day-scale workload cut to a 625-sample window; then the breakdown's
    entry point (experiments/exp_kernel_breakdown.run) at the full
    30,000-sample window, which holds the resident and pipelined kernels
-   to the production kernel's outputs, and the production kernel held
+   to K1's outputs, and K1 held
    against its plain version (timed once) at that size.
 7. The shifted-copy kernel (csrc/migrate_detect_x16.cu) in both layouts
    against its plain version (the stride-table reference) on a small
    plan; then, at the day-scale workload and the TPU experiment's plan
    (tile 512, bricks 8 x 8 x 8), its entry point's run
    (experiments/exp_x16.run) at 625 and at 30,000 samples, which holds
-   both layouts bit for bit (tmax, targ, tsum) to the production kernel
+   both layouts bit for bit (tmax, targ, tsum) to K1
    at the same plan and times them beside it; at 30,000 samples both
    layouts are also held to the plain version (timed once).
 8. The staging probes (csrc/migrate_detect_pipelined.cu, static2 and
    packed) through experiments/exp_dma_probe.main_probe at 625 and
-   30,000 samples: static2 bit for bit to the production kernel and to
+   30,000 samples: static2 bit for bit to K1 and to
    its plain version within 1e-5, packed equal to its closed form.
 9. The streaming probe (csrc/stream_probe.cu) through
    experiments/exp_dma_probe.main_stream at rows 64, 256 and 1024, 2 GiB
@@ -62,12 +66,19 @@ Smoke run of quakemigrate_torch on one NVIDIA GPU.
    on the small plan (tmax and tsum within 1e-5, argmax tie-consistent;
    noreduce within 1e-5); then its entry point's run
    (experiments/exp_x16g.run) at 625 and at 30,000 samples, tile 512,
-   which holds both forms to the production kernel at the same plan
+   which holds both forms to K1 at the same plan
    within the hi/lo bound computed from the onsets (argmax
    tie-consistent at that bound), noreduce to its plain version and the
    ablations that zero an operand to their closed form, and times them
    all; at 30,000 samples both forms are also held to their plain
    version (timed once).
+12. K1 v2 at the day-scale window (30,000 samples, K1's plan, tile 256,
+   bricks 8 x 8 x 4): bit for bit to K1, the two timed in turns, and
+   v2's NOGATHER and NOREDUCE ablations, held bit for bit to K1's
+   (NOREDUCE with the sums of padding nodes at 0: v2 skips their
+   gather) and timed; at 625 samples (step 6) the ablations are held to
+   their plain versions. K1's launches are counted over this step and
+   step 3's K1 v2 case, where K1 is the yardstick.
 
 Every kernel line carries its launches on its path (each path run with
 the counts set to 0 just before it), its time and its plain version's,
@@ -76,7 +87,10 @@ outputs written once) over 3.35 TB/s and the operations of the function
 it computes over the peak for their type: float32 at 67 TFLOP/s, or
 bf16 products on the tensor cores at 989 TFLOP/s for the product
 layouts. The detect kernels also carry the floor of their shared-memory
-gather (each 4-byte read at 33.5 TB/s); the tensor-core detect kernel,
+gather: the 4-byte reads the function needs, O per real node and sample,
+at 33.5 TB/s (padding nodes are not counted, so every detect kernel's
+floor measures the same work whatever its plan pads); the tensor-core
+detect kernel,
 whose bound is the detect contract read through its hi/lo tables, also
 carries the floor of its one-hot products on the tensor cores.
 
@@ -85,7 +99,6 @@ and {"ok": true, "device": {...}}.
 
 """
 
-import functools
 import json
 import subprocess
 import time
@@ -165,17 +178,16 @@ def detect_bound(args, n_nodes):
     grid of ``n_nodes`` real nodes: every input read once and the three
     [n_tiles, S] outputs written once, against O adds and four more
     operations (scale, exp, valid, sum) per node and sample. Also the
-    floor of the gather itself: each of the kernel's n_tiles x tile x O x
-    S_pad 4-byte shared-memory reads at the shared-memory bandwidth."""
+    floor of the gather itself: the function's n_nodes x O x S 4-byte
+    shared-memory reads at the shared-memory bandwidth."""
 
     tensors, nsamples = args[:5], args[6]
-    n_tiles, n_onsets, tile = args[2].shape
+    n_tiles, n_onsets = args[1].shape
     nbytes = (sum(x.numel() * x.element_size() for x in tensors)
               + 3 * 4 * n_tiles * nsamples)
     bound_ms, bound_by = roofline(
         nbytes, n_nodes * nsamples * (n_onsets + 4))
-    s_pad = -(-nsamples // 128) * 128
-    smem_ms = n_tiles * tile * n_onsets * s_pad * 4 / SMEM_BYTES_PER_S * 1e3
+    smem_ms = n_nodes * n_onsets * nsamples * 4 / SMEM_BYTES_PER_S * 1e3
     return {"bound_ms": bound_ms, "bound_by": bound_by,
             "smem_bound_ms": smem_ms}
 
@@ -197,16 +209,35 @@ def icequake_traveltimes(rng):
     return traveltime_table(tables, RATE)
 
 
+def in_turns(fns, reps):
+    """CUDA-event milliseconds of each callable of ``fns`` (name ->
+    callable), timed in turns a, b, b, a: {name: [first, second]}."""
+
+    order = list(fns) + list(fns)[::-1]
+    ms = {name: [] for name in fns}
+    for name in order:
+        ms[name].append(cuda_ms(fns[name], reps=reps))
+    return ms
+
+
 def kernel_case(name, tt, node_count, fsmp, nsamples, tile, brick, rng,
-                device, n_masked=1, time_it=False, detector=None,
-                x16_layout=None):
-    """Kernel of ``detector`` (a CudaDetect class; the production kernel
-    by default), or the shifted-copy kernel in ``x16_layout``, against its
-    plain version on the same staged onsets."""
+                device, n_masked=1, time_it=False, kernel="k1"):
+    """A detect kernel against its plain version on the same staged
+    onsets: ``kernel`` is "k1" (csrc/migrate_detect.cu), "v2" (K1 v2,
+    also held bit for bit to K1 and, with ``time_it``, timed in turns
+    with it), "vpu" (the VPU-plan kernel, at a CudaDetectVPU plan) or a
+    layout of the shifted-copy kernel ("x16a", "x16b"; its plain version
+    is the stride-table reference)."""
 
     from quakemigrate_torch.ops.cuda_migrate import (
         CudaDetect,
+        CudaDetectVPU,
+        detect_blocks_per_sm,
         detect_reduce_plan_reference,
+        detect_v2_blocks_per_sm,
+        migrate_detect_cuda,
+        migrate_detect_v2_cuda,
+        migrate_detect_vpu_cuda,
     )
     from quakemigrate_torch.ops.cuda_x16 import migrate_detect_x16_cuda
     from quakemigrate_torch.ops.migrate import _prepare_onsets
@@ -214,13 +245,25 @@ def kernel_case(name, tt, node_count, fsmp, nsamples, tile, brick, rng,
 
     n_onsets = tt.shape[1]
     t_len = fsmp + nsamples + int(tt.max()) + 7
-    det = (detector or CudaDetect)(tt, node_count, fsmp, nsamples, device,
-                                   tile=tile, brick_shape=brick)
-    kernel, plain = det.kernel, detect_reduce_plan_reference
-    if x16_layout:
-        kernel = functools.partial(migrate_detect_x16_cuda,
-                                   max_shift=int(np.maximum(tt, 0).max()),
-                                   layout=x16_layout)
+    det = (CudaDetectVPU if kernel == "vpu" else CudaDetect)(
+        tt, node_count, fsmp, nsamples, device, tile=tile, brick_shape=brick)
+    plain = detect_reduce_plan_reference
+
+    def k1(*a):
+        return migrate_detect_cuda(*a, det.r_span)
+
+    def fn(*a):
+        if kernel == "k1":
+            return k1(*a)
+        if kernel == "v2":
+            return migrate_detect_v2_cuda(*a[:2], det.fine16, *a[3:],
+                                          det.span_off, det.win_floats)
+        if kernel == "vpu":
+            return migrate_detect_vpu_cuda(*a, det.r_span)
+        return migrate_detect_x16_cuda(*a, det.r_span,
+                                       int(np.maximum(tt, 0).max()), kernel)
+
+    if kernel in ("x16a", "x16b"):
         plain = detect_reduce_stride_reference
     onsets = torch.from_numpy(
         rng.gamma(2.0, 1.5, size=(n_onsets, t_len)).astype(np.float32)
@@ -232,7 +275,7 @@ def kernel_case(name, tt, node_count, fsmp, nsamples, tile, brick, rng,
     args = (onsets_log, det.base, det.fine, det.valid, inv_available,
             fsmp, nsamples)
 
-    kmax, karg, ksum = kernel(*args, det.r_span)
+    kmax, karg, ksum = fn(*args)
     pmax, parg, psum = plain(*args)
     torch.cuda.synchronize()
 
@@ -265,13 +308,30 @@ def kernel_case(name, tt, node_count, fsmp, nsamples, tile, brick, rng,
     record = {"max_abs_err": abs_err, "max_rel_err_tmax": rel_max,
               "max_rel_err_tsum": rel_sum, "tie_rel_err": tie_err,
               **detect_bound(args, det.n_nodes)}
+    if kernel == "v2":
+        k1_outs = k1(*args)
+        same = [torch.equal(a, b) for a, b in zip((kmax, karg, ksum), k1_outs)]
+        record["blocks_per_sm"] = detect_v2_blocks_per_sm(
+            n_onsets, tile, det.win_floats, device)
+        record["k1_blocks_per_sm"] = detect_blocks_per_sm(
+            n_onsets, det.r_span, device)
+        print(f"kernel[{name}]: equal to K1 (tmax, targ, tsum) {same}; "
+              f"blocks per SM {record['blocks_per_sm']} (K1 "
+              f"{record['k1_blocks_per_sm']})")
+        check(all(same), f"{name}: K1 v2 differs from K1")
+    if time_it and kernel == "v2":
+        turns = in_turns({"v2": lambda: fn(*args), "k1": lambda: k1(*args)},
+                         reps=20)
+        record["ms"] = float(np.mean(turns["v2"]))
+        record["k1_ms"] = float(np.mean(turns["k1"]))
+        record["turns_ms"] = turns
+    elif time_it:
+        record["ms"] = cuda_ms(lambda: fn(*args), reps=20)
     if time_it:
-        record["ms"] = cuda_ms(
-            lambda: kernel(*args, det.r_span), reps=20
-        )
         record["plain_ms"] = cuda_ms(lambda: plain(*args), reps=3, warmup=1)
         print(f"kernel[{name}]: {record['ms']:.4f} ms per launch, plain "
-              f"version {record['plain_ms']:.4f} ms")
+              f"version {record['plain_ms']:.4f} ms"
+              + (f"; in turns {turns}" if kernel == "v2" else ""))
     return record
 
 
@@ -546,7 +606,8 @@ def hold(name, outs, ref, s, variant):
 
 def breakdown_checks(device):
     """Every breakdown kernel against its plain version at the day-scale
-    workload cut to a 625-sample window; kernel and plain timed there."""
+    workload cut to a 625-sample window; kernel and plain timed there.
+    K1 v2's ablations against theirs, untimed."""
 
     from quakemigrate_torch.experiments import exp_kernel_breakdown as exp
     from quakemigrate_torch.ops import cuda_breakdown as cb
@@ -584,23 +645,34 @@ def breakdown_checks(device):
         errs.append(hold(f"pipelined stages={n_stages} per_onset="
                          f"{per_onset}", outs, full_ref, s, "full"))
     records["pipelined"] = {"max_abs_err": max(errs)}
+
+    v2_args = (*s.args[:2], torch.from_numpy(s.plan.fine16).to(device),
+               *s.args[3:], torch.from_numpy(s.plan.span_off).to(device),
+               s.plan.win_floats)
+    records["v2"] = {"max_abs_err": max(
+        hold(f"v2 {variant}", cb.migrate_detect_v2_ablate_cuda(
+            *v2_args, variant), cb.v2_ablate_reference(*s.args, variant), s,
+            variant)
+        for variant in cb.V2_ABLATIONS)}
     torch.cuda.synchronize()
     return records
 
 
-def breakdown_path(device):
-    """The breakdown's entry point at the full day-scale window, with the
-    launch counts set to 0 just before it; and the production kernel
-    against its plain version (timed once) at that size."""
+def breakdown_path(s):
+    """The breakdown's entry point at the full day-scale window (the setup
+    ``s`` of experiments/exp_kernel_breakdown), with the launch counts set
+    to 0 just before it; and K1 against its plain version (timed once) at
+    that size."""
 
     from quakemigrate_torch.experiments import exp_kernel_breakdown as exp
     from quakemigrate_torch.ops import cuda_breakdown as cb
 
-    s = exp.setup(device=device)
     torch.cuda.synchronize()
     cb.reset_launches()
     results = exp.run(s)
-    counts = dict(cb.launches)
+    counts = {name: cb.launches[name] for name in (
+        "migrate_detect_ablate", "migrate_detect_resident",
+        "migrate_detect_pipelined")}
     print(f"breakdown path: launches {counts}")
     for name, n in counts.items():
         check(n > 0, f"breakdown path: {name} was never launched")
@@ -617,6 +689,65 @@ def breakdown_path(device):
         s.args, s.plan.n_nodes)
 
 
+def v2_day_path(s):
+    """K1 v2 at the day-scale window (the setup ``s``: 30,000 samples,
+    K1's plan): bit for bit to K1 (tmax, targ, tsum), the two timed in
+    turns (20 launches a turn); v2's NOGATHER and NOREDUCE, each bit for
+    bit to K1's (NOREDUCE with the sums of padding nodes at 0, whose
+    gather v2 skips) and timed; the blocks per SM of both."""
+
+    from quakemigrate_torch.ops import cuda_breakdown as cb
+    from quakemigrate_torch.ops.cuda_migrate import (
+        detect_blocks_per_sm,
+        detect_v2_blocks_per_sm,
+        migrate_detect_cuda,
+        migrate_detect_v2_cuda,
+    )
+
+    plan, valid = s.plan, s.args[3]
+    v2_args = (*s.args[:2], torch.from_numpy(plan.fine16).to(s.device),
+               *s.args[3:], torch.from_numpy(plan.span_off).to(s.device),
+               plan.win_floats)
+
+    def equal(got, want, what):
+        same = [torch.equal(a, b) for a, b in zip(got, want)]
+        print(f"v2 day: {what} equal (tmax, targ, tsum) {same}")
+        check(all(same), f"v2 day: {what} differs")
+
+    equal(migrate_detect_v2_cuda(*v2_args),
+          migrate_detect_cuda(*s.args, plan.r_span), "K1 v2 and K1")
+    turns = in_turns({
+        "v2": lambda: migrate_detect_v2_cuda(*v2_args),
+        "k1": lambda: migrate_detect_cuda(*s.args, plan.r_span),
+    }, reps=20)
+    record = {"ms": float(np.mean(turns["v2"])),
+              "k1_ms": float(np.mean(turns["k1"])), "turns_ms": turns}
+    for variant in ("nogather", "noreduce"):
+        want = list(cb.migrate_detect_ablate_cuda(*s.args, plan.r_span,
+                                                  variant))
+        if variant == "noreduce":
+            want[0] = torch.where(valid[:, :1] != 0, want[0], 0.0)
+            want[2] = torch.where(valid[:, 1:2] != 0, want[2], 0.0)
+        equal(cb.migrate_detect_v2_ablate_cuda(*v2_args, variant), want,
+              f"v2 {variant} and K1's")
+        record[f"{variant}_ms"] = cuda_ms(
+            lambda: cb.migrate_detect_v2_ablate_cuda(*v2_args, variant),
+            reps=20)
+    record["blocks_per_sm"] = detect_v2_blocks_per_sm(
+        plan.n_onsets, plan.tile, plan.win_floats, s.device)
+    record["k1_blocks_per_sm"] = detect_blocks_per_sm(
+        plan.n_onsets, plan.r_span, s.device)
+    record.update(detect_bound(s.args, plan.n_nodes))
+    print(f"v2 day at {s.nsamples} samples: v2 {record['ms']:.4f} ms, K1 "
+          f"{record['k1_ms']:.4f} ms (turns {turns}); v2 nogather "
+          f"{record['nogather_ms']:.4f}, noreduce {record['noreduce_ms']:.4f}"
+          f" ms; blocks per SM {record['blocks_per_sm']} (K1 "
+          f"{record['k1_blocks_per_sm']}); gather floor "
+          f"{record['smem_bound_ms']:.4f} ms")
+    torch.cuda.synchronize()
+    return record
+
+
 def x16_and_probe_checks(small_tt, rng, device):
     """The shifted-copy kernel against its plain version on the small plan
     (both layouts); then the shifted-copy kernel and the staging probes at
@@ -629,7 +760,7 @@ def x16_and_probe_checks(small_tt, rng, device):
 
     small_err = max(
         kernel_case(f"x16 {layout} small", small_tt, (10, 9, 8), 16, 100, 64,
-                    (4, 4, 4), rng, device, x16_layout=layout)["max_abs_err"]
+                    (4, 4, 4), rng, device, kernel=layout)["max_abs_err"]
         for layout in LAYOUTS)
     s = exp_x16.setup(nsamples=NSAMPLES, device=device)
     x16 = {r["name"]: r for r in exp_x16.run(s)}
@@ -916,20 +1047,38 @@ def main():
     record = kernel_case("icequake", tt, NODE_COUNT, FSMP, NSAMPLES, 256,
                          (8, 8, 4), rng, device, n_masked=2, time_it=True)
 
-    from quakemigrate_torch.ops.cuda_migrate import CudaDetectVPU
+    from quakemigrate_torch.experiments import exp_kernel_breakdown as ekb
+    from quakemigrate_torch.ops import cuda_migrate as cm
+
+    rng_v2 = np.random.default_rng(2028)
+    v2_small = kernel_case("v2 small", small_tt, (10, 9, 8), 16, 100, 64,
+                           (4, 4, 4), rng_v2, device, kernel="v2")
+    torch.cuda.synchronize()
+    cm.reset_launches()  # K1's launches: the yardstick of K1 v2's cases
+    v2_record = kernel_case("v2 icequake", tt, NODE_COUNT, FSMP, NSAMPLES,
+                            256, (8, 8, 4), rng_v2, device, n_masked=2,
+                            time_it=True, kernel="v2")
+    k1_launches = cm.launches["migrate_detect"]
 
     rng_vpu = np.random.default_rng(2025)
     kernel_case("vpu small", small_tt, (10, 9, 8), 16, 100, 64, (4, 4, 4),
-                rng_vpu, device, detector=CudaDetectVPU)
+                rng_vpu, device, kernel="vpu")
     vpu_record = kernel_case("vpu icequake", tt, NODE_COUNT, FSMP, NSAMPLES,
                              512, (8, 8, 8), rng_vpu, device, n_masked=2,
-                             time_it=True, detector=CudaDetectVPU)
+                             time_it=True, kernel="vpu")
 
     launches, windows, results, planted_ijk = run_slice(tt, rng, device)
     vpu_launches = run_vpu_path(tt, windows, results, planted_ijk, device)
 
     checks = breakdown_checks(device)
-    counts, e1, e1_plain_ms, e1_abs_err, e1_bound = breakdown_path(device)
+    s_day = ekb.setup(device=device)
+    counts, e1, e1_plain_ms, e1_abs_err, e1_bound = breakdown_path(s_day)
+    torch.cuda.synchronize()
+    cm.reset_launches()
+    v2_day = v2_day_path(s_day)
+    k1_launches += cm.launches["migrate_detect"]
+    del s_day
+    torch.cuda.empty_cache()
     by_name = {r["name"]: r for part in e1.values() for r in part}
 
     from quakemigrate_torch.experiments import exp_x16
@@ -965,7 +1114,7 @@ def main():
         "route": "cuda",
         "source": "quakemigrate_torch/csrc/migrate_detect.cu",
         "replaces": "quakemigrate_tpu/ops/pallas_migrate.py:399",
-        "launches": launches,
+        "launches": k1_launches,
         "max_abs_err": record["max_abs_err"],
         "max_rel_err_tmax": record["max_rel_err_tmax"],
         "max_rel_err_tsum": record["max_rel_err_tsum"],
@@ -975,6 +1124,27 @@ def main():
         "bound_by": record["bound_by"],
         "smem_bound_ms": record["smem_bound_ms"],
         "library_ms": None,
+    }, {
+        "name": "migrate_detect_v2",
+        "route": "cuda",
+        "source": "quakemigrate_torch/csrc/migrate_detect_v2.cu",
+        "replaces": "quakemigrate_tpu/ops/pallas_migrate.py:399",
+        "launches": launches,
+        "max_abs_err": max(v2_small["max_abs_err"], v2_record["max_abs_err"],
+                           checks["v2"]["max_abs_err"]),
+        "max_rel_err_tmax": v2_record["max_rel_err_tmax"],
+        "max_rel_err_tsum": v2_record["max_rel_err_tsum"],
+        "ms": v2_record["ms"],
+        "k1_ms": v2_record["k1_ms"],
+        "plain_ms": v2_record["plain_ms"],
+        "bound_ms": v2_record["bound_ms"],
+        "bound_by": v2_record["bound_by"],
+        "smem_bound_ms": v2_record["smem_bound_ms"],
+        "library_ms": None,
+        "blocks_per_sm": v2_record["blocks_per_sm"],
+        "k1_blocks_per_sm": v2_record["k1_blocks_per_sm"],
+        "turns_ms": v2_record["turns_ms"],
+        "day": v2_day,
     }, {
         "name": "migrate_detect_vpu",
         "route": "cuda",

@@ -40,6 +40,12 @@ SIGNATURES = {
     "qm_migrate_detect_vpu": _PLAN + _OUTS + [_INT] * 6 + [_VOID_P],
     # ... O, tiles, tile, fsmp, S, span, variant, stream
     "qm_migrate_detect_ablate": _PLAN + _OUTS + [_INT] * 7 + [_VOID_P],
+    # L .. inv_avail, span_off, outs, O, tiles, tile, fsmp, S, win_floats,
+    # (variant,) stream
+    "qm_migrate_detect_v2": _PLAN + [_VOID_P] + _OUTS + [_INT] * 6 + [_VOID_P],
+    "qm_migrate_detect_v2_ablate": (
+        _PLAN + [_VOID_P] + _OUTS + [_INT] * 7 + [_VOID_P]
+    ),
     # L, t_len, base, gbase, fine, valid, inv_avail, outs,
     # O, tiles, tile, group, fsmp, S, gwidth, stream
     "qm_migrate_detect_resident": (
@@ -71,11 +77,15 @@ SIGNATURES = {
         [_VOID_P, _VOID_P, _INT, _VOID_P, _INT] + [_VOID_P] * 4 + _OUTS
         + [_INT] * 8 + [_VOID_P]
     ),
-    # occupancy queries: (O, r_span) and (O, r_span, layout)
+    # occupancy queries: (O, r_span), (O, tile, win_floats) and
+    # (O, r_span, layout)
     "qm_migrate_detect_blocks_per_sm": [_INT] * 2,
+    "qm_migrate_detect_v2_blocks_per_sm": [_INT] * 3,
     "qm_migrate_detect_x16_blocks_per_sm": [_INT] * 3,
     # (O, a_sum, a_max, fuse)
     "qm_migrate_detect_x16g_blocks_per_sm": [_INT] * 4,
+    # err; returns a C string
+    "qm_error_string": [_INT],
 }
 
 
@@ -159,6 +169,5 @@ def load_library():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = _INT
-    lib.qm_error_string.argtypes = [_INT]
     lib.qm_error_string.restype = ctypes.c_char_p
     return lib

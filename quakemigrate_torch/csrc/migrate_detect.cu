@@ -35,7 +35,7 @@
 // L2). The staging has no double buffering (no cp.async or TMA yet).
 //
 // The kernel is a template on the reduction variant (QmVariant):
-// QM_FULL is the production kernel (qm_migrate_detect); the others are
+// QM_FULL is K1 (qm_migrate_detect); the others are
 // its ablations for the cost breakdown (qm_migrate_detect_ablate), the
 // counterpart of the TPU experiment kernel _kernel
 // (experiments/exp_kernel_breakdown.py:36). Being the same template,
@@ -147,7 +147,7 @@ extern "C" int qm_migrate_detect_ablate(
 #undef QM_ABLATE_CASE
 }
 
-// Resident blocks per SM of the production kernel at this plan, from the
+// Resident blocks per SM of K1 at this plan, from the
 // occupancy API; a negative value is minus a CUDA error code.
 extern "C" int qm_migrate_detect_blocks_per_sm(int n_onsets, int r_span) {
   int floats = n_onsets * (r_span + QM_SBLK);

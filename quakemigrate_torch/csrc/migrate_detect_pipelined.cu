@@ -5,7 +5,7 @@
 // and, as two template flags on it, of the staging probe _probe_kernel
 // (experiments/exp_dma_probe.py:117).
 //
-// Contract: the production kernel's (migrate_detect.cu), exactly; with
+// Contract: K1's (migrate_detect.cu), exactly; with
 // PACKED, the contract on all-zero windows (below).
 //
 // Design. A persistent grid (about one to two blocks per SM, set by the
@@ -19,7 +19,7 @@
 // copies are one commit group; `cp.async.wait_group NS-1` then a barrier
 // make step k's slot complete and visible, and a barrier after the step
 // keeps the slot from being overwritten while any warp still reads it.
-// The gather and reduction are the production kernel's (qm_reduce_tile).
+// The gather and reduction are K1's (qm_reduce_tile).
 //
 // Question it answers on the card: whether overlapping the staging with
 // the gather, instead of staging then gathering in each block, moves the

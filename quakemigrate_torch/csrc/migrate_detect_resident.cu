@@ -4,7 +4,7 @@
 // block of the table in VMEM once per sweep and lets the node tiles
 // slice it.
 //
-// Contract: the production kernel's (migrate_detect.cu), exactly.
+// Contract: K1's (migrate_detect.cu), exactly.
 //
 // Design. One block per (group of `group` consecutive node tiles, block
 // of QM_SBLK samples). For each onset the block stages the group's union
@@ -13,11 +13,11 @@
 // any group) + r_span + QM_SBLK, the one stride of every onset's window.
 // It then sweeps the group's tiles, each reading its windows at offset
 // base[i,o] - gbase[g,o] into the union (an offset table in shared
-// memory), with the production kernel's gather and reduction
+// memory), with K1's gather and reduction
 // (qm_reduce_tile). The host sizes `group` so the union fits shared
 // memory; every read stays inside the staged union by construction.
 //
-// Question it answers on the card: how much of the production kernel's
+// Question it answers on the card: how much of K1's
 // time is staging (O * (r_span + QM_SBLK) floats per tile and sample
 // block, from L2) rather than the gather. Cost of the design: a larger
 // block footprint (fewer resident blocks per SM) and one more shared

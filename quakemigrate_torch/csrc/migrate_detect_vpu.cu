@@ -8,7 +8,7 @@
 // onset row by a roll-and-select network (log2(r_span) static rolls),
 // because the TPU has no vector gather.
 //
-// Contract (the same as the production kernel, migrate_detect.cu), per
+// Contract (the same as K1, migrate_detect.cu), per
 // node tile i (brick order) and scan sample t:
 //   coa[n,t]  = exp(sum_o L[o, fsmp + base[i,o] + fine[i,o,n] + t]
 //                   * inv_available) * valid[i,n]
@@ -28,14 +28,14 @@
 // value (a broadcast, 16 bytes at a time) and its lanes 32 consecutive
 // window samples, so the gather is free of bank conflicts. Onsets are
 // summed in order o = 0..O-1, as the plain version does. The epilogue is
-// the production kernel's: exp with __fmul_rn, valid, a strict > over
+// K1's: exp with __fmul_rn, valid, a strict > over
 // ascending nodes per thread, then the smallest node index across warps.
 //
-// Bound on the card: shared-memory reads, as for the production kernel
+// Bound on the card: shared-memory reads, as for K1
 // (tile * 32 gather reads per onset and block, plus a quarter as many
 // broadcast reads of fine), against (r_span + 32 + tile) floats staged
 // per onset and block. Shared memory per block is O(r_span + 32 + tile),
-// independent of the number of onsets, where the production kernel
+// independent of the number of onsets, where K1
 // stages all O windows at once. The cost is two barriers per onset.
 
 #include "detect_core.cuh"

@@ -7,7 +7,7 @@
 // DMA engine moves 16x fewer bytes. On the card the question becomes
 // whether wider shared-memory reads cut K1's gather (E1: 93.5 % of K1).
 //
-// Contract: the production kernel's (migrate_detect.cu), exactly. Per
+// Contract: K1's (migrate_detect.cu), exactly. Per
 // sample the nodes are visited in the same order and the onsets summed in
 // the same order, so tmax, targ and tsum equal K1's bit for bit.
 //

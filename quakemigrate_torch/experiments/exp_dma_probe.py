@@ -9,9 +9,9 @@ with the CUDA kernels of :mod:`quakemigrate_torch.ops.cuda_probe`:
 
 - default (``main_probe``): the pipelined kernel at 2 stages (``ref``)
   against its two probes, ``static2`` (the step loop unrolled to static
-  slots; held bit for bit to the production kernel) and ``packed`` (one
+  slots; held bit for bit to K1) and ``packed`` (one
   contiguous 16-byte cp.async run per step from a zero table; held to
-  its closed form). The production kernel (K1, ``full``) at the same plan
+  its closed form). K1 (``full``) at the same plan
   is timed first as the yardstick;
 - ``--stream`` (``main_stream``): device memory -> shared memory
   streaming with no compute, from a seeded random bf16 source of 512 MiB

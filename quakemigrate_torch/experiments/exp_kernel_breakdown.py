@@ -8,7 +8,7 @@ The counterpart of the TPU experiment ``experiments/exp_kernel_breakdown.py``
 (``main``, ``main_resident``, ``main_deep``, ``main_pspan``), with the CUDA
 kernels of :mod:`quakemigrate_torch.ops.cuda_breakdown`:
 
-- default: the production kernel and its ablations (pieces removed:
+- default: K1 and its ablations (pieces removed:
   exp, argmax, the whole reduction, the per-node gather), and the time
   each removes;
 - ``--resident``: tiles grouped so that each onset's union window is
@@ -20,7 +20,7 @@ kernels of :mod:`quakemigrate_torch.ops.cuda_breakdown`:
 Times are CUDA-event milliseconds per launch (mean over the timed
 launches after a warm-up), with rates in G/s = nodes x onsets x samples
 per second, as the TPU experiment prints them. The resident and
-pipelined kernels' outputs are held against the production kernel's on
+pipelined kernels' outputs are held against K1's on
 the same inputs (they share its contract and its reduction order, so
 tmax and targ must be equal). Requires CUDA; exits non-zero without it.
 
@@ -112,7 +112,7 @@ def _same_as(reference, outs, name):
 
 
 def main_ablate(s):
-    """The production kernel and its ablations, each timed; the delta of
+    """K1 and its ablations, each timed; the delta of
     each against FULL."""
 
     r_span = s.plan.r_span
@@ -190,7 +190,7 @@ def main_pspan(s, reference):
 
 def run(s, parts=("ablate", "resident", "deep", "pspan")):
     """Run the requested parts on the setup ``s``; returns their records
-    by part. The production kernel's outputs, the reference of the
+    by part. K1's outputs, the reference of the
     resident and pipelined kernels, come from one FULL launch."""
 
     reference = cb.migrate_detect_ablate_cuda(*s.args, s.plan.r_span, "full")

@@ -13,7 +13,7 @@ Cases, as there:
 - ``x16a`` and ``x16b``: the shifted-copy kernel in its copy-major and
   onset-major layouts.
 
-The production kernel (K1, ``full``) runs first at the same plan: every
+K1 (``full``) runs first at the same plan: every
 case is held to its outputs (the shifted-copy kernel bit for bit, tmax,
 targ and tsum; the pipelined kernel as the breakdown holds it), and its
 time is the yardstick. Each line gives CUDA-event milliseconds per launch,
@@ -60,7 +60,7 @@ def checksum(outs):
 
 
 def same_as_full(full, outs, name):
-    """tmax, targ and tsum bit-equal to the production kernel's."""
+    """tmax, targ and tsum bit-equal to K1's."""
 
     for what, want, got in zip(("tmax", "targ", "tsum"), full, outs):
         if not torch.equal(got, want):

@@ -6,7 +6,7 @@ and the TPU experiment's plan (tile 512, bricks 8 x 8 x 8).
 
 The counterpart of the TPU experiment ``experiments/exp_x16g.py``
 (``main``), with the CUDA kernel of :mod:`quakemigrate_torch.ops.cuda_x16g`.
-The production kernel (K1, ``full`` of the breakdown) runs first at the
+K1 (``full`` of the breakdown) runs first at the
 same plan as the yardstick. Then the hi/lo tables are built on the card
 (timed apart), and the cases run:
 

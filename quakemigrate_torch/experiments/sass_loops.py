@@ -13,8 +13,8 @@ so it needs nvcc and cuobjdump but no card.
 
     python3 -m quakemigrate_torch.experiments.sass_loops [PATTERN ...]
 
-The default patterns are the production kernel (K1 FULL) and the
-shifted-copy kernel in both layouts.
+The default patterns are K1 FULL, K1 v2 FULL (the production kernel)
+and the shifted-copy kernel in both layouts.
 
 """
 
@@ -25,7 +25,9 @@ import shutil
 import subprocess
 import sys
 
-DEFAULT_PATTERNS = ("qm_migrate_detect_kernelILi0E", "qm_migrate_detect_x16")
+DEFAULT_PATTERNS = ("qm_migrate_detect_kernelILi0E",
+                    "qm_migrate_detect_v2_kernelILi0E",
+                    "qm_migrate_detect_x16")
 
 _FUNCTION = re.compile(r"^\s*Function : (\S+)", re.M)
 _INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);")

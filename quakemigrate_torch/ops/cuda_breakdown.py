@@ -1,21 +1,21 @@
 # -*- coding: utf-8 -*-
 """
 Cost breakdown of the detect kernel on the card: the wrappers of its
-ablations, of a resident-staging variant and of a pipelined variant, and
-their plain PyTorch versions.
+ablations (of K1 and of K1 v2), of a resident-staging variant and of a
+pipelined variant, and their plain PyTorch versions.
 
 Counterpart of the TPU experiment ``experiments/exp_kernel_breakdown.py``
 and its three kernels:
 
-- ``_kernel`` (the production kernel with pieces removed) ->
+- ``_kernel`` (K1 with pieces removed) ->
   :func:`migrate_detect_ablate_cuda`, ``csrc/migrate_detect.cu`` as a
-  template on the variant, so FULL is the production kernel itself;
+  template on the variant, so FULL is K1 itself;
 - ``_resident_kernel`` (a column block staged once per sweep) ->
   :func:`migrate_detect_resident_cuda`, ``csrc/migrate_detect_resident.cu``;
 - ``_deep_kernel`` (an n-deep prefetch queue) ->
   :func:`migrate_detect_pipelined_cuda`, ``csrc/migrate_detect_pipelined.cu``.
 
-The resident and pipelined kernels keep the production kernel's contract
+The resident and pipelined kernels keep K1's contract
 exactly, so their plain version is
 :func:`~quakemigrate_torch.ops.cuda_migrate.detect_reduce_plan_reference`.
 Each ablation has its own contract (:data:`ABLATIONS`,
@@ -24,7 +24,6 @@ only and counts its launches in :data:`launches`.
 
 """
 
-import numpy as np
 import torch
 
 from .cuda_migrate import (
@@ -37,7 +36,9 @@ from .cuda_migrate import (
     empty_outputs,
     launch_kernel,
     launch_staged,
+    launch_v2,
     plan_acc_chunks,
+    span_offsets,
 )
 
 # Ablation variants, in the order of csrc/detect_core.cuh's QmVariant:
@@ -52,12 +53,16 @@ from .cuda_migrate import (
 # contraction) has no counterpart: the port keeps no split table.
 ABLATIONS = ("full", "noexp", "noargmax", "noreduce", "nogather")
 
+# The ablations K1 v2 (csrc/migrate_detect_v2.cu) is built for.
+V2_ABLATIONS = ("full", "noreduce", "nogather")
+
 # Pipeline depths the pipelined kernel is built for.
 STAGES = (2, 3, 4)
 
 # Launches of each kernel, counted by its wrapper where it launches.
 launches = {
     "migrate_detect_ablate": 0,
+    "migrate_detect_v2_ablate": 0,
     "migrate_detect_resident": 0,
     "migrate_detect_pipelined": 0,
 }
@@ -131,8 +136,8 @@ def _check_geometry(tile, nsamples):
 def migrate_detect_ablate_cuda(onsets_log, base, fine, valid, inv_available,
                                fsmp, nsamples, r_span, variant):
     """
-    Launch the production kernel's ablation ``variant`` (one of
-    :data:`ABLATIONS`; "full" is the production kernel) on tensors on the
+    Launch K1's ablation ``variant`` (one of
+    :data:`ABLATIONS`; "full" is K1) on tensors on the
     card. Returns (tmax f32, targ int32, tsum f32), each [n_tiles,
     nsamples], asynchronously on the current stream.
 
@@ -145,6 +150,51 @@ def migrate_detect_ablate_cuda(onsets_log, base, fine, valid, inv_available,
         inv_available, fsmp, nsamples, r_span, ABLATIONS.index(variant),
     )
     launches["migrate_detect_ablate"] += 1
+    return outs
+
+
+def v2_ablate_reference(onsets_log, base, fine, valid, inv_available, fsmp,
+                        nsamples, variant):
+    """
+    Plain PyTorch version of K1 v2's ablation ``variant`` (one of
+    :data:`V2_ABLATIONS`): K1's (:func:`detect_reduce_ablate_reference`),
+    except that ``noreduce`` gives 0 where local node 0 (tmax) or node 1
+    (tsum) is padding, whose gather K1 v2 skips.
+
+    """
+
+    if variant not in V2_ABLATIONS:
+        raise ValueError(f"unknown variant {variant!r}; one of "
+                         f"{V2_ABLATIONS}")
+    tmax, targ, tsum = detect_reduce_ablate_reference(
+        onsets_log, base, fine, valid, inv_available, fsmp, nsamples, variant)
+    if variant == "noreduce":
+        tmax = torch.where(valid[:, :1] != 0, tmax, 0.0)
+        tsum = torch.where(valid[:, 1:2] != 0, tsum, 0.0)
+    return tmax, targ, tsum
+
+
+def migrate_detect_v2_ablate_cuda(onsets_log, base, fine16, valid,
+                                  inv_available, fsmp, nsamples, span_off,
+                                  win_floats, variant):
+    """
+    Launch K1 v2's ablation ``variant`` (one of :data:`V2_ABLATIONS`;
+    "full" is K1 v2 itself) on tensors on the card, with the arguments of
+    :func:`~quakemigrate_torch.ops.cuda_migrate.migrate_detect_v2_cuda`.
+    Returns (tmax f32, targ int32, tsum f32), each [n_tiles, nsamples],
+    asynchronously on the current stream.
+
+    """
+
+    if variant not in V2_ABLATIONS:
+        raise ValueError(f"unknown variant {variant!r}; one of "
+                         f"{V2_ABLATIONS}")
+    outs = launch_v2(
+        "qm_migrate_detect_v2_ablate", onsets_log, base, fine16, valid,
+        inv_available, fsmp, nsamples, span_off, win_floats,
+        ABLATIONS.index(variant),
+    )
+    launches["migrate_detect_v2_ablate"] += 1
     return outs
 
 
@@ -192,7 +242,7 @@ def migrate_detect_resident_cuda(onsets_log, base, fine, valid, inv_available,
                                  fsmp, nsamples, group, gbase, gwidth):
     """
     Launch the resident-staging kernel on tensors on the card, with the
-    group geometry of :func:`resident_groups`. The production kernel's
+    group geometry of :func:`resident_groups`. K1's
     contract; returns (tmax f32, targ int32, tsum f32), each [n_tiles,
     nsamples], asynchronously on the current stream.
 
@@ -224,23 +274,6 @@ def migrate_detect_resident_cuda(onsets_log, base, fine, valid, inv_available,
     )
     launches["migrate_detect_resident"] += 1
     return outs
-
-
-def span_offsets(r_spans, per_onset=True, align=1):
-    """
-    Offsets of the onsets' windows in one slot of the pipelined kernel:
-    int32 [O + 1], onset o's window spanning ``r_spans[o] + SBLK`` floats
-    (``per_onset``) or the uniform ``max(r_spans) + SBLK``, each rounded
-    up to a multiple of ``align``. The last entry is the slot's size in
-    floats.
-
-    """
-
-    widths = np.asarray(r_spans, dtype=np.int64) + SBLK
-    if not per_onset:
-        widths[:] = widths.max()
-    widths = -(-widths // align) * align
-    return np.concatenate([[0], np.cumsum(widths)]).astype(np.int32)
 
 
 def pipelined_smem(n_onsets, slot_floats, n_stages):
@@ -281,7 +314,7 @@ def migrate_detect_pipelined_cuda(onsets_log, base, fine, valid,
     with an ``n_stages``-deep cp.async ring of staged windows laid out by
     ``span_off`` (the int32 [O + 1] of :func:`span_offsets`, on the card;
     ``slot_floats`` its last entry, passed so that sizing the launch
-    reads nothing back from the card). The production kernel's contract;
+    reads nothing back from the card). K1's contract;
     returns (tmax f32, targ int32, tsum f32), each [n_tiles, nsamples],
     asynchronously on the current stream.
 

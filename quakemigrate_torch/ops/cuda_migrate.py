@@ -1,9 +1,10 @@
 # -*- coding: utf-8 -*-
 """
 Fused migrate-and-reduce on the GPU: the node-tile plan, the wrappers of
-the CUDA kernels ``csrc/migrate_detect.cu`` and
-``csrc/migrate_detect_vpu.cu``, their plain PyTorch version, and the
-cross-tile combine.
+the CUDA kernels ``csrc/migrate_detect.cu`` (K1),
+``csrc/migrate_detect_v2.cu`` (K1 v2, the same contract redesigned for
+the card's shared-memory pipe) and ``csrc/migrate_detect_vpu.cu`` (K2),
+their plain PyTorch version, and the cross-tile combine.
 
 Counterpart of quakemigrate_tpu.ops.pallas_migrate: ``CudaDetect`` of
 ``PallasDetectMXU`` (kernel ``_mxu_detect_kernel``), ``CudaDetectVPU`` of
@@ -13,7 +14,7 @@ close to the tile's minimum: per (tile, onset) a base shift, and per node
 a small residual ``fine < r_span``. One shared-memory window of each
 onset row then feeds every node of the tile.
 
-Contract of both kernels, per node tile i and scan sample t:
+Contract of the kernels, per node tile i and scan sample t:
 
     coa[n, t] = exp(sum_o L[o, fsmp + base[i, o] + fine[i, o, n] + t]
                     * inv_available) * valid[i, n]
@@ -51,6 +52,17 @@ SMEM_LIMIT = 232448
 VPU_SBLK = 32
 VPU_NWARPS = 16
 VPU_TILES = (64, 128, 256, 512)
+
+# Largest residual span of the int16 residual table ``DetectPlan.fine16``
+FINE16_MAX_SPAN = np.iinfo(np.int16).max
+
+# Launches of K1 and K1 v2, counted by their wrappers where they launch
+launches = {"migrate_detect": 0, "migrate_detect_v2": 0}
+
+
+def reset_launches():
+    for name in launches:
+        launches[name] = 0
 
 
 def brick_permutation(node_count, brick_shape):
@@ -96,9 +108,14 @@ class DetectPlan:
       tile's real nodes;
     - ``fine``  int32 [n_tiles, O, tile]: residual shift of each node
       (0 for padding, so padding never widens a span);
+    - ``fine16`` int16 [n_tiles, tile, O]: the same residuals node-major,
+      the table of K1 v2 (``csrc/migrate_detect_v2.cu``); a plan whose
+      ``r_span`` exceeds ``FINE16_MAX_SPAN`` raises;
     - ``valid`` float32 [n_tiles, tile]: 1 for real nodes;
     - ``r_spans``: per onset, the largest residual + 1; ``r_span`` is
       their maximum, the width of a staged window beyond the sample block;
+    - ``span_off`` int32 [O + 1]: K1 v2's window offsets
+      (:func:`span_offsets`, per onset), ``win_floats = span_off[-1]``;
     - ``max_shift``: the largest traveltime, ``max(base + fine)``; a scan
       of ``nsamples`` reads onsets up to ``fsmp + nsamples + max_shift``;
     - ``bits`` and ``r_pow2 = 2**bits``: the shift-network depth and the
@@ -152,10 +169,36 @@ class DetectPlan:
             int(fine[..., o].max()) + 1 for o in range(n_onsets)
         )
         self.r_span = max(self.r_spans)
+        if self.r_span > FINE16_MAX_SPAN:
+            raise ValueError(
+                f"residual span {self.r_span} exceeds {FINE16_MAX_SPAN}, the "
+                "limit of the int16 residual table fine16; use smaller bricks"
+            )
+        self.fine16 = np.ascontiguousarray(fine, np.int16)
+        self.span_off = span_offsets(self.r_spans)
+        self.win_floats = int(self.span_off[-1])
         self.max_shift = int(tt_perm.max())
         r_max = self.r_span - 1
         self.bits = max(1, int(np.ceil(np.log2(r_max + 1)))) if r_max else 1
         self.r_pow2 = 1 << self.bits
+
+
+def span_offsets(r_spans, per_onset=True, align=1):
+    """
+    Offsets of the onsets' staged windows in one block's shared memory:
+    int32 [O + 1], onset o's window spanning ``r_spans[o] + SBLK`` floats
+    (``per_onset``) or the uniform ``max(r_spans) + SBLK``, each rounded
+    up to a multiple of ``align``. The last entry is the windows' size in
+    floats. K1 v2 takes the per-onset offsets with ``align`` 1: it reads
+    the windows with 4-byte loads.
+
+    """
+
+    widths = np.asarray(r_spans, dtype=np.int64) + SBLK
+    if not per_onset:
+        widths[:] = widths.max()
+    widths = -(-widths // align) * align
+    return np.concatenate([[0], np.cumsum(widths)]).astype(np.int32)
 
 
 def _check_onset_length(onsets, fsmp, nsamples, max_shift):
@@ -260,22 +303,23 @@ def reduce_acc_chunks(chunks, valid, inv_available):
     return torch.cat(tmax), torch.cat(targ), torch.cat(tsum)
 
 
-def check_kernel_args(onsets_log, base, fine, valid, inv_available):
+def check_kernel_args(onsets_log, base, fine, valid, inv_available,
+                      node_major=False):
     """
-    Checks shared by the kernel wrappers: CUDA tensors on one device, the
-    kernels' dtypes, contiguity, and plan shapes that agree. Raises on
-    what the kernels do not take. Returns (n_onsets, t_len, n_tiles,
-    tile).
+    Checks shared by the kernel wrappers: the kernels' dtypes, contiguity,
+    plan shapes that agree, and CUDA tensors on one device. ``fine`` is
+    the int32 [n_tiles, O, tile] table, or with ``node_major`` the int16
+    [n_tiles, tile, O] table ``DetectPlan.fine16``. Raises on what the
+    kernels do not take. Returns (n_onsets, t_len, n_tiles, tile).
 
     """
 
     device = onsets_log.device
-    if device.type != "cuda":
-        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {device}")
+    fine_dtype = torch.int16 if node_major else torch.int32
     expected = (
         ("onsets_log", onsets_log, torch.float32, 2),
         ("base", base, torch.int32, 2),
-        ("fine", fine, torch.int32, 3),
+        ("fine", fine, fine_dtype, 3),
         ("valid", valid, torch.float32, 2),
         ("inv_available", inv_available, torch.float32, 1),
     )
@@ -290,9 +334,12 @@ def check_kernel_args(onsets_log, base, fine, valid, inv_available):
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     n_onsets, t_len = onsets_log.shape
-    n_tiles, _, tile = fine.shape
+    n_tiles = fine.shape[0]
+    tile = fine.shape[1] if node_major else fine.shape[2]
+    fine_shape = ((n_tiles, tile, n_onsets) if node_major
+                  else (n_tiles, n_onsets, tile))
     if (base.shape != (n_tiles, n_onsets)
-            or fine.shape != (n_tiles, n_onsets, tile)
+            or fine.shape != fine_shape
             or valid.shape != (n_tiles, tile)
             or inv_available.numel() != 1):
         raise ValueError(
@@ -300,6 +347,8 @@ def check_kernel_args(onsets_log, base, fine, valid, inv_available):
             f"base {tuple(base.shape)}, fine {tuple(fine.shape)}, valid "
             f"{tuple(valid.shape)}, inv_available {tuple(inv_available.shape)}"
         )
+    if device.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {device}")
     return n_onsets, t_len, n_tiles, tile
 
 
@@ -357,7 +406,7 @@ def blocks_per_sm(name, device, *args):
 
 
 def detect_blocks_per_sm(n_onsets, r_span, device):
-    """Resident blocks per SM of the production kernel at a plan."""
+    """Resident blocks per SM of K1 at a plan."""
 
     return blocks_per_sm("qm_migrate_detect_blocks_per_sm", device,
                          n_onsets, r_span)
@@ -367,7 +416,7 @@ def launch_staged(entry, onsets_log, base, fine, valid, inv_available,
                   fsmp, nsamples, r_span, *extra):
     """
     Check and launch ``entry``, a kernel that stages every onset's window
-    per (tile, SBLK-sample block): the production kernel
+    per (tile, SBLK-sample block): K1
     (``qm_migrate_detect``) or its ablations (``extra`` = the variant).
     Returns (tmax f32, targ int32, tsum f32), each [n_tiles, nsamples].
 
@@ -407,8 +456,92 @@ def migrate_detect_cuda(onsets_log, base, fine, valid, inv_available,
 
     """
 
-    return launch_staged("qm_migrate_detect", onsets_log, base, fine, valid,
+    outs = launch_staged("qm_migrate_detect", onsets_log, base, fine, valid,
                          inv_available, fsmp, nsamples, r_span)
+    launches["migrate_detect"] += 1
+    return outs
+
+
+def v2_smem(n_onsets, tile, win_floats):
+    """
+    Shared-memory bytes of one K1 v2 block (``csrc/migrate_detect_v2.cu``):
+    the window offsets (O + 1 ints, rounded up to 4), ``valid`` (tile
+    floats), and the larger of the uint16 slab (tile x O rounded up to 8)
+    with the ``win_floats`` floats of windows, and the block reduction
+    that reuses them. Raises when a block cannot have that much.
+
+    """
+
+    body = max(2 * tile * round_up(n_onsets, 8) + 4 * win_floats,
+               4 * 3 * NWARPS * SBLK)
+    smem = 4 * (round_up(n_onsets + 1, 4) + tile) + body
+    check_smem(smem, f"the residual slab ({tile} x {n_onsets}) and windows "
+                     f"({win_floats} floats)")
+    return smem
+
+
+def launch_v2(entry, onsets_log, base, fine16, valid, inv_available, fsmp,
+              nsamples, span_off, win_floats, *extra):
+    """
+    Check and launch ``entry``, K1 v2 (``qm_migrate_detect_v2``) or its
+    ablations (``extra`` = the variant), on tensors on the card. Returns
+    (tmax f32, targ int32, tsum f32), each [n_tiles, nsamples].
+
+    """
+
+    n_onsets, t_len, n_tiles, tile = check_kernel_args(
+        onsets_log, base, fine16, valid, inv_available, node_major=True
+    )
+    if tile % (2 * NWARPS):
+        raise ValueError(f"tile ({tile}) must be a multiple of {2 * NWARPS}")
+    if nsamples < 1:
+        raise ValueError(f"bad geometry: nsamples {nsamples}")
+    if (span_off.device != onsets_log.device or span_off.dtype != torch.int32
+            or span_off.shape != (n_onsets + 1,)
+            or not span_off.is_contiguous()):
+        raise ValueError(
+            f"span_off must be a contiguous int32 [{n_onsets + 1}] tensor "
+            f"on {onsets_log.device}"
+        )
+    if win_floats < n_onsets * (SBLK + 1):
+        raise ValueError(f"win_floats ({win_floats}) is too small")
+    v2_smem(n_onsets, tile, win_floats)
+
+    outs = empty_outputs(n_tiles, nsamples, onsets_log.device)
+    launch_kernel(
+        entry, onsets_log.device,
+        onsets_log.data_ptr(), t_len, base.data_ptr(), fine16.data_ptr(),
+        valid.data_ptr(), inv_available.data_ptr(), span_off.data_ptr(),
+        *(x.data_ptr() for x in outs), n_onsets, n_tiles, tile, fsmp,
+        nsamples, win_floats, *extra,
+    )
+    return outs
+
+
+def migrate_detect_v2_cuda(onsets_log, base, fine16, valid, inv_available,
+                           fsmp, nsamples, span_off, win_floats):
+    """
+    Launch K1 v2 (``csrc/migrate_detect_v2.cu``) on tensors on the card:
+    K1's contract, bit for bit, from the node-major
+    int16 residuals ``fine16`` and the window offsets ``span_off`` (int32
+    [O + 1] on the card) of a :class:`DetectPlan`; ``win_floats`` is
+    ``span_off[-1]``, passed so that sizing the launch reads nothing back
+    from the card. Returns (tmax f32, targ int32, tsum f32), each
+    [n_tiles, nsamples], asynchronously on the current stream.
+
+    """
+
+    outs = launch_v2("qm_migrate_detect_v2", onsets_log, base, fine16, valid,
+                     inv_available, fsmp, nsamples, span_off, win_floats)
+    launches["migrate_detect_v2"] += 1
+    return outs
+
+
+def detect_v2_blocks_per_sm(n_onsets, tile, win_floats, device):
+    """Resident blocks per SM of K1 v2 at a plan."""
+
+    return blocks_per_sm("qm_migrate_detect_v2_blocks_per_sm", device,
+                         n_onsets, tile, win_floats)
 
 
 def migrate_detect_vpu_cuda(onsets_log, base, fine, valid, inv_available,
@@ -416,7 +549,7 @@ def migrate_detect_vpu_cuda(onsets_log, base, fine, valid, inv_available,
     """
     Launch the VPU-plan kernel (``csrc/migrate_detect_vpu.cu``, the
     counterpart of the TPU ``_detect_kernel``) on tensors on the card:
-    the production kernel's contract, with the block's partial sums held
+    K1's contract, with the block's partial sums held
     in registers while the onsets stream past. ``tile`` must be one of
     ``VPU_TILES``. Returns (tmax f32, targ int32, tsum f32), each
     [n_tiles, nsamples], asynchronously on the current stream.
@@ -460,12 +593,13 @@ class CudaDetect:
     normalises.
 
     The plan lives on ``device``. For onsets on a CUDA device the CUDA
-    kernel runs and ``launches`` counts it; for onsets on the CPU the
-    plain version (:func:`detect_reduce_plan_reference`) runs.
+    kernel runs, K1 v2 (:func:`migrate_detect_v2_cuda`), and ``launches``
+    counts it; for onsets on the CPU the plain version
+    (:func:`detect_reduce_plan_reference`) runs.
 
     """
 
-    kernel = staticmethod(migrate_detect_cuda)
+    kernel = staticmethod(migrate_detect_v2_cuda)
 
     def __init__(self, traveltimes, node_count, fsmp, nsamples, device,
                  tile=256, brick_shape=(8, 8, 4)):
@@ -484,6 +618,9 @@ class CudaDetect:
 
         self.base = put(plan.base)
         self.fine = put(plan.fine)
+        self.fine16 = put(plan.fine16)
+        self.span_off = put(plan.span_off)
+        self.win_floats = plan.win_floats
         self.valid = put(plan.valid)
         self.perm = put(plan.perm)
         self.launches = 0
@@ -502,10 +639,7 @@ class CudaDetect:
                                   device=self.device)
         ).reshape(1)
         if onsets_log.is_cuda:
-            parts = self.kernel(
-                onsets_log.contiguous(), self.base, self.fine, self.valid,
-                inv_available, self.fsmp, self.nsamples, self.r_span,
-            )
+            parts = self.launch(onsets_log.contiguous(), inv_available)
             self.launches += 1
         else:
             parts = detect_reduce_plan_reference(
@@ -513,6 +647,15 @@ class CudaDetect:
                 inv_available, self.fsmp, self.nsamples,
             )
         return combine_tiles(*parts, self.perm, self.tile)
+
+    def launch(self, onsets_log, inv_available):
+        """``kernel`` on the plan, for prepared onsets on the card:
+        (tmax, targ, tsum), each [n_tiles, nsamples]."""
+
+        return self.kernel(
+            onsets_log, self.base, self.fine16, self.valid, inv_available,
+            self.fsmp, self.nsamples, self.span_off, self.win_floats,
+        )
 
 
 class CudaDetectVPU(CudaDetect):
@@ -540,3 +683,9 @@ class CudaDetectVPU(CudaDetect):
     def __call__(self, onsets, mask, available):
         max_coa, max_idx, coa_sum = super().__call__(onsets, mask, available)
         return max_coa, max_coa * self.n_nodes / coa_sum, max_idx
+
+    def launch(self, onsets_log, inv_available):
+        return self.kernel(
+            onsets_log, self.base, self.fine, self.valid, inv_available,
+            self.fsmp, self.nsamples, self.r_span,
+        )

@@ -6,7 +6,7 @@ its wrapper, shared-memory sizing and occupancy.
 Counterpart of the TPU experiment kernel ``_x16_kernel``
 (``experiments/exp_x16.py``): each onset's staged window is kept in four
 copies shifted by 0..3 floats, so every lane reads four consecutive
-samples of a node with one aligned 16-byte load. The production kernel's
+samples of a node with one aligned 16-byte load. K1's
 contract, exactly; its plain version is
 :func:`~quakemigrate_torch.ops.x16.detect_reduce_stride_reference`. The
 two layouts of the copies are those of the TPU operand: ``x16a``
