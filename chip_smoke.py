@@ -56,11 +56,15 @@ Smoke run of quakemigrate_torch on one NVIDIA GPU.
    experiments/exp_dma_probe.main_stream at rows 64, 256 and 1024, 2 GiB
    streamed each from a seeded random bf16 source of 512 MiB, its output
    equal to its plain version, with torch.sum over the same bytes timed.
-10. The one-hot product layouts on the tensor cores (csrc/dot_layout.cu,
-   mma.sync) in every mode at a small shape, equal to the plain version;
-   then its entry point's run (experiments/exp_dot_layout.run): every
-   mode at the three TPU shapes and 4096 steps, held to the plain version
-   (rtol 1e-6) and timed beside torch.matmul on the same bf16 operands.
+10. The one-hot product layouts on the tensor cores: v1
+   (csrc/dot_layout.cu, mma.sync) in every mode at a small shape and v2
+   (csrc/dot_layout_v2.cu, wgmma fed by a TMA ring) in every mode at its
+   own small shape, each equal to the plain version bit for bit; then
+   their entry point's run (experiments/exp_dot_layout.run): every mode
+   at the three TPU shapes and 4096 steps, both held to the plain
+   version (rtol 1e-6) and timed in turns (v2, v1, v1, v2) beside
+   torch.matmul on the same bf16 operands, with the bytes each stages
+   from L2 a step.
 11. The stride-16 table detect kernel on the tensor cores
    (csrc/migrate_detect_x16g.cu) in both forms against its plain version
    on the small plan (tmax and tsum within 1e-5, argmax tie-consistent;
@@ -862,28 +866,33 @@ def stream_path(device):
 
 
 def dot_layout_checks(device):
-    """The one-hot product layouts (csrc/dot_layout.cu) in every mode at a
-    small shape, equal to the plain version: every value there is exact."""
+    """The one-hot product layouts in every mode, equal to the plain
+    version: every value there is exact. v1 (csrc/dot_layout.cu) at (K,
+    M, N, steps) = (64, 256, 384, 3), v2 (csrc/dot_layout_v2.cu, whose
+    strips are 256 columns wide) at (128, 256, 512, 3)."""
 
     from quakemigrate_torch.ops import cuda_dot_layout as cdl
     from quakemigrate_torch.ops import dot_layout as dl
 
-    K, M, N, steps = 64, 256, 384, 3
-    for mode in dl.MODES:
-        out = cdl.dot_layout_cuda(mode, K, M, N, steps, device)
-        ref = dl.dot_layout_reference(mode, K, M, N, steps, device)
-        check(torch.equal(out, ref),
-              f"dot_layout {mode} at {(K, M, N, steps)} differs from its "
-              f"plain version by {(out - ref).abs().max().item()}")
-    print(f"dot_layout: every mode at (K, M, N, steps) = {(K, M, N, steps)} "
-          "equal to its plain version")
+    for name, kernel, shape in (
+            ("dot_layout", cdl.dot_layout_cuda, (64, 256, 384, 3)),
+            ("dot_layout_v2", cdl.dot_layout_v2_cuda, (128, 256, 512, 3))):
+        for mode in dl.MODES:
+            out = kernel(mode, *shape, device)
+            ref = dl.dot_layout_reference(mode, *shape, device)
+            check(torch.equal(out, ref),
+                  f"{name} {mode} at {shape} differs from its plain version "
+                  f"by {(out - ref).abs().max().item()}")
+        print(f"{name}: every mode at (K, M, N, steps) = {shape} equal to "
+              "its plain version")
 
 
 def dot_layout_path(device):
     """The layouts' entry point (experiments/exp_dot_layout.run): every
-    mode at the TPU shapes and 4096 steps, each held to its plain version
-    (rtol 1e-6) and timed beside torch.matmul, with the launch count set
-    to 0 just before it. Returns (launches, records with their bounds)."""
+    mode at the TPU shapes and 4096 steps, v2 and v1 each held to the
+    plain version (rtol 1e-6) and timed in turns beside torch.matmul, with
+    the launch counts set to 0 just before it. Returns (launches by
+    kernel, records with their bounds)."""
 
     from quakemigrate_torch.experiments import exp_dot_layout
     from quakemigrate_torch.ops import cuda_dot_layout as cdl
@@ -892,9 +901,10 @@ def dot_layout_path(device):
     torch.cuda.synchronize()
     cdl.reset_launches()
     records = exp_dot_layout.run(device)
-    launches = cdl.launches["dot_layout"]
+    launches = dict(cdl.launches)
     print(f"dot_layout path: launches {launches}")
-    check(launches > 0, "dot_layout path: dot_layout was never launched")
+    for name, count in launches.items():
+        check(count > 0, f"dot_layout path: {name} was never launched")
     for r in records:
         K, M, N, mode = r["K"], r["M"], r["N"], r["mode"]
         nb = N * (2 if dl.MODES[mode] else 1)
@@ -1100,6 +1110,8 @@ def main():
 
     dot_layout_checks(device)
     dl_launches, dl_records = dot_layout_path(device)
+    dl_configs = {f"{r['mode']} {r['K']}x{r['M']}x{r['N']}": r
+                  for r in dl_records}
     dl_head = next(r for r in dl_records if r["mode"] == "kk"
                    and (r["K"], r["M"], r["N"]) == (1536, 1024, 2048))
     x16g_small_err = x16g_small_checks(small_tt, np.random.default_rng(2027),
@@ -1261,9 +1273,9 @@ def main():
         "route": "cuda",
         "source": "quakemigrate_torch/csrc/dot_layout.cu",
         "replaces": "experiments/exp_dot_layout.py:31",
-        "launches": dl_launches,
-        "max_abs_err": max(r["max_abs_err"] for r in dl_records),
-        "ms": dl_head["ms"],
+        "launches": dl_launches["dot_layout"],
+        "max_abs_err": max(r["v1_max_abs_err"] for r in dl_records),
+        "ms": dl_head["v1_ms"],
         "plain_ms": dl_head["plain_ms"],
         "bound_ms": dl_head["bound_ms"],
         "bound_by": dl_head["bound_by"],
@@ -1272,10 +1284,38 @@ def main():
         "shape": [1536, 1024, 2048],
         "steps": dl_head["steps"],
         "configs": {
-            f"{r['mode']} {r['K']}x{r['M']}x{r['N']}": {k: r[k] for k in (
-                "ms", "us_per_step", "tflops", "plain_ms", "bound_ms",
+            key: {"ms": r["v1_ms"], "us_per_step": r["v1_us_per_step"],
+                  "tflops": r["v1_tflops"],
+                  "staged_bytes_per_step": r["v1_staged_bytes_per_step"],
+                  "staged_tbps": r["v1_staged_tbps"],
+                  **{k: r[k] for k in (
+                      "plain_ms", "bound_ms", "library_ms",
+                      "library_us_per_step", "library_tflops")}}
+            for key, r in dl_configs.items()
+        },
+    }, {
+        "name": "dot_layout_v2",
+        "route": "cuda",
+        "source": "quakemigrate_torch/csrc/dot_layout_v2.cu",
+        "replaces": "experiments/exp_dot_layout.py:31",
+        "launches": dl_launches["dot_layout_v2"],
+        "max_abs_err": max(r["max_abs_err"] for r in dl_records),
+        "ms": dl_head["ms"],
+        "v1_ms": dl_head["v1_ms"],
+        "plain_ms": dl_head["plain_ms"],
+        "bound_ms": dl_head["bound_ms"],
+        "bound_by": dl_head["bound_by"],
+        "library_ms": dl_head["library_ms"],
+        "mode": "kk",
+        "shape": [1536, 1024, 2048],
+        "steps": dl_head["steps"],
+        "configs": {
+            key: {k: r[k] for k in (
+                "ms", "turns_ms", "us_per_step", "tflops",
+                "staged_bytes_per_step", "staged_tbps", "v1_ms",
+                "v1_us_per_step", "v1_tflops", "plain_ms", "bound_ms",
                 "library_ms", "library_us_per_step", "library_tflops")}
-            for r in dl_records
+            for key, r in dl_configs.items()
         },
     }, {
         "name": "migrate_detect_x16g",

@@ -71,6 +71,8 @@ SIGNATURES = {
     "qm_dot_layout_fill": [_VOID_P, _VOID_P] + [_INT] * 4 + [_VOID_P],
     # lhs, rhs, out, mode, K, M, N, steps, stream
     "qm_dot_layout": [_VOID_P] * 3 + [_INT] * 5 + [_VOID_P],
+    # lhs, rhs, rhs_half, out, mode, K, M, N, steps, stream
+    "qm_dot_layout_v2": [_VOID_P] * 4 + [_INT] * 5 + [_VOID_P],
     # hi, lo, width, want, m_pad, a_off, fine, valid, inv_available, outs,
     # O, tiles, tile, S, a_sum, a_max, fuse, ablate, stream
     "qm_migrate_detect_x16g": (

@@ -132,7 +132,7 @@ def test_wrapper_refuses_cpu_and_bad_shapes():
             cdl.dot_layout_cuda("mk", K, M, N, steps, "cpu")
     with pytest.raises(ValueError, match="unknown mode"):
         cdl.dot_layout_cuda("kt", 64, 128, 128, 2, "cpu")
-    assert cdl.launches == {"dot_layout": 0}
+    assert cdl.launches == {"dot_layout": 0, "dot_layout_v2": 0}
     # every shape of the TPU experiment fits the kernel's tiles
     for K, M, N in dl.SHAPES:
         cdl.check_shape(K, M, N, dl.STEPS)
