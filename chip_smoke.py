@@ -65,17 +65,20 @@ Smoke run of quakemigrate_torch on one NVIDIA GPU.
    version (rtol 1e-6) and timed in turns (v2, v1, v1, v2) beside
    torch.matmul on the same bf16 operands, with the bytes each stages
    from L2 a step.
-11. The stride-16 table detect kernel on the tensor cores
-   (csrc/migrate_detect_x16g.cu) in both forms against its plain version
+11. The stride-16 table detect kernel on the tensor cores, v1
+   (csrc/migrate_detect_x16g.cu, mma.sync) in both forms and v2
+   (csrc/migrate_detect_x16g_v2.cu, wgmma) against their plain version
    on the small plan (tmax and tsum within 1e-5, argmax tie-consistent;
-   noreduce within 1e-5); then its entry point's run
+   noreduce within 1e-5; v2's nomain equal to its closed form), v2 at
+   tiles 64 and 512; then their entry point's run
    (experiments/exp_x16g.run) at 625 and at 30,000 samples, tile 512,
-   which holds both forms to K1 at the same plan
+   which holds v1's forms and v2 to K1 at the same plan
    within the hi/lo bound computed from the onsets (argmax
    tie-consistent at that bound), noreduce to its plain version and the
-   ablations that zero an operand to their closed form, and times them
-   all; at 30,000 samples both forms are also held to their plain
-   version (timed once).
+   ablations that zero an operand to their closed form, times them all,
+   and times v2 in turns with v1's forms (v2, fuse, expand, expand,
+   fuse, v2); at 30,000 samples v1's forms and v2 are also held to their
+   plain version (timed once).
 12. K1 v2 at the day-scale window (30,000 samples, K1's plan, tile 256,
    bricks 8 x 8 x 4): bit for bit to K1, the two timed in turns, and
    v2's NOGATHER and NOREDUCE ablations, held bit for bit to K1's
@@ -916,12 +919,14 @@ def dot_layout_path(device):
 
 
 def x16g_small_checks(small_tt, rng, device):
-    """The stride-16 tensor-core kernel (csrc/migrate_detect_x16g.cu) in
-    both forms against its plain version on the small plan: tmax and tsum
-    within 1e-5 relative, the argmax tie-consistent (the plain hi/lo
-    coalescence at the kernel's node within 1e-5 of the max); noreduce
-    within 1e-5 (node 1's truncation within 1). Returns the largest
-    absolute error."""
+    """The stride-16 tensor-core kernels against their plain version on
+    the small plan: v1 (csrc/migrate_detect_x16g.cu) in both forms at tile
+    64, v2 (csrc/migrate_detect_x16g_v2.cu) at tiles 64 and 512 (bricks 4^3
+    and 8^3): tmax and tsum within 1e-5 relative, the argmax
+    tie-consistent (the plain hi/lo coalescence at the kernel's node within
+    1e-5 of the max); noreduce within 1e-5 (node 1's truncation within 1);
+    v2's nomain equal to its closed form. Returns the largest absolute
+    error of v1 and of v2."""
 
     from quakemigrate_torch.ops import cuda_x16g as cg
     from quakemigrate_torch.ops import x16g
@@ -930,8 +935,6 @@ def x16g_small_checks(small_tt, rng, device):
 
     fsmp, nsamples, node_count = 16, 100, (10, 9, 8)
     n_onsets = small_tt.shape[1]
-    plan = DetectPlan(small_tt, node_count, tile=64, brick_shape=(4, 4, 4))
-    p = cg.plan_on_device(plan, device)
     t_len = fsmp + nsamples + int(small_tt.max()) + 7
     onsets = torch.from_numpy(
         rng.gamma(2.0, 1.5, size=(n_onsets, t_len)).astype(np.float32)
@@ -940,37 +943,63 @@ def x16g_small_checks(small_tt, rng, device):
     mask[-1] = 0.0
     onsets_log = _prepare_onsets(onsets, mask).contiguous()
     inv = (1.0 / mask.sum()).reshape(1)
-    hi, lo, want, a_pad = cg.build_inputs(p, onsets_log, fsmp, nsamples)
-    plain = (hi, lo, a_pad, p.base16_dev, p.fine16, p.valid, inv, nsamples)
-    ref = x16g.detect_reduce_x16g_reference(*plain)
-    abs_err = 0.0
-    for fuse in (False, True):
-        outs = cg.migrate_detect_x16g_cuda(p, hi, lo, want, inv, nsamples,
-                                           fuse=fuse)
-        at_arg = x16g.coa_at_nodes(*plain[:-1], outs[1])
-        errs = [((a - b).abs() / b.abs()).max().item()
-                for a, b in ((outs[0], ref[0]), (outs[2], ref[2]),
-                             (at_arg, ref[0]))]
-        abs_err = max(abs_err, (outs[0] - ref[0]).abs().max().item())
-        print(f"x16g small fuse={fuse}: rel err tmax {errs[0]:.3e} tsum "
-              f"{errs[1]:.3e}, tie err {errs[2]:.3e}, argmax equal "
-              f"{(outs[1] == ref[1]).float().mean().item():.6f}")
-        check(max(errs) <= KERNEL_RTOL, f"x16g small fuse={fuse}: {errs}")
-    outs = cg.migrate_detect_x16g_cuda(p, hi, lo, want, inv, nsamples,
-                                       ablate="noreduce")
-    ref = x16g.detect_reduce_x16g_reference(*plain, ablate="noreduce")
-    err = max(scaled_err(outs[0], ref[0]), scaled_err(outs[2], ref[2]))
-    arg_err = (outs[1] - ref[1]).abs().max().item()
-    print(f"x16g small noreduce: err {err:.3e}, node 1 {arg_err}")
-    check(err <= KERNEL_RTOL and arg_err <= 1, "x16g small noreduce differs")
-    return abs_err
+    abs_err = {"v1": 0.0, "v2": 0.0}
+    for tile, brick in ((64, (4, 4, 4)), (512, (8, 8, 8))):
+        plan = DetectPlan(small_tt, node_count, tile=tile, brick_shape=brick)
+        p = cg.plan_on_device(plan, device)
+        hi, lo, want, a_pad = cg.build_inputs(p, onsets_log, fsmp, nsamples)
+        plain = (hi, lo, a_pad, p.base16_dev, p.fine16, p.valid, inv,
+                 nsamples)
+        ref = x16g.detect_reduce_x16g_reference(*plain)
+        ref_nr = x16g.detect_reduce_x16g_reference(*plain, ablate="noreduce")
+        forms = {"v2": lambda ablate: cg.migrate_detect_x16g_v2_cuda(
+            p, hi, lo, want, inv, nsamples, ablate=ablate)}
+        if tile == 64:
+            forms.update({
+                f"v1 fuse={fuse}": lambda ablate, fuse=fuse:
+                    cg.migrate_detect_x16g_cuda(p, hi, lo, want, inv,
+                                                nsamples, fuse=fuse,
+                                                ablate=ablate)
+                for fuse in (False, True)})
+        for name, kernel in forms.items():
+            outs = kernel("full")
+            at_arg = x16g.coa_at_nodes(*plain[:-1], outs[1])
+            errs = [((a - b).abs() / b.abs()).max().item()
+                    for a, b in ((outs[0], ref[0]), (outs[2], ref[2]),
+                                 (at_arg, ref[0]))]
+            key = name[:2]
+            abs_err[key] = max(abs_err[key],
+                               (outs[0] - ref[0]).abs().max().item())
+            print(f"x16g small {name} tile {tile}: rel err tmax "
+                  f"{errs[0]:.3e} tsum {errs[1]:.3e}, tie err {errs[2]:.3e}, "
+                  f"argmax equal "
+                  f"{(outs[1] == ref[1]).float().mean().item():.6f}")
+            check(max(errs) <= KERNEL_RTOL,
+                  f"x16g small {name} tile {tile}: {errs}")
+            if name == "v1 fuse=True":
+                continue  # v1's noreduce is one kernel for both forms
+            outs = kernel("noreduce")
+            err = max(scaled_err(outs[0], ref_nr[0]),
+                      scaled_err(outs[2], ref_nr[2]))
+            arg_err = (outs[1] - ref_nr[1]).abs().max().item()
+            print(f"x16g small {name} tile {tile} noreduce: err {err:.3e}, "
+                  f"node 1 {arg_err}")
+            check(err <= KERNEL_RTOL and arg_err <= 1,
+                  f"x16g small {name} tile {tile} noreduce differs")
+        outs = forms["v2"]("nomain")
+        closed = x16g.zero_acc_reference(p.valid, nsamples)
+        check(all(torch.equal(o, r) for o, r in zip(outs, closed)),
+              f"x16g small v2 tile {tile} nomain differs from its closed "
+              "form")
+        print(f"x16g small v2 tile {tile} nomain: equal to its closed form")
+    return abs_err["v1"], abs_err["v2"]
 
 
 def x16g_path(s):
     """The stride-16 experiment's run (experiments/exp_x16g.run) at the
-    setup ``s``, with the launch count set to 0 just before it; then both
-    forms against the plain version (timed once). Returns (launches,
-    records, plain ms, abs err, bounds).
+    setup ``s``, with the launch counts set to 0 just before it; then v1's
+    forms and v2 against the plain version (timed once). Returns
+    (launches by kernel, records, plain ms, abs err by kernel, bounds).
 
     The bound is that of the function the kernel computes, the detect
     contract read through the hi/lo tables: its inputs read once and
@@ -988,9 +1017,10 @@ def x16g_path(s):
     torch.cuda.synchronize()
     cg.reset_launches()
     records, inputs = exp_x16g.run(s)
-    launches = cg.launches["migrate_detect_x16g"]
+    launches = dict(cg.launches)
     print(f"x16g path at {s.nsamples} samples: launches {launches}")
-    check(launches > 0, "x16g path: migrate_detect_x16g was never launched")
+    for name, count in launches.items():
+        check(count > 0, f"x16g path: {name} was never launched")
 
     hi, lo, want, a_pad = inputs
     plain = (hi, lo, a_pad, s.p.base16_dev, s.p.fine16, s.p.valid,
@@ -999,14 +1029,16 @@ def x16g_path(s):
     ref = x16g.detect_reduce_x16g_reference(*plain)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    abs_err = 0.0
-    for form in ("expand", "fuse"):
+    abs_err = {"v1": 0.0, "v2": 0.0}
+    for form in ("expand", "fuse", "v2"):
         outs = exp_x16g.launch(s, inputs, form)
         errs = [((outs[0] - ref[0]).abs() / ref[0]).max().item(),
                 ((outs[2] - ref[2]).abs() / ref[2]).max().item(),
                 ((x16g.coa_at_nodes(*plain[:-1], outs[1]) - ref[0]).abs()
                  / ref[0]).max().item()]
-        abs_err = max(abs_err, (outs[0] - ref[0]).abs().max().item())
+        key = "v2" if form == "v2" else "v1"
+        abs_err[key] = max(abs_err[key],
+                           (outs[0] - ref[0]).abs().max().item())
         print(f"x16g path: {form} against its plain version at {s.nsamples} "
               f"samples: rel err tmax {errs[0]:.3e} tsum {errs[1]:.3e}, tie "
               f"err {errs[2]:.3e}, argmax equal "
@@ -1114,8 +1146,8 @@ def main():
                   for r in dl_records}
     dl_head = next(r for r in dl_records if r["mode"] == "kk"
                    and (r["K"], r["M"], r["N"]) == (1536, 1024, 2048))
-    x16g_small_err = x16g_small_checks(small_tt, np.random.default_rng(2027),
-                                       device)
+    x16g_small_err, x16g_v2_small_err = x16g_small_checks(
+        small_tt, np.random.default_rng(2027), device)
     x16g_625, _ = exp_x16g.run(exp_x16g.setup(NSAMPLES, device))
     torch.cuda.empty_cache()
     (x16g_launches, x16g_30k, x16g_plain_ms, x16g_err,
@@ -1322,8 +1354,8 @@ def main():
         "route": "cuda",
         "source": "quakemigrate_torch/csrc/migrate_detect_x16g.cu",
         "replaces": "experiments/exp_x16g.py:53",
-        "launches": x16g_launches,
-        "max_abs_err": max(x16g_small_err, x16g_err),
+        "launches": x16g_launches["migrate_detect_x16g"],
+        "max_abs_err": max(x16g_small_err, x16g_err["v1"]),
         "ms": x16g_30k["expand"]["ms"],
         "plain_ms": x16g_plain_ms,
         **x16g_bounds,
@@ -1348,6 +1380,38 @@ def main():
         "tables_ms": x16g_30k["tables"]["ms"],
         "tables_ms_625": x16g_625["tables"]["ms"],
         "hilo_bound": x16g_30k["expand"]["bound"],
+    }, {
+        "name": "migrate_detect_x16g_v2",
+        "route": "cuda",
+        "source": "quakemigrate_torch/csrc/migrate_detect_x16g_v2.cu",
+        "replaces": "experiments/exp_x16g.py:53",
+        "launches": x16g_launches["migrate_detect_x16g_v2"],
+        "max_abs_err": max(x16g_v2_small_err, x16g_err["v2"]),
+        "ms": x16g_30k["v2"]["ms"],
+        "turns_ms": x16g_30k["v2"]["turns_ms"],
+        "fuse_ms": x16g_30k["v2"]["v1_turns_ms"]["fuse"],
+        "expand_ms": x16g_30k["v2"]["v1_turns_ms"]["expand"],
+        "ms_625": x16g_625["v2"]["ms"],
+        "turns_ms_625": x16g_625["v2"]["turns_ms"],
+        "fuse_ms_625": x16g_625["v2"]["v1_turns_ms"]["fuse"],
+        "expand_ms_625": x16g_625["v2"]["v1_turns_ms"]["expand"],
+        "plain_ms": x16g_plain_ms,
+        **x16g_bounds,
+        "library_ms": None,
+        "tflops": x16g_30k["v2"]["tflops"],
+        "tc_floor_share": x16g_bounds["tc_floor_ms"] / x16g_30k["v2"]["ms"],
+        "blocks_per_sm": x16g_30k["v2"]["blocks_per_sm"],
+        "registers": x16g_30k["v2"]["registers"],
+        "spill_stores": x16g_30k["v2"]["spill_stores"],
+        "spill_loads": x16g_30k["v2"]["spill_loads"],
+        "wgmma_serialized": x16g_30k["v2"]["wgmma_serialized"],
+        "max_rel_err_tmax_vs_k1": x16g_30k["v2"]["max_rel_err_tmax"],
+        "tie_rel_err_vs_k1": x16g_30k["v2"]["tie_rel_err"],
+        "equal_to_expand": x16g_30k["v2"]["equal_to_expand"],
+        "ablations": {
+            name: {"ms": x16g_30k[name]["ms"], "ms_625": x16g_625[name]["ms"]}
+            for name in ("v2_nomain", "v2_noreduce")
+        },
     }]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']}: no launch on its path")

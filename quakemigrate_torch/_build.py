@@ -18,6 +18,7 @@ import functools
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 
@@ -79,13 +80,20 @@ SIGNATURES = {
         [_VOID_P, _VOID_P, _INT, _VOID_P, _INT] + [_VOID_P] * 4 + _OUTS
         + [_INT] * 8 + [_VOID_P]
     ),
+    # hi, lo, width, want, m_pad, a_off (host), fine, valid, inv_available,
+    # outs, O, tiles, tile, S, a_sum, ablate, stream
+    "qm_migrate_detect_x16g_v2": (
+        [_VOID_P, _VOID_P, _INT, _VOID_P, _INT] + [_VOID_P] * 4 + _OUTS
+        + [_INT] * 6 + [_VOID_P]
+    ),
     # occupancy queries: (O, r_span), (O, tile, win_floats) and
     # (O, r_span, layout)
     "qm_migrate_detect_blocks_per_sm": [_INT] * 2,
     "qm_migrate_detect_v2_blocks_per_sm": [_INT] * 3,
     "qm_migrate_detect_x16_blocks_per_sm": [_INT] * 3,
-    # (O, a_sum, a_max, fuse)
+    # (O, a_sum, a_max, fuse) and (a_sum)
     "qm_migrate_detect_x16g_blocks_per_sm": [_INT] * 4,
+    "qm_migrate_detect_x16g_v2_blocks_per_sm": [_INT],
     # err; returns a C string
     "qm_error_string": [_INT],
 }
@@ -173,3 +181,48 @@ def load_library():
         fn.restype = _INT
     lib.qm_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def ptxas_report(log, kernel):
+    """
+    What ``-Xptxas -v`` says in the build log ``log`` (text) of each
+    compiled entry function whose mangled name contains ``kernel``: {name:
+    {"registers", "spill_stores", "spill_loads" (bytes), "wgmma_serialized"
+    (ptxas's warning that it serialized the function's wgmma)}}.
+
+    """
+
+    report, current, serialized = {}, None, []
+    for line in log.splitlines():
+        if "wgmma" in line and "serialized" in line:
+            serialized.append(line)
+            continue
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)'?", line)
+        if m:
+            current = m.group(1) if kernel in m.group(1) else None
+            if current is not None and current not in report:
+                report[current] = {"registers": None, "spill_stores": None,
+                                   "spill_loads": None,
+                                   "wgmma_serialized": False}
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            report[current]["spill_stores"] = int(m.group(1))
+            report[current]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            report[current]["registers"] = int(m.group(1))
+    for name, entry in report.items():
+        entry["wgmma_serialized"] = any(name in line for line in serialized)
+    return report
+
+
+def kernel_resources(kernel):
+    """:func:`ptxas_report` of the built library's log (building it if
+    needed)."""
+
+    return ptxas_report(build().with_suffix(".log").read_text(), kernel)

@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks of the warp-specialised tensor-core
 // kernels: mbarriers, TMA tile loads from a CUtensorMap, wgmma shared-memory
-// descriptors for the 128-byte swizzle, the m64n256k16 bf16 product with
-// f32 accumulators, and setmaxnreg. First used by dot_layout_v2.cu.
+// descriptors for the 128-byte swizzle, the bf16 products with f32
+// accumulators (m64n256k16 with both operands in shared memory, m64n64k16
+// with A from registers), the async-proxy fence, and setmaxnreg. Used by
+// dot_layout_v2.cu and migrate_detect_x16g_v2.cu.
 //
 // Fragment of the m64nNk16 accumulator (PTX ISA, "Matrix fragments for
 // wgmma .m64nNk16", D of type f32): thread x of the warpgroup, with
@@ -153,6 +155,45 @@ template <int R>
 __device__ __forceinline__ void wg_fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D[64 x 64] += A[64 x 16] * B[16 x 64], bf16 x bf16 -> f32, A from
+// registers (wgmma's RS form) and B from shared memory. The A fragment of
+// the warpgroup is, in each warp w, the mma.sync m16n8k16 A fragment
+// (mma_core.cuh) of rows 16 w .. 16 w + 15: a[0] = A[g][2c, 2c+1], a[1] =
+// A[g+8][2c, 2c+1], a[2] = A[g][2c+8, 2c+9], a[3] = A[g+8][2c+8, 2c+9]. Its
+// registers belong to the product until a wgmma.wait_group shows it done.
+// TRANS_B: 1 if B is MN-major.
+template <int TRANS_B>
+__device__ __forceinline__ void wg_mma_m64n64k16_rs(float (&d)[32],
+                                                    const unsigned (&a)[4],
+                                                    uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1),
+        "n"(TRANS_B));
+}
+
+// Make this thread's ordinary shared-memory stores visible to the async
+// proxy (wgmma's operand reads, TMA), before the barrier arrival that
+// hands them over.
+__device__ __forceinline__ void wg_fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // D[64 x 256] += A[64 x 16] * B[16 x 256], bf16 x bf16 -> f32, both from

@@ -392,7 +392,8 @@ def test_x16g_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="unknown ablation"):
         cuda_x16g.migrate_detect_x16g_cuda(p, hi, lo, want, inv, nsamples,
                                            ablate="nodot")
-    assert cuda_x16g.launches == {"migrate_detect_x16g": 0}
+    assert cuda_x16g.launches == {"migrate_detect_x16g": 0,
+                                  "migrate_detect_x16g_v2": 0}
 
 
 def test_x16g_entry_point_requires_cuda():
