@@ -86,6 +86,19 @@ Smoke run of quakemigrate_torch on one NVIDIA GPU.
    gather) and timed; at 625 samples (step 6) the ablations are held to
    their plain versions. K1's launches are counted over this step and
    step 3's K1 v2 case, where K1 is the yardstick.
+13. E1c v2 and E1b v2, the pipelined and resident kernels redesigned on
+   K1 v2's gather core with TMA-fed staging
+   (csrc/migrate_detect_pipelined_v2.cu, csrc/migrate_detect_resident_v2.cu):
+   at 625 samples (step 6) every depth of E1c v2 and E1b v2 against
+   their plain versions, and their NOREDUCE and NOGATHER against K1 v2's
+   plain ablations; the breakdown's entry point (step 6) runs both beside
+   their v1 and holds them to K1; at 30,000 samples both against their
+   plain versions (timed once; each plain version bit for bit to the plan
+   reference the breakdown computed). At 30,000 and 625 samples both bit
+   for bit to K1 (tmax, targ, tsum), timed in turns with E1c v1 (its
+   fastest depth), E1b v1 (group 2), K1 and K1 v2, with their NOGATHER
+   and NOREDUCE held bit for bit to K1 v2's and timed, and their blocks
+   per SM, registers and spills.
 
 Every kernel line carries its launches on its path (each path run with
 the counts set to 0 just before it), its time and its plain version's,
@@ -661,8 +674,50 @@ def breakdown_checks(device):
             *v2_args, variant), cb.v2_ablate_reference(*s.args, variant), s,
             variant)
         for variant in cb.V2_ABLATIONS)}
+
+    # E1c v2 (every depth) and E1b v2 against their plain versions, which
+    # gather through the same slabs; their ablations against K1 v2's
+    e1c, e1b = e1_v2_calls(s)
+    a = s.args
+    plain_c = cb.pipelined_v2_reference(a[0], a[1], *a[3:], e1c.tables)
+    plain_b = cb.resident_v2_reference(a[0], *a[3:], e1b.tables)
+    errs_c = [hold(f"pipelined v2 stages={n}", e1c(n_stages=n), plain_c, s,
+                   "full") for n in cb.PIPELINED_V2_STAGES]
+    errs_b = [hold(f"resident v2 group={e1b.tables.group}", e1b(), plain_b,
+                   s, "full")]
+    for variant in ("noreduce", "nogather"):
+        ref = cb.v2_ablate_reference(*a, variant)
+        errs_c.append(hold(f"pipelined v2 {variant}", e1c(variant=variant),
+                           ref, s, variant))
+        errs_b.append(hold(f"resident v2 {variant}", e1b(variant=variant),
+                           ref, s, variant))
+    records["pipelined_v2"] = {"max_abs_err": max(errs_c)}
+    records["resident_v2"] = {"max_abs_err": max(errs_b)}
     torch.cuda.synchronize()
     return records
+
+
+def e1_v2_calls(s):
+    """E1c v2 (2 stages unless asked) and E1b v2 on the setup ``s`` of
+    experiments/exp_kernel_breakdown, as calls of (n_stages, variant) and
+    (variant), with their tables as attributes."""
+
+    from quakemigrate_torch.ops import cuda_breakdown as cb
+
+    a = s.args
+    tables_c = cb.pipelined_v2_tables(s.plan, a[5], s.device)
+    tables_b = cb.resident_v2_tables(s.plan, a[5], s.device)
+
+    def e1c(n_stages=2, variant="full"):
+        return cb.migrate_detect_pipelined_v2_cuda(
+            a[0], a[1], *a[3:], tables_c, n_stages, variant)
+
+    def e1b(variant="full"):
+        return cb.migrate_detect_resident_v2_cuda(a[0], *a[3:], tables_b,
+                                                  variant)
+
+    e1c.tables, e1b.tables = tables_c, tables_b
+    return e1c, e1b
 
 
 def breakdown_path(s):
@@ -679,7 +734,8 @@ def breakdown_path(s):
     results = exp.run(s)
     counts = {name: cb.launches[name] for name in (
         "migrate_detect_ablate", "migrate_detect_resident",
-        "migrate_detect_pipelined")}
+        "migrate_detect_pipelined", "migrate_detect_resident_v2",
+        "migrate_detect_pipelined_v2")}
     print(f"breakdown path: launches {counts}")
     for name, n in counts.items():
         check(n > 0, f"breakdown path: {name} was never launched")
@@ -693,7 +749,121 @@ def breakdown_path(s):
     print(f"breakdown path: plain version at {s.nsamples} samples "
           f"{plain_ms:.1f} ms (one run)")
     return counts, results, plain_ms, abs_err, detect_bound(
-        s.args, s.plan.n_nodes)
+        s.args, s.plan.n_nodes), ref
+
+
+def e1_v2_turns(s, deep_v1, reps):
+    """E1c v2 and E1b v2 on the setup ``s`` of
+    experiments/exp_kernel_breakdown: each bit for bit to K1 (tmax, targ,
+    tsum); the two timed in turns with E1c v1 at ``deep_v1`` (its record
+    in the breakdown: n_stages, blocks_per_sm), E1b v1 at group 2, K1 and
+    K1 v2 (``reps`` launches a turn); their NOGATHER and NOREDUCE, each
+    bit for bit to K1 v2's and timed; blocks per SM, and registers and
+    spills from ptxas."""
+
+    from quakemigrate_torch import _build
+    from quakemigrate_torch.ops import cuda_breakdown as cb
+    from quakemigrate_torch.ops.cuda_migrate import (
+        migrate_detect_cuda,
+        migrate_detect_v2_cuda,
+    )
+
+    plan, a, device = s.plan, s.args, s.device
+    e1c, e1b = e1_v2_calls(s)
+    v2_args = (*a[:2], torch.from_numpy(plan.fine16).to(device), *a[3:],
+               torch.from_numpy(plan.span_off).to(device), plan.win_floats)
+    offs = cb.span_offsets(plan.r_spans, per_onset=False)
+    offs_dev = torch.from_numpy(offs).to(device)
+    group1, gbase1, gwidth1 = cb.resident_groups(a[1], plan.r_span, 2)
+    fns = {
+        "e1c_v2": e1c,
+        "e1b_v2": e1b,
+        "e1c_v1": lambda: cb.migrate_detect_pipelined_cuda(
+            *a, offs_dev, int(offs[-1]), deep_v1["n_stages"],
+            deep_v1["blocks_per_sm"]),
+        "e1b_v1": lambda: cb.migrate_detect_resident_cuda(
+            *a, group1, gbase1, gwidth1),
+        "k1": lambda: migrate_detect_cuda(*a, plan.r_span),
+        "k1_v2": lambda: migrate_detect_v2_cuda(*v2_args),
+    }
+
+    def equal(got, want, what):
+        same = [torch.equal(x, y) for x, y in zip(got, want)]
+        print(f"e1 v2 at {s.nsamples}: {what} equal (tmax, targ, tsum) "
+              f"{same}")
+        check(all(same), f"e1 v2 at {s.nsamples}: {what} differs")
+
+    k1 = fns["k1"]()
+    equal(e1c(), k1, "E1c v2 and K1")
+    equal(e1b(), k1, "E1b v2 and K1")
+    turns = in_turns(fns, reps=reps)
+    record = {"turns_ms": turns}
+    for name in ("e1c", "e1b"):
+        record[name] = {"ms": float(np.mean(turns[f"{name}_v2"])),
+                        "v1_ms": float(np.mean(turns[f"{name}_v1"]))}
+    for variant in ("nogather", "noreduce"):
+        want = cb.migrate_detect_v2_ablate_cuda(*v2_args, variant)
+        equal(e1c(variant=variant), want, f"E1c v2 {variant} and K1 v2's")
+        equal(e1b(variant=variant), want, f"E1b v2 {variant} and K1 v2's")
+        record["e1c"][f"{variant}_ms"] = cuda_ms(
+            lambda: e1c(variant=variant), reps=reps)
+        record["e1b"][f"{variant}_ms"] = cuda_ms(
+            lambda: e1b(variant=variant), reps=reps)
+        record[f"k1_v2_{variant}_ms"] = cuda_ms(
+            lambda: cb.migrate_detect_v2_ablate_cuda(*v2_args, variant),
+            reps=reps)
+    t = e1b.tables
+    record["e1c"].update(
+        n_stages=2, stride=e1c.tables.stride, box=e1c.tables.box,
+        blocks_per_sm=cb.pipelined_v2_blocks_per_sm(
+            plan.n_onsets, plan.tile, e1c.tables.stride, 2, device),
+        **next(iter(_build.kernel_resources(
+            "qm_pipelined_v2_kernelILi0ELi2E").values())))
+    record["e1b"].update(
+        group=t.group, win_floats=t.win_floats,
+        blocks_per_sm=cb.resident_v2_blocks_per_sm(
+            plan.n_onsets, plan.tile, t.win_floats, device),
+        **next(iter(_build.kernel_resources(
+            "qm_resident_v2_kernelILi0E").values())))
+    for name in ("k1", "k1_v2", "e1c_v1", "e1b_v1"):
+        record[f"{name}_ms"] = float(np.mean(turns[name]))
+    print(f"e1 v2 at {s.nsamples} samples, in turns (ms): {turns}")
+    for name in ("e1c", "e1b"):
+        print(f"e1 v2 at {s.nsamples}: {name} {record[name]}")
+    torch.cuda.synchronize()
+    return record
+
+
+def e1_v2_plain(s, plan_ref):
+    """E1c v2 and E1b v2 at the setup ``s`` against their plain versions,
+    each timed once; each plain version also bit for bit to the plan
+    reference ``plan_ref`` that the breakdown path computed. Returns
+    ({name: plain ms}, {name: max abs error})."""
+
+    from quakemigrate_torch.ops import cuda_breakdown as cb
+
+    a = s.args
+    e1c, e1b = e1_v2_calls(s)
+    plains = {
+        "e1c": lambda: cb.pipelined_v2_reference(a[0], a[1], *a[3:],
+                                                 e1c.tables),
+        "e1b": lambda: cb.resident_v2_reference(a[0], *a[3:], e1b.tables),
+    }
+    plain_ms, errs = {}, {}
+    for name, kernel in (("e1c", e1c), ("e1b", e1b)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = plains[name]()
+        torch.cuda.synchronize()
+        plain_ms[name] = (time.perf_counter() - t0) * 1e3
+        same = [torch.equal(x, y) for x, y in zip(ref, plan_ref)]
+        print(f"e1 v2 at {s.nsamples}: {name} plain version equal to the "
+              f"plan reference {same}; {plain_ms[name]:.1f} ms (one run)")
+        check(all(same), f"{name} v2 plain version differs")
+        errs[name] = hold(f"{name} v2 at {s.nsamples} samples", kernel(),
+                          ref, s, "full")
+        del ref
+    return plain_ms, errs
 
 
 def v2_day_path(s):
@@ -1114,12 +1284,22 @@ def main():
 
     checks = breakdown_checks(device)
     s_day = ekb.setup(device=device)
-    counts, e1, e1_plain_ms, e1_abs_err, e1_bound = breakdown_path(s_day)
+    counts, e1, e1_plain_ms, e1_abs_err, e1_bound, e1_ref = breakdown_path(
+        s_day)
+    e1_v2_plain_ms, e1_v2_errs = e1_v2_plain(s_day, e1_ref)
+    del e1_ref
+    resident_v1 = [r for r in e1["resident"] if " v2 " not in r["name"]]
+    deep_v1 = [r for r in e1["deep"] if " v2 " not in r["name"]]
+    e1_v2_day = e1_v2_turns(s_day, min(deep_v1, key=lambda r: r["ms"]),
+                            reps=5)
     torch.cuda.synchronize()
     cm.reset_launches()
     v2_day = v2_day_path(s_day)
     k1_launches += cm.launches["migrate_detect"]
     del s_day
+    torch.cuda.empty_cache()
+    e1_v2_625 = e1_v2_turns(ekb.setup(nsamples=NSAMPLES, device=device),
+                            min(deep_v1, key=lambda r: r["ms"]), reps=20)
     torch.cuda.empty_cache()
     by_name = {r["name"]: r for part in e1.values() for r in part}
 
@@ -1227,11 +1407,11 @@ def main():
         "replaces": "experiments/exp_kernel_breakdown.py:261",
         "launches": counts["migrate_detect_resident"],
         "max_abs_err": checks["resident"]["max_abs_err"],
-        "ms": min(r["ms"] for r in e1["resident"]),
+        "ms": min(r["ms"] for r in resident_v1),
         "plain_ms": e1_plain_ms,
         **e1_bound,
         "library_ms": None,
-        "configs": {r["name"]: r["ms"] for r in e1["resident"]},
+        "configs": {r["name"]: r["ms"] for r in resident_v1},
     }, {
         "name": "migrate_detect_pipelined",
         "route": "cuda",
@@ -1239,12 +1419,37 @@ def main():
         "replaces": "experiments/exp_kernel_breakdown.py:459",
         "launches": counts["migrate_detect_pipelined"],
         "max_abs_err": checks["pipelined"]["max_abs_err"],
-        "ms": min(r["ms"] for r in e1["deep"] + e1["pspan"]),
+        "ms": min(r["ms"] for r in deep_v1 + e1["pspan"]),
         "plain_ms": e1_plain_ms,
         **e1_bound,
         "library_ms": None,
-        "configs": {r["name"]: r["ms"] for r in e1["deep"] + e1["pspan"]},
-    }, {
+        "configs": {r["name"]: r["ms"] for r in deep_v1 + e1["pspan"]},
+    }, *[{
+        "name": f"migrate_detect_{kind}_v2",
+        "route": "cuda",
+        "source": f"quakemigrate_torch/csrc/migrate_detect_{kind}_v2.cu",
+        "replaces": f"experiments/exp_kernel_breakdown.py:{line}",
+        "launches": counts[f"migrate_detect_{kind}_v2"],
+        "max_abs_err": max(checks[f"{kind}_v2"]["max_abs_err"],
+                           e1_v2_errs[key]),
+        "ms": e1_v2_day[key]["ms"],
+        "plain_ms": e1_v2_plain_ms[key],
+        **e1_bound,
+        "library_ms": None,
+        "v1_ms": e1_v2_day[key]["v1_ms"],
+        "k1_ms": e1_v2_day["k1_ms"],
+        "k1_v2_ms": e1_v2_day["k1_v2_ms"],
+        "turns_ms": e1_v2_day["turns_ms"],
+        "day": e1_v2_day[key],
+        "ms_625": e1_v2_625[key]["ms"],
+        "v1_ms_625": e1_v2_625[key]["v1_ms"],
+        "k1_ms_625": e1_v2_625["k1_ms"],
+        "k1_v2_ms_625": e1_v2_625["k1_v2_ms"],
+        "turns_ms_625": e1_v2_625["turns_ms"],
+        "k1_v2_nogather_ms": e1_v2_day["k1_v2_nogather_ms"],
+        "k1_v2_noreduce_ms": e1_v2_day["k1_v2_noreduce_ms"],
+    } for kind, key, line in (("pipelined", "e1c", 459),
+                              ("resident", "e1b", 261))], {
         "name": "migrate_detect_x16",
         "route": "cuda",
         "source": "quakemigrate_torch/csrc/migrate_detect_x16.cu",

@@ -59,6 +59,18 @@ SIGNATURES = {
         [_VOID_P, _INT, _VOID_P, _VOID_P, _VOID_P, _VOID_P, _VOID_P] + _OUTS
         + [_INT] * 8 + [_VOID_P]
     ),
+    # L, t_len, ld, base, slab, valid, inv_avail, outs, O, tiles, tile,
+    # fsmp, S, stride, box, n_stages, variant, stream
+    "qm_migrate_detect_pipelined_v2": (
+        [_VOID_P, _INT, _INT] + [_VOID_P] * 4 + _OUTS + [_INT] * 9
+        + [_VOID_P]
+    ),
+    # L, t_len, ld, gbase, uoff, slab, valid, woff, inv_avail, outs, O,
+    # tiles, tile, group, fsmp, S, win_floats, variant, stream
+    "qm_migrate_detect_resident_v2": (
+        [_VOID_P, _INT, _INT] + [_VOID_P] * 6 + _OUTS + [_INT] * 8
+        + [_VOID_P]
+    ),
     # L, t_len, base, span_off, fine, valid, inv_available, zeros, outs,
     # O, tiles, tile, fsmp, S, slot_floats, packed, stream
     "qm_migrate_detect_probe": (
@@ -91,6 +103,9 @@ SIGNATURES = {
     "qm_migrate_detect_blocks_per_sm": [_INT] * 2,
     "qm_migrate_detect_v2_blocks_per_sm": [_INT] * 3,
     "qm_migrate_detect_x16_blocks_per_sm": [_INT] * 3,
+    # (O, tile, stride, n_stages) and (O, tile, win_floats)
+    "qm_migrate_detect_pipelined_v2_blocks_per_sm": [_INT] * 4,
+    "qm_migrate_detect_resident_v2_blocks_per_sm": [_INT] * 3,
     # (O, a_sum, a_max, fuse) and (a_sum)
     "qm_migrate_detect_x16g_blocks_per_sm": [_INT] * 4,
     "qm_migrate_detect_x16g_v2_blocks_per_sm": [_INT],

@@ -51,9 +51,7 @@
 //   no atomics, no zeroing.
 // Shapes: K a multiple of 64, M of 128, N of 256.
 
-#include <dlfcn.h>
-
-#include "wgmma_core.cuh"
+#include "tma_rows.cuh"
 
 #define QV_BM 128  // rows of an A tile: two consumer warpgroups x 64
 #define QV_BN 256  // columns of a block's strip
@@ -258,33 +256,11 @@ qm_dot_layout_v2_kernel(const __grid_constant__ CUtensorMap map_a,
   }
 }
 
-// cuTensorMapEncodeTiled belongs to libcuda's API, not the runtime's: it
-// is taken from libcuda.so.1, which the CUDA runtime has loaded already,
-// so the kernel library needs no link against libcuda.
-typedef CUresult (*QvEncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-static QvEncodeTiled qv_encode_tiled() {
-  static QvEncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_GLOBAL);
-    if (lib != nullptr) {
-      fn = reinterpret_cast<QvEncodeTiled>(
-          dlsym(lib, "cuTensorMapEncodeTiled"));
-    }
-  }
-  return fn;
-}
-
 // Tensor map of a bf16 matrix [rows][cols] (cols contiguous): 64 x 64
 // boxes with the 128-byte swizzle.
 static int qv_map(CUtensorMap* map, const void* p, long long rows,
                   long long cols) {
-  QvEncodeTiled encode = qv_encode_tiled();
+  QtEncodeTiled encode = qt_encode_tiled();
   if (encode == nullptr) return (int)cudaErrorSharedObjectSymbolNotFound;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};

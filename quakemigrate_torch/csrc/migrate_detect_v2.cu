@@ -56,15 +56,10 @@
 // tsum = acc of node 1, with padding nodes' acc left at 0 as above) and
 // QM_NOGATHER (the staged windows at residual 0) are its ablations.
 
-#include "detect_core.cuh"
+#include "detect_v2_core.cuh"
 
 // Resident blocks per SM the kernel is built for: K1's.
 #define QV_MIN_BLOCKS 6
-
-// Entries of one node's slab row: O rounded up to 8 (16 bytes).
-__host__ __device__ __forceinline__ int qv_row(int n_onsets) {
-  return (n_onsets + 7) & ~7;
-}
 
 // Ints of the offset table: O + 1 rounded up to 4.
 __host__ __device__ __forceinline__ int qv_off_ints(int n_onsets) {
@@ -75,165 +70,6 @@ static int qv_smem_bytes(int n_onsets, int tile, int win_floats) {
   int body = 2 * tile * qv_row(n_onsets) + 4 * win_floats;
   if (body < 4 * QM_RED_FLOATS) body = 4 * QM_RED_FLOATS;
   return 4 * (qv_off_ints(n_onsets) + tile) + body;
-}
-
-// Entry j (0..7) of a 16-byte slab chunk.
-__device__ __forceinline__ unsigned qv_entry(const uint4& q, int j) {
-  const unsigned w = j < 2 ? q.x : j < 4 ? q.y : j < 6 ? q.z : q.w;
-  return (j & 1) ? w >> 16 : w & 0xffffu;
-}
-
-// Adds onset j of node a's slab chunk qa into `a` and, for NN = 2, of
-// node b's chunk qb into `b`: lane reads samples lane + 32k of the
-// onset's window at the node's residual, 4-byte conflict-free loads.
-template <int NN>
-__device__ __forceinline__ void qv_add_onset(const float* wl, const uint4& qa,
-                                             const uint4& qb, int j,
-                                             float (&a)[QM_SPT],
-                                             float (&b)[QM_SPT]) {
-  const float* sa = wl + qv_entry(qa, j);
-#pragma unroll
-  for (int k = 0; k < QM_SPT; ++k) a[k] += sa[32 * k];
-  if (NN == 2) {
-    const float* sb = wl + qv_entry(qb, j);
-#pragma unroll
-    for (int k = 0; k < QM_SPT; ++k) b[k] += sb[32 * k];
-  }
-}
-
-// The gather of node a (slab row ra) and, for NN = 2, node b (row rb)
-// together: onsets in order o = 0..O-1 for each node, 8 onsets per
-// 16-byte row chunk.
-template <int NN>
-__device__ __forceinline__ void qv_gather(const float* wl, const uint4* ra,
-                                          const uint4* rb, int n_onsets,
-                                          float (&a)[QM_SPT],
-                                          float (&b)[QM_SPT]) {
-  const int chunks = n_onsets >> 3;
-  for (int c = 0; c < chunks; ++c) {
-    const uint4 qa = ra[c];
-    const uint4 qb = NN == 2 ? rb[c] : qa;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) qv_add_onset<NN>(wl, qa, qb, j, a, b);
-  }
-  const int rest = n_onsets & 7;
-  if (rest) {
-    const uint4 qa = ra[chunks];
-    const uint4 qb = NN == 2 ? rb[chunks] : qa;
-#pragma unroll
-    for (int j = 0; j < 7; ++j) {
-      if (j < rest) qv_add_onset<NN>(wl, qa, qb, j, a, b);
-    }
-  }
-}
-
-// K1's epilogue (qm_reduce_nodes, detect_core.cuh) node by node, so that
-// a warp can fold two nodes an iteration: the same operations in the same
-// order, so v2's outputs equal K1's. K1, E1 and E2 keep their own copy:
-// moving them onto these functions changed their machine code (E2's
-// copy-major layout ran 89 ms instead of 53.5 at 30,000 samples on the
-// H100).
-//
-// One thread's part of the reduction over a warp's nodes: per register
-// k (block sample lane + 32k), the largest coalescence, the first node
-// attaining it, and the sum.
-struct QvPartial {
-  float best[QM_SPT];
-  float total[QM_SPT];
-  int arg[QM_SPT];
-
-  __device__ __forceinline__ QvPartial() {
-#pragma unroll
-    for (int k = 0; k < QM_SPT; ++k) {
-      best[k] = -INFINITY;
-      total[k] = 0.0f;
-      arg[k] = 0;
-    }
-  }
-};
-
-// Node n, whose onset sums are `acc` and weight `v` (valid[n]), folded
-// into `p`. A warp folds its nodes in ascending order, so a strict >
-// keeps the first node attaining each thread's max.
-template <int V>
-__device__ __forceinline__ void qv_fold(QvPartial& p,
-                                        const float (&acc)[QM_SPT], int n,
-                                        float v, float inv) {
-  if (V == QM_NOREDUCE) {
-#pragma unroll
-    for (int k = 0; k < QM_SPT; ++k) {
-      if (n == 0) {
-        p.best[k] = acc[k];
-      } else if (n == 1) {
-        p.total[k] = acc[k];
-      } else {
-        qm_keep(acc[k]);
-      }
-    }
-    return;
-  }
-#pragma unroll
-  for (int k = 0; k < QM_SPT; ++k) {
-    // __fmul_rn: no contraction into expf's range reduction, so the
-    // exponent argument is rounded exactly as in the plain version.
-    const float coa = __fmul_rn(expf(__fmul_rn(acc[k], inv)), v);
-    if (coa > p.best[k]) {
-      p.best[k] = coa;
-      p.arg[k] = n;
-    }
-    p.total[k] += coa;
-  }
-}
-
-// The cross-warp reduction of the partials: thread tid < QM_SBLK stores
-// sample s0 + tid of row `out_row`. `red` holds QM_RED_FLOATS floats and
-// may alias the staged data: the first barrier ends every read of it.
-template <int V>
-__device__ __forceinline__ void qv_reduce_warps(
-    const QvPartial& p, float* red, float* __restrict__ tmax,
-    int* __restrict__ targ, float* __restrict__ tsum, long long out_row,
-    int s0, int nsamples) {
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  __syncthreads();
-
-  float* red_max = red;
-  int* red_arg = reinterpret_cast<int*>(red + QM_NWARPS * QM_SBLK);
-  float* red_sum = red + 2 * QM_NWARPS * QM_SBLK;
-#pragma unroll
-  for (int k = 0; k < QM_SPT; ++k) {
-    const int s = warp * QM_SBLK + lane + 32 * k;
-    red_max[s] = p.best[k];
-    red_arg[s] = p.arg[k];
-    red_sum[s] = p.total[k];
-  }
-  __syncthreads();
-
-  if (tid < QM_SBLK && s0 + tid < nsamples) {
-    float m = red_max[tid];
-    int a = 0;
-    float s;
-    if (V == QM_NOREDUCE) {
-      // node 0 belongs to warp 0, node 1 to warp 1
-      s = red_sum[QM_SBLK + tid];
-    } else {
-      a = red_arg[tid];
-      s = red_sum[tid];
-      for (int w = 1; w < QM_NWARPS; ++w) {
-        const float mw = red_max[w * QM_SBLK + tid];
-        const int aw = red_arg[w * QM_SBLK + tid];
-        if (mw > m || (mw == m && aw < a)) {
-          m = mw;
-          a = aw;
-        }
-        s += red_sum[w * QM_SBLK + tid];
-      }
-    }
-    tmax[out_row + s0 + tid] = m;
-    targ[out_row + s0 + tid] = a;
-    tsum[out_row + s0 + tid] = s;
-  }
 }
 
 template <int V>

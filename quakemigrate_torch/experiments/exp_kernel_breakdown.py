@@ -12,15 +12,20 @@ kernels of :mod:`quakemigrate_torch.ops.cuda_breakdown`:
   exp, argmax, the whole reduction, the per-node gather), and the time
   each removes;
 - ``--resident``: tiles grouped so that each onset's union window is
-  staged once per group instead of once per tile;
-- ``--deep``: a persistent grid with a 2-, 3- or 4-deep cp.async ring;
+  staged once per group instead of once per tile; v1 at groups 2, 8 and
+  32, then E1b v2 (K1 v2's gather core, TMA-fed union windows) at the
+  group its host picks;
+- ``--deep``: a persistent grid with a 2-, 3- or 4-deep cp.async ring
+  (v1), then E1c v2 (K1 v2's gather core, a TMA ring, tile-major) at 2,
+  3 and 4 stages;
 - ``--pspan``: the pipelined kernel staging per-onset spans against the
   uniform span.
 
 Times are CUDA-event milliseconds per launch (mean over the timed
 launches after a warm-up), with rates in G/s = nodes x onsets x samples
-per second, as the TPU experiment prints them. The resident and
-pipelined kernels' outputs are held against K1's on
+per second, as the TPU experiment prints them; each v2 record also
+carries its resident blocks per SM. The resident and
+pipelined kernels' outputs (v1 and v2) are held against K1's on
 the same inputs (they share its contract and its reduction order, so
 tmax and targ must be equal). Requires CUDA; exits non-zero without it.
 
@@ -129,7 +134,8 @@ def main_ablate(s):
 
 
 def main_resident(s, reference):
-    """Resident staging, one union window per group of tiles."""
+    """Resident staging, one union window per group of tiles: v1 at each
+    of RESIDENT_GROUPS, then E1b v2."""
 
     records = []
     base = s.args[1]
@@ -147,6 +153,20 @@ def main_resident(s, reference):
             s, f"resident group={group} w={gwidth}", ms, group=group,
             gwidth=gwidth, smem=cb.resident_smem(s.plan.n_onsets, gwidth),
         ))
+    t = cb.resident_v2_tables(s.plan, FSMP, s.device)
+
+    def run_v2():
+        return cb.migrate_detect_resident_v2_cuda(s.args[0], *s.args[3:], t)
+
+    name = f"resident v2 group={t.group} w={t.win_floats}"
+    _same_as(reference, run_v2(), name)
+    records.append(_record(
+        s, name, cuda_ms(run_v2), group=t.group, win_floats=t.win_floats,
+        smem=cb.resident_v2_smem(s.plan.n_onsets, s.plan.tile,
+                                 t.win_floats),
+        blocks_per_sm=cb.resident_v2_blocks_per_sm(
+            s.plan.n_onsets, s.plan.tile, t.win_floats, s.device),
+    ))
     return records
 
 
@@ -168,13 +188,30 @@ def _pipelined(s, reference, per_onset, n_stages, blocks_per_sm, name):
 
 def main_deep(s, reference):
     """The pipelined kernel at 2, 3 and 4 stages, with two blocks per SM
-    and with as many as fit."""
+    and with as many as fit; then E1c v2 at 2, 3 and 4 stages."""
 
-    return [
+    records = [
         _pipelined(s, reference, False, n_stages, bps,
                    f"deep stages={n_stages} bps={bps or 'max'}")
         for n_stages in cb.STAGES for bps in BLOCKS_PER_SM
     ]
+    t = cb.pipelined_v2_tables(s.plan, FSMP, s.device)
+    for n_stages in cb.PIPELINED_V2_STAGES:
+        def run_v2():
+            return cb.migrate_detect_pipelined_v2_cuda(
+                s.args[0], s.args[1], *s.args[3:], t, n_stages)
+
+        name = f"deep v2 stages={n_stages}"
+        _same_as(reference, run_v2(), name)
+        records.append(_record(
+            s, name, cuda_ms(run_v2), n_stages=n_stages, stride=t.stride,
+            box=t.box,
+            smem=cb.pipelined_v2_smem(s.plan.n_onsets, s.plan.tile,
+                                      t.stride, n_stages),
+            blocks_per_sm=cb.pipelined_v2_blocks_per_sm(
+                s.plan.n_onsets, s.plan.tile, t.stride, n_stages, s.device),
+        ))
+    return records
 
 
 def main_pspan(s, reference):

@@ -14,7 +14,11 @@ so it needs nvcc and cuobjdump but no card.
     python3 -m quakemigrate_torch.experiments.sass_loops [PATTERN ...]
 
 The default patterns are K1 FULL, K1 v2 FULL (the production kernel)
-and the shifted-copy kernel in both layouts.
+and the shifted-copy kernel in both layouts. ``--e1-v2`` adds the gather
+loops of the kernels built on K1 v2's core: E1c v2 FULL at 2 stages and
+E1b v2 FULL (:data:`E1_V2_PATTERNS`).
+
+    python3 -m quakemigrate_torch.experiments.sass_loops --e1-v2
 
 """
 
@@ -28,6 +32,8 @@ import sys
 DEFAULT_PATTERNS = ("qm_migrate_detect_kernelILi0E",
                     "qm_migrate_detect_v2_kernelILi0E",
                     "qm_migrate_detect_x16")
+E1_V2_PATTERNS = ("qm_pipelined_v2_kernelILi0ELi2E",
+                  "qm_resident_v2_kernelILi0E")
 
 _FUNCTION = re.compile(r"^\s*Function : (\S+)", re.M)
 _INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);")
@@ -89,7 +95,11 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("patterns", nargs="*", default=DEFAULT_PATTERNS,
                         help="substrings of the mangled kernel names")
+    parser.add_argument("--e1-v2", action="store_true",
+                        help="also census E1c v2 and E1b v2")
     opts = parser.parse_args(argv)
+    patterns = list(opts.patterns) + list(
+        E1_V2_PATTERNS if opts.e1_v2 else ())
     from quakemigrate_torch import _build
 
     text = subprocess.run(
@@ -97,7 +107,7 @@ def main(argv=None):
         text=True, check=True,
     ).stdout
     for name, instrs in parse_sass(text).items():
-        if not any(p in name for p in opts.patterns):
+        if not any(p in name for p in patterns):
             continue
         print(f"{name}: {len(instrs)} instructions")
         for rec in loops(instrs):
