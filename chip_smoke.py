@@ -47,11 +47,24 @@ Smoke run of quakemigrate_torch on one NVIDIA GPU.
    (experiments/exp_x16.run) at 625 and at 30,000 samples, which holds
    both layouts bit for bit (tmax, targ, tsum) to K1
    at the same plan and times them beside it; at 30,000 samples both
-   layouts are also held to the plain version (timed once).
+   layouts are also held to the plain version (timed once). The same
+   run holds E2 v2, the redesign on K1 v2's slab
+   (csrc/migrate_detect_x16_v2.cu), in both layouts bit for bit to K1,
+   times it in turns with v1's layouts, K1 and K1 v2 at that plan, and
+   holds its NOGATHER and NOREDUCE bit for bit to K1 v2's and times
+   them; at 625 and 30,000 samples its plain version is held bit for bit
+   to the plan reference (timed once) and the kernel to its plain
+   version (tsum within 1e-5: the plain version sums the nodes in
+   another order).
 8. The staging probes (csrc/migrate_detect_pipelined.cu, static2 and
    packed) through experiments/exp_dma_probe.main_probe at 625 and
    30,000 samples: static2 bit for bit to K1 and to
-   its plain version within 1e-5, packed equal to its closed form.
+   its plain version within 1e-5, packed equal to its closed form. The
+   same run holds E4b v2, the probes on E1c v2's TMA ring
+   (csrc/migrate_detect_probe_v2.cu): static2 bit for bit to K1, packed
+   equal to its closed form, timed in turns with E1c v2 at that plan and
+   v1's modes; static2's plain version bit for bit to the plan reference
+   (timed once) and the kernel to it within 1e-5.
 9. The streaming probe (csrc/stream_probe.cu) through
    experiments/exp_dma_probe.main_stream at rows 64, 256 and 1024, 2 GiB
    streamed each from a seeded random bf16 source of 512 MiB, its output
@@ -229,17 +242,6 @@ def icequake_traveltimes(rng):
     return traveltime_table(tables, RATE)
 
 
-def in_turns(fns, reps):
-    """CUDA-event milliseconds of each callable of ``fns`` (name ->
-    callable), timed in turns a, b, b, a: {name: [first, second]}."""
-
-    order = list(fns) + list(fns)[::-1]
-    ms = {name: [] for name in fns}
-    for name in order:
-        ms[name].append(cuda_ms(fns[name], reps=reps))
-    return ms
-
-
 def kernel_case(name, tt, node_count, fsmp, nsamples, tile, brick, rng,
                 device, n_masked=1, time_it=False, kernel="k1"):
     """A detect kernel against its plain version on the same staged
@@ -259,6 +261,7 @@ def kernel_case(name, tt, node_count, fsmp, nsamples, tile, brick, rng,
         migrate_detect_v2_cuda,
         migrate_detect_vpu_cuda,
     )
+    from quakemigrate_torch.experiments.exp_kernel_breakdown import in_turns
     from quakemigrate_torch.ops.cuda_x16 import migrate_detect_x16_cuda
     from quakemigrate_torch.ops.migrate import _prepare_onsets
     from quakemigrate_torch.ops.x16 import detect_reduce_stride_reference
@@ -762,6 +765,7 @@ def e1_v2_turns(s, deep_v1, reps):
     spills from ptxas."""
 
     from quakemigrate_torch import _build
+    from quakemigrate_torch.experiments.exp_kernel_breakdown import in_turns
     from quakemigrate_torch.ops import cuda_breakdown as cb
     from quakemigrate_torch.ops.cuda_migrate import (
         migrate_detect_cuda,
@@ -873,6 +877,7 @@ def v2_day_path(s):
     bit to K1's (NOREDUCE with the sums of padding nodes at 0, whose
     gather v2 skips) and timed; the blocks per SM of both."""
 
+    from quakemigrate_torch.experiments.exp_kernel_breakdown import in_turns
     from quakemigrate_torch.ops import cuda_breakdown as cb
     from quakemigrate_torch.ops.cuda_migrate import (
         detect_blocks_per_sm,
@@ -927,12 +932,17 @@ def v2_day_path(s):
 
 def x16_and_probe_checks(small_tt, rng, device):
     """The shifted-copy kernel against its plain version on the small plan
-    (both layouts); then the shifted-copy kernel and the staging probes at
-    the day-scale workload cut to a 625-sample window (tile 512), through
-    the experiments' own runs: each held bit for bit to the production
-    kernel at that plan (packed: to its closed form), and timed."""
+    (both layouts); then the shifted-copy kernel, v1 and v2, and the
+    staging probes, v1 and v2, at the day-scale workload cut to a
+    625-sample window (tile 512), through the experiments' own runs: each
+    held bit for bit to the production kernel at that plan (packed: to
+    its closed form), and timed; and E2 v2 and E4b v2 against their
+    plain versions there."""
 
     from quakemigrate_torch.experiments import exp_dma_probe, exp_x16
+    from quakemigrate_torch.ops.cuda_migrate import (
+        detect_reduce_plan_reference,
+    )
     from quakemigrate_torch.ops.cuda_x16 import LAYOUTS
 
     small_err = max(
@@ -942,13 +952,84 @@ def x16_and_probe_checks(small_tt, rng, device):
     s = exp_x16.setup(nsamples=NSAMPLES, device=device)
     x16 = {r["name"]: r for r in exp_x16.run(s)}
     probe = {r["name"]: r for r in exp_dma_probe.main_probe(s)}
-    return small_err, x16, probe
+    ref = detect_reduce_plan_reference(*s.args)
+    _, x16_v2_err = x16_v2_plain(s, ref)
+    _, probe_v2_err = probe_v2_plain(s, ref)
+    return small_err, x16, probe, x16_v2_err, probe_v2_err
+
+
+def x16_v2_plain(s, ref):
+    """E2 v2 in both layouts against its plain version on the setup ``s``
+    of experiments/exp_x16 (each plain version timed once, and bit for bit
+    to the plan reference ``ref``). The kernel's tsum sums the nodes in
+    K1's order, the plain version's in torch.sum's, so the kernel is held
+    to it within KERNEL_RTOL (tmax and targ equal too, where they are).
+    Returns ({layout: plain ms}, the largest absolute error)."""
+
+    from quakemigrate_torch.ops import cuda_x16 as cx
+    from quakemigrate_torch.ops.x16 import x16_v2_reference
+
+    a = s.args
+    plain_ms, errs = {}, []
+    for layout in cx.LAYOUTS:
+        tables = cx.x16_v2_tables(s.plan, a[5], s.device, layout)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = x16_v2_reference(a[0], a[1], *a[3:], tables)
+        torch.cuda.synchronize()
+        plain_ms[layout] = (time.perf_counter() - t0) * 1e3
+        same = [torch.equal(x, y) for x, y in zip(plain, ref)]
+        outs = cx.migrate_detect_x16_v2_cuda(a[0], a[1], *a[3:], tables)
+        equal = [torch.equal(x, y) for x, y in zip(outs, plain)]
+        print(f"x16 v2 {layout} at {s.nsamples}: plain version equal to the "
+              f"plan reference {same}, {plain_ms[layout]:.1f} ms (one run); "
+              f"kernel equal to it (tmax, targ, tsum) {equal}")
+        check(all(same), f"x16 v2 {layout}: plain version differs")
+        errs.append(hold(f"x16 {layout} v2 at {s.nsamples} samples", outs,
+                         plain, s, "full"))
+        del plain
+    return plain_ms, max(errs)
+
+
+def probe_v2_plain(s, ref):
+    """E4b v2 on the setup ``s``: static2 against its plain version (timed
+    once; bit for bit to the plan reference ``ref``), packed equal to its
+    closed form. Returns (plain ms, the largest absolute error)."""
+
+    from quakemigrate_torch.ops import cuda_breakdown as cb
+    from quakemigrate_torch.ops import cuda_probe as cp
+
+    a = s.args
+    tables = cb.pipelined_v2_tables(s.plan, a[5], s.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = cp.detect_reduce_probe_v2_reference(a[0], a[1], *a[3:], tables,
+                                                "static2")
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    same = [torch.equal(x, y) for x, y in zip(plain, ref)]
+    print(f"probe v2 at {s.nsamples}: static2's plain version equal to the "
+          f"plan reference {same}, {plain_ms:.1f} ms (one run)")
+    check(all(same), "probe v2: static2's plain version differs")
+    err = hold(f"probe static2 v2 at {s.nsamples} samples",
+               cp.migrate_detect_probe_v2_cuda(a[0], a[1], *a[3:], tables,
+                                               "static2"), plain, s, "full")
+    packed = cp.migrate_detect_probe_v2_cuda(
+        a[0], a[1], *a[3:], tables, "packed",
+        cp.packed_v2_zeros(s.nsamples, s.plan.n_onsets, tables.stride,
+                           s.device))
+    closed = cp.packed_reference(a[3], s.nsamples)
+    same = [torch.equal(x, y) for x, y in zip(packed, closed)]
+    print(f"probe v2 at {s.nsamples}: packed equal to its closed form {same}")
+    check(all(same), "probe v2: packed differs from its closed form")
+    return plain_ms, err
 
 
 def x16_path(s):
-    """The shifted-copy experiment's run at the full day-scale window, with
-    the launch count set to 0 just before it; then both layouts against
-    the kernel's plain version (timed once) at that size."""
+    """The shifted-copy experiment's run at the full day-scale window (v1
+    and E2 v2), with the launch counts set to 0 just before it; then v1's
+    layouts against their plain version (timed once) and E2 v2's against
+    theirs (:func:`x16_v2_plain`) at that size."""
 
     from quakemigrate_torch.experiments import exp_x16
     from quakemigrate_torch.ops import cuda_x16 as cx
@@ -957,9 +1038,10 @@ def x16_path(s):
     torch.cuda.synchronize()
     cx.reset_launches()
     records = exp_x16.run(s)
-    launches = cx.launches["migrate_detect_x16"]
+    launches = dict(cx.launches)
     print(f"x16 path: launches {launches}")
-    check(launches > 0, "x16 path: migrate_detect_x16 was never launched")
+    for name, n in launches.items():
+        check(n > 0, f"x16 path: {name} was never launched")
 
     t0 = time.perf_counter()
     ref = detect_reduce_stride_reference(*s.args)
@@ -972,13 +1054,18 @@ def x16_path(s):
             for layout in cx.LAYOUTS]
     print(f"x16 path: plain version at {s.nsamples} samples {plain_ms:.1f} "
           "ms (one run)")
-    return launches, {r["name"]: r for r in records}, plain_ms, max(errs)
+    # the stride reference adds the same values in the same order as the
+    # plan reference, so it serves as E2 v2's plan reference too
+    v2_plain_ms, v2_err = x16_v2_plain(s, ref)
+    return (launches, {r["name"]: r for r in records}, plain_ms, max(errs),
+            v2_plain_ms, v2_err)
 
 
 def probe_path(s):
-    """The staging probes' run at the full day-scale window, with the
-    launch count set to 0 just before it; then static2 against its plain
-    version (timed once) and packed against its closed form."""
+    """The staging probes' run at the full day-scale window (v1 and E4b
+    v2), with the launch counts set to 0 just before it; then static2
+    against its plain version (timed once) and packed against its closed
+    form, v1 and v2 (:func:`probe_v2_plain`)."""
 
     from quakemigrate_torch.experiments import exp_dma_probe
     from quakemigrate_torch.ops import cuda_breakdown as cb
@@ -990,9 +1077,11 @@ def probe_path(s):
     torch.cuda.synchronize()
     cp.reset_launches()
     records = exp_dma_probe.main_probe(s)
-    launches = cp.launches["migrate_detect_probe"]
+    launches = {name: cp.launches[name] for name in (
+        "migrate_detect_probe", "migrate_detect_probe_v2")}
     print(f"probe path: launches {launches}")
-    check(launches > 0, "probe path: migrate_detect_probe was never launched")
+    for name, n in launches.items():
+        check(n > 0, f"probe path: {name} was never launched")
 
     offs = cb.span_offsets(s.plan.r_spans, per_onset=False, align=4)
     span_off, slot = torch.from_numpy(offs).to(s.device), int(offs[-1])
@@ -1016,8 +1105,9 @@ def probe_path(s):
     print(f"probe path: static2's plain version at {s.nsamples} samples "
           f"{plain_ms:.1f} ms (one run); packed's closed form "
           f"{packed_plain_ms:.4f} ms")
+    v2_plain_ms, v2_err = probe_v2_plain(s, ref)
     return (launches, {r["name"]: r for r in records}, plain_ms,
-            packed_plain_ms, max(err, packed_err))
+            packed_plain_ms, max(err, packed_err), v2_plain_ms, v2_err)
 
 
 def stream_path(device):
@@ -1305,13 +1395,15 @@ def main():
 
     from quakemigrate_torch.experiments import exp_x16
 
-    x16_small_err, x16_625, probe_625 = x16_and_probe_checks(
+    (x16_small_err, x16_625, probe_625, x16_v2_err_625,
+     probe_v2_err_625) = x16_and_probe_checks(
         small_tt, np.random.default_rng(2026), device)
     s30 = exp_x16.setup(device=device)
     day_bound = detect_bound(s30.args, s30.plan.n_nodes)
-    x16_launches, x16_30k, x16_plain_ms, x16_err = x16_path(s30)
+    (x16_launches, x16_30k, x16_plain_ms, x16_err, x16_v2_plain_ms,
+     x16_v2_err) = x16_path(s30)
     (probe_launches, probe_30k, probe_plain_ms, packed_plain_ms,
-     probe_err) = probe_path(s30)
+     probe_err, probe_v2_plain_ms, probe_v2_err) = probe_path(s30)
     del s30
     torch.cuda.empty_cache()
     stream_launches, streams = stream_path(device)
@@ -1454,7 +1546,7 @@ def main():
         "route": "cuda",
         "source": "quakemigrate_torch/csrc/migrate_detect_x16.cu",
         "replaces": "experiments/exp_x16.py:46",
-        "launches": x16_launches,
+        "launches": x16_launches["migrate_detect_x16"],
         "max_abs_err": max(x16_small_err, x16_err),
         "ms": x16_30k["x16a"]["ms"],
         "plain_ms": x16_plain_ms,
@@ -1471,11 +1563,42 @@ def main():
                  "blocks_per_sm": x16_30k["full"]["blocks_per_sm"]},
         "ref_ms": x16_30k["ref"]["ms"],
     }, {
+        "name": "migrate_detect_x16_v2",
+        "route": "cuda",
+        "source": "quakemigrate_torch/csrc/migrate_detect_x16_v2.cu",
+        "replaces": "experiments/exp_x16.py:46",
+        "launches": x16_launches["migrate_detect_x16_v2"],
+        "max_abs_err": max(x16_v2_err_625, x16_v2_err),
+        "ms": x16_30k["x16a_v2"]["ms"],
+        "plain_ms": x16_v2_plain_ms["x16a"],
+        **day_bound,
+        "library_ms": None,
+        "layouts": {
+            name[:-3]: {
+                **{k: x16_30k[name][k] for k in (
+                    "ms", "turns_ms", "v1_ms", "v1_turns_ms", "nogather_ms",
+                    "noreduce_ms", "copy_floats", "smem", "blocks_per_sm",
+                    "registers", "spill_stores", "spill_loads")},
+                "plain_ms": x16_v2_plain_ms[name[:-3]],
+                **{f"{k}_625": x16_625[name][k] for k in (
+                    "ms", "turns_ms", "v1_ms", "nogather_ms",
+                    "noreduce_ms")}}
+            for name in ("x16a_v2", "x16b_v2")
+        },
+        "k1_ms": x16_30k["x16a_v2"]["k1_ms"],
+        "k1_v2_ms": x16_30k["k1_v2"]["ms"],
+        "k1_v2_turns_ms": x16_30k["k1_v2"]["turns_ms"],
+        "k1_v2_nogather_ms": x16_30k["k1_v2"]["nogather_ms"],
+        "k1_v2_noreduce_ms": x16_30k["k1_v2"]["noreduce_ms"],
+        "k1_v2_blocks_per_sm": x16_30k["k1_v2"]["blocks_per_sm"],
+        "k1_ms_625": x16_625["x16a_v2"]["k1_ms"],
+        "k1_v2_ms_625": x16_625["k1_v2"]["ms"],
+    }, {
         "name": "migrate_detect_probe",
         "route": "cuda",
         "source": "quakemigrate_torch/csrc/migrate_detect_pipelined.cu",
         "replaces": "experiments/exp_dma_probe.py:117",
-        "launches": probe_launches,
+        "launches": probe_launches["migrate_detect_probe"],
         "max_abs_err": probe_err,
         "ms": probe_30k["static2"]["ms"],
         "plain_ms": probe_plain_ms,
@@ -1486,6 +1609,32 @@ def main():
                    "ms_625": probe_625[name]["ms"]}
             for name in ("full", "ref", "static2", "packed")
         },
+        "packed_plain_ms": packed_plain_ms,
+    }, {
+        "name": "migrate_detect_probe_v2",
+        "route": "cuda",
+        "source": "quakemigrate_torch/csrc/migrate_detect_probe_v2.cu",
+        "replaces": "experiments/exp_dma_probe.py:117",
+        "launches": probe_launches["migrate_detect_probe_v2"],
+        "max_abs_err": max(probe_v2_err_625, probe_v2_err),
+        "ms": probe_30k["static2_v2"]["ms"],
+        "plain_ms": probe_v2_plain_ms,
+        **day_bound,
+        "library_ms": None,
+        "modes": {
+            name: {
+                **{k: probe_30k[name][k] for k in (
+                    "ms", "turns_ms", "v1_ms", "v1_turns_ms",
+                    "blocks_per_sm", "smem", "registers", "spill_stores",
+                    "spill_loads")},
+                **{f"{k}_625": probe_625[name][k] for k in (
+                    "ms", "turns_ms", "v1_ms")}}
+            for name in ("static2_v2", "packed_v2")
+        },
+        "ref_v2": {"ms": probe_30k["ref_v2"]["ms"],
+                   "turns_ms": probe_30k["ref_v2"]["turns_ms"],
+                   "blocks_per_sm": probe_30k["ref_v2"]["blocks_per_sm"],
+                   "ms_625": probe_625["ref_v2"]["ms"]},
         "packed_plain_ms": packed_plain_ms,
     }, {
         "name": "stream_probe",

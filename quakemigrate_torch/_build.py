@@ -71,6 +71,18 @@ SIGNATURES = {
         [_VOID_P, _INT, _INT] + [_VOID_P] * 6 + _OUTS + [_INT] * 8
         + [_VOID_P]
     ),
+    # L, t_len, ld, base, slab, valid, tab, inv_avail, outs, O, tiles, tile,
+    # fsmp, S, copy_floats, variant, stream
+    "qm_migrate_detect_x16_v2": (
+        [_VOID_P, _INT, _INT] + [_VOID_P] * 5 + _OUTS + [_INT] * 7
+        + [_VOID_P]
+    ),
+    # L, t_len, ld, base, slab, valid, inv_avail, zeros, outs, O, tiles,
+    # tile, fsmp, S, stride, box, packed, stream
+    "qm_migrate_detect_probe_v2": (
+        [_VOID_P, _INT, _INT] + [_VOID_P] * 5 + _OUTS + [_INT] * 8
+        + [_VOID_P]
+    ),
     # L, t_len, base, span_off, fine, valid, inv_available, zeros, outs,
     # O, tiles, tile, fsmp, S, slot_floats, packed, stream
     "qm_migrate_detect_probe": (
@@ -106,6 +118,9 @@ SIGNATURES = {
     # (O, tile, stride, n_stages) and (O, tile, win_floats)
     "qm_migrate_detect_pipelined_v2_blocks_per_sm": [_INT] * 4,
     "qm_migrate_detect_resident_v2_blocks_per_sm": [_INT] * 3,
+    # (O, tile, copy_floats) and (O, tile, stride)
+    "qm_migrate_detect_x16_v2_blocks_per_sm": [_INT] * 3,
+    "qm_migrate_detect_probe_v2_blocks_per_sm": [_INT] * 3,
     # (O, a_sum, a_max, fuse) and (a_sum)
     "qm_migrate_detect_x16g_blocks_per_sm": [_INT] * 4,
     "qm_migrate_detect_x16g_v2_blocks_per_sm": [_INT],

@@ -12,7 +12,13 @@ with the CUDA kernels of :mod:`quakemigrate_torch.ops.cuda_probe`:
   slots; held bit for bit to K1) and ``packed`` (one
   contiguous 16-byte cp.async run per step from a zero table; held to
   its closed form). K1 (``full``) at the same plan
-  is timed first as the yardstick;
+  is timed first as the yardstick. Then their redesign on E1c v2's TMA
+  ring, E4b v2 (``csrc/migrate_detect_probe_v2.cu``): ``static2_v2``
+  (every slot, barrier and phase parity a constant; bit for bit to K1)
+  and ``packed_v2`` (one bulk copy a step from a zero table; held to the
+  closed form), timed in turns with E1c v2 at the same plan
+  (``ref_v2``, bit for bit to K1) and v1's two modes (:data:`TURNS`);
+
 - ``--stream`` (``main_stream``): device memory -> shared memory
   streaming with no compute, from a seeded random bf16 source of 512 MiB
   looped to 16 GiB streamed, at rows 64, 256 and 1024 a chunk; the output
@@ -32,6 +38,7 @@ import sys
 
 import torch
 
+from quakemigrate_torch import _build
 from quakemigrate_torch.device import resolve_device
 from quakemigrate_torch.experiments import exp_kernel_breakdown as ekb
 from quakemigrate_torch.experiments.exp_x16 import same_as_full, setup
@@ -39,10 +46,16 @@ from quakemigrate_torch.ops import cuda_breakdown as cb
 from quakemigrate_torch.ops import cuda_probe as cp
 from quakemigrate_torch.ops.cuda_migrate import migrate_detect_cuda
 
+# E4b v2's modes, E1c v2 at the same plan, and v1's modes, timed in turns
+TURNS = ("static2_v2", "packed_v2", "ref_v2", "static2", "packed")
+# The mangled name of E4b v2's static2 kernel (its ptxas report)
+V2_KERNEL = "qm_probe_v2_kernelILb0E"
+
 
 def main_probe(s):
     """FULL, the 2-stage pipelined kernel and the two probes on the setup
-    ``s``, each held to its contract and timed; returns their records."""
+    ``s``, each held to its contract and timed, then E4b v2
+    (:func:`main_probe_v2`); returns their records."""
 
     plan = s.plan
     # a uniform span rounded to 4 floats: the packed copy is 16-byte runs
@@ -75,7 +88,62 @@ def main_probe(s):
     for mode in cp.PROBE_MODES:
         records.append(ekb._record(s, mode, ekb.cuda_ms(probe_fn(mode)),
                                    full_ms, slot_floats=slot))
+    records += main_probe_v2(s, full, closed, full_ms,
+                             {mode: probe_fn(mode) for mode in cp.PROBE_MODES})
     torch.cuda.synchronize()
+    return records
+
+
+def main_probe_v2(s, full, closed, full_ms, v1_fns):
+    """E4b v2 on the setup ``s``: static2 and E1c v2 bit for bit to K1's
+    outputs ``full``, packed to its closed form ``closed``; the cases of
+    :data:`TURNS` (``v1_fns``: v1's modes) timed in turns. Returns the
+    records of E4b v2's modes and E1c v2."""
+
+    plan, a = s.plan, s.args
+    t = cb.pipelined_v2_tables(plan, a[5], s.device)
+    zeros = cp.packed_v2_zeros(s.nsamples, plan.n_onsets, t.stride,
+                               s.device)
+
+    def probe_v2_fn(mode):
+        return lambda: cp.migrate_detect_probe_v2_cuda(
+            a[0], a[1], *a[3:], t, mode, zeros)
+
+    def ref_v2_fn():
+        return cb.migrate_detect_pipelined_v2_cuda(a[0], a[1], *a[3:], t)
+
+    same_as_full(full, probe_v2_fn("static2")(), "static2_v2")
+    same_as_full(closed, probe_v2_fn("packed")(), "packed_v2")
+    same_as_full(full, ref_v2_fn(), "ref_v2 (E1c v2)")
+    fns = {"static2_v2": probe_v2_fn("static2"),
+           "packed_v2": probe_v2_fn("packed"), "ref_v2": ref_v2_fn, **v1_fns}
+    turns = ekb.in_turns({name: fns[name] for name in TURNS})
+    mean = {name: sum(ms) / len(ms) for name, ms in turns.items()}
+    layout = {"stride": t.stride, "box": t.box,
+              "smem": cb.pipelined_v2_smem(plan.n_onsets, plan.tile, t.stride,
+                                           2)}
+    records = [ekb._record(
+        s, "ref_v2", mean["ref_v2"], full_ms, turns_ms=turns["ref_v2"],
+        blocks_per_sm=cb.pipelined_v2_blocks_per_sm(
+            plan.n_onsets, plan.tile, t.stride, 2, s.device), **layout)]
+    resources = next(iter(_build.kernel_resources(V2_KERNEL).values()))
+    for mode in cp.PROBE_MODES:
+        name = f"{mode}_v2"
+        records.append(ekb._record(
+            s, name, mean[name], full_ms, turns_ms=turns[name],
+            v1_ms=mean[mode], v1_turns_ms=turns[mode],
+            ref_v2_ms=mean["ref_v2"],
+            blocks_per_sm=cp.probe_v2_blocks_per_sm(
+                plan.n_onsets, plan.tile, t.stride, s.device),
+            **layout, **resources))
+    print("  in turns (ms): " + ", ".join(
+        f"{name} {ms[0]:.4f} / {ms[1]:.4f}" for name, ms in turns.items()))
+    for rec in records:
+        print(f"  {rec['name']}: blocks per SM {rec['blocks_per_sm']}, smem "
+              f"{rec['smem']} bytes"
+              + (f", registers {rec['registers']}, spills "
+                 f"{rec['spill_stores']} / {rec['spill_loads']} bytes"
+                 if "registers" in rec else ""))
     return records
 
 

@@ -94,6 +94,17 @@ def cuda_ms(fn, reps=REPS, warmup=WARMUP):
     return start.elapsed_time(end) / reps
 
 
+def in_turns(fns, reps=REPS, warmup=WARMUP):
+    """CUDA-event milliseconds of each callable of ``fns`` (name ->
+    callable), timed in turns a, b, ..., b, a: {name: [first, second]}."""
+
+    order = list(fns) + list(fns)[::-1]
+    ms = {name: [] for name in fns}
+    for name in order:
+        ms[name].append(cuda_ms(fns[name], reps, warmup))
+    return ms
+
+
 def _record(s, name, ms, full_ms=None, **extra):
     rec = {"name": name, "ms": ms, "gps": s.units / (ms * 1e6),
            "us_per_step": ms * 1e3 / s.n_steps, **extra}

@@ -13,8 +13,8 @@ so it needs nvcc and cuobjdump but no card.
 
     python3 -m quakemigrate_torch.experiments.sass_loops [PATTERN ...]
 
-The default patterns are K1 FULL, K1 v2 FULL (the production kernel)
-and the shifted-copy kernel in both layouts. ``--e1-v2`` adds the gather
+The default patterns are K1 FULL, K1 v2 FULL (the production kernel),
+the shifted-copy kernel in both layouts and its redesign E2 v2 FULL. ``--e1-v2`` adds the gather
 loops of the kernels built on K1 v2's core: E1c v2 FULL at 2 stages and
 E1b v2 FULL (:data:`E1_V2_PATTERNS`).
 
@@ -31,7 +31,8 @@ import sys
 
 DEFAULT_PATTERNS = ("qm_migrate_detect_kernelILi0E",
                     "qm_migrate_detect_v2_kernelILi0E",
-                    "qm_migrate_detect_x16")
+                    "qm_migrate_detect_x16",
+                    "qm_x16_v2_kernelILi0E")
 E1_V2_PATTERNS = ("qm_pipelined_v2_kernelILi0ELi2E",
                   "qm_resident_v2_kernelILi0E")
 
@@ -57,7 +58,9 @@ def parse_sass(text):
 
 def loops(instrs):
     """Every backward branch of ``instrs`` as a loop record: its first
-    and last address, its instruction count and its loads and adds."""
+    and last address, its instruction count, its loads and adds, and its
+    instructions per node-onset (``n / (FADD / 4)``; None without
+    FADD)."""
 
     found = []
     for addr, ins in instrs:
@@ -76,6 +79,8 @@ def loops(instrs):
             "ldg": sum(o.startswith("LDG") for o in ops),
             "fadd": sum(o == "FADD" for o in ops),
         })
+        fadd = found[-1]["fadd"]
+        found[-1]["per_node_onset"] = 4 * len(body) / fadd if fadd else None
     return found
 
 
@@ -113,10 +118,13 @@ def main(argv=None):
         for rec in loops(instrs):
             if rec["lds32"] + rec["lds64"] + rec["lds128"] == 0:
                 continue
+            per = rec["per_node_onset"]
             print(f"  loop {rec['start']:#06x}-{rec['end']:#06x}: "
                   f"{rec['n']} instructions, LDS {rec['lds32']}, LDS.64 "
                   f"{rec['lds64']}, LDS.128 {rec['lds128']}, LDG "
-                  f"{rec['ldg']}, FADD {rec['fadd']}")
+                  f"{rec['ldg']}, FADD {rec['fadd']}"
+                  + ("" if per is None else
+                     f", {per:.2f} instructions a node-onset"))
 
 
 if __name__ == "__main__":

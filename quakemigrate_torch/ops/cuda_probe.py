@@ -13,6 +13,13 @@ its two kernels:
   :func:`~quakemigrate_torch.ops.cuda_migrate.detect_reduce_plan_reference`);
   mode ``packed`` stages one contiguous run per step from a zero table,
   timing only, whose contract is the closed form :func:`packed_reference`;
+  and their redesign on E1c v2's TMA ring, E4b v2
+  (``csrc/migrate_detect_probe_v2.cu``,
+  :func:`migrate_detect_probe_v2_cuda`), through E1c v2's tables
+  (``cuda_breakdown.pipelined_v2_tables``): ``static2`` with every slot,
+  barrier and phase parity constant, plain version
+  :func:`detect_reduce_probe_v2_reference`; ``packed`` with one bulk copy
+  a step from :func:`packed_v2_zeros`;
 - ``_stream_kernel`` -> :func:`stream_probe_cuda`
   (``csrc/stream_probe.cu``): a bf16 ``[n_chunks, rows, 2048]`` source
   streamed ``n_total`` chunks long through shared memory, chunk ``t mod
@@ -27,9 +34,12 @@ from types import SimpleNamespace
 
 import torch
 
+from . import cuda_breakdown as cb
 from .cuda_breakdown import check_pipelined_args
 from .cuda_migrate import (
     SBLK,
+    blocks_per_sm,
+    check_smem,
     detect_reduce_plan_reference,
     empty_outputs,
     launch_kernel,
@@ -48,7 +58,8 @@ STREAM_BYTES = 16 * 2**30    # 16 GiB streamed, as on the TPU
 OUT_ROWS, OUT_LANES = 8, 128
 
 # Launches of each kernel, counted by its wrapper where it launches.
-launches = {"migrate_detect_probe": 0, "stream_probe": 0}
+launches = {"migrate_detect_probe": 0, "migrate_detect_probe_v2": 0,
+            "stream_probe": 0}
 
 
 def reset_launches():
@@ -147,6 +158,96 @@ def migrate_detect_probe_cuda(onsets_log, base, fine, valid, inv_available,
     )
     launches["migrate_detect_probe"] += 1
     return outs
+
+
+def packed_v2_zeros(nsamples, n_onsets, stride, device):
+    """The zero table E4b v2's ``packed`` probe stages from: one slot of
+    ``n_onsets * stride`` floats per sample block, 16-byte aligned."""
+
+    return torch.zeros(-(-nsamples // SBLK) * n_onsets * stride,
+                       dtype=torch.float32, device=device)
+
+
+def detect_reduce_probe_v2_reference(onsets_log, base, valid, inv_available,
+                                     fsmp, nsamples, tables, mode):
+    """
+    Plain PyTorch version of E4b v2's probe ``mode`` through E1c v2's
+    ``tables``: ``static2`` gathers through the slab and window layout
+    (``cuda_breakdown.pipelined_v2_reference``, K1's contract); ``packed``
+    stages zeros whatever the onsets, so its contract is
+    :func:`packed_reference`. Returns (tmax f32, targ int32, tsum f32),
+    each [n_tiles, nsamples].
+
+    """
+
+    if mode not in PROBE_MODES:
+        raise ValueError(f"unknown mode {mode!r}; one of {PROBE_MODES}")
+    if mode == "packed":
+        return packed_reference(valid, nsamples)
+    return cb.pipelined_v2_reference(onsets_log, base, valid, inv_available,
+                                     fsmp, nsamples, tables)
+
+
+def migrate_detect_probe_v2_cuda(onsets_log, base, valid, inv_available,
+                                 fsmp, nsamples, tables, mode, zeros=None):
+    """
+    Launch E4b v2's probe ``mode`` (one of :data:`PROBE_MODES`) on tensors
+    on the card: E1c v2's persistent, tile-major 2-slot TMA ring through
+    the ``tables`` of ``cuda_breakdown.pipelined_v2_tables`` (built for
+    this ``fsmp``), its step loop unrolled so that every slot, barrier and
+    phase parity is a constant. ``packed`` stages each step with one bulk
+    copy from ``zeros`` (:func:`packed_v2_zeros`). Returns (tmax f32, targ
+    int32, tsum f32), each [n_tiles, nsamples], asynchronously on the
+    current stream.
+
+    """
+
+    if mode not in PROBE_MODES:
+        raise ValueError(f"unknown mode {mode!r}; one of {PROBE_MODES}")
+    cb._check_tables_fsmp(tables, fsmp)
+    n_tiles, tile = valid.shape
+    n_onsets = onsets_log.shape[0]
+    n_onsets, t_len, n_tiles, tile = cb._check_slab_kernel_args(
+        onsets_log, valid, inv_available, nsamples, {
+            "base": (base, torch.int32, (n_tiles, n_onsets)),
+            "slab": (tables.slab, torch.uint16,
+                     (n_tiles, tile, -(-n_onsets // 8) * 8)),
+        })
+    stride, box = tables.stride, tables.box
+    if (stride % cb.TMA_ALIGN or not SBLK < box <= min(stride, 256)
+            or box % 4):
+        raise ValueError(f"bad window layout: stride {stride}, box {box}")
+    packed = mode == "packed"
+    if packed:
+        need = -(-nsamples // SBLK) * n_onsets * stride
+        if (zeros is None or zeros.device != onsets_log.device
+                or zeros.dtype != torch.float32 or not zeros.is_contiguous()
+                or zeros.numel() < need or zeros.data_ptr() % 16):
+            raise ValueError(
+                f"packed staging needs a contiguous, 16-byte aligned float32 "
+                f"zero table of at least {need} values on {onsets_log.device}"
+            )
+    check_smem(cb.pipelined_v2_smem(n_onsets, tile, stride, 2),
+               f"2 slots of {n_onsets} x {stride} floats")
+    rows, pitch = cb._row_pitch(onsets_log)
+    outs = empty_outputs(n_tiles, nsamples, onsets_log.device)
+    launch_kernel(
+        "qm_migrate_detect_probe_v2", onsets_log.device,
+        rows.data_ptr(), t_len, pitch, base.data_ptr(),
+        tables.slab.data_ptr(), valid.data_ptr(), inv_available.data_ptr(),
+        zeros.data_ptr() if packed else None,
+        *(x.data_ptr() for x in outs), n_onsets, n_tiles, tile, fsmp,
+        nsamples, stride, box, int(packed),
+    )
+    launches["migrate_detect_probe_v2"] += 1
+    return outs
+
+
+def probe_v2_blocks_per_sm(n_onsets, tile, stride, device):
+    """Resident blocks per SM of E4b v2 (static2) at a window layout."""
+
+    return blocks_per_sm("qm_migrate_detect_probe_v2_blocks_per_sm", device,
+                         n_onsets, tile, stride)
 
 
 def stream_geometry(rows, source_bytes=SOURCE_BYTES, stream_bytes=STREAM_BYTES):

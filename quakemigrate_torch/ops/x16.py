@@ -18,6 +18,7 @@ a table of stride 4 in shared memory. The port's plan does not align
 
 import torch
 
+from .cuda_breakdown import _check_tables_fsmp, _slab_acc_chunks
 from .cuda_migrate import reduce_acc_chunks
 
 
@@ -84,5 +85,32 @@ def detect_reduce_stride_reference(onsets_log, base, fine, valid,
                          stride)
     return reduce_acc_chunks(
         stride_acc_chunks(table, stride, base, fine, nsamples, max_elements),
+        valid, inv_available,
+    )
+
+
+def x16_v2_reference(onsets_log, base, valid, inv_available, fsmp, nsamples,
+                     tables, max_elements=2**23):
+    """
+    Plain PyTorch version of E2 v2 (K1's contract) through its tables
+    (:func:`~quakemigrate_torch.ops.cuda_x16.x16_v2_tables`): a slab entry
+    ``e`` of onset o lies in copy c, the last whose offset ``coff[c, o]``
+    is at most e, and reads the window samples from ``u = e - coff[c, o] +
+    c``; onset o's window starts at column ``(fsmp + base[i, o]) & ~3``
+    (+ s0). Returns (tmax f32, targ int32, tsum f32), each [n_tiles,
+    nsamples].
+
+    """
+
+    _check_tables_fsmp(tables, fsmp)
+    n_onsets = base.shape[1]
+    coff = tables.tab[:4].long()
+    entry = tables.slab[..., :n_onsets].long()
+    copy = sum((entry >= coff[c]).long() for c in (1, 2, 3))
+    u = entry - coff.gather(0, copy.reshape(-1, n_onsets)).reshape(
+        entry.shape) + copy
+    col0 = (fsmp + base.long()) // 4 * 4
+    return reduce_acc_chunks(
+        _slab_acc_chunks(onsets_log, col0, u, nsamples, max_elements),
         valid, inv_available,
     )

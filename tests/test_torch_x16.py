@@ -152,7 +152,8 @@ def test_x16_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="unknown layout"):
         cuda_x16.migrate_detect_x16_cuda(*args, plan.r_span, plan.max_shift,
                                          "x16c")
-    assert cuda_x16.launches == {"migrate_detect_x16": 0}
+    assert cuda_x16.launches == {"migrate_detect_x16": 0,
+                                 "migrate_detect_x16_v2": 0}
 
 
 _SASS = """
@@ -180,7 +181,7 @@ def test_sass_loop_census():
     assert x16_ins[2] == (0x20, "LDS.128 R16, [R16]")
     assert sass_loops.loops(x16_ins) == [{
         "start": 0x10, "end": 0x50, "n": 5, "lds32": 1, "lds64": 0,
-        "lds128": 1, "ldg": 1, "fadd": 1,
+        "lds128": 1, "ldg": 1, "fadd": 1, "per_node_onset": 20.0,
     }]
     assert sass_loops.loops(
         kernels["_Z24qm_migrate_detect_kernelILi0EEvPKf"]) == []
