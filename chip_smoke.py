@@ -27,10 +27,23 @@ Smoke run of quakemigrate_torch on one NVIDIA GPU.
    peak above every other window's, within one grid node of the source.
 5. The VPU-plan kernel (csrc/migrate_detect_vpu.cu) against its plain
    version on a small plan and at the Icequake grid (tile 512, bricks
-   8 x 8 x 8), timed; then its path: the 16 windows' onsets from
-   fused_onsets through CudaDetectVPU, with 16 launches, max_coa and
-   max_coa_n within 1e-5 and 1e-4 of DetectScan's results, argmax
-   tie-consistent, and the planted node found within one grid node.
+   8 x 8 x 8), timed; then K2 v2 (csrc/migrate_detect_vpu_v2.cu, the
+   same kernel on an mbarrier ring) at both plans against its own plain
+   version, bit for bit to K2 (tmax, targ, tsum) and, in tmax and targ,
+   to K1, and at Icequake timed in turns with K2 and K1 v2 (v2, v1, K1
+   v2, K1 v2, v1, v2) with its shared memory, blocks per SM, registers
+   and spills. Then the VPU path: the 16 windows' onsets from
+   fused_onsets through CudaDetectVPU (K2 v2), with 16 launches of K2
+   v2 and none of K2, max_coa and max_coa_n within 1e-5 and 1e-4 of
+   DetectScan's results, argmax tie-consistent, and the planted node
+   found within one grid node. K2, which no path runs now, reports its
+   launches as K2 v2's yardstick, each case read straight after a
+   reset: its own small and Icequake cases, and the day case of step 8.
+   F1 follows: 2 windows of 128 stations x P/S (256 onsets) on the
+   Icequake grid, which K1 v2 cannot stage, go through DetectScan by
+   its K2 v2 route on the same plan (the reason printed; 2 launches of
+   K2 v2, none of K1 v2 or K2; outputs finite, max_coa and max_coa_n
+   within 1e-5 of the plain window, the argmax tie-consistent).
 6. The detect-kernel breakdown (quakemigrate_torch.ops.cuda_breakdown):
    each ablation of K1 against its own plain
    contract, the resident-staging kernel and the pipelined kernel (2, 3
@@ -64,7 +77,10 @@ Smoke run of quakemigrate_torch on one NVIDIA GPU.
    (csrc/migrate_detect_probe_v2.cu): static2 bit for bit to K1, packed
    equal to its closed form, timed in turns with E1c v2 at that plan and
    v1's modes; static2's plain version bit for bit to the plan reference
-   (timed once) and the kernel to it within 1e-5.
+   (timed once) and the kernel to it within 1e-5. On the same setup K2
+   v2 (experiments/exp_vpu_v2.run): bit for bit to K2 and, in tmax and
+   targ, to K1, timed in turns with K2 and K1 v2, and held to its plain
+   version (timed once).
 9. The streaming probe (csrc/stream_probe.cu) through
    experiments/exp_dma_probe.main_stream at rows 64, 256 and 1024, 2 GiB
    streamed each from a seeded random bf16 source of 512 MiB, its output
@@ -112,6 +128,10 @@ Smoke run of quakemigrate_torch on one NVIDIA GPU.
    fastest depth), E1b v1 (group 2), K1 and K1 v2, with their NOGATHER
    and NOREDUCE held bit for bit to K1 v2's and timed, and their blocks
    per SM, registers and spills.
+
+14. The machine-code census (experiments/sass_loops.census) of K2, K2
+   v2 and K1 v2: each gather loop's instructions, loads and adds, and
+   its instructions a node-onset-sample.
 
 Every kernel line carries its launches on its path (each path run with
 the counts set to 0 just before it), its time and its plain version's,
@@ -225,16 +245,16 @@ def detect_bound(args, n_nodes):
             "smem_bound_ms": smem_ms}
 
 
-def icequake_traveltimes(rng):
-    """Homogeneous-moveout tables of 12 surface stations, phase-major
-    (P for every station, then S), and the station positions."""
+def icequake_traveltimes(rng, n_stations=N_STATIONS):
+    """Homogeneous-moveout tables of ``n_stations`` surface stations,
+    phase-major (P for every station, then S)."""
 
     from quakemigrate_torch.lut import traveltime_table
 
     axes = [np.arange(n) * SPACING_KM for n in NODE_COUNT]
     x, y, z = np.meshgrid(*axes, indexing="ij")
     stations = rng.uniform(
-        [0.0, 0.0], [axes[0][-1], axes[1][-1]], size=(N_STATIONS, 2)
+        [0.0, 0.0], [axes[0][-1], axes[1][-1]], size=(n_stations, 2)
     )
     dist = [np.sqrt((x - sx) ** 2 + (y - sy) ** 2 + z**2)
             for sx, sy in stations]
@@ -247,20 +267,28 @@ def kernel_case(name, tt, node_count, fsmp, nsamples, tile, brick, rng,
     """A detect kernel against its plain version on the same staged
     onsets: ``kernel`` is "k1" (csrc/migrate_detect.cu), "v2" (K1 v2,
     also held bit for bit to K1 and, with ``time_it``, timed in turns
-    with it), "vpu" (the VPU-plan kernel, at a CudaDetectVPU plan) or a
-    layout of the shifted-copy kernel ("x16a", "x16b"; its plain version
-    is the stride-table reference)."""
+    with it), "vpu" (the VPU-plan kernel, at a CudaDetectVPU plan),
+    "vpu_v2" (K2 v2, at that plan, through its own plain version; also
+    held bit for bit to K2 and, in tmax and targ, to K1 and, with
+    ``time_it``, timed in turns with K2 and K1 v2) or a layout of the
+    shifted-copy kernel ("x16a", "x16b"; its plain version is the
+    stride-table reference)."""
 
     from quakemigrate_torch.ops.cuda_migrate import (
+        VPU_V2_GROUP,
         CudaDetect,
         CudaDetectVPU,
+        DetectPlan,
         detect_blocks_per_sm,
         detect_reduce_plan_reference,
         detect_v2_blocks_per_sm,
         migrate_detect_cuda,
         migrate_detect_v2_cuda,
         migrate_detect_vpu_cuda,
+        migrate_detect_vpu_v2_cuda,
+        vpu_v2_reference,
     )
+    from quakemigrate_torch.experiments import exp_vpu_v2
     from quakemigrate_torch.experiments.exp_kernel_breakdown import in_turns
     from quakemigrate_torch.ops.cuda_x16 import migrate_detect_x16_cuda
     from quakemigrate_torch.ops.migrate import _prepare_onsets
@@ -268,8 +296,10 @@ def kernel_case(name, tt, node_count, fsmp, nsamples, tile, brick, rng,
 
     n_onsets = tt.shape[1]
     t_len = fsmp + nsamples + int(tt.max()) + 7
-    det = (CudaDetectVPU if kernel == "vpu" else CudaDetect)(
-        tt, node_count, fsmp, nsamples, device, tile=tile, brick_shape=brick)
+    plan = DetectPlan(tt, node_count, tile=tile, brick_shape=brick)
+    det = (CudaDetectVPU if kernel in ("vpu", "vpu_v2") else CudaDetect)(
+        tt, node_count, fsmp, nsamples, device, tile=tile, brick_shape=brick,
+        plan=plan)
     plain = detect_reduce_plan_reference
 
     def k1(*a):
@@ -283,11 +313,17 @@ def kernel_case(name, tt, node_count, fsmp, nsamples, tile, brick, rng,
                                           det.span_off, det.win_floats)
         if kernel == "vpu":
             return migrate_detect_vpu_cuda(*a, det.r_span)
+        if kernel == "vpu_v2":
+            return migrate_detect_vpu_v2_cuda(a[0], a[1], *a[3:], det.tables,
+                                              det.n_stages)
         return migrate_detect_x16_cuda(*a, det.r_span,
                                        int(np.maximum(tt, 0).max()), kernel)
 
     if kernel in ("x16a", "x16b"):
         plain = detect_reduce_stride_reference
+    if kernel == "vpu_v2":
+        def plain(*a):
+            return vpu_v2_reference(a[0], a[1], *a[3:], det.tables)
     onsets = torch.from_numpy(
         rng.gamma(2.0, 1.5, size=(n_onsets, t_len)).astype(np.float32)
     ).to(device)
@@ -342,42 +378,61 @@ def kernel_case(name, tt, node_count, fsmp, nsamples, tile, brick, rng,
               f"blocks per SM {record['blocks_per_sm']} (K1 "
               f"{record['k1_blocks_per_sm']})")
         check(all(same), f"{name}: K1 v2 differs from K1")
+    if kernel == "vpu_v2":
+        same = [torch.equal(a, b) for a, b in zip(
+            (kmax, karg, ksum), migrate_detect_vpu_cuda(*args, det.r_span))]
+        same_k1 = [torch.equal(a, b) for a, b in zip(
+            (kmax, karg), migrate_detect_cuda(*args, det.r_span))]
+        print(f"kernel[{name}]: equal to K2 (tmax, targ, tsum) {same}, to "
+              f"K1 (tmax, targ) {same_k1}; npp {det.tables.npp}, group "
+              f"{VPU_V2_GROUP}, {det.n_stages} stages")
+        check(all(same), f"{name}: K2 v2 differs from K2")
+        check(all(same_k1), f"{name}: K2 v2's tmax or targ differs from K1's")
+        if time_it:
+            # bit for bit again, then in turns with K2 and K1 v2
+            record.update(exp_vpu_v2.run(exp_vpu_v2.plan_setup(plan, args),
+                                         reps=20, n_stages=det.n_stages))
     if time_it and kernel == "v2":
         turns = in_turns({"v2": lambda: fn(*args), "k1": lambda: k1(*args)},
                          reps=20)
         record["ms"] = float(np.mean(turns["v2"]))
         record["k1_ms"] = float(np.mean(turns["k1"]))
         record["turns_ms"] = turns
-    elif time_it:
+    elif time_it and kernel != "vpu_v2":
         record["ms"] = cuda_ms(lambda: fn(*args), reps=20)
     if time_it:
         record["plain_ms"] = cuda_ms(lambda: plain(*args), reps=3, warmup=1)
         print(f"kernel[{name}]: {record['ms']:.4f} ms per launch, plain "
               f"version {record['plain_ms']:.4f} ms"
-              + (f"; in turns {turns}" if kernel == "v2" else ""))
+              + (f"; in turns {turns}" if kernel == "v2" else "")
+              + (f"; in turns {record['turns_ms']}" if kernel == "vpu_v2"
+                 else ""))
     return record
 
 
-def make_windows(tt, rng):
-    """16 consecutive windows of a continuous 3-component noise record
-    with one planted source; returns (windows, planted node index)."""
+def make_windows(tt, rng, n_windows=N_WINDOWS, plant_window=PLANT_WINDOW):
+    """``n_windows`` consecutive windows of a continuous 3-component noise
+    record of the stations of ``tt`` (phase-major slots) with one planted
+    source in window ``plant_window``; returns (windows, planted node
+    index)."""
 
     from quakemigrate_torch.util import time2sample
 
     n_slots = tt.shape[1]
+    n_stations = n_slots // 2
     hop = NSAMPLES
     t_len = FSMP + NSAMPLES + LSMP
-    total = (N_WINDOWS - 1) * hop + t_len
-    waves = rng.normal(size=(N_STATIONS, 3, total)).astype(np.float32)
+    total = (n_windows - 1) * hop + t_len
+    waves = rng.normal(size=(n_stations, 3, total)).astype(np.float32)
 
     planted = tuple(int(rng.integers(8, n - 8)) for n in NODE_COUNT)
     node = int(np.ravel_multi_index(planted, NODE_COUNT))
-    origin = PLANT_WINDOW * hop + FSMP + 300
+    origin = plant_window * hop + FSMP + 300
     # Amplitude 4 against unit noise keeps the STA/LTA below saturation,
     # so each onset peaks at one sample and the planted node is sharp.
     wavelet = np.array([4.0, -4.0], np.float32)
-    for s in range(N_STATIONS):
-        for phase_slot in (s, s + N_STATIONS):
+    for s in range(n_stations):
+        for phase_slot in (s, s + n_stations):
             arrival = origin + int(tt[node, phase_slot])
             for c in range(3):
                 waves[s, c, arrival:arrival + len(wavelet)] += (
@@ -386,19 +441,19 @@ def make_windows(tt, rng):
 
     nsta = np.array(
         [time2sample(STA_LTA[p][0], RATE) for p in ("P", "S")
-         for _ in range(N_STATIONS)], dtype=np.int32)
+         for _ in range(n_stations)], dtype=np.int32)
     nlta = np.array(
         [time2sample(STA_LTA[p][1], RATE) for p in ("P", "S")
-         for _ in range(N_STATIONS)], dtype=np.int32)
+         for _ in range(n_stations)], dtype=np.int32)
 
     windows = []
-    for w in range(N_WINDOWS):
+    for w in range(n_windows):
         seg = waves[:, :, w * hop:w * hop + t_len]
         channels = np.concatenate([seg, seg])  # P slots, then S slots
         chan_mask = np.ones((n_slots, 3), np.float32)
         slot_mask = np.ones(n_slots, np.float32)
         if w == DEAD_WINDOW:
-            for slot in (DEAD_STATION, DEAD_STATION + N_STATIONS):
+            for slot in (DEAD_STATION, DEAD_STATION + n_stations):
                 channels[slot] = 0.0
                 chan_mask[slot] = 0.0
                 slot_mask[slot] = 0.0
@@ -445,6 +500,9 @@ def run_slice(tt, rng, device):
     planted_ijk = np.array(np.unravel_index(node, NODE_COUNT))
     scan = DetectScan(tt, NODE_COUNT, FSMP, LSMP, position="classic",
                       transform="energy", min_onset_value=0.4, device=device)
+    print(f"slice: route {scan.route}")
+    check(scan.route == "k1_v2", f"the Icequake window takes the "
+          f"{scan.route} route ({scan.route_reason})")
     detector = scan.detector(NSAMPLES)  # plan built before the counted run
 
     detector.launches = 0
@@ -527,18 +585,19 @@ def run_slice(tt, rng, device):
 
 def run_vpu_path(tt, windows, scan_results, planted_ijk, device):
     """The VPU-plan kernel's path: each window's onsets (fused_onsets)
-    through CudaDetectVPU, held against DetectScan's results."""
+    through CudaDetectVPU (K2 v2), held against DetectScan's results."""
 
     from quakemigrate_torch.lut import unravel
-    from quakemigrate_torch.ops.cuda_migrate import CudaDetectVPU
+    from quakemigrate_torch.ops import cuda_migrate as cm
     from quakemigrate_torch.ops.scan_window import fused_onsets
 
-    detector = CudaDetectVPU(tt, NODE_COUNT, FSMP, NSAMPLES, device)
+    detector = cm.CudaDetectVPU(tt, NODE_COUNT, FSMP, NSAMPLES, device)
     blocks = [[torch.from_numpy(a).to(device) for a in block]
               for block in windows]
     torch.cuda.synchronize()
 
     detector.launches = 0
+    cm.reset_launches()
     outs = []
     for channels, chan_mask, slot_mask, nsta, nlta in blocks:
         combined, available = fused_onsets(
@@ -547,10 +606,12 @@ def run_vpu_path(tt, windows, scan_results, planted_ijk, device):
         )
         outs.append(detector(combined, slot_mask, available))
     torch.cuda.synchronize()
-    launches = detector.launches
-    print(f"vpu path: {N_WINDOWS} windows, kernel launches {launches}")
-    check(launches == N_WINDOWS,
-          f"{launches} VPU kernel launches for {N_WINDOWS} windows")
+    launches = cm.launches["migrate_detect_vpu_v2"]
+    print(f"vpu path: {N_WINDOWS} windows, kernel launches {cm.launches}")
+    check(launches == detector.launches == N_WINDOWS,
+          f"{launches} K2 v2 launches for {N_WINDOWS} windows")
+    check(cm.launches["migrate_detect_vpu"] == 0,
+          "vpu path: K2 v1 was launched")
 
     tt_dev = torch.from_numpy(tt).to(device)
     peaks = []
@@ -582,6 +643,111 @@ def run_vpu_path(tt, windows, scan_results, planted_ijk, device):
           "vpu path: the planted window's peak is not the highest")
     check(dist <= 1, f"vpu path: peak node {dist} nodes from the planted node")
     return launches
+
+
+def vpu_v2_day_path(s):
+    """K2 v2 at the day-scale window at the VPU plan (the setup ``s``:
+    30,000 samples, tile 512, bricks 8 x 8 x 8): bit for bit to K2 v1
+    (tmax, targ, tsum) and, in tmax and targ, to K1, timed in turns with
+    K2 v1 and K1 v2 (experiments/exp_vpu_v2.run, 5 launches a turn); its
+    plain version timed once and the kernel held to it."""
+
+    from quakemigrate_torch.experiments import exp_vpu_v2
+    from quakemigrate_torch.ops import cuda_migrate as cm
+
+    record = exp_vpu_v2.run(s)
+    a = s.args
+    tables = cm.vpu_v2_tables(s.plan, a[5], s.device)
+    t0 = time.perf_counter()
+    ref = cm.vpu_v2_reference(a[0], a[1], *a[3:], tables)
+    torch.cuda.synchronize()
+    record["plain_ms"] = (time.perf_counter() - t0) * 1e3
+    record["max_abs_err"] = hold(
+        f"vpu v2 at {s.nsamples} samples",
+        cm.migrate_detect_vpu_v2_cuda(a[0], a[1], *a[3:], tables), ref, s,
+        "full")
+    record.update(detect_bound(s.args, s.plan.n_nodes))
+    print(f"vpu v2 day: {record['ms']:.4f} ms (K2 {record['v1_ms']:.4f}, "
+          f"K1 v2 {record['k1_v2_ms']:.4f} in the same turns); plain "
+          f"version {record['plain_ms']:.1f} ms (one run); gather floor "
+          f"{record['smem_bound_ms']:.4f} ms")
+    return record
+
+
+def f1_path(device, n_stations=128, n_windows=2):
+    """F1: windows K1 v2 cannot stage. The Icequake grid with
+    ``n_stations`` stations x P/S (256 onsets): DetectScan takes its K2
+    v2 route on the same plan (K1 v2 refuses it; the reason printed),
+    launches K2 v2 once a window and K1 v2 and K2 never, and its results
+    are held to the plain window (max_coa and max_coa_n within 1e-5, the
+    argmax tie-consistent). Returns K2 v2's launches and a record."""
+
+    from quakemigrate_torch.ops import cuda_migrate as cm
+    from quakemigrate_torch.signal.scan import DetectScan
+
+    rng = np.random.default_rng(2029)
+    tt = icequake_traveltimes(rng, n_stations)
+    windows, _ = make_windows(tt, rng, n_windows, plant_window=1)
+    scan = DetectScan(tt, NODE_COUNT, FSMP, LSMP, position="classic",
+                      transform="energy", min_onset_value=0.4, device=device)
+    print(f"f1: {tt.shape[1]} onsets, route {scan.route}: "
+          f"{scan.route_reason}")
+    check(scan.route == "k2_v2" and "shared memory" in scan.route_reason,
+          f"f1: route {scan.route} ({scan.route_reason})")
+    detector = scan.detector(NSAMPLES)  # plan built before the counted run
+    t = detector.tables
+    smem = cm.vpu_v2_smem(detector.tile, t.r_span, detector.n_stages)
+    check(smem <= cm.SMEM_LIMIT, f"f1: K2 v2 needs {smem} bytes")
+    torch.cuda.synchronize()
+    cm.reset_launches()
+    t0 = time.perf_counter()
+    results = scan.detect(windows)
+    wall = time.perf_counter() - t0
+    launches = dict(cm.launches)
+    check(launches["migrate_detect_vpu_v2"] == n_windows,
+          f"f1: {launches['migrate_detect_vpu_v2']} K2 v2 launches for "
+          f"{n_windows} windows")
+    check(launches["migrate_detect_v2"] == 0
+          and launches["migrate_detect_vpu"] == 0,
+          f"f1: K1 v2 or K2 was launched ({launches})")
+
+    tt_dev = torch.from_numpy(tt).to(device)
+    errs = []
+    t0 = time.perf_counter()
+    refs = [[x.cpu().numpy() for x in plain_window(block, tt_dev, device)]
+            for block in windows]
+    plain_wall = time.perf_counter() - t0
+    for w, (block, res, ref) in enumerate(zip(windows, results, refs)):
+        max_coa, max_coa_n, max_idx, ijk = res
+        check(max_coa.shape == (NSAMPLES,) and ijk.shape == (NSAMPLES, 3)
+              and np.isfinite(max_coa).all() and np.isfinite(max_coa_n).all(),
+              f"f1 window {w}: shapes or non-finite values")
+        rel = np.abs(max_coa - ref[0]) / np.abs(ref[0])
+        rel_n = np.abs(max_coa_n - ref[1]) / np.abs(ref[1])
+        tie = np.abs(ref[0] - plain_coa_at(block, tt_dev, max_idx, device))
+        tie = tie / np.abs(ref[0])
+        check(rel.max() <= MAX_COA_RTOL and rel_n.max() <= MAX_COA_RTOL,
+              f"f1 window {w}: K2 v2 route {rel.max()}, {rel_n.max()}")
+        check(tie.max() <= MAX_COA_RTOL, f"f1 window {w}: argmax tie "
+              f"{tie.max()}")
+        errs.append(float(np.abs(max_coa - ref[0]).max()))
+        peak = int(np.argmax(max_coa))
+        print(f"f1 window {w}: K2 v2 route vs plain window max_coa "
+              f"{rel.max():.2e}, max_coa_n {rel_n.max():.2e}, tie "
+              f"{tie.max():.2e}, argmax equal {(max_idx == ref[2]).mean():.4f}"
+              f"; peak {max_coa[peak]:.6f} at {ijk[peak].tolist()}")
+    print(f"f1: {n_windows} windows through DetectScan's K2 v2 route in "
+          f"{wall:.3f} s wall (first call; device ms a window "
+          f"{np.round(scan.window_ms, 3).tolist()}), the plain window "
+          f"{plain_wall:.3f} s; K2 v2 block {smem} bytes ({t.npp} nodes a "
+          f"pass, {cm.VPU_V2_GROUP} onsets a stage, {detector.n_stages} "
+          f"stages); launches {launches}")
+    return launches["migrate_detect_vpu_v2"], {
+        "onsets": tt.shape[1], "route": scan.route,
+        "route_reason": scan.route_reason, "route_wall_s": wall,
+        "window_ms": scan.window_ms, "plain_window_wall_s": plain_wall,
+        "vpu_v2_smem": smem, "tile": detector.tile,
+        "n_stages": detector.n_stages, "max_abs_err": max(errs)}
 
 
 def scaled_err(got, ref):
@@ -1362,15 +1528,33 @@ def main():
                             time_it=True, kernel="v2")
     k1_launches = cm.launches["migrate_detect"]
 
+    # K2, K2 v2's yardstick on no path: its launches a case, each read
+    # straight after a reset
+    vpu_v1_launches = {}
     rng_vpu = np.random.default_rng(2025)
+    torch.cuda.synchronize()
+    cm.reset_launches()
     kernel_case("vpu small", small_tt, (10, 9, 8), 16, 100, 64, (4, 4, 4),
                 rng_vpu, device, kernel="vpu")
+    torch.cuda.synchronize()
+    vpu_v1_launches["small"] = cm.launches["migrate_detect_vpu"]
+    cm.reset_launches()
     vpu_record = kernel_case("vpu icequake", tt, NODE_COUNT, FSMP, NSAMPLES,
                              512, (8, 8, 8), rng_vpu, device, n_masked=2,
                              time_it=True, kernel="vpu")
+    torch.cuda.synchronize()
+    vpu_v1_launches["icequake"] = cm.launches["migrate_detect_vpu"]
+    rng_vpu_v2 = np.random.default_rng(2030)
+    vpu_v2_small = kernel_case("vpu v2 small", small_tt, (10, 9, 8), 16, 100,
+                               64, (4, 4, 4), rng_vpu_v2, device,
+                               kernel="vpu_v2")
+    vpu_v2_record = kernel_case("vpu v2 icequake", tt, NODE_COUNT, FSMP,
+                                NSAMPLES, 512, (8, 8, 8), rng_vpu_v2, device,
+                                n_masked=2, time_it=True, kernel="vpu_v2")
 
     launches, windows, results, planted_ijk = run_slice(tt, rng, device)
     vpu_launches = run_vpu_path(tt, windows, results, planted_ijk, device)
+    f1_launches, f1_record = f1_path(device)
 
     checks = breakdown_checks(device)
     s_day = ekb.setup(device=device)
@@ -1404,6 +1588,11 @@ def main():
      x16_v2_err) = x16_path(s30)
     (probe_launches, probe_30k, probe_plain_ms, packed_plain_ms,
      probe_err, probe_v2_plain_ms, probe_v2_err) = probe_path(s30)
+    torch.cuda.synchronize()
+    cm.reset_launches()
+    vpu_v2_day = vpu_v2_day_path(s30)
+    torch.cuda.synchronize()
+    vpu_v1_launches["day"] = cm.launches["migrate_detect_vpu"]
     del s30
     torch.cuda.empty_cache()
     stream_launches, streams = stream_path(device)
@@ -1424,6 +1613,12 @@ def main():
     torch.cuda.empty_cache()
     (x16g_launches, x16g_30k, x16g_plain_ms, x16g_err,
      x16g_bounds) = x16g_path(exp_x16g.setup(device=device))
+
+    from quakemigrate_torch.experiments import sass_loops
+
+    census = sass_loops.census(sass_loops.VPU_PATTERNS
+                               + ("qm_migrate_detect_v2_kernelILi0E",))
+    sass_loops.print_census(census)
 
     kernels = [{
         "name": "migrate_detect",
@@ -1466,16 +1661,53 @@ def main():
         "route": "cuda",
         "source": "quakemigrate_torch/csrc/migrate_detect_vpu.cu",
         "replaces": "quakemigrate_tpu/ops/pallas_migrate.py:242",
-        "launches": vpu_launches,
+        # K2 runs on no path: its Icequake case's launches, and each
+        # case's, as K2 v2's yardstick
+        "launches": vpu_v1_launches["icequake"],
+        "yardstick_launches": vpu_v1_launches,
         "max_abs_err": vpu_record["max_abs_err"],
         "max_rel_err_tmax": vpu_record["max_rel_err_tmax"],
         "max_rel_err_tsum": vpu_record["max_rel_err_tsum"],
         "ms": vpu_record["ms"],
+        "turns_ms": vpu_v2_record["turns_ms"]["vpu"],
         "plain_ms": vpu_record["plain_ms"],
         "bound_ms": vpu_record["bound_ms"],
         "bound_by": vpu_record["bound_by"],
         "smem_bound_ms": vpu_record["smem_bound_ms"],
         "library_ms": None,
+        "day_ms": vpu_v2_day["v1_ms"],
+    }, {
+        "name": "migrate_detect_vpu_v2",
+        "route": "cuda",
+        "source": "quakemigrate_torch/csrc/migrate_detect_vpu_v2.cu",
+        "replaces": "quakemigrate_tpu/ops/pallas_migrate.py:242",
+        "launches": vpu_launches,
+        "max_abs_err": max(vpu_v2_small["max_abs_err"],
+                           vpu_v2_record["max_abs_err"],
+                           vpu_v2_day["max_abs_err"]),
+        "max_rel_err_tmax": vpu_v2_record["max_rel_err_tmax"],
+        "max_rel_err_tsum": vpu_v2_record["max_rel_err_tsum"],
+        "ms": vpu_v2_record["ms"],
+        "v1_ms": vpu_v2_record["v1_ms"],
+        "k1_v2_ms": vpu_v2_record["k1_v2_ms"],
+        "turns_ms": vpu_v2_record["turns_ms"],
+        "plain_ms": vpu_v2_record["plain_ms"],
+        "bound_ms": vpu_v2_record["bound_ms"],
+        "bound_by": vpu_v2_record["bound_by"],
+        "smem_bound_ms": vpu_v2_record["smem_bound_ms"],
+        "library_ms": None,
+        **{k: vpu_v2_record[k] for k in (
+            "npp", "group", "n_stages", "smem", "blocks_per_sm",
+            "registers", "spill_stores", "spill_loads")},
+        "day": {k: vpu_v2_day[k] for k in (
+            "ms", "v1_ms", "k1_v2_ms", "turns_ms", "plain_ms", "bound_ms",
+            "bound_by", "smem_bound_ms", "max_abs_err")},
+        "f1": {"launches": f1_launches, **f1_record},
+        "census": {
+            name: {"instructions": n, "loops": [
+                {k: rec[k] for k in ("n", "lds32", "lds128", "fadd")}
+                for rec in recs]}
+            for name, (n, recs) in census.items()},
     }, {
         "name": "migrate_detect_ablate",
         "route": "cuda",

@@ -71,6 +71,12 @@ SIGNATURES = {
         [_VOID_P, _INT, _INT] + [_VOID_P] * 6 + _OUTS + [_INT] * 8
         + [_VOID_P]
     ),
+    # L, t_len, ld, base, res, valid, inv_avail, outs, O, tiles, tile,
+    # fsmp, S, stride, box, n_boxes, n_stages, stream
+    "qm_migrate_detect_vpu_v2": (
+        [_VOID_P, _INT, _INT] + [_VOID_P] * 4 + _OUTS + [_INT] * 9
+        + [_VOID_P]
+    ),
     # L, t_len, ld, base, slab, valid, tab, inv_avail, outs, O, tiles, tile,
     # fsmp, S, copy_floats, variant, stream
     "qm_migrate_detect_x16_v2": (
@@ -121,6 +127,8 @@ SIGNATURES = {
     # (O, tile, copy_floats) and (O, tile, stride)
     "qm_migrate_detect_x16_v2_blocks_per_sm": [_INT] * 3,
     "qm_migrate_detect_probe_v2_blocks_per_sm": [_INT] * 3,
+    # (tile, stride, n_stages)
+    "qm_migrate_detect_vpu_v2_blocks_per_sm": [_INT] * 3,
     # (O, a_sum, a_max, fuse) and (a_sum)
     "qm_migrate_detect_x16g_blocks_per_sm": [_INT] * 4,
     "qm_migrate_detect_x16g_v2_blocks_per_sm": [_INT],

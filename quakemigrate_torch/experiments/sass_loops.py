@@ -16,9 +16,15 @@ so it needs nvcc and cuobjdump but no card.
 The default patterns are K1 FULL, K1 v2 FULL (the production kernel),
 the shifted-copy kernel in both layouts and its redesign E2 v2 FULL. ``--e1-v2`` adds the gather
 loops of the kernels built on K1 v2's core: E1c v2 FULL at 2 stages and
-E1b v2 FULL (:data:`E1_V2_PATTERNS`).
+E1b v2 FULL (:data:`E1_V2_PATTERNS`). ``--vpu`` adds the VPU-plan
+kernels at tile 512: K2 v1 and K2 v2
+(:data:`VPU_PATTERNS`). Each loop line also gives its instructions per
+node-onset-sample (instructions / FADD: every kernel here adds one float
+per node, onset and sample), the unit in which kernels that hold one
+sample a thread (K2 v1) and four (K1 v2, K2 v2) compare.
 
     python3 -m quakemigrate_torch.experiments.sass_loops --e1-v2
+    python3 -m quakemigrate_torch.experiments.sass_loops --vpu
 
 """
 
@@ -35,6 +41,7 @@ DEFAULT_PATTERNS = ("qm_migrate_detect_kernelILi0E",
                     "qm_x16_v2_kernelILi0E")
 E1_V2_PATTERNS = ("qm_pipelined_v2_kernelILi0ELi2E",
                   "qm_resident_v2_kernelILi0E")
+VPU_PATTERNS = ("qm_vpu_kernelILi32E", "qm_vpu_v2_kernelILi32ELi8E")
 
 _FUNCTION = re.compile(r"^\s*Function : (\S+)", re.M)
 _INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);")
@@ -96,35 +103,54 @@ def _cuobjdump():
                      "CUDA_HOME")
 
 
-def main(argv=None):
-    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("patterns", nargs="*", default=DEFAULT_PATTERNS,
-                        help="substrings of the mangled kernel names")
-    parser.add_argument("--e1-v2", action="store_true",
-                        help="also census E1c v2 and E1b v2")
-    opts = parser.parse_args(argv)
-    patterns = list(opts.patterns) + list(
-        E1_V2_PATTERNS if opts.e1_v2 else ())
+def census(patterns):
+    """Loops of every built kernel whose mangled name contains one of
+    ``patterns``: {name: (instructions, [loop records with shared-memory
+    loads])}, from ``cuobjdump -sass`` of the built library."""
+
     from quakemigrate_torch import _build
 
     text = subprocess.run(
         [_cuobjdump(), "-sass", str(_build.build())], capture_output=True,
         text=True, check=True,
     ).stdout
-    for name, instrs in parse_sass(text).items():
-        if not any(p in name for p in patterns):
-            continue
-        print(f"{name}: {len(instrs)} instructions")
-        for rec in loops(instrs):
-            if rec["lds32"] + rec["lds64"] + rec["lds128"] == 0:
-                continue
+    return {
+        name: (len(instrs), [rec for rec in loops(instrs)
+                             if rec["lds32"] + rec["lds64"] + rec["lds128"]])
+        for name, instrs in parse_sass(text).items()
+        if any(p in name for p in patterns)
+    }
+
+
+def print_census(found):
+    """Print :func:`census`'s records, one line a loop."""
+
+    for name, (n_instrs, recs) in found.items():
+        print(f"{name}: {n_instrs} instructions")
+        for rec in recs:
             per = rec["per_node_onset"]
             print(f"  loop {rec['start']:#06x}-{rec['end']:#06x}: "
                   f"{rec['n']} instructions, LDS {rec['lds32']}, LDS.64 "
                   f"{rec['lds64']}, LDS.128 {rec['lds128']}, LDG "
                   f"{rec['ldg']}, FADD {rec['fadd']}"
                   + ("" if per is None else
-                     f", {per:.2f} instructions a node-onset"))
+                     f", {per:.2f} instructions a node-onset, "
+                     f"{rec['n'] / rec['fadd']:.3f} a node-onset-sample"))
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("patterns", nargs="*", default=DEFAULT_PATTERNS,
+                        help="substrings of the mangled kernel names")
+    parser.add_argument("--e1-v2", action="store_true",
+                        help="also census E1c v2 and E1b v2")
+    parser.add_argument("--vpu", action="store_true",
+                        help="also census K2 v1 and K2 v2")
+    opts = parser.parse_args(argv)
+    patterns = (list(opts.patterns) + list(E1_V2_PATTERNS if opts.e1_v2
+                                            else ())
+                + list(VPU_PATTERNS if opts.vpu else ()))
+    print_census(census(patterns))
 
 
 if __name__ == "__main__":

@@ -43,6 +43,7 @@ from .cuda_migrate import (
     NWARPS,
     SBLK,
     SMEM_LIMIT,
+    TMA_ALIGN,
     blocks_per_sm,
     check_kernel_args,
     check_smem,
@@ -53,6 +54,7 @@ from .cuda_migrate import (
     launch_v2,
     plan_acc_chunks,
     reduce_acc_chunks,
+    row_pitch,
     span_offsets,
 )
 
@@ -80,7 +82,6 @@ STAGES = (2, 3, 4)
 # floats; the resident kernel stages its union windows in boxes of
 # RESIDENT_V2_BOX floats. E1c v2 is built for 2, 3 and 4 stages (its
 # ablations for 2).
-TMA_ALIGN = 32
 RESIDENT_V2_BOX = 32
 PIPELINED_V2_STAGES = (2, 3, 4)
 
@@ -670,18 +671,6 @@ def _check_slab_kernel_args(onsets_log, valid, inv_available, nsamples,
     return n_onsets, t_len, n_tiles, tile
 
 
-def _row_pitch(onsets_log):
-    """The onset rows with a pitch TMA takes (a multiple of 4 floats):
-    (rows, pitch). Pads a copy only where t_len is not a multiple of 4;
-    the columns added lie past t_len, which the kernels read as 0."""
-
-    t_len = onsets_log.shape[1]
-    pad = -t_len % 4
-    if pad:
-        onsets_log = torch.nn.functional.pad(onsets_log, (0, pad))
-    return onsets_log, t_len + pad
-
-
 def _variant_index(variant):
     if variant not in V2_ABLATIONS:
         raise ValueError(f"unknown variant {variant!r}; one of "
@@ -724,7 +713,7 @@ def migrate_detect_pipelined_v2_cuda(onsets_log, base, valid, inv_available,
         raise ValueError(f"bad window layout: stride {stride}, box {box}")
     check_smem(pipelined_v2_smem(n_onsets, tile, stride, n_stages),
                f"{n_stages} slots of {n_onsets} x {stride} floats")
-    rows, pitch = _row_pitch(onsets_log)
+    rows, pitch = row_pitch(onsets_log)
     outs = empty_outputs(n_tiles, nsamples, onsets_log.device)
     launch_kernel(
         "qm_migrate_detect_pipelined_v2", onsets_log.device,
@@ -769,7 +758,7 @@ def migrate_detect_resident_v2_cuda(onsets_log, valid, inv_available, fsmp,
                          f"{t.win_floats}")
     check_smem(resident_v2_smem(n_onsets, tile, t.win_floats),
                f"union windows ({t.win_floats} floats)")
-    rows, pitch = _row_pitch(onsets_log)
+    rows, pitch = row_pitch(onsets_log)
     outs = empty_outputs(n_tiles, nsamples, onsets_log.device)
     launch_kernel(
         "qm_migrate_detect_resident_v2", onsets_log.device,

@@ -3,8 +3,9 @@
 Fused migrate-and-reduce on the GPU: the node-tile plan, the wrappers of
 the CUDA kernels ``csrc/migrate_detect.cu`` (K1),
 ``csrc/migrate_detect_v2.cu`` (K1 v2, the same contract redesigned for
-the card's shared-memory pipe) and ``csrc/migrate_detect_vpu.cu`` (K2),
-their plain PyTorch version, and the cross-tile combine.
+the card's shared-memory pipe), ``csrc/migrate_detect_vpu.cu`` (K2) and
+``csrc/migrate_detect_vpu_v2.cu`` (K2 v2, K2 on an mbarrier ring), their
+plain PyTorch versions, and the cross-tile combine.
 
 Counterpart of quakemigrate_tpu.ops.pallas_migrate: ``CudaDetect`` of
 ``PallasDetectMXU`` (kernel ``_mxu_detect_kernel``), ``CudaDetectVPU`` of
@@ -31,6 +32,8 @@ a node whose coalescence equals the maximum.
 """
 
 import ctypes
+from functools import cached_property
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -53,11 +56,27 @@ VPU_SBLK = 32
 VPU_NWARPS = 16
 VPU_TILES = (64, 128, 256, 512)
 
+# K2 v2 (csrc/migrate_detect_vpu_v2.cu: QW_SBLK, QW_SHAPES, QW_GRP): 128
+# samples a block, 4 a thread; per tile, the nodes a warp takes in one
+# pass over the onsets; the onsets a ring stage holds; the ring depths
+# it takes.
+VPU_V2_SBLK = 128
+VPU_V2_NPP = {64: 4, 128: 8, 256: 8, 512: 8}
+VPU_V2_GROUP = 8
+VPU_V2_STAGES = (2, 3, 4)
+
+# Shared-memory alignment of a tiled TMA destination, in floats
+# (csrc/tma_rows.cuh: QT_ALIGN_FLOATS), and TMA's largest box.
+TMA_ALIGN = 32
+TMA_MAX_BOX = 256
+
 # Largest residual span of the int16 residual table ``DetectPlan.fine16``
 FINE16_MAX_SPAN = np.iinfo(np.int16).max
 
-# Launches of K1 and K1 v2, counted by their wrappers where they launch
-launches = {"migrate_detect": 0, "migrate_detect_v2": 0}
+# Launches of K1, K1 v2, K2 and K2 v2, counted by their wrappers where
+# they launch
+launches = {"migrate_detect": 0, "migrate_detect_v2": 0,
+            "migrate_detect_vpu": 0, "migrate_detect_vpu_v2": 0}
 
 
 def reset_launches():
@@ -109,8 +128,9 @@ class DetectPlan:
     - ``fine``  int32 [n_tiles, O, tile]: residual shift of each node
       (0 for padding, so padding never widens a span);
     - ``fine16`` int16 [n_tiles, tile, O]: the same residuals node-major,
-      the table of K1 v2 (``csrc/migrate_detect_v2.cu``); a plan whose
-      ``r_span`` exceeds ``FINE16_MAX_SPAN`` raises;
+      the table of K1 v2 (``csrc/migrate_detect_v2.cu``), built on first
+      use, or None where ``r_span`` exceeds ``FINE16_MAX_SPAN`` (K1 v2
+      then refuses the plan: :func:`v2_refusal`);
     - ``valid`` float32 [n_tiles, tile]: 1 for real nodes;
     - ``r_spans``: per onset, the largest residual + 1; ``r_span`` is
       their maximum, the width of a staged window beyond the sample block;
@@ -169,18 +189,18 @@ class DetectPlan:
             int(fine[..., o].max()) + 1 for o in range(n_onsets)
         )
         self.r_span = max(self.r_spans)
-        if self.r_span > FINE16_MAX_SPAN:
-            raise ValueError(
-                f"residual span {self.r_span} exceeds {FINE16_MAX_SPAN}, the "
-                "limit of the int16 residual table fine16; use smaller bricks"
-            )
-        self.fine16 = np.ascontiguousarray(fine, np.int16)
         self.span_off = span_offsets(self.r_spans)
         self.win_floats = int(self.span_off[-1])
         self.max_shift = int(tt_perm.max())
         r_max = self.r_span - 1
         self.bits = max(1, int(np.ceil(np.log2(r_max + 1)))) if r_max else 1
         self.r_pow2 = 1 << self.bits
+
+    @cached_property
+    def fine16(self):
+        if self.r_span > FINE16_MAX_SPAN:
+            return None
+        return np.ascontiguousarray(self.fine.transpose(0, 2, 1), np.int16)
 
 
 def span_offsets(r_spans, per_onset=True, align=1):
@@ -304,22 +324,26 @@ def reduce_acc_chunks(chunks, valid, inv_available):
 
 
 def check_kernel_args(onsets_log, base, fine, valid, inv_available,
-                      node_major=False):
+                      node_major=False, res_npp=None):
     """
     Checks shared by the kernel wrappers: the kernels' dtypes, contiguity,
     plan shapes that agree, and CUDA tensors on one device. ``fine`` is
     the int32 [n_tiles, O, tile] table, or with ``node_major`` the int16
-    [n_tiles, tile, O] table ``DetectPlan.fine16``. Raises on what the
-    kernels do not take. Returns (n_onsets, t_len, n_tiles, tile).
+    [n_tiles, tile, O] table ``DetectPlan.fine16``, or with ``res_npp``
+    K2 v2's uint16 table [n_tiles, tile / (16 res_npp), O, 16 res_npp]
+    (:func:`vpu_v2_residuals`). Raises on what the kernels do not take.
+    Returns (n_onsets, t_len, n_tiles, tile).
 
     """
 
     device = onsets_log.device
-    fine_dtype = torch.int16 if node_major else torch.int32
+    fine_dtype, fine_ndim = ((torch.uint16, 4) if res_npp is not None
+                             else (torch.int16, 3) if node_major
+                             else (torch.int32, 3))
     expected = (
         ("onsets_log", onsets_log, torch.float32, 2),
         ("base", base, torch.int32, 2),
-        ("fine", fine, fine_dtype, 3),
+        ("fine", fine, fine_dtype, fine_ndim),
         ("valid", valid, torch.float32, 2),
         ("inv_available", inv_available, torch.float32, 1),
     )
@@ -335,9 +359,14 @@ def check_kernel_args(onsets_log, base, fine, valid, inv_available,
             raise ValueError(f"{name} must be contiguous")
     n_onsets, t_len = onsets_log.shape
     n_tiles = fine.shape[0]
-    tile = fine.shape[1] if node_major else fine.shape[2]
-    fine_shape = ((n_tiles, tile, n_onsets) if node_major
-                  else (n_tiles, n_onsets, tile))
+    if res_npp is not None:
+        slice_ = VPU_NWARPS * res_npp
+        tile = fine.shape[1] * slice_
+        fine_shape = (n_tiles, tile // slice_, n_onsets, slice_)
+    else:
+        tile = fine.shape[1] if node_major else fine.shape[2]
+        fine_shape = ((n_tiles, tile, n_onsets) if node_major
+                      else (n_tiles, n_onsets, tile))
     if (base.shape != (n_tiles, n_onsets)
             or fine.shape != fine_shape
             or valid.shape != (n_tiles, tile)
@@ -352,15 +381,23 @@ def check_kernel_args(onsets_log, base, fine, valid, inv_available,
     return n_onsets, t_len, n_tiles, tile
 
 
+def smem_refusal(smem, what):
+    """None where one block may have ``smem`` bytes of shared memory on
+    Hopper, else the reason in words."""
+
+    if smem > SMEM_LIMIT:
+        return (f"{what} need {smem} bytes of shared memory, over the "
+                f"{SMEM_LIMIT} a block may use; use a smaller tile or brick")
+    return None
+
+
 def check_smem(smem, what):
     """Raise when one block would need more shared memory than Hopper
     gives it."""
 
-    if smem > SMEM_LIMIT:
-        raise ValueError(
-            f"{what} need {smem} bytes of shared memory, over the "
-            f"{SMEM_LIMIT} a block may use; use a smaller tile or brick"
-        )
+    reason = smem_refusal(smem, what)
+    if reason is not None:
+        raise ValueError(reason)
 
 
 def empty_outputs(n_tiles, nsamples, device):
@@ -462,22 +499,56 @@ def migrate_detect_cuda(onsets_log, base, fine, valid, inv_available,
     return outs
 
 
-def v2_smem(n_onsets, tile, win_floats):
+def v2_smem_bytes(n_onsets, tile, win_floats):
     """
     Shared-memory bytes of one K1 v2 block (``csrc/migrate_detect_v2.cu``):
     the window offsets (O + 1 ints, rounded up to 4), ``valid`` (tile
     floats), and the larger of the uint16 slab (tile x O rounded up to 8)
     with the ``win_floats`` floats of windows, and the block reduction
-    that reuses them. Raises when a block cannot have that much.
+    that reuses them.
 
     """
 
     body = max(2 * tile * round_up(n_onsets, 8) + 4 * win_floats,
                4 * 3 * NWARPS * SBLK)
-    smem = 4 * (round_up(n_onsets + 1, 4) + tile) + body
-    check_smem(smem, f"the residual slab ({tile} x {n_onsets}) and windows "
-                     f"({win_floats} floats)")
-    return smem
+    return 4 * (round_up(n_onsets + 1, 4) + tile) + body
+
+
+def v2_smem_refusal(n_onsets, tile, win_floats):
+    """None where one K1 v2 block's slab and windows
+    (:func:`v2_smem_bytes`) fit Hopper's shared memory, else the reason
+    in words."""
+
+    return smem_refusal(
+        v2_smem_bytes(n_onsets, tile, win_floats),
+        f"the residual slab ({tile} x {n_onsets}) and windows ({win_floats} "
+        "floats)")
+
+
+def v2_refusal(n_onsets, tile, win_floats, r_span):
+    """
+    Why K1 v2 cannot take a plan of these sizes (a :class:`DetectPlan`'s
+    ``n_onsets``, ``tile``, ``win_floats`` and ``r_span``), in words, or
+    None where it can: the residual span must fit the int16 table
+    ``fine16``, and one block's slab and windows Hopper's shared memory
+    (:func:`v2_smem_refusal`). Reads nothing from the card.
+
+    """
+
+    if r_span > FINE16_MAX_SPAN:
+        return (f"residual span {r_span} exceeds {FINE16_MAX_SPAN}, the "
+                "limit of K1 v2's int16 residual table fine16")
+    return v2_smem_refusal(n_onsets, tile, win_floats)
+
+
+def v2_smem(n_onsets, tile, win_floats):
+    """:func:`v2_smem_bytes`; raises when a block cannot have that
+    much (:func:`v2_smem_refusal`)."""
+
+    reason = v2_smem_refusal(n_onsets, tile, win_floats)
+    if reason is not None:
+        raise ValueError(reason)
+    return v2_smem_bytes(n_onsets, tile, win_floats)
 
 
 def launch_v2(entry, onsets_log, base, fine16, valid, inv_available, fsmp,
@@ -489,6 +560,10 @@ def launch_v2(entry, onsets_log, base, fine16, valid, inv_available, fsmp,
 
     """
 
+    if fine16 is None:
+        raise ValueError(
+            "the plan has no int16 residual table fine16 (its residual span "
+            f"exceeds {FINE16_MAX_SPAN}); K1 v2 cannot take it")
     n_onsets, t_len, n_tiles, tile = check_kernel_args(
         onsets_log, base, fine16, valid, inv_available, node_major=True
     )
@@ -581,30 +656,279 @@ def migrate_detect_vpu_cuda(onsets_log, base, fine, valid, inv_available,
         *(x.data_ptr() for x in outs), n_onsets, n_tiles, tile, fsmp,
         nsamples, r_span,
     )
+    launches["migrate_detect_vpu"] += 1
     return outs
+
+
+def row_pitch(onsets_log):
+    """The onset rows with a pitch TMA takes (a multiple of 4 floats):
+    (rows, pitch). Pads a copy only where t_len is not a multiple of 4;
+    the columns added lie past t_len, which the kernels read as 0."""
+
+    t_len = onsets_log.shape[1]
+    pad = -t_len % 4
+    if pad:
+        onsets_log = torch.nn.functional.pad(onsets_log, (0, pad))
+    return onsets_log, t_len + pad
+
+
+def vpu_v2_npp(tile):
+    """The nodes a warp of K2 v2 takes in one pass over the onsets at
+    ``tile`` (:data:`VPU_V2_NPP`); raises on a tile it is not built
+    for."""
+
+    if tile not in VPU_V2_NPP:
+        raise ValueError(f"tile ({tile}) must be one of {VPU_TILES}")
+    return VPU_V2_NPP[tile]
+
+
+def vpu_v2_layout(r_span):
+    """
+    Window layout of K2 v2 for a plan's residual span: (stride, box,
+    n_boxes). A block's window of onset o holds ``r_span + 3 +
+    VPU_V2_SBLK`` floats from the column ``fsmp + base[i, o] + s0``
+    rounded down to a multiple of 4 (TMA's inner start must be 16-byte
+    aligned); it arrives as ``n_boxes`` TMA boxes of ``box`` floats (a
+    multiple of 4, at most 256, and of 32 where there are several, so
+    that every box lands 128-byte aligned), and takes ``stride`` floats
+    of a ring stage, a multiple of :data:`TMA_ALIGN`.
+
+    """
+
+    width = round_up(r_span + 3 + VPU_V2_SBLK, 4)
+    if width <= TMA_MAX_BOX:
+        box, n_boxes = width, 1
+    else:
+        box, n_boxes = TMA_MAX_BOX, -(-width // TMA_MAX_BOX)
+    return round_up(box * n_boxes, TMA_ALIGN), box, n_boxes
+
+
+def vpu_v2_stage_bytes(stride, npp):
+    """Bytes of one K2 v2 ring stage: :data:`VPU_V2_GROUP` windows of
+    ``stride`` floats and their pass residuals (16 warps x ``npp`` uint16
+    each), rounded up to 128 (csrc/migrate_detect_vpu_v2.cu:
+    qw_stage_bytes)."""
+
+    return round_up(VPU_V2_GROUP * (4 * stride + 2 * VPU_NWARPS * npp), 128)
+
+
+def vpu_v2_smem(tile, r_span, stages):
+    """
+    Shared-memory bytes of one K2 v2 block (csrc/migrate_detect_vpu_v2.cu:
+    qw_smem_bytes): 128 bytes of alignment slack, ``stages`` ring stages
+    (:func:`vpu_v2_stage_bytes`), the per-thread folds and cross-warp
+    reduction (3 x 16 warps x 128 samples of 4 bytes) and 2 ``stages``
+    mbarriers. It does not depend on the number of onsets.
+
+    """
+
+    stride, _, _ = vpu_v2_layout(r_span)
+    return (128 + stages * vpu_v2_stage_bytes(stride, vpu_v2_npp(tile))
+            + 4 * 3 * VPU_NWARPS * VPU_V2_SBLK + 16 * stages)
+
+
+def vpu_v2_stages(tile, r_span):
+    """The deepest ring (:data:`VPU_V2_STAGES`) whose block fits
+    Hopper's shared memory at ``tile`` and ``r_span``, or None."""
+
+    fits = [n for n in VPU_V2_STAGES
+            if vpu_v2_smem(tile, r_span, n) <= SMEM_LIMIT]
+    return max(fits, default=None)
+
+
+def vpu_v2_refusal(tile, r_span):
+    """
+    Why K2 v2 cannot take a :class:`DetectPlan` of this ``tile`` and
+    ``r_span``, in words, or None where it can: the tile must be one it
+    is built for, every residual offset (``r_span`` - 1, plus up to 3 of
+    window alignment) must fit its uint16 table, and a ring of two stages
+    Hopper's shared memory (:func:`vpu_v2_smem`; the onset count does not
+    enter). Reads nothing from the card.
+
+    """
+
+    if tile not in VPU_V2_NPP:
+        return f"tile {tile} is not one of K2 v2's {VPU_TILES}"
+    if r_span + 2 >= 2**16:
+        return (f"residual span {r_span} does not fit K2 v2's uint16 "
+                "residual table")
+    if vpu_v2_stages(tile, r_span) is None:
+        return smem_refusal(
+            vpu_v2_smem(tile, r_span, VPU_V2_STAGES[0]),
+            f"K2 v2's ring of {VPU_V2_STAGES[0]} stages of "
+            f"{VPU_V2_GROUP} windows ({r_span} + {VPU_V2_SBLK} floats)")
+    return None
+
+
+def vpu_v2_order(tile):
+    """
+    K2 v2's node order inside a tile: ``order[q]`` is the local node
+    whose residual sits at entry q, pass-major (the nodes of pass p, then
+    warp w's ``npp`` = :func:`vpu_v2_npp` of them): entry ``p * 16 npp +
+    w npp + j`` holds node ``w (tile / 16) + p npp + j``.
+
+    """
+
+    npp = vpu_v2_npp(tile)
+    npt = tile // VPU_NWARPS
+    p, w, j = np.meshgrid(np.arange(npt // npp), np.arange(VPU_NWARPS),
+                          np.arange(npp), indexing="ij")
+    return (w * npt + p * npp + j).ravel()
+
+
+def vpu_v2_residuals(fine, base, fsmp):
+    """
+    K2 v2's residual table for scans that start at ``fsmp``: uint16
+    [n_tiles, passes, O, 16 npp] (npp = :func:`vpu_v2_npp` of the tile),
+    in the kernel's reading order (pass, then onset, then the pass's
+    slice in :func:`vpu_v2_order`), so that
+    each (pass, onset) slice and each run of consecutive onsets of a
+    pass is contiguous. Entry ``((fsmp + base[i, o]) & 3) + fine[i, o,
+    n]`` is node n's read offset in onset o's window, which starts at the
+    multiple of 4 at or below ``fsmp + base[i, o]`` (+ s0, a multiple of
+    128). ``fine`` and ``base`` are a :class:`DetectPlan`'s.
+
+    """
+
+    fine = np.asarray(fine).astype(np.int64)
+    n_tiles, n_onsets, tile = fine.shape
+    npp = vpu_v2_npp(tile)
+    lead = (fsmp + np.asarray(base).astype(np.int64)) & 3
+    entry = lead[:, :, None] + fine[:, :, vpu_v2_order(tile)]
+    if entry.size and (entry.min() < 0 or entry.max() >= 2**16):
+        raise ValueError(f"a residual offset of {int(entry.max())} does not "
+                         "fit K2 v2's uint16 table")
+    entry = entry.reshape(n_tiles, n_onsets, -1, VPU_NWARPS * npp)
+    return np.ascontiguousarray(entry.transpose(0, 2, 1, 3), np.uint16)
+
+
+def vpu_v2_tables(plan, fsmp, device):
+    """K2 v2's tables for a :class:`DetectPlan` and scans starting at
+    ``fsmp``: a namespace with the residual table ``res`` (on ``device``),
+    the tile's ``npp``, the window layout (``stride``, ``box``,
+    ``n_boxes``), ``r_span`` and ``fsmp``."""
+
+    npp = vpu_v2_npp(plan.tile)
+    stride, box, n_boxes = vpu_v2_layout(plan.r_span)
+    res = vpu_v2_residuals(plan.fine, plan.base, fsmp)
+    return SimpleNamespace(res=torch.from_numpy(res).to(device), npp=npp,
+                           stride=stride, box=box, n_boxes=n_boxes,
+                           r_span=plan.r_span, fsmp=fsmp)
+
+
+def vpu_v2_reference(onsets_log, base, valid, inv_available, fsmp, nsamples,
+                     tables, max_elements=2**23):
+    """
+    Plain PyTorch version of K2 v2 (K1's contract) through its tables
+    (:func:`vpu_v2_tables`, built for this ``fsmp``): node n reads onset
+    o at column ``((fsmp + base[i, o]) & ~3) + res[i, o, q] + t``, q its
+    entry in the pass-major order, summed in order o = 0..O-1. Returns
+    (tmax f32, targ int32, tsum f32), each [n_tiles, nsamples].
+
+    """
+
+    if tables.fsmp != fsmp:
+        raise ValueError(f"the tables were built for fsmp {tables.fsmp}, "
+                         f"not {fsmp}")
+    n_tiles, passes, n_onsets, slice_ = tables.res.shape
+    tile = passes * slice_
+    local = torch.empty((n_tiles, n_onsets, tile), dtype=torch.int64,
+                        device=tables.res.device)
+    order = torch.from_numpy(vpu_v2_order(tile)).to(
+        local.device)
+    local[:, :, order] = tables.res.long().transpose(1, 2).reshape(
+        n_tiles, n_onsets, tile)
+    col0 = (fsmp + base.long()) & ~3
+    return reduce_acc_chunks(
+        plan_acc_chunks(onsets_log, col0, local, 0, nsamples, max_elements),
+        valid, inv_available,
+    )
+
+
+def migrate_detect_vpu_v2_cuda(onsets_log, base, valid, inv_available, fsmp,
+                               nsamples, tables, n_stages=4):
+    """
+    Launch K2 v2 (``csrc/migrate_detect_vpu_v2.cu``, the VPU-plan kernel
+    on an mbarrier ring) on tensors on the card: K2's contract and node
+    order, so its outputs equal K2's bit for bit, through the ``tables``
+    of :func:`vpu_v2_tables` (built for this ``fsmp``), with an
+    ``n_stages``-deep ring (:data:`VPU_V2_STAGES`) of
+    :data:`VPU_V2_GROUP` onsets a stage, whose shared memory does not
+    depend on the number of onsets. Returns (tmax f32, targ int32, tsum f32), each
+    [n_tiles, nsamples], asynchronously on the current stream.
+
+    """
+
+    t = tables
+    if t.fsmp != fsmp:
+        raise ValueError(f"the tables were built for fsmp {t.fsmp}, not "
+                         f"{fsmp}")
+    if n_stages not in VPU_V2_STAGES:
+        raise ValueError(f"n_stages ({n_stages}) must be one of "
+                         f"{VPU_V2_STAGES}")
+    tile = valid.shape[-1]
+    if tile not in VPU_TILES:
+        raise ValueError(f"tile ({tile}) must be one of {VPU_TILES}")
+    npp = vpu_v2_npp(tile)
+    if (t.stride, t.box, t.n_boxes) != vpu_v2_layout(t.r_span):
+        raise ValueError(f"bad window layout: stride {t.stride}, box {t.box}, "
+                         f"n_boxes {t.n_boxes} for r_span {t.r_span}")
+    if t.res.data_ptr() % 16:
+        raise ValueError("the residual table must be 16-byte aligned")
+    if nsamples < 1 or -(-nsamples // VPU_V2_SBLK) > 65535:
+        raise ValueError(f"bad geometry: nsamples {nsamples}")
+    check_smem(vpu_v2_smem(tile, t.r_span, n_stages),
+               f"{n_stages} ring stages of {VPU_V2_GROUP} {t.stride}-float "
+               "windows")
+    n_onsets, t_len, n_tiles, tile = check_kernel_args(
+        onsets_log, base, t.res, valid, inv_available, res_npp=npp,
+    )
+    rows, pitch = row_pitch(onsets_log)
+    outs = empty_outputs(n_tiles, nsamples, onsets_log.device)
+    launch_kernel(
+        "qm_migrate_detect_vpu_v2", onsets_log.device,
+        rows.data_ptr(), t_len, pitch, base.data_ptr(), t.res.data_ptr(),
+        valid.data_ptr(), inv_available.data_ptr(),
+        *(x.data_ptr() for x in outs), n_onsets, n_tiles, tile, fsmp,
+        nsamples, t.stride, t.box, t.n_boxes, n_stages,
+    )
+    launches["migrate_detect_vpu_v2"] += 1
+    return outs
+
+
+def vpu_v2_blocks_per_sm(tile, stride, n_stages, device):
+    """Resident blocks per SM of K2 v2 at a tile, window stride and ring
+    depth."""
+
+    return blocks_per_sm("qm_migrate_detect_vpu_v2_blocks_per_sm", device,
+                         tile, stride, n_stages)
 
 
 class CudaDetect:
     """
     Fused migrate-and-reduce for one (traveltimes, scan geometry), built
     once and called per window like ``PallasDetectMXU``:
-    ``__call__(onsets [O, T], mask [O], available)`` returns
-    (max_coa, max_idx int32, coa_sum), each [nsamples]; the caller
-    normalises.
+    ``__call__(onsets [O, T], mask [O], available)`` (:meth:`reduce`)
+    returns (max_coa, max_idx int32, coa_sum), each [nsamples]; the
+    caller normalises.
 
-    The plan lives on ``device``. For onsets on a CUDA device the CUDA
-    kernel runs, K1 v2 (:func:`migrate_detect_v2_cuda`), and ``launches``
-    counts it; for onsets on the CPU the plain version
-    (:func:`detect_reduce_plan_reference`) runs.
+    The plan lives on ``device``; ``plan``, a :class:`DetectPlan` of the
+    traveltimes at this tile and brick, saves building it again. For
+    onsets on a CUDA device the CUDA kernel runs, K1 v2
+    (:func:`migrate_detect_v2_cuda`, which raises on a plan it cannot
+    take: :func:`v2_refusal`), and ``launches`` counts it; for onsets on
+    the CPU the plain version (:func:`detect_reduce_plan_reference`)
+    runs.
 
     """
 
     kernel = staticmethod(migrate_detect_v2_cuda)
 
     def __init__(self, traveltimes, node_count, fsmp, nsamples, device,
-                 tile=256, brick_shape=(8, 8, 4)):
-        plan = DetectPlan(traveltimes, node_count, tile=tile,
-                          brick_shape=brick_shape)
+                 tile=256, brick_shape=(8, 8, 4), plan=None):
+        if plan is None:
+            plan = DetectPlan(traveltimes, node_count, tile=tile,
+                              brick_shape=brick_shape)
         self.device = resolve_device(device)
         self.fsmp = int(fsmp)
         self.nsamples = int(nsamples)
@@ -612,20 +936,30 @@ class CudaDetect:
         self.n_nodes = plan.n_nodes
         self.r_span = plan.r_span
         self._max_shift = plan.max_shift
-
-        def put(a):
-            return torch.from_numpy(a).to(self.device)
-
-        self.base = put(plan.base)
-        self.fine = put(plan.fine)
-        self.fine16 = put(plan.fine16)
-        self.span_off = put(plan.span_off)
-        self.win_floats = plan.win_floats
-        self.valid = put(plan.valid)
-        self.perm = put(plan.perm)
+        self.base = self._put(plan.base)
+        self.fine = self._put(plan.fine)
+        self.valid = self._put(plan.valid)
+        self.perm = self._put(plan.perm)
+        self._load(plan)
         self.launches = 0
 
+    def _put(self, a):
+        return None if a is None else torch.from_numpy(a).to(self.device)
+
+    def _load(self, plan):
+        """K1 v2's tables of the plan, on the device."""
+
+        self.fine16 = self._put(plan.fine16)
+        self.span_off = self._put(plan.span_off)
+        self.win_floats = plan.win_floats
+
     def __call__(self, onsets, mask, available):
+        return self.reduce(onsets, mask, available)
+
+    def reduce(self, onsets, mask, available):
+        """(max_coa, max_idx int32, coa_sum), each [nsamples], of one
+        window's onsets [O, T] on the plan's device."""
+
         if onsets.device != self.device:
             raise ValueError(
                 f"onsets are on {onsets.device}, the plan on {self.device}"
@@ -642,10 +976,7 @@ class CudaDetect:
             parts = self.launch(onsets_log.contiguous(), inv_available)
             self.launches += 1
         else:
-            parts = detect_reduce_plan_reference(
-                onsets_log, self.base, self.fine, self.valid,
-                inv_available, self.fsmp, self.nsamples,
-            )
+            parts = self.plain(onsets_log, inv_available)
         return combine_tiles(*parts, self.perm, self.tile)
 
     def launch(self, onsets_log, inv_available):
@@ -657,35 +988,68 @@ class CudaDetect:
             self.fsmp, self.nsamples, self.span_off, self.win_floats,
         )
 
+    def plain(self, onsets_log, inv_available):
+        """The kernel's plain version on the plan, for prepared onsets on
+        the CPU: (tmax, targ, tsum), each [n_tiles, nsamples]."""
+
+        return detect_reduce_plan_reference(
+            onsets_log, self.base, self.fine, self.valid, inv_available,
+            self.fsmp, self.nsamples,
+        )
+
 
 class CudaDetectVPU(CudaDetect):
     """
     The counterpart of ``PallasDetect`` (the TPU VPU kernel's wrapper):
     the same plan and contract as :class:`CudaDetect` with the VPU plan's
-    defaults (tile 512, bricks 8 x 8 x 8) and the kernel
-    :func:`migrate_detect_vpu_cuda`. ``__call__(onsets, mask, available)``
-    returns ``(max_coa, max_coa_n, max_idx)`` like ``PallasDetect``, with
-    ``max_coa_n = max_coa * n_nodes / coa_sum``. CPU onsets take the
-    plain version (:func:`detect_reduce_plan_reference`) and count no
-    launch.
+    defaults (tile 512, bricks 8 x 8 x 8; a ``plan`` of another tile of
+    :data:`VPU_TILES` is taken as it is) and the kernel K2 v2,
+    :func:`migrate_detect_vpu_v2_cuda`, through its tables
+    (:func:`vpu_v2_tables`), with the deepest ring a block can hold
+    (:func:`vpu_v2_stages`). ``__call__(onsets, mask, available)``
+    returns ``(max_coa, max_coa_n, max_idx)`` like ``PallasDetect``,
+    with ``max_coa_n = max_coa * n_nodes / coa_sum``; :meth:`reduce`
+    returns :class:`CudaDetect`'s (max_coa, max_idx, coa_sum). CPU
+    onsets take K2 v2's plain version (:func:`vpu_v2_reference`) and
+    count no launch. K2 (:func:`migrate_detect_vpu_cuda`) stays callable
+    on the same plan (``fine``, ``r_span``) as K2 v2's yardstick.
 
     """
 
-    kernel = staticmethod(migrate_detect_vpu_cuda)
+    kernel = staticmethod(migrate_detect_vpu_v2_cuda)
 
     def __init__(self, traveltimes, node_count, fsmp, nsamples, device,
-                 tile=512, brick_shape=(8, 8, 8)):
+                 tile=512, brick_shape=(8, 8, 8), plan=None):
+        tile = tile if plan is None else plan.tile
         if tile not in VPU_TILES:
             raise ValueError(f"tile ({tile}) must be one of {VPU_TILES}")
+        if plan is None:
+            plan = DetectPlan(traveltimes, node_count, tile=tile,
+                              brick_shape=brick_shape)
         super().__init__(traveltimes, node_count, fsmp, nsamples, device,
-                         tile=tile, brick_shape=brick_shape)
+                         plan=plan)
+
+    def _load(self, plan):
+        """K2 v2's tables of the plan, on the device, and its ring depth
+        (at least the smallest, with which a plan too wide raises at
+        launch)."""
+
+        self.tables = vpu_v2_tables(plan, self.fsmp, self.device)
+        self.n_stages = (vpu_v2_stages(plan.tile, plan.r_span)
+                         or VPU_V2_STAGES[0])
 
     def __call__(self, onsets, mask, available):
-        max_coa, max_idx, coa_sum = super().__call__(onsets, mask, available)
+        max_coa, max_idx, coa_sum = self.reduce(onsets, mask, available)
         return max_coa, max_coa * self.n_nodes / coa_sum, max_idx
 
     def launch(self, onsets_log, inv_available):
         return self.kernel(
-            onsets_log, self.base, self.fine, self.valid, inv_available,
-            self.fsmp, self.nsamples, self.r_span,
+            onsets_log, self.base, self.valid, inv_available, self.fsmp,
+            self.nsamples, self.tables, self.n_stages,
+        )
+
+    def plain(self, onsets_log, inv_available):
+        return vpu_v2_reference(
+            onsets_log, self.base, self.valid, inv_available, self.fsmp,
+            self.nsamples, self.tables,
         )

@@ -43,6 +43,7 @@ from .cuda_migrate import (
     detect_reduce_plan_reference,
     empty_outputs,
     launch_kernel,
+    row_pitch,
 )
 
 PROBE_MODES = ("static2", "packed")
@@ -229,7 +230,7 @@ def migrate_detect_probe_v2_cuda(onsets_log, base, valid, inv_available,
             )
     check_smem(cb.pipelined_v2_smem(n_onsets, tile, stride, 2),
                f"2 slots of {n_onsets} x {stride} floats")
-    rows, pitch = cb._row_pitch(onsets_log)
+    rows, pitch = row_pitch(onsets_log)
     outs = empty_outputs(n_tiles, nsamples, onsets_log.device)
     launch_kernel(
         "qm_migrate_detect_probe_v2", onsets_log.device,

@@ -40,6 +40,7 @@ from .cuda_migrate import (
     check_smem,
     empty_outputs,
     launch_kernel,
+    row_pitch,
 )
 
 LAYOUTS = ("x16a", "x16b")
@@ -243,7 +244,7 @@ def migrate_detect_x16_v2_cuda(onsets_log, base, valid, inv_available, fsmp,
     check_smem(x16_v2_smem(n_onsets, tile, copy_floats),
                f"four shifted copies of {n_onsets} windows ({copy_floats} "
                "floats)")
-    rows, pitch = cb._row_pitch(onsets_log)
+    rows, pitch = row_pitch(onsets_log)
     outs = empty_outputs(n_tiles, nsamples, onsets_log.device)
     launch_kernel(
         "qm_migrate_detect_x16_v2", onsets_log.device,

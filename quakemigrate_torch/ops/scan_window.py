@@ -123,8 +123,8 @@ def detect_window_fused_cuda(
 ):
     """
     One detect window with the migrate-and-reduce of ``detector`` (an
-    ops.cuda_migrate.CudaDetect, which carries fsmp and nsamples) in
-    place of the flat-order reduction. Same contract as
+    ops.cuda_migrate.CudaDetect or CudaDetectVPU, which carries fsmp and
+    nsamples) in place of the flat-order reduction. Same contract as
     :func:`detect_window_fused`; argmax ties follow brick order.
 
     """
@@ -133,7 +133,8 @@ def detect_window_fused_cuda(
         channels, chan_mask, slot_mask, nsta, nlta,
         position, transform, min_onset_value,
     )
-    max_coa, max_idx, coa_sum = detector(combined, slot_mask, available)
+    max_coa, max_idx, coa_sum = detector.reduce(combined, slot_mask,
+                                                available)
     return max_coa, max_coa * n_nodes_real / coa_sum, max_idx
 
 

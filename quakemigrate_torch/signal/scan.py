@@ -12,6 +12,7 @@ host layers that this package does not hold yet.
 
 """
 
+import logging
 from collections import deque
 
 import numpy as np
@@ -19,7 +20,13 @@ import torch
 
 from quakemigrate_torch.device import resolve_device
 from quakemigrate_torch.lut import unravel
-from quakemigrate_torch.ops.cuda_migrate import CudaDetect
+from quakemigrate_torch.ops.cuda_migrate import (
+    CudaDetect,
+    CudaDetectVPU,
+    DetectPlan,
+    v2_refusal,
+    vpu_v2_refusal,
+)
 from quakemigrate_torch.ops.scan_window import (
     detect_window_fused,
     detect_window_fused_cuda,
@@ -30,6 +37,40 @@ from quakemigrate_torch.ops.scan_window import (
 # Windows dispatched but not yet fetched before the loop waits for the
 # oldest (the JAX scan's default detect_drain_depth)
 DRAIN_DEPTH = 8
+
+
+def detect_route(traveltimes, node_count, device):
+    """
+    The migration that :class:`DetectScan` takes on ``device`` for these
+    traveltimes, chosen from the plan's sizes before any launch, as the
+    JAX scan's ``_mxu_kernel`` chooses between its Pallas plan and the
+    XLA shift-table kernel. Returns (route, reason, plan):
+
+    - on the CPU ``("plain", None, None)``, the flat-order window;
+    - on a CUDA device ``("k1_v2", None, plan)`` where K1 v2 can stage
+      the :class:`~quakemigrate_torch.ops.cuda_migrate.DetectPlan`
+      (``v2_refusal``), else ``("k2_v2", reason, plan)`` where K2 v2,
+      whose shared memory does not grow with the onset count, takes the
+      same plan (``vpu_v2_refusal``), logging K1 v2's reason once.
+
+    Raises where neither kernel can take the plan.
+
+    """
+
+    if device.type != "cuda":
+        return "plain", None, None
+    plan = DetectPlan(traveltimes, node_count)
+    reason = v2_refusal(plan.n_onsets, plan.tile, plan.win_floats,
+                        plan.r_span)
+    if reason is None:
+        return "k1_v2", None, plan
+    k2_reason = vpu_v2_refusal(plan.tile, plan.r_span)
+    if k2_reason is not None:
+        raise ValueError(f"no CUDA kernel takes this scan geometry: K1 v2 "
+                         f"({reason}), K2 v2 ({k2_reason})")
+    logging.info(f"\tK1 v2 cannot take this scan geometry ({reason}); "
+                 f"using K2 v2 on {device}.")
+    return "k2_v2", reason, plan
 
 
 class DetectScan:
@@ -52,8 +93,21 @@ class DetectScan:
     device : str or torch.device, default "cuda"
         Where the windows run: the card unless the caller asks for the
         CPU; "cuda" raises where CUDA is absent. On a CUDA device the
-        migration is the CUDA kernel (ops.cuda_migrate.CudaDetect); on the
-        CPU it is the plain flat-order reduction (ops.migrate).
+        migration is a CUDA kernel on the traveltimes' plan (see
+        ``route``); on the CPU it is the plain flat-order reduction
+        (ops.migrate).
+
+    Attributes
+    ----------
+    route : "k1_v2", "k2_v2" or "plain"
+        The migration the windows take, chosen from the plan's sizes
+        before any launch (:func:`detect_route`): on a CUDA device K1 v2
+        (``ops.cuda_migrate.CudaDetect``) where it can stage the plan,
+        else K2 v2 (``ops.cuda_migrate.CudaDetectVPU``) on the same plan;
+        on the CPU "plain", the flat-order window
+        (``ops.scan_window.detect_window_fused``).
+    route_reason : str or None
+        Why a CUDA device did not take K1 v2 (logged once), else None.
 
     """
 
@@ -76,18 +130,26 @@ class DetectScan:
         self.min_onset_value = float(min_onset_value)
         self._detector = None
         self._tt_flat = None
+        self.route, self.route_reason, self._plan = detect_route(
+            self.traveltimes, self.node_count, self.device)
         # Per-window device milliseconds (upload to packed result) of the
         # last detect() on a CUDA device, from CUDA events.
         self.window_ms = []
 
     def detector(self, nsamples):
-        """The CUDA kernel's plan for windows of ``nsamples`` scan samples,
-        built on first use and kept while the geometry holds."""
+        """The route's CUDA detector for windows of ``nsamples`` scan
+        samples (K1 v2's on "k1_v2", K2 v2's on "k2_v2"), built on first
+        use and kept while the geometry holds; raises on the "plain"
+        route."""
 
+        if self.route == "plain":
+            raise ValueError("DetectScan on the plain route has no CUDA "
+                             "detector")
         if self._detector is None or self._detector.nsamples != nsamples:
-            self._detector = CudaDetect(
+            kind = CudaDetect if self.route == "k1_v2" else CudaDetectVPU
+            self._detector = kind(
                 self.traveltimes, self.node_count, self.fsmp, nsamples,
-                self.device,
+                self.device, plan=self._plan,
             )
         return self._detector
 

@@ -113,15 +113,29 @@ def test_v2_smem_sizing():
 
 
 def test_plan_above_int16_span_raises():
+    """A plan whose residual span exceeds int16 builds without K1 v2's
+    table; K1 v2 refuses it (v2_refusal names the limit) and its wrapper
+    raises on it."""
+
     tt = np.zeros((4 * 4 * 4, 2), np.int32)
     tt[1, 1] = cuda_migrate.FINE16_MAX_SPAN + 1  # one node of the tile
+    plan = cuda_migrate.DetectPlan(tt, (4, 4, 4), tile=64,
+                                   brick_shape=(4, 4, 4))
+    assert plan.fine16 is None
+    assert "int16" in cuda_migrate.v2_refusal(
+        plan.n_onsets, plan.tile, plan.win_floats, plan.r_span)
     with pytest.raises(ValueError, match="int16"):
-        cuda_migrate.DetectPlan(tt, (4, 4, 4), tile=64, brick_shape=(4, 4, 4))
+        cuda_migrate.migrate_detect_v2_cuda(
+            torch.zeros((2, 50)), *_torch(plan.base), None,
+            *_torch(plan.valid), torch.ones(1), 0, 10,
+            *_torch(plan.span_off), plan.win_floats)
     tt[1, 1] = cuda_migrate.FINE16_MAX_SPAN - 1  # r_span at the limit
     plan = cuda_migrate.DetectPlan(tt, (4, 4, 4), tile=64,
                                    brick_shape=(4, 4, 4))
     assert plan.r_span == cuda_migrate.FINE16_MAX_SPAN
     assert plan.fine16.max() == cuda_migrate.FINE16_MAX_SPAN - 1
+    assert cuda_migrate.v2_refusal(plan.n_onsets, plan.tile, 100,
+                                   plan.r_span) is None
 
 
 def _v2_args(tile=32):
@@ -164,7 +178,9 @@ def test_v2_wrappers_refuse_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="float32"):
         cuda_migrate.migrate_detect_v2_cuda(*wrong)
     assert cuda_migrate.launches == {"migrate_detect": 0,
-                                     "migrate_detect_v2": 0}
+                                     "migrate_detect_v2": 0,
+                                     "migrate_detect_vpu": 0,
+                                     "migrate_detect_vpu_v2": 0}
     assert set(cb.launches.values()) == {0}
 
 

@@ -243,7 +243,10 @@ for name in names:
     importlib.import_module(name)
 from quakemigrate_torch.experiments import exp_kernel_breakdown, workload
 from quakemigrate_torch.ops.cuda_migrate import (
-    CudaDetectVPU, migrate_detect_vpu_cuda)
+    CudaDetectVPU, migrate_detect_vpu_cuda, migrate_detect_vpu_v2_cuda,
+    v2_refusal, vpu_v2_reference, vpu_v2_tables)
+from quakemigrate_torch.signal.scan import detect_route
+from quakemigrate_torch.experiments import exp_vpu_v2
 from quakemigrate_torch.ops.cuda_breakdown import (
     detect_reduce_ablate_reference, migrate_detect_ablate_cuda,
     migrate_detect_pipelined_cuda, migrate_detect_resident_cuda,
@@ -254,6 +257,7 @@ from quakemigrate_torch.ops.cuda_probe import (
     migrate_detect_probe_cuda, stream_probe_cuda)
 from quakemigrate_torch.ops.x16 import detect_reduce_stride_reference
 assert "quakemigrate_torch.experiments.exp_kernel_breakdown" in names
+assert "quakemigrate_torch.experiments.exp_vpu_v2" in names
 assert not [m for m in sys.modules if blocked(m)]
 print(len(names))
 """
@@ -265,4 +269,4 @@ def test_port_imports_without_jax_pandas_or_reference():
         text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 21  # every module of the slices
+    assert int(proc.stdout.strip()) >= 31  # every module of the slices

@@ -90,7 +90,7 @@ def test_cuda_detect_vpu_defaults_are_the_vpu_plan():
     tt = np.zeros((8 * 8 * 8, 2), np.int32)
     detect = cuda_migrate.CudaDetectVPU(tt, (8, 8, 8), 0, 10, "cpu")
     assert detect.tile == 512
-    assert detect.kernel is cuda_migrate.migrate_detect_vpu_cuda
+    assert detect.kernel is cuda_migrate.migrate_detect_vpu_v2_cuda
     with pytest.raises(ValueError, match="tile"):
         cuda_migrate.CudaDetectVPU(tt, (8, 8, 8), 0, 10, "cpu", tile=96,
                                    brick_shape=(4, 4, 4))
