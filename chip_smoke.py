@@ -25,6 +25,24 @@ Smoke run of quakemigrate_torch on one NVIDIA GPU.
    within 1e-5, max_coa_n within 1e-4 relative: sums over 2.6e5 nodes
    in another order; tie-consistent argmax); and the planted window's
    peak above every other window's, within one grid node of the source.
+   archive_detect, the main path from a user's entry point: the
+   Icequake example's LUT built with the port (its 13 stations, the lcc
+   grid at 25 m: 71 x 64 x 57 nodes, homogeneous vp 3.630, vs 1.833
+   km/s), 120 s of 250 Hz three-component synthetics with one source
+   planted at a grid node (quakemigrate_torch.synthetics), written as a
+   YEAR/JD/STATION STEIM2 archive; the example's STALTAOnset (classic,
+   bandpass [10, 124, 4], P 0.01/0.25 s, S 0.05/0.5 s) and
+   QuakeScan.detect over the middle 60 s at timestep 2.5 s (24 windows).
+   Checks: route k1_v2, one K1 v2 launch a dispatched window and no other
+   detect kernel; each window's result against the plain window on the
+   card for the block the scan prepared (the tolerances of step 4); the
+   .scanmseed read back by the port's reader (5 channels of 15,000
+   samples); the peak's X/Y/Z within one node of the planted source.
+   Prints the detect's wall time and real-time factor, cold and warm, the
+   device ms a window, the host seconds split into read wait, prepare,
+   dispatch and drain/append, and each host layer's ms a window timed
+   alone (archive read, pre-process, block, .scanmseed append). The
+   scan's own log goes to a file in the phase's temporary directory.
 5. The VPU-plan kernel (csrc/migrate_detect_vpu.cu) against its plain
    version on a small plan and at the Icequake grid (tile 512, bricks
    8 x 8 x 8), timed; then K2 v2 (csrc/migrate_detect_vpu_v2.cu, the
@@ -153,6 +171,8 @@ and {"ok": true, "device": {...}}.
 """
 
 import json
+import logging
+import pathlib
 import subprocess
 import time
 
@@ -169,6 +189,14 @@ FSMP, LSMP, NSAMPLES = 475, 575, 625
 STA_LTA = {"P": (0.01, 0.25), "S": (0.05, 0.5)}
 N_WINDOWS = 16
 PLANT_WINDOW = 9
+# archive_detect: the Icequake example's inputs, and a synthetic archive of
+# 2 x ARCHIVE_SPAN_S seconds from ARCHIVE_START, scanned over its middle
+# ARCHIVE_SPAN_S seconds at the example's timestep
+ICEQUAKE_DIR = (pathlib.Path(__file__).resolve().parent / "examples"
+                / "Icequake_Iceland")
+ARCHIVE_START = "2014-06-29T18:41:00.0"
+ARCHIVE_SPAN_S = 60.0
+ARCHIVE_TIMESTEP = 2.5
 DEAD_WINDOW, DEAD_STATION = 3, 5
 
 KERNEL_RTOL = 1e-5
@@ -463,16 +491,16 @@ def make_windows(tt, rng, n_windows=N_WINDOWS, plant_window=PLANT_WINDOW):
     return windows, node
 
 
-def plain_window(block, tt_dev, device):
+def plain_window(block, tt_dev, device, fsmp=FSMP, nsamples=NSAMPLES):
     from quakemigrate_torch.ops.scan_window import detect_window_fused
 
     tensors = [torch.from_numpy(a).to(device) for a in block]
     return detect_window_fused(
-        *tensors, tt_dev, "classic", "energy", 0.4, FSMP, NSAMPLES,
+        *tensors, tt_dev, "classic", "energy", 0.4, fsmp, nsamples,
     )
 
 
-def plain_coa_at(block, tt_dev, idx, device):
+def plain_coa_at(block, tt_dev, idx, device, fsmp=FSMP, nsamples=NSAMPLES):
     """Plain flat-order coalescence of one window at node idx[t]."""
 
     from quakemigrate_torch.ops.migrate import _prepare_onsets
@@ -485,11 +513,11 @@ def plain_coa_at(block, tt_dev, idx, device):
         channels, chan_mask, slot_mask, nsta, nlta, "classic", "energy", 0.4
     )
     onsets_log = _prepare_onsets(combined, slot_mask)
-    t = torch.arange(NSAMPLES, device=device)
+    t = torch.arange(nsamples, device=device)
     rows = tt_dev[torch.from_numpy(idx).long().to(device)].long()
-    acc = torch.zeros(NSAMPLES, dtype=torch.float32, device=device)
+    acc = torch.zeros(nsamples, dtype=torch.float32, device=device)
     for o in range(onsets_log.shape[0]):
-        acc = acc + onsets_log[o][FSMP + rows[:, o] + t]
+        acc = acc + onsets_log[o][fsmp + rows[:, o] + t]
     return torch.exp(acc / available).cpu().numpy()
 
 
@@ -748,6 +776,276 @@ def f1_path(device, n_stations=128, n_windows=2):
         "window_ms": scan.window_ms, "plain_window_wall_s": plain_wall,
         "vpu_v2_smem": smem, "tile": detector.tile,
         "n_stages": detector.n_stages, "max_abs_err": max(errs)}
+
+
+def archive_workspace(root, spacing_km=SPACING_KM, span_s=ARCHIVE_SPAN_S):
+    """The archive_detect phase's inputs, made with the port alone: the
+    Icequake example's LUT (its stations, its lcc grid at ``spacing_km``,
+    homogeneous vp 3.630 and vs 1.833 km/s), one planted source at a grid
+    node, 2 x ``span_s`` seconds of 250 Hz three-component synthetics from
+    quakemigrate_torch.synthetics (noise on the amplitudes, none on the
+    traveltimes), written as a YEAR/JD/STATION STEIM2 archive under
+    ``root``. Returns (lut, stations, archive path, planted grid index,
+    seconds spent on the LUT, the synthetics and the archive)."""
+
+    from quakemigrate_torch.coords import Proj
+    from quakemigrate_torch.io import read_stations
+    from quakemigrate_torch.lut import compute_traveltimes
+    from quakemigrate_torch.synthetics import (
+        GaussianDerivativeWavelet,
+        simulate_waveforms,
+    )
+
+    stations = read_stations(ICEQUAKE_DIR / "inputs" / "iceland_stations.txt")
+    grid_spec = dict(
+        ll_corner=[-17.24, 64.322, -1.4], ur_corner=[-17.204, 64.336, 0.0],
+        node_spacing=[spacing_km] * 3,
+        grid_proj=Proj(proj="lcc", units="km", lon_0=-17.222, lat_0=64.329,
+                       lat_1=64.323, lat_2=64.335, datum="WGS84",
+                       ellps="WGS84", no_defs=True),
+        coord_proj=Proj(proj="longlat", datum="WGS84", ellps="WGS84",
+                        no_defs=True),
+    )
+    times = {}
+    t0 = time.perf_counter()
+    lut = compute_traveltimes(grid_spec, stations, method="homogeneous",
+                              phases=["P", "S"], vp=VP, vs=VS)
+    times["lut_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    planted = tuple(int(n * f) for n, f in zip(lut.node_count,
+                                                (0.45, 0.55, 0.7)))
+    source = lut.index2coord([planted])[0]
+    wavelet = GaussianDerivativeWavelet(30.0, RATE, span_s)
+    stream = simulate_waveforms(
+        wavelet, source, lut, magnitude=1.0, angle_of_incidence=80,
+        noise={"traveltime": {"P": 0.0, "S": 0.0},
+               "amplitude": {"P": 0.05, "S": 0.05}},
+        starttime=ARCHIVE_START, rng=np.random.default_rng(2031),
+    )
+    times["synthetics_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    archive = root / "mSEED"
+    for tr in stream:
+        day = tr.stats.starttime
+        folder = archive / str(day.year) / f"{day.julday:03d}"
+        folder.mkdir(parents=True, exist_ok=True)
+        tr.data = np.round(tr.data * 1e3).astype(np.int32)  # counts
+        tr.write(str(folder / f"{tr.stats.station}_{tr.stats.channel[-1]}.m"),
+                 format="MSEED", encoding="STEIM2")
+    times["archive_s"] = time.perf_counter() - t0
+    return lut, stations, archive, np.array(planted), times
+
+
+def archive_detect_path(device):
+    """archive_detect: QuakeScan.detect from a miniSEED archive to
+    .scanmseed on the card, without jax. The workspace of
+    :func:`archive_workspace`; the example's STALTAOnset (classic, bandpass
+    [10, 124, 4], P 0.01/0.25 s, S 0.05/0.5 s) and QuakeScan over
+    ARCHIVE_SPAN_S seconds at timestep 2.5 s. Checks: route k1_v2, K1 v2
+    launched once a dispatched window and no other detect kernel; each
+    window's result held to the plain window on the card for the block
+    the scan prepared; the .scanmseed read back by the port's reader
+    (five channels of ARCHIVE_SPAN_S x 250 samples); the peak's X/Y/Z
+    within one node of the planted source. Then the same detect again,
+    warm, and the host layers timed alone on the same windows. Returns
+    (K1 v2 launches, record)."""
+
+    import contextlib
+    import tempfile
+
+    from quakemigrate_torch.io import Archive
+    from quakemigrate_torch.ops import cuda_migrate as cm
+    from quakemigrate_torch.seis import UTCDateTime, read
+    from quakemigrate_torch.signal.onsets import STALTAOnset, pre_process
+    from quakemigrate_torch.signal.scan import QuakeScan
+
+    record = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        lut, stations, archive_path, planted, times = archive_workspace(root)
+        record.update(times)
+        check(tuple(lut.node_count) == NODE_COUNT,
+              f"archive_detect: grid {lut.node_count}")
+        archive = Archive(archive_path, stations,
+                          archive_format="YEAR/JD/STATION")
+        onset = STALTAOnset(position="classic", sampling_rate=RATE)
+        onset.phases = ["P", "S"]
+        onset.bandpass_filters = {"P": [10, 124, 4], "S": [10, 124, 4]}
+        onset.sta_lta_windows = {p: list(w) for p, w in STA_LTA.items()}
+        scan = QuakeScan(archive, lut, onset, str(root / "runs"),
+                         "archive_detect", device=device,
+                         timestep=ARCHIVE_TIMESTEP)
+        windows = {}
+        scan.on_window = lambda i, block, result: windows.update(
+            {i: (block, result)})
+        start = UTCDateTime(ARCHIVE_START) + ARCHIVE_SPAN_S / 2
+        end = start + ARCHIVE_SPAN_S
+
+        def detect(label):
+            """One detect, its log (the scan logs to stdout) written to a
+            file beside the run; returns its wall seconds."""
+
+            torch.cuda.synchronize()
+            with open(root / f"detect_{label}.log", "w") as log, \
+                    contextlib.redirect_stdout(log):
+                t0 = time.perf_counter()
+                scan.detect(start, end)
+                wall = time.perf_counter() - t0
+            root_logger = logging.getLogger()
+            for handler in list(root_logger.handlers):
+                root_logger.removeHandler(handler)
+            return wall
+
+        cm.reset_launches()
+        wall = detect("cold")
+        launches = dict(cm.launches)
+        detect_scan = scan.detect_scan
+        n_windows = len(windows)
+        dispatched = sum(r is not None for _, r in windows.values())
+        print(f"archive_detect: {n_windows} windows ({dispatched} "
+              f"dispatched), route {detect_scan.route}, fsmp "
+              f"{detect_scan.fsmp}, lsmp {detect_scan.lsmp}, "
+              f"{detect_scan.traveltimes.shape[1]} onsets; kernel launches "
+              f"{launches}")
+        check(detect_scan.route == "k1_v2",
+              f"archive_detect: route {detect_scan.route} "
+              f"({detect_scan.route_reason})")
+        check(n_windows == round(ARCHIVE_SPAN_S / ARCHIVE_TIMESTEP)
+              and dispatched == n_windows,
+              f"archive_detect: {dispatched} of {n_windows} windows "
+              "dispatched")
+        check(launches["migrate_detect_v2"] == dispatched,
+              f"archive_detect: {launches['migrate_detect_v2']} K1 v2 "
+              f"launches for {dispatched} windows")
+        check(all(n == 0 for k, n in launches.items()
+                  if k != "migrate_detect_v2"),
+              f"archive_detect: another detect kernel ran ({launches})")
+
+        # Each window against the plain window on the card
+        fsmp, lsmp = detect_scan.fsmp, detect_scan.lsmp
+        nsamples = int(round(ARCHIVE_TIMESTEP * RATE))
+        tt_dev = torch.from_numpy(detect_scan.traveltimes).to(device)
+        errs = {"max_coa": 0.0, "max_coa_n": 0.0, "tie": 0.0,
+                "max_abs_err": 0.0, "argmax_equal": []}
+        for i, (block, res) in sorted(windows.items()):
+            max_coa, max_coa_n, max_idx, ijk = res
+            check(max_coa.shape == (nsamples,) and ijk.shape == (nsamples, 3)
+                  and np.isfinite(max_coa).all()
+                  and np.isfinite(max_coa_n).all(),
+                  f"archive_detect window {i}: shapes or non-finite values")
+            ref = [x.cpu().numpy() for x in plain_window(
+                block, tt_dev, device, fsmp, nsamples)]
+            rel = np.abs(max_coa - ref[0]) / np.abs(ref[0])
+            rel_n = np.abs(max_coa_n - ref[1]) / np.abs(ref[1])
+            tie = np.abs(ref[0] - plain_coa_at(block, tt_dev, max_idx,
+                                               device, fsmp, nsamples))
+            tie = tie / np.abs(ref[0])
+            check(rel.max() <= MAX_COA_RTOL and rel_n.max() <= MAX_COA_N_RTOL
+                  and tie.max() <= MAX_COA_RTOL,
+                  f"archive_detect window {i}: max_coa {rel.max()}, "
+                  f"max_coa_n {rel_n.max()}, tie {tie.max()}")
+            errs["max_coa"] = max(errs["max_coa"], float(rel.max()))
+            errs["max_coa_n"] = max(errs["max_coa_n"], float(rel_n.max()))
+            errs["tie"] = max(errs["tie"], float(tie.max()))
+            errs["max_abs_err"] = max(errs["max_abs_err"], float(
+                np.abs(max_coa - ref[0]).max()))
+            errs["argmax_equal"].append(float((max_idx == ref[2]).mean()))
+        print(f"archive_detect: every window vs the plain window: max_coa "
+              f"{errs['max_coa']:.2e}, max_coa_n {errs['max_coa_n']:.2e}, "
+              f"tie {errs['tie']:.2e}, argmax equal "
+              f"{min(errs['argmax_equal']):.4f} at least")
+
+        # The .scanmseed, read back by the port's reader
+        day = start
+        path = (scan.run.path / "detect" / "scanmseed"
+                / f"{day.year}_{day.julday:03d}.scanmseed")
+        out = {tr.stats.station: tr for tr in read(path)}
+        npts = int(round(ARCHIVE_SPAN_S * RATE))
+        check(sorted(out) == sorted(("COA", "COA_N", "X", "Y", "Z"))
+              and all(tr.stats.npts == npts for tr in out.values())
+              and out["COA"].stats.starttime == start,
+              f"archive_detect: .scanmseed {[str(tr) for tr in out.values()]}")
+        peak = int(np.argmax(out["COA"].data))
+        xyz = np.array([[out["X"].data[peak] / 1e6, out["Y"].data[peak] / 1e6,
+                         out["Z"].data[peak] / 1e3
+                         / lut.unit_conversion_factor]])
+        node = lut.index2coord(xyz, inverse=True)[0]
+        dist = int(np.abs(node - planted).max())
+        print(f"archive_detect: .scanmseed {len(out)} channels x {npts} "
+              f"samples; peak COA {out['COA'].data[peak] / 1e5:.5f} at "
+              f"{out['COA'].stats.starttime + peak / RATE}, node "
+              f"{node.tolist()} against the planted {planted.tolist()} "
+              f"({dist} nodes)")
+        check(dist <= 1, f"archive_detect: peak {dist} nodes from the "
+              "planted source")
+
+        def split(attrib):
+            return {k: sum(row[k] for row in attrib) for k in
+                    ("read_wait", "prepare", "dispatch", "drain")}
+
+        cold = {"wall_s": wall, "host_s": split(scan.detect_batch_attrib),
+                "window_ms": list(detect_scan.window_ms)}
+        scan.on_window = None
+        warm_wall = detect("warm")
+        warm = {"wall_s": warm_wall, "host_s": split(scan.detect_batch_attrib),
+                "window_ms": list(detect_scan.window_ms),
+                "fetch_s": sum(detect_scan.fetch_s)}
+        for label, run in (("cold", cold), ("warm", warm)):
+            host = run["host_s"]
+            print(f"archive_detect ({label}): detect {run['wall_s']:.3f} s "
+                  f"wall for {ARCHIVE_SPAN_S:.0f} s of data, real-time "
+                  f"factor {ARCHIVE_SPAN_S / run['wall_s']:.1f}; device ms "
+                  f"a window median {np.median(run['window_ms']):.3f} "
+                  f"(min {min(run['window_ms']):.3f}, max "
+                  f"{max(run['window_ms']):.3f}); host s: read wait "
+                  f"{host['read_wait']:.3f}, prepare {host['prepare']:.3f}, "
+                  f"dispatch {host['dispatch']:.3f}, drain/append "
+                  f"{host['drain']:.3f}")
+
+        # The host layers alone, a window at a time on the main thread
+        layers = {"read": [], "pre_process": [], "prepare": []}
+        for i in range(n_windows):
+            w_beg = start + ARCHIVE_TIMESTEP * i - scan.pre_pad
+            w_end = (start + ARCHIVE_TIMESTEP * (i + 1) - 1 / RATE
+                     + scan.post_pad)
+            t0 = time.perf_counter()
+            data = archive.read_waveform_data(w_beg, w_end)
+            t1 = time.perf_counter()
+            for phase in onset.phases:
+                pre_process(data.waveforms.select(
+                    channel=onset.channel_maps[phase]), RATE, False, None,
+                    onset.bandpass_filters[phase], data.starttime,
+                    data.endtime)
+            t2 = time.perf_counter()
+            scan._prepare_window(data)
+            t3 = time.perf_counter()
+            layers["read"].append(t1 - t0)
+            layers["pre_process"].append(t2 - t1)
+            layers["prepare"].append(t3 - t2)
+        layer_ms = {k: 1e3 * float(np.mean(v)) for k, v in layers.items()}
+        layer_ms["block"] = layer_ms["prepare"] - layer_ms["pre_process"]
+        layer_ms["append"] = 1e3 * (warm["host_s"]["drain"]
+                                    - warm["fetch_s"]) / n_windows
+        print(f"archive_detect: host layers alone, ms a window: archive read "
+              f"{layer_ms['read']:.3f}, pre-process {layer_ms['pre_process']:.3f}"
+              f", block (prepare {layer_ms['prepare']:.3f} less pre-process) "
+              f"{layer_ms['block']:.3f}, .scanmseed append "
+              f"{layer_ms['append']:.3f}")
+    record.update({
+        "windows": n_windows, "dispatched": dispatched, "fsmp": fsmp,
+        "lsmp": lsmp, "onsets": int(detect_scan.traveltimes.shape[1]),
+        "route": detect_scan.route, "launches": launches,
+        "cold": cold, "warm": {k: v for k, v in warm.items()
+                               if k != "fetch_s"},
+        "real_time_factor": ARCHIVE_SPAN_S / warm_wall,
+        "host_layer_ms": layer_ms, "planted": planted.tolist(),
+        "peak_node": node.tolist(), "peak_node_distance": dist,
+        "vs_plain": {k: v for k, v in errs.items() if k != "argmax_equal"},
+        "argmax_equal_min": min(errs["argmax_equal"]),
+    })
+    return launches["migrate_detect_v2"], record
 
 
 def scaled_err(got, ref):
@@ -1555,6 +1853,7 @@ def main():
     launches, windows, results, planted_ijk = run_slice(tt, rng, device)
     vpu_launches = run_vpu_path(tt, windows, results, planted_ijk, device)
     f1_launches, f1_record = f1_path(device)
+    archive_launches, archive_record = archive_detect_path(device)
 
     checks = breakdown_checks(device)
     s_day = ekb.setup(device=device)
@@ -1640,9 +1939,14 @@ def main():
         "route": "cuda",
         "source": "quakemigrate_torch/csrc/migrate_detect_v2.cu",
         "replaces": "quakemigrate_tpu/ops/pallas_migrate.py:399",
-        "launches": launches,
+        # the main path: QuakeScan.detect over the archive (archive_detect);
+        # the slice's DetectScan run over prepared blocks beside it
+        "launches": archive_launches,
+        "slice_launches": launches,
+        "archive_detect": archive_record,
         "max_abs_err": max(v2_small["max_abs_err"], v2_record["max_abs_err"],
-                           checks["v2"]["max_abs_err"]),
+                           checks["v2"]["max_abs_err"],
+                           archive_record["vs_plain"]["max_abs_err"]),
         "max_rel_err_tmax": v2_record["max_rel_err_tmax"],
         "max_rel_err_tsum": v2_record["max_rel_err_tsum"],
         "ms": v2_record["ms"],

@@ -8,12 +8,14 @@ which it is tested against). It is self-contained: it imports torch,
 numpy and scipy, and never jax, pandas, matplotlib or quakemigrate_tpu,
 so it runs on a machine that has none of them.
 
-The slice ported so far is continuous detect: fixed-shape channel blocks
-(the layout ``STALTAOnset.prepare_device_inputs`` builds) go through the
-fused onset front end, the migrate-and-reduce kernel and the
-normalisation, window after window (:class:`DetectScan`).
-:class:`CudaDetectVPU` is the counterpart of the JAX ``PallasDetect``;
-``experiments/`` holds the kernel-breakdown probes.
+The slice ported so far is continuous detect, from a miniSEED archive to
+the ``.scanmseed`` and StationAvailability files (:class:`QuakeScan`):
+the host layers (``seis``, ``coords``, ``lut``, ``io``,
+``signal.onsets``) read and pre-process each window into a fixed-shape
+channel block, and :class:`DetectScan` runs the blocks through the fused
+onset front end, the migrate-and-reduce kernel and the normalisation,
+window after window. :class:`CudaDetectVPU` is the counterpart of the JAX
+``PallasDetect``; ``experiments/`` holds the kernel-breakdown probes.
 
 """
 
@@ -26,4 +28,4 @@ from quakemigrate_torch.ops.cuda_migrate import (  # noqa: F401
     CudaDetectVPU,
     DetectPlan,
 )
-from quakemigrate_torch.signal.scan import DetectScan  # noqa: F401
+from quakemigrate_torch.signal.scan import DetectScan, QuakeScan  # noqa: F401

@@ -1,6 +1,7 @@
 # -*- coding: utf-8 -*-
 """
-Build and load the CUDA kernels of ``csrc/``.
+Build and load the CUDA kernels of ``csrc/`` and the host C library of
+``csrc/host/``.
 
 At first use, ``nvcc`` compiles every ``csrc/*.cu`` for Hopper (sm_90a),
 one process per source, all started together, and links the objects into
@@ -10,6 +11,11 @@ their headers and the flags, so an edited kernel is rebuilt and an
 unchanged one is reused. The library is loaded with ctypes: pointers and
 the stream go over as ``c_void_p``. A missing ``nvcc`` or a failed build
 raises.
+
+The host library (the STEIM1/2 miniSEED codec, ``csrc/host/*.c``) is
+built the same way at its first use, with the host C compiler ``cc``
+instead of ``nvcc``, so the CPU path needs no CUDA toolkit
+(:func:`build_host`). A missing ``cc`` or a failed build raises.
 
 """
 
@@ -24,10 +30,14 @@ import subprocess
 
 PACKAGE_DIR = pathlib.Path(__file__).resolve().parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
+HOST_DIR = CSRC_DIR / "host"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# The STEIM codec's difference and accumulator arithmetic relies on int32
+# wraparound, which is undefined without -fwrapv.
+HOST_FLAGS = ("-O2", "-fwrapv", "-shared", "-fPIC")
 
 _VOID_P = ctypes.c_void_p
 _INT = ctypes.c_int
@@ -151,7 +161,7 @@ def _nvcc():
     )
 
 
-def _run_all(cmds):
+def _run_all(cmds, tool="nvcc"):
     """Start every command at once, wait for all; raise on the first
     failure with its output. Returns the outputs in order."""
 
@@ -164,7 +174,7 @@ def _run_all(cmds):
     for cmd, proc, out in zip(cmds, procs, outputs):
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}"
+                f"{tool} failed ({proc.returncode}): {' '.join(cmd)}\n{out}"
             )
     return outputs
 
@@ -204,6 +214,39 @@ def build():
     lib_path.with_suffix(".log").write_text("".join(
         f"== {src.name}\n{log}" for src, log in zip(sources, logs)
     ))
+    os.replace(tmp, lib_path)
+    return lib_path
+
+
+def build_host():
+    """
+    Compile ``csrc/host/*.c`` with the host C compiler unless the library
+    for these sources and flags exists; returns its path. Built into a
+    temporary file and renamed into place, so concurrent processes never
+    load a half-written library.
+
+    """
+
+    sources = sorted(HOST_DIR.glob("*.c"))
+    if not sources:
+        raise RuntimeError(f"no host C sources in {HOST_DIR}")
+    digest = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+    for src in sources:
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    lib_path = BUILD_DIR / f"libqm_host_{digest.hexdigest()[:16]}.so"
+    if lib_path.is_file():
+        return lib_path
+    cc = shutil.which("cc")
+    if cc is None:
+        raise RuntimeError(
+            "cc not found on PATH; the host library of quakemigrate_torch "
+            "(the STEIM codec) cannot be built"
+        )
+    BUILD_DIR.mkdir(exist_ok=True)
+    tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
+    _run_all([[cc, *HOST_FLAGS, "-o", str(tmp), *map(str, sources), "-lm"]],
+             tool="cc")
     os.replace(tmp, lib_path)
     return lib_path
 

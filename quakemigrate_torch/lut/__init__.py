@@ -1,12 +1,17 @@
 # -*- coding: utf-8 -*-
 """
-Traveltime state carried over from a lookup table: the node-major
-sample-offset table the detect path migrates with, and the mapping of
+quakemigrate_torch.lut -- traveltime lookup tables (:class:`LUT`, the
+homogeneous builder, the port's npz+json file format, the carry-over of
+a JAX lookup table's state) and the traveltime state the detect path
+migrates with: the node-major sample-offset table, and the mapping of
 flat node indices back to grid indices.
 
 """
 
 import numpy as np
+
+from .lut import LUT, Grid3D, StationTable  # noqa: F401
+from .create import compute_traveltimes, lut_from_reference  # noqa: F401
 
 
 def traveltime_table(tables, scan_rate):

@@ -1,4 +1,4 @@
 # -*- coding: utf-8 -*-
 """Continuous-scan entry points of the port."""
 
-from .scan import DetectScan  # noqa: F401
+from .scan import DetectScan, QuakeScan  # noqa: F401

@@ -1,0 +1,212 @@
+# -*- coding: utf-8 -*-
+"""
+STA/LTA onset of the port, after the JAX package's
+``signal/onsets/stalta.py``: the host side of the fused detect window.
+
+Pre-processing (resample -> detrend -> cosine taper -> zero-phase
+Butterworth bandpass) runs host-side on the port's Stream objects, then
+:meth:`STALTAOnset.prepare_device_inputs` places the waveforms into the
+fixed-shape channel block that ``DetectScan`` takes; the transform,
+STA/LTA, RMS combination and clipping run on the device inside the fused
+window (``ops.scan_window``). Window lengths, pads and the availability
+rules follow the reference: they set the scan geometry that output
+parity depends on. The standalone ``calculate_onsets`` of the JAX class
+(locate's path) is not ported yet.
+
+"""
+
+import copy
+import logging
+
+import numpy as np
+
+import quakemigrate_torch.util as util
+from .base import Onset, gather_phase_waveforms
+
+
+def pre_process(stream, sampling_rate, resample, upfactor, filter_,
+                starttime, endtime):
+    """
+    Resample to the scan rate, detrend (linear + constant), apply a 5%
+    cosine taper and a zero-phase Butterworth bandpass.
+
+    """
+
+    logging.debug(stream.__str__(extended=True))
+    logging.debug(f"Resample={resample}, Upfactor={upfactor}")
+
+    lowcut, highcut, order = filter_
+    nyquist = 0.5 * sampling_rate
+    if highcut >= nyquist:
+        raise util.NyquistException(highcut, nyquist, "")
+
+    conditioned = util.resample(
+        stream, sampling_rate, resample, upfactor, starttime, endtime
+    ).copy()
+    for detrend_kind in ("linear", "constant"):
+        conditioned.detrend(detrend_kind)
+    conditioned.taper(type="cosine", max_percentage=0.05)
+    conditioned.filter("bandpass", freqmin=lowcut, freqmax=highcut,
+                       corners=order, zerophase=True)
+    return conditioned
+
+
+class STALTAOnset(Onset):
+    """
+    Short-term / long-term average ratio onset functions, with per-phase
+    bandpass filters, channel maps and STA/LTA window lengths.
+
+    Attributes follow the reference API: phases, bandpass_filters,
+    sta_lta_windows, channel_maps, channel_counts, position
+    ("classic"/"centred"), signal_transform ("energy"/"abs"/"env"/
+    "env_squared"), min_onset_value, all_channels / allow_gaps /
+    full_timespan data-quality toggles.
+
+    """
+
+    _DEFAULTS = {
+        "position": "classic",
+        "signal_transform": "energy",
+        "min_onset_value": 0.4,
+        "phases": ["P", "S"],
+        "bandpass_filters": {"P": [2.0, 16.0, 2], "S": [2.0, 16.0, 2]},
+        "sta_lta_windows": {"P": [0.2, 1.0], "S": [0.2, 1.0]},
+        "channel_maps": {"P": "*Z", "S": "*[N,E,1,2]"},
+        "channel_counts": {"P": 1, "S": 2},
+        "all_channels": False,
+        "allow_gaps": False,
+        "full_timespan": True,
+    }
+
+    def __init__(self, **kwargs):
+        super().__init__(**kwargs)
+
+        # deepcopy: several defaults are dicts/lists, and instances must not
+        # share (or mutate) the class-level table.
+        for option, default in self._DEFAULTS.items():
+            setattr(self, option, kwargs.get(option, copy.deepcopy(default)))
+        if self.min_onset_value < 0.01:
+            raise ValueError("The `min_onset_value` must be greater than 0.01")
+
+    def __str__(self):
+        parts = [
+            f"\tOnset parameters - using the {self.position} STA/LTA onset",
+            f"\n\t\tOnset function sampling rate = {self.sampling_rate} Hz",
+            f"\n\t\tPhase(s) = {self.phases}\n",
+        ]
+        parts += [
+            f"\n\t\t{phase} bandpass filter  = {filt} (Hz, Hz, -)"
+            for phase, filt in self.bandpass_filters.items()
+        ]
+        parts.append("\n")
+        parts += [
+            f"\n\t\t{phase} onset [STA, LTA] = {windows} (s, s)"
+            for phase, windows in self.sta_lta_windows.items()
+        ]
+        parts.append("\n")
+        return "".join(parts)
+
+    def _gather_phase_waveforms(self, data, phase):
+        """
+        Pre-process one phase's waveforms and run the availability checks:
+        returns the per-station kept streams, the per-(station, phase)
+        availability, and the STA/LTA window sample counts.
+
+        """
+
+        stw, ltw = (
+            util.time2sample(w, self.sampling_rate) + 1
+            for w in self.sta_lta_windows[phase]
+        )
+
+        conditioned = pre_process(
+            data.waveforms.select(channel=self.channel_maps[phase]),
+            self.sampling_rate, data.resample, data.upfactor,
+            self.bandpass_filters[phase], data.starttime, data.endtime,
+        )
+
+        kept, availability = gather_phase_waveforms(
+            self, data, phase, conditioned
+        )
+        return kept, availability, stw, ltw
+
+    def prepare_device_inputs(self, data, slots, c_max=None, dtype=None):
+        """
+        Build the fixed-shape channel block consumed by the fused detect
+        window (``ops.scan_window.detect_window_fused`` and its CUDA form):
+        waveforms are pre-processed and availability-checked host-side,
+        then placed into canonical (phase, station) slots with channel/slot
+        masks and per-slot STA/LTA window lengths.
+
+        Returns (channels [n_slots, C_max, T], chan_mask, slot_mask,
+        nsta, nlta, availability dict).
+
+        """
+
+        if c_max is None:
+            c_max = max(3, max(self.channel_counts.values()))
+        dtype = np.float32 if dtype is None else dtype
+
+        t_len = util.time2sample(
+            data.endtime - data.starttime, self.sampling_rate
+        ) + 1
+
+        n_slots = len(slots)
+        channels = np.zeros((n_slots, c_max, t_len), dtype=dtype)
+        chan_mask = np.zeros((n_slots, c_max), dtype=dtype)
+        slot_mask = np.zeros(n_slots, dtype=dtype)
+        nsta = np.ones(n_slots, dtype=np.int32)
+        nlta = np.full(n_slots, 2, dtype=np.int32)
+        availability = {}
+
+        kept_by_phase = {}
+        for phase in self.phases:
+            kept_by_phase[phase] = self._gather_phase_waveforms(data, phase)
+            availability.update(kept_by_phase[phase][1])
+
+        for s, (phase, station) in enumerate(slots):
+            kept, _, stw, ltw = kept_by_phase[phase]
+            nsta[s], nlta[s] = stw, ltw
+            waveforms = kept.get(station)
+            if waveforms is None:
+                continue
+            traces = list(waveforms)
+            if len(traces) > c_max:
+                logging.warning(
+                    f"{station}/{phase}: {len(traces)} live channels exceed "
+                    f"the fused channel capacity ({c_max}); using the first "
+                    f"{c_max}."
+                )
+                traces = traces[:c_max]
+            for c, tr in enumerate(traces):
+                row = np.asarray(tr.data, dtype=dtype)
+                channels[s, c, : len(row)] = row[:t_len]
+                chan_mask[s, c] = 1.0
+            slot_mask[s] = 1.0
+
+        return channels, chan_mask, slot_mask, nsta, nlta, availability
+
+    def _longest(self, which):
+        """Longest STA (which=0) or LTA (which=1) window over all phases."""
+
+        return max(win[which] for win in self.sta_lta_windows.values())
+
+    @property
+    def pre_pad(self):
+        """max LTA + 3 * max STA, over all phases."""
+
+        return self._longest(1) + 3 * self._longest(0)
+
+    @pre_pad.setter
+    def pre_pad(self, value):
+        self._pre_pad = value
+
+    @property
+    def post_pad(self):
+        return self._post_pad
+
+    @post_pad.setter
+    def post_pad(self, ttmax):
+        """ceil(max traveltime + 2 * max LTA)."""
+
+        self._post_pad = np.ceil(ttmax + 2 * self._longest(1))

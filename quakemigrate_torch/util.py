@@ -1,5 +1,40 @@
 # -*- coding: utf-8 -*-
-"""Small pure helpers shared by the port's modules."""
+"""
+Small pure helpers shared by the port's modules: time and sample
+arithmetic, the resampling chain of the detect path's pre-processing,
+the per-channel merge, and the exceptions the detect path raises or
+catches. Copied from the JAX package's ``util.py`` (which the port does
+not import), with only what the detect path reaches.
+
+"""
+
+import logging
+import sys
+from datetime import datetime
+
+import numpy as np
+
+log_spacer = "=" * 110
+
+
+class AttribDict(dict):
+    """Dictionary whose keys double as attributes (``d.x`` == ``d["x"]``)."""
+
+    def __getattr__(self, key):
+        if key in self:
+            return self[key]
+        raise AttributeError(key)
+
+    def __setattr__(self, key, value):
+        self[key] = value
+
+    def __delattr__(self, key):
+        if key not in self:
+            raise AttributeError(key)
+        del self[key]
+
+    def copy(self):
+        return AttribDict(self)
 
 
 def time2sample(time, sampling_rate):
@@ -8,7 +43,351 @@ def time2sample(time, sampling_rate):
     return int(round(time * int(sampling_rate)))
 
 
+def trim2sample(time, sampling_rate):
+    """
+    Shortest duration >= ``time`` that is both a whole number of samples at
+    ``sampling_rate`` and a whole number of milliseconds.
+
+    """
+
+    whole_samples = np.ceil(time * sampling_rate) / sampling_rate
+    return int(whole_samples * 1000) / 1000
+
+
 def round_up(x, m):
     """Smallest multiple of ``m`` that is >= ``x``."""
 
     return -(-x // m) * m
+
+
+def logger(logstem, log, loglevel="info"):
+    """
+    (Re)configure root logging: message-only records to stdout, plus a
+    timestamped ``.log`` file beside ``logstem`` when ``log`` is truthy.
+
+    """
+
+    sinks = [logging.StreamHandler(sys.stdout)]
+    if log:
+        logstem.parent.mkdir(exist_ok=True, parents=True)
+        stamp = datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
+        sinks.insert(0, logging.FileHandler(f"{logstem}_{stamp}.log"))
+
+    logging.basicConfig(
+        level=logging.DEBUG if loglevel == "debug" else logging.INFO,
+        format="%(message)s",
+        handlers=sinks,
+        force=True,
+    )
+
+
+# --- the resampling chain ----------------------------------------------------
+
+
+def _subsample_offset(trace):
+    """Seconds to add to snap ``trace``'s start onto the sample grid."""
+
+    rate = trace.stats.sampling_rate
+    micros_per_sample = 1e6 / rate
+    remainder = trace.stats.starttime.microsecond % micros_per_sample
+    if remainder == 0:
+        return None
+    return round(remainder / 1e6 * rate) / rate - remainder / 1e6
+
+
+def shift_to_sample(stream, interpolate=False):
+    """
+    Snap every trace onto the "on-sample" time grid (start an integer number
+    of samples after midnight). ``interpolate=False`` just nudges the
+    metadata; ``interpolate=True`` resamples the data onto the corrected grid
+    with a Lanczos kernel, preserving the sample count.
+
+    """
+
+    stream = stream.copy()
+    for trace in stream:
+        nudge = _subsample_offset(trace)
+        if nudge is None:
+            if trace.stats.sampling_rate < 1.0:
+                logging.warning(
+                    f"Trace\n\t{trace}\nhas a sampling rate less than 1 Hz, so "
+                    "off-sample data might not be corrected!"
+                )
+            continue
+
+        verb = "Interpolating to apply a" if interpolate else "Applying"
+        logging.info(
+            f"Trace\n\t{trace}\nhas off-sample data. {verb} {nudge:+f} s "
+            "shift to timing."
+        )
+        if not interpolate:
+            trace.stats.starttime = trace.stats.starttime + nudge
+            continue
+
+        # Resample onto the snapped grid. A negative nudge would put the
+        # first grid point before the data, so interpolate from the next
+        # sample instead, then restore the length with an edge replicate.
+        grid_start = trace.stats.starttime + nudge
+        if nudge < 0.0:
+            grid_start = grid_start + trace.stats.delta
+        trace.interpolate(
+            sampling_rate=trace.stats.sampling_rate,
+            method="lanczos",
+            a=20,
+            starttime=grid_start,
+        )
+        if nudge > 0.0:
+            trace.data = np.append(trace.data, trace.data[-1])
+        else:
+            trace.data = np.insert(trace.data, 0, trace.data[0])
+            trace.stats.starttime = trace.stats.starttime - trace.stats.delta
+
+    return stream
+
+
+def decimate(trace, sampling_rate):
+    """
+    Reduce a trace to ``sampling_rate`` by integer decimation, preceded by
+    linear+mean detrend, a 5% cosine taper, and a zero-phase 2-corner
+    Butterworth anti-alias lowpass placed fractionally below the new Nyquist.
+
+    """
+
+    out = trace.copy()
+    out.detrend("linear")
+    out.detrend("demean")
+    out.taper(type="cosine", max_percentage=0.05)
+    out.filter(
+        "lowpass", freq=float(sampling_rate) / 2.000001, corners=2,
+        zerophase=True,
+    )
+    out.decimate(factor=int(out.stats.sampling_rate / sampling_rate),
+                 no_filter=True)
+    return out
+
+
+def upsample(trace, upfactor, starttime, endtime):
+    """
+    Linearly interpolate a trace by an integer factor (original samples are
+    preserved as fenceposts). If the trace starts late / ends early relative
+    to the requested window by less than one *original* sample interval, the
+    gap is filled by replicating the edge value so a subsequent decimate sees
+    a full window.
+
+    """
+
+    data = np.asarray(trace.data, dtype=float)
+    fine_rate = trace.stats.sampling_rate * upfactor
+    coarse_idx = np.arange(data.size, dtype=float)
+    fine_idx = np.arange((data.size - 1) * upfactor + 1, dtype=float) / upfactor
+    fine = np.interp(fine_idx, coarse_idx, data)
+
+    fine_start = trace.stats.starttime
+    lead = trace.stats.starttime - starttime
+    if 0.0 < lead < trace.stats.delta:
+        n_lead = int(np.round(lead * fine_rate))
+        fine = np.concatenate([np.full(n_lead, data[0]), fine])
+        fine_start = trace.stats.starttime - n_lead / fine_rate
+
+    lag = endtime - trace.stats.endtime
+    if 0.0 < lag < trace.stats.delta:
+        n_lag = int(np.round(lag * fine_rate))
+        fine = np.concatenate([fine, np.full(n_lag, data[-1])])
+
+    out = trace.copy()
+    out.data = fine
+    out.stats.sampling_rate = int(fine_rate)
+    out.stats.starttime = fine_start
+    out.trim(
+        starttime=starttime - 0.00001, endtime=endtime + 0.00001,
+        nearest_sample=False,
+    )
+    return out
+
+
+def resample(stream, sampling_rate, resample, upfactor, starttime, endtime):
+    """
+    Bring every trace in ``stream`` to ``sampling_rate``. Rates that divide
+    evenly are decimated directly; with ``resample=True`` and an integer
+    ``upfactor``, incompatible rates go through upsample-then-decimate.
+    Traces that cannot be conformed are left at their native rate (logged):
+    the downstream availability check rejects them.
+
+    """
+
+    conformed = type(stream)()
+    for trace in stream:
+        native = trace.stats.sampling_rate
+        if native == sampling_rate:
+            conformed += trace.copy()
+        elif native % sampling_rate == 0:
+            conformed += decimate(trace, sampling_rate)
+        elif resample and upfactor is not None:
+            if int(native * upfactor) % sampling_rate != 0:
+                raise BadUpfactorException(trace)
+            fine = upsample(trace, upfactor, starttime, endtime)
+            # Always decimate after upsampling, even when the upsampled
+            # rate already equals the target (factor 1): decimate is
+            # where the detrend / taper / zero-phase lowpass conditioning
+            # happens
+            conformed += decimate(fine, sampling_rate)
+        else:
+            logging.info(
+                "Mismatched sampling rates - cannot decimate data from\n\t"
+                f"{trace}\n...to resample data, set resample = True and "
+                "choose a suitable upfactor"
+            )
+            conformed += trace.copy()
+
+    conformed.trim(
+        starttime=starttime - 0.00001, endtime=endtime + 0.00001,
+        nearest_sample=False,
+    )
+    return conformed
+
+
+def merge_stream(stream):
+    """
+    Merge contiguous / identically-overlapping segments channel by channel
+    (no-clobber). A channel whose segments genuinely conflict is dropped with
+    a log line rather than failing the whole stream.
+
+    """
+
+    merged = type(stream)()
+    for seed_id in sorted({trace.id for trace in stream}):
+        channel = stream.select(id=seed_id)
+        try:
+            merged += channel.copy().merge(method=-1)
+        except MergeError as err:
+            logging.info(f"\t\t{err}")
+            logging.info(f"\t\t{channel}")
+            logging.info("\t\tThis channel will not be used for onset "
+                         "calculation.")
+    return merged
+
+
+# --- the exceptions of the detect path ----------------------------------------
+#
+# Detect windows that raise the archive, gap or availability errors become
+# zero-filled .scanmseed steps. ``msg``, where present, is the indented
+# variant used in the progress log.
+
+
+class QMError(Exception):
+    """Base class: ``detail`` is a class-level template filled from args."""
+
+    detail = ""
+
+    def __init__(self, *args):
+        super().__init__(self.detail.format(*args) if self.detail else
+                         (args[0] if args else ""))
+
+
+class MergeError(QMError):
+    detail = "{0}"
+
+    def __init__(self, reason="Traces could not be merged without clobbering."):
+        super().__init__(reason)
+
+
+class StationFileHeaderException(QMError):
+    detail = ("Incorrect station file header - use:\n"
+              "Latitude, Longitude, Elevation, Name")
+
+    def __init__(self):
+        super().__init__()
+
+
+class ArchiveFormatException(QMError):
+    detail = (
+        "Archive format has not been set. Set when making the Archive "
+        "object with the kwarg 'archive_format=<path_structure>', or "
+        "afterwards with the command "
+        "'Archive.path_structure(<path_structure>)'."
+    )
+
+    def __init__(self):
+        super().__init__()
+
+
+class ArchivePathStructureError(QMError):
+    detail = (
+        "The archive path structure you have selected: '{0}' "
+        "is not a valid option! See the documentation for "
+        "'Archive.path_structure' for a complete list, or specify a custom "
+        "format."
+    )
+
+
+class ArchiveEmptyException(QMError):
+    detail = "No data was available for this timestep."
+    msg = "\t\tNo files found in archive for this time period."
+
+    def __init__(self):
+        super().__init__()
+
+
+class DataAvailabilityException(QMError):
+    detail = (
+        "All data for this timestep did not pass the specified data "
+        "quality criteria."
+    )
+    msg = (
+        "\t\tAll data for this timestep failed to pass the"
+        "\n\t\tspecified data quality criteria. This includes the"
+        "\n\t\tpresence of gaps or overlaps, or the data not"
+        "\n\t\tspanning the full time window."
+    )
+
+    def __init__(self):
+        super().__init__()
+
+
+class DataGapException(QMError):
+    detail = (
+        "No data present in the archive for the selected stations for "
+        "this time window."
+    )
+    msg = (
+        "\t\tNo data for the selected stations was found in the"
+        "\n\t\tarchive for this time window."
+    )
+
+    def __init__(self):
+        super().__init__()
+
+
+class BadUpfactorException(QMError):
+    detail = (
+        "Chosen upfactor cannot be decimated to\ntarget sampling rate."
+        "\n    Working on trace: {0}"
+    )
+
+
+class OnsetTypeError(QMError):
+    detail = (
+        "The Onset object you have created does not inherit from the "
+        "required base class - see manual."
+    )
+
+    def __init__(self):
+        super().__init__()
+
+
+class LUTPhasesException(QMError):
+    detail = "{0}"
+
+
+class NyquistException(QMError):
+    detail = (
+        "    Selected bandpass_highcut {0} Hz is at or above the "
+        "Nyquist frequency ({1} Hz) for trace {2}. "
+    )
+
+
+class TimeSpanException(QMError):
+    detail = "The start time specified is after the end time."
+
+    def __init__(self):
+        super().__init__()

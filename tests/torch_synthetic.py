@@ -1,0 +1,105 @@
+# -*- coding: utf-8 -*-
+"""
+The synthetic detect workspace the port's host-layer tests share, built
+as tests/test_e2e_synthetic.py builds it: 10 stations on a ring, a 1 km
+tmerc grid, homogeneous P/S traveltimes, one planted source and 60 s of
+100 Hz three-component waveforms, written by the JAX package as a
+YEAR/JD/STATION miniSEED archive. Also the conversion of a JAX LUT into
+the plain state that ``quakemigrate_torch.lut.lut_from_reference``
+takes.
+
+"""
+
+import numpy as np
+import pandas as pd
+
+SOURCE = [0.0, 0.0, 15.0]  # lon, lat, depth (km)
+VP, VS = 5.0, 3.0
+SPS = 100
+TIMESTEP = 5.0
+START = "2021-02-18T12:00:20.0"
+END = "2021-02-18T12:00:45.0"
+N_STATIONS = 10
+
+
+def stations_frame():
+    angles = np.linspace(0, 2 * np.pi, N_STATIONS, endpoint=False)
+    return pd.DataFrame({
+        "Name": [f"ST{i:02d}" for i in range(N_STATIONS)],
+        "Longitude": 0.045 * np.cos(angles),
+        "Latitude": 0.045 * np.sin(angles),
+        "Elevation": np.zeros(N_STATIONS),
+    })
+
+
+def grid_spec(proj_module):
+    """The grid of the workspace, with projections from ``proj_module``
+    (the JAX package's coords or the port's)."""
+
+    return dict(
+        ll_corner=[-0.06, -0.06, 0.0], ur_corner=[0.06, 0.06, 20.0],
+        node_spacing=[1.0, 1.0, 1.0],
+        grid_proj=proj_module.Proj(proj="tmerc", units="km", lon_0=0.0,
+                                   lat_0=0.0, ellps="WGS84"),
+        coord_proj=proj_module.Proj(proj="longlat", ellps="WGS84"),
+    )
+
+
+def build_workspace(root):
+    """JAX LUT (saved as ``root/lut/synthetic.LUT``), waveforms and the
+    archive under ``root/mSEED``. Returns a dict of what it made."""
+
+    from quakemigrate_tpu import compute_traveltimes, coords
+    from quakemigrate_tpu.synthetics import (
+        GaussianDerivativeWavelet,
+        simulate_waveforms,
+    )
+
+    stations = stations_frame()
+    lut_file = root / "lut" / "synthetic.LUT"
+    lut = compute_traveltimes(
+        grid_spec(coords), stations, method="homogeneous",
+        phases=["P", "S"], vp=VP, vs=VS, save_file=str(lut_file),
+    )
+    wavelet = GaussianDerivativeWavelet(4.0, SPS, 30.0)
+    stream = simulate_waveforms(
+        wavelet, SOURCE, lut, magnitude=2.0, angle_of_incidence=80,
+        rng=np.random.default_rng(4),
+    )
+    archive = root / "mSEED"
+    day_dir = archive / "2021" / "049"
+    day_dir.mkdir(parents=True)
+    for tr in stream:
+        tr.write(str(day_dir / f"{tr.stats.station}_{tr.stats.channel[-1]}.m"),
+                 format="MSEED")
+    return {"root": root, "stations": stations, "lut": lut,
+            "lut_file": lut_file, "archive": archive, "stream": stream}
+
+
+def reference_state(jax_lut):
+    """The plain state of a JAX LUT that ``lut_from_reference`` takes."""
+
+    return {
+        "ll_corner": np.asarray(jax_lut.ll_corner),
+        "ur_corner": np.asarray(jax_lut.ur_corner),
+        "node_spacing": np.asarray(jax_lut.node_spacing),
+        "node_count": np.asarray(jax_lut.node_count),
+        "grid_proj": jax_lut.grid_proj.definition(),
+        "coord_proj": jax_lut.coord_proj.definition(),
+        "stations": {col: jax_lut.station_data[col].to_numpy()
+                     for col in ("Name", "Latitude", "Longitude",
+                                 "Elevation")},
+        "traveltimes": jax_lut.traveltimes,
+        "phases": list(jax_lut.phases),
+        "fraction_tt": jax_lut.fraction_tt,
+        "velocity_model": str(jax_lut.velocity_model),
+    }
+
+
+def onset_settings(onset):
+    """The workspace's STA/LTA settings, on a JAX or a port onset."""
+
+    onset.phases = ["P", "S"]
+    onset.bandpass_filters = {"P": [1, 12, 2], "S": [1, 12, 2]}
+    onset.sta_lta_windows = {"P": [0.2, 1.0], "S": [0.2, 1.0]}
+    return onset
