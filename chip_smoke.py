@@ -43,6 +43,25 @@ Smoke run of quakemigrate_torch on one NVIDIA GPU.
    dispatch and drain/append, and each host layer's ms a window timed
    alone (archive read, pre-process, block, .scanmseed append). The
    scan's own log goes to a file in the phase's temporary directory.
+   archive_locate follows on the same workspace and .scanmseed: Trigger
+   with the example's settings (iceland_trigger.py: marginal window
+   0.06 s, minimum interval 0.12 s, static 2.15 on the normalised
+   trace) and QuakeScan.locate with iceland_locate.py's (centred
+   STA/LTA, GaussianPicker, cut waveforms) on the card. Checks: exactly
+   the planted event triggered, within the marginal window of its
+   origin; route k1_v2, one K1 v2 launch an event migrated and one M1
+   (csrc/migrate_marginalise.cu) launch an event through the
+   marginal-window gate, no other kernel and no plain version on a CUDA
+   tensor; pass 1 against the plain migration (the tolerances of step
+   4) and M1 against the plain migrate_marginalise (1e-5 of the map's
+   maximum, the same peak node); the spline hypocentre within one node
+   of the planted source; the .event, .picks and cut waveforms read
+   back, with P and S picks at every station. Then M1 at 128 stations
+   x P/S (256 onsets, a plan K1 v2 refuses) and over archive_detect's
+   2,038-sample window, each held to its plain version, and M1 and K1
+   v2 timed at the locate window; locate runs again warm, and its
+   per-event host split (read wait, onsets, pass 1, pass 2, location
+   math, picks, writes) and trigger's wall are printed.
 5. The VPU-plan kernel (csrc/migrate_detect_vpu.cu) against its plain
    version on a small plan and at the Icequake grid (tile 512, bricks
    8 x 8 x 8), timed; then K2 v2 (csrc/migrate_detect_vpu_v2.cu, the
@@ -198,10 +217,21 @@ ARCHIVE_START = "2014-06-29T18:41:00.0"
 ARCHIVE_SPAN_S = 60.0
 ARCHIVE_TIMESTEP = 2.5
 DEAD_WINDOW, DEAD_STATION = 3, 5
+# archive_locate: the example's trigger (iceland_trigger.py) and locate
+# (iceland_locate.py) settings
+LOCATE_MARGINAL_WINDOW = 0.06
+LOCATE_MIN_EVENT_INTERVAL = 0.12
+LOCATE_THRESHOLD = 2.15
+# archive_detect's window at Icequake (fsmp, nsamples, lsmp), over which
+# M1 is also timed
+DETECT_WINDOW = (413, 2038, 1000)
 
 KERNEL_RTOL = 1e-5
 MAX_COA_RTOL = 1e-5
 MAX_COA_N_RTOL = 1e-4
+# M1 against its plain version: sums of coalescence over the window in
+# other orders, within this share of the map's maximum
+M1_RTOL_OF_MAX = 1e-5
 
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): HBM3
 # bandwidth, float32 rate outside the tensor cores, and shared-memory
@@ -708,7 +738,8 @@ def f1_path(device, n_stations=128, n_windows=2):
     v2 route on the same plan (K1 v2 refuses it; the reason printed),
     launches K2 v2 once a window and K1 v2 and K2 never, and its results
     are held to the plain window (max_coa and max_coa_n within 1e-5, the
-    argmax tie-consistent). Returns K2 v2's launches and a record."""
+    argmax tie-consistent). Returns K2 v2's launches, a record, and the
+    traveltimes and plan (archive_locate runs M1 on them)."""
 
     from quakemigrate_torch.ops import cuda_migrate as cm
     from quakemigrate_torch.signal.scan import DetectScan
@@ -775,7 +806,8 @@ def f1_path(device, n_stations=128, n_windows=2):
         "route_reason": scan.route_reason, "route_wall_s": wall,
         "window_ms": scan.window_ms, "plain_window_wall_s": plain_wall,
         "vpu_v2_smem": smem, "tile": detector.tile,
-        "n_stages": detector.n_stages, "max_abs_err": max(errs)}
+        "n_stages": detector.n_stages, "max_abs_err": max(errs)}, (
+            tt, scan._plan)
 
 
 def archive_workspace(root, spacing_km=SPACING_KM, span_s=ARCHIVE_SPAN_S):
@@ -786,11 +818,13 @@ def archive_workspace(root, spacing_km=SPACING_KM, span_s=ARCHIVE_SPAN_S):
     quakemigrate_torch.synthetics (noise on the amplitudes, none on the
     traveltimes), written as a YEAR/JD/STATION STEIM2 archive under
     ``root``. Returns (lut, stations, archive path, planted grid index,
-    seconds spent on the LUT, the synthetics and the archive)."""
+    seconds spent on the LUT, the synthetics and the archive, the planted
+    origin time)."""
 
     from quakemigrate_torch.coords import Proj
     from quakemigrate_torch.io import read_stations
     from quakemigrate_torch.lut import compute_traveltimes
+    from quakemigrate_torch.seis import UTCDateTime
     from quakemigrate_torch.synthetics import (
         GaussianDerivativeWavelet,
         simulate_waveforms,
@@ -824,6 +858,10 @@ def archive_workspace(root, spacing_km=SPACING_KM, span_s=ARCHIVE_SPAN_S):
         starttime=ARCHIVE_START, rng=np.random.default_rng(2031),
     )
     times["synthetics_s"] = time.perf_counter() - t0
+    # The wavelet's zero crossing, its origin, is its middle sample rolled
+    # by int(rate * 0.5 / frequency) + 3 samples (GaussianDerivativeWavelet)
+    origin = UTCDateTime(ARCHIVE_START) + span_s + (
+        int(RATE * 0.5 / 30.0) + 3) / RATE
 
     t0 = time.perf_counter()
     archive = root / "mSEED"
@@ -835,10 +873,10 @@ def archive_workspace(root, spacing_km=SPACING_KM, span_s=ARCHIVE_SPAN_S):
         tr.write(str(folder / f"{tr.stats.station}_{tr.stats.channel[-1]}.m"),
                  format="MSEED", encoding="STEIM2")
     times["archive_s"] = time.perf_counter() - t0
-    return lut, stations, archive, np.array(planted), times
+    return lut, stations, archive, np.array(planted), times, origin
 
 
-def archive_detect_path(device):
+def archive_detect_path(device, f1_plan):
     """archive_detect: QuakeScan.detect from a miniSEED archive to
     .scanmseed on the card, without jax. The workspace of
     :func:`archive_workspace`; the example's STALTAOnset (classic, bandpass
@@ -849,10 +887,10 @@ def archive_detect_path(device):
     the scan prepared; the .scanmseed read back by the port's reader
     (five channels of ARCHIVE_SPAN_S x 250 samples); the peak's X/Y/Z
     within one node of the planted source. Then the same detect again,
-    warm, and the host layers timed alone on the same windows. Returns
-    (K1 v2 launches, record)."""
+    warm, and the host layers timed alone on the same windows. Then
+    archive_locate on the same workspace (:func:`archive_locate_path`).
+    Returns (K1 v2 launches, record, archive_locate's record)."""
 
-    import contextlib
     import tempfile
 
     from quakemigrate_torch.io import Archive
@@ -864,7 +902,8 @@ def archive_detect_path(device):
     record = {}
     with tempfile.TemporaryDirectory() as tmp:
         root = pathlib.Path(tmp)
-        lut, stations, archive_path, planted, times = archive_workspace(root)
+        lut, stations, archive_path, planted, times, origin = (
+            archive_workspace(root))
         record.update(times)
         check(tuple(lut.node_count) == NODE_COUNT,
               f"archive_detect: grid {lut.node_count}")
@@ -884,19 +923,12 @@ def archive_detect_path(device):
         end = start + ARCHIVE_SPAN_S
 
         def detect(label):
-            """One detect, its log (the scan logs to stdout) written to a
-            file beside the run; returns its wall seconds."""
+            """One detect, its log written to a file beside the run;
+            returns its wall seconds."""
 
             torch.cuda.synchronize()
-            with open(root / f"detect_{label}.log", "w") as log, \
-                    contextlib.redirect_stdout(log):
-                t0 = time.perf_counter()
-                scan.detect(start, end)
-                wall = time.perf_counter() - t0
-            root_logger = logging.getLogger()
-            for handler in list(root_logger.handlers):
-                root_logger.removeHandler(handler)
-            return wall
+            return quiet(root, f"detect_{label}",
+                         lambda: scan.detect(start, end))[1]
 
         cm.reset_launches()
         wall = detect("cold")
@@ -1033,6 +1065,8 @@ def archive_detect_path(device):
               f", block (prepare {layer_ms['prepare']:.3f} less pre-process) "
               f"{layer_ms['block']:.3f}, .scanmseed append "
               f"{layer_ms['append']:.3f}")
+        locate_record = archive_locate_path(device, root, scan, planted,
+                                            origin, start, end, f1_plan)
     record.update({
         "windows": n_windows, "dispatched": dispatched, "fsmp": fsmp,
         "lsmp": lsmp, "onsets": int(detect_scan.traveltimes.shape[1]),
@@ -1045,7 +1079,396 @@ def archive_detect_path(device):
         "vs_plain": {k: v for k, v in errs.items() if k != "argmax_equal"},
         "argmax_equal_min": min(errs["argmax_equal"]),
     })
-    return launches["migrate_detect_v2"], record
+    return launches["migrate_detect_v2"], record, locate_record
+
+
+def quiet(root, label, fn):
+    """Run ``fn()`` with its log (the stages log to stdout) written to a
+    file under ``root``; returns (its result, wall seconds)."""
+
+    import contextlib
+
+    with open(root / f"{label}.log", "w") as log, \
+            contextlib.redirect_stdout(log):
+        t0 = time.perf_counter()
+        out = fn()
+        wall = time.perf_counter() - t0
+    root_logger = logging.getLogger()
+    for handler in list(root_logger.handlers):
+        root_logger.removeHandler(handler)
+    return out, wall
+
+
+def median_ms(fn, reps, turns=5, warmup=2):
+    """Median over ``turns`` of :func:`cuda_ms` (mean of ``reps``)."""
+
+    return float(np.median([cuda_ms(fn, reps, warmup)
+                            for _ in range(turns)]))
+
+
+def marginalise_bound(tt, window_length):
+    """Bound of M1's function, migrate_marginalise over a window of
+    ``window_length`` samples for the int32 [n_nodes, O] traveltimes
+    ``tt``: the bytes the function must move, each read or written once
+    (the traveltimes; of each onset row the f32 columns the window
+    touches, from its least traveltime to its largest plus the window;
+    the mask; the f32 [n_nodes] output), not the padding or the tables
+    of the kernel's plan; against O adds and three more operations
+    (scale, exp, sum) a node and window sample. Also the floor of its
+    gather, the n_nodes x O x len 4-byte reads at the shared-memory
+    bandwidth."""
+
+    tt = np.asarray(tt)
+    n_nodes, n_onsets = tt.shape
+    columns = (tt.max(axis=0).astype(np.int64) - tt.min(axis=0)
+               + window_length)
+    nbytes = 4 * (tt.size + int(columns.sum()) + n_onsets + n_nodes)
+    bound_ms, bound_by = roofline(
+        nbytes, n_nodes * window_length * (n_onsets + 3))
+    gather_ms = (n_nodes * n_onsets * window_length * 4 / SMEM_BYTES_PER_S
+                 * 1e3)
+    return {"bound_ms": bound_ms, "bound_by": bound_by,
+            "smem_bound_ms": gather_ms}
+
+
+def m1_case(name, tt, node_count, fsmp, nsamples, lsmp, window, rng, device,
+            plan=None, reps=20):
+    """M1 (csrc/migrate_marginalise.cu) against its plain version on the
+    card, on seeded random onsets at a scan geometry and window
+    ``(start, length)``, within M1_RTOL_OF_MAX of the map's maximum and
+    the same peak node; the kernel timed (CUDA events, median of 5
+    turns), the plain version once. Returns a record."""
+
+    from quakemigrate_torch.ops import cuda_migrate as cm
+    from quakemigrate_torch.ops.migrate import migrate_marginalise
+
+    n_onsets = tt.shape[1]
+    detector = cm.CudaDetect(tt, node_count, fsmp, nsamples, device,
+                             plan=plan)
+    onsets = torch.from_numpy(rng.uniform(
+        0.3, 4.0, size=(n_onsets, fsmp + nsamples + lsmp)).astype(
+            np.float32)).to(device)
+    mask = torch.ones(n_onsets, dtype=torch.float32, device=device)
+    onsets_log, inv = detector.prepare(onsets, mask, float(n_onsets))
+    tt_dev = torch.from_numpy(tt).to(device)
+    start, length = window
+
+    def kernel():
+        return detector.marginalise(onsets_log, inv, start, length)
+
+    def plain():
+        return migrate_marginalise(onsets, tt_dev, mask, float(n_onsets),
+                                   fsmp, nsamples, start, length)
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max() / want.abs().max())
+    same_peak = int(torch.argmax(got)) == int(torch.argmax(want))
+    check(torch.isfinite(got).all() and err <= M1_RTOL_OF_MAX and same_peak,
+          f"m1 {name}: {err} of the maximum, peak equal {same_peak}")
+    ms = median_ms(kernel, reps)
+    # The plain version once, warm from the check above
+    plain_ms = median_ms(plain, 1, turns=1, warmup=0)
+    bound = marginalise_bound(tt, length)
+    record = {"onsets": n_onsets, "window": [start, length],
+              "refusal_k1_v2": cm.v2_refusal(
+                  n_onsets, detector.tile, detector.win_floats,
+                  detector.r_span),
+              "max_err_of_max": err,
+              "max_abs_err": float((got - want).abs().max()), "ms": ms,
+              "plain_ms": plain_ms, **bound}
+    print(f"m1 {name}: {n_onsets} onsets, window {start} + {length} of "
+          f"{nsamples}: {ms:.4f} ms (plain {plain_ms:.4f}; bound "
+          f"{bound['bound_ms']:.4f} by {bound['bound_by']}, gather floor "
+          f"{bound['smem_bound_ms']:.4f}), {err:.2e} of the maximum; K1 v2 "
+          f"refusal: {record['refusal_k1_v2']}")
+    return record
+
+
+class NoPlainOnCuda:
+    """Within the block, the plain versions that locate's CPU path calls
+    raise if they are given CUDA tensors."""
+
+    def __init__(self):
+        from quakemigrate_torch.ops import cuda_migrate as cm
+        from quakemigrate_torch.signal import scan as scan_module
+
+        self.targets = [(scan_module, "migrate_detect"),
+                        (scan_module, "migrate_marginalise"),
+                        (cm, "detect_reduce_plan_reference"),
+                        (cm, "vpu_v2_reference")]
+
+    def __enter__(self):
+        self.saved = [getattr(m, n) for m, n in self.targets]
+        for (module, name), fn in zip(self.targets, self.saved):
+            def guarded(*args, _fn=fn, _name=name, **kwargs):
+                check(not any(torch.is_tensor(a) and a.is_cuda
+                              for a in args),
+                      f"archive_locate: plain {_name} ran on CUDA tensors")
+                return _fn(*args, **kwargs)
+            setattr(module, name, guarded)
+        return self
+
+    def __exit__(self, *exc):
+        for (module, name), fn in zip(self.targets, self.saved):
+            setattr(module, name, fn)
+
+
+def archive_locate_path(device, root, detect, planted, origin, start, end,
+                        f1_plan):
+    """archive_locate: Trigger and QuakeScan.locate on the card, on
+    archive_detect's workspace and .scanmseed, without jax. Trigger with
+    iceland_trigger.py's settings (marginal window 0.06 s, minimum event
+    interval 0.12 s, the normalised trace, static threshold
+    LOCATE_THRESHOLD); locate with iceland_locate.py's (centred STA/LTA,
+    bandpass [10, 124, 4], P 0.01/0.25 s, S 0.05/0.5 s, GaussianPicker,
+    marginal window 0.06 s, cut waveforms), figures logged as not drawn.
+    Checks: exactly the planted event triggered, within the marginal
+    window of its origin time; pass 1 on route k1_v2, one K1 v2 launch an
+    event read and one M1 launch an event that passes the marginal-window
+    gate, no other detect kernel and no plain version on a CUDA tensor;
+    each pass 1 against the plain migration on the card (max_coa 1e-5,
+    max_coa_n 1e-4, argmax tie-consistent); each M1 result against the
+    plain migrate_marginalise on the card (M1_RTOL_OF_MAX of the maximum,
+    the same peak node); the spline hypocentre within one node of the
+    planted source; the .event, .picks and cut waveforms read back by the
+    port's readers, with P and S picks at every station. Then M1 at F1's
+    geometry (256 onsets, on ``f1_plan``, F1's traveltimes and plan) and
+    M1 and K1 v2 timed; locate run again, warm, for its per-event split.
+    Returns a record."""
+
+    from quakemigrate_torch.io import read_scanmseed, read_triggered_events
+    from quakemigrate_torch.io.table import read_csv
+    from quakemigrate_torch.ops import cuda_migrate as cm
+    from quakemigrate_torch.ops.migrate import (
+        _prepare_onsets,
+        migrate_detect,
+        migrate_marginalise,
+    )
+    from quakemigrate_torch.seis import UTCDateTime, read
+    from quakemigrate_torch.signal import QuakeScan, Trigger
+    from quakemigrate_torch.signal.onsets import STALTAOnset
+    from quakemigrate_torch.signal.pickers import GaussianPicker
+
+    lut, run = detect.lut, detect.run
+    runs, run_name = run.path.parent, run.name
+
+    # Trigger, on the host
+    trig = Trigger(lut, run_path=str(runs), run_name=run_name,
+                   marginal_window=LOCATE_MARGINAL_WINDOW,
+                   min_event_interval=LOCATE_MIN_EVENT_INTERVAL,
+                   normalise_coalescence=True, threshold_method="static",
+                   static_threshold=LOCATE_THRESHOLD)
+    _, trigger_s = quiet(root, "trigger", lambda: trig.trigger(start, end))
+    (data, _), _ = quiet(root, "read_scanmseed", lambda: read_scanmseed(
+        run, start, end, 0.0, lut.unit_conversion_factor))
+    coa_n = np.asarray(data["COA_N"])
+    peak = int(np.argmax(coa_n))
+    away = np.abs(np.arange(coa_n.size) - peak) > round(
+        LOCATE_MIN_EVENT_INTERVAL * RATE)
+    events = read_triggered_events(run, starttime=start, endtime=end)
+    print(f"archive_locate: trigger {trigger_s:.3f} s wall; the normalised "
+          f"trace peaks at {coa_n[peak]:.5f}, its maximum beyond "
+          f"{LOCATE_MIN_EVENT_INTERVAL} s of the peak is "
+          f"{coa_n[away].max():.5f} (threshold {LOCATE_THRESHOLD}); "
+          f"{len(events)} event(s) triggered: "
+          f"{[str(t) for t in events['CoaTime']]}, planted origin {origin}")
+    check(len(events) == 1 and abs(events["CoaTime"][0] - origin)
+          < LOCATE_MARGINAL_WINDOW,
+          f"archive_locate: triggered {[str(t) for t in events['CoaTime']]}"
+          f" for the origin {origin}")
+
+    # Locate, on the card
+    onset = STALTAOnset(position="centred", sampling_rate=RATE)
+    onset.phases = ["P", "S"]
+    onset.bandpass_filters = {"P": [10, 124, 4], "S": [10, 124, 4]}
+    onset.sta_lta_windows = {p: list(w) for p, w in STA_LTA.items()}
+    picker = GaussianPicker(onset=onset)
+    picker.plot_picks = True
+    scan = QuakeScan(detect.archive, lut, onset, str(runs), run_name,
+                     device=device, picker=picker)
+    scan.marginal_window = LOCATE_MARGINAL_WINDOW
+    scan.write_cut_waveforms = True
+    seen = []
+    scan.on_event = lambda event, pass1, handle: seen.append(
+        (event, pass1, handle))
+    torch.cuda.synchronize()
+    cm.reset_launches()
+    with NoPlainOnCuda():
+        _, locate_s = quiet(root, "locate",
+                            lambda: scan.locate(starttime=start, endtime=end))
+    torch.cuda.synchronize()
+    launches = dict(cm.launches)
+    n_read = len(seen)
+    n_gated = sum(handle is not None for _, _, handle in seen)
+    print(f"archive_locate: locate {locate_s:.3f} s wall, route "
+          f"{scan.locate_route}; {n_read} event(s) migrated, {n_gated} "
+          f"through the marginal-window gate; kernel launches {launches}")
+    check(scan.locate_route == "k1_v2", f"archive_locate: route "
+          f"{scan.locate_route}")
+    check(n_read == len(events) and n_gated == n_read,
+          f"archive_locate: {n_read} migrated, {n_gated} gated of "
+          f"{len(events)}")
+    check(launches["migrate_detect_v2"] == n_read
+          and launches["migrate_marginalise"] == n_gated
+          and all(n == 0 for k, n in launches.items()
+                  if k not in ("migrate_detect_v2", "migrate_marginalise")),
+          f"archive_locate: launches {launches}")
+
+    # Each pass against its plain version on the card
+    tt_dev = torch.from_numpy(scan._traveltime_table()).to(device)
+    errs = {"max_coa": 0.0, "max_coa_n": 0.0, "tie": 0.0, "m1": 0.0,
+            "m1_abs": 0.0, "pass1_abs": 0.0}
+    for event, (max_coa, max_coa_n, max_idx), handle in seen:
+        inp = event._marginalise_inputs
+        fsmp, nsamples = inp["fsmp"], inp["nsamples"]
+        ref = [x.cpu().numpy() for x in migrate_detect(
+            inp["block"], tt_dev, inp["mask"], inp["available"], fsmp,
+            nsamples)]
+        onsets_log = _prepare_onsets(inp["block"], inp["mask"])
+        t = torch.arange(nsamples, device=device)
+        rows = tt_dev[torch.from_numpy(max_idx).long().to(device)].long()
+        acc = torch.zeros(nsamples, dtype=torch.float32, device=device)
+        for o in range(onsets_log.shape[0]):
+            acc = acc + onsets_log[o][fsmp + rows[:, o] + t]
+        at_idx = torch.exp(acc / inp["available"]).cpu().numpy()
+        rel = float((np.abs(max_coa - ref[0]) / np.abs(ref[0])).max())
+        rel_n = float((np.abs(max_coa_n - ref[1]) / np.abs(ref[1])).max())
+        tie = float((np.abs(ref[0] - at_idx) / np.abs(ref[0])).max())
+        check(rel <= MAX_COA_RTOL and rel_n <= MAX_COA_N_RTOL
+              and tie <= MAX_COA_RTOL,
+              f"archive_locate pass 1 {event.uid}: max_coa {rel}, max_coa_n "
+              f"{rel_n}, tie {tie}")
+        errs["max_coa"] = max(errs["max_coa"], rel)
+        errs["max_coa_n"] = max(errs["max_coa_n"], rel_n)
+        errs["tie"] = max(errs["tie"], tie)
+        errs["pass1_abs"] = max(errs["pass1_abs"],
+                                float(np.abs(max_coa - ref[0]).max()))
+        marginal, copied = handle
+        copied.synchronize()
+        i0, i1 = event.trim_bounds
+        want = migrate_marginalise(inp["block"], tt_dev, inp["mask"],
+                                   inp["available"], fsmp, nsamples, i0,
+                                   i1 - i0).cpu()
+        m1_err = float((marginal - want).abs().max() / want.abs().max())
+        same_peak = int(torch.argmax(marginal)) == int(torch.argmax(want))
+        check(m1_err <= M1_RTOL_OF_MAX and same_peak,
+              f"archive_locate M1 {event.uid}: {m1_err} of the maximum, "
+              f"peak equal {same_peak}")
+        errs["m1"] = max(errs["m1"], m1_err)
+        errs["m1_abs"] = max(errs["m1_abs"],
+                             float((marginal - want).abs().max()))
+        print(f"archive_locate {event.uid}: window fsmp {fsmp} + {nsamples} "
+              f"samples, marginal window [{i0}, {i1}); pass 1 vs plain "
+              f"max_coa {rel:.2e}, max_coa_n {rel_n:.2e}, tie {tie:.2e}, "
+              f"argmax equal {(max_idx == ref[2]).mean():.4f}; M1 vs plain "
+              f"{m1_err:.2e} of the maximum, peak node equal {same_peak}")
+
+    # The location and the files, read back by the port's readers
+    event = seen[0][0]
+    node = lut.index2coord([event.hypocentre], inverse=True)[0]
+    dist = int(np.abs(node - planted).max())
+    out = run.path / "locate"
+    header, rows = read_csv(out / "events" / f"{event.uid}.event")
+    written = dict(zip(header, rows[0]))
+    pick_header, pick_rows = read_csv(out / "picks" / f"{event.uid}.picks")
+    cut = read(out / "raw_cut_waveforms" / f"{event.uid}.m")
+    print(f"archive_locate: origin {event.otime} (planted {origin}), spline "
+          f"node {node.tolist()} against the planted {planted.tolist()} "
+          f"({dist} nodes); .event X {written['X']}, Y {written['Y']}, Z "
+          f"{written['Z']}, COA {written['COA']}; {len(cut)} cut traces")
+    check(dist <= 1, f"archive_locate: located {dist} nodes from the "
+          "planted source")
+    check(len(header) == 20 and written["EventID"] == event.uid,
+          f"archive_locate: .event {header}")
+    check(len(cut) == 3 * len(lut.station_data["Name"]),
+          f"archive_locate: {len(cut)} cut traces")
+    picks = [dict(zip(pick_header, r)) for r in pick_rows]
+    residuals = {}
+    for row in picks:
+        tt = float(np.ravel(lut.traveltime_to(row["Phase"], planted,
+                                              row["Station"]))[0])
+        if row["PickTime"] != "-1":
+            residuals[f"{row['Station']}_{row['Phase']}"] = round(
+                UTCDateTime(row["PickTime"]) - (origin + tt), 6)
+    stations = list(lut.station_data["Name"])
+    print(f"archive_locate: {len(residuals)} of {len(picks)} picks made; "
+          f"residual (s) against the modelled arrival at the planted node: "
+          f"{residuals}")
+    check(len(picks) == 2 * len(stations)
+          and sorted(residuals) == sorted(f"{s}_{p}" for s in stations
+                                          for p in ("P", "S")),
+          f"archive_locate: picks {sorted(residuals)}")
+
+    def split():
+        return {k: [row.get(k) for row in scan.locate_event_attrib]
+                for k in ("read_wait", "onsets", "pass1", "pass2",
+                          "pass2_wait", "location", "picks", "writes")}
+
+    # The same locate again, warm: the plan and its tables are on the card
+    cold_split = split()
+    scan.on_event = None
+    _, warm_s = quiet(root, "locate_warm",
+                      lambda: scan.locate(starttime=start, endtime=end))
+    warm_split = split()
+    print(f"archive_locate: per-event split, host s, cold ({locate_s:.3f} s "
+          f"wall): {cold_split}; warm ({warm_s:.3f} s wall): {warm_split}")
+
+    # M1 at F1's geometry (K1 v2 refuses its plan) and at archive_detect's
+    # window, and M1 and K1 v2 timed at the locate window
+    f1 = m1_case("f1", f1_plan[0], NODE_COUNT, FSMP, NSAMPLES, LSMP,
+                 (100, 30), np.random.default_rng(2032), device,
+                 plan=f1_plan[1])
+    check(f1["refusal_k1_v2"] is not None, "m1 f1: K1 v2 takes this plan")
+    _, _, plan = scan._detect_route()
+    tt = scan._traveltime_table()
+    fsmp, nsamples, lsmp = DETECT_WINDOW
+    window_2038 = m1_case("detect window", tt, tuple(lut.node_count), fsmp,
+                          nsamples, lsmp, (0, nsamples),
+                          np.random.default_rng(2033), device, plan=plan,
+                          reps=5)
+    inp = event._marginalise_inputs
+    detector = scan._locate_detector  # pass 1's, at the event's geometry
+    check((detector.fsmp, detector.nsamples) == (inp["fsmp"],
+                                                 inp["nsamples"]),
+          "archive_locate: pass 1's detector is not at the event's geometry")
+    i0, i1 = event.trim_bounds
+    m1_ms = median_ms(lambda: detector.marginalise(
+        inp["onsets_log"], inp["inv_available"], i0, i1 - i0), 50)
+    m1_plain_ms = median_ms(lambda: migrate_marginalise(
+        inp["block"], tt_dev, inp["mask"], inp["available"], inp["fsmp"],
+        inp["nsamples"], i0, i1 - i0), 3, turns=1, warmup=0)
+    m1_bound = marginalise_bound(tt, i1 - i0)
+    k1_v2_ms = median_ms(lambda: detector.launch(inp["onsets_log"],
+                                                 inp["inv_available"]), 50)
+    k1_v2_bound = detect_bound(
+        (inp["onsets_log"], detector.base, detector.fine16, detector.valid,
+         inp["inv_available"], inp["fsmp"], inp["nsamples"]),
+        detector.n_nodes)
+    print(f"archive_locate: M1 at the locate window ({i1 - i0} samples) "
+          f"{m1_ms:.4f} ms (plain {m1_plain_ms:.4f}; bound "
+          f"{m1_bound['bound_ms']:.4f} by {m1_bound['bound_by']}, gather "
+          f"floor {m1_bound['smem_bound_ms']:.4f}); K1 v2 at the locate "
+          f"window ({inp['nsamples']} samples) {k1_v2_ms:.4f} ms (bound "
+          f"{k1_v2_bound['bound_ms']:.4f}, gather floor "
+          f"{k1_v2_bound['smem_bound_ms']:.4f})")
+    return {
+        "trigger_s": trigger_s, "locate_s": locate_s,
+        "coa_n_peak": float(coa_n[peak]),
+        "coa_n_noise_max": float(coa_n[away].max()),
+        "threshold": LOCATE_THRESHOLD,
+        "events": len(events), "trigger_time": str(events["CoaTime"][0]),
+        "origin": str(origin), "otime": str(event.otime),
+        "launches": launches, "route": scan.locate_route,
+        "vs_plain": errs, "spline_node": node.tolist(),
+        "planted": planted.tolist(), "node_distance": dist,
+        "pick_residuals_s": residuals, "event_split_s": cold_split,
+        "locate_warm_s": warm_s, "event_split_warm_s": warm_split,
+        "window": [inp["fsmp"], inp["nsamples"]], "marginal_window": [i0, i1],
+        "m1_ms": m1_ms, "m1_plain_ms": m1_plain_ms, **m1_bound,
+        "k1_v2_ms": k1_v2_ms, "k1_v2_bound": k1_v2_bound,
+        "m1_f1": f1, "m1_detect_window": window_2038,
+    }
 
 
 def scaled_err(got, ref):
@@ -1852,8 +2275,10 @@ def main():
 
     launches, windows, results, planted_ijk = run_slice(tt, rng, device)
     vpu_launches = run_vpu_path(tt, windows, results, planted_ijk, device)
-    f1_launches, f1_record = f1_path(device)
-    archive_launches, archive_record = archive_detect_path(device)
+    f1_launches, f1_record, f1_plan = f1_path(device)
+    archive_launches, archive_record, locate_record = archive_detect_path(
+        device, f1_plan)
+    del f1_plan
 
     checks = breakdown_checks(device)
     s_day = ekb.setup(device=device)
@@ -1943,10 +2368,14 @@ def main():
         # the slice's DetectScan run over prepared blocks beside it
         "launches": archive_launches,
         "slice_launches": launches,
+        "locate_launches": locate_record["launches"]["migrate_detect_v2"],
+        "locate_ms": locate_record["k1_v2_ms"],
+        "locate_bound": locate_record["k1_v2_bound"],
         "archive_detect": archive_record,
         "max_abs_err": max(v2_small["max_abs_err"], v2_record["max_abs_err"],
                            checks["v2"]["max_abs_err"],
-                           archive_record["vs_plain"]["max_abs_err"]),
+                           archive_record["vs_plain"]["max_abs_err"],
+                           locate_record["vs_plain"]["pass1_abs"]),
         "max_rel_err_tmax": v2_record["max_rel_err_tmax"],
         "max_rel_err_tsum": v2_record["max_rel_err_tsum"],
         "ms": v2_record["ms"],
@@ -2302,6 +2731,29 @@ def main():
             name: {"ms": x16g_30k[name]["ms"], "ms_625": x16g_625[name]["ms"]}
             for name in ("v2_nomain", "v2_noreduce")
         },
+    }, {
+        "name": "migrate_marginalise",
+        "route": "cuda",
+        "source": "quakemigrate_torch/csrc/migrate_marginalise.cu",
+        "replaces": "quakemigrate_tpu/ops/migrate.py:291",
+        # the main path: QuakeScan.locate over the archive (archive_locate)
+        "launches": locate_record["launches"]["migrate_marginalise"],
+        "max_abs_err": max(locate_record["vs_plain"]["m1_abs"],
+                           locate_record["m1_f1"]["max_abs_err"],
+                           locate_record["m1_detect_window"]["max_abs_err"]),
+        "max_err_of_max": locate_record["vs_plain"]["m1"],
+        "ms": locate_record["m1_ms"],
+        "plain_ms": locate_record["m1_plain_ms"],
+        "bound_ms": locate_record["bound_ms"],
+        "bound_by": locate_record["bound_by"],
+        "smem_bound_ms": locate_record["smem_bound_ms"],
+        "library_ms": None,
+        "window": locate_record["marginal_window"],
+        "f1": locate_record["m1_f1"],
+        "detect_window": locate_record["m1_detect_window"],
+        "archive_locate": {k: v for k, v in locate_record.items() if k not in (
+            "m1_f1", "m1_detect_window", "m1_ms", "m1_plain_ms", "bound_ms",
+            "bound_by", "smem_bound_ms")},
     }]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']}: no launch on its path")

@@ -1,21 +1,26 @@
 # -*- coding: utf-8 -*-
 """
-quakemigrate_torch -- the detect stage of QuakeMigrate on an NVIDIA GPU,
-in PyTorch with hand-written CUDA migrate-and-reduce kernels.
+quakemigrate_torch -- QuakeMigrate's detect, trigger and locate on an
+NVIDIA GPU, in PyTorch with hand-written CUDA migration kernels.
 
 A port of the device path of :mod:`quakemigrate_tpu` (the JAX reference,
 which it is tested against). It is self-contained: it imports torch,
 numpy and scipy, and never jax, pandas, matplotlib or quakemigrate_tpu,
 so it runs on a machine that has none of them.
 
-The slice ported so far is continuous detect, from a miniSEED archive to
-the ``.scanmseed`` and StationAvailability files (:class:`QuakeScan`):
-the host layers (``seis``, ``coords``, ``lut``, ``io``,
-``signal.onsets``) read and pre-process each window into a fixed-shape
-channel block, and :class:`DetectScan` runs the blocks through the fused
-onset front end, the migrate-and-reduce kernel and the normalisation,
-window after window. :class:`CudaDetectVPU` is the counterpart of the JAX
-``PallasDetect``; ``experiments/`` holds the kernel-breakdown probes.
+The slices ported so far run from a miniSEED archive to the located
+events. Continuous detect (:meth:`QuakeScan.detect`) writes the
+``.scanmseed`` and StationAvailability files: the host layers (``seis``,
+``coords``, ``lut``, ``io``, ``signal.onsets``) read and pre-process each
+window into a fixed-shape channel block, and :class:`DetectScan` runs
+the blocks through the fused onset front end, the migrate-and-reduce
+kernel and the normalisation, window after window. :class:`Trigger`
+thresholds the ``.scanmseed`` into TriggeredEvents files on the host.
+:meth:`QuakeScan.locate` re-migrates each triggered event's window on
+the card (the detect kernel, then the marginalisation kernel M1) and
+writes its ``.event`` and ``.picks`` files. :class:`CudaDetectVPU` is the
+counterpart of the JAX ``PallasDetect``; ``experiments/`` holds the
+kernel-breakdown probes.
 
 """
 
@@ -28,4 +33,4 @@ from quakemigrate_torch.ops.cuda_migrate import (  # noqa: F401
     CudaDetectVPU,
     DetectPlan,
 )
-from quakemigrate_torch.signal.scan import DetectScan, QuakeScan  # noqa: F401
+from quakemigrate_torch.signal import DetectScan, QuakeScan, Trigger  # noqa: F401

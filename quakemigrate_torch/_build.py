@@ -126,6 +126,11 @@ SIGNATURES = {
         [_VOID_P, _VOID_P, _INT, _VOID_P, _INT] + [_VOID_P] * 4 + _OUTS
         + [_INT] * 6 + [_VOID_P]
     ),
+    # L, t_len, base, fine, valid, perm, inv_available, out, partial,
+    # partial_rows, n_nodes, O, tiles, tile, col0, len, stream
+    "qm_migrate_marginalise": (
+        [_VOID_P, _INT] + [_VOID_P] * 7 + [_INT] * 7 + [_VOID_P]
+    ),
     # occupancy queries: (O, r_span), (O, tile, win_floats) and
     # (O, r_span, layout)
     "qm_migrate_detect_blocks_per_sm": [_INT] * 2,

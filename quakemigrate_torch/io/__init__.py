@@ -1,12 +1,21 @@
 # -*- coding: utf-8 -*-
 """
-quakemigrate_torch.io -- the input/output of the detect stage: the Run
-paths, the station and lookup-table readers, the waveform archive, and
-the .scanmseed and StationAvailability writers.
+quakemigrate_torch.io -- the input/output of detect, trigger and locate:
+the Run paths, the station and lookup-table readers, the waveform
+archive, the .scanmseed and StationAvailability files, the
+TriggeredEvents files, the Event and its .event file, and the marginal
+coalescence maps and cut waveforms of locate.
 
 """
 
 from .core import Run, read_lut, read_stations  # noqa: F401
 from .data import Archive, WaveformData  # noqa: F401
-from .scanmseed import ScanmSEED  # noqa: F401
+from .event import Event  # noqa: F401
+from .scanmseed import ScanmSEED, read_scanmseed  # noqa: F401
+from .triggered_events import (  # noqa: F401
+    read_triggered_events,
+    write_triggered_events,
+)
 from .availability import write_availability  # noqa: F401
+from .coalescence import write_coalescence  # noqa: F401
+from .cut_waveforms import write_cut_waveforms  # noqa: F401

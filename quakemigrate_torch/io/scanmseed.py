@@ -1,7 +1,10 @@
 # -*- coding: utf-8 -*-
 """
 The .scanmseed continuous coalescence stream (detect-stage output), the
-port of the JAX package's ``io/scanmseed.py`` writer.
+port of the JAX package's ``io/scanmseed.py``: its writer, and its reader
+(``read_scanmseed``), which returns the unscaled channels as numpy
+columns of a :class:`~quakemigrate_torch.io.table.Table` instead of a
+DataFrame.
 
 Precision contract (identical to the reference,
 quakemigrate/io/scanmseed.py:79-130): channels COA/COA_N/X/Y/Z are scaled by
@@ -16,7 +19,8 @@ import logging
 import numpy as np
 
 import quakemigrate_torch.util as util
-from quakemigrate_torch.seis import Stream, Trace, UTCDateTime
+from quakemigrate_torch.seis import Stream, Trace, UTCDateTime, read
+from .table import Table
 
 _DAY = 86400
 
@@ -116,3 +120,84 @@ class ScanmSEED:
         target = outdir / f"{day.year}_{day.julday:03d}.scanmseed"
         st.write(str(target), format="MSEED", encoding="STEIM2")
         self.written = True
+
+
+@util.timeit()
+def read_scanmseed(run, starttime, endtime, pad, ucf):
+    """
+    Load and unscale .scanmseed data covering [starttime - pad,
+    endtime + pad]; returns (Table [DT, COA, COA_N, X, Y, Z], the COA
+    trace's stats). DT is datetime64[ns]; the other columns float64.
+
+    """
+
+    indir = run.path / "detect" / "scanmseed"
+    readstart, readend = starttime - pad, endtime + pad
+
+    gathered = Stream()
+    day = UTCDateTime(readstart.date)
+    cursor = readstart
+    while day <= readend:
+        name = f"{cursor.year}_{cursor.julday:03d}"
+        try:
+            gathered += read(
+                str(indir / f"{name}.scanmseed"),
+                starttime=readstart, endtime=readend, format="MSEED",
+            )
+        except FileNotFoundError:
+            logging.info(f"\n\t    No .scanmseed file found for day {name}!")
+        day, cursor = day + _DAY, cursor + _DAY
+
+    if not bool(gathered):
+        raise util.NoScanMseedDataException
+    try:
+        gathered.merge(method=-1)
+    except util.MergeError as err:
+        # Conflicting overlaps between day files: proceed with the
+        # unmerged segments, as the JAX reader does; only the first
+        # contiguous segment per channel is then analysed, and the
+        # coverage report below warns when that truncates the span.
+        logging.info(
+            f"\t\tWarning: {err} -- using unmerged segments (the span "
+            "after the first conflict will not be analysed; see the "
+            "coverage warnings below)."
+        )
+
+    stats = gathered.select(station="COA")[0].stats
+    delta_ns = round(1e9 / stats.sampling_rate)
+    dt_ns = (np.int64(stats.starttime.ns)
+             + np.arange(stats.npts, dtype=np.int64) * np.int64(delta_ns))
+    table = {"DT": dt_ns.view("datetime64[ns]")}
+    for name, scale in SCALES.items():
+        divisor = scale * (ucf if name == "Z" else 1.0)
+        table[name] = gathered.select(station=name)[0].data / divisor
+
+    _report_coverage(stats, starttime, endtime, readstart, readend)
+    return Table(table), stats
+
+
+def _report_coverage(stats, starttime, endtime, readstart, readend):
+    """Log any shortfall between requested and available data spans."""
+
+    checks = (
+        (
+            stats.starttime > starttime,
+            "\n\t    Warning! .scanmseed starttime is later than trigger() "
+            "starttime!",
+            stats.starttime > readstart,
+            "\t    Warning! No .scanmseed data found for pre-pad!",
+        ),
+        (
+            stats.endtime < endtime,
+            "\n\t    Warning! .scanmseed endtime is before trigger() "
+            "endtime!",
+            stats.endtime < readend,
+            "\t    Warning! No .scanmseed data found for post-pad!",
+        ),
+    )
+    for span_short, span_msg, pad_short, pad_msg in checks:
+        if span_short:
+            logging.info(span_msg)
+        elif pad_short:
+            logging.info(pad_msg)
+    logging.info(f"\t    ...from {stats.starttime} - {stats.endtime}.")

@@ -198,6 +198,16 @@ class Grid3D:
         return [xyz[:, axis].reshape(shape) for axis in range(3)]
 
     @property
+    def precision(self):
+        """Decimal places per axis that resolve one node spacing."""
+
+        zero, one = self.index2coord([[0, 0, 0], [1, 1, 1]])
+        return [
+            -int(np.format_float_scientific(step).split("e")[1])
+            for step in zero - one
+        ]
+
+    @property
     def _grid_axis_info(self):
         return self.grid_proj.crs.axis_info[0]
 

@@ -5,7 +5,9 @@ the CUDA kernels ``csrc/migrate_detect.cu`` (K1),
 ``csrc/migrate_detect_v2.cu`` (K1 v2, the same contract redesigned for
 the card's shared-memory pipe), ``csrc/migrate_detect_vpu.cu`` (K2) and
 ``csrc/migrate_detect_vpu_v2.cu`` (K2 v2, K2 on an mbarrier ring), their
-plain PyTorch versions, and the cross-tile combine.
+plain PyTorch versions, and the cross-tile combine; and the wrapper of
+``csrc/migrate_marginalise.cu`` (M1, locate's marginalisation on the same
+plan), whose plain version is ``ops.migrate.migrate_marginalise``.
 
 Counterpart of quakemigrate_tpu.ops.pallas_migrate: ``CudaDetect`` of
 ``PallasDetectMXU`` (kernel ``_mxu_detect_kernel``), ``CudaDetectVPU`` of
@@ -70,13 +72,18 @@ VPU_V2_STAGES = (2, 3, 4)
 TMA_ALIGN = 32
 TMA_MAX_BOX = 256
 
+# Window samples a block of M1 takes (csrc/migrate_marginalise.cu:
+# QM1_CHUNK, 32 lanes x QM1_SPL); a longer window is split into chunks.
+M1_CHUNK = 256
+
 # Largest residual span of the int16 residual table ``DetectPlan.fine16``
 FINE16_MAX_SPAN = np.iinfo(np.int16).max
 
-# Launches of K1, K1 v2, K2 and K2 v2, counted by their wrappers where
+# Launches of K1, K1 v2, K2, K2 v2 and M1, counted by their wrappers where
 # they launch
 launches = {"migrate_detect": 0, "migrate_detect_v2": 0,
-            "migrate_detect_vpu": 0, "migrate_detect_vpu_v2": 0}
+            "migrate_detect_vpu": 0, "migrate_detect_vpu_v2": 0,
+            "migrate_marginalise": 0}
 
 
 def reset_launches():
@@ -497,6 +504,58 @@ def migrate_detect_cuda(onsets_log, base, fine, valid, inv_available,
                          inv_available, fsmp, nsamples, r_span)
     launches["migrate_detect"] += 1
     return outs
+
+
+def migrate_marginalise_cuda(onsets_log, base, fine, valid, perm,
+                             inv_available, fsmp, nsamples, window_start,
+                             window_length, n_nodes, max_shift):
+    """
+    Launch M1 (``csrc/migrate_marginalise.cu``) on tensors on the card:
+    the coalescence of every real node of the plan summed over the scan
+    samples ``[window_start, window_start + window_length)``, returned as
+    f32 [n_nodes] in flat node order (scattered through ``perm``; padding
+    nodes dropped). A window longer than ``M1_CHUNK`` samples is split
+    into chunks, one block a node tile and chunk, whose sums are added in
+    chunk order. ``fine`` is the plan's int32 [n_tiles, O, tile]
+    table, ``perm`` its int32 [n_tiles * tile] flat indices, ``max_shift``
+    its largest traveltime. Raises on CPU tensors and on what the kernel
+    does not take; the plain version is
+    :func:`quakemigrate_torch.ops.migrate.migrate_marginalise`. The launch
+    is asynchronous on the current stream.
+
+    """
+
+    n_onsets, t_len, n_tiles, tile = check_kernel_args(
+        onsets_log, base, fine, valid, inv_available
+    )
+    if (perm.device != onsets_log.device or perm.dtype != torch.int32
+            or perm.shape != (n_tiles * tile,) or not perm.is_contiguous()):
+        raise ValueError(f"perm must be a contiguous int32 [{n_tiles * tile}] "
+                         f"tensor on {onsets_log.device}")
+    if not (0 <= window_start and 0 <= window_length
+            and window_start + window_length <= nsamples):
+        raise ValueError(
+            f"window [{window_start}, {window_start + window_length}) is not "
+            f"inside the {nsamples} scan samples"
+        )
+    _check_onset_length(onsets_log, fsmp, nsamples, max_shift)
+    out = torch.empty(n_nodes, dtype=torch.float32, device=onsets_log.device)
+    # A window of more than one chunk: one block a node tile x chunk, each
+    # chunk's sums into a row of ``partial``, added in chunk order
+    n_chunks = max(1, -(-window_length // M1_CHUNK))
+    partial = (torch.empty((n_chunks, n_nodes), dtype=torch.float32,
+                           device=onsets_log.device) if n_chunks > 1
+               else None)
+    launch_kernel(
+        "qm_migrate_marginalise", onsets_log.device,
+        onsets_log.data_ptr(), t_len, base.data_ptr(), fine.data_ptr(),
+        valid.data_ptr(), perm.data_ptr(), inv_available.data_ptr(),
+        out.data_ptr(), None if partial is None else partial.data_ptr(),
+        n_chunks, n_nodes, n_onsets, n_tiles, tile, fsmp + window_start,
+        window_length,
+    )
+    launches["migrate_marginalise"] += 1
+    return out
 
 
 def v2_smem_bytes(n_onsets, tile, win_floats):
@@ -960,6 +1019,13 @@ class CudaDetect:
         """(max_coa, max_idx int32, coa_sum), each [nsamples], of one
         window's onsets [O, T] on the plan's device."""
 
+        return self.reduce_log(*self.prepare(onsets, mask, available))
+
+    def prepare(self, onsets, mask, available):
+        """The kernels' inputs of one window's onsets [O, T] on the plan's
+        device: (clipped, logged and masked onsets f32 [O, T],
+        inv_available f32 [1])."""
+
         if onsets.device != self.device:
             raise ValueError(
                 f"onsets are on {onsets.device}, the plan on {self.device}"
@@ -972,6 +1038,26 @@ class CudaDetect:
             1.0 / torch.as_tensor(available, dtype=torch.float32,
                                   device=self.device)
         ).reshape(1)
+        return onsets_log.contiguous(), inv_available
+
+    def marginalise(self, onsets_log, inv_available, window_start,
+                    window_length):
+        """M1 on the plan (:func:`migrate_marginalise_cuda`) for prepared
+        onsets on the card: the coalescence of every node summed over the
+        scan samples ``[window_start, window_start + window_length)``, f32
+        [n_nodes] in flat node order. Raises on CPU tensors."""
+
+        return migrate_marginalise_cuda(
+            onsets_log, self.base, self.fine, self.valid, self.perm,
+            inv_available, self.fsmp, self.nsamples, window_start,
+            window_length, self.n_nodes, self._max_shift,
+        )
+
+    def reduce_log(self, onsets_log, inv_available):
+        """(max_coa, max_idx int32, coa_sum), each [nsamples], of prepared
+        onsets (:meth:`prepare`): the kernel on a CUDA device, the plain
+        version on the CPU."""
+
         if onsets_log.is_cuda:
             parts = self.launch(onsets_log.contiguous(), inv_available)
             self.launches += 1

@@ -135,6 +135,45 @@ def migrate_detect(
     return max_coa, max_coa * n_real / coa_sum, max_idx
 
 
+def migrate_marginalise(
+    onsets, traveltimes, mask, available, fsmp, nsamples, window_start,
+    window_length, tile=DEFAULT_TILE,
+):
+    """
+    Migration marginalised over a time window, without materialising the
+    4-D map: ``coa_3d_flat [N]`` = the sum over the scan samples
+    ``[window_start, window_start + window_length)`` of the coalescence,
+    in flat node order. The plain version of the CUDA kernel
+    (``ops.cuda_migrate.migrate_marginalise_cuda``) and the CPU path of
+    locate's second pass.
+
+    Only the window's samples are gathered. Traveltimes are clipped to
+    the full scan's block, ``[0, T - fsmp - nsamples]``, as the reference
+    clips them; onsets are summed in order o = 0..O-1, then the samples.
+
+    """
+
+    if not (0 <= window_start and 0 <= window_length
+            and window_start + window_length <= nsamples):
+        raise ValueError(
+            f"window [{window_start}, {window_start + window_length}) is not "
+            f"inside the {nsamples} scan samples"
+        )
+    onsets_log = _prepare_onsets(onsets, mask)
+    d_max = onsets_log.shape[-1] - fsmp - nsamples
+    t = torch.arange(window_length, device=onsets_log.device)
+    sums = []
+    for t0 in range(0, traveltimes.shape[0], tile):
+        cols = (fsmp + window_start
+                + torch.clamp(traveltimes[t0:t0 + tile].long(), 0, d_max))
+        acc = torch.zeros((cols.shape[0], window_length),
+                          dtype=onsets_log.dtype, device=onsets_log.device)
+        for o in range(onsets_log.shape[0]):
+            acc = acc + onsets_log[o][cols[:, o, None] + t]
+        sums.append(torch.sum(torch.exp(acc / available), dim=1))
+    return torch.cat(sums)
+
+
 def find_max_coa(map4d_flat, n_nodes_real=None, node_offset=0):
     """
     Per-sample max / normalised max / argmax over the node axis of a

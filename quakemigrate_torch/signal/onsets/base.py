@@ -80,7 +80,7 @@ def gather_phase_waveforms(onset, data, phase, conditioned):
 class Onset(metaclass=abc.ABCMeta):
     """
     Base class for onset generators. Subclasses implement
-    :meth:`prepare_device_inputs` and normally override the ``pre_pad`` /
+    :meth:`calculate_onsets` and :meth:`prepare_device_inputs` and normally override the ``pre_pad`` /
     ``post_pad`` properties with values derived from their window lengths;
     the base exposes them as plain read/write views of ``_pre_pad`` /
     ``_post_pad``.
@@ -123,6 +123,20 @@ class Onset(metaclass=abc.ABCMeta):
             for base in (self.pre_pad, self.post_pad)
         )
 
+    def gaussian_halfwidth(self, phase):
+        """Gaussian half-width hint for the picker; custom onsets must
+        provide it."""
+
+        raise AttributeError(
+            "GaussianPicker needs a 'gaussian_halfwidth' method on the Onset; "
+            "custom Onset classes must implement one to be pickable."
+        )
+
+    @abc.abstractmethod
+    def calculate_onsets(self, data, timespan=None, device="cuda"):
+        """Compute onset functions on ``device`` (the card unless the
+        caller asks for the CPU); returns ``(onsets, OnsetData)``."""
+
     @abc.abstractmethod
     def prepare_device_inputs(self, data, slots, c_max=None, dtype=None):
         """The fixed-shape channel block of one detect window; returns
@@ -145,3 +159,6 @@ class OnsetData:
     starttime: object
     endtime: object
     sampling_rate: float
+    # "{station}_{phase}" -> its row of the onsets tensor that
+    # calculate_onsets returns beside this record
+    rows: dict = None

@@ -4,14 +4,15 @@ STA/LTA onset of the port, after the JAX package's
 ``signal/onsets/stalta.py``: the host side of the fused detect window.
 
 Pre-processing (resample -> detrend -> cosine taper -> zero-phase
-Butterworth bandpass) runs host-side on the port's Stream objects, then
-:meth:`STALTAOnset.prepare_device_inputs` places the waveforms into the
-fixed-shape channel block that ``DetectScan`` takes; the transform,
-STA/LTA, RMS combination and clipping run on the device inside the fused
-window (``ops.scan_window``). Window lengths, pads and the availability
-rules follow the reference: they set the scan geometry that output
-parity depends on. The standalone ``calculate_onsets`` of the JAX class
-(locate's path) is not ported yet.
+Butterworth bandpass) runs host-side on the port's Stream objects. For
+detect, :meth:`STALTAOnset.prepare_device_inputs` places the waveforms
+into the fixed-shape channel block that ``DetectScan`` takes; the
+transform, STA/LTA, RMS combination and clipping run on the device inside
+the fused window (``ops.scan_window``). For locate and the picker,
+:meth:`STALTAOnset.calculate_onsets` computes the onsets of the available
+station/phase pairs as float64 torch ops (``ops.stalta``) on the device
+it is given. Window lengths, pads and the availability rules follow the
+reference: they set the scan geometry that output parity depends on.
 
 """
 
@@ -19,9 +20,13 @@ import copy
 import logging
 
 import numpy as np
+import torch
 
 import quakemigrate_torch.util as util
-from .base import Onset, gather_phase_waveforms
+from quakemigrate_torch.device import resolve_device
+from quakemigrate_torch.ops import stalta as stalta_ops
+from quakemigrate_torch.seis import Stream
+from .base import Onset, OnsetData, gather_phase_waveforms
 
 
 def pre_process(stream, sampling_rate, resample, upfactor, filter_,
@@ -129,6 +134,117 @@ class STALTAOnset(Onset):
             self, data, phase, conditioned
         )
         return kept, availability, stw, ltw
+
+    def calculate_onsets(self, data, timespan=None, device="cuda"):
+        """
+        Calculate onset functions for all requested stations and phases,
+        on ``device`` (float64 torch ops; the card unless the caller asks
+        for the CPU, and raises where CUDA is absent).
+
+        Returns (onsets [n_onsets, nsamples] float64 tensor on ``device``,
+        stacked in phase-major order over available station/phase pairs,
+        OnsetData whose ``onsets`` are the same rows as numpy arrays).
+
+        """
+
+        device = resolve_device(device)
+        rows, keys = [], []
+        filtered_waveforms = Stream()
+        availability = {}
+
+        for phase in self.phases:
+            kept, phase_avail, stw, ltw = self._gather_phase_waveforms(
+                data, phase
+            )
+            availability.update(phase_avail)
+
+            # Transform + STA/LTA as one batched call per phase
+            station_slices = {}
+            phase_traces = []
+            for station, waveforms in kept.items():
+                lo = len(phase_traces)
+                phase_traces.extend(
+                    np.asarray(tr.data, dtype=np.float64) for tr in waveforms
+                )
+                station_slices[station] = slice(lo, len(phase_traces))
+                filtered_waveforms += waveforms
+
+            if not phase_traces:
+                continue
+
+            batch = torch.from_numpy(np.stack(phase_traces)).to(device)
+            phase_onsets = self._onsets_for_phase(batch, stw, ltw, timespan)
+
+            for station, sl in station_slices.items():
+                combined = torch.sqrt(
+                    torch.sum(phase_onsets[sl] ** 2, dim=0)
+                    / (sl.stop - sl.start)
+                )
+                rows.append(torch.clamp(combined, min=self.min_onset_value))
+                keys.append((station, phase))
+
+        logging.debug(filtered_waveforms.__str__(extended=True))
+
+        if not any(availability.values()):
+            raise util.DataAvailabilityException
+
+        onsets = torch.stack(rows, dim=0)
+        host = onsets.cpu().numpy()
+        onsets_dict = {}
+        for (station, phase), row in zip(keys, host):
+            onsets_dict.setdefault(station, {})[phase] = row
+
+        onset_data = OnsetData(
+            onsets=onsets_dict,
+            phases=self.phases,
+            channel_maps=self.channel_maps,
+            filtered_waveforms=filtered_waveforms,
+            availability=availability,
+            starttime=data.starttime,
+            endtime=data.endtime,
+            sampling_rate=self.sampling_rate,
+            rows={f"{station}_{phase}": i
+                  for i, (station, phase) in enumerate(keys)},
+        )
+        return onsets, onset_data
+
+    def _onsets_for_phase(self, traces, stw, ltw, timespan):
+        """
+        Per-component onset functions for a whole phase's trace batch
+        [n_traces, T]: transform + STA/LTA, then the taper-pad nulling.
+
+        """
+
+        if self.position == "centred":
+            onset_fn = stalta_ops.centred_sta_lta
+        elif self.position == "classic":
+            onset_fn = stalta_ops.overlapping_sta_lta
+        else:
+            raise ValueError(f"Unknown STA/LTA position: {self.position}")
+
+        transformed = stalta_ops.signal_transform(traces,
+                                                  self.signal_transform)
+        onsets = onset_fn(transformed, stw, ltw)
+        if timespan:
+            onsets = self._trim_taper_pad(onsets, stw, ltw, timespan)
+        return onsets
+
+    def _trim_taper_pad(self, onsets, stw, ltw, timespan):
+        """Null (set to 1) the tapered data windows at the array edges."""
+
+        pre_pad, _ = self.pad(timespan)
+        taper_pad = util.time2sample(pre_pad - self.pre_pad,
+                                     self.sampling_rate)
+
+        onsets = onsets.clone()
+        onsets[:, : (taper_pad + ltw - 1)] = 1.0
+        onsets[:, -(stw + taper_pad):] = 1.0
+        return onsets
+
+    def gaussian_halfwidth(self, phase):
+        """Phase-appropriate Gaussian half-width (samples) for the picker."""
+
+        return self.sta_lta_windows[phase][0] * self.sampling_rate / 2
 
     def prepare_device_inputs(self, data, slots, c_max=None, dtype=None):
         """

@@ -1,6 +1,6 @@
 # -*- coding: utf-8 -*-
 """
-Continuous detect.
+Continuous detect, and locate.
 
 :class:`DetectScan` runs the fused detect window window after window, with
 the host-to-device copy, the dispatch and the in-order drain of results
@@ -9,30 +9,49 @@ pipelined as in the JAX ``QuakeScan`` (``_detect_loop``,
 window is the fixed-shape channel block that
 ``STALTAOnset.prepare_device_inputs`` builds.
 
-:class:`QuakeScan` is the user's entry point for detect, after the JAX
-``QuakeScan.detect``: it reads each window from the waveform archive (one
-reader thread, two windows ahead), prepares its channel block, runs the
-blocks through one :class:`DetectScan`'s dispatch/drain loop, and writes
-the results, in order, to the run's ``.scanmseed`` and StationAvailability
-files.
+:class:`QuakeScan` is the user's entry point for detect and locate, after
+the JAX ``QuakeScan``. Detect reads each window from the waveform archive
+(one reader thread, two windows ahead), prepares its channel block, runs
+the blocks through one :class:`DetectScan`'s dispatch/drain loop, and
+writes the results, in order, to the run's ``.scanmseed`` and
+StationAvailability files; ``resume=True`` restarts an interrupted scan
+at its first missing timestep. Locate reads the triggered events, and
+for each event (the reader thread one event ahead) computes its onsets on
+the device, runs pass 1 (the detect migration, on detect's kernel route
+and plan) to find the origin time, and pass 2 (M1, the marginalisation
+over the marginal window) on the main thread; the location math, picks
+and files of each event run on a pool of host threads, which wait on the
+CUDA event of M1's copy back and issue no work on the card.
 
 """
 
 import logging
 import time
+import warnings
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from datetime import time as clock_time
 
 import numpy as np
 import torch
+from scipy import ndimage
 
 import quakemigrate_torch.util as util
 from quakemigrate_torch.device import resolve_device
-from quakemigrate_torch.io import Run, ScanmSEED, write_availability
+from quakemigrate_torch.io import (
+    Event,
+    Run,
+    ScanmSEED,
+    read_triggered_events,
+    write_availability,
+    write_coalescence,
+    write_cut_waveforms,
+)
 from quakemigrate_torch.lut import traveltime_table, unravel
-from quakemigrate_torch.seis import UTCDateTime
+from quakemigrate_torch.seis import Stream, UTCDateTime, read
 from quakemigrate_torch.signal.onsets import STALTAOnset
+from quakemigrate_torch.signal.pickers import GaussianPicker, PhasePicker
+from quakemigrate_torch.ops.migrate import migrate_detect, migrate_marginalise
 from quakemigrate_torch.ops.cuda_migrate import (
     CudaDetect,
     CudaDetectVPU,
@@ -50,6 +69,10 @@ from quakemigrate_torch.ops.scan_window import (
 # Windows dispatched but not yet fetched before the loop waits for the
 # oldest (the JAX scan's default detect_drain_depth)
 DRAIN_DEPTH = 8
+
+warnings.filterwarnings(
+    "ignore", message=("Covariance of the parameters could not be estimated")
+)
 
 
 def detect_route(traveltimes, node_count, device):
@@ -86,6 +109,25 @@ def detect_route(traveltimes, node_count, device):
     return "k2_v2", reason, plan
 
 
+def route_detector(route, plan, traveltimes, node_count, fsmp, nsamples,
+                   device, cached=None):
+    """
+    The CUDA detector of ``route`` (:func:`detect_route`) for windows of
+    ``nsamples`` scan samples after ``fsmp``: K1 v2's on "k1_v2", K2 v2's
+    on "k2_v2", built on the shared ``plan``. Returns ``cached`` while its
+    geometry holds; raises on the "plain" route.
+
+    """
+
+    if route == "plain":
+        raise ValueError("the plain route has no CUDA detector")
+    if cached is not None and (cached.fsmp, cached.nsamples) == (fsmp,
+                                                                nsamples):
+        return cached
+    kind = CudaDetect if route == "k1_v2" else CudaDetectVPU
+    return kind(traveltimes, node_count, fsmp, nsamples, device, plan=plan)
+
+
 class DetectScan:
     """
     Detect over a sequence of windows on one device.
@@ -112,6 +154,10 @@ class DetectScan:
     drain_depth : int, default 8
         Windows dispatched but not yet fetched before the loop waits for
         the oldest (the JAX scan's ``detect_drain_depth``).
+    route : tuple, optional
+        :func:`detect_route`'s (route, reason, plan) for these traveltimes
+        on ``device``, where the caller has it already (QuakeScan shares
+        one plan between detect and locate).
 
     Attributes
     ----------
@@ -130,7 +176,7 @@ class DetectScan:
     def __init__(self, traveltimes, node_count, fsmp, lsmp,
                  position="classic", transform="energy",
                  min_onset_value=0.4, device="cuda",
-                 drain_depth=DRAIN_DEPTH):
+                 drain_depth=DRAIN_DEPTH, route=None):
         self.device = resolve_device(device)
         self.traveltimes = np.ascontiguousarray(traveltimes, dtype=np.int32)
         self.node_count = tuple(int(n) for n in node_count)
@@ -147,7 +193,7 @@ class DetectScan:
         self.min_onset_value = float(min_onset_value)
         self._detector = None
         self._tt_flat = None
-        self.route, self.route_reason, self._plan = detect_route(
+        self.route, self.route_reason, self._plan = route or detect_route(
             self.traveltimes, self.node_count, self.device)
         self.drain_depth = max(1, int(drain_depth))
         # Per-window device milliseconds (upload to packed result) of the
@@ -162,15 +208,10 @@ class DetectScan:
         use and kept while the geometry holds; raises on the "plain"
         route."""
 
-        if self.route == "plain":
-            raise ValueError("DetectScan on the plain route has no CUDA "
-                             "detector")
-        if self._detector is None or self._detector.nsamples != nsamples:
-            kind = CudaDetect if self.route == "k1_v2" else CudaDetectVPU
-            self._detector = kind(
-                self.traveltimes, self.node_count, self.fsmp, nsamples,
-                self.device, plan=self._plan,
-            )
+        self._detector = route_detector(
+            self.route, self._plan, self.traveltimes, self.node_count,
+            self.fsmp, nsamples, self.device, cached=self._detector,
+        )
         return self._detector
 
     def detect(self, windows):
@@ -277,10 +318,17 @@ class DetectScan:
 
 class QuakeScan:
     """
-    Detect earthquakes by continuous migration of onset functions through
-    a traveltime lookup table, from a waveform archive to the run's
-    ``.scanmseed`` and StationAvailability files: the detect stage of the
-    JAX ``QuakeScan`` on :class:`DetectScan`'s kernel route.
+    Detect and locate earthquakes by migration of onset functions through
+    a traveltime lookup table: the detect and locate stages of the JAX
+    ``QuakeScan`` on :class:`DetectScan`'s kernel route.
+
+    Detect runs from a waveform archive to the run's ``.scanmseed`` and
+    StationAvailability files. Locate reads the TriggeredEvents files of
+    the run (or one ``trigger_file``) and writes, per event, its
+    ``.event`` and ``.picks`` files (and, as asked, its cut waveforms and
+    marginalised coalescence map), by the two-pass path: pass 1 is the
+    detect migration over the event's window, pass 2 (M1) the
+    marginalisation over the marginal window; the 4-D map is never built.
 
     Parameters
     ----------
@@ -293,13 +341,30 @@ class QuakeScan:
     device : str or torch.device, default "cuda"
         Where the windows run: the card unless the caller asks for the
         CPU; "cuda" raises where CUDA is absent.
+    picker : PhasePicker, optional
+        Locate's phase picker (default ``GaussianPicker(onset=onset)``).
+    mags : None
+        Local magnitudes are not ported (ROADMAP.md §1, A8c): locate
+        raises NotImplementedError for any other value.
     timestep : float, default 120
-        Seconds of scan output each window adds.
+        Seconds of scan output each detect window adds.
+    marginal_window : float, default 2
+        Locate's estimate of the origin-time uncertainty, in seconds.
     detect_drain_depth : int, default 8
         Windows dispatched but not yet fetched before the loop waits.
+    locate_workers : int, default 4
+        Host threads for each event's location math, picks and files,
+        which overlap the next events' device work; 0 runs them inline.
     continuous_scanmseed_write : bool, default False
         Write the ``.scanmseed`` after every window, not only at the end
         of a day and of the scan.
+    write_cut_waveforms, cut_waveform_format, write_marginal_coalescence
+        Locate's optional outputs: the event's raw waveforms (MSEED) and
+        its marginalised coalescence map (.npy). ``write_coalescence``,
+        ``plot_event_video``, ``write_real_waveforms`` and
+        ``write_wa_waveforms`` are accepted and raise NotImplementedError
+        in locate when set; ``plot_event_summary`` is logged once as not
+        drawn.
     log, loglevel
         Logging to a file in the run directory, and its level.
 
@@ -314,21 +379,52 @@ class QuakeScan:
         reader thread), ``prepare`` (pre-processing and the channel
         block), ``dispatch`` (upload and launch), ``drain`` (waiting for
         and unpacking the result, and the ``.scanmseed`` append).
+    locate_event_attrib : list of dict
+        Host seconds of each located event of the last locate: on the main
+        thread ``read_wait`` (waiting on the reader thread), ``onsets``
+        (pre-processing, the onsets and the onset block), ``pass1`` (the
+        migration, its copy back and the origin time), ``pass2`` (M1's
+        dispatch and the start of its copy back); on the post thread
+        ``pass2_wait`` (waiting for M1's result), ``location`` (the
+        location math), ``picks`` and ``writes`` (the .event and the cut
+        waveforms and map).
+    locate_event_marks : list of float
+        Main-thread seconds of each located event, as the JAX loop's.
+    locate_route : str or None
+        The route of locate's pass 1: :func:`detect_route`'s on the card,
+        "plain" on the CPU.
     on_window : callable or None
-        If set, called as ``on_window(i, block, result)`` for each window
-        in order after its result is drained (``block`` is the channel
-        block the window ran on, or None with ``result`` None for a window
-        written as empty).
+        If set, called as ``on_window(i, block, result)`` for each detect
+        window in order after its result is drained (``block`` is the
+        channel block the window ran on, or None with ``result`` None for
+        a window written as empty).
+    on_event : callable or None
+        If set, called on the main thread as ``on_event(event, pass1,
+        coa_handle)`` for each event whose pass 1 ran: ``pass1`` is its
+        (max_coa, max_coa_n, max_idx) numpy arrays over the window,
+        ``coa_handle`` pass 2's (:meth:`_dispatch_marginalise`), or None
+        for an event outside its marginal window; the inputs of both
+        passes on the scan's device are ``event._marginalise_inputs``.
 
     """
 
     _OPTION_DEFAULTS = {
         "timestep": 120.0,
+        "marginal_window": 2.0,
         "detect_drain_depth": 8,
+        "locate_workers": 4,
         "continuous_scanmseed_write": False,
         "log": False,
         "loglevel": "info",
         "run_subname": "",
+        "plot_event_summary": True,
+        "plot_event_video": False,
+        "write_cut_waveforms": False,
+        "write_real_waveforms": False,
+        "write_wa_waveforms": False,
+        "cut_waveform_format": "MSEED",
+        "write_marginal_coalescence": False,
+        "write_coalescence": False,
     }
 
     def __init__(self, archive, lut, onset, run_path, run_name,
@@ -343,19 +439,39 @@ class QuakeScan:
         for option, default in self._OPTION_DEFAULTS.items():
             setattr(self, option, kwargs.get(option, default))
         self.detect_drain_depth = max(1, int(self.detect_drain_depth))
+        self.locate_workers = max(0, int(self.locate_workers))
+        picker = kwargs.get("picker")
+        if picker is None:
+            self.picker = GaussianPicker(onset=onset)
+        elif isinstance(picker, PhasePicker):
+            self.picker = picker
+        else:
+            raise util.PickerTypeError
+        self.mags = kwargs.get("mags")
+        self.pre_cut = self.post_cut = None
         self.run = Run(run_path, run_name, self.run_subname,
                        loglevel=self.loglevel)
         self.pre_pad = self.post_pad = 0.0
         self.detect_scan = None
         self.detect_batch_attrib = []
+        self.locate_event_attrib = []
+        self.locate_event_marks = []
+        self.locate_route = None
         self.on_window = None
+        self.on_event = None
         self._traveltimes = None
+        self._route = None
+        self._tt_flat = None
+        self._locate_detector = None
+        self._summary_logged = False
 
     def __str__(self):
-        return ("\tScan parameters:\n"
-                f"\t\tScan sampling rate = {self.scan_rate} Hz\n"
-                f"\t\tDevice             = {self.device}\n"
-                f"\t\tTime step          = {self.timestep} s\n")
+        out = ("\tScan parameters:\n"
+               f"\t\tScan sampling rate = {self.scan_rate} Hz\n"
+               f"\t\tDevice             = {self.device}\n")
+        if self.run.stage == "locate":
+            return out + f"\t\tMarginal window    = {self.marginal_window} s\n"
+        return out + f"\t\tTime step          = {self.timestep} s\n"
 
     @property
     def scan_rate(self):
@@ -389,6 +505,16 @@ class QuakeScan:
             self._traveltimes = traveltime_table(tables, self.scan_rate)
         return self._traveltimes
 
+    def _detect_route(self):
+        """:func:`detect_route` of the traveltimes on the scan's device,
+        built once: detect and locate share its plan."""
+
+        if self._route is None:
+            self._route = detect_route(self._traveltime_table(),
+                                       tuple(self.lut.node_count),
+                                       self.device)
+        return self._route
+
     def _detect_scan(self, fsmp, lsmp):
         """The DetectScan of this scan geometry, built once."""
 
@@ -400,13 +526,24 @@ class QuakeScan:
                 transform=self.onset.signal_transform,
                 min_onset_value=self.onset.min_onset_value,
                 device=self.device, drain_depth=self.detect_drain_depth,
+                route=self._detect_route(),
             )
         return scan
 
-    def detect(self, starttime, endtime):
+    # ------------------------------------------------------------------
+    # detect
+    # ------------------------------------------------------------------
+
+    def detect(self, starttime, endtime, resume=False):
         """
         Continuous coalescence scan between two timestamps, writing the
         .scanmseed stream and the station availability tables.
+
+        With ``resume=True``, the whole timesteps already present in the
+        run's .scanmseed output are skipped: the scan fast-forwards to the
+        first missing timestep (on the original timestep grid) and appends
+        to the partially written day. Availability tables merge with the
+        rows on disk, so a crashed scan restarts where it stopped.
 
         """
 
@@ -419,6 +556,16 @@ class QuakeScan:
         if endtime.time == clock_time(0, 0):
             endtime = endtime - 1 / self.scan_rate
 
+        seed_stream = None
+        if resume:
+            starttime, seed_stream = self._detect_resume_state(
+                starttime, endtime)
+            if starttime is None:
+                logging.info("\tNothing to resume: the requested span is "
+                             "already fully scanned.")
+                return
+            logging.info(f"\tResuming detect from {starttime}.")
+
         n_steps = int(np.ceil((endtime - starttime) / self.timestep))
         calc_endtime = starttime + n_steps * self.timestep - 1 / self.scan_rate
         if calc_endtime - endtime > 1 / self.scan_rate:
@@ -427,20 +574,94 @@ class QuakeScan:
                 f"not divisible by the specified timestep {self.timestep} s. "
                 f"Detect will instead compute up to {calc_endtime}\n"
             )
-        for line in (util.log_spacer, "\tDETECT - Continuous coalescence "
-                     "scan", util.log_spacer,
-                     f"\n\tScanning from {starttime} to {calc_endtime}\n",
-                     self, str(self.onset), util.log_spacer):
-            logging.info(line)
+        self._announce("\tDETECT - Continuous coalescence scan", [
+            f"\n\tScanning from {starttime} to {calc_endtime}\n", self,
+            str(self.onset)])
 
         self.detect_batch_attrib = []
-        self._continuous_compute(starttime, n_steps)
+        self._continuous_compute(starttime, n_steps, seed_stream)
         logging.info(util.log_spacer)
 
-    def _continuous_compute(self, starttime, n_steps):
+    @staticmethod
+    def _announce(title, details):
+        """Stage banner: spacer / title / spacer / details / spacer."""
+
+        for line in (util.log_spacer, title, util.log_spacer, *details,
+                     util.log_spacer):
+            logging.info(line)
+
+    def _detect_resume_state(self, starttime, endtime):
+        """
+        (new_starttime, seed_stream) for a resumed detect: fast-forward past
+        whole timesteps already on disk, and preload the partially written
+        day's stream so appends don't clobber it. (None, None) when the
+        whole span is already scanned.
+
+        """
+
+        outdir = self.run.path / "detect" / "scanmseed"
+        delta = 1.0 / self.scan_rate
+
+        # Walk the days forward and require contiguous coverage from
+        # starttime: a day file left by an unrelated earlier run (or one
+        # preceded by an unscanned gap) must not fast-forward past work
+        # that was never done.
+        covered_to = starttime
+        last_stream = None
+        day = UTCDateTime(starttime.date)
+        while day <= endtime:
+            candidate = outdir / f"{day.year}_{day.julday:03d}.scanmseed"
+            if not candidate.is_file():
+                break
+            try:
+                on_disk = read(str(candidate))
+                coa = on_disk.select(station="COA")[0]
+            except (TypeError, ValueError, IndexError, OSError):
+                # A crash mid-write can leave a truncated or empty day
+                # file: exactly the state resume exists to recover from.
+                logging.info(
+                    f"\tResume: unreadable partial file {candidate}; "
+                    f"rescanning from {covered_to}."
+                )
+                break
+            if coa.stats.starttime > covered_to:
+                break  # gap before this file: not this run's coverage
+            if coa.stats.endtime + delta <= covered_to:
+                break  # file ends before the requested span begins
+            covered_to = coa.stats.endtime + delta
+            last_stream = on_disk
+            day = day + 86400
+
+        done_steps = int(
+            np.floor((covered_to - starttime) / self.timestep + 1e-9)
+        )
+        if done_steps <= 0:
+            return starttime, None
+        new_start = starttime + done_steps * self.timestep
+        if new_start > endtime:
+            return None, None
+
+        # Seed only when appending into the same (partial) day, and trim
+        # the seed to the whole-timestep boundary: the recomputed partial
+        # step may differ by a count from the crashed run's values, and
+        # ScanmSEED's merge refuses conflicting overlaps.
+        seed = None
+        if (last_stream is not None
+                and new_start.date == last_stream[0].stats.starttime.date):
+            seed = Stream()
+            for tr in last_stream:
+                seed += tr
+            seed.trim(endtime=new_start - delta)
+        return new_start, seed
+
+    def _continuous_compute(self, starttime, n_steps, seed_stream=None):
         coalescence = ScanmSEED(
             self.run, self.continuous_scanmseed_write, self.scan_rate
         )
+        if seed_stream is not None:
+            # Resumed mid-day: carry the already-written part of the day
+            # so the day-file write includes it.
+            coalescence.stream = seed_stream
         self.pre_pad, self.post_pad = self.onset.pad(self.timestep)
         availability_cols = [f"{station}_{phase}"
                              for phase in self.onset.phases
@@ -552,3 +773,581 @@ class QuakeScan:
         if block[2].sum() == 0:
             raise util.DataAvailabilityException
         return tuple(block), availability
+
+    # ------------------------------------------------------------------
+    # locate
+    # ------------------------------------------------------------------
+
+    # Options locate does not cover yet, and the ROADMAP.md item each
+    # waits for
+    _LOCATE_WAITS = {
+        "write_coalescence": "the 4-D coalescence map (ROADMAP.md §1, A8: "
+                             "the 4-D map path)",
+        "plot_event_video": "the event video (ROADMAP.md §1, A8: the 4-D "
+                            "map path, and plot/)",
+        "write_real_waveforms": "response removal (ROADMAP.md §1, A8c)",
+        "write_wa_waveforms": "the Wood-Anderson simulation (ROADMAP.md §1, "
+                              "A8c)",
+    }
+
+    def locate(self, starttime=None, endtime=None, trigger_file=None):
+        """
+        Re-migrate short windows around triggered events on the full grid;
+        compute locations, uncertainties and picks, and write each event's
+        ``.event`` and ``.picks`` files.
+
+        """
+
+        self.run.stage = "locate"
+        self.run.logger(self.log)
+
+        if trigger_file is None and starttime is None and endtime is None:
+            raise RuntimeError("Must supply an input argument.")
+        if (starttime is None) ^ (endtime is None):
+            raise RuntimeError("Must supply a starttime AND an endtime.")
+        if starttime is not None:
+            starttime, endtime = UTCDateTime(starttime), UTCDateTime(endtime)
+            if starttime > endtime:
+                raise util.TimeSpanException
+        self._check_locate_options()
+
+        if trigger_file is not None:
+            span = f"\n\tLocating events in {trigger_file}"
+        else:
+            span = f"\n\tLocating events from {starttime} to {endtime}\n"
+        self._announce(
+            "\tLOCATE - Determining event location and uncertainty",
+            [span, self, str(self.onset), str(self.picker)],
+        )
+        if trigger_file is not None:
+            self._locate_events(trigger_file=trigger_file)
+        else:
+            self._locate_events(starttime=starttime, endtime=endtime)
+        logging.info(util.log_spacer)
+
+    def _check_locate_options(self):
+        """Raise NotImplementedError for an option locate does not cover,
+        naming the ROADMAP.md item it waits for."""
+
+        for option, what in self._LOCATE_WAITS.items():
+            if getattr(self, option):
+                raise NotImplementedError(
+                    f"{option}: {what} is not ported yet")
+        if self.mags is not None:
+            raise NotImplementedError(
+                "mags: local magnitudes are not ported yet (ROADMAP.md §1, "
+                "A8c)")
+        if self.write_cut_waveforms and self.cut_waveform_format != "MSEED":
+            raise NotImplementedError(
+                f"cut_waveform_format {self.cut_waveform_format!r}: the port "
+                "writes MSEED only (ROADMAP.md §1, A14)")
+
+    def _locate_events(self, **kwargs):
+        candidates = read_triggered_events(self.run, **kwargs)
+        total = len(candidates)
+
+        self.pre_pad, self.post_pad = self.onset.pad(4 * self.marginal_window)
+        events = [Event(self.marginal_window, row)
+                  for row in candidates.rows()]
+
+        # Archive reads for the next event overlap the current event's
+        # device work and the post pool's host work.
+        reader = ThreadPoolExecutor(max_workers=1)
+        pending = {}
+
+        def submit_read(j):
+            if 0 <= j < len(events) and j not in pending:
+                half_span = 2 * self.marginal_window
+                w_beg = events[j].trigger_time - half_span - self.pre_pad
+                w_end = events[j].trigger_time + half_span + self.post_pad
+                pending[j] = reader.submit(
+                    self._read_event_waveform_data, w_beg, w_end
+                )
+
+        n_workers = self.locate_workers
+        post = (ThreadPoolExecutor(max_workers=n_workers)
+                if n_workers else None)
+        finishes = []  # submitted-but-unjoined post-processing futures
+
+        self.locate_event_marks = []
+        self.locate_event_attrib = []
+        t_mark = time.perf_counter()
+        try:
+            submit_read(0)
+            for i, event in enumerate(events):
+                submit_read(i + 1)
+                logging.info(util.log_spacer)
+                logging.info(f"\tEVENT - {i + 1} of {total} - {event.uid}")
+                logging.info(util.log_spacer)
+                attrib = {}
+                ok, coa_handle = self._locate_prepare(event, pending.pop(i),
+                                                      attrib)
+                if not ok:
+                    continue
+                self.locate_event_attrib.append(attrib)
+                if post is None:
+                    self._locate_finish(event, coa_handle, attrib)
+                    logging.info(util.log_spacer)
+                else:
+                    # Backpressure: the device loop runs at most 2 x
+                    # workers events ahead of the post pool (host memory
+                    # holds each in-flight event's waveforms).
+                    finishes.append(post.submit(self._locate_finish, event,
+                                                coa_handle, attrib))
+                    while len(finishes) > 2 * n_workers:
+                        finishes.pop(0).result()
+                now = time.perf_counter()
+                self.locate_event_marks.append(now - t_mark)
+                t_mark = now
+            while finishes:
+                finishes.pop(0).result()
+        finally:
+            reader.shutdown(wait=False, cancel_futures=True)
+            if post is not None:
+                post.shutdown(wait=True, cancel_futures=True)
+
+    def _locate_prepare(self, event, waveform_read, attrib):
+        """
+        Device-facing stage of one candidate, on the main thread: the
+        waveform read, the onsets, pass 1, the marginal-window gate, the
+        trim, and the dispatch of pass 2. Returns ``(ok, coa_handle)``
+        (:meth:`_dispatch_marginalise`).
+
+        """
+
+        t0 = time.perf_counter()
+        try:
+            logging.info("\tReading waveform data...")
+            event.add_waveform_data(waveform_read.result())
+            attrib["read_wait"] = time.perf_counter() - t0
+            logging.info("\tComputing 4-D coalescence function...")
+            event.add_compute_output(*self._compute(event.data, event,
+                                                    attrib))
+        except (
+            util.ArchiveEmptyException,
+            util.DataGapException,
+            util.DataAvailabilityException,
+        ) as e:
+            logging.info(e.msg)
+            return False, None
+
+        pass1 = event._pass1
+        if not event.in_marginal_window():
+            if self.on_event is not None:
+                self.on_event(event, pass1, None)
+            return False, None
+        event.trim2window()
+        t0 = time.perf_counter()
+        coa_handle = self._dispatch_marginalise(event)
+        attrib["pass2"] = time.perf_counter() - t0
+        if self.on_event is not None:
+            self.on_event(event, pass1, coa_handle)
+        return True, coa_handle
+
+    def _device_inputs(self, onsets, onset_data):
+        """
+        Scatter the computed onsets [n, T] (on the scan's device) into the
+        fixed canonical slot layout, as float32, and build the
+        availability mask: (block f32 [n_slots, T], mask f32 [n_slots],
+        available).
+
+        """
+
+        slots = {f"{station}_{phase}": s for s, (phase, station)
+                 in enumerate(self._canonical_slots())}
+        slot_idx, row_idx = [], []
+        for station, phase_onsets in onset_data.onsets.items():
+            for phase in phase_onsets:
+                key = f"{station}_{phase}"
+                slot_idx.append(slots[key])
+                row_idx.append(onset_data.rows[key])
+        block = torch.ones((len(slots), onsets.shape[-1]),
+                           dtype=torch.float32, device=onsets.device)
+        mask = torch.zeros(len(slots), dtype=torch.float32,
+                           device=onsets.device)
+        slot_idx = torch.tensor(slot_idx, device=onsets.device)
+        block[slot_idx] = onsets[torch.tensor(row_idx,
+                                              device=onsets.device)].float()
+        mask[slot_idx] = 1.0
+        return block, mask, float(len(row_idx))
+
+    def _flat_traveltimes(self):
+        """The traveltimes as a CPU tensor, for the plain CPU path."""
+
+        if self._tt_flat is None:
+            self._tt_flat = torch.from_numpy(self._traveltime_table())
+        return self._tt_flat
+
+    @util.timeit("info")
+    def _compute(self, data, event, attrib):
+        """
+        One locate window: the onsets on the scan's device and pass 1, the
+        per-sample max, normalised max and argmax node over the window.
+        On the card pass 1 is the detect kernel of the scan's route (K1 v2,
+        or K2 v2 on a plan K1 v2 refuses); on the CPU the plain flat-order
+        migration. Keeps the inputs of pass 2 on the event
+        (``_marginalise_inputs``) and pass 1's result (``_pass1``).
+
+        """
+
+        t0 = time.perf_counter()
+        onsets, onset_data = self.onset.calculate_onsets(
+            data, device=self.device)
+        block, mask, available = self._device_inputs(onsets, onset_data)
+        fsmp = util.time2sample(self.pre_pad, onset_data.sampling_rate)
+        lsmp = util.time2sample(self.post_pad, onset_data.sampling_rate)
+        nsamples = block.shape[-1] - fsmp - lsmp
+        t1 = time.perf_counter()
+
+        inputs = {"block": block, "mask": mask, "available": available,
+                  "fsmp": fsmp, "nsamples": nsamples}
+        route, _, plan = self._detect_route()
+        self.locate_route = route
+        if route == "plain":
+            result = migrate_detect(block, self._flat_traveltimes(), mask,
+                                    available, fsmp, nsamples)
+        else:
+            # Pass 1's detector: one per locate geometry, as the JAX
+            # _mxu_kernel caches one, on detect's route and plan
+            detector = self._locate_detector = route_detector(
+                route, plan, self._traveltime_table(),
+                tuple(self.lut.node_count), fsmp, nsamples, self.device,
+                cached=self._locate_detector,
+            )
+            onsets_log, inv_available = detector.prepare(block, mask,
+                                                         available)
+            max_coa, max_idx, coa_sum = detector.reduce_log(onsets_log,
+                                                            inv_available)
+            result = (max_coa, max_coa * detector.n_nodes / coa_sum, max_idx)
+            inputs.update(onsets_log=onsets_log, inv_available=inv_available)
+        # One copy of the three outputs to the host
+        max_coa, max_coa_n, max_idx = unpack_detect_window(
+            pack_detect_window(*result).cpu())
+        event._marginalise_inputs = inputs
+        event._pass1 = (max_coa, max_coa_n, max_idx)
+
+        coord = self.lut.index2coord(max_idx, unravel=True)
+        times = event.mw_times(self.scan_rate, count=nsamples)
+        attrib["onsets"] = t1 - t0
+        attrib["pass1"] = time.perf_counter() - t1
+        return (
+            times,
+            np.asarray(max_coa, dtype=np.float64),
+            np.asarray(max_coa_n, dtype=np.float64),
+            coord,
+            None,
+            onset_data,
+        )
+
+    def _dispatch_marginalise(self, event):
+        """
+        Pass 2 for a trimmed event: the coalescence summed over the
+        marginal window ``[first, last)`` of ``trim_bounds``, f32 [n_nodes]
+        in flat node order. On the card M1 runs on the main thread and its
+        result is copied to a pinned host buffer after a recorded CUDA
+        event; returns (host buffer, event), and the post thread waits on
+        the event. On the CPU the plain version runs: (result, None).
+
+        """
+
+        inputs = event._marginalise_inputs
+        i0, i1 = event.trim_bounds
+        if self.device.type != "cuda":
+            return migrate_marginalise(
+                inputs["block"], self._flat_traveltimes(), inputs["mask"],
+                inputs["available"], inputs["fsmp"], inputs["nsamples"], i0,
+                i1 - i0,
+            ), None
+        marginal = self._locate_detector.marginalise(
+            inputs["onsets_log"], inputs["inv_available"], i0, i1 - i0)
+        host = torch.empty(marginal.shape, dtype=marginal.dtype,
+                           pin_memory=True)
+        host.copy_(marginal, non_blocking=True)
+        copied = torch.cuda.Event()
+        copied.record(torch.cuda.current_stream(self.device))
+        return host, copied
+
+    def _locate_finish(self, event, coa_handle, attrib):
+        """
+        Host post-processing of one migrated candidate, on a
+        ``locate_workers`` pool thread (or inline): wait for pass 2's
+        result, then location and uncertainty, picks and the output
+        files. Issues no work on the card.
+
+        """
+
+        t0 = time.perf_counter()
+        marginal, copied = coa_handle
+        if copied is not None:
+            copied.synchronize()
+        t1 = time.perf_counter()
+        logging.info(f"\t[{event.uid}] Determining event location and "
+                     "uncertainty...")
+        coa_map = self._calculate_location(event, marginal.numpy())
+        t2 = time.perf_counter()
+
+        if self.write_marginal_coalescence:
+            logging.info(f"\t[{event.uid}] Saving marginalised coalescence "
+                         "map...")
+            write_coalescence(self.run, coa_map, event)
+        t3 = time.perf_counter()
+
+        logging.info(f"\t[{event.uid}] Making phase picks...")
+        event, _ = self.picker.pick_phases(event, self.lut, self.run)
+        t4 = time.perf_counter()
+
+        event.write(self.run, self.lut)
+        if self.plot_event_summary and not self._summary_logged:
+            logging.info("\tEvent summary not drawn: plot/ is not ported.")
+            self._summary_logged = True
+        if self.write_cut_waveforms:
+            write_cut_waveforms(self.run, event, self.cut_waveform_format,
+                                pre_cut=self.pre_cut, post_cut=self.post_cut)
+        attrib.update(pass2_wait=t1 - t0, location=t2 - t1, picks=t4 - t3,
+                      writes=(t3 - t2) + (time.perf_counter() - t4))
+        return True
+
+    @util.timeit("info")
+    def _read_event_waveform_data(self, w_beg, w_end):
+        """Read waveform data for one event, with the cut pads if set."""
+
+        pre_pad = post_pad = 0.0
+        if self.pre_cut:
+            pre_pad = max(pre_pad, self.pre_cut)
+        if self.post_cut:
+            post_pad = max(post_pad, self.post_cut)
+
+        pre_pad = max(0.0, pre_pad - self.marginal_window - self.pre_pad)
+        post_pad = max(0.0, post_pad - self.marginal_window - self.post_pad)
+
+        return self.archive.read_waveform_data(w_beg, w_end, pre_pad, post_pad)
+
+    # ------------------------------------------------------------------
+    # Location estimation (host-side post-processing of the 3-D map), as
+    # the JAX package computes it, in float64 numpy and scipy
+    # ------------------------------------------------------------------
+
+    @util.timeit("info")
+    def _calculate_location(self, event, marginal):
+        """
+        From the marginalised map (flat, [n_nodes]), compute the three
+        location estimates: interpolated spline peak, 3-D Gaussian fit,
+        and global covariance. Returns the normalised map
+        (nx, ny, nz).
+
+        """
+
+        coa_map = np.asarray(marginal, dtype=np.float64).reshape(
+            tuple(self.lut.node_count))
+        coa_map = coa_map / np.nanmax(coa_map)
+
+        event.add_spline_location(self._splineloc(np.copy(coa_map)))
+
+        smoothed_coa_map = self._gaufilt3d(np.copy(coa_map))
+        event.add_gaussian_location(*self._gaufit3d(smoothed_coa_map))
+
+        event.add_covariance_location(*self._covfit3d(np.copy(coa_map)))
+
+        return coa_map
+
+    @staticmethod
+    def _peak_window(shape, centre, width):
+        """(lo, hi) corners of a width^3 box around ``centre``, grid-clipped."""
+
+        half = (width - 1) // 2
+        shape, centre = np.asarray(shape), np.asarray(centre)
+        lo = np.clip(centre - half, 0, shape)
+        hi = np.clip(centre + half + 1, 0, shape)
+        return lo, hi
+
+    @util.timeit()
+    def _splineloc(self, coa_map, win=5, upscale=10):
+        """
+        Sub-node location: cubic RBF fit over a win^3 box at the gridded
+        peak, evaluated on an ``upscale``-times-finer lattice.
+
+        """
+
+        peak = np.unravel_index(np.nanargmax(coa_map), coa_map.shape)
+        lo, hi = self._peak_window(coa_map.shape, peak, win)
+        spans = hi - lo
+
+        if not (spans[0] == spans[1] == spans[2]):
+            logging.info(
+                "\t !!!! Spline error: interpolation window crosses edge of "
+                "grid !!!!"
+            )
+            return self.lut.index2coord([list(peak)])[0]
+
+        box = coa_map[tuple(slice(a, b) for a, b in zip(lo, hi))]
+
+        # Cubic RBF (phi = r^3) fit at the coarse lattice points, evaluated
+        # on the upscaled lattice; the fine-point distances come from one
+        # (M,3)@(3,125) product via |x-c|^2 = |x|^2 + |c|^2 - 2x.c.
+        coarse = np.indices(box.shape, dtype=np.float64).reshape(3, -1).T
+        gram_d2 = (
+            (coarse[:, None, :] - coarse[None, :, :]) ** 2
+        ).sum(-1)
+        gram = gram_d2 * np.sqrt(gram_d2)
+        values = box.ravel().astype(np.float64)
+        try:
+            weights = np.linalg.solve(gram, values)
+        except np.linalg.LinAlgError:
+            weights = np.linalg.lstsq(gram, values, rcond=None)[0]
+
+        fine_axes = [
+            np.linspace(0, dim - 1, (dim - 1) * upscale + 1)
+            for dim in box.shape
+        ]
+        fine = np.meshgrid(*fine_axes, indexing="ij")
+        pts = np.stack([g.ravel() for g in fine], axis=1)
+        d2 = (
+            (pts**2).sum(1)[:, None]
+            + (coarse**2).sum(1)[None, :]
+            - 2.0 * (pts @ coarse.T)
+        )
+        np.maximum(d2, 0.0, out=d2)
+        sampled = ((d2 * np.sqrt(d2)) @ weights).reshape(fine[0].shape)
+
+        refined = (
+            np.asarray(np.unravel_index(np.nanargmax(sampled), sampled.shape))
+            / upscale
+            + lo
+        )
+        logging.debug("\t\tGridded loc: {}   {}   {}".format(*peak))
+        logging.debug("\t\tSpline  loc: {} {} {}".format(*refined))
+
+        drift = np.abs(np.asarray(peak) - refined)
+        if (drift > 1).any():
+            logging.debug(
+                "\tSpline warning: spline location outside grid cell "
+                "with maximum coalescence value"
+            )
+        if (drift > (win - 1) // 2).any():
+            logging.info(
+                "\t !!!! Spline error: location outside interpolation "
+                "window !!!!"
+            )
+            return self.lut.index2coord([list(peak)])[0]
+
+        return self.lut.index2coord([list(refined)])[0]
+
+    @util.timeit()
+    def _gaufit3d(self, coa_map, thresh=0.0, win=7):
+        """
+        3-D Gaussian fit (a quadratic form in log space) over a win^3 box at
+        the peak of the smoothed map; returns (location, 1-sigma errors).
+
+        """
+
+        peak = np.unravel_index(np.nanargmax(coa_map), coa_map.shape)
+        in_fit = (coa_map > thresh) & self._mask3d(coa_map.shape, peak, win)
+        nodes = np.where(in_fit)
+
+        values = (coa_map - np.nanmean(coa_map)).astype(np.float64)[nodes]
+        neg_log = -np.log(np.clip(values, 1e-300, np.inf))
+
+        # Design matrix rows: x², y², z², xy, xz, yz, x, y, z, 1 — offsets
+        # are measured from the peak node.
+        x, y, z = (idx - c for idx, c in zip(nodes, peak))
+        design = np.stack(
+            [x * x, y * y, z * z, x * y, x * z, y * z, x, y, z,
+             np.ones(x.size)]
+        )
+        P = np.matmul(neg_log, np.linalg.pinv(design))
+        quad, cross, linear = P[:3], P[3:6], P[6:9]
+
+        def symmetric(diagonal, off_scale):
+            m = np.diag(diagonal).astype(float)
+            m[0, 1] = m[1, 0] = cross[0] * off_scale
+            m[0, 2] = m[2, 0] = cross[1] * off_scale
+            m[1, 2] = m[2, 1] = cross[2] * off_scale
+            return m
+
+        curvature = -symmetric(2 * quad, 1.0)
+        offset = np.matmul(np.linalg.inv(curvature), linear)
+
+        eigenvalues, _ = np.linalg.eig(symmetric(quad, 0.5))
+        sigmas = np.sqrt(0.5 / np.clip(np.abs(eigenvalues), 1e-10, np.inf)) / 2
+
+        location = self.lut.index2coord([list(offset + peak)])[0]
+        return location, sigmas * self.lut.node_spacing
+
+    @util.timeit()
+    def _covfit3d(self, coa_map, thresh=0.90, win=None):
+        """
+        Coalescence-weighted mean position and covariance of the map values
+        above ``thresh`` (optionally restricted to a win^3 box at the peak).
+
+        """
+
+        keep = coa_map > thresh
+        if win:
+            peak = np.unravel_index(np.nanargmax(coa_map), coa_map.shape)
+            keep &= self._mask3d(coa_map.shape, peak, win)
+
+        kept_idx = np.nonzero(keep)
+        weights = coa_map[kept_idx].astype(np.float64)
+        total = weights.sum()
+
+        positions = [
+            idx * spacing
+            for idx, spacing in zip(kept_idx, self.lut.node_spacing)
+        ]
+
+        mean = [np.sum(weights * axis) / total for axis in positions]
+        deviations = [axis - m for axis, m in zip(positions, mean)]
+
+        covariance = np.empty((3, 3))
+        for r in range(3):
+            for c in range(r, 3):
+                covariance[r, c] = covariance[c, r] = (
+                    np.sum(weights * deviations[r] * deviations[c]) / total
+                )
+
+        location_xyz = self.lut.ll_corner + np.array(mean)
+        location = self.lut.coord2grid(location_xyz, inverse=True)[0]
+        return location, np.diag(np.sqrt(abs(covariance)))
+
+    @util.timeit()
+    def _gaufilt3d(self, map3d, sgm=0.8, shp=None, _radius=12):
+        """
+        Double Gaussian smoothing (forward + mirrored to cancel the
+        even-axis phase shift), normalised to peak 1: each pass is three
+        truncated 1-D convolutions of the separable kernel, whose
+        per-axis ``origin`` reproduces the centring of a full-grid
+        ``fftconvolve('same')`` and of its flipped second pass.
+
+        """
+
+        if shp is None:
+            shp = map3d.shape
+
+        kernels = []
+        for n, profile in zip(shp, util.gaussian_profiles(shp, sgm)):
+            c2 = n - 1  # 2 * (fractional centre index)
+            lo = max(0, -(-(c2 - 2 * _radius) // 2))
+            hi = min(n, (c2 + 2 * _radius) // 2 + 1)
+            kernels.append((profile[lo:hi], lo, n))
+
+        smoothed = map3d
+        for centre in ("first", "flipped"):
+            for axis, (w, lo, n) in enumerate(kernels):
+                full_centre = (n - 1) // 2 if centre == "first" else n // 2
+                origin = (full_centre - lo) - len(w) // 2
+                smoothed = ndimage.convolve1d(
+                    smoothed, w, axis=axis, mode="constant", cval=0.0,
+                    origin=origin,
+                )
+            smoothed = smoothed / np.nanmax(smoothed)
+
+        return smoothed
+
+    @classmethod
+    def _mask3d(cls, n, i, window):
+        """Boolean mask of a window^3 box around node i in an n-shaped grid."""
+
+        lo, hi = cls._peak_window(n, i, window)
+        mask = np.zeros(np.asarray(n), dtype=bool)
+        mask[tuple(slice(a, b) for a, b in zip(lo, hi))] = True
+        return mask

@@ -1,16 +1,20 @@
 # -*- coding: utf-8 -*-
 """
 Small pure helpers shared by the port's modules: time and sample
-arithmetic, the resampling chain of the detect path's pre-processing,
-the per-channel merge, and the exceptions the detect path raises or
-catches. Copied from the JAX package's ``util.py`` (which the port does
-not import), with only what the detect path reaches.
+arithmetic, the resampling chain of the pre-processing, the per-channel
+merge, the numeric helpers of trigger, picking and location, the timing
+decorator, and the exceptions that detect, trigger and locate raise or
+catch. Copied from the JAX package's ``util.py`` (which the port does
+not import), with only what those stages reach.
 
 """
 
 import logging
 import sys
 from datetime import datetime
+from functools import wraps
+from itertools import tee
+from time import perf_counter
 
 import numpy as np
 
@@ -58,6 +62,73 @@ def round_up(x, m):
     """Smallest multiple of ``m`` that is >= ``x``."""
 
     return -(-x // m) * m
+
+
+def pairwise(iterable):
+    """Yield consecutive overlapping pairs: s -> (s0,s1), (s1,s2), ..."""
+
+    left, right = tee(iterable)
+    next(right, None)
+    return zip(left, right)
+
+
+def gaussian_1d(x, a, b, c):
+    """Evaluate ``a * exp(-(x-b)^2 / (2 c^2))`` — used by the pick fitter."""
+
+    z = (x - b) / c
+    return a * np.exp(-0.5 * z * z)
+
+
+def gaussian_profiles(shape, sgm):
+    """Per-axis centred Gaussian profiles for a separable kernel on a
+    grid of ``shape``, with per-axis (or scalar) sigma."""
+
+    sigmas = np.broadcast_to(
+        np.asarray(sgm, dtype=float), (len(shape),)
+    )
+    profiles = []
+    for n, s in zip(shape, sigmas):
+        ax = np.linspace(-(n - 1) / 2, (n - 1) / 2, n)
+        profiles.append(np.exp(-(ax * ax) / (2.0 * s * s)))
+    return profiles
+
+
+def calculate_mad(x, scale=1.4826):
+    """
+    Median absolute deviation of ``x`` scaled so that, for normal data, it
+    estimates the standard deviation (scale = 1.4826). NaN-contaminated or
+    empty input yields NaN.
+
+    """
+
+    x = np.asarray(x)
+    if x.size == 0 or np.isnan(x.astype(float).sum()):
+        return np.nan
+    centred = np.abs(x - np.median(x, axis=0, keepdims=True))
+    return scale * np.median(centred, axis=0)
+
+
+def timeit(*decorator_args):
+    """
+    Decorator factory that reports a function's wall-clock duration. Pass
+    ``"info"`` to log at info level; the default logs at debug level.
+
+    """
+
+    emit = logging.info if "info" in decorator_args else logging.debug
+
+    def decorate(func):
+        @wraps(func)
+        def timed(*args, **kwargs):
+            tick = perf_counter()
+            result = func(*args, **kwargs)
+            emit(" " * 21 + f"Elapsed time: {perf_counter() - tick:6f} "
+                 "seconds.")
+            return result
+
+        return timed
+
+    return decorate
 
 
 def logger(logstem, log, loglevel="info"):
@@ -267,11 +338,11 @@ def merge_stream(stream):
     return merged
 
 
-# --- the exceptions of the detect path ----------------------------------------
+# --- the exceptions of detect, trigger and locate ----------------------------
 #
 # Detect windows that raise the archive, gap or availability errors become
-# zero-filled .scanmseed steps. ``msg``, where present, is the indented
-# variant used in the progress log.
+# zero-filled .scanmseed steps; locate skips the event. ``msg``, where
+# present, is the indented variant used in the progress log.
 
 
 class QMError(Exception):
@@ -388,6 +459,58 @@ class NyquistException(QMError):
 
 class TimeSpanException(QMError):
     detail = "The start time specified is after the end time."
+
+    def __init__(self):
+        super().__init__()
+
+
+class NoScanMseedDataException(QMError):
+    detail = "No .scanmseed data found."
+
+    def __init__(self):
+        super().__init__()
+
+
+class NoOnsetPeak(QMError):
+    detail = (
+        "\t\t    No onset signal exceeding pick threshold "
+        "({0:5.3f}) - continuing."
+    )
+
+    def __init__(self, pick_threshold):
+        super().__init__(pick_threshold)
+        self.msg = str(self)
+
+
+class PickerTypeError(QMError):
+    detail = (
+        "The PhasePicker object you have created does not inherit from "
+        "the required base class - see manual."
+    )
+
+    def __init__(self):
+        super().__init__()
+
+
+class NoTriggerFilesFound(QMError):
+    detail = (
+        "Double check you have supplied a valid run name and a time "
+        "period for which you have run detect."
+    )
+
+    def __init__(self):
+        super().__init__()
+
+
+class InvalidTriggerThresholdMethodException(QMError):
+    detail = "Only 'static', 'mad' or 'median_ratio' thresholds are supported."
+
+    def __init__(self):
+        super().__init__()
+
+
+class InvalidPickThresholdMethodException(QMError):
+    detail = "Only 'percentile' or 'MAD' thresholds are supported."
 
     def __init__(self):
         super().__init__()

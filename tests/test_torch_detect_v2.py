@@ -180,7 +180,8 @@ def test_v2_wrappers_refuse_what_the_kernel_does_not_take():
     assert cuda_migrate.launches == {"migrate_detect": 0,
                                      "migrate_detect_v2": 0,
                                      "migrate_detect_vpu": 0,
-                                     "migrate_detect_vpu_v2": 0}
+                                     "migrate_detect_vpu_v2": 0,
+                                     "migrate_marginalise": 0}
     assert set(cb.launches.values()) == {0}
 
 

@@ -103,3 +103,75 @@ def onset_settings(onset):
     onset.bandpass_filters = {"P": [1, 12, 2], "S": [1, 12, 2]}
     onset.sta_lta_windows = {"P": [0.2, 1.0], "S": [0.2, 1.0]}
     return onset
+
+
+# Trigger and locate settings of the workspace's run (those of
+# tests/test_e2e_synthetic.py), shared by both packages
+TRIGGER = dict(marginal_window=1.0, min_event_interval=2.0,
+               normalise_coalescence=True, static_threshold=1.8,
+               threshold_method="static", pad=30.0)
+MARGINAL_WINDOW = 1.0
+
+
+def jax_pipeline(workspace, run_name, locate=True, **locate_options):
+    """The JAX package's detect -> trigger -> locate over the workspace's
+    span, no figures, into ``root/runs/run_name``. Returns the run dir."""
+
+    from quakemigrate_tpu import QuakeScan, Trigger
+    from quakemigrate_tpu.io import Archive
+    from quakemigrate_tpu.signal.onsets import STALTAOnset
+
+    runs = workspace["root"] / "runs"
+    archive = Archive(archive_path=workspace["archive"],
+                      stations=workspace["stations"],
+                      archive_format="YEAR/JD/STATION")
+    onset = onset_settings(STALTAOnset(position="classic",
+                                       sampling_rate=SPS))
+    scan = QuakeScan(archive, workspace["lut"], onset=onset,
+                     run_path=str(runs), run_name=run_name,
+                     timestep=TIMESTEP, marginal_window=MARGINAL_WINDOW,
+                     plot_event_summary=False, compilation_cache=False,
+                     **locate_options)
+    scan.detect(START, END)
+    Trigger(workspace["lut"], run_path=str(runs), run_name=run_name,
+            plot_trigger_summary=False, **TRIGGER).trigger(START, END)
+    if locate:
+        scan.locate(START, END)
+    return runs / run_name
+
+
+def port_scan(workspace, run_name, **options):
+    """The port's QuakeScan on the CPU over the workspace, with the
+    settings of :func:`jax_pipeline`."""
+
+    from quakemigrate_torch.io import Archive
+    from quakemigrate_torch.lut import StationTable, lut_from_reference
+    from quakemigrate_torch.signal import QuakeScan
+    from quakemigrate_torch.signal.onsets import STALTAOnset
+
+    archive = Archive(workspace["archive"],
+                      StationTable.of(workspace["stations"]),
+                      archive_format="YEAR/JD/STATION")
+    lut = lut_from_reference(reference_state(workspace["lut"]))
+    onset = onset_settings(STALTAOnset(position="classic",
+                                       sampling_rate=SPS))
+    return QuakeScan(archive, lut, onset, str(workspace["root"] / "runs"),
+                     run_name, device="cpu", timestep=TIMESTEP,
+                     marginal_window=MARGINAL_WINDOW,
+                     plot_event_summary=False, **options)
+
+
+def port_pipeline(workspace, run_name, locate=True, **locate_options):
+    """The port's detect -> trigger -> locate on the CPU, as
+    :func:`jax_pipeline`. Returns (run dir, scan)."""
+
+    from quakemigrate_torch.signal import Trigger
+
+    scan = port_scan(workspace, run_name, **locate_options)
+    scan.detect(START, END)
+    Trigger(scan.lut, run_path=str(workspace["root"] / "runs"),
+            run_name=run_name, plot_trigger_summary=False,
+            **TRIGGER).trigger(START, END)
+    if locate:
+        scan.locate(START, END)
+    return workspace["root"] / "runs" / run_name, scan
