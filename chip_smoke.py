@@ -50,18 +50,23 @@ Smoke run of quakemigrate_torch on one NVIDIA GPU.
    STA/LTA, GaussianPicker, cut waveforms) on the card. Checks: exactly
    the planted event triggered, within the marginal window of its
    origin; route k1_v2, one K1 v2 launch an event migrated and one M1
-   (csrc/migrate_marginalise.cu) launch an event through the
-   marginal-window gate, no other kernel and no plain version on a CUDA
-   tensor; pass 1 against the plain migration (the tolerances of step
-   4) and M1 against the plain migrate_marginalise (1e-5 of the map's
-   maximum, the same peak node); the spline hypocentre within one node
-   of the planted source; the .event, .picks and cut waveforms read
-   back, with P and S picks at every station. Then M1 at 128 stations
-   x P/S (256 onsets, a plan K1 v2 refuses) and over archive_detect's
-   2,038-sample window, each held to its plain version, and M1 and K1
-   v2 timed at the locate window; locate runs again warm, and its
-   per-event host split (read wait, onsets, pass 1, pass 2, location
-   math, picks, writes) and trigger's wall are printed.
+   v2 (csrc/migrate_marginalise_v2.cu) launch an event through the
+   marginal-window gate, no M1 (csrc/migrate_marginalise.cu), no other
+   kernel and no plain version on a CUDA tensor; pass 1 against the
+   plain migration (the tolerances of step 4) and M1 v2 against the
+   plain migrate_marginalise (1e-5 of the map's maximum, the same peak
+   node); the spline hypocentre within one node of the planted source;
+   the .event, .picks and cut waveforms read back, with P and S picks at
+   every station. Locate runs again warm, and its per-event host split
+   (read wait, onsets, pass 1, pass 2, location math, picks, writes)
+   and trigger's wall are printed. Then, at the locate window, M1 v2
+   bit for bit to M1 and the two timed in turns (v2, v1, v1, v2), with
+   K1 v2 timed; M1 v2 on archive_detect's 2,038-sample scan at windows
+   of one chunk (128 samples), three chunks (300) and the whole scan,
+   each held to the plain version and to M1 (bit for bit at one chunk)
+   and timed in turns with it; and M1 at 128 stations x P/S (256
+   onsets, a plan K1 v2 refuses, so CudaDetectVPU's route), held to its
+   plain version, its launches counted.
 5. The VPU-plan kernel (csrc/migrate_detect_vpu.cu) against its plain
    version on a small plan and at the Icequake grid (tile 512, bricks
    8 x 8 x 8), timed; then K2 v2 (csrc/migrate_detect_vpu_v2.cu, the
@@ -194,6 +199,7 @@ import logging
 import pathlib
 import subprocess
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -739,7 +745,8 @@ def f1_path(device, n_stations=128, n_windows=2):
     launches K2 v2 once a window and K1 v2 and K2 never, and its results
     are held to the plain window (max_coa and max_coa_n within 1e-5, the
     argmax tie-consistent). Returns K2 v2's launches, a record, and the
-    traveltimes and plan (archive_locate runs M1 on them)."""
+    traveltimes and DetectScan's route (detect_route's route, reason and
+    plan: archive_locate runs pass 2 on them)."""
 
     from quakemigrate_torch.ops import cuda_migrate as cm
     from quakemigrate_torch.signal.scan import DetectScan
@@ -807,7 +814,7 @@ def f1_path(device, n_stations=128, n_windows=2):
         "window_ms": scan.window_ms, "plain_window_wall_s": plain_wall,
         "vpu_v2_smem": smem, "tile": detector.tile,
         "n_stages": detector.n_stages, "max_abs_err": max(errs)}, (
-            tt, scan._plan)
+            tt, (scan.route, scan.route_reason, scan._plan))
 
 
 def archive_workspace(root, spacing_km=SPACING_KM, span_s=ARCHIVE_SPAN_S):
@@ -876,7 +883,7 @@ def archive_workspace(root, spacing_km=SPACING_KM, span_s=ARCHIVE_SPAN_S):
     return lut, stations, archive, np.array(planted), times, origin
 
 
-def archive_detect_path(device, f1_plan):
+def archive_detect_path(device, f1_route):
     """archive_detect: QuakeScan.detect from a miniSEED archive to
     .scanmseed on the card, without jax. The workspace of
     :func:`archive_workspace`; the example's STALTAOnset (classic, bandpass
@@ -1066,7 +1073,7 @@ def archive_detect_path(device, f1_plan):
               f"{layer_ms['block']:.3f}, .scanmseed append "
               f"{layer_ms['append']:.3f}")
         locate_record = archive_locate_path(device, root, scan, planted,
-                                            origin, start, end, f1_plan)
+                                            origin, start, end, f1_route)
     record.update({
         "windows": n_windows, "dispatched": dispatched, "fsmp": fsmp,
         "lsmp": lsmp, "onsets": int(detect_scan.traveltimes.shape[1]),
@@ -1106,23 +1113,27 @@ def median_ms(fn, reps, turns=5, warmup=2):
                             for _ in range(turns)]))
 
 
-def marginalise_bound(tt, window_length):
-    """Bound of M1's function, migrate_marginalise over a window of
+def marginalise_bound(tt, window_length, base=None):
+    """Bound of the marginalisation, migrate_marginalise over a window of
     ``window_length`` samples for the int32 [n_nodes, O] traveltimes
-    ``tt``: the bytes the function must move, each read or written once
-    (the traveltimes; of each onset row the f32 columns the window
-    touches, from its least traveltime to its largest plus the window;
-    the mask; the f32 [n_nodes] output), not the padding or the tables
-    of the kernel's plan; against O adds and three more operations
-    (scale, exp, sum) a node and window sample. Also the floor of its
-    gather, the n_nodes x O x len 4-byte reads at the shared-memory
-    bandwidth."""
+    ``tt``: the bytes the kernel's function must move, each read or
+    written once (the traveltimes; of each onset row the f32 columns the
+    window touches, from its least traveltime to its largest plus the
+    window; the mask; the f32 [n_nodes] output), not the padding nodes of
+    the kernel's plan; against O adds and three more operations (scale,
+    exp, sum) a node and window sample. The traveltimes are M1's int32 a
+    node-onset where ``base`` is None; given the plan's int32 [tiles, O]
+    ``base``, they are M1 v2's: its int16 residuals (``fine16``, 2 bytes
+    a real node-onset) and ``base``. Also the floor of the gather, the
+    n_nodes x O x len 4-byte reads at the shared-memory bandwidth."""
 
     tt = np.asarray(tt)
     n_nodes, n_onsets = tt.shape
     columns = (tt.max(axis=0).astype(np.int64) - tt.min(axis=0)
                + window_length)
-    nbytes = 4 * (tt.size + int(columns.sum()) + n_onsets + n_nodes)
+    tt_bytes = (4 * tt.size if base is None
+                else 2 * tt.size + base.numel() * base.element_size())
+    nbytes = tt_bytes + 4 * (int(columns.sum()) + n_onsets + n_nodes)
     bound_ms, bound_by = roofline(
         nbytes, n_nodes * window_length * (n_onsets + 3))
     gather_ms = (n_nodes * n_onsets * window_length * 4 / SMEM_BYTES_PER_S
@@ -1131,34 +1142,83 @@ def marginalise_bound(tt, window_length):
             "smem_bound_ms": gather_ms}
 
 
-def m1_case(name, tt, node_count, fsmp, nsamples, lsmp, window, rng, device,
-            plan=None, reps=20):
-    """M1 (csrc/migrate_marginalise.cu) against its plain version on the
-    card, on seeded random onsets at a scan geometry and window
-    ``(start, length)``, within M1_RTOL_OF_MAX of the map's maximum and
-    the same peak node; the kernel timed (CUDA events, median of 5
-    turns), the plain version once. Returns a record."""
+def m1_setup(tt, node_count, fsmp, nsamples, lsmp, rng, device, route):
+    """Pass 2 on the detector that locate's routing builds
+    (``signal/scan.py``'s route_detector) for ``route``, the (route,
+    reason, plan) that detect_route gave these traveltimes: M1 v2 through
+    CudaDetect on "k1_v2", M1 through CudaDetectVPU on "k2_v2"; on seeded
+    random onsets at a scan geometry."""
 
-    from quakemigrate_torch.ops import cuda_migrate as cm
-    from quakemigrate_torch.ops.migrate import migrate_marginalise
+    from quakemigrate_torch.signal.scan import route_detector
 
     n_onsets = tt.shape[1]
-    detector = cm.CudaDetect(tt, node_count, fsmp, nsamples, device,
-                             plan=plan)
+    route, refusal, plan = route
+    detector = route_detector(route, plan, tt, node_count, fsmp, nsamples,
+                              device)
     onsets = torch.from_numpy(rng.uniform(
         0.3, 4.0, size=(n_onsets, fsmp + nsamples + lsmp)).astype(
             np.float32)).to(device)
     mask = torch.ones(n_onsets, dtype=torch.float32, device=device)
     onsets_log, inv = detector.prepare(onsets, mask, float(n_onsets))
-    tt_dev = torch.from_numpy(tt).to(device)
-    start, length = window
+    return SimpleNamespace(
+        tt=tt, detector=detector, route=route, refusal=refusal,
+        onsets=onsets, mask=mask,
+        onsets_log=onsets_log, inv=inv, fsmp=fsmp, nsamples=nsamples,
+        tt_dev=torch.from_numpy(tt).to(device))
+
+
+def m1_v1(detector, onsets_log, inv, start, length):
+    """M1 (csrc/migrate_marginalise.cu) on a CudaDetect's plan: M1 v2's
+    yardstick, and its equal up to one chunk."""
+
+    from quakemigrate_torch.ops import cuda_migrate as cm
+
+    return cm.migrate_marginalise_cuda(
+        onsets_log, detector.base, detector.fine, detector.valid,
+        detector.perm, inv, detector.fsmp, detector.nsamples, start, length,
+        detector.n_nodes, detector._max_shift)
+
+
+def m1_resources(length):
+    """ptxas's registers and spills of the M1 v2 kernel that a window of
+    ``length`` samples takes (its default shape)."""
+
+    from quakemigrate_torch import _build
+    from quakemigrate_torch.ops import cuda_migrate as cm
+
+    spn = cm.m1_v2_slots(length)
+    tag = f"ILi{cm.M1_V2_NODES_IN_FLIGHT[spn]}ELi{spn}E"
+    return next(v for name, v in _build.kernel_resources(
+        "qm_migrate_marginalise_v2_kernel").items() if tag in name)
+
+
+def m1_case(name, s, window, reps=20):
+    """Pass 2 on the setup ``s`` (:func:`m1_setup`) at a window ``(start,
+    length)``: the route's kernel against the plain version on the card,
+    within M1_RTOL_OF_MAX of the map's maximum and the same peak node.
+    On K1 v2's route M1 v2 is also held to M1 (bit for bit up to one
+    chunk of M1_V2_CHUNK samples, else the largest relative difference),
+    and the two are timed in turns (v2, v1, v1, v2; ``reps`` launches a
+    turn), with M1 v2's blocks per SM, registers and spills; on K2 v2's
+    route M1 is timed alone (median of 5 turns). The plain version is
+    timed once. The bound is the route kernel's (:func:`marginalise_bound`:
+    M1 v2's int16 residuals on K1 v2's route, with M1's int32 bound beside
+    it as ``v1_bound_ms``). Returns a record."""
+
+    from quakemigrate_torch.experiments import exp_kernel_breakdown as ekb
+    from quakemigrate_torch.ops import cuda_migrate as cm
+    from quakemigrate_torch.ops.migrate import migrate_marginalise
+
+    detector, start, length = s.detector, *window
+    n_onsets = s.tt.shape[1]
 
     def kernel():
-        return detector.marginalise(onsets_log, inv, start, length)
+        return detector.marginalise(s.onsets_log, s.inv, start, length)
 
     def plain():
-        return migrate_marginalise(onsets, tt_dev, mask, float(n_onsets),
-                                   fsmp, nsamples, start, length)
+        return migrate_marginalise(s.onsets, s.tt_dev, s.mask,
+                                   float(n_onsets), s.fsmp, s.nsamples,
+                                   start, length)
 
     got, want = kernel(), plain()
     torch.cuda.synchronize()
@@ -1166,22 +1226,49 @@ def m1_case(name, tt, node_count, fsmp, nsamples, lsmp, window, rng, device,
     same_peak = int(torch.argmax(got)) == int(torch.argmax(want))
     check(torch.isfinite(got).all() and err <= M1_RTOL_OF_MAX and same_peak,
           f"m1 {name}: {err} of the maximum, peak equal {same_peak}")
-    ms = median_ms(kernel, reps)
+    route = s.route
+    record = {"onsets": n_onsets, "window": [start, length], "route": route,
+              "refusal_k1_v2": s.refusal, "max_err_of_max": err,
+              "max_abs_err": float((got - want).abs().max())}
+    if route == "k1_v2":
+        def v1():
+            return m1_v1(detector, s.onsets_log, s.inv, start, length)
+
+        ref = v1()
+        equal = bool(torch.equal(got, ref))
+        rel_v1 = float(((got - ref).abs() / ref.abs()).max())
+        check(equal or length > cm.M1_V2_CHUNK,
+              f"m1 {name}: M1 v2 differs from M1 ({rel_v1}) over "
+              f"{length} samples")
+        turns = ekb.in_turns({"v2": kernel, "v1": v1}, reps)
+        record.update(
+            ms=float(np.mean(turns["v2"])), v1_ms=float(np.mean(turns["v1"])),
+            turns_ms=turns, equal_to_v1=equal, max_rel_diff_v1=rel_v1,
+            blocks_per_sm=cm.marginalise_v2_blocks_per_sm(
+                n_onsets, detector.tile, detector.win_floats, length,
+                detector.device),
+            **m1_resources(length))
+    else:
+        record["ms"] = median_ms(kernel, reps)
     # The plain version once, warm from the check above
-    plain_ms = median_ms(plain, 1, turns=1, warmup=0)
-    bound = marginalise_bound(tt, length)
-    record = {"onsets": n_onsets, "window": [start, length],
-              "refusal_k1_v2": cm.v2_refusal(
-                  n_onsets, detector.tile, detector.win_floats,
-                  detector.r_span),
-              "max_err_of_max": err,
-              "max_abs_err": float((got - want).abs().max()), "ms": ms,
-              "plain_ms": plain_ms, **bound}
-    print(f"m1 {name}: {n_onsets} onsets, window {start} + {length} of "
-          f"{nsamples}: {ms:.4f} ms (plain {plain_ms:.4f}; bound "
-          f"{bound['bound_ms']:.4f} by {bound['bound_by']}, gather floor "
-          f"{bound['smem_bound_ms']:.4f}), {err:.2e} of the maximum; K1 v2 "
-          f"refusal: {record['refusal_k1_v2']}")
+    record["plain_ms"] = median_ms(plain, 1, turns=1, warmup=0)
+    record.update(marginalise_bound(
+        s.tt, length, detector.base if route == "k1_v2" else None))
+    if route == "k1_v2":
+        record["v1_bound_ms"] = marginalise_bound(s.tt, length)["bound_ms"]
+    extra = (f"; M1 in turns {record['v1_ms']:.4f} ms (bound "
+             f"{record['v1_bound_ms']:.4f}), equal "
+             f"{record['equal_to_v1']} (largest relative difference "
+             f"{record['max_rel_diff_v1']:.2e}), blocks per SM "
+             f"{record['blocks_per_sm']}, {record['registers']} registers, "
+             f"spills {record['spill_stores']} / {record['spill_loads']}"
+             if route == "k1_v2" else "")
+    print(f"m1 {name}: route {route}, {n_onsets} onsets, window {start} + "
+          f"{length} of {s.nsamples}: {record['ms']:.4f} ms (plain "
+          f"{record['plain_ms']:.4f}; bound {record['bound_ms']:.4f} by "
+          f"{record['bound_by']}, gather floor "
+          f"{record['smem_bound_ms']:.4f}), {err:.2e} of the maximum{extra}; "
+          f"K1 v2 refusal: {s.refusal}")
     return record
 
 
@@ -1215,7 +1302,7 @@ class NoPlainOnCuda:
 
 
 def archive_locate_path(device, root, detect, planted, origin, start, end,
-                        f1_plan):
+                        f1_route):
     """archive_locate: Trigger and QuakeScan.locate on the card, on
     archive_detect's workspace and .scanmseed, without jax. Trigger with
     iceland_trigger.py's settings (marginal window 0.06 s, minimum event
@@ -1225,18 +1312,21 @@ def archive_locate_path(device, root, detect, planted, origin, start, end,
     marginal window 0.06 s, cut waveforms), figures logged as not drawn.
     Checks: exactly the planted event triggered, within the marginal
     window of its origin time; pass 1 on route k1_v2, one K1 v2 launch an
-    event read and one M1 launch an event that passes the marginal-window
-    gate, no other detect kernel and no plain version on a CUDA tensor;
+    event read and one M1 v2 launch an event that passes the
+    marginal-window gate, none of M1, no other detect kernel and no plain version on a CUDA tensor;
     each pass 1 against the plain migration on the card (max_coa 1e-5,
-    max_coa_n 1e-4, argmax tie-consistent); each M1 result against the
-    plain migrate_marginalise on the card (M1_RTOL_OF_MAX of the maximum,
-    the same peak node); the spline hypocentre within one node of the
-    planted source; the .event, .picks and cut waveforms read back by the
-    port's readers, with P and S picks at every station. Then M1 at F1's
-    geometry (256 onsets, on ``f1_plan``, F1's traveltimes and plan) and
-    M1 and K1 v2 timed; locate run again, warm, for its per-event split.
-    Returns a record."""
+    max_coa_n 1e-4, argmax tie-consistent); each pass 2 (M1 v2) result
+    against the plain migrate_marginalise on the card (M1_RTOL_OF_MAX of
+    the maximum, the same peak node); the spline hypocentre within one
+    node of the planted source; the .event, .picks and cut waveforms read
+    back by the port's readers, with P and S picks at every station;
+    locate run again, warm, for its per-event split. Then M1 v2 and M1
+    (bit-equal) in turns at the locate window, K1 v2 timed; M1 v2 at one
+    chunk, three chunks and archive_detect's window (:func:`m1_case`);
+    and M1 at F1's geometry (256 onsets, on ``f1_route``, F1's traveltimes
+    and DetectScan's route, k2_v2: CudaDetectVPU). Returns a record."""
 
+    from quakemigrate_torch.experiments import exp_kernel_breakdown as ekb
     from quakemigrate_torch.io import read_scanmseed, read_triggered_events
     from quakemigrate_torch.io.table import read_csv
     from quakemigrate_torch.ops import cuda_migrate as cm
@@ -1310,9 +1400,10 @@ def archive_locate_path(device, root, detect, planted, origin, start, end,
           f"archive_locate: {n_read} migrated, {n_gated} gated of "
           f"{len(events)}")
     check(launches["migrate_detect_v2"] == n_read
-          and launches["migrate_marginalise"] == n_gated
+          and launches["migrate_marginalise_v2"] == n_gated
+          and launches["migrate_marginalise"] == 0
           and all(n == 0 for k, n in launches.items()
-                  if k not in ("migrate_detect_v2", "migrate_marginalise")),
+                  if k not in ("migrate_detect_v2", "migrate_marginalise_v2")),
           f"archive_locate: launches {launches}")
 
     # Each pass against its plain version on the card
@@ -1414,44 +1505,78 @@ def archive_locate_path(device, root, detect, planted, origin, start, end,
     print(f"archive_locate: per-event split, host s, cold ({locate_s:.3f} s "
           f"wall): {cold_split}; warm ({warm_s:.3f} s wall): {warm_split}")
 
-    # M1 at F1's geometry (K1 v2 refuses its plan) and at archive_detect's
-    # window, and M1 and K1 v2 timed at the locate window
-    f1 = m1_case("f1", f1_plan[0], NODE_COUNT, FSMP, NSAMPLES, LSMP,
-                 (100, 30), np.random.default_rng(2032), device,
-                 plan=f1_plan[1])
-    check(f1["refusal_k1_v2"] is not None, "m1 f1: K1 v2 takes this plan")
-    _, _, plan = scan._detect_route()
-    tt = scan._traveltime_table()
-    fsmp, nsamples, lsmp = DETECT_WINDOW
-    window_2038 = m1_case("detect window", tt, tuple(lut.node_count), fsmp,
-                          nsamples, lsmp, (0, nsamples),
-                          np.random.default_rng(2033), device, plan=plan,
-                          reps=5)
+    # M1 v2 and M1 in turns at the locate window, M1 v2 also at one chunk,
+    # three chunks and archive_detect's window, and M1 at F1's geometry
+    # (K1 v2 refuses its plan: CudaDetectVPU's route) with its launches
     inp = event._marginalise_inputs
     detector = scan._locate_detector  # pass 1's, at the event's geometry
     check((detector.fsmp, detector.nsamples) == (inp["fsmp"],
                                                  inp["nsamples"]),
           "archive_locate: pass 1's detector is not at the event's geometry")
     i0, i1 = event.trim_bounds
-    m1_ms = median_ms(lambda: detector.marginalise(
-        inp["onsets_log"], inp["inv_available"], i0, i1 - i0), 50)
+
+    def m1_v2_locate():
+        return detector.marginalise(inp["onsets_log"], inp["inv_available"],
+                                    i0, i1 - i0)
+
+    def m1_locate():
+        return m1_v1(detector, inp["onsets_log"], inp["inv_available"], i0,
+                     i1 - i0)
+
+    m1_equal = bool(torch.equal(m1_v2_locate(), m1_locate()))
+    check(m1_equal, "archive_locate: M1 v2 differs from M1 at the locate "
+          "window")
+    m1_turns = ekb.in_turns({"v2": m1_v2_locate, "v1": m1_locate}, 50)
     m1_plain_ms = median_ms(lambda: migrate_marginalise(
         inp["block"], tt_dev, inp["mask"], inp["available"], inp["fsmp"],
         inp["nsamples"], i0, i1 - i0), 3, turns=1, warmup=0)
+    tt = scan._traveltime_table()
     m1_bound = marginalise_bound(tt, i1 - i0)
+    m1_v2_bound = marginalise_bound(tt, i1 - i0, detector.base)
     k1_v2_ms = median_ms(lambda: detector.launch(inp["onsets_log"],
                                                  inp["inv_available"]), 50)
     k1_v2_bound = detect_bound(
         (inp["onsets_log"], detector.base, detector.fine16, detector.valid,
          inp["inv_available"], inp["fsmp"], inp["nsamples"]),
         detector.n_nodes)
-    print(f"archive_locate: M1 at the locate window ({i1 - i0} samples) "
-          f"{m1_ms:.4f} ms (plain {m1_plain_ms:.4f}; bound "
+    m1_v2_resources = {
+        "blocks_per_sm": cm.marginalise_v2_blocks_per_sm(
+            tt.shape[1], detector.tile, detector.win_floats, i1 - i0,
+            device),
+        **m1_resources(i1 - i0)}
+    print(f"archive_locate: at the locate window ({i1 - i0} samples) M1 v2 "
+          f"in turns {m1_turns['v2'][0]:.4f} / {m1_turns['v2'][1]:.4f} ms, "
+          f"M1 {m1_turns['v1'][0]:.4f} / {m1_turns['v1'][1]:.4f} ms, equal "
+          f"{m1_equal} (plain {m1_plain_ms:.4f}; bound M1 v2 "
+          f"{m1_v2_bound['bound_ms']:.4f} by {m1_v2_bound['bound_by']}, M1 "
           f"{m1_bound['bound_ms']:.4f} by {m1_bound['bound_by']}, gather "
-          f"floor {m1_bound['smem_bound_ms']:.4f}); K1 v2 at the locate "
-          f"window ({inp['nsamples']} samples) {k1_v2_ms:.4f} ms (bound "
-          f"{k1_v2_bound['bound_ms']:.4f}, gather floor "
-          f"{k1_v2_bound['smem_bound_ms']:.4f})")
+          f"floor {m1_bound['smem_bound_ms']:.4f}; M1 v2 {m1_v2_resources}); "
+          f"K1 v2 at the locate window ({inp['nsamples']} samples) "
+          f"{k1_v2_ms:.4f} ms (bound {k1_v2_bound['bound_ms']:.4f}, gather "
+          f"floor {k1_v2_bound['smem_bound_ms']:.4f})")
+
+    fsmp, nsamples, lsmp = DETECT_WINDOW
+    m1_detect = m1_setup(tt, tuple(lut.node_count), fsmp, nsamples, lsmp,
+                         np.random.default_rng(2033), device,
+                         scan._detect_route())
+    m1_windows = {
+        name: m1_case(name, m1_detect, window, reps=reps)
+        for name, window, reps in (
+            ("one chunk", (700, cm.M1_V2_CHUNK), 20),
+            ("three chunks", (37, 300), 20),
+            ("detect window", (0, nsamples), 5))}
+    del m1_detect
+    torch.cuda.synchronize()
+    cm.reset_launches()
+    f1 = m1_case("f1", m1_setup(f1_route[0], NODE_COUNT, FSMP, NSAMPLES,
+                                LSMP, np.random.default_rng(2032), device,
+                                f1_route[1]), (100, 30))
+    torch.cuda.synchronize()
+    f1["launches"] = dict(cm.launches)
+    check(f1["route"] == "k2_v2" and f1["launches"]["migrate_marginalise"] > 0
+          and all(n == 0 for k, n in f1["launches"].items()
+                  if k != "migrate_marginalise"),
+          f"m1 f1: route {f1['route']}, launches {f1['launches']}")
     return {
         "trigger_s": trigger_s, "locate_s": locate_s,
         "coa_n_peak": float(coa_n[peak]),
@@ -1465,9 +1590,12 @@ def archive_locate_path(device, root, detect, planted, origin, start, end,
         "pick_residuals_s": residuals, "event_split_s": cold_split,
         "locate_warm_s": warm_s, "event_split_warm_s": warm_split,
         "window": [inp["fsmp"], inp["nsamples"]], "marginal_window": [i0, i1],
-        "m1_ms": m1_ms, "m1_plain_ms": m1_plain_ms, **m1_bound,
+        "m1_v2_ms": float(np.mean(m1_turns["v2"])),
+        "m1_ms": float(np.mean(m1_turns["v1"])), "m1_turns_ms": m1_turns,
+        "m1_equal": m1_equal, "m1_v2_resources": m1_v2_resources,
+        "m1_plain_ms": m1_plain_ms, **m1_bound, "m1_v2_bound": m1_v2_bound,
         "k1_v2_ms": k1_v2_ms, "k1_v2_bound": k1_v2_bound,
-        "m1_f1": f1, "m1_detect_window": window_2038,
+        "m1_f1": f1, "m1_windows": m1_windows,
     }
 
 
@@ -2275,10 +2403,10 @@ def main():
 
     launches, windows, results, planted_ijk = run_slice(tt, rng, device)
     vpu_launches = run_vpu_path(tt, windows, results, planted_ijk, device)
-    f1_launches, f1_record, f1_plan = f1_path(device)
+    f1_launches, f1_record, f1_route = f1_path(device)
     archive_launches, archive_record, locate_record = archive_detect_path(
-        device, f1_plan)
-    del f1_plan
+        device, f1_route)
+    del f1_route
 
     checks = breakdown_checks(device)
     s_day = ekb.setup(device=device)
@@ -2736,12 +2864,12 @@ def main():
         "route": "cuda",
         "source": "quakemigrate_torch/csrc/migrate_marginalise.cu",
         "replaces": "quakemigrate_tpu/ops/migrate.py:291",
-        # the main path: QuakeScan.locate over the archive (archive_locate)
-        "launches": locate_record["launches"]["migrate_marginalise"],
-        "max_abs_err": max(locate_record["vs_plain"]["m1_abs"],
-                           locate_record["m1_f1"]["max_abs_err"],
-                           locate_record["m1_detect_window"]["max_abs_err"]),
-        "max_err_of_max": locate_record["vs_plain"]["m1"],
+        # the k2_v2 route's pass 2 (CudaDetectVPU.marginalise, F1's
+        # geometry); on the main path (archive_locate, route k1_v2) it
+        # launches no time, and is timed in turns beside M1 v2
+        "launches": locate_record["m1_f1"]["launches"]["migrate_marginalise"],
+        "locate_launches": locate_record["launches"]["migrate_marginalise"],
+        "max_abs_err": locate_record["m1_f1"]["max_abs_err"],
         "ms": locate_record["m1_ms"],
         "plain_ms": locate_record["m1_plain_ms"],
         "bound_ms": locate_record["bound_ms"],
@@ -2750,10 +2878,34 @@ def main():
         "library_ms": None,
         "window": locate_record["marginal_window"],
         "f1": locate_record["m1_f1"],
-        "detect_window": locate_record["m1_detect_window"],
+        "windows_ms": {name: r["v1_ms"] for name, r in
+                       locate_record["m1_windows"].items()},
+    }, {
+        "name": "migrate_marginalise_v2",
+        "route": "cuda",
+        "source": "quakemigrate_torch/csrc/migrate_marginalise_v2.cu",
+        "replaces": "quakemigrate_tpu/ops/migrate.py:291",
+        # the main path: QuakeScan.locate over the archive (archive_locate)
+        "launches": locate_record["launches"]["migrate_marginalise_v2"],
+        "max_abs_err": max([locate_record["vs_plain"]["m1_abs"]] + [
+            r["max_abs_err"] for r in locate_record["m1_windows"].values()]),
+        "max_err_of_max": locate_record["vs_plain"]["m1"],
+        "ms": locate_record["m1_v2_ms"],
+        "v1_ms": locate_record["m1_ms"],
+        "turns_ms": locate_record["m1_turns_ms"],
+        "equal_to_v1": locate_record["m1_equal"],
+        "plain_ms": locate_record["m1_plain_ms"],
+        # its own inputs: int16 residuals and base (M1's int32 bound is
+        # in M1's entry)
+        **locate_record["m1_v2_bound"],
+        "library_ms": None,
+        **locate_record["m1_v2_resources"],
+        "window": locate_record["marginal_window"],
+        "windows": locate_record["m1_windows"],
         "archive_locate": {k: v for k, v in locate_record.items() if k not in (
-            "m1_f1", "m1_detect_window", "m1_ms", "m1_plain_ms", "bound_ms",
-            "bound_by", "smem_bound_ms")},
+            "m1_f1", "m1_windows", "m1_ms", "m1_v2_ms", "m1_turns_ms",
+            "m1_equal", "m1_v2_resources", "m1_plain_ms", "bound_ms",
+            "bound_by", "smem_bound_ms", "m1_v2_bound")},
     }]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']}: no launch on its path")

@@ -131,6 +131,12 @@ SIGNATURES = {
     "qm_migrate_marginalise": (
         [_VOID_P, _INT] + [_VOID_P] * 7 + [_INT] * 7 + [_VOID_P]
     ),
+    # L, t_len, base, fine16, valid, perm, inv_available, span_off, out,
+    # partial, partial_rows, n_nodes, O, tiles, tile, col0, len,
+    # win_floats, stream
+    "qm_migrate_marginalise_v2": (
+        [_VOID_P, _INT] + [_VOID_P] * 8 + [_INT] * 8 + [_VOID_P]
+    ),
     # occupancy queries: (O, r_span), (O, tile, win_floats) and
     # (O, r_span, layout)
     "qm_migrate_detect_blocks_per_sm": [_INT] * 2,
@@ -147,6 +153,8 @@ SIGNATURES = {
     # (O, a_sum, a_max, fuse) and (a_sum)
     "qm_migrate_detect_x16g_blocks_per_sm": [_INT] * 4,
     "qm_migrate_detect_x16g_v2_blocks_per_sm": [_INT],
+    # (O, tile, win_floats, len)
+    "qm_migrate_marginalise_v2_blocks_per_sm": [_INT] * 4,
     # err; returns a C string
     "qm_error_string": [_INT],
 }

@@ -42,11 +42,16 @@
 //   partial table, whose rows a second kernel adds in chunk order.
 // It reads the onset rows from global memory (no shared-memory slab, no
 // int16 table), so it takes every plan pass 1 can run, whatever the
-// onset count or residual span. Its fast form, an epilogue of K1 v2's
-// gather core on its uint16 slab (the onsets from a shared window, several
-// nodes a warp in flight), is for a later change.
+// onset count or residual span. Its fast form, M1 v2
+// (migrate_marginalise_v2.cu: K1 v2's gather core on its uint16 slab,
+// the onsets from shared windows, several nodes a warp in flight), is
+// locate's pass 2 on K1 v2's route; M1 stays for the plans K1 v2 refuses
+// (CudaDetectVPU's route) and as M1 v2's yardstick, equal to it bit for
+// bit at windows of up to 128 samples.
 
 #include <cuda_runtime.h>
+
+#include "marginalise_chunks.cuh"
 
 #define QM1_WARPS 8
 #define QM1_THREADS (32 * QM1_WARPS)
@@ -119,19 +124,6 @@ qm_migrate_marginalise_kernel(const float* __restrict__ L, int t_len,
     }
     if (lane == 0) dst_c[perm[(long long)tile_i * tile + n]] = total;
   }
-}
-
-// out[n] = the sum of partial[c, n] over the chunks c, in chunk order
-__global__ void qm_marginalise_sum_chunks_kernel(
-    const float* __restrict__ partial, int n_chunks, int n_nodes,
-    float* __restrict__ out) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= n_nodes) return;
-  float total = 0.0f;
-  for (int c = 0; c < n_chunks; ++c) {
-    total += partial[(long long)c * n_nodes + n];
-  }
-  out[n] = total;
 }
 
 // L: f32 [n_onsets, t_len]; base: int32 [n_tiles, n_onsets]; fine: int32

@@ -7,7 +7,8 @@ the card's shared-memory pipe), ``csrc/migrate_detect_vpu.cu`` (K2) and
 ``csrc/migrate_detect_vpu_v2.cu`` (K2 v2, K2 on an mbarrier ring), their
 plain PyTorch versions, and the cross-tile combine; and the wrapper of
 ``csrc/migrate_marginalise.cu`` (M1, locate's marginalisation on the same
-plan), whose plain version is ``ops.migrate.migrate_marginalise``.
+plan) and ``csrc/migrate_marginalise_v2.cu`` (M1 v2, M1 on K1 v2's
+tables), whose plain version is ``ops.migrate.migrate_marginalise``.
 
 Counterpart of quakemigrate_tpu.ops.pallas_migrate: ``CudaDetect`` of
 ``PallasDetectMXU`` (kernel ``_mxu_detect_kernel``), ``CudaDetectVPU`` of
@@ -76,14 +77,22 @@ TMA_MAX_BOX = 256
 # QM1_CHUNK, 32 lanes x QM1_SPL); a longer window is split into chunks.
 M1_CHUNK = 256
 
+# M1 v2 (csrc/migrate_marginalise_v2.cu): the window samples a block takes
+# (QM2_CHUNK, K1 v2's sample block), and per samples a lane adds a node
+# (1, 2 or 4: :func:`m1_v2_slots`) the nodes a warp gathers together
+# (qm2_kernel's shapes, the fastest of a sweep on the H100 at the
+# Icequake plan).
+M1_V2_CHUNK = SBLK
+M1_V2_NODES_IN_FLIGHT = {1: 4, 2: 4, 4: 2}
+
 # Largest residual span of the int16 residual table ``DetectPlan.fine16``
 FINE16_MAX_SPAN = np.iinfo(np.int16).max
 
-# Launches of K1, K1 v2, K2, K2 v2 and M1, counted by their wrappers where
-# they launch
+# Launches of K1, K1 v2, K2, K2 v2, M1 and M1 v2, counted by their
+# wrappers where they launch
 launches = {"migrate_detect": 0, "migrate_detect_v2": 0,
             "migrate_detect_vpu": 0, "migrate_detect_vpu_v2": 0,
-            "migrate_marginalise": 0}
+            "migrate_marginalise": 0, "migrate_marginalise_v2": 0}
 
 
 def reset_launches():
@@ -610,6 +619,22 @@ def v2_smem(n_onsets, tile, win_floats):
     return v2_smem_bytes(n_onsets, tile, win_floats)
 
 
+def _check_span_off(span_off, win_floats, n_onsets, device):
+    """Raise unless ``span_off`` is K1 v2's int32 [O + 1] window offsets
+    on ``device`` and ``win_floats`` leaves each onset's window at least
+    SBLK + 1 floats."""
+
+    if (span_off.device != device or span_off.dtype != torch.int32
+            or span_off.shape != (n_onsets + 1,)
+            or not span_off.is_contiguous()):
+        raise ValueError(
+            f"span_off must be a contiguous int32 [{n_onsets + 1}] tensor "
+            f"on {device}"
+        )
+    if win_floats < n_onsets * (SBLK + 1):
+        raise ValueError(f"win_floats ({win_floats}) is too small")
+
+
 def launch_v2(entry, onsets_log, base, fine16, valid, inv_available, fsmp,
               nsamples, span_off, win_floats, *extra):
     """
@@ -630,15 +655,7 @@ def launch_v2(entry, onsets_log, base, fine16, valid, inv_available, fsmp,
         raise ValueError(f"tile ({tile}) must be a multiple of {2 * NWARPS}")
     if nsamples < 1:
         raise ValueError(f"bad geometry: nsamples {nsamples}")
-    if (span_off.device != onsets_log.device or span_off.dtype != torch.int32
-            or span_off.shape != (n_onsets + 1,)
-            or not span_off.is_contiguous()):
-        raise ValueError(
-            f"span_off must be a contiguous int32 [{n_onsets + 1}] tensor "
-            f"on {onsets_log.device}"
-        )
-    if win_floats < n_onsets * (SBLK + 1):
-        raise ValueError(f"win_floats ({win_floats}) is too small")
+    _check_span_off(span_off, win_floats, n_onsets, onsets_log.device)
     v2_smem(n_onsets, tile, win_floats)
 
     outs = empty_outputs(n_tiles, nsamples, onsets_log.device)
@@ -676,6 +693,112 @@ def detect_v2_blocks_per_sm(n_onsets, tile, win_floats, device):
 
     return blocks_per_sm("qm_migrate_detect_v2_blocks_per_sm", device,
                          n_onsets, tile, win_floats)
+
+
+def m1_v2_slots(window_length):
+    """Samples a lane of M1 v2 adds a node at this window length: 1, 2
+    or 4, the fewest that cover the chunk width min(window_length,
+    M1_V2_CHUNK) at 32 lanes."""
+
+    width = min(window_length, M1_V2_CHUNK)
+    return 1 if width <= 32 else 2 if width <= 64 else 4
+
+
+def m1_v2_win_floats(n_onsets, win_floats, window_length):
+    """Floats of one M1 v2 block's windows and the zeros after them: K1
+    v2's ``win_floats`` (each onset's window r_spans[o] + SBLK floats)
+    with each window cut to r_spans[o] + the chunk width, plus the 32
+    slots - width floats the lanes past the width read."""
+
+    width = min(window_length, M1_V2_CHUNK)
+    return (win_floats - n_onsets * (M1_V2_CHUNK - width)
+            + 32 * m1_v2_slots(window_length) - width)
+
+
+def m1_v2_smem_bytes(n_onsets, tile, win_floats, window_length):
+    """Shared-memory bytes of one M1 v2 block
+    (``csrc/migrate_marginalise_v2.cu``): the window offsets (O + 1
+    ints, rounded up to 4), ``valid`` (tile floats), the
+    uint16 slab (tile x O rounded up to 8) and the windows
+    (:func:`m1_v2_win_floats`). Never more than K1 v2's at the same plan
+    (:func:`v2_smem_bytes`)."""
+
+    return (4 * (round_up(n_onsets + 1, 4) + tile)
+            + 2 * tile * round_up(n_onsets, 8)
+            + 4 * m1_v2_win_floats(n_onsets, win_floats, window_length))
+
+
+def migrate_marginalise_v2_cuda(onsets_log, base, fine16, valid, perm,
+                                inv_available, span_off, win_floats, fsmp,
+                                nsamples, window_start, window_length,
+                                n_nodes, max_shift):
+    """
+    Launch M1 v2 (``csrc/migrate_marginalise_v2.cu``) on tensors on the
+    card: M1's function (:func:`migrate_marginalise_cuda`), the
+    coalescence of every real node of the plan summed over the scan
+    samples ``[window_start, window_start + window_length)``, f32
+    [n_nodes] in flat node order, from K1 v2's tables of a
+    :class:`DetectPlan`: the node-major int16 residuals ``fine16``, the
+    window offsets ``span_off`` (int32 [O + 1] on the card) and
+    ``win_floats = span_off[-1]``. A window longer than ``M1_V2_CHUNK``
+    samples is split into chunks whose sums are added in chunk order; a
+    window of one chunk gives M1's result bit for bit. Raises on a plan without ``fine16``, on one whose tile is not a
+    multiple of 16 (as K1 v2) or whose block exceeds the shared memory
+    (:func:`m1_v2_smem_bytes`), on a window outside the scan,
+    on an onset block too short for the plan and on CPU tensors; the
+    plain version is
+    :func:`quakemigrate_torch.ops.migrate.migrate_marginalise`. The launch
+    is asynchronous on the current stream.
+
+    """
+
+    if fine16 is None:
+        raise ValueError(
+            "the plan has no int16 residual table fine16 (its residual span "
+            f"exceeds {FINE16_MAX_SPAN}); M1 v2 cannot take it")
+    n_onsets, t_len, n_tiles, tile = check_kernel_args(
+        onsets_log, base, fine16, valid, inv_available, node_major=True
+    )
+    if tile % (2 * NWARPS):
+        raise ValueError(f"tile ({tile}) must be a multiple of {2 * NWARPS}")
+    _check_span_off(span_off, win_floats, n_onsets, onsets_log.device)
+    if (perm.device != onsets_log.device or perm.dtype != torch.int32
+            or perm.shape != (n_tiles * tile,) or not perm.is_contiguous()):
+        raise ValueError(f"perm must be a contiguous int32 [{n_tiles * tile}] "
+                         f"tensor on {onsets_log.device}")
+    if not (0 <= window_start and 0 <= window_length
+            and window_start + window_length <= nsamples):
+        raise ValueError(
+            f"window [{window_start}, {window_start + window_length}) is not "
+            f"inside the {nsamples} scan samples"
+        )
+    check_smem(m1_v2_smem_bytes(n_onsets, tile, win_floats, window_length),
+               f"M1 v2's residual slab ({tile} x {n_onsets}) and windows")
+    _check_onset_length(onsets_log, fsmp, nsamples, max_shift)
+    out = torch.empty(n_nodes, dtype=torch.float32, device=onsets_log.device)
+    n_chunks = max(1, -(-window_length // M1_V2_CHUNK))
+    partial = (torch.empty((n_chunks, n_nodes), dtype=torch.float32,
+                           device=onsets_log.device) if n_chunks > 1
+               else None)
+    launch_kernel(
+        "qm_migrate_marginalise_v2", onsets_log.device,
+        onsets_log.data_ptr(), t_len, base.data_ptr(), fine16.data_ptr(),
+        valid.data_ptr(), perm.data_ptr(), inv_available.data_ptr(),
+        span_off.data_ptr(), out.data_ptr(),
+        None if partial is None else partial.data_ptr(), n_chunks, n_nodes,
+        n_onsets, n_tiles, tile, fsmp + window_start, window_length,
+        win_floats,
+    )
+    launches["migrate_marginalise_v2"] += 1
+    return out
+
+
+def marginalise_v2_blocks_per_sm(n_onsets, tile, win_floats, window_length,
+                                 device):
+    """Resident blocks per SM of M1 v2 at a plan and window length."""
+
+    return blocks_per_sm("qm_migrate_marginalise_v2_blocks_per_sm", device,
+                         n_onsets, tile, win_floats, window_length)
 
 
 def migrate_detect_vpu_cuda(onsets_log, base, fine, valid, inv_available,
@@ -977,7 +1100,8 @@ class CudaDetect:
     (:func:`migrate_detect_v2_cuda`, which raises on a plan it cannot
     take: :func:`v2_refusal`), and ``launches`` counts it; for onsets on
     the CPU the plain version (:func:`detect_reduce_plan_reference`)
-    runs.
+    runs. :meth:`marginalise`, locate's pass 2, runs M1 v2 on the same
+    tables.
 
     """
 
@@ -1042,15 +1166,17 @@ class CudaDetect:
 
     def marginalise(self, onsets_log, inv_available, window_start,
                     window_length):
-        """M1 on the plan (:func:`migrate_marginalise_cuda`) for prepared
-        onsets on the card: the coalescence of every node summed over the
-        scan samples ``[window_start, window_start + window_length)``, f32
-        [n_nodes] in flat node order. Raises on CPU tensors."""
+        """M1 v2 on the plan (:func:`migrate_marginalise_v2_cuda`, K1 v2's
+        tables) for prepared onsets on the card: the coalescence of every
+        node summed over the scan samples ``[window_start, window_start +
+        window_length)``, f32 [n_nodes] in flat node order. Raises on CPU
+        tensors."""
 
-        return migrate_marginalise_cuda(
-            onsets_log, self.base, self.fine, self.valid, self.perm,
-            inv_available, self.fsmp, self.nsamples, window_start,
-            window_length, self.n_nodes, self._max_shift,
+        return migrate_marginalise_v2_cuda(
+            onsets_log, self.base, self.fine16, self.valid, self.perm,
+            inv_available, self.span_off, self.win_floats, self.fsmp,
+            self.nsamples, window_start, window_length, self.n_nodes,
+            self._max_shift,
         )
 
     def reduce_log(self, onsets_log, inv_available):
@@ -1099,6 +1225,8 @@ class CudaDetectVPU(CudaDetect):
     onsets take K2 v2's plain version (:func:`vpu_v2_reference`) and
     count no launch. K2 (:func:`migrate_detect_vpu_cuda`) stays callable
     on the same plan (``fine``, ``r_span``) as K2 v2's yardstick.
+    :meth:`marginalise` runs M1 on the plan's int32 ``fine``, as this is
+    the route of plans that K1 v2, and so M1 v2, cannot stage.
 
     """
 
@@ -1132,6 +1260,18 @@ class CudaDetectVPU(CudaDetect):
         return self.kernel(
             onsets_log, self.base, self.valid, inv_available, self.fsmp,
             self.nsamples, self.tables, self.n_stages,
+        )
+
+    def marginalise(self, onsets_log, inv_available, window_start,
+                    window_length):
+        """M1 on the plan (:func:`migrate_marginalise_cuda`, the int32
+        residuals ``fine``): the route of plans K1 v2, and so M1 v2,
+        cannot stage (:func:`v2_refusal`). Raises on CPU tensors."""
+
+        return migrate_marginalise_cuda(
+            onsets_log, self.base, self.fine, self.valid, self.perm,
+            inv_available, self.fsmp, self.nsamples, window_start,
+            window_length, self.n_nodes, self._max_shift,
         )
 
     def plain(self, onsets_log, inv_available):

@@ -181,7 +181,8 @@ def test_v2_wrappers_refuse_what_the_kernel_does_not_take():
                                      "migrate_detect_v2": 0,
                                      "migrate_detect_vpu": 0,
                                      "migrate_detect_vpu_v2": 0,
-                                     "migrate_marginalise": 0}
+                                     "migrate_marginalise": 0,
+                                     "migrate_marginalise_v2": 0}
     assert set(cb.launches.values()) == {0}
 
 
