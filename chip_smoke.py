@@ -66,7 +66,35 @@ Smoke run of quakemigrate_torch on one NVIDIA GPU.
    each held to the plain version and to M1 (bit for bit at one chunk)
    and timed in turns with it; and M1 at 128 stations x P/S (256
    onsets, a plan K1 v2 refuses, so CudaDetectVPU's route), held to its
-   plain version, its launches counted.
+   plain version, its launches counted. Last, the map path: the same
+   event located again with write_coalescence=True (one M2 launch,
+   csrc/migrate_marginalise_v2.cu, and no other kernel; the .npy of
+   [nx, ny, nz, 61] read back, finite; the spline hypocentre within one
+   node of the two-pass run's), its per-event split printed.
+   vt_locate_mags: detect -> trigger -> locate with local magnitudes on
+   the card at the full width of the Volcanotectonic_Iceland example:
+   its 12 stations on its lcc grid at 0.5 km (58 x 57 x 37 nodes,
+   homogeneous vp 5.2, vs 2.921 km/s, the 3 km layer of its velocity
+   model: the port has no 1dsweep builder), 24 onsets at 50 Hz, 360 s of
+   synthetic STEIM2 with two planted events, a generated StationXML, and
+   the example's settings (env_squared STA/LTA, the trigger's region and
+   thresholds, response removal with pre_filt (0.05, 0.06, 30, 35) and
+   water level 60, its amplitude and magnitude parameters, marginal
+   window 1 s, raw and Wood-Anderson cut waveforms). Checks: the two
+   events triggered and located within one node; K1 v2 and M1 v2 once an
+   event, nothing else, no plain version on a CUDA tensor; a finite ML,
+   ML_Err and ML_r2 in each .event, its .amps and WA cut waveforms read
+   back; each ML equal, in its 3 written figures, to a locate of the same
+   events with device="cpu". Prints the per-event split with magnitudes.
+   map_path: M2 against the plain migrate_map on the card at the
+   Icequake locate window (61 samples, the Icequake plan) and the VT one
+   (201 samples, the VT plan): within 1e-5 of each value, its per-sample
+   max bit for bit K1 v2's tmax, its sum over a marginal window within
+   1e-6 of M1 v2's, its simple form (csrc/migrate_marginalise.cu) bit
+   for bit M2; M2, M1 v2 and K1 v2 timed in turns, the simple form, the
+   plain map and the map's copy back to a pinned buffer timed; then the
+   simple form on F1's route (256 onsets, CudaDetectVPU), held to the
+   plain map, its launches counted.
 5. The VPU-plan kernel (csrc/migrate_detect_vpu.cu) against its plain
    version on a small plan and at the Icequake grid (tile 512, bricks
    8 x 8 x 8), timed; then K2 v2 (csrc/migrate_detect_vpu_v2.cu, the
@@ -238,6 +266,27 @@ MAX_COA_N_RTOL = 1e-4
 # M1 against its plain version: sums of coalescence over the window in
 # other orders, within this share of the map's maximum
 M1_RTOL_OF_MAX = 1e-5
+# M2 against the plain migrate_map: the onsets summed in the same order,
+# the exp's ulps and the plain version's division by available in place
+# of the kernel's product with its inverse; and M2's sum over a marginal
+# window against M1 v2's, the same values added in another order
+MAP_RTOL = 1e-5
+MAP_SUM_RTOL = 1e-6
+# vt_locate_mags: the Volcanotectonic_Iceland example's inputs and a
+# synthetic archive of VT_SPAN_S seconds from VT_START, VT_N_EVENTS
+# sources VT_SPACING_S apart at the grid fractions VT_PLANTED, detected
+# over VT_DETECT_SPAN_S seconds from VT_START + VT_DETECT_OFFSET_S
+VT_DIR = (pathlib.Path(__file__).resolve().parent / "examples"
+          / "Volcanotectonic_Iceland")
+VT_RATE = 50
+VT_VP, VT_VS = 5.2, 2.921
+VT_START = "2014-08-24T00:01:00.0"
+VT_SPAN_S, VT_SPACING_S, VT_N_EVENTS = 360.0, 60.0, 2
+VT_PLANTED = ((0.45, 0.55, 0.45), (0.6, 0.4, 0.55))
+VT_DETECT_OFFSET_S, VT_DETECT_SPAN_S, VT_TIMESTEP = 60.0, 240.0, 60.0
+VT_WAVELET_HZ, VT_MAGNITUDE = 5.0, 2.0
+# Counts per m/s of the generated inventory's channels
+VT_SENSITIVITY = 1.0e9
 
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): HBM3
 # bandwidth, float32 rate outside the tensor cores, and shared-memory
@@ -1282,6 +1331,7 @@ class NoPlainOnCuda:
 
         self.targets = [(scan_module, "migrate_detect"),
                         (scan_module, "migrate_marginalise"),
+                        (scan_module, "migrate_map"),
                         (cm, "detect_reduce_plan_reference"),
                         (cm, "vpu_v2_reference")]
 
@@ -1577,6 +1627,54 @@ def archive_locate_path(device, root, detect, planted, origin, start, end,
           and all(n == 0 for k, n in f1["launches"].items()
                   if k != "migrate_marginalise"),
           f"m1 f1: route {f1['route']}, launches {f1['launches']}")
+
+    # The map path: the same events located again with write_coalescence,
+    # the map built by M2 on K1 v2's route, pass 1 taken from it
+    trigger_file = (run.path / "trigger" / "events"
+                    / f"{run_name}_{start.year}_{start.julday:03d}"
+                    "_TriggeredEvents.csv")
+    map_scan = QuakeScan(detect.archive, lut, onset, str(runs), "map_path",
+                         device=device, picker=picker,
+                         marginal_window=LOCATE_MARGINAL_WINDOW,
+                         write_coalescence=True)
+    map_seen = []
+    map_scan.on_event = lambda event, pass1, handle: map_seen.append(
+        (event, handle))
+    torch.cuda.synchronize()
+    cm.reset_launches()
+    with NoPlainOnCuda():
+        _, map_s = quiet(root, "locate_map", lambda: map_scan.locate(
+            trigger_file=str(trigger_file)))
+    torch.cuda.synchronize()
+    map_launches = dict(cm.launches)
+    (map_event, map_handle), = map_seen
+    map_file = (runs / "map_path" / "locate" / "coalescence_maps"
+                / f"{map_event.uid}.npy")
+    map4d = np.load(map_file)
+    map_node = lut.index2coord([map_event.hypocentre], inverse=True)[0]
+    map_dist = int(np.abs(map_node - node).max())
+    map_split = {k: [row.get(k) for row in map_scan.locate_event_attrib]
+                 for k in ("read_wait", "onsets", "pass1", "map_write",
+                           "location", "picks", "writes")}
+    print(f"map_path: QuakeScan.locate(write_coalescence=True) {map_s:.3f} s "
+          f"wall, route {map_scan.locate_route}, launches {map_launches}; "
+          f".npy {map4d.shape} {map4d.dtype}; spline node "
+          f"{map_node.tolist()} against the two-pass run's {node.tolist()} "
+          f"({map_dist} nodes); per-event split, host s: {map_split}")
+    check(map_scan.locate_route == "k1_v2" and map_handle is None
+          and map_launches["migrate_map_v2"] == 1
+          and all(n == 0 for k, n in map_launches.items()
+                  if k != "migrate_map_v2"),
+          f"map_path: route {map_scan.locate_route}, launches {map_launches}")
+    check(map4d.shape == tuple(lut.node_count) + (inp["nsamples"],)
+          and bool(np.isfinite(map4d).all()) and map_dist <= 1,
+          f"map_path: .npy {map4d.shape}, {map_dist} nodes from the "
+          "two-pass location")
+    map_record = {"locate_s": map_s, "launches": map_launches,
+                  "npy_shape": list(map4d.shape), "spline_node":
+                  map_node.tolist(), "node_distance_two_pass": map_dist,
+                  "event_split_s": map_split}
+    del map4d
     return {
         "trigger_s": trigger_s, "locate_s": locate_s,
         "coa_n_peak": float(coa_n[peak]),
@@ -1595,8 +1693,501 @@ def archive_locate_path(device, root, detect, planted, origin, start, end,
         "m1_equal": m1_equal, "m1_v2_resources": m1_v2_resources,
         "m1_plain_ms": m1_plain_ms, **m1_bound, "m1_v2_bound": m1_v2_bound,
         "k1_v2_ms": k1_v2_ms, "k1_v2_bound": k1_v2_bound,
-        "m1_f1": f1, "m1_windows": m1_windows,
+        "m1_f1": f1, "m1_windows": m1_windows, "map": map_record,
+        # the example's plan and locate window, for map_path's kernel case
+        "map_geometry": {
+            "tt": tt, "node_count": NODE_COUNT, "fsmp": inp["fsmp"],
+            "nsamples": inp["nsamples"],
+            "lsmp": inp["block"].shape[-1] - inp["fsmp"] - inp["nsamples"]},
     }
+
+
+def map_bound(tt, nsamples, base):
+    """Bound of the map, migrate_map over ``nsamples`` scan samples for the
+    int32 [n_nodes, O] traveltimes ``tt``: the bytes M2's function must
+    move, each read or written once (the f32 [n_nodes, nsamples] map; the
+    plan's int16 residuals, 2 bytes a real node-onset, and its int32
+    ``base``; of each onset row the f32 columns the scan touches; the
+    mask), against O adds and three more operations (scale, exp, store) a
+    node and sample; and the floor of the gather, the n_nodes x O x
+    nsamples 4-byte reads at the shared-memory bandwidth. Also the output
+    alone over the memory rate, ``output_ms``."""
+
+    tt = np.asarray(tt)
+    n_nodes, n_onsets = tt.shape
+    columns = (tt.max(axis=0).astype(np.int64) - tt.min(axis=0) + nsamples)
+    out_bytes = 4 * n_nodes * nsamples
+    nbytes = (out_bytes + 2 * tt.size + base.numel() * base.element_size()
+              + 4 * (int(columns.sum()) + n_onsets))
+    bound_ms, bound_by = roofline(nbytes,
+                                  n_nodes * nsamples * (n_onsets + 3))
+    return {"bound_ms": bound_ms, "bound_by": bound_by,
+            "smem_bound_ms": (n_nodes * n_onsets * nsamples * 4
+                              / SMEM_BYTES_PER_S * 1e3),
+            "output_ms": out_bytes / HBM_BYTES_PER_S * 1e3,
+            "ops_ms": n_nodes * nsamples * (n_onsets + 3) / FP32_FLOP_PER_S
+            * 1e3}
+
+
+def copy_back_ms(tensor, reps=5):
+    """CUDA-event ms of one non-blocking copy of ``tensor`` into a pinned
+    host buffer (the map path's copy back), the median of ``reps``."""
+
+    host = torch.empty(tensor.shape, dtype=tensor.dtype, pin_memory=True)
+    times = []
+    for _ in range(reps + 1):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        host.copy_(tensor, non_blocking=True)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times[1:]))
+
+
+def map_case(name, s, window, reps=20):
+    """M2 on the setup ``s`` (:func:`m1_setup`) over its whole scan: the
+    route's kernel (M2 on K1 v2's route, its simple form on K2 v2's)
+    against the plain migrate_map on the card, within MAP_RTOL of each
+    value. On K1 v2's route also: the map's per-sample max bit for bit
+    K1 v2's tmax (combined over tiles); its sum over the marginal window
+    ``(start, length)`` within MAP_SUM_RTOL of M1 v2's; M2's simple form
+    on the same plan bit for bit M2; and M2, M1 v2 (at the window) and K1
+    v2 timed in turns (M2, M1 v2, K1 v2, K1 v2, M1 v2, M2), the simple form
+    alone. The plain map is timed once, and the map's copy back to a
+    pinned buffer. Returns a record."""
+
+    from quakemigrate_torch.experiments import exp_kernel_breakdown as ekb
+    from quakemigrate_torch.ops import cuda_migrate as cm
+    from quakemigrate_torch.ops.migrate import migrate_map
+
+    detector, (start, length) = s.detector, window
+    n_onsets = s.tt.shape[1]
+
+    def m2():
+        return detector.map(s.onsets_log, s.inv)
+
+    def plain():
+        return migrate_map(s.onsets, s.tt_dev, s.mask, float(n_onsets),
+                           s.fsmp, s.nsamples)
+
+    got, want = m2(), plain()
+    torch.cuda.synchronize()
+    rel = float(((got - want).abs() / want.abs()).max())
+    check(got.shape == (detector.n_nodes, s.nsamples)
+          and bool(torch.isfinite(got).all()) and rel <= MAP_RTOL,
+          f"map {name}: {rel} relative to the plain map")
+    record = {"route": s.route, "onsets": n_onsets, "nodes": detector.n_nodes,
+              "nsamples": s.nsamples, "max_rel_err": rel,
+              "max_abs_err": float((got - want).abs().max()),
+              "window": [start, length]}
+    if s.route == "k1_v2":
+        max_coa, _, _ = cm.combine_tiles(
+            *detector.launch(s.onsets_log, s.inv), detector.perm,
+            detector.tile)
+        max_equal = bool(torch.equal(got.max(dim=0).values, max_coa))
+        m1_v2 = detector.marginalise(s.onsets_log, s.inv, start, length)
+        sums = got[:, start:start + length].sum(dim=1)
+        sum_rel = float(((sums - m1_v2).abs() / m1_v2.abs()).max())
+        simple = cm.migrate_map_cuda(
+            s.onsets_log, detector.base, detector.fine, detector.valid,
+            detector.perm, s.inv, s.fsmp, s.nsamples, detector.n_nodes,
+            detector._max_shift)
+        simple_equal = bool(torch.equal(simple, got))
+        check(max_equal and sum_rel <= MAP_SUM_RTOL and simple_equal,
+              f"map {name}: max equal to K1 v2's tmax {max_equal}, window "
+              f"sum vs M1 v2 {sum_rel}, simple form equal {simple_equal}")
+        turns = ekb.in_turns({
+            "m2": m2,
+            "m1_v2": lambda: detector.marginalise(s.onsets_log, s.inv,
+                                                  start, length),
+            "k1_v2": lambda: detector.launch(s.onsets_log, s.inv)}, reps)
+        record.update(
+            ms=float(np.mean(turns["m2"])),
+            m1_v2_ms=float(np.mean(turns["m1_v2"])),
+            k1_v2_ms=float(np.mean(turns["k1_v2"])), turns_ms=turns,
+            max_equal_to_k1_v2=max_equal, window_sum_rel_err_m1_v2=sum_rel,
+            simple_equal=simple_equal,
+            simple_ms=median_ms(lambda: cm.migrate_map_cuda(
+                s.onsets_log, detector.base, detector.fine, detector.valid,
+                detector.perm, s.inv, s.fsmp, s.nsamples, detector.n_nodes,
+                detector._max_shift), reps))
+        del simple
+    else:
+        record["ms"] = median_ms(m2, reps)
+    record["plain_ms"] = median_ms(plain, 1, turns=1, warmup=0)
+    record["copy_back_ms"] = copy_back_ms(got)
+    record.update(map_bound(s.tt, s.nsamples, detector.base))
+    extra = (f"; in turns M1 v2 {record['m1_v2_ms']:.4f} ms at {length} "
+             f"samples, K1 v2 {record['k1_v2_ms']:.4f} ms; max bit for bit "
+             f"K1 v2's tmax {record['max_equal_to_k1_v2']}, window sum vs "
+             f"M1 v2 {record['window_sum_rel_err_m1_v2']:.2e}, simple form "
+             f"{record['simple_ms']:.4f} ms and equal "
+             f"{record['simple_equal']}" if s.route == "k1_v2" else "")
+    print(f"map {name}: route {s.route}, {n_onsets} onsets, "
+          f"{detector.n_nodes} nodes x {s.nsamples} samples: {record['ms']:.4f}"
+          f" ms (plain {record['plain_ms']:.4f}; bound "
+          f"{record['bound_ms']:.4f} by {record['bound_by']}: output "
+          f"{record['output_ms']:.4f}, operations {record['ops_ms']:.4f}; "
+          f"gather floor {record['smem_bound_ms']:.4f}); copy back "
+          f"{record['copy_back_ms']:.4f} ms; {rel:.2e} relative to the "
+          f"plain map{extra}")
+    del got, want
+    torch.cuda.empty_cache()
+    return record
+
+
+def map_kernel_path(device, icequake, f1_route, vt):
+    """The map_path phase's kernel cases: M2 against the plain migrate_map
+    at the Icequake example's locate window (61 samples, its plan and 26
+    onsets, archive_locate's geometry ``icequake``) and at the VT
+    example's (201 samples, the VT plan of vt_locate_mags, ``vt``), both
+    on K1 v2's route with seeded random onsets (:func:`map_case`; the
+    marginal windows of 30 and 100 samples); then M2's simple form on
+    F1's geometry (256 onsets on the Icequake grid, K2 v2's route:
+    CudaDetectVPU), its launches counted. Returns a record."""
+
+    from quakemigrate_torch.ops import cuda_migrate as cm
+    from quakemigrate_torch.signal.scan import detect_route
+
+    cases = {}
+    for name, g, window, seed in (("icequake", icequake, (15, 30), 2040),
+                                  ("vt", vt, (50, 100), 2041)):
+        s = m1_setup(g["tt"], g["node_count"], g["fsmp"], g["nsamples"],
+                     g["lsmp"], np.random.default_rng(seed), device,
+                     detect_route(g["tt"], g["node_count"], device))
+        cases[name] = map_case(name, s, window)
+        del s
+    torch.cuda.synchronize()
+    cm.reset_launches()
+    f1 = map_case("f1", m1_setup(f1_route[0], NODE_COUNT, FSMP, 61, LSMP,
+                                 np.random.default_rng(2042), device,
+                                 f1_route[1]), (10, 41), reps=5)
+    torch.cuda.synchronize()
+    f1["launches"] = dict(cm.launches)
+    check(f1["route"] == "k2_v2" and f1["launches"]["migrate_map"] > 0
+          and all(n == 0 for k, n in f1["launches"].items()
+                  if k != "migrate_map"),
+          f"map f1: route {f1['route']}, launches {f1['launches']}")
+    cases["f1"] = f1
+    return cases
+
+
+_VT_STATIONXML = """<?xml version="1.0" encoding="UTF-8"?>
+<FDSNStationXML xmlns="http://www.fdsn.org/xml/station/1" schemaVersion="1.1">
+  <Source>chip_smoke</Source>
+  <Created>2014-01-01T00:00:00</Created>
+  <Network code="SC">
+{stations}
+  </Network>
+</FDSNStationXML>
+"""
+
+_VT_CHANNEL = """      <Channel code="CH{comp}" locationCode="" startDate="2014-01-01T00:00:00">
+        <Latitude>{lat}</Latitude><Longitude>{lon}</Longitude>
+        <Elevation>{elev}</Elevation><Depth>0</Depth>
+        <SampleRate>{sps}</SampleRate>
+        <Response>
+          <InstrumentSensitivity>
+            <Value>{sensitivity}</Value><Frequency>5.0</Frequency>
+            <InputUnits><Name>M/S</Name></InputUnits>
+            <OutputUnits><Name>COUNTS</Name></OutputUnits>
+          </InstrumentSensitivity>
+          <Stage number="1">
+            <PolesZeros>
+              <InputUnits><Name>M/S</Name></InputUnits>
+              <OutputUnits><Name>V</Name></OutputUnits>
+              <PzTransferFunctionType>LAPLACE (RADIANS/SECOND)</PzTransferFunctionType>
+              <NormalizationFactor>1.0</NormalizationFactor>
+              <NormalizationFrequency>5.0</NormalizationFrequency>
+              <Zero number="0"><Real>0</Real><Imaginary>0</Imaginary></Zero>
+              <Zero number="1"><Real>0</Real><Imaginary>0</Imaginary></Zero>
+              <Pole number="0"><Real>-4.44</Real><Imaginary>4.44</Imaginary></Pole>
+              <Pole number="1"><Real>-4.44</Real><Imaginary>-4.44</Imaginary></Pole>
+            </PolesZeros>
+          </Stage>
+        </Response>
+      </Channel>"""
+
+
+def vt_stationxml(stations, path):
+    """A StationXML inventory of the VT stations' Z/N/E channels: a 2-pole
+    1 s velocity sensor of VT_SENSITIVITY counts per m/s."""
+
+    blocks = []
+    for row in stations.rows():
+        channels = "\n".join(_VT_CHANNEL.format(
+            comp=c, lat=row["Latitude"], lon=row["Longitude"],
+            elev=-row["Elevation"] * 1e3, sps=VT_RATE,
+            sensitivity=VT_SENSITIVITY) for c in "ZNE")
+        blocks.append(
+            f'    <Station code="{row["Name"]}">\n'
+            f"      <Latitude>{row['Latitude']}</Latitude>\n"
+            f"      <Longitude>{row['Longitude']}</Longitude>\n"
+            f"      <Elevation>{-row['Elevation'] * 1e3}</Elevation>\n"
+            f"{channels}\n    </Station>")
+    path.write_text(_VT_STATIONXML.format(stations="\n".join(blocks)))
+    return path
+
+
+def vt_workspace(root, spacing_km=0.5):
+    """vt_locate_mags' inputs, made with the port alone: the
+    Volcanotectonic_Iceland example's grid (dike_intrusion_lut.py: lcc,
+    0.5 km nodes) and its 12 stations, homogeneous traveltimes (VT_VP,
+    VT_VS: the 3 km layer of iceland_vmodel.txt; the port has no 1dsweep
+    builder), VT_N_EVENTS sources planted at grid nodes VT_SPACING_S
+    apart, VT_SPAN_S seconds of 50 Hz three-component synthetics in counts
+    (quakemigrate_torch.synthetics, noise on the amplitudes) written as a
+    YEAR/JD/STATION STEIM2 archive, and a generated StationXML. Returns
+    (lut, stations, archive path, response file, planted grid indices,
+    origin times)."""
+
+    from quakemigrate_torch.coords import Proj
+    from quakemigrate_torch.io import read_stations
+    from quakemigrate_torch.lut import compute_traveltimes
+    from quakemigrate_torch.seis import UTCDateTime
+    from quakemigrate_torch.synthetics import (
+        GaussianDerivativeWavelet,
+        simulate_waveforms,
+    )
+
+    stations = read_stations(VT_DIR / "inputs" / "iceland_stations.txt")
+    grid_spec = dict(
+        ll_corner=[-17.2, 64.7, -2.0], ur_corner=[-16.6, 64.95, 16.0],
+        node_spacing=[spacing_km] * 3,
+        grid_proj=Proj(proj="lcc", units="km", lon_0=-16.9, lat_0=64.8,
+                       lat_1=64.7, lat_2=64.9, datum="WGS84", ellps="WGS84",
+                       no_defs=True),
+        coord_proj=Proj(proj="longlat", datum="WGS84", ellps="WGS84",
+                        no_defs=True),
+    )
+    lut = compute_traveltimes(grid_spec, stations, method="homogeneous",
+                              phases=["P", "S"], vp=VT_VP, vs=VT_VS)
+    half = VT_SPAN_S / 2 - VT_SPACING_S * (VT_N_EVENTS - 1) / 2
+    wavelet = GaussianDerivativeWavelet(VT_WAVELET_HZ, VT_RATE, half)
+    rng = np.random.default_rng(2043)
+    planted, origins, total = [], [], {}
+    for k, fractions in enumerate(VT_PLANTED[:VT_N_EVENTS]):
+        node = tuple(int(n * f) for n, f in zip(lut.node_count, fractions))
+        start = UTCDateTime(VT_START) + k * VT_SPACING_S
+        stream = simulate_waveforms(
+            wavelet, lut.index2coord([node])[0], lut, magnitude=VT_MAGNITUDE,
+            angle_of_incidence=80,
+            noise={"traveltime": {"P": 0.0, "S": 0.0},
+                   "amplitude": {"P": 0.02, "S": 0.02}},
+            starttime=start, rng=rng)
+        offset = int(round(k * VT_SPACING_S * VT_RATE))
+        for tr in stream:
+            data = total.setdefault(tr.id, (tr, np.zeros(
+                int(round(VT_SPAN_S * VT_RATE)) + 1)))[1]
+            data[offset:offset + tr.stats.npts] += tr.data
+        planted.append(node)
+        origins.append(start + half + (int(VT_RATE * 0.5 / VT_WAVELET_HZ)
+                                       + 3) / VT_RATE)
+    archive = root / "mSEED"
+    for tr, data in total.values():
+        tr = tr.copy()
+        tr.stats.starttime = UTCDateTime(VT_START)
+        tr.data = np.round(data * 1e3).astype(np.int32)  # counts
+        day = tr.stats.starttime
+        folder = archive / str(day.year) / f"{day.julday:03d}"
+        folder.mkdir(parents=True, exist_ok=True)
+        tr.write(str(folder / f"{tr.stats.station}_{tr.stats.channel[-1]}.m"),
+                 format="MSEED", encoding="STEIM2")
+    return (lut, stations, archive, vt_stationxml(stations,
+                                                  root / "response.xml"),
+            np.array(planted), origins)
+
+
+def vt_locate_mags_path(device, spacing_km=0.5):
+    """vt_locate_mags: detect -> trigger -> locate with local magnitudes on
+    the card at the full width of the Volcanotectonic_Iceland example
+    (:func:`vt_workspace`), with the example's settings: detect with the
+    classic env_squared STA/LTA (bandpass [2, 16, 2], 0.2/1.0 s) at
+    timestep VT_TIMESTEP; trigger as dike_intrusion_trigger.py (marginal
+    window 0.75 s, minimum interval 1.5 s, static 1.85 on the normalised
+    trace, its region); locate as dike_intrusion_locate.py (centred
+    env_squared onsets, GaussianPicker, marginal window 1.0 s, the
+    Archive's response removal with pre_filt (0.05, 0.06, 30, 35) and
+    water level 60, amp_params and mag_params as the example:
+    Greenfield2018_bardarbunga, S_amp, trace filter .*H[NE]$, noise filter
+    3), raw and Wood-Anderson cut waveforms. Checks: the planted events,
+    and only they, triggered; each located within one node of its source;
+    K1 v2 and M1 v2 launched once an event, no other kernel and no plain
+    version on a CUDA tensor; each .event with a finite ML, ML_Err and
+    ML_r2 and its .amps and WA cut waveforms written; each ML equal, in
+    its 3 written significant figures, to a locate of the same events with
+    device="cpu". Prints the per-event split of locate_event_attrib, its
+    magnitudes key among them. Returns a record with the VT plan's
+    traveltimes and locate window for map_path."""
+
+    import tempfile
+
+    from quakemigrate_torch.io import (
+        Archive,
+        read_response_inv,
+        read_triggered_events,
+    )
+    from quakemigrate_torch.io.table import read_csv
+    from quakemigrate_torch.ops import cuda_migrate as cm
+    from quakemigrate_torch.seis import UTCDateTime, read
+    from quakemigrate_torch.signal import QuakeScan, Trigger
+    from quakemigrate_torch.signal.local_mag import LocalMag
+    from quakemigrate_torch.signal.onsets import STALTAOnset
+    from quakemigrate_torch.signal.pickers import GaussianPicker
+
+    def onset(position):
+        o = STALTAOnset(position=position, sampling_rate=VT_RATE,
+                        signal_transform="env_squared")
+        o.phases = ["P", "S"]
+        o.bandpass_filters = {"P": [2, 16, 2], "S": [2, 16, 2]}
+        o.sta_lta_windows = {"P": [0.2, 1.0], "S": [0.2, 1.0]}
+        return o
+
+    record = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        lut, stations, archive_path, response_file, planted, origins = (
+            vt_workspace(root, spacing_km))
+        record["workspace_s"] = time.perf_counter() - t0
+        inventory = read_response_inv(str(response_file))
+        archive = Archive(
+            archive_path, stations, archive_format="YEAR/JD/STATION",
+            response_inv=inventory,
+            response_removal_params={"pre_filt": (0.05, 0.06, 30, 35),
+                                     "water_level": 60.0})
+        runs, run_name = root / "runs", "vt"
+        start = UTCDateTime(VT_START) + VT_DETECT_OFFSET_S
+        end = start + VT_DETECT_SPAN_S
+        scan = QuakeScan(archive, lut, onset("classic"), str(runs), run_name,
+                         device=device, timestep=VT_TIMESTEP)
+        torch.cuda.synchronize()
+        cm.reset_launches()
+        _, detect_s = quiet(root, "detect", lambda: scan.detect(start, end))
+        detect_launches = dict(cm.launches)
+        trig = Trigger(lut, run_path=str(runs), run_name=run_name,
+                       marginal_window=0.75, min_event_interval=1.5,
+                       normalise_coalescence=True, threshold_method="static",
+                       static_threshold=1.85)
+        _, trigger_s = quiet(root, "trigger", lambda: trig.trigger(
+            start, end, region=[-17.15, 64.72, 0.0, -16.65, 64.93, 14.0]))
+        events = read_triggered_events(scan.run, starttime=start,
+                                       endtime=end)
+        times = [str(t) for t in events["CoaTime"]]
+        print(f"vt_locate_mags: grid {lut.node_count.tolist()} "
+              f"({int(np.prod(lut.node_count))} nodes), "
+              f"{len(lut.station_data['Name'])} stations x P/S at "
+              f"{VT_RATE} Hz; workspace {record['workspace_s']:.3f} s, "
+              f"detect {detect_s:.3f} s (launches {detect_launches}), trigger "
+              f"{trigger_s:.3f} s; {len(events)} event(s) triggered: {times}; "
+              f"planted origins {[str(o) for o in origins]}")
+        check(len(events) == len(origins) and all(
+            abs(t - o) < 1.0 for t, o in zip(events["CoaTime"], origins)),
+            f"vt_locate_mags: triggered {times} for {origins}")
+        trigger_file = (runs / run_name / "trigger" / "events"
+                        / f"{run_name}_{start.year}_{start.julday:03d}"
+                        "_TriggeredEvents.csv")
+
+        def locate(dev, name):
+            picker_onset = onset("centred")
+            mags = LocalMag(
+                amp_params={"signal_window": 1.0, "noise_window": 5.0,
+                            "noise_measure": "ENV", "bandpass_filter": True,
+                            "bandpass_lowcut": 2.0, "bandpass_highcut": 20.0,
+                            "filter_corners": 4},
+                mag_params={"A0": "Greenfield2018_bardarbunga",
+                            "use_hyp_dist": True, "amp_feature": "S_amp",
+                            "trace_filter": ".*H[NE]$", "noise_filter": 3.0},
+                plot_amplitudes=True)
+            loc = QuakeScan(archive, lut, picker_onset, str(runs), name,
+                            device=dev,
+                            picker=GaussianPicker(onset=picker_onset),
+                            mags=mags, marginal_window=1.0,
+                            write_cut_waveforms=True,
+                            write_wa_waveforms=True)
+            seen = []
+            loc.on_event = lambda event, pass1, handle: seen.append(event)
+            torch.cuda.synchronize()
+            cm.reset_launches()
+            with NoPlainOnCuda():
+                _, wall = quiet(root, f"locate_{name}", lambda: loc.locate(
+                    trigger_file=str(trigger_file)))
+            torch.cuda.synchronize()
+            return loc, seen, wall, dict(cm.launches)
+
+        loc, seen, locate_s, launches = locate(device, "vt_card")
+        n = len(seen)
+        print(f"vt_locate_mags: locate on the card {locate_s:.3f} s wall, "
+              f"route {loc.locate_route}, {n} event(s), launches {launches}")
+        check(n == len(origins) and loc.locate_route == "k1_v2"
+              and launches["migrate_detect_v2"] == n
+              and launches["migrate_marginalise_v2"] == n
+              and all(v == 0 for k, v in launches.items() if k not in (
+                  "migrate_detect_v2", "migrate_marginalise_v2")),
+              f"vt_locate_mags: {n} events, route {loc.locate_route}, "
+              f"launches {launches}")
+        cpu, cpu_seen, cpu_s, _ = locate("cpu", "vt_cpu")
+        out, cpu_out = runs / "vt_card" / "locate", runs / "vt_cpu" / "locate"
+        results = []
+        for event in seen:
+            node = lut.index2coord([event.hypocentre], inverse=True)[0]
+            dists = [int(np.abs(node - p).max()) for p in planted]
+            header, rows = read_csv(out / "events" / f"{event.uid}.event")
+            row = dict(zip(header, rows[0]))
+            cpu_header, cpu_rows = read_csv(cpu_out / "events"
+                                            / f"{event.uid}.event")
+            cpu_row = dict(zip(cpu_header, cpu_rows[0]))
+            amps_header, amps = read_csv(out / "amplitudes"
+                                         / f"{event.uid}.amps")
+            wa = read(out / "wa_cut_waveforms" / f"{event.uid}.m")
+            ml = [row.get(k, "") for k in ("ML", "ML_Err", "ML_r2")]
+            finite = all(v != "" and np.isfinite(float(v)) for v in ml)
+            results.append({
+                "uid": event.uid, "node": node.tolist(),
+                "node_distance": min(dists), "ML": ml,
+                "ML_cpu": [cpu_row.get(k, "") for k in ("ML", "ML_Err",
+                                                        "ML_r2")],
+                "amps_rows": len(amps),
+                "ml_rows": sum(r[amps_header.index("ML")] != ""
+                               for r in amps),
+                "wa_traces": len(wa), "X": row["X"], "Y": row["Y"],
+                "Z": row["Z"], "X_cpu": cpu_row["X"],
+                "Y_cpu": cpu_row["Y"], "Z_cpu": cpu_row["Z"]})
+            print(f"vt_locate_mags {event.uid}: node {node.tolist()} "
+                  f"({min(dists)} nodes from the nearest planted source); "
+                  f"ML, ML_Err, ML_r2 {ml} (CPU run "
+                  f"{results[-1]['ML_cpu']}); X/Y/Z {row['X']} {row['Y']} "
+                  f"{row['Z']} (CPU run {cpu_row['X']} {cpu_row['Y']} "
+                  f"{cpu_row['Z']}); .amps {len(amps)} rows, "
+                  f"{results[-1]['ml_rows']} with an ML; {len(wa)} WA cut "
+                  f"traces")
+            check(min(dists) <= 1 and finite and row["ML"] == cpu_row["ML"]
+                  and len(amps) == 3 * len(stations) and len(wa) > 0,
+                  f"vt_locate_mags {event.uid}: {results[-1]}")
+
+        def split(scan_):
+            keys = sorted({k for r in scan_.locate_event_attrib for k in r})
+            return {k: [r.get(k) for r in scan_.locate_event_attrib]
+                    for k in keys}
+
+        record.update(
+            grid=lut.node_count.tolist(), onsets=2 * len(stations),
+            detect_s=detect_s, detect_launches=detect_launches,
+            trigger_s=trigger_s, locate_s=locate_s, locate_cpu_s=cpu_s,
+            launches=launches, events=results,
+            event_split_s=split(loc), event_split_cpu_s=split(cpu))
+        print(f"vt_locate_mags: per-event split, host s, card: "
+              f"{record['event_split_s']}; CPU ({cpu_s:.3f} s wall): "
+              f"{record['event_split_cpu_s']}")
+        inp = seen[0]._marginalise_inputs
+        record["map_geometry"] = {
+            "tt": loc._traveltime_table(),
+            "node_count": tuple(int(n) for n in lut.node_count),
+            "fsmp": inp["fsmp"], "nsamples": inp["nsamples"],
+            "lsmp": inp["block"].shape[-1] - inp["fsmp"] - inp["nsamples"]}
+    return record
 
 
 def scaled_err(got, ref):
@@ -2406,6 +2997,9 @@ def main():
     f1_launches, f1_record, f1_route = f1_path(device)
     archive_launches, archive_record, locate_record = archive_detect_path(
         device, f1_route)
+    vt_record = vt_locate_mags_path(device)
+    map_cases = map_kernel_path(device, locate_record.pop("map_geometry"),
+                                f1_route, vt_record.pop("map_geometry"))
     del f1_route
 
     checks = breakdown_checks(device)
@@ -2905,7 +3499,48 @@ def main():
         "archive_locate": {k: v for k, v in locate_record.items() if k not in (
             "m1_f1", "m1_windows", "m1_ms", "m1_v2_ms", "m1_turns_ms",
             "m1_equal", "m1_v2_resources", "m1_plain_ms", "bound_ms",
-            "bound_by", "smem_bound_ms", "m1_v2_bound")},
+            "bound_by", "smem_bound_ms", "m1_v2_bound", "map")},
+        "vt_locate_mags_launches": vt_record["launches"][
+            "migrate_marginalise_v2"],
+    }, {
+        "name": "migrate_map_v2",
+        "route": "cuda",
+        "source": "quakemigrate_torch/csrc/migrate_marginalise_v2.cu",
+        "replaces": "quakemigrate_tpu/ops/migrate.py:264",
+        # the main path: QuakeScan.locate(write_coalescence=True) over the
+        # archive (archive_locate's map path)
+        "launches": locate_record["map"]["launches"]["migrate_map_v2"],
+        "max_abs_err": max(map_cases[k]["max_abs_err"]
+                           for k in ("icequake", "vt")),
+        "max_rel_err": max(map_cases[k]["max_rel_err"]
+                           for k in ("icequake", "vt")),
+        **{k: map_cases["icequake"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "smem_bound_ms",
+            "output_ms", "ops_ms", "m1_v2_ms", "k1_v2_ms", "turns_ms",
+            "copy_back_ms", "nsamples", "max_equal_to_k1_v2",
+            "window_sum_rel_err_m1_v2")},
+        "library_ms": None,
+        "vt": map_cases["vt"],
+        "map_path": locate_record["map"],
+        "vt_locate_mags": vt_record,
+    }, {
+        "name": "migrate_map",
+        "route": "cuda",
+        "source": "quakemigrate_torch/csrc/migrate_marginalise.cu",
+        "replaces": "quakemigrate_tpu/ops/migrate.py:264",
+        # M2's simple form on the k2_v2 route (CudaDetectVPU.map, F1's
+        # geometry); timed beside M2 on the Icequake plan too
+        "launches": map_cases["f1"]["launches"]["migrate_map"],
+        "max_abs_err": map_cases["f1"]["max_abs_err"],
+        "max_rel_err": map_cases["f1"]["max_rel_err"],
+        **{k: map_cases["f1"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "smem_bound_ms",
+            "output_ms", "ops_ms", "copy_back_ms", "onsets", "nsamples")},
+        "library_ms": None,
+        "icequake_ms": map_cases["icequake"]["simple_ms"],
+        "vt_ms": map_cases["vt"]["simple_ms"],
+        "equal_to_m2": [map_cases[k]["simple_equal"]
+                        for k in ("icequake", "vt")],
     }]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']}: no launch on its path")

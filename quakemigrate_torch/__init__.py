@@ -17,8 +17,11 @@ the blocks through the fused onset front end, the migrate-and-reduce
 kernel and the normalisation, window after window. :class:`Trigger`
 thresholds the ``.scanmseed`` into TriggeredEvents files on the host.
 :meth:`QuakeScan.locate` re-migrates each triggered event's window on
-the card (the detect kernel, then the marginalisation kernel M1) and
-writes its ``.event`` and ``.picks`` files. :class:`CudaDetectVPU` is the
+the card (the detect kernel, then the marginalisation kernel M1 v2; or,
+to write the 4-D map, the map kernel M2) and writes its ``.event`` and
+``.picks`` files, and with a :class:`~quakemigrate_torch.signal.
+local_mag.LocalMag` its local magnitude and ``.amps`` file from
+response-corrected Wood-Anderson amplitudes (host code). :class:`CudaDetectVPU` is the
 counterpart of the JAX ``PallasDetect``; ``experiments/`` holds the
 kernel-breakdown probes.
 

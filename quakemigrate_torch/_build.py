@@ -137,6 +137,14 @@ SIGNATURES = {
     "qm_migrate_marginalise_v2": (
         [_VOID_P, _INT] + [_VOID_P] * 8 + [_INT] * 8 + [_VOID_P]
     ),
+    # L, t_len, base, fine, valid, perm, inv_available, map, O, tiles,
+    # tile, col0, S, stream
+    "qm_migrate_map": [_VOID_P, _INT] + [_VOID_P] * 6 + [_INT] * 5 + [_VOID_P],
+    # L, t_len, base, fine16, valid, perm, inv_available, span_off, map,
+    # O, tiles, tile, col0, S, win_floats, stream
+    "qm_migrate_map_v2": (
+        [_VOID_P, _INT] + [_VOID_P] * 7 + [_INT] * 6 + [_VOID_P]
+    ),
     # occupancy queries: (O, r_span), (O, tile, win_floats) and
     # (O, r_span, layout)
     "qm_migrate_detect_blocks_per_sm": [_INT] * 2,

@@ -1,5 +1,6 @@
 // Migration marginalised over a sample window, for locate's second pass:
-// M1.
+// M1. At the end of the file, the simple form of M2 (the coalescence map
+// of locate's map path) on M1's gather.
 //
 // Replaces the XLA function migrate_marginalise
 // (quakemigrate_tpu/ops/migrate.py:291), which has no Pallas kernel: it
@@ -60,6 +61,39 @@
 #define QM1_SPL 8
 #define QM1_CHUNK (32 * QM1_SPL)
 
+// Node n's onset sums for the lane's samples t_begin + lane + 32 k of the
+// chunk (k < nk, lane + 32 k < t_count): onsets in order o = 0..O-1, lane
+// j loading the column offset of onset c + j (the tile's column col[c + j]
+// plus the node's residual) for a chunk of 32 onsets and the warp passing
+// them round with __shfl_sync.
+__device__ __forceinline__ void qm1_gather(float (&acc)[QM1_SPL],
+                                           const float* __restrict__ L,
+                                           int t_len, const int* col,
+                                           const int* __restrict__ fine_i,
+                                           int tile, int n, int n_onsets,
+                                           int t_begin, int t_count, int nk,
+                                           int lane) {
+#pragma unroll
+  for (int k = 0; k < QM1_SPL; ++k) acc[k] = 0.0f;
+  for (int c = 0; c < n_onsets; c += 32) {
+    // Lane j's column offset of onset c + j, passed round the warp
+    const int mine = c + lane < n_onsets
+        ? col[c + lane] + fine_i[(long long)(c + lane) * tile + n]
+        : 0;
+    const int m = min(32, n_onsets - c);
+    const float* rows = L + (long long)c * t_len + t_begin + lane;
+#pragma unroll 8
+    for (int j = 0; j < m; ++j) {
+      const float* row =
+          rows + (long long)j * t_len + __shfl_sync(0xffffffffu, mine, j);
+#pragma unroll
+      for (int k = 0; k < QM1_SPL; ++k) {
+        if (k < nk && lane + 32 * k < t_count) acc[k] += row[32 * k];
+      }
+    }
+  }
+}
+
 __global__ void __launch_bounds__(QM1_THREADS)
 qm_migrate_marginalise_kernel(const float* __restrict__ L, int t_len,
                               const int* __restrict__ base,
@@ -94,25 +128,8 @@ qm_migrate_marginalise_kernel(const float* __restrict__ L, int t_len,
   for (int n = warp; n < tile; n += QM1_WARPS) {
     if (valid_i[n] == 0.0f) continue;  // a padding node: warp-uniform
     float acc[QM1_SPL];
-#pragma unroll
-    for (int k = 0; k < QM1_SPL; ++k) acc[k] = 0.0f;
-    for (int c = 0; c < n_onsets; c += 32) {
-      // Lane j's column offset of onset c + j, passed round the warp
-      const int mine = c + lane < n_onsets
-          ? qm1_col[c + lane] + fine_i[(long long)(c + lane) * tile + n]
-          : 0;
-      const int m = min(32, n_onsets - c);
-      const float* rows = L + (long long)c * t_len + t_begin + lane;
-#pragma unroll 8
-      for (int j = 0; j < m; ++j) {
-        const float* row =
-            rows + (long long)j * t_len + __shfl_sync(0xffffffffu, mine, j);
-#pragma unroll
-        for (int k = 0; k < QM1_SPL; ++k) {
-          if (k < nk && lane + 32 * k < t_count) acc[k] += row[32 * k];
-        }
-      }
-    }
+    qm1_gather(acc, L, t_len, qm1_col, fine_i, tile, n, n_onsets, t_begin,
+               t_count, nk, lane);
     float total = 0.0f;
 #pragma unroll
     for (int k = 0; k < QM1_SPL; ++k) {
@@ -166,5 +183,85 @@ extern "C" int qm_migrate_marginalise(const void* L, int t_len,
         static_cast<const float*>(partial), n_chunks, n_nodes,
         static_cast<float*>(out));
   }
+  return (int)cudaGetLastError();
+}
+
+// M2's simple form: the coalescence map of locate's map path on M1's
+// code, for the plans K1 v2 (and so M2) cannot stage, CudaDetectVPU's
+// route. Replaces, as M2 (migrate_marginalise_v2.cu) does, the XLA
+// function migrate_map (quakemigrate_tpu/ops/migrate.py:264), with M2's
+// contract: per real node n of tile i and scan sample t < nsamples,
+//
+//   map[perm[n], t] = exp(inv_available *
+//                      sum_{o=0}^{O-1} L[o, col0 + base[i,o] + fine[i,o,n] + t])
+//
+// each value expf(__fmul_rn(acc, inv)) of the onsets summed in order, as
+// M2 and K1 v2 compute it. One block a node tile x chunk of QM1_CHUNK
+// samples, warp w taking nodes w, w + 8, ... (M1's gather, qm1_gather),
+// and each lane storing its samples into the node's row: a warp writes 32
+// consecutive floats of a row a store.
+__global__ void __launch_bounds__(QM1_THREADS)
+qm_migrate_map_kernel(const float* __restrict__ L, int t_len,
+                      const int* __restrict__ base,
+                      const int* __restrict__ fine,
+                      const float* __restrict__ valid,
+                      const int* __restrict__ perm,
+                      const float* __restrict__ inv_available,
+                      float* __restrict__ map, int n_onsets, int tile,
+                      int col0, int nsamples) {
+  extern __shared__ int qm1_col[];
+  const int tile_i = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int* base_i = base + (long long)tile_i * n_onsets;
+  for (int o = threadIdx.x; o < n_onsets; o += QM1_THREADS) {
+    qm1_col[o] = col0 + base_i[o];
+  }
+  __syncthreads();
+
+  const float inv = *inv_available;
+  const int* fine_i = fine + (long long)tile_i * n_onsets * tile;
+  const float* valid_i = valid + (long long)tile_i * tile;
+  const int t_begin = blockIdx.y * QM1_CHUNK;
+  const int t_count = min(QM1_CHUNK, nsamples - t_begin);
+  const int nk = (t_count + 31) / 32;
+  for (int n = warp; n < tile; n += QM1_WARPS) {
+    if (valid_i[n] == 0.0f) continue;  // a padding node: warp-uniform
+    float acc[QM1_SPL];
+    qm1_gather(acc, L, t_len, qm1_col, fine_i, tile, n, n_onsets, t_begin,
+               t_count, nk, lane);
+    float* out = map + (long long)perm[(long long)tile_i * tile + n] *
+                           nsamples + t_begin + lane;
+#pragma unroll
+    for (int k = 0; k < QM1_SPL; ++k) {
+      if (k < nk && lane + 32 * k < t_count) {
+        out[32 * k] = expf(__fmul_rn(acc[k], inv));
+      }
+    }
+  }
+}
+
+// L, t_len, base, fine, valid, perm and inv_available as for
+// qm_migrate_marginalise; map: f32 [n_nodes, nsamples], each real node's
+// row written whole. The host checks that col0 + max(base + fine) +
+// nsamples <= t_len.
+extern "C" int qm_migrate_map(const void* L, int t_len, const void* base,
+                              const void* fine, const void* valid,
+                              const void* perm, const void* inv_available,
+                              void* map, int n_onsets, int n_tiles, int tile,
+                              int col0, int nsamples, void* stream) {
+  if (n_onsets < 1 || n_tiles < 1 || tile < 1 || col0 < 0 || nsamples < 1 ||
+      n_onsets * (int)sizeof(int) > 48 * 1024) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int n_chunks = (nsamples + QM1_CHUNK - 1) / QM1_CHUNK;
+  qm_migrate_map_kernel<<<dim3(n_tiles, n_chunks), QM1_THREADS,
+                          n_onsets * sizeof(int),
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(L), t_len, static_cast<const int*>(base),
+      static_cast<const int*>(fine), static_cast<const float*>(valid),
+      static_cast<const int*>(perm),
+      static_cast<const float*>(inv_available), static_cast<float*>(map),
+      n_onsets, tile, col0, nsamples);
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,6 @@
 // Migration marginalised over a sample window, for locate's second pass,
-// redesigned on K1 v2's gather core: M1 v2.
+// redesigned on K1 v2's gather core: M1 v2. At the end of the file, M2,
+// the coalescence map of locate's map path, on the same staging.
 //
 // Replaces the XLA function migrate_marginalise
 // (quakemigrate_tpu/ops/migrate.py:291), as M1 (migrate_marginalise.cu)
@@ -148,32 +149,23 @@ __device__ __forceinline__ void qm2_gather(const float* wl,
   }
 }
 
-template <int NIF, int SPN>
-__global__ void __launch_bounds__(QM_THREADS)
-qm_migrate_marginalise_v2_kernel(const float* __restrict__ L, int t_len,
-                                 const int* __restrict__ base,
-                                 const short* __restrict__ fine16,
-                                 const float* __restrict__ valid,
-                                 const int* __restrict__ perm,
-                                 const float* __restrict__ inv_available,
-                                 const int* __restrict__ span_off,
-                                 float* __restrict__ dst, int n_nodes,
-                                 int n_onsets, int tile, int col0,
-                                 int window_length) {
-  extern __shared__ __align__(16) unsigned char qm2_smem[];
-  const int row = qv_row(n_onsets);
-  int* off = reinterpret_cast<int*>(qm2_smem);
-  float* vld = reinterpret_cast<float*>(off + ((n_onsets + 4) & ~3));
-  unsigned short* slab = reinterpret_cast<unsigned short*>(vld + tile);
-  float* win = reinterpret_cast<float*>(slab + tile * row);
-  const int tile_i = blockIdx.x;
-  const int chunk = blockIdx.y;
+// The staging of one block of the window [col0, col0 + window_length)'s
+// chunk from sample t_begin on, for node tile tile_i: the window offsets
+// `off`, `valid` into `vld`, the uint16 slab and each onset's window of
+// r_spans[o] + cw floats, then the zeros the lanes past cw read (32 SPN -
+// cw floats). Ends with every copy landed and a barrier. M1 v2 and M2
+// share it.
+template <int SPN>
+__device__ __forceinline__ void qm2_stage(
+    int* off, float* vld, unsigned short* slab, float* win,
+    const float* __restrict__ L, int t_len, const int* __restrict__ base,
+    const short* __restrict__ fine16, const float* __restrict__ valid,
+    const int* __restrict__ span_off, int n_onsets, int tile, int col0,
+    int window_length, int tile_i, int t_begin) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  // This chunk's samples [t_begin, t_begin + t_count) of the window
-  const int t_begin = chunk * QM2_CHUNK;
-  const int t_count = min(QM2_CHUNK, window_length - t_begin);
+  const int row = qv_row(n_onsets);
   // Onset o's window spans r_spans[o] + cw floats: K1 v2's offsets, each
   // window QM2_CHUNK - cw floats narrower
   const int shrink = QM2_CHUNK - qm2_chunk_width(window_length);
@@ -241,6 +233,37 @@ qm_migrate_marginalise_v2_kernel(const float* __restrict__ L, int t_len,
   }
   qm_cp_async_wait<0>();
   __syncthreads();
+}
+
+template <int NIF, int SPN>
+__global__ void __launch_bounds__(QM_THREADS)
+qm_migrate_marginalise_v2_kernel(const float* __restrict__ L, int t_len,
+                                 const int* __restrict__ base,
+                                 const short* __restrict__ fine16,
+                                 const float* __restrict__ valid,
+                                 const int* __restrict__ perm,
+                                 const float* __restrict__ inv_available,
+                                 const int* __restrict__ span_off,
+                                 float* __restrict__ dst, int n_nodes,
+                                 int n_onsets, int tile, int col0,
+                                 int window_length) {
+  extern __shared__ __align__(16) unsigned char qm2_smem[];
+  const int row = qv_row(n_onsets);
+  int* off = reinterpret_cast<int*>(qm2_smem);
+  float* vld = reinterpret_cast<float*>(off + ((n_onsets + 4) & ~3));
+  unsigned short* slab = reinterpret_cast<unsigned short*>(vld + tile);
+  float* win = reinterpret_cast<float*>(slab + tile * row);
+  const int tile_i = blockIdx.x;
+  const int chunk = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  // This chunk's samples [t_begin, t_begin + t_count) of the window
+  const int t_begin = chunk * QM2_CHUNK;
+  const int t_count = min(QM2_CHUNK, window_length - t_begin);
+  qm2_stage<SPN>(off, vld, slab, win, L, t_len, base, fine16, valid,
+                 span_off, n_onsets, tile, col0, window_length, tile_i,
+                 t_begin);
 
   const float inv = *inv_available;
   const float* wl = win + lane;
@@ -386,4 +409,157 @@ extern "C" int qm_migrate_marginalise_v2_blocks_per_sm(int n_onsets,
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
                                                       QM_THREADS, smem);
   return err == cudaSuccess ? blocks : -(int)err;
+}
+
+// ---------------------------------------------------------------------------
+// M2: the coalescence map of locate's map path, a store epilogue on M1 v2's
+// staging.
+//
+// Replaces the XLA function migrate_map (quakemigrate_tpu/ops/migrate.py:264),
+// which has no Pallas kernel: it builds every node tile's coalescence over
+// the scan window and keeps it, the flat-node map4d [N, S]. Contract, per
+// real node n of tile i of the detect plan and scan sample t < nsamples:
+//
+//   map[perm[n], t] = exp(inv_available *
+//                      sum_{o=0}^{O-1} L[o, col0 + base[i,o] + fine[i,o,n] + t])
+//
+// with col0 = fsmp; padding nodes write nothing, and every real node's row
+// is written whole. The onsets are summed in order o = 0..O-1 in float32
+// and each sample's value is expf(__fmul_rn(acc, inv)), as K1 v2's fold
+// (detect_v2_core.cuh: qv_fold) computes it, so the per-sample max over
+// the map's nodes equals K1 v2's tmax bit for bit, and a sum over a window
+// of the map equals M1 v2's up to the order of the additions.
+//
+// Bound on the card: the output, N x S floats written once (63 MB at the
+// Icequake locate window), then the gather (node x onset x sample 4-byte
+// reads from the staged windows). The design is M1 v2's: one block a
+// (node tile, chunk of QM2_CHUNK samples), the staging of qm2_stage, lanes
+// on samples and NIF nodes a warp in flight (qm2_map_kernel: M1 v2's shape
+// a slot count); in place of the chunk sum each lane stores its samples
+// straight into its node's row, so a warp writes 32 consecutive floats of
+// one row a store. There is no chunk sum: a window of several chunks takes
+// one block a chunk, each writing its own columns.
+template <int NIF, int SPN>
+__global__ void __launch_bounds__(QM_THREADS)
+qm_migrate_map_v2_kernel(const float* __restrict__ L, int t_len,
+                         const int* __restrict__ base,
+                         const short* __restrict__ fine16,
+                         const float* __restrict__ valid,
+                         const int* __restrict__ perm,
+                         const float* __restrict__ inv_available,
+                         const int* __restrict__ span_off,
+                         float* __restrict__ map, int n_onsets, int tile,
+                         int col0, int nsamples) {
+  extern __shared__ __align__(16) unsigned char qm2_smem[];
+  const int row = qv_row(n_onsets);
+  int* off = reinterpret_cast<int*>(qm2_smem);
+  float* vld = reinterpret_cast<float*>(off + ((n_onsets + 4) & ~3));
+  unsigned short* slab = reinterpret_cast<unsigned short*>(vld + tile);
+  float* win = reinterpret_cast<float*>(slab + tile * row);
+  const int tile_i = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  // This chunk's samples [t_begin, t_begin + t_count) of the scan
+  const int t_begin = blockIdx.y * QM2_CHUNK;
+  const int t_count = min(QM2_CHUNK, nsamples - t_begin);
+  qm2_stage<SPN>(off, vld, slab, win, L, t_len, base, fine16, valid,
+                 span_off, n_onsets, tile, col0, nsamples, tile_i, t_begin);
+
+  const float inv = *inv_available;
+  const float* wl = win + lane;
+  const uint4* slab4 = reinterpret_cast<const uint4*>(slab);
+  const int row4 = row >> 3;
+  const int* perm_i = perm + (long long)tile_i * tile;
+  // Warp w's group: nodes n0 + QM_NWARPS i, i < NIF
+  for (int n0 = warp; n0 < tile; n0 += QM_NWARPS * NIF) {
+    const uint4* r[NIF];
+    bool real[NIF];
+    bool any = false;
+#pragma unroll
+    for (int i = 0; i < NIF; ++i) {
+      const int n = n0 + QM_NWARPS * i;
+      real[i] = n < tile && vld[n] != 0.0f;
+      any |= real[i];
+      r[i] = slab4 + (n < tile ? n : n0) * row4;
+    }
+    if (!any) continue;  // warp-uniform: a group of padding nodes
+    // Lane i's node's flat index, loaded before the gather
+    const int mine_n = n0 + QM_NWARPS * lane;
+    const int flat = lane < NIF && mine_n < tile ? perm_i[mine_n] : 0;
+    float acc[NIF][SPN];
+#pragma unroll
+    for (int i = 0; i < NIF; ++i) {
+#pragma unroll
+      for (int k = 0; k < SPN; ++k) acc[i][k] = 0.0f;
+    }
+    qm2_gather<NIF, SPN>(wl, r, n_onsets, acc);
+
+    // Each real node's samples into its row: lane j writes t_begin + j +
+    // 32 k, so a warp stores 32 consecutive floats of the row at once
+#pragma unroll
+    for (int i = 0; i < NIF; ++i) {
+      const int node_row = __shfl_sync(0xffffffffu, flat, i);
+      if (!real[i]) continue;  // warp-uniform
+      float* out = map + (long long)node_row * nsamples + t_begin + lane;
+#pragma unroll
+      for (int k = 0; k < SPN; ++k) {
+        // __fmul_rn: no contraction into expf's range reduction, as in
+        // K1 v2's fold
+        if (lane + 32 * k < t_count) {
+          out[32 * k] = expf(__fmul_rn(acc[i][k], inv));
+        }
+      }
+    }
+  }
+}
+
+typedef void (*Qm2MapKernel)(const float*, int, const int*, const short*,
+                             const float*, const int*, const float*,
+                             const int*, float*, int, int, int, int);
+
+// M2's kernel at a scan of nsamples samples: M1 v2's shape for the chunk
+// width min(nsamples, QM2_CHUNK) (qm2_kernel).
+static Qm2MapKernel qm2_map_kernel(int nsamples) {
+  switch (qm2_slots(qm2_chunk_width(nsamples))) {
+    case 1:
+      return qm_migrate_map_v2_kernel<4, 1>;
+    case 2:
+      return qm_migrate_map_v2_kernel<4, 2>;
+    default:
+      return qm_migrate_map_v2_kernel<2, 4>;
+  }
+}
+
+// L, t_len, base, fine16, valid, perm, inv_available and span_off as for
+// qm_migrate_marginalise_v2; map: f32 [n_nodes, nsamples], each real
+// node's row written whole (rows of nodes no tile holds are not touched).
+// The host checks that col0 + max(base + fine) + nsamples <= t_len.
+extern "C" int qm_migrate_map_v2(const void* L, int t_len, const void* base,
+                                 const void* fine16, const void* valid,
+                                 const void* perm, const void* inv_available,
+                                 const void* span_off, void* map,
+                                 int n_onsets, int n_tiles, int tile,
+                                 int col0, int nsamples, int win_floats,
+                                 void* stream) {
+  if (n_onsets < 1 || n_tiles < 1 || tile < 16 || tile % 16 != 0 ||
+      col0 < 0 || nsamples < 1 || win_floats < n_onsets * (QM_SBLK + 1) ||
+      win_floats > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int n_chunks = (nsamples + QM2_CHUNK - 1) / QM2_CHUNK;
+  const int smem = qm2_smem_bytes(
+      n_onsets, tile, qm2_win_floats(n_onsets, win_floats, nsamples));
+  const Qm2MapKernel kernel = qm2_map_kernel(nsamples);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3(n_tiles, n_chunks), QM_THREADS, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(L), t_len, static_cast<const int*>(base),
+      static_cast<const short*>(fine16), static_cast<const float*>(valid),
+      static_cast<const int*>(perm),
+      static_cast<const float*>(inv_available),
+      static_cast<const int*>(span_off), static_cast<float*>(map), n_onsets,
+      tile, col0, nsamples);
+  return (int)cudaGetLastError();
 }

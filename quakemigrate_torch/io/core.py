@@ -1,8 +1,9 @@
 # -*- coding: utf-8 -*-
 """
 Core I/O of the port: the Run directory/logging object, the station file
-reader and the lookup-table reader (the port's npz+json format), after
-the JAX package's ``io/core.py`` without pandas.
+reader, the lookup-table reader (the port's npz+json format) and the
+instrument-response reader (StationXML), after the JAX package's
+``io/core.py`` without pandas.
 
 Station Elevations are positive-up in the file and flipped to positive-down
 depths on read, as the reference does.
@@ -84,3 +85,44 @@ def read_stations(station_file, delimiter=","):
         "Longitude": np.array([float(row["Longitude"]) for row in rows]),
         "Elevation": -np.array([float(row["Elevation"]) for row in rows]),
     })
+
+
+def _looks_like_resp(path):
+    """True for RESP (evalresp blockette) input: dir of RESP.* or non-XML."""
+
+    if path.is_dir():
+        return any(p.name.upper().startswith("RESP") for p in path.iterdir())
+    with open(path) as f:
+        for line in f:
+            body = line.strip()
+            if body:
+                return not body.startswith("<")
+    return False
+
+
+def read_response_inv(response_file, sac_pz_format=False):
+    """
+    Build a :class:`~quakemigrate_torch.seis.response.Inventory` from a
+    StationXML file. RESP files and SAC poles-and-zeros files (which the
+    JAX package also reads) are not ported (ROADMAP.md §1, A14) and raise
+    NotImplementedError.
+
+    """
+
+    if sac_pz_format:
+        raise NotImplementedError(
+            "SAC_PZ response files are not ported to quakemigrate_torch yet "
+            "(ROADMAP.md §1, A14)")
+    if _looks_like_resp(Path(response_file)):
+        raise NotImplementedError(
+            "RESP response files are not ported to quakemigrate_torch yet "
+            "(ROADMAP.md §1, A14)")
+
+    from xml.etree.ElementTree import ParseError
+
+    from quakemigrate_torch.seis import read_inventory
+
+    try:
+        return read_inventory(response_file)
+    except (ParseError, ValueError, TypeError) as err:
+        raise TypeError(f"Response file not readable as StationXML: {err}")

@@ -6,9 +6,8 @@ package's ``io/data.py``.
 ``Archive`` resolves time windows onto a day-structured waveform archive
 (the same seven named layouts as the reference, quakemigrate/io/data.py:
 181-219, plus custom format strings) and returns a :class:`WaveformData`.
-``WaveformData`` owns the query result and its availability checks.
-Instrument response removal and the Wood-Anderson simulation are not
-ported yet: an Archive given a response inventory raises.
+``WaveformData`` owns the query result: availability checks, instrument
+response removal, and Wood-Anderson simulation (``seis.response``).
 
 """
 
@@ -19,6 +18,7 @@ import numpy as np
 
 import quakemigrate_torch.util as util
 from quakemigrate_torch.seis import Stream, UTCDateTime, read
+from quakemigrate_torch.seis.response import paz_for_output, simulate_seismometer
 
 # Named archive layouts -> glob templates. "{station}" survives the first
 # .format() pass (day fields) and is filled per station in the second.
@@ -44,6 +44,10 @@ _SHARED_CONFIG = (
     "read_all_stations",
     "resample",
     "upfactor",
+    "response_inv",
+    "water_level",
+    "pre_filt",
+    "remove_full_response",
 )
 
 
@@ -63,21 +67,45 @@ class Archive:
         else:
             self.format = kwargs.get("format")
 
-        if kwargs.get("response_inv") is not None:
-            raise NotImplementedError(
-                "instrument response removal is not ported to "
-                "quakemigrate_torch yet"
-            )
         toggles = {
             "read_all_stations": False,
             "resample": False,
             "upfactor": None,
             "interpolate": False,
+            "response_inv": None,
         }
         for key, default in toggles.items():
             setattr(self, key, kwargs.get(key, default))
 
-    def __str__(self):
+        removal = kwargs.get("response_removal_params", {})
+        if self.response_inv and "water_level" not in removal:
+            logging.warning(
+                "'water level' for instrument correction not "
+                "specified. Set to default: 60"
+            )
+        self.water_level = removal.get("water_level", 60.0)
+        self.pre_filt = removal.get("pre_filt")
+        self.remove_full_response = removal.get("remove_full_response", False)
+
+    def __str__(self, response_only=False):
+        if self.response_inv:
+            response_lines = [
+                "\tResponse removal parameters:",
+                f"\t\tWater level  = {self.water_level}",
+            ]
+            if self.pre_filt is not None:
+                response_lines.append(f"\t\tPre-filter   = {self.pre_filt} Hz")
+            response_lines.append(
+                "\t\tRemove full response (inc. FIR stages) = "
+                f"{self.remove_full_response}"
+            )
+            response_str = "\n".join(response_lines) + "\n"
+        else:
+            response_str = "\tNo instrument response inventory provided!\n"
+
+        if response_only:
+            return response_str
+
         lines = [
             "quakemigrate_torch Archive object",
             f"\tArchive path\t:\t{self.archive_path}",
@@ -88,7 +116,7 @@ class Archive:
             lines.append(f"\tUpfactor\t:\t{self.upfactor}")
         lines.append("\tStations:")
         lines.extend(f"\t\t{station}" for station in self.stations)
-        return "\n".join(lines) + "\n"
+        return "\n".join(lines) + f"\n{response_str}"
 
     def path_structure(self, archive_format="YEAR/JD/STATION", channels="*"):
         """Select one of the named archive layouts (see _ARCHIVE_LAYOUTS)."""
@@ -191,13 +219,17 @@ class Archive:
 
 class WaveformData:
     """
-    One archive query's worth of waveform data, plus the quality checks
-    that operate on it.
+    One archive query's worth of waveform data, plus the quality checks and
+    response-removal utilities that operate on it.
 
     """
 
     _DEFAULTS = {
         "stations": None,
+        "response_inv": None,
+        "water_level": 60.0,
+        "pre_filt": None,
+        "remove_full_response": False,
         "read_all_stations": False,
         "resample": False,
         "upfactor": None,
@@ -210,7 +242,7 @@ class WaveformData:
         for key, default in self._DEFAULTS.items():
             setattr(self, key, kwargs.get(key, default))
 
-        self.raw_waveforms = None
+        self.raw_waveforms = self.wa_waveforms = self.real_waveforms = None
         self.waveforms = Stream()
 
     # -- data quality -------------------------------------------------------
@@ -296,3 +328,61 @@ class WaveformData:
                 return False
 
         return True
+
+    # -- response removal ----------------------------------------------------
+
+    def get_real_waveform(self, tr, velocity=True):
+        """Deconvolve the instrument response from a trace (VEL or DISP)."""
+
+        if not self.response_inv:
+            raise AttributeError("No response inventory provided!")
+
+        tr = tr.copy()
+        tr.detrend("linear")
+
+        try:
+            response = self.response_inv.get_response(tr.id, tr.stats.starttime)
+        except (util.ResponseNotFoundError, KeyError, ValueError) as err:
+            raise util.ResponseNotFoundError(str(err), tr.id)
+
+        try:
+            paz = paz_for_output(response, "VEL" if velocity else "DISP")
+            tr.simulate(
+                paz_remove=paz,
+                pre_filt=self.pre_filt,
+                water_level=self.water_level,
+                taper=True,
+                stages_remove=(
+                    response.digital_stages if self.remove_full_response else None
+                ),
+            )
+        except ValueError as err:
+            raise util.ResponseRemovalError(err, tr.id)
+
+        self.real_waveforms = self._stash(self.real_waveforms, tr)
+        return tr
+
+    def get_wa_waveform(self, tr, velocity=False):
+        """Simulate the Wood-Anderson record of a trace (displacement)."""
+
+        tr = self.get_real_waveform(tr.copy(), velocity)
+        tr.data = simulate_seismometer(
+            tr.data,
+            tr.stats.sampling_rate,
+            paz_simulate=util.wa_response(obspy_def=True),
+            # pre_filt applies in both the deconvolution and this WA step
+            pre_filt=self.pre_filt,
+            water_level=self.water_level,
+            taper=True,
+        )
+        self.wa_waveforms = self._stash(self.wa_waveforms, tr)
+        return tr
+
+    @staticmethod
+    def _stash(store, tr):
+        """Append a copy of ``tr`` to a lazily created Stream."""
+
+        if store is None:
+            store = Stream()
+        store.append(tr.copy())
+        return store

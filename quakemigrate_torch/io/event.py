@@ -1,8 +1,9 @@
 # -*- coding: utf-8 -*-
 """
 The Event object: a single candidate earthquake's accumulated state
-through the locate stage — waveforms, coalescence series, origin time,
-the three location estimates and picks — plus the ``.event`` CSV writer
+through the locate stage — waveforms, coalescence series, 4-D map,
+origin time, the three location estimates, picks and local magnitude —
+plus the ``.event`` CSV writer
 with the reference's 20-column schema and precision contract, the port
 of the JAX package's ``io/event.py`` without pandas. The coalescence
 series is a :class:`~quakemigrate_torch.io.table.Table` of numpy
@@ -79,8 +80,9 @@ class Event:
                            onset_data):
         """
         Record the locate-stage migration outputs: coalescence time series,
-        the retained 4-D map (None: the port does not retain it) and the
-        onset data. The origin time is the time of peak coalescence.
+        the retained 4-D map ([nx, ny, nz, nsamples], or None on the
+        two-pass path) and the onset data. The origin time is the time of
+        peak coalescence.
 
         """
 
@@ -122,6 +124,9 @@ class Event:
     def add_picks(self, picks, **extras):
         self.picks = {"df": picks, **extras}
 
+    def add_local_magnitude(self, mag, mag_err, mag_r2):
+        self.localmag = {"ML": mag, "ML_Err": mag_err, "ML_r2": mag_r2}
+
     # -- window logic --------------------------------------------------------
 
     def in_marginal_window(self):
@@ -158,12 +163,13 @@ class Event:
 
     def trim2window(self):
         """
-        Restrict coa_data to otime ± marginal_window, remembering the
-        sample bounds (``trim_bounds``, the first and last kept sample)
-        for the map-free marginalisation, then re-derive the origin time.
-        The marginalised window is ``[first, last)``, end-exclusive while
-        coa_data keeps row ``last``: a reference quirk that its golden
-        .event files pin, kept here.
+        Restrict coa_data (and map4d where kept) to otime ±
+        marginal_window, remembering the sample bounds (``trim_bounds``,
+        the first and last kept sample) for the map-free marginalisation,
+        then re-derive the origin time. The marginalised window, and the
+        kept map, is ``[first, last)``, end-exclusive while coa_data keeps
+        row ``last``: a reference quirk that its golden .event files pin,
+        kept here.
 
         """
 
@@ -172,6 +178,9 @@ class Event:
         kept = np.flatnonzero([lo <= t <= hi for t in self.coa_data["DT"]])
         self.coa_data = self.coa_data.take(kept)
         self.trim_bounds = (int(kept[0]), int(kept[-1]))
+        if self.map4d is not None:
+            first, last = self.trim_bounds
+            self.map4d = self.map4d[..., first:last]
         self.otime = self._peak_row()["DT"]
 
     # -- output --------------------------------------------------------------
@@ -199,9 +208,15 @@ class Event:
         )
 
         columns = list(EVENT_FILE_COLS)
+        has_ml = self.localmag.get("ML") is not None
+        if has_ml:
+            columns += ["ML", "ML_Err", "ML_r2"]
+
         frame = Table({name: [record[name]] for name in columns}, columns)
         self._format_sig_figs(frame, like="COA", spec=".4g")
         self._round_position_columns(frame, lut)
+        if has_ml:
+            self._format_sig_figs(frame, like="ML", spec=".3g")
 
         frame.to_csv((outdir / str(self.uid)).with_suffix(".event"))
 
@@ -255,6 +270,12 @@ class Event:
         return np.array([self.locations[method][key] for key in _UNC_KEYS])
 
     loc_uncertainty = property(get_loc_uncertainty)
+
+    @property
+    def local_magnitude(self):
+        if not self.localmag:
+            return None
+        return iter(self.localmag.values())
 
     @property
     def max_coalescence(self):

@@ -8,7 +8,10 @@ the card's shared-memory pipe), ``csrc/migrate_detect_vpu.cu`` (K2) and
 plain PyTorch versions, and the cross-tile combine; and the wrapper of
 ``csrc/migrate_marginalise.cu`` (M1, locate's marginalisation on the same
 plan) and ``csrc/migrate_marginalise_v2.cu`` (M1 v2, M1 on K1 v2's
-tables), whose plain version is ``ops.migrate.migrate_marginalise``.
+tables), whose plain version is ``ops.migrate.migrate_marginalise``, and
+of M2, locate's coalescence map on the same two sources (its main form on
+M1 v2's staging, its simple form on M1's gather), whose plain version is
+``ops.migrate.migrate_map``.
 
 Counterpart of quakemigrate_tpu.ops.pallas_migrate: ``CudaDetect`` of
 ``PallasDetectMXU`` (kernel ``_mxu_detect_kernel``), ``CudaDetectVPU`` of
@@ -88,11 +91,12 @@ M1_V2_NODES_IN_FLIGHT = {1: 4, 2: 4, 4: 2}
 # Largest residual span of the int16 residual table ``DetectPlan.fine16``
 FINE16_MAX_SPAN = np.iinfo(np.int16).max
 
-# Launches of K1, K1 v2, K2, K2 v2, M1 and M1 v2, counted by their
-# wrappers where they launch
+# Launches of K1, K1 v2, K2, K2 v2, M1, M1 v2 and M2 (main and simple
+# form), counted by their wrappers where they launch
 launches = {"migrate_detect": 0, "migrate_detect_v2": 0,
             "migrate_detect_vpu": 0, "migrate_detect_vpu_v2": 0,
-            "migrate_marginalise": 0, "migrate_marginalise_v2": 0}
+            "migrate_marginalise": 0, "migrate_marginalise_v2": 0,
+            "migrate_map": 0, "migrate_map_v2": 0}
 
 
 def reset_launches():
@@ -793,6 +797,100 @@ def migrate_marginalise_v2_cuda(onsets_log, base, fine16, valid, perm,
     return out
 
 
+def _check_map_args(onsets_log, perm, n_tiles, tile, fsmp, nsamples,
+                    max_shift):
+    """Checks of M2's wrappers beyond :func:`check_kernel_args`: ``perm``
+    on the onsets' device, at least one scan sample and an onset block
+    long enough for the plan."""
+
+    if (perm.device != onsets_log.device or perm.dtype != torch.int32
+            or perm.shape != (n_tiles * tile,) or not perm.is_contiguous()):
+        raise ValueError(f"perm must be a contiguous int32 [{n_tiles * tile}] "
+                         f"tensor on {onsets_log.device}")
+    if nsamples < 1 or fsmp < 0:
+        raise ValueError(f"bad geometry: fsmp {fsmp}, nsamples {nsamples}")
+    _check_onset_length(onsets_log, fsmp, nsamples, max_shift)
+
+
+def migrate_map_v2_cuda(onsets_log, base, fine16, valid, perm, inv_available,
+                        span_off, win_floats, fsmp, nsamples, n_nodes,
+                        max_shift):
+    """
+    Launch M2 (``csrc/migrate_marginalise_v2.cu``: a store epilogue on M1
+    v2's staging) on tensors on the card: the coalescence map of locate,
+    f32 [n_nodes, nsamples] in flat node order, ``map[n, t] =
+    exp(inv_available * sum_o L[o, fsmp + tt[n, o] + t])``, from K1 v2's
+    tables of a :class:`DetectPlan` (``fine16``, ``span_off``,
+    ``win_floats``). The onsets are summed in order and each value is
+    computed as K1 v2 computes it, so the map's per-sample max equals K1
+    v2's tmax bit for bit. Raises on a plan without ``fine16``, on a tile
+    that is not a multiple of 16, on a block over the shared memory (M1
+    v2's at a window of ``nsamples``, :func:`m1_v2_smem_bytes`), on an
+    onset block too short for the plan and on CPU tensors; the plain
+    version is :func:`quakemigrate_torch.ops.migrate.migrate_map`. The
+    launch is asynchronous on the current stream.
+
+    """
+
+    if fine16 is None:
+        raise ValueError(
+            "the plan has no int16 residual table fine16 (its residual span "
+            f"exceeds {FINE16_MAX_SPAN}); M2 cannot take it")
+    n_onsets, t_len, n_tiles, tile = check_kernel_args(
+        onsets_log, base, fine16, valid, inv_available, node_major=True
+    )
+    if tile % (2 * NWARPS):
+        raise ValueError(f"tile ({tile}) must be a multiple of {2 * NWARPS}")
+    _check_span_off(span_off, win_floats, n_onsets, onsets_log.device)
+    _check_map_args(onsets_log, perm, n_tiles, tile, fsmp, nsamples,
+                    max_shift)
+    check_smem(m1_v2_smem_bytes(n_onsets, tile, win_floats, nsamples),
+               f"M2's residual slab ({tile} x {n_onsets}) and windows")
+    out = torch.empty((n_nodes, nsamples), dtype=torch.float32,
+                      device=onsets_log.device)
+    launch_kernel(
+        "qm_migrate_map_v2", onsets_log.device,
+        onsets_log.data_ptr(), t_len, base.data_ptr(), fine16.data_ptr(),
+        valid.data_ptr(), perm.data_ptr(), inv_available.data_ptr(),
+        span_off.data_ptr(), out.data_ptr(), n_onsets, n_tiles, tile, fsmp,
+        nsamples, win_floats,
+    )
+    launches["migrate_map_v2"] += 1
+    return out
+
+
+def migrate_map_cuda(onsets_log, base, fine, valid, perm, inv_available,
+                     fsmp, nsamples, n_nodes, max_shift):
+    """
+    Launch M2's simple form (``csrc/migrate_marginalise.cu``: M1's
+    gather, the onsets read from global memory) on tensors on the card:
+    :func:`migrate_map_v2_cuda`'s map, bit for bit, from the plan's int32
+    residuals ``fine``, for the plans K1 v2 cannot stage (CudaDetectVPU's
+    route). Raises on CPU tensors and on what the kernel does not take;
+    the plain version is :func:`quakemigrate_torch.ops.migrate.migrate_map`.
+
+    """
+
+    n_onsets, t_len, n_tiles, tile = check_kernel_args(
+        onsets_log, base, fine, valid, inv_available
+    )
+    _check_map_args(onsets_log, perm, n_tiles, tile, fsmp, nsamples,
+                    max_shift)
+    if 4 * n_onsets > 48 * 1024:
+        raise ValueError(f"M2's simple form takes at most {12 * 1024} "
+                         f"onsets, not {n_onsets}")
+    out = torch.empty((n_nodes, nsamples), dtype=torch.float32,
+                      device=onsets_log.device)
+    launch_kernel(
+        "qm_migrate_map", onsets_log.device,
+        onsets_log.data_ptr(), t_len, base.data_ptr(), fine.data_ptr(),
+        valid.data_ptr(), perm.data_ptr(), inv_available.data_ptr(),
+        out.data_ptr(), n_onsets, n_tiles, tile, fsmp, nsamples,
+    )
+    launches["migrate_map"] += 1
+    return out
+
+
 def marginalise_v2_blocks_per_sm(n_onsets, tile, win_floats, window_length,
                                  device):
     """Resident blocks per SM of M1 v2 at a plan and window length."""
@@ -1101,7 +1199,7 @@ class CudaDetect:
     take: :func:`v2_refusal`), and ``launches`` counts it; for onsets on
     the CPU the plain version (:func:`detect_reduce_plan_reference`)
     runs. :meth:`marginalise`, locate's pass 2, runs M1 v2 on the same
-    tables.
+    tables, and :meth:`map`, locate's map path, M2.
 
     """
 
@@ -1179,6 +1277,18 @@ class CudaDetect:
             self._max_shift,
         )
 
+    def map(self, onsets_log, inv_available):
+        """M2 on the plan (:func:`migrate_map_v2_cuda`, K1 v2's tables) for
+        prepared onsets on the card: the coalescence map f32 [n_nodes,
+        nsamples] in flat node order. Raises on CPU tensors and on a plan
+        M2 cannot stage."""
+
+        return migrate_map_v2_cuda(
+            onsets_log, self.base, self.fine16, self.valid, self.perm,
+            inv_available, self.span_off, self.win_floats, self.fsmp,
+            self.nsamples, self.n_nodes, self._max_shift,
+        )
+
     def reduce_log(self, onsets_log, inv_available):
         """(max_coa, max_idx int32, coa_sum), each [nsamples], of prepared
         onsets (:meth:`prepare`): the kernel on a CUDA device, the plain
@@ -1226,7 +1336,8 @@ class CudaDetectVPU(CudaDetect):
     count no launch. K2 (:func:`migrate_detect_vpu_cuda`) stays callable
     on the same plan (``fine``, ``r_span``) as K2 v2's yardstick.
     :meth:`marginalise` runs M1 on the plan's int32 ``fine``, as this is
-    the route of plans that K1 v2, and so M1 v2, cannot stage.
+    the route of plans that K1 v2, and so M1 v2, cannot stage, and
+    :meth:`map` M2's simple form.
 
     """
 
@@ -1272,6 +1383,17 @@ class CudaDetectVPU(CudaDetect):
             onsets_log, self.base, self.fine, self.valid, self.perm,
             inv_available, self.fsmp, self.nsamples, window_start,
             window_length, self.n_nodes, self._max_shift,
+        )
+
+    def map(self, onsets_log, inv_available):
+        """M2's simple form on the plan (:func:`migrate_map_cuda`, the
+        int32 residuals ``fine``): the route of plans K1 v2, and so M2,
+        cannot stage. Raises on CPU tensors."""
+
+        return migrate_map_cuda(
+            onsets_log, self.base, self.fine, self.valid, self.perm,
+            inv_available, self.fsmp, self.nsamples, self.n_nodes,
+            self._max_shift,
         )
 
     def plain(self, onsets_log, inv_available):

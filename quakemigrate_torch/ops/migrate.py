@@ -1,8 +1,9 @@
 # -*- coding: utf-8 -*-
 """
 Migration and coalescence reduction in plain PyTorch: the flat-order
-definition that the CUDA kernel (ops.cuda_migrate) is held against, and
-the path a CPU tensor takes.
+definitions that the CUDA kernels (ops.cuda_migrate) are held against,
+and the path a CPU tensor takes: the fused detect reduction, the full
+coalescence map of locate and its marginalisation over a window.
 
 Counterpart of quakemigrate_tpu.ops.migrate. The onsets are clipped and
 logged, so the geometric-mean stack is the exp of a masked mean of logs.
@@ -135,6 +136,30 @@ def migrate_detect(
     return max_coa, max_coa * n_real / coa_sum, max_idx
 
 
+def migrate_map(
+    onsets, traveltimes, mask, available, fsmp, nsamples, tile=DEFAULT_TILE
+):
+    """
+    Migration retaining the full coalescence map (locate's map path):
+    ``map4d_flat [N, nsamples]``, the coalescence of every node (flat
+    order) at every scan sample, the flat-node form of the reference's
+    map4d (nx, ny, nz, S). The plain version of the CUDA kernel M2
+    (``ops.cuda_migrate.migrate_map_v2_cuda``, and its simple form
+    ``migrate_map_cuda``) and the CPU path of locate's map.
+
+    Onsets are summed in order o = 0..O-1; traveltimes are clipped to the
+    block, ``[0, T - fsmp - nsamples]``, as the reference clips them.
+
+    """
+
+    onsets_log = _prepare_onsets(onsets, mask)
+    return torch.cat([
+        _stack_tile(onsets_log, traveltimes[t0:t0 + tile], available, fsmp,
+                    nsamples)
+        for t0 in range(0, traveltimes.shape[0], tile)
+    ])
+
+
 def migrate_marginalise(
     onsets, traveltimes, mask, available, fsmp, nsamples, window_start,
     window_length, tile=DEFAULT_TILE,
@@ -177,7 +202,11 @@ def migrate_marginalise(
 def find_max_coa(map4d_flat, n_nodes_real=None, node_offset=0):
     """
     Per-sample max / normalised max / argmax over the node axis of a
-    flattened coalescence map [N, S].
+    flattened coalescence map [N, S]: three torch reductions, on the card
+    for a map on the card, as the JAX package computes them with plain
+    XLA outside any kernel. ``torch.argmax`` returns the FIRST flat node
+    index attaining the max, the XLA path's tie rule; the detect kernels
+    break ties in their plan's brick order instead (ops.cuda_migrate).
 
     """
 

@@ -3,12 +3,14 @@
 quakemigrate_torch.seis -- the seismic waveform data layer of the port:
 the Stream/Trace/UTCDateTime data model and miniSEED I/O (with the port's
 own C STEIM1/2 codec), copied from the JAX package's ``seis`` for the
-formats and methods the detect path uses.
+formats and methods the detect and locate paths use, and the instrument
+response layer (PAZ removal and simulation, the StationXML reader).
 
 """
 
 from .utcdatetime import UTCDateTime  # noqa: F401
 from .trace import Stats, Stream, Trace  # noqa: F401
+from .response import Inventory, read_inventory, simulate_seismometer  # noqa: F401
 
 
 def read(path, starttime=None, endtime=None, nearest_sample=True, format=None):

@@ -2,10 +2,11 @@
 """
 Lightweight seismic waveform data model: Stats, Trace and Stream, a copy
 of the JAX package's ``seis/trace.py`` with the methods the detect path,
-the miniSEED writer and the synthetics call: no-clobber merging, on-sample
-trimming with nearest-sample semantics, zero-phase Butterworth filtering,
-cosine tapering, decimation/interpolation/resampling and component
-rotation.
+the miniSEED writer, the synthetics and local magnitudes call: no-clobber
+merging, on-sample trimming with nearest-sample semantics, zero-phase
+Butterworth filtering, cosine tapering, decimation/interpolation/
+resampling, component rotation, differentiation and integration, and
+instrument response removal and simulation (``seis.response``).
 
 All time-series processing is host-side numpy/scipy; the per-sample
 compute of detect (onsets, migration) runs in PyTorch on the device.
@@ -173,6 +174,26 @@ class Trace:
         new.stats = self.stats.copy()
         new.data = self._data.copy()
         return new
+
+    def times(self, type="relative"):
+        """Sample times: relative seconds, UTCDateTime, timestamp or mpl."""
+
+        offsets = np.arange(self.stats.npts) * self.stats.delta
+        if type == "relative":
+            return offsets
+        if type == "timestamp":
+            return self.stats.starttime.timestamp + offsets
+        if type == "utcdatetime":
+            start = self.stats.starttime
+            return np.array([start + o for o in offsets], dtype=object)
+        if type == "matplotlib":
+            return self.stats.starttime.matplotlib_date + offsets / 86400.0
+        raise ValueError(f"Unknown times type: {type}")
+
+    def max(self):
+        if not len(self._data):
+            return 0.0
+        return self._data[np.argmax(np.abs(self._data))]
 
     # --- windowing ---
 
@@ -444,6 +465,51 @@ class Trace:
             np.asarray(self._data, dtype=np.float64), npts_new, window="hann"
         )
         self.stats.sampling_rate = float(sampling_rate)
+        return self
+
+    def differentiate(self):
+        self.data = np.gradient(
+            np.asarray(self._data, dtype=np.float64), self.stats.delta
+        )
+        return self
+
+    def integrate(self):
+        from scipy.integrate import cumulative_trapezoid
+
+        self.data = cumulative_trapezoid(
+            np.asarray(self._data, dtype=np.float64), dx=self.stats.delta, initial=0.0
+        )
+        return self
+
+    def simulate(self, paz_remove=None, paz_simulate=None, **kwargs):
+        """Deconvolve/convolve poles-and-zeros responses (spectral division)."""
+
+        from .response import simulate_seismometer
+
+        self.data = simulate_seismometer(
+            np.asarray(self._data, dtype=np.float64),
+            self.stats.sampling_rate,
+            paz_remove=paz_remove,
+            paz_simulate=paz_simulate,
+            **kwargs,
+        )
+        return self
+
+    def remove_response(
+        self, inventory, output="VEL", pre_filt=None, water_level=60.0, taper=True
+    ):
+        """Remove the instrument response recorded in a station inventory."""
+
+        from .response import remove_trace_response
+
+        remove_trace_response(
+            self,
+            inventory,
+            output=output,
+            pre_filt=pre_filt,
+            water_level=water_level,
+            taper=taper,
+        )
         return self
 
     def write(self, filename, format="MSEED", **kwargs):

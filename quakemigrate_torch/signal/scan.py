@@ -19,9 +19,12 @@ at its first missing timestep. Locate reads the triggered events, and
 for each event (the reader thread one event ahead) computes its onsets on
 the device, runs pass 1 (the detect migration, on detect's kernel route
 and plan) to find the origin time, and pass 2 (M1, the marginalisation
-over the marginal window) on the main thread; the location math, picks
-and files of each event run on a pool of host threads, which wait on the
-CUDA event of M1's copy back and issue no work on the card.
+over the marginal window) on the main thread; the location math, picks,
+local magnitudes and files of each event run on a pool of host threads,
+which wait on the CUDA event of M1's copy back and issue no work on the
+card. Where the 4-D coalescence map is to be written, locate's map path
+builds it instead (M2), takes pass 1's outputs from it, copies it back
+and marginalises it on the host.
 
 """
 
@@ -49,9 +52,15 @@ from quakemigrate_torch.io import (
 )
 from quakemigrate_torch.lut import traveltime_table, unravel
 from quakemigrate_torch.seis import Stream, UTCDateTime, read
+from quakemigrate_torch.signal.local_mag import LocalMag
 from quakemigrate_torch.signal.onsets import STALTAOnset
 from quakemigrate_torch.signal.pickers import GaussianPicker, PhasePicker
-from quakemigrate_torch.ops.migrate import migrate_detect, migrate_marginalise
+from quakemigrate_torch.ops.migrate import (
+    find_max_coa,
+    migrate_detect,
+    migrate_map,
+    migrate_marginalise,
+)
 from quakemigrate_torch.ops.cuda_migrate import (
     CudaDetect,
     CudaDetectVPU,
@@ -325,10 +334,15 @@ class QuakeScan:
     Detect runs from a waveform archive to the run's ``.scanmseed`` and
     StationAvailability files. Locate reads the TriggeredEvents files of
     the run (or one ``trigger_file``) and writes, per event, its
-    ``.event`` and ``.picks`` files (and, as asked, its cut waveforms and
-    marginalised coalescence map), by the two-pass path: pass 1 is the
-    detect migration over the event's window, pass 2 (M1) the
-    marginalisation over the marginal window; the 4-D map is never built.
+    ``.event`` and ``.picks`` files (and, as asked, its ``.amps`` file and
+    local magnitude, its cut waveforms and its coalescence maps). By
+    default it takes the two-pass path: pass 1 is the detect migration
+    over the event's window, pass 2 (M1) the marginalisation over the
+    marginal window, and the 4-D map is never built. With
+    ``write_coalescence`` it takes the map path where the map fits
+    ``locate_map_memory_limit``: the map is built (M2 on the card),
+    pass 1's outputs are taken from it, and it is marginalised on the
+    host.
 
     Parameters
     ----------
@@ -343,9 +357,11 @@ class QuakeScan:
         CPU; "cuda" raises where CUDA is absent.
     picker : PhasePicker, optional
         Locate's phase picker (default ``GaussianPicker(onset=onset)``).
-    mags : None
-        Local magnitudes are not ported (ROADMAP.md §1, A8c): locate
-        raises NotImplementedError for any other value.
+    mags : LocalMag, optional
+        Local magnitudes: with a :class:`~quakemigrate_torch.signal.
+        local_mag.LocalMag`, locate measures Wood-Anderson amplitudes
+        (the archive needs a response inventory) and writes each event's
+        ``.amps`` file and its ML columns of the ``.event``.
     timestep : float, default 120
         Seconds of scan output each detect window adds.
     marginal_window : float, default 2
@@ -358,12 +374,19 @@ class QuakeScan:
     continuous_scanmseed_write : bool, default False
         Write the ``.scanmseed`` after every window, not only at the end
         of a day and of the scan.
-    write_cut_waveforms, cut_waveform_format, write_marginal_coalescence
-        Locate's optional outputs: the event's raw waveforms (MSEED) and
-        its marginalised coalescence map (.npy). ``write_coalescence``,
-        ``plot_event_video``, ``write_real_waveforms`` and
-        ``write_wa_waveforms`` are accepted and raise NotImplementedError
-        in locate when set; ``plot_event_summary`` is logged once as not
+    write_cut_waveforms, write_real_waveforms, write_wa_waveforms
+        Locate's cut waveforms (MSEED, ``cut_waveform_format``): raw,
+        response-removed and Wood-Anderson (``real_waveform_units`` and
+        ``wa_waveform_units``, "displacement" or "velocity").
+    write_marginal_coalescence, write_coalescence
+        The marginalised 3-D coalescence map and the 4-D map
+        ([nx, ny, nz, nsamples] over the event's window) as .npy files.
+        The 4-D map takes the map path where ``n_nodes x nsamples x 4``
+        bytes are within ``locate_map_memory_limit`` (default 4e9), else
+        it is logged as not written and locate takes the two-pass path.
+    plot_event_video, plot_event_summary
+        ``plot_event_video`` raises NotImplementedError in locate (plot/
+        is not ported); ``plot_event_summary`` is logged once as not
         drawn.
     log, loglevel
         Logging to a file in the run directory, and its level.
@@ -387,7 +410,11 @@ class QuakeScan:
         dispatch and the start of its copy back); on the post thread
         ``pass2_wait`` (waiting for M1's result), ``location`` (the
         location math), ``picks`` and ``writes`` (the .event and the cut
-        waveforms and map).
+        waveforms and maps); with ``mags``, ``magnitudes`` (amplitudes,
+        magnitudes and the .amps file); where the 4-D map was written,
+        ``map_write`` on the main thread. On the map path ``pass1`` is
+        the map, its reduction and its copy back, ``pass2`` and
+        ``pass2_wait`` are 0, and ``location`` includes the map's sum.
     locate_event_marks : list of float
         Main-thread seconds of each located event, as the JAX loop's.
     locate_route : str or None
@@ -403,8 +430,11 @@ class QuakeScan:
         coa_handle)`` for each event whose pass 1 ran: ``pass1`` is its
         (max_coa, max_coa_n, max_idx) numpy arrays over the window,
         ``coa_handle`` pass 2's (:meth:`_dispatch_marginalise`), or None
-        for an event outside its marginal window; the inputs of both
-        passes on the scan's device are ``event._marginalise_inputs``.
+        for an event outside its marginal window or on the map path; the
+        inputs of both passes on the scan's device are
+        ``event._marginalise_inputs``, and on the map path
+        ``event.map4d`` holds the map (trimmed to the marginal window
+        once the event passes the gate).
 
     """
 
@@ -423,8 +453,11 @@ class QuakeScan:
         "write_real_waveforms": False,
         "write_wa_waveforms": False,
         "cut_waveform_format": "MSEED",
+        "real_waveform_units": "displacement",
+        "wa_waveform_units": "displacement",
         "write_marginal_coalescence": False,
         "write_coalescence": False,
+        "locate_map_memory_limit": 4e9,
     }
 
     def __init__(self, archive, lut, onset, run_path, run_name,
@@ -447,7 +480,10 @@ class QuakeScan:
             self.picker = picker
         else:
             raise util.PickerTypeError
-        self.mags = kwargs.get("mags")
+        mags = kwargs.get("mags")
+        if mags is not None and not isinstance(mags, LocalMag):
+            raise util.MagsTypeError
+        self.mags = mags
         self.pre_cut = self.post_cut = None
         self.run = Run(run_path, run_name, self.run_subname,
                        loglevel=self.loglevel)
@@ -781,13 +817,7 @@ class QuakeScan:
     # Options locate does not cover yet, and the ROADMAP.md item each
     # waits for
     _LOCATE_WAITS = {
-        "write_coalescence": "the 4-D coalescence map (ROADMAP.md §1, A8: "
-                             "the 4-D map path)",
-        "plot_event_video": "the event video (ROADMAP.md §1, A8: the 4-D "
-                            "map path, and plot/)",
-        "write_real_waveforms": "response removal (ROADMAP.md §1, A8c)",
-        "write_wa_waveforms": "the Wood-Anderson simulation (ROADMAP.md §1, "
-                              "A8c)",
+        "plot_event_video": "the event video (ROADMAP.md §1, plot/)",
     }
 
     def locate(self, starttime=None, endtime=None, trigger_file=None):
@@ -815,9 +845,12 @@ class QuakeScan:
             span = f"\n\tLocating events in {trigger_file}"
         else:
             span = f"\n\tLocating events from {starttime} to {endtime}\n"
+        details = [span, self, str(self.onset), str(self.picker)]
+        if self.mags is not None:
+            details += [self.archive.__str__(response_only=True),
+                        str(self.mags)]
         self._announce(
-            "\tLOCATE - Determining event location and uncertainty",
-            [span, self, str(self.onset), str(self.picker)],
+            "\tLOCATE - Determining event location and uncertainty", details
         )
         if trigger_file is not None:
             self._locate_events(trigger_file=trigger_file)
@@ -833,11 +866,9 @@ class QuakeScan:
             if getattr(self, option):
                 raise NotImplementedError(
                     f"{option}: {what} is not ported yet")
-        if self.mags is not None:
-            raise NotImplementedError(
-                "mags: local magnitudes are not ported yet (ROADMAP.md §1, "
-                "A8c)")
-        if self.write_cut_waveforms and self.cut_waveform_format != "MSEED":
+        cuts = (self.write_cut_waveforms or self.write_real_waveforms
+                or self.write_wa_waveforms)
+        if cuts and self.cut_waveform_format != "MSEED":
             raise NotImplementedError(
                 f"cut_waveform_format {self.cut_waveform_format!r}: the port "
                 "writes MSEED only (ROADMAP.md §1, A14)")
@@ -931,6 +962,18 @@ class QuakeScan:
             logging.info(e.msg)
             return False, None
 
+        if self.write_coalescence:
+            if event.map4d is not None:
+                logging.info("\tSaving full coalescence map...")
+                t0 = time.perf_counter()
+                write_coalescence(self.run, event.map4d, event)
+                attrib["map_write"] = time.perf_counter() - t0
+            else:
+                logging.info(
+                    "\tmap4d not retained (two-pass locate); raise "
+                    "locate_map_memory_limit to write the full map."
+                )
+
         pass1 = event._pass1
         if not event.in_marginal_window():
             if self.on_event is not None:
@@ -983,10 +1026,19 @@ class QuakeScan:
         """
         One locate window: the onsets on the scan's device and pass 1, the
         per-sample max, normalised max and argmax node over the window.
-        On the card pass 1 is the detect kernel of the scan's route (K1 v2,
-        or K2 v2 on a plan K1 v2 refuses); on the CPU the plain flat-order
-        migration. Keeps the inputs of pass 2 on the event
-        (``_marginalise_inputs``) and pass 1's result (``_pass1``).
+        Keeps the inputs of pass 2 on the event (``_marginalise_inputs``)
+        and pass 1's result (``_pass1``).
+
+        Two paths, as the JAX ``_compute`` chooses them. The map path,
+        where ``write_coalescence`` is set and the map's ``n_nodes x
+        nsamples x 4`` bytes are within ``locate_map_memory_limit``: the
+        4-D map (M2 on the card: the route's detector's ``map``; the plain
+        ``migrate_map`` on the CPU), pass 1's outputs from it
+        (``find_max_coa``, on the map's device), and the map copied back
+        through a pinned buffer as [nx, ny, nz, nsamples]. Otherwise the
+        two-pass path's pass 1: on the card the detect kernel of the
+        scan's route (K1 v2, or K2 v2 on a plan K1 v2 refuses); on the
+        CPU the plain flat-order migration.
 
         """
 
@@ -999,13 +1051,31 @@ class QuakeScan:
         nsamples = block.shape[-1] - fsmp - lsmp
         t1 = time.perf_counter()
 
+        n_nodes = int(np.prod(self.lut.node_count))
+        map_bytes = n_nodes * nsamples * 4
+        retain_map = (self.write_coalescence
+                      and map_bytes <= self.locate_map_memory_limit)
+        if self.write_coalescence and not retain_map:
+            logging.info(
+                f"\t\tmap4d would need {map_bytes / 1e9:.1f} GB > "
+                "locate_map_memory_limit; using two-pass map-free "
+                "locate (no full map will be written)."
+            )
+
         inputs = {"block": block, "mask": mask, "available": available,
                   "fsmp": fsmp, "nsamples": nsamples}
         route, _, plan = self._detect_route()
         self.locate_route = route
+        map_host = None
         if route == "plain":
-            result = migrate_detect(block, self._flat_traveltimes(), mask,
-                                    available, fsmp, nsamples)
+            if retain_map:
+                map_flat = migrate_map(block, self._flat_traveltimes(), mask,
+                                       available, fsmp, nsamples)
+                result = find_max_coa(map_flat)
+                map_host = map_flat
+            else:
+                result = migrate_detect(block, self._flat_traveltimes(), mask,
+                                        available, fsmp, nsamples)
         else:
             # Pass 1's detector: one per locate geometry, as the JAX
             # _mxu_kernel caches one, on detect's route and plan
@@ -1016,15 +1086,28 @@ class QuakeScan:
             )
             onsets_log, inv_available = detector.prepare(block, mask,
                                                          available)
-            max_coa, max_idx, coa_sum = detector.reduce_log(onsets_log,
-                                                            inv_available)
-            result = (max_coa, max_coa * detector.n_nodes / coa_sum, max_idx)
             inputs.update(onsets_log=onsets_log, inv_available=inv_available)
+            if retain_map:
+                map_flat = detector.map(onsets_log, inv_available)
+                result = find_max_coa(map_flat)
+                # Queued before pass 1's copy below, which waits for it
+                map_host = torch.empty(map_flat.shape, dtype=map_flat.dtype,
+                                       pin_memory=True)
+                map_host.copy_(map_flat, non_blocking=True)
+            else:
+                max_coa, max_idx, coa_sum = detector.reduce_log(
+                    onsets_log, inv_available)
+                result = (max_coa, max_coa * detector.n_nodes / coa_sum,
+                          max_idx)
         # One copy of the three outputs to the host
         max_coa, max_coa_n, max_idx = unpack_detect_window(
             pack_detect_window(*result).cpu())
         event._marginalise_inputs = inputs
         event._pass1 = (max_coa, max_coa_n, max_idx)
+        map4d = None
+        if map_host is not None:
+            map4d = map_host.numpy().reshape(
+                tuple(self.lut.node_count) + (nsamples,))
 
         coord = self.lut.index2coord(max_idx, unravel=True)
         times = event.mw_times(self.scan_rate, count=nsamples)
@@ -1035,7 +1118,7 @@ class QuakeScan:
             np.asarray(max_coa, dtype=np.float64),
             np.asarray(max_coa_n, dtype=np.float64),
             coord,
-            None,
+            map4d,
             onset_data,
         )
 
@@ -1046,10 +1129,13 @@ class QuakeScan:
         in flat node order. On the card M1 runs on the main thread and its
         result is copied to a pinned host buffer after a recorded CUDA
         event; returns (host buffer, event), and the post thread waits on
-        the event. On the CPU the plain version runs: (result, None).
+        the event. On the CPU the plain version runs: (result, None). On
+        the map path (``event.map4d`` kept) there is no pass 2: None.
 
         """
 
+        if event.map4d is not None:
+            return None
         inputs = event._marginalise_inputs
         i0, i1 = event.trim_bounds
         if self.device.type != "cuda":
@@ -1077,41 +1163,74 @@ class QuakeScan:
         """
 
         t0 = time.perf_counter()
-        marginal, copied = coa_handle
-        if copied is not None:
-            copied.synchronize()
+        marginal = None
+        if coa_handle is not None:
+            marginal, copied = coa_handle
+            if copied is not None:
+                copied.synchronize()
+            marginal = marginal.numpy()
         t1 = time.perf_counter()
         logging.info(f"\t[{event.uid}] Determining event location and "
                      "uncertainty...")
-        coa_map = self._calculate_location(event, marginal.numpy())
+        coa_map = self._calculate_location(event, marginal)
         t2 = time.perf_counter()
 
         if self.write_marginal_coalescence:
             logging.info(f"\t[{event.uid}] Saving marginalised coalescence "
                          "map...")
-            write_coalescence(self.run, coa_map, event)
+            write_coalescence(self.run, coa_map, event, marginalised=True)
         t3 = time.perf_counter()
 
         logging.info(f"\t[{event.uid}] Making phase picks...")
         event, _ = self.picker.pick_phases(event, self.lut, self.run)
         t4 = time.perf_counter()
 
+        if self.mags is not None:
+            logging.info(f"\t[{event.uid}] Calculating magnitude...")
+            event, _ = self.mags.calc_magnitude(event, self.lut, self.run)
+            attrib["magnitudes"] = time.perf_counter() - t4
+        t5 = time.perf_counter()
+
         event.write(self.run, self.lut)
         if self.plot_event_summary and not self._summary_logged:
             logging.info("\tEvent summary not drawn: plot/ is not ported.")
             self._summary_logged = True
-        if self.write_cut_waveforms:
-            write_cut_waveforms(self.run, event, self.cut_waveform_format,
-                                pre_cut=self.pre_cut, post_cut=self.post_cut)
+        self._write_event_waveforms(event)
         attrib.update(pass2_wait=t1 - t0, location=t2 - t1, picks=t4 - t3,
-                      writes=(t3 - t2) + (time.perf_counter() - t4))
+                      writes=(t3 - t2) + (time.perf_counter() - t5))
         return True
+
+    def _write_event_waveforms(self, event):
+        """The cut waveforms asked for: raw, response-removed ("real") and
+        Wood-Anderson, each in its own directory."""
+
+        flavours = (
+            (self.write_cut_waveforms, {}),
+            (self.write_real_waveforms,
+             dict(waveform_type="real", units=self.real_waveform_units)),
+            (self.write_wa_waveforms,
+             dict(waveform_type="wa", units=self.wa_waveform_units)),
+        )
+        for enabled, extras in flavours:
+            if enabled:
+                write_cut_waveforms(
+                    self.run, event, self.cut_waveform_format,
+                    pre_cut=self.pre_cut, post_cut=self.post_cut, **extras,
+                )
 
     @util.timeit("info")
     def _read_event_waveform_data(self, w_beg, w_end):
-        """Read waveform data for one event, with the cut pads if set."""
+        """Read waveform data for one event, with the magnitude pads and
+        the cut pads if set."""
 
         pre_pad = post_pad = 0.0
+        if self.mags is not None:
+            pre_pad, post_pad = self.mags.amp.pad(
+                self.marginal_window,
+                self.lut.max_traveltime,
+                self.lut.fraction_tt,
+            )
+
         if self.pre_cut:
             pre_pad = max(pre_pad, self.pre_cut)
         if self.post_cut:
@@ -1130,15 +1249,19 @@ class QuakeScan:
     @util.timeit("info")
     def _calculate_location(self, event, marginal):
         """
-        From the marginalised map (flat, [n_nodes]), compute the three
+        From the marginalised map (flat, [n_nodes]; or, on the map path,
+        with ``marginal`` None, the kept map4d summed over its samples in
+        its own float32, as the JAX map path sums it), compute the three
         location estimates: interpolated spline peak, 3-D Gaussian fit,
-        and global covariance. Returns the normalised map
-        (nx, ny, nz).
+        and global covariance. Returns the normalised map (nx, ny, nz).
 
         """
 
-        coa_map = np.asarray(marginal, dtype=np.float64).reshape(
-            tuple(self.lut.node_count))
+        if event.map4d is not None:
+            coa_map = np.sum(event.map4d, axis=-1)
+        else:
+            coa_map = np.asarray(marginal, dtype=np.float64).reshape(
+                tuple(self.lut.node_count))
         coa_map = coa_map / np.nanmax(coa_map)
 
         event.add_spline_location(self._splineloc(np.copy(coa_map)))

@@ -2,8 +2,8 @@
 """
 Small pure helpers shared by the port's modules: time and sample
 arithmetic, the resampling chain of the pre-processing, the per-channel
-merge, the numeric helpers of trigger, picking and location, the timing
-decorator, and the exceptions that detect, trigger and locate raise or
+merge, the numeric helpers of trigger, picking and location, the
+Wood-Anderson response of local magnitudes, the timing decorator, and the exceptions that detect, trigger and locate raise or
 catch. Copied from the JAX package's ``util.py`` (which the port does
 not import), with only what those stages reach.
 
@@ -150,6 +150,34 @@ def logger(logstem, log, loglevel="info"):
         handlers=sinks,
         force=True,
     )
+
+
+# --- instrument responses ----------------------------------------------------
+
+# Wood-Anderson torsion seismograph PAZ. Two conventions exist in the
+# literature for the pole positions; the "obspy" one is the standard set.
+_WOODANDERSON_POLES = {
+    True: [-6.283185 - 4.712j, -6.283185 + 4.712j],
+    False: [-5.49779 + 5.60886j, -5.49779 - 5.60886j],
+}
+
+
+def wa_response(convert="DIS2DIS", obspy_def=True):
+    """
+    Wood-Anderson response as a poles-and-zeros dict. ``convert`` selects the
+    number of zeros so that applying the response maps correctly between the
+    displacement/velocity domains (same-domain conversions need the extra
+    zero at the origin).
+
+    """
+
+    n_zeros = 2 if convert in ("DIS2DIS", "VEL2VEL") else 1
+    return {
+        "poles": list(_WOODANDERSON_POLES[obspy_def]),
+        "zeros": [0j] * n_zeros,
+        "sensitivity": 2080,
+        "gain": 1.0,
+    }
 
 
 # --- the resampling chain ----------------------------------------------------
@@ -448,6 +476,40 @@ class OnsetTypeError(QMError):
 
 class LUTPhasesException(QMError):
     detail = "{0}"
+
+
+class PickOrderException(QMError):
+    detail = (
+        "The P-phase arrival-time pick is later than the S-phase arrival "
+        "pick! Something has gone wrong.\nEvent: {0}, station: "
+        "{1}, p_pick: {2}, s_pick: {3}."
+    )
+
+
+class MagsTypeError(QMError):
+    detail = (
+        "The Mags object you have specified is not supported: currently "
+        "only `quakemigrate_torch.signal.local_mag.LocalMag` - see manual."
+    )
+
+    def __init__(self):
+        super().__init__()
+
+
+class ResponseNotFoundError(QMError):
+    detail = "{0} -- skipping {1}"
+
+
+class ResponseRemovalError(QMError):
+    detail = "{0} -- skipping {1}"
+
+
+class PeakToTroughError(QMError):
+    detail = "{0}"
+
+    def __init__(self, err):
+        super().__init__(err)
+        self.msg = err
 
 
 class NyquistException(QMError):

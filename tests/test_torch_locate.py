@@ -324,9 +324,11 @@ def test_dataless_event_skipped(runs, workspace, tmp_path):
 
 
 @pytest.mark.parametrize("options", [
-    {"write_coalescence": True}, {"plot_event_video": True},
-    {"write_real_waveforms": True}, {"write_wa_waveforms": True},
-    {"mags": object()},
+    {"write_coalescence": True, "plot_event_video": True},
+    {"plot_event_video": True},
+    {"write_real_waveforms": True, "cut_waveform_format": "SAC"},
+    {"write_wa_waveforms": True, "cut_waveform_format": "GSE2"},
+    {"write_cut_waveforms": True, "cut_waveform_format": "SEGY"},
     {"write_cut_waveforms": True, "cut_waveform_format": "SAC"},
 ])
 def test_options_not_covered_raise(workspace, options):

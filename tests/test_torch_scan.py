@@ -263,8 +263,18 @@ from quakemigrate_torch.io import (
     read_stations, read_triggered_events, write_availability,
     write_coalescence, write_cut_waveforms, write_triggered_events)
 from quakemigrate_torch.io.table import Table
-from quakemigrate_torch.ops.cuda_migrate import migrate_marginalise_cuda
-from quakemigrate_torch.ops.migrate import migrate_marginalise
+from quakemigrate_torch.ops.cuda_migrate import (
+    migrate_map_cuda, migrate_map_v2_cuda, migrate_marginalise_cuda)
+from quakemigrate_torch.ops.migrate import (
+    find_max_coa, migrate_map, migrate_marginalise)
+from quakemigrate_torch.io import (
+    read_coalescence, read_response_inv, write_amplitudes)
+from quakemigrate_torch.seis.response import (
+    Inventory, read_inventory, remove_trace_response, simulate_seismometer)
+from quakemigrate_torch.signal.local_mag import Amplitude, LocalMag, Magnitude
+from quakemigrate_torch.util import (
+    PeakToTroughError, ResponseNotFoundError, ResponseRemovalError,
+    wa_response)
 from quakemigrate_torch.signal import Trigger as SignalTrigger
 from quakemigrate_torch.signal.pickers import GaussianPicker, PhasePicker
 from quakemigrate_torch.signal.trigger import chunks2trace
@@ -279,6 +289,10 @@ from quakemigrate_torch.util import (
     AttribDict, DataGapException, merge_stream, resample, shift_to_sample)
 assert "quakemigrate_torch.experiments.exp_kernel_breakdown" in names
 assert "quakemigrate_torch.experiments.exp_vpu_v2" in names
+for module in ("seis.response", "io.amplitudes", "signal.local_mag",
+               "signal.local_mag.amplitude", "signal.local_mag.magnitude",
+               "signal.local_mag.local_mag"):
+    assert f"quakemigrate_torch.{module}" in names, module
 assert not [m for m in sys.modules if blocked(m)]
 print(len(names))
 """
