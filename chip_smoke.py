@@ -95,6 +95,31 @@ Smoke run of quakemigrate_torch on one NVIDIA GPU.
    plain map and the map's copy back to a pinned buffer timed; then the
    simple form on F1's route (256 onsets, CudaDetectVPU), held to the
    plain map, its launches counted.
+   f3_path: a coarse regional scan that no staged kernel takes (40 x 40
+   x 16 nodes at 10 km, homogeneous vp 6.0 and vs 3.46 km/s, 12 surface
+   stations x P/S at 100 Hz, a residual span of ~3,000 samples): the
+   route decided before any launch is K3 (csrc/migrate_detect_global.cu,
+   the onset rows from global memory) with K1 v2's and K2 v2's reasons;
+   3 windows through DetectScan launch K3 once each and nothing else,
+   held to the plain window on the card (the tolerances of step 4, the
+   argmax equal to the plain flat-order argmax or tie-consistent), the
+   planted source within a node; M1 over 100 samples and M2's simple
+   form over the window on the same plan, held to the plain
+   migrate_marginalise and migrate_map; K3, M1 and M2 timed with K3's
+   bound and gather floor. Then K3 at the Icequake window with
+   kernel="xla" (4 windows, held to the plain window), timed in turns
+   with K1 v2. kurtosis_detect: a new synthetic Icequake workspace;
+   QuakeScan.detect with KurtosisOnset (the example's bandpass, kurtosis
+   windows 0.25 / 0.5 s, 0.05 s of smoothing) over 60 s on K1 v2 (one
+   launch a window, nothing else), each window held to the plain
+   kurtosis window on the card, the front end's float32 error against
+   float64 within twice the CPU's, the planted source within a node;
+   Trigger (static 2.8 on the normalised trace): exactly the planted
+   event; QuakeScan.locate of it with the same onset (one K1 v2 and one
+   M1 v2 launch), located within a node. decimate_detect: a QuakeScan
+   built on that workspace's LUT, the LUT decimated in place by [2, 2,
+   2], then detect: the scan migrates on the 36 x 32 x 29 grid (K1 v2
+   once a window) and finds the planted source within a decimated node.
 5. The VPU-plan kernel (csrc/migrate_detect_vpu.cu) against its plain
    version on a small plan and at the Icequake grid (tile 512, bricks
    8 x 8 x 8), timed; then K2 v2 (csrc/migrate_detect_vpu_v2.cu, the
@@ -298,6 +323,35 @@ SMEM_BYTES_PER_S = 33.5e12
 # The streaming probe streams 2 GiB per rows value here (16 GiB in
 # experiments/exp_dma_probe.py), to keep the smoke short.
 SMOKE_STREAM_BYTES = 2 * 2**30
+# f3_path: a coarse regional scan no staged kernel takes (K3's route): 40 x
+# 40 x 16 nodes at 10 km, homogeneous vp 6.0 and vs 3.46 km/s, 12 surface
+# stations x P/S at 100 Hz, windows of F3_FSMP + F3_NSAMPLES samples and a
+# post-pad past the largest traveltime
+F3_NODES, F3_SPACING_KM, F3_RATE = (40, 40, 16), 10.0, 100
+F3_VP, F3_VS = 6.0, 3.46
+F3_FSMP, F3_NSAMPLES, F3_WINDOWS = 200, 1000, 3
+F3_STA_LTA = {"P": (0.2, 1.0), "S": (0.2, 1.0)}
+# kurtosis_detect: KurtosisOnset at the Icequake example's bandpass, with
+# kurtosis windows of its LTA lengths and 0.05 s of smoothing (12 samples
+# at 250 Hz: numpy's even-length centring); the trigger's static
+# threshold on the normalised trace (a CPU rehearsal at 0.05 and 0.1 km:
+# the planted event's peak 3.60, the trace's largest value beyond the
+# minimum event interval 2.02)
+KURTOSIS_WINDOWS = {"P": 0.25, "S": 0.5}
+KURTOSIS_SMOOTHING = 0.05
+KURTOSIS_THRESHOLD = 2.8
+# The kurtosis front end (float32 running sums of x to x^4, in the
+# reference's order on every device: ops/rolling.py) on the card against
+# its plain version in float32 on the CPU, relative: the CPU tests' float32
+# tolerance. Both are also read against float64 on the CPU: before an
+# event near 1e-5, after one ~3-4e-3 (the running sums hold the event's
+# x^4 and the windows' differences cancel; the reference sums in float32
+# too), which is why the card must take the CPU's order to meet it.
+FRONT_END_RTOL = 1e-5
+# kurtosis_detect's device="cpu" QuakeScan.detect (the plain window over
+# all 259,008 nodes, ~10 s a window on the host): the windows before, at
+# and after the planted one
+KURTOSIS_CPU_WINDOWS = 3
 
 
 def check(cond, msg):
@@ -523,24 +577,27 @@ def kernel_case(name, tt, node_count, fsmp, nsamples, tile, brick, rng,
     return record
 
 
-def make_windows(tt, rng, n_windows=N_WINDOWS, plant_window=PLANT_WINDOW):
+def make_windows(tt, rng, n_windows=N_WINDOWS, plant_window=PLANT_WINDOW,
+                 node_count=NODE_COUNT, fsmp=FSMP, nsamples=NSAMPLES,
+                 lsmp=LSMP, rate=RATE, sta_lta=STA_LTA):
     """``n_windows`` consecutive windows of a continuous 3-component noise
     record of the stations of ``tt`` (phase-major slots) with one planted
     source in window ``plant_window``; returns (windows, planted node
-    index)."""
+    index). The geometry defaults to the Icequake window's."""
 
     from quakemigrate_torch.util import time2sample
 
     n_slots = tt.shape[1]
     n_stations = n_slots // 2
-    hop = NSAMPLES
-    t_len = FSMP + NSAMPLES + LSMP
+    hop = nsamples
+    t_len = fsmp + nsamples + lsmp
     total = (n_windows - 1) * hop + t_len
     waves = rng.normal(size=(n_stations, 3, total)).astype(np.float32)
 
-    planted = tuple(int(rng.integers(8, n - 8)) for n in NODE_COUNT)
-    node = int(np.ravel_multi_index(planted, NODE_COUNT))
-    origin = plant_window * hop + FSMP + 300
+    planted = tuple(int(rng.integers(min(8, n // 4), n - min(8, n // 4)))
+                    for n in node_count)
+    node = int(np.ravel_multi_index(planted, node_count))
+    origin = plant_window * hop + fsmp + min(300, nsamples // 2)
     # Amplitude 4 against unit noise keeps the STA/LTA below saturation,
     # so each onset peaks at one sample and the planted node is sharp.
     wavelet = np.array([4.0, -4.0], np.float32)
@@ -553,10 +610,10 @@ def make_windows(tt, rng, n_windows=N_WINDOWS, plant_window=PLANT_WINDOW):
                 )
 
     nsta = np.array(
-        [time2sample(STA_LTA[p][0], RATE) for p in ("P", "S")
+        [time2sample(sta_lta[p][0], rate) for p in ("P", "S")
          for _ in range(n_stations)], dtype=np.int32)
     nlta = np.array(
-        [time2sample(STA_LTA[p][1], RATE) for p in ("P", "S")
+        [time2sample(sta_lta[p][1], rate) for p in ("P", "S")
          for _ in range(n_stations)], dtype=np.int32)
 
     windows = []
@@ -611,8 +668,7 @@ def run_slice(tt, rng, device):
 
     windows, node = make_windows(tt, rng)
     planted_ijk = np.array(np.unravel_index(node, NODE_COUNT))
-    scan = DetectScan(tt, NODE_COUNT, FSMP, LSMP, position="classic",
-                      transform="energy", min_onset_value=0.4, device=device)
+    scan = DetectScan(tt, NODE_COUNT, FSMP, LSMP, device=device)
     print(f"slice: route {scan.route}")
     check(scan.route == "k1_v2", f"the Icequake window takes the "
           f"{scan.route} route ({scan.route_reason})")
@@ -681,13 +737,13 @@ def run_slice(tt, rng, device):
     # Window compute alone, kernel path against the plain path, on the
     # same uploaded blocks (information, not a claim)
     from quakemigrate_torch.ops.scan_window import (
+        detect_window_cuda,
         detect_window_fused,
-        detect_window_fused_cuda,
     )
 
     block = [torch.from_numpy(a).to(device) for a in windows[0]]
-    kernel_ms = cuda_ms(lambda: detect_window_fused_cuda(
-        *block, detector, "classic", "energy", 0.4, scan.n_nodes), reps=10)
+    kernel_ms = cuda_ms(lambda: detect_window_cuda(
+        scan.front_end, block, detector, scan.n_nodes), reps=10)
     plain_ms = cuda_ms(lambda: detect_window_fused(
         *block, tt_dev, "classic", "energy", 0.4, FSMP, NSAMPLES), reps=3,
         warmup=1)
@@ -803,8 +859,7 @@ def f1_path(device, n_stations=128, n_windows=2):
     rng = np.random.default_rng(2029)
     tt = icequake_traveltimes(rng, n_stations)
     windows, _ = make_windows(tt, rng, n_windows, plant_window=1)
-    scan = DetectScan(tt, NODE_COUNT, FSMP, LSMP, position="classic",
-                      transform="energy", min_onset_value=0.4, device=device)
+    scan = DetectScan(tt, NODE_COUNT, FSMP, LSMP, device=device)
     print(f"f1: {tt.shape[1]} onsets, route {scan.route}: "
           f"{scan.route_reason}")
     check(scan.route == "k2_v2" and "shared memory" in scan.route_reason,
@@ -1333,7 +1388,8 @@ class NoPlainOnCuda:
                         (scan_module, "migrate_marginalise"),
                         (scan_module, "migrate_map"),
                         (cm, "detect_reduce_plan_reference"),
-                        (cm, "vpu_v2_reference")]
+                        (cm, "vpu_v2_reference"),
+                        (cm, "detect_reduce")]
 
     def __enter__(self):
         self.saved = [getattr(m, n) for m, n in self.targets]
@@ -2929,6 +2985,653 @@ def x16g_path(s):
     return launches, records, plain_ms, abs_err, bounds
 
 
+def f3_traveltimes(rng):
+    """Homogeneous-moveout tables of the F3 geometry: 12 surface stations
+    at random on the grid of F3_NODES at F3_SPACING_KM, vp F3_VP and vs
+    F3_VS, phase-major, at F3_RATE."""
+
+    from quakemigrate_torch.lut import traveltime_table
+
+    axes = [np.arange(n) * F3_SPACING_KM for n in F3_NODES]
+    x, y, z = np.meshgrid(*axes, indexing="ij")
+    stations = rng.uniform([0.0, 0.0], [axes[0][-1], axes[1][-1]],
+                           size=(N_STATIONS, 2))
+    dist = [np.sqrt((x - sx) ** 2 + (y - sy) ** 2 + z**2)
+            for sx, sy in stations]
+    return traveltime_table([d / v for v in (F3_VP, F3_VS) for d in dist],
+                            F3_RATE)
+
+
+def k3_bound(n_nodes, n_onsets, t_len, nsamples):
+    """K3's bound (:func:`roofline`): its inputs read once (the logged
+    onsets [O, T], the flat int32 traveltimes [N, O], inv_available) and
+    its three [n_tiles, S] outputs written once, against O adds and four
+    more operations (scale, exp, max, sum) per node and sample; and the
+    floor of its gather, the n_nodes x O x S 4-byte onset reads. K3 reads
+    the onset rows with global loads: they stay in L2 (whose rate NVIDIA
+    does not publish) and are cached in L1, which shares the SM's
+    shared-memory pipe, so the floor is taken at SMEM_BYTES_PER_S, as
+    for the staged kernels (``smem_bound_ms``)."""
+
+    from quakemigrate_torch.ops.cuda_migrate import K3_TILE
+
+    n_tiles = -(-n_nodes // K3_TILE)
+    nbytes = 4 * (n_onsets * t_len + n_nodes * n_onsets + 1
+                  + 3 * n_tiles * nsamples)
+    bound_ms, bound_by = roofline(nbytes, n_nodes * nsamples * (n_onsets + 4))
+    gather = 4 * n_nodes * n_onsets * nsamples
+    return {"bound_ms": bound_ms, "bound_by": bound_by,
+            "smem_bound_ms": gather / SMEM_BYTES_PER_S * 1e3,
+            "gather_bytes": gather}
+
+
+def hold_windows(label, windows, results, tt_dev, device, fsmp, nsamples,
+                 plain, coa_at_idx):
+    """Each window's DetectScan result against ``plain(block)`` (max_coa,
+    max_coa_n, max_idx on the card): max_coa within MAX_COA_RTOL,
+    max_coa_n within MAX_COA_N_RTOL, the argmax equal or tie-consistent
+    (``coa_at_idx(block, idx)``, the plain coalescence at the chosen node,
+    within MAX_COA_RTOL of the maximum). Returns (errors, peaks)."""
+
+    errs = {"max_coa": 0.0, "max_coa_n": 0.0, "tie": 0.0, "max_abs_err": 0.0,
+            "argmax_equal": []}
+    peaks = []
+    for w, (block, res) in enumerate(zip(windows, results)):
+        check(res is not None, f"{label} window {w}: no result")
+        max_coa, max_coa_n, max_idx, ijk = res
+        check(max_coa.shape == (nsamples,) and ijk.shape == (nsamples, 3)
+              and np.isfinite(max_coa).all() and np.isfinite(max_coa_n).all(),
+              f"{label} window {w}: shapes or non-finite values")
+        ref = [x.cpu().numpy() for x in plain(block)]
+        rel = np.abs(max_coa - ref[0]) / np.abs(ref[0])
+        rel_n = np.abs(max_coa_n - ref[1]) / np.abs(ref[1])
+        tie = np.abs(ref[0] - coa_at_idx(block, max_idx)) / np.abs(ref[0])
+        check(rel.max() <= MAX_COA_RTOL and rel_n.max() <= MAX_COA_N_RTOL
+              and tie.max() <= MAX_COA_RTOL,
+              f"{label} window {w}: max_coa {rel.max()}, max_coa_n "
+              f"{rel_n.max()}, tie {tie.max()}")
+        errs["max_coa"] = max(errs["max_coa"], float(rel.max()))
+        errs["max_coa_n"] = max(errs["max_coa_n"], float(rel_n.max()))
+        errs["tie"] = max(errs["tie"], float(tie.max()))
+        errs["max_abs_err"] = max(errs["max_abs_err"],
+                                  float(np.abs(max_coa - ref[0]).max()))
+        errs["argmax_equal"].append(float((max_idx == ref[2]).mean()))
+        peak = int(np.argmax(max_coa))
+        peaks.append((float(max_coa[peak]), ijk[peak], peak))
+    print(f"{label}: every window vs its plain version on the card: max_coa "
+          f"{errs['max_coa']:.2e}, max_coa_n {errs['max_coa_n']:.2e}, tie "
+          f"{errs['tie']:.2e}, argmax equal {errs['argmax_equal']}")
+    return errs, peaks
+
+
+def hold_to_cpu_run(label, root, scan, windows, start, first, coa_at_idx,
+                    cpu_scan):
+    """Hold ``scan``'s detect on the card to ``cpu_scan``, the same
+    QuakeScan with device="cpu" (the plain window), run here over
+    KURTOSIS_CPU_WINDOWS windows from the card run's window ``first``
+    (``windows``: the card's (block, result) in order, from ``start``).
+    Checks: each window's block equal to the card's; max_coa within
+    MAX_COA_RTOL and max_coa_n within MAX_COA_N_RTOL of the CPU's; the
+    card's argmax the CPU's or tie-consistent (the CPU's plain coalescence
+    at the card's node, ``coa_at_idx(block, idx, "cpu")``, within
+    MAX_COA_RTOL of the CPU's maximum); the .scanmseed over that span:
+    COA and COA_N within max(1 count, MAX_COA_RTOL of the value) of the
+    CPU's, the CPU tests' bound, X, Y and Z equal where the argmaxes
+    are. Returns a record."""
+
+    from quakemigrate_torch.seis import read
+
+    n = KURTOSIS_CPU_WINDOWS
+    cpu_start = start + first * ARCHIVE_TIMESTEP
+    cpu_seen = {}
+    cpu_scan.on_window = lambda i, block, result: cpu_seen.update(
+        {i: (block, result)})
+    _, wall = quiet(root, f"{label}_cpu", lambda: cpu_scan.detect(
+        cpu_start, cpu_start + n * ARCHIVE_TIMESTEP))
+    check(sorted(cpu_seen) == list(range(n)),
+          f"{label} on the CPU: windows {sorted(cpu_seen)}")
+    errs = {"max_coa": 0.0, "max_coa_n": 0.0, "tie": 0.0}
+    same = []
+    for i in range(n):
+        (block, res), (cpu_block, ref) = windows[first + i], cpu_seen[i]
+        check(len(block) == len(cpu_block) and all(
+            np.array_equal(a, b) for a, b in zip(block, cpu_block)),
+            f"{label}: the CPU's window {i} is not the card's {first + i}")
+        rel = np.abs(res[0] - ref[0]) / np.abs(ref[0])
+        rel_n = np.abs(res[1] - ref[1]) / np.abs(ref[1])
+        tie = np.abs(ref[0] - coa_at_idx(cpu_block, res[2], "cpu")) / np.abs(
+            ref[0])
+        check(rel.max() <= MAX_COA_RTOL and rel_n.max() <= MAX_COA_N_RTOL
+              and tie.max() <= MAX_COA_RTOL,
+              f"{label} window {first + i} against the CPU's: max_coa "
+              f"{rel.max()}, max_coa_n {rel_n.max()}, tie {tie.max()}")
+        for key, x in (("max_coa", rel), ("max_coa_n", rel_n), ("tie", tie)):
+            errs[key] = max(errs[key], float(x.max()))
+        same.append(res[2] == ref[2])
+    same = np.concatenate(same)
+
+    def traces(qs):
+        path = (qs.run.path / "detect" / "scanmseed"
+                / f"{cpu_start.year}_{cpu_start.julday:03d}.scanmseed")
+        return {tr.stats.station: tr for tr in read(path)}
+
+    card, cpu = traces(scan), traces(cpu_scan)
+    counts = {}
+    for name, rtol in (("COA", MAX_COA_RTOL), ("COA_N", MAX_COA_RTOL),
+                       ("X", None), ("Y", None), ("Z", None)):
+        want = cpu[name].data.astype(np.int64)
+        off = int(round((cpu[name].stats.starttime
+                         - card[name].stats.starttime)
+                        * card[name].stats.sampling_rate))
+        got = card[name].data[off:off + want.size].astype(np.int64)
+        check(off >= 0 and got.size == want.size == same.size,
+              f"{label}: .scanmseed {name} spans {got.size} / {want.size} "
+              f"samples at offset {off}, {same.size} scanned")
+        diff = np.abs(got - want)
+        ok = (diff <= np.maximum(1, rtol * np.abs(want)) if rtol
+              else (diff == 0) | ~same)
+        check(ok.all(), f"{label}: .scanmseed {name} differs from the "
+              f"CPU's at {int((~ok).sum())} samples (largest {diff.max()})")
+        counts[name] = int(diff.max())
+    record = {"windows": [first, first + n], "wall_s": wall,
+              "vs_cpu": errs, "argmax_equal": float(same.mean()),
+              "scanmseed_max_count_diff": counts}
+    print(f"{label}: device=\"cpu\" detect of windows {first}-"
+          f"{first + n - 1}: {wall:.3f} s wall; the card against it {record}")
+    return record
+
+
+def f3_path(device):
+    """F3: a coarse regional scan no staged kernel takes. The geometry of
+    F3_NODES (25,600 nodes at 10 km, 12 stations x P/S at 100 Hz):
+    detect_route gives "k3" with K1 v2's and K2 v2's reasons, decided
+    before any launch; F3_WINDOWS windows through DetectScan launch K3
+    (csrc/migrate_detect_global.cu) once each and no other kernel, held
+    to the plain window on the card (max_coa 1e-5, max_coa_n 1e-4, the
+    argmax equal to the plain flat-order argmax or tie-consistent), the
+    planted source found within one node. Then locate's passes on the
+    same plan: M1 over a 100-sample marginal window at the peak against
+    the plain migrate_marginalise (M1_RTOL_OF_MAX of the maximum, the
+    same peak node) and M2's simple form against the plain migrate_map
+    (MAP_RTOL of each value). K3, M1 and M2 timed (CUDA events, median of
+    5), with the plain versions and K3's bound and gather floor (its
+    reads at SMEM_BYTES_PER_S, the L1/shared-memory rate: :func:`k3_bound`)."""
+
+    from quakemigrate_torch.ops import cuda_migrate as cm
+    from quakemigrate_torch.ops.migrate import (
+        detect_reduce,
+        migrate_map,
+        migrate_marginalise,
+    )
+    from quakemigrate_torch.ops.scan_window import fused_onsets
+    from quakemigrate_torch.signal.scan import DetectScan, detect_route
+
+    rng = np.random.default_rng(2032)
+    tt = f3_traveltimes(rng)
+    lsmp = int(tt.max()) + 2 * int(F3_STA_LTA["S"][1] * F3_RATE) + 100
+    windows, node = make_windows(
+        tt, rng, F3_WINDOWS, plant_window=1, node_count=F3_NODES,
+        fsmp=F3_FSMP, nsamples=F3_NSAMPLES, lsmp=lsmp, rate=F3_RATE,
+        sta_lta=F3_STA_LTA)
+    planted = np.array(np.unravel_index(node, F3_NODES))
+    route = detect_route(tt, F3_NODES, device)
+    plan = route[2]
+    print(f"f3: {np.prod(F3_NODES)} nodes, {tt.shape[1]} onsets, r_span "
+          f"{plan.r_span}, largest traveltime {tt.max()} samples; route "
+          f"{route[0]}: {route[1]}")
+    check(route[0] == "k3" and "K1 v2 (" in route[1]
+          and "K2 v2 (" in route[1], f"f3: route {route[0]} ({route[1]})")
+    scan = DetectScan(tt, F3_NODES, F3_FSMP, lsmp, device=device, route=route)
+    detector = scan.detector(F3_NSAMPLES)  # tables up before the count
+    torch.cuda.synchronize()
+    cm.reset_launches()
+    t0 = time.perf_counter()
+    results = scan.detect(windows)
+    wall = time.perf_counter() - t0
+    launches = dict(cm.launches)
+    check(launches["migrate_detect_global"] == F3_WINDOWS
+          and sum(launches.values()) == F3_WINDOWS,
+          f"f3: launches {launches} for {F3_WINDOWS} windows")
+    tt_dev = torch.from_numpy(tt).to(device)
+    errs, peaks = hold_windows(
+        "f3", windows, results, tt_dev, device, F3_FSMP, F3_NSAMPLES,
+        lambda b: plain_window(b, tt_dev, device, F3_FSMP, F3_NSAMPLES),
+        lambda b, idx: plain_coa_at(b, tt_dev, idx, device, F3_FSMP,
+                                    F3_NSAMPLES))
+    dist = int(np.abs(peaks[1][1] - planted).max())
+    print(f"f3: planted node {planted.tolist()}, window 1's peak "
+          f"{peaks[1][0]:.6f} at {peaks[1][1].tolist()} ({dist} nodes); "
+          f"{F3_WINDOWS} windows in {wall:.3f} s wall (first call), "
+          f"device ms a window {np.round(scan.window_ms, 3).tolist()}")
+    check(dist <= 1, f"f3: peak {dist} nodes from the planted source")
+
+    # Locate's passes on the same plan, for the planted window
+    block = [torch.from_numpy(a).to(device) for a in windows[1]]
+    combined, available = fused_onsets(*block, "classic", "energy", 0.4)
+    mask = block[2]
+    onsets_log, inv = detector.prepare(combined, mask, available)
+    i0 = min(max(0, peaks[1][2] - 50), F3_NSAMPLES - 100)
+    torch.cuda.synchronize()
+    cm.reset_launches()
+    marginal = detector.marginalise(onsets_log, inv, i0, 100)
+    map_ = detector.map(onsets_log, inv)
+    torch.cuda.synchronize()
+    locate_launches = dict(cm.launches)
+    check(locate_launches["migrate_marginalise"] == 1
+          and locate_launches["migrate_map"] == 1
+          and sum(locate_launches.values()) == 2,
+          f"f3: locate launches {locate_launches}")
+    t0 = time.perf_counter()
+    want = migrate_marginalise(combined, tt_dev, mask, available, F3_FSMP,
+                               F3_NSAMPLES, i0, 100)
+    torch.cuda.synchronize()
+    m1_plain_ms = (time.perf_counter() - t0) * 1e3
+    m1_err = float((marginal - want).abs().max() / want.abs().max())
+    same_peak = int(torch.argmax(marginal)) == int(torch.argmax(want))
+    check(m1_err <= M1_RTOL_OF_MAX and same_peak,
+          f"f3: M1 {m1_err} of the maximum, peak equal {same_peak}")
+    t0 = time.perf_counter()
+    want_map = migrate_map(combined, tt_dev, mask, available, F3_FSMP,
+                           F3_NSAMPLES)
+    torch.cuda.synchronize()
+    map_plain_ms = (time.perf_counter() - t0) * 1e3
+    map_err = float(((map_ - want_map).abs() / want_map.abs()).max())
+    check(map_err <= MAP_RTOL, f"f3: M2 simple form {map_err}")
+    del want_map, map_
+
+    bound = k3_bound(tt.shape[0], tt.shape[1], onsets_log.shape[1],
+                     F3_NSAMPLES)
+    k3_ms = median_ms(lambda: detector.launch(onsets_log, inv), reps=20)
+    plain_ms = cuda_ms(lambda: detect_reduce(
+        combined, tt_dev, mask, available, F3_FSMP, F3_NSAMPLES,
+        tt.shape[0]), reps=3, warmup=1)
+    m1_ms = median_ms(lambda: detector.marginalise(onsets_log, inv, i0, 100),
+                      reps=20)
+    map_ms = median_ms(lambda: detector.map(onsets_log, inv), reps=10)
+    print(f"f3: K3 {k3_ms:.4f} ms a launch (median of 5 x 20), plain "
+          f"detect_reduce {plain_ms:.4f} ms; bound {bound['bound_ms']:.4f} "
+          f"ms ({bound['bound_by']}); gather floor (L1, the shared-memory "
+          f"pipe; the rows stay in L2) {bound['smem_bound_ms']:.4f} ms, the "
+          f"gather at {bound['gather_bytes'] / k3_ms / 1e9:.3f} TB/s; M1 at "
+          f"100 "
+          f"samples {m1_ms:.4f} ms (plain {m1_plain_ms:.3f} ms, one run, "
+          f"{m1_err:.2e} of the maximum), M2 simple at {F3_NSAMPLES} "
+          f"samples {map_ms:.4f} ms (plain {map_plain_ms:.3f} ms, one run, "
+          f"{map_err:.2e} relative); K3 {cm.K3_TILE} nodes a block, "
+          f"resources {_build_resources('qm_migrate_detect_global')}")
+    return {
+        "launches": launches["migrate_detect_global"], "route": route[0],
+        "route_reason": route[1], "r_span": plan.r_span,
+        "nodes": int(np.prod(F3_NODES)), "onsets": int(tt.shape[1]),
+        "nsamples": F3_NSAMPLES, "windows": F3_WINDOWS, "wall_s": wall,
+        "window_ms": scan.window_ms, "planted": planted.tolist(),
+        "peak_node_distance": dist,
+        "vs_plain": {k: v for k, v in errs.items() if k != "argmax_equal"},
+        "argmax_equal": errs["argmax_equal"], "ms": k3_ms,
+        "plain_ms": plain_ms, **bound, "m1": {
+            "launches": locate_launches["migrate_marginalise"],
+            "window": 100, "ms": m1_ms, "plain_ms": m1_plain_ms,
+            "err_of_max": m1_err},
+        "map": {"launches": locate_launches["migrate_map"],
+                "nsamples": F3_NSAMPLES, "ms": map_ms,
+                "plain_ms": map_plain_ms, "max_rel_err": map_err}}
+
+
+def _build_resources(kernel):
+    """Registers and spills of ``kernel`` from the build's ptxas report."""
+
+    from quakemigrate_torch import _build
+
+    return {name.split("_kernel")[0]: {k: v for k, v in entry.items()
+                                       if k != "wgmma_serialized"}
+            for name, entry in _build.kernel_resources(kernel).items()}
+
+
+def xla_icequake_path(device, tt, windows, n_windows=4):
+    """kernel="xla" at Icequake: the slice's pre-built windows (24 onsets,
+    625 samples) through DetectScan on detect_route's kernel="xla" route,
+    "k3" (K3 on a plan K1 v2 takes), held to the plain window; K3 timed
+    in turns with K1 v2 on the same prepared onsets (k3, k1_v2, k1_v2,
+    k3; 20 launches a turn). Returns a record."""
+
+    from quakemigrate_torch.experiments.exp_kernel_breakdown import in_turns
+    from quakemigrate_torch.ops import cuda_migrate as cm
+    from quakemigrate_torch.ops.scan_window import fused_onsets
+    from quakemigrate_torch.signal.scan import DetectScan, detect_route
+
+    scan = DetectScan(tt, NODE_COUNT, FSMP, LSMP, device=device,
+                      route=detect_route(tt, NODE_COUNT, device, "xla"))
+    check((scan.route, scan.route_reason) == ("k3", "kernel='xla'"),
+          f"xla: route {scan.route} ({scan.route_reason})")
+    detector = scan.detector(NSAMPLES)
+    torch.cuda.synchronize()
+    cm.reset_launches()
+    results = scan.detect(windows[:n_windows])
+    launches = dict(cm.launches)
+    check(launches["migrate_detect_global"] == n_windows
+          and sum(launches.values()) == n_windows,
+          f"xla: launches {launches} for {n_windows} windows")
+    tt_dev = torch.from_numpy(tt).to(device)
+    errs, _ = hold_windows(
+        "xla icequake", windows[:n_windows], results, tt_dev, device, FSMP,
+        NSAMPLES, lambda b: plain_window(b, tt_dev, device),
+        lambda b, idx: plain_coa_at(b, tt_dev, idx, device))
+    block = [torch.from_numpy(a).to(device) for a in windows[0]]
+    combined, available = fused_onsets(*block, "classic", "energy", 0.4)
+    onsets_log, inv = detector.prepare(combined, block[2], available)
+    k1_v2 = cm.CudaDetect(tt, NODE_COUNT, FSMP, NSAMPLES, device,
+                          plan=scan._plan)
+    turns = in_turns({"k3": lambda: detector.launch(onsets_log, inv),
+                      "k1_v2": lambda: k1_v2.launch(onsets_log, inv)},
+                     reps=20)
+    bound = k3_bound(tt.shape[0], tt.shape[1], onsets_log.shape[1], NSAMPLES)
+    record = {"launches": launches["migrate_detect_global"],
+              "ms": float(np.mean(turns["k3"])),
+              "k1_v2_ms": float(np.mean(turns["k1_v2"])), "turns_ms": turns,
+              **bound,
+              "vs_plain": {k: v for k, v in errs.items()
+                           if k != "argmax_equal"},
+              "argmax_equal": errs["argmax_equal"]}
+    print(f"xla icequake: K3 {record['ms']:.4f} ms, K1 v2 "
+          f"{record['k1_v2_ms']:.4f} ms in turns {turns}; K3's bound "
+          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}), gather floor "
+          f"(L1) {bound['smem_bound_ms']:.4f} ms, the gather at "
+          f"{bound['gather_bytes'] / record['ms'] / 1e9:.3f} TB/s; launches "
+          f"{launches}")
+    return record
+
+
+def kurtosis_onset_for(rate=RATE):
+    """The kurtosis_detect phase's KurtosisOnset: the Icequake example's
+    bandpass, KURTOSIS_WINDOWS and KURTOSIS_SMOOTHING."""
+
+    from quakemigrate_torch.signal.onsets import KurtosisOnset
+
+    return KurtosisOnset(
+        sampling_rate=rate, phases=["P", "S"],
+        bandpass_filters={"P": [10, 124, 4], "S": [10, 124, 4]},
+        kurtosis_windows=dict(KURTOSIS_WINDOWS),
+        smoothing_window=KURTOSIS_SMOOTHING)
+
+
+def kurtosis_detect_path(device, root, lut, archive, planted, origin, start,
+                         end):
+    """kurtosis_detect: QuakeScan.detect with KurtosisOnset over the
+    synthetic Icequake archive (259,008 nodes, 26 onsets, 250 Hz, 60 s at
+    timestep 2.5 s) on the card. Checks: route k1_v2, one K1 v2 launch a
+    window and no other kernel; each window held to the plain kurtosis
+    window on the card (max_coa 1e-5, max_coa_n 1e-4, argmax
+    tie-consistent); for the first and the planted window the front end
+    on the card within FRONT_END_RTOL of its plain version in float32 on
+    the CPU (both also read against float64); the same QuakeScan.detect
+    with device="cpu" over KURTOSIS_CPU_WINDOWS windows about the planted
+    one (:func:`hold_to_cpu_run`); the .scanmseed peak within one node of
+    the planted source. Then Trigger (the normalised trace, static
+    KURTOSIS_THRESHOLD, the example's marginal window and interval):
+    exactly the planted event; and QuakeScan.locate of it with the same
+    onset on the card: one K1 v2 and one M1 v2 launch, no plain version
+    on a CUDA tensor, the spline hypocentre within one node of the
+    planted source. Returns a record."""
+
+    from quakemigrate_torch.io import read_scanmseed, read_triggered_events
+    from quakemigrate_torch.ops import cuda_migrate as cm
+    from quakemigrate_torch.ops.migrate import _prepare_onsets
+    from quakemigrate_torch.ops.scan_window import (
+        detect_window_fused_kurtosis,
+        fused_kurtosis_onsets,
+    )
+    from quakemigrate_torch.signal import QuakeScan, Trigger
+
+    onset = kurtosis_onset_for()
+    scan = QuakeScan(archive, lut, onset, str(root / "runs"),
+                     "kurtosis_detect", device=device,
+                     timestep=ARCHIVE_TIMESTEP)
+    seen = {}
+    scan.on_window = lambda i, block, result: seen.update(
+        {i: (block, result)})
+    torch.cuda.synchronize()
+    cm.reset_launches()
+    _, wall = quiet(root, "kurtosis_detect", lambda: scan.detect(start, end))
+    launches = dict(cm.launches)
+    detect_scan = scan.detect_scan
+    n_windows = len(seen)
+    print(f"kurtosis_detect: {n_windows} windows, route {detect_scan.route}, "
+          f"fsmp {detect_scan.fsmp}, lsmp {detect_scan.lsmp}; {wall:.3f} s "
+          f"wall (cold); launches {launches}")
+    check(detect_scan.route == "k1_v2"
+          and n_windows == round(ARCHIVE_SPAN_S / ARCHIVE_TIMESTEP)
+          and launches["migrate_detect_v2"] == n_windows
+          and sum(launches.values()) == n_windows,
+          f"kurtosis_detect: route {detect_scan.route}, {n_windows} windows, "
+          f"launches {launches}")
+    nsmooth, taper_pad, min_onset = onset.fused_static_args(ARCHIVE_TIMESTEP)
+    check(nsmooth == 12, f"kurtosis_detect: nsmooth {nsmooth}")
+    fsmp = detect_scan.fsmp
+    nsamples = int(round(ARCHIVE_TIMESTEP * RATE))
+    tt_dev = torch.from_numpy(detect_scan.traveltimes).to(device)
+
+    def on_card(block):
+        return [torch.from_numpy(a).to(device) for a in block]
+
+    def plain(block):
+        return detect_window_fused_kurtosis(
+            *on_card(block), tt_dev, nsmooth, taper_pad, min_onset, fsmp,
+            nsamples)
+
+    def coa_at_idx(block, idx, dev=device):
+        """The plain coalescence at node ``idx[s]`` for each scan sample s,
+        computed on ``dev``."""
+
+        tensors = [torch.from_numpy(a).to(dev) for a in block]
+        combined, available = fused_kurtosis_onsets(
+            *tensors, nsmooth, taper_pad, min_onset)
+        onsets_log = _prepare_onsets(combined, tensors[2])
+        tt_on = torch.from_numpy(detect_scan.traveltimes).to(dev)
+        rows = tt_on[torch.from_numpy(idx).long().to(dev)].long()
+        t = torch.arange(nsamples, device=dev)
+        acc = torch.zeros(nsamples, dtype=torch.float32, device=dev)
+        for o in range(onsets_log.shape[0]):
+            acc = acc + onsets_log[o][fsmp + rows[:, o] + t]
+        return torch.exp(acc / available).cpu().numpy()
+
+    order = sorted(seen)
+    blocks = [seen[i][0] for i in order]
+    errs, peaks = hold_windows(
+        "kurtosis_detect", blocks, [seen[i][1] for i in order], tt_dev,
+        device, fsmp, nsamples, plain, coa_at_idx)
+    planted_window = int(np.argmax([p[0] for p in peaks]))
+    front = {}
+    for w in sorted({0, planted_window}):
+        card, _ = fused_kurtosis_onsets(*on_card(blocks[w]), nsmooth,
+                                        taper_pad, min_onset)
+        cpu, _ = fused_kurtosis_onsets(
+            *(torch.from_numpy(a) for a in blocks[w]), nsmooth, taper_pad,
+            min_onset)
+        exact, _ = fused_kurtosis_onsets(
+            *(torch.from_numpy(a.astype(np.float64) if a.dtype == np.float32
+                               else a) for a in blocks[w]),
+            nsmooth, taper_pad, min_onset)
+
+        def err(x, ref):
+            return float(((x.cpu().double() - ref.double()).abs()
+                          / ref.double().abs()).max())
+
+        front[w] = {"card_vs_cpu": err(card, cpu),
+                    "card_vs_f64": err(card, exact),
+                    "cpu_vs_f64": err(cpu, exact)}
+        check(front[w]["card_vs_cpu"] <= FRONT_END_RTOL,
+              f"kurtosis_detect: window {w}'s front end {front[w]}")
+    print(f"kurtosis_detect: the front end in float32 on the card against "
+          f"the CPU's, and each against float64 on the CPU, by window: "
+          f"{front}")
+
+    first = min(max(planted_window - 1, 0), n_windows - KURTOSIS_CPU_WINDOWS)
+    cpu_run = hold_to_cpu_run(
+        "kurtosis_detect", root, scan, [seen[i] for i in order], start,
+        first, coa_at_idx,
+        QuakeScan(archive, lut, kurtosis_onset_for(), str(root / "runs"),
+                  "kurtosis_detect_cpu", device="cpu",
+                  timestep=ARCHIVE_TIMESTEP))
+
+    (data, _), _ = quiet(root, "kurtosis_read_scanmseed",
+                         lambda: read_scanmseed(scan.run, start, end, 0.0,
+                                                lut.unit_conversion_factor))
+    coa_n = np.asarray(data["COA_N"])
+    peak = int(np.argmax(coa_n))
+    away = np.abs(np.arange(coa_n.size) - peak) > round(
+        LOCATE_MIN_EVENT_INTERVAL * RATE)
+    ijk = peaks[planted_window][1]
+    dist = int(np.abs(ijk - planted).max())
+    print(f"kurtosis_detect: normalised trace peak {coa_n[peak]:.5f}, its "
+          f"largest value beyond {LOCATE_MIN_EVENT_INTERVAL} s of the peak "
+          f"{coa_n[away].max():.5f}; the planted window's peak at "
+          f"{ijk.tolist()} against the planted {planted.tolist()} ({dist} "
+          f"nodes)")
+    check(dist <= 1, f"kurtosis_detect: peak {dist} nodes from the planted "
+          "source")
+
+    runs, run_name = scan.run.path.parent, scan.run.name
+    trig = Trigger(lut, run_path=str(runs), run_name=run_name,
+                   marginal_window=LOCATE_MARGINAL_WINDOW,
+                   min_event_interval=LOCATE_MIN_EVENT_INTERVAL,
+                   normalise_coalescence=True, threshold_method="static",
+                   static_threshold=KURTOSIS_THRESHOLD)
+    _, trigger_s = quiet(root, "kurtosis_trigger",
+                         lambda: trig.trigger(start, end))
+    events = read_triggered_events(scan.run, starttime=start, endtime=end)
+    print(f"kurtosis_detect: trigger {trigger_s:.3f} s; {len(events)} "
+          f"event(s): {[str(t) for t in events['CoaTime']]}, planted "
+          f"origin {origin}")
+    check(len(events) == 1 and abs(events["CoaTime"][0] - origin)
+          < LOCATE_MARGINAL_WINDOW,
+          f"kurtosis_detect: triggered {[str(t) for t in events['CoaTime']]}")
+
+    locate = QuakeScan(archive, lut, kurtosis_onset_for(), str(runs),
+                       run_name, device=device,
+                       marginal_window=LOCATE_MARGINAL_WINDOW)
+    located = []
+    locate.on_event = lambda event, pass1, handle: located.append(event)
+    torch.cuda.synchronize()
+    cm.reset_launches()
+    with NoPlainOnCuda():
+        _, locate_s = quiet(root, "kurtosis_locate",
+                            lambda: locate.locate(starttime=start,
+                                                  endtime=end))
+    torch.cuda.synchronize()
+    locate_launches = dict(cm.launches)
+    check(len(located) == 1 and locate.locate_route == "k1_v2"
+          and locate_launches["migrate_detect_v2"] == 1
+          and locate_launches["migrate_marginalise_v2"] == 1
+          and sum(locate_launches.values()) == 2,
+          f"kurtosis_detect locate: {len(located)} events, route "
+          f"{locate.locate_route}, launches {locate_launches}")
+    event = located[0]
+    node = lut.index2coord([event.hypocentre], inverse=True)[0]
+    loc_dist = int(np.abs(node - planted).max())
+    print(f"kurtosis_detect: locate {locate_s:.3f} s wall, origin "
+          f"{event.otime} (planted {origin}), spline node {node.tolist()} "
+          f"({loc_dist} nodes); launches {locate_launches}; split "
+          f"{locate.locate_event_attrib}")
+    check(loc_dist <= 1, f"kurtosis_detect: located {loc_dist} nodes from "
+          "the planted source")
+    return {"launches": launches["migrate_detect_v2"], "windows": n_windows,
+            "wall_s": wall, "window_ms": list(detect_scan.window_ms),
+            "vs_plain": {k: v for k, v in errs.items()
+                         if k != "argmax_equal"},
+            "argmax_equal_min": min(errs["argmax_equal"]),
+            "front_end": front, "cpu_run": cpu_run,
+            "peak_node_distance": dist, "coa_n_peak": float(coa_n[peak]),
+            "coa_n_away_max": float(coa_n[away].max()),
+            "trigger_s": trigger_s, "locate_s": locate_s,
+            "locate_launches": locate_launches,
+            "located_node_distance": loc_dist,
+            "locate_split": locate.locate_event_attrib}
+
+
+def decimate_detect_path(device, root, lut, archive, planted, start, end):
+    """decimate_detect: a QuakeScan built on the Icequake LUT, the LUT
+    then decimated in place by [2, 2, 2] (as the Askja example's detect
+    script does), and QuakeScan.detect over the same archive with the
+    example's STA/LTA onset: the scan migrates on the decimated grid (the
+    flat table and the plan built anew; K1 v2 once a window), and the
+    .scanmseed peak lies within one decimated node of the planted source.
+    Returns a record."""
+
+    from quakemigrate_torch.ops import cuda_migrate as cm
+    from quakemigrate_torch.seis import read
+    from quakemigrate_torch.signal.onsets import STALTAOnset
+    from quakemigrate_torch.signal.scan import QuakeScan
+
+    onset = STALTAOnset(position="classic", sampling_rate=RATE)
+    onset.bandpass_filters = {"P": [10, 124, 4], "S": [10, 124, 4]}
+    onset.sta_lta_windows = {p: list(w) for p, w in STA_LTA.items()}
+    scan = QuakeScan(archive, lut, onset, str(root / "runs"),
+                     "decimate_detect", device=device,
+                     timestep=ARCHIVE_TIMESTEP)
+    full_rows = scan._traveltime_table().shape[0]
+    counts = lut.node_count.copy()
+    lut.decimate([2, 2, 2], inplace=True)
+    torch.cuda.synchronize()
+    cm.reset_launches()
+    _, wall = quiet(root, "decimate_detect", lambda: scan.detect(start, end))
+    launches = dict(cm.launches)
+    n_windows = round(ARCHIVE_SPAN_S / ARCHIVE_TIMESTEP)
+    rows = scan.detect_scan.traveltimes.shape[0]
+    print(f"decimate_detect: grid {counts.tolist()} -> "
+          f"{lut.node_count.tolist()} ({full_rows} -> {rows} traveltime "
+          f"rows), route {scan.detect_scan.route}; {wall:.3f} s wall; "
+          f"launches {launches}")
+    check(rows == lut.n_nodes and scan.detect_scan.route == "k1_v2"
+          and launches["migrate_detect_v2"] == n_windows
+          and sum(launches.values()) == n_windows,
+          f"decimate_detect: {rows} rows for {lut.n_nodes} nodes, route "
+          f"{scan.detect_scan.route}, launches {launches}")
+    path = (scan.run.path / "detect" / "scanmseed"
+            / f"{start.year}_{start.julday:03d}.scanmseed")
+    out = {tr.stats.station: tr for tr in read(path)}
+    peak = int(np.argmax(out["COA"].data))
+    xyz = np.array([[out["X"].data[peak] / 1e6, out["Y"].data[peak] / 1e6,
+                     out["Z"].data[peak] / 1e3 / lut.unit_conversion_factor]])
+    node = lut.index2coord(xyz, inverse=True)[0]
+    offset = (counts - 2 * (lut.node_count - 1) - 1) // 2
+    planted_small = (planted - offset) / 2
+    dist = float(np.abs(node - planted_small).max())
+    print(f"decimate_detect: peak at decimated node {node.tolist()}, the "
+          f"planted source at {planted_small.tolist()} ({dist} nodes)")
+    check(dist <= 1, f"decimate_detect: peak {dist} decimated nodes from "
+          "the planted source")
+    return {"launches": launches["migrate_detect_v2"], "wall_s": wall,
+            "node_count": lut.node_count.tolist(), "rows": rows,
+            "window_ms": list(scan.detect_scan.window_ms),
+            "peak_node_distance": dist}
+
+
+def kurtosis_decimate_path(device):
+    """kurtosis_detect (:func:`kurtosis_detect_path`), then
+    decimate_detect (:func:`decimate_detect_path`), on one synthetic
+    Icequake workspace (:func:`archive_workspace`) in a temporary
+    directory. Returns their records."""
+
+    import tempfile
+
+    from quakemigrate_torch.io import Archive
+    from quakemigrate_torch.seis import UTCDateTime
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        lut, stations, archive_path, planted, _, origin = (
+            archive_workspace(root))
+        archive = Archive(archive_path, stations,
+                          archive_format="YEAR/JD/STATION")
+        start = UTCDateTime(ARCHIVE_START) + ARCHIVE_SPAN_S / 2
+        end = start + ARCHIVE_SPAN_S
+        kurt = kurtosis_detect_path(device, root, lut, archive, planted,
+                                    origin, start, end)
+        dec = decimate_detect_path(device, root, lut, archive, planted,
+                                   start, end)
+    return kurt, dec
+
+
 def main():
     from quakemigrate_torch import _build
     from quakemigrate_torch.device import resolve_device
@@ -3001,6 +3704,10 @@ def main():
     map_cases = map_kernel_path(device, locate_record.pop("map_geometry"),
                                 f1_route, vt_record.pop("map_geometry"))
     del f1_route
+    f3_record = f3_path(device)
+    xla_record = xla_icequake_path(device, tt, windows)
+    kurtosis_record, decimate_record = kurtosis_decimate_path(device)
+    torch.cuda.empty_cache()
 
     checks = breakdown_checks(device)
     s_day = ekb.setup(device=device)
@@ -3111,6 +3818,8 @@ def main():
         "k1_blocks_per_sm": v2_record["k1_blocks_per_sm"],
         "turns_ms": v2_record["turns_ms"],
         "day": v2_day,
+        "kurtosis_detect": kurtosis_record,
+        "decimate_detect": decimate_record,
     }, {
         "name": "migrate_detect_vpu",
         "route": "cuda",
@@ -3541,7 +4250,32 @@ def main():
         "vt_ms": map_cases["vt"]["simple_ms"],
         "equal_to_m2": [map_cases[k]["simple_equal"]
                         for k in ("icequake", "vt")],
+        # K3's route (f3_path): the map on the plan of a plan no staged
+        # kernel takes
+        "f3": f3_record["map"],
+    }, {
+        "name": "migrate_detect_global",
+        "route": "cuda",
+        "source": "quakemigrate_torch/csrc/migrate_detect_global.cu",
+        "replaces": "quakemigrate_tpu/ops/migrate.py:124",
+        # its path: DetectScan's k3 route at F3's geometry (f3_path); the
+        # Icequake window with kernel="xla" beside it
+        "launches": f3_record["launches"],
+        "max_abs_err": max(f3_record["vs_plain"]["max_abs_err"],
+                           xla_record["vs_plain"]["max_abs_err"]),
+        "ms": f3_record["ms"],
+        "plain_ms": f3_record["plain_ms"],
+        "bound_ms": f3_record["bound_ms"],
+        "bound_by": f3_record["bound_by"],
+        "smem_bound_ms": f3_record["smem_bound_ms"],
+        "library_ms": None,
+        "resources": _build_resources("qm_migrate_detect_global"),
+        "f3": {k: v for k, v in f3_record.items() if k not in ("m1", "map")},
+        "xla_icequake": xla_record,
     }]
+    kernels[next(i for i, k in enumerate(kernels)
+                 if k["name"] == "migrate_marginalise")]["f3"] = (
+        f3_record["m1"])
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']}: no launch on its path")
     print(smi)

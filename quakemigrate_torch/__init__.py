@@ -30,9 +30,16 @@ kernel-breakdown probes.
 __version__ = "0.1.0"
 
 from quakemigrate_torch.device import resolve_device  # noqa: F401
-from quakemigrate_torch.lut import traveltime_table, unravel  # noqa: F401
+from quakemigrate_torch.io import Archive, read_lut, read_stations  # noqa: F401
+from quakemigrate_torch.lut import (  # noqa: F401
+    LUT,
+    compute_traveltimes,
+    traveltime_table,
+    unravel,
+)
 from quakemigrate_torch.ops.cuda_migrate import (  # noqa: F401
     CudaDetect,
+    CudaDetectGlobal,
     CudaDetectVPU,
     DetectPlan,
 )

@@ -126,6 +126,10 @@ SIGNATURES = {
         [_VOID_P, _VOID_P, _INT, _VOID_P, _INT] + [_VOID_P] * 4 + _OUTS
         + [_INT] * 6 + [_VOID_P]
     ),
+    # L, t_len, tt, inv_available, outs, n_nodes, O, tile, fsmp, S, stream
+    "qm_migrate_detect_global": (
+        [_VOID_P, _INT, _VOID_P, _VOID_P] + _OUTS + [_INT] * 5 + [_VOID_P]
+    ),
     # L, t_len, base, fine, valid, perm, inv_available, out, partial,
     # partial_rows, n_nodes, O, tiles, tile, col0, len, stream
     "qm_migrate_marginalise": (

@@ -1,9 +1,9 @@
 # -*- coding: utf-8 -*-
 """
-Core I/O of the port: the Run directory/logging object, the station file
-reader, the lookup-table reader (the port's npz+json format) and the
-instrument-response reader (StationXML), after the JAX package's
-``io/core.py`` without pandas.
+Core I/O of the port: the Run directory/logging object, the station and
+1-D velocity model file readers, the lookup-table reader (the port's
+npz+json format) and the instrument-response reader (StationXML), after
+the JAX package's ``io/core.py`` without pandas.
 
 Station Elevations are positive-up in the file and flipped to positive-down
 depths on read, as the reference does.
@@ -17,6 +17,7 @@ from pathlib import Path
 import numpy as np
 
 import quakemigrate_torch.util as util
+from quakemigrate_torch.io.table import Table
 from quakemigrate_torch.lut import LUT, StationTable
 
 
@@ -85,6 +86,51 @@ def read_stations(station_file, delimiter=","):
         "Longitude": np.array([float(row["Longitude"]) for row in rows]),
         "Elevation": -np.array([float(row["Elevation"]) for row in rows]),
     })
+
+
+def stations(station_file, **kwargs):
+    """Deprecated alias for :func:`read_stations` (the reference's old
+    name)."""
+
+    print(
+        "FutureWarning: function name has changed - continuing.\n"
+        "To remove this message, change:\t'stations' -> 'read_stations'"
+    )
+    return read_stations(station_file, **kwargs)
+
+
+def _parse_column(fields):
+    """One CSV column as pandas' ``read_csv`` types it: int64 where every
+    field is an integer, else float64 (an empty field NaN) where every
+    field is a number, else the strings."""
+
+    try:
+        return np.array([int(f) for f in fields], dtype=np.int64)
+    except ValueError:
+        pass
+    try:
+        return np.array([np.nan if f == "" else float(f) for f in fields])
+    except ValueError:
+        return np.array(fields, dtype=object)
+
+
+def read_vmodel(vmodel_file, delimiter=","):
+    """
+    1-D velocity model from a CSV file with a header row: a "Depth"
+    column (positive down) and one "V<phase>" column per phase (e.g. Vp,
+    Vs). Returns an :class:`~quakemigrate_torch.io.table.Table` of the
+    file's columns, in order. Raises InvalidVelocityModelHeader without a
+    "Depth" column.
+
+    """
+
+    with open(vmodel_file, newline="") as f:
+        rows = list(csv.reader(f, delimiter=delimiter))
+    header, body = rows[0], [row for row in rows[1:] if row]
+    if "Depth" not in header:
+        raise util.InvalidVelocityModelHeader("Depth")
+    return Table({name: _parse_column([row[i] for row in body])
+                  for i, name in enumerate(header)}, header)
 
 
 def _looks_like_resp(path):

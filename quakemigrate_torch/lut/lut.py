@@ -18,6 +18,7 @@ phases) stored as a string in the same archive. ``lut.create
 
 """
 
+import copy
 import json
 import pathlib
 from itertools import product
@@ -26,6 +27,7 @@ import numpy as np
 from scipy.interpolate import RegularGridInterpolator
 
 from quakemigrate_torch.coords import Proj, Transformer
+from quakemigrate_torch.util import legacy_parameter, renamed_notice
 
 LUT_FORMAT = "quakemigrate_torch.lut/1"
 
@@ -141,6 +143,38 @@ class Grid3D:
         return self.coord2grid(self.index2grid(value, unravel=unravel),
                                inverse=True)
 
+    # -- decimation -----------------------------------------------------------
+
+    def decimate(self, df, inplace=False):
+        """
+        Thin the traveltime tables by integer factors ``df`` per axis,
+        keeping the nodes ``offset + k * df`` with the offset that centres
+        them in the original grid. Returns the decimated copy, or None
+        with ``inplace``.
+
+        The reference's quirk is kept: the grid corners are NOT moved, so
+        where ``(node_count - 1) % df != 0`` (a nonzero offset)
+        ``index2coord`` still maps index 0 to the original ``ll_corner``,
+        and node coordinates shift by the offset times the old spacing.
+        The decimated tables are contiguous copies, not strided views.
+
+        """
+
+        factors = np.array(df, dtype=int)
+        kept = 1 + (self.node_count - 1) // factors
+        offset = (self.node_count - factors * (kept - 1) - 1) // 2
+        window = tuple(slice(o, None, f) for o, f in zip(offset, factors))
+
+        target = self if inplace else copy.deepcopy(self)
+        target.node_count = kept
+        target.node_spacing = self.node_spacing * factors
+        for tables in target.traveltimes.values():
+            for phase in tables:
+                tables[phase] = np.ascontiguousarray(tables[phase][window])
+
+        if not inplace:
+            return target
+
     # -- validated grid geometry ----------------------------------------------
 
     @property
@@ -179,6 +213,11 @@ class Grid3D:
 
         return int(np.prod(self.node_count))
 
+    cell_count = legacy_parameter("node_count",
+                                  renamed_notice("cell_count", "node_count"))
+    cell_size = legacy_parameter("node_spacing",
+                                 renamed_notice("cell_size", "node_spacing"))
+
     # -- derived geometry -------------------------------------------------------
 
     @property
@@ -187,6 +226,19 @@ class Grid3D:
 
         extremes = [(0, top) for top in self.node_count - 1]
         return self.index2grid(list(product(*extremes)))
+
+    def get_grid_extent(self, cells=False):
+        """Geographic extent of the grid: [[lower corner], [upper
+        corner]] in input coordinates, of the node centres, or with
+        ``cells`` of the full cells."""
+
+        lower, upper = self.grid_corners[0], self.grid_corners[-1]
+        if cells is True:
+            half = self.node_spacing / 2
+            lower, upper = lower - half, upper + half
+        return self.coord2grid([lower, upper], inverse=True)
+
+    grid_extent = property(get_grid_extent)
 
     @property
     def grid_xyz(self):
@@ -390,6 +442,13 @@ class LUT(Grid3D):
     # -- network geometry -----------------------------------------------------------
 
     @property
+    def station_extent(self):
+        """[[min lon, lat, elev], [max lon, lat, elev]] over the network."""
+
+        positions = self.station_data[["Longitude", "Latitude", "Elevation"]]
+        return [list(positions.min(axis=0)), list(positions.max(axis=0))]
+
+    @property
     def stations_xyz(self):
         """Station positions in grid space."""
 
@@ -397,7 +456,34 @@ class LUT(Grid3D):
             self.station_data[["Longitude", "Latitude", "Elevation"]]
         )
 
+    @property
+    def max_extent(self):
+        """Union of the station and (cell-padded) grid extents, padded by
+        5 % of its span on each side."""
+
+        corners = np.array([self.station_extent,
+                            self.get_grid_extent(cells=True)])
+        lower = corners[:, 0].min(axis=0)
+        upper = corners[:, 1].max(axis=0)
+        margin = 0.05 * np.abs(upper - lower)
+        return np.array([lower - margin, upper + margin])
+
     # -- misc ---------------------------------------------------------------------
+
+    def __add__(self, other):
+        """Merge the traveltime tables of a LUT on the same grid into this
+        one (in place; returns it). Prints and returns None where the
+        grids differ, and prints and returns this LUT unchanged for a
+        non-LUT, as the reference does."""
+
+        if not isinstance(other, LUT):
+            print("Addition not defined for non-LUT object.")
+        elif self == other:
+            self.traveltimes.update(other.traveltimes)
+        else:
+            print("Grid definitions do not match - cannot combine.")
+            return None
+        return self
 
     def __eq__(self, other):
         """Grid-definition equality (corners, spacing, projections)."""

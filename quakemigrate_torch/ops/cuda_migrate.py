@@ -5,7 +5,11 @@ the CUDA kernels ``csrc/migrate_detect.cu`` (K1),
 ``csrc/migrate_detect_v2.cu`` (K1 v2, the same contract redesigned for
 the card's shared-memory pipe), ``csrc/migrate_detect_vpu.cu`` (K2) and
 ``csrc/migrate_detect_vpu_v2.cu`` (K2 v2, K2 on an mbarrier ring), their
-plain PyTorch versions, and the cross-tile combine; and the wrapper of
+plain PyTorch versions, and the cross-tile combine; of
+``csrc/migrate_detect_global.cu`` (K3, the same function on flat node
+tiles with the onset rows read from global memory, for the plans no
+staged kernel takes), whose plain version is
+``ops.migrate.detect_reduce``; and the wrapper of
 ``csrc/migrate_marginalise.cu`` (M1, locate's marginalisation on the same
 plan) and ``csrc/migrate_marginalise_v2.cu`` (M1 v2, M1 on K1 v2's
 tables), whose plain version is ``ops.migrate.migrate_marginalise``, and
@@ -15,7 +19,9 @@ M1 v2's staging, its simple form on M1's gather), whose plain version is
 
 Counterpart of quakemigrate_tpu.ops.pallas_migrate: ``CudaDetect`` of
 ``PallasDetectMXU`` (kernel ``_mxu_detect_kernel``), ``CudaDetectVPU`` of
-``PallasDetect`` (kernel ``_detect_kernel``). The flat node axis is reordered
+``PallasDetect`` (kernel ``_detect_kernel``); ``CudaDetectGlobal`` of the
+JAX package's XLA shift-table reduction (``ops.migrate.detect_reduce``).
+For the staged kernels the flat node axis is reordered
 into spatially compact bricks, so every node of a tile has a traveltime
 close to the tile's minimum: per (tile, onset) a base shift, and per node
 a small residual ``fine < r_span``. One shared-memory window of each
@@ -46,7 +52,7 @@ import torch
 
 from quakemigrate_torch.device import resolve_device
 from quakemigrate_torch.util import round_up
-from .migrate import _prepare_onsets
+from .migrate import _prepare_onsets, detect_reduce
 
 # Scan samples per thread block and warps per block; both are fixed in
 # csrc/migrate_detect.cu (QM_SBLK, QM_NWARPS).
@@ -91,10 +97,15 @@ M1_V2_NODES_IN_FLIGHT = {1: 4, 2: 4, 4: 2}
 # Largest residual span of the int16 residual table ``DetectPlan.fine16``
 FINE16_MAX_SPAN = np.iinfo(np.int16).max
 
-# Launches of K1, K1 v2, K2, K2 v2, M1, M1 v2 and M2 (main and simple
+# Consecutive flat nodes a block of K3 takes
+# (csrc/migrate_detect_global.cu: QG_TILE)
+K3_TILE = 256
+
+# Launches of K1, K1 v2, K2, K2 v2, K3, M1, M1 v2 and M2 (main and simple
 # form), counted by their wrappers where they launch
 launches = {"migrate_detect": 0, "migrate_detect_v2": 0,
             "migrate_detect_vpu": 0, "migrate_detect_vpu_v2": 0,
+            "migrate_detect_global": 0,
             "migrate_marginalise": 0, "migrate_marginalise_v2": 0,
             "migrate_map": 0, "migrate_map_v2": 0}
 
@@ -1176,6 +1187,68 @@ def migrate_detect_vpu_v2_cuda(onsets_log, base, valid, inv_available, fsmp,
     return outs
 
 
+def migrate_detect_global_cuda(onsets_log, tt, inv_available, fsmp,
+                               nsamples):
+    """
+    Launch K3 (``csrc/migrate_detect_global.cu``) on tensors on the card:
+    for tiles of :data:`K3_TILE` consecutive flat nodes of the int32
+    flat-order traveltimes ``tt`` [n_nodes, O] (clamped to ``[0, T -
+    fsmp - nsamples]`` as the plain version clamps them) and each scan
+    sample, the max, the first flat node index attaining it and the sum
+    of ``exp(sum_o L[o, fsmp + tt[n, o] + t] * inv_available)`` over the
+    tile's nodes. The onset rows are read from global memory, so any
+    residual span is taken. Returns (tmax f32, targ int32 flat indices,
+    tsum f32), each [n_tiles, nsamples], asynchronously on the current
+    stream; :func:`combine_flat_tiles` finishes the reduction. The plain
+    version is :func:`quakemigrate_torch.ops.migrate.detect_reduce`.
+
+    """
+
+    device = onsets_log.device
+    for name, x, dtype in (("onsets_log", onsets_log, torch.float32),
+                           ("tt", tt, torch.int32),
+                           ("inv_available", inv_available, torch.float32)):
+        if x.device != device:
+            raise ValueError(f"{name} is on {x.device}, not {device}")
+        if x.dtype != dtype or not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {dtype} tensor")
+    if onsets_log.dim() != 2 or tt.dim() != 2 or inv_available.numel() != 1:
+        raise ValueError(
+            f"bad shapes: onsets {tuple(onsets_log.shape)}, tt "
+            f"{tuple(tt.shape)}, inv_available {tuple(inv_available.shape)}")
+    n_onsets, t_len = onsets_log.shape
+    n_nodes = tt.shape[0]
+    if tt.shape[1] != n_onsets or n_nodes < 1:
+        raise ValueError(f"tt {tuple(tt.shape)} does not match {n_onsets} "
+                         "onset rows")
+    if fsmp < 0 or nsamples < 1 or t_len < fsmp + nsamples:
+        raise ValueError(f"bad geometry: fsmp {fsmp}, nsamples {nsamples}, "
+                         f"{t_len} onset samples")
+    if device.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {device}")
+    outs = empty_outputs(-(-n_nodes // K3_TILE), nsamples, device)
+    launch_kernel(
+        "qm_migrate_detect_global", device, onsets_log.data_ptr(), t_len,
+        tt.data_ptr(), inv_available.data_ptr(),
+        *(x.data_ptr() for x in outs), n_nodes, n_onsets, K3_TILE, fsmp,
+        nsamples,
+    )
+    launches["migrate_detect_global"] += 1
+    return outs
+
+
+def combine_flat_tiles(tmax, targ, tsum):
+    """K3's cross-tile combine of its ``[n_tiles, S]`` outputs: the
+    per-sample max with the FIRST tile winning ties (``torch.argmax``),
+    that tile's flat node index, and the grid sum. With K3's first index
+    within a tile, ties go to the first flat index, the plain version's
+    rule. Returns (max_coa, max_idx int32, coa_sum)."""
+
+    best_tile = torch.argmax(tmax, dim=0)[None]
+    return (tmax.gather(0, best_tile)[0], targ.gather(0, best_tile)[0],
+            torch.sum(tsum, dim=0))
+
+
 def vpu_v2_blocks_per_sm(tile, stride, n_stages, device):
     """Resident blocks per SM of K2 v2 at a tile, window stride and ring
     depth."""
@@ -1401,3 +1474,65 @@ class CudaDetectVPU(CudaDetect):
             onsets_log, self.base, self.valid, inv_available, self.fsmp,
             self.nsamples, self.tables,
         )
+
+
+class CudaDetectGlobal(CudaDetect):
+    """
+    The counterpart of the JAX package's XLA shift-table reduction, for
+    the plans no staged kernel takes (:func:`v2_refusal` and
+    :func:`vpu_v2_refusal` both refuse) and for ``kernel="xla"``: the
+    contract of :class:`CudaDetect` through K3
+    (:func:`migrate_detect_global_cuda`) on the flat-order traveltimes,
+    the onset rows read from global memory, so no residual span bounds
+    it. Ties go to the first flat node index, as on the plain path.
+    :meth:`reduce` on CPU tensors runs the plain version,
+    :func:`quakemigrate_torch.ops.migrate.detect_reduce`, and counts no
+    launch; :meth:`reduce_log` runs K3 only. For locate it keeps the
+    :class:`DetectPlan` (built once, at any span, for ``plan`` None):
+    :meth:`marginalise` is M1 and :meth:`map` M2's simple form, which
+    read the onsets from global memory through the plan's int32
+    ``fine``.
+
+    """
+
+    marginalise = CudaDetectVPU.marginalise
+    map = CudaDetectVPU.map
+
+    def __init__(self, traveltimes, node_count, fsmp, nsamples, device,
+                 plan=None):
+        super().__init__(traveltimes, node_count, fsmp, nsamples, device,
+                         plan=plan)
+        self.tt = self._put(np.ascontiguousarray(traveltimes, np.int32))
+
+    def _load(self, plan):
+        """K3 reads the flat table (:attr:`tt`), not the plan's."""
+
+    def reduce(self, onsets, mask, available):
+        """(max_coa, max_idx int32, coa_sum), each [nsamples], of one
+        window's onsets [O, T]: K3 on a CUDA device, the plain version on
+        the CPU."""
+
+        if onsets.is_cuda:
+            return self.reduce_log(*self.prepare(onsets, mask, available))
+        if onsets.device != self.device:
+            raise ValueError(
+                f"onsets are on {onsets.device}, the plan on {self.device}"
+            )
+        return detect_reduce(onsets, self.tt, mask, available, self.fsmp,
+                             self.nsamples, self.n_nodes)
+
+    def reduce_log(self, onsets_log, inv_available):
+        """K3 and its combine for prepared onsets (:meth:`prepare`) on the
+        card; raises on CPU tensors (the plain version takes the raw
+        onsets: :meth:`reduce`)."""
+
+        parts = self.launch(onsets_log.contiguous(), inv_available)
+        self.launches += 1
+        return combine_flat_tiles(*parts)
+
+    def launch(self, onsets_log, inv_available):
+        """K3 on the flat table, for prepared onsets on the card: (tmax,
+        targ, tsum), each [n_tiles, nsamples]."""
+
+        return migrate_detect_global_cuda(onsets_log, self.tt, inv_available,
+                                          self.fsmp, self.nsamples)

@@ -14,7 +14,11 @@ within blocks of 16, then the same over the block totals), so the plain
 detect path agrees with the reference to float32 rounding of the later
 steps (about 1e-7 relative) instead of the running sum's own error
 (about 1e-5 at 2,000 samples). On CUDA tensors it is ``torch.cumsum``,
-one launch.
+one launch, unless the caller asks for the reference's order: the
+kurtosis moments do, since after an event their windowed differences
+cancel and two orders then differ by ~4e-3 relative (``PERF.md`` §6),
+so only the same order gives the card the CPU's values. That order
+costs about 40 launches of one elementwise addition each.
 
 """
 
@@ -33,8 +37,9 @@ def _sequential_cumsum(x):
     float64)."""
 
     out = x.clone()
-    for k in range(1, x.shape[-1]):
-        out[..., k] += out[..., k - 1]
+    columns = out.unbind(-1)
+    for k in range(1, len(columns)):
+        columns[k].add_(columns[k - 1])
     return out
 
 
@@ -56,29 +61,32 @@ def blocked_cumsum(x, block=SCAN_BLOCK):
         x.shape[:-1] + (n_blocks * block,))[..., :n]
 
 
-def padded_cumsum(x):
+def padded_cumsum(x, reference_order=False):
     """Cumulative sum along the last axis with a leading zero, so that
-    ``out[..., j] - out[..., i]`` is ``sum(x[..., i:j])``."""
+    ``out[..., j] - out[..., i]`` is ``sum(x[..., i:j])``. In the
+    reference's order (:func:`blocked_cumsum`) on CPU tensors, or on any
+    with ``reference_order``; else ``torch.cumsum``."""
 
-    c = blocked_cumsum(x) if x.device.type == "cpu" else torch.cumsum(x, -1)
+    blocked = reference_order or x.device.type == "cpu"
+    c = blocked_cumsum(x) if blocked else torch.cumsum(x, -1)
     zero = torch.zeros(x.shape[:-1] + (1,), dtype=c.dtype, device=c.device)
     return torch.cat([zero, c], dim=-1)
 
 
-def trailing_window_sums(x, n):
+def trailing_window_sums(x, n, reference_order=False):
     """
     Trailing-window rolling sums: ``out[..., i] = sum(x[..., lo : i+1])``
     with ``lo = max(0, i + 1 - n)`` (partial windows at the start).
 
     ``n`` is either a Python int (any batch shape for ``x``) or a 1-D
     integer tensor of per-row window lengths (then ``x`` is 2-D,
-    ``(rows, t)``).
+    ``(rows, t)``). ``reference_order``: see :func:`padded_cumsum`.
 
     """
 
     t = x.shape[-1]
     idx = torch.arange(t, device=x.device)
-    padded = padded_cumsum(x)
+    padded = padded_cumsum(x, reference_order)
     hi = padded[..., 1:]
     if isinstance(n, (int, np.integer)):
         return hi - padded[..., torch.clamp(idx + 1 - int(n), min=0)]

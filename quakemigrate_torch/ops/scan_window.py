@@ -1,24 +1,33 @@
 # -*- coding: utf-8 -*-
 """
-Fused detect window: signal transform -> STA/LTA -> multi-component RMS
-combine -> onset clip -> migration -> per-sample grid reduction ->
-normalisation, on one device, from a fixed-shape channel block.
+Fused detect window: the onset front end (signal transform -> STA/LTA,
+or the kurtosis characteristic function -> edge neutralisation) ->
+multi-component RMS combine -> onset clip -> migration -> per-sample
+grid reduction -> normalisation, on one device, from a fixed-shape
+channel block.
 
 Counterpart of quakemigrate_tpu.ops.scan_window. Inputs are organised
-by canonical (phase, station) slot, in the layout that
-``STALTAOnset.prepare_device_inputs`` builds:
+by canonical (phase, station) slot, in the layout that the onset's
+``prepare_device_inputs`` builds:
 
     channels  [n_slots, C_max, T]  pre-processed waveforms (zeros when
                                    absent)
     chan_mask [n_slots, C_max]     1.0 for live channels
     slot_mask [n_slots]            1.0 for slots with >= 1 live channel
-    nsta/nlta [n_slots]            STA/LTA window lengths in samples
+
+then the onset's per-slot arguments: ``nsta, nlta`` [n_slots] (STA/LTA
+window lengths in samples) or ``nkurt`` [n_slots] (kurtosis window
+lengths). A front end (:func:`stalta_front_end`,
+:func:`kurtosis_front_end`) maps such a block to (combined onsets
+[n_slots, T], available); :func:`detect_window` and
+:func:`detect_window_cuda` run any front end's window.
 
 """
 
 import numpy as np
 import torch
 
+from .kurtosis import kurtosis_cf_rows
 from .migrate import DEFAULT_TILE, detect_reduce
 from .rolling import padded_cumsum, trailing_window_sums
 from .stalta import signal_transform
@@ -82,16 +91,103 @@ def fused_onsets(
     nlta_rows = torch.repeat_interleave(nlta, c_max)
     onsets_rows = _sta_lta_dynamic(rows, nsta_rows, nlta_rows, position)
 
-    # RMS combine of the live channels per slot, then clip
-    onsets_c = onsets_rows.reshape(n_slots, c_max, t)
+    return _rms_combine(onsets_rows.reshape(n_slots, c_max, t), chan_mask,
+                        slot_mask, min_onset_value)
+
+
+def _rms_combine(onsets_c, chan_mask, slot_mask, min_onset_value):
+    """RMS combine of the live channels [n_slots, C_max, T] per slot,
+    clip, and dead slots set to ones (log-domain zero; excluded via
+    slot_mask). Returns (combined [n_slots, T], available)."""
+
     weights = chan_mask[..., None]
     n_live = torch.clamp(chan_mask.sum(dim=1), min=1.0)[:, None]
     combined = torch.sqrt((onsets_c**2 * weights).sum(dim=1) / n_live)
     combined = torch.clamp(combined, min=min_onset_value)
-    # Dead slots -> onset of ones (log-domain zero; excluded via slot_mask)
     combined = torch.where(slot_mask[:, None] == 1.0, combined, 1.0)
-
     return combined, slot_mask.sum()
+
+
+def fused_kurtosis_onsets(
+    channels, chan_mask, slot_mask, nkurt, nsmooth, taper_pad,
+    min_onset_value,
+):
+    """
+    Onset front end of the fused kurtosis window: per-row kurtosis
+    characteristic function (per-slot window lengths) -> the tapered
+    edges set to the baseline 1 (the first ``taper_pad + nkurt - 1`` and
+    the last ``max(taper_pad, 1)`` samples, as
+    ``KurtosisOnset._combine``) -> RMS channel combine -> clip. Returns
+    (combined [n_slots, T], available 0-dim tensor).
+
+    """
+
+    n_slots, c_max, t = channels.shape
+    nkurt_rows = torch.repeat_interleave(nkurt, c_max)
+    cf = kurtosis_cf_rows(channels.reshape(n_slots * c_max, t), nkurt_rows,
+                          nsmooth)
+    idx = torch.arange(t, device=channels.device)[None, :]
+    lo = (taper_pad + nkurt_rows - 1)[:, None]
+    edge = (idx < lo) | (idx >= t - max(taper_pad, 1))
+    cf = torch.where(edge, 1.0, cf)
+    return _rms_combine(cf.reshape(n_slots, c_max, t), chan_mask, slot_mask,
+                        min_onset_value)
+
+
+def stalta_front_end(position, transform, min_onset_value):
+    """The STA/LTA front end (:func:`fused_onsets`) of these settings, as
+    a function of a block ``(channels, chan_mask, slot_mask, nsta,
+    nlta)``."""
+
+    def front_end(channels, chan_mask, slot_mask, nsta, nlta):
+        return fused_onsets(channels, chan_mask, slot_mask, nsta, nlta,
+                            position, transform, min_onset_value)
+    return front_end
+
+
+def kurtosis_front_end(nsmooth, taper_pad, min_onset_value):
+    """The kurtosis front end (:func:`fused_kurtosis_onsets`) of these
+    settings (``KurtosisOnset.fused_static_args``), as a function of a
+    block ``(channels, chan_mask, slot_mask, nkurt)``."""
+
+    def front_end(channels, chan_mask, slot_mask, nkurt):
+        return fused_kurtosis_onsets(channels, chan_mask, slot_mask, nkurt,
+                                     nsmooth, taper_pad, min_onset_value)
+    return front_end
+
+
+def detect_window(front_end, block, traveltimes, fsmp, nsamples,
+                  n_nodes_real=None, tile=DEFAULT_TILE):
+    """
+    One detect window in plain PyTorch: ``front_end`` on the block (its
+    third array is the slot mask), then the flat-order migration of
+    ops.migrate. Returns (max_coa, max_norm_coa, max_idx), each [S].
+
+    """
+
+    combined, available = front_end(*block)
+    n_real = traveltimes.shape[0] if n_nodes_real is None else n_nodes_real
+    max_coa, max_idx, coa_sum = detect_reduce(
+        combined, traveltimes, block[2], available, fsmp, nsamples,
+        n_real, tile,
+    )
+    return max_coa, max_coa * n_real / coa_sum, max_idx
+
+
+def detect_window_cuda(front_end, block, detector, n_nodes_real):
+    """
+    One detect window with the migrate-and-reduce of ``detector`` (an
+    ops.cuda_migrate.CudaDetect, CudaDetectVPU or CudaDetectGlobal, which
+    carries fsmp and nsamples) in place of the flat-order reduction. Same
+    contract as :func:`detect_window`; argmax ties follow brick order on
+    the staged kernels' routes and the first flat index on K3's.
+
+    """
+
+    combined, available = front_end(*block)
+    max_coa, max_idx, coa_sum = detector.reduce(combined, block[2],
+                                                available)
+    return max_coa, max_coa * n_nodes_real / coa_sum, max_idx
 
 
 def detect_window_fused(
@@ -100,42 +196,35 @@ def detect_window_fused(
     n_nodes_real=None, tile=DEFAULT_TILE,
 ):
     """
-    One detect window in plain PyTorch, with the flat-order migration of
+    One STA/LTA detect window in plain PyTorch, with the flat-order
+    migration of ops.migrate. Returns (max_coa, max_norm_coa, max_idx),
+    each [S].
+
+    """
+
+    return detect_window(
+        stalta_front_end(position, transform, min_onset_value),
+        (channels, chan_mask, slot_mask, nsta, nlta), traveltimes, fsmp,
+        nsamples, n_nodes_real, tile,
+    )
+
+
+def detect_window_fused_kurtosis(
+    channels, chan_mask, slot_mask, nkurt, traveltimes, nsmooth, taper_pad,
+    min_onset_value, fsmp, nsamples, n_nodes_real=None, tile=DEFAULT_TILE,
+):
+    """
+    One kurtosis detect window in plain PyTorch (the JAX
+    ``detect_window_fused_kurtosis``), with the flat-order migration of
     ops.migrate. Returns (max_coa, max_norm_coa, max_idx), each [S].
 
     """
 
-    combined, available = fused_onsets(
-        channels, chan_mask, slot_mask, nsta, nlta,
-        position, transform, min_onset_value,
+    return detect_window(
+        kurtosis_front_end(nsmooth, taper_pad, min_onset_value),
+        (channels, chan_mask, slot_mask, nkurt), traveltimes, fsmp, nsamples,
+        n_nodes_real, tile,
     )
-    n_real = traveltimes.shape[0] if n_nodes_real is None else n_nodes_real
-    max_coa, max_idx, coa_sum = detect_reduce(
-        combined, traveltimes, slot_mask, available, fsmp, nsamples,
-        n_real, tile,
-    )
-    return max_coa, max_coa * n_real / coa_sum, max_idx
-
-
-def detect_window_fused_cuda(
-    channels, chan_mask, slot_mask, nsta, nlta, detector,
-    position, transform, min_onset_value, n_nodes_real,
-):
-    """
-    One detect window with the migrate-and-reduce of ``detector`` (an
-    ops.cuda_migrate.CudaDetect or CudaDetectVPU, which carries fsmp and
-    nsamples) in place of the flat-order reduction. Same contract as
-    :func:`detect_window_fused`; argmax ties follow brick order.
-
-    """
-
-    combined, available = fused_onsets(
-        channels, chan_mask, slot_mask, nsta, nlta,
-        position, transform, min_onset_value,
-    )
-    max_coa, max_idx, coa_sum = detector.reduce(combined, slot_mask,
-                                                available)
-    return max_coa, max_coa * n_nodes_real / coa_sum, max_idx
 
 
 def pack_detect_window(max_coa, max_norm_coa, max_idx):

@@ -140,7 +140,8 @@ class Onset(metaclass=abc.ABCMeta):
     @abc.abstractmethod
     def prepare_device_inputs(self, data, slots, c_max=None, dtype=None):
         """The fixed-shape channel block of one detect window; returns
-        ``(channels, chan_mask, slot_mask, nsta, nlta, availability)``."""
+        ``(channels, chan_mask, slot_mask, *per-slot arguments,
+        availability)`` (STA/LTA: ``nsta, nlta``; kurtosis: ``nkurt``)."""
 
 
 @dataclass

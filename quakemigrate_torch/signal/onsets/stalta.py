@@ -93,6 +93,15 @@ class STALTAOnset(Onset):
         if self.min_onset_value < 0.01:
             raise ValueError("The `min_onset_value` must be greater than 0.01")
 
+        # The reference's deprecated kwargs: the property setters below
+        # translate them onto position / bandpass_filters /
+        # sta_lta_windows and print the reference's FutureWarning.
+        self.onset_centred = kwargs.get("onset_centred")
+        self.p_bp_filter = kwargs.get("p_bp_filter")
+        self.s_bp_filter = kwargs.get("s_bp_filter")
+        self.p_onset_win = kwargs.get("p_onset_win")
+        self.s_onset_win = kwargs.get("s_onset_win")
+
     def __str__(self):
         parts = [
             f"\tOnset parameters - using the {self.position} STA/LTA onset",
@@ -249,10 +258,11 @@ class STALTAOnset(Onset):
     def prepare_device_inputs(self, data, slots, c_max=None, dtype=None):
         """
         Build the fixed-shape channel block consumed by the fused detect
-        window (``ops.scan_window.detect_window_fused`` and its CUDA form):
-        waveforms are pre-processed and availability-checked host-side,
-        then placed into canonical (phase, station) slots with channel/slot
-        masks and per-slot STA/LTA window lengths.
+        window (``ops.scan_window.detect_window_fused``; on the card
+        ``detect_window_cuda``): waveforms are pre-processed and
+        availability-checked host-side, then placed into canonical
+        (phase, station) slots with channel/slot masks and per-slot
+        STA/LTA window lengths.
 
         Returns (channels [n_slots, C_max, T], chan_mask, slot_mask,
         nsta, nlta, availability dict).
@@ -326,3 +336,65 @@ class STALTAOnset(Onset):
         """ceil(max traveltime + 2 * max LTA)."""
 
         self._post_pad = np.ceil(ttmax + 2 * self._longest(1))
+
+    # --- The reference's deprecated attribute names ---
+
+    @property
+    def onset_centred(self):
+        """Deprecated: use ``position``."""
+        return self.position
+
+    @onset_centred.setter
+    def onset_centred(self, value):
+        if value is None:
+            return
+        print(
+            "FutureWarning: Parameter name has changed - continuing.\n"
+            "To remove this message, change:\n\t'onset_centred' -> 'position'"
+        )
+        self.position = "centred" if value else "classic"
+
+    def _deprecated_phase_dict(name, table, phase):  # noqa: N805
+        def getter(self):
+            return getattr(self, table)[phase]
+
+        def setter(self, value):
+            if value is None:
+                return
+            print(
+                "FutureWarning: Parameter name has changed - continuing.\n"
+                "To remove this message, refer to the documentation."
+            )
+            getattr(self, table)[phase] = value
+
+        return property(getter, setter, doc=f"Deprecated: use "
+                        f"``{table}['{phase}']`` instead of ``{name}``.")
+
+    p_bp_filter = _deprecated_phase_dict("p_bp_filter", "bandpass_filters", "P")
+    s_bp_filter = _deprecated_phase_dict("s_bp_filter", "bandpass_filters", "S")
+    p_onset_win = _deprecated_phase_dict("p_onset_win", "sta_lta_windows", "P")
+    s_onset_win = _deprecated_phase_dict("s_onset_win", "sta_lta_windows", "S")
+    del _deprecated_phase_dict
+
+
+def _deprecated_position_class(old_name, position):
+    """The reference's deprecated aliases of STALTAOnset with a fixed
+    ``position``."""
+
+    def __init__(self, **kwargs):
+        STALTAOnset.__init__(self, **kwargs)
+        print(
+            "FutureWarning: This class has been deprecated - continuing.\n"
+            f"To remove this message:\n\t{old_name} -> STALTAOnset\n"
+            f"\tAnd add keyword argument 'position={position}'\n"
+        )
+        self.position = position
+
+    return type(old_name, (STALTAOnset,), {
+        "__init__": __init__,
+        "__doc__": f"Deprecated alias for STALTAOnset(position='{position}').",
+    })
+
+
+CentredSTALTAOnset = _deprecated_position_class("CentredSTALTAOnset", "centred")
+ClassicSTALTAOnset = _deprecated_position_class("ClassicSTALTAOnset", "classic")

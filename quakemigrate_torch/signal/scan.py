@@ -6,8 +6,9 @@ Continuous detect, and locate.
 the host-to-device copy, the dispatch and the in-order drain of results
 pipelined as in the JAX ``QuakeScan`` (``_detect_loop``,
 ``_run_detect_batch``, ``_drain_detect_results``). The input of each
-window is the fixed-shape channel block that
-``STALTAOnset.prepare_device_inputs`` builds.
+window is the fixed-shape channel block that the onset's
+``prepare_device_inputs`` builds (``STALTAOnset`` or ``KurtosisOnset``),
+and the window runs that onset's front end (``ops.scan_window``).
 
 :class:`QuakeScan` is the user's entry point for detect and locate, after
 the JAX ``QuakeScan``. Detect reads each window from the waveform archive
@@ -53,7 +54,7 @@ from quakemigrate_torch.io import (
 from quakemigrate_torch.lut import traveltime_table, unravel
 from quakemigrate_torch.seis import Stream, UTCDateTime, read
 from quakemigrate_torch.signal.local_mag import LocalMag
-from quakemigrate_torch.signal.onsets import STALTAOnset
+from quakemigrate_torch.signal.onsets import KurtosisOnset, STALTAOnset
 from quakemigrate_torch.signal.pickers import GaussianPicker, PhasePicker
 from quakemigrate_torch.ops.migrate import (
     find_max_coa,
@@ -63,15 +64,18 @@ from quakemigrate_torch.ops.migrate import (
 )
 from quakemigrate_torch.ops.cuda_migrate import (
     CudaDetect,
+    CudaDetectGlobal,
     CudaDetectVPU,
     DetectPlan,
     v2_refusal,
     vpu_v2_refusal,
 )
 from quakemigrate_torch.ops.scan_window import (
-    detect_window_fused,
-    detect_window_fused_cuda,
+    detect_window,
+    detect_window_cuda,
+    kurtosis_front_end,
     pack_detect_window,
+    stalta_front_end,
     unpack_detect_window,
 )
 
@@ -84,7 +88,12 @@ warnings.filterwarnings(
 )
 
 
-def detect_route(traveltimes, node_count, device):
+# The CUDA detector of each route of detect_route
+ROUTE_DETECTORS = {"k1_v2": CudaDetect, "k2_v2": CudaDetectVPU,
+                   "k3": CudaDetectGlobal}
+
+
+def detect_route(traveltimes, node_count, device, kernel="auto"):
     """
     The migration that :class:`DetectScan` takes on ``device`` for these
     traveltimes, chosen from the plan's sizes before any launch, as the
@@ -96,26 +105,34 @@ def detect_route(traveltimes, node_count, device):
       the :class:`~quakemigrate_torch.ops.cuda_migrate.DetectPlan`
       (``v2_refusal``), else ``("k2_v2", reason, plan)`` where K2 v2,
       whose shared memory does not grow with the onset count, takes the
-      same plan (``vpu_v2_refusal``), logging K1 v2's reason once.
-
-    Raises where neither kernel can take the plan.
+      same plan (``vpu_v2_refusal``), logging K1 v2's reason once, else
+      ``("k3", reasons, plan)``: K3, the global-memory kernel
+      (``CudaDetectGlobal``), which takes any span, logging both
+      kernels' reasons once; the plan serves locate's M1 and M2;
+    - with ``kernel="xla"`` (the reference's option that forces its XLA
+      shift-table kernel), ``("k3", "kernel='xla'", plan)`` on a CUDA
+      device whatever the plan.
 
     """
 
     if device.type != "cuda":
         return "plain", None, None
     plan = DetectPlan(traveltimes, node_count)
+    if kernel == "xla":
+        return "k3", "kernel='xla'", plan
     reason = v2_refusal(plan.n_onsets, plan.tile, plan.win_floats,
                         plan.r_span)
     if reason is None:
         return "k1_v2", None, plan
     k2_reason = vpu_v2_refusal(plan.tile, plan.r_span)
-    if k2_reason is not None:
-        raise ValueError(f"no CUDA kernel takes this scan geometry: K1 v2 "
-                         f"({reason}), K2 v2 ({k2_reason})")
-    logging.info(f"\tK1 v2 cannot take this scan geometry ({reason}); "
-                 f"using K2 v2 on {device}.")
-    return "k2_v2", reason, plan
+    if k2_reason is None:
+        logging.info(f"\tK1 v2 cannot take this scan geometry ({reason}); "
+                     f"using K2 v2 on {device}.")
+        return "k2_v2", reason, plan
+    reasons = f"K1 v2 ({reason}), K2 v2 ({k2_reason})"
+    logging.info(f"\tNo staged kernel takes this scan geometry: {reasons}; "
+                 f"using K3, the global-memory kernel, on {device}.")
+    return "k3", reasons, plan
 
 
 def route_detector(route, plan, traveltimes, node_count, fsmp, nsamples,
@@ -123,8 +140,8 @@ def route_detector(route, plan, traveltimes, node_count, fsmp, nsamples,
     """
     The CUDA detector of ``route`` (:func:`detect_route`) for windows of
     ``nsamples`` scan samples after ``fsmp``: K1 v2's on "k1_v2", K2 v2's
-    on "k2_v2", built on the shared ``plan``. Returns ``cached`` while its
-    geometry holds; raises on the "plain" route.
+    on "k2_v2", K3's on "k3", built on the shared ``plan``. Returns
+    ``cached`` while its geometry holds; raises on the "plain" route.
 
     """
 
@@ -133,8 +150,8 @@ def route_detector(route, plan, traveltimes, node_count, fsmp, nsamples,
     if cached is not None and (cached.fsmp, cached.nsamples) == (fsmp,
                                                                 nsamples):
         return cached
-    kind = CudaDetect if route == "k1_v2" else CudaDetectVPU
-    return kind(traveltimes, node_count, fsmp, nsamples, device, plan=plan)
+    return ROUTE_DETECTORS[route](traveltimes, node_count, fsmp, nsamples,
+                                  device, plan=plan)
 
 
 class DetectScan:
@@ -151,9 +168,12 @@ class DetectScan:
     fsmp, lsmp : int
         Pre- and post-pad of each window in samples; the scan samples of
         a window of T samples are ``[fsmp, T - lsmp)``.
-    position, transform, min_onset_value
-        The STA/LTA onset's settings ("classic"/"centred"; "energy",
-        "abs", "env" or "env_squared"; the onset floor).
+    front_end : callable, optional
+        The onset front end of the windows
+        (``ops.scan_window.stalta_front_end`` or ``kurtosis_front_end``):
+        a block ``(channels, chan_mask, slot_mask, *per-slot arguments)``
+        to (combined onsets, available). Default: the classic STA/LTA of
+        the signal's energy with an onset floor of 0.4.
     device : str or torch.device, default "cuda"
         Where the windows run: the card unless the caller asks for the
         CPU; "cuda" raises where CUDA is absent. On a CUDA device the
@@ -166,26 +186,26 @@ class DetectScan:
     route : tuple, optional
         :func:`detect_route`'s (route, reason, plan) for these traveltimes
         on ``device``, where the caller has it already (QuakeScan shares
-        one plan between detect and locate).
+        one plan between detect and locate; ``detect_route(...,
+        kernel="xla")`` gives K3's).
 
     Attributes
     ----------
-    route : "k1_v2", "k2_v2" or "plain"
+    route : "k1_v2", "k2_v2", "k3" or "plain"
         The migration the windows take, chosen from the plan's sizes
         before any launch (:func:`detect_route`): on a CUDA device K1 v2
         (``ops.cuda_migrate.CudaDetect``) where it can stage the plan,
-        else K2 v2 (``ops.cuda_migrate.CudaDetectVPU``) on the same plan;
-        on the CPU "plain", the flat-order window
-        (``ops.scan_window.detect_window_fused``).
+        else K2 v2 (``ops.cuda_migrate.CudaDetectVPU``) on the same plan,
+        else K3 (``ops.cuda_migrate.CudaDetectGlobal``); on the CPU
+        "plain", the flat-order window (``ops.scan_window.detect_window``).
     route_reason : str or None
         Why a CUDA device did not take K1 v2 (logged once), else None.
 
     """
 
     def __init__(self, traveltimes, node_count, fsmp, lsmp,
-                 position="classic", transform="energy",
-                 min_onset_value=0.4, device="cuda",
-                 drain_depth=DRAIN_DEPTH, route=None):
+                 front_end=stalta_front_end("classic", "energy", 0.4),
+                 device="cuda", drain_depth=DRAIN_DEPTH, route=None):
         self.device = resolve_device(device)
         self.traveltimes = np.ascontiguousarray(traveltimes, dtype=np.int32)
         self.node_count = tuple(int(n) for n in node_count)
@@ -197,9 +217,7 @@ class DetectScan:
             )
         self.fsmp = int(fsmp)
         self.lsmp = int(lsmp)
-        self.position = position
-        self.transform = transform
-        self.min_onset_value = float(min_onset_value)
+        self.front_end = front_end
         self._detector = None
         self._tt_flat = None
         self.route, self.route_reason, self._plan = route or detect_route(
@@ -213,9 +231,9 @@ class DetectScan:
 
     def detector(self, nsamples):
         """The route's CUDA detector for windows of ``nsamples`` scan
-        samples (K1 v2's on "k1_v2", K2 v2's on "k2_v2"), built on first
-        use and kept while the geometry holds; raises on the "plain"
-        route."""
+        samples (K1 v2's on "k1_v2", K2 v2's on "k2_v2", K3's on "k3"),
+        built on first use and kept while the geometry holds; raises on
+        the "plain" route."""
 
         self._detector = route_detector(
             self.route, self._plan, self.traveltimes, self.node_count,
@@ -226,7 +244,9 @@ class DetectScan:
     def detect(self, windows):
         """
         Run every window of ``windows``, an iterable of
-        ``(channels, chan_mask, slot_mask, nsta, nlta)`` numpy blocks.
+        ``(channels, chan_mask, slot_mask, *per-slot arguments)`` numpy
+        blocks (STA/LTA: ``nsta, nlta``; kurtosis: ``nkurt``), the
+        blocks of the scan's front end.
 
         Returns one entry per window, in order:
         ``(max_coa, max_coa_n, max_idx, ijk)`` numpy arrays over the
@@ -264,10 +284,10 @@ class DetectScan:
         while pending:
             yield self._drain(pending.popleft())
 
-    def _dispatch(self, channels, chan_mask, slot_mask, nsta, nlta):
-        """Copy one window to the device and queue its device program.
-        Returns (packed result on the host or on its way there, CUDA
-        events (start, copied) or None)."""
+    def _dispatch(self, *block):
+        """Copy one window's block to the device and queue its device
+        program. Returns (packed result on the host or on its way there,
+        CUDA events (start, copied) or None)."""
 
         # The window's tensors land on self.device, so this one flag is
         # the tensors' device: it picks the kernel path and the events
@@ -282,24 +302,17 @@ class DetectScan:
                 self.device, non_blocking=True
             )
 
-        channels, chan_mask, slot_mask, nsta, nlta = (
-            put(a) for a in (channels, chan_mask, slot_mask, nsta, nlta)
-        )
-        nsamples = channels.shape[-1] - self.fsmp - self.lsmp
+        block = tuple(put(a) for a in block)
+        nsamples = block[0].shape[-1] - self.fsmp - self.lsmp
         if cuda:
-            out = detect_window_fused_cuda(
-                channels, chan_mask, slot_mask, nsta, nlta,
-                self.detector(nsamples), self.position, self.transform,
-                self.min_onset_value, self.n_nodes,
-            )
+            out = detect_window_cuda(self.front_end, block,
+                                     self.detector(nsamples), self.n_nodes)
         else:
             if self._tt_flat is None:
                 self._tt_flat = torch.from_numpy(self.traveltimes)
-            out = detect_window_fused(
-                channels, chan_mask, slot_mask, nsta, nlta, self._tt_flat,
-                self.position, self.transform, self.min_onset_value,
-                self.fsmp, nsamples, n_nodes_real=self.n_nodes,
-            )
+            out = detect_window(self.front_end, block, self._tt_flat,
+                                self.fsmp, nsamples,
+                                n_nodes_real=self.n_nodes)
         packed = pack_detect_window(*out)
         if not cuda:
             return packed, None
@@ -348,7 +361,10 @@ class QuakeScan:
     ----------
     archive : quakemigrate_torch.io.Archive
     lut : quakemigrate_torch.lut.LUT
-    onset : quakemigrate_torch.signal.onsets.STALTAOnset
+    onset : STALTAOnset or KurtosisOnset
+        (``quakemigrate_torch.signal.onsets``); another Onset subclass
+        raises OnsetTypeError (the reference's non-fused detect path is
+        not ported).
     run_path, run_name : str
         The run directory is ``run_path/run_name`` (``run_subname``
         appends a subdirectory name).
@@ -390,6 +406,27 @@ class QuakeScan:
         drawn.
     log, loglevel
         Logging to a file in the run directory, and its level.
+    kernel : "auto", "mxu" or "xla", default "auto"
+        The reference's migration kernel option. "auto" and "mxu" take
+        :func:`detect_route`'s kernel; "xla" (the reference's XLA
+        shift-table kernel) takes K3, ``CudaDetectGlobal``, whatever the
+        plan. Other values raise ValueError.
+    precision : "single", default
+        "double" raises ValueError: no float64 detect or marginalisation
+        kernel exists.
+    mesh : None
+        Anything else raises NotImplementedError (the port has no
+        multi-GPU path).
+    threads, tile, mxu_encoding, compilation_cache, fused_detect, detect_batch
+        The reference's options that change only its speed: accepted,
+        validated as the reference validates them (``mxu_encoding`` one
+        of "i8x3", "i8x2", "bf16hl"; ``detect_batch`` at least 1), and
+        without effect here.
+    time_step, n_cores, sampling_rate
+        The reference's deprecated names: ``time_step`` sets
+        ``timestep``, ``n_cores`` sets ``threads``, ``sampling_rate``
+        sets nothing (the scan rate is the onset's); each prints the
+        reference's notice.
 
     Attributes
     ----------
@@ -449,6 +486,10 @@ class QuakeScan:
         "run_subname": "",
         "plot_event_summary": True,
         "plot_event_video": False,
+        # Options of the reference's event summary figure, which the port
+        # does not draw (plot/ is not ported; plot_event_summary is logged)
+        "plot_all_stns": True,
+        "xy_files": None,
         "write_cut_waveforms": False,
         "write_real_waveforms": False,
         "write_wa_waveforms": False,
@@ -458,11 +499,34 @@ class QuakeScan:
         "write_marginal_coalescence": False,
         "write_coalescence": False,
         "locate_map_memory_limit": 4e9,
+        # The reference's device options, with its defaults. kernel="xla"
+        # takes K3; "auto" and "mxu" detect_route's kernel.
+        "kernel": "auto",
+        # "double" raises: no float64 kernel (the windows run in float32)
+        "precision": "single",
+        # Anything but None raises: the port has no multi-GPU path
+        "mesh": None,
+        # Host threads of the reference's own C calls; the port has none
+        "threads": 1,
+        # The reference's XLA node tile: the port's plans fix their tiles
+        "tile": 4096,
+        # The reference's MXU table encoding: the port's kernels gather
+        # the onsets in float32
+        "mxu_encoding": "i8x2",
+        # The reference's XLA compilation cache: the port compiles nothing
+        # per run (the kernels are built once, at first use)
+        "compilation_cache": True,
+        # The reference's fused window: the port's windows are always
+        # fused (STALTAOnset and KurtosisOnset)
+        "fused_detect": True,
+        # Windows a dispatch in the reference, a vmap whose results equal
+        # one window at a time: the port dispatches one window at a time
+        "detect_batch": 1,
     }
 
     def __init__(self, archive, lut, onset, run_path, run_name,
                  device="cuda", **kwargs):
-        if not isinstance(onset, STALTAOnset):
+        if not isinstance(onset, (STALTAOnset, KurtosisOnset)):
             raise util.OnsetTypeError
         self.device = resolve_device(device)
         self.archive = archive
@@ -473,6 +537,25 @@ class QuakeScan:
             setattr(self, option, kwargs.get(option, default))
         self.detect_drain_depth = max(1, int(self.detect_drain_depth))
         self.locate_workers = max(0, int(self.locate_workers))
+        self.detect_batch = max(1, int(self.detect_batch))
+        if self.kernel not in ("auto", "mxu", "xla"):
+            raise ValueError(
+                f"kernel must be 'auto', 'mxu' or 'xla', got {self.kernel!r}"
+            )
+        if self.mxu_encoding not in ("i8x3", "i8x2", "bf16hl"):
+            raise ValueError(
+                f"mxu_encoding must be 'i8x3', 'i8x2' or 'bf16hl', got "
+                f"{self.mxu_encoding!r}"
+            )
+        if self.precision == "double":
+            raise ValueError(
+                "precision='double': quakemigrate_torch has no float64 "
+                "detect or marginalisation kernel yet (ROADMAP.md); use "
+                "precision='single'")
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "mesh: the multi-GPU path is not ported yet (ROADMAP.md "
+                "§1, A12)")
         picker = kwargs.get("picker")
         if picker is None:
             self.picker = GaussianPicker(onset=onset)
@@ -496,10 +579,17 @@ class QuakeScan:
         self.on_window = None
         self.on_event = None
         self._traveltimes = None
+        self._traveltimes_key = None
+        self._detect_scan_key = None
         self._route = None
         self._tt_flat = None
         self._locate_detector = None
         self._summary_logged = False
+
+        # The reference's deprecated parameter names (the properties at
+        # the end of the class)
+        for legacy in ("time_step", "n_cores", "sampling_rate"):
+            setattr(self, legacy, kwargs.get(legacy))
 
     def __str__(self):
         out = ("\tScan parameters:\n"
@@ -516,6 +606,17 @@ class QuakeScan:
 
         return self.onset.sampling_rate
 
+    @scan_rate.setter
+    def scan_rate(self, value):
+        # As the reference: refuse, aloud, an assignment that would break
+        # the traveltime quantisation
+        if value != self.onset.sampling_rate:
+            print(
+                "Warning: scan sampling rate is fixed to the onset "
+                f"sampling rate ({self.onset.sampling_rate} Hz); "
+                f"ignoring {value}."
+            )
+
     def _canonical_slots(self):
         """Phase-major (phase, station) slot ordering for the onset block."""
 
@@ -524,46 +625,67 @@ class QuakeScan:
 
     def _traveltime_table(self):
         """Node-major int32 traveltime sample offsets, one column per
-        canonical slot, as the JAX ``_build_device_state`` stacks them."""
+        canonical slot, as the JAX ``_build_device_state`` stacks them.
+        Built once for the LUT's grid and tables: where they change (an
+        in-place ``LUT.decimate``), the table, the route and its plan,
+        and the detectors built on them are dropped and built anew."""
 
-        if self._traveltimes is None:
-            tables = []
-            for phase, station in self._canonical_slots():
-                try:
-                    tables.append(self.lut[station][phase])
-                except (KeyError, TypeError):
-                    raise util.LUTPhasesException(
-                        f"Attempting to migrate phase {phase} for station "
-                        f"{station}; traveltimes not found in the LUT. "
-                        f"Please create a new lookup table with phases="
-                        f"{self.onset.phases}."
-                    )
+        tables = []
+        for phase, station in self._canonical_slots():
+            try:
+                tables.append(self.lut[station][phase])
+            except (KeyError, TypeError):
+                raise util.LUTPhasesException(
+                    f"Attempting to migrate phase {phase} for station "
+                    f"{station}; traveltimes not found in the LUT. "
+                    f"Please create a new lookup table with phases="
+                    f"{self.onset.phases}."
+                )
+        key = (tuple(self.lut.node_count), self.scan_rate,
+               tuple((id(t), t.shape) for t in tables))
+        if key != self._traveltimes_key:
             self._traveltimes = traveltime_table(tables, self.scan_rate)
+            self._traveltimes_key = key
+            self._route = self._tt_flat = self._locate_detector = None
+            self.detect_scan = None
         return self._traveltimes
 
     def _detect_route(self):
         """:func:`detect_route` of the traveltimes on the scan's device,
         built once: detect and locate share its plan."""
 
+        tt = self._traveltime_table()
         if self._route is None:
-            self._route = detect_route(self._traveltime_table(),
-                                       tuple(self.lut.node_count),
-                                       self.device)
+            self._route = detect_route(tt, tuple(self.lut.node_count),
+                                       self.device, self.kernel)
         return self._route
 
-    def _detect_scan(self, fsmp, lsmp):
-        """The DetectScan of this scan geometry, built once."""
+    def _front_end_settings(self):
+        """(front end factory, settings) of detect's fused window
+        (``ops.scan_window``) for this scan's onset and timestep."""
 
+        if isinstance(self.onset, KurtosisOnset):
+            return (kurtosis_front_end,
+                    self.onset.fused_static_args(self.timestep))
+        return stalta_front_end, (self.onset.position,
+                                  self.onset.signal_transform,
+                                  float(self.onset.min_onset_value))
+
+    def _detect_scan(self, fsmp, lsmp):
+        """The DetectScan of this scan geometry and onset front end,
+        built once and kept while they hold."""
+
+        route = self._detect_route()
+        factory, settings = self._front_end_settings()
+        key = (fsmp, lsmp, factory, settings)
         scan = self.detect_scan
-        if scan is None or (scan.fsmp, scan.lsmp) != (fsmp, lsmp):
+        if scan is None or self._detect_scan_key != key:
             scan = self.detect_scan = DetectScan(
                 self._traveltime_table(), tuple(self.lut.node_count), fsmp,
-                lsmp, position=self.onset.position,
-                transform=self.onset.signal_transform,
-                min_onset_value=self.onset.min_onset_value,
-                device=self.device, drain_depth=self.detect_drain_depth,
-                route=self._detect_route(),
+                lsmp, front_end=factory(*settings), device=self.device,
+                drain_depth=self.detect_drain_depth, route=route,
             )
+            self._detect_scan_key = key
         return scan
 
     # ------------------------------------------------------------------
@@ -1037,8 +1159,9 @@ class QuakeScan:
         (``find_max_coa``, on the map's device), and the map copied back
         through a pinned buffer as [nx, ny, nz, nsamples]. Otherwise the
         two-pass path's pass 1: on the card the detect kernel of the
-        scan's route (K1 v2, or K2 v2 on a plan K1 v2 refuses); on the
-        CPU the plain flat-order migration.
+        scan's route (K1 v2, or K2 v2 on a plan K1 v2 refuses, or K3 on
+        a plan neither takes or with ``kernel="xla"``); on the CPU the
+        plain flat-order migration.
 
         """
 
@@ -1474,3 +1597,23 @@ class QuakeScan:
         mask = np.zeros(np.asarray(n), dtype=bool)
         mask[tuple(slice(a, b) for a, b in zip(lo, hi))] = True
         return mask
+
+    # --- the reference's deprecated parameter names: setters that accept
+    # and warn, so old user scripts keep running unchanged ---
+
+    sampling_rate = util.legacy_parameter(
+        "scan_rate",
+        lambda self: (
+            "Warning: Parameter name has changed - continuing. Currently\n"
+            "the scan sampling rate must be the same as the onset sampling\n"
+            "rate, which you have set to "
+            f"{getattr(self, 'scan_rate', '')} Hz."),
+        assign=False,
+    )
+    time_step = util.legacy_parameter(
+        "timestep", util.renamed_notice("time_step", "timestep"))
+    n_cores = util.legacy_parameter(
+        "threads",
+        util.renamed_notice("n_cores", "threads")
+        + "\n(On TPU, host thread count does not affect the migration.)",
+    )

@@ -41,6 +41,36 @@ class AttribDict(dict):
         return AttribDict(self)
 
 
+def renamed_notice(old, new):
+    """The reference's notice for a parameter it renamed."""
+
+    return ("FutureWarning: Parameter name has changed - continuing.\n"
+            "To remove this message, change:\n"
+            f"\t'{old}' -> '{new}'")
+
+
+def legacy_parameter(new, notice, assign=True):
+    """
+    Accept-and-warn property for a parameter name the reference retired:
+    reading it reads ``new``; setting it prints ``notice`` (a string, or a
+    function of the instance that gives one) and, where ``assign``, sets
+    ``new``. None is ignored, so constructors may pass every keyword on.
+
+    """
+
+    def read(self):
+        return getattr(self, new)
+
+    def write(self, value):
+        if value is None:
+            return
+        print(notice(self) if callable(notice) else notice)
+        if assign:
+            setattr(self, new, value)
+
+    return property(read, write)
+
+
 def time2sample(time, sampling_rate):
     """Seconds -> nearest whole sample count at ``sampling_rate``."""
 
@@ -393,6 +423,17 @@ class MergeError(QMError):
 class StationFileHeaderException(QMError):
     detail = ("Incorrect station file header - use:\n"
               "Latitude, Longitude, Elevation, Name")
+
+    def __init__(self):
+        super().__init__()
+
+
+class InvalidVelocityModelHeader(QMError):
+    detail = "Must include at least '{0}' in header."
+
+
+class NoStationAvailabilityDataException(QMError):
+    detail = "No .StationAvailability files found."
 
     def __init__(self):
         super().__init__()

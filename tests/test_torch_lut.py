@@ -13,7 +13,11 @@ JAX package's:
 - the npz+json LUT file: save and load round-trip;
 - lut_from_reference of a JAX .LUT (read with quakemigrate_tpu.io.read_lut)
   equal to the LUT the port builds itself;
-- read_stations equal to the JAX reader's table.
+- read_stations equal to the JAX reader's table;
+- LUT.decimate (copy and in place, with factors that leave the corners
+  unmoved), the grid and station extents, the renamed cell_count and
+  cell_size, LUT.__add__, io.read_vmodel, the io.core.stations alias and
+  the package-level exports, each against the JAX package's.
 
 """
 
@@ -245,3 +249,176 @@ def test_read_stations_refuses_bad_header(tmp_path):
 
     with pytest.raises(StationFileHeaderException):
         read_stations(path)
+
+
+# -- host leftovers the example scripts call: decimate, extents, aliases,
+# __add__, read_vmodel, the package exports ---------------------------------
+
+@pytest.mark.parametrize("case", ["synthetic", "icequake"])
+@pytest.mark.parametrize("df", [[2, 2, 2], [3, 2, 4], [1, 5, 3]])
+def test_decimate_matches_jax(luts, case, df):
+    """Against the JAX LUT.decimate: the node counts, spacings, tables and
+    node coordinates, including factors where (count - 1) % df != 0,
+    whose corners the reference does not move (index 0 stays at the
+    original lower-left corner); the tables contiguous; the original
+    untouched."""
+
+    got, ref, _ = luts[case]
+    before = {st: {ph: t.copy() for ph, t in per.items()}
+              for st, per in got.traveltimes.items()}
+    small, ref_small = got.decimate(df), ref.decimate(df)
+    np.testing.assert_array_equal(small.node_count, ref_small.node_count)
+    np.testing.assert_array_equal(small.node_spacing, ref_small.node_spacing)
+    np.testing.assert_array_equal(small.ll_corner, got.ll_corner)
+    np.testing.assert_array_equal(small.ll_corner, ref_small.ll_corner)
+    for station, per_phase in ref_small.traveltimes.items():
+        for phase, table in per_phase.items():
+            assert small[station][phase].flags.c_contiguous
+            np.testing.assert_array_equal(small[station][phase], table)
+            np.testing.assert_array_equal(got[station][phase],
+                                          before[station][phase])
+    idx = np.arange(0, small.n_nodes, 7)
+    np.testing.assert_allclose(small.index2coord(idx, unravel=True),
+                               ref_small.index2coord(idx, unravel=True),
+                               rtol=1e-9, atol=1e-9)
+    np.testing.assert_allclose(small.index2coord([[0, 0, 0]]),
+                               got.index2coord([[0, 0, 0]]), rtol=1e-12)
+    np.testing.assert_array_equal(small.serve_traveltimes(100),
+                                  ref_small.serve_traveltimes(100))
+    assert small.max_traveltime == pytest.approx(ref_small.max_traveltime,
+                                                 rel=1e-12)
+
+
+def test_decimate_quirk_offset_shifts_nodes(luts):
+    """A count with (count - 1) % df != 0: the kept nodes start one node
+    in, yet index 0 still maps to the original corner, so the decimated
+    node 0's traveltimes are those of original node (1, 1, 1)."""
+
+    got, ref, _ = luts["synthetic"]
+    counts, df = got.node_count, [3, 3, 3]
+    offsets = (counts - np.array(df) * ((counts - 1) // df) - 1) // 2
+    assert (offsets > 0).any()
+    small = got.decimate(df)
+    station = got.station_data["Name"][0]
+    np.testing.assert_array_equal(small[station]["P"][0, 0, 0],
+                                  got[station]["P"][tuple(offsets)])
+    np.testing.assert_array_equal(
+        small[station]["P"], ref.decimate(df)[station]["P"])
+
+
+def test_decimate_inplace_matches_jax(luts):
+    """In place, as the Askja example's detect script calls it: on copies
+    of the module's LUTs (decimate by 1 copies)."""
+
+    got, ref = (lut.decimate([1, 1, 1]) for lut in luts["icequake"][:2])
+    assert got.decimate([2, 2, 2], inplace=True) is None
+    assert ref.decimate([2, 2, 2], inplace=True) is None
+    np.testing.assert_array_equal(got.node_count, ref.node_count)
+    for station, per_phase in ref.traveltimes.items():
+        for phase, table in per_phase.items():
+            np.testing.assert_array_equal(got[station][phase], table)
+
+
+@pytest.mark.parametrize("case", ["synthetic", "icequake"])
+def test_extents_match_jax(luts, case):
+    got, ref, _ = luts[case]
+    for cells in (False, True):
+        np.testing.assert_allclose(got.get_grid_extent(cells=cells),
+                                   ref.get_grid_extent(cells=cells),
+                                   rtol=1e-9, atol=1e-9)
+    np.testing.assert_allclose(got.grid_extent, ref.grid_extent, rtol=1e-9,
+                               atol=1e-9)
+    np.testing.assert_allclose(got.station_extent, ref.station_extent,
+                               rtol=1e-12)
+    np.testing.assert_allclose(got.max_extent, ref.max_extent, rtol=1e-9,
+                               atol=1e-9)
+
+
+@pytest.mark.parametrize("alias, attr, value", [
+    ("cell_count", "node_count", [5, 6, 7]),
+    ("cell_size", "node_spacing", [0.5, 0.5, 0.25]),
+    ("cell_size", "node_spacing", None),
+])
+def test_renamed_grid_parameters_match_jax(luts, capsys, alias, attr,
+                                           value):
+    got, ref, _ = luts["synthetic"]
+    got, ref = got.decimate([1, 1, 1]), ref.decimate([1, 1, 1])
+    setattr(ref, alias, value)
+    want = capsys.readouterr().out
+    setattr(got, alias, value)
+    assert capsys.readouterr().out == want
+    np.testing.assert_array_equal(getattr(got, attr), getattr(ref, attr))
+    np.testing.assert_array_equal(getattr(got, alias), getattr(ref, alias))
+
+
+def test_add_matches_jax(luts, capsys):
+    """Merging the tables of a LUT on the same grid; other grids and
+    non-LUTs refused with the reference's messages and return values."""
+
+    got, ref, _ = luts["synthetic"]
+    a, b = got.decimate([1, 1, 1]), got.decimate([1, 1, 1])
+    ja, jb = ref.decimate([1, 1, 1]), ref.decimate([1, 1, 1])
+    for lut in (b, jb):
+        lut.traveltimes = {"NEW": lut.traveltimes["ST00"]}
+    merged, j_merged = a + b, ja + jb
+    assert merged is a and j_merged is ja
+    assert list(merged.traveltimes) == list(j_merged.traveltimes)
+    assert "NEW" in merged.traveltimes
+    capsys.readouterr()
+    j_other = ja + ref.decimate([2, 2, 2])
+    j_out = capsys.readouterr().out
+    assert (a + got.decimate([2, 2, 2])) is None and j_other is None
+    assert capsys.readouterr().out == j_out
+    assert (a + 3) is a and (ja + 3) is ja
+    assert "Addition not defined" in capsys.readouterr().out
+
+
+def test_read_vmodel_matches_jax(tmp_path):
+    from quakemigrate_tpu.io import read_vmodel as j_read_vmodel
+    from quakemigrate_tpu.util import (
+        InvalidVelocityModelHeader as JInvalidVelocityModelHeader,
+    )
+    from quakemigrate_torch.io import read_vmodel
+    from quakemigrate_torch.util import InvalidVelocityModelHeader
+
+    path = tmp_path / "vmodel.txt"
+    path.write_text("Depth,Vp,Vs,Name\n-2,3.5,2.0,top\n0,4.25,2.4,a\n"
+                    "3,5.8,3.36,b\n10,6.5,3.75,c\n")
+    got, ref = read_vmodel(path), j_read_vmodel(path)
+    assert got.names == list(ref.columns)
+    for name in ref.columns:
+        want = ref[name].to_numpy()
+        assert got[name].dtype.kind == want.dtype.kind or (
+            want.dtype == object), name
+        np.testing.assert_array_equal(got[name], want)
+    bad = tmp_path / "bad.txt"
+    bad.write_text("Z,Vp\n0,4\n")
+    with pytest.raises(JInvalidVelocityModelHeader) as j_err:
+        j_read_vmodel(bad)
+    with pytest.raises(InvalidVelocityModelHeader) as err:
+        read_vmodel(bad)
+    assert str(err.value) == str(j_err.value)
+
+
+def test_stations_alias_matches_jax(capsys):
+    from quakemigrate_tpu.io.core import stations as j_stations
+    from quakemigrate_torch.io.core import stations
+
+    ref = j_stations(ICEQUAKE_STATIONS)
+    want = capsys.readouterr().out
+    got = stations(ICEQUAKE_STATIONS)
+    assert capsys.readouterr().out == want and "read_stations" in want
+    for col in StationTable.COLUMNS:
+        np.testing.assert_array_equal(got[col], ref[col].to_numpy())
+
+
+def test_package_exports_match_jax():
+    import quakemigrate_tpu
+    import quakemigrate_torch
+    from quakemigrate_torch import io, lut
+
+    for name, where in (("Archive", io), ("read_lut", io),
+                        ("read_stations", io), ("LUT", lut),
+                        ("compute_traveltimes", lut)):
+        assert hasattr(quakemigrate_tpu, name)
+        assert getattr(quakemigrate_torch, name) is getattr(where, name)

@@ -17,7 +17,12 @@ the CPU) against the JAX QuakeScan.detect on the synthetic workspace
   arrays;
 - DetectScan.stream yields in window order, None for windows without a
   live slot;
-- QuakeScan(device="cuda") raises where CUDA is absent.
+- QuakeScan(device="cuda") raises where CUDA is absent;
+- io.read_availability against the JAX reader (the run's files, an
+  old-format file, a span without files);
+- an in-place LUT.decimate after the QuakeScan was built: the scan's
+  tables are built anew; detect on the decimated LUT against the JAX
+  package's on its decimated LUT.
 
 """
 
@@ -292,3 +297,107 @@ def test_quakescan_defaults_to_the_card(workspace):
             QuakeScan(archive, lut, onset, root, "card", device="cuda")
     assert QuakeScan(archive, lut, onset, root, "cpu",
                      device="cpu").device == torch.device("cpu")
+
+
+# -- host leftovers: read_availability, and detect on a decimated LUT --------
+
+def test_read_availability_matches_jax(runs):
+    """The port's reader on the port's files against the JAX reader on
+    the JAX files: the row labels (the reference's index), the columns
+    and the int flags."""
+
+    from quakemigrate_tpu.io import read_availability as j_read_availability
+    from quakemigrate_torch.io import read_availability
+
+    start, end = UTCDateTime(ws.START), UTCDateTime(ws.END)
+    got = read_availability(Run(runs["port"].parent, "port"), start, end)
+    want = j_read_availability(JRun(runs["jax"].parent, "jax"),
+                               JUTCDateTime(ws.START), JUTCDateTime(ws.END))
+    assert got.names == ["DT", *want.columns]
+    assert list(got["DT"]) == list(want.index)
+    for name in want.columns:
+        assert got[name].dtype == np.int64
+        np.testing.assert_array_equal(got[name], want[name].to_numpy())
+
+
+def test_read_availability_old_format_and_missing(tmp_path):
+    """An old-format file (a column per station) is expanded to
+    {station}_P then {station}_S columns, as the JAX reader expands it; a
+    span without files raises the reference's exception."""
+
+    from quakemigrate_tpu.io import read_availability as j_read_availability
+    from quakemigrate_tpu.util import (
+        NoStationAvailabilityDataException as JNoData,
+    )
+    from quakemigrate_torch.io import read_availability
+    from quakemigrate_torch.util import NoStationAvailabilityDataException
+
+    day = tmp_path / "run" / "detect" / "availability"
+    day.mkdir(parents=True)
+    (day / "2021_049_StationAvailability.csv").write_text(
+        ",ST_A,ST_B\n2021-02-18T12:00:20.000000Z,1,0\n"
+        "2021-02-18T12:00:25.000000Z,0,1\n")
+    start, end = "2021-02-18T12:00:00.0", "2021-02-18T13:00:00.0"
+    got = read_availability(Run(tmp_path, "run"), start, end)
+    want = j_read_availability(JRun(tmp_path, "run"), JUTCDateTime(start),
+                               JUTCDateTime(end))
+    assert got.names == ["DT", *want.columns]
+    for name in want.columns:
+        np.testing.assert_array_equal(got[name], want[name].to_numpy())
+    with pytest.raises(JNoData):
+        j_read_availability(JRun(tmp_path, "none"), JUTCDateTime(start),
+                            JUTCDateTime(end))
+    with pytest.raises(NoStationAvailabilityDataException) as err:
+        read_availability(Run(tmp_path, "none"), start, end)
+    assert "StationAvailability" in str(err.value)
+
+
+def test_inplace_decimate_rebuilds_the_scan_tables(workspace):
+    """A QuakeScan built before an in-place LUT.decimate migrates on the
+    decimated grid: the flat table, the route and the DetectScan are
+    built anew, not kept stale."""
+
+    scan = _port_scan(workspace, "decimated_cache")
+    full = scan._traveltime_table()
+    assert full.shape[0] == scan.lut.n_nodes
+    scan._detect_scan(10, 10)
+    scan.lut.decimate([2, 2, 2], inplace=True)
+    small = scan._traveltime_table()
+    assert small.shape == (scan.lut.n_nodes, full.shape[1])
+    assert small.shape[0] < full.shape[0]
+    assert scan.detect_scan is None
+    assert scan._detect_scan(10, 10).n_nodes == scan.lut.n_nodes
+
+
+def test_decimated_detect_matches_jax(workspace):
+    """Both packages' detect on their LUT decimated in place by [2, 2, 2],
+    as the Askja example's detect script does: .scanmseed COA within
+    max(1 count, 1e-5 of the value), X/Y/Z equal where the nodes agree,
+    the peak within one decimated node of the planted source."""
+
+    port = _port_scan(workspace, "port_decimated")
+    port.lut.decimate([2, 2, 2], inplace=True)
+    port.detect(ws.START, ws.END)
+    jax = _jax_scan(workspace, "jax_decimated")
+    jax.lut = jax.lut.decimate([2, 2, 2])
+    jax.onset.post_pad = jax.lut.max_traveltime
+    jax.detect(ws.START, ws.END)
+    runs_dir = workspace["root"] / "runs"
+    got = _scanmseed(runs_dir / "port_decimated")
+    want = _scanmseed(runs_dir / "jax_decimated")
+    for name in ("COA", "COA_N"):
+        a = got[name].data.astype(np.int64)
+        b = want[name].data.astype(np.int64)
+        assert (np.abs(a - b) <= np.maximum(1, 1e-5 * np.abs(b))).all()
+    same = np.ones_like(got["X"].data, dtype=bool)
+    for name in ("X", "Y", "Z"):
+        same &= got[name].data == want[name].data
+    assert same.mean() >= 0.99
+    peak = int(np.argmax(got["COA"].data))
+    lut = port.lut
+    node = lut.index2coord([[
+        got["X"].data[peak] / 1e6, got["Y"].data[peak] / 1e6,
+        got["Z"].data[peak] / 1e3 / lut.unit_conversion_factor]],
+        inverse=True)[0]
+    source = lut.index2coord([ws.SOURCE], inverse=True)[0]
+    assert np.abs(node - source).max() <= 1

@@ -38,7 +38,7 @@ from quakemigrate_tpu.synthetics import (
 from quakemigrate_torch import DetectScan, traveltime_table, unravel
 from quakemigrate_torch.device import resolve_device
 from quakemigrate_torch.ops.migrate import _prepare_onsets
-from quakemigrate_torch.ops.scan_window import fused_onsets
+from quakemigrate_torch.ops.scan_window import stalta_front_end
 
 torch.set_num_threads(1)
 
@@ -125,9 +125,10 @@ def _port_scan(synthetic, fsmp, lsmp):
     tt = traveltime_table([lut[st][ph] for ph, st in slots], scan.scan_rate)
     onset = scan.onset
     return DetectScan(
-        tt, tuple(lut.node_count), fsmp, lsmp, position=onset.position,
-        transform=onset.signal_transform,
-        min_onset_value=onset.min_onset_value, device="cpu",
+        tt, tuple(lut.node_count), fsmp, lsmp,
+        front_end=stalta_front_end(onset.position, onset.signal_transform,
+                                   onset.min_onset_value),
+        device="cpu",
     )
 
 
@@ -157,9 +158,7 @@ def test_detect_scan_matches_quakescan(synthetic, windows):
 
         # tie-consistency: the coalescence at the port's node is the max
         tensors = [torch.from_numpy(a) for a in block]
-        combined, available = fused_onsets(
-            *tensors, port.position, port.transform, port.min_onset_value
-        )
+        combined, available = port.front_end(*tensors)
         logged = _prepare_onsets(combined, tensors[2]).numpy()
         t = np.arange(len(max_idx))
         cols = fsmp + port.traveltimes[max_idx].T + t
@@ -287,6 +286,23 @@ from quakemigrate_torch.seis.steim import steim_decode, steim_encode_records
 from quakemigrate_torch.signal.onsets import STALTAOnset, pre_process
 from quakemigrate_torch.util import (
     AttribDict, DataGapException, merge_stream, resample, shift_to_sample)
+from quakemigrate_torch import (
+    LUT as PortLUT, Archive as PortArchive, CudaDetectGlobal,
+    compute_traveltimes as port_compute_traveltimes,
+    read_lut as port_read_lut, read_stations as port_read_stations)
+from quakemigrate_torch.io import read_availability, read_vmodel
+from quakemigrate_torch.io.core import stations
+from quakemigrate_torch.ops.cuda_migrate import (
+    combine_flat_tiles, migrate_detect_global_cuda)
+from quakemigrate_torch.ops.kurtosis import (
+    kurtosis_cf_rows, kurtosis_onset, rolling_kurtosis)
+from quakemigrate_torch.ops.scan_window import (
+    detect_window_cuda, detect_window_fused_kurtosis,
+    fused_kurtosis_onsets, kurtosis_front_end, stalta_front_end)
+from quakemigrate_torch.signal.onsets import (
+    CentredSTALTAOnset, ClassicSTALTAOnset, KurtosisOnset)
+for module in ("ops.kurtosis", "signal.onsets.kurtosis"):
+    assert f"quakemigrate_torch.{module}" in names, module
 assert "quakemigrate_torch.experiments.exp_kernel_breakdown" in names
 assert "quakemigrate_torch.experiments.exp_vpu_v2" in names
 for module in ("seis.response", "io.amplitudes", "signal.local_mag",
@@ -304,4 +320,4 @@ def test_port_imports_without_jax_pandas_or_reference():
         text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 57  # every module of the slices
+    assert int(proc.stdout.strip()) >= 59  # every module of the slices

@@ -105,6 +105,28 @@ def onset_settings(onset):
     return onset
 
 
+def kurtosis_settings(onset):
+    """The workspace's kurtosis settings, on a JAX or a port onset: the
+    STA/LTA run's bandpass, 1 s kurtosis windows and 0.05 s smoothing."""
+
+    onset.phases = ["P", "S"]
+    onset.bandpass_filters = {"P": [1, 12, 2], "S": [1, 12, 2]}
+    onset.kurtosis_windows = {"P": 1.0, "S": 1.0}
+    onset.smoothing_window = 0.05
+    return onset
+
+
+def make_onset(onsets_module, kurtosis=False):
+    """The workspace's onset from ``onsets_module`` (the JAX package's
+    ``signal.onsets`` or the port's): classic STA/LTA, or kurtosis."""
+
+    if kurtosis:
+        return kurtosis_settings(onsets_module.KurtosisOnset(
+            sampling_rate=SPS))
+    return onset_settings(onsets_module.STALTAOnset(position="classic",
+                                                    sampling_rate=SPS))
+
+
 # Trigger and locate settings of the workspace's run (those of
 # tests/test_e2e_synthetic.py), shared by both packages
 TRIGGER = dict(marginal_window=1.0, min_event_interval=2.0,
@@ -113,20 +135,21 @@ TRIGGER = dict(marginal_window=1.0, min_event_interval=2.0,
 MARGINAL_WINDOW = 1.0
 
 
-def jax_pipeline(workspace, run_name, locate=True, **locate_options):
+def jax_pipeline(workspace, run_name, locate=True, kurtosis=False,
+                 **locate_options):
     """The JAX package's detect -> trigger -> locate over the workspace's
-    span, no figures, into ``root/runs/run_name``. Returns the run dir."""
+    span, no figures, into ``root/runs/run_name`` (with ``kurtosis``, the
+    kurtosis onset). Returns the run dir."""
 
     from quakemigrate_tpu import QuakeScan, Trigger
     from quakemigrate_tpu.io import Archive
-    from quakemigrate_tpu.signal.onsets import STALTAOnset
+    from quakemigrate_tpu.signal import onsets
 
     runs = workspace["root"] / "runs"
     archive = Archive(archive_path=workspace["archive"],
                       stations=workspace["stations"],
                       archive_format="YEAR/JD/STATION")
-    onset = onset_settings(STALTAOnset(position="classic",
-                                       sampling_rate=SPS))
+    onset = make_onset(onsets, kurtosis)
     scan = QuakeScan(archive, workspace["lut"], onset=onset,
                      run_path=str(runs), run_name=run_name,
                      timestep=TIMESTEP, marginal_window=MARGINAL_WINDOW,
@@ -140,34 +163,35 @@ def jax_pipeline(workspace, run_name, locate=True, **locate_options):
     return runs / run_name
 
 
-def port_scan(workspace, run_name, **options):
+def port_scan(workspace, run_name, kurtosis=False, **options):
     """The port's QuakeScan on the CPU over the workspace, with the
     settings of :func:`jax_pipeline`."""
 
     from quakemigrate_torch.io import Archive
     from quakemigrate_torch.lut import StationTable, lut_from_reference
     from quakemigrate_torch.signal import QuakeScan
-    from quakemigrate_torch.signal.onsets import STALTAOnset
+    from quakemigrate_torch.signal import onsets
 
     archive = Archive(workspace["archive"],
                       StationTable.of(workspace["stations"]),
                       archive_format="YEAR/JD/STATION")
     lut = lut_from_reference(reference_state(workspace["lut"]))
-    onset = onset_settings(STALTAOnset(position="classic",
-                                       sampling_rate=SPS))
+    onset = make_onset(onsets, kurtosis)
     return QuakeScan(archive, lut, onset, str(workspace["root"] / "runs"),
                      run_name, device="cpu", timestep=TIMESTEP,
                      marginal_window=MARGINAL_WINDOW,
                      plot_event_summary=False, **options)
 
 
-def port_pipeline(workspace, run_name, locate=True, **locate_options):
+def port_pipeline(workspace, run_name, locate=True, kurtosis=False,
+                  **locate_options):
     """The port's detect -> trigger -> locate on the CPU, as
     :func:`jax_pipeline`. Returns (run dir, scan)."""
 
     from quakemigrate_torch.signal import Trigger
 
-    scan = port_scan(workspace, run_name, **locate_options)
+    scan = port_scan(workspace, run_name, kurtosis=kurtosis,
+                     **locate_options)
     scan.detect(START, END)
     Trigger(scan.lut, run_path=str(workspace["root"] / "runs"),
             run_name=run_name, plot_trigger_summary=False,
