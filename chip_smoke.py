@@ -98,17 +98,28 @@ Smoke run of quakemigrate_torch on one NVIDIA GPU.
    f3_path: a coarse regional scan that no staged kernel takes (40 x 40
    x 16 nodes at 10 km, homogeneous vp 6.0 and vs 3.46 km/s, 12 surface
    stations x P/S at 100 Hz, a residual span of ~3,000 samples): the
-   route decided before any launch is K3 (csrc/migrate_detect_global.cu,
-   the onset rows from global memory) with K1 v2's and K2 v2's reasons;
-   3 windows through DetectScan launch K3 once each and nothing else,
-   held to the plain window on the card (the tolerances of step 4, the
-   argmax equal to the plain flat-order argmax or tie-consistent), the
-   planted source within a node; M1 over 100 samples and M2's simple
-   form over the window on the same plan, held to the plain
-   migrate_marginalise and migrate_map; K3, M1 and M2 timed with K3's
-   bound and gather floor. Then K3 at the Icequake window with
-   kernel="xla" (4 windows, held to the plain window), timed in turns
-   with K1 v2. kurtosis_detect: a new synthetic Icequake workspace;
+   route decided before any launch is "k3" with K1 v2's and K2 v2's
+   reasons, on which K3 v2 (csrc/migrate_detect_global_v2.cu, the brick
+   plan's windows streamed through an mbarrier ring) takes the plan; 3
+   windows through DetectScan launch K3 v2 once each and nothing else,
+   held to the plain window on the card (the tolerances of step 4) and
+   exactly to the plain version with the kernels' arithmetic (max_coa
+   bit for bit, the argmax the first flat argmax at every sample, the
+   sum within 1e-4; bit for bit to K3 in max and argmax), the planted
+   source within a node; locate's pass 1 there through route_detector
+   (K3 v2 once, held exactly, its peak at the planted node); M1 over 100
+   samples and M2's simple form over the window on the same plan, held
+   to the plain migrate_marginalise and migrate_map, with their bounds.
+   K3 v2 timed in turns with K3 (csrc/migrate_detect_global.cu), with
+   its bound, gather floor, ring, blocks per SM, registers and spills,
+   and a sweep of its onsets a stage; M1 and M2 timed. Then K3 v2 at the
+   Icequake window with kernel="xla" (4 windows, held as at F3), timed
+   in turns with K3 and K1 v2; and two plans of the K3 route's toy
+   geometry (4 x 4 x 4 nodes, one traveltime of 32,768 samples: K3 v2's
+   ring cannot hold its window, so K3 runs; one of 14,999 with
+   kernel="xla": K3 v2 on its one-block shape), 2 windows each, held as
+   at F3.
+   kurtosis_detect: a new synthetic Icequake workspace;
    QuakeScan.detect with KurtosisOnset (the example's bandpass, kurtosis
    windows 0.25 / 0.5 s, 0.05 s of smoothing) over 60 s on K1 v2 (one
    launch a window, nothing else), each window held to the plain
@@ -225,8 +236,9 @@ Smoke run of quakemigrate_torch on one NVIDIA GPU.
    per SM, registers and spills.
 
 14. The machine-code census (experiments/sass_loops.census) of K2, K2
-   v2 and K1 v2: each gather loop's instructions, loads and adds, and
-   its instructions a node-onset-sample.
+   v2, K1 v2, K3 and K3 v2's shapes: each gather loop's instructions,
+   loads, adds and register spills (LDL, STL), and its instructions a
+   node-onset-sample.
 
 Every kernel line carries its launches on its path (each path run with
 the counts set to 0 just before it), its time and its plain version's,
@@ -331,6 +343,11 @@ F3_NODES, F3_SPACING_KM, F3_RATE = (40, 40, 16), 10.0, 100
 F3_VP, F3_VS = 6.0, 3.46
 F3_FSMP, F3_NSAMPLES, F3_WINDOWS = 200, 1000, 3
 F3_STA_LTA = {"P": (0.2, 1.0), "S": (0.2, 1.0)}
+# Locate's pass 1 on F3's route: scan samples about the planted peak
+F3_LOCATE_NSAMPLES = 400
+# K3 and K3 v2 against the plain version with their arithmetic: the max
+# and the argmax exact, the sum (its tiles added in another order) within
+K3_SUM_RTOL = 1e-4
 # kurtosis_detect: KurtosisOnset at the Icequake example's bandpass, with
 # kurtosis windows of its LTA lengths and 0.05 s of smoothing (12 samples
 # at 250 Hz: numpy's even-length centring); the trigger's static
@@ -3141,22 +3158,73 @@ def hold_to_cpu_run(label, root, scan, windows, start, first, coa_at_idx,
     return record
 
 
+def hold_k3_windows(label, detector, windows, results, tt_dev, device):
+    """Each window's K3 route result held exactly, on the prepared onsets
+    of its block (the DetectScan's front end): the detector's kernel
+    (K3 v2 where it takes the plan, else K3) combined over its tiles
+    against the plain version with the kernels' arithmetic
+    (``ops.cuda_migrate.detect_reduce_flat_reference``): max_coa bit for
+    bit, the argmax the first flat argmax at every sample, the sum within
+    K3_SUM_RTOL; K3 v2 also bit for bit to K3 in max and argmax; and the
+    DetectScan's max_coa and max_idx equal to that launch's. These
+    launches come after the path's counts were read. Returns a record."""
+
+    from quakemigrate_torch.experiments import exp_global_v2
+    from quakemigrate_torch.ops import cuda_migrate as cm
+    from quakemigrate_torch.ops.scan_window import fused_onsets
+
+    rec = {"max_bit_equal": True, "argmax_equal": True, "sum_rel_err": 0.0,
+           "max_abs_err": 0.0, "scan_equal": True}
+    if detector.tables is not None:
+        rec["equal_to_k3"] = True
+    for w, (block, res) in enumerate(zip(windows, results)):
+        tensors = [torch.from_numpy(a).to(device) for a in block]
+        combined, available = fused_onsets(*tensors, "classic", "energy",
+                                           0.4)
+        onsets_log, inv = detector.prepare(combined, tensors[2], available)
+        got = detector.reduce_log(onsets_log, inv)
+        ref = cm.combine_flat_tiles(*cm.detect_reduce_flat_reference(
+            onsets_log, tt_dev, inv, detector.fsmp, detector.nsamples))
+        v1 = (None if detector.tables is None else cm.combine_flat_tiles(
+            *detector.launch_v1(onsets_log, inv)))
+        held = exp_global_v2.hold(got, ref, v1)
+        scan_equal = (np.array_equal(res[0], got[0].cpu().numpy())
+                      and np.array_equal(res[2], got[1].cpu().numpy()))
+        check(held["ok"] and held["sum_rel_err"] <= K3_SUM_RTOL
+              and scan_equal, f"{label} window {w}: {held}, the scan's "
+              f"result equal to the kernel's {scan_equal}")
+        for key in ("max_bit_equal", "argmax_equal", "equal_to_k3"):
+            if key in rec:
+                rec[key] = rec[key] and held[key]
+        rec["scan_equal"] = rec["scan_equal"] and scan_equal
+        for key in ("sum_rel_err", "max_abs_err"):
+            rec[key] = max(rec[key], held[key])
+    print(f"{label}: every window's kernel against the plain version with "
+          f"its arithmetic: {rec}")
+    return rec
+
+
 def f3_path(device):
     """F3: a coarse regional scan no staged kernel takes. The geometry of
     F3_NODES (25,600 nodes at 10 km, 12 stations x P/S at 100 Hz):
     detect_route gives "k3" with K1 v2's and K2 v2's reasons, decided
-    before any launch; F3_WINDOWS windows through DetectScan launch K3
-    (csrc/migrate_detect_global.cu) once each and no other kernel, held
-    to the plain window on the card (max_coa 1e-5, max_coa_n 1e-4, the
-    argmax equal to the plain flat-order argmax or tie-consistent), the
-    planted source found within one node. Then locate's passes on the
-    same plan: M1 over a 100-sample marginal window at the peak against
-    the plain migrate_marginalise (M1_RTOL_OF_MAX of the maximum, the
-    same peak node) and M2's simple form against the plain migrate_map
-    (MAP_RTOL of each value). K3, M1 and M2 timed (CUDA events, median of
-    5), with the plain versions and K3's bound and gather floor (its
-    reads at SMEM_BYTES_PER_S, the L1/shared-memory rate: :func:`k3_bound`)."""
+    before any launch, and K3 v2 takes the plan; F3_WINDOWS windows
+    through DetectScan launch K3 v2 (csrc/migrate_detect_global_v2.cu)
+    once each and no other kernel, held to the plain window on the card
+    (max_coa 1e-5, max_coa_n 1e-4, the argmax tie-consistent) and
+    exactly (:func:`hold_k3_windows`), the planted source found within
+    one node. Then locate's passes on the same plan: pass 1 through
+    route_detector at a locate geometry (K3 v2 once, held exactly), M1
+    over a 100-sample marginal window at the peak against the plain
+    migrate_marginalise (M1_RTOL_OF_MAX of the maximum, the same peak
+    node) and M2's simple form against the plain migrate_map (MAP_RTOL
+    of each value), each with its bound and gather floor. K3 v2 timed in
+    turns with K3 (CUDA events), with its bound, gather floor, ring,
+    blocks per SM, registers and spills, and a sweep of its onsets a
+    stage; M1 and M2 timed (median of 5) with the plain versions."""
 
+    from quakemigrate_torch.experiments import exp_global_v2
+    from quakemigrate_torch.experiments.exp_kernel_breakdown import in_turns
     from quakemigrate_torch.ops import cuda_migrate as cm
     from quakemigrate_torch.ops.migrate import (
         detect_reduce,
@@ -3164,7 +3232,11 @@ def f3_path(device):
         migrate_marginalise,
     )
     from quakemigrate_torch.ops.scan_window import fused_onsets
-    from quakemigrate_torch.signal.scan import DetectScan, detect_route
+    from quakemigrate_torch.signal.scan import (
+        DetectScan,
+        detect_route,
+        route_detector,
+    )
 
     rng = np.random.default_rng(2032)
     tt = f3_traveltimes(rng)
@@ -3180,16 +3252,19 @@ def f3_path(device):
           f"{plan.r_span}, largest traveltime {tt.max()} samples; route "
           f"{route[0]}: {route[1]}")
     check(route[0] == "k3" and "K1 v2 (" in route[1]
-          and "K2 v2 (" in route[1], f"f3: route {route[0]} ({route[1]})")
+          and "K2 v2 (" in route[1] and "K3 v2" not in route[1],
+          f"f3: route {route[0]} ({route[1]})")
     scan = DetectScan(tt, F3_NODES, F3_FSMP, lsmp, device=device, route=route)
     detector = scan.detector(F3_NSAMPLES)  # tables up before the count
+    check(detector.tables is not None, f"f3: K3 v2 refused the plan: "
+          f"{detector.v2_refusal}")
     torch.cuda.synchronize()
     cm.reset_launches()
     t0 = time.perf_counter()
     results = scan.detect(windows)
     wall = time.perf_counter() - t0
     launches = dict(cm.launches)
-    check(launches["migrate_detect_global"] == F3_WINDOWS
+    check(launches["migrate_detect_global_v2"] == F3_WINDOWS
           and sum(launches.values()) == F3_WINDOWS,
           f"f3: launches {launches} for {F3_WINDOWS} windows")
     tt_dev = torch.from_numpy(tt).to(device)
@@ -3198,6 +3273,7 @@ def f3_path(device):
         lambda b: plain_window(b, tt_dev, device, F3_FSMP, F3_NSAMPLES),
         lambda b, idx: plain_coa_at(b, tt_dev, idx, device, F3_FSMP,
                                     F3_NSAMPLES))
+    exact = hold_k3_windows("f3", detector, windows, results, tt_dev, device)
     dist = int(np.abs(peaks[1][1] - planted).max())
     print(f"f3: planted node {planted.tolist()}, window 1's peak "
           f"{peaks[1][0]:.6f} at {peaks[1][1].tolist()} ({dist} nodes); "
@@ -3205,10 +3281,41 @@ def f3_path(device):
           f"device ms a window {np.round(scan.window_ms, 3).tolist()}")
     check(dist <= 1, f"f3: peak {dist} nodes from the planted source")
 
-    # Locate's passes on the same plan, for the planted window
+    # Locate's passes on the same plan, for the planted window: pass 1 as
+    # QuakeScan.locate builds it (route_detector on detect's route and
+    # plan, at the locate geometry: F3_LOCATE_NSAMPLES about the peak)
     block = [torch.from_numpy(a).to(device) for a in windows[1]]
     combined, available = fused_onsets(*block, "classic", "energy", 0.4)
     mask = block[2]
+    l_fsmp = F3_FSMP + min(max(0, peaks[1][2] - F3_LOCATE_NSAMPLES // 2),
+                           F3_NSAMPLES - F3_LOCATE_NSAMPLES)
+    torch.cuda.synchronize()
+    cm.reset_launches()
+    pass1 = route_detector(route[0], plan, tt, F3_NODES, l_fsmp,
+                           F3_LOCATE_NSAMPLES, device)
+    l_log, l_inv = pass1.prepare(combined, mask, available)
+    l_got = pass1.reduce_log(l_log, l_inv)
+    torch.cuda.synchronize()
+    pass1_launches = dict(cm.launches)
+    check(pass1_launches["migrate_detect_global_v2"] == 1
+          and sum(pass1_launches.values()) == 1,
+          f"f3: locate pass 1 launches {pass1_launches}")
+    pass1_rec = exp_global_v2.hold(
+        l_got, cm.combine_flat_tiles(*cm.detect_reduce_flat_reference(
+            l_log, tt_dev, l_inv, l_fsmp, F3_LOCATE_NSAMPLES)),
+        cm.combine_flat_tiles(*pass1.launch_v1(l_log, l_inv)))
+    l_peak = int(torch.argmax(l_got[0]))
+    pass1_rec.update(launches=pass1_launches["migrate_detect_global_v2"],
+                     fsmp=l_fsmp, nsamples=F3_LOCATE_NSAMPLES,
+                     peak_node=np.unravel_index(
+                         int(l_got[1][l_peak]), F3_NODES))
+    pass1_rec["peak_node"] = [int(i) for i in pass1_rec["peak_node"]]
+    check(pass1_rec["ok"] and pass1_rec["sum_rel_err"] <= K3_SUM_RTOL
+          and np.abs(np.array(pass1_rec["peak_node"]) - planted).max() <= 1,
+          f"f3: locate pass 1 {pass1_rec}")
+    print(f"f3: locate's pass 1 (route_detector, {F3_LOCATE_NSAMPLES} "
+          f"samples from {l_fsmp}): launches {pass1_launches}; {pass1_rec}")
+
     onsets_log, inv = detector.prepare(combined, mask, available)
     i0 = min(max(0, peaks[1][2] - 50), F3_NSAMPLES - 100)
     torch.cuda.synchronize()
@@ -3239,42 +3346,61 @@ def f3_path(device):
     check(map_err <= MAP_RTOL, f"f3: M2 simple form {map_err}")
     del want_map, map_
 
-    bound = k3_bound(tt.shape[0], tt.shape[1], onsets_log.shape[1],
-                     F3_NSAMPLES)
-    k3_ms = median_ms(lambda: detector.launch(onsets_log, inv), reps=20)
+    case = exp_global_v2.setup(tt, F3_NODES, F3_FSMP, F3_NSAMPLES, device,
+                               onsets_log=onsets_log, inv=inv, plan=plan)
+    bound = exp_global_v2.bound(case)
+    v1_bound = k3_bound(tt.shape[0], tt.shape[1], onsets_log.shape[1],
+                        F3_NSAMPLES)
+    turns = in_turns({"k3_v2": lambda: detector.launch(onsets_log, inv),
+                      "k3": lambda: detector.launch_v1(onsets_log, inv)},
+                     reps=20)
+    k3_v2_ms, k3_ms = (float(np.mean(turns[k])) for k in ("k3_v2", "k3"))
     plain_ms = cuda_ms(lambda: detect_reduce(
         combined, tt_dev, mask, available, F3_FSMP, F3_NSAMPLES,
         tt.shape[0]), reps=3, warmup=1)
     m1_ms = median_ms(lambda: detector.marginalise(onsets_log, inv, i0, 100),
                       reps=20)
     map_ms = median_ms(lambda: detector.map(onsets_log, inv), reps=10)
-    print(f"f3: K3 {k3_ms:.4f} ms a launch (median of 5 x 20), plain "
-          f"detect_reduce {plain_ms:.4f} ms; bound {bound['bound_ms']:.4f} "
-          f"ms ({bound['bound_by']}); gather floor (L1, the shared-memory "
-          f"pipe; the rows stay in L2) {bound['smem_bound_ms']:.4f} ms, the "
-          f"gather at {bound['gather_bytes'] / k3_ms / 1e9:.3f} TB/s; M1 at "
-          f"100 "
-          f"samples {m1_ms:.4f} ms (plain {m1_plain_ms:.3f} ms, one run, "
-          f"{m1_err:.2e} of the maximum), M2 simple at {F3_NSAMPLES} "
-          f"samples {map_ms:.4f} ms (plain {map_plain_ms:.3f} ms, one run, "
-          f"{map_err:.2e} relative); K3 {cm.K3_TILE} nodes a block, "
-          f"resources {_build_resources('qm_migrate_detect_global')}")
+    layout = exp_global_v2.layout_record(case, detector.layout)
+    resources = exp_global_v2.resources()
+    print(f"f3: K3 v2 {k3_v2_ms:.4f} ms, K3 {k3_ms:.4f} ms a launch in "
+          f"turns {turns}; plain detect_reduce {plain_ms:.4f} ms; K3 v2's "
+          f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}), gather "
+          f"floor {bound['smem_bound_ms']:.4f} ms, the gather at "
+          f"{bound['gather_bytes'] / k3_v2_ms / 1e9:.3f} TB/s (K3 at "
+          f"{v1_bound['gather_bytes'] / k3_ms / 1e9:.3f}); ring {layout}; "
+          f"resources {resources}; M1 at 100 samples {m1_ms:.4f} ms (plain "
+          f"{m1_plain_ms:.3f} ms, one run, {m1_err:.2e} of the maximum), "
+          f"M2 simple at {F3_NSAMPLES} samples {map_ms:.4f} ms (plain "
+          f"{map_plain_ms:.3f} ms, one run, {map_err:.2e} relative)")
+    print(f"f3: K3 v2's onsets a stage (shape {cm.GLOBAL_V2_SHAPE}, the "
+          "deepest ring at each):")
+    sweep = exp_global_v2.sweep(case, exp_global_v2.plain(case),
+                                shapes=(cm.GLOBAL_V2_SHAPE,))
+    check(all(r["ok"] for r in sweep), "f3: a ring of the sweep does not "
+          "hold")
+    m1_bound = marginalise_bound(tt, 100)
+    map_bound_ = map_bound(tt, F3_NSAMPLES, detector.base)
     return {
-        "launches": launches["migrate_detect_global"], "route": route[0],
+        "launches": launches["migrate_detect_global_v2"], "route": route[0],
         "route_reason": route[1], "r_span": plan.r_span,
         "nodes": int(np.prod(F3_NODES)), "onsets": int(tt.shape[1]),
         "nsamples": F3_NSAMPLES, "windows": F3_WINDOWS, "wall_s": wall,
         "window_ms": scan.window_ms, "planted": planted.tolist(),
         "peak_node_distance": dist,
         "vs_plain": {k: v for k, v in errs.items() if k != "argmax_equal"},
-        "argmax_equal": errs["argmax_equal"], "ms": k3_ms,
-        "plain_ms": plain_ms, **bound, "m1": {
-            "launches": locate_launches["migrate_marginalise"],
-            "window": 100, "ms": m1_ms, "plain_ms": m1_plain_ms,
-            "err_of_max": m1_err},
+        "argmax_equal": errs["argmax_equal"], "exact": exact,
+        "ms": k3_v2_ms, "k3_ms": k3_ms, "turns_ms": turns,
+        "plain_ms": plain_ms, **bound, **layout, "resources": resources,
+        "sweep": sweep, "locate_pass1": pass1_rec,
+        "k3": {**v1_bound, "ms": k3_ms},
+        "m1": {"launches": locate_launches["migrate_marginalise"],
+               "window": 100, "ms": m1_ms, "plain_ms": m1_plain_ms,
+               "err_of_max": m1_err, **m1_bound},
         "map": {"launches": locate_launches["migrate_map"],
                 "nsamples": F3_NSAMPLES, "ms": map_ms,
-                "plain_ms": map_plain_ms, "max_rel_err": map_err}}
+                "plain_ms": map_plain_ms, "max_rel_err": map_err,
+                **map_bound_}}
 
 
 def _build_resources(kernel):
@@ -3290,10 +3416,12 @@ def _build_resources(kernel):
 def xla_icequake_path(device, tt, windows, n_windows=4):
     """kernel="xla" at Icequake: the slice's pre-built windows (24 onsets,
     625 samples) through DetectScan on detect_route's kernel="xla" route,
-    "k3" (K3 on a plan K1 v2 takes), held to the plain window; K3 timed
-    in turns with K1 v2 on the same prepared onsets (k3, k1_v2, k1_v2,
-    k3; 20 launches a turn). Returns a record."""
+    "k3", where K3 v2 takes the plan K1 v2 takes: each window held to the
+    plain window and exactly (:func:`hold_k3_windows`); K3 v2 timed in
+    turns with K3 and K1 v2 on the same prepared onsets (k3_v2, k3,
+    k1_v2, k1_v2, k3, k3_v2; 20 launches a turn). Returns a record."""
 
+    from quakemigrate_torch.experiments import exp_global_v2
     from quakemigrate_torch.experiments.exp_kernel_breakdown import in_turns
     from quakemigrate_torch.ops import cuda_migrate as cm
     from quakemigrate_torch.ops.scan_window import fused_onsets
@@ -3304,11 +3432,12 @@ def xla_icequake_path(device, tt, windows, n_windows=4):
     check((scan.route, scan.route_reason) == ("k3", "kernel='xla'"),
           f"xla: route {scan.route} ({scan.route_reason})")
     detector = scan.detector(NSAMPLES)
+    check(detector.tables is not None, "xla: K3 v2 refused the plan")
     torch.cuda.synchronize()
     cm.reset_launches()
     results = scan.detect(windows[:n_windows])
     launches = dict(cm.launches)
-    check(launches["migrate_detect_global"] == n_windows
+    check(launches["migrate_detect_global_v2"] == n_windows
           and sum(launches.values()) == n_windows,
           f"xla: launches {launches} for {n_windows} windows")
     tt_dev = torch.from_numpy(tt).to(device)
@@ -3316,29 +3445,93 @@ def xla_icequake_path(device, tt, windows, n_windows=4):
         "xla icequake", windows[:n_windows], results, tt_dev, device, FSMP,
         NSAMPLES, lambda b: plain_window(b, tt_dev, device),
         lambda b, idx: plain_coa_at(b, tt_dev, idx, device))
+    exact = hold_k3_windows("xla icequake", detector, windows[:n_windows],
+                            results, tt_dev, device)
     block = [torch.from_numpy(a).to(device) for a in windows[0]]
     combined, available = fused_onsets(*block, "classic", "energy", 0.4)
     onsets_log, inv = detector.prepare(combined, block[2], available)
     k1_v2 = cm.CudaDetect(tt, NODE_COUNT, FSMP, NSAMPLES, device,
                           plan=scan._plan)
-    turns = in_turns({"k3": lambda: detector.launch(onsets_log, inv),
+    turns = in_turns({"k3_v2": lambda: detector.launch(onsets_log, inv),
+                      "k3": lambda: detector.launch_v1(onsets_log, inv),
                       "k1_v2": lambda: k1_v2.launch(onsets_log, inv)},
                      reps=20)
-    bound = k3_bound(tt.shape[0], tt.shape[1], onsets_log.shape[1], NSAMPLES)
-    record = {"launches": launches["migrate_detect_global"],
-              "ms": float(np.mean(turns["k3"])),
-              "k1_v2_ms": float(np.mean(turns["k1_v2"])), "turns_ms": turns,
-              **bound,
+    case = exp_global_v2.setup(tt, NODE_COUNT, FSMP, NSAMPLES, device,
+                               onsets_log=onsets_log, inv=inv,
+                               plan=scan._plan)
+    bound = exp_global_v2.bound(case)
+    layout = exp_global_v2.layout_record(case, detector.layout)
+    mean = {k: float(np.mean(v)) for k, v in turns.items()}
+    record = {"launches": launches["migrate_detect_global_v2"],
+              "ms": mean["k3_v2"], "k3_ms": mean["k3"],
+              "k1_v2_ms": mean["k1_v2"], "turns_ms": turns, **bound,
+              **layout, "exact": exact,
               "vs_plain": {k: v for k, v in errs.items()
                            if k != "argmax_equal"},
               "argmax_equal": errs["argmax_equal"]}
-    print(f"xla icequake: K3 {record['ms']:.4f} ms, K1 v2 "
-          f"{record['k1_v2_ms']:.4f} ms in turns {turns}; K3's bound "
-          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}), gather floor "
-          f"(L1) {bound['smem_bound_ms']:.4f} ms, the gather at "
-          f"{bound['gather_bytes'] / record['ms'] / 1e9:.3f} TB/s; launches "
-          f"{launches}")
+    print(f"xla icequake: K3 v2 {record['ms']:.4f} ms, K3 "
+          f"{record['k3_ms']:.4f} ms, K1 v2 {record['k1_v2_ms']:.4f} ms in "
+          f"turns {turns}; K3 v2's bound {bound['bound_ms']:.4f} ms "
+          f"({bound['bound_by']}), gather floor {bound['smem_bound_ms']:.4f} "
+          f"ms, the gather at {bound['gather_bytes'] / record['ms'] / 1e9:.3f}"
+          f" TB/s; ring {layout}; launches {launches}")
     return record
+
+
+def span_path(device, span, kernel="auto", n_windows=2):
+    """A plan of the K3 route's toy geometry (tests/test_torch_scan_route.py:
+    4 x 4 x 4 nodes, one station x P/S, one traveltime of ``span`` - 1
+    samples) through DetectScan on detect_route's ``kernel`` route,
+    which must be "k3": at 32,769 samples K3 v2's ring cannot hold the
+    window, so K3 (csrc/migrate_detect_global.cu) runs, its reason
+    logged with the others; at 15,000 with kernel="xla", K3 v2 on its
+    one-block shape (GLOBAL_V2_WIDE_SHAPE). Each window launches the
+    kernel once and nothing else and is held to the plain window and
+    exactly (:func:`hold_k3_windows`). Returns a record."""
+
+    from quakemigrate_torch.ops import cuda_migrate as cm
+    from quakemigrate_torch.signal.scan import DetectScan, detect_route
+
+    node_count = (4, 4, 4)
+    tt = np.zeros((int(np.prod(node_count)), 2), np.int32)
+    tt[1, 1] = span - 1
+    fsmp, nsamples = 200, 300
+    lsmp = int(tt.max()) + 2 * int(F3_STA_LTA["S"][1] * F3_RATE) + 100
+    windows, _ = make_windows(
+        tt, np.random.default_rng(2033), n_windows, plant_window=0,
+        node_count=node_count, fsmp=fsmp, nsamples=nsamples, lsmp=lsmp,
+        rate=F3_RATE, sta_lta=F3_STA_LTA)
+    route = detect_route(tt, node_count, device, kernel)
+    scan = DetectScan(tt, node_count, fsmp, lsmp, device=device, route=route)
+    detector = scan.detector(nsamples)
+    label = f"span {span}"
+    name = ("migrate_detect_global" if detector.tables is None
+            else "migrate_detect_global_v2")
+    check(route[0] == "k3" and ((detector.tables is None)
+                                == ("K3 v2 (" in route[1])),
+          f"{label}: route {route[0]} ({route[1]})")
+    torch.cuda.synchronize()
+    cm.reset_launches()
+    results = scan.detect(windows)
+    launches = dict(cm.launches)
+    check(launches[name] == n_windows
+          and sum(launches.values()) == n_windows,
+          f"{label}: launches {launches} for {n_windows} windows")
+    tt_dev = torch.from_numpy(tt).to(device)
+    errs, _ = hold_windows(
+        label, windows, results, tt_dev, device, fsmp, nsamples,
+        lambda b: plain_window(b, tt_dev, device, fsmp, nsamples),
+        lambda b, idx: plain_coa_at(b, tt_dev, idx, device, fsmp, nsamples))
+    exact = hold_k3_windows(label, detector, windows, results, tt_dev,
+                            device)
+    shape = None if detector.layout is None else list(detector.layout.shape)
+    print(f"{label}: route {route[0]} ({route[1]}); {name}, shape {shape}; "
+          f"launches {launches}")
+    return {"launches": launches[name], "kernel": name, "shape": shape,
+            "route_reason": route[1], "r_span": route[2].r_span,
+            "exact": exact,
+            "vs_plain": {k: v for k, v in errs.items()
+                         if k != "argmax_equal"}}
 
 
 def kurtosis_onset_for(rate=RATE):
@@ -3706,6 +3899,11 @@ def main():
     del f1_route
     f3_record = f3_path(device)
     xla_record = xla_icequake_path(device, tt, windows)
+    wide_record = span_path(device, 32_769)
+    mid_record = span_path(device, 15_000, kernel="xla")
+    check(wide_record["kernel"] == "migrate_detect_global"
+          and mid_record["shape"] == [16, 16],
+          f"span paths: {wide_record['kernel']}, {mid_record['shape']}")
     kurtosis_record, decimate_record = kurtosis_decimate_path(device)
     torch.cuda.empty_cache()
 
@@ -3770,7 +3968,8 @@ def main():
     from quakemigrate_torch.experiments import sass_loops
 
     census = sass_loops.census(sass_loops.VPU_PATTERNS
-                               + ("qm_migrate_detect_v2_kernelILi0E",))
+                               + ("qm_migrate_detect_v2_kernelILi0E",)
+                               + sass_loops.GLOBAL_PATTERNS)
     sass_loops.print_census(census)
 
     kernels = [{
@@ -3869,7 +4068,8 @@ def main():
         "f1": {"launches": f1_launches, **f1_record},
         "census": {
             name: {"instructions": n, "loops": [
-                {k: rec[k] for k in ("n", "lds32", "lds128", "fadd")}
+                {k: rec[k]
+                 for k in ("n", "lds32", "lds128", "fadd", "local")}
                 for rec in recs]}
             for name, (n, recs) in census.items()},
     }, {
@@ -4258,20 +4458,40 @@ def main():
         "route": "cuda",
         "source": "quakemigrate_torch/csrc/migrate_detect_global.cu",
         "replaces": "quakemigrate_tpu/ops/migrate.py:124",
-        # its path: DetectScan's k3 route at F3's geometry (f3_path); the
-        # Icequake window with kernel="xla" beside it
+        # its path: DetectScan's k3 route on a plan too wide for K3 v2's
+        # ring (span_path); K3 v2's yardstick at F3 and Icequake
+        "launches": wide_record["launches"],
+        "max_abs_err": wide_record["exact"]["max_abs_err"],
+        "ms": f3_record["k3_ms"],
+        "plain_ms": f3_record["plain_ms"],
+        "bound_ms": f3_record["k3"]["bound_ms"],
+        "bound_by": f3_record["k3"]["bound_by"],
+        "smem_bound_ms": f3_record["k3"]["smem_bound_ms"],
+        "library_ms": None,
+        "resources": _build_resources("qm_migrate_detect_global"),
+        "xla_icequake_ms": xla_record["k3_ms"],
+        "wide_span": wide_record,
+    }, {
+        "name": "migrate_detect_global_v2",
+        "route": "cuda",
+        "source": "quakemigrate_torch/csrc/migrate_detect_global_v2.cu",
+        "replaces": "quakemigrate_tpu/ops/migrate.py:124",
+        # its path: DetectScan's k3 route at F3's geometry (f3_path), and
+        # locate's pass 1 there; the Icequake window with kernel="xla"
         "launches": f3_record["launches"],
-        "max_abs_err": max(f3_record["vs_plain"]["max_abs_err"],
-                           xla_record["vs_plain"]["max_abs_err"]),
+        "max_abs_err": max(f3_record["exact"]["max_abs_err"],
+                           xla_record["exact"]["max_abs_err"]),
         "ms": f3_record["ms"],
         "plain_ms": f3_record["plain_ms"],
         "bound_ms": f3_record["bound_ms"],
         "bound_by": f3_record["bound_by"],
         "smem_bound_ms": f3_record["smem_bound_ms"],
         "library_ms": None,
-        "resources": _build_resources("qm_migrate_detect_global"),
-        "f3": {k: v for k, v in f3_record.items() if k not in ("m1", "map")},
+        "resources": f3_record["resources"],
+        "f3": {k: v for k, v in f3_record.items()
+               if k not in ("m1", "map", "k3")},
         "xla_icequake": xla_record,
+        "mid_span": mid_record,
     }]
     kernels[next(i for i, k in enumerate(kernels)
                  if k["name"] == "migrate_marginalise")]["f3"] = (

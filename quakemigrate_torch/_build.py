@@ -130,6 +130,11 @@ SIGNATURES = {
     "qm_migrate_detect_global": (
         [_VOID_P, _INT, _VOID_P, _VOID_P] + _OUTS + [_INT] * 5 + [_VOID_P]
     ),
+    # L, ld, base, res, flat, win, inv_available, outs, O, tiles, fsmp,
+    # S, group, stage_floats, n_stages, warps, npp, stream
+    "qm_migrate_detect_global_v2": (
+        [_VOID_P, _INT] + [_VOID_P] * 5 + _OUTS + [_INT] * 9 + [_VOID_P]
+    ),
     # L, t_len, base, fine, valid, perm, inv_available, out, partial,
     # partial_rows, n_nodes, O, tiles, tile, col0, len, stream
     "qm_migrate_marginalise": (
@@ -162,6 +167,8 @@ SIGNATURES = {
     "qm_migrate_detect_probe_v2_blocks_per_sm": [_INT] * 3,
     # (tile, stride, n_stages)
     "qm_migrate_detect_vpu_v2_blocks_per_sm": [_INT] * 3,
+    # (warps, npp, group, stage_floats, n_stages)
+    "qm_migrate_detect_global_v2_blocks_per_sm": [_INT] * 5,
     # (O, a_sum, a_max, fuse) and (a_sum)
     "qm_migrate_detect_x16g_blocks_per_sm": [_INT] * 4,
     "qm_migrate_detect_x16g_v2_blocks_per_sm": [_INT],

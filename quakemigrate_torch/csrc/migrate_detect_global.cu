@@ -41,6 +41,12 @@
 //   warps' partials meet in shared memory, where thread t folds sample t
 //   over the warps: the larger value, or on equal values the smaller
 //   flat index, and the sums in warp order.
+//
+// Its Hopper redesign is K3 v2 (migrate_detect_global_v2.cu: the brick
+// plan's onset windows streamed through an mbarrier ring and gathered
+// from shared memory), which DetectScan's "k3" route runs wherever its
+// ring holds the plan's widest window; this kernel stays for the wider
+// plans and as K3 v2's yardstick.
 
 #include <cuda_runtime.h>
 

@@ -18,10 +18,12 @@ the shifted-copy kernel in both layouts and its redesign E2 v2 FULL. ``--e1-v2``
 loops of the kernels built on K1 v2's core: E1c v2 FULL at 2 stages and
 E1b v2 FULL (:data:`E1_V2_PATTERNS`). ``--vpu`` adds the VPU-plan
 kernels at tile 512: K2 v1 and K2 v2
-(:data:`VPU_PATTERNS`). Each loop line also gives its instructions per
+(:data:`VPU_PATTERNS`); ``--global`` K3 and K3 v2's shapes
+(:data:`GLOBAL_PATTERNS`). Each loop line also gives its instructions per
 node-onset-sample (instructions / FADD: every kernel here adds one float
 per node, onset and sample), the unit in which kernels that hold one
-sample a thread (K2 v1) and four (K1 v2, K2 v2) compare.
+sample a thread (K2 v1) and four (K1 v2, K2 v2) compare, and its local
+loads and stores (LDL, STL: register spills).
 
     python3 -m quakemigrate_torch.experiments.sass_loops --e1-v2
     python3 -m quakemigrate_torch.experiments.sass_loops --vpu
@@ -42,6 +44,7 @@ DEFAULT_PATTERNS = ("qm_migrate_detect_kernelILi0E",
 E1_V2_PATTERNS = ("qm_pipelined_v2_kernelILi0ELi2E",
                   "qm_resident_v2_kernelILi0E")
 VPU_PATTERNS = ("qm_vpu_kernelILi32E", "qm_vpu_v2_kernelILi32ELi8E")
+GLOBAL_PATTERNS = ("qm_migrate_detect_global_kernel", "qm_global_v2_kernel")
 
 _FUNCTION = re.compile(r"^\s*Function : (\S+)", re.M)
 _INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);")
@@ -114,12 +117,25 @@ def census(patterns):
         [_cuobjdump(), "-sass", str(_build.build())], capture_output=True,
         text=True, check=True,
     ).stdout
-    return {
-        name: (len(instrs), [rec for rec in loops(instrs)
-                             if rec["lds32"] + rec["lds64"] + rec["lds128"]])
-        for name, instrs in parse_sass(text).items()
-        if any(p in name for p in patterns)
-    }
+    found = {}
+    for name, instrs in parse_sass(text).items():
+        if not any(p in name for p in patterns):
+            continue
+        recs = [rec for rec in loops(instrs)
+                if rec["lds32"] + rec["lds64"] + rec["lds128"]]
+        for rec in recs:
+            rec["local"] = local_ops(instrs, rec)
+        found[name] = (len(instrs), recs)
+    return found
+
+
+def local_ops(instrs, rec):
+    """The local loads and stores (LDL, STL: register spills) inside the
+    loop ``rec`` of :func:`loops` over ``instrs``."""
+
+    ops = [ins.split()[1] if ins.startswith("@") else ins.split()[0]
+           for a, ins in instrs if rec["start"] <= a <= rec["end"]]
+    return sum(o.startswith(("LDL", "STL")) for o in ops)
 
 
 def print_census(found):
@@ -132,7 +148,8 @@ def print_census(found):
             print(f"  loop {rec['start']:#06x}-{rec['end']:#06x}: "
                   f"{rec['n']} instructions, LDS {rec['lds32']}, LDS.64 "
                   f"{rec['lds64']}, LDS.128 {rec['lds128']}, LDG "
-                  f"{rec['ldg']}, FADD {rec['fadd']}"
+                  f"{rec['ldg']}, FADD {rec['fadd']}, LDL/STL "
+                  f"{rec['local']}"
                   + ("" if per is None else
                      f", {per:.2f} instructions a node-onset, "
                      f"{rec['n'] / rec['fadd']:.3f} a node-onset-sample"))
@@ -146,10 +163,13 @@ def main(argv=None):
                         help="also census E1c v2 and E1b v2")
     parser.add_argument("--vpu", action="store_true",
                         help="also census K2 v1 and K2 v2")
+    parser.add_argument("--global", dest="global_", action="store_true",
+                        help="also census K3 and K3 v2")
     opts = parser.parse_args(argv)
     patterns = (list(opts.patterns) + list(E1_V2_PATTERNS if opts.e1_v2
                                             else ())
-                + list(VPU_PATTERNS if opts.vpu else ()))
+                + list(VPU_PATTERNS if opts.vpu else ())
+                + list(GLOBAL_PATTERNS if opts.global_ else ()))
     print_census(census(patterns))
 
 

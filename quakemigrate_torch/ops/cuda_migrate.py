@@ -8,8 +8,10 @@ the card's shared-memory pipe), ``csrc/migrate_detect_vpu.cu`` (K2) and
 plain PyTorch versions, and the cross-tile combine; of
 ``csrc/migrate_detect_global.cu`` (K3, the same function on flat node
 tiles with the onset rows read from global memory, for the plans no
-staged kernel takes), whose plain version is
-``ops.migrate.detect_reduce``; and the wrapper of
+staged kernel takes) and ``csrc/migrate_detect_global_v2.cu`` (K3 v2,
+K3's function on the brick plan with the onset windows streamed through
+an mbarrier ring), whose plain version is ``ops.migrate.detect_reduce``;
+and the wrapper of
 ``csrc/migrate_marginalise.cu`` (M1, locate's marginalisation on the same
 plan) and ``csrc/migrate_marginalise_v2.cu`` (M1 v2, M1 on K1 v2's
 tables), whose plain version is ``ops.migrate.migrate_marginalise``, and
@@ -101,11 +103,31 @@ FINE16_MAX_SPAN = np.iinfo(np.int16).max
 # (csrc/migrate_detect_global.cu: QG_TILE)
 K3_TILE = 256
 
-# Launches of K1, K1 v2, K2, K2 v2, K3, M1, M1 v2 and M2 (main and simple
-# form), counted by their wrappers where they launch
+# K3 v2 (csrc/migrate_detect_global_v2.cu: GV_SBLK, GV_TILE, GV_SHAPES):
+# 128 samples a block; the plan tile it takes; per shape (warps, nodes a
+# warp a pass) the blocks per SM it is built for; the ring depths it
+# takes; the shape DetectScan's "k3" route launches (the fastest of a
+# sweep on the H100 at F3 and Icequake, recorded in PERF.md), and the
+# one-block shape it launches where that shape's ring cannot hold the
+# plan's widest window (up to about 25,000 samples of residual span, not
+# 11,000).
+GLOBAL_V2_SBLK = 128
+GLOBAL_V2_TILE = 256
+GLOBAL_V2_SHAPES = {(32, 8): 1, (16, 8): 2, (16, 16): 1}
+GLOBAL_V2_STAGES = (2, 3, 4)
+GLOBAL_V2_SHAPE = (16, 8)
+GLOBAL_V2_WIDE_SHAPE = (16, 16)
+
+# Shared memory of one SM on Hopper (228 KB), of which each resident
+# block reserves 1 KB
+SMEM_PER_SM = 233472
+SMEM_BLOCK_RESERVE = 1024
+
+# Launches of K1, K1 v2, K2, K2 v2, K3, K3 v2, M1, M1 v2 and M2 (main and
+# simple form), counted by their wrappers where they launch
 launches = {"migrate_detect": 0, "migrate_detect_v2": 0,
             "migrate_detect_vpu": 0, "migrate_detect_vpu_v2": 0,
-            "migrate_detect_global": 0,
+            "migrate_detect_global": 0, "migrate_detect_global_v2": 0,
             "migrate_marginalise": 0, "migrate_marginalise_v2": 0,
             "migrate_map": 0, "migrate_map_v2": 0}
 
@@ -1238,15 +1260,305 @@ def migrate_detect_global_cuda(onsets_log, tt, inv_available, fsmp,
 
 
 def combine_flat_tiles(tmax, targ, tsum):
-    """K3's cross-tile combine of its ``[n_tiles, S]`` outputs: the
+    """K3's cross-tile combine of its ``[n_tiles, S]`` outputs on FLAT
+    tiles (runs of :data:`K3_TILE` consecutive flat nodes): the
     per-sample max with the FIRST tile winning ties (``torch.argmax``),
-    that tile's flat node index, and the grid sum. With K3's first index
-    within a tile, ties go to the first flat index, the plain version's
-    rule. Returns (max_coa, max_idx int32, coa_sum)."""
+    that tile's flat node index, and the grid sum. Tile i holds only
+    flat indices below tile i + 1's, so with K3's first index within a
+    tile, ties go to the first flat index, the plain version's rule; on
+    brick tiles that does not hold (:func:`combine_brick_tiles`).
+    Returns (max_coa, max_idx int32, coa_sum)."""
 
     best_tile = torch.argmax(tmax, dim=0)[None]
     return (tmax.gather(0, best_tile)[0], targ.gather(0, best_tile)[0],
             torch.sum(tsum, dim=0))
+
+
+def combine_brick_tiles(tmax, targ, tsum):
+    """K3 v2's cross-tile combine of its ``[n_tiles, S]`` outputs on the
+    plan's BRICK tiles, whose ``targ`` holds flat node indices: the
+    per-sample max, the smallest flat index among the tiles that attain
+    it, and the grid sum. With K3 v2's smallest flat index within a
+    tile, ties go to the first flat index, the plain version's rule,
+    whatever the tiles' order. Returns (max_coa, max_idx int32,
+    coa_sum)."""
+
+    max_coa = torch.amax(tmax, dim=0)
+    max_idx = torch.where(tmax == max_coa, targ,
+                          torch.iinfo(torch.int32).max).amin(dim=0)
+    return max_coa, max_idx.to(torch.int32), torch.sum(tsum, dim=0)
+
+
+def detect_reduce_flat_reference(onsets_log, tt, inv_available, fsmp,
+                                 nsamples, tile=K3_TILE,
+                                 max_elements=2**23):
+    """
+    K3's function in plain PyTorch on prepared onsets, with the kernels'
+    arithmetic: per flat tile of ``tile`` nodes of the flat-order int32
+    traveltimes ``tt`` [n_nodes, O] (clamped to ``[0, T - fsmp -
+    nsamples]``) and sample, the max, the first flat index attaining it
+    and the sum of ``exp(acc * inv_available)``, ``acc`` summed in order
+    o = 0..O-1. Its max equals K3's and K3 v2's bit for bit where
+    ``torch.exp`` rounds as the kernels' ``expf``, and
+    :func:`combine_flat_tiles` of it gives the first flat argmax. Returns
+    (tmax f32, targ int32 flat indices, tsum f32), each [n_tiles, S].
+
+    """
+
+    n_nodes, n_onsets = tt.shape
+    d_max = onsets_log.shape[-1] - fsmp - nsamples
+    t = torch.arange(nsamples, device=onsets_log.device)
+    per = max(1, max_elements // (tile * nsamples)) * tile
+    tmax, targ, tsum = [], [], []
+    for n0 in range(0, n_nodes, per):
+        cols = fsmp + torch.clamp(tt[n0:n0 + per].long(), 0, d_max)
+        acc = torch.zeros((cols.shape[0], nsamples), dtype=onsets_log.dtype,
+                          device=onsets_log.device)
+        for o in range(n_onsets):
+            acc = acc + onsets_log[o][cols[:, o, None] + t]
+        coa = torch.exp(acc * inv_available)
+        for c0 in range(0, coa.shape[0], tile):
+            part = coa[c0:c0 + tile]
+            arg = torch.argmax(part, dim=0)
+            tmax.append(part.gather(0, arg[None])[0])
+            targ.append((n0 + c0 + arg).to(torch.int32))
+            tsum.append(torch.sum(part, dim=0))
+    return torch.stack(tmax), torch.stack(targ), torch.stack(tsum)
+
+
+def global_v2_widths(r_spans):
+    """K3 v2's window of each onset, in floats: ``r_spans[o] + 3 +``
+    :data:`GLOBAL_V2_SBLK` rounded up to 4 (the 0-3 floats from the
+    16-byte aligned column, and whole 16-byte units of a bulk copy)."""
+
+    return np.asarray([round_up(int(r) + 3 + GLOBAL_V2_SBLK, 4)
+                       for r in r_spans], dtype=np.int64)
+
+
+def global_v2_budget(shape):
+    """Shared-memory bytes one K3 v2 block of ``shape`` may use, for the
+    blocks per SM the shape is built for (:data:`GLOBAL_V2_SHAPES`)."""
+
+    per_sm = GLOBAL_V2_SHAPES[shape]
+    return min(SMEM_LIMIT, SMEM_PER_SM // per_sm - SMEM_BLOCK_RESERVE)
+
+
+def global_v2_smem(shape, stage_floats, group, n_stages):
+    """
+    Shared-memory bytes of one K3 v2 block (csrc/migrate_detect_global_v2.cu:
+    gv_smem_bytes): ``n_stages`` ring stages, each ``stage_floats``
+    floats of windows and ``group`` residual slices of 256 / passes
+    uint16 (rounded up to 128 bytes), the fold and reduction scratch (3
+    x warps x 128 entries of 4 bytes) and 2 ``n_stages`` mbarriers.
+
+    """
+
+    warps, npp = shape
+    stage = round_up(4 * stage_floats + 2 * group * warps * npp, 128)
+    return n_stages * stage + 12 * warps * GLOBAL_V2_SBLK + 16 * n_stages
+
+
+def global_v2_layout(r_spans, shape=GLOBAL_V2_SHAPE, group=None):
+    """
+    K3 v2's ring for a plan's per-onset residual spans: a namespace with
+    the ``shape`` (warps, npp), ``group`` G (consecutive onsets a
+    stage), ``stage_floats`` (the widest group's windows), ``win`` int32
+    [O, 2] (each onset's window offset in its stage and width, floats,
+    multiples of 4; :func:`global_v2_widths`), ``n_stages`` and the
+    block's ``smem`` bytes; or None where two stages of one window do
+    not fit the shape's budget (:func:`global_v2_budget`). By default G
+    is the most onsets for which two stages fit beside the fold scratch
+    (fewer, larger stages ran faster than deeper rings in a sweep on the
+    H100), and the ring the deepest of :data:`GLOBAL_V2_STAGES` that fits
+    at that G; ``group`` fixes G (and the layout is None where two stages
+    of it do not fit). Reads nothing from the card.
+
+    """
+
+    widths = global_v2_widths(r_spans)
+    n_onsets = len(widths)
+    budget = global_v2_budget(shape)
+
+    def fit(g):
+        starts = np.arange(n_onsets) // g * g
+        off = np.zeros(n_onsets, np.int64)
+        for o in range(n_onsets):
+            off[o] = 0 if starts[o] == o else off[o - 1] + widths[o - 1]
+        stage_floats = int((off + widths).max())
+        depths = [n for n in GLOBAL_V2_STAGES
+                  if global_v2_smem(shape, stage_floats, g, n) <= budget]
+        if not depths or stage_floats > np.iinfo(np.uint16).max:
+            return None
+        return SimpleNamespace(
+            shape=shape, group=g, stage_floats=stage_floats,
+            win=np.stack([off, widths], axis=1).astype(np.int32),
+            n_stages=max(depths),
+            smem=global_v2_smem(shape, stage_floats, g, max(depths)))
+
+    if group is not None:
+        return fit(group)
+    for g in range(n_onsets, 0, -1):
+        layout = fit(g)
+        if layout is not None:
+            return layout
+    return None
+
+
+def global_v2_shape(r_spans):
+    """The shape K3 v2 runs for a plan's per-onset residual spans:
+    :data:`GLOBAL_V2_SHAPE` where a ring of two stages of its widest
+    window fits that shape's budget, else :data:`GLOBAL_V2_WIDE_SHAPE`
+    (one block an SM) where it fits that one's, else None."""
+
+    for shape in (GLOBAL_V2_SHAPE, GLOBAL_V2_WIDE_SHAPE):
+        if global_v2_layout(r_spans, shape, group=1) is not None:
+            return shape
+    return None
+
+
+def global_v2_refusal(plan):
+    """
+    Why K3 v2 cannot take a :class:`DetectPlan`, in words, or None where
+    it can: the plan's tile must be :data:`GLOBAL_V2_TILE` and a ring of
+    two stages of its widest window must fit a block's shared memory in
+    one of the shapes :func:`global_v2_shape` tries (about 25,000
+    samples of residual span). Reads nothing from the card.
+
+    """
+
+    if plan.tile != GLOBAL_V2_TILE:
+        return f"tile {plan.tile} is not K3 v2's {GLOBAL_V2_TILE}"
+    if global_v2_shape(plan.r_spans) is None:
+        shape = GLOBAL_V2_WIDE_SHAPE
+        widest = int(global_v2_widths([plan.r_span])[0])
+        return (f"K3 v2's ring of {GLOBAL_V2_STAGES[0]} stages of one "
+                f"{widest}-float window (residual span {plan.r_span}) needs "
+                f"{global_v2_smem(shape, widest, 1, GLOBAL_V2_STAGES[0])} "
+                "bytes of shared memory, over the "
+                f"{global_v2_budget(shape)} a block may use")
+    return None
+
+
+def global_v2_tables(plan, fsmp, device, layout):
+    """
+    K3 v2's tables of a :class:`DetectPlan` for scans that start at
+    ``fsmp``, for the ring ``layout`` (:func:`global_v2_layout`): a
+    namespace with ``res`` uint16 [n_tiles, passes, O, 256 / passes]
+    (passes = 256 / (warps npp)), in the kernel's reading order, entry
+    ``win[o, 0] + ((fsmp + base[i, o]) & 3) + fine[i, o, n]`` for the
+    brick-order node ``n = p (256 / passes) + q``; ``flat`` int32
+    [n_tiles, 256], each brick-order node's flat index or -1 for
+    padding; ``win`` int32 [O, 2]; all on ``device``; and the
+    ``layout`` and ``fsmp``.
+
+    """
+
+    warps, npp = layout.shape
+    passes = GLOBAL_V2_TILE // (warps * npp)
+    base = plan.base.astype(np.int64)
+    lead = (fsmp + base) & 3
+    entry = (layout.win[None, :, 0, None] + lead[:, :, None]
+             + plan.fine.astype(np.int64))
+    if entry.size and entry.max() >= layout.stage_floats:
+        raise ValueError(f"a residual offset of {int(entry.max())} lies "
+                         f"past the {layout.stage_floats}-float stage")
+    res = entry.reshape(plan.n_tiles, plan.n_onsets, passes, -1)
+    res = np.ascontiguousarray(res.transpose(0, 2, 1, 3), np.uint16)
+    flat = np.where(plan.valid > 0, plan.perm.reshape(plan.valid.shape), -1)
+    return SimpleNamespace(
+        res=torch.from_numpy(res).to(device),
+        flat=torch.from_numpy(flat.astype(np.int32)).to(device),
+        win=torch.from_numpy(layout.win).to(device), layout=layout,
+        fsmp=fsmp)
+
+
+def migrate_detect_global_v2_cuda(onsets_log, base, inv_available, fsmp,
+                                  nsamples, tables, max_shift):
+    """
+    Launch K3 v2 (``csrc/migrate_detect_global_v2.cu``) on tensors on
+    the card: K3's function on the plan's brick tiles through the
+    ``tables`` of :func:`global_v2_tables` (built for this ``fsmp``),
+    the onset windows streamed through the tables' ring. ``max_shift``
+    is the plan's largest traveltime: ``fsmp + nsamples + max_shift``
+    must fit the onset block, so no traveltime needs K3's clamp. Returns
+    (tmax f32, targ int32 flat indices, tsum f32), each [n_tiles,
+    nsamples], asynchronously on the current stream;
+    :func:`combine_brick_tiles` finishes the reduction. The plain
+    version is :func:`quakemigrate_torch.ops.migrate.detect_reduce`.
+
+    """
+
+    t = tables
+    layout = t.layout
+    if t.fsmp != fsmp:
+        raise ValueError(f"the tables were built for fsmp {t.fsmp}, not "
+                         f"{fsmp}")
+    if layout.shape not in GLOBAL_V2_SHAPES:
+        raise ValueError(f"shape {layout.shape} is not one of "
+                         f"{tuple(GLOBAL_V2_SHAPES)}")
+    if layout.n_stages not in GLOBAL_V2_STAGES:
+        raise ValueError(f"n_stages ({layout.n_stages}) must be one of "
+                         f"{GLOBAL_V2_STAGES}")
+    if nsamples < 1 or -(-nsamples // GLOBAL_V2_SBLK) > 65535:
+        raise ValueError(f"bad geometry: nsamples {nsamples}")
+    check_smem(global_v2_smem(layout.shape, layout.stage_floats,
+                              layout.group, layout.n_stages),
+               f"K3 v2's {layout.n_stages} ring stages of {layout.group} "
+               "windows")
+    device = onsets_log.device
+    for name, x, dtype in (("onsets_log", onsets_log, torch.float32),
+                           ("base", base, torch.int32),
+                           ("inv_available", inv_available, torch.float32),
+                           ("res", t.res, torch.uint16),
+                           ("flat", t.flat, torch.int32),
+                           ("win", t.win, torch.int32)):
+        if x.device != device:
+            raise ValueError(f"{name} is on {x.device}, not {device}")
+        if x.dtype != dtype or not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {dtype} tensor")
+    n_onsets, t_len = onsets_log.shape
+    n_tiles = base.shape[0]
+    passes = t.res.shape[1]
+    if (base.shape[1:] != (n_onsets,)
+            or t.res.shape != (n_tiles, passes, n_onsets,
+                               GLOBAL_V2_TILE // passes)
+            or passes * layout.shape[0] * layout.shape[1] != GLOBAL_V2_TILE
+            or t.flat.shape != (n_tiles, GLOBAL_V2_TILE)
+            or t.win.shape != (n_onsets, 2)
+            or inv_available.numel() != 1):
+        raise ValueError(
+            f"inconsistent shapes: onsets {tuple(onsets_log.shape)}, base "
+            f"{tuple(base.shape)}, res {tuple(t.res.shape)}, flat "
+            f"{tuple(t.flat.shape)}, win {tuple(t.win.shape)}, shape "
+            f"{layout.shape}")
+    if fsmp < 0 or t_len < fsmp + nsamples + max_shift:
+        raise ValueError(f"bad geometry: fsmp {fsmp}, nsamples {nsamples} "
+                         f"and traveltimes up to {max_shift} need "
+                         f"{fsmp + nsamples + max_shift} onset samples, the "
+                         f"block has {t_len}")
+    if t.res.data_ptr() % 16:
+        raise ValueError("the residual table must be 16-byte aligned")
+    if device.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {device}")
+    rows, pitch = row_pitch(onsets_log)
+    outs = empty_outputs(n_tiles, nsamples, device)
+    launch_kernel(
+        "qm_migrate_detect_global_v2", device, rows.data_ptr(), pitch,
+        base.data_ptr(), t.res.data_ptr(), t.flat.data_ptr(),
+        t.win.data_ptr(), inv_available.data_ptr(),
+        *(x.data_ptr() for x in outs), n_onsets, n_tiles, fsmp, nsamples,
+        layout.group, layout.stage_floats, layout.n_stages, *layout.shape,
+    )
+    launches["migrate_detect_global_v2"] += 1
+    return outs
+
+
+def global_v2_blocks_per_sm(layout, device):
+    """Resident blocks per SM of K3 v2 at a ring layout."""
+
+    return blocks_per_sm("qm_migrate_detect_global_v2_blocks_per_sm",
+                         device, *layout.shape, layout.group,
+                         layout.stage_floats, layout.n_stages)
 
 
 def vpu_v2_blocks_per_sm(tile, stride, n_stages, device):
@@ -1481,16 +1793,32 @@ class CudaDetectGlobal(CudaDetect):
     The counterpart of the JAX package's XLA shift-table reduction, for
     the plans no staged kernel takes (:func:`v2_refusal` and
     :func:`vpu_v2_refusal` both refuse) and for ``kernel="xla"``: the
-    contract of :class:`CudaDetect` through K3
-    (:func:`migrate_detect_global_cuda`) on the flat-order traveltimes,
-    the onset rows read from global memory, so no residual span bounds
-    it. Ties go to the first flat node index, as on the plain path.
+    contract of :class:`CudaDetect`, with ties to the first flat node
+    index as on the plain path, through one of two kernels chosen from
+    the plan before any launch (:func:`global_v2_refusal`, which
+    ``detect_route`` logs):
+
+    - K3 v2 (:func:`migrate_detect_global_v2_cuda`) on every plan whose
+      widest window fits a ring of two stages: the plan's BRICK tiles,
+      the onset windows streamed through an mbarrier ring
+      (:func:`global_v2_layout` at :func:`global_v2_shape`,
+      :attr:`layout`); within a tile the fold
+      takes the smaller flat index on equal values, and
+      :func:`combine_brick_tiles` the smallest flat index among the
+      tiles attaining the max;
+    - K3 (:func:`migrate_detect_global_cuda`) on wider plans: FLAT tiles
+      of :data:`K3_TILE` consecutive nodes of the flat-order
+      traveltimes, the onset rows read from global memory, so no
+      residual span bounds it; the first flat index within a tile and
+      the first tile on equal maxima (:func:`combine_flat_tiles`).
+
+    :attr:`v2_refusal` says why K3 v2 was not taken (None where it was).
     :meth:`reduce` on CPU tensors runs the plain version,
     :func:`quakemigrate_torch.ops.migrate.detect_reduce`, and counts no
-    launch; :meth:`reduce_log` runs K3 only. For locate it keeps the
-    :class:`DetectPlan` (built once, at any span, for ``plan`` None):
-    :meth:`marginalise` is M1 and :meth:`map` M2's simple form, which
-    read the onsets from global memory through the plan's int32
+    launch; :meth:`reduce_log` runs the kernel only. For locate it keeps
+    the :class:`DetectPlan` (built once, at any span, for ``plan``
+    None): :meth:`marginalise` is M1 and :meth:`map` M2's simple form,
+    which read the onsets from global memory through the plan's int32
     ``fine``.
 
     """
@@ -1505,12 +1833,21 @@ class CudaDetectGlobal(CudaDetect):
         self.tt = self._put(np.ascontiguousarray(traveltimes, np.int32))
 
     def _load(self, plan):
-        """K3 reads the flat table (:attr:`tt`), not the plan's."""
+        """K3 v2's tables of the plan where it takes the plan (K3 reads
+        the flat table, :attr:`tt`)."""
+
+        self.v2_refusal = global_v2_refusal(plan)
+        self.layout = self.tables = None
+        if self.v2_refusal is None:
+            self.layout = global_v2_layout(plan.r_spans,
+                                           global_v2_shape(plan.r_spans))
+            self.tables = global_v2_tables(plan, self.fsmp, self.device,
+                                           self.layout)
 
     def reduce(self, onsets, mask, available):
         """(max_coa, max_idx int32, coa_sum), each [nsamples], of one
-        window's onsets [O, T]: K3 on a CUDA device, the plain version on
-        the CPU."""
+        window's onsets [O, T]: the kernel on a CUDA device, the plain
+        version on the CPU."""
 
         if onsets.is_cuda:
             return self.reduce_log(*self.prepare(onsets, mask, available))
@@ -1522,17 +1859,31 @@ class CudaDetectGlobal(CudaDetect):
                              self.nsamples, self.n_nodes)
 
     def reduce_log(self, onsets_log, inv_available):
-        """K3 and its combine for prepared onsets (:meth:`prepare`) on the
-        card; raises on CPU tensors (the plain version takes the raw
-        onsets: :meth:`reduce`)."""
+        """The kernel and its combine for prepared onsets (:meth:`prepare`)
+        on the card; raises on CPU tensors (the plain version takes the
+        raw onsets: :meth:`reduce`)."""
 
         parts = self.launch(onsets_log.contiguous(), inv_available)
         self.launches += 1
-        return combine_flat_tiles(*parts)
+        if self.tables is None:
+            return combine_flat_tiles(*parts)
+        return combine_brick_tiles(*parts)
 
     def launch(self, onsets_log, inv_available):
+        """The kernel, for prepared onsets on the card: (tmax, targ flat
+        indices, tsum), each [n_tiles, nsamples], on the plan's brick
+        tiles (K3 v2) or on flat tiles (K3, where K3 v2 refuses the
+        plan)."""
+
+        if self.tables is None:
+            return self.launch_v1(onsets_log, inv_available)
+        return migrate_detect_global_v2_cuda(
+            onsets_log, self.base, inv_available, self.fsmp, self.nsamples,
+            self.tables, self._max_shift)
+
+    def launch_v1(self, onsets_log, inv_available):
         """K3 on the flat table, for prepared onsets on the card: (tmax,
-        targ, tsum), each [n_tiles, nsamples]."""
+        targ, tsum), each [n_tiles, nsamples] of flat tiles."""
 
         return migrate_detect_global_cuda(onsets_log, self.tt, inv_available,
                                           self.fsmp, self.nsamples)

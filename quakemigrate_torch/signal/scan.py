@@ -67,6 +67,7 @@ from quakemigrate_torch.ops.cuda_migrate import (
     CudaDetectGlobal,
     CudaDetectVPU,
     DetectPlan,
+    global_v2_refusal,
     v2_refusal,
     vpu_v2_refusal,
 )
@@ -106,20 +107,32 @@ def detect_route(traveltimes, node_count, device, kernel="auto"):
       (``v2_refusal``), else ``("k2_v2", reason, plan)`` where K2 v2,
       whose shared memory does not grow with the onset count, takes the
       same plan (``vpu_v2_refusal``), logging K1 v2's reason once, else
-      ``("k3", reasons, plan)``: K3, the global-memory kernel
-      (``CudaDetectGlobal``), which takes any span, logging both
+      ``("k3", reasons, plan)``: ``CudaDetectGlobal``, logging both
       kernels' reasons once; the plan serves locate's M1 and M2;
     - with ``kernel="xla"`` (the reference's option that forces its XLA
       shift-table kernel), ``("k3", "kernel='xla'", plan)`` on a CUDA
       device whatever the plan.
+
+    On the "k3" route ``CudaDetectGlobal`` runs K3 v2, the ring kernel on
+    the plan's brick tiles, where its ring holds the plan's widest window
+    (``global_v2_refusal``), else K3, the global-memory kernel, which
+    takes any span: K3 v2's reason then joins the route's reason and the
+    log line.
 
     """
 
     if device.type != "cuda":
         return "plain", None, None
     plan = DetectPlan(traveltimes, node_count)
+    k3_reason = global_v2_refusal(plan)
+    k3 = ("K3 v2, the ring kernel on the brick plan" if k3_reason is None
+          else "K3, the global-memory kernel")
     if kernel == "xla":
-        return "k3", "kernel='xla'", plan
+        if k3_reason is None:
+            return "k3", "kernel='xla'", plan
+        reasons = f"kernel='xla', K3 v2 ({k3_reason})"
+        logging.info(f"\t{reasons}; using {k3} on {device}.")
+        return "k3", reasons, plan
     reason = v2_refusal(plan.n_onsets, plan.tile, plan.win_floats,
                         plan.r_span)
     if reason is None:
@@ -130,8 +143,10 @@ def detect_route(traveltimes, node_count, device, kernel="auto"):
                      f"using K2 v2 on {device}.")
         return "k2_v2", reason, plan
     reasons = f"K1 v2 ({reason}), K2 v2 ({k2_reason})"
+    if k3_reason is not None:
+        reasons += f", K3 v2 ({k3_reason})"
     logging.info(f"\tNo staged kernel takes this scan geometry: {reasons}; "
-                 f"using K3, the global-memory kernel, on {device}.")
+                 f"using {k3} on {device}.")
     return "k3", reasons, plan
 
 
@@ -196,7 +211,8 @@ class DetectScan:
         before any launch (:func:`detect_route`): on a CUDA device K1 v2
         (``ops.cuda_migrate.CudaDetect``) where it can stage the plan,
         else K2 v2 (``ops.cuda_migrate.CudaDetectVPU``) on the same plan,
-        else K3 (``ops.cuda_migrate.CudaDetectGlobal``); on the CPU
+        else K3 v2, or K3 where K3 v2's ring cannot hold the plan's
+        widest window (``ops.cuda_migrate.CudaDetectGlobal``); on the CPU
         "plain", the flat-order window (``ops.scan_window.detect_window``).
     route_reason : str or None
         Why a CUDA device did not take K1 v2 (logged once), else None.
@@ -409,8 +425,8 @@ class QuakeScan:
     kernel : "auto", "mxu" or "xla", default "auto"
         The reference's migration kernel option. "auto" and "mxu" take
         :func:`detect_route`'s kernel; "xla" (the reference's XLA
-        shift-table kernel) takes K3, ``CudaDetectGlobal``, whatever the
-        plan. Other values raise ValueError.
+        shift-table kernel) takes ``CudaDetectGlobal`` (K3 v2, or K3 on a
+        plan too wide for K3 v2's ring), whatever the plan. Other values raise ValueError.
     precision : "single", default
         "double" raises ValueError: no float64 detect or marginalisation
         kernel exists.
@@ -500,7 +516,8 @@ class QuakeScan:
         "write_coalescence": False,
         "locate_map_memory_limit": 4e9,
         # The reference's device options, with its defaults. kernel="xla"
-        # takes K3; "auto" and "mxu" detect_route's kernel.
+        # takes CudaDetectGlobal (K3 v2, or K3); "auto" and "mxu"
+        # detect_route's kernel.
         "kernel": "auto",
         # "double" raises: no float64 kernel (the windows run in float32)
         "precision": "single",
@@ -1159,8 +1176,9 @@ class QuakeScan:
         (``find_max_coa``, on the map's device), and the map copied back
         through a pinned buffer as [nx, ny, nz, nsamples]. Otherwise the
         two-pass path's pass 1: on the card the detect kernel of the
-        scan's route (K1 v2, or K2 v2 on a plan K1 v2 refuses, or K3 on
-        a plan neither takes or with ``kernel="xla"``); on the CPU the
+        scan's route (K1 v2, or K2 v2 on a plan K1 v2 refuses, or K3 v2
+        (K3 on a plan too wide for its ring) on a plan neither takes or
+        with ``kernel="xla"``); on the CPU the
         plain flat-order migration.
 
         """

@@ -182,6 +182,7 @@ def test_v2_wrappers_refuse_what_the_kernel_does_not_take():
                                      "migrate_detect_vpu": 0,
                                      "migrate_detect_vpu_v2": 0,
                                      "migrate_detect_global": 0,
+                                     "migrate_detect_global_v2": 0,
                                      "migrate_marginalise": 0,
                                      "migrate_marginalise_v2": 0,
                                      "migrate_map": 0,
