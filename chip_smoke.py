@@ -8,6 +8,18 @@ Smoke run of quakemigrate_torch on one NVIDIA GPU.
    and power limit from nvidia-smi.
 2. Builds the CUDA kernels from quakemigrate_torch/csrc with nvcc
    (sm_90a) and prints the build time and the compiler's resource report.
+   recursive_stalta: R1 (csrc/recursive_stalta.cu, the recursive STA/LTA)
+   on its main path, core.compat.recursive_sta_lta and
+   ops.recursive_sta_lta on the card (one launch each, counted from 0),
+   then at (26, 2038) and (256, 360,000) in float32 and float64 against
+   its plain version on the card (float64 within 1e-12 relative; float32
+   no further from the float64 plain version than twice the float32
+   plain version), timed with CUDA events beside the plain version and
+   its bound. compat_path: core.compat.migrate on the card (the detect
+   route's M2: K1 v2's plan, and on 256 onsets K2 v2's, M2's simple
+   form; one launch, nothing else) against device="cpu" within 1e-5,
+   and find_max_coa on the card against the CPU (max and argmax equal,
+   the normalised max within 1e-6).
 3. Holds the migrate-and-reduce kernels K1 (csrc/migrate_detect.cu) and
    K1 v2 (csrc/migrate_detect_v2.cu, the main path's) against their
    plain PyTorch version on the card, on a small random plan and at the
@@ -71,12 +83,20 @@ Smoke run of quakemigrate_torch on one NVIDIA GPU.
    csrc/migrate_marginalise_v2.cu, and no other kernel; the .npy of
    [nx, ny, nz, 61] read back, finite; the spline hypocentre within one
    node of the two-pass run's), its per-event split printed.
+   format_detect: archive_detect's archive cut to 40 s about the planted
+   origin and written by the port's writers as MSEED, SAC, GSE2 and
+   SEG-Y, each read back equal to the MSEED cut (samples, station and
+   channel, start, rate); QuakeScan.detect over 10 s from each on the
+   card (K1 v2 once a window, nothing else), each .scanmseed equal to
+   the MSEED run's byte for byte.
    vt_locate_mags: detect -> trigger -> locate with local magnitudes on
    the card at the full width of the Volcanotectonic_Iceland example:
-   its 12 stations on its lcc grid at 0.5 km (58 x 57 x 37 nodes,
-   homogeneous vp 5.2, vs 2.921 km/s, the 3 km layer of its velocity
-   model: the port has no 1dsweep builder), 24 onsets at 50 Hz, 360 s of
-   synthetic STEIM2 with two planted events, a generated StationXML, and
+   its 12 stations on its lcc grid at 0.5 km (58 x 57 x 37 nodes), its
+   LUT built as dike_intrusion_lut.py builds it (method "1dsweep" on
+   iceland_vmodel.txt, sweep_dx 0.1 km; the build's host seconds
+   printed), 24 onsets at 50 Hz, 360 s of synthetic STEIM2 along that
+   LUT with two planted events, a generated StationXML (and the same
+   responses as RESP and SAC_PZ), and
    the example's settings (env_squared STA/LTA, the trigger's region and
    thresholds, response removal with pre_filt (0.05, 0.06, 30, 35) and
    water level 60, its amplitude and magnitude parameters, marginal
@@ -85,7 +105,9 @@ Smoke run of quakemigrate_torch on one NVIDIA GPU.
    event, nothing else, no plain version on a CUDA tensor; a finite ML,
    ML_Err and ML_r2 in each .event, its .amps and WA cut waveforms read
    back; each ML equal, in its 3 written figures, to a locate of the same
-   events with device="cpu". Prints the per-event split with magnitudes.
+   events with device="cpu" and to locates on the card with the responses
+   read from RESP and from SAC_PZ. Prints the per-event split with
+   magnitudes.
    map_path: M2 against the plain migrate_map on the card at the
    Icequake locate window (61 samples, the Icequake plan) and the VT one
    (201 samples, the VT plan): within 1e-5 of each value, its per-sample
@@ -316,7 +338,6 @@ MAP_SUM_RTOL = 1e-6
 VT_DIR = (pathlib.Path(__file__).resolve().parent / "examples"
           / "Volcanotectonic_Iceland")
 VT_RATE = 50
-VT_VP, VT_VS = 5.2, 2.921
 VT_START = "2014-08-24T00:01:00.0"
 VT_SPAN_S, VT_SPACING_S, VT_N_EVENTS = 360.0, 60.0, 2
 VT_PLANTED = ((0.45, 0.55, 0.45), (0.6, 0.4, 0.55))
@@ -324,12 +345,33 @@ VT_DETECT_OFFSET_S, VT_DETECT_SPAN_S, VT_TIMESTEP = 60.0, 240.0, 60.0
 VT_WAVELET_HZ, VT_MAGNITUDE = 5.0, 2.0
 # Counts per m/s of the generated inventory's channels
 VT_SENSITIVITY = 1.0e9
+# The example's 1dsweep LUT (dike_intrusion_lut.py): its 2-D grid spacing
+VT_SWEEP_DX = 0.1
+# recursive_stalta: R1 at (rows, n) with (nsta, nlta); float64 against
+# its plain version within R1_F64_RTOL relative, float32 no further from
+# the float64 plain version than twice the float32 plain version (the CPU
+# tests' tolerances, there against the JAX package)
+R1_CASES = (((26, 2038), (20, 200)), ((256, 360_000), (200, 5000)))
+R1_F64_RTOL = 1e-12
+# compat_path: (grid, onsets, samples, first_idx, last_idx, largest
+# traveltime) of compat.migrate on a grid K1 v2 takes and on one of 256
+# onsets, whose slab K1 v2 cannot stage (the k2_v2 route, M2's simple form)
+COMPAT_CASES = {"k1_v2": ((20, 18, 12), 24, 600, 100, 200, 80),
+                "k2_v2": ((12, 10, 8), 256, 400, 50, 150, 60)}
+# find_max_coa on the card against the CPU: the normalised max is a
+# float32 sum over the nodes in another order
+COMPAT_NORM_RTOL = 1e-6
+# format_detect: archive_detect's archive cut to FORMAT_CUT_S seconds each
+# side of the planted origin, in each format; detect over FORMAT_SPAN_S
+# seconds from FORMAT_SPAN_S / 2 before the origin
+FORMAT_CUT_S, FORMAT_SPAN_S = 20.0, 10.0
 
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): HBM3
 # bandwidth, float32 rate outside the tensor cores, and shared-memory
 # bandwidth (32 banks x 4 B x 132 SMs at 1980 MHz).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+FP64_FLOP_PER_S = 34e12  # outside the tensor cores
 BF16_TC_FLOP_PER_S = 989e12  # tensor cores, dense bf16
 SMEM_BYTES_PER_S = 33.5e12
 # The streaming probe streams 2 GiB per rows value here (16 GiB in
@@ -969,10 +1011,9 @@ def archive_workspace(root, spacing_km=SPACING_KM, span_s=ARCHIVE_SPAN_S):
                         no_defs=True),
     )
     times = {}
-    t0 = time.perf_counter()
-    lut = compute_traveltimes(grid_spec, stations, method="homogeneous",
-                              phases=["P", "S"], vp=VP, vs=VS)
-    times["lut_s"] = time.perf_counter() - t0
+    lut, times["lut_s"] = quiet(root, "lut", lambda: compute_traveltimes(
+        grid_spec, stations, method="homogeneous", phases=["P", "S"],
+        vp=VP, vs=VS))
 
     t0 = time.perf_counter()
     planted = tuple(int(n * f) for n, f in zip(lut.node_count,
@@ -1004,6 +1045,19 @@ def archive_workspace(root, spacing_km=SPACING_KM, span_s=ARCHIVE_SPAN_S):
     return lut, stations, archive, np.array(planted), times, origin
 
 
+def archive_onset():
+    """The Icequake example's STALTAOnset (classic, bandpass [10, 124, 4],
+    P 0.01/0.25 s, S 0.05/0.5 s) at RATE."""
+
+    from quakemigrate_torch.signal.onsets import STALTAOnset
+
+    onset = STALTAOnset(position="classic", sampling_rate=RATE)
+    onset.phases = ["P", "S"]
+    onset.bandpass_filters = {"P": [10, 124, 4], "S": [10, 124, 4]}
+    onset.sta_lta_windows = {p: list(w) for p, w in STA_LTA.items()}
+    return onset
+
+
 def archive_detect_path(device, f1_route):
     """archive_detect: QuakeScan.detect from a miniSEED archive to
     .scanmseed on the card, without jax. The workspace of
@@ -1024,7 +1078,7 @@ def archive_detect_path(device, f1_route):
     from quakemigrate_torch.io import Archive
     from quakemigrate_torch.ops import cuda_migrate as cm
     from quakemigrate_torch.seis import UTCDateTime, read
-    from quakemigrate_torch.signal.onsets import STALTAOnset, pre_process
+    from quakemigrate_torch.signal.onsets import pre_process
     from quakemigrate_torch.signal.scan import QuakeScan
 
     record = {}
@@ -1037,10 +1091,7 @@ def archive_detect_path(device, f1_route):
               f"archive_detect: grid {lut.node_count}")
         archive = Archive(archive_path, stations,
                           archive_format="YEAR/JD/STATION")
-        onset = STALTAOnset(position="classic", sampling_rate=RATE)
-        onset.phases = ["P", "S"]
-        onset.bandpass_filters = {"P": [10, 124, 4], "S": [10, 124, 4]}
-        onset.sta_lta_windows = {p: list(w) for p, w in STA_LTA.items()}
+        onset = archive_onset()
         scan = QuakeScan(archive, lut, onset, str(root / "runs"),
                          "archive_detect", device=device,
                          timestep=ARCHIVE_TIMESTEP)
@@ -1195,6 +1246,8 @@ def archive_detect_path(device, f1_route):
               f"{layer_ms['append']:.3f}")
         locate_record = archive_locate_path(device, root, scan, planted,
                                             origin, start, end, f1_route)
+        record["format_detect"] = format_detect_path(device, root, lut,
+                                                     stations, origin)
     record.update({
         "windows": n_windows, "dispatched": dispatched, "fsmp": fsmp,
         "lsmp": lsmp, "onsets": int(detect_scan.traveltimes.shape[1]),
@@ -2004,20 +2057,77 @@ def vt_stationxml(stations, path):
     return path
 
 
+_VT_RESP = """B050F03     Station:     {station}
+B050F16     Network:     SC
+B052F03     Location:    ??
+B052F04     Channel:     CH{comp}
+B052F22     Start date:  2014,001,00:00:00
+B052F23     End date:    No Ending Time
+B053F03     Transfer function type:                A [Laplace Transform (Rad/sec)]
+B053F04     Stage sequence number:                 1
+B053F05     Response in units lookup:              M/S - Velocity in Meters Per Second
+B053F06     Response out units lookup:             V - Volts
+B053F07     A0 normalization factor:               1.0
+B053F08     Normalization frequency:               5.0
+B053F09     Number of zeroes:                      2
+B053F14     Number of poles:                       2
+B053F10-13     0  0.000000E+00  0.000000E+00  0.000000E+00  0.000000E+00
+B053F10-13     1  0.000000E+00  0.000000E+00  0.000000E+00  0.000000E+00
+B053F15-18     0 -4.440000E+00  4.440000E+00  0.000000E+00  0.000000E+00
+B053F15-18     1 -4.440000E+00 -4.440000E+00  0.000000E+00  0.000000E+00
+B058F03     Stage sequence number:                 0
+B058F04     Sensitivity:                           {sensitivity:E}
+B058F05     Frequency of sensitivity:              5.0
+#
+"""
+
+# The same response with respect to displacement: a third zero at the
+# origin, CONSTANT = A0 x sensitivity
+_VT_SAC_PZ = """* NETWORK   (KNETWK): SC
+* STATION    (KSTNM): {station}
+* LOCATION   (KHOLE):
+* CHANNEL   (KCMPNM): CH{comp}
+* START             : 2014-01-01T00:00:00
+* END               : 2599-12-31T23:59:59
+* INPUT UNIT        : M
+ZEROS 3
+POLES 2
+        -4.440000e+00   +4.440000e+00
+        -4.440000e+00   -4.440000e+00
+CONSTANT {sensitivity:+e}
+"""
+
+
+def vt_responses(stations, root):
+    """The generated StationXML's responses (:func:`vt_stationxml`) also as
+    one concatenated RESP file and one SAC_PZ file. Returns {"stationxml",
+    "resp", "sac_pz"} -> path."""
+
+    paths = {"stationxml": vt_stationxml(stations, root / "response.xml"),
+             "resp": root / "RESP.vt", "sac_pz": root / "SAC_PZs_vt"}
+    for key, template in (("resp", _VT_RESP), ("sac_pz", _VT_SAC_PZ)):
+        paths[key].write_text("".join(
+            template.format(station=name, comp=comp,
+                            sensitivity=VT_SENSITIVITY)
+            for name in stations["Name"] for comp in "ZNE"))
+    return paths
+
+
 def vt_workspace(root, spacing_km=0.5):
     """vt_locate_mags' inputs, made with the port alone: the
-    Volcanotectonic_Iceland example's grid (dike_intrusion_lut.py: lcc,
-    0.5 km nodes) and its 12 stations, homogeneous traveltimes (VT_VP,
-    VT_VS: the 3 km layer of iceland_vmodel.txt; the port has no 1dsweep
-    builder), VT_N_EVENTS sources planted at grid nodes VT_SPACING_S
-    apart, VT_SPAN_S seconds of 50 Hz three-component synthetics in counts
+    Volcanotectonic_Iceland example's LUT as dike_intrusion_lut.py builds
+    it (its lcc grid at 0.5 km, its 12 stations, method "1dsweep" on
+    iceland_vmodel.txt with sweep_dx VT_SWEEP_DX), VT_N_EVENTS sources
+    planted at grid nodes VT_SPACING_S apart, VT_SPAN_S seconds of 50 Hz
+    three-component synthetics in counts along that LUT's traveltimes
     (quakemigrate_torch.synthetics, noise on the amplitudes) written as a
-    YEAR/JD/STATION STEIM2 archive, and a generated StationXML. Returns
-    (lut, stations, archive path, response file, planted grid indices,
-    origin times)."""
+    YEAR/JD/STATION STEIM2 archive, and a generated StationXML with the
+    same responses as RESP and SAC_PZ (:func:`vt_responses`). Returns
+    (lut, stations, archive path, response files, planted grid indices,
+    origin times, the LUT build's host seconds)."""
 
     from quakemigrate_torch.coords import Proj
-    from quakemigrate_torch.io import read_stations
+    from quakemigrate_torch.io import read_stations, read_vmodel
     from quakemigrate_torch.lut import compute_traveltimes
     from quakemigrate_torch.seis import UTCDateTime
     from quakemigrate_torch.synthetics import (
@@ -2035,8 +2145,10 @@ def vt_workspace(root, spacing_km=0.5):
         coord_proj=Proj(proj="longlat", datum="WGS84", ellps="WGS84",
                         no_defs=True),
     )
-    lut = compute_traveltimes(grid_spec, stations, method="homogeneous",
-                              phases=["P", "S"], vp=VT_VP, vs=VT_VS)
+    lut, lut_s = quiet(root, "vt_lut", lambda: compute_traveltimes(
+        grid_spec, stations, method="1dsweep",
+        vmod=read_vmodel(VT_DIR / "inputs" / "iceland_vmodel.txt"),
+        phases=["P", "S"], sweep_dx=VT_SWEEP_DX))
     half = VT_SPAN_S / 2 - VT_SPACING_S * (VT_N_EVENTS - 1) / 2
     wavelet = GaussianDerivativeWavelet(VT_WAVELET_HZ, VT_RATE, half)
     rng = np.random.default_rng(2043)
@@ -2068,9 +2180,8 @@ def vt_workspace(root, spacing_km=0.5):
         folder.mkdir(parents=True, exist_ok=True)
         tr.write(str(folder / f"{tr.stats.station}_{tr.stats.channel[-1]}.m"),
                  format="MSEED", encoding="STEIM2")
-    return (lut, stations, archive, vt_stationxml(stations,
-                                                  root / "response.xml"),
-            np.array(planted), origins)
+    return (lut, stations, archive, vt_responses(stations, root),
+            np.array(planted), origins, lut_s)
 
 
 def vt_locate_mags_path(device, spacing_km=0.5):
@@ -2091,9 +2202,11 @@ def vt_locate_mags_path(device, spacing_km=0.5):
     version on a CUDA tensor; each .event with a finite ML, ML_Err and
     ML_r2 and its .amps and WA cut waveforms written; each ML equal, in
     its 3 written significant figures, to a locate of the same events with
-    device="cpu". Prints the per-event split of locate_event_attrib, its
-    magnitudes key among them. Returns a record with the VT plan's
-    traveltimes and locate window for map_path."""
+    device="cpu", and to locates on the card with the same responses read
+    from RESP and from SAC_PZ (K1 v2 and M1 v2 once an event each). Prints
+    the 1dsweep LUT's host seconds and the per-event split of
+    locate_event_attrib, its magnitudes key among them. Returns a record
+    with the VT plan's traveltimes and locate window for map_path."""
 
     import tempfile
 
@@ -2122,15 +2235,18 @@ def vt_locate_mags_path(device, spacing_km=0.5):
     with tempfile.TemporaryDirectory() as tmp:
         root = pathlib.Path(tmp)
         t0 = time.perf_counter()
-        lut, stations, archive_path, response_file, planted, origins = (
-            vt_workspace(root, spacing_km))
+        (lut, stations, archive_path, response_files, planted, origins,
+         record["lut_s"]) = vt_workspace(root, spacing_km)
         record["workspace_s"] = time.perf_counter() - t0
-        inventory = read_response_inv(str(response_file))
-        archive = Archive(
-            archive_path, stations, archive_format="YEAR/JD/STATION",
-            response_inv=inventory,
-            response_removal_params={"pre_filt": (0.05, 0.06, 30, 35),
-                                     "water_level": 60.0})
+
+        def vt_archive(responses, **options):
+            return Archive(
+                archive_path, stations, archive_format="YEAR/JD/STATION",
+                response_inv=read_response_inv(str(responses), **options),
+                response_removal_params={"pre_filt": (0.05, 0.06, 30, 35),
+                                         "water_level": 60.0})
+
+        archive = vt_archive(response_files["stationxml"])
         runs, run_name = root / "runs", "vt"
         start = UTCDateTime(VT_START) + VT_DETECT_OFFSET_S
         end = start + VT_DETECT_SPAN_S
@@ -2152,7 +2268,9 @@ def vt_locate_mags_path(device, spacing_km=0.5):
         print(f"vt_locate_mags: grid {lut.node_count.tolist()} "
               f"({int(np.prod(lut.node_count))} nodes), "
               f"{len(lut.station_data['Name'])} stations x P/S at "
-              f"{VT_RATE} Hz; workspace {record['workspace_s']:.3f} s, "
+              f"{VT_RATE} Hz; 1dsweep LUT (sweep_dx {VT_SWEEP_DX} km) "
+              f"{record['lut_s']:.3f} s on the host; workspace "
+              f"{record['workspace_s']:.3f} s, "
               f"detect {detect_s:.3f} s (launches {detect_launches}), trigger "
               f"{trigger_s:.3f} s; {len(events)} event(s) triggered: {times}; "
               f"planted origins {[str(o) for o in origins]}")
@@ -2163,7 +2281,7 @@ def vt_locate_mags_path(device, spacing_km=0.5):
                         / f"{run_name}_{start.year}_{start.julday:03d}"
                         "_TriggeredEvents.csv")
 
-        def locate(dev, name):
+        def locate(dev, name, archive=archive):
             picker_onset = onset("centred")
             mags = LocalMag(
                 amp_params={"signal_window": 1.0, "noise_window": 5.0,
@@ -2202,6 +2320,21 @@ def vt_locate_mags_path(device, spacing_km=0.5):
               f"vt_locate_mags: {n} events, route {loc.locate_route}, "
               f"launches {launches}")
         cpu, cpu_seen, cpu_s, _ = locate("cpu", "vt_cpu")
+        # The same locate on the card with the responses read from RESP and
+        # from SAC_PZ
+        by_format = {}
+        for key, options in (("resp", {}), ("sac_pz",
+                                            {"sac_pz_format": True})):
+            _, fmt_seen, fmt_s, fmt_launches = locate(
+                device, f"vt_{key}",
+                vt_archive(response_files[key], **options))
+            by_format[key] = {"wall_s": fmt_s, "launches": fmt_launches,
+                              "events": len(fmt_seen)}
+            check(len(fmt_seen) == n
+                  and fmt_launches["migrate_detect_v2"] == n
+                  and fmt_launches["migrate_marginalise_v2"] == n,
+                  f"vt_locate_mags {key}: {len(fmt_seen)} events, launches "
+                  f"{fmt_launches}")
         out, cpu_out = runs / "vt_card" / "locate", runs / "vt_cpu" / "locate"
         results = []
         for event in seen:
@@ -2217,11 +2350,19 @@ def vt_locate_mags_path(device, spacing_km=0.5):
             wa = read(out / "wa_cut_waveforms" / f"{event.uid}.m")
             ml = [row.get(k, "") for k in ("ML", "ML_Err", "ML_r2")]
             finite = all(v != "" and np.isfinite(float(v)) for v in ml)
+            ml_by_format = {}
+            for key in by_format:
+                fmt_header, fmt_rows = read_csv(
+                    runs / f"vt_{key}" / "locate" / "events"
+                    / f"{event.uid}.event")
+                ml_by_format[key] = dict(zip(fmt_header, fmt_rows[0]))["ML"]
             results.append({
                 "uid": event.uid, "node": node.tolist(),
                 "node_distance": min(dists), "ML": ml,
                 "ML_cpu": [cpu_row.get(k, "") for k in ("ML", "ML_Err",
                                                         "ML_r2")],
+                "ML_resp": ml_by_format["resp"],
+                "ML_sac_pz": ml_by_format["sac_pz"],
                 "amps_rows": len(amps),
                 "ml_rows": sum(r[amps_header.index("ML")] != ""
                                for r in amps),
@@ -2231,12 +2372,16 @@ def vt_locate_mags_path(device, spacing_km=0.5):
             print(f"vt_locate_mags {event.uid}: node {node.tolist()} "
                   f"({min(dists)} nodes from the nearest planted source); "
                   f"ML, ML_Err, ML_r2 {ml} (CPU run "
-                  f"{results[-1]['ML_cpu']}); X/Y/Z {row['X']} {row['Y']} "
+                  f"{results[-1]['ML_cpu']}, RESP {ml_by_format['resp']}, "
+                  f"SAC_PZ {ml_by_format['sac_pz']}); X/Y/Z {row['X']} "
+                  f"{row['Y']} "
                   f"{row['Z']} (CPU run {cpu_row['X']} {cpu_row['Y']} "
                   f"{cpu_row['Z']}); .amps {len(amps)} rows, "
                   f"{results[-1]['ml_rows']} with an ML; {len(wa)} WA cut "
                   f"traces")
             check(min(dists) <= 1 and finite and row["ML"] == cpu_row["ML"]
+                  and ml_by_format == {"resp": row["ML"],
+                                       "sac_pz": row["ML"]}
                   and len(amps) == 3 * len(stations) and len(wa) > 0,
                   f"vt_locate_mags {event.uid}: {results[-1]}")
 
@@ -2249,7 +2394,7 @@ def vt_locate_mags_path(device, spacing_km=0.5):
             grid=lut.node_count.tolist(), onsets=2 * len(stations),
             detect_s=detect_s, detect_launches=detect_launches,
             trigger_s=trigger_s, locate_s=locate_s, locate_cpu_s=cpu_s,
-            launches=launches, events=results,
+            launches=launches, events=results, response_formats=by_format,
             event_split_s=split(loc), event_split_cpu_s=split(cpu))
         print(f"vt_locate_mags: per-event split, host s, card: "
               f"{record['event_split_s']}; CPU ({cpu_s:.3f} s wall): "
@@ -3825,6 +3970,248 @@ def kurtosis_decimate_path(device):
     return kurt, dec
 
 
+def rel_err(got, ref):
+    """Largest |got - ref| / |ref| (float64, on the host)."""
+
+    got = np.asarray(got, dtype=np.float64)
+    ref = np.asarray(ref, dtype=np.float64)
+    return float(np.max(np.abs(got - ref)
+                        / np.maximum(np.abs(ref), np.finfo(np.float64).tiny)))
+
+
+def recursive_stalta_path(device):
+    """recursive_stalta: R1 (csrc/recursive_stalta.cu) on its paths and
+    against its plain version. The main path first, with the counts at 0:
+    compat.recursive_sta_lta (numpy in and out, the card by default) and
+    ops.recursive_sta_lta on a CUDA tensor, at (26, 2038) with (nsta, nlta)
+    (20, 200): one launch each, each within twice the float32 plain
+    version's error of the float64 plain version. Then at each of R1_CASES
+    in float32 and float64: float64 within R1_F64_RTOL of the plain version
+    on the card, float32 no further from the float64 plain version than
+    twice the float32 plain version; R1 and the plain version timed with
+    CUDA events; the bound the bytes read once and written once (the
+    operations, 8 a sample, bound it far less). Returns the record."""
+
+    from quakemigrate_torch.core import compat
+    from quakemigrate_torch.ops import cuda_stalta
+    from quakemigrate_torch.ops.stalta import (
+        recursive_sta_lta,
+        recursive_sta_lta_plain,
+    )
+
+    rng = np.random.default_rng(2050)
+    (shape, (nsta, nlta)) = R1_CASES[0]
+    signal = rng.standard_normal(shape) ** 2
+    x = torch.from_numpy(signal).to(device)
+    ref = recursive_sta_lta_plain(x, nsta, nlta).cpu().numpy()
+    plain_err = rel_err(recursive_sta_lta_plain(x.float(), nsta, nlta).cpu(),
+                        ref)
+    torch.cuda.synchronize()
+    cuda_stalta.reset_launches()
+    by_compat = compat.recursive_sta_lta(signal, nsta, nlta)
+    by_ops = recursive_sta_lta(x.float(), nsta, nlta).cpu().numpy()
+    torch.cuda.synchronize()
+    launches = cuda_stalta.launches["recursive_stalta"]
+    path_err = max(rel_err(by_compat, ref), rel_err(by_ops, ref))
+    print(f"recursive_stalta: main path (compat and ops at {shape}, "
+          f"{nsta}/{nlta}): {launches} R1 launches; error vs float64 "
+          f"{path_err:.3e} (float32 plain {plain_err:.3e})")
+    check(launches == 2, f"recursive_stalta: {launches} launches, not 2")
+    check(path_err <= max(2 * plain_err, np.finfo(np.float32).eps),
+          f"recursive_stalta: main path error {path_err} against the "
+          f"plain version's {plain_err}")
+
+    cases = []
+    for shape, (nsta, nlta) in R1_CASES:
+        x64 = torch.from_numpy(rng.standard_normal(shape) ** 2).to(device)
+        ref = recursive_sta_lta_plain(x64, nsta, nlta)
+        for x in (x64.float(), x64):
+            itemsize = x.element_size()
+            got = cuda_stalta.recursive_sta_lta_cuda(x, nsta, nlta)
+            plain = recursive_sta_lta_plain(x, nsta, nlta)
+            torch.cuda.synchronize()
+            err = rel_err(got.cpu(), ref.cpu())
+            plain_err = rel_err(plain.cpu(), ref.cpu())
+            abs_err = float((got - plain).abs().max())
+            if itemsize == 8:
+                ok = err <= R1_F64_RTOL
+            else:
+                ok = err <= max(2 * plain_err, np.finfo(np.float32).eps)
+            del got, plain
+            big = x.numel() > 10**7
+            ms = median_ms(lambda: cuda_stalta.recursive_sta_lta_cuda(
+                x, nsta, nlta), reps=5 if big else 50)
+            plain_ms = cuda_ms(lambda: recursive_sta_lta_plain(
+                x, nsta, nlta), reps=2 if big else 10, warmup=1)
+            bound_ms, bound_by = roofline(
+                2 * x.numel() * itemsize, 8 * x.numel(),
+                FP64_FLOP_PER_S if itemsize == 8 else FP32_FLOP_PER_S)
+            case = {"shape": list(shape), "nsta": nsta, "nlta": nlta,
+                    "dtype": str(x.dtype).replace("torch.", ""),
+                    "max_rel_err_vs_f64": err,
+                    "plain_max_rel_err_vs_f64": plain_err,
+                    "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "bound_share": bound_ms / ms}
+            cases.append(case)
+            print(f"recursive_stalta {shape} {case['dtype']} "
+                  f"({nsta}/{nlta}): R1 {ms:.4f} ms, plain {plain_ms:.3f} "
+                  f"ms, bound {bound_ms:.4f} ms ({bound_by}, "
+                  f"{100 * bound_ms / ms:.1f} %); error vs float64 plain "
+                  f"{err:.3e} (plain {plain_err:.3e}), |R1 - plain| "
+                  f"{abs_err:.3e}")
+            check(ok, f"recursive_stalta {shape} {case['dtype']}: error "
+                  f"{err} (plain {plain_err})")
+        del x64, ref
+        torch.cuda.empty_cache()
+    return {"launches": launches, "main_path_err": path_err,
+            "cases": cases}
+
+
+def compat_path(device):
+    """compat_path: core.compat's migrate and find_max_coa on the card (the
+    default device) against device="cpu", at each of COMPAT_CASES: the
+    route detect_route takes for the clipped traveltimes; migrate's map
+    within MAP_RTOL relative of the CPU's, with one launch of M2 on K1
+    v2's route (csrc/migrate_marginalise_v2.cu) or of M2's simple form on
+    K2 v2's (csrc/migrate_marginalise.cu) and no other kernel; then
+    find_max_coa of that map on the card and the CPU: the max and the
+    argmax equal, the normalised max within COMPAT_NORM_RTOL. Returns the
+    record."""
+
+    from quakemigrate_torch.core import compat
+    from quakemigrate_torch.ops import cuda_migrate as cm
+    from quakemigrate_torch.signal.scan import detect_route
+
+    rng = np.random.default_rng(2051)
+    record = {}
+    for name, (grid, n_onsets, t_len, first, last, max_tt) in (
+            COMPAT_CASES.items()):
+        onsets = rng.uniform(0.3, 4.0, (n_onsets, t_len))
+        tt = rng.integers(0, max_tt, grid + (n_onsets,))
+        route = detect_route(
+            np.clip(tt.reshape(-1, n_onsets), 0, last).astype(np.int32),
+            grid, device)[0]
+        kernel = "migrate_map_v2" if route == "k1_v2" else "migrate_map"
+        torch.cuda.synchronize()
+        cm.reset_launches()
+        t0 = time.perf_counter()
+        card = compat.migrate(onsets, tt, first, last, n_onsets)
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in cm.launches.items() if v}
+        cpu = compat.migrate(onsets, tt, first, last, n_onsets,
+                             device="cpu")
+        err = rel_err(card, cpu)
+        fm_card = compat.find_max_coa(card)
+        fm_cpu = compat.find_max_coa(card, device="cpu")
+        norm_err = rel_err(fm_card[1], fm_cpu[1])
+        record[name] = {
+            "grid": list(grid), "onsets": n_onsets,
+            "nsamples": t_len - first - last, "route": route,
+            "launches": launches, "wall_s": wall, "max_rel_err": err,
+            "max_abs_err": float(np.abs(card - cpu).max()),
+            "find_max_coa": {
+                "max_equal": bool(np.array_equal(fm_card[0], fm_cpu[0])),
+                "argmax_equal": bool(np.array_equal(fm_card[2], fm_cpu[2])),
+                "norm_rel_err": norm_err}}
+        print(f"compat_path {name}: grid {grid}, {n_onsets} onsets, "
+              f"{t_len - first - last} samples; route {route}, launches "
+              f"{launches}, {wall:.3f} s wall; map vs CPU {err:.3e}; "
+              f"find_max_coa {record[name]['find_max_coa']}")
+        check(card.shape == grid + (t_len - first - last,)
+              and card.dtype == np.float64 and np.isfinite(card).all(),
+              f"compat_path {name}: map {card.shape} {card.dtype}")
+        check(route == name and launches == {kernel: 1},
+              f"compat_path {name}: route {route}, launches {launches}")
+        check(err <= MAP_RTOL, f"compat_path {name}: map error {err}")
+        check(record[name]["find_max_coa"]["max_equal"]
+              and record[name]["find_max_coa"]["argmax_equal"]
+              and norm_err <= COMPAT_NORM_RTOL,
+              f"compat_path {name}: find_max_coa {record[name]}")
+    return record
+
+
+def format_detect_path(device, root, lut, stations, origin):
+    """format_detect: archive_detect's archive (under ``root``) cut to
+    FORMAT_CUT_S seconds each side of the planted ``origin`` and written
+    by the port's writers as MSEED (STEIM2), SAC, GSE2 and SEG-Y; each
+    read back by the port's reader, its samples, ids, start and rate equal
+    to the MSEED cut's; then QuakeScan.detect on the card over
+    FORMAT_SPAN_S seconds about the origin from each (route k1_v2, K1 v2
+    once a window and nothing else), each .scanmseed equal to the MSEED
+    run's byte for byte. Returns the record."""
+
+    from quakemigrate_torch.io import Archive
+    from quakemigrate_torch.ops import cuda_migrate as cm
+    from quakemigrate_torch.seis import read
+    from quakemigrate_torch.signal.scan import QuakeScan
+
+    files = sorted((root / "mSEED").rglob("*.m"))
+    cut = {}
+    for path in files:
+        st = read(path, starttime=origin - FORMAT_CUT_S,
+                  endtime=origin + FORMAT_CUT_S)
+        cut[path.relative_to(root / "mSEED")] = st
+    start = origin - FORMAT_SPAN_S / 2
+    end = start + FORMAT_SPAN_S
+    record, scanmseed = {}, {}
+    for fmt in ("MSEED", "SAC", "GSE2", "SEGY"):
+        archive_path = root / f"format_{fmt}"
+        t0 = time.perf_counter()
+        for rel, st in cut.items():
+            (archive_path / rel).parent.mkdir(parents=True, exist_ok=True)
+            options = {"encoding": "STEIM2"} if fmt == "MSEED" else {}
+            st.write(str(archive_path / rel), format=fmt, **options)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = {rel: read(archive_path / rel) for rel in cut}
+        read_s = time.perf_counter() - t0
+        for rel, st in cut.items():
+            (got,), (want,) = back[rel].traces, st.traces
+            # GSE2 holds no network code
+            check((got.stats.station, got.stats.channel)
+                  == (want.stats.station, want.stats.channel)
+                  and got.stats.starttime == want.stats.starttime
+                  and got.stats.sampling_rate == want.stats.sampling_rate
+                  and np.array_equal(np.asarray(got.data, np.int64),
+                                     want.data),
+                  f"format_detect {fmt}: {rel} read back as {got}")
+        scan = QuakeScan(Archive(archive_path, stations,
+                                 archive_format="YEAR/JD/STATION"),
+                         lut, archive_onset(), str(root / "runs"),
+                         f"format_{fmt}",
+                         device=device, timestep=ARCHIVE_TIMESTEP)
+        torch.cuda.synchronize()
+        cm.reset_launches()
+        _, wall = quiet(root, f"format_{fmt}", lambda: scan.detect(start,
+                                                                   end))
+        launches = {k: v for k, v in cm.launches.items() if v}
+        (path,) = sorted((scan.run.path / "detect" / "scanmseed").glob(
+            "*.scanmseed"))
+        scanmseed[fmt] = path.read_bytes()
+        n_windows = round(FORMAT_SPAN_S / ARCHIVE_TIMESTEP)
+        record[fmt] = {"files": len(cut), "write_s": write_s,
+                       "read_s": read_s, "detect_s": wall,
+                       "route": scan.detect_scan.route,
+                       "launches": launches,
+                       "scanmseed_equal": scanmseed[fmt]
+                       == scanmseed["MSEED"]}
+        print(f"format_detect {fmt}: {len(cut)} files of "
+              f"{2 * FORMAT_CUT_S:.0f} s written in {write_s:.3f} s, read "
+              f"back equal in {read_s:.3f} s; detect over "
+              f"{FORMAT_SPAN_S:.0f} s {wall:.3f} s wall, route "
+              f"{scan.detect_scan.route}, launches {launches}; .scanmseed "
+              f"({len(scanmseed[fmt])} bytes) equal to the MSEED run's: "
+              f"{record[fmt]['scanmseed_equal']}")
+        check(scan.detect_scan.route == "k1_v2"
+              and launches == {"migrate_detect_v2": n_windows},
+              f"format_detect {fmt}: route {scan.detect_scan.route}, "
+              f"launches {launches}")
+        check(record[fmt]["scanmseed_equal"],
+              f"format_detect {fmt}: .scanmseed differs from the MSEED run's")
+    return record
+
+
 def main():
     from quakemigrate_torch import _build
     from quakemigrate_torch.device import resolve_device
@@ -3842,6 +4229,9 @@ def main():
     _build.load_library()
     print(f"build: {lib_path.name} in {time.perf_counter() - t0:.2f} s")
     print(lib_path.with_suffix(".log").read_text().strip())
+
+    r1_record = recursive_stalta_path(device)
+    compat_record = compat_path(device)
 
     rng = np.random.default_rng(2024)
     small_tt = rng.integers(0, 40, size=(10 * 9 * 8, 6)).astype(np.int32)
@@ -4493,6 +4883,30 @@ def main():
         "xla_icequake": xla_record,
         "mid_span": mid_record,
     }]
+    r1_main = next(c for c in r1_record["cases"]
+                   if c["shape"] == list(R1_CASES[-1][0])
+                   and c["dtype"] == "float32")
+    kernels.append({
+        "name": "recursive_stalta",
+        "route": "cuda",
+        "source": "quakemigrate_torch/csrc/recursive_stalta.cu",
+        "replaces": "quakemigrate_tpu/ops/stalta.py:84",
+        # the main path: core.compat.recursive_sta_lta and
+        # ops.recursive_sta_lta on the card (recursive_stalta_path)
+        "launches": r1_record["launches"],
+        "max_abs_err": max(c["max_abs_err"] for c in r1_record["cases"]),
+        **{k: r1_main[k] for k in ("ms", "plain_ms", "bound_ms",
+                                   "bound_by")},
+        "library_ms": None,
+        "shape": r1_main["shape"],
+        "dtype": "float32",
+        "main_path_err": r1_record["main_path_err"],
+        "cases": r1_record["cases"],
+    })
+    for name, case in (("migrate_map_v2", "k1_v2"), ("migrate_map", "k2_v2")):
+        kernels[next(i for i, k in enumerate(kernels)
+                     if k["name"] == name)]["compat_path"] = (
+            compat_record[case])
     kernels[next(i for i, k in enumerate(kernels)
                  if k["name"] == "migrate_marginalise")]["f3"] = (
         f3_record["m1"])

@@ -8,8 +8,9 @@ which it is tested against). It is self-contained: it imports torch,
 numpy and scipy, and never jax, pandas, matplotlib or quakemigrate_tpu,
 so it runs on a machine that has none of them.
 
-The slices ported so far run from a miniSEED archive to the located
-events. Continuous detect (:meth:`QuakeScan.detect`) writes the
+The slices ported so far run from a waveform archive (miniSEED, SAC,
+GSE2 or SEG-Y) to the located events, on lookup tables built from
+homogeneous, 1-D or 3-D velocity models. Continuous detect (:meth:`QuakeScan.detect`) writes the
 ``.scanmseed`` and StationAvailability files: the host layers (``seis``,
 ``coords``, ``lut``, ``io``, ``signal.onsets``) read and pre-process each
 window into a fixed-shape channel block, and :class:`DetectScan` runs

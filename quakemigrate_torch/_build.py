@@ -12,10 +12,11 @@ unchanged one is reused. The library is loaded with ctypes: pointers and
 the stream go over as ``c_void_p``. A missing ``nvcc`` or a failed build
 raises.
 
-The host library (the STEIM1/2 miniSEED codec, ``csrc/host/*.c``) is
-built the same way at its first use, with the host C compiler ``cc``
-instead of ``nvcc``, so the CPU path needs no CUDA toolkit
-(:func:`build_host`). A missing ``cc`` or a failed build raises.
+The host library (the STEIM1/2 miniSEED codec and the fast-marching
+eikonal solver, ``csrc/host/*.c``) is built the same way at its first
+use, with the host C compiler ``cc`` instead of ``nvcc``, so the CPU path
+needs no CUDA toolkit (:func:`build_host`). A missing ``cc`` or a failed
+build raises.
 
 """
 
@@ -174,6 +175,9 @@ SIGNATURES = {
     "qm_migrate_detect_x16g_v2_blocks_per_sm": [_INT],
     # (O, tile, win_floats, len)
     "qm_migrate_marginalise_v2_blocks_per_sm": [_INT] * 4,
+    # x, out, rows, n, nsta, nlta, stream
+    "qm_recursive_stalta_f32": [_VOID_P, _VOID_P] + [_INT] * 4 + [_VOID_P],
+    "qm_recursive_stalta_f64": [_VOID_P, _VOID_P] + [_INT] * 4 + [_VOID_P],
     # err; returns a C string
     "qm_error_string": [_INT],
 }
@@ -273,7 +277,8 @@ def build_host():
     if cc is None:
         raise RuntimeError(
             "cc not found on PATH; the host library of quakemigrate_torch "
-            "(the STEIM codec) cannot be built"
+            "(the STEIM codec, csrc/host/steimlib.c, and the fast-marching "
+            "solver, csrc/host/fmmlib.c) cannot be built"
         )
     BUILD_DIR.mkdir(exist_ok=True)
     tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")

@@ -2,8 +2,8 @@
 """
 Core I/O of the port: the Run directory/logging object, the station and
 1-D velocity model file readers, the lookup-table reader (the port's
-npz+json format) and the instrument-response reader (StationXML), after
-the JAX package's ``io/core.py`` without pandas.
+npz+json format) and the instrument-response reader (StationXML, RESP,
+SAC_PZ), after the JAX package's ``io/core.py`` without pandas.
 
 Station Elevations are positive-up in the file and flipped to positive-down
 depths on read, as the reference does.
@@ -148,21 +148,21 @@ def _looks_like_resp(path):
 
 def read_response_inv(response_file, sac_pz_format=False):
     """
-    Build a :class:`~quakemigrate_torch.seis.response.Inventory` from a
-    StationXML file. RESP files and SAC poles-and-zeros files (which the
-    JAX package also reads) are not ported (ROADMAP.md §1, A14) and raise
-    NotImplementedError.
+    Build a :class:`~quakemigrate_torch.seis.response.Inventory` from
+    StationXML, RESP (a file or a directory of RESP.* files), or (with
+    ``sac_pz_format``) SAC poles-and-zeros files.
 
     """
 
     if sac_pz_format:
-        raise NotImplementedError(
-            "SAC_PZ response files are not ported to quakemigrate_torch yet "
-            "(ROADMAP.md §1, A14)")
+        from quakemigrate_torch.seis.sacpz import read_sac_pz
+
+        return read_sac_pz(response_file)
+
     if _looks_like_resp(Path(response_file)):
-        raise NotImplementedError(
-            "RESP response files are not ported to quakemigrate_torch yet "
-            "(ROADMAP.md §1, A14)")
+        from quakemigrate_torch.seis.resp import read_resp
+
+        return read_resp(response_file)
 
     from xml.etree.ElementTree import ParseError
 

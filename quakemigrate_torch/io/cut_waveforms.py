@@ -2,9 +2,8 @@
 """
 Per-event cut-waveform output in raw / response-removed ("real") /
 Wood-Anderson flavours (reference behaviour: io/cut_waveforms.py:44-213),
-the port of the JAX package's ``io/cut_waveforms.py`` for MSEED, the one
-waveform format the port writes (``Stream.write`` raises on another;
-SAC, GSE2 and SEGY wait in ROADMAP.md §1, A14).
+the port of the JAX package's ``io/cut_waveforms.py``: MSEED, SAC, GSE2
+or SEGY files, through ``Stream.write``.
 
 """
 

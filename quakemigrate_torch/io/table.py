@@ -113,6 +113,17 @@ class Table:
     def rows(self):
         return [self.row(i) for i in range(len(self))]
 
+    def __str__(self):
+        """The columns as right-aligned text, a header line and a line a
+        row, as a DataFrame prints without its index."""
+
+        fields = [[name] + column_text(self._cols[name])
+                  for name in self.names]
+        widths = [max(len(f) for f in column) for column in fields]
+        return "\n".join(
+            " ".join(column[i].rjust(w) for column, w in zip(fields, widths))
+            for i in range(len(self) + 1))
+
     def to_csv(self, path, names=None):
         """Write ``names`` (default every column) as CSV text, as pandas'
         ``to_csv(index=False)`` writes the same frame."""

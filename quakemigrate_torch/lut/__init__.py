@@ -1,8 +1,9 @@
 # -*- coding: utf-8 -*-
 """
 quakemigrate_torch.lut -- traveltime lookup tables (:class:`LUT`, the
-homogeneous builder, the port's npz+json file format, the carry-over of
-a JAX lookup table's state) and the traveltime state the detect path
+builders from homogeneous, 1-D and 3-D velocity models, the NonLinLoc
+grid reader, the port's npz+json file format, the carry-over of a JAX
+lookup table's state) and the traveltime state the detect path
 migrates with: the node-major sample-offset table, and the mapping of
 flat node indices back to grid indices.
 
@@ -11,7 +12,11 @@ flat node indices back to grid indices.
 import numpy as np
 
 from .lut import LUT, Grid3D, StationTable  # noqa: F401
-from .create import compute_traveltimes, lut_from_reference  # noqa: F401
+from .create import (  # noqa: F401
+    compute_traveltimes,
+    lut_from_reference,
+    read_nlloc,
+)
 
 
 def traveltime_table(tables, scan_rate):

@@ -284,6 +284,30 @@ def _definition_json(proj):
             for k, v in proj.definition().items()}
 
 
+def _velocity_model_json(vmodel):
+    """A LUT's velocity model as json: a table (``io.read_vmodel``'s, as
+    the 1-D builders keep it) as its column names and values, anything
+    else as its string."""
+
+    from quakemigrate_torch.io.table import Table
+
+    if isinstance(vmodel, Table):
+        return {"names": list(vmodel.names),
+                "columns": {name: np.asarray(vmodel[name]).tolist()
+                            for name in vmodel.names}}
+    return str(vmodel)
+
+
+def _velocity_model_from_json(value):
+    """Inverse of :func:`_velocity_model_json`."""
+
+    from quakemigrate_torch.io.table import Table
+
+    if isinstance(value, dict):
+        return Table(value["columns"], value["names"])
+    return value
+
+
 class LUT(Grid3D):
     """
     A Grid3D carrying per-station-per-phase traveltime tables
@@ -404,7 +428,7 @@ class LUT(Grid3D):
             "coord_proj": _definition_json(self.coord_proj),
             "phases": list(self.phases),
             "fraction_tt": float(self.fraction_tt),
-            "velocity_model": str(self.velocity_model),
+            "velocity_model": _velocity_model_json(self.velocity_model),
             "stations": self.station_data.to_json(),
             "tables": tables,
         }
@@ -435,7 +459,8 @@ class LUT(Grid3D):
         self.node_count = meta["node_count"]
         self.phases = list(meta["phases"])
         self.fraction_tt = meta["fraction_tt"]
-        self.velocity_model = meta["velocity_model"]
+        self.velocity_model = _velocity_model_from_json(
+            meta["velocity_model"])
         self.station_data = StationTable(meta["stations"])
         self.traveltimes = traveltimes
 

@@ -10,6 +10,10 @@ leading dimensions. Semantics follow quakemigrate_tpu.ops.stalta:
 - "centred": the STA window follows the LTA window, valued at the end of
   the LTA window. The first ``nlta-1`` and the last ``nsta`` samples are
   1, and so is any sample whose LTA is <= 0.
+- "recursive": exponential-decay recursions for STA and LTA; the onset is
+  0 at sample 0, and the first ``nlta`` samples are 1 when ``nlta < n``.
+  On a CUDA tensor it runs R1 (``ops.cuda_stalta``), on a CPU tensor its
+  plain version, an affine-pair scan.
 
 """
 
@@ -50,6 +54,69 @@ def centred_sta_lta(signal, nsta, nlta):
     )
     valid = (idx >= (nlta - 1)) & (idx < n - nsta)
     return torch.where(valid, ratio, 1.0)
+
+
+def recursive_sta_lta(signal, nsta, nlta):
+    """
+    Recursive STA/LTA, ``sta_i = c*x_i + (1-c)*sta_{i-1}`` with ``c =
+    1/nsta`` (likewise lta), batched over the leading dimensions, in the
+    input's dtype. As the reference (onsetlib.c:126-148 and its
+    zero-initialised output): the recursion starts at sample 1 (sample 0
+    is taken as 0, its decay as 0); ``onset = sta / max(lta, tiny)``,
+    ``onset[0] = 0``; when ``nlta < n`` the first ``nlta`` samples, sample
+    0 included, are 1. A CUDA tensor goes to R1
+    (:func:`~quakemigrate_torch.ops.cuda_stalta.recursive_sta_lta_cuda`,
+    which raises where it cannot run), a CPU tensor to
+    :func:`recursive_sta_lta_plain`.
+
+    """
+
+    if signal.is_cuda:
+        from .cuda_stalta import recursive_sta_lta_cuda
+
+        return recursive_sta_lta_cuda(signal, nsta, nlta)
+    return recursive_sta_lta_plain(signal, nsta, nlta)
+
+
+def _ewma(signal, c):
+    """
+    ``s_i = c*x_i + (1-c)*s_{i-1}`` along the last axis, ``s_{-1} = 0``,
+    sample 0 taken as 0 with decay 0: an inclusive scan of the affine maps
+    ``s -> m_i*s + v_i`` by log2(n) doubling steps, each composing every
+    sample's map with the one ``d`` samples before it, ``(m, v) then (m',
+    v') = (m*m', v*m' + v')``. The decays ``m`` are the same in every row,
+    so they are scanned once, [n]. No cumulative product of the decays is
+    formed (it underflows long before the row ends).
+
+    """
+
+    n = signal.shape[-1]
+    v = c * signal
+    v[..., 0] = 0.0
+    m = torch.full((n,), 1.0 - c, dtype=signal.dtype, device=signal.device)
+    m[0] = 0.0
+    d = 1
+    while d < n:
+        v = torch.cat([v[..., :d], v[..., :-d] * m[d:] + v[..., d:]], dim=-1)
+        m = torch.cat([m[:d], m[:-d] * m[d:]])
+        d *= 2
+    return v
+
+
+def recursive_sta_lta_plain(signal, nsta, nlta):
+    """The plain version of :func:`recursive_sta_lta` (and of R1): two
+    affine-pair scans (:func:`_ewma`) and the onset's edges, in the
+    input's dtype, on any device."""
+
+    n = signal.shape[-1]
+    sta = _ewma(signal, 1.0 / nsta)
+    lta = _ewma(signal, 1.0 / nlta)
+    tiny = torch.finfo(signal.dtype).tiny
+    onset = sta / torch.clamp(lta, min=tiny)
+    onset[..., 0] = 0.0
+    if nlta < n:
+        onset[..., :nlta] = 1.0
+    return onset
 
 
 def signal_transform(data, transform="energy"):

@@ -882,13 +882,28 @@ class Stream:
         return self
 
     def write(self, filename, format="MSEED", **kwargs):
-        """Write the stream as miniSEED (the one format the port writes)."""
+        """Write the stream as MSEED, SAC (one file a trace), GSE2 or
+        SEGY; ``kwargs`` go to the format's writer. Another format raises
+        ValueError."""
 
-        if format.upper() != "MSEED":
+        if format.upper() == "MSEED":
+            from .mseed import write_mseed
+
+            write_mseed(self, filename, **kwargs)
+        elif format.upper() == "SAC":
+            from .sac import write_sac
+
+            write_sac(self, filename, **kwargs)
+        elif format.upper() == "GSE2":
+            from .gse2 import write_gse2
+
+            write_gse2(self, filename, **kwargs)
+        elif format.upper() == "SEGY":
+            from .segy import write_segy
+
+            write_segy(self, filename, **kwargs)
+        else:
             raise ValueError(f"Unsupported output format: {format}")
-        from .mseed import write_mseed
-
-        write_mseed(self, filename, **kwargs)
         return self
 
 

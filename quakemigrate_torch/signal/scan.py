@@ -407,7 +407,8 @@ class QuakeScan:
         Write the ``.scanmseed`` after every window, not only at the end
         of a day and of the scan.
     write_cut_waveforms, write_real_waveforms, write_wa_waveforms
-        Locate's cut waveforms (MSEED, ``cut_waveform_format``): raw,
+        Locate's cut waveforms (``cut_waveform_format``: MSEED, SAC,
+        GSE2 or SEGY): raw,
         response-removed and Wood-Anderson (``real_waveform_units`` and
         ``wa_waveform_units``, "displacement" or "velocity").
     write_marginal_coalescence, write_coalescence
@@ -1005,12 +1006,6 @@ class QuakeScan:
             if getattr(self, option):
                 raise NotImplementedError(
                     f"{option}: {what} is not ported yet")
-        cuts = (self.write_cut_waveforms or self.write_real_waveforms
-                or self.write_wa_waveforms)
-        if cuts and self.cut_waveform_format != "MSEED":
-            raise NotImplementedError(
-                f"cut_waveform_format {self.cut_waveform_format!r}: the port "
-                "writes MSEED only (ROADMAP.md §1, A14)")
 
     def _locate_events(self, **kwargs):
         candidates = read_triggered_events(self.run, **kwargs)

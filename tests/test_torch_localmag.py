@@ -20,8 +20,8 @@ the raw, real and Wood-Anderson cut waveforms and the 4-D map.
   JAX's (1e-9 relative: the same float64 numpy and scipy code);
 - the .amps and .event files equal to JAX's byte for byte;
 - the real and Wood-Anderson cut waveforms within 1e-6 relative;
-- the options that still raise: plot_event_video, RESP and SAC_PZ
-  inventories, and a ``mags`` that is not a LocalMag.
+- the options that still raise: plot_event_video; RESP and SAC_PZ input
+  without the responses asked for; a ``mags`` that is not a LocalMag.
 
 """
 
@@ -479,12 +479,15 @@ def test_options_that_still_raise(workspace, tmp_path):
         scan.locate(START, END)
     with pytest.raises(util.MagsTypeError):
         port_scan(workspace, "refused", mags=object())
-    with pytest.raises(NotImplementedError, match="A14"):
+    # RESP and SAC_PZ are read now (tests/test_torch_formats.py): a
+    # StationXML file read as SAC_PZ holds no pole-zero block, and a RESP
+    # file of a station line holds no response of its channel
+    with pytest.raises(util.ResponseNotFoundError, match="pole-zero"):
         read_response_inv(str(workspace["xml"]), sac_pz_format=True)
     resp = tmp_path / "RESP.SC.ST00..CHZ"
     resp.write_text("B050F03     Station:     ST00\n")
-    with pytest.raises(NotImplementedError, match="A14"):
-        read_response_inv(str(resp))
+    with pytest.raises(util.ResponseNotFoundError):
+        read_response_inv(str(resp)).get_response("SC.ST00..CHZ")
     with pytest.raises(util.ResponseNotFoundError):
         response.read_inventory(str(workspace["xml"])).get_response(
             "SC.XX..CHZ")

@@ -17,7 +17,9 @@ fixture), with cut waveforms.
 - pass 2's window [first, last) of trim_bounds (end-exclusive, the
   reference's quirk) and the per-event split;
 - locate_workers=0 and 4 giving the same files; a dataless event skipped;
-- the options locate does not cover raising NotImplementedError.
+- the options locate does not cover raising NotImplementedError;
+- cut waveforms in each format (MSEED, SAC, GSE2, SEG-Y) from an archive
+  of int32 counts, read back by both packages equal to the MSEED ones.
 
 """
 
@@ -326,10 +328,6 @@ def test_dataless_event_skipped(runs, workspace, tmp_path):
 @pytest.mark.parametrize("options", [
     {"write_coalescence": True, "plot_event_video": True},
     {"plot_event_video": True},
-    {"write_real_waveforms": True, "cut_waveform_format": "SAC"},
-    {"write_wa_waveforms": True, "cut_waveform_format": "GSE2"},
-    {"write_cut_waveforms": True, "cut_waveform_format": "SEGY"},
-    {"write_cut_waveforms": True, "cut_waveform_format": "SAC"},
 ])
 def test_options_not_covered_raise(workspace, options):
     scan = ws.port_scan(workspace, "refused", **options)
@@ -337,6 +335,59 @@ def test_options_not_covered_raise(workspace, options):
         scan.locate(ws.START, ws.END)
     assert not (workspace["root"] / "runs" / "refused" / "locate"
                 / "events").exists()
+
+
+@pytest.fixture(scope="module")
+def counts_run(workspace, tmp_path_factory):
+    """The workspace's archive as int32 counts (GSE2 holds integers only),
+    detect -> trigger on it, and its event located with MSEED cut
+    waveforms: (workspace, trigger file, the cut waveforms)."""
+
+    counts = ws.counts_workspace(
+        workspace, tmp_path_factory.mktemp("torch_locate_counts"), "MSEED")
+    run_dir, _ = ws.port_pipeline(counts, "counts", locate=False)
+    (trigger_file,) = sorted((run_dir / "trigger" / "events").glob("*.csv"))
+    files = _locate_files(counts, trigger_file, "cut_ref",
+                          write_cut_waveforms=True)
+    (cut,) = [p for p in files if p.parent.name == "raw_cut_waveforms"]
+    ref = j_read(str(counts["root"] / "runs" / "cut_ref" / "locate" / cut))
+    return counts, trigger_file, ref
+
+
+_CUT_SUFFIXES = {"MSEED": ".m", "SAC": ".sac", "GSE2": ".gse2",
+                 "SEGY": ".segy"}
+
+
+@pytest.mark.parametrize("file_format", ["MSEED", "SAC", "GSE2", "SEGY"])
+def test_locate_writes_cut_waveforms_in_each_format(counts_run, file_format):
+    from quakemigrate_torch.seis import read
+
+    counts, trigger_file, ref = counts_run
+    name = f"cut_{file_format.lower()}"
+    files = _locate_files(counts, trigger_file, name,
+                          write_cut_waveforms=True,
+                          cut_waveform_format=file_format)
+    cuts = sorted(counts["root"] / "runs" / name / "locate" / p
+                  for p in files if p.parent.name == "raw_cut_waveforms")
+    assert {p.suffix for p in files} >= {".event", ".picks"}
+    # SAC holds one trace a file: <uid>.sac.00, .01, ...
+    if file_format == "SAC":
+        assert len(cuts) == len(ref) and all(
+            p.name.split(".")[-2] == "sac" for p in cuts)
+    else:
+        assert [p.suffix for p in cuts] == [_CUT_SUFFIXES[file_format]]
+    for reader in (read, j_read):
+        back = [tr for p in cuts for tr in reader(str(p))]
+        assert len(back) == len(ref) == 3 * ws.N_STATIONS
+        for got, want in zip(back, ref):
+            if reader is read or file_format != "SEGY":
+                assert (got.stats.station, got.stats.channel) == (
+                    want.stats.station, want.stats.channel)
+            assert str(got.stats.starttime) == str(want.stats.starttime)
+            np.testing.assert_allclose(got.stats.sampling_rate,
+                                       want.stats.sampling_rate, rtol=1e-7)
+            np.testing.assert_array_equal(np.asarray(got.data, np.int64),
+                                          want.data)
 
 
 def test_write_marginal_coalescence(runs, workspace):

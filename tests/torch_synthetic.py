@@ -199,3 +199,27 @@ def port_pipeline(workspace, run_name, locate=True, kurtosis=False,
     if locate:
         scan.locate(START, END)
     return workspace["root"] / "runs" / run_name, scan
+
+
+COUNTS_SCALE = 1e6
+
+
+def counts_workspace(workspace, root, file_format):
+    """The workspace with its archive rewritten under ``root`` as int32
+    counts (the samples times COUNTS_SCALE, rounded) in ``file_format``
+    (MSEED as STEIM2, SAC, GSE2 or SEGY) by the port's writers, one file
+    a channel with the archive's names. Returns a copy of the workspace
+    dict with ``archive`` and ``root`` replaced."""
+
+    from quakemigrate_torch.seis import read
+
+    archive = root / "archive"
+    day_dir = archive / "2021" / "049"
+    day_dir.mkdir(parents=True)
+    options = {"encoding": "STEIM2"} if file_format == "MSEED" else {}
+    for path in sorted((workspace["archive"] / "2021" / "049").iterdir()):
+        st = read(path)
+        for tr in st:
+            tr.data = np.round(tr.data * COUNTS_SCALE).astype(np.int32)
+        st.write(str(day_dir / path.name), format=file_format, **options)
+    return dict(workspace, archive=archive, root=root)
