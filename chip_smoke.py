@@ -140,7 +140,9 @@ Smoke run of quakemigrate_torch on one NVIDIA GPU.
    geometry (4 x 4 x 4 nodes, one traveltime of 32,768 samples: K3 v2's
    ring cannot hold its window, so K3 runs; one of 14,999 with
    kernel="xla": K3 v2 on its one-block shape), 2 windows each, held as
-   at F3.
+   at F3; and the 14,999 plan in float64 (precision="double"): K3 v2
+   f64's ring of doubles cannot hold it, so K3 f64 runs, held to the
+   plain float64 reduction within 1e-12.
    kurtosis_detect: a new synthetic Icequake workspace;
    QuakeScan.detect with KurtosisOnset (the example's bandpass, kurtosis
    windows 0.25 / 0.5 s, 0.05 s of smoothing) over 60 s on K1 v2 (one
@@ -153,6 +155,24 @@ Smoke run of quakemigrate_torch on one NVIDIA GPU.
    built on that workspace's LUT, the LUT decimated in place by [2, 2,
    2], then detect: the scan migrates on the 36 x 32 x 29 grid (K1 v2
    once a window) and finds the planted source within a decimated node.
+   double_path: a third synthetic Icequake workspace; QuakeScan with
+   precision="double" over 10 s about the planted event: detect (the
+   fused STA/LTA window in float64 on the "k3" route, K3 v2 f64,
+   csrc/migrate_detect_global_v2.cu on double, once a window and
+   nothing else; each window held to the plain float64 reduction within
+   1e-12 and the .scanmseed to a device="cpu" float64 detect of 2
+   windows: one count), Trigger (exactly the planted event), locate
+   two-pass (K3 v2 f64 and M1 f64, csrc/migrate_marginalise.cu on
+   double) and on the map path (M2 simple f64), each against the same
+   locate on the CPU in float64 (the .event within a written digit, the
+   marginal and the 4-D map within 1e-12); then each float64 kernel at
+   those shapes held to its plain version and timed in turns with its
+   float32 form (experiments/exp_double). standard_path on the same
+   workspace in float32: a user's Onset subclass defined here (numpy
+   onsets from calculate_onsets only) through detect, Trigger and
+   locate, fused_detect=False with the example's STALTAOnset, and
+   ClassicSTALTAOnset, each on the detect route's K1 v2 once a window
+   and held to the same run on the CPU.
 5. The VPU-plan kernel (csrc/migrate_detect_vpu.cu) against its plain
    version on a small plan and at the Icequake grid (tile 512, bricks
    8 x 8 x 8), timed; then K2 v2 (csrc/migrate_detect_vpu_v2.cu, the
@@ -716,7 +736,7 @@ def plain_coa_at(block, tt_dev, idx, device, fsmp=FSMP, nsamples=NSAMPLES):
     onsets_log = _prepare_onsets(combined, slot_mask)
     t = torch.arange(nsamples, device=device)
     rows = tt_dev[torch.from_numpy(idx).long().to(device)].long()
-    acc = torch.zeros(nsamples, dtype=torch.float32, device=device)
+    acc = torch.zeros(nsamples, dtype=onsets_log.dtype, device=device)
     for o in range(onsets_log.shape[0]):
         acc = acc + onsets_log[o][fsmp + rows[:, o] + t]
     return torch.exp(acc / available).cpu().numpy()
@@ -1447,14 +1467,16 @@ def m1_case(name, s, window, reps=20):
 
 
 class NoPlainOnCuda:
-    """Within the block, the plain versions that locate's CPU path calls
-    raise if they are given CUDA tensors."""
+    """Within the block, the plain versions that detect's and locate's CPU
+    paths call raise if they are given CUDA tensors."""
 
-    def __init__(self):
+    def __init__(self, label="archive_locate"):
         from quakemigrate_torch.ops import cuda_migrate as cm
         from quakemigrate_torch.signal import scan as scan_module
 
-        self.targets = [(scan_module, "migrate_detect"),
+        self.label = label
+        self.targets = [(scan_module, "detect_window"),
+                        (scan_module, "migrate_detect"),
                         (scan_module, "migrate_marginalise"),
                         (scan_module, "migrate_map"),
                         (cm, "detect_reduce_plan_reference"),
@@ -1466,8 +1488,10 @@ class NoPlainOnCuda:
         for (module, name), fn in zip(self.targets, self.saved):
             def guarded(*args, _fn=fn, _name=name, **kwargs):
                 check(not any(torch.is_tensor(a) and a.is_cuda
-                              for a in args),
-                      f"archive_locate: plain {_name} ran on CUDA tensors")
+                              for a in args
+                              + tuple(a for x in args if isinstance(x, tuple)
+                                      for a in x)),
+                      f"{self.label}: plain {_name} ran on CUDA tensors")
                 return _fn(*args, **kwargs)
             setattr(module, name, guarded)
         return self
@@ -3227,23 +3251,36 @@ def hold_windows(label, windows, results, tt_dev, device, fsmp, nsamples,
 
 
 def hold_to_cpu_run(label, root, scan, windows, start, first, coa_at_idx,
-                    cpu_scan):
+                    cpu_scan, n_windows=KURTOSIS_CPU_WINDOWS,
+                    rtol=MAX_COA_RTOL, rtol_n=MAX_COA_N_RTOL, block_rtol=0.0):
     """Hold ``scan``'s detect on the card to ``cpu_scan``, the same
     QuakeScan with device="cpu" (the plain window), run here over
-    KURTOSIS_CPU_WINDOWS windows from the card run's window ``first``
+    ``n_windows`` windows from the card run's window ``first``
     (``windows``: the card's (block, result) in order, from ``start``).
-    Checks: each window's block equal to the card's; max_coa within
-    MAX_COA_RTOL and max_coa_n within MAX_COA_N_RTOL of the CPU's; the
+    Checks: each window's block equal to the card's (within
+    ``block_rtol`` where the onsets were computed on each device, on the
+    standard path); max_coa within ``rtol`` and max_coa_n within
+    ``rtol_n`` of the CPU's (default MAX_COA_RTOL and MAX_COA_N_RTOL); the
     card's argmax the CPU's or tie-consistent (the CPU's plain coalescence
     at the card's node, ``coa_at_idx(block, idx, "cpu")``, within
-    MAX_COA_RTOL of the CPU's maximum); the .scanmseed over that span:
-    COA and COA_N within max(1 count, MAX_COA_RTOL of the value) of the
+    ``rtol`` of the CPU's maximum); the .scanmseed over that span:
+    COA and COA_N within max(1 count, ``rtol`` of the value) of the
     CPU's, the CPU tests' bound, X, Y and Z equal where the argmaxes
     are. Returns a record."""
 
     from quakemigrate_torch.seis import read
 
-    n = KURTOSIS_CPU_WINDOWS
+    def host(a):
+        return a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+
+    def block_equal(a, b):
+        a, b = host(a), host(b)
+        if not block_rtol:
+            return np.array_equal(a, b)
+        return a.shape == b.shape and np.allclose(a, b, rtol=block_rtol,
+                                                  atol=0)
+
+    n = n_windows
     cpu_start = start + first * ARCHIVE_TIMESTEP
     cpu_seen = {}
     cpu_scan.on_window = lambda i, block, result: cpu_seen.update(
@@ -3257,14 +3294,14 @@ def hold_to_cpu_run(label, root, scan, windows, start, first, coa_at_idx,
     for i in range(n):
         (block, res), (cpu_block, ref) = windows[first + i], cpu_seen[i]
         check(len(block) == len(cpu_block) and all(
-            np.array_equal(a, b) for a, b in zip(block, cpu_block)),
+            block_equal(a, b) for a, b in zip(block, cpu_block)),
             f"{label}: the CPU's window {i} is not the card's {first + i}")
         rel = np.abs(res[0] - ref[0]) / np.abs(ref[0])
         rel_n = np.abs(res[1] - ref[1]) / np.abs(ref[1])
         tie = np.abs(ref[0] - coa_at_idx(cpu_block, res[2], "cpu")) / np.abs(
             ref[0])
-        check(rel.max() <= MAX_COA_RTOL and rel_n.max() <= MAX_COA_N_RTOL
-              and tie.max() <= MAX_COA_RTOL,
+        check(rel.max() <= rtol and rel_n.max() <= rtol_n
+              and tie.max() <= rtol,
               f"{label} window {first + i} against the CPU's: max_coa "
               f"{rel.max()}, max_coa_n {rel_n.max()}, tie {tie.max()}")
         for key, x in (("max_coa", rel), ("max_coa_n", rel_n), ("tie", tie)):
@@ -3279,7 +3316,7 @@ def hold_to_cpu_run(label, root, scan, windows, start, first, coa_at_idx,
 
     card, cpu = traces(scan), traces(cpu_scan)
     counts = {}
-    for name, rtol in (("COA", MAX_COA_RTOL), ("COA_N", MAX_COA_RTOL),
+    for name, rtol in (("COA", rtol), ("COA_N", rtol),
                        ("X", None), ("Y", None), ("Z", None)):
         want = cpu[name].data.astype(np.int64)
         off = int(round((cpu[name].stats.starttime
@@ -3623,7 +3660,7 @@ def xla_icequake_path(device, tt, windows, n_windows=4):
     return record
 
 
-def span_path(device, span, kernel="auto", n_windows=2):
+def span_path(device, span, kernel="auto", n_windows=2, precision="single"):
     """A plan of the K3 route's toy geometry (tests/test_torch_scan_route.py:
     4 x 4 x 4 nodes, one station x P/S, one traveltime of ``span`` - 1
     samples) through DetectScan on detect_route's ``kernel`` route,
@@ -3632,10 +3669,16 @@ def span_path(device, span, kernel="auto", n_windows=2):
     logged with the others; at 15,000 with kernel="xla", K3 v2 on its
     one-block shape (GLOBAL_V2_WIDE_SHAPE). Each window launches the
     kernel once and nothing else and is held to the plain window and
-    exactly (:func:`hold_k3_windows`). Returns a record."""
+    exactly (:func:`hold_k3_windows`). With ``precision="double"`` the
+    blocks are float64 and the route's float64 form runs: at 15,000
+    samples K3 v2 f64's ring of doubles cannot hold the window, so K3 f64,
+    held to the plain window and to the plain float64 reduction within
+    DOUBLE_RTOL (:func:`hold_double_windows`). Returns a record."""
 
     from quakemigrate_torch.ops import cuda_migrate as cm
     from quakemigrate_torch.signal.scan import DetectScan, detect_route
+
+    double = precision == "double"
 
     node_count = (4, 4, 4)
     tt = np.zeros((int(np.prod(node_count)), 2), np.int32)
@@ -3646,14 +3689,19 @@ def span_path(device, span, kernel="auto", n_windows=2):
         tt, np.random.default_rng(2033), n_windows, plant_window=0,
         node_count=node_count, fsmp=fsmp, nsamples=nsamples, lsmp=lsmp,
         rate=F3_RATE, sta_lta=F3_STA_LTA)
-    route = detect_route(tt, node_count, device, kernel)
-    scan = DetectScan(tt, node_count, fsmp, lsmp, device=device, route=route)
+    dtype = torch.float64 if double else torch.float32
+    if double:
+        windows = [tuple(a.astype(np.float64) if a.dtype == np.float32
+                         else a for a in block) for block in windows]
+    route = detect_route(tt, node_count, device, kernel, precision)
+    scan = DetectScan(tt, node_count, fsmp, lsmp, device=device, route=route,
+                      dtype=dtype)
     detector = scan.detector(nsamples)
-    label = f"span {span}"
-    name = ("migrate_detect_global" if detector.tables is None
-            else "migrate_detect_global_v2")
+    label = f"span {span}" + (" double" if double else "")
+    name = cm.typed("migrate_detect_global" if detector.tables is None
+                    else "migrate_detect_global_v2", dtype)
     check(route[0] == "k3" and ((detector.tables is None)
-                                == ("K3 v2 (" in route[1])),
+                                == ("K3 v2" in route[1])),
           f"{label}: route {route[0]} ({route[1]})")
     torch.cuda.synchronize()
     cm.reset_launches()
@@ -3667,8 +3715,9 @@ def span_path(device, span, kernel="auto", n_windows=2):
         label, windows, results, tt_dev, device, fsmp, nsamples,
         lambda b: plain_window(b, tt_dev, device, fsmp, nsamples),
         lambda b, idx: plain_coa_at(b, tt_dev, idx, device, fsmp, nsamples))
-    exact = hold_k3_windows(label, detector, windows, results, tt_dev,
-                            device)
+    exact = (hold_double_windows(label, scan, windows, results) if double
+             else hold_k3_windows(label, detector, windows, results, tt_dev,
+                                  device))
     shape = None if detector.layout is None else list(detector.layout.shape)
     print(f"{label}: route {route[0]} ({route[1]}); {name}, shape {shape}; "
           f"launches {launches}")
@@ -3713,7 +3762,6 @@ def kurtosis_detect_path(device, root, lut, archive, planted, origin, start,
 
     from quakemigrate_torch.io import read_scanmseed, read_triggered_events
     from quakemigrate_torch.ops import cuda_migrate as cm
-    from quakemigrate_torch.ops.migrate import _prepare_onsets
     from quakemigrate_torch.ops.scan_window import (
         detect_window_fused_kurtosis,
         fused_kurtosis_onsets,
@@ -3756,21 +3804,7 @@ def kurtosis_detect_path(device, root, lut, archive, planted, origin, start,
             *on_card(block), tt_dev, nsmooth, taper_pad, min_onset, fsmp,
             nsamples)
 
-    def coa_at_idx(block, idx, dev=device):
-        """The plain coalescence at node ``idx[s]`` for each scan sample s,
-        computed on ``dev``."""
-
-        tensors = [torch.from_numpy(a).to(dev) for a in block]
-        combined, available = fused_kurtosis_onsets(
-            *tensors, nsmooth, taper_pad, min_onset)
-        onsets_log = _prepare_onsets(combined, tensors[2])
-        tt_on = torch.from_numpy(detect_scan.traveltimes).to(dev)
-        rows = tt_on[torch.from_numpy(idx).long().to(dev)].long()
-        t = torch.arange(nsamples, device=dev)
-        acc = torch.zeros(nsamples, dtype=torch.float32, device=dev)
-        for o in range(onsets_log.shape[0]):
-            acc = acc + onsets_log[o][fsmp + rows[:, o] + t]
-        return torch.exp(acc / available).cpu().numpy()
+    coa_at_idx = coa_at_for(scan)
 
     order = sorted(seen)
     blocks = [seen[i][0] for i in order]
@@ -3968,6 +4002,518 @@ def kurtosis_decimate_path(device):
         dec = decimate_detect_path(device, root, lut, archive, planted,
                                    start, end)
     return kurt, dec
+
+
+# double_path and standard_path: detect over DOUBLE_SPAN_S seconds about the
+# planted event of an archive_detect workspace (windows of 2.5 s), the
+# device="cpu" run held to it over CPU_HOLD_WINDOWS windows from the one
+# before the planted window (the plain window over 259,008 nodes, ~10 s a
+# window on the host); float64 against float64 within DOUBLE_RTOL (the
+# kernels multiply by 1 / available where the plain version divides, and
+# sum the tiles in another order: ~1e-15 in a CPU rehearsal), the
+# standard path's onsets on the card against the CPU's within
+# STANDARD_ONSET_RTOL (float64 ops on two devices, cast to float32)
+DOUBLE_SPAN_S = 10.0
+CPU_HOLD_WINDOWS = 2
+DOUBLE_RTOL = 1e-12
+STANDARD_ONSET_RTOL = 1e-6
+
+
+def block_tensors(block, device):
+    """A detect window's block (numpy arrays or tensors) as tensors on
+    ``device``."""
+
+    return [(a if torch.is_tensor(a) else torch.from_numpy(
+        np.ascontiguousarray(a))).to(device) for a in block]
+
+
+def coa_at_for(scan):
+    """``coa_at_idx(block, idx, device)`` of a QuakeScan's detect windows:
+    the plain coalescence of the block (its DetectScan's front end, in the
+    block's type) at node ``idx[t]`` for each scan sample t, on
+    ``device`` (the scan's where None)."""
+
+    from quakemigrate_torch.ops.migrate import _prepare_onsets
+
+    ds = scan.detect_scan
+    nsamples = int(round(scan.timestep * scan.scan_rate))
+
+    def coa_at_idx(block, idx, dev=None):
+        dev = ds.device if dev is None else dev
+        tensors = block_tensors(block, dev)
+        combined, available = ds.front_end(*tensors)
+        onsets_log = _prepare_onsets(combined, tensors[2])
+        tt = torch.from_numpy(ds.traveltimes).to(dev)
+        rows = tt[torch.from_numpy(np.asarray(idx)).long().to(dev)].long()
+        t = torch.arange(nsamples, device=dev)
+        acc = torch.zeros(nsamples, dtype=onsets_log.dtype, device=dev)
+        for o in range(onsets_log.shape[0]):
+            acc = acc + onsets_log[o][ds.fsmp + rows[:, o] + t]
+        return torch.exp(acc / available).cpu().numpy()
+    return coa_at_idx
+
+
+def window_case(scan, block):
+    """exp_double's case of one detect window of ``scan`` (the block's
+    combined onsets in float64 on the card, the plan of the scan's
+    traveltimes), for the float64 kernels' holds, turns and bounds."""
+
+    from quakemigrate_torch.experiments import exp_double
+
+    ds = scan.detect_scan
+    tensors = block_tensors(block, ds.device)
+    combined, _ = ds.front_end(*tensors)
+    mask = tensors[2].cpu().numpy()
+    s = exp_double.setup(ds.traveltimes, ds.node_count, ds.fsmp,
+                         int(round(scan.timestep * scan.scan_rate)),
+                         ds.device, onsets=combined.double().cpu().numpy(),
+                         n_masked=0)
+    s.mask = torch.from_numpy(mask.astype(np.float64)).to(ds.device)
+    s.available = float(mask.sum())
+    for dtype, det in s.det.items():
+        s.prepared[dtype] = det.prepare(s.onsets.to(dtype), s.mask.to(dtype),
+                                        s.available)
+    return s
+
+
+def hold_double_windows(label, scan, windows, results):
+    """Each float64 window's kernel held on the card (K3 v2 f64, or K3 f64
+    where its ring refuses the plan): the DetectScan's detector on the
+    window's prepared onsets against the plain float64 ``detect_reduce``
+    (exp_double.hold_detect: max and sum within DOUBLE_RTOL, the argmax
+    equal or tie-consistent), and the scan's max_coa and max_idx equal to
+    that launch's. These launches come after the path's counts were
+    read. ``scan`` is a DetectScan or a QuakeScan. Returns a record."""
+
+    from types import SimpleNamespace as NS
+
+    from quakemigrate_torch.experiments import exp_double
+
+    ds = getattr(scan, "detect_scan", scan)
+    rec = {"max": 0.0, "sum": 0.0, "tie": 0.0, "max_abs_err": 0.0,
+           "argmax_equal": 1.0, "scan_equal": True}
+    for w, (block, res) in enumerate(zip(windows, results)):
+        tensors = block_tensors(block, ds.device)
+        combined, available = ds.front_end(*tensors)
+        nsamples = res[0].shape[0]
+        detector = ds.detector(nsamples)
+        onsets_log, inv = detector.prepare(combined, tensors[2], available)
+        got = detector.reduce_log(onsets_log, inv)
+        s = NS(onsets=combined.double(), mask=tensors[2].double(),
+               available=float(tensors[2].sum()), device=ds.device,
+               tt_dev=torch.from_numpy(ds.traveltimes).to(ds.device),
+               fsmp=ds.fsmp, nsamples=nsamples, plan=ds._plan)
+        held = exp_double.hold_detect(s, got)
+        scan_equal = (np.array_equal(res[0], got[0].cpu().numpy())
+                      and np.array_equal(res[2], got[1].cpu().numpy()))
+        check(held["ok"] and held["max"] <= DOUBLE_RTOL and scan_equal,
+              f"{label} window {w}: {held}, the scan's result equal to the "
+              f"kernel's {scan_equal}")
+        for key in ("max", "sum", "tie", "max_abs_err"):
+            rec[key] = max(rec[key], held[key])
+        rec["argmax_equal"] = min(rec["argmax_equal"], held["argmax_equal"])
+        rec["scan_equal"] = rec["scan_equal"] and scan_equal
+    print(f"{label}: every float64 window's kernel against the plain "
+          f"float64 version: {rec}")
+    return rec
+
+
+def event_text(run_dir):
+    """The header and rows of the run's one .event file (csv)."""
+
+    import csv
+
+    files = sorted((run_dir / "locate" / "events").glob("*.event"))
+    check(len(files) == 1, f"{run_dir.name}: .event files {files}")
+    with open(files[0], newline="") as f:
+        return list(csv.reader(f)), files[0].read_bytes()
+
+
+def hold_event(label, card_dir, cpu_dir):
+    """The card run's .event against the CPU run's: the same header and
+    text fields, each number within one unit of the CPU's last written
+    digit. Returns whether the files are equal byte for byte."""
+
+    (got, got_bytes), (want, want_bytes) = (event_text(card_dir),
+                                            event_text(cpu_dir))
+    check(got[0] == want[0] and len(got) == len(want) == 2,
+          f"{label}: .event header or rows differ")
+    for name, a, b in zip(want[0], got[1], want[1]):
+        try:
+            x, y = float(a), float(b)
+        except ValueError:
+            check(a == b, f"{label}: .event {name} {a} against {b}")
+            continue
+        mantissa, _, exponent = b.lower().partition("e")
+        unit = 10.0 ** (-len(mantissa.partition(".")[2])
+                        + (int(exponent) if exponent else 0))
+        check(abs(x - y) <= unit * (1 + 1e-9),
+              f"{label}: .event {name} {a} against the CPU's {b}")
+    return got_bytes == want_bytes
+
+
+def npy_of(run_dir, kind):
+    files = sorted((run_dir / "locate" / kind).glob("*.npy"))
+    check(len(files) == 1, f"{run_dir.name}: {kind} {files}")
+    return np.load(files[0])
+
+
+def detect_and_hold(device, root, label, make_scan, start, end, planted,
+                    route, kernel, block_rtol=0.0, rtol=MAX_COA_RTOL,
+                    rtol_n=MAX_COA_N_RTOL):
+    """QuakeScan.detect over [start, end) on the card with the scan that
+    ``make_scan(name, device)`` builds (no plain window on a CUDA tensor):
+    its route ``route``, ``kernel`` (a key of cuda_migrate.launches)
+    launched once a window and nothing else; then held to the same
+    detect with device="cpu" over CPU_HOLD_WINDOWS windows from the one
+    before the planted window (:func:`hold_to_cpu_run`), and the
+    planted window's peak within one node of the planted source. Returns
+    (scan, record, the card's (block, result) by window)."""
+
+    from quakemigrate_torch.ops import cuda_migrate as cm
+
+    scan = make_scan(label, device)
+    seen = {}
+    scan.on_window = lambda i, block, result: seen.update(
+        {i: (block, result)})
+    torch.cuda.synchronize()
+    cm.reset_launches()
+    with NoPlainOnCuda(label):
+        _, wall = quiet(root, label, lambda: scan.detect(start, end))
+    torch.cuda.synchronize()
+    launches = dict(cm.launches)
+    ds = scan.detect_scan
+    n_windows = len(seen)
+    check(ds.route == route and n_windows == round(
+        DOUBLE_SPAN_S / ARCHIVE_TIMESTEP) and launches[kernel] == n_windows
+        and sum(launches.values()) == n_windows,
+        f"{label}: route {ds.route} ({ds.route_reason}), {n_windows} "
+        f"windows, launches {launches}")
+    order = sorted(seen)
+    windows = [seen[i] for i in order]
+    peaks = [float(res[0].max()) for _, res in windows]
+    planted_window = int(np.argmax(peaks))
+    _, res = windows[planted_window]
+    ijk = res[3][int(np.argmax(res[0]))]
+    dist = int(np.abs(ijk - planted).max())
+    check(dist <= 1, f"{label}: peak {dist} nodes from the planted source")
+    first = min(max(planted_window - 1, 0), n_windows - CPU_HOLD_WINDOWS)
+    cpu_run = hold_to_cpu_run(
+        label, root, scan, windows, start, first, coa_at_for(scan),
+        make_scan(f"{label}_cpu", "cpu"), n_windows=CPU_HOLD_WINDOWS,
+        rtol=rtol, rtol_n=rtol_n, block_rtol=block_rtol)
+    record = {"route": ds.route, "route_reason": ds.route_reason,
+              "windows": n_windows, "launches": launches, "wall_s": wall,
+              "window_ms": list(ds.window_ms), "cpu_run": cpu_run,
+              "peak_node_distance": dist, "planted_window": planted_window}
+    print(f"{label}: detect on the card {wall:.3f} s wall, route {ds.route} "
+          f"({ds.route_reason}); launches {launches}; planted window "
+          f"{planted_window}, peak {dist} nodes from the planted source")
+    return scan, record, windows
+
+
+def trigger_one(root, scan, lut, start, end, origin, label):
+    """Trigger over the scan's run (the example's settings): exactly the
+    planted event. Returns the trigger file."""
+
+    from quakemigrate_torch.io import read_triggered_events
+    from quakemigrate_torch.signal import Trigger
+
+    runs, run_name = scan.run.path.parent, scan.run.name
+    trig = Trigger(lut, run_path=str(runs), run_name=run_name,
+                   marginal_window=LOCATE_MARGINAL_WINDOW,
+                   min_event_interval=LOCATE_MIN_EVENT_INTERVAL,
+                   normalise_coalescence=True, threshold_method="static",
+                   static_threshold=LOCATE_THRESHOLD)
+    quiet(root, f"{label}_trigger", lambda: trig.trigger(start, end))
+    events = read_triggered_events(scan.run, starttime=start, endtime=end)
+    check(len(events) == 1 and abs(events["CoaTime"][0] - origin)
+          < LOCATE_MARGINAL_WINDOW,
+          f"{label}: triggered {[str(t) for t in events['CoaTime']]}")
+    return (scan.run.path / "trigger" / "events"
+            / f"{run_name}_{start.year}_{start.julday:03d}"
+            "_TriggeredEvents.csv")
+
+
+def locate_card_and_cpu(root, label, make_scan, trigger_file, kernels,
+                        planted, lut, **options):
+    """QuakeScan.locate of ``trigger_file``'s event on the card (the
+    scan ``make_scan(name, device, **options)`` builds; no plain version
+    on a CUDA tensor; launches exactly ``kernels``, {name: count}) and
+    the same with device="cpu"; the .event held (:func:`hold_event`),
+    the hypocentre within one node of the planted source. Returns
+    (card run dir, CPU run dir, the card's event, record)."""
+
+    from quakemigrate_torch.ops import cuda_migrate as cm
+
+    scan = make_scan(label, "cuda", **options)
+    seen = []
+    scan.on_event = lambda event, pass1, handle: seen.append(event)
+    torch.cuda.synchronize()
+    cm.reset_launches()
+    with NoPlainOnCuda(label):
+        _, wall = quiet(root, label, lambda: scan.locate(
+            trigger_file=str(trigger_file)))
+    torch.cuda.synchronize()
+    launches = dict(cm.launches)
+    check(len(seen) == 1 and launches == {**{k: 0 for k in launches},
+                                          **kernels},
+          f"{label}: {len(seen)} events, route {scan.locate_route}, "
+          f"launches {launches}")
+    cpu = make_scan(f"{label}_cpu", "cpu", **options)
+    _, cpu_wall = quiet(root, f"{label}_cpu", lambda: cpu.locate(
+        trigger_file=str(trigger_file)))
+    node = lut.index2coord([seen[0].hypocentre], inverse=True)[0]
+    dist = int(np.abs(node - planted).max())
+    check(dist <= 1, f"{label}: located {dist} nodes from the planted source")
+    equal = hold_event(label, scan.run.path, cpu.run.path)
+    record = {"route": scan.locate_route, "launches": {
+        k: v for k, v in launches.items() if v}, "wall_s": wall,
+        "cpu_wall_s": cpu_wall, "node_distance": dist,
+        "event_byte_equal": equal}
+    print(f"{label}: locate on the card {wall:.3f} s, on the CPU "
+          f"{cpu_wall:.3f} s; route {scan.locate_route}, launches "
+          f"{record['launches']}, {dist} nodes from the planted source, "
+          f".event byte-equal to the CPU's {equal}")
+    return scan.run.path, cpu.run.path, seen[0], record
+
+
+def double_path(device, root, lut, archive, planted, origin, start, end):
+    """double_path: QuakeScan(precision="double") on the card over the
+    Icequake workspace: detect (the fused STA/LTA window in float64, the
+    "k3" route's K3 v2 f64 once a window and nothing else; each window's
+    kernel held to the plain float64 reduction within DOUBLE_RTOL and the
+    .scanmseed to the device="cpu" float64 run: one count, X/Y/Z equal
+    where the argmaxes are), Trigger (exactly the planted event), locate
+    two-pass (K3 v2 f64 and M1 f64 once each) and on the map path (M2
+    simple f64 once), each against the same locate on the CPU in float64:
+    the .event within a digit, the marginal map and the 4-D map within
+    DOUBLE_RTOL. Then each float64 kernel at the main path's shapes (the
+    planted window's onsets; locate's) held to its plain version and timed
+    in turns with its float32 form (exp_double). Returns a record."""
+
+    from quakemigrate_torch.experiments import exp_double
+    from quakemigrate_torch.signal.scan import QuakeScan
+
+    def make(name, dev, **options):
+        return QuakeScan(archive, lut, archive_onset(), str(root / "runs"),
+                         name, device=dev, timestep=ARCHIVE_TIMESTEP,
+                         marginal_window=LOCATE_MARGINAL_WINDOW,
+                         precision="double", **options)
+
+    scan, record, windows = detect_and_hold(
+        device, root, "double_detect", make, start, end, planted, "k3",
+        "migrate_detect_global_v2_f64", rtol=DOUBLE_RTOL,
+        rtol_n=DOUBLE_RTOL)
+    check(scan.detect_scan.route_reason == "precision='double'"
+          and windows[0][0][0].dtype == np.float64,
+          f"double_detect: {scan.detect_scan.route_reason}, blocks "
+          f"{windows[0][0][0].dtype}")
+    record["exact"] = hold_double_windows(
+        "double_detect", scan, [b for b, _ in windows],
+        [r for _, r in windows])
+    trigger_file = trigger_one(root, scan, lut, start, end, origin,
+                               "double_detect")
+    two_card, two_cpu, event, record["two_pass"] = locate_card_and_cpu(
+        root, "double_locate", make, trigger_file,
+        {"migrate_detect_global_v2_f64": 1, "migrate_marginalise_f64": 1},
+        planted, lut, write_marginal_coalescence=True)
+    marg = [npy_of(d, "marginalised_coalescence_maps")
+            for d in (two_card, two_cpu)]
+    record["two_pass"]["marginal_map_err"] = float(
+        np.abs(marg[0] - marg[1]).max() / np.abs(marg[1]).max())
+    map_card, map_cpu, map_event, record["map_path"] = locate_card_and_cpu(
+        root, "double_map", make, trigger_file, {"migrate_map_f64": 1},
+        planted, lut, write_coalescence=True)
+    maps = [npy_of(d, "coalescence_maps") for d in (map_card, map_cpu)]
+    record["map_path"]["map_rel_err"] = float(
+        (np.abs(maps[0] - maps[1]) / np.abs(maps[1])).max())
+    check(maps[0].dtype == np.float64 and marg[0].dtype == np.float64
+          and record["map_path"]["map_rel_err"] <= DOUBLE_RTOL
+          and record["two_pass"]["marginal_map_err"] <= DOUBLE_RTOL,
+          f"double_path: maps against the CPU's {record['map_path']}, "
+          f"{record['two_pass']}")
+    del maps, marg
+    print(f"double_path: the marginal map within "
+          f"{record['two_pass']['marginal_map_err']:.2e} of the CPU's, the "
+          f"4-D map {record['map_path']['map_rel_err']:.2e}")
+
+    # The float64 kernels at the main path's shapes, held and timed in
+    # turns with their float32 forms on the same inputs
+    s = window_case(scan, windows[record["planted_window"]][0])
+    record["k3_case"] = exp_double.detect_case(s, "double k3 at the window")
+    del s
+    inp = event._marginalise_inputs
+    i0, i1 = event.trim_bounds
+    s = exp_double.setup(scan._traveltime_table(), tuple(lut.node_count),
+                         inp["fsmp"], inp["nsamples"], device,
+                         onsets=inp["block"].cpu().numpy(), n_masked=0)
+    s.mask, s.available = inp["mask"].double(), float(inp["available"])
+    for dtype, det in s.det.items():
+        s.prepared[dtype] = det.prepare(s.onsets.to(dtype), s.mask.to(dtype),
+                                        s.available)
+    record["m1_case"] = exp_double.marginalise_case(s, i0, i1 - i0)
+    record["m2_case"] = exp_double.map_case(s)
+    for key in ("k3_case", "m1_case", "m2_case"):
+        check(record[key]["ok"], f"double_path: {key} does not hold")
+    return record
+
+
+def custom_onset_class():
+    """A user's Onset subclass with only calculate_onsets (the reference's
+    one abstract method): per phase the port's pre-processing (the
+    Icequake example's bandpass), then in numpy a classic STA/LTA of each
+    trace's energy at the example's windows, the RMS of a station's
+    channels, clipped at 0.4; numpy onsets, no ``rows``."""
+
+    from quakemigrate_torch.signal.onsets import Onset, OnsetData, pre_process
+
+    class EnergyRatioOnset(Onset):
+        phases = ["P", "S"]
+        channel_maps = {"P": "*Z", "S": "*[N,E,1,2]"}
+        channel_counts = {"P": 1, "S": 2}
+        bandpass = [10, 124, 4]
+
+        def __init__(self, **kwargs):
+            super().__init__(**kwargs)
+            self._post = 0.0
+
+        @property
+        def pre_pad(self):
+            return STA_LTA["S"][1] + 3 * STA_LTA["S"][0]
+
+        @pre_pad.setter
+        def pre_pad(self, value):
+            pass
+
+        @property
+        def post_pad(self):
+            return self._post
+
+        @post_pad.setter
+        def post_pad(self, ttmax):
+            self._post = np.ceil(ttmax + 2 * STA_LTA["S"][1])
+
+        def gaussian_halfwidth(self, phase):
+            return STA_LTA[phase][0] * self.sampling_rate / 2
+
+        def calculate_onsets(self, data, timespan=None, **kwargs):
+            rate = self.sampling_rate
+            t_len = int(round((data.endtime - data.starttime) * rate)) + 1
+            rows, onsets, availability, filtered = [], {}, {}, None
+            for phase in self.phases:
+                nsta, nlta = (int(w * rate) + 1 for w in STA_LTA[phase])
+                conditioned = pre_process(
+                    data.waveforms.select(channel=self.channel_maps[phase]),
+                    rate, data.resample, data.upfactor, self.bandpass,
+                    data.starttime, data.endtime)
+                filtered = (conditioned if filtered is None
+                            else filtered + conditioned)
+                for station in data.stations:
+                    traces = [np.asarray(tr.data, np.float64) for tr in
+                              conditioned.select(station=station)]
+                    ok = (len(traces) == self.channel_counts[phase]
+                          and all(len(x) == t_len for x in traces))
+                    availability[f"{station}_{phase}"] = int(ok)
+                    if not ok:
+                        continue
+                    csum = np.concatenate(
+                        [np.zeros((len(traces), 1)),
+                         np.cumsum(np.stack(traces) ** 2, axis=1)], axis=1)
+                    sta = (csum[:, nsta:] - csum[:, :-nsta]) / nsta
+                    lta = (csum[:, nlta:] - csum[:, :-nlta]) / nlta
+                    ratio = np.ones((len(traces), t_len))
+                    ratio[:, nlta - 1:] = (sta[:, nlta - nsta:]
+                                           / np.maximum(lta, 1e-300))
+                    row = np.maximum(np.sqrt((ratio ** 2).mean(axis=0)), 0.4)
+                    rows.append(row)
+                    onsets.setdefault(station, {})[phase] = row
+            return np.stack(rows), OnsetData(
+                onsets, self.phases, self.channel_maps, filtered,
+                availability, data.starttime, data.endtime, rate)
+
+    return EnergyRatioOnset
+
+
+def standard_path(device, root, lut, archive, planted, origin, start, end):
+    """standard_path: the reference's standard detect path on the card
+    over the Icequake workspace, in float32 (its onsets from
+    calculate_onsets, cast to float32 in the canonical slot layout, on
+    the detect route's K1 v2): a user's Onset subclass defined here
+    (numpy onsets from calculate_onsets only) through detect, Trigger and
+    locate; ``fused_detect=False`` with the example's STALTAOnset; and
+    ``ClassicSTALTAOnset``. Each reports its route, launches K1 v2 once a
+    window and nothing else, and is held to the same run on the CPU
+    (:func:`detect_and_hold`; the custom onset's locate too, K1 v2 and M1
+    v2 once each). Returns a record."""
+
+    from quakemigrate_torch.signal.onsets import ClassicSTALTAOnset
+    from quakemigrate_torch.signal.scan import QuakeScan
+
+    custom = custom_onset_class()
+
+    def classic():
+        onset = ClassicSTALTAOnset(sampling_rate=RATE)
+        onset.bandpass_filters = {"P": [10, 124, 4], "S": [10, 124, 4]}
+        onset.sta_lta_windows = {p: list(w) for p, w in STA_LTA.items()}
+        return onset
+
+    variants = {
+        "custom": (lambda: custom(sampling_rate=RATE), {}, 0.0),
+        "unfused": (archive_onset, {"fused_detect": False},
+                    STANDARD_ONSET_RTOL),
+        "classic": (classic, {}, STANDARD_ONSET_RTOL),
+    }
+    record = {}
+    for name, (onset_of, options, block_rtol) in variants.items():
+        def make(run, dev, onset_of=onset_of, options=options, **extra):
+            return QuakeScan(archive, lut, onset_of(), str(root / "runs"),
+                             run, device=dev, timestep=ARCHIVE_TIMESTEP,
+                             marginal_window=LOCATE_MARGINAL_WINDOW,
+                             **options, **extra)
+
+        label = f"standard_{name}"
+        scan, rec, _ = detect_and_hold(
+            device, root, label, make, start, end, planted, "k1_v2",
+            "migrate_detect_v2", block_rtol=block_rtol)
+        check(not scan._fused_active, f"{label}: took the fused window")
+        if name == "custom":
+            trigger_file = trigger_one(root, scan, lut, start, end, origin,
+                                       label)
+            *_, rec["locate"] = locate_card_and_cpu(
+                root, f"{label}_locate", make, trigger_file,
+                {"migrate_detect_v2": 1, "migrate_marginalise_v2": 1},
+                planted, lut)
+        record[name] = rec
+    return record
+
+
+def double_standard_paths(device):
+    """double_path and standard_path (:func:`double_path`,
+    :func:`standard_path`) on one synthetic Icequake workspace
+    (:func:`archive_workspace`) in a temporary directory, over
+    DOUBLE_SPAN_S seconds about its planted event. Returns their
+    records."""
+
+    import tempfile
+
+    from quakemigrate_torch.io import Archive
+    from quakemigrate_torch.seis import UTCDateTime
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        lut, stations, archive_path, planted, _, origin = (
+            archive_workspace(root))
+        archive = Archive(archive_path, stations,
+                          archive_format="YEAR/JD/STATION")
+        start = (UTCDateTime(ARCHIVE_START) + ARCHIVE_SPAN_S
+                 - DOUBLE_SPAN_S / 2)
+        end = start + DOUBLE_SPAN_S
+        double = double_path(device, root, lut, archive, planted, origin,
+                             start, end)
+        standard = standard_path(device, root, lut, archive, planted,
+                                 origin, start, end)
+    return double, standard
 
 
 def rel_err(got, ref):
@@ -4291,10 +4837,15 @@ def main():
     xla_record = xla_icequake_path(device, tt, windows)
     wide_record = span_path(device, 32_769)
     mid_record = span_path(device, 15_000, kernel="xla")
+    wide_double = span_path(device, 15_000, precision="double")
     check(wide_record["kernel"] == "migrate_detect_global"
-          and mid_record["shape"] == [16, 16],
-          f"span paths: {wide_record['kernel']}, {mid_record['shape']}")
+          and mid_record["shape"] == [16, 16]
+          and wide_double["kernel"] == "migrate_detect_global_f64",
+          f"span paths: {wide_record['kernel']}, {mid_record['shape']}, "
+          f"{wide_double['kernel']}")
     kurtosis_record, decimate_record = kurtosis_decimate_path(device)
+    torch.cuda.empty_cache()
+    double_record, standard_record = double_standard_paths(device)
     torch.cuda.empty_cache()
 
     checks = breakdown_checks(device)
@@ -4409,6 +4960,9 @@ def main():
         "day": v2_day,
         "kurtosis_detect": kurtosis_record,
         "decimate_detect": decimate_record,
+        # the reference's standard detect path (standard_path): a user's
+        # onset, fused_detect=False and ClassicSTALTAOnset on K1 v2
+        "standard_path": standard_record,
     }, {
         "name": "migrate_detect_vpu",
         "route": "cuda",
@@ -4858,7 +5412,7 @@ def main():
         "bound_by": f3_record["k3"]["bound_by"],
         "smem_bound_ms": f3_record["k3"]["smem_bound_ms"],
         "library_ms": None,
-        "resources": _build_resources("qm_migrate_detect_global"),
+        "resources": _build_resources("qm_migrate_detect_global_kernelIf"),
         "xla_icequake_ms": xla_record["k3_ms"],
         "wide_span": wide_record,
     }, {
@@ -4882,6 +5436,95 @@ def main():
                if k not in ("m1", "map", "k3")},
         "xla_icequake": xla_record,
         "mid_span": mid_record,
+    }]
+    k3_case = double_record["k3_case"]
+    m1_case, m2_case = double_record["m1_case"], double_record["m2_case"]
+    double_launches = double_record["launches"]
+    kernels += [{
+        "name": "migrate_detect_global_v2_f64",
+        "route": "cuda",
+        "source": "quakemigrate_torch/csrc/migrate_detect_global_v2.cu",
+        "replaces": "quakemigrate_tpu/ops/migrate.py:124",
+        # the main path: QuakeScan(precision="double").detect over the
+        # archive (double_path), and its locate's pass 1
+        "launches": (double_launches["migrate_detect_global_v2_f64"]
+                     + double_record["two_pass"]["launches"][
+                         "migrate_detect_global_v2_f64"]),
+        "max_abs_err": max(double_record["exact"]["max_abs_err"],
+                           k3_case["k3_v2_f64"]["max_abs_err"]),
+        "max_rel_err": max(double_record["exact"]["max"],
+                           k3_case["k3_v2_f64"]["max"]),
+        "ms": k3_case["ms"]["k3_v2_f64"],
+        "f32_ms": k3_case["ms"]["k3_v2"],
+        "turns_ms": k3_case["turns_ms"],
+        "plain_ms": k3_case["plain_ms"],
+        **k3_case["k3_v2_f64_bound"],
+        "library_ms": None,
+        "f32_bound_ms": k3_case["k3_v2_bound"]["bound_ms"],
+        "layout": k3_case["layout"],
+        "blocks_per_sm": k3_case["blocks_per_sm"],
+        **k3_case["k3_v2_f64_resources"],
+        "double_path": {k: v for k, v in double_record.items()
+                        if k not in ("k3_case", "m1_case", "m2_case")},
+    }, {
+        "name": "migrate_detect_global_f64",
+        "route": "cuda",
+        "source": "quakemigrate_torch/csrc/migrate_detect_global.cu",
+        "replaces": "quakemigrate_tpu/ops/migrate.py:124",
+        # its path: DetectScan's k3 route in float64 on a plan too wide for
+        # K3 v2 f64's ring (span_path at 15,000 samples); timed at the
+        # double_path window in turns with K3
+        "launches": wide_double["launches"],
+        "max_abs_err": max(wide_double["exact"]["max_abs_err"],
+                           k3_case["k3_f64"]["max_abs_err"]),
+        "max_rel_err": max(wide_double["exact"]["max"],
+                           k3_case["k3_f64"]["max"]),
+        "ms": k3_case["ms"]["k3_f64"],
+        "f32_ms": k3_case["ms"]["k3"],
+        "plain_ms": k3_case["plain_ms"],
+        **k3_case["k3_f64_bound"],
+        "library_ms": None,
+        "f32_bound_ms": k3_case["k3_bound"]["bound_ms"],
+        **k3_case["k3_f64_resources"],
+        "wide_span": wide_double,
+    }, {
+        "name": "migrate_marginalise_f64",
+        "route": "cuda",
+        "source": "quakemigrate_torch/csrc/migrate_marginalise.cu",
+        "replaces": "quakemigrate_tpu/ops/migrate.py:291",
+        # the main path: QuakeScan(precision="double").locate, pass 2
+        "launches": double_record["two_pass"]["launches"][
+            "migrate_marginalise_f64"],
+        "max_abs_err": m1_case["max_abs_err"],
+        "err_of_max": m1_case["err_of_max"],
+        "ms": m1_case["ms"]["m1_f64"],
+        "f32_ms": m1_case["ms"]["m1"],
+        "turns_ms": m1_case["turns_ms"],
+        "plain_ms": m1_case["plain_ms"],
+        **m1_case["m1_f64_bound"],
+        "library_ms": None,
+        "f32_bound_ms": m1_case["m1_bound"]["bound_ms"],
+        "window": m1_case["window"],
+        **m1_case["resources"],
+    }, {
+        "name": "migrate_map_f64",
+        "route": "cuda",
+        "source": "quakemigrate_torch/csrc/migrate_marginalise.cu",
+        "replaces": "quakemigrate_tpu/ops/migrate.py:264",
+        # the main path: QuakeScan(precision="double",
+        # write_coalescence=True).locate, the map path
+        "launches": double_record["map_path"]["launches"]["migrate_map_f64"],
+        "max_abs_err": m2_case["max_abs_err"],
+        "max_rel_err": m2_case["max_rel_err"],
+        "ms": m2_case["ms"]["m2_simple_f64"],
+        "f32_ms": m2_case["ms"]["m2_simple"],
+        "turns_ms": m2_case["turns_ms"],
+        "plain_ms": m2_case["plain_ms"],
+        **m2_case["m2_simple_f64_bound"],
+        "library_ms": None,
+        "f32_bound_ms": m2_case["m2_simple_bound"]["bound_ms"],
+        "nsamples": m2_case["nsamples"],
+        **m2_case["resources"],
     }]
     r1_main = next(c for c in r1_record["cases"]
                    if c["shape"] == list(R1_CASES[-1][0])

@@ -128,7 +128,11 @@ SIGNATURES = {
         + [_INT] * 6 + [_VOID_P]
     ),
     # L, t_len, tt, inv_available, outs, n_nodes, O, tile, fsmp, S, stream
+    # (float32, and float64 for precision="double")
     "qm_migrate_detect_global": (
+        [_VOID_P, _INT, _VOID_P, _VOID_P] + _OUTS + [_INT] * 5 + [_VOID_P]
+    ),
+    "qm_migrate_detect_global_f64": (
         [_VOID_P, _INT, _VOID_P, _VOID_P] + _OUTS + [_INT] * 5 + [_VOID_P]
     ),
     # L, ld, base, res, flat, win, inv_available, outs, O, tiles, fsmp,
@@ -136,9 +140,15 @@ SIGNATURES = {
     "qm_migrate_detect_global_v2": (
         [_VOID_P, _INT] + [_VOID_P] * 5 + _OUTS + [_INT] * 9 + [_VOID_P]
     ),
+    "qm_migrate_detect_global_v2_f64": (
+        [_VOID_P, _INT] + [_VOID_P] * 5 + _OUTS + [_INT] * 9 + [_VOID_P]
+    ),
     # L, t_len, base, fine, valid, perm, inv_available, out, partial,
     # partial_rows, n_nodes, O, tiles, tile, col0, len, stream
     "qm_migrate_marginalise": (
+        [_VOID_P, _INT] + [_VOID_P] * 7 + [_INT] * 7 + [_VOID_P]
+    ),
+    "qm_migrate_marginalise_f64": (
         [_VOID_P, _INT] + [_VOID_P] * 7 + [_INT] * 7 + [_VOID_P]
     ),
     # L, t_len, base, fine16, valid, perm, inv_available, span_off, out,
@@ -150,6 +160,9 @@ SIGNATURES = {
     # L, t_len, base, fine, valid, perm, inv_available, map, O, tiles,
     # tile, col0, S, stream
     "qm_migrate_map": [_VOID_P, _INT] + [_VOID_P] * 6 + [_INT] * 5 + [_VOID_P],
+    "qm_migrate_map_f64": (
+        [_VOID_P, _INT] + [_VOID_P] * 6 + [_INT] * 5 + [_VOID_P]
+    ),
     # L, t_len, base, fine16, valid, perm, inv_available, span_off, map,
     # O, tiles, tile, col0, S, win_floats, stream
     "qm_migrate_map_v2": (
@@ -170,6 +183,7 @@ SIGNATURES = {
     "qm_migrate_detect_vpu_v2_blocks_per_sm": [_INT] * 3,
     # (warps, npp, group, stage_floats, n_stages)
     "qm_migrate_detect_global_v2_blocks_per_sm": [_INT] * 5,
+    "qm_migrate_detect_global_v2_f64_blocks_per_sm": [_INT] * 5,
     # (O, a_sum, a_max, fuse) and (a_sum)
     "qm_migrate_detect_x16g_blocks_per_sm": [_INT] * 4,
     "qm_migrate_detect_x16g_v2_blocks_per_sm": [_INT],

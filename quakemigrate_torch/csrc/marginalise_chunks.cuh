@@ -8,13 +8,15 @@
 
 #include <cuda_runtime.h>
 
-// out[n] = the sum of partial[c, n] over the chunks c, in chunk order
+// out[n] = the sum of partial[c, n] over the chunks c, in chunk order;
+// float, and double for M1 f64
+template <typename T>
 static __global__ void qm_marginalise_sum_chunks_kernel(
-    const float* __restrict__ partial, int n_chunks, int n_nodes,
-    float* __restrict__ out) {
+    const T* __restrict__ partial, int n_chunks, int n_nodes,
+    T* __restrict__ out) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= n_nodes) return;
-  float total = 0.0f;
+  T total = T(0);
   for (int c = 0; c < n_chunks; ++c) {
     total += partial[(long long)c * n_nodes + n];
   }

@@ -47,6 +47,14 @@
 // from shared memory), which DetectScan's "k3" route runs wherever its
 // ring holds the plan's widest window; this kernel stays for the wider
 // plans and as K3 v2's yardstick.
+//
+// K3 f64 (qm_migrate_detect_global_f64): the same kernel on double, for
+// QuakeScan(precision="double"), where the reference keeps detect_reduce
+// in float64. The onsets, the sums and the outputs are double; each value
+// is exp(__dmul_rn(acc, inv)); the block's scratch takes 20 KB of static
+// shared memory (12 KB in float). It runs on the plans too wide for K3
+// v2 f64's ring of doubles. Bound as above with 8-byte reads, and the
+// card's FP64 rate for the adds and exp.
 
 #include <cuda_runtime.h>
 
@@ -58,54 +66,71 @@
 // Consecutive flat nodes a block takes (ops/cuda_migrate.py: K3_TILE)
 #define QG_TILE 256
 
+// -inf, and a node's coalescence exp(acc * inv) with the product rounded
+// on its own (__fmul_rn, __dmul_rn: no contraction into exp's range
+// reduction, K1 v2's fold), in each element type
+__device__ __forceinline__ float qg_neg_inf(float) {
+  return __int_as_float(0xff800000);
+}
+__device__ __forceinline__ double qg_neg_inf(double) {
+  return __longlong_as_double(0xfff0000000000000ll);
+}
+__device__ __forceinline__ float qg_coa(float acc, float inv) {
+  return expf(__fmul_rn(acc, inv));
+}
+__device__ __forceinline__ double qg_coa(double acc, double inv) {
+  return exp(__dmul_rn(acc, inv));
+}
+
+template <typename T>
 __global__ void __launch_bounds__(QG_THREADS)
-qm_migrate_detect_global_kernel(const float* __restrict__ L, int t_len,
+qm_migrate_detect_global_kernel(const T* __restrict__ L, int t_len,
                                 const int* __restrict__ tt,
-                                const float* __restrict__ inv_available,
-                                float* __restrict__ tmax,
+                                const T* __restrict__ inv_available,
+                                T* __restrict__ tmax,
                                 int* __restrict__ targ,
-                                float* __restrict__ tsum, int n_nodes,
+                                T* __restrict__ tsum, int n_nodes,
                                 int n_onsets, int fsmp, int nsamples) {
-  __shared__ float red_max[QG_WARPS][QG_SBLK];
+  __shared__ T red_max[QG_WARPS][QG_SBLK];
   __shared__ int red_arg[QG_WARPS][QG_SBLK];
-  __shared__ float red_sum[QG_WARPS][QG_SBLK];
+  __shared__ T red_sum[QG_WARPS][QG_SBLK];
 
   const int tile_i = blockIdx.x;
   const int s0 = blockIdx.y * QG_SBLK;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int d_max = t_len - fsmp - nsamples;
-  const float inv = *inv_available;
+  const T inv = *inv_available;
   const int n_end = min(n_nodes, (tile_i + 1) * QG_TILE);
 
-  float best[QG_SPL], sum[QG_SPL];
+  T best[QG_SPL], sum[QG_SPL];
   int arg[QG_SPL];
 #pragma unroll
   for (int k = 0; k < QG_SPL; ++k) {
-    best[k] = __int_as_float(0xff800000);  // -inf
+    best[k] = qg_neg_inf(T());
     arg[k] = 0x7fffffff;
-    sum[k] = 0.0f;
+    sum[k] = T(0);
   }
   // This lane's samples s0 + lane + 32 k that lie in the scan
   bool live[QG_SPL];
 #pragma unroll
   for (int k = 0; k < QG_SPL; ++k) live[k] = s0 + lane + 32 * k < nsamples;
-  const float* base = L + fsmp + s0 + lane;
+  const T* base = L + fsmp + s0 + lane;
 
   for (int n = tile_i * QG_TILE + warp; n < n_end; n += QG_WARPS) {
     const int* tt_n = tt + (long long)n * n_onsets;
-    float acc[QG_SPL];
+    T acc[QG_SPL];
 #pragma unroll
-    for (int k = 0; k < QG_SPL; ++k) acc[k] = 0.0f;
+    for (int k = 0; k < QG_SPL; ++k) acc[k] = T(0);
     for (int c = 0; c < n_onsets; c += 32) {
       // Lane j's clamped traveltime of onset c + j, passed round the warp
       const int mine =
           c + lane < n_onsets ? min(max(tt_n[c + lane], 0), d_max) : 0;
       const int m = min(32, n_onsets - c);
-      const float* rows = base + (long long)c * t_len;
+      const T* rows = base + (long long)c * t_len;
 #pragma unroll 4
       for (int j = 0; j < m; ++j) {
-        const float* row =
+        const T* row =
             rows + (long long)j * t_len + __shfl_sync(0xffffffffu, mine, j);
 #pragma unroll
         for (int k = 0; k < QG_SPL; ++k) {
@@ -115,9 +140,7 @@ qm_migrate_detect_global_kernel(const float* __restrict__ L, int t_len,
     }
 #pragma unroll
     for (int k = 0; k < QG_SPL; ++k) {
-      // __fmul_rn: no contraction into expf's range reduction (K1 v2's
-      // fold)
-      const float coa = expf(__fmul_rn(acc[k], inv));
+      const T coa = qg_coa(acc[k], inv);
       if (coa > best[k]) {
         best[k] = coa;
         arg[k] = n;
@@ -135,12 +158,12 @@ qm_migrate_detect_global_kernel(const float* __restrict__ L, int t_len,
   __syncthreads();
   const int t = threadIdx.x;
   if (t < QG_SBLK && s0 + t < nsamples) {
-    float m = red_max[0][t];
+    T m = red_max[0][t];
     int a = red_arg[0][t];
-    float total = red_sum[0][t];
+    T total = red_sum[0][t];
 #pragma unroll
     for (int w = 1; w < QG_WARPS; ++w) {
-      const float v = red_max[w][t];
+      const T v = red_max[w][t];
       const int b = red_arg[w][t];
       if (v > m || (v == m && b < a)) {
         m = v;
@@ -155,6 +178,27 @@ qm_migrate_detect_global_kernel(const float* __restrict__ L, int t_len,
   }
 }
 
+template <typename T>
+static int qg_launch(const void* L, int t_len, const void* tt,
+                     const void* inv_available, void* tmax, void* targ,
+                     void* tsum, int n_nodes, int n_onsets, int tile,
+                     int fsmp, int nsamples, void* stream) {
+  if (n_nodes < 1 || n_onsets < 1 || tile != QG_TILE || fsmp < 0 ||
+      nsamples < 1 || t_len < fsmp + nsamples ||
+      (nsamples + QG_SBLK - 1) / QG_SBLK > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int n_tiles = (n_nodes + QG_TILE - 1) / QG_TILE;
+  const dim3 grid(n_tiles, (nsamples + QG_SBLK - 1) / QG_SBLK);
+  qm_migrate_detect_global_kernel<T><<<grid, QG_THREADS, 0,
+                                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(L), t_len, static_cast<const int*>(tt),
+      static_cast<const T*>(inv_available), static_cast<T*>(tmax),
+      static_cast<int*>(targ), static_cast<T*>(tsum), n_nodes, n_onsets,
+      fsmp, nsamples);
+  return (int)cudaGetLastError();
+}
+
 // L: f32 [n_onsets, t_len]; tt: int32 [n_nodes, n_onsets], flat node
 // order; inv_available: f32 [1]; tmax, tsum: f32 and targ: int32, each
 // [ceil(n_nodes / tile), nsamples], targ holding flat node indices. tile
@@ -166,18 +210,19 @@ extern "C" int qm_migrate_detect_global(const void* L, int t_len,
                                         int n_nodes, int n_onsets, int tile,
                                         int fsmp, int nsamples,
                                         void* stream) {
-  if (n_nodes < 1 || n_onsets < 1 || tile != QG_TILE || fsmp < 0 ||
-      nsamples < 1 || t_len < fsmp + nsamples ||
-      (nsamples + QG_SBLK - 1) / QG_SBLK > 65535) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const int n_tiles = (n_nodes + QG_TILE - 1) / QG_TILE;
-  const dim3 grid(n_tiles, (nsamples + QG_SBLK - 1) / QG_SBLK);
-  qm_migrate_detect_global_kernel<<<grid, QG_THREADS, 0,
-                                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(L), t_len, static_cast<const int*>(tt),
-      static_cast<const float*>(inv_available), static_cast<float*>(tmax),
-      static_cast<int*>(targ), static_cast<float*>(tsum), n_nodes, n_onsets,
-      fsmp, nsamples);
-  return (int)cudaGetLastError();
+  return qg_launch<float>(L, t_len, tt, inv_available, tmax, targ, tsum,
+                          n_nodes, n_onsets, tile, fsmp, nsamples, stream);
+}
+
+// K3 f64: as qm_migrate_detect_global with L, inv_available, tmax and
+// tsum float64.
+extern "C" int qm_migrate_detect_global_f64(const void* L, int t_len,
+                                            const void* tt,
+                                            const void* inv_available,
+                                            void* tmax, void* targ,
+                                            void* tsum, int n_nodes,
+                                            int n_onsets, int tile, int fsmp,
+                                            int nsamples, void* stream) {
+  return qg_launch<double>(L, t_len, tt, inv_available, tmax, targ, tsum,
+                           n_nodes, n_onsets, tile, fsmp, nsamples, stream);
 }

@@ -63,6 +63,19 @@
 // per SM it is built for: (32, 8, 1) one pass, (16, 8, 2) two passes,
 // (16, 16, 1) one pass. Padding nodes (flat index -1) are gathered at
 // residual 0 and left out of the fold.
+//
+// K3 v2 f64 (qm_migrate_detect_global_v2_f64): the same kernel on double,
+// for QuakeScan(precision="double"), where the reference keeps
+// detect_reduce in float64 (quakemigrate_tpu/signal/scan.py:341-350).
+// Sized in bytes of the element: a 16-byte bulk copy moves 2 doubles, so
+// a window is r_o + 1 + 128 doubles from the column rounded down to a
+// multiple of 2, rounded up to 2, and the ring holds about half the
+// samples of float's; the fold and reduction scratch is (8 + 4 + 8) x W
+// x 128 bytes. Its accumulators take NPP x 4 x 2 registers, so it is
+// built for one shape, (16, 8, 1): two passes of 16 warps x 8 nodes, one
+// block an SM, which leaves 128 registers a thread (GV_SHAPES_F64). Each
+// value is exp(__dmul_rn(acc, inv)). Bound: 8-byte gather reads from
+// shared memory, and the card's FP64 rate for the adds and exp.
 
 #include "tma_rows.cuh"
 
@@ -70,28 +83,40 @@
 #define GV_SPT (GV_SBLK / 32)
 #define GV_TILE 256
 
-// Bytes of one ring stage: `stage_floats` floats of windows and G
-// residual slices of slice uint16 each, rounded up to 128.
-__host__ __device__ __forceinline__ int gv_stage_bytes(int stage_floats,
+// Bytes of one ring stage: `stage_floats` elements of `elem` bytes of
+// windows and G residual slices of slice uint16 each, rounded up to 128.
+__host__ __device__ __forceinline__ int gv_stage_bytes(int elem,
+                                                       int stage_floats,
                                                        int group, int slice) {
-  return (4 * stage_floats + 2 * group * slice + 127) & ~127;
+  return (elem * stage_floats + 2 * group * slice + 127) & ~127;
 }
 
 // Dynamic shared memory of a block: the ring, the fold and reduction
-// scratch (3 x W x 128 4-byte entries) and 2 n_stages mbarriers.
-static int gv_smem_bytes(int warps, int stage_floats, int group, int slice,
-                         int n_stages) {
-  return n_stages * gv_stage_bytes(stage_floats, group, slice) +
-         12 * warps * GV_SBLK + 16 * n_stages;
+// scratch (W x 128 entries of a max and a sum of `elem` bytes and a
+// 4-byte argmax) and 2 n_stages mbarriers.
+static int gv_smem_bytes(int elem, int warps, int stage_floats, int group,
+                         int slice, int n_stages) {
+  return n_stages * gv_stage_bytes(elem, stage_floats, group, slice) +
+         (2 * elem + 4) * warps * GV_SBLK + 16 * n_stages;
+}
+
+// A node's coalescence exp(acc * inv), the product rounded on its own
+// (no contraction into exp's range reduction, so the exponent argument is
+// rounded exactly as in the plain version)
+__device__ __forceinline__ float gv_coa(float acc, float inv) {
+  return expf(__fmul_rn(acc, inv));
+}
+__device__ __forceinline__ double gv_coa(double acc, double inv) {
+  return exp(__dmul_rn(acc, inv));
 }
 
 // One onset of a pass: adds the stage at each of this warp's NPP
 // residual entries `r` into acc, lane reading samples lane + 32 k (`w` is
 // the stage plus lane).
-template <int NPP>
-__device__ __forceinline__ void gv_gather(const float* w,
+template <int NPP, typename T>
+__device__ __forceinline__ void gv_gather(const T* w,
                                           const unsigned short* r,
-                                          float (&acc)[NPP][GV_SPT]) {
+                                          T (&acc)[NPP][GV_SPT]) {
 #pragma unroll
   for (int q = 0; q < NPP / 8; ++q) {
     const uint4 c = reinterpret_cast<const uint4*>(r)[q];
@@ -100,36 +125,41 @@ __device__ __forceinline__ void gv_gather(const float* w,
                            c.w & 0xffffu, c.w >> 16};
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const float* src = w + e[j];
+      const T* src = w + e[j];
 #pragma unroll
       for (int k = 0; k < GV_SPT; ++k) acc[8 * q + j][k] += src[32 * k];
     }
   }
 }
 
-template <int W, int NPP, int MINB>
+template <int W, int NPP, int MINB, typename T>
 __global__ void __launch_bounds__(32 * W, MINB)
-qm_global_v2_kernel(const float* __restrict__ L, int ld,
+qm_global_v2_kernel(const T* __restrict__ L, int ld,
                     const int* __restrict__ base,
                     const unsigned short* __restrict__ res,
                     const int* __restrict__ flat,
                     const int2* __restrict__ win,
-                    const float* __restrict__ inv_available,
-                    float* __restrict__ tmax, int* __restrict__ targ,
-                    float* __restrict__ tsum, int n_onsets, int fsmp,
+                    const T* __restrict__ inv_available,
+                    T* __restrict__ tmax, int* __restrict__ targ,
+                    T* __restrict__ tsum, int n_onsets, int fsmp,
                     int nsamples, int group, int stage_floats,
                     int n_stages) {
   static_assert(NPP % 8 == 0 && GV_TILE % (W * NPP) == 0,
                 "8 | NPP and W NPP | 256");
   constexpr int PASSES = GV_TILE / (W * NPP);
   constexpr int SLICE = W * NPP;  // residuals of one onset a pass
+  constexpr int ELEM = sizeof(T);
+  // Elements of a 16-byte bulk-copy unit: windows start at a column
+  // rounded down to a multiple of it
+  constexpr int UNIT = 16 / ELEM;
   extern __shared__ __align__(128) unsigned char gv_raw[];
-  const int stage_bytes = gv_stage_bytes(stage_floats, group, SLICE);
-  float* red = reinterpret_cast<float*>(gv_raw + n_stages * stage_bytes);
-  float* red_max = red;
-  int* red_arg = reinterpret_cast<int*>(red + W * GV_SBLK);
-  float* red_sum = red + 2 * W * GV_SBLK;
-  uint64_t* full = reinterpret_cast<uint64_t*>(red + 3 * W * GV_SBLK);
+  const int stage_bytes = gv_stage_bytes(ELEM, stage_floats, group, SLICE);
+  unsigned char* scratch = gv_raw + n_stages * stage_bytes;
+  T* red_max = reinterpret_cast<T*>(scratch);
+  int* red_arg = reinterpret_cast<int*>(scratch + ELEM * W * GV_SBLK);
+  T* red_sum = reinterpret_cast<T*>(scratch + (ELEM + 4) * W * GV_SBLK);
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(scratch + (2 * ELEM + 4) * W * GV_SBLK);
   uint64_t* empty = full + n_stages;
 
   const int tile_i = blockIdx.x;
@@ -154,17 +184,17 @@ qm_global_v2_kernel(const float* __restrict__ L, int ld,
     unsigned char* st = gv_raw + s * stage_bytes;
     int bytes = 2 * cnt * SLICE;
     for (int g = 0; g < cnt; ++g) {
-      const int col = (fsmp + base_i[o0 + g] + s0) & ~3;
-      bytes += 4 * min(win[o0 + g].y, ld - col);
+      const int col = (fsmp + base_i[o0 + g] + s0) & ~(UNIT - 1);
+      bytes += ELEM * min(win[o0 + g].y, ld - col);
     }
     wg_bar_expect_tx(&full[s], bytes);
     for (int g = 0; g < cnt; ++g) {
       const int o = o0 + g;
-      const int col = (fsmp + base_i[o] + s0) & ~3;
-      qt_bulk_load(st + 4 * win[o].x, L + (long long)o * ld + col,
-                   4 * min(win[o].y, ld - col), &full[s]);
+      const int col = (fsmp + base_i[o] + s0) & ~(UNIT - 1);
+      qt_bulk_load(st + ELEM * win[o].x, L + (long long)o * ld + col,
+                   ELEM * min(win[o].y, ld - col), &full[s]);
     }
-    qt_bulk_load(st + 4 * stage_floats,
+    qt_bulk_load(st + ELEM * stage_floats,
                  res_i + ((long long)p * n_onsets + o0) * SLICE,
                  2 * cnt * SLICE, &full[s]);
   };
@@ -181,18 +211,18 @@ qm_global_v2_kernel(const float* __restrict__ L, int ld,
     for (int j = 0; j < n_stages && j < n_iter; ++j) stage(j, j);
   }
 
-  const float inv = *inv_available;
+  const T inv = *inv_available;
   const int* flat_i = flat + (long long)tile_i * GV_TILE;
   int k = 0;              // this iteration
   int s = 0, prev_s = 0;  // its stage and the previous iteration's
   uint32_t phase = 0, prev_phase = 0;
 #pragma unroll 1
   for (int p = 0; p < PASSES; ++p) {
-    float acc[NPP][GV_SPT];
+    T acc[NPP][GV_SPT];
 #pragma unroll
     for (int j = 0; j < NPP; ++j) {
 #pragma unroll
-      for (int q = 0; q < GV_SPT; ++q) acc[j][q] = 0.0f;
+      for (int q = 0; q < GV_SPT; ++q) acc[j][q] = T(0);
     }
 #pragma unroll 1
     for (int o0 = 0; o0 < n_onsets; o0 += group, ++k) {
@@ -207,9 +237,9 @@ qm_global_v2_kernel(const float* __restrict__ L, int ld,
       }
       wg_bar_wait(&full[s], phase);
       const unsigned char* st = gv_raw + s * stage_bytes;
-      const float* wl = reinterpret_cast<const float*>(st) + lane;
+      const T* wl = reinterpret_cast<const T*>(st) + lane;
       const unsigned short* rw =
-          reinterpret_cast<const unsigned short*>(st + 4 * stage_floats) +
+          reinterpret_cast<const unsigned short*>(st + ELEM * stage_floats) +
           warp * NPP;
       // Onsets in order: o0, o0 + 1, ... of the group.
       const int cnt = min(group, n_onsets - o0);
@@ -235,7 +265,7 @@ qm_global_v2_kernel(const float* __restrict__ L, int ld,
 #pragma unroll
     for (int q = 0; q < GV_SPT; ++q) {
       const int idx = warp * GV_SBLK + 32 * q + lane;
-      float best = -INFINITY, total = 0.0f;
+      T best = -INFINITY, total = T(0);
       int arg = 0x7fffffff;
       if (p > 0) {
         best = red_max[idx];
@@ -245,9 +275,7 @@ qm_global_v2_kernel(const float* __restrict__ L, int ld,
 #pragma unroll
       for (int j = 0; j < NPP; ++j) {
         if (node[j] >= 0) {
-          // __fmul_rn: no contraction into expf's range reduction, so the
-          // exponent argument is rounded exactly as in the plain version.
-          const float coa = expf(__fmul_rn(acc[j][q], inv));
+          const T coa = gv_coa(acc[j][q], inv);
           if (coa > best || (coa == best && node[j] < arg)) {
             best = coa;
             arg = node[j];
@@ -263,11 +291,11 @@ qm_global_v2_kernel(const float* __restrict__ L, int ld,
   __syncthreads();
 
   if (tid < GV_SBLK && s0 + tid < nsamples) {
-    float m = red_max[tid];
+    T m = red_max[tid];
     int a = red_arg[tid];
-    float sum = red_sum[tid];
+    T sum = red_sum[tid];
     for (int v = 1; v < W; ++v) {
-      const float mv = red_max[v * GV_SBLK + tid];
+      const T mv = red_max[v * GV_SBLK + tid];
       const int av = red_arg[v * GV_SBLK + tid];
       if (mv > m || (mv == m && av < a)) {
         m = mv;
@@ -282,32 +310,61 @@ qm_global_v2_kernel(const float* __restrict__ L, int ld,
   }
 }
 
-// The shapes K3 v2 is built for: X(W, NPP, MINB).
+// The shapes K3 v2 is built for, X(W, NPP, MINB): on float, and on double
+// (K3 v2 f64, whose accumulators take twice the registers).
 #define GV_SHAPES(X) X(32, 8, 1) X(16, 8, 2) X(16, 16, 1)
+#define GV_SHAPES_F64(X) X(16, 8, 1)
 
-template <int W, int NPP, int MINB>
+template <int W, int NPP, int MINB, typename T>
 static int gv_launch(const void* L, int ld, const void* base,
                      const void* res, const void* flat, const void* win,
                      const void* inv_available, void* tmax, void* targ,
                      void* tsum, int n_onsets, int n_tiles, int fsmp,
                      int nsamples, int group, int stage_floats, int n_stages,
                      cudaStream_t stream) {
-  const auto kernel = qm_global_v2_kernel<W, NPP, MINB>;
-  const int smem =
-      gv_smem_bytes(W, stage_floats, group, W * NPP, n_stages);
+  const auto kernel = qm_global_v2_kernel<W, NPP, MINB, T>;
+  const int smem = gv_smem_bytes(sizeof(T), W, stage_floats, group,
+                                 W * NPP, n_stages);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(n_tiles, (nsamples + GV_SBLK - 1) / GV_SBLK);
   kernel<<<grid, 32 * W, smem, stream>>>(
-      static_cast<const float*>(L), ld, static_cast<const int*>(base),
+      static_cast<const T*>(L), ld, static_cast<const int*>(base),
       static_cast<const unsigned short*>(res),
       static_cast<const int*>(flat), static_cast<const int2*>(win),
-      static_cast<const float*>(inv_available), static_cast<float*>(tmax),
-      static_cast<int*>(targ), static_cast<float*>(tsum), n_onsets, fsmp,
+      static_cast<const T*>(inv_available), static_cast<T*>(tmax),
+      static_cast<int*>(targ), static_cast<T*>(tsum), n_onsets, fsmp,
       nsamples, group, stage_floats, n_stages);
   return (int)cudaGetLastError();
 }
+
+// The checks of the C entries, in elements of T: ld and stage_floats
+// multiples of a 16-byte unit, L and res 16-byte aligned.
+template <typename T>
+static bool gv_args_ok(const void* L, int ld, const void* res, int n_onsets,
+                       int n_tiles, int fsmp, int nsamples, int group,
+                       int stage_floats, int n_stages) {
+  constexpr int unit = 16 / sizeof(T);
+  return !(n_onsets < 1 || n_tiles < 1 || nsamples < 1 || fsmp < 0 ||
+           ld % unit != 0 || (nsamples + GV_SBLK - 1) / GV_SBLK > 65535 ||
+           group < 1 || stage_floats < unit || stage_floats % unit != 0 ||
+           stage_floats > 65535 || n_stages < 2 || n_stages > 4 ||
+           reinterpret_cast<uintptr_t>(L) % 16 != 0 ||
+           reinterpret_cast<uintptr_t>(res) % 16 != 0);
+}
+
+#define GV_CASE(W, NPP, MINB)                                             \
+  if (warps == W && npp == NPP) {                                         \
+    if ((int)sizeof(T) * stage_floats + 2 * group * W * NPP >             \
+        QT_MAX_TX_BYTES) {                                                \
+      return (int)cudaErrorInvalidValue;                                  \
+    }                                                                     \
+    return gv_launch<W, NPP, MINB, T>(L, ld, base, res, flat, win,        \
+                                      inv_available, tmax, targ, tsum,    \
+                                      n_onsets, n_tiles, fsmp, nsamples,  \
+                                      group, stage_floats, n_stages, s);  \
+  }
 
 // L: float32 [n_onsets, ld] (ld a multiple of 4, L 16-byte aligned,
 // fsmp + nsamples + every traveltime of the plan at most t_len <= ld);
@@ -325,51 +382,70 @@ extern "C" int qm_migrate_detect_global_v2(
     void* tmax, void* targ, void* tsum, int n_onsets, int n_tiles,
     int fsmp, int nsamples, int group, int stage_floats, int n_stages,
     int warps, int npp, void* stream) {
-  if (n_onsets < 1 || n_tiles < 1 || nsamples < 1 || fsmp < 0 ||
-      ld % 4 != 0 || (nsamples + GV_SBLK - 1) / GV_SBLK > 65535 ||
-      group < 1 || stage_floats < 4 || stage_floats % 4 != 0 ||
-      stage_floats > 65535 || n_stages < 2 || n_stages > 4 ||
-      reinterpret_cast<uintptr_t>(L) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(res) % 16 != 0) {
+  using T = float;
+  if (!gv_args_ok<T>(L, ld, res, n_onsets, n_tiles, fsmp, nsamples, group,
+                     stage_floats, n_stages)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define GV_CASE(W, NPP, MINB)                                             \
-  if (warps == W && npp == NPP) {                                         \
-    if (4 * stage_floats + 2 * group * W * NPP > QT_MAX_TX_BYTES) {       \
-      return (int)cudaErrorInvalidValue;                                  \
-    }                                                                     \
-    return gv_launch<W, NPP, MINB>(L, ld, base, res, flat, win,           \
-                                   inv_available, tmax, targ, tsum,       \
-                                   n_onsets, n_tiles, fsmp, nsamples,     \
-                                   group, stage_floats, n_stages, s);     \
-  }
   GV_SHAPES(GV_CASE)
-#undef GV_CASE
   return (int)cudaErrorInvalidValue;
 }
 
-// Resident blocks per SM of K3 v2 at a shape and ring, from the
+// K3 v2 f64: as qm_migrate_detect_global_v2 with L, inv_available, tmax
+// and tsum float64, ld a multiple of 2, each window's offset and width
+// and stage_floats in doubles (multiples of 2), the residual entry
+// win[o].x + ((fsmp + base[i, o]) & 1) + fine[i, o, n], and the shapes
+// of GV_SHAPES_F64.
+extern "C" int qm_migrate_detect_global_v2_f64(
+    const void* L, int ld, const void* base, const void* res,
+    const void* flat, const void* win, const void* inv_available,
+    void* tmax, void* targ, void* tsum, int n_onsets, int n_tiles,
+    int fsmp, int nsamples, int group, int stage_floats, int n_stages,
+    int warps, int npp, void* stream) {
+  using T = double;
+  if (!gv_args_ok<T>(L, ld, res, n_onsets, n_tiles, fsmp, nsamples, group,
+                     stage_floats, n_stages)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  GV_SHAPES_F64(GV_CASE)
+  return (int)cudaErrorInvalidValue;
+}
+#undef GV_CASE
+
+// Resident blocks per SM of K3 v2 on T at a shape and ring, from the
 // occupancy API; a negative value is minus a CUDA error code.
-extern "C" int qm_migrate_detect_global_v2_blocks_per_sm(int warps, int npp,
-                                                         int group,
-                                                         int stage_floats,
-                                                         int n_stages) {
-  int blocks = 0;
-  cudaError_t err = cudaErrorInvalidValue;
 #define GV_OCC(W, NPP, MINB)                                               \
   if (warps == W && npp == NPP) {                                          \
-    const int smem =                                                       \
-        gv_smem_bytes(W, stage_floats, group, W * NPP, n_stages);          \
-    err = cudaFuncSetAttribute(qm_global_v2_kernel<W, NPP, MINB>,          \
+    const int smem = gv_smem_bytes(sizeof(T), W, stage_floats, group,      \
+                                   W * NPP, n_stages);                     \
+    err = cudaFuncSetAttribute(qm_global_v2_kernel<W, NPP, MINB, T>,       \
                                cudaFuncAttributeMaxDynamicSharedMemorySize, \
                                smem);                                      \
     if (err == cudaSuccess) {                                              \
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(                 \
-          &blocks, qm_global_v2_kernel<W, NPP, MINB>, 32 * W, smem);       \
+          &blocks, qm_global_v2_kernel<W, NPP, MINB, T>, 32 * W, smem);    \
     }                                                                      \
   }
+
+extern "C" int qm_migrate_detect_global_v2_blocks_per_sm(int warps, int npp,
+                                                         int group,
+                                                         int stage_floats,
+                                                         int n_stages) {
+  using T = float;
+  int blocks = 0;
+  cudaError_t err = cudaErrorInvalidValue;
   GV_SHAPES(GV_OCC)
-#undef GV_OCC
   return err == cudaSuccess ? blocks : -(int)err;
 }
+
+extern "C" int qm_migrate_detect_global_v2_f64_blocks_per_sm(
+    int warps, int npp, int group, int stage_floats, int n_stages) {
+  using T = double;
+  int blocks = 0;
+  cudaError_t err = cudaErrorInvalidValue;
+  GV_SHAPES_F64(GV_OCC)
+  return err == cudaSuccess ? blocks : -(int)err;
+}
+#undef GV_OCC

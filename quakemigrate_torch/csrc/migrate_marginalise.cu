@@ -49,6 +49,14 @@
 // locate's pass 2 on K1 v2's route; M1 stays for the plans K1 v2 refuses
 // (CudaDetectVPU's route) and as M1 v2's yardstick, equal to it bit for
 // bit at windows of up to 128 samples.
+//
+// M1 f64 and M2 simple f64 (qm_migrate_marginalise_f64, qm_migrate_map_f64):
+// the same kernels on double, for QuakeScan(precision="double"), where the
+// reference keeps migrate_marginalise and migrate_map in float64. The
+// onsets, the sums, exp and the outputs are double, the chunk sum too;
+// the gather reads 8-byte values (a warp's read of a row is two 128-byte
+// lines). Bound as for float with 8-byte values, and the card's FP64 rate
+// for the adds and exp.
 
 #include <cuda_runtime.h>
 
@@ -61,30 +69,42 @@
 #define QM1_SPL 8
 #define QM1_CHUNK (32 * QM1_SPL)
 
+// exp, and exp of a product rounded on its own (M2's value: no
+// contraction into exp's range reduction), in each element type
+__device__ __forceinline__ float qm1_exp(float x) { return expf(x); }
+__device__ __forceinline__ double qm1_exp(double x) { return exp(x); }
+__device__ __forceinline__ float qm1_exp_rn(float acc, float inv) {
+  return expf(__fmul_rn(acc, inv));
+}
+__device__ __forceinline__ double qm1_exp_rn(double acc, double inv) {
+  return exp(__dmul_rn(acc, inv));
+}
+
 // Node n's onset sums for the lane's samples t_begin + lane + 32 k of the
 // chunk (k < nk, lane + 32 k < t_count): onsets in order o = 0..O-1, lane
 // j loading the column offset of onset c + j (the tile's column col[c + j]
 // plus the node's residual) for a chunk of 32 onsets and the warp passing
 // them round with __shfl_sync.
-__device__ __forceinline__ void qm1_gather(float (&acc)[QM1_SPL],
-                                           const float* __restrict__ L,
+template <typename T>
+__device__ __forceinline__ void qm1_gather(T (&acc)[QM1_SPL],
+                                           const T* __restrict__ L,
                                            int t_len, const int* col,
                                            const int* __restrict__ fine_i,
                                            int tile, int n, int n_onsets,
                                            int t_begin, int t_count, int nk,
                                            int lane) {
 #pragma unroll
-  for (int k = 0; k < QM1_SPL; ++k) acc[k] = 0.0f;
+  for (int k = 0; k < QM1_SPL; ++k) acc[k] = T(0);
   for (int c = 0; c < n_onsets; c += 32) {
     // Lane j's column offset of onset c + j, passed round the warp
     const int mine = c + lane < n_onsets
         ? col[c + lane] + fine_i[(long long)(c + lane) * tile + n]
         : 0;
     const int m = min(32, n_onsets - c);
-    const float* rows = L + (long long)c * t_len + t_begin + lane;
+    const T* rows = L + (long long)c * t_len + t_begin + lane;
 #pragma unroll 8
     for (int j = 0; j < m; ++j) {
-      const float* row =
+      const T* row =
           rows + (long long)j * t_len + __shfl_sync(0xffffffffu, mine, j);
 #pragma unroll
       for (int k = 0; k < QM1_SPL; ++k) {
@@ -94,14 +114,15 @@ __device__ __forceinline__ void qm1_gather(float (&acc)[QM1_SPL],
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(QM1_THREADS)
-qm_migrate_marginalise_kernel(const float* __restrict__ L, int t_len,
+qm_migrate_marginalise_kernel(const T* __restrict__ L, int t_len,
                               const int* __restrict__ base,
                               const int* __restrict__ fine,
                               const float* __restrict__ valid,
                               const int* __restrict__ perm,
-                              const float* __restrict__ inv_available,
-                              float* __restrict__ dst, int n_nodes,
+                              const T* __restrict__ inv_available,
+                              T* __restrict__ dst, int n_nodes,
                               int n_onsets, int tile, int col0,
                               int window_length) {
   // The tile's first column of each onset row: col0 + base[i, o]
@@ -116,7 +137,7 @@ qm_migrate_marginalise_kernel(const float* __restrict__ L, int t_len,
   }
   __syncthreads();
 
-  const float inv = *inv_available;
+  const T inv = *inv_available;
   const int* fine_i = fine + (long long)tile_i * n_onsets * tile;
   const float* valid_i = valid + (long long)tile_i * tile;
   // This chunk's samples [t_begin, t_begin + t_count) of the window, and
@@ -124,16 +145,16 @@ qm_migrate_marginalise_kernel(const float* __restrict__ L, int t_len,
   const int t_begin = chunk * QM1_CHUNK;
   const int t_count = min(QM1_CHUNK, window_length - t_begin);
   const int nk = (t_count + 31) / 32;
-  float* dst_c = dst + (long long)chunk * n_nodes;
+  T* dst_c = dst + (long long)chunk * n_nodes;
   for (int n = warp; n < tile; n += QM1_WARPS) {
     if (valid_i[n] == 0.0f) continue;  // a padding node: warp-uniform
-    float acc[QM1_SPL];
+    T acc[QM1_SPL];
     qm1_gather(acc, L, t_len, qm1_col, fine_i, tile, n, n_onsets, t_begin,
                t_count, nk, lane);
-    float total = 0.0f;
+    T total = T(0);
 #pragma unroll
     for (int k = 0; k < QM1_SPL; ++k) {
-      if (k < nk && lane + 32 * k < t_count) total += expf(acc[k] * inv);
+      if (k < nk && lane + 32 * k < t_count) total += qm1_exp(acc[k] * inv);
     }
 #pragma unroll
     for (int d = 16; d > 0; d >>= 1) {
@@ -141,6 +162,39 @@ qm_migrate_marginalise_kernel(const float* __restrict__ L, int t_len,
     }
     if (lane == 0) dst_c[perm[(long long)tile_i * tile + n]] = total;
   }
+}
+
+template <typename T>
+static int qm1_launch(const void* L, int t_len, const void* base,
+                      const void* fine, const void* valid, const void* perm,
+                      const void* inv_available, void* out, void* partial,
+                      int partial_rows, int n_nodes, int n_onsets,
+                      int n_tiles, int tile, int col0, int window_length,
+                      void* stream) {
+  const int n_chunks =
+      window_length > QM1_CHUNK ? (window_length + QM1_CHUNK - 1) / QM1_CHUNK
+                                : 1;
+  if (n_onsets < 1 || n_tiles < 1 || tile < 1 || n_nodes < 1 || col0 < 0 ||
+      window_length < 0 || n_onsets * (int)sizeof(int) > 48 * 1024 ||
+      (n_chunks > 1 && (partial == nullptr || partial_rows < n_chunks))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  T* dst = static_cast<T*>(n_chunks > 1 ? partial : out);
+  qm_migrate_marginalise_kernel<T><<<dim3(n_tiles, n_chunks), QM1_THREADS,
+                                     n_onsets * sizeof(int), s>>>(
+      static_cast<const T*>(L), t_len, static_cast<const int*>(base),
+      static_cast<const int*>(fine), static_cast<const float*>(valid),
+      static_cast<const int*>(perm), static_cast<const T*>(inv_available),
+      dst, n_nodes, n_onsets, tile, col0, window_length);
+  if (n_chunks > 1) {
+    const int err = (int)cudaGetLastError();
+    if (err != 0) return err;
+    qm_marginalise_sum_chunks_kernel<T><<<(n_nodes + 255) / 256, 256, 0, s>>>(
+        static_cast<const T*>(partial), n_chunks, n_nodes,
+        static_cast<T*>(out));
+  }
+  return (int)cudaGetLastError();
 }
 
 // L: f32 [n_onsets, t_len]; base: int32 [n_tiles, n_onsets]; fine: int32
@@ -159,31 +213,25 @@ extern "C" int qm_migrate_marginalise(const void* L, int t_len,
                                       int n_nodes, int n_onsets, int n_tiles,
                                       int tile, int col0, int window_length,
                                       void* stream) {
-  const int n_chunks =
-      window_length > QM1_CHUNK ? (window_length + QM1_CHUNK - 1) / QM1_CHUNK
-                                : 1;
-  if (n_onsets < 1 || n_tiles < 1 || tile < 1 || n_nodes < 1 || col0 < 0 ||
-      window_length < 0 || n_onsets * (int)sizeof(int) > 48 * 1024 ||
-      (n_chunks > 1 && (partial == nullptr || partial_rows < n_chunks))) {
-    return (int)cudaErrorInvalidValue;
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* dst = static_cast<float*>(n_chunks > 1 ? partial : out);
-  qm_migrate_marginalise_kernel<<<dim3(n_tiles, n_chunks), QM1_THREADS,
-                                  n_onsets * sizeof(int), s>>>(
-      static_cast<const float*>(L), t_len, static_cast<const int*>(base),
-      static_cast<const int*>(fine), static_cast<const float*>(valid),
-      static_cast<const int*>(perm),
-      static_cast<const float*>(inv_available), dst, n_nodes, n_onsets,
-      tile, col0, window_length);
-  if (n_chunks > 1) {
-    const int err = (int)cudaGetLastError();
-    if (err != 0) return err;
-    qm_marginalise_sum_chunks_kernel<<<(n_nodes + 255) / 256, 256, 0, s>>>(
-        static_cast<const float*>(partial), n_chunks, n_nodes,
-        static_cast<float*>(out));
-  }
-  return (int)cudaGetLastError();
+  return qm1_launch<float>(L, t_len, base, fine, valid, perm, inv_available,
+                           out, partial, partial_rows, n_nodes, n_onsets,
+                           n_tiles, tile, col0, window_length, stream);
+}
+
+// M1 f64: as qm_migrate_marginalise with L, inv_available, out and
+// partial float64 (valid stays float32).
+extern "C" int qm_migrate_marginalise_f64(const void* L, int t_len,
+                                          const void* base, const void* fine,
+                                          const void* valid, const void* perm,
+                                          const void* inv_available,
+                                          void* out, void* partial,
+                                          int partial_rows, int n_nodes,
+                                          int n_onsets, int n_tiles, int tile,
+                                          int col0, int window_length,
+                                          void* stream) {
+  return qm1_launch<double>(L, t_len, base, fine, valid, perm, inv_available,
+                            out, partial, partial_rows, n_nodes, n_onsets,
+                            n_tiles, tile, col0, window_length, stream);
 }
 
 // M2's simple form: the coalescence map of locate's map path on M1's
@@ -200,14 +248,15 @@ extern "C" int qm_migrate_marginalise(const void* L, int t_len,
 // samples, warp w taking nodes w, w + 8, ... (M1's gather, qm1_gather),
 // and each lane storing its samples into the node's row: a warp writes 32
 // consecutive floats of a row a store.
+template <typename T>
 __global__ void __launch_bounds__(QM1_THREADS)
-qm_migrate_map_kernel(const float* __restrict__ L, int t_len,
+qm_migrate_map_kernel(const T* __restrict__ L, int t_len,
                       const int* __restrict__ base,
                       const int* __restrict__ fine,
                       const float* __restrict__ valid,
                       const int* __restrict__ perm,
-                      const float* __restrict__ inv_available,
-                      float* __restrict__ map, int n_onsets, int tile,
+                      const T* __restrict__ inv_available,
+                      T* __restrict__ map, int n_onsets, int tile,
                       int col0, int nsamples) {
   extern __shared__ int qm1_col[];
   const int tile_i = blockIdx.x;
@@ -219,7 +268,7 @@ qm_migrate_map_kernel(const float* __restrict__ L, int t_len,
   }
   __syncthreads();
 
-  const float inv = *inv_available;
+  const T inv = *inv_available;
   const int* fine_i = fine + (long long)tile_i * n_onsets * tile;
   const float* valid_i = valid + (long long)tile_i * tile;
   const int t_begin = blockIdx.y * QM1_CHUNK;
@@ -227,18 +276,39 @@ qm_migrate_map_kernel(const float* __restrict__ L, int t_len,
   const int nk = (t_count + 31) / 32;
   for (int n = warp; n < tile; n += QM1_WARPS) {
     if (valid_i[n] == 0.0f) continue;  // a padding node: warp-uniform
-    float acc[QM1_SPL];
+    T acc[QM1_SPL];
     qm1_gather(acc, L, t_len, qm1_col, fine_i, tile, n, n_onsets, t_begin,
                t_count, nk, lane);
-    float* out = map + (long long)perm[(long long)tile_i * tile + n] *
+    T* out = map + (long long)perm[(long long)tile_i * tile + n] *
                            nsamples + t_begin + lane;
 #pragma unroll
     for (int k = 0; k < QM1_SPL; ++k) {
       if (k < nk && lane + 32 * k < t_count) {
-        out[32 * k] = expf(__fmul_rn(acc[k], inv));
+        out[32 * k] = qm1_exp_rn(acc[k], inv);
       }
     }
   }
+}
+
+template <typename T>
+static int qm_map_launch(const void* L, int t_len, const void* base,
+                         const void* fine, const void* valid,
+                         const void* perm, const void* inv_available,
+                         void* map, int n_onsets, int n_tiles, int tile,
+                         int col0, int nsamples, void* stream) {
+  if (n_onsets < 1 || n_tiles < 1 || tile < 1 || col0 < 0 || nsamples < 1 ||
+      n_onsets * (int)sizeof(int) > 48 * 1024) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int n_chunks = (nsamples + QM1_CHUNK - 1) / QM1_CHUNK;
+  qm_migrate_map_kernel<T><<<dim3(n_tiles, n_chunks), QM1_THREADS,
+                             n_onsets * sizeof(int),
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(L), t_len, static_cast<const int*>(base),
+      static_cast<const int*>(fine), static_cast<const float*>(valid),
+      static_cast<const int*>(perm), static_cast<const T*>(inv_available),
+      static_cast<T*>(map), n_onsets, tile, col0, nsamples);
+  return (int)cudaGetLastError();
 }
 
 // L, t_len, base, fine, valid, perm and inv_available as for
@@ -250,18 +320,19 @@ extern "C" int qm_migrate_map(const void* L, int t_len, const void* base,
                               const void* perm, const void* inv_available,
                               void* map, int n_onsets, int n_tiles, int tile,
                               int col0, int nsamples, void* stream) {
-  if (n_onsets < 1 || n_tiles < 1 || tile < 1 || col0 < 0 || nsamples < 1 ||
-      n_onsets * (int)sizeof(int) > 48 * 1024) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const int n_chunks = (nsamples + QM1_CHUNK - 1) / QM1_CHUNK;
-  qm_migrate_map_kernel<<<dim3(n_tiles, n_chunks), QM1_THREADS,
-                          n_onsets * sizeof(int),
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(L), t_len, static_cast<const int*>(base),
-      static_cast<const int*>(fine), static_cast<const float*>(valid),
-      static_cast<const int*>(perm),
-      static_cast<const float*>(inv_available), static_cast<float*>(map),
-      n_onsets, tile, col0, nsamples);
-  return (int)cudaGetLastError();
+  return qm_map_launch<float>(L, t_len, base, fine, valid, perm,
+                              inv_available, map, n_onsets, n_tiles, tile,
+                              col0, nsamples, stream);
+}
+
+// M2 simple f64: as qm_migrate_map with L, inv_available and map float64.
+extern "C" int qm_migrate_map_f64(const void* L, int t_len, const void* base,
+                                  const void* fine, const void* valid,
+                                  const void* perm,
+                                  const void* inv_available, void* map,
+                                  int n_onsets, int n_tiles, int tile,
+                                  int col0, int nsamples, void* stream) {
+  return qm_map_launch<double>(L, t_len, base, fine, valid, perm,
+                               inv_available, map, n_onsets, n_tiles, tile,
+                               col0, nsamples, stream);
 }

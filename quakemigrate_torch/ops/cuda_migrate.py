@@ -17,7 +17,10 @@ plan) and ``csrc/migrate_marginalise_v2.cu`` (M1 v2, M1 on K1 v2's
 tables), whose plain version is ``ops.migrate.migrate_marginalise``, and
 of M2, locate's coalescence map on the same two sources (its main form on
 M1 v2's staging, its simple form on M1's gather), whose plain version is
-``ops.migrate.migrate_map``.
+``ops.migrate.migrate_map``. K3, K3 v2, M1 and M2's simple form also
+have float64 forms (the same sources on double), for
+``QuakeScan(precision="double")``: their wrappers take float32 or float64
+onsets and launch the form of the onsets' type.
 
 Counterpart of quakemigrate_tpu.ops.pallas_migrate: ``CudaDetect`` of
 ``PallasDetectMXU`` (kernel ``_mxu_detect_kernel``), ``CudaDetectVPU`` of
@@ -117,6 +120,10 @@ GLOBAL_V2_SHAPES = {(32, 8): 1, (16, 8): 2, (16, 16): 1}
 GLOBAL_V2_STAGES = (2, 3, 4)
 GLOBAL_V2_SHAPE = (16, 8)
 GLOBAL_V2_WIDE_SHAPE = (16, 16)
+# K3 v2 f64 (csrc/migrate_detect_global_v2.cu: GV_SHAPES_F64): the one
+# shape built on double, two passes of 16 warps x 8 nodes, one block an SM
+# (its accumulators take twice float's registers)
+GLOBAL_V2_SHAPES_F64 = {(16, 8): 1}
 
 # Shared memory of one SM on Hopper (228 KB), of which each resident
 # block reserves 1 KB
@@ -124,17 +131,32 @@ SMEM_PER_SM = 233472
 SMEM_BLOCK_RESERVE = 1024
 
 # Launches of K1, K1 v2, K2, K2 v2, K3, K3 v2, M1, M1 v2 and M2 (main and
-# simple form), counted by their wrappers where they launch
+# simple form), and of the float64 forms of K3, K3 v2, M1 and M2's simple
+# form, counted by their wrappers where they launch
 launches = {"migrate_detect": 0, "migrate_detect_v2": 0,
             "migrate_detect_vpu": 0, "migrate_detect_vpu_v2": 0,
             "migrate_detect_global": 0, "migrate_detect_global_v2": 0,
             "migrate_marginalise": 0, "migrate_marginalise_v2": 0,
-            "migrate_map": 0, "migrate_map_v2": 0}
+            "migrate_map": 0, "migrate_map_v2": 0,
+            "migrate_detect_global_f64": 0,
+            "migrate_detect_global_v2_f64": 0,
+            "migrate_marginalise_f64": 0, "migrate_map_f64": 0}
+
+# The element types of the onsets the float64-capable wrappers take
+FLOAT_DTYPES = (torch.float32, torch.float64)
 
 
 def reset_launches():
     for name in launches:
         launches[name] = 0
+
+
+def typed(name, dtype):
+    """The name of a kernel's form for onsets of ``dtype``: ``name`` in
+    float32, ``name + "_f64"`` in float64 (a C entry or a key of
+    :data:`launches`)."""
+
+    return f"{name}_f64" if dtype == torch.float64 else name
 
 
 def brick_permutation(node_count, brick_shape):
@@ -377,15 +399,18 @@ def reduce_acc_chunks(chunks, valid, inv_available):
 
 
 def check_kernel_args(onsets_log, base, fine, valid, inv_available,
-                      node_major=False, res_npp=None):
+                      node_major=False, res_npp=None,
+                      dtypes=(torch.float32,)):
     """
     Checks shared by the kernel wrappers: the kernels' dtypes, contiguity,
     plan shapes that agree, and CUDA tensors on one device. ``fine`` is
     the int32 [n_tiles, O, tile] table, or with ``node_major`` the int16
     [n_tiles, tile, O] table ``DetectPlan.fine16``, or with ``res_npp``
     K2 v2's uint16 table [n_tiles, tile / (16 res_npp), O, 16 res_npp]
-    (:func:`vpu_v2_residuals`). Raises on what the kernels do not take.
-    Returns (n_onsets, t_len, n_tiles, tile).
+    (:func:`vpu_v2_residuals`). ``onsets_log`` is one of ``dtypes`` (the
+    element types the kernel has a form for), and ``inv_available`` of
+    its type. Raises on what the kernels do not take. Returns (n_onsets,
+    t_len, n_tiles, tile).
 
     """
 
@@ -393,12 +418,13 @@ def check_kernel_args(onsets_log, base, fine, valid, inv_available,
     fine_dtype, fine_ndim = ((torch.uint16, 4) if res_npp is not None
                              else (torch.int16, 3) if node_major
                              else (torch.int32, 3))
+    dtype = onsets_log.dtype if onsets_log.dtype in dtypes else dtypes[0]
     expected = (
-        ("onsets_log", onsets_log, torch.float32, 2),
+        ("onsets_log", onsets_log, dtype, 2),
         ("base", base, torch.int32, 2),
         ("fine", fine, fine_dtype, fine_ndim),
         ("valid", valid, torch.float32, 2),
-        ("inv_available", inv_available, torch.float32, 1),
+        ("inv_available", inv_available, dtype, 1),
     )
     for name, x, dtype, ndim in expected:
         if x.device != device:
@@ -453,12 +479,13 @@ def check_smem(smem, what):
         raise ValueError(reason)
 
 
-def empty_outputs(n_tiles, nsamples, device):
-    """Uninitialised (tmax f32, targ int32, tsum f32) [n_tiles, S]."""
+def empty_outputs(n_tiles, nsamples, device, dtype=torch.float32):
+    """Uninitialised (tmax, targ int32, tsum) [n_tiles, S], tmax and tsum
+    of ``dtype``."""
 
     return tuple(
-        torch.empty((n_tiles, nsamples), dtype=dtype, device=device)
-        for dtype in (torch.float32, torch.int32, torch.float32)
+        torch.empty((n_tiles, nsamples), dtype=d, device=device)
+        for d in (dtype, torch.int32, dtype)
     )
 
 
@@ -559,8 +586,9 @@ def migrate_marginalise_cuda(onsets_log, base, fine, valid, perm,
     Launch M1 (``csrc/migrate_marginalise.cu``) on tensors on the card:
     the coalescence of every real node of the plan summed over the scan
     samples ``[window_start, window_start + window_length)``, returned as
-    f32 [n_nodes] in flat node order (scattered through ``perm``; padding
-    nodes dropped). A window longer than ``M1_CHUNK`` samples is split
+    [n_nodes] in flat node order (scattered through ``perm``; padding
+    nodes dropped), in the onsets' type: M1 on float32 onsets, M1 f64 on
+    float64. A window longer than ``M1_CHUNK`` samples is split
     into chunks, one block a node tile and chunk, whose sums are added in
     chunk order. ``fine`` is the plan's int32 [n_tiles, O, tile]
     table, ``perm`` its int32 [n_tiles * tile] flat indices, ``max_shift``
@@ -572,8 +600,9 @@ def migrate_marginalise_cuda(onsets_log, base, fine, valid, perm,
     """
 
     n_onsets, t_len, n_tiles, tile = check_kernel_args(
-        onsets_log, base, fine, valid, inv_available
+        onsets_log, base, fine, valid, inv_available, dtypes=FLOAT_DTYPES
     )
+    dtype = onsets_log.dtype
     if (perm.device != onsets_log.device or perm.dtype != torch.int32
             or perm.shape != (n_tiles * tile,) or not perm.is_contiguous()):
         raise ValueError(f"perm must be a contiguous int32 [{n_tiles * tile}] "
@@ -585,22 +614,22 @@ def migrate_marginalise_cuda(onsets_log, base, fine, valid, perm,
             f"inside the {nsamples} scan samples"
         )
     _check_onset_length(onsets_log, fsmp, nsamples, max_shift)
-    out = torch.empty(n_nodes, dtype=torch.float32, device=onsets_log.device)
+    out = torch.empty(n_nodes, dtype=dtype, device=onsets_log.device)
     # A window of more than one chunk: one block a node tile x chunk, each
     # chunk's sums into a row of ``partial``, added in chunk order
     n_chunks = max(1, -(-window_length // M1_CHUNK))
-    partial = (torch.empty((n_chunks, n_nodes), dtype=torch.float32,
+    partial = (torch.empty((n_chunks, n_nodes), dtype=dtype,
                            device=onsets_log.device) if n_chunks > 1
                else None)
     launch_kernel(
-        "qm_migrate_marginalise", onsets_log.device,
+        typed("qm_migrate_marginalise", dtype), onsets_log.device,
         onsets_log.data_ptr(), t_len, base.data_ptr(), fine.data_ptr(),
         valid.data_ptr(), perm.data_ptr(), inv_available.data_ptr(),
         out.data_ptr(), None if partial is None else partial.data_ptr(),
         n_chunks, n_nodes, n_onsets, n_tiles, tile, fsmp + window_start,
         window_length,
     )
-    launches["migrate_marginalise"] += 1
+    launches[typed("migrate_marginalise", dtype)] += 1
     return out
 
 
@@ -899,28 +928,31 @@ def migrate_map_cuda(onsets_log, base, fine, valid, perm, inv_available,
     gather, the onsets read from global memory) on tensors on the card:
     :func:`migrate_map_v2_cuda`'s map, bit for bit, from the plan's int32
     residuals ``fine``, for the plans K1 v2 cannot stage (CudaDetectVPU's
-    route). Raises on CPU tensors and on what the kernel does not take;
-    the plain version is :func:`quakemigrate_torch.ops.migrate.migrate_map`.
+    and CudaDetectGlobal's routes), in the onsets' type (M2 simple f64 on
+    float64 onsets). Raises on CPU tensors and on what the kernel does
+    not take; the plain version is
+    :func:`quakemigrate_torch.ops.migrate.migrate_map`.
 
     """
 
     n_onsets, t_len, n_tiles, tile = check_kernel_args(
-        onsets_log, base, fine, valid, inv_available
+        onsets_log, base, fine, valid, inv_available, dtypes=FLOAT_DTYPES
     )
+    dtype = onsets_log.dtype
     _check_map_args(onsets_log, perm, n_tiles, tile, fsmp, nsamples,
                     max_shift)
     if 4 * n_onsets > 48 * 1024:
         raise ValueError(f"M2's simple form takes at most {12 * 1024} "
                          f"onsets, not {n_onsets}")
-    out = torch.empty((n_nodes, nsamples), dtype=torch.float32,
+    out = torch.empty((n_nodes, nsamples), dtype=dtype,
                       device=onsets_log.device)
     launch_kernel(
-        "qm_migrate_map", onsets_log.device,
+        typed("qm_migrate_map", dtype), onsets_log.device,
         onsets_log.data_ptr(), t_len, base.data_ptr(), fine.data_ptr(),
         valid.data_ptr(), perm.data_ptr(), inv_available.data_ptr(),
         out.data_ptr(), n_onsets, n_tiles, tile, fsmp, nsamples,
     )
-    launches["migrate_map"] += 1
+    launches[typed("migrate_map", dtype)] += 1
     return out
 
 
@@ -1219,17 +1251,21 @@ def migrate_detect_global_cuda(onsets_log, tt, inv_available, fsmp,
     sample, the max, the first flat node index attaining it and the sum
     of ``exp(sum_o L[o, fsmp + tt[n, o] + t] * inv_available)`` over the
     tile's nodes. The onset rows are read from global memory, so any
-    residual span is taken. Returns (tmax f32, targ int32 flat indices,
-    tsum f32), each [n_tiles, nsamples], asynchronously on the current
-    stream; :func:`combine_flat_tiles` finishes the reduction. The plain
-    version is :func:`quakemigrate_torch.ops.migrate.detect_reduce`.
+    residual span is taken. Float32 onsets take K3, float64 onsets K3 f64
+    (``inv_available`` of the onsets' type). Returns (tmax, targ int32
+    flat indices, tsum), each [n_tiles, nsamples], tmax and tsum in the
+    onsets' type, asynchronously on the current stream;
+    :func:`combine_flat_tiles` finishes the reduction. The plain version
+    is :func:`quakemigrate_torch.ops.migrate.detect_reduce`.
 
     """
 
     device = onsets_log.device
-    for name, x, dtype in (("onsets_log", onsets_log, torch.float32),
+    ftype = (onsets_log.dtype if onsets_log.dtype in FLOAT_DTYPES
+             else torch.float32)
+    for name, x, dtype in (("onsets_log", onsets_log, ftype),
                            ("tt", tt, torch.int32),
-                           ("inv_available", inv_available, torch.float32)):
+                           ("inv_available", inv_available, ftype)):
         if x.device != device:
             raise ValueError(f"{name} is on {x.device}, not {device}")
         if x.dtype != dtype or not x.is_contiguous():
@@ -1248,14 +1284,14 @@ def migrate_detect_global_cuda(onsets_log, tt, inv_available, fsmp,
                          f"{t_len} onset samples")
     if device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {device}")
-    outs = empty_outputs(-(-n_nodes // K3_TILE), nsamples, device)
+    outs = empty_outputs(-(-n_nodes // K3_TILE), nsamples, device, ftype)
     launch_kernel(
-        "qm_migrate_detect_global", device, onsets_log.data_ptr(), t_len,
-        tt.data_ptr(), inv_available.data_ptr(),
-        *(x.data_ptr() for x in outs), n_nodes, n_onsets, K3_TILE, fsmp,
-        nsamples,
+        typed("qm_migrate_detect_global", ftype), device,
+        onsets_log.data_ptr(), t_len, tt.data_ptr(),
+        inv_available.data_ptr(), *(x.data_ptr() for x in outs), n_nodes,
+        n_onsets, K3_TILE, fsmp, nsamples,
     )
-    launches["migrate_detect_global"] += 1
+    launches[typed("migrate_detect_global", ftype)] += 1
     return outs
 
 
@@ -1326,58 +1362,93 @@ def detect_reduce_flat_reference(onsets_log, tt, inv_available, fsmp,
     return torch.stack(tmax), torch.stack(targ), torch.stack(tsum)
 
 
-def global_v2_widths(r_spans):
-    """K3 v2's window of each onset, in floats: ``r_spans[o] + 3 +``
-    :data:`GLOBAL_V2_SBLK` rounded up to 4 (the 0-3 floats from the
-    16-byte aligned column, and whole 16-byte units of a bulk copy)."""
+def global_v2_unit(dtype=torch.float32):
+    """Elements of ``dtype`` in a 16-byte bulk-copy unit of K3 v2: 4
+    floats, 2 doubles."""
 
-    return np.asarray([round_up(int(r) + 3 + GLOBAL_V2_SBLK, 4)
+    return 16 // global_v2_itemsize(dtype)
+
+
+def global_v2_itemsize(dtype=torch.float32):
+    """Bytes of one onset element of K3 v2 on ``dtype`` (float32 or
+    float64)."""
+
+    if dtype not in FLOAT_DTYPES:
+        raise ValueError(f"K3 v2 has no form for {dtype}")
+    return dtype.itemsize
+
+
+def global_v2_shapes(dtype=torch.float32):
+    """K3 v2's shapes on ``dtype`` and the blocks per SM each is built
+    for: :data:`GLOBAL_V2_SHAPES` in float32, :data:`GLOBAL_V2_SHAPES_F64`
+    in float64."""
+
+    return (GLOBAL_V2_SHAPES_F64 if global_v2_itemsize(dtype) == 8
+            else GLOBAL_V2_SHAPES)
+
+
+def global_v2_widths(r_spans, dtype=torch.float32):
+    """K3 v2's window of each onset, in elements of ``dtype``:
+    ``r_spans[o] + (unit - 1) +`` :data:`GLOBAL_V2_SBLK` rounded up to a
+    multiple of the 16-byte unit (:func:`global_v2_unit`: the 0-3 floats
+    or 0-1 doubles from the 16-byte aligned column, and whole 16-byte
+    units of a bulk copy)."""
+
+    unit = global_v2_unit(dtype)
+    return np.asarray([round_up(int(r) + unit - 1 + GLOBAL_V2_SBLK, unit)
                        for r in r_spans], dtype=np.int64)
 
 
-def global_v2_budget(shape):
+def global_v2_budget(shape, dtype=torch.float32):
     """Shared-memory bytes one K3 v2 block of ``shape`` may use, for the
-    blocks per SM the shape is built for (:data:`GLOBAL_V2_SHAPES`)."""
+    blocks per SM the shape is built for on ``dtype``
+    (:func:`global_v2_shapes`)."""
 
-    per_sm = GLOBAL_V2_SHAPES[shape]
+    per_sm = global_v2_shapes(dtype)[shape]
     return min(SMEM_LIMIT, SMEM_PER_SM // per_sm - SMEM_BLOCK_RESERVE)
 
 
-def global_v2_smem(shape, stage_floats, group, n_stages):
+def global_v2_smem(shape, stage_floats, group, n_stages, dtype=torch.float32):
     """
     Shared-memory bytes of one K3 v2 block (csrc/migrate_detect_global_v2.cu:
     gv_smem_bytes): ``n_stages`` ring stages, each ``stage_floats``
-    floats of windows and ``group`` residual slices of 256 / passes
-    uint16 (rounded up to 128 bytes), the fold and reduction scratch (3
-    x warps x 128 entries of 4 bytes) and 2 ``n_stages`` mbarriers.
+    elements of ``dtype`` of windows and ``group`` residual slices of 256
+    / passes uint16 (rounded up to 128 bytes), the fold and reduction
+    scratch (warps x 128 entries of a max and a sum of ``dtype`` and a
+    4-byte argmax) and 2 ``n_stages`` mbarriers.
 
     """
 
     warps, npp = shape
-    stage = round_up(4 * stage_floats + 2 * group * warps * npp, 128)
-    return n_stages * stage + 12 * warps * GLOBAL_V2_SBLK + 16 * n_stages
+    item = global_v2_itemsize(dtype)
+    stage = round_up(item * stage_floats + 2 * group * warps * npp, 128)
+    return (n_stages * stage + (2 * item + 4) * warps * GLOBAL_V2_SBLK
+            + 16 * n_stages)
 
 
-def global_v2_layout(r_spans, shape=GLOBAL_V2_SHAPE, group=None):
+def global_v2_layout(r_spans, shape=GLOBAL_V2_SHAPE, group=None,
+                     dtype=torch.float32):
     """
-    K3 v2's ring for a plan's per-onset residual spans: a namespace with
+    K3 v2's ring for a plan's per-onset residual spans, for onsets of
+    ``dtype`` (K3 v2 in float32, K3 v2 f64 in float64): a namespace with
     the ``shape`` (warps, npp), ``group`` G (consecutive onsets a
-    stage), ``stage_floats`` (the widest group's windows), ``win`` int32
-    [O, 2] (each onset's window offset in its stage and width, floats,
-    multiples of 4; :func:`global_v2_widths`), ``n_stages`` and the
-    block's ``smem`` bytes; or None where two stages of one window do
-    not fit the shape's budget (:func:`global_v2_budget`). By default G
-    is the most onsets for which two stages fit beside the fold scratch
-    (fewer, larger stages ran faster than deeper rings in a sweep on the
-    H100), and the ring the deepest of :data:`GLOBAL_V2_STAGES` that fits
-    at that G; ``group`` fixes G (and the layout is None where two stages
-    of it do not fit). Reads nothing from the card.
+    stage), ``stage_floats`` (the widest group's windows, in elements),
+    ``win`` int32 [O, 2] (each onset's window offset in its stage and
+    width, elements, multiples of the 16-byte unit;
+    :func:`global_v2_widths`), ``n_stages``, the block's ``smem`` bytes
+    and the ``dtype``; or None where two stages of one window do not fit
+    the shape's budget (:func:`global_v2_budget`). By default G is the
+    most onsets for which two stages fit beside the fold scratch (fewer,
+    larger stages ran faster than deeper rings in a sweep on the H100),
+    and the ring the deepest of :data:`GLOBAL_V2_STAGES` that fits at
+    that G; ``group`` fixes G (and the layout is None where two stages of
+    it do not fit). Reads nothing from the card.
 
     """
 
-    widths = global_v2_widths(r_spans)
+    widths = global_v2_widths(r_spans, dtype)
     n_onsets = len(widths)
-    budget = global_v2_budget(shape)
+    budget = global_v2_budget(shape, dtype)
 
     def fit(g):
         starts = np.arange(n_onsets) // g * g
@@ -1386,14 +1457,15 @@ def global_v2_layout(r_spans, shape=GLOBAL_V2_SHAPE, group=None):
             off[o] = 0 if starts[o] == o else off[o - 1] + widths[o - 1]
         stage_floats = int((off + widths).max())
         depths = [n for n in GLOBAL_V2_STAGES
-                  if global_v2_smem(shape, stage_floats, g, n) <= budget]
+                  if global_v2_smem(shape, stage_floats, g, n, dtype)
+                  <= budget]
         if not depths or stage_floats > np.iinfo(np.uint16).max:
             return None
         return SimpleNamespace(
             shape=shape, group=g, stage_floats=stage_floats,
             win=np.stack([off, widths], axis=1).astype(np.int32),
-            n_stages=max(depths),
-            smem=global_v2_smem(shape, stage_floats, g, max(depths)))
+            n_stages=max(depths), dtype=dtype,
+            smem=global_v2_smem(shape, stage_floats, g, max(depths), dtype))
 
     if group is not None:
         return fit(group)
@@ -1404,64 +1476,79 @@ def global_v2_layout(r_spans, shape=GLOBAL_V2_SHAPE, group=None):
     return None
 
 
-def global_v2_shape(r_spans):
-    """The shape K3 v2 runs for a plan's per-onset residual spans:
-    :data:`GLOBAL_V2_SHAPE` where a ring of two stages of its widest
-    window fits that shape's budget, else :data:`GLOBAL_V2_WIDE_SHAPE`
-    (one block an SM) where it fits that one's, else None."""
+def global_v2_route_shapes(dtype=torch.float32):
+    """The shapes K3 v2 runs on ``dtype``, in the order they are tried:
+    :data:`GLOBAL_V2_SHAPE`, then :data:`GLOBAL_V2_WIDE_SHAPE`, in
+    float32; the one shape of :data:`GLOBAL_V2_SHAPES_F64` in float64."""
 
-    for shape in (GLOBAL_V2_SHAPE, GLOBAL_V2_WIDE_SHAPE):
-        if global_v2_layout(r_spans, shape, group=1) is not None:
+    if global_v2_itemsize(dtype) == 8:
+        return tuple(GLOBAL_V2_SHAPES_F64)
+    return GLOBAL_V2_SHAPE, GLOBAL_V2_WIDE_SHAPE
+
+
+def global_v2_shape(r_spans, dtype=torch.float32):
+    """The shape K3 v2 runs on ``dtype`` for a plan's per-onset residual
+    spans: the first of :func:`global_v2_route_shapes` where a ring of two
+    stages of its widest window fits that shape's budget (float32:
+    :data:`GLOBAL_V2_SHAPE`, else :data:`GLOBAL_V2_WIDE_SHAPE`, one block
+    an SM), else None."""
+
+    for shape in global_v2_route_shapes(dtype):
+        if global_v2_layout(r_spans, shape, group=1, dtype=dtype) is not None:
             return shape
     return None
 
 
-def global_v2_refusal(plan):
+def global_v2_refusal(plan, dtype=torch.float32):
     """
-    Why K3 v2 cannot take a :class:`DetectPlan`, in words, or None where
-    it can: the plan's tile must be :data:`GLOBAL_V2_TILE` and a ring of
-    two stages of its widest window must fit a block's shared memory in
-    one of the shapes :func:`global_v2_shape` tries (about 25,000
-    samples of residual span). Reads nothing from the card.
+    Why K3 v2 cannot take a :class:`DetectPlan` for onsets of ``dtype``,
+    in words, or None where it can: the plan's tile must be
+    :data:`GLOBAL_V2_TILE` and a ring of two stages of its widest window
+    must fit a block's shared memory in one of the shapes
+    :func:`global_v2_shape` tries (about 25,000 samples of residual span
+    in float32, about 11,800 in float64, whose ring holds doubles). Reads
+    nothing from the card.
 
     """
 
     if plan.tile != GLOBAL_V2_TILE:
         return f"tile {plan.tile} is not K3 v2's {GLOBAL_V2_TILE}"
-    if global_v2_shape(plan.r_spans) is None:
-        shape = GLOBAL_V2_WIDE_SHAPE
-        widest = int(global_v2_widths([plan.r_span])[0])
+    if global_v2_shape(plan.r_spans, dtype) is None:
+        shape = global_v2_route_shapes(dtype)[-1]
+        widest = int(global_v2_widths([plan.r_span], dtype)[0])
+        kind = "doubles" if global_v2_itemsize(dtype) == 8 else "floats"
+        smem = global_v2_smem(shape, widest, 1, GLOBAL_V2_STAGES[0], dtype)
         return (f"K3 v2's ring of {GLOBAL_V2_STAGES[0]} stages of one "
-                f"{widest}-float window (residual span {plan.r_span}) needs "
-                f"{global_v2_smem(shape, widest, 1, GLOBAL_V2_STAGES[0])} "
-                "bytes of shared memory, over the "
-                f"{global_v2_budget(shape)} a block may use")
+                f"window of {widest} {kind} (residual span {plan.r_span}) "
+                f"needs {smem} bytes of shared memory, over the "
+                f"{global_v2_budget(shape, dtype)} a block may use")
     return None
 
 
 def global_v2_tables(plan, fsmp, device, layout):
     """
     K3 v2's tables of a :class:`DetectPlan` for scans that start at
-    ``fsmp``, for the ring ``layout`` (:func:`global_v2_layout`): a
-    namespace with ``res`` uint16 [n_tiles, passes, O, 256 / passes]
-    (passes = 256 / (warps npp)), in the kernel's reading order, entry
-    ``win[o, 0] + ((fsmp + base[i, o]) & 3) + fine[i, o, n]`` for the
-    brick-order node ``n = p (256 / passes) + q``; ``flat`` int32
-    [n_tiles, 256], each brick-order node's flat index or -1 for
-    padding; ``win`` int32 [O, 2]; all on ``device``; and the
-    ``layout`` and ``fsmp``.
+    ``fsmp``, for the ring ``layout`` (:func:`global_v2_layout`, of its
+    ``dtype``): a namespace with ``res`` uint16 [n_tiles, passes, O, 256 /
+    passes] (passes = 256 / (warps npp)), in the kernel's reading order,
+    entry ``win[o, 0] + ((fsmp + base[i, o]) & (unit - 1)) + fine[i, o,
+    n]`` for the brick-order node ``n = p (256 / passes) + q`` (unit the
+    elements of a 16-byte copy, :func:`global_v2_unit`); ``flat`` int32
+    [n_tiles, 256], each brick-order node's flat index or -1 for padding;
+    ``win`` int32 [O, 2]; all on ``device``; and the ``layout`` and
+    ``fsmp``.
 
     """
 
     warps, npp = layout.shape
     passes = GLOBAL_V2_TILE // (warps * npp)
     base = plan.base.astype(np.int64)
-    lead = (fsmp + base) & 3
+    lead = (fsmp + base) & (global_v2_unit(layout.dtype) - 1)
     entry = (layout.win[None, :, 0, None] + lead[:, :, None]
              + plan.fine.astype(np.int64))
     if entry.size and entry.max() >= layout.stage_floats:
         raise ValueError(f"a residual offset of {int(entry.max())} lies "
-                         f"past the {layout.stage_floats}-float stage")
+                         f"past the {layout.stage_floats}-element stage")
     res = entry.reshape(plan.n_tiles, plan.n_onsets, passes, -1)
     res = np.ascontiguousarray(res.transpose(0, 2, 1, 3), np.uint16)
     flat = np.where(plan.valid > 0, plan.perm.reshape(plan.valid.shape), -1)
@@ -1478,11 +1565,13 @@ def migrate_detect_global_v2_cuda(onsets_log, base, inv_available, fsmp,
     Launch K3 v2 (``csrc/migrate_detect_global_v2.cu``) on tensors on
     the card: K3's function on the plan's brick tiles through the
     ``tables`` of :func:`global_v2_tables` (built for this ``fsmp``),
-    the onset windows streamed through the tables' ring. ``max_shift``
+    the onset windows streamed through the tables' ring. The onsets (and
+    ``inv_available``) are of the ring layout's ``dtype``: float32 takes
+    K3 v2, float64 K3 v2 f64. ``max_shift``
     is the plan's largest traveltime: ``fsmp + nsamples + max_shift``
     must fit the onset block, so no traveltime needs K3's clamp. Returns
-    (tmax f32, targ int32 flat indices, tsum f32), each [n_tiles,
-    nsamples], asynchronously on the current stream;
+    (tmax, targ int32 flat indices, tsum), each [n_tiles, nsamples], tmax
+    and tsum of the onsets' type, asynchronously on the current stream;
     :func:`combine_brick_tiles` finishes the reduction. The plain
     version is :func:`quakemigrate_torch.ops.migrate.detect_reduce`.
 
@@ -1490,32 +1579,34 @@ def migrate_detect_global_v2_cuda(onsets_log, base, inv_available, fsmp,
 
     t = tables
     layout = t.layout
+    dtype = layout.dtype
+    shapes = global_v2_shapes(dtype)
     if t.fsmp != fsmp:
         raise ValueError(f"the tables were built for fsmp {t.fsmp}, not "
                          f"{fsmp}")
-    if layout.shape not in GLOBAL_V2_SHAPES:
+    if layout.shape not in shapes:
         raise ValueError(f"shape {layout.shape} is not one of "
-                         f"{tuple(GLOBAL_V2_SHAPES)}")
+                         f"{tuple(shapes)} ({dtype})")
     if layout.n_stages not in GLOBAL_V2_STAGES:
         raise ValueError(f"n_stages ({layout.n_stages}) must be one of "
                          f"{GLOBAL_V2_STAGES}")
     if nsamples < 1 or -(-nsamples // GLOBAL_V2_SBLK) > 65535:
         raise ValueError(f"bad geometry: nsamples {nsamples}")
     check_smem(global_v2_smem(layout.shape, layout.stage_floats,
-                              layout.group, layout.n_stages),
+                              layout.group, layout.n_stages, dtype),
                f"K3 v2's {layout.n_stages} ring stages of {layout.group} "
                "windows")
     device = onsets_log.device
-    for name, x, dtype in (("onsets_log", onsets_log, torch.float32),
-                           ("base", base, torch.int32),
-                           ("inv_available", inv_available, torch.float32),
-                           ("res", t.res, torch.uint16),
-                           ("flat", t.flat, torch.int32),
-                           ("win", t.win, torch.int32)):
+    for name, x, want in (("onsets_log", onsets_log, dtype),
+                          ("base", base, torch.int32),
+                          ("inv_available", inv_available, dtype),
+                          ("res", t.res, torch.uint16),
+                          ("flat", t.flat, torch.int32),
+                          ("win", t.win, torch.int32)):
         if x.device != device:
             raise ValueError(f"{name} is on {x.device}, not {device}")
-        if x.dtype != dtype or not x.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous {dtype} tensor")
+        if x.dtype != want or not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {want} tensor")
     n_onsets, t_len = onsets_log.shape
     n_tiles = base.shape[0]
     passes = t.res.shape[1]
@@ -1541,23 +1632,26 @@ def migrate_detect_global_v2_cuda(onsets_log, base, inv_available, fsmp,
     if device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {device}")
     rows, pitch = row_pitch(onsets_log)
-    outs = empty_outputs(n_tiles, nsamples, device)
+    outs = empty_outputs(n_tiles, nsamples, device, dtype)
     launch_kernel(
-        "qm_migrate_detect_global_v2", device, rows.data_ptr(), pitch,
-        base.data_ptr(), t.res.data_ptr(), t.flat.data_ptr(),
-        t.win.data_ptr(), inv_available.data_ptr(),
+        typed("qm_migrate_detect_global_v2", dtype), device,
+        rows.data_ptr(), pitch, base.data_ptr(), t.res.data_ptr(),
+        t.flat.data_ptr(), t.win.data_ptr(), inv_available.data_ptr(),
         *(x.data_ptr() for x in outs), n_onsets, n_tiles, fsmp, nsamples,
         layout.group, layout.stage_floats, layout.n_stages, *layout.shape,
     )
-    launches["migrate_detect_global_v2"] += 1
+    launches[typed("migrate_detect_global_v2", dtype)] += 1
     return outs
 
 
 def global_v2_blocks_per_sm(layout, device):
-    """Resident blocks per SM of K3 v2 at a ring layout."""
+    """Resident blocks per SM of K3 v2 (or K3 v2 f64, by the layout's
+    ``dtype``) at a ring layout."""
 
-    return blocks_per_sm("qm_migrate_detect_global_v2_blocks_per_sm",
-                         device, *layout.shape, layout.group,
+    name = ("qm_migrate_detect_global_v2_f64_blocks_per_sm"
+            if global_v2_itemsize(layout.dtype) == 8
+            else "qm_migrate_detect_global_v2_blocks_per_sm")
+    return blocks_per_sm(name, device, *layout.shape, layout.group,
                          layout.stage_floats, layout.n_stages)
 
 
@@ -1586,15 +1680,27 @@ class CudaDetect:
     runs. :meth:`marginalise`, locate's pass 2, runs M1 v2 on the same
     tables, and :meth:`map`, locate's map path, M2.
 
+    ``dtype`` is the element type of the prepared onsets and of the
+    outputs: float32 here and on :class:`CudaDetectVPU`'s route (other
+    types raise: those kernels have no other form); float32 or float64 on
+    :class:`CudaDetectGlobal`'s, the route of ``precision="double"``.
+
     """
 
     kernel = staticmethod(migrate_detect_v2_cuda)
+    # The element types this detector's kernels have a form for
+    dtypes = (torch.float32,)
 
     def __init__(self, traveltimes, node_count, fsmp, nsamples, device,
-                 tile=256, brick_shape=(8, 8, 4), plan=None):
+                 tile=256, brick_shape=(8, 8, 4), plan=None,
+                 dtype=torch.float32):
+        if dtype not in self.dtypes:
+            raise ValueError(f"{type(self).__name__} has no kernel for "
+                             f"{dtype} onsets (it takes {self.dtypes})")
         if plan is None:
             plan = DetectPlan(traveltimes, node_count, tile=tile,
                               brick_shape=brick_shape)
+        self.dtype = dtype
         self.device = resolve_device(device)
         self.fsmp = int(fsmp)
         self.nsamples = int(nsamples)
@@ -1630,8 +1736,8 @@ class CudaDetect:
 
     def prepare(self, onsets, mask, available):
         """The kernels' inputs of one window's onsets [O, T] on the plan's
-        device: (clipped, logged and masked onsets f32 [O, T],
-        inv_available f32 [1])."""
+        device: (clipped, logged and masked onsets [O, T], inv_available
+        [1]), both of the detector's ``dtype``."""
 
         if onsets.device != self.device:
             raise ValueError(
@@ -1640,9 +1746,9 @@ class CudaDetect:
         _check_onset_length(
             onsets, self.fsmp, self.nsamples, self._max_shift
         )
-        onsets_log = _prepare_onsets(onsets, mask).to(torch.float32)
+        onsets_log = _prepare_onsets(onsets, mask).to(self.dtype)
         inv_available = (
-            1.0 / torch.as_tensor(available, dtype=torch.float32,
+            1.0 / torch.as_tensor(available, dtype=self.dtype,
                                   device=self.device)
         ).reshape(1)
         return onsets_log.contiguous(), inv_available
@@ -1729,7 +1835,8 @@ class CudaDetectVPU(CudaDetect):
     kernel = staticmethod(migrate_detect_vpu_v2_cuda)
 
     def __init__(self, traveltimes, node_count, fsmp, nsamples, device,
-                 tile=512, brick_shape=(8, 8, 8), plan=None):
+                 tile=512, brick_shape=(8, 8, 8), plan=None,
+                 dtype=torch.float32):
         tile = tile if plan is None else plan.tile
         if tile not in VPU_TILES:
             raise ValueError(f"tile ({tile}) must be one of {VPU_TILES}")
@@ -1737,7 +1844,7 @@ class CudaDetectVPU(CudaDetect):
             plan = DetectPlan(traveltimes, node_count, tile=tile,
                               brick_shape=brick_shape)
         super().__init__(traveltimes, node_count, fsmp, nsamples, device,
-                         plan=plan)
+                         plan=plan, dtype=dtype)
 
     def _load(self, plan):
         """K2 v2's tables of the plan, on the device, and its ring depth
@@ -1813,6 +1920,10 @@ class CudaDetectGlobal(CudaDetect):
       the first tile on equal maxima (:func:`combine_flat_tiles`).
 
     :attr:`v2_refusal` says why K3 v2 was not taken (None where it was).
+    With ``dtype`` float64 (``precision="double"``) every kernel of the
+    route is its float64 form: K3 v2 f64 where its ring of doubles holds
+    the plan's widest window (:func:`global_v2_refusal` on float64), else
+    K3 f64; M1 f64 and M2 simple f64 for locate.
     :meth:`reduce` on CPU tensors runs the plain version,
     :func:`quakemigrate_torch.ops.migrate.detect_reduce`, and counts no
     launch; :meth:`reduce_log` runs the kernel only. For locate it keeps
@@ -1825,22 +1936,24 @@ class CudaDetectGlobal(CudaDetect):
 
     marginalise = CudaDetectVPU.marginalise
     map = CudaDetectVPU.map
+    dtypes = FLOAT_DTYPES
 
     def __init__(self, traveltimes, node_count, fsmp, nsamples, device,
-                 plan=None):
+                 plan=None, dtype=torch.float32):
         super().__init__(traveltimes, node_count, fsmp, nsamples, device,
-                         plan=plan)
+                         plan=plan, dtype=dtype)
         self.tt = self._put(np.ascontiguousarray(traveltimes, np.int32))
 
     def _load(self, plan):
-        """K3 v2's tables of the plan where it takes the plan (K3 reads
-        the flat table, :attr:`tt`)."""
+        """K3 v2's tables of the plan, for the detector's ``dtype``, where
+        it takes the plan (K3 reads the flat table, :attr:`tt`)."""
 
-        self.v2_refusal = global_v2_refusal(plan)
+        self.v2_refusal = global_v2_refusal(plan, self.dtype)
         self.layout = self.tables = None
         if self.v2_refusal is None:
-            self.layout = global_v2_layout(plan.r_spans,
-                                           global_v2_shape(plan.r_spans))
+            self.layout = global_v2_layout(
+                plan.r_spans, global_v2_shape(plan.r_spans, self.dtype),
+                dtype=self.dtype)
             self.tables = global_v2_tables(plan, self.fsmp, self.device,
                                            self.layout)
 

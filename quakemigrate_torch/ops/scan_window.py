@@ -20,7 +20,10 @@ window lengths in samples) or ``nkurt`` [n_slots] (kurtosis window
 lengths). A front end (:func:`stalta_front_end`,
 :func:`kurtosis_front_end`) maps such a block to (combined onsets
 [n_slots, T], available); :func:`detect_window` and
-:func:`detect_window_cuda` run any front end's window.
+:func:`detect_window_cuda` run any front end's window. The standard
+path's block is ``(onsets, available, slot_mask)``, the onsets computed
+before the window (:func:`onset_front_end`). Every window runs in its
+block's float type, float32 or float64.
 
 """
 
@@ -153,6 +156,20 @@ def kurtosis_front_end(nsmooth, taper_pad, min_onset_value):
     def front_end(channels, chan_mask, slot_mask, nkurt):
         return fused_kurtosis_onsets(channels, chan_mask, slot_mask, nkurt,
                                      nsmooth, taper_pad, min_onset_value)
+    return front_end
+
+
+def onset_front_end():
+    """The front end of the standard detect path, as a function of a
+    block ``(onsets, available, slot_mask)``: the onsets [n_slots, T]
+    already computed by the onset's ``calculate_onsets`` and scattered
+    into the canonical slot layout (``QuakeScan._device_inputs``), the
+    count of live slots (a one-element array) and the slot mask. Returns
+    (onsets, available): the window's device work is the migration
+    alone."""
+
+    def front_end(onsets, available, slot_mask):
+        return onsets, available
     return front_end
 
 

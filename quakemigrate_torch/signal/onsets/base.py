@@ -80,10 +80,14 @@ def gather_phase_waveforms(onset, data, phase, conditioned):
 class Onset(metaclass=abc.ABCMeta):
     """
     Base class for onset generators. Subclasses implement
-    :meth:`calculate_onsets` and :meth:`prepare_device_inputs` and normally override the ``pre_pad`` /
-    ``post_pad`` properties with values derived from their window lengths;
-    the base exposes them as plain read/write views of ``_pre_pad`` /
-    ``_post_pad``.
+    :meth:`calculate_onsets`, the one abstract method (as in the
+    reference), and normally override the ``pre_pad`` / ``post_pad``
+    properties with values derived from their window lengths; the base
+    exposes them as plain read/write views of ``_pre_pad`` /
+    ``_post_pad``. The onsets detect's fused window covers
+    (``STALTAOnset``, ``KurtosisOnset``) also implement
+    :meth:`prepare_device_inputs`; ``QuakeScan`` runs any other onset on
+    the reference's standard path, from ``calculate_onsets``.
 
     """
 
@@ -135,13 +139,22 @@ class Onset(metaclass=abc.ABCMeta):
     @abc.abstractmethod
     def calculate_onsets(self, data, timespan=None, device="cuda"):
         """Compute onset functions on ``device`` (the card unless the
-        caller asks for the CPU); returns ``(onsets, OnsetData)``."""
+        caller asks for the CPU); returns ``(onsets, OnsetData)``:
+        ``onsets`` [n, T] (a tensor, or a numpy array), and the record
+        whose ``onsets[station][phase]`` holds each available pair's row
+        (numpy or a tensor; its ``rows``, where given, maps
+        "{station}_{phase}" to that row's index in ``onsets``)."""
 
-    @abc.abstractmethod
     def prepare_device_inputs(self, data, slots, c_max=None, dtype=None):
-        """The fixed-shape channel block of one detect window; returns
-        ``(channels, chan_mask, slot_mask, *per-slot arguments,
-        availability)`` (STA/LTA: ``nsta, nlta``; kurtosis: ``nkurt``)."""
+        """The fixed-shape channel block of one detect window's fused
+        front end; returns ``(channels, chan_mask, slot_mask, *per-slot
+        arguments, availability)`` (STA/LTA: ``nsta, nlta``; kurtosis:
+        ``nkurt``). Only the onsets the fused window covers implement it;
+        any other onset takes the standard path."""
+
+        raise NotImplementedError(
+            f"{type(self).__name__} has no fused detect window; QuakeScan "
+            "runs it on the standard path (calculate_onsets)")
 
 
 @dataclass

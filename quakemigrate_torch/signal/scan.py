@@ -5,10 +5,13 @@ Continuous detect, and locate.
 :class:`DetectScan` runs the fused detect window window after window, with
 the host-to-device copy, the dispatch and the in-order drain of results
 pipelined as in the JAX ``QuakeScan`` (``_detect_loop``,
-``_run_detect_batch``, ``_drain_detect_results``). The input of each
-window is the fixed-shape channel block that the onset's
+``_run_detect_batch``, ``_drain_detect_results``). On the fused path the
+input of each window is the fixed-shape channel block that the onset's
 ``prepare_device_inputs`` builds (``STALTAOnset`` or ``KurtosisOnset``),
-and the window runs that onset's front end (``ops.scan_window``).
+and the window runs that onset's front end (``ops.scan_window``). On the
+standard path (any other ``Onset``, or ``fused_detect=False``) the input
+is the onsets that ``calculate_onsets`` computed, in the canonical slot
+layout (``ops.scan_window.onset_front_end``).
 
 :class:`QuakeScan` is the user's entry point for detect and locate, after
 the JAX ``QuakeScan``. Detect reads each window from the waveform archive
@@ -54,7 +57,7 @@ from quakemigrate_torch.io import (
 from quakemigrate_torch.lut import traveltime_table, unravel
 from quakemigrate_torch.seis import Stream, UTCDateTime, read
 from quakemigrate_torch.signal.local_mag import LocalMag
-from quakemigrate_torch.signal.onsets import KurtosisOnset, STALTAOnset
+from quakemigrate_torch.signal.onsets import KurtosisOnset, Onset, STALTAOnset
 from quakemigrate_torch.signal.pickers import GaussianPicker, PhasePicker
 from quakemigrate_torch.ops.migrate import (
     find_max_coa,
@@ -75,6 +78,7 @@ from quakemigrate_torch.ops.scan_window import (
     detect_window,
     detect_window_cuda,
     kurtosis_front_end,
+    onset_front_end,
     pack_detect_window,
     stalta_front_end,
     unpack_detect_window,
@@ -94,7 +98,8 @@ ROUTE_DETECTORS = {"k1_v2": CudaDetect, "k2_v2": CudaDetectVPU,
                    "k3": CudaDetectGlobal}
 
 
-def detect_route(traveltimes, node_count, device, kernel="auto"):
+def detect_route(traveltimes, node_count, device, kernel="auto",
+                 precision="single"):
     """
     The migration that :class:`DetectScan` takes on ``device`` for these
     traveltimes, chosen from the plan's sizes before any launch, as the
@@ -111,26 +116,34 @@ def detect_route(traveltimes, node_count, device, kernel="auto"):
       kernels' reasons once; the plan serves locate's M1 and M2;
     - with ``kernel="xla"`` (the reference's option that forces its XLA
       shift-table kernel), ``("k3", "kernel='xla'", plan)`` on a CUDA
-      device whatever the plan.
+      device whatever the plan;
+    - with ``precision="double"`` (the reference then keeps its XLA
+      functions in float64, whatever ``kernel`` is),
+      ``("k3", "precision='double'", plan)``: the float64 forms of the
+      route's kernels.
 
     On the "k3" route ``CudaDetectGlobal`` runs K3 v2, the ring kernel on
     the plan's brick tiles, where its ring holds the plan's widest window
-    (``global_v2_refusal``), else K3, the global-memory kernel, which
-    takes any span: K3 v2's reason then joins the route's reason and the
-    log line.
+    (``global_v2_refusal``; in float64, a ring of doubles), else K3, the
+    global-memory kernel, which takes any span: K3 v2's reason then joins
+    the route's reason and the log line.
 
     """
 
     if device.type != "cuda":
         return "plain", None, None
     plan = DetectPlan(traveltimes, node_count)
-    k3_reason = global_v2_refusal(plan)
-    k3 = ("K3 v2, the ring kernel on the brick plan" if k3_reason is None
-          else "K3, the global-memory kernel")
-    if kernel == "xla":
+    double = precision == "double"
+    k3_reason = global_v2_refusal(
+        plan, torch.float64 if double else torch.float32)
+    f64 = " f64" if double else ""
+    k3 = (f"K3 v2{f64}, the ring kernel on the brick plan"
+          if k3_reason is None else f"K3{f64}, the global-memory kernel")
+    if double or kernel == "xla":
+        forced = "precision='double'" if double else "kernel='xla'"
         if k3_reason is None:
-            return "k3", "kernel='xla'", plan
-        reasons = f"kernel='xla', K3 v2 ({k3_reason})"
+            return "k3", forced, plan
+        reasons = f"{forced}, K3 v2{f64} ({k3_reason})"
         logging.info(f"\t{reasons}; using {k3} on {device}.")
         return "k3", reasons, plan
     reason = v2_refusal(plan.n_onsets, plan.tile, plan.win_floats,
@@ -151,22 +164,24 @@ def detect_route(traveltimes, node_count, device, kernel="auto"):
 
 
 def route_detector(route, plan, traveltimes, node_count, fsmp, nsamples,
-                   device, cached=None):
+                   device, cached=None, dtype=torch.float32):
     """
     The CUDA detector of ``route`` (:func:`detect_route`) for windows of
-    ``nsamples`` scan samples after ``fsmp``: K1 v2's on "k1_v2", K2 v2's
-    on "k2_v2", K3's on "k3", built on the shared ``plan``. Returns
-    ``cached`` while its geometry holds; raises on the "plain" route.
+    ``nsamples`` scan samples after ``fsmp`` whose onsets migrate in
+    ``dtype``: K1 v2's on "k1_v2", K2 v2's on "k2_v2", K3's on "k3" (the
+    one route with float64 forms), built on the shared ``plan``. Returns
+    ``cached`` while its geometry and type hold; raises on the "plain"
+    route.
 
     """
 
     if route == "plain":
         raise ValueError("the plain route has no CUDA detector")
-    if cached is not None and (cached.fsmp, cached.nsamples) == (fsmp,
-                                                                nsamples):
+    if cached is not None and (cached.fsmp, cached.nsamples,
+                               cached.dtype) == (fsmp, nsamples, dtype):
         return cached
     return ROUTE_DETECTORS[route](traveltimes, node_count, fsmp, nsamples,
-                                  device, plan=plan)
+                                  device, plan=plan, dtype=dtype)
 
 
 class DetectScan:
@@ -187,8 +202,11 @@ class DetectScan:
         The onset front end of the windows
         (``ops.scan_window.stalta_front_end`` or ``kurtosis_front_end``):
         a block ``(channels, chan_mask, slot_mask, *per-slot arguments)``
-        to (combined onsets, available). Default: the classic STA/LTA of
-        the signal's energy with an onset floor of 0.4.
+        to (combined onsets, available); or, on the standard path,
+        ``ops.scan_window.onset_front_end``, whose block is ``(onsets,
+        available, slot_mask)``, onsets already computed. Default: the
+        classic STA/LTA of the signal's energy with an onset floor of
+        0.4.
     device : str or torch.device, default "cuda"
         Where the windows run: the card unless the caller asks for the
         CPU; "cuda" raises where CUDA is absent. On a CUDA device the
@@ -203,6 +221,11 @@ class DetectScan:
         on ``device``, where the caller has it already (QuakeScan shares
         one plan between detect and locate; ``detect_route(...,
         kernel="xla")`` gives K3's).
+    dtype : torch.dtype, default torch.float32
+        The element type the windows migrate in on the card: float64
+        (``precision="double"``) takes the float64 forms of the "k3"
+        route's kernels; the blocks come in that type. The CPU's plain
+        window runs in the blocks' own type.
 
     Attributes
     ----------
@@ -221,8 +244,10 @@ class DetectScan:
 
     def __init__(self, traveltimes, node_count, fsmp, lsmp,
                  front_end=stalta_front_end("classic", "energy", 0.4),
-                 device="cuda", drain_depth=DRAIN_DEPTH, route=None):
+                 device="cuda", drain_depth=DRAIN_DEPTH, route=None,
+                 dtype=torch.float32):
         self.device = resolve_device(device)
+        self.dtype = dtype
         self.traveltimes = np.ascontiguousarray(traveltimes, dtype=np.int32)
         self.node_count = tuple(int(n) for n in node_count)
         self.n_nodes = int(np.prod(self.node_count))
@@ -254,6 +279,7 @@ class DetectScan:
         self._detector = route_detector(
             self.route, self._plan, self.traveltimes, self.node_count,
             self.fsmp, nsamples, self.device, cached=self._detector,
+            dtype=self.dtype,
         )
         return self._detector
 
@@ -262,7 +288,8 @@ class DetectScan:
         Run every window of ``windows``, an iterable of
         ``(channels, chan_mask, slot_mask, *per-slot arguments)`` numpy
         blocks (STA/LTA: ``nsta, nlta``; kurtosis: ``nkurt``), the
-        blocks of the scan's front end.
+        blocks of the scan's front end (on the standard path ``(onsets,
+        available, slot_mask)``, numpy arrays or tensors).
 
         Returns one entry per window, in order:
         ``(max_coa, max_coa_n, max_idx, ijk)`` numpy arrays over the
@@ -289,7 +316,7 @@ class DetectScan:
         pending = deque()
         self.window_ms, self.dispatch_s, self.fetch_s = [], [], []
         for block in windows:
-            if block is None or np.asarray(block[2]).sum() == 0:
+            if block is None or float(block[2].sum()) == 0:
                 pending.append(None)
             else:
                 t0 = time.perf_counter()
@@ -314,9 +341,9 @@ class DetectScan:
             start.record(stream)
 
         def put(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(
-                self.device, non_blocking=True
-            )
+            if not torch.is_tensor(a):
+                a = torch.from_numpy(np.ascontiguousarray(a))
+            return a.to(self.device, non_blocking=True)
 
         block = tuple(put(a) for a in block)
         nsamples = block[0].shape[-1] - self.fsmp - self.lsmp
@@ -377,10 +404,14 @@ class QuakeScan:
     ----------
     archive : quakemigrate_torch.io.Archive
     lut : quakemigrate_torch.lut.LUT
-    onset : STALTAOnset or KurtosisOnset
-        (``quakemigrate_torch.signal.onsets``); another Onset subclass
-        raises OnsetTypeError (the reference's non-fused detect path is
-        not ported).
+    onset : Onset
+        Any :class:`~quakemigrate_torch.signal.onsets.Onset`: a
+        ``STALTAOnset`` or ``KurtosisOnset`` (the classes themselves, not
+        subclasses) takes detect's fused window unless ``fused_detect`` is
+        False; any other onset, the deprecated STA/LTA classes among them,
+        takes the reference's standard path: ``calculate_onsets(data,
+        device=...)`` on the scan's device, then the onsets migrated in
+        the canonical slot layout. Anything else raises OnsetTypeError.
     run_path, run_name : str
         The run directory is ``run_path/run_name`` (``run_subname``
         appends a subdirectory name).
@@ -414,9 +445,10 @@ class QuakeScan:
     write_marginal_coalescence, write_coalescence
         The marginalised 3-D coalescence map and the 4-D map
         ([nx, ny, nz, nsamples] over the event's window) as .npy files.
-        The 4-D map takes the map path where ``n_nodes x nsamples x 4``
-        bytes are within ``locate_map_memory_limit`` (default 4e9), else
-        it is logged as not written and locate takes the two-pass path.
+        The 4-D map takes the map path where ``n_nodes x nsamples`` x
+        (4 bytes, or 8 under ``precision="double"``) are within
+        ``locate_map_memory_limit`` (default 4e9), else it is logged as
+        not written and locate takes the two-pass path.
     plot_event_video, plot_event_summary
         ``plot_event_video`` raises NotImplementedError in locate (plot/
         is not ported); ``plot_event_summary`` is logged once as not
@@ -427,18 +459,29 @@ class QuakeScan:
         The reference's migration kernel option. "auto" and "mxu" take
         :func:`detect_route`'s kernel; "xla" (the reference's XLA
         shift-table kernel) takes ``CudaDetectGlobal`` (K3 v2, or K3 on a
-        plan too wide for K3 v2's ring), whatever the plan. Other values raise ValueError.
-    precision : "single", default
-        "double" raises ValueError: no float64 detect or marginalisation
-        kernel exists.
+        plan too wide for K3 v2's ring), whatever the plan. Other values
+        raise ValueError.
+    precision : "single" or "double", default "single"
+        The element type of the device work: float32, or float64 with
+        "double" (the fused blocks, the onsets, the migration, the maps
+        and the marginalisation), as the reference's. On the card
+        "double" takes the "k3" route whatever ``kernel`` is (with
+        "mxu" the reference's notice is logged): K3 v2 f64, or K3 f64 on
+        a plan too wide for its ring of doubles, then M1 f64 and M2
+        simple f64 for locate.
     mesh : None
         Anything else raises NotImplementedError (the port has no
         multi-GPU path).
-    threads, tile, mxu_encoding, compilation_cache, fused_detect, detect_batch
+    fused_detect : bool, default True
+        Detect's fused window for ``STALTAOnset`` and ``KurtosisOnset``;
+        False takes the standard path (see ``onset``) for them too.
+    threads, tile, mxu_encoding, compilation_cache, detect_batch
         The reference's options that change only its speed: accepted,
         validated as the reference validates them (``mxu_encoding`` one
         of "i8x3", "i8x2", "bf16hl"; ``detect_batch`` at least 1), and
-        without effect here.
+        without effect here: the port dispatches one window at a time on
+        either path (the reference's batch of windows equals one window
+        at a time).
     time_step, n_cores, sampling_rate
         The reference's deprecated names: ``time_step`` sets
         ``timestep``, ``n_cores`` sets ``threads``, ``sampling_rate``
@@ -520,7 +563,7 @@ class QuakeScan:
         # takes CudaDetectGlobal (K3 v2, or K3); "auto" and "mxu"
         # detect_route's kernel.
         "kernel": "auto",
-        # "double" raises: no float64 kernel (the windows run in float32)
+        # "double": float64 device work, on the "k3" route's float64 forms
         "precision": "single",
         # Anything but None raises: the port has no multi-GPU path
         "mesh": None,
@@ -534,17 +577,18 @@ class QuakeScan:
         # The reference's XLA compilation cache: the port compiles nothing
         # per run (the kernels are built once, at first use)
         "compilation_cache": True,
-        # The reference's fused window: the port's windows are always
-        # fused (STALTAOnset and KurtosisOnset)
+        # The fused window for STALTAOnset and KurtosisOnset; False takes
+        # the standard path (calculate_onsets, then the migration)
         "fused_detect": True,
         # Windows a dispatch in the reference, a vmap whose results equal
-        # one window at a time: the port dispatches one window at a time
+        # one window at a time: the port dispatches one window at a time,
+        # on the fused and the standard path
         "detect_batch": 1,
     }
 
     def __init__(self, archive, lut, onset, run_path, run_name,
                  device="cuda", **kwargs):
-        if not isinstance(onset, (STALTAOnset, KurtosisOnset)):
+        if not isinstance(onset, Onset):
             raise util.OnsetTypeError
         self.device = resolve_device(device)
         self.archive = archive
@@ -565,11 +609,6 @@ class QuakeScan:
                 f"mxu_encoding must be 'i8x3', 'i8x2' or 'bf16hl', got "
                 f"{self.mxu_encoding!r}"
             )
-        if self.precision == "double":
-            raise ValueError(
-                "precision='double': quakemigrate_torch has no float64 "
-                "detect or marginalisation kernel yet (ROADMAP.md); use "
-                "precision='single'")
         if self.mesh is not None:
             raise NotImplementedError(
                 "mesh: the multi-GPU path is not ported yet (ROADMAP.md "
@@ -616,6 +655,26 @@ class QuakeScan:
         if self.run.stage == "locate":
             return out + f"\t\tMarginal window    = {self.marginal_window} s\n"
         return out + f"\t\tTime step          = {self.timestep} s\n"
+
+    @property
+    def _dtype(self):
+        """The numpy element type of the device work: float64 under
+        ``precision="double"``, else float32 (the reference's)."""
+
+        return np.float64 if self.precision == "double" else np.float32
+
+    @property
+    def _torch_dtype(self):
+        return torch.float64 if self.precision == "double" else torch.float32
+
+    @property
+    def _fused_active(self):
+        """Detect's fused window: ``fused_detect`` and an onset of the
+        classes the fused window covers (not a subclass), as the
+        reference tests it."""
+
+        return self.fused_detect and type(self.onset) in (STALTAOnset,
+                                                          KurtosisOnset)
 
     @property
     def scan_rate(self):
@@ -674,14 +733,25 @@ class QuakeScan:
 
         tt = self._traveltime_table()
         if self._route is None:
+            if self.kernel == "mxu" and self.precision == "double":
+                # The reference's notice (its _build_device_state)
+                logging.info(
+                    "\tkernel='mxu' computes in reduced-precision table "
+                    "encodings (~f32 accurate); precision='double' keeps "
+                    "the XLA shift-table kernel.")
             self._route = detect_route(tt, tuple(self.lut.node_count),
-                                       self.device, self.kernel)
+                                       self.device, self.kernel,
+                                       self.precision)
         return self._route
 
     def _front_end_settings(self):
-        """(front end factory, settings) of detect's fused window
-        (``ops.scan_window``) for this scan's onset and timestep."""
+        """(front end factory, settings) of detect's windows
+        (``ops.scan_window``) for this scan's onset and timestep: the
+        onset's fused front end, or on the standard path
+        ``onset_front_end``."""
 
+        if not self._fused_active:
+            return onset_front_end, ()
         if isinstance(self.onset, KurtosisOnset):
             return (kurtosis_front_end,
                     self.onset.fused_static_args(self.timestep))
@@ -702,6 +772,7 @@ class QuakeScan:
                 self._traveltime_table(), tuple(self.lut.node_count), fsmp,
                 lsmp, front_end=factory(*settings), device=self.device,
                 drain_depth=self.detect_drain_depth, route=route,
+                dtype=self._torch_dtype,
             )
             self._detect_scan_key = key
         return scan
@@ -940,15 +1011,29 @@ class QuakeScan:
                 self.on_window(i, block, result)
 
     def _prepare_window(self, data):
-        """Host-side stage of one detect window: the channel block and its
-        availability row. A window with no live slot raises
-        DataAvailabilityException before any device work."""
+        """The stage of one detect window before its dispatch: its block
+        and its availability row. On the fused path the onset's channel
+        block (``prepare_device_inputs`` in the scan's dtype); on the
+        standard path the onsets of ``calculate_onsets`` on the scan's
+        device, scattered into the canonical slot layout in the scan's
+        dtype (:meth:`_device_inputs`), as the block ``(onsets,
+        available, slot_mask)`` of ``ops.scan_window.onset_front_end``. A
+        window with no live slot raises DataAvailabilityException before
+        any migration."""
 
-        *block, availability = self.onset.prepare_device_inputs(
-            data, self._canonical_slots(), dtype=np.float32)
-        if block[2].sum() == 0:
+        if self._fused_active:
+            *block, availability = self.onset.prepare_device_inputs(
+                data, self._canonical_slots(), dtype=self._dtype)
+            if block[2].sum() == 0:
+                raise util.DataAvailabilityException
+            return tuple(block), availability
+        onsets, onset_data = self.onset.calculate_onsets(data,
+                                                         device=self.device)
+        block, mask, available = self._device_inputs(onsets, onset_data)
+        if available == 0:
             raise util.DataAvailabilityException
-        return tuple(block), availability
+        return ((block, np.asarray(available, dtype=self._dtype), mask),
+                onset_data.availability)
 
     # ------------------------------------------------------------------
     # locate
@@ -1123,30 +1208,44 @@ class QuakeScan:
 
     def _device_inputs(self, onsets, onset_data):
         """
-        Scatter the computed onsets [n, T] (on the scan's device) into the
-        fixed canonical slot layout, as float32, and build the
-        availability mask: (block f32 [n_slots, T], mask f32 [n_slots],
-        available).
+        Scatter the computed onsets [n, T] into the fixed canonical slot
+        layout on the scan's device, in the scan's dtype (float32, or
+        float64 under ``precision="double"``), as the reference's
+        ``_device_inputs``, and build the availability mask: (block
+        [n_slots, T] tensor, mask [n_slots] numpy, available). Each slot's
+        row is ``onsets[OnsetData.rows[key]]`` where the onset gives
+        ``rows`` (the port's onsets), else ``OnsetData.onsets[station]
+        [phase]``, a numpy array or a tensor (the reference's contract of
+        ``calculate_onsets``, which a user's onset may follow).
 
         """
 
         slots = {f"{station}_{phase}": s for s, (phase, station)
                  in enumerate(self._canonical_slots())}
-        slot_idx, row_idx = [], []
-        for station, phase_onsets in onset_data.onsets.items():
-            for phase in phase_onsets:
-                key = f"{station}_{phase}"
-                slot_idx.append(slots[key])
-                row_idx.append(onset_data.rows[key])
-        block = torch.ones((len(slots), onsets.shape[-1]),
-                           dtype=torch.float32, device=onsets.device)
-        mask = torch.zeros(len(slots), dtype=torch.float32,
-                           device=onsets.device)
-        slot_idx = torch.tensor(slot_idx, device=onsets.device)
-        block[slot_idx] = onsets[torch.tensor(row_idx,
-                                              device=onsets.device)].float()
-        mask[slot_idx] = 1.0
-        return block, mask, float(len(row_idx))
+        dtype = self._torch_dtype
+        mask = np.zeros(len(slots), dtype=self._dtype)
+        rows = [(slots[f"{station}_{phase}"], station, phase)
+                for station, phase_onsets in onset_data.onsets.items()
+                for phase in phase_onsets]
+        for slot, _, _ in rows:
+            mask[slot] = 1.0
+        t_len = onsets.shape[-1]
+        if onset_data.rows is not None and torch.is_tensor(onsets):
+            idx = [onset_data.rows[f"{station}_{phase}"]
+                   for _, station, phase in rows]
+            block = torch.ones((len(slots), t_len), dtype=dtype,
+                               device=self.device)
+            block[torch.tensor([r[0] for r in rows], device=self.device)] = (
+                onsets.to(self.device)[torch.tensor(idx, device=self.device)]
+                .to(dtype))
+        else:
+            host = np.ones((len(slots), t_len), dtype=self._dtype)
+            for slot, station, phase in rows:
+                row = onset_data.onsets[station][phase]
+                host[slot] = (row.cpu().numpy() if torch.is_tensor(row)
+                              else row)
+            block = torch.from_numpy(host).to(self.device)
+        return block, mask, float(mask.sum())
 
     def _flat_traveltimes(self):
         """The traveltimes as a CPU tensor, for the plain CPU path."""
@@ -1165,8 +1264,8 @@ class QuakeScan:
 
         Two paths, as the JAX ``_compute`` chooses them. The map path,
         where ``write_coalescence`` is set and the map's ``n_nodes x
-        nsamples x 4`` bytes are within ``locate_map_memory_limit``: the
-        4-D map (M2 on the card: the route's detector's ``map``; the plain
+        nsamples`` x the element's bytes are within
+        ``locate_map_memory_limit``: the 4-D map (M2 on the card: the route's detector's ``map``; the plain
         ``migrate_map`` on the CPU), pass 1's outputs from it
         (``find_max_coa``, on the map's device), and the map copied back
         through a pinned buffer as [nx, ny, nz, nsamples]. Otherwise the
@@ -1182,13 +1281,14 @@ class QuakeScan:
         onsets, onset_data = self.onset.calculate_onsets(
             data, device=self.device)
         block, mask, available = self._device_inputs(onsets, onset_data)
+        mask = torch.from_numpy(mask).to(self.device)
         fsmp = util.time2sample(self.pre_pad, onset_data.sampling_rate)
         lsmp = util.time2sample(self.post_pad, onset_data.sampling_rate)
         nsamples = block.shape[-1] - fsmp - lsmp
         t1 = time.perf_counter()
 
         n_nodes = int(np.prod(self.lut.node_count))
-        map_bytes = n_nodes * nsamples * 4
+        map_bytes = n_nodes * nsamples * np.dtype(self._dtype).itemsize
         retain_map = (self.write_coalescence
                       and map_bytes <= self.locate_map_memory_limit)
         if self.write_coalescence and not retain_map:
@@ -1218,7 +1318,7 @@ class QuakeScan:
             detector = self._locate_detector = route_detector(
                 route, plan, self._traveltime_table(),
                 tuple(self.lut.node_count), fsmp, nsamples, self.device,
-                cached=self._locate_detector,
+                cached=self._locate_detector, dtype=self._torch_dtype,
             )
             onsets_log, inv_available = detector.prepare(block, mask,
                                                          available)
@@ -1261,7 +1361,7 @@ class QuakeScan:
     def _dispatch_marginalise(self, event):
         """
         Pass 2 for a trimmed event: the coalescence summed over the
-        marginal window ``[first, last)`` of ``trim_bounds``, f32 [n_nodes]
+        marginal window ``[first, last)`` of ``trim_bounds``, [n_nodes]
         in flat node order. On the card M1 runs on the main thread and its
         result is copied to a pinned host buffer after a recorded CUDA
         event; returns (host buffer, event), and the post thread waits on
@@ -1387,7 +1487,7 @@ class QuakeScan:
         """
         From the marginalised map (flat, [n_nodes]; or, on the map path,
         with ``marginal`` None, the kept map4d summed over its samples in
-        its own float32, as the JAX map path sums it), compute the three
+        its own type, as the JAX map path sums it), compute the three
         location estimates: interpolated spline peak, 3-D Gaussian fit,
         and global covariance. Returns the normalised map (nx, ny, nz).
 

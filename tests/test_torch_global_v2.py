@@ -244,7 +244,8 @@ def test_tables_against_the_plan(shape, fsmp):
 
 
 def _k3_v2_emulation(logged, plan, tables, inv, fsmp, nsamples):
-    """K3 v2 in numpy, float32, through the module's tables: per block
+    """K3 v2 in numpy, in the logs' type (float32; float64 for K3 v2
+    f64), through the module's tables: per block
     (tile, 128 samples) and pass, the ring's stages filled one group of G
     onsets at a time (each window from its 16-byte aligned column, cut
     at the row's end; the rest of the stage NaN, stale), each onset's
@@ -260,32 +261,36 @@ def _k3_v2_emulation(logged, plan, tables, inv, fsmp, nsamples):
     flat = tables.flat.numpy()
     win = tables.win.numpy()
     n_onsets, t_len = logged.shape
+    # The element type (float32, or float64 for K3 v2 f64) and its
+    # 16-byte copy unit; the row pitch is a multiple of 4 elements
+    dtype = logged.dtype
+    unit = 16 // logged.itemsize
     ld = -(-t_len // 4) * 4
-    rows = np.zeros((n_onsets, ld), np.float32)
+    rows = np.zeros((n_onsets, ld), dtype)
     rows[:, :t_len] = logged
     passes, slice_ = res.shape[1], res.shape[3]
     lanes = np.arange(128)
     big = np.iinfo(np.int32).max
     shape = (plan.n_tiles, nsamples)
-    tmax, targ = np.zeros(shape, np.float32), np.zeros(shape, np.int64)
-    tsum = np.zeros(shape, np.float32)
+    tmax, targ = np.zeros(shape, dtype), np.zeros(shape, np.int64)
+    tsum = np.zeros(shape, dtype)
     for i in range(plan.n_tiles):
         for s0 in range(0, nsamples, 128):
-            red_max = np.full((warps, 128), -np.inf, np.float32)
+            red_max = np.full((warps, 128), -np.inf, dtype)
             red_arg = np.full((warps, 128), big, np.int64)
-            red_sum = np.zeros((warps, 128), np.float32)
+            red_sum = np.zeros((warps, 128), dtype)
             for p in range(passes):
-                acc = np.zeros((slice_, 128), np.float32)
+                acc = np.zeros((slice_, 128), dtype)
                 for o0 in range(0, n_onsets, lay.group):
                     group = range(o0, min(o0 + lay.group, n_onsets))
-                    stage = np.full(lay.stage_floats, np.nan, np.float32)
+                    stage = np.full(lay.stage_floats, np.nan, dtype)
                     for o in group:
-                        col = (fsmp + int(plan.base[i, o]) + s0) & ~3
+                        col = (fsmp + int(plan.base[i, o]) + s0) & ~(unit - 1)
                         n = min(int(win[o, 1]), ld - col)
                         stage[win[o, 0]:win[o, 0] + n] = rows[o, col:col + n]
                     for o in group:
                         acc = acc + stage[res[i, p, o][:, None] + lanes]
-                coa = np.exp(acc * np.float32(inv))
+                coa = np.exp(acc * dtype.type(inv))
                 nodes = flat[i, p * slice_:(p + 1) * slice_]
                 for q in range(slice_):
                     if nodes[q] < 0:

@@ -40,6 +40,7 @@ from quakemigrate_tpu.ops import kurtosis as j_kurtosis
 from quakemigrate_tpu.ops import scan_window as j_scan_window
 from quakemigrate_tpu.seis import read as j_read
 from quakemigrate_tpu.signal.onsets import KurtosisOnset as JKurtosisOnset
+from quakemigrate_torch.lut import lut_from_reference
 from quakemigrate_torch.ops import kurtosis
 from quakemigrate_torch.ops.scan_window import (
     detect_window_fused_kurtosis,
@@ -330,17 +331,35 @@ def test_device_inputs_and_pads_equal_jax(workspace):
 
 
 def test_quakescan_refuses_other_onsets(workspace):
+    """QuakeScan refuses an onset that is not an Onset (as the reference
+    does); any Onset subclass is taken (the next test)."""
+
+    class NotAnOnset:
+        sampling_rate = ws.SPS
+
+        def calculate_onsets(self, data, timespan=None, device="cuda"):
+            raise NotImplementedError
+
+    with pytest.raises(OnsetTypeError):
+        QuakeScan(None, None, NotAnOnset(), "runs", "x", device="cpu")
+
+
+def test_quakescan_accepts_a_custom_onset(workspace):
+    """An Onset subclass that implements only calculate_onsets (the
+    reference's one abstract method) is instantiated and taken by
+    QuakeScan, on the standard path; prepare_device_inputs raises
+    NotImplementedError on it."""
+
     class Custom(Onset):
         def calculate_onsets(self, data, timespan=None, device="cuda"):
             raise NotImplementedError
 
-        def prepare_device_inputs(self, data, slots, c_max=None,
-                                  dtype=None):
-            raise NotImplementedError
-
-    with pytest.raises(OnsetTypeError):
-        QuakeScan(None, None, Custom(sampling_rate=ws.SPS), "runs", "x",
-                  device="cpu")
+    onset = Custom(sampling_rate=ws.SPS)
+    with pytest.raises(NotImplementedError):
+        onset.prepare_device_inputs(None, [])
+    lut = lut_from_reference(ws.reference_state(workspace["lut"]))
+    scan = QuakeScan(None, lut, onset, "runs", "x", device="cpu")
+    assert scan.onset is onset and not scan._fused_active
 
 
 @pytest.fixture(scope="module")

@@ -215,7 +215,7 @@ def test_m1_wrapper_checks_window_and_onsets(inputs, start, length, t_cut,
         onsets, torch.from_numpy(inputs["mask"].astype(np.float32)),
         inputs["available"])
     onsets_log = onsets_log[:, :onsets_log.shape[1] - t_cut].contiguous()
-    monkeypatch.setattr(cm, "check_kernel_args", lambda *a: (
+    monkeypatch.setattr(cm, "check_kernel_args", lambda *a, **k: (
         N_ONSETS, onsets_log.shape[1], detector.base.shape[0],
         detector.tile))
     monkeypatch.setattr(cm, "launch_kernel", lambda *a: pytest.fail(
@@ -245,7 +245,7 @@ def test_m1_wrapper_passes_chunk_table(long_inputs, length, n_chunks,
         torch.from_numpy(long_inputs["onsets"]),
         torch.from_numpy(long_inputs["mask"].astype(np.float32)),
         long_inputs["available"])
-    monkeypatch.setattr(cm, "check_kernel_args", lambda *a: (
+    monkeypatch.setattr(cm, "check_kernel_args", lambda *a, **k: (
         N_ONSETS, onsets_log.shape[1], detector.base.shape[0],
         detector.tile))
     seen = []

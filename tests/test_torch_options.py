@@ -16,7 +16,10 @@ the JAX classes on the same kwargs (CPU only):
   ``mxu_encoding``, ``detect_batch``, ``threads``, ``tile``,
   ``fused_detect``, ``compilation_cache``) are accepted and validated as
   the reference validates them; ``kernel="xla"`` takes K3 on a CUDA
-  device type; ``precision="double"`` and a ``mesh`` raise.
+  device type; ``precision="double"`` is accepted as the reference
+  accepts it (float64 device work, on the "k3" route of a CUDA device
+  type: tests/test_torch_double.py); a ``mesh`` raises, with either
+  precision.
 
 """
 
@@ -134,13 +137,37 @@ def test_bad_device_options_raise_as_the_reference(luts, tmp_path, capsys,
 
 
 def test_precision_double_and_mesh_raise(luts, tmp_path):
+    """A mesh with precision="double" raises for the mesh (A12 is not
+    ported); the precision alone does not (the two tests below)."""
+
     _, lut = luts
-    with pytest.raises(ValueError, match="precision"):
+    with pytest.raises(NotImplementedError, match="mesh"):
         QuakeScan(None, lut, STALTAOnset(sampling_rate=ws.SPS),
-                  str(tmp_path), "port", device="cpu", precision="double")
+                  str(tmp_path), "port", device="cpu", precision="double",
+                  mesh=object())
+
+
+def test_mesh_raises(luts, tmp_path):
+    _, lut = luts
     with pytest.raises(NotImplementedError, match="mesh"):
         QuakeScan(None, lut, STALTAOnset(sampling_rate=ws.SPS),
                   str(tmp_path), "port", device="cpu", mesh=object())
+
+
+def test_precision_double_is_accepted_as_the_reference(luts, tmp_path,
+                                                       capsys):
+    """precision="double" is accepted by both classes and sets float64
+    device work (the reference's ``_dtype``)."""
+
+    j_lut, lut = luts
+    jax_scan = JQuakeScan(None, j_lut, JSTALTAOnset(sampling_rate=ws.SPS),
+                          str(tmp_path), "jax", compilation_cache=False,
+                          precision="double")
+    scan = QuakeScan(None, lut, STALTAOnset(sampling_rate=ws.SPS),
+                     str(tmp_path), "port", device="cpu", precision="double")
+    assert scan.precision == jax_scan.precision == "double"
+    assert scan._dtype == jax_scan._dtype == np.float64
+    assert scan._torch_dtype == torch.float64
 
 
 @pytest.mark.parametrize("kernel, route", [("auto", "k1_v2"),

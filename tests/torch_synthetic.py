@@ -136,10 +136,11 @@ MARGINAL_WINDOW = 1.0
 
 
 def jax_pipeline(workspace, run_name, locate=True, kurtosis=False,
-                 **locate_options):
+                 onset=None, **locate_options):
     """The JAX package's detect -> trigger -> locate over the workspace's
     span, no figures, into ``root/runs/run_name`` (with ``kurtosis``, the
-    kurtosis onset). Returns the run dir."""
+    kurtosis onset; ``onset``, a JAX onset, takes the place of either).
+    Returns the run dir."""
 
     from quakemigrate_tpu import QuakeScan, Trigger
     from quakemigrate_tpu.io import Archive
@@ -149,7 +150,7 @@ def jax_pipeline(workspace, run_name, locate=True, kurtosis=False,
     archive = Archive(archive_path=workspace["archive"],
                       stations=workspace["stations"],
                       archive_format="YEAR/JD/STATION")
-    onset = make_onset(onsets, kurtosis)
+    onset = make_onset(onsets, kurtosis) if onset is None else onset
     scan = QuakeScan(archive, workspace["lut"], onset=onset,
                      run_path=str(runs), run_name=run_name,
                      timestep=TIMESTEP, marginal_window=MARGINAL_WINDOW,
@@ -163,9 +164,10 @@ def jax_pipeline(workspace, run_name, locate=True, kurtosis=False,
     return runs / run_name
 
 
-def port_scan(workspace, run_name, kurtosis=False, **options):
+def port_scan(workspace, run_name, kurtosis=False, onset=None, **options):
     """The port's QuakeScan on the CPU over the workspace, with the
-    settings of :func:`jax_pipeline`."""
+    settings of :func:`jax_pipeline` (``onset``, a port onset, takes the
+    place of the workspace's)."""
 
     from quakemigrate_torch.io import Archive
     from quakemigrate_torch.lut import StationTable, lut_from_reference
@@ -176,7 +178,7 @@ def port_scan(workspace, run_name, kurtosis=False, **options):
                       StationTable.of(workspace["stations"]),
                       archive_format="YEAR/JD/STATION")
     lut = lut_from_reference(reference_state(workspace["lut"]))
-    onset = make_onset(onsets, kurtosis)
+    onset = make_onset(onsets, kurtosis) if onset is None else onset
     return QuakeScan(archive, lut, onset, str(workspace["root"] / "runs"),
                      run_name, device="cpu", timestep=TIMESTEP,
                      marginal_window=MARGINAL_WINDOW,
@@ -184,13 +186,13 @@ def port_scan(workspace, run_name, kurtosis=False, **options):
 
 
 def port_pipeline(workspace, run_name, locate=True, kurtosis=False,
-                  **locate_options):
+                  onset=None, **locate_options):
     """The port's detect -> trigger -> locate on the CPU, as
     :func:`jax_pipeline`. Returns (run dir, scan)."""
 
     from quakemigrate_torch.signal import Trigger
 
-    scan = port_scan(workspace, run_name, kurtosis=kurtosis,
+    scan = port_scan(workspace, run_name, kurtosis=kurtosis, onset=onset,
                      **locate_options)
     scan.detect(START, END)
     Trigger(scan.lut, run_path=str(workspace["root"] / "runs"),
@@ -223,3 +225,59 @@ def counts_workspace(workspace, root, file_format):
             tr.data = np.round(tr.data * COUNTS_SCALE).astype(np.int32)
         st.write(str(day_dir / path.name), format=file_format, **options)
     return dict(workspace, archive=archive, root=root)
+
+
+def scanmseed_counts(run_dir):
+    """{channel: int64 counts} of a run's .scanmseed over the workspace's
+    day, read with the JAX package's reader."""
+
+    from quakemigrate_tpu.seis import read
+
+    st = read(str(run_dir / "detect" / "scanmseed" / "2021_049.scanmseed"))
+    return {tr.stats.station: tr.data.astype(np.int64) for tr in st}
+
+
+def assert_scanmseed_close(got, want, rtol):
+    """COA and COA_N within max(1 count, ``rtol`` of the value) of the
+    reference's (the integer scaling of the written traces), X, Y and Z
+    equal."""
+
+    assert sorted(got) == sorted(want)
+    for name in ("COA", "COA_N"):
+        bound = np.maximum(1, rtol * np.abs(want[name]))
+        assert (np.abs(got[name] - want[name]) <= bound).all(), name
+    for name in ("X", "Y", "Z"):
+        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+
+
+def event_rows(run_dir):
+    """The header and rows of a run's one .event file."""
+
+    import csv
+
+    files = sorted((run_dir / "locate" / "events").glob("*.event"))
+    assert len(files) == 1, files
+    with open(files[0], newline="") as f:
+        return list(csv.reader(f))
+
+
+def _digit_unit(text):
+    mantissa, _, exponent = text.lower().partition("e")
+    decimals = len(mantissa.partition(".")[2])
+    return 10.0 ** (-decimals + (int(exponent) if exponent else 0))
+
+
+def assert_event_close(got_dir, want_dir):
+    """The two runs' .event files: the same header, text fields equal,
+    each number within one unit of the reference's last written digit
+    (float32 sums round the location a digit apart now and then)."""
+
+    got, want = event_rows(got_dir), event_rows(want_dir)
+    assert got[0] == want[0] and len(got) == len(want) == 2
+    for name, a, b in zip(want[0], got[1], want[1]):
+        try:
+            x, y = float(a), float(b)
+        except ValueError:
+            assert a == b, name
+        else:
+            assert abs(x - y) <= _digit_unit(b) * (1 + 1e-9), (name, a, b)
