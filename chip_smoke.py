@@ -108,6 +108,32 @@ Smoke run of quakemigrate_torch on one NVIDIA GPU.
    events with device="cpu" and to locates on the card with the responses
    read from RESP and from SAC_PZ. Prints the per-event split with
    magnitudes.
+   ops_path: quakemigrate_torch.ops' device functions, the JAX package's
+   public names, routed by the tensors' device (ops/routed.py), on the
+   Icequake flat table on the card (259,008 nodes, 26 onsets, windows of
+   625 samples from step 4's records): migrate_detect_batch over 4
+   windows on the "k3" route's K3 v2 (its detector built once for the
+   batch) equal to 4 migrate_detect calls bit for bit, each within 1e-5
+   (max) and 1e-4 (normalised) of the plain migrate_detect on the card,
+   the argmax tie-consistent; the same in float64 on K3 v2 f64, within
+   1e-12; migrate_map over 61 samples on M2's simple form (and its f64
+   form) within 1e-5 (1e-12) of the plain map; detect_reduce on a padded
+   slab (node_offset 100,000, n_nodes_real 150,000, 4,000 padding rows)
+   bit for bit the unpadded slice's and within 1e-5 of the plain slab;
+   a flat table whose span K3 v2's ring cannot hold (one traveltime of
+   32,768) on K3 and K3 f64, held to the plain version. No plain version
+   runs on a CUDA tensor in the routed calls; each kernel's launches
+   counted from 0, and each timed (CUDA events) beside the routed call,
+   the plain version and its bound.
+   export_path: quakemigrate_torch.export on archive_locate's and
+   vt_locate_mags' run directories (kept past their phases): read_run's
+   records, one per .event; write_quakeml parsed with xml.etree, one
+   event per .event file, each ML equal to the .event's; nlloc_obs one
+   line per pick that is not -1; the Snuffler markers (one phase line a
+   usable pick) and stations; sac_mfast's SAC files read back by the
+   port's reader. Where the device="cpu" locate of vt_locate_mags wrote
+   .event, .picks and .amps files equal to the card's byte for byte, its
+   exports are byte-equal to the card run's too.
    map_path: M2 against the plain migrate_map on the card at the
    Icequake locate window (61 samples, the Icequake plan) and the VT one
    (201 samples, the VT plan): within 1e-5 of each value, its per-sample
@@ -1078,7 +1104,7 @@ def archive_onset():
     return onset
 
 
-def archive_detect_path(device, f1_route):
+def archive_detect_path(device, f1_route, keep=None):
     """archive_detect: QuakeScan.detect from a miniSEED archive to
     .scanmseed on the card, without jax. The workspace of
     :func:`archive_workspace`; the example's STALTAOnset (classic, bandpass
@@ -1090,8 +1116,10 @@ def archive_detect_path(device, f1_route):
     (five channels of ARCHIVE_SPAN_S x 250 samples); the peak's X/Y/Z
     within one node of the planted source. Then the same detect again,
     warm, and the host layers timed alone on the same windows. Then
-    archive_locate on the same workspace (:func:`archive_locate_path`).
-    Returns (K1 v2 launches, record, archive_locate's record)."""
+    archive_locate on the same workspace (:func:`archive_locate_path`),
+    whose locate outputs are kept under ``keep`` for export_path (the
+    record's "export": run dir, stations, units, no CPU run). Returns (K1
+    v2 launches, record, archive_locate's record)."""
 
     import tempfile
 
@@ -1266,6 +1294,10 @@ def archive_detect_path(device, f1_route):
               f"{layer_ms['append']:.3f}")
         locate_record = archive_locate_path(device, root, scan, planted,
                                             origin, start, end, f1_route)
+        if keep is not None:
+            locate_record["export"] = (
+                keep_locate(scan.run.path, keep, "archive_locate"),
+                stations, lut.unit_name, None)
         record["format_detect"] = format_detect_path(device, root, lut,
                                                      stations, origin)
     record.update({
@@ -1468,9 +1500,10 @@ def m1_case(name, s, window, reps=20):
 
 class NoPlainOnCuda:
     """Within the block, the plain versions that detect's and locate's CPU
-    paths call raise if they are given CUDA tensors."""
+    paths call (and the ``extra`` (module, name) pairs) raise if they are
+    given CUDA tensors."""
 
-    def __init__(self, label="archive_locate"):
+    def __init__(self, label="archive_locate", extra=()):
         from quakemigrate_torch.ops import cuda_migrate as cm
         from quakemigrate_torch.signal import scan as scan_module
 
@@ -1481,7 +1514,7 @@ class NoPlainOnCuda:
                         (scan_module, "migrate_map"),
                         (cm, "detect_reduce_plan_reference"),
                         (cm, "vpu_v2_reference"),
-                        (cm, "detect_reduce")]
+                        (cm, "detect_reduce"), *extra]
 
     def __enter__(self):
         self.saved = [getattr(m, n) for m, n in self.targets]
@@ -2208,7 +2241,7 @@ def vt_workspace(root, spacing_km=0.5):
             np.array(planted), origins, lut_s)
 
 
-def vt_locate_mags_path(device, spacing_km=0.5):
+def vt_locate_mags_path(device, spacing_km=0.5, keep=None):
     """vt_locate_mags: detect -> trigger -> locate with local magnitudes on
     the card at the full width of the Volcanotectonic_Iceland example
     (:func:`vt_workspace`), with the example's settings: detect with the
@@ -2230,7 +2263,9 @@ def vt_locate_mags_path(device, spacing_km=0.5):
     from RESP and from SAC_PZ (K1 v2 and M1 v2 once an event each). Prints
     the 1dsweep LUT's host seconds and the per-event split of
     locate_event_attrib, its magnitudes key among them. Returns a record
-    with the VT plan's traveltimes and locate window for map_path."""
+    with the VT plan's traveltimes and locate window for map_path, and,
+    given ``keep``, the card's and the CPU's locate outputs kept there for
+    export_path (its "export")."""
 
     import tempfile
 
@@ -2429,6 +2464,11 @@ def vt_locate_mags_path(device, spacing_km=0.5):
             "node_count": tuple(int(n) for n in lut.node_count),
             "fsmp": inp["fsmp"], "nsamples": inp["nsamples"],
             "lsmp": inp["block"].shape[-1] - inp["fsmp"] - inp["nsamples"]}
+        if keep is not None:
+            record["export"] = (
+                keep_locate(runs / "vt_card", keep, "vt_locate_mags"),
+                stations, lut.unit_name,
+                keep_locate(runs / "vt_cpu", keep, "vt_locate_mags_cpu"))
     return record
 
 
@@ -4758,7 +4798,426 @@ def format_detect_path(device, root, lut, stations, origin):
     return record
 
 
+# ops_path: the Icequake flat table (26 onsets) through the routed ops
+OPS_WINDOWS = 4
+OPS_MAP_SAMPLES = 61
+OPS_SLAB = (100_000, 160_000, 150_000, 4_000)  # first row, end, real, pad
+OPS_WIDE_SPAN = 32_769
+
+
+def routed_bound(n_nodes, n_onsets, t_len, nsamples, itemsize=4,
+                 map_out=False):
+    """Bound of a routed ops call (:func:`roofline`): the bytes its
+    function must move, each input read once (the onsets [O, T] of
+    ``itemsize``, the int32 flat table [N, O], the mask [O]) and each
+    output written once (max, int32 argmax and normalised max [S]; or,
+    with ``map_out``, the map [N, S]); against O adds and four more
+    operations a node and sample (three for the map) at the peak for the
+    onsets' type. Also the floor of the gather, the N x O x S reads of
+    ``itemsize`` at the shared-memory rate."""
+
+    out = (n_nodes * nsamples * itemsize if map_out
+           else nsamples * (2 * itemsize + 4))
+    nbytes = (itemsize * (n_onsets * t_len + n_onsets) + 4 * n_nodes
+              * n_onsets + out)
+    bound_ms, bound_by = roofline(
+        nbytes, n_nodes * nsamples * (n_onsets + (3 if map_out else 4)),
+        FP64_FLOP_PER_S if itemsize == 8 else FP32_FLOP_PER_S)
+    return {"bound_ms": bound_ms, "bound_by": bound_by,
+            "smem_bound_ms": (n_nodes * n_onsets * nsamples * itemsize
+                              / SMEM_BYTES_PER_S * 1e3)}
+
+
+def flat_coa_at(onsets, tt_dev, mask, available, idx, fsmp, nsamples):
+    """The plain flat-order coalescence of node idx[t] at sample t, in the
+    onsets' type, traveltimes clamped to the block as the plain versions
+    clamp them."""
+
+    from quakemigrate_torch.ops.migrate import _prepare_onsets
+
+    onsets_log = _prepare_onsets(onsets, mask)
+    d_max = onsets.shape[-1] - fsmp - nsamples
+    t = torch.arange(nsamples, device=onsets.device)
+    rows = torch.clamp(tt_dev[idx.long()].long(), 0, d_max)
+    acc = torch.zeros(nsamples, dtype=onsets_log.dtype, device=onsets.device)
+    for o in range(onsets_log.shape[0]):
+        acc = acc + onsets_log[o][fsmp + rows[:, o] + t]
+    return torch.exp(acc / available)
+
+
+def hold_detect(label, got, ref, onsets, tt_dev, mask, available, fsmp,
+                nsamples, rtol, rtol_n):
+    """A routed (max_coa, max_coa_n, max_idx) against the plain version's
+    on the card: max within ``rtol``, normalised within ``rtol_n``, the
+    argmax tie-consistent (the plain coalescence at the chosen node
+    within ``rtol`` of the maximum). Returns the errors."""
+
+    rel = float((torch.abs(got[0] - ref[0]) / torch.abs(ref[0])).max())
+    rel_n = float((torch.abs(got[1] - ref[1]) / torch.abs(ref[1])).max())
+    at = flat_coa_at(onsets, tt_dev, mask, available, got[2], fsmp,
+                     nsamples)
+    tie = float((torch.abs(at - ref[0]) / torch.abs(ref[0])).max())
+    check(got[0].shape == (nsamples,) and got[2].dtype == torch.int32
+          and bool(torch.isfinite(got[0]).all()) and rel <= rtol
+          and rel_n <= rtol_n and tie <= rtol,
+          f"{label}: max {rel:.2e}, normalised {rel_n:.2e}, tie {tie:.2e}")
+    return {"max": rel, "max_coa_n": rel_n, "tie": tie,
+            "max_abs_err": float(torch.abs(got[0] - ref[0]).max()),
+            "argmax_equal": float((got[2] == ref[2]).double().mean())}
+
+
+def ops_path(device):
+    """ops_path: the JAX package's public device functions of migration in
+    quakemigrate_torch.ops (ops/routed.py), on CUDA tensors through the
+    "k3" route's kernels, at the Icequake flat table (26 onsets, 259,008
+    nodes; windows of 625 samples made as step 4 makes them). Checks:
+    migrate_detect_batch over OPS_WINDOWS windows equal to that many
+    migrate_detect calls bit for bit (max, normalised max, argmax) and
+    each held to the plain migrate_detect on the card (:func:`hold_detect`:
+    1e-5, 1e-4, tie-consistent), K3 v2 once a call and the detector built
+    once; the same in float64 on K3 v2 f64 (1e-12); migrate_map over
+    OPS_MAP_SAMPLES samples on M2's simple form and its f64 form within
+    MAP_RTOL (DOUBLE_RTOL) of the plain map; detect_reduce on a padded
+    slab (OPS_SLAB) bit for bit the unpadded slice's, within 1e-5 of the
+    plain version on the slab, its argmax global and below n_nodes_real;
+    a flat table with one traveltime of OPS_WIDE_SPAN - 1 on K3 and K3
+    f64 (K3 v2's ring refuses it), held to the plain version. The routed
+    calls run under :class:`NoPlainOnCuda` (the plain ops.migrate
+    functions too), their launches counted from 0: exactly the kernels
+    named, nothing else. Then each kernel timed with CUDA events on the
+    prepared onsets beside the routed call, the plain version and
+    :func:`routed_bound`. Returns a record."""
+
+    from quakemigrate_torch import ops
+    from quakemigrate_torch.ops import cuda_migrate as cm
+    from quakemigrate_torch.ops import migrate as plain
+    from quakemigrate_torch.ops import routed
+    from quakemigrate_torch.ops.scan_window import fused_onsets
+
+    rng = np.random.default_rng(2033)
+    tt = icequake_traveltimes(rng, n_stations=13)
+    n_nodes, n_onsets = tt.shape
+    windows, _ = make_windows(tt, rng, n_windows=OPS_WINDOWS,
+                              plant_window=1)
+    fronts, masks = [], []
+    for block in windows:
+        tensors = [torch.from_numpy(a).to(device) for a in block]
+        fronts.append(fused_onsets(*tensors, "classic", "energy", 0.4))
+        masks.append(tensors[2])
+    onsets = torch.stack([c for c, _ in fronts])
+    masks = torch.stack(masks)
+    available = torch.stack([a for _, a in fronts]).to(onsets.dtype)
+    tt_dev = torch.from_numpy(tt).to(device)
+    t_len = onsets.shape[-1]
+    f64 = {"onsets": onsets.double(), "masks": masks.double(),
+           "available": available.double()}
+    first, end, n_real, pad = OPS_SLAB
+    slab = torch.cat([tt_dev[first:end], torch.zeros(
+        (pad, n_onsets), dtype=torch.int32, device=device)])
+    wide = rng.integers(0, 40, size=(64, 2)).astype(np.int32)
+    wide[5, 1] = OPS_WIDE_SPAN - 1
+    wide_dev = torch.from_numpy(wide).to(device)
+    wide_onsets = torch.from_numpy(rng.gamma(
+        2.0, 1.5, size=(2, 16 + 100 + OPS_WIDE_SPAN))).float().to(device)
+    wide_mask = torch.ones(2, device=device)
+
+    routed.clear_cache()
+    guard = NoPlainOnCuda("ops_path", extra=[
+        (plain, name) for name in ("detect_reduce", "migrate_detect",
+                                   "migrate_detect_batch", "migrate_map")])
+    out, calls, detectors, builds = {}, {}, {}, []
+    torch.cuda.synchronize()
+    cm.reset_launches()
+    with guard:
+        for key, o, m, a in (("f32", onsets, masks, available),
+                             ("f64", f64["onsets"], f64["masks"],
+                              f64["available"])):
+            t0 = time.perf_counter()
+            out[key] = ops.migrate_detect_batch(o, tt_dev, m, a, FSMP,
+                                                NSAMPLES)
+            torch.cuda.synchronize()
+            calls[f"batch_{key}_s"] = time.perf_counter() - t0
+            out[f"{key}_single"] = [ops.migrate_detect(
+                o[b], tt_dev, m[b], a[b], FSMP, NSAMPLES)
+                for b in range(OPS_WINDOWS)]
+            # The batch and the single calls built one detector
+            builds.append(len(routed._detectors))
+            detectors[key] = routed.detector(tt_dev, n_nodes, t_len, FSMP,
+                                             NSAMPLES, o.dtype, o.device)
+            out[f"map_{key}"] = ops.migrate_map(o[0], tt_dev, m[0], a[0],
+                                                FSMP, OPS_MAP_SAMPLES)
+            detectors[f"map_{key}"] = routed.detector(
+                tt_dev, n_nodes, t_len, FSMP, OPS_MAP_SAMPLES, o.dtype,
+                o.device)
+        out["slab"] = ops.detect_reduce(
+            onsets[0], slab, masks[0], available[0], FSMP, NSAMPLES, n_real,
+            node_offset=first)
+        out["slice"] = ops.detect_reduce(
+            onsets[0], tt_dev[first:n_real], masks[0], available[0], FSMP,
+            NSAMPLES, n_nodes, node_offset=first)
+        for key, o, m in (("wide", wide_onsets, wide_mask),
+                          ("wide_f64", wide_onsets.double(),
+                           wide_mask.double())):
+            out[key] = ops.migrate_detect(o, wide_dev, m, 2.0, 16, 100)
+            detectors[key] = routed.detector(wide_dev, 64, o.shape[-1], 16,
+                                             100, o.dtype, o.device)
+    torch.cuda.synchronize()
+    launches = dict(cm.launches)
+    expected = {"migrate_detect_global_v2": 2 * OPS_WINDOWS + 2,
+                "migrate_detect_global_v2_f64": 2 * OPS_WINDOWS,
+                "migrate_map": 1, "migrate_map_f64": 1,
+                "migrate_detect_global": 1, "migrate_detect_global_f64": 1}
+    check(launches == {k: expected.get(k, 0) for k in launches},
+          f"ops_path: launches {launches}, expected {expected}")
+    check(builds == [1, 3], f"ops_path: detectors cached after each "
+          f"batch and its single calls {builds}, not [1, 3]")
+    check(all(detectors[k].tables is not None for k in ("f32", "f64"))
+          and all(detectors[k].tables is None
+                  for k in ("wide", "wide_f64")),
+          "ops_path: K3 v2 refused the flat Icequake table, or took the "
+          "wide one")
+
+    # Held to the plain versions on the card (outside the guard)
+    record = {"launches": launches, "nodes": n_nodes, "onsets": n_onsets,
+              "windows": OPS_WINDOWS, "nsamples": NSAMPLES,
+              "r_span": detectors["f32"].r_span, **calls}
+    for key, o, m, a, rtol, rtol_n in (
+            ("f32", onsets, masks, available, MAX_COA_RTOL, MAX_COA_N_RTOL),
+            ("f64", f64["onsets"], f64["masks"], f64["available"],
+             DOUBLE_RTOL, DOUBLE_RTOL)):
+        batch, errs = out[key], []
+        for b in range(OPS_WINDOWS):
+            single = out[f"{key}_single"][b]
+            check(all(torch.equal(part, whole[b])
+                      for part, whole in zip(single, batch)),
+                  f"ops_path {key}: window {b} of the batch is not its "
+                  "single call bit for bit")
+            ref = plain.migrate_detect(o[b], tt_dev, m[b], a[b], FSMP,
+                                       NSAMPLES)
+            errs.append(hold_detect(f"ops_path {key} window {b}",
+                                    [x[b] for x in batch], ref, o[b],
+                                    tt_dev, m[b], a[b], FSMP, NSAMPLES,
+                                    rtol, rtol_n))
+        record[f"detect_{key}"] = {
+            k: max(e[k] for e in errs) for k in errs[0]
+            if k != "argmax_equal"}
+        record[f"detect_{key}"]["argmax_equal"] = [e["argmax_equal"]
+                                                   for e in errs]
+        ref_map = plain.migrate_map(o[0], tt_dev, m[0], a[0], FSMP,
+                                    OPS_MAP_SAMPLES)
+        got_map = out[f"map_{key}"]
+        map_rel = float((torch.abs(got_map - ref_map)
+                         / torch.abs(ref_map)).max())
+        check(got_map.shape == (n_nodes, OPS_MAP_SAMPLES)
+              and map_rel <= (MAP_RTOL if key == "f32" else DOUBLE_RTOL),
+              f"ops_path map {key}: {map_rel:.2e}")
+        record[f"map_{key}"] = {
+            "max_rel_err": map_rel,
+            "max_abs_err": float(torch.abs(got_map - ref_map).max())}
+    del out["map_f32"], out["map_f64"], ref_map, got_map
+    check(all(torch.equal(a, b) for a, b in zip(out["slab"], out["slice"])),
+          "ops_path: the padded slab differs from its unpadded slice")
+    ref = plain.detect_reduce(onsets[0], slab, masks[0], available[0], FSMP,
+                              NSAMPLES, n_real, node_offset=first)
+    slab_rel = float((torch.abs(out["slab"][0] - ref[0])
+                      / torch.abs(ref[0])).max())
+    check(slab_rel <= MAX_COA_RTOL and int(out["slab"][1].min()) >= first
+          and int(out["slab"][1].max()) < n_real,
+          f"ops_path slab: {slab_rel:.2e}, argmax in "
+          f"[{int(out['slab'][1].min())}, {int(out['slab'][1].max())}]")
+    record["slab"] = {"max": slab_rel, "argmax_equal": float(
+        (out["slab"][1] == ref[1]).double().mean())}
+    for key, o, m, rtol in (("wide", wide_onsets, wide_mask, MAX_COA_RTOL),
+                            ("wide_f64", wide_onsets.double(),
+                             wide_mask.double(), DOUBLE_RTOL)):
+        ref = plain.migrate_detect(o, wide_dev, m, 2.0, 16, 100)
+        record[key] = hold_detect(f"ops_path {key}", out[key], ref, o,
+                                  wide_dev, m, 2.0, 16, 100, rtol,
+                                  MAX_COA_N_RTOL if key == "wide"
+                                  else DOUBLE_RTOL)
+
+    # Times: each kernel on the routed detector's prepared onsets, the
+    # routed call, the plain version
+    times = {}
+    for key, o, m, a, itemsize in (
+            ("f32", onsets, masks, available, 4),
+            ("f64", f64["onsets"], f64["masks"], f64["available"], 8)):
+        det, map_det = detectors[key], detectors[f"map_{key}"]
+        onsets_log, inv = det.prepare(o[0], m[0], a[0])
+        map_log, map_inv = map_det.prepare(o[0], m[0], a[0])
+        times[key] = {
+            "k3_v2_ms": median_ms(lambda: det.launch(onsets_log, inv), 20),
+            "k3_ms": median_ms(lambda: det.launch_v1(onsets_log, inv), 20),
+            "call_ms": median_ms(lambda: ops.migrate_detect(
+                o[0], tt_dev, m[0], a[0], FSMP, NSAMPLES), 20),
+            "plain_ms": median_ms(lambda: plain.migrate_detect(
+                o[0], tt_dev, m[0], a[0], FSMP, NSAMPLES), 1, turns=1,
+                warmup=0),
+            "map_ms": median_ms(lambda: map_det.map(map_log, map_inv), 20),
+            "map_call_ms": median_ms(lambda: ops.migrate_map(
+                o[0], tt_dev, m[0], a[0], FSMP, OPS_MAP_SAMPLES), 20),
+            "map_plain_ms": median_ms(lambda: plain.migrate_map(
+                o[0], tt_dev, m[0], a[0], FSMP, OPS_MAP_SAMPLES), 1,
+                turns=1, warmup=0),
+            "bound": routed_bound(n_nodes, n_onsets, t_len, NSAMPLES,
+                                  itemsize),
+            "map_bound": routed_bound(n_nodes, n_onsets, t_len,
+                                      OPS_MAP_SAMPLES, itemsize,
+                                      map_out=True),
+        }
+        del map_log
+    for key, o, m in (("wide", wide_onsets, wide_mask),
+                      ("wide_f64", wide_onsets.double(), wide_mask.double())):
+        det = detectors[key]
+        onsets_log, inv = det.prepare(o, m, 2.0)
+        times[key] = {
+            "k3_ms": median_ms(lambda: det.launch(onsets_log, inv), 20),
+            "plain_ms": median_ms(lambda: plain.migrate_detect(
+                o, wide_dev, m, 2.0, 16, 100), 1, turns=1, warmup=0),
+            "bound": routed_bound(64, 2, o.shape[-1], 100,
+                                  o.element_size())}
+    record["times"] = times
+    del detectors
+    routed.clear_cache()
+    for key in ("f32", "f64"):
+        t = times[key]
+        print(f"ops_path {key}: K3 v2 {t['k3_v2_ms']:.4f} ms (K3 "
+              f"{t['k3_ms']:.4f}; the routed migrate_detect "
+              f"{t['call_ms']:.4f}; plain {t['plain_ms']:.4f}; bound "
+              f"{t['bound']['bound_ms']:.4f} by {t['bound']['bound_by']}, "
+              f"gather floor {t['bound']['smem_bound_ms']:.4f}); M2 simple "
+              f"over {OPS_MAP_SAMPLES} samples {t['map_ms']:.4f} ms (the "
+              f"routed migrate_map {t['map_call_ms']:.4f}; plain "
+              f"{t['map_plain_ms']:.4f}; bound "
+              f"{t['map_bound']['bound_ms']:.4f} by "
+              f"{t['map_bound']['bound_by']}); errors "
+              f"{record[f'detect_{key}']}, map {record[f'map_{key}']}")
+    print(f"ops_path: wide span K3 {times['wide']['k3_ms']:.4f} ms, K3 f64 "
+          f"{times['wide_f64']['k3_ms']:.4f} ms; slab {record['slab']}; "
+          f"batch of {OPS_WINDOWS} (cold, the plan built) "
+          f"{calls['batch_f32_s']:.3f} s, float64 "
+          f"{calls['batch_f64_s']:.3f} s; launches {launches}; r_span "
+          f"{record['r_span']}")
+    return record
+
+
+def keep_locate(run_dir, keep, label):
+    """A copy of a run's locate outputs under ``keep/label`` (the phase's
+    temporary directory goes with it), for export_path."""
+
+    import shutil
+
+    target = keep / label
+    shutil.copytree(run_dir / "locate", target / "locate")
+    return target
+
+
+def locate_files(run_dir):
+    """{relative path: bytes} of a run's .event, .picks and .amps files."""
+
+    locate = run_dir / "locate"
+    return {p.relative_to(locate).as_posix(): p.read_bytes()
+            for kind in ("events", "picks", "amplitudes")
+            for p in sorted((locate / kind).glob("*")) if p.is_file()}
+
+
+def export_run(run_dir, stations, units, out):
+    """Every export of quakemigrate_torch.export on one run directory into
+    ``out``, checked: one record and one QuakeML event per .event file,
+    each ML equal to the .event's; one NLLoc line and one Snuffler phase
+    line per pick that is not -1; a station line per station; SAC files
+    from sac_mfast that read back with the port's reader. Returns
+    (record, {relative path: bytes} of everything written)."""
+
+    import xml.etree.ElementTree as ElementTree
+
+    from quakemigrate_torch import export
+    from quakemigrate_torch.io.table import read_table
+    from quakemigrate_torch.seis import read
+
+    t0 = time.perf_counter()
+    events = sorted((run_dir / "locate" / "events").glob("*.event"))
+    records = export.read_run(run_dir, units)
+    check(events and len(records) == len(events),
+          f"export {run_dir.name}: {len(records)} records for "
+          f"{len(events)} .event files")
+    export.write_quakeml(run_dir, out / "catalogue.xml", units)
+    ns = {"q": "http://quakeml.org/xmlns/bed/1.2"}
+    root = ElementTree.parse(out / "catalogue.xml").getroot()
+    xml_events = root.findall("q:eventParameters/q:event", ns)
+    check(len(xml_events) == len(events),
+          f"export {run_dir.name}: {len(xml_events)} QuakeML events")
+    ml = []
+    for record, element in zip(records, xml_events):
+        row = read_table(run_dir / "locate" / "events"
+                         / f"{record.uid}.event").row(0)
+        value = element.find("q:magnitude/q:mag/q:value", ns)
+        if "ML" in row and row["ML"] == row["ML"]:
+            check(value is not None and float(value.text) == row["ML"],
+                  f"export {record.uid}: QuakeML ML "
+                  f"{None if value is None else value.text}, .event "
+                  f"{row['ML']}")
+            ml.append(float(value.text))
+        usable = sum(str(t) != "-1" for t in record.picks["PickTime"])
+        export.nlloc_obs(record, out / f"{record.uid}.obs")
+        lines = (out / f"{record.uid}.obs").read_text().splitlines()
+        export.snuffler_markers(record, out)
+        markers = (out / record.uid / f"{record.uid}.markers").read_text()
+        check(len(lines) == usable and markers.count("phase:") == usable,
+              f"export {record.uid}: {len(lines)} NLLoc lines, "
+              f"{markers.count('phase:')} markers for {usable} picks")
+        waves = run_dir / "locate" / "raw_cut_waveforms"
+        export.sac_mfast(record, stations, out / "mfast", units,
+                         str(next(waves.glob(f"{record.uid}.*"))))
+    export.snuffler_stations(stations, out, "stations.pf")
+    check(len((out / "stations.pf").read_text().splitlines())
+          == len(stations), f"export {run_dir.name}: station file")
+    sac = sorted((out / "mfast").rglob("*"))
+    sac = [p for p in sac if p.is_file()]
+    for path in sac:
+        st = read(str(path), format="SAC")
+        check(len(st) == 1 and st[0].stats.npts > 0
+              and bool(np.isfinite(st[0].data).all()),
+              f"export {path.name}: read back {st}")
+    check(sac, f"export {run_dir.name}: no MFAST SAC file")
+    written = {p.relative_to(out).as_posix(): p.read_bytes()
+               for p in sorted(out.rglob("*")) if p.is_file()}
+    return {"events": len(records), "ml": ml, "sac_files": len(sac),
+            "files": len(written), "wall_s": time.perf_counter() - t0}, written
+
+
+def export_path(runs):
+    """export_path: :func:`export_run` on each kept run directory (``runs``:
+    label -> (run dir, stations, units, the run dir of the same locate
+    with device="cpu" or None)). Where that CPU run's .event, .picks and
+    .amps files equal the card run's byte for byte, its exports are
+    byte-equal to the card run's too. Returns a record."""
+
+    import tempfile
+
+    record = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, (run_dir, stations, units, cpu_dir) in runs.items():
+            out = pathlib.Path(tmp) / label
+            record[label], written = export_run(run_dir, stations, units,
+                                                out)
+            if cpu_dir is not None:
+                same = locate_files(run_dir) == locate_files(cpu_dir)
+                record[label]["cpu_files_equal"] = same
+                if same:
+                    _, cpu_written = export_run(cpu_dir, stations, units,
+                                                pathlib.Path(tmp)
+                                                / f"{label}_cpu")
+                    check(cpu_written == written,
+                          f"export {label}: the CPU run's exports differ")
+                    record[label]["cpu_exports_equal"] = True
+            print(f"export_path {label}: {record[label]}")
+    return record
+
+
 def main():
+    import tempfile
+
     from quakemigrate_torch import _build
     from quakemigrate_torch.device import resolve_device
 
@@ -4827,9 +5286,18 @@ def main():
     launches, windows, results, planted_ijk = run_slice(tt, rng, device)
     vpu_launches = run_vpu_path(tt, windows, results, planted_ijk, device)
     f1_launches, f1_record, f1_route = f1_path(device)
+    keep_tmp = tempfile.TemporaryDirectory()
+    keep = pathlib.Path(keep_tmp.name)
     archive_launches, archive_record, locate_record = archive_detect_path(
-        device, f1_route)
-    vt_record = vt_locate_mags_path(device)
+        device, f1_route, keep=keep)
+    vt_record = vt_locate_mags_path(device, keep=keep)
+    torch.cuda.empty_cache()
+    ops_record = ops_path(device)
+    torch.cuda.empty_cache()
+    vt_record["export_path"] = export_path({
+        "archive_locate": locate_record.pop("export"),
+        "vt_locate_mags": vt_record.pop("export")})
+    keep_tmp.cleanup()
     map_cases = map_kernel_path(device, locate_record.pop("map_geometry"),
                                 f1_route, vt_record.pop("map_geometry"))
     del f1_route
@@ -5553,6 +6021,44 @@ def main():
     kernels[next(i for i, k in enumerate(kernels)
                  if k["name"] == "migrate_marginalise")]["f3"] = (
         f3_record["m1"])
+    # ops_path: the routed ops functions' kernels, their launches there
+    times = ops_record["times"]
+    t32, t64 = times["f32"], times["f64"]
+    geometry = {k: ops_record[k] for k in (
+        "nodes", "onsets", "windows", "nsamples", "r_span", "batch_f32_s",
+        "batch_f64_s")}
+    ops_entries = {
+        "migrate_detect_global_v2": {
+            "ms": t32["k3_v2_ms"], "call_ms": t32["call_ms"],
+            "plain_ms": t32["plain_ms"], **t32["bound"],
+            "errors": ops_record["detect_f32"], "slab": ops_record["slab"],
+            **geometry},
+        "migrate_detect_global_v2_f64": {
+            "ms": t64["k3_v2_ms"], "call_ms": t64["call_ms"],
+            "plain_ms": t64["plain_ms"], **t64["bound"],
+            "errors": ops_record["detect_f64"]},
+        "migrate_detect_global": {
+            "ms": times["wide"]["k3_ms"], "icequake_ms": t32["k3_ms"],
+            "plain_ms": times["wide"]["plain_ms"], **times["wide"]["bound"],
+            "errors": ops_record["wide"]},
+        "migrate_detect_global_f64": {
+            "ms": times["wide_f64"]["k3_ms"], "icequake_ms": t64["k3_ms"],
+            "plain_ms": times["wide_f64"]["plain_ms"],
+            **times["wide_f64"]["bound"], "errors": ops_record["wide_f64"]},
+        "migrate_map": {
+            "ms": t32["map_ms"], "call_ms": t32["map_call_ms"],
+            "plain_ms": t32["map_plain_ms"], **t32["map_bound"],
+            "errors": ops_record["map_f32"]},
+        "migrate_map_f64": {
+            "ms": t64["map_ms"], "call_ms": t64["map_call_ms"],
+            "plain_ms": t64["map_plain_ms"], **t64["map_bound"],
+            "errors": ops_record["map_f64"]},
+    }
+    for name, entry in ops_entries.items():
+        kernel = kernels[next(i for i, k in enumerate(kernels)
+                              if k["name"] == name)]
+        kernel["ops_path_launches"] = ops_record["launches"][name]
+        kernel["ops_path"] = entry
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']}: no launch on its path")
     print(smi)

@@ -35,6 +35,7 @@ from quakemigrate_torch.io import Archive, read_lut, read_stations  # noqa: F401
 from quakemigrate_torch.lut import (  # noqa: F401
     LUT,
     compute_traveltimes,
+    read_nlloc,
     traveltime_table,
     unravel,
 )

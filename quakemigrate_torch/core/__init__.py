@@ -4,9 +4,12 @@ quakemigrate_torch.core -- the port's counterpart of the JAX package's
 ``core``: the fast-marching eikonal solver of the traveltime builders, a
 ctypes binding to the port's own copy of the C solver
 (``csrc/host/fmmlib.c``, built with the STEIM codec into the host library
-at first use by :func:`quakemigrate_torch._build.build_host`), and the
-reference-shaped bindings of the compute kernels (:mod:`.compat`). There
-is no pure-Python substitute for the solver: a failed build raises.
+at first use by :func:`quakemigrate_torch._build.build_host`), the STEIM
+codec's entry points (:mod:`quakemigrate_torch.seis.steim`, re-exported),
+the pure-Python STEIM codec (:mod:`.steim_py`), and the reference-shaped
+bindings of the compute kernels (:mod:`.compat`). There is no
+pure-Python substitute for the solver, and the codec entry points do not
+fall back on :mod:`.steim_py`: a failed build raises.
 
 """
 
@@ -21,6 +24,17 @@ from quakemigrate_torch import _build
 _F64P = clib.ndpointer(dtype=np.float64, flags="C_CONTIGUOUS")
 _I64 = ctypes.c_int64
 _F64 = ctypes.c_double
+
+
+def native_available():
+    """Whether the host library (the C STEIM codec and eikonal solver)
+    builds and loads here."""
+
+    try:
+        _lib()
+    except (OSError, RuntimeError):
+        return False
+    return True
 
 
 @functools.lru_cache(maxsize=None)
@@ -75,6 +89,12 @@ def fast_marching(velocity, spacing, source_index, order=2):
     return tt.reshape(shape)
 
 
+from quakemigrate_torch.seis.steim import (  # noqa: E402,F401
+    steim_decode,
+    steim_decode_records,
+    steim_encode,
+    steim_encode_records,
+)
 from quakemigrate_torch.core.compat import (  # noqa: E402,F401
     centred_sta_lta,
     find_max_coa,

@@ -15,6 +15,7 @@ from .core import (  # noqa: F401
     read_response_inv,
     read_stations,
     read_vmodel,
+    stations,
 )
 from .data import Archive, WaveformData  # noqa: F401
 from .event import Event  # noqa: F401

@@ -17,7 +17,7 @@ from pathlib import Path
 import numpy as np
 
 import quakemigrate_torch.util as util
-from quakemigrate_torch.io.table import Table
+from quakemigrate_torch.io.table import Table, parse_column
 from quakemigrate_torch.lut import LUT, StationTable
 
 
@@ -67,14 +67,27 @@ def read_lut(lut_file):
     return LUT(lut_file=lut_file)
 
 
-def read_stations(station_file, delimiter=","):
+def _csv_delimiter(delimiter, kwargs):
+    """The field delimiter of the CSV readers: ``delimiter``, or pandas'
+    ``sep``, the one ``read_csv`` option the JAX readers' ``**kwargs``
+    take here; any other option raises TypeError."""
+
+    delimiter = kwargs.pop("sep", delimiter)
+    if kwargs:
+        raise TypeError(f"unsupported read_csv options {sorted(kwargs)}: "
+                        "the port reads CSV without pandas")
+    return delimiter
+
+
+def read_stations(station_file, delimiter=",", **kwargs):
     """
     Station table from a CSV file with a header row. Required columns:
     Latitude, Longitude, Elevation (positive up; negated to depth on read),
-    Name; other columns are ignored.
+    Name; other columns are ignored. ``sep`` is taken for ``delimiter``.
 
     """
 
+    delimiter = _csv_delimiter(delimiter, kwargs)
     with open(station_file, newline="") as f:
         rows = list(csv.DictReader(f, delimiter=delimiter))
     header = set(rows[0]) if rows else set()
@@ -99,37 +112,23 @@ def stations(station_file, **kwargs):
     return read_stations(station_file, **kwargs)
 
 
-def _parse_column(fields):
-    """One CSV column as pandas' ``read_csv`` types it: int64 where every
-    field is an integer, else float64 (an empty field NaN) where every
-    field is a number, else the strings."""
-
-    try:
-        return np.array([int(f) for f in fields], dtype=np.int64)
-    except ValueError:
-        pass
-    try:
-        return np.array([np.nan if f == "" else float(f) for f in fields])
-    except ValueError:
-        return np.array(fields, dtype=object)
-
-
-def read_vmodel(vmodel_file, delimiter=","):
+def read_vmodel(vmodel_file, delimiter=",", **kwargs):
     """
     1-D velocity model from a CSV file with a header row: a "Depth"
     column (positive down) and one "V<phase>" column per phase (e.g. Vp,
     Vs). Returns an :class:`~quakemigrate_torch.io.table.Table` of the
     file's columns, in order. Raises InvalidVelocityModelHeader without a
-    "Depth" column.
+    "Depth" column. ``sep`` is taken for ``delimiter``.
 
     """
 
+    delimiter = _csv_delimiter(delimiter, kwargs)
     with open(vmodel_file, newline="") as f:
         rows = list(csv.reader(f, delimiter=delimiter))
     header, body = rows[0], [row for row in rows[1:] if row]
     if "Depth" not in header:
         raise util.InvalidVelocityModelHeader("Depth")
-    return Table({name: _parse_column([row[i] for row in body])
+    return Table({name: parse_column([row[i] for row in body])
                   for i, name in enumerate(header)}, header)
 
 

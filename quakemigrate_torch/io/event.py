@@ -121,8 +121,8 @@ class Event:
     def add_spline_location(self, xyz):
         self._store_location("spline", xyz)
 
-    def add_picks(self, picks, **extras):
-        self.picks = {"df": picks, **extras}
+    def add_picks(self, pick_df, **extras):
+        self.picks = {"df": pick_df, **extras}
 
     def add_local_magnitude(self, mag, mag_err, mag_r2):
         self.localmag = {"ML": mag, "ML_Err": mag_err, "ML_r2": mag_r2}

@@ -20,6 +20,7 @@ The CSV text rules, per column:
 
 import csv
 import math
+import re
 
 import numpy as np
 
@@ -145,7 +146,108 @@ def read_csv(path):
 
 
 def parse_number(text):
-    """A CSV field as pandas would read it in a numeric column: float,
-    NaN for an empty field; raises ValueError otherwise."""
+    """A CSV field as pandas would read it in a numeric column: float
+    (:func:`pandas_float`), NaN for an empty field; raises ValueError
+    otherwise."""
 
-    return np.nan if text == "" else float(text)
+    return np.nan if text == "" else pandas_float(text)
+
+
+# The fields pandas' read_csv reads as missing by default
+NA_FIELDS = frozenset((
+    "", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN", "-nan",
+    "1.#IND", "1.#QNAN", "<NA>", "N/A", "NA", "NULL", "NaN", "None", "n/a",
+    "nan", "null"))
+_INT = re.compile(r"[+-]?\d+")
+_BOOLS = {"True": True, "TRUE": True, "true": True,
+          "False": False, "FALSE": False, "false": False}
+_INT64 = np.iinfo(np.int64)
+_FLOAT = re.compile(r"\s*([+-]?)(\d*)(?:\.(\d*))?(?:[eE]([+-]?\d+))?\s*")
+# The powers of ten of pandas' parser, each the double nearest its literal
+_TENS = [float(f"1e{i}") for i in range(309)]
+
+
+def pandas_float(text):
+    """
+    A decimal field as pandas' ``read_csv`` reads it into a float64
+    column: its C parser's default converter (``precise_xstrtod``), which
+    gathers up to 17 significant digits into a double, then multiplies
+    or divides by a power of ten from a table. That is not always the
+    double nearest the text (one unit in the last place off, as for
+    4.020051259416064e-08), so ``float(text)`` would not give the JAX
+    package's values. Raises ValueError on a field that is no number.
+
+    """
+
+    match = _FLOAT.fullmatch(text)
+    if match is None or not (match.group(2) or match.group(3)):
+        raise ValueError(f"not a number: {text!r}")
+    sign, whole, frac, exp = match.groups()
+    number, digits, exponent = 0.0, 0, 0
+    for ch in whole:
+        if digits < 17:
+            number = number * 10.0 + (ord(ch) - 48)
+            digits += 1
+        else:
+            exponent += 1
+    for ch in (frac or "")[:max(17 - digits, 0)]:
+        number = number * 10.0 + (ord(ch) - 48)
+        exponent -= 1
+    if sign == "-":
+        number = -number
+    if exp:
+        exponent += int(exp[:18] if exp[0] in "+-" else exp[:17])
+    if exponent > 308:
+        return math.copysign(math.inf, number)
+    if exponent > 0:
+        return number * _TENS[exponent]
+    if exponent < -616:
+        return 0.0 * number
+    if exponent < -308:
+        return number / _TENS[-308 - exponent] / _TENS[308]
+    return number / _TENS[-exponent]
+
+
+def parse_column(fields):
+    """
+    One CSV column's string fields typed as pandas' ``read_csv`` types
+    them: int64 where every field is an integer; else bool where every
+    field is a boolean word; else float64 where every field that is not
+    missing (:data:`NA_FIELDS`) is a number, missing ones NaN; else the
+    strings (dtype object), missing ones float NaN. A boolean column with
+    a missing field is an object column of bools and NaN. Numbers are
+    read as pandas reads them (:func:`pandas_float`).
+
+    """
+
+    present = [f for f in fields if f not in NA_FIELDS]
+    if (len(present) == len(fields) and fields
+            and all(_INT.fullmatch(f) for f in fields)):
+        values = [int(f) for f in fields]
+        if _INT64.min <= min(values) and max(values) <= _INT64.max:
+            return np.array(values, dtype=np.int64)
+    if present and all(f in _BOOLS for f in present):
+        if len(present) == len(fields):
+            return np.array([_BOOLS[f] for f in fields])
+        column = np.empty(len(fields), dtype=object)
+        column[:] = [_BOOLS.get(f, np.nan) for f in fields]
+        return column
+    try:
+        return np.array([np.nan if f in NA_FIELDS else pandas_float(f)
+                         for f in fields], dtype=np.float64)
+    except ValueError:
+        column = np.empty(len(fields), dtype=object)
+        column[:] = [np.nan if f in NA_FIELDS else f for f in fields]
+        return column
+
+
+def read_table(path):
+    """A CSV file with a header row as a :class:`Table` whose columns are
+    typed as pandas' ``read_csv`` types them (:func:`parse_column`). A
+    file written with pandas' index (``.amps``) keeps that index as its
+    first column."""
+
+    header, rows = read_csv(path)
+    rows = [row for row in rows if row]
+    return Table({name: parse_column([row[i] for row in rows])
+                  for i, name in enumerate(header)}, header)

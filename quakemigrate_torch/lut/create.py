@@ -43,7 +43,7 @@ from .lut import LUT, StationTable
 def compute_traveltimes(
     grid_spec,
     stations,
-    method="homogeneous",
+    method,
     phases=None,
     fraction_tt=0.1,
     save_file=None,

@@ -136,6 +136,25 @@ def migrate_detect(
     return max_coa, max_coa * n_real / coa_sum, max_idx
 
 
+def migrate_detect_batch(
+    onsets, traveltimes, mask, available, fsmp, nsamples,
+    n_nodes_real=None, tile=DEFAULT_TILE,
+):
+    """
+    :func:`migrate_detect` over a batch of independent scan windows:
+    ``onsets`` [B, O, T], ``mask`` [B, O], ``available`` [B]; the
+    traveltime table is shared. Returns per-window [B, S] outputs, one
+    window at a time, so each equals its own :func:`migrate_detect`.
+
+    """
+
+    n_real = traveltimes.shape[0] if n_nodes_real is None else n_nodes_real
+    max_coa, max_idx, coa_sum = (torch.stack(part) for part in zip(*(
+        detect_reduce(o, traveltimes, m, a, fsmp, nsamples, n_real, tile)
+        for o, m, a in zip(onsets, mask, available))))
+    return max_coa, max_coa * n_real / coa_sum, max_idx
+
+
 def migrate_map(
     onsets, traveltimes, mask, available, fsmp, nsamples, tile=DEFAULT_TILE
 ):

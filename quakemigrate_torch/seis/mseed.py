@@ -23,7 +23,12 @@ from functools import lru_cache
 
 import numpy as np
 
-from .steim import steim_decode, steim_decode_records, steim_encode_records
+from .steim import (  # noqa: F401 (steim_encode is part of the surface)
+    steim_decode,
+    steim_decode_records,
+    steim_encode,
+    steim_encode_records,
+)
 from .trace import Stream, Trace
 from .utcdatetime import UTCDateTime
 

@@ -608,12 +608,20 @@ class Stream:
         self.traces.append(trace)
         return self
 
+    def extend(self, traces):
+        self.traces.extend(traces)
+        return self
+
     def remove(self, trace):
         self.traces.remove(trace)
         return self
 
     def copy(self):
         return Stream([tr.copy() for tr in self.traces])
+
+    def clear(self):
+        self.traces = []
+        return self
 
     # --- selection ---
 

@@ -398,3 +398,30 @@ def _deprecated_position_class(old_name, position):
 
 CentredSTALTAOnset = _deprecated_position_class("CentredSTALTAOnset", "centred")
 ClassicSTALTAOnset = _deprecated_position_class("ClassicSTALTAOnset", "classic")
+
+
+def overlapping_sta_lta_py(signal, nsta, nlta, device="cuda"):
+    """
+    Classic (overlapping-window) STA/LTA, the reference-shaped standalone
+    form: numpy float64 in and out, computed in float32 by the batched
+    tensor op on ``device`` (:func:`quakemigrate_torch.core.compat
+    .overlapping_sta_lta`).
+
+    """
+
+    from quakemigrate_torch.core import compat
+
+    return compat.overlapping_sta_lta(signal, nsta, nlta, device=device)
+
+
+def centred_sta_lta_py(signal, nsta, nlta, device="cuda"):
+    """
+    Centred STA/LTA, the reference-shaped standalone form: numpy float64
+    in and out, computed in float32 by the batched tensor op on
+    ``device`` (:func:`quakemigrate_torch.core.compat.centred_sta_lta`).
+
+    """
+
+    from quakemigrate_torch.core import compat
+
+    return compat.centred_sta_lta(signal, nsta, nlta, device=device)

@@ -60,6 +60,7 @@ from quakemigrate_torch.signal.local_mag import LocalMag
 from quakemigrate_torch.signal.onsets import KurtosisOnset, Onset, STALTAOnset
 from quakemigrate_torch.signal.pickers import GaussianPicker, PhasePicker
 from quakemigrate_torch.ops.migrate import (
+    DEFAULT_TILE,
     find_max_coa,
     migrate_detect,
     migrate_map,
@@ -570,7 +571,7 @@ class QuakeScan:
         # Host threads of the reference's own C calls; the port has none
         "threads": 1,
         # The reference's XLA node tile: the port's plans fix their tiles
-        "tile": 4096,
+        "tile": DEFAULT_TILE,
         # The reference's MXU table encoding: the port's kernels gather
         # the onsets in float32
         "mxu_encoding": "i8x2",

@@ -3,15 +3,16 @@
 Small pure helpers shared by the port's modules: time and sample
 arithmetic, the resampling chain of the pre-processing, the per-channel
 merge, the numeric helpers of trigger, picking and location, the
-Wood-Anderson response of local magnitudes, the timing decorator, and the exceptions that detect, trigger and locate raise or
-catch. Copied from the JAX package's ``util.py`` (which the port does
-not import), with only what those stages reach.
+Wood-Anderson response of local magnitudes, the timing decorator, the
+figure helpers that need no plotting library, and the exceptions that
+detect, trigger, locate and the FDSN client raise or catch. Copied from
+the JAX package's ``util.py`` (which the port does not import).
 
 """
 
 import logging
 import sys
-from datetime import datetime
+from datetime import datetime, timedelta, timezone
 from functools import wraps
 from itertools import tee
 from time import perf_counter
@@ -71,6 +72,13 @@ def legacy_parameter(new, notice, assign=True):
     return property(read, write)
 
 
+def make_directories(run, subdir=None):
+    """Create the run directory tree (and optional subdirectory) on disk."""
+
+    target = run / subdir if subdir else run
+    target.mkdir(exist_ok=True, parents=True)
+
+
 def time2sample(time, sampling_rate):
     """Seconds -> nearest whole sample count at ``sampling_rate``."""
 
@@ -123,6 +131,18 @@ def gaussian_profiles(shape, sgm):
     return profiles
 
 
+def gaussian_3d(nx, ny, nz, sgm):
+    """
+    Separable 3-D Gaussian kernel on an ``(nx, ny, nz)`` grid, centred, with
+    per-axis (or scalar) sigma: the smoothing kernel for marginalised
+    coalescence maps.
+
+    """
+
+    gx, gy, gz = gaussian_profiles((nx, ny, nz), sgm)
+    return gx[:, None, None] * gy[None, :, None] * gz[None, None, :]
+
+
 def calculate_mad(x, scale=1.4826):
     """
     Median absolute deviation of ``x`` scaled so that, for normal data, it
@@ -138,7 +158,7 @@ def calculate_mad(x, scale=1.4826):
     return scale * np.median(centred, axis=0)
 
 
-def timeit(*decorator_args):
+def timeit(*decorator_args, **_ignored):
     """
     Decorator factory that reports a function's wall-clock duration. Pass
     ``"info"`` to log at info level; the default logs at debug level.
@@ -396,6 +416,90 @@ def merge_stream(stream):
     return merged
 
 
+# --- figure helpers -----------------------------------------------------------
+
+# matplotlib's date numbers count days from this epoch (since its 3.3)
+_DATE_EPOCH = datetime(1970, 1, 1, tzinfo=timezone.utc)
+
+
+class DateFormatter:
+    """
+    Tick formatter producing sub-second datetime labels from matplotlib
+    date numbers (days since 1970-01-01 UTC). The format string marks the
+    fractional-seconds field as ``{ms}``, e.g.
+    ``DateFormatter("%H:%M:%S.{ms}", precision=2)``. A plain callable: it
+    converts the date number itself, as ``matplotlib.dates.num2date``
+    does, so no plotting library is needed.
+
+    """
+
+    def __init__(self, fmt, precision=3):
+        self.fmt = fmt
+        self.precision = precision
+
+    def __call__(self, x, pos=0):
+        when = _DATE_EPOCH + timedelta(
+            microseconds=int(np.round(x * 86400e6)))
+        if abs(x) > 70 * 365:
+            # num2date's fix of the float's round-off on large date
+            # numbers: the nearest 20 microseconds
+            ms = round(when.microsecond / 20) * 20
+            when = (when.replace(microsecond=0) + timedelta(seconds=1)
+                    if ms == 1000000 else when.replace(microsecond=ms))
+        fractional = f"{when.microsecond:06d}"[: self.precision]
+        return when.strftime(self.fmt).format(ms=fractional)
+
+
+def get_phase_component_strings(channel_maps):
+    """
+    Component-selector strings for the pick-summary figure from the
+    per-phase channel maps. P components share one panel; S components are
+    split over (up to) two panels, pairing alphabetic with numeric codes
+    (e.g. N with 1, E with 2) when both conventions appear.
+
+    """
+
+    def components(phase):
+        # "*[N,E]" -> "N,E" -> every other char skips the commas.
+        bare = channel_maps[phase].strip("*").strip("[").strip("]")
+        return list(bare)[::2]
+
+    def bracketed(codes):
+        return "[" + ",".join(codes) + "]"
+
+    p_codes = components("P")
+    s_codes = components("S")
+    letters = [c for c in s_codes if not c.isnumeric()]
+    digits = [c for c in s_codes if c.isnumeric()]
+
+    panel_1, panel_2 = [], []
+    if letters and digits:
+        if max(len(letters), len(digits)) > 2:
+            logging.info(
+                "More than two pairs of S-phase components found in channel "
+                "maps. Only using first two for plotting!"
+            )
+        pairs = list(zip(letters, digits))
+        if pairs:
+            panel_1 = list(pairs[0])
+        if len(pairs) > 1:
+            panel_2 = list(pairs[1])
+    else:
+        for group in (letters, digits):
+            if group:
+                panel_1.append(group[0])
+                if len(group) > 1:
+                    panel_2.append(group[1])
+            if len(group) > 2:
+                logging.info(
+                    "More than two alphabetical or numeric S-phase components"
+                    " found in channel maps. Only using first two for "
+                    "plotting!"
+                )
+
+    return bracketed(p_codes), bracketed(panel_1), bracketed(panel_2)
+
+
 # --- the exceptions of detect, trigger and locate ----------------------------
 #
 # Detect windows that raise the archive, gap or availability errors become
@@ -565,6 +669,23 @@ class TimeSpanException(QMError):
 
     def __init__(self):
         super().__init__()
+
+
+class ArchiveFDSNException(QMError):
+    """Raised when an FDSN web-service request fails (HTTP or transport
+    error; "no matching data" responses return empty results instead)."""
+
+    def __init__(self, msg):
+        super().__init__(msg)
+
+
+class ChannelNameException(QMError):
+    detail = (
+        "Channel name header does not conform to\nthe IRIS SEED standard "
+        "- 3 characters; ending in 'Z' for\nvertical and ending either "
+        "'E' & 'N' or '1' & '2' for\nhorizontal components.\n"
+        "    Working on trace: {0}"
+    )
 
 
 class NoScanMseedDataException(QMError):
