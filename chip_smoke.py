@@ -86,9 +86,29 @@ Smoke run of quakemigrate_torch on one NVIDIA GPU.
    format_detect: archive_detect's archive cut to 40 s about the planted
    origin and written by the port's writers as MSEED, SAC, GSE2 and
    SEG-Y, each read back equal to the MSEED cut (samples, station and
-   channel, start, rate); QuakeScan.detect over 10 s from each on the
-   card (K1 v2 once a window, nothing else), each .scanmseed equal to
-   the MSEED run's byte for byte.
+   channel, start; the rate 250 Hz, from SAC 1 / float32(0.004), its
+   float32 delta read as the JAX package reads it); QuakeScan.detect
+   over 10 s from each on the card: from MSEED, GSE2 and SEG-Y K1 v2
+   once a window, nothing else, each .scanmseed equal to the MSEED run's
+   byte for byte; from SAC the reference's outcome, every trace refused
+   by the scan (its rate cannot be resampled to the onset's), every
+   availability cell 0, the .scanmseed equal byte for byte to a
+   device="cpu" run's of the same SAC archive, its route and launches
+   printed and recorded.
+   mesh_path: QuakeScan(mesh=...) (quakemigrate_torch.parallel) on the
+   card, whose one device stands for every device of each mesh, so the
+   slabs run in turn on it: detect over 10 s of the same archive about
+   the planted origin unsharded, on a grid mesh of 4 slabs of the brick
+   plan's tiles and on a 2 x 2 ("batch", "grid") mesh (two windows a
+   dispatch): route k1_v2, K1 v2 once a slab and window, nothing else,
+   no plain version on a CUDA tensor; each window's max bit for bit the
+   unsharded run's, the argmax equal or tie-consistent, the .scanmseed's
+   COA equal and COA_N within a count; the planted event located on the
+   grid mesh (K1 v2 and M1 v2 once a slab) with the unsharded run's X, Y
+   and Z; one F3 window on a grid mesh of 4 slabs (K3 v2 once a slab,
+   max and argmax bit for bit the unsharded window's). Prints the device
+   ms a window of each run warm and the route's kernel alone, the whole
+   plan against the slabs in turns.
    vt_locate_mags: detect -> trigger -> locate with local magnitudes on
    the card at the full width of the Volcanotectonic_Iceland example:
    its 12 stations on its lcc grid at 0.5 km (58 x 57 x 37 nodes), its
@@ -1300,6 +1320,7 @@ def archive_detect_path(device, f1_route, keep=None):
                 stations, lut.unit_name, None)
         record["format_detect"] = format_detect_path(device, root, lut,
                                                      stations, origin)
+        record["mesh_path"] = mesh_path(device, root, lut, stations, origin)
     record.update({
         "windows": n_windows, "dispatched": dispatched, "fsmp": fsmp,
         "lsmp": lsmp, "onsets": int(detect_scan.traveltimes.shape[1]),
@@ -4752,36 +4773,62 @@ def format_detect_path(device, root, lut, stations, origin):
         t0 = time.perf_counter()
         back = {rel: read(archive_path / rel) for rel in cut}
         read_s = time.perf_counter() - t0
+        # SAC holds delta in float32, read as it is, as the JAX package
+        # reads it: 250 Hz comes back as 1 / float32(0.004)
+        rate = 1.0 / float(np.float32(1.0 / RATE)) if fmt == "SAC" else RATE
         for rel, st in cut.items():
             (got,), (want,) = back[rel].traces, st.traces
             # GSE2 holds no network code
             check((got.stats.station, got.stats.channel)
                   == (want.stats.station, want.stats.channel)
                   and got.stats.starttime == want.stats.starttime
-                  and got.stats.sampling_rate == want.stats.sampling_rate
+                  and want.stats.sampling_rate == RATE
+                  and got.stats.sampling_rate == rate
                   and np.array_equal(np.asarray(got.data, np.int64),
                                      want.data),
                   f"format_detect {fmt}: {rel} read back as {got}")
-        scan = QuakeScan(Archive(archive_path, stations,
-                                 archive_format="YEAR/JD/STATION"),
-                         lut, archive_onset(), str(root / "runs"),
-                         f"format_{fmt}",
-                         device=device, timestep=ARCHIVE_TIMESTEP)
+
+        def make_scan(label, on):
+            return QuakeScan(Archive(archive_path, stations,
+                                     archive_format="YEAR/JD/STATION"),
+                             lut, archive_onset(), str(root / "runs"),
+                             label, device=on, timestep=ARCHIVE_TIMESTEP)
+
+        scan = make_scan(f"format_{fmt}", device)
         torch.cuda.synchronize()
         cm.reset_launches()
         _, wall = quiet(root, f"format_{fmt}", lambda: scan.detect(start,
                                                                    end))
         launches = {k: v for k, v in cm.launches.items() if v}
-        (path,) = sorted((scan.run.path / "detect" / "scanmseed").glob(
-            "*.scanmseed"))
-        scanmseed[fmt] = path.read_bytes()
+        scanmseed[fmt] = scanmseed_bytes(scan)
         n_windows = round(FORMAT_SPAN_S / ARCHIVE_TIMESTEP)
         record[fmt] = {"files": len(cut), "write_s": write_s,
                        "read_s": read_s, "detect_s": wall,
-                       "route": scan.detect_scan.route,
-                       "launches": launches,
-                       "scanmseed_equal": scanmseed[fmt]
-                       == scanmseed["MSEED"]}
+                       "rate": rate, "route": scan.detect_scan.route,
+                       "launches": launches}
+        if fmt == "SAC":
+            # The reference's outcome: the scan cannot resample the float32
+            # rate to the onset's, so every trace is refused; the card's
+            # .scanmseed equals a device="cpu" run's of the same archive
+            cpu = make_scan("format_SAC_cpu", "cpu")
+            quiet(root, "format_SAC_cpu", lambda: cpu.detect(start, end))
+            cells = availability_cells(scan)
+            record[fmt].update(
+                availability_cells=len(cells),
+                availability_zero=bool(cells) and not any(cells),
+                scanmseed_equal_cpu=scanmseed[fmt] == scanmseed_bytes(cpu))
+            print(f"format_detect SAC: rate {rate!r} Hz; detect over "
+                  f"{FORMAT_SPAN_S:.0f} s {wall:.3f} s wall, route "
+                  f"{scan.detect_scan.route}, launches {launches}; "
+                  f"{len(cells)} availability cells, all 0: "
+                  f"{record[fmt]['availability_zero']}; .scanmseed "
+                  f"({len(scanmseed[fmt])} bytes) equal to the device=\"cpu\""
+                  f" run's: {record[fmt]['scanmseed_equal_cpu']}")
+            check(record[fmt]["availability_zero"]
+                  and record[fmt]["scanmseed_equal_cpu"],
+                  f"format_detect SAC: {record[fmt]}")
+            continue
+        record[fmt]["scanmseed_equal"] = scanmseed[fmt] == scanmseed["MSEED"]
         print(f"format_detect {fmt}: {len(cut)} files of "
               f"{2 * FORMAT_CUT_S:.0f} s written in {write_s:.3f} s, read "
               f"back equal in {read_s:.3f} s; detect over "
@@ -4796,6 +4843,311 @@ def format_detect_path(device, root, lut, stations, origin):
         check(record[fmt]["scanmseed_equal"],
               f"format_detect {fmt}: .scanmseed differs from the MSEED run's")
     return record
+
+
+# mesh_path: QuakeScan(mesh=...) on one card, the slabs of each mesh in
+# turn on it: MESH_SPAN_S seconds of archive_detect's archive about the
+# planted origin on a grid mesh of MESH_SLABS slabs and on a 2 x 2
+# ("batch", "grid") mesh
+MESH_SPAN_S = 10.0
+MESH_SLABS = 4
+
+
+def mesh_path(device, root, lut, stations, origin):
+    """mesh_path: QuakeScan(mesh=...) on the card, without jax, on
+    archive_detect's archive (under ``root``; 259,008 nodes, 26 onsets,
+    250 Hz). The one card stands for every device of the meshes, so each
+    mesh's slabs run in turn on it and their partial results are combined
+    on it (parallel.combine_slabs): detect over MESH_SPAN_S seconds about
+    the planted ``origin`` unsharded, on a grid mesh of MESH_SLABS slabs
+    and on a 2 x 2 ("batch", "grid") mesh (two windows a dispatch, two
+    slabs a window). Checks: route k1_v2, K1 v2 launched once a slab and
+    window and nothing else, no plain version on a CUDA tensor; each
+    window's max_coa equal bit for bit to the unsharded run's, max_coa_n
+    within MAX_COA_N_RTOL, the argmax equal or tie-consistent (the plain
+    coalescence at the mesh's node within MAX_COA_RTOL of the max); the
+    .scanmseed's COA equal, COA_N within 1 count, X/Y/Z equal where the
+    argmax is. Then the planted event located from a trigger row at its
+    origin, unsharded and on the grid mesh: pass 1 on K1 v2 and pass 2 on
+    M1 v2, once a slab each, nothing else; the .event's X, Y and Z equal
+    to the unsharded run's. Last, one F3 window (f3_path's geometry, the
+    "k3" route) through DetectScan on a grid mesh of MESH_SLABS slabs: K3
+    v2 once a slab, max and argmax equal bit for bit to the unsharded
+    window (K3 v2's first flat index rule holds across slabs). Times, on
+    the card: each run's device ms a dispatch; warm, each run's prepared
+    windows again through its DetectScan (device ms a window, a 2 x 2
+    dispatch halved); and the route's kernel alone, the whole plan
+    against the slabs one after another, in turns (:func:`slab_turns`).
+    Returns a record."""
+
+    import csv
+
+    from quakemigrate_torch.io import Archive
+    from quakemigrate_torch.ops import cuda_migrate as cm
+    from quakemigrate_torch.parallel import make_mesh
+    from quakemigrate_torch.seis import read
+    from quakemigrate_torch.signal.onsets import STALTAOnset
+    from quakemigrate_torch.signal.scan import (
+        DetectScan,
+        QuakeScan,
+        detect_route,
+    )
+
+    t_phase = time.perf_counter()
+    start = origin - MESH_SPAN_S / 2
+    end = start + MESH_SPAN_S
+    archive = Archive(root / "mSEED", stations,
+                      archive_format="YEAR/JD/STATION")
+    meshes = {
+        "unsharded": (None, 1),
+        "grid4": (make_mesh([device] * MESH_SLABS), MESH_SLABS),
+        "batch2x2": (make_mesh([device] * 4, axis_names=("batch", "grid"),
+                               shape=(2, 2)), 2),
+    }
+    n_windows = round(MESH_SPAN_S / ARCHIVE_TIMESTEP)
+    record, runs = {}, {}
+    for label, (mesh, slabs) in meshes.items():
+        scan = QuakeScan(archive, lut, archive_onset(), str(root / "runs"),
+                         f"mesh_{label}", device=device, mesh=mesh,
+                         timestep=ARCHIVE_TIMESTEP)
+        seen = {}
+        scan.on_window = lambda i, block, result, seen=seen: seen.update(
+            {i: (block, result)})
+        torch.cuda.synchronize()
+        cm.reset_launches()
+        with NoPlainOnCuda("mesh_path"):
+            _, wall = quiet(root, f"mesh_{label}",
+                            lambda: scan.detect(start, end))
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in cm.launches.items() if v}
+        ms = list(scan.detect_scan.window_ms)
+        runs[label] = (scan, seen)
+        record[label] = {"slabs_a_window": slabs, "wall_s": wall,
+                         "launches": launches, "dispatch_ms": ms,
+                         "dispatches": len(ms)}
+        print(f"mesh_path {label}: {mesh}, route {scan.detect_scan.route}, "
+              f"{len(seen)} windows in {len(ms)} dispatches, {wall:.3f} s "
+              f"wall, launches {launches}, device ms a dispatch "
+              f"{np.round(ms, 4).tolist()}")
+        check(scan.detect_scan.route == "k1_v2" and len(seen) == n_windows
+              and all(r is not None for _, r in seen.values())
+              and launches == {"migrate_detect_v2": slabs * n_windows},
+              f"mesh_path {label}: route {scan.detect_scan.route}, "
+              f"{len(seen)} windows, launches {launches}")
+
+    single, single_seen = runs["unsharded"]
+    fsmp = single.detect_scan.fsmp
+    nsamples = int(round(ARCHIVE_TIMESTEP * RATE))
+    tt_dev = torch.from_numpy(single.detect_scan.traveltimes).to(device)
+
+    def traces(scan):
+        day = start
+        path = (scan.run.path / "detect" / "scanmseed"
+                / f"{day.year}_{day.julday:03d}.scanmseed")
+        return {tr.stats.station: tr.data.astype(np.int64)
+                for tr in read(path)}
+
+    want = traces(single)
+    for label in ("grid4", "batch2x2"):
+        scan, seen = runs[label]
+        errs = {"max_coa_n": 0.0, "tie": 0.0, "argmax_equal": []}
+        same = []
+        for i in range(n_windows):
+            block, (max_coa, max_coa_n, max_idx, _) = seen[i]
+            ref = single_seen[i][1]
+            rel_n = np.abs(max_coa_n - ref[1]) / np.abs(ref[1])
+            tie = np.abs(ref[0] - plain_coa_at(
+                block, tt_dev, max_idx, device, fsmp, nsamples)) / ref[0]
+            check(np.array_equal(max_coa, ref[0])
+                  and rel_n.max() <= MAX_COA_N_RTOL
+                  and tie.max() <= MAX_COA_RTOL,
+                  f"mesh_path {label} window {i}: max_coa equal "
+                  f"{np.array_equal(max_coa, ref[0])}, max_coa_n "
+                  f"{rel_n.max()}, tie {tie.max()}")
+            errs["max_coa_n"] = max(errs["max_coa_n"], float(rel_n.max()))
+            errs["tie"] = max(errs["tie"], float(tie.max()))
+            same.append(max_idx == ref[2])
+        same = np.concatenate(same)
+        got = traces(scan)
+        diff = {k: int(np.abs(got[k] - want[k]).max()) for k in want}
+        xyz_equal = all(np.array_equal(got[k][same], want[k][same])
+                        for k in ("X", "Y", "Z"))
+        record[label].update(
+            vs_unsharded=errs | {"argmax_equal": float(same.mean())},
+            scanmseed_max_count_diff=diff, xyz_equal_where_argmax=xyz_equal)
+        print(f"mesh_path {label} against the unsharded run: max_coa bit "
+              f"for bit, max_coa_n {errs['max_coa_n']:.2e}, tie "
+              f"{errs['tie']:.2e}, argmax equal {same.mean():.4f}; "
+              f".scanmseed count differences {diff}")
+        check(sorted(got) == sorted(want) and diff["COA"] == 0
+              and diff["COA_N"] <= 1 and xyz_equal,
+              f"mesh_path {label}: .scanmseed against the unsharded run's: "
+              f"{diff}, X/Y/Z equal where the argmax is: {xyz_equal}")
+
+    # Warm, on the card: each run's windows again through its DetectScan
+    # (the blocks the scans prepared), device ms a window; and the kernel
+    # alone, K1 v2 on the whole plan against the grid mesh's slab
+    # launches, in turns
+    blocks = [single_seen[i][0] for i in range(n_windows)]
+    for label in meshes:
+        scan = runs[label][0].detect_scan
+        ms = []
+        for _ in range(3):
+            scan.detect(blocks)
+            ms += [m / (scan.batch or 1) for m in scan.window_ms]
+        record[label]["warm_window_ms"] = float(np.median(ms))
+    record["k1_v2_turns_ms"] = slab_turns(
+        single.detect_scan, runs["grid4"][0].detect_scan, blocks[1],
+        nsamples)
+
+    # Locate the planted event from a trigger row at its origin
+    trigger = root / "mesh_trigger.csv"
+    uid = "".join(c for c in str(origin)[:23] if c.isdigit())
+    with open(trigger, "w", newline="") as f:
+        writer = csv.writer(f)
+        writer.writerow(["EventID", "CoaTime", "TRIG_COA", "COA_X", "COA_Y",
+                         "COA_Z", "COA", "COA_NORM"])
+        writer.writerow([uid, str(origin), 3.0, 0.0, 0.0, 0.0, 3.0, 3.0])
+    events = {}
+    for label in ("unsharded", "grid4"):
+        onset = STALTAOnset(position="centred", sampling_rate=RATE)
+        onset.phases = ["P", "S"]
+        onset.bandpass_filters = {"P": [10, 124, 4], "S": [10, 124, 4]}
+        onset.sta_lta_windows = {p: list(w) for p, w in STA_LTA.items()}
+        scan = QuakeScan(archive, lut, onset, str(root / "runs"),
+                         f"mesh_locate_{label}", device=device,
+                         mesh=meshes[label][0],
+                         marginal_window=LOCATE_MARGINAL_WINDOW)
+        torch.cuda.synchronize()
+        cm.reset_launches()
+        with NoPlainOnCuda("mesh_path"):
+            _, wall = quiet(root, f"mesh_locate_{label}",
+                            lambda: scan.locate(trigger_file=str(trigger)))
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in cm.launches.items() if v}
+        (path,) = sorted((scan.run.path / "locate" / "events").glob(
+            "*.event"))
+        with open(path, newline="") as f:
+            header, row = list(csv.reader(f))[:2]
+        events[label] = dict(zip(header, row))
+        slabs = meshes[label][1]
+        record[f"locate_{label}"] = {"wall_s": wall, "launches": launches}
+        print(f"mesh_path locate {label}: {wall:.3f} s wall, launches "
+              f"{launches}; X {events[label]['X']}, Y {events[label]['Y']},"
+              f" Z {events[label]['Z']}")
+        check(launches == {"migrate_detect_v2": slabs,
+                           "migrate_marginalise_v2": slabs},
+              f"mesh_path locate {label}: launches {launches}")
+    xyz = {k: (events["grid4"][k], events["unsharded"][k])
+           for k in ("X", "Y", "Z")}
+    record["locate_grid4"]["xyz_equal"] = all(a == b for a, b in xyz.values())
+    check(record["locate_grid4"]["xyz_equal"],
+          f"mesh_path locate: the mesh's X, Y, Z against the unsharded "
+          f"run's: {xyz}")
+
+    # One F3 window on the "k3" route, K3 v2 a slab
+    rng = np.random.default_rng(2032)
+    tt = f3_traveltimes(rng)
+    lsmp = int(tt.max()) + 2 * int(F3_STA_LTA["S"][1] * F3_RATE) + 100
+    windows, _ = make_windows(
+        tt, rng, F3_WINDOWS, plant_window=1, node_count=F3_NODES,
+        fsmp=F3_FSMP, nsamples=F3_NSAMPLES, lsmp=lsmp, rate=F3_RATE,
+        sta_lta=F3_STA_LTA)
+    route = detect_route(tt, F3_NODES, device)
+    f3 = {}
+    for label, mesh in (("unsharded", None),
+                        ("grid4", make_mesh([device] * MESH_SLABS))):
+        scan = DetectScan(tt, F3_NODES, F3_FSMP, lsmp, device=device,
+                          route=route, mesh=mesh)
+        scan.detect([windows[1]])  # the slabs' tables up before the count
+        torch.cuda.synchronize()
+        cm.reset_launches()
+        result = scan.detect([windows[1]])[0]
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in cm.launches.items() if v}
+        ms = []
+        for _ in range(3):
+            scan.detect([windows[1]])
+            ms.append(scan.window_ms[0])
+        f3[label] = (result, launches, ms, scan)
+    (got, launches, ms, scan), (ref, _, single_ms, single_scan) = (
+        f3["grid4"], f3["unsharded"])
+    rel_n = float((np.abs(got[1] - ref[1]) / np.abs(ref[1])).max())
+    record["f3"] = {"route": route[0], "launches": launches,
+                    "max_equal": bool(np.array_equal(got[0], ref[0])),
+                    "argmax_equal": bool(np.array_equal(got[2], ref[2])),
+                    "max_coa_n_rel": rel_n, "window_ms": ms,
+                    "unsharded_window_ms": single_ms,
+                    "k3_v2_turns_ms": slab_turns(single_scan, scan,
+                                                 windows[1], F3_NSAMPLES)}
+    print(f"mesh_path f3: route {route[0]}, launches {launches}; max and "
+          f"argmax equal to the unsharded window: "
+          f"{record['f3']['max_equal']}, {record['f3']['argmax_equal']}, "
+          f"max_coa_n {rel_n:.2e}; device ms a window {np.round(ms, 4)} "
+          f"against unsharded {np.round(single_ms, 4)}; K3 v2 alone, "
+          f"whole plan against the slabs in turns "
+          f"{record['f3']['k3_v2_turns_ms']}")
+    check(route[0] == "k3"
+          and launches == {"migrate_detect_global_v2": MESH_SLABS}
+          and record["f3"]["max_equal"] and record["f3"]["argmax_equal"]
+          and rel_n <= MAX_COA_N_RTOL, f"mesh_path f3: {record['f3']}")
+
+    print(f"mesh_path: device ms a window, warm (median of 3 passes over "
+          f"the {n_windows} prepared windows): unsharded "
+          f"{record['unsharded']['warm_window_ms']:.4f}, grid4 "
+          f"{record['grid4']['warm_window_ms']:.4f} ({MESH_SLABS} slabs), "
+          f"batch2x2 {record['batch2x2']['warm_window_ms']:.4f} (a "
+          f"dispatch of two windows, halved); K1 v2 alone, the whole plan "
+          f"against the grid mesh's slabs in turns "
+          f"{record['k1_v2_turns_ms']}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    record["phase_s"] = time.perf_counter() - t_phase
+    return record
+
+
+def slab_turns(single, sharded, block, nsamples, reps=20):
+    """The route's kernel alone on one window's prepared onsets: the
+    unsharded DetectScan's detector on the whole plan against the mesh
+    DetectScan's slab detectors launched one after another, timed in
+    turns (unsharded, slabs, slabs, unsharded; CUDA events, mean of
+    ``reps``). Returns {"unsharded": [ms, ms], "slabs": [ms, ms]}."""
+
+    device = single.device
+    det = single.detector(nsamples)
+    slab_dets = [slab.detector(device, single.fsmp, nsamples)
+                 for slab in sharded.mesh_detect().slabs]
+    tensors = [torch.from_numpy(a).to(device) for a in block]
+    combined, available = single.front_end(*tensors)
+    onsets_log, inv = det.prepare(combined, tensors[2], available)
+    fns = {"unsharded": lambda: det.launch(onsets_log, inv),
+           "slabs": lambda: [d.launch(onsets_log, inv) for d in slab_dets]}
+    turns = {"unsharded": [], "slabs": []}
+    for label in ("unsharded", "slabs", "slabs", "unsharded"):
+        turns[label].append(cuda_ms(fns[label], reps))
+    return turns
+
+
+def scanmseed_bytes(scan):
+    """The bytes of a detect run's one .scanmseed file."""
+
+    (path,) = sorted((scan.run.path / "detect" / "scanmseed").glob(
+        "*.scanmseed"))
+    return path.read_bytes()
+
+
+def availability_cells(scan):
+    """Every station-phase cell of a detect run's StationAvailability
+    files, as ints."""
+
+    import csv
+
+    cells = []
+    for path in sorted((scan.run.path / "detect" / "availability").glob(
+            "*.csv")):
+        with open(path, newline="") as f:
+            rows = list(csv.reader(f))
+        cells += [int(cell) for row in rows[1:] for cell in row[1:]]
+    return cells
 
 
 # ops_path: the Icequake flat table (26 onsets) through the routed ops
@@ -5405,6 +5757,16 @@ def main():
         # the slice's DetectScan run over prepared blocks beside it
         "launches": archive_launches,
         "slice_launches": launches,
+        # mesh_path: K1 v2 once a slab and window of each mesh, and once a
+        # slab in the grid mesh's locate pass 1
+        "mesh_launches": {
+            label: archive_record["mesh_path"][label]["launches"].get(
+                "migrate_detect_v2", 0)
+            for label in ("grid4", "batch2x2", "locate_grid4")},
+        "mesh_window_ms": {
+            label: archive_record["mesh_path"][label]["warm_window_ms"]
+            for label in ("unsharded", "grid4", "batch2x2")},
+        "mesh_turns_ms": archive_record["mesh_path"]["k1_v2_turns_ms"],
         "locate_launches": locate_record["launches"]["migrate_detect_v2"],
         "locate_ms": locate_record["k1_v2_ms"],
         "locate_bound": locate_record["k1_v2_bound"],
@@ -5802,6 +6164,9 @@ def main():
         "replaces": "quakemigrate_tpu/ops/migrate.py:291",
         # the main path: QuakeScan.locate over the archive (archive_locate)
         "launches": locate_record["launches"]["migrate_marginalise_v2"],
+        # mesh_path: once a slab in the grid mesh's locate pass 2
+        "mesh_launches": archive_record["mesh_path"]["locate_grid4"][
+            "launches"].get("migrate_marginalise_v2", 0),
         "max_abs_err": max([locate_record["vs_plain"]["m1_abs"]] + [
             r["max_abs_err"] for r in locate_record["m1_windows"].values()]),
         "max_err_of_max": locate_record["vs_plain"]["m1"],
@@ -5891,6 +6256,13 @@ def main():
         # its path: DetectScan's k3 route at F3's geometry (f3_path), and
         # locate's pass 1 there; the Icequake window with kernel="xla"
         "launches": f3_record["launches"],
+        # mesh_path: one F3 window on a grid mesh, once a slab
+        "mesh_launches": archive_record["mesh_path"]["f3"]["launches"].get(
+            "migrate_detect_global_v2", 0),
+        "mesh_window_ms": archive_record["mesh_path"]["f3"]["window_ms"],
+        "unsharded_window_ms": archive_record["mesh_path"]["f3"][
+            "unsharded_window_ms"],
+        "mesh_turns_ms": archive_record["mesh_path"]["f3"]["k3_v2_turns_ms"],
         "max_abs_err": max(f3_record["exact"]["max_abs_err"],
                            xla_record["exact"]["max_abs_err"]),
         "ms": f3_record["ms"],

@@ -215,11 +215,15 @@ class DetectPlan:
       of ``nsamples`` reads onsets up to ``fsmp + nsamples + max_shift``;
     - ``bits`` and ``r_pow2 = 2**bits``: the shift-network depth and the
       power-of-two span of the TPU VPU kernel's plan (``PallasDetectPlan``),
-      kept for parity only; no kernel here uses them.
+      kept for parity only; no kernel here uses them;
+    - ``nodes``: None for a whole plan; for a slab (:meth:`slab`), the
+      sorted flat indices of its real nodes.
 
     Traveltimes are clamped at 0.
 
     """
+
+    nodes = None
 
     def __init__(self, traveltimes, node_count, tile=256,
                  brick_shape=(8, 8, 4)):
@@ -276,6 +280,93 @@ class DetectPlan:
         if self.r_span > FINE16_MAX_SPAN:
             return None
         return np.ascontiguousarray(self.fine.transpose(0, 2, 1), np.int16)
+
+    @classmethod
+    def of_tiles(cls, fine, base, valid, perm, n_nodes, r_spans):
+        """
+        The plan of the per-tile arrays of another plan (``fine`` int32
+        [n_tiles, O, tile], ``base``, ``valid``, ``perm`` flat or [n_tiles,
+        tile]), as :func:`quakemigrate_torch.parallel.pad_mxu_plan_for_mesh`
+        gives them, dead tiles included, for a grid of ``n_nodes`` nodes
+        and the whole plan's ``r_spans`` (its windows, and so every slab's
+        kernel and route, stay the whole plan's).
+
+        """
+
+        plan = cls.__new__(cls)
+        fine = np.ascontiguousarray(fine, np.int32)
+        plan.n_tiles, plan.n_onsets, plan.tile = fine.shape
+        plan.n_nodes = int(n_nodes)
+        plan.fine = fine
+        plan.base = np.ascontiguousarray(base, np.int32)
+        plan.valid = np.ascontiguousarray(valid, np.float32).reshape(
+            plan.n_tiles, plan.tile)
+        plan.perm = np.ascontiguousarray(perm, np.int32).ravel()
+        plan.r_spans = tuple(int(r) for r in r_spans)
+        plan.r_span = max(plan.r_spans)
+        plan.span_off = span_offsets(plan.r_spans)
+        plan.win_floats = int(plan.span_off[-1])
+        live = plan.valid[:, None, :] > 0
+        plan.max_shift = int(np.where(
+            live, plan.base[..., None] + plan.fine, 0).max(initial=0))
+        r_max = plan.r_span - 1
+        plan.bits = max(1, int(np.ceil(np.log2(r_max + 1)))) if r_max else 1
+        plan.r_pow2 = 1 << plan.bits
+        return plan
+
+    def slab(self, start, stop):
+        """
+        Tiles ``[start, stop)`` of the plan as a plan of their own: a node
+        slab of a mesh's grid axis. Tiles past the plan's last are dead
+        (valid 0; base, fine and perm 0). ``perm`` stays global, so a
+        slab's combine gives global flat indices; ``n_nodes``, the
+        residual spans, the window offsets and ``max_shift`` stay the
+        whole plan's, so every slab takes the whole plan's kernel route
+        and its marginalisation writes into ``[n_nodes]``. ``nodes`` is
+        the sorted flat indices of the slab's real nodes.
+
+        """
+
+        n = stop - start
+
+        def take(a):
+            part = a[start:min(stop, self.n_tiles)]
+            pad = n - part.shape[0]
+            if pad:
+                part = np.concatenate(
+                    [part, np.zeros((pad,) + a.shape[1:], a.dtype)])
+            return np.ascontiguousarray(part)
+
+        out = type(self).__new__(type(self))
+        out.__dict__.update({k: v for k, v in self.__dict__.items()
+                             if k != "fine16"})
+        out.n_tiles = n
+        out.base, out.fine, out.valid = (take(self.base), take(self.fine),
+                                         take(self.valid))
+        out.perm = take(self.perm.reshape(self.n_tiles, self.tile)).ravel()
+        out.nodes = np.sort(out.perm[out.valid.ravel() > 0]).astype(np.int64)
+        return out
+
+    def slabs(self, n_slabs):
+        """The plan's tiles in ``n_slabs`` slabs of ``ceil(n_tiles /
+        n_slabs)`` tiles (:meth:`slab`), the last ones padded with dead
+        tiles, as ``pad_mxu_plan_for_mesh`` pads the tile axis."""
+
+        per = -(-self.n_tiles // n_slabs)
+        return [self.slab(i * per, (i + 1) * per) for i in range(n_slabs)]
+
+    def flat_rows(self):
+        """(nodes, tt): the flat indices of the plan's real nodes
+        (``nodes``, or every node of a whole plan), sorted, and their
+        traveltimes ``base + fine`` (clamped at 0), int32 [len(nodes),
+        O]: the flat table of K3 on this plan."""
+
+        live = self.valid.ravel() > 0
+        flat = self.perm[live].astype(np.int64)
+        tt = (self.base[:, :, None] + self.fine).transpose(0, 2, 1).reshape(
+            -1, self.n_onsets)[live]
+        order = np.argsort(flat, kind="stable")
+        return flat[order], np.ascontiguousarray(tt[order], np.int32)
 
 
 def span_offsets(r_spans, per_onset=True, align=1):
@@ -1700,6 +1791,7 @@ class CudaDetect:
         if plan is None:
             plan = DetectPlan(traveltimes, node_count, tile=tile,
                               brick_shape=brick_shape)
+        self.plan = plan
         self.dtype = dtype
         self.device = resolve_device(device)
         self.fsmp = int(fsmp)
@@ -1942,7 +2034,30 @@ class CudaDetectGlobal(CudaDetect):
                  plan=None, dtype=torch.float32):
         super().__init__(traveltimes, node_count, fsmp, nsamples, device,
                          plan=plan, dtype=dtype)
+        # K3's flat table: the traveltimes, or on a slab of a plan
+        # (``DetectPlan.slab``) the rows of its real nodes, whose flat
+        # indices ``rows`` map K3's row indices back to the grid's
+        self.rows = None
+        if self.plan.nodes is not None:
+            rows, traveltimes = self.plan.flat_rows()
+            self.rows = self._put(rows)
         self.tt = self._put(np.ascontiguousarray(traveltimes, np.int32))
+
+    def _flat(self, max_coa, max_idx, coa_sum):
+        """K3's outputs with its row indices mapped to flat node indices
+        (on a slab of a plan)."""
+
+        if self.rows is not None:
+            max_idx = self.rows[max_idx.long()].to(torch.int32)
+        return max_coa, max_idx, coa_sum
+
+    def _empty(self, dtype, device):
+        """The outputs of a slab with no real node, which K3 cannot take:
+        coalescence 0, no node (INT32_MAX), as dead tiles give."""
+
+        zeros = torch.zeros(self.nsamples, dtype=dtype, device=device)
+        return zeros, torch.full((self.nsamples,), torch.iinfo(
+            torch.int32).max, dtype=torch.int32, device=device), zeros
 
     def _load(self, plan):
         """K3 v2's tables of the plan, for the detector's ``dtype``, where
@@ -1968,18 +2083,23 @@ class CudaDetectGlobal(CudaDetect):
             raise ValueError(
                 f"onsets are on {onsets.device}, the plan on {self.device}"
             )
-        return detect_reduce(onsets, self.tt, mask, available, self.fsmp,
-                             self.nsamples, self.n_nodes)
+        if self.tt.shape[0] == 0:
+            return self._empty(onsets.dtype, onsets.device)
+        return self._flat(*detect_reduce(
+            onsets, self.tt, mask, available, self.fsmp, self.nsamples,
+            self.tt.shape[0]))
 
     def reduce_log(self, onsets_log, inv_available):
         """The kernel and its combine for prepared onsets (:meth:`prepare`)
         on the card; raises on CPU tensors (the plain version takes the
         raw onsets: :meth:`reduce`)."""
 
+        if self.tables is None and self.tt.shape[0] == 0:
+            return self._empty(onsets_log.dtype, onsets_log.device)
         parts = self.launch(onsets_log.contiguous(), inv_available)
         self.launches += 1
         if self.tables is None:
-            return combine_flat_tiles(*parts)
+            return self._flat(*combine_flat_tiles(*parts))
         return combine_brick_tiles(*parts)
 
     def launch(self, onsets_log, inv_available):

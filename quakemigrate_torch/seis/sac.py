@@ -149,10 +149,7 @@ def read_sac(path):
     if b != _UNDEF_F and np.isfinite(b):
         start = start + b
 
-    # The header holds delta in float32 (0.01 as 0.0099999998): take the
-    # shortest decimal that rounds to it, so that a 100 Hz file reads as
-    # 100 Hz and its samples fall on the grid the other formats give
-    delta = float(str(floats[_FLOAT_HDR["delta"]]))
+    delta = float(floats[_FLOAT_HDR["delta"]])
     if not np.isfinite(delta) or delta <= 0.0:
         raise ValueError(f"SAC header has invalid sample interval {delta}.")
 

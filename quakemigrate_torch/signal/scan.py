@@ -133,7 +133,14 @@ def detect_route(traveltimes, node_count, device, kernel="auto",
 
     if device.type != "cuda":
         return "plain", None, None
-    plan = DetectPlan(traveltimes, node_count)
+    return plan_route(DetectPlan(traveltimes, node_count), device, kernel,
+                      precision)
+
+
+def plan_route(plan, device, kernel="auto", precision="single"):
+    """:func:`detect_route` of a :class:`DetectPlan` already built, on a
+    CUDA ``device``: (route, reason, plan)."""
+
     double = precision == "double"
     k3_reason = global_v2_refusal(
         plan, torch.float64 if double else torch.float32)
@@ -185,6 +192,19 @@ def route_detector(route, plan, traveltimes, node_count, fsmp, nsamples,
                                   device, plan=plan, dtype=dtype)
 
 
+def _inert(block):
+    """An inert window of a fused block's shapes: all-ones channels and
+    zero masks, the per-slot arguments of ``block``."""
+
+    def like(a, value):
+        if torch.is_tensor(a):
+            return torch.full_like(a, value)
+        return np.full_like(a, value)
+
+    return (like(block[0], 1.0), like(block[1], 0.0), like(block[2], 0.0),
+            *block[3:])
+
+
 class DetectScan:
     """
     Detect over a sequence of windows on one device.
@@ -227,6 +247,21 @@ class DetectScan:
         (``precision="double"``) takes the float64 forms of the "k3"
         route's kernels; the blocks come in that type. The CPU's plain
         window runs in the blocks' own type.
+    mesh : quakemigrate_torch.parallel.Mesh, optional
+        Shard each window's migration over the mesh's "grid" axis
+        (``parallel.MeshDetect``): on a CPU mesh the plain reduction on
+        flat slabs of the table padded to whole ``tile``s, on a CUDA mesh
+        the route's kernel on slabs of the plan's tiles; the onset front
+        end once a device, the slabs combined and the packed result on
+        the mesh's first device, which ``device`` must be.
+    tile : int, default ops.migrate.DEFAULT_TILE
+        The flat slabs' node tile on a CPU mesh (the reference's ``tile``).
+    batch : int, optional
+        With a mesh that has a "batch" axis: windows a dispatch, a
+        multiple of the batch rows; window j of a dispatch runs on row
+        ``j // (batch / rows)``, a short dispatch is filled with inert
+        windows (ones, masks 0), and each window's live count is clamped
+        to 1, as the reference's batched mesh does.
 
     Attributes
     ----------
@@ -246,8 +281,14 @@ class DetectScan:
     def __init__(self, traveltimes, node_count, fsmp, lsmp,
                  front_end=stalta_front_end("classic", "energy", 0.4),
                  device="cuda", drain_depth=DRAIN_DEPTH, route=None,
-                 dtype=torch.float32):
+                 dtype=torch.float32, mesh=None, tile=DEFAULT_TILE,
+                 batch=None):
         self.device = resolve_device(device)
+        if mesh is not None and mesh.first != self.device:
+            raise ValueError(f"device {self.device} is not the mesh's first "
+                             f"device {mesh.first}")
+        self.mesh, self.tile, self.batch = mesh, tile, batch
+        self._mesh_detect = None
         self.dtype = dtype
         self.traveltimes = np.ascontiguousarray(traveltimes, dtype=np.int32)
         self.node_count = tuple(int(n) for n in node_count)
@@ -265,11 +306,27 @@ class DetectScan:
         self.route, self.route_reason, self._plan = route or detect_route(
             self.traveltimes, self.node_count, self.device)
         self.drain_depth = max(1, int(drain_depth))
-        # Per-window device milliseconds (upload to packed result) of the
-        # last detect() on a CUDA device, from CUDA events; and the host
+        # Per-dispatch device milliseconds (upload to packed result) of
+        # the last detect() on a CUDA device, from CUDA events (a dispatch
+        # is one window, or on a batched mesh one batch); and the host
         # seconds of each dispatched window's dispatch and of its fetch
         # (wait, copy and unpack), in window order.
         self.window_ms, self.dispatch_s, self.fetch_s = [], [], []
+
+    def mesh_detect(self):
+        """The ``parallel.MeshDetect`` of the windows on the mesh, built
+        on first use: the slabs of the table (CPU mesh) or of the route's
+        plan (CUDA mesh)."""
+
+        if self._mesh_detect is None:
+            from quakemigrate_torch.parallel import MeshDetect, scan_slabs
+
+            slabs = scan_slabs(self.mesh, self.traveltimes, self.route,
+                               self._plan, self.tile, dtype=self.dtype)
+            self._mesh_detect = MeshDetect(
+                self.mesh, slabs, self.n_nodes,
+                batch_axis="batch" if self.batch else None)
+        return self._mesh_detect
 
     def detector(self, nsamples):
         """The route's CUDA detector for windows of ``nsamples`` scan
@@ -315,16 +372,28 @@ class DetectScan:
         """
 
         pending = deque()
+        # A mesh's windows waiting for their dispatch: [entry, block],
+        # each entry a list filled with (host, events, j) on dispatch
+        waiting = []
         self.window_ms, self.dispatch_s, self.fetch_s = [], [], []
         for block in windows:
             if block is None or float(block[2].sum()) == 0:
                 pending.append(None)
-            else:
+            elif self.mesh is None:
                 t0 = time.perf_counter()
                 pending.append(self._dispatch(*block))
                 self.dispatch_s.append(time.perf_counter() - t0)
+            else:
+                waiting.append(([None], block))
+                pending.append(waiting[-1][0])
+                if len(waiting) == (self.batch or 1):
+                    self._dispatch_mesh(waiting)
             while len(pending) > self.drain_depth:
+                if waiting and pending[0] is waiting[0][0]:
+                    self._dispatch_mesh(waiting)
                 yield self._drain(pending.popleft())
+        if waiting:
+            self._dispatch_mesh(waiting)
         while pending:
             yield self._drain(pending.popleft())
 
@@ -368,11 +437,53 @@ class DetectScan:
         copied.record(stream)
         return host, (start, copied)
 
+    def _dispatch_mesh(self, waiting):
+        """Dispatch the mesh's waiting windows, filled up to ``batch``
+        with inert windows: each window's sharded program
+        (``parallel.MeshDetect.window``), the packed results stacked on
+        the first device and copied back at once; fills each waiting
+        entry with (host [B, 3, S], events or None, j) and empties
+        ``waiting``."""
+
+        t0 = time.perf_counter()
+        cuda = self.device.type == "cuda"
+        if cuda:
+            stream = torch.cuda.current_stream(self.device)
+            start = torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+        blocks = [block for _, block in waiting]
+        nsamples = blocks[0][0].shape[-1] - self.fsmp - self.lsmp
+        md = self.mesh_detect()
+        if self.batch:
+            blocks += [_inert(blocks[0])] * (self.batch - len(blocks))
+        per = len(blocks) // len(md.rows)
+        packed = torch.stack([pack_detect_window(*md.window(
+            self.front_end, block, self.fsmp, nsamples, row=j // per,
+            clamp=bool(self.batch))) for j, block in enumerate(blocks)])
+        events = None
+        if cuda:
+            host = torch.empty(packed.shape, dtype=packed.dtype,
+                               pin_memory=True)
+            host.copy_(packed, non_blocking=True)
+            copied = torch.cuda.Event(enable_timing=True)
+            copied.record(stream)
+            packed, events = host, (start, copied)
+        for j, (entry, _) in enumerate(waiting):
+            entry[0] = (packed, events if j == 0 else None, j)
+        dt = (time.perf_counter() - t0) / len(waiting)
+        self.dispatch_s.extend([dt] * len(waiting))
+        waiting.clear()
+
     def _drain(self, entry):
         if entry is None:
             return None
         t0 = time.perf_counter()
-        host, events = entry
+        if isinstance(entry, list):
+            # A mesh's window: its row of the dispatch's packed results
+            host, events, j = entry[0]
+            host = host[j]
+        else:
+            host, events = entry
         if events is not None:
             start, copied = events
             copied.synchronize()
@@ -416,9 +527,10 @@ class QuakeScan:
     run_path, run_name : str
         The run directory is ``run_path/run_name`` (``run_subname``
         appends a subdirectory name).
-    device : str or torch.device, default "cuda"
-        Where the windows run: the card unless the caller asks for the
-        CPU; "cuda" raises where CUDA is absent.
+    device : str or torch.device, optional
+        Where the windows run: the card ("cuda") unless the caller asks
+        for the CPU; "cuda" raises where CUDA is absent. With a ``mesh``
+        the default is the mesh's first device, and another raises.
     picker : PhasePicker, optional
         Locate's phase picker (default ``GaussianPicker(onset=onset)``).
     mags : LocalMag, optional
@@ -470,9 +582,22 @@ class QuakeScan:
         "mxu" the reference's notice is logged): K3 v2 f64, or K3 f64 on
         a plan too wide for its ring of doubles, then M1 f64 and M2
         simple f64 for locate.
-    mesh : None
-        Anything else raises NotImplementedError (the port has no
-        multi-GPU path).
+    mesh : quakemigrate_torch.parallel.Mesh, optional
+        Shard the grid-node axis over this device mesh
+        (``parallel.make_mesh``), as the reference shards it over its JAX
+        mesh: each device of the "grid" axis migrates a slab of the
+        nodes, and the per-sample max, argmax and sum of the slabs are
+        combined on the mesh's first device. On a CUDA mesh each slab runs
+        the kernel of the scan's route (``detect_route``: K1 v2, K2 v2 or
+        K3 v2/K3, and their float64 forms with ``precision="double"``) on
+        a slab of the plan's tiles; on a CPU mesh the plain reduction on
+        flat slabs of the table padded to whole ``tile``s. A "batch" axis
+        dispatches detect's fused windows in batches
+        (``_mesh_batch_size``), window j on the batch row ``j // (batch
+        / rows)``. Locate's pass 1 and pass 2 run on the slabs (each
+        slab's M1 v2, or M1, writing its nodes of the [n_nodes] result);
+        the map path runs unsharded on the first device. A device may
+        repeat: its slabs run in turn.
     fused_detect : bool, default True
         Detect's fused window for ``STALTAOnset`` and ``KurtosisOnset``;
         False takes the standard path (see ``onset``) for them too.
@@ -482,7 +607,9 @@ class QuakeScan:
         of "i8x3", "i8x2", "bf16hl"; ``detect_batch`` at least 1), and
         without effect here: the port dispatches one window at a time on
         either path (the reference's batch of windows equals one window
-        at a time).
+        at a time). With a ``mesh``, as in the reference, ``tile`` is the
+        node tile of a CPU mesh's flat slabs, and ``detect_batch`` sets
+        the batch of a mesh's "batch" axis (``_mesh_batch_size``).
     time_step, n_cores, sampling_rate
         The reference's deprecated names: ``time_step`` sets
         ``timestep``, ``n_cores`` sets ``threads``, ``sampling_rate``
@@ -566,11 +693,12 @@ class QuakeScan:
         "kernel": "auto",
         # "double": float64 device work, on the "k3" route's float64 forms
         "precision": "single",
-        # Anything but None raises: the port has no multi-GPU path
+        # A parallel.Mesh: the grid-node axis sharded over its devices
         "mesh": None,
         # Host threads of the reference's own C calls; the port has none
         "threads": 1,
-        # The reference's XLA node tile: the port's plans fix their tiles
+        # The reference's XLA node tile: the port's plans fix their tiles;
+        # a CPU mesh pads and reduces its flat slabs in it
         "tile": DEFAULT_TILE,
         # The reference's MXU table encoding: the port's kernels gather
         # the onsets in float32
@@ -588,10 +716,22 @@ class QuakeScan:
     }
 
     def __init__(self, archive, lut, onset, run_path, run_name,
-                 device="cuda", **kwargs):
+                 device=None, **kwargs):
         if not isinstance(onset, Onset):
             raise util.OnsetTypeError
-        self.device = resolve_device(device)
+        mesh = kwargs.get("mesh")
+        if mesh is None:
+            self.device = resolve_device("cuda" if device is None else device)
+        else:
+            from quakemigrate_torch.parallel import Mesh, check_mesh
+
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"mesh must be a quakemigrate_torch.parallel"
+                                f".Mesh, got {type(mesh).__name__}")
+            self.device = check_mesh(mesh).first
+            if device is not None and resolve_device(device) != self.device:
+                raise ValueError(f"device {device} is not the mesh's first "
+                                 f"device {self.device}")
         self.archive = archive
         self.lut = lut
         self.onset = onset
@@ -610,10 +750,6 @@ class QuakeScan:
                 f"mxu_encoding must be 'i8x3', 'i8x2' or 'bf16hl', got "
                 f"{self.mxu_encoding!r}"
             )
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "mesh: the multi-GPU path is not ported yet (ROADMAP.md "
-                "§1, A12)")
         picker = kwargs.get("picker")
         if picker is None:
             self.picker = GaussianPicker(onset=onset)
@@ -642,6 +778,7 @@ class QuakeScan:
         self._route = None
         self._tt_flat = None
         self._locate_detector = None
+        self._mesh_locate = None
         self._summary_logged = False
 
         # The reference's deprecated parameter names (the properties at
@@ -725,7 +862,7 @@ class QuakeScan:
             self._traveltimes = traveltime_table(tables, self.scan_rate)
             self._traveltimes_key = key
             self._route = self._tt_flat = self._locate_detector = None
-            self.detect_scan = None
+            self.detect_scan = self._mesh_locate = None
         return self._traveltimes
 
     def _detect_route(self):
@@ -766,17 +903,60 @@ class QuakeScan:
 
         route = self._detect_route()
         factory, settings = self._front_end_settings()
-        key = (fsmp, lsmp, factory, settings)
+        # The reference batches a mesh's fused windows only
+        batch = self._mesh_batch_size() if self._fused_active else None
+        key = (fsmp, lsmp, factory, settings, batch)
         scan = self.detect_scan
         if scan is None or self._detect_scan_key != key:
             scan = self.detect_scan = DetectScan(
                 self._traveltime_table(), tuple(self.lut.node_count), fsmp,
                 lsmp, front_end=factory(*settings), device=self.device,
                 drain_depth=self.detect_drain_depth, route=route,
-                dtype=self._torch_dtype,
+                dtype=self._torch_dtype, mesh=self.mesh, tile=self.tile,
+                batch=batch,
             )
             self._detect_scan_key = key
         return scan
+
+    def _mesh_batch_size(self):
+        """
+        Fixed window-batch size for the fused batch x grid mesh path, or
+        None when no mesh batch axis exists. Rounded up to a whole
+        multiple of the mesh's batch extent so windows shard evenly
+        (inert pad windows fill the remainder); at least one window per
+        batch shard, so a 2-D mesh batches windows even at the default
+        detect_batch=1.
+
+        """
+
+        if self.mesh is None or "batch" not in self.mesh.axis_names:
+            return None
+        nb = self.mesh.shape["batch"]
+        return -(-max(self.detect_batch, nb) // nb) * nb
+
+    def _detect_batch_size(self):
+        """Windows per detect dispatch: detect_batch on one device (the
+        port dispatches them one at a time, which the reference's batch
+        equals); under a mesh, 1 unless the mesh has a "batch" axis (then
+        the rounded window batch shards over it)."""
+
+        if self.mesh is None:
+            return self.detect_batch
+        return self._mesh_batch_size() or 1
+
+    def _mesh_locate_detect(self):
+        """Locate's ``parallel.MeshDetect`` on the mesh (its first batch
+        row), on the slabs of detect's route and plan, built once for the
+        table."""
+
+        if self._mesh_locate is None:
+            from quakemigrate_torch.parallel import MeshDetect, scan_slabs
+
+            route, _, plan = self._detect_route()
+            self._mesh_locate = MeshDetect(self.mesh, scan_slabs(
+                self.mesh, self._traveltime_table(), route, plan, self.tile,
+                dtype=self._torch_dtype), int(np.prod(self.lut.node_count)))
+        return self._mesh_locate
 
     # ------------------------------------------------------------------
     # detect
@@ -1304,7 +1484,13 @@ class QuakeScan:
         route, _, plan = self._detect_route()
         self.locate_route = route
         map_host = None
-        if route == "plain":
+        if self.mesh is not None and not retain_map:
+            # Pass 1 on the mesh's slabs; pass 2 takes their inputs
+            mesh_detect = self._mesh_locate_detect()
+            inputs["mesh"] = mesh_detect.prepare(block, mask, available,
+                                                 fsmp, nsamples)
+            result = mesh_detect.reduce(inputs["mesh"], fsmp, nsamples)
+        elif route == "plain":
             if retain_map:
                 map_flat = migrate_map(block, self._flat_traveltimes(), mask,
                                        available, fsmp, nsamples)
@@ -1375,14 +1561,22 @@ class QuakeScan:
             return None
         inputs = event._marginalise_inputs
         i0, i1 = event.trim_bounds
-        if self.device.type != "cuda":
+        if self.mesh is not None:
+            # Each slab's marginalisation writes its nodes of the result
+            marginal = self._mesh_locate_detect().marginalise(
+                inputs["mesh"], inputs["fsmp"], inputs["nsamples"], i0,
+                i1 - i0)
+            if self.device.type != "cuda":
+                return marginal, None
+        elif self.device.type != "cuda":
             return migrate_marginalise(
                 inputs["block"], self._flat_traveltimes(), inputs["mask"],
                 inputs["available"], inputs["fsmp"], inputs["nsamples"], i0,
                 i1 - i0,
             ), None
-        marginal = self._locate_detector.marginalise(
-            inputs["onsets_log"], inputs["inv_available"], i0, i1 - i0)
+        else:
+            marginal = self._locate_detector.marginalise(
+                inputs["onsets_log"], inputs["inv_available"], i0, i1 - i0)
         host = torch.empty(marginal.shape, dtype=marginal.dtype,
                            pin_memory=True)
         host.copy_(marginal, non_blocking=True)

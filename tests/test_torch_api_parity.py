@@ -42,9 +42,6 @@ ALLOWLIST = {
         "counterpart: quakemigrate_torch.ops.scan_window.detect_window_cuda",
     "quakemigrate_tpu.ops.scan_window.detect_window_fused_kurtosis_mxu":
         "counterpart: quakemigrate_torch.ops.scan_window.detect_window_cuda",
-    "quakemigrate_tpu.parallel":
-        "excluded: the multi-device path and the mesh option, the next "
-        "slice (A12 in ROADMAP.md)",
     "quakemigrate_tpu.util.host_cpu_jax":
         "excluded: JAX machinery (a host-CPU JAX device)",
     "quakemigrate_tpu.util.enable_compilation_cache":

@@ -10,8 +10,8 @@ package's:
 - the port's writes byte for byte JAX's for the same Stream, but for the
   bytes named: SEG-Y's textual cards 2 (the writer's name) and 3 on (the
   trace ids, which SEG-Y's trace header has no field for);
-- SAC's sampling rate: the port reads the shortest decimal of the
-  header's float32 delta (100 Hz as 100.0, JAX 100.0000022);
+- SAC's sampling rate: both packages read the header's float32 delta
+  as it is (100 Hz as 1 / float32(0.01), 100.0000022), the rates equal;
 - ``read``'s format sniffing and its refusals;
 - RESP and SAC_PZ inventories (the texts of tests/test_full_response.py)
   whose responses match JAX's at 200 frequencies within 1e-12, and
@@ -20,8 +20,11 @@ package's:
   read back;
 - QuakeScan.detect on the CPU from the synthetic workspace's archive
   (tests/torch_synthetic.py) rewritten as int32 counts in SAC, GSE2 and
-  SEG-Y: the samples read back equal the miniSEED ones, and the
-  .scanmseed equals the miniSEED run's byte for byte.
+  SEG-Y: the samples read back equal the miniSEED ones; from GSE2 and
+  SEG-Y the .scanmseed equals the miniSEED run's byte for byte; from SAC,
+  whose float32 rate the scan cannot resample to 100 Hz, both packages
+  refuse every trace (availability 0) and write .scanmseed files that
+  agree.
 
 """
 
@@ -32,6 +35,7 @@ import torch
 from quakemigrate_tpu.io import read_response_inv as j_read_response_inv
 from quakemigrate_tpu.seis import Stream as JStream
 from quakemigrate_tpu.seis import Trace as JTrace
+from quakemigrate_tpu.seis import UTCDateTime as JUTCDateTime
 from quakemigrate_tpu.seis import read as j_read
 from quakemigrate_tpu.seis.response import (
     paz_to_freq_resp as j_paz_to_freq_resp,
@@ -96,15 +100,25 @@ def _read_all(reader, path, fmt, n):
     return traces
 
 
-def _assert_same(got, want, keys, rate_rtol=0.0):
+def _read_rate(fmt, rate):
+    """The rate a reader gives back for a file written at ``rate``: SAC
+    holds delta in float32, which both packages read as it is."""
+
+    return 1.0 / float(np.float32(1.0 / rate)) if fmt == "SAC" else rate
+
+
+def _assert_same(got, want, keys, rate=None):
+    """Equal samples, npts, start and ``keys``; the rate ``rate``, or
+    the written trace's where None."""
+
     assert len(got) == len(want)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(np.asarray(g.data, np.float64),
                                       np.asarray(w.data, np.float64))
         assert g.stats.npts == w.stats.npts
         assert str(g.stats.starttime) == str(w.stats.starttime)
-        np.testing.assert_allclose(g.stats.sampling_rate,
-                                   w.stats.sampling_rate, rtol=rate_rtol)
+        assert g.stats.sampling_rate == (w.stats.sampling_rate
+                                         if rate is None else rate)
         for key in keys:
             assert getattr(g.stats, key) == getattr(w.stats, key), key
 
@@ -117,10 +131,11 @@ def test_cross_read(tmp_path, fmt, writer):
     (port if writer == "port" else jax).write(str(path), format=fmt)
     by_port = _read_all(read, path, fmt, len(port))
     by_jax = _read_all(j_read, path, fmt, len(port))
-    _assert_same(by_port, port.traces, _HELD[fmt])
-    # JAX reads SAC's float32 delta as it is (100 Hz as 100.0000022)
-    _assert_same(by_jax, port.traces, _HELD[fmt],
-                 rate_rtol=1e-7 if fmt == "SAC" else 0.0)
+    # Both read SAC's float32 delta as it is (100 Hz as 100.0000022)
+    rate = _read_rate(fmt, port.traces[0].stats.sampling_rate)
+    _assert_same(by_port, port.traces, _HELD[fmt], rate=rate)
+    _assert_same(by_jax, port.traces, _HELD[fmt], rate=rate)
+    _assert_same(by_port, by_jax, _HELD[fmt])
     if fmt == "SEGY":
         got = [(t.stats.network, t.stats.station, t.stats.channel)
                for t in by_port]
@@ -177,7 +192,10 @@ def test_read_sniffs_the_format_and_trims(tmp_path, fmt):
                           np.asarray(port[0].data, np.int64))
     start = UTCDateTime(START) + 2.0
     part = read(path, starttime=start, endtime=start + 1.0)
-    assert part[0].stats.starttime == start and part[0].stats.npts == 101
+    # Sample 200 of the file's grid: 2 s on, or 200 float32 deltas (SAC)
+    rate = _read_rate(fmt, port[0].stats.sampling_rate)
+    assert part[0].stats.starttime == UTCDateTime(START) + 200 / rate
+    assert part[0].stats.npts == 101
     np.testing.assert_array_equal(np.asarray(part[0].data, np.int64),
                                   port[0].data[200:301])
     assert read(path, format=fmt)[0].stats.npts == 1500
@@ -318,7 +336,8 @@ def test_cut_waveforms_in_every_format(tmp_path, fmt):
     back = _read_all(read, path, fmt, 3)
     _assert_same(back, port.traces, ("network", "station", "channel")
                  if fmt in ("MSEED", "SAC", "SEGY") else ("station",
-                                                          "channel"))
+                                                          "channel"),
+                 rate=_read_rate(fmt, port[0].stats.sampling_rate))
 
 
 # -- detect from each format --------------------------------------------------------
@@ -350,15 +369,65 @@ def test_detect_from_format_equals_mseed(format_runs, fmt):
         data[name] = archive.read_waveform_data(
             UTCDateTime(ws.START), UTCDateTime(ws.END), 1.0, 1.0).waveforms
     assert len(data[fmt]) == len(data["MSEED"]) == 3 * ws.N_STATIONS
-    for got, want in zip(data[fmt], data["MSEED"]):
+    if fmt == "SAC":
+        # Starts on the file's grid at the float32 rate: the JAX
+        # package's read of the same archive
+        from quakemigrate_tpu.io import Archive as JArchive
+
+        starts = [tr.stats.starttime.ns for tr in JArchive(
+            archive_path=format_runs[fmt]["archive"],
+            stations=format_runs[fmt]["stations"],
+            archive_format="YEAR/JD/STATION").read_waveform_data(
+                JUTCDateTime(ws.START), JUTCDateTime(ws.END), 1.0,
+                1.0).waveforms]
+    else:
+        starts = [tr.stats.starttime.ns for tr in data["MSEED"]]
+    for got, want, start in zip(data[fmt], data["MSEED"], starts):
         assert (got.stats.station, got.stats.channel) == (
             want.stats.station, want.stats.channel)
-        assert got.stats.starttime == want.stats.starttime
-        assert got.stats.sampling_rate == want.stats.sampling_rate
+        assert got.stats.sampling_rate == _read_rate(
+            fmt, want.stats.sampling_rate)
+        assert got.stats.starttime.ns == start
         np.testing.assert_array_equal(np.asarray(got.data, np.int64),
                                       want.data)
+    if fmt == "SAC":
+        _hold_sac_detect_to_jax(format_runs["SAC"])
+        return
     files = {name: sorted((format_runs[name]["root"] / "runs" / "detect"
                            / "detect").rglob("*.scanmseed"))
              for name in ("MSEED", fmt)}
     assert len(files[fmt]) == len(files["MSEED"]) == 1
     assert files[fmt][0].read_bytes() == files["MSEED"][0].read_bytes()
+
+
+def _hold_sac_detect_to_jax(workspace):
+    """The SAC archive's rate, 1 / float32(0.01), is not the onset's 100
+    Hz, and the scan's resample cannot conform it: the JAX package's
+    detect on the archive refuses every trace, and the port's must agree,
+    every availability cell 0 and the .scanmseed files within the bounds
+    of the other parity tests."""
+
+    from quakemigrate_tpu import QuakeScan as JQuakeScan
+    from quakemigrate_tpu.io import Archive as JArchive
+    from quakemigrate_tpu.signal import onsets as j_onsets
+
+    runs = workspace["root"] / "runs"
+    JQuakeScan(JArchive(archive_path=workspace["archive"],
+                        stations=workspace["stations"],
+                        archive_format="YEAR/JD/STATION"),
+               workspace["lut"], onset=ws.make_onset(j_onsets),
+               run_path=str(runs), run_name="jax_detect",
+               timestep=ws.TIMESTEP, marginal_window=ws.MARGINAL_WINDOW,
+               plot_event_summary=False, compilation_cache=False,
+               ).detect(ws.START, ws.END)
+    texts = {}
+    for name in ("detect", "jax_detect"):
+        (path,) = (runs / name / "detect" / "availability").glob("*.csv")
+        texts[name] = path.read_text()
+        rows = [line.split(",") for line in texts[name].splitlines()]
+        assert len(rows) == 1 + 5 and len(rows[0]) == 1 + 2 * ws.N_STATIONS
+        assert all(cell == "0" for row in rows[1:] for cell in row[1:]), name
+    assert texts["detect"] == texts["jax_detect"]
+    ws.assert_scanmseed_close(ws.scanmseed_counts(runs / "detect"),
+                              ws.scanmseed_counts(runs / "jax_detect"),
+                              rtol=0.0)

@@ -18,8 +18,9 @@ the JAX classes on the same kwargs (CPU only):
   the reference validates them; ``kernel="xla"`` takes K3 on a CUDA
   device type; ``precision="double"`` is accepted as the reference
   accepts it (float64 device work, on the "k3" route of a CUDA device
-  type: tests/test_torch_double.py); a ``mesh`` raises, with either
-  precision.
+  type: tests/test_torch_double.py); a ``mesh`` that is not a
+  ``parallel.Mesh`` raises, with either precision, and a mesh of the CPU
+  is accepted with either (tests/test_torch_scan_mesh.py runs it).
 
 """
 
@@ -38,6 +39,7 @@ from quakemigrate_tpu.signal.onsets import (
     STALTAOnset as JSTALTAOnset,
 )
 from quakemigrate_torch.lut import lut_from_reference
+from quakemigrate_torch.parallel import make_mesh
 from quakemigrate_torch.signal.onsets import (
     CentredSTALTAOnset,
     ClassicSTALTAOnset,
@@ -137,21 +139,33 @@ def test_bad_device_options_raise_as_the_reference(luts, tmp_path, capsys,
 
 
 def test_precision_double_and_mesh_raise(luts, tmp_path):
-    """A mesh with precision="double" raises for the mesh (A12 is not
-    ported); the precision alone does not (the two tests below)."""
+    """A mesh that is not a ``parallel.Mesh`` with precision="double"
+    raises for the mesh; the precision alone does not (the two tests
+    below), nor with a mesh of the CPU, which takes float64 device work."""
 
     _, lut = luts
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         QuakeScan(None, lut, STALTAOnset(sampling_rate=ws.SPS),
                   str(tmp_path), "port", device="cpu", precision="double",
                   mesh=object())
+    scan = QuakeScan(None, lut, STALTAOnset(sampling_rate=ws.SPS),
+                     str(tmp_path), "port", precision="double",
+                     mesh=make_mesh([torch.device("cpu")] * 2))
+    assert scan._dtype == np.float64 and scan.device.type == "cpu"
 
 
 def test_mesh_raises(luts, tmp_path):
+    """A mesh that is not a ``parallel.Mesh``, and a ``device`` other than
+    the mesh's first, raise."""
+
     _, lut = luts
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         QuakeScan(None, lut, STALTAOnset(sampling_rate=ws.SPS),
                   str(tmp_path), "port", device="cpu", mesh=object())
+    with pytest.raises((ValueError, RuntimeError)):
+        QuakeScan(None, lut, STALTAOnset(sampling_rate=ws.SPS),
+                  str(tmp_path), "port", device="cuda",
+                  mesh=make_mesh([torch.device("cpu")] * 2))
 
 
 def test_precision_double_is_accepted_as_the_reference(luts, tmp_path,
