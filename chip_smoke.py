@@ -16,8 +16,8 @@ Smoke run of quakemigrate_torch on one NVIDIA GPU.
    no further from the float64 plain version than twice the float32
    plain version), timed with CUDA events beside the plain version and
    its bound. compat_path: core.compat.migrate on the card (the detect
-   route's M2: K1 v2's plan, and on 256 onsets K2 v2's, M2's simple
-   form; one launch, nothing else) against device="cpu" within 1e-5,
+   route's M2: K1 v2's plan, and on 256 onsets K2 v2's, M2 ring; one
+   launch, nothing else) against device="cpu" within 1e-5,
    and find_max_coa on the card against the CPU (max and argmax equal,
    the normalised max within 1e-6).
 3. Holds the migrate-and-reduce kernels K1 (csrc/migrate_detect.cu) and
@@ -77,12 +77,20 @@ Smoke run of quakemigrate_torch on one NVIDIA GPU.
    of one chunk (128 samples), three chunks (300) and the whole scan,
    each held to the plain version and to M1 (bit for bit at one chunk)
    and timed in turns with it; and M1 at 128 stations x P/S (256
-   onsets, a plan K1 v2 refuses, so CudaDetectVPU's route), held to its
-   plain version, its launches counted. Last, the map path: the same
+   onsets, a plan K1 v2 refuses, so CudaDetectVPU's route): one launch of
+   M1 ring (csrc/migrate_marginalise_ring.cu) and nothing else, held to
+   the plain version, to its own plain version on its tables and to M1
+   bit for bit, timed in turns with M1, its table's build time and bytes
+   printed. Last, the map path: the same
    event located again with write_coalescence=True (one M2 launch,
    csrc/migrate_marginalise_v2.cu, and no other kernel; the .npy of
    [nx, ny, nz, 61] read back, finite; the spline hypocentre within one
-   node of the two-pass run's), its per-event split printed.
+   node of the two-pass run's), its per-event split printed. Then
+   ring_locate: the same event located on the "k3" route
+   (kernel="xla": pass 1 on K3 v2), two-pass on M1 ring and on the map
+   path on M2 ring, and again with the ring held back, on M1 and M2's
+   simple form: one launch of each kernel named and nothing else, the
+   .event files byte-equal (X, Y, Z equal) and the .npy maps equal.
    format_detect: archive_detect's archive cut to 40 s about the planted
    origin and written by the port's writers as MSEED, SAC, GSE2 and
    SEG-Y, each read back equal to the MSEED cut (samples, station and
@@ -136,8 +144,10 @@ Smoke run of quakemigrate_torch on one NVIDIA GPU.
    batch) equal to 4 migrate_detect calls bit for bit, each within 1e-5
    (max) and 1e-4 (normalised) of the plain migrate_detect on the card,
    the argmax tie-consistent; the same in float64 on K3 v2 f64, within
-   1e-12; migrate_map over 61 samples on M2's simple form (and its f64
-   form) within 1e-5 (1e-12) of the plain map; detect_reduce on a padded
+   1e-12; migrate_map over 61 samples on M2 ring (and M2 simple's f64
+   form) within 1e-5 (1e-12) of the plain map, M2 ring also held to M2
+   simple and K3 v2's tmax bit for bit and timed in turns with M2
+   simple; detect_reduce on a padded
    slab (node_offset 100,000, n_nodes_real 150,000, 4,000 padding rows)
    bit for bit the unpadded slice's and within 1e-5 of the plain slab;
    a flat table whose span K3 v2's ring cannot hold (one traveltime of
@@ -160,9 +170,10 @@ Smoke run of quakemigrate_torch on one NVIDIA GPU.
    max bit for bit K1 v2's tmax, its sum over a marginal window within
    1e-6 of M1 v2's, its simple form (csrc/migrate_marginalise.cu) bit
    for bit M2; M2, M1 v2 and K1 v2 timed in turns, the simple form, the
-   plain map and the map's copy back to a pinned buffer timed; then the
-   simple form on F1's route (256 onsets, CudaDetectVPU), held to the
-   plain map, its launches counted.
+   plain map and the map's copy back to a pinned buffer timed; then M2
+   ring on F1's route (256 onsets, CudaDetectVPU; one launch, nothing
+   else), held to the plain map, its own plain version and M2's simple
+   form bit for bit, timed in turns with M2 simple.
    f3_path: a coarse regional scan that no staged kernel takes (40 x 40
    x 16 nodes at 10 km, homogeneous vp 6.0 and vs 3.46 km/s, 12 surface
    stations x P/S at 100 Hz, a residual span of ~3,000 samples): the
@@ -175,18 +186,26 @@ Smoke run of quakemigrate_torch on one NVIDIA GPU.
    bit for bit, the argmax the first flat argmax at every sample, the
    sum within 1e-4; bit for bit to K3 in max and argmax), the planted
    source within a node; locate's pass 1 there through route_detector
-   (K3 v2 once, held exactly, its peak at the planted node); M1 over 100
-   samples and M2's simple form over the window on the same plan, held
-   to the plain migrate_marginalise and migrate_map, with their bounds.
-   K3 v2 timed in turns with K3 (csrc/migrate_detect_global.cu), with
-   its bound, gather floor, ring, blocks per SM, registers and spills,
-   and a sweep of its onsets a stage; M1 and M2 timed. Then K3 v2 at the
+   (K3 v2 once, held exactly, its peak at the planted node); M1 ring over
+   100 samples and M2 ring over the window on K3 v2's tables (one launch
+   each, nothing else), held to the plain migrate_marginalise and
+   migrate_map, to their own plain versions, to M1 and M2 simple bit for
+   bit (M1 ring within 1e-6 of M1 over three chunks) and the map's max to
+   K3 v2's tmax, and timed in turns with M1 and M2 simple
+   (experiments/exp_ring), with their bounds, gather floors,
+   registers and spills. K3 v2 timed in turns with K3
+   (csrc/migrate_detect_global.cu), with its bound, gather floor, ring,
+   blocks per SM, registers and spills, and a sweep of its onsets a
+   stage. Then K3 v2 at the
    Icequake window with kernel="xla" (4 windows, held as at F3), timed
    in turns with K3 and K1 v2; and two plans of the K3 route's toy
    geometry (4 x 4 x 4 nodes, one traveltime of 32,768 samples: K3 v2's
    ring cannot hold its window, so K3 runs; one of 14,999 with
    kernel="xla": K3 v2 on its one-block shape), 2 windows each, held as
-   at F3; and the 14,999 plan in float64 (precision="double"): K3 v2
+   at F3, then locate's kernels on each: M1 and M2's simple form on the
+   first (the ring refuses it, as K3 v2 does: the wide-span path), M1
+   ring and M2 ring on the second, one launch each, held to the plain
+   versions; and the 14,999 plan in float64 (precision="double"): K3 v2
    f64's ring of doubles cannot hold it, so K3 f64 runs, held to the
    plain float64 reduction within 1e-12.
    kurtosis_detect: a new synthetic Icequake workspace;
@@ -1393,8 +1412,10 @@ def m1_setup(tt, node_count, fsmp, nsamples, lsmp, rng, device, route):
     """Pass 2 on the detector that locate's routing builds
     (``signal/scan.py``'s route_detector) for ``route``, the (route,
     reason, plan) that detect_route gave these traveltimes: M1 v2 through
-    CudaDetect on "k1_v2", M1 through CudaDetectVPU on "k2_v2"; on seeded
-    random onsets at a scan geometry."""
+    CudaDetect on "k1_v2", M1 ring through CudaDetectVPU on "k2_v2" (its
+    ring tables built here, before any counted call: their build seconds
+    and bytes in ``ring_build``); on seeded random onsets at a scan
+    geometry."""
 
     from quakemigrate_torch.signal.scan import route_detector
 
@@ -1407,11 +1428,19 @@ def m1_setup(tt, node_count, fsmp, nsamples, lsmp, rng, device, route):
             np.float32)).to(device)
     mask = torch.ones(n_onsets, dtype=torch.float32, device=device)
     onsets_log, inv = detector.prepare(onsets, mask, float(n_onsets))
+    ring_build = None
+    if route == "k2_v2":
+        check(detector.ring_refusal is None, f"the ring refuses the "
+              f"{route} plan: {detector.ring_refusal}")
+        t0 = time.perf_counter()
+        tables = detector.ring_tables()
+        ring_build = {"wall_s": time.perf_counter() - t0,
+                      "build_s": tables.build_s, "bytes": tables.nbytes}
     return SimpleNamespace(
         tt=tt, detector=detector, route=route, refusal=refusal,
         onsets=onsets, mask=mask,
         onsets_log=onsets_log, inv=inv, fsmp=fsmp, nsamples=nsamples,
-        tt_dev=torch.from_numpy(tt).to(device))
+        tt_dev=torch.from_numpy(tt).to(device), ring_build=ring_build)
 
 
 def m1_v1(detector, onsets_log, inv, start, length):
@@ -1447,10 +1476,14 @@ def m1_case(name, s, window, reps=20):
     chunk of M1_V2_CHUNK samples, else the largest relative difference),
     and the two are timed in turns (v2, v1, v1, v2; ``reps`` launches a
     turn), with M1 v2's blocks per SM, registers and spills; on K2 v2's
-    route M1 is timed alone (median of 5 turns). The plain version is
+    route M1 ring is held to its plain version on its tables and to M1
+    and timed in turns with it (exp_ring.m1_case: its bound and gather
+    floor, ring, registers and spills). The route's one call runs first,
+    its launches counted from 0 (``launches``). The plain version is
     timed once. The bound is the route kernel's (:func:`marginalise_bound`:
     M1 v2's int16 residuals on K1 v2's route, with M1's int32 bound beside
-    it as ``v1_bound_ms``). Returns a record."""
+    it as ``v1_bound_ms``; exp_ring.bound on K2 v2's). Returns a
+    record."""
 
     from quakemigrate_torch.experiments import exp_kernel_breakdown as ekb
     from quakemigrate_torch.ops import cuda_migrate as cm
@@ -1467,7 +1500,12 @@ def m1_case(name, s, window, reps=20):
                                    float(n_onsets), s.fsmp, s.nsamples,
                                    start, length)
 
-    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    cm.reset_launches()
+    got = kernel()
+    torch.cuda.synchronize()
+    launches = dict(cm.launches)
+    want = plain()
     torch.cuda.synchronize()
     err = float((got - want).abs().max() / want.abs().max())
     same_peak = int(torch.argmax(got)) == int(torch.argmax(want))
@@ -1476,7 +1514,8 @@ def m1_case(name, s, window, reps=20):
     route = s.route
     record = {"onsets": n_onsets, "window": [start, length], "route": route,
               "refusal_k1_v2": s.refusal, "max_err_of_max": err,
-              "max_abs_err": float((got - want).abs().max())}
+              "max_abs_err": float((got - want).abs().max()),
+              "launches": launches}
     if route == "k1_v2":
         def v1():
             return m1_v1(detector, s.onsets_log, s.inv, start, length)
@@ -1496,20 +1535,39 @@ def m1_case(name, s, window, reps=20):
                 detector.device),
             **m1_resources(length))
     else:
-        record["ms"] = median_ms(kernel, reps)
+        from quakemigrate_torch.experiments import exp_ring
+
+        ring = exp_ring.m1_case(exp_ring.setup(detector, s.onsets_log,
+                                               s.inv, f"m1 {name}"),
+                                window, reps)
+        record.update(ring=ring, ms=ring["ms"], v1_ms=ring["m1_ms"],
+                      turns_ms=ring["turns_ms"],
+                      equal_to_v1=ring["equal_to_m1"],
+                      max_rel_diff_v1=ring["max_rel_diff_m1"],
+                      ring_build=s.ring_build)
     # The plain version once, warm from the check above
     record["plain_ms"] = median_ms(plain, 1, turns=1, warmup=0)
     record.update(marginalise_bound(
         s.tt, length, detector.base if route == "k1_v2" else None))
     if route == "k1_v2":
         record["v1_bound_ms"] = marginalise_bound(s.tt, length)["bound_ms"]
+    else:
+        # M1's bound on its int32 table beside the ring's own
+        record["v1_bound_ms"] = record["bound_ms"]
+        record.update({k: record["ring"][k] for k in (
+            "bound_ms", "bound_by", "smem_bound_ms")})
     extra = (f"; M1 in turns {record['v1_ms']:.4f} ms (bound "
              f"{record['v1_bound_ms']:.4f}), equal "
              f"{record['equal_to_v1']} (largest relative difference "
              f"{record['max_rel_diff_v1']:.2e}), blocks per SM "
              f"{record['blocks_per_sm']}, {record['registers']} registers, "
              f"spills {record['spill_stores']} / {record['spill_loads']}"
-             if route == "k1_v2" else "")
+             if route == "k1_v2" else
+             f"; M1 ring in turns with M1 {record['v1_ms']:.4f} ms (bound "
+             f"{record['v1_bound_ms']:.4f}), equal {record['equal_to_v1']} "
+             f"(largest relative difference "
+             f"{record['max_rel_diff_v1']:.2e}); ring tables "
+             f"{s.ring_build}")
     print(f"m1 {name}: route {route}, {n_onsets} onsets, window {start} + "
           f"{length} of {s.nsamples}: {record['ms']:.4f} ms (plain "
           f"{record['plain_ms']:.4f}; bound {record['bound_ms']:.4f} by "
@@ -1535,6 +1593,8 @@ class NoPlainOnCuda:
                         (scan_module, "migrate_map"),
                         (cm, "detect_reduce_plan_reference"),
                         (cm, "vpu_v2_reference"),
+                        (cm, "marginalise_ring_reference"),
+                        (cm, "map_ring_reference"),
                         (cm, "detect_reduce"), *extra]
 
     def __enter__(self):
@@ -1577,8 +1637,9 @@ def archive_locate_path(device, root, detect, planted, origin, start, end,
     locate run again, warm, for its per-event split. Then M1 v2 and M1
     (bit-equal) in turns at the locate window, K1 v2 timed; M1 v2 at one
     chunk, three chunks and archive_detect's window (:func:`m1_case`);
-    and M1 at F1's geometry (256 onsets, on ``f1_route``, F1's traveltimes
-    and DetectScan's route, k2_v2: CudaDetectVPU). Returns a record."""
+    and M1 ring at F1's geometry (256 onsets, on ``f1_route``, F1's
+    traveltimes and DetectScan's route, k2_v2: CudaDetectVPU) in turns
+    with M1; last :func:`ring_locate_path`. Returns a record."""
 
     from quakemigrate_torch.experiments import exp_kernel_breakdown as ekb
     from quakemigrate_torch.io import read_scanmseed, read_triggered_events
@@ -1820,16 +1881,15 @@ def archive_locate_path(device, root, detect, planted, origin, start, end,
             ("three chunks", (37, 300), 20),
             ("detect window", (0, nsamples), 5))}
     del m1_detect
-    torch.cuda.synchronize()
-    cm.reset_launches()
+    # F1's pass 2 on K2 v2's route: M1 ring once in the route's call (its
+    # launches counted from 0 inside m1_case), M1 only in the turns
     f1 = m1_case("f1", m1_setup(f1_route[0], NODE_COUNT, FSMP, NSAMPLES,
                                 LSMP, np.random.default_rng(2032), device,
                                 f1_route[1]), (100, 30))
-    torch.cuda.synchronize()
-    f1["launches"] = dict(cm.launches)
-    check(f1["route"] == "k2_v2" and f1["launches"]["migrate_marginalise"] > 0
+    check(f1["route"] == "k2_v2"
+          and f1["launches"]["migrate_marginalise_ring"] == 1
           and all(n == 0 for k, n in f1["launches"].items()
-                  if k != "migrate_marginalise"),
+                  if k != "migrate_marginalise_ring"),
           f"m1 f1: route {f1['route']}, launches {f1['launches']}")
 
     # The map path: the same events located again with write_coalescence,
@@ -1879,7 +1939,10 @@ def archive_locate_path(device, root, detect, planted, origin, start, end,
                   map_node.tolist(), "node_distance_two_pass": map_dist,
                   "event_split_s": map_split}
     del map4d
+    ring_locate = ring_locate_path(device, root, detect, trigger_file,
+                                   onset, picker)
     return {
+        "ring_locate": ring_locate,
         "trigger_s": trigger_s, "locate_s": locate_s,
         "coa_n_peak": float(coa_n[peak]),
         "coa_n_noise_max": float(coa_n[away].max()),
@@ -1904,6 +1967,79 @@ def archive_locate_path(device, root, detect, planted, origin, start, end,
             "nsamples": inp["nsamples"],
             "lsmp": inp["block"].shape[-1] - inp["fsmp"] - inp["nsamples"]},
     }
+
+
+def ring_locate_path(device, root, detect, trigger_file, onset, picker):
+    """ring_locate: the archive's event located on the "k3" route
+    (QuakeScan(kernel="xla"): pass 1 on K3 v2) two-pass and on the map
+    path, each twice: on M1 ring or M2 ring (K3 v2's tables), and with the
+    ring held back (``CudaDetectGlobal.ring_tables`` None) on M1 or M2's
+    simple form. Checks: one K3 v2 launch a run and one launch of the
+    locate kernel named, nothing else, no plain version on a CUDA tensor;
+    each ring run's .event byte-equal to the old kernel's run, its X, Y
+    and Z equal, the map path's .npy equal. Returns a record."""
+
+    from quakemigrate_torch.ops import cuda_migrate as cm
+    from quakemigrate_torch.signal import QuakeScan
+
+    lut, runs = detect.lut, detect.run.path.parent
+    record = {}
+    for map_path in (False, True):
+        runs_of = {}
+        for ring in (True, False):
+            name = (f"ring_locate_{'map' if map_path else 'two_pass'}_"
+                    f"{'ring' if ring else 'old'}")
+            scan = QuakeScan(detect.archive, lut, onset, str(runs), name,
+                             device=device, picker=picker,
+                             marginal_window=LOCATE_MARGINAL_WINDOW,
+                             kernel="xla", write_coalescence=map_path)
+            saved = cm.CudaDetectGlobal.ring_tables
+            if not ring:
+                cm.CudaDetectGlobal.ring_tables = lambda self: None
+            try:
+                torch.cuda.synchronize()
+                cm.reset_launches()
+                with NoPlainOnCuda("ring_locate"):
+                    _, wall = quiet(root, name, lambda: scan.locate(
+                        trigger_file=str(trigger_file)))
+                torch.cuda.synchronize()
+            finally:
+                cm.CudaDetectGlobal.ring_tables = saved
+            launches = {k: n for k, n in cm.launches.items() if n}
+            kernel = ("migrate_map" if map_path else "migrate_marginalise")
+            kernel += "_ring" if ring else ""
+            want = ({"migrate_detect_global_v2": 1, kernel: 1} if not map_path
+                    else {kernel: 1})
+            check(scan.locate_route == "k3" and launches == want,
+                  f"{name}: route {scan.locate_route}, launches {launches}, "
+                  f"expected {want}")
+            runs_of[ring] = (runs / name, launches, wall)
+        (ring_dir, ring_launches, ring_s), (old_dir, old_launches, old_s) = (
+            runs_of[True], runs_of[False])
+        (rows, ring_bytes), (old_rows, old_bytes) = (event_text(ring_dir),
+                                                     event_text(old_dir))
+        xyz = {k: (rows[1][rows[0].index(k)], old_rows[1][old_rows[0].index(k)])
+               for k in ("X", "Y", "Z")}
+        equal = ring_bytes == old_bytes
+        check(equal and all(a == b for a, b in xyz.values()),
+              f"ring_locate: .event of the ring run and the old kernels' "
+              f"differ: {xyz}")
+        entry = {"launches": ring_launches, "old_launches": old_launches,
+                 "event_byte_equal": equal, "xyz": xyz,
+                 "wall_s": ring_s, "old_wall_s": old_s}
+        if map_path:
+            entry["npy_equal"] = bool(np.array_equal(
+                npy_of(ring_dir, "coalescence_maps"),
+                npy_of(old_dir, "coalescence_maps")))
+            check(entry["npy_equal"], "ring_locate: the map path's .npy "
+                  "differs from the old kernel's")
+        record["map_path" if map_path else "two_pass"] = entry
+        print(f"ring_locate {'map path' if map_path else 'two-pass'}: route "
+              f"k3, launches {ring_launches} against {old_launches}; .event "
+              f"byte-equal {equal}, X/Y/Z {xyz}"
+              + (f", .npy equal {entry['npy_equal']}" if map_path else "")
+              + f"; {ring_s:.3f} s and {old_s:.3f} s wall")
+    return record
 
 
 def map_bound(tt, nsamples, base):
@@ -1959,8 +2095,12 @@ def map_case(name, s, window, reps=20):
     ``(start, length)`` within MAP_SUM_RTOL of M1 v2's; M2's simple form
     on the same plan bit for bit M2; and M2, M1 v2 (at the window) and K1
     v2 timed in turns (M2, M1 v2, K1 v2, K1 v2, M1 v2, M2), the simple form
-    alone. The plain map is timed once, and the map's copy back to a
-    pinned buffer. Returns a record."""
+    alone. On K2 v2's route the route's kernel is M2 ring, held to its
+    plain version on its tables and to M2's simple form bit for bit and
+    timed in turns with it (exp_ring.m2_case). The route's one call runs
+    first, its launches counted from 0 (``launches``). The plain map is
+    timed once, and the map's copy back to a pinned buffer. Returns a
+    record."""
 
     from quakemigrate_torch.experiments import exp_kernel_breakdown as ekb
     from quakemigrate_torch.ops import cuda_migrate as cm
@@ -1976,7 +2116,12 @@ def map_case(name, s, window, reps=20):
         return migrate_map(s.onsets, s.tt_dev, s.mask, float(n_onsets),
                            s.fsmp, s.nsamples)
 
-    got, want = m2(), plain()
+    torch.cuda.synchronize()
+    cm.reset_launches()
+    got = m2()
+    torch.cuda.synchronize()
+    launches = dict(cm.launches)
+    want = plain()
     torch.cuda.synchronize()
     rel = float(((got - want).abs() / want.abs()).max())
     check(got.shape == (detector.n_nodes, s.nsamples)
@@ -1985,7 +2130,7 @@ def map_case(name, s, window, reps=20):
     record = {"route": s.route, "onsets": n_onsets, "nodes": detector.n_nodes,
               "nsamples": s.nsamples, "max_rel_err": rel,
               "max_abs_err": float((got - want).abs().max()),
-              "window": [start, length]}
+              "window": [start, length], "launches": launches}
     if s.route == "k1_v2":
         max_coa, _, _ = cm.combine_tiles(
             *detector.launch(s.onsets_log, s.inv), detector.perm,
@@ -2019,7 +2164,16 @@ def map_case(name, s, window, reps=20):
                 detector._max_shift), reps))
         del simple
     else:
-        record["ms"] = median_ms(m2, reps)
+        from quakemigrate_torch.experiments import exp_ring
+
+        del want
+        ring = exp_ring.m2_case(exp_ring.setup(detector, s.onsets_log, s.inv,
+                                               f"map {name}"), reps)
+        record.update(ring=ring, ms=ring["ms"],
+                      simple_ms=ring["m2_simple_ms"],
+                      turns_ms=ring["turns_ms"],
+                      simple_equal=ring["equal_to_m2_simple"],
+                      ring_build=s.ring_build)
     record["plain_ms"] = median_ms(plain, 1, turns=1, warmup=0)
     record["copy_back_ms"] = copy_back_ms(got)
     record.update(map_bound(s.tt, s.nsamples, detector.base))
@@ -2028,7 +2182,10 @@ def map_case(name, s, window, reps=20):
              f"K1 v2's tmax {record['max_equal_to_k1_v2']}, window sum vs "
              f"M1 v2 {record['window_sum_rel_err_m1_v2']:.2e}, simple form "
              f"{record['simple_ms']:.4f} ms and equal "
-             f"{record['simple_equal']}" if s.route == "k1_v2" else "")
+             f"{record['simple_equal']}" if s.route == "k1_v2" else
+             f"; M2 ring in turns with M2 simple {record['simple_ms']:.4f} "
+             f"ms, equal {record['simple_equal']}; ring tables "
+             f"{s.ring_build}")
     print(f"map {name}: route {s.route}, {n_onsets} onsets, "
           f"{detector.n_nodes} nodes x {s.nsamples} samples: {record['ms']:.4f}"
           f" ms (plain {record['plain_ms']:.4f}; bound "
@@ -2037,7 +2194,7 @@ def map_case(name, s, window, reps=20):
           f"gather floor {record['smem_bound_ms']:.4f}); copy back "
           f"{record['copy_back_ms']:.4f} ms; {rel:.2e} relative to the "
           f"plain map{extra}")
-    del got, want
+    del got
     torch.cuda.empty_cache()
     return record
 
@@ -2050,7 +2207,8 @@ def map_kernel_path(device, icequake, f1_route, vt):
     on K1 v2's route with seeded random onsets (:func:`map_case`; the
     marginal windows of 30 and 100 samples); then M2's simple form on
     F1's geometry (256 onsets on the Icequake grid, K2 v2's route:
-    CudaDetectVPU), its launches counted. Returns a record."""
+    CudaDetectVPU), M2 ring there, its launches counted. Returns a
+    record."""
 
     from quakemigrate_torch.ops import cuda_migrate as cm
     from quakemigrate_torch.signal.scan import detect_route
@@ -2063,16 +2221,14 @@ def map_kernel_path(device, icequake, f1_route, vt):
                      detect_route(g["tt"], g["node_count"], device))
         cases[name] = map_case(name, s, window)
         del s
-    torch.cuda.synchronize()
-    cm.reset_launches()
+    # F1's map on K2 v2's route: M2 ring once in the route's call (its
+    # launches counted from 0 inside map_case), M2 simple only in turns
     f1 = map_case("f1", m1_setup(f1_route[0], NODE_COUNT, FSMP, 61, LSMP,
                                  np.random.default_rng(2042), device,
                                  f1_route[1]), (10, 41), reps=5)
-    torch.cuda.synchronize()
-    f1["launches"] = dict(cm.launches)
-    check(f1["route"] == "k2_v2" and f1["launches"]["migrate_map"] > 0
+    check(f1["route"] == "k2_v2" and f1["launches"]["migrate_map_ring"] == 1
           and all(n == 0 for k, n in f1["launches"].items()
-                  if k != "migrate_map"),
+                  if k != "migrate_map_ring"),
           f"map f1: route {f1['route']}, launches {f1['launches']}")
     cases["f1"] = f1
     return cases
@@ -3458,15 +3614,18 @@ def f3_path(device):
     exactly (:func:`hold_k3_windows`), the planted source found within
     one node. Then locate's passes on the same plan: pass 1 through
     route_detector at a locate geometry (K3 v2 once, held exactly), M1
-    over a 100-sample marginal window at the peak against the plain
+    ring over a 100-sample marginal window at the peak against the plain
     migrate_marginalise (M1_RTOL_OF_MAX of the maximum, the same peak
-    node) and M2's simple form against the plain migrate_map (MAP_RTOL
-    of each value), each with its bound and gather floor. K3 v2 timed in
-    turns with K3 (CUDA events), with its bound, gather floor, ring,
-    blocks per SM, registers and spills, and a sweep of its onsets a
-    stage; M1 and M2 timed (median of 5) with the plain versions."""
+    node) and M2 ring against the plain migrate_map (MAP_RTOL of each
+    value), one launch each and nothing else; each held to its plain
+    version on K3 v2's tables and to the old kernel (M1 bit for bit at
+    this one-chunk window, M2 simple bit for bit, the map's max K3 v2's
+    tmax bit for bit) and timed in turns with it (exp_ring), with its
+    bound, gather floor, ring, registers and spills. K3 v2 timed in turns
+    with K3 (CUDA events), with its bound, gather floor, ring, blocks per
+    SM, registers and spills, and a sweep of its onsets a stage."""
 
-    from quakemigrate_torch.experiments import exp_global_v2
+    from quakemigrate_torch.experiments import exp_global_v2, exp_ring
     from quakemigrate_torch.experiments.exp_kernel_breakdown import in_turns
     from quakemigrate_torch.ops import cuda_migrate as cm
     from quakemigrate_torch.ops.migrate import (
@@ -3567,8 +3726,8 @@ def f3_path(device):
     map_ = detector.map(onsets_log, inv)
     torch.cuda.synchronize()
     locate_launches = dict(cm.launches)
-    check(locate_launches["migrate_marginalise"] == 1
-          and locate_launches["migrate_map"] == 1
+    check(locate_launches["migrate_marginalise_ring"] == 1
+          and locate_launches["migrate_map_ring"] == 1
           and sum(locate_launches.values()) == 2,
           f"f3: locate launches {locate_launches}")
     t0 = time.perf_counter()
@@ -3586,8 +3745,20 @@ def f3_path(device):
     torch.cuda.synchronize()
     map_plain_ms = (time.perf_counter() - t0) * 1e3
     map_err = float(((map_ - want_map).abs() / want_map.abs()).max())
-    check(map_err <= MAP_RTOL, f"f3: M2 simple form {map_err}")
+    check(map_err <= MAP_RTOL, f"f3: M2 ring {map_err}")
     del want_map, map_
+    torch.cuda.empty_cache()
+    # The ring kernels against their plain versions and the old kernels,
+    # in turns with them
+    ring_case = exp_ring.setup(detector, onsets_log, inv, "f3")
+    ring_m1 = exp_ring.m1_case(ring_case, (i0, 100))
+    # Three chunks of 124 from a start of residue 1 mod 4: within 1e-6 of
+    # M1 (whose chunks are 256)
+    ring_m1["three_chunks"] = exp_ring.m1_case(
+        ring_case, (37, 2 * cm.RING_CHUNK + 1), reps=5)
+    ring_m2 = exp_ring.m2_case(ring_case, reps=10,
+                               tmax=exp_ring.k3_tmax(ring_case))
+    torch.cuda.empty_cache()
 
     case = exp_global_v2.setup(tt, F3_NODES, F3_FSMP, F3_NSAMPLES, device,
                                onsets_log=onsets_log, inv=inv, plan=plan)
@@ -3601,9 +3772,7 @@ def f3_path(device):
     plain_ms = cuda_ms(lambda: detect_reduce(
         combined, tt_dev, mask, available, F3_FSMP, F3_NSAMPLES,
         tt.shape[0]), reps=3, warmup=1)
-    m1_ms = median_ms(lambda: detector.marginalise(onsets_log, inv, i0, 100),
-                      reps=20)
-    map_ms = median_ms(lambda: detector.map(onsets_log, inv), reps=10)
+    m1_ms, map_ms = ring_m1["m1_ms"], ring_m2["m2_simple_ms"]
     layout = exp_global_v2.layout_record(case, detector.layout)
     resources = exp_global_v2.resources()
     print(f"f3: K3 v2 {k3_v2_ms:.4f} ms, K3 {k3_ms:.4f} ms a launch in "
@@ -3612,10 +3781,12 @@ def f3_path(device):
           f"floor {bound['smem_bound_ms']:.4f} ms, the gather at "
           f"{bound['gather_bytes'] / k3_v2_ms / 1e9:.3f} TB/s (K3 at "
           f"{v1_bound['gather_bytes'] / k3_ms / 1e9:.3f}); ring {layout}; "
-          f"resources {resources}; M1 at 100 samples {m1_ms:.4f} ms (plain "
+          f"resources {resources}; M1 ring at 100 samples "
+          f"{ring_m1['ms']:.4f} ms, M1 {m1_ms:.4f} (plain "
           f"{m1_plain_ms:.3f} ms, one run, {m1_err:.2e} of the maximum), "
-          f"M2 simple at {F3_NSAMPLES} samples {map_ms:.4f} ms (plain "
-          f"{map_plain_ms:.3f} ms, one run, {map_err:.2e} relative)")
+          f"M2 ring at {F3_NSAMPLES} samples {ring_m2['ms']:.4f} ms, M2 "
+          f"simple {map_ms:.4f} (plain {map_plain_ms:.3f} ms, one run, "
+          f"{map_err:.2e} relative)")
     print(f"f3: K3 v2's onsets a stage (shape {cm.GLOBAL_V2_SHAPE}, the "
           "deepest ring at each):")
     sweep = exp_global_v2.sweep(case, exp_global_v2.plain(case),
@@ -3637,13 +3808,15 @@ def f3_path(device):
         "plain_ms": plain_ms, **bound, **layout, "resources": resources,
         "sweep": sweep, "locate_pass1": pass1_rec,
         "k3": {**v1_bound, "ms": k3_ms},
-        "m1": {"launches": locate_launches["migrate_marginalise"],
-               "window": 100, "ms": m1_ms, "plain_ms": m1_plain_ms,
-               "err_of_max": m1_err, **m1_bound},
-        "map": {"launches": locate_launches["migrate_map"],
-                "nsamples": F3_NSAMPLES, "ms": map_ms,
-                "plain_ms": map_plain_ms, "max_rel_err": map_err,
-                **map_bound_}}
+        # M1 and M2 simple: timed in turns beside the ring kernels
+        "m1": {"window": 100, "ms": m1_ms, **m1_bound},
+        "map": {"nsamples": F3_NSAMPLES, "ms": map_ms, **map_bound_},
+        "m1_ring": {"launches": locate_launches["migrate_marginalise_ring"],
+                    "plain_function_ms": m1_plain_ms,
+                    "err_of_max": m1_err, **ring_m1},
+        "map_ring": {"launches": locate_launches["migrate_map_ring"],
+                     "plain_function_ms": map_plain_ms,
+                     "function_rel_err": map_err, **ring_m2}}
 
 
 def _build_resources(kernel):
@@ -3664,7 +3837,7 @@ def xla_icequake_path(device, tt, windows, n_windows=4):
     turns with K3 and K1 v2 on the same prepared onsets (k3_v2, k3,
     k1_v2, k1_v2, k3, k3_v2; 20 launches a turn). Returns a record."""
 
-    from quakemigrate_torch.experiments import exp_global_v2
+    from quakemigrate_torch.experiments import exp_global_v2, exp_ring
     from quakemigrate_torch.experiments.exp_kernel_breakdown import in_turns
     from quakemigrate_torch.ops import cuda_migrate as cm
     from quakemigrate_torch.ops.scan_window import fused_onsets
@@ -3734,9 +3907,20 @@ def span_path(device, span, kernel="auto", n_windows=2, precision="single"):
     blocks are float64 and the route's float64 form runs: at 15,000
     samples K3 v2 f64's ring of doubles cannot hold the window, so K3 f64,
     held to the plain window and to the plain float64 reduction within
-    DOUBLE_RTOL (:func:`hold_double_windows`). Returns a record."""
+    DOUBLE_RTOL (:func:`hold_double_windows`). In float32 locate's
+    kernels follow on the detector for the first window's onsets (their
+    launches counted from 0): at 32,769 samples the ring refuses the plan
+    as K3 v2 does, so M1 and M2's simple form run, one launch each (the
+    wide-span path of the two); at 15,000 M1 ring and M2 ring on K3 v2's
+    one-block shape; each held to the plain migrate_marginalise (over 100
+    samples) and migrate_map. Returns a record."""
 
     from quakemigrate_torch.ops import cuda_migrate as cm
+    from quakemigrate_torch.ops.migrate import (
+        migrate_map,
+        migrate_marginalise,
+    )
+    from quakemigrate_torch.ops.scan_window import fused_onsets
     from quakemigrate_torch.signal.scan import DetectScan, detect_route
 
     double = precision == "double"
@@ -3782,11 +3966,50 @@ def span_path(device, span, kernel="auto", n_windows=2, precision="single"):
     shape = None if detector.layout is None else list(detector.layout.shape)
     print(f"{label}: route {route[0]} ({route[1]}); {name}, shape {shape}; "
           f"launches {launches}")
-    return {"launches": launches[name], "kernel": name, "shape": shape,
-            "route_reason": route[1], "r_span": route[2].r_span,
-            "exact": exact,
-            "vs_plain": {k: v for k, v in errs.items()
-                         if k != "argmax_equal"}}
+    record = {"launches": launches[name], "kernel": name, "shape": shape,
+              "route_reason": route[1], "r_span": route[2].r_span,
+              "exact": exact,
+              "vs_plain": {k: v for k, v in errs.items()
+                           if k != "argmax_equal"}}
+    if double:
+        return record
+
+    # Locate's pass 2 and map on the same detector
+    block = [torch.from_numpy(a).to(device) for a in windows[0]]
+    combined, available = fused_onsets(*block, "classic", "energy", 0.4)
+    onsets_log, inv = detector.prepare(combined, block[2], available)
+    ring = detector.ring_refusal is None
+    locate = (["migrate_marginalise_ring", "migrate_map_ring"] if ring
+              else ["migrate_marginalise", "migrate_map"])
+    torch.cuda.synchronize()
+    cm.reset_launches()
+    marginal = detector.marginalise(onsets_log, inv, 100, 100)
+    map_ = detector.map(onsets_log, inv)
+    torch.cuda.synchronize()
+    locate_launches = dict(cm.launches)
+    check(ring == (detector.tables is not None)
+          and locate_launches == {k: int(k in locate) for k in cm.launches},
+          f"{label}: locate launches {locate_launches} (ring refusal "
+          f"{detector.ring_refusal})")
+    want = migrate_marginalise(combined, tt_dev, block[2], available, fsmp,
+                               nsamples, 100, 100)
+    want_map = migrate_map(combined, tt_dev, block[2], available, fsmp,
+                           nsamples)
+    m1_err = float((marginal - want).abs().max() / want.abs().max())
+    map_err = float(((map_ - want_map).abs() / want_map.abs()).max())
+    check(m1_err <= M1_RTOL_OF_MAX and map_err <= MAP_RTOL,
+          f"{label}: locate's kernels {m1_err}, {map_err}")
+    print(f"{label}: locate on {locate} (ring refusal "
+          f"{detector.ring_refusal}): launches {locate_launches}; "
+          f"marginal {m1_err:.2e} of the maximum, map {map_err:.2e}")
+    record["locate"] = {
+        "kernels": locate, "ring_refusal": detector.ring_refusal,
+        "launches": {k: locate_launches[k] for k in locate},
+        "m1_err_of_max": m1_err,
+        "m1_abs_err": float((marginal - want).abs().max()),
+        "map_rel_err": map_err,
+        "map_abs_err": float((map_ - want_map).abs().max())}
+    return record
 
 
 def kurtosis_onset_for(rate=RATE):
@@ -4680,8 +4903,8 @@ def compat_path(device):
     default device) against device="cpu", at each of COMPAT_CASES: the
     route detect_route takes for the clipped traveltimes; migrate's map
     within MAP_RTOL relative of the CPU's, with one launch of M2 on K1
-    v2's route (csrc/migrate_marginalise_v2.cu) or of M2's simple form on
-    K2 v2's (csrc/migrate_marginalise.cu) and no other kernel; then
+    v2's route (csrc/migrate_marginalise_v2.cu) or of M2 ring on K2 v2's
+    (csrc/migrate_marginalise_ring.cu) and no other kernel; then
     find_max_coa of that map on the card and the CPU: the max and the
     argmax equal, the normalised max within COMPAT_NORM_RTOL. Returns the
     record."""
@@ -4699,7 +4922,8 @@ def compat_path(device):
         route = detect_route(
             np.clip(tt.reshape(-1, n_onsets), 0, last).astype(np.int32),
             grid, device)[0]
-        kernel = "migrate_map_v2" if route == "k1_v2" else "migrate_map"
+        kernel = ("migrate_map_v2" if route == "k1_v2"
+                  else "migrate_map_ring")
         torch.cuda.synchronize()
         cm.reset_launches()
         t0 = time.perf_counter()
@@ -5228,8 +5452,8 @@ def ops_path(device):
     each held to the plain migrate_detect on the card (:func:`hold_detect`:
     1e-5, 1e-4, tie-consistent), K3 v2 once a call and the detector built
     once; the same in float64 on K3 v2 f64 (1e-12); migrate_map over
-    OPS_MAP_SAMPLES samples on M2's simple form and its f64 form within
-    MAP_RTOL (DOUBLE_RTOL) of the plain map; detect_reduce on a padded
+    OPS_MAP_SAMPLES samples on M2 ring (on K3 v2's tables) and M2
+    simple's f64 form within MAP_RTOL (DOUBLE_RTOL) of the plain map; detect_reduce on a padded
     slab (OPS_SLAB) bit for bit the unpadded slice's, within 1e-5 of the
     plain version on the slab, its argmax global and below n_nodes_real;
     a flat table with one traveltime of OPS_WIDE_SPAN - 1 on K3 and K3
@@ -5238,9 +5462,12 @@ def ops_path(device):
     functions too), their launches counted from 0: exactly the kernels
     named, nothing else. Then each kernel timed with CUDA events on the
     prepared onsets beside the routed call, the plain version and
-    :func:`routed_bound`. Returns a record."""
+    :func:`routed_bound`; M2 ring also held to its plain version, to M2
+    simple bit for bit and to K3 v2's tmax, and timed in turns with M2
+    simple (exp_ring.m2_case). Returns a record."""
 
     from quakemigrate_torch import ops
+    from quakemigrate_torch.experiments import exp_ring
     from quakemigrate_torch.ops import cuda_migrate as cm
     from quakemigrate_torch.ops import migrate as plain
     from quakemigrate_torch.ops import routed
@@ -5317,7 +5544,7 @@ def ops_path(device):
     launches = dict(cm.launches)
     expected = {"migrate_detect_global_v2": 2 * OPS_WINDOWS + 2,
                 "migrate_detect_global_v2_f64": 2 * OPS_WINDOWS,
-                "migrate_map": 1, "migrate_map_f64": 1,
+                "migrate_map_ring": 1, "migrate_map_f64": 1,
                 "migrate_detect_global": 1, "migrate_detect_global_f64": 1}
     check(launches == {k: expected.get(k, 0) for k in launches},
           f"ops_path: launches {launches}, expected {expected}")
@@ -5325,9 +5552,10 @@ def ops_path(device):
           f"batch and its single calls {builds}, not [1, 3]")
     check(all(detectors[k].tables is not None for k in ("f32", "f64"))
           and all(detectors[k].tables is None
-                  for k in ("wide", "wide_f64")),
+                  for k in ("wide", "wide_f64"))
+          and detectors["map_f32"].ring_refusal is None,
           "ops_path: K3 v2 refused the flat Icequake table, or took the "
-          "wide one")
+          "wide one, or the ring refused the map's")
 
     # Held to the plain versions on the card (outside the guard)
     record = {"launches": launches, "nodes": n_nodes, "onsets": n_onsets,
@@ -5417,6 +5645,18 @@ def ops_path(device):
                                       OPS_MAP_SAMPLES, itemsize,
                                       map_out=True),
         }
+        if key == "f32":
+            # M2 ring on K3 v2's tables of the map's detector, held to its
+            # plain version, to M2 simple and to K3 v2's tmax, in turns
+            # with M2 simple
+            ring_case = exp_ring.setup(map_det, map_log, map_inv,
+                                       "ops_path map")
+            times[key]["map_ring"] = exp_ring.m2_case(
+                ring_case, tmax=exp_ring.k3_tmax(ring_case))
+            times[key]["map_ms"] = times[key]["map_ring"]["ms"]
+            times[key]["map_simple_ms"] = times[key]["map_ring"][
+                "m2_simple_ms"]
+            del ring_case
         del map_log
     for key, o, m in (("wide", wide_onsets, wide_mask),
                       ("wide_f64", wide_onsets.double(), wide_mask.double())):
@@ -5437,7 +5677,8 @@ def ops_path(device):
               f"{t['k3_ms']:.4f}; the routed migrate_detect "
               f"{t['call_ms']:.4f}; plain {t['plain_ms']:.4f}; bound "
               f"{t['bound']['bound_ms']:.4f} by {t['bound']['bound_by']}, "
-              f"gather floor {t['bound']['smem_bound_ms']:.4f}); M2 simple "
+              f"gather floor {t['bound']['smem_bound_ms']:.4f}); "
+              f"{'M2 ring' if key == 'f32' else 'M2 simple f64'} "
               f"over {OPS_MAP_SAMPLES} samples {t['map_ms']:.4f} ms (the "
               f"routed migrate_map {t['map_call_ms']:.4f}; plain "
               f"{t['map_plain_ms']:.4f}; bound "
@@ -5660,9 +5901,14 @@ def main():
     wide_double = span_path(device, 15_000, precision="double")
     check(wide_record["kernel"] == "migrate_detect_global"
           and mid_record["shape"] == [16, 16]
-          and wide_double["kernel"] == "migrate_detect_global_f64",
+          and wide_double["kernel"] == "migrate_detect_global_f64"
+          and wide_record["locate"]["kernels"] == [
+              "migrate_marginalise", "migrate_map"]
+          and mid_record["locate"]["kernels"] == [
+              "migrate_marginalise_ring", "migrate_map_ring"],
           f"span paths: {wide_record['kernel']}, {mid_record['shape']}, "
-          f"{wide_double['kernel']}")
+          f"{wide_double['kernel']}, locate {wide_record['locate']}, "
+          f"{mid_record['locate']}")
     kurtosis_record, decimate_record = kurtosis_decimate_path(device)
     torch.cuda.empty_cache()
     double_record, standard_record = double_standard_paths(device)
@@ -6141,12 +6387,13 @@ def main():
         "route": "cuda",
         "source": "quakemigrate_torch/csrc/migrate_marginalise.cu",
         "replaces": "quakemigrate_tpu/ops/migrate.py:291",
-        # the k2_v2 route's pass 2 (CudaDetectVPU.marginalise, F1's
-        # geometry); on the main path (archive_locate, route k1_v2) it
-        # launches no time, and is timed in turns beside M1 v2
-        "launches": locate_record["m1_f1"]["launches"]["migrate_marginalise"],
+        # pass 2 on the plans the ring refuses: the wide-span path
+        # (span_path at 32,769 samples); on the main path (archive_locate,
+        # route k1_v2) it launches no time, and is timed in turns beside
+        # M1 v2, and at F1 and F3 beside M1 ring
+        "launches": wide_record["locate"]["launches"]["migrate_marginalise"],
         "locate_launches": locate_record["launches"]["migrate_marginalise"],
-        "max_abs_err": locate_record["m1_f1"]["max_abs_err"],
+        "max_abs_err": wide_record["locate"]["m1_abs_err"],
         "ms": locate_record["m1_ms"],
         "plain_ms": locate_record["m1_plain_ms"],
         "bound_ms": locate_record["bound_ms"],
@@ -6154,9 +6401,45 @@ def main():
         "smem_bound_ms": locate_record["smem_bound_ms"],
         "library_ms": None,
         "window": locate_record["marginal_window"],
-        "f1": locate_record["m1_f1"],
+        "f1_ms": locate_record["m1_f1"]["v1_ms"],
+        "f1_bound_ms": locate_record["m1_f1"]["v1_bound_ms"],
         "windows_ms": {name: r["v1_ms"] for name, r in
                        locate_record["m1_windows"].items()},
+        "wide_span": wide_record["locate"],
+    }, {
+        "name": "migrate_marginalise_ring",
+        "route": "cuda",
+        "source": "quakemigrate_torch/csrc/migrate_marginalise_ring.cu",
+        "replaces": "quakemigrate_tpu/ops/migrate.py:291",
+        # locate's pass 2 on K3's route (f3_path; span_path at 15,000
+        # samples, K3 v2's one-block shape) and K2 v2's (F1)
+        "launches": (f3_record["m1_ring"]["launches"]
+                     + locate_record["m1_f1"]["launches"][
+                         "migrate_marginalise_ring"]
+                     + mid_record["locate"]["launches"][
+                         "migrate_marginalise_ring"]
+                     + locate_record["ring_locate"]["two_pass"]["launches"][
+                         "migrate_marginalise_ring"]),
+        "launches_by_path": {
+            "ring_locate": locate_record["ring_locate"]["two_pass"][
+                "launches"]["migrate_marginalise_ring"],
+            "f3_path": f3_record["m1_ring"]["launches"],
+            "f1": locate_record["m1_f1"]["launches"][
+                "migrate_marginalise_ring"],
+            "span_path_15000": mid_record["locate"]["launches"][
+                "migrate_marginalise_ring"]},
+        "max_abs_err": max(f3_record["m1_ring"]["max_abs_err"],
+                           locate_record["m1_f1"]["ring"]["max_abs_err"]),
+        **{k: f3_record["m1_ring"][k] for k in (
+            "ms", "m1_ms", "turns_ms", "kernel_ms", "plain_ms", "bound_ms",
+            "bound_by", "smem_bound_ms", "equal_to_m1", "window",
+            "registers", "spill_stores", "spill_loads", "blocks_per_sm")},
+        "library_ms": None,
+        "f3": f3_record["m1_ring"],
+        "f1": locate_record["m1_f1"]["ring"],
+        "f1_ring_build": locate_record["m1_f1"]["ring_build"],
+        "span_path_15000": mid_record["locate"],
+        "ring_locate": locate_record["ring_locate"]["two_pass"],
     }, {
         "name": "migrate_marginalise_v2",
         "route": "cuda",
@@ -6214,22 +6497,65 @@ def main():
         "route": "cuda",
         "source": "quakemigrate_torch/csrc/migrate_marginalise.cu",
         "replaces": "quakemigrate_tpu/ops/migrate.py:264",
-        # M2's simple form on the k2_v2 route (CudaDetectVPU.map, F1's
-        # geometry); timed beside M2 on the Icequake plan too
-        "launches": map_cases["f1"]["launches"]["migrate_map"],
-        "max_abs_err": map_cases["f1"]["max_abs_err"],
-        "max_rel_err": map_cases["f1"]["max_rel_err"],
+        # M2's simple form on the plans the ring refuses: the wide-span
+        # path (span_path at 32,769 samples); timed at F1 (K2 v2's route)
+        # and F3 in turns beside M2 ring, and beside M2 on the Icequake
+        # and VT plans
+        "launches": wide_record["locate"]["launches"]["migrate_map"],
+        "max_abs_err": wide_record["locate"]["map_abs_err"],
+        "max_rel_err": wide_record["locate"]["map_rel_err"],
+        "ms": map_cases["f1"]["simple_ms"],
         **{k: map_cases["f1"][k] for k in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "smem_bound_ms",
+            "plain_ms", "bound_ms", "bound_by", "smem_bound_ms",
             "output_ms", "ops_ms", "copy_back_ms", "onsets", "nsamples")},
         "library_ms": None,
         "icequake_ms": map_cases["icequake"]["simple_ms"],
         "vt_ms": map_cases["vt"]["simple_ms"],
         "equal_to_m2": [map_cases[k]["simple_equal"]
                         for k in ("icequake", "vt")],
-        # K3's route (f3_path): the map on the plan of a plan no staged
-        # kernel takes
+        # K3's route (f3_path): in turns beside M2 ring
         "f3": f3_record["map"],
+        "wide_span": wide_record["locate"],
+    }, {
+        "name": "migrate_map_ring",
+        "route": "cuda",
+        "source": "quakemigrate_torch/csrc/migrate_marginalise_ring.cu",
+        "replaces": "quakemigrate_tpu/ops/migrate.py:264",
+        # locate's map on K3's route (f3_path; span_path at 15,000) and K2
+        # v2's (F1), the routed ops.migrate_map (ops_path) and
+        # core.compat.migrate on K2 v2's route (compat_path)
+        "launches": (f3_record["map_ring"]["launches"]
+                     + map_cases["f1"]["launches"]["migrate_map_ring"]
+                     + mid_record["locate"]["launches"]["migrate_map_ring"]
+                     + ops_record["launches"]["migrate_map_ring"]
+                     + compat_record["k2_v2"]["launches"][
+                         "migrate_map_ring"]
+                     + locate_record["ring_locate"]["map_path"]["launches"][
+                         "migrate_map_ring"]),
+        "launches_by_path": {
+            "ring_locate": locate_record["ring_locate"]["map_path"][
+                "launches"]["migrate_map_ring"],
+            "f3_path": f3_record["map_ring"]["launches"],
+            "f1": map_cases["f1"]["launches"]["migrate_map_ring"],
+            "span_path_15000": mid_record["locate"]["launches"][
+                "migrate_map_ring"],
+            "ops_path": ops_record["launches"]["migrate_map_ring"],
+            "compat_path": compat_record["k2_v2"]["launches"][
+                "migrate_map_ring"]},
+        "max_abs_err": max(f3_record["map_ring"]["max_abs_err"],
+                           map_cases["f1"]["ring"]["max_abs_err"]),
+        **{k: f3_record["map_ring"][k] for k in (
+            "ms", "m2_simple_ms", "turns_ms", "kernel_ms", "plain_ms",
+            "bound_ms", "bound_by", "smem_bound_ms", "output_ms",
+            "equal_to_m2_simple",
+            "max_equal_to_k3_v2", "nsamples", "registers", "spill_stores",
+            "spill_loads", "blocks_per_sm")},
+        "library_ms": None,
+        "f3": f3_record["map_ring"],
+        "f1": map_cases["f1"]["ring"],
+        "f1_ring_build": map_cases["f1"]["ring_build"],
+        "span_path_15000": mid_record["locate"],
+        "ring_locate": locate_record["ring_locate"]["map_path"],
     }, {
         "name": "migrate_detect_global",
         "route": "cuda",
@@ -6386,7 +6712,8 @@ def main():
         "main_path_err": r1_record["main_path_err"],
         "cases": r1_record["cases"],
     })
-    for name, case in (("migrate_map_v2", "k1_v2"), ("migrate_map", "k2_v2")):
+    for name, case in (("migrate_map_v2", "k1_v2"),
+                       ("migrate_map_ring", "k2_v2")):
         kernels[next(i for i, k in enumerate(kernels)
                      if k["name"] == name)]["compat_path"] = (
             compat_record[case])
@@ -6417,10 +6744,11 @@ def main():
             "ms": times["wide_f64"]["k3_ms"], "icequake_ms": t64["k3_ms"],
             "plain_ms": times["wide_f64"]["plain_ms"],
             **times["wide_f64"]["bound"], "errors": ops_record["wide_f64"]},
-        "migrate_map": {
-            "ms": t32["map_ms"], "call_ms": t32["map_call_ms"],
-            "plain_ms": t32["map_plain_ms"], **t32["map_bound"],
-            "errors": ops_record["map_f32"]},
+        "migrate_map_ring": {
+            "ms": t32["map_ms"], "m2_simple_ms": t32["map_simple_ms"],
+            "call_ms": t32["map_call_ms"], "plain_ms": t32["map_plain_ms"],
+            **t32["map_bound"], "errors": ops_record["map_f32"],
+            "ring": t32["map_ring"]},
         "migrate_map_f64": {
             "ms": t64["map_ms"], "call_ms": t64["map_call_ms"],
             "plain_ms": t64["map_plain_ms"], **t64["map_bound"],

@@ -168,6 +168,17 @@ SIGNATURES = {
     "qm_migrate_map_v2": (
         [_VOID_P, _INT] + [_VOID_P] * 7 + [_INT] * 6 + [_VOID_P]
     ),
+    # L, ld, base, res, flat, win, inv_available, out, partial,
+    # partial_rows, n_nodes, O, tiles, tile, fsmp, start, len, group,
+    # stage_floats, n_stages, warps, npp, split, stream
+    "qm_migrate_marginalise_ring": (
+        [_VOID_P, _INT] + [_VOID_P] * 7 + [_INT] * 14 + [_VOID_P]
+    ),
+    # L, ld, base, res, flat, win, inv_available, map, O, tiles, tile,
+    # fsmp, S, group, stage_floats, n_stages, warps, npp, split, stream
+    "qm_migrate_map_ring": (
+        [_VOID_P, _INT] + [_VOID_P] * 6 + [_INT] * 11 + [_VOID_P]
+    ),
     # occupancy queries: (O, r_span), (O, tile, win_floats) and
     # (O, r_span, layout)
     "qm_migrate_detect_blocks_per_sm": [_INT] * 2,
@@ -189,6 +200,8 @@ SIGNATURES = {
     "qm_migrate_detect_x16g_v2_blocks_per_sm": [_INT],
     # (O, tile, win_floats, len)
     "qm_migrate_marginalise_v2_blocks_per_sm": [_INT] * 4,
+    # (warps, npp, slots, map, group, stage_floats, n_stages)
+    "qm_migrate_ring_blocks_per_sm": [_INT] * 7,
     # x, out, rows, n, nsta, nlta, stream
     "qm_recursive_stalta_f32": [_VOID_P, _VOID_P] + [_INT] * 4 + [_VOID_P],
     "qm_recursive_stalta_f64": [_VOID_P, _VOID_P] + [_INT] * 4 + [_VOID_P],

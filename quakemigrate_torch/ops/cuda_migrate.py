@@ -17,10 +17,15 @@ plan) and ``csrc/migrate_marginalise_v2.cu`` (M1 v2, M1 on K1 v2's
 tables), whose plain version is ``ops.migrate.migrate_marginalise``, and
 of M2, locate's coalescence map on the same two sources (its main form on
 M1 v2's staging, its simple form on M1's gather), whose plain version is
-``ops.migrate.migrate_map``. K3, K3 v2, M1 and M2's simple form also
-have float64 forms (the same sources on double), for
-``QuakeScan(precision="double")``: their wrappers take float32 or float64
-onsets and launch the form of the onsets' type.
+``ops.migrate.migrate_map``; and of M1 ring and M2 ring
+(``csrc/migrate_marginalise_ring.cu``), the same two functions on K3 v2's
+ring of onset windows and tables, locate's pass 2 and map on the routes
+whose plans K1 v2 does not stage (``CudaDetectGlobal``,
+``CudaDetectVPU``), with plain versions that read the same tables
+(:func:`marginalise_ring_reference`, :func:`map_ring_reference`). K3, K3
+v2, M1 and M2's simple form also have float64 forms (the same sources on
+double), for ``QuakeScan(precision="double")``: their wrappers take
+float32 or float64 onsets and launch the form of the onsets' type.
 
 Counterpart of quakemigrate_tpu.ops.pallas_migrate: ``CudaDetect`` of
 ``PallasDetectMXU`` (kernel ``_mxu_detect_kernel``), ``CudaDetectVPU`` of
@@ -49,6 +54,7 @@ a node whose coalescence equals the maximum.
 """
 
 import ctypes
+import time
 from functools import cached_property
 from types import SimpleNamespace
 
@@ -125,14 +131,25 @@ GLOBAL_V2_WIDE_SHAPE = (16, 16)
 # (its accumulators take twice float's registers)
 GLOBAL_V2_SHAPES_F64 = {(16, 8): 1}
 
+# M1 ring and M2 ring (csrc/migrate_marginalise_ring.cu: MR_CHUNK,
+# MR_SBLK, MR_SHAPES): the window samples a block of M1 ring takes (124,
+# so that every read of a window that starts anywhere stays inside K3 v2's
+# staged window), the scan samples a block of M2 ring takes, and the
+# shapes (warps, nodes a warp a pass) both are built for, with their
+# blocks per SM: K3 v2's route shapes.
+RING_CHUNK = 124
+RING_SBLK = 128
+RING_SHAPES = {(16, 8): 2, (16, 16): 1}
+
 # Shared memory of one SM on Hopper (228 KB), of which each resident
 # block reserves 1 KB
 SMEM_PER_SM = 233472
 SMEM_BLOCK_RESERVE = 1024
 
 # Launches of K1, K1 v2, K2, K2 v2, K3, K3 v2, M1, M1 v2 and M2 (main and
-# simple form), and of the float64 forms of K3, K3 v2, M1 and M2's simple
-# form, counted by their wrappers where they launch
+# simple form), of the float64 forms of K3, K3 v2, M1 and M2's simple
+# form, and of M1 ring and M2 ring, counted by their wrappers where they
+# launch
 launches = {"migrate_detect": 0, "migrate_detect_v2": 0,
             "migrate_detect_vpu": 0, "migrate_detect_vpu_v2": 0,
             "migrate_detect_global": 0, "migrate_detect_global_v2": 0,
@@ -140,7 +157,8 @@ launches = {"migrate_detect": 0, "migrate_detect_v2": 0,
             "migrate_map": 0, "migrate_map_v2": 0,
             "migrate_detect_global_f64": 0,
             "migrate_detect_global_v2_f64": 0,
-            "migrate_marginalise_f64": 0, "migrate_map_f64": 0}
+            "migrate_marginalise_f64": 0, "migrate_map_f64": 0,
+            "migrate_marginalise_ring": 0, "migrate_map_ring": 0}
 
 # The element types of the onsets the float64-capable wrappers take
 FLOAT_DTYPES = (torch.float32, torch.float64)
@@ -1620,23 +1638,27 @@ def global_v2_tables(plan, fsmp, device, layout):
     """
     K3 v2's tables of a :class:`DetectPlan` for scans that start at
     ``fsmp``, for the ring ``layout`` (:func:`global_v2_layout`, of its
-    ``dtype``): a namespace with ``res`` uint16 [n_tiles, passes, O, 256 /
-    passes] (passes = 256 / (warps npp)), in the kernel's reading order,
-    entry ``win[o, 0] + ((fsmp + base[i, o]) & (unit - 1)) + fine[i, o,
-    n]`` for the brick-order node ``n = p (256 / passes) + q`` (unit the
-    elements of a 16-byte copy, :func:`global_v2_unit`); ``flat`` int32
-    [n_tiles, 256], each brick-order node's flat index or -1 for padding;
-    ``win`` int32 [O, 2]; all on ``device``; and the ``layout`` and
-    ``fsmp``.
+    ``dtype``): a namespace with ``res`` uint16 [n_tiles, passes, O, tile
+    / passes] (passes = tile / (warps npp), the plan's tile: K3 v2 takes
+    :data:`GLOBAL_V2_TILE`, M1 ring and M2 ring any tile the shape
+    divides), in the kernels' reading order, entry ``win[o, 0] + ((fsmp +
+    base[i, o]) & (unit - 1)) + fine[i, o, n]`` for the brick-order node
+    ``n = p (tile / passes) + q`` (unit the elements of a 16-byte copy,
+    :func:`global_v2_unit`); ``flat`` int32 [n_tiles, tile], each
+    brick-order node's flat index or -1 for padding; ``win`` int32 [O,
+    2]; all on ``device``; and the ``layout`` and ``fsmp``. Raises where
+    the shape's warps x npp do not divide the tile.
 
     """
 
     warps, npp = layout.shape
-    passes = GLOBAL_V2_TILE // (warps * npp)
-    base = plan.base.astype(np.int64)
-    lead = (fsmp + base) & (global_v2_unit(layout.dtype) - 1)
-    entry = (layout.win[None, :, 0, None] + lead[:, :, None]
-             + plan.fine.astype(np.int64))
+    if plan.tile % (warps * npp):
+        raise ValueError(f"tile {plan.tile} is not a multiple of the "
+                         f"shape's {warps * npp} nodes a pass")
+    passes = plan.tile // (warps * npp)
+    lead = (fsmp + plan.base) & (global_v2_unit(layout.dtype) - 1)
+    # int32 arithmetic: every entry lies below the stage's 2^16 elements
+    entry = plan.fine + (layout.win[None, :, 0, None] + lead[:, :, None])
     if entry.size and entry.max() >= layout.stage_floats:
         raise ValueError(f"a residual offset of {int(entry.max())} lies "
                          f"past the {layout.stage_floats}-element stage")
@@ -1744,6 +1766,375 @@ def global_v2_blocks_per_sm(layout, device):
             else "qm_migrate_detect_global_v2_blocks_per_sm")
     return blocks_per_sm(name, device, *layout.shape, layout.group,
                          layout.stage_floats, layout.n_stages)
+
+
+def ring_shape(plan):
+    """The shape M1 ring and M2 ring run for a :class:`DetectPlan`: the
+    first of :data:`RING_SHAPES` (K3 v2's float32 route shapes, in their
+    order) whose warps x npp divide the plan's tile and whose budget holds
+    a ring of two stages of the plan's widest window
+    (:func:`global_v2_layout`), else None."""
+
+    for shape in RING_SHAPES:
+        if (plan.tile % (shape[0] * shape[1]) == 0
+                and global_v2_layout(plan.r_spans, shape, group=1)
+                is not None):
+            return shape
+    return None
+
+
+def ring_refusal(plan, dtype=torch.float32):
+    """
+    Why M1 ring and M2 ring cannot take a :class:`DetectPlan` for onsets
+    of ``dtype``, in words, or None where they can: they are float32
+    kernels, the plan's tile must be a multiple of a shape's nodes a pass
+    (:data:`RING_SHAPES`), and a ring of two stages of its widest window
+    must fit the shape's budget, as for K3 v2 (:func:`global_v2_refusal`;
+    about 25,000 samples of residual span). Reads nothing from the card.
+
+    """
+
+    if dtype != torch.float32:
+        return f"M1 ring and M2 ring have no {dtype} form"
+    per_pass = min(w * n for w, n in RING_SHAPES)
+    if plan.tile % per_pass:
+        return (f"tile {plan.tile} is not a multiple of the ring's "
+                f"{per_pass} nodes a pass")
+    if ring_shape(plan) is None:
+        shape = max(RING_SHAPES, key=lambda s: s[0] * s[1])
+        widest = int(global_v2_widths([plan.r_span])[0])
+        smem = global_v2_smem(shape, widest, 1, GLOBAL_V2_STAGES[0])
+        return (f"a ring of {GLOBAL_V2_STAGES[0]} stages of one window of "
+                f"{widest} floats (residual span {plan.r_span}) needs "
+                f"{smem} bytes of shared memory, over the "
+                f"{global_v2_budget(shape)} a block may use")
+    return None
+
+
+def build_ring_tables(plan, fsmp, device):
+    """The tables M1 ring and M2 ring read on a plan K3 v2 does not run
+    (:class:`CudaDetectVPU`'s route): :func:`global_v2_tables` at the ring
+    layout of :func:`ring_shape` (the plan's tile), with the build's host
+    seconds ``build_s`` and the bytes on the card ``nbytes``. Raises where
+    :func:`ring_refusal` refuses the plan."""
+
+    reason = ring_refusal(plan)
+    if reason is not None:
+        raise ValueError(f"M1 ring and M2 ring cannot take the plan: {reason}")
+    t0 = time.perf_counter()
+    layout = global_v2_layout(plan.r_spans, ring_shape(plan))
+    tables = global_v2_tables(plan, fsmp, device, layout)
+    tables.build_s = time.perf_counter() - t0
+    tables.nbytes = sum(t.numel() * t.element_size()
+                        for t in (tables.res, tables.flat, tables.win))
+    return tables
+
+
+def ring_smem(layout):
+    """Shared-memory bytes of one M1 ring or M2 ring block
+    (csrc/migrate_marginalise_ring.cu: mr_smem_bytes): K3 v2's ring
+    (:func:`global_v2_smem`) without its fold scratch."""
+
+    warps, npp = layout.shape
+    stage = round_up(4 * layout.stage_floats + 2 * layout.group * warps * npp,
+                     128)
+    return layout.n_stages * stage + 16 * layout.n_stages
+
+
+def ring_split(layout, n_onsets):
+    """Whether M1 ring and M2 ring put a tile's passes on the grid, one a
+    block, for a ring ``layout`` and ``n_onsets``: where one pass alone
+    fills the ring (its stages a pass, ceil(O / G), at least the ring's
+    depth), so a block still overlaps its copies with its gather; else
+    each block takes its passes in turn and loads the next pass's windows
+    while it gathers this one's, as K3 v2 does. (On the H100, PERF.md
+    section 6: the flat Icequake table's 1,012 tiles of one stage a pass
+    took 0.094 ms unsplit against 0.109-0.114 split; F1's 1,080 tiles of
+    six stages a pass 0.68 ms split against 0.70.)"""
+
+    return -(-n_onsets // layout.group) >= layout.n_stages
+
+
+def ring_slots(window_length):
+    """The k slots a lane of M1 ring holds at this window length, or of
+    M2 ring at this scan length (1, 2 or 4): the fewest that cover a
+    block's samples, min(window_length, RING_CHUNK), at 32 lanes (M2
+    ring's blocks of 128 take 4 beyond 64 samples too)."""
+
+    width = min(window_length, RING_CHUNK)
+    return 1 if width <= 32 else 2 if width <= 64 else 4
+
+
+def _check_ring(onsets_log, base, inv_available, fsmp, nsamples, tables,
+                max_shift):
+    """The checks of M1 ring's and M2 ring's wrappers: ``tables`` built
+    for this ``fsmp`` on a float32 layout of a shape the kernels are built
+    for, shapes and types that agree, tensors on one device, an onset
+    block long enough for the plan (the device's type is checked last,
+    :func:`_check_cuda`). Returns (n_onsets, n_tiles, tile)."""
+
+    t = tables
+    layout = t.layout
+    if t.fsmp != fsmp:
+        raise ValueError(f"the tables were built for fsmp {t.fsmp}, not "
+                         f"{fsmp}")
+    if layout.dtype != torch.float32 or layout.shape not in RING_SHAPES:
+        raise ValueError(f"M1 ring and M2 ring take float32 layouts of the "
+                         f"shapes {tuple(RING_SHAPES)}, not {layout.shape} "
+                         f"({layout.dtype})")
+    if layout.n_stages not in GLOBAL_V2_STAGES:
+        raise ValueError(f"n_stages ({layout.n_stages}) must be one of "
+                         f"{GLOBAL_V2_STAGES}")
+    check_smem(ring_smem(layout), f"the ring's {layout.n_stages} stages of "
+               f"{layout.group} windows")
+    device = onsets_log.device
+    for name, x, want in (("onsets_log", onsets_log, torch.float32),
+                          ("base", base, torch.int32),
+                          ("inv_available", inv_available, torch.float32),
+                          ("res", t.res, torch.uint16),
+                          ("flat", t.flat, torch.int32),
+                          ("win", t.win, torch.int32)):
+        if x.device != device:
+            raise ValueError(f"{name} is on {x.device}, not {device}")
+        if x.dtype != want or not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {want} tensor")
+    n_onsets, t_len = onsets_log.shape
+    n_tiles, tile = t.flat.shape
+    passes = t.res.shape[1]
+    warps, npp = layout.shape
+    if (base.shape != (n_tiles, n_onsets)
+            or t.res.shape != (n_tiles, passes, n_onsets, warps * npp)
+            or passes * warps * npp != tile
+            or t.win.shape != (n_onsets, 2)
+            or inv_available.numel() != 1):
+        raise ValueError(
+            f"inconsistent shapes: onsets {tuple(onsets_log.shape)}, base "
+            f"{tuple(base.shape)}, res {tuple(t.res.shape)}, flat "
+            f"{tuple(t.flat.shape)}, win {tuple(t.win.shape)}, shape "
+            f"{layout.shape}")
+    if nsamples < 1 or fsmp < 0:
+        raise ValueError(f"bad geometry: fsmp {fsmp}, nsamples {nsamples}")
+    _check_onset_length(onsets_log, fsmp, nsamples, max_shift)
+    if t.res.data_ptr() % 16:
+        raise ValueError("the residual table must be 16-byte aligned")
+    return n_onsets, n_tiles, tile
+
+
+def _check_cuda(device):
+    """The last check of M1 ring's and M2 ring's wrappers before the
+    launch: raise on a device that is not a CUDA device."""
+
+    if device.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {device}")
+
+
+def migrate_marginalise_ring_cuda(onsets_log, base, inv_available, fsmp,
+                                  nsamples, window_start, window_length,
+                                  n_nodes, tables, max_shift, split=None):
+    """
+    Launch M1 ring (``csrc/migrate_marginalise_ring.cu``) on tensors on
+    the card: M1's function (:func:`migrate_marginalise_cuda`), the
+    coalescence of every real node of the plan summed over the scan
+    samples ``[window_start, window_start + window_length)``, f32
+    [n_nodes] in flat node order (real nodes only are written), through
+    K3 v2's ``tables`` of the plan (:func:`global_v2_tables`, built for
+    this ``fsmp``; on :class:`CudaDetectVPU`'s route
+    :func:`build_ring_tables`), the onset windows streamed through their
+    ring. A window longer than :data:`RING_CHUNK` samples is split into
+    chunks whose sums are added in chunk order; a window of one chunk
+    gives M1's result bit for bit. ``split`` puts the tile's passes on
+    the grid (one a block), else each block takes them in turn (None:
+    :func:`ring_split` of the tables' layout); the result is the same.
+    Raises on a window outside the scan, an onset block too short for the
+    plan, what the kernel does not take and CPU tensors; the plain
+    version is :func:`marginalise_ring_reference`. The launch is
+    asynchronous on the current stream.
+
+    """
+
+    n_onsets, n_tiles, tile = _check_ring(onsets_log, base, inv_available,
+                                          fsmp, nsamples, tables, max_shift)
+    if not (0 <= window_start and 0 <= window_length
+            and window_start + window_length <= nsamples):
+        raise ValueError(
+            f"window [{window_start}, {window_start + window_length}) is not "
+            f"inside the {nsamples} scan samples"
+        )
+    _check_cuda(onsets_log.device)
+    layout = tables.layout
+    if split is None:
+        split = ring_split(layout, n_onsets)
+    rows, pitch = row_pitch(onsets_log)
+    out = torch.empty(n_nodes, dtype=torch.float32, device=onsets_log.device)
+    n_chunks = max(1, -(-window_length // RING_CHUNK))
+    partial = (torch.empty((n_chunks, n_nodes), dtype=torch.float32,
+                           device=onsets_log.device) if n_chunks > 1
+               else None)
+    launch_kernel(
+        "qm_migrate_marginalise_ring", onsets_log.device,
+        rows.data_ptr(), pitch, base.data_ptr(), tables.res.data_ptr(),
+        tables.flat.data_ptr(), tables.win.data_ptr(),
+        inv_available.data_ptr(), out.data_ptr(),
+        None if partial is None else partial.data_ptr(), n_chunks, n_nodes,
+        n_onsets, n_tiles, tile, fsmp, window_start, window_length,
+        layout.group, layout.stage_floats, layout.n_stages, *layout.shape,
+        int(split),
+    )
+    launches["migrate_marginalise_ring"] += 1
+    return out
+
+
+def migrate_map_ring_cuda(onsets_log, base, inv_available, fsmp, nsamples,
+                          n_nodes, tables, max_shift, split=None):
+    """
+    Launch M2 ring (``csrc/migrate_marginalise_ring.cu``) on tensors on
+    the card: the coalescence map of locate, f32 [n_nodes, nsamples] in
+    flat node order (the rows of real nodes written whole), ``map[n, t] =
+    exp(inv_available * sum_o L[o, fsmp + tt[n, o] + t])`` each value
+    computed as M2's simple form and K3 v2 compute it, so the map equals
+    M2 simple bit for bit and its per-sample max K3 v2's tmax; through K3
+    v2's ``tables`` of the plan and ``split`` as for
+    :func:`migrate_marginalise_ring_cuda`. Raises on an onset block too
+    short for the plan, what the kernel does not take and CPU tensors;
+    the plain version is :func:`map_ring_reference`. The launch is
+    asynchronous on the current stream.
+
+    """
+
+    n_onsets, n_tiles, tile = _check_ring(onsets_log, base, inv_available,
+                                          fsmp, nsamples, tables, max_shift)
+    if -(-nsamples // RING_SBLK) > 65535:
+        raise ValueError(f"bad geometry: nsamples {nsamples}")
+    _check_cuda(onsets_log.device)
+    layout = tables.layout
+    if split is None:
+        split = ring_split(layout, n_onsets)
+    rows, pitch = row_pitch(onsets_log)
+    out = torch.empty((n_nodes, nsamples), dtype=torch.float32,
+                      device=onsets_log.device)
+    launch_kernel(
+        "qm_migrate_map_ring", onsets_log.device,
+        rows.data_ptr(), pitch, base.data_ptr(), tables.res.data_ptr(),
+        tables.flat.data_ptr(), tables.win.data_ptr(),
+        inv_available.data_ptr(), out.data_ptr(), n_onsets, n_tiles, tile,
+        fsmp, nsamples, layout.group, layout.stage_floats, layout.n_stages,
+        *layout.shape, int(split),
+    )
+    launches["migrate_map_ring"] += 1
+    return out
+
+
+def ring_local(tables):
+    """Each brick-order node's read offset in onset o's staged window, as
+    the ring's tables hold it: the entry less the window's offset in its
+    stage, ``((fsmp + base[i, o]) & 3) + fine[i, o, n]``; int64 [n_tiles,
+    O, tile]."""
+
+    res = tables.res.long()
+    n_tiles, passes, n_onsets, slice_ = res.shape
+    local = res.permute(0, 2, 1, 3).reshape(n_tiles, n_onsets,
+                                            passes * slice_)
+    return local - tables.win[:, 0].long().to(res.device)[None, :, None]
+
+
+def _ring_scatter(values, flat, shape):
+    """``values`` [n_tiles, tile, ...] into zeros of ``shape`` at the flat
+    indices ``flat`` [n_tiles, tile]; padding (-1) written nowhere."""
+
+    out = torch.zeros(shape, dtype=values.dtype, device=values.device)
+    real = flat.reshape(-1) >= 0
+    out[flat.reshape(-1)[real].long()] = values.reshape(
+        (-1,) + values.shape[2:])[real]
+    return out
+
+
+def marginalise_ring_reference(onsets_log, base, inv_available, fsmp,
+                               window_start, window_length, n_nodes, tables,
+                               max_elements=2**23):
+    """
+    Plain PyTorch version of M1 ring through its ``tables`` (built for
+    this ``fsmp``), in the kernel's order: for each chunk c of
+    :data:`RING_CHUNK` samples of the window, from its first sample d =
+    ``window_start + c RING_CHUNK``, node n reads onset o at column
+    ``((fsmp + base[i, o]) & ~3) + (d & ~3) + (d & 3) +`` its entry less
+    the window's offset (:func:`ring_local`), summed in order o = 0..O-1;
+    ``exp(acc * inv_available)``; each lane's samples ``lane + 32 k`` (k <
+    :func:`ring_slots`) in k order, then the warp's xor tree (lane 0's
+    sum); the chunks added in chunk order; scattered through ``flat``.
+    Returns f32 [n_nodes], zero where no real node writes. Used by the
+    tests and the card's holds, not by the main path.
+
+    """
+
+    if tables.fsmp != fsmp:
+        raise ValueError(f"the tables were built for fsmp {tables.fsmp}, "
+                         f"not {fsmp}")
+    local = ring_local(tables).to(onsets_log.device)
+    flat = tables.flat.to(onsets_log.device)
+    lead = ((fsmp + base.long()) & ~3)
+    n_tiles, tile = flat.shape
+    slots = ring_slots(window_length)
+    out = None
+    for c in range(max(1, -(-window_length // RING_CHUNK))):
+        d = window_start + c * RING_CHUNK
+        cw = min(RING_CHUNK, window_length - c * RING_CHUNK)
+        lanes = torch.zeros((n_tiles, tile, 32 * slots),
+                            dtype=onsets_log.dtype, device=onsets_log.device)
+        if cw > 0:
+            for t0, acc in plan_acc_chunks(
+                    onsets_log, lead + (d & ~3) + (d & 3), local, 0, cw,
+                    max_elements):
+                lanes[t0:t0 + len(acc), :, :cw] = torch.exp(
+                    acc * inv_available)
+        lanes = lanes.reshape(n_tiles, tile, slots, 32)
+        total = lanes[:, :, 0]
+        for k in range(1, slots):
+            total = total + lanes[:, :, k]
+        lane = torch.arange(32, device=onsets_log.device)
+        for x in (16, 8, 4, 2, 1):
+            total = total + total[:, :, lane ^ x]
+        chunk = _ring_scatter(total[:, :, 0], flat, (n_nodes,))
+        out = chunk if out is None else out + chunk
+    return out
+
+
+def map_ring_reference(onsets_log, base, inv_available, fsmp, nsamples,
+                       n_nodes, tables, max_elements=2**23):
+    """
+    Plain PyTorch version of M2 ring through its ``tables`` (built for
+    this ``fsmp``): node n reads onset o at column ``((fsmp + base[i, o])
+    & ~3) + s0 +`` its entry less the window's offset (:func:`ring_local`)
+    ``+ t`` for the block of 128 samples from s0, summed in order o =
+    0..O-1; ``exp(acc * inv_available)``, the product rounded on its own;
+    each real node's row through ``flat``. Returns f32 [n_nodes,
+    nsamples], zero in rows no real node writes. Used by the tests and
+    the card's holds, not by the main path.
+
+    """
+
+    if tables.fsmp != fsmp:
+        raise ValueError(f"the tables were built for fsmp {tables.fsmp}, "
+                         f"not {fsmp}")
+    local = ring_local(tables).to(onsets_log.device)
+    flat = tables.flat.to(onsets_log.device)
+    values = torch.empty(flat.shape + (nsamples,), dtype=onsets_log.dtype,
+                         device=onsets_log.device)
+    for t0, acc in plan_acc_chunks(onsets_log, (fsmp + base.long()) & ~3,
+                                   local, 0, nsamples, max_elements):
+        values[t0:t0 + len(acc)] = torch.exp(acc * inv_available)
+    return _ring_scatter(values, flat, (n_nodes, nsamples))
+
+
+def ring_blocks_per_sm(layout, length, map_=False):
+    """Resident blocks per SM of M1 ring at a window of ``length``
+    samples, or of M2 ring (``map_``) at a scan of ``length`` samples
+    (their k slots, :func:`ring_slots`), at a ring layout, on the current
+    device."""
+
+    return blocks_per_sm("qm_migrate_ring_blocks_per_sm",
+                         torch.device("cuda", torch.cuda.current_device()),
+                         *layout.shape, ring_slots(length), int(map_),
+                         layout.group, layout.stage_floats, layout.n_stages)
 
 
 def vpu_v2_blocks_per_sm(tile, stride, n_stages, device):
@@ -1918,9 +2309,13 @@ class CudaDetectVPU(CudaDetect):
     onsets take K2 v2's plain version (:func:`vpu_v2_reference`) and
     count no launch. K2 (:func:`migrate_detect_vpu_cuda`) stays callable
     on the same plan (``fine``, ``r_span``) as K2 v2's yardstick.
-    :meth:`marginalise` runs M1 on the plan's int32 ``fine``, as this is
-    the route of plans that K1 v2, and so M1 v2, cannot stage, and
-    :meth:`map` M2's simple form.
+    This is the route of plans that K1 v2, and so M1 v2 and M2, cannot
+    stage: :meth:`marginalise` runs M1 ring and :meth:`map` M2 ring on K3
+    v2's ring of onset windows, through tables of the plan built at their
+    first call (:func:`build_ring_tables`: :attr:`ring`, with its build
+    seconds and bytes); where :attr:`ring_refusal` (decided from the plan at
+    construction, :func:`ring_refusal`) refuses the plan, M1 and M2's
+    simple form on the plan's int32 ``fine``.
 
     """
 
@@ -1941,11 +2336,24 @@ class CudaDetectVPU(CudaDetect):
     def _load(self, plan):
         """K2 v2's tables of the plan, on the device, and its ring depth
         (at least the smallest, with which a plan too wide raises at
-        launch)."""
+        launch); whether M1 ring and M2 ring take the plan (their tables
+        wait for the first call)."""
 
         self.tables = vpu_v2_tables(plan, self.fsmp, self.device)
         self.n_stages = (vpu_v2_stages(plan.tile, plan.r_span)
                          or VPU_V2_STAGES[0])
+        self.ring_refusal = ring_refusal(plan, self.dtype)
+        self.ring = None
+
+    def ring_tables(self):
+        """M1 ring's and M2 ring's tables (:func:`build_ring_tables`),
+        built at the first call and kept; None where :attr:`ring_refusal`
+        refuses the plan."""
+
+        if self.ring is None and self.ring_refusal is None:
+            self.ring = build_ring_tables(self.plan, self.fsmp,
+                                          self.device)
+        return self.ring
 
     def __call__(self, onsets, mask, available):
         max_coa, max_idx, coa_sum = self.reduce(onsets, mask, available)
@@ -1959,10 +2367,18 @@ class CudaDetectVPU(CudaDetect):
 
     def marginalise(self, onsets_log, inv_available, window_start,
                     window_length):
-        """M1 on the plan (:func:`migrate_marginalise_cuda`, the int32
-        residuals ``fine``): the route of plans K1 v2, and so M1 v2,
-        cannot stage (:func:`v2_refusal`). Raises on CPU tensors."""
+        """Locate's pass 2 on the plan for prepared onsets on the card:
+        M1 ring (:func:`migrate_marginalise_ring_cuda`) on the ring's
+        tables, or M1 (:func:`migrate_marginalise_cuda`, the int32
+        residuals ``fine``) where :attr:`ring_refusal` refuses the plan:
+        f32 [n_nodes] in flat node order. Raises on CPU tensors."""
 
+        ring = self.ring_tables()
+        if ring is not None:
+            return migrate_marginalise_ring_cuda(
+                onsets_log, self.base, inv_available, self.fsmp,
+                self.nsamples, window_start, window_length, self.n_nodes,
+                ring, self._max_shift)
         return migrate_marginalise_cuda(
             onsets_log, self.base, self.fine, self.valid, self.perm,
             inv_available, self.fsmp, self.nsamples, window_start,
@@ -1970,10 +2386,17 @@ class CudaDetectVPU(CudaDetect):
         )
 
     def map(self, onsets_log, inv_available):
-        """M2's simple form on the plan (:func:`migrate_map_cuda`, the
-        int32 residuals ``fine``): the route of plans K1 v2, and so M2,
-        cannot stage. Raises on CPU tensors."""
+        """Locate's map on the plan for prepared onsets on the card: M2
+        ring (:func:`migrate_map_ring_cuda`) on the ring's tables, or M2's
+        simple form (:func:`migrate_map_cuda`, the int32 residuals
+        ``fine``) where :attr:`ring_refusal` refuses the plan: f32
+        [n_nodes, nsamples] in flat node order. Raises on CPU tensors."""
 
+        ring = self.ring_tables()
+        if ring is not None:
+            return migrate_map_ring_cuda(
+                onsets_log, self.base, inv_available, self.fsmp,
+                self.nsamples, self.n_nodes, ring, self._max_shift)
         return migrate_map_cuda(
             onsets_log, self.base, self.fine, self.valid, self.perm,
             inv_available, self.fsmp, self.nsamples, self.n_nodes,
@@ -2020,9 +2443,11 @@ class CudaDetectGlobal(CudaDetect):
     :func:`quakemigrate_torch.ops.migrate.detect_reduce`, and counts no
     launch; :meth:`reduce_log` runs the kernel only. For locate it keeps
     the :class:`DetectPlan` (built once, at any span, for ``plan``
-    None): :meth:`marginalise` is M1 and :meth:`map` M2's simple form,
-    which read the onsets from global memory through the plan's int32
-    ``fine``.
+    None): in float32, where K3 v2 takes the plan, :meth:`marginalise`
+    is M1 ring and :meth:`map` M2 ring, on K3 v2's own tables
+    (:attr:`tables`); elsewhere (:attr:`ring_refusal`: K3 v2's reason, or
+    float64) M1 and M2's simple form (or their f64 forms), which read the
+    onsets from global memory through the plan's int32 ``fine``.
 
     """
 
@@ -2071,6 +2496,16 @@ class CudaDetectGlobal(CudaDetect):
                 dtype=self.dtype)
             self.tables = global_v2_tables(plan, self.fsmp, self.device,
                                            self.layout)
+        # M1 ring and M2 ring run on K3 v2's tables, in float32
+        self.ring_refusal = (
+            ring_refusal(plan, self.dtype) if self.dtype != torch.float32
+            else self.v2_refusal)
+
+    def ring_tables(self):
+        """The tables M1 ring and M2 ring read: K3 v2's (:attr:`tables`),
+        or None where :attr:`ring_refusal` refuses the plan."""
+
+        return self.tables if self.ring_refusal is None else None
 
     def reduce(self, onsets, mask, available):
         """(max_coa, max_idx int32, coa_sum), each [nsamples], of one

@@ -163,8 +163,9 @@ def migrate_map(
     ``map4d_flat [N, nsamples]``, the coalescence of every node (flat
     order) at every scan sample, the flat-node form of the reference's
     map4d (nx, ny, nz, S). The plain version of the CUDA kernel M2
-    (``ops.cuda_migrate.migrate_map_v2_cuda``, and its simple form
-    ``migrate_map_cuda``) and the CPU path of locate's map.
+    (``ops.cuda_migrate.migrate_map_v2_cuda``, its simple form
+    ``migrate_map_cuda`` and M2 ring ``migrate_map_ring_cuda``) and the
+    CPU path of locate's map.
 
     Onsets are summed in order o = 0..O-1; traveltimes are clipped to the
     block, ``[0, T - fsmp - nsamples]``, as the reference clips them.
@@ -187,9 +188,9 @@ def migrate_marginalise(
     Migration marginalised over a time window, without materialising the
     4-D map: ``coa_3d_flat [N]`` = the sum over the scan samples
     ``[window_start, window_start + window_length)`` of the coalescence,
-    in flat node order. The plain version of the CUDA kernel
-    (``ops.cuda_migrate.migrate_marginalise_cuda``) and the CPU path of
-    locate's second pass.
+    in flat node order. The plain version of the CUDA kernels
+    (``ops.cuda_migrate.migrate_marginalise_cuda`` and its redesigns) and
+    the CPU path of locate's second pass.
 
     Only the window's samples are gathered. Traveltimes are clipped to
     the full scan's block, ``[0, T - fsmp - nsamples]``, as the reference

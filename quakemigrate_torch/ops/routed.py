@@ -11,9 +11,10 @@ The JAX package's public device functions of migration
   the JAX ``detect_reduce``'s (ties to the first flat index):
   :class:`~quakemigrate_torch.ops.cuda_migrate.CudaDetectGlobal`, K3 v2
   where its ring holds the table's widest window, else K3, and their
-  float64 forms on float64 onsets; ``migrate_map`` runs M2's simple form
-  on the same detector. A build or launch failure raises: no plain
-  version runs on CUDA tensors.
+  float64 forms on float64 onsets; ``migrate_map`` runs M2 ring on K3
+  v2's tables of the same detector (M2's simple form where K3 v2 refuses
+  the table, and its f64 form on float64 onsets). A build or launch
+  failure raises: no plain version runs on CUDA tensors.
 
 The kernels take the table as a grid of ``(N, 1, 1)`` nodes, tiled in
 runs of 256 consecutive flat nodes. Their plan is host work, so the
@@ -179,8 +180,9 @@ def migrate_map(
 ):
     """
     Migration retaining the full coalescence map, ``map4d_flat`` [N, S] in
-    flat node order and the onsets' type: on CUDA onsets M2's simple form
-    on the "k3" route's detector, else the plain
+    flat node order and the onsets' type: on CUDA onsets M2 ring (or M2's
+    simple form, :attr:`CudaDetectGlobal.ring_refusal`) on the "k3"
+    route's detector, else the plain
     :func:`quakemigrate_torch.ops.migrate.migrate_map`.
 
     """

@@ -72,6 +72,7 @@ from quakemigrate_torch.ops.cuda_migrate import (
     CudaDetectVPU,
     DetectPlan,
     global_v2_refusal,
+    ring_refusal,
     v2_refusal,
     vpu_v2_refusal,
 )
@@ -114,7 +115,9 @@ def detect_route(traveltimes, node_count, device, kernel="auto",
       whose shared memory does not grow with the onset count, takes the
       same plan (``vpu_v2_refusal``), logging K1 v2's reason once, else
       ``("k3", reasons, plan)``: ``CudaDetectGlobal``, logging both
-      kernels' reasons once; the plan serves locate's M1 and M2;
+      kernels' reasons once; on both routes the plan serves locate's M1
+      ring and M2 ring, or M1 and M2's simple form where ``ring_refusal``
+      refuses it (the log line says which);
     - with ``kernel="xla"`` (the reference's option that forces its XLA
       shift-table kernel), ``("k3", "kernel='xla'", plan)`` on a CUDA
       device whatever the plan;
@@ -161,14 +164,26 @@ def plan_route(plan, device, kernel="auto", precision="single"):
     k2_reason = vpu_v2_refusal(plan.tile, plan.r_span)
     if k2_reason is None:
         logging.info(f"\tK1 v2 cannot take this scan geometry ({reason}); "
-                     f"using K2 v2 on {device}.")
+                     f"using K2 v2 on {device}, {locate_kernels(plan)}.")
         return "k2_v2", reason, plan
     reasons = f"K1 v2 ({reason}), K2 v2 ({k2_reason})"
     if k3_reason is not None:
         reasons += f", K3 v2 ({k3_reason})"
     logging.info(f"\tNo staged kernel takes this scan geometry: {reasons}; "
-                 f"using {k3} on {device}.")
+                 f"using {k3} on {device}, {locate_kernels(plan)}.")
     return "k3", reasons, plan
+
+
+def locate_kernels(plan, dtype=torch.float32):
+    """Locate's kernels on the "k2_v2" and "k3" routes of ``plan``, in
+    words for the route's log line: M1 ring and M2 ring, or M1 and M2's
+    simple form with the reason the ring refuses the plan
+    (``ring_refusal``)."""
+
+    reason = ring_refusal(plan, dtype)
+    if reason is None:
+        return "locate on M1 ring and M2 ring"
+    return f"locate on M1 and M2 simple ({reason})"
 
 
 def route_detector(route, plan, traveltimes, node_count, fsmp, nsamples,
@@ -581,7 +596,7 @@ class QuakeScan:
         "double" takes the "k3" route whatever ``kernel`` is (with
         "mxu" the reference's notice is logged): K3 v2 f64, or K3 f64 on
         a plan too wide for its ring of doubles, then M1 f64 and M2
-        simple f64 for locate.
+        simple f64 for locate (M1 ring and M2 ring are float32 only).
     mesh : quakemigrate_torch.parallel.Mesh, optional
         Shard the grid-node axis over this device mesh
         (``parallel.make_mesh``), as the reference shards it over its JAX

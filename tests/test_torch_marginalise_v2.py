@@ -242,6 +242,7 @@ def _fake_card(monkeypatch, n_onsets, t_len, n_tiles, tile):
     seen = []
     monkeypatch.setattr(cm, "check_kernel_args", lambda *a, **k: (
         n_onsets, t_len, n_tiles, tile))
+    monkeypatch.setattr(cm, "_check_cuda", lambda device: None)
     monkeypatch.setattr(cm, "launch_kernel",
                         lambda name, device, *args: seen.append((name, args)))
     return seen
@@ -265,13 +266,13 @@ def _icequake_like(n_onsets, seed=5):
 
 @pytest.mark.parametrize("n_onsets, route, entry", [
     (26, "k1_v2", "qm_migrate_marginalise_v2"),
-    (256, "k2_v2", "qm_migrate_marginalise"),
+    (256, "k2_v2", "qm_migrate_marginalise_ring"),
 ])
 def test_route_picks_m1_v2_where_k1_v2_takes_the_plan(n_onsets, route, entry,
                                                       monkeypatch):
     """Locate's pass 2 follows pass 1's route, chosen from the plan's
-    sizes before any launch: M1 v2 on K1 v2's route, M1 on K2 v2's (256
-    onsets, whose slab and windows K1 v2 cannot stage)."""
+    sizes before any launch: M1 v2 on K1 v2's route, M1 ring on K2 v2's
+    (256 onsets, whose slab and windows K1 v2 cannot stage)."""
 
     tt = _icequake_like(n_onsets)
     got_route, reason, plan = detect_route(tt, (12, 12, 10), CUDA)
@@ -291,7 +292,8 @@ def test_route_picks_m1_v2_where_k1_v2_takes_the_plan(n_onsets, route, entry,
     detector.marginalise(onsets_log, inv, 20, 30)
     ((name, _),) = seen
     assert name == entry
-    counted = "migrate_marginalise" + ("_v2" if route == "k1_v2" else "")
+    counted = "migrate_marginalise" + ("_v2" if route == "k1_v2"
+                                       else "_ring")
     assert {k: n for k, n in cm.launches.items() if n} == {counted: 1}
     cm.reset_launches()
 
