@@ -144,10 +144,10 @@ Smoke run of quakemigrate_torch on one NVIDIA GPU.
    batch) equal to 4 migrate_detect calls bit for bit, each within 1e-5
    (max) and 1e-4 (normalised) of the plain migrate_detect on the card,
    the argmax tie-consistent; the same in float64 on K3 v2 f64, within
-   1e-12; migrate_map over 61 samples on M2 ring (and M2 simple's f64
-   form) within 1e-5 (1e-12) of the plain map, M2 ring also held to M2
-   simple and K3 v2's tmax bit for bit and timed in turns with M2
-   simple; detect_reduce on a padded
+   1e-12; migrate_map over 61 samples on M2 ring (and M2 ring f64) within
+   1e-5 (1e-12) of the plain map, each also held to M2 simple (M2 simple
+   f64) and K3 v2's (K3 v2 f64's) tmax bit for bit and timed in turns
+   with it; detect_reduce on a padded
    slab (node_offset 100,000, n_nodes_real 150,000, 4,000 padding rows)
    bit for bit the unpadded slice's and within 1e-5 of the plain slab;
    a flat table whose span K3 v2's ring cannot hold (one traveltime of
@@ -193,7 +193,11 @@ Smoke run of quakemigrate_torch on one NVIDIA GPU.
    bit (M1 ring within 1e-6 of M1 over three chunks) and the map's max to
    K3 v2's tmax, and timed in turns with M1 and M2 simple
    (experiments/exp_ring), with their bounds, gather floors,
-   registers and spills. K3 v2 timed in turns with K3
+   registers and spills; the same in double on the plan's K3 v2 f64
+   tables: M1 ring f64 and M2 ring f64 (the source on double) against M1
+   f64 and M2 simple f64 (bit for bit at 100 samples and over 1,000,
+   within 1e-12 over two chunks of 128, the map's max K3 v2 f64's tmax),
+   in turns with them. K3 v2 timed in turns with K3
    (csrc/migrate_detect_global.cu), with its bound, gather floor, ring,
    blocks per SM, registers and spills, and a sweep of its onsets a
    stage. Then K3 v2 at the
@@ -207,7 +211,9 @@ Smoke run of quakemigrate_torch on one NVIDIA GPU.
    ring and M2 ring on the second, one launch each, held to the plain
    versions; and the 14,999 plan in float64 (precision="double"): K3 v2
    f64's ring of doubles cannot hold it, so K3 f64 runs, held to the
-   plain float64 reduction within 1e-12.
+   plain float64 reduction within 1e-12, then M1 f64 and M2 simple f64
+   (csrc/migrate_marginalise.cu on double; the ring of doubles refuses
+   the plan too), one launch each, held to the plain float64 functions.
    kurtosis_detect: a new synthetic Icequake workspace;
    QuakeScan.detect with KurtosisOnset (the example's bandpass, kurtosis
    windows 0.25 / 0.5 s, 0.05 s of smoothing) over 60 s on K1 v2 (one
@@ -227,12 +233,16 @@ Smoke run of quakemigrate_torch on one NVIDIA GPU.
    nothing else; each window held to the plain float64 reduction within
    1e-12 and the .scanmseed to a device="cpu" float64 detect of 2
    windows: one count), Trigger (exactly the planted event), locate
-   two-pass (K3 v2 f64 and M1 f64, csrc/migrate_marginalise.cu on
-   double) and on the map path (M2 simple f64), each against the same
-   locate on the CPU in float64 (the .event within a written digit, the
-   marginal and the 4-D map within 1e-12); then each float64 kernel at
-   those shapes held to its plain version and timed in turns with its
-   float32 form (experiments/exp_double). standard_path on the same
+   two-pass (K3 v2 f64 and M1 ring f64, csrc/migrate_marginalise_ring.cu
+   on double, on K3 v2 f64's tables) and on the map path (M2 ring f64),
+   nothing of M1 f64 or M2 simple f64, each against the same locate on
+   the CPU in float64 (the .event within a written digit, the marginal
+   and the 4-D map within 1e-12); then each float64 kernel at those
+   shapes held to its plain version and timed in turns with its float32
+   form (experiments/exp_double): M1 ring f64 with M1 f64, M1 ring and
+   M1 (bit for bit M1 f64 at locate's window), M2 ring f64 with M2
+   simple f64, M2 ring and M2 simple (bit for bit M2 simple f64, its max
+   K3 v2 f64's tmax). standard_path on the same
    workspace in float32: a user's Onset subclass defined here (numpy
    onsets from calculate_onsets only) through detect, Trigger and
    locate, fused_detect=False with the example's STALTAOnset, and
@@ -3755,9 +3765,25 @@ def f3_path(device):
     # Three chunks of 124 from a start of residue 1 mod 4: within 1e-6 of
     # M1 (whose chunks are 256)
     ring_m1["three_chunks"] = exp_ring.m1_case(
-        ring_case, (37, 2 * cm.RING_CHUNK + 1), reps=5)
+        ring_case, exp_ring.F3_CHUNKS_WINDOW, reps=5)
     ring_m2 = exp_ring.m2_case(ring_case, reps=10,
                                tmax=exp_ring.k3_tmax(ring_case))
+    torch.cuda.empty_cache()
+    # F3 in double: M1 ring f64 and M2 ring f64 on the plan's K3 v2 f64
+    # tables and the same onsets in float64, held and in turns with M1 f64
+    # and M2 simple f64: at 100 samples, over the same 249 samples (two
+    # chunks of 128), the map over 1,000
+    det64 = cm.CudaDetectGlobal(tt, F3_NODES, F3_FSMP, F3_NSAMPLES, device,
+                                plan=plan, dtype=torch.float64)
+    case64 = exp_ring.setup(det64, onsets_log.double(), inv.double(),
+                            "f3 f64")
+    f3_double = {
+        "m1": exp_ring.m1_case(case64, (i0, 100)),
+        "m1_chunks": exp_ring.m1_case(case64, exp_ring.F3_CHUNKS_WINDOW,
+                                      reps=5),
+        "map": exp_ring.m2_case(case64, reps=10,
+                                tmax=exp_ring.k3_tmax(case64))}
+    del case64, det64
     torch.cuda.empty_cache()
 
     case = exp_global_v2.setup(tt, F3_NODES, F3_FSMP, F3_NSAMPLES, device,
@@ -3816,7 +3842,8 @@ def f3_path(device):
                     "err_of_max": m1_err, **ring_m1},
         "map_ring": {"launches": locate_launches["migrate_map_ring"],
                      "plain_function_ms": map_plain_ms,
-                     "function_rel_err": map_err, **ring_m2}}
+                     "function_rel_err": map_err, **ring_m2},
+        "double": f3_double}
 
 
 def _build_resources(kernel):
@@ -3907,13 +3934,16 @@ def span_path(device, span, kernel="auto", n_windows=2, precision="single"):
     blocks are float64 and the route's float64 form runs: at 15,000
     samples K3 v2 f64's ring of doubles cannot hold the window, so K3 f64,
     held to the plain window and to the plain float64 reduction within
-    DOUBLE_RTOL (:func:`hold_double_windows`). In float32 locate's
-    kernels follow on the detector for the first window's onsets (their
-    launches counted from 0): at 32,769 samples the ring refuses the plan
-    as K3 v2 does, so M1 and M2's simple form run, one launch each (the
-    wide-span path of the two); at 15,000 M1 ring and M2 ring on K3 v2's
-    one-block shape; each held to the plain migrate_marginalise (over 100
-    samples) and migrate_map. Returns a record."""
+    DOUBLE_RTOL (:func:`hold_double_windows`). Locate's kernels follow on
+    the detector for the first window's onsets (their launches counted
+    from 0): at 32,769 samples the ring refuses the plan as K3 v2 does, so
+    M1 and M2's simple form run, one launch each (the wide-span path of
+    the two); at 15,000 M1 ring and M2 ring on K3 v2's one-block shape; in
+    double at 15,000 the ring of doubles refuses the plan as K3 v2 f64
+    does, so M1 f64 and M2 simple f64 run, one launch each (their path
+    since M1 ring f64 and M2 ring f64 took K3 v2 f64's plans); each held
+    to the plain migrate_marginalise (over 100 samples) and migrate_map,
+    in float64 within DOUBLE_RTOL. Returns a record."""
 
     from quakemigrate_torch.ops import cuda_migrate as cm
     from quakemigrate_torch.ops.migrate import (
@@ -3971,16 +4001,15 @@ def span_path(device, span, kernel="auto", n_windows=2, precision="single"):
               "exact": exact,
               "vs_plain": {k: v for k, v in errs.items()
                            if k != "argmax_equal"}}
-    if double:
-        return record
 
     # Locate's pass 2 and map on the same detector
     block = [torch.from_numpy(a).to(device) for a in windows[0]]
     combined, available = fused_onsets(*block, "classic", "energy", 0.4)
     onsets_log, inv = detector.prepare(combined, block[2], available)
     ring = detector.ring_refusal is None
-    locate = (["migrate_marginalise_ring", "migrate_map_ring"] if ring
-              else ["migrate_marginalise", "migrate_map"])
+    locate = [cm.typed(name, dtype) for name in (
+        ["migrate_marginalise_ring", "migrate_map_ring"] if ring
+        else ["migrate_marginalise", "migrate_map"])]
     torch.cuda.synchronize()
     cm.reset_launches()
     marginal = detector.marginalise(onsets_log, inv, 100, 100)
@@ -3997,7 +4026,9 @@ def span_path(device, span, kernel="auto", n_windows=2, precision="single"):
                            nsamples)
     m1_err = float((marginal - want).abs().max() / want.abs().max())
     map_err = float(((map_ - want_map).abs() / want_map.abs()).max())
-    check(m1_err <= M1_RTOL_OF_MAX and map_err <= MAP_RTOL,
+    check(marginal.dtype == map_.dtype == dtype
+          and m1_err <= (DOUBLE_RTOL if double else M1_RTOL_OF_MAX)
+          and map_err <= (DOUBLE_RTOL if double else MAP_RTOL),
           f"{label}: locate's kernels {m1_err}, {map_err}")
     print(f"{label}: locate on {locate} (ring refusal "
           f"{detector.ring_refusal}): launches {locate_launches}; "
@@ -4300,6 +4331,13 @@ def kurtosis_decimate_path(device):
 DOUBLE_SPAN_S = 10.0
 CPU_HOLD_WINDOWS = 2
 DOUBLE_RTOL = 1e-12
+# What the kernels line takes of an exp_ring record of M1 ring f64 (M2
+# ring f64's: the same but its window and M1's keys)
+RING_RECORD_KEYS = (
+    "ms", "m1_ms", "other_split_ms", "split", "turns_ms", "kernel_ms",
+    "plain_ms", "max_rel_err", "bound_ms", "bound_by", "smem_bound_ms",
+    "equal_to_m1", "window", "n_stages", "layout_n_stages", "group", "smem",
+    "blocks_per_sm", "passes", "registers", "spill_stores", "spill_loads")
 STANDARD_ONSET_RTOL = 1e-6
 
 
@@ -4569,12 +4607,17 @@ def double_path(device, root, lut, archive, planted, origin, start, end):
     kernel held to the plain float64 reduction within DOUBLE_RTOL and the
     .scanmseed to the device="cpu" float64 run: one count, X/Y/Z equal
     where the argmaxes are), Trigger (exactly the planted event), locate
-    two-pass (K3 v2 f64 and M1 f64 once each) and on the map path (M2
-    simple f64 once), each against the same locate on the CPU in float64:
+    two-pass (K3 v2 f64 and M1 ring f64 once each, on K3 v2 f64's tables,
+    nothing of M1 f64) and on the map path (M2 ring f64 once, nothing of
+    M2 simple f64), each against the same locate on the CPU in float64:
     the .event within a digit, the marginal map and the 4-D map within
     DOUBLE_RTOL. Then each float64 kernel at the main path's shapes (the
     planted window's onsets; locate's) held to its plain version and timed
-    in turns with its float32 form (exp_double). Returns a record."""
+    in turns with its float32 form (exp_double): M1 ring f64 through
+    exp_ring.m1_case in turns with M1 f64, M1 ring and M1, bit for bit M1
+    f64 at locate's window (one chunk); M2 ring f64 through
+    exp_ring.m2_case with M2 simple f64, M2 ring and M2 simple, bit for
+    bit M2 simple f64 and its max K3 v2 f64's tmax. Returns a record."""
 
     from quakemigrate_torch.experiments import exp_double
     from quakemigrate_torch.signal.scan import QuakeScan
@@ -4600,14 +4643,15 @@ def double_path(device, root, lut, archive, planted, origin, start, end):
                                "double_detect")
     two_card, two_cpu, event, record["two_pass"] = locate_card_and_cpu(
         root, "double_locate", make, trigger_file,
-        {"migrate_detect_global_v2_f64": 1, "migrate_marginalise_f64": 1},
+        {"migrate_detect_global_v2_f64": 1,
+         "migrate_marginalise_ring_f64": 1},
         planted, lut, write_marginal_coalescence=True)
     marg = [npy_of(d, "marginalised_coalescence_maps")
             for d in (two_card, two_cpu)]
     record["two_pass"]["marginal_map_err"] = float(
         np.abs(marg[0] - marg[1]).max() / np.abs(marg[1]).max())
     map_card, map_cpu, map_event, record["map_path"] = locate_card_and_cpu(
-        root, "double_map", make, trigger_file, {"migrate_map_f64": 1},
+        root, "double_map", make, trigger_file, {"migrate_map_ring_f64": 1},
         planted, lut, write_coalescence=True)
     maps = [npy_of(d, "coalescence_maps") for d in (map_card, map_cpu)]
     record["map_path"]["map_rel_err"] = float(
@@ -4640,6 +4684,12 @@ def double_path(device, root, lut, archive, planted, origin, start, end):
     record["m2_case"] = exp_double.map_case(s)
     for key in ("k3_case", "m1_case", "m2_case"):
         check(record[key]["ok"], f"double_path: {key} does not hold")
+    ring_m1, ring_m2 = record["m1_case"]["ring"], record["m2_case"]["ring"]
+    check(ring_m1 is not None and ring_m2 is not None
+          and ring_m1["equal_to_m1"] and ring_m2["equal_to_m2_simple"]
+          and ring_m2["max_equal_to_k3_v2"],
+          f"double_path: M1 ring f64 / M2 ring f64 not bit for bit M1 f64 / "
+          f"M2 simple f64 and K3 v2 f64's tmax at locate's shapes")
     return record
 
 
@@ -5452,8 +5502,9 @@ def ops_path(device):
     each held to the plain migrate_detect on the card (:func:`hold_detect`:
     1e-5, 1e-4, tie-consistent), K3 v2 once a call and the detector built
     once; the same in float64 on K3 v2 f64 (1e-12); migrate_map over
-    OPS_MAP_SAMPLES samples on M2 ring (on K3 v2's tables) and M2
-    simple's f64 form within MAP_RTOL (DOUBLE_RTOL) of the plain map; detect_reduce on a padded
+    OPS_MAP_SAMPLES samples on M2 ring (on K3 v2's tables) and M2 ring
+    f64 (on K3 v2 f64's) within MAP_RTOL (DOUBLE_RTOL) of the plain map;
+    detect_reduce on a padded
     slab (OPS_SLAB) bit for bit the unpadded slice's, within 1e-5 of the
     plain version on the slab, its argmax global and below n_nodes_real;
     a flat table with one traveltime of OPS_WIDE_SPAN - 1 on K3 and K3
@@ -5462,9 +5513,10 @@ def ops_path(device):
     functions too), their launches counted from 0: exactly the kernels
     named, nothing else. Then each kernel timed with CUDA events on the
     prepared onsets beside the routed call, the plain version and
-    :func:`routed_bound`; M2 ring also held to its plain version, to M2
-    simple bit for bit and to K3 v2's tmax, and timed in turns with M2
-    simple (exp_ring.m2_case). Returns a record."""
+    :func:`routed_bound`; M2 ring and M2 ring f64 also held to their
+    plain version, to M2 simple (M2 simple f64) bit for bit and to K3
+    v2's (K3 v2 f64's) tmax, and timed in turns with M2 simple (M2 simple
+    f64; exp_ring.m2_case). Returns a record."""
 
     from quakemigrate_torch import ops
     from quakemigrate_torch.experiments import exp_ring
@@ -5544,7 +5596,7 @@ def ops_path(device):
     launches = dict(cm.launches)
     expected = {"migrate_detect_global_v2": 2 * OPS_WINDOWS + 2,
                 "migrate_detect_global_v2_f64": 2 * OPS_WINDOWS,
-                "migrate_map_ring": 1, "migrate_map_f64": 1,
+                "migrate_map_ring": 1, "migrate_map_ring_f64": 1,
                 "migrate_detect_global": 1, "migrate_detect_global_f64": 1}
     check(launches == {k: expected.get(k, 0) for k in launches},
           f"ops_path: launches {launches}, expected {expected}")
@@ -5553,7 +5605,8 @@ def ops_path(device):
     check(all(detectors[k].tables is not None for k in ("f32", "f64"))
           and all(detectors[k].tables is None
                   for k in ("wide", "wide_f64"))
-          and detectors["map_f32"].ring_refusal is None,
+          and detectors["map_f32"].ring_refusal is None
+          and detectors["map_f64"].ring_refusal is None,
           "ops_path: K3 v2 refused the flat Icequake table, or took the "
           "wide one, or the ring refused the map's")
 
@@ -5645,18 +5698,16 @@ def ops_path(device):
                                       OPS_MAP_SAMPLES, itemsize,
                                       map_out=True),
         }
-        if key == "f32":
-            # M2 ring on K3 v2's tables of the map's detector, held to its
-            # plain version, to M2 simple and to K3 v2's tmax, in turns
-            # with M2 simple
-            ring_case = exp_ring.setup(map_det, map_log, map_inv,
-                                       "ops_path map")
-            times[key]["map_ring"] = exp_ring.m2_case(
-                ring_case, tmax=exp_ring.k3_tmax(ring_case))
-            times[key]["map_ms"] = times[key]["map_ring"]["ms"]
-            times[key]["map_simple_ms"] = times[key]["map_ring"][
-                "m2_simple_ms"]
-            del ring_case
+        # M2 ring (M2 ring f64) on K3 v2's (K3 v2 f64's) tables of the
+        # map's detector, held to its plain version, to M2 simple (f64)
+        # and to K3 v2's tmax, in turns with M2 simple
+        ring_case = exp_ring.setup(map_det, map_log, map_inv,
+                                   f"ops_path map {key}")
+        times[key]["map_ring"] = exp_ring.m2_case(
+            ring_case, tmax=exp_ring.k3_tmax(ring_case))
+        times[key]["map_ms"] = times[key]["map_ring"]["ms"]
+        times[key]["map_simple_ms"] = times[key]["map_ring"]["m2_simple_ms"]
+        del ring_case
         del map_log
     for key, o, m in (("wide", wide_onsets, wide_mask),
                       ("wide_f64", wide_onsets.double(), wide_mask.double())):
@@ -5678,8 +5729,9 @@ def ops_path(device):
               f"{t['call_ms']:.4f}; plain {t['plain_ms']:.4f}; bound "
               f"{t['bound']['bound_ms']:.4f} by {t['bound']['bound_by']}, "
               f"gather floor {t['bound']['smem_bound_ms']:.4f}); "
-              f"{'M2 ring' if key == 'f32' else 'M2 simple f64'} "
-              f"over {OPS_MAP_SAMPLES} samples {t['map_ms']:.4f} ms (the "
+              f"{'M2 ring' if key == 'f32' else 'M2 ring f64'} over "
+              f"{OPS_MAP_SAMPLES} samples {t['map_ms']:.4f} ms (M2 simple "
+              f"{t['map_simple_ms']:.4f}; the "
               f"routed migrate_map {t['map_call_ms']:.4f}; plain "
               f"{t['map_plain_ms']:.4f}; bound "
               f"{t['map_bound']['bound_ms']:.4f} by "
@@ -5904,11 +5956,13 @@ def main():
           and wide_double["kernel"] == "migrate_detect_global_f64"
           and wide_record["locate"]["kernels"] == [
               "migrate_marginalise", "migrate_map"]
+          and wide_double["locate"]["kernels"] == [
+              "migrate_marginalise_f64", "migrate_map_f64"]
           and mid_record["locate"]["kernels"] == [
               "migrate_marginalise_ring", "migrate_map_ring"],
           f"span paths: {wide_record['kernel']}, {mid_record['shape']}, "
           f"{wide_double['kernel']}, locate {wide_record['locate']}, "
-          f"{mid_record['locate']}")
+          f"{mid_record['locate']}, {wide_double['locate']}")
     kurtosis_record, decimate_record = kurtosis_decimate_path(device)
     torch.cuda.empty_cache()
     double_record, standard_record = double_standard_paths(device)
@@ -6599,12 +6653,13 @@ def main():
         "library_ms": None,
         "resources": f3_record["resources"],
         "f3": {k: v for k, v in f3_record.items()
-               if k not in ("m1", "map", "k3")},
+               if k not in ("m1", "map", "k3", "double")},
         "xla_icequake": xla_record,
         "mid_span": mid_record,
     }]
     k3_case = double_record["k3_case"]
     m1_case, m2_case = double_record["m1_case"], double_record["m2_case"]
+    ring_m1, ring_m2 = m1_case["ring"], m2_case["ring"]
     double_launches = double_record["launches"]
     kernels += [{
         "name": "migrate_detect_global_v2_f64",
@@ -6654,43 +6709,97 @@ def main():
         **k3_case["k3_f64_resources"],
         "wide_span": wide_double,
     }, {
+        "name": "migrate_marginalise_ring_f64",
+        "route": "cuda",
+        "source": "quakemigrate_torch/csrc/migrate_marginalise_ring.cu",
+        "replaces": "quakemigrate_tpu/ops/migrate.py:291",
+        # the main path: QuakeScan(precision="double").locate, pass 2, on
+        # K3 v2 f64's tables
+        "launches": double_record["two_pass"]["launches"][
+            "migrate_marginalise_ring_f64"],
+        "max_abs_err": max(ring_m1["max_abs_err"], m1_case["max_abs_err"]),
+        "err_of_max": m1_case["err_of_max"],
+        # exp_ring.m1_case at locate's window: held to
+        # marginalise_ring_reference (plain_ms) and M1 f64, in turns with
+        # M1 f64 (m1_ms) and the float32 forms; its bound and gather floor
+        # from its own inputs (K3 v2 f64's uint16 entries, exp_ring.bound)
+        **{k: ring_m1[k] for k in RING_RECORD_KEYS},
+        "f32_ms": m1_case["ms"]["m1_ring_f32"],
+        "function_plain_ms": m1_case["plain_ms"],
+        "library_ms": None,
+        "f3": f3_record["double"]["m1"],
+        "f3_two_chunks": f3_record["double"]["m1_chunks"],
+    }, {
+        "name": "migrate_map_ring_f64",
+        "route": "cuda",
+        "source": "quakemigrate_torch/csrc/migrate_marginalise_ring.cu",
+        "replaces": "quakemigrate_tpu/ops/migrate.py:264",
+        # the main path: QuakeScan(precision="double",
+        # write_coalescence=True).locate, the map path; the routed
+        # ops.migrate_map on float64 onsets (ops_path)
+        "launches": (double_record["map_path"]["launches"][
+            "migrate_map_ring_f64"]
+            + ops_record["launches"]["migrate_map_ring_f64"]),
+        "max_abs_err": max(ring_m2["max_abs_err"], m2_case["max_abs_err"]),
+        "function_max_rel_err": m2_case["max_rel_err"],
+        # exp_ring.m2_case at locate's map: held to map_ring_reference, to
+        # M2 simple f64 and K3 v2 f64's tmax, in turns with M2 simple f64
+        # (m2_simple_ms) and the float32 forms; its own bound
+        **{k: ring_m2[k] for k in RING_RECORD_KEYS + (
+            "m2_simple_ms", "equal_to_m2_simple", "max_equal_to_k3_v2",
+            "nsamples", "output_ms")
+           if k not in ("m1_ms", "equal_to_m1", "window")},
+        "f32_ms": m2_case["ms"]["m2_ring_f32"],
+        "function_plain_ms": m2_case["plain_ms"],
+        "library_ms": None,
+        "f3": f3_record["double"]["map"],
+    }, {
         "name": "migrate_marginalise_f64",
         "route": "cuda",
         "source": "quakemigrate_torch/csrc/migrate_marginalise.cu",
         "replaces": "quakemigrate_tpu/ops/migrate.py:291",
-        # the main path: QuakeScan(precision="double").locate, pass 2
-        "launches": double_record["two_pass"]["launches"][
+        # redesigned as M1 ring f64; its path: locate's pass 2 in double on
+        # a plan too wide for K3 v2 f64's ring (span_path at 15,000
+        # samples); timed at double_path's window in turns with the ring
+        "launches": wide_double["locate"]["launches"][
             "migrate_marginalise_f64"],
-        "max_abs_err": m1_case["max_abs_err"],
-        "err_of_max": m1_case["err_of_max"],
-        "ms": m1_case["ms"]["m1_f64"],
-        "f32_ms": m1_case["ms"]["m1"],
-        "turns_ms": m1_case["turns_ms"],
+        "max_abs_err": max(m1_case["m1_f64_max_abs_err"],
+                           wide_double["locate"]["m1_abs_err"]),
+        "err_of_max": m1_case["m1_f64_err_of_max"],
+        "ms": m1_case["ms"]["m1"],
+        "f32_ms": m1_case["ms"]["m1_f32"],
+        "turns_ms": ring_m1["turns_ms"],
         "plain_ms": m1_case["plain_ms"],
+        # its own inputs: the plan's int32 traveltimes
         **m1_case["m1_f64_bound"],
+        "gather_floor_ms": ring_m1["smem_bound_ms"],
         "library_ms": None,
         "f32_bound_ms": m1_case["m1_bound"]["bound_ms"],
         "window": m1_case["window"],
         **m1_case["resources"],
+        "wide_span": wide_double["locate"],
     }, {
         "name": "migrate_map_f64",
         "route": "cuda",
         "source": "quakemigrate_torch/csrc/migrate_marginalise.cu",
         "replaces": "quakemigrate_tpu/ops/migrate.py:264",
-        # the main path: QuakeScan(precision="double",
-        # write_coalescence=True).locate, the map path
-        "launches": double_record["map_path"]["launches"]["migrate_map_f64"],
-        "max_abs_err": m2_case["max_abs_err"],
-        "max_rel_err": m2_case["max_rel_err"],
-        "ms": m2_case["ms"]["m2_simple_f64"],
-        "f32_ms": m2_case["ms"]["m2_simple"],
-        "turns_ms": m2_case["turns_ms"],
+        # redesigned as M2 ring f64; its path: the map in double on a plan
+        # too wide for K3 v2 f64's ring (span_path at 15,000 samples);
+        # timed at double_path's shapes in turns with the ring
+        "launches": wide_double["locate"]["launches"]["migrate_map_f64"],
+        "max_abs_err": wide_double["locate"]["map_abs_err"],
+        "max_rel_err": m2_case["m2_simple_f64_max_rel_err"],
+        "ms": m2_case["ms"]["m2_simple"],
+        "f32_ms": m2_case["ms"]["m2_simple_f32"],
+        "turns_ms": ring_m2["turns_ms"],
         "plain_ms": m2_case["plain_ms"],
         **m2_case["m2_simple_f64_bound"],
+        "gather_floor_ms": ring_m2["smem_bound_ms"],
         "library_ms": None,
         "f32_bound_ms": m2_case["m2_simple_bound"]["bound_ms"],
         "nsamples": m2_case["nsamples"],
         **m2_case["resources"],
+        "wide_span": wide_double["locate"],
     }]
     r1_main = next(c for c in r1_record["cases"]
                    if c["shape"] == list(R1_CASES[-1][0])
@@ -6749,10 +6858,11 @@ def main():
             "call_ms": t32["map_call_ms"], "plain_ms": t32["map_plain_ms"],
             **t32["map_bound"], "errors": ops_record["map_f32"],
             "ring": t32["map_ring"]},
-        "migrate_map_f64": {
-            "ms": t64["map_ms"], "call_ms": t64["map_call_ms"],
-            "plain_ms": t64["map_plain_ms"], **t64["map_bound"],
-            "errors": ops_record["map_f64"]},
+        "migrate_map_ring_f64": {
+            "ms": t64["map_ms"], "m2_simple_f64_ms": t64["map_simple_ms"],
+            "call_ms": t64["map_call_ms"], "plain_ms": t64["map_plain_ms"],
+            **t64["map_bound"], "errors": ops_record["map_f64"],
+            "ring": t64["map_ring"]},
     }
     for name, entry in ops_entries.items():
         kernel = kernels[next(i for i, k in enumerate(kernels)

@@ -174,9 +174,15 @@ SIGNATURES = {
     "qm_migrate_marginalise_ring": (
         [_VOID_P, _INT] + [_VOID_P] * 7 + [_INT] * 14 + [_VOID_P]
     ),
+    "qm_migrate_marginalise_ring_f64": (
+        [_VOID_P, _INT] + [_VOID_P] * 7 + [_INT] * 14 + [_VOID_P]
+    ),
     # L, ld, base, res, flat, win, inv_available, map, O, tiles, tile,
     # fsmp, S, group, stage_floats, n_stages, warps, npp, split, stream
     "qm_migrate_map_ring": (
+        [_VOID_P, _INT] + [_VOID_P] * 6 + [_INT] * 11 + [_VOID_P]
+    ),
+    "qm_migrate_map_ring_f64": (
         [_VOID_P, _INT] + [_VOID_P] * 6 + [_INT] * 11 + [_VOID_P]
     ),
     # occupancy queries: (O, r_span), (O, tile, win_floats) and
@@ -202,6 +208,7 @@ SIGNATURES = {
     "qm_migrate_marginalise_v2_blocks_per_sm": [_INT] * 4,
     # (warps, npp, slots, map, group, stage_floats, n_stages)
     "qm_migrate_ring_blocks_per_sm": [_INT] * 7,
+    "qm_migrate_ring_f64_blocks_per_sm": [_INT] * 7,
     # x, out, rows, n, nsta, nlta, stream
     "qm_recursive_stalta_f32": [_VOID_P, _VOID_P] + [_INT] * 4 + [_VOID_P],
     "qm_recursive_stalta_f64": [_VOID_P, _VOID_P] + [_INT] * 4 + [_VOID_P],

@@ -14,19 +14,28 @@ float32 form on the same case (the onsets cast to float32):
   samples): K3 v2 f64, K3 v2, K3 f64, K3;
 - detect on a plan too wide for K3 v2 f64's ring of doubles (a
   15,000-sample span on a 4 x 4 x 4 grid): K3 f64 and K3;
-- M1 f64 and M1 at 30 and 300 samples, and M2 simple f64 and M2 simple at
-  61 samples, on the Icequake plan.
+- locate's pass 2 in double on the Icequake plan at 30 and 300 samples:
+  M1 ring f64 (``csrc/migrate_marginalise_ring.cu`` on K3 v2 f64's
+  tables, the route's kernel) through ``exp_ring.m1_case``, in turns
+  with M1 f64, its other grid, M1 ring and M1; the map in double over 61
+  samples: M2 ring f64 through ``exp_ring.m2_case``, in turns with M2
+  simple f64, its other grid, M2 ring and M2 simple.
 
 Holds: detect's max and sum within 1e-12 relative of the plain version
 (which divides by ``available`` where the kernels multiply by its
 inverse, and sums the tiles in another order), its argmax equal or
 tie-consistent (the float64 coalescence at the kernel's node within
-1e-12 of the maximum); M1 within 1e-12 of the marginal maximum and the
-same peak node; M2 within 1e-12 relative. Bounds: the bytes the function
-moves (inputs read once, outputs written once) at 3.35 TB/s, and its
-operations at 34 TFLOP/s, the H100 SXM's float64 rate outside the tensor
-cores (NVIDIA's data sheet; its float32 forms at 67 TFLOP/s). Times are
-CUDA-event milliseconds per launch. Requires CUDA; exits non-zero
+1e-12 of the maximum); M1 ring f64 and M1 f64 within 1e-12 of the
+marginal maximum and the same peak node, M2 ring f64 and M2 simple f64
+within 1e-12 relative (exp_ring then holds the rings bit for bit to M1
+f64 at a window of one chunk, to M2 simple f64 and to K3 v2 f64's tmax).
+Bounds: the bytes the function moves (inputs read once, outputs written
+once) at 3.35 TB/s, and its operations at 34 TFLOP/s, the H100 SXM's
+float64 rate outside the tensor cores (NVIDIA's data sheet; its float32
+forms at 67 TFLOP/s): K3 f64, M1 f64 and M2 simple f64 on their int32
+traveltimes, K3 v2 f64 on its tables, the rings on theirs
+(``exp_ring.bound``, with the gather floor). Times are CUDA-event
+milliseconds per launch. Requires CUDA; exits non-zero
 without it.
 
     python3 -m quakemigrate_torch.experiments.exp_double
@@ -42,6 +51,7 @@ import torch
 
 from quakemigrate_torch import _build
 from quakemigrate_torch.experiments import exp_kernel_breakdown as ekb
+from quakemigrate_torch.experiments import exp_ring
 from quakemigrate_torch.experiments.exp_global_v2 import (
     F3_FSMP, F3_NODES, F3_NSAMPLES, ICEQUAKE_NSAMPLES, f3_traveltimes)
 from quakemigrate_torch.experiments.workload import workload
@@ -273,68 +283,146 @@ def detect_case(s, label, reps=REPS):
     return record
 
 
+def _m1(det, prepared, start, length):
+    """M1 (M1 f64 on float64 onsets) on the detector's plan: the yardstick
+    of the ring, and locate's pass 2 where the ring refuses the plan."""
+
+    return lambda: cm.migrate_marginalise_cuda(
+        prepared[0], det.base, det.fine, det.valid, det.perm, prepared[1],
+        det.fsmp, det.nsamples, start, length, det.n_nodes, det._max_shift)
+
+
+def _m2_simple(det, prepared):
+    return lambda: cm.migrate_map_cuda(
+        prepared[0], det.base, det.fine, det.valid, det.perm, prepared[1],
+        det.fsmp, det.nsamples, det.n_nodes, det._max_shift)
+
+
+def _in_turns(s, ring_case, old_name, old, f32, reps, **held):
+    """The turns of a locate case: where the ring takes the plan,
+    ``ring_case`` (exp_ring's m1_case or m2_case: the ring held to its
+    plain version and to the old float64 kernel, timed in turns with it
+    as ``old_name``, with its other grid and with the float32 forms
+    ``f32``); else the old float64 kernel ``old`` in turns with ``f32``.
+    Returns (the ring's record or None, {name: mean ms})."""
+
+    det = s.det[F64]
+    if det.ring_refusal is None:
+        rec = ring_case(exp_ring.setup(det, *s.prepared[F64], "double"),
+                        reps=reps, extra=f32, **held)
+        turns = rec["turns_ms"]
+    else:
+        rec, turns = None, ekb.in_turns({old_name: old, **f32}, reps)
+    return rec, {name: float(np.mean(ms)) for name, ms in turns.items()}
+
+
 def marginalise_case(s, start, length, reps=REPS):
-    """M1 f64 over ``[start, start + length)`` held to the plain
-    ``migrate_marginalise`` in float64 (within 1e-12 of its maximum, the
-    same peak node), timed in turns with M1. Returns a record."""
+    """Locate's pass 2 in double over ``[start, start + length)``: the
+    route's kernel (M1 ring f64 where K3 v2 f64's tables hold the plan,
+    else M1 f64) and M1 f64 held to the plain ``migrate_marginalise`` in
+    float64 (within 1e-12 of its maximum, the same peak node); then M1
+    ring f64 through ``exp_ring.m1_case`` (held to its plain version and
+    to M1 f64, bit for bit at a window of one chunk; its own bound and
+    gather floor), in turns with M1 f64 and, on the float32 detector, M1
+    ring and M1. Returns a record: ``ring`` exp_ring's, ``ms`` the means
+    in turns ("ring" M1 ring f64, "m1" M1 f64, "ring_other" the ring's
+    other grid, "m1_ring_f32", "m1_f32")."""
 
     det, det32 = s.det[F64], s.det[torch.float32]
-    log64, inv64 = s.prepared[F64]
-    log32, inv32 = s.prepared[torch.float32]
-    got = det.marginalise(log64, inv64, start, length)
+    p64, p32 = s.prepared[F64], s.prepared[torch.float32]
+    ring = det.ring_refusal is None
+    cm.reset_launches()
+    got = det.marginalise(*p64, start, length)
+    torch.cuda.synchronize()
+    launched = {k: n for k, n in cm.launches.items() if n}
+    m1_f64 = _m1(det, p64, start, length)()
     ref = migrate.migrate_marginalise(s.onsets, s.tt_dev, s.mask,
                                       s.available, s.fsmp, s.nsamples, start,
                                       length)
     torch.cuda.synchronize()
     err = float((got - ref).abs().max() / ref.max())
+    m1_err = float((m1_f64 - ref).abs().max() / ref.max())
     same_peak = int(torch.argmax(got)) == int(torch.argmax(ref))
-    turns = ekb.in_turns({
-        "m1_f64": lambda: det.marginalise(log64, inv64, start, length),
-        "m1": lambda: det32.marginalise(log32, inv32, start, length)}, reps)
-    record = {"window": [start, length], "err_of_max": err,
+    dtype = got.dtype
+    record = {"window": [start, length], "launches": launched,
+              "err_of_max": err,
               "max_abs_err": float((got - ref).abs().max()),
-              "same_peak": same_peak, "turns_ms": turns,
-              "ms": {name: float(np.mean(ms)) for name, ms in turns.items()},
-              "plain_ms": plain_ms(lambda: migrate.migrate_marginalise(
-                  s.onsets, s.tt_dev, s.mask, s.available, s.fsmp,
-                  s.nsamples, start, length)),
-              "m1_f64_bound": marginalise_bound(s, length, 8),
-              "m1_bound": marginalise_bound(s, length, 4),
-              "resources": resources("m1_f64"),
-              "ok": bool(got.dtype == F64 and err <= RTOL and same_peak)}
+              "m1_f64_err_of_max": m1_err,
+              "m1_f64_max_abs_err": float((m1_f64 - ref).abs().max()),
+              "same_peak": same_peak}
+    del got, m1_f64, ref
+    f32 = {"m1_f32": _m1(det32, p32, start, length)}
+    if det32.ring_refusal is None:
+        f32["m1_ring_f32"] = lambda: det32.marginalise(*p32, start, length)
+    record["ring"], record["ms"] = _in_turns(
+        s, lambda c, **kw: exp_ring.m1_case(c, (start, length), **kw),
+        "m1", _m1(det, p64, start, length), f32, reps)
+    record.update(
+        plain_ms=plain_ms(lambda: migrate.migrate_marginalise(
+            s.onsets, s.tt_dev, s.mask, s.available, s.fsmp, s.nsamples,
+            start, length)),
+        m1_f64_bound=marginalise_bound(s, length, 8),
+        m1_bound=marginalise_bound(s, length, 4),
+        resources=resources("m1_f64"),
+        ok=bool(dtype == F64 and err <= RTOL and m1_err <= RTOL
+                and same_peak
+                and launched == {cm.typed("migrate_marginalise_ring" if ring
+                                          else "migrate_marginalise",
+                                          F64): 1}))
     print(f"m1 f64 {start}+{length}: " + json.dumps(
-        {k: v for k, v in record.items() if k != "turns_ms"}))
+        {k: v for k, v in record.items() if k != "ring"}))
     return record
 
 
 def map_case(s, reps=REPS):
-    """M2 simple f64 over the case's samples held to the plain
-    ``migrate_map`` in float64 (within 1e-12 relative), timed in turns
-    with M2 simple. Returns a record."""
+    """The map path in double over the case's samples: the route's kernel
+    (M2 ring f64 where K3 v2 f64's tables hold the plan, else M2 simple
+    f64) and M2 simple f64 held to the plain ``migrate_map`` in float64
+    (within 1e-12 relative); then M2 ring f64 through ``exp_ring.m2_case``
+    (held to its plain version, to M2 simple f64 bit for bit and its
+    per-sample max to K3 v2 f64's tmax bit for bit; its own bound and
+    gather floor), in turns with M2 simple f64 and, on the float32
+    detector, M2 ring and M2 simple. Returns a record as
+    :func:`marginalise_case`'s ("ring", "m2_simple" M2 simple f64,
+    "ring_other", "m2_ring_f32", "m2_simple_f32")."""
 
     det, det32 = s.det[F64], s.det[torch.float32]
-    log64, inv64 = s.prepared[F64]
-    log32, inv32 = s.prepared[torch.float32]
-    got = det.map(log64, inv64)
+    p64, p32 = s.prepared[F64], s.prepared[torch.float32]
+    ring = det.ring_refusal is None
+    cm.reset_launches()
+    got = det.map(*p64)
+    torch.cuda.synchronize()
+    launched = {k: n for k, n in cm.launches.items() if n}
     ref = migrate.migrate_map(s.onsets, s.tt_dev, s.mask, s.available,
                               s.fsmp, s.nsamples)
-    err = rel(got, ref)
-    turns = ekb.in_turns({"m2_simple_f64": lambda: det.map(log64, inv64),
-                          "m2_simple": lambda: det32.map(log32, inv32)},
-                         reps)
-    record = {"nsamples": s.nsamples, "max_rel_err": err,
-              "max_abs_err": float((got - ref).abs().max()),
-              "turns_ms": turns,
-              "ms": {name: float(np.mean(ms)) for name, ms in turns.items()},
-              "plain_ms": plain_ms(lambda: migrate.migrate_map(
-                  s.onsets, s.tt_dev, s.mask, s.available, s.fsmp,
-                  s.nsamples)),
-              "m2_simple_f64_bound": map_bound(s, 8),
-              "m2_simple_bound": map_bound(s, 4),
-              "resources": resources("m2_simple_f64"),
-              "ok": bool(got.dtype == F64 and err <= RTOL)}
-    print(f"m2 simple f64 {s.nsamples}: " + json.dumps(
-        {k: v for k, v in record.items() if k != "turns_ms"}))
+    record = {"nsamples": s.nsamples, "launches": launched,
+              "dtype": str(got.dtype), "max_rel_err": rel(got, ref),
+              "max_abs_err": float((got - ref).abs().max())}
+    del got
+    simple = _m2_simple(det, p64)()
+    record["m2_simple_f64_max_rel_err"] = rel(simple, ref)
+    del simple, ref
+    torch.cuda.empty_cache()
+    f32 = {"m2_simple_f32": _m2_simple(det32, p32)}
+    if det32.ring_refusal is None:
+        f32["m2_ring_f32"] = lambda: det32.map(*p32)
+    tmax = (cm.combine_brick_tiles(*det.launch(*p64))[0] if ring
+            else None)
+    record["ring"], record["ms"] = _in_turns(
+        s, exp_ring.m2_case, "m2_simple", _m2_simple(det, p64), f32, reps,
+        tmax=tmax)
+    record.update(
+        plain_ms=plain_ms(lambda: migrate.migrate_map(
+            s.onsets, s.tt_dev, s.mask, s.available, s.fsmp, s.nsamples)),
+        m2_simple_f64_bound=map_bound(s, 8),
+        m2_simple_bound=map_bound(s, 4),
+        resources=resources("m2_simple_f64"),
+        ok=bool(record["dtype"] == str(F64) and record["max_rel_err"] <= RTOL
+                and record["m2_simple_f64_max_rel_err"] <= RTOL
+                and launched == {cm.typed("migrate_map_ring" if ring
+                                          else "migrate_map", F64): 1}))
+    print(f"m2 f64 {s.nsamples}: " + json.dumps(
+        {k: v for k, v in record.items() if k != "ring"}))
     return record
 
 

@@ -13,12 +13,27 @@ the routes whose plans K1 v2 does not stage:
   the tile-256 plan ``detect_route`` gives it, the ring's own tables):
   M1 ring at 30 samples, M2 ring over 61.
 
+With ``--double``, M1 ring f64 and M2 ring f64 (the same source on
+double, ``QuakeScan(precision="double")``'s locate on K3 v2 f64's tables,
+``CudaDetectGlobal(dtype=float64)``) beside M1 f64 and M2 simple f64:
+
+- F3 in double: M1 ring f64 at 100 samples and over two chunks (249
+  samples), M2 ring f64 over 1,000 samples;
+- the Icequake window in double (71 x 64 x 57 nodes, 24 onsets): M1
+  ring f64 at 30 samples (locate's window), M2 ring f64 over 61.
+
+On the Icequake window it also times the ring at each other depth K3 v2
+f64's layout holds (2 up to its 4 stages; ``cm.ring_stages`` patched for
+the call, :func:`at_depth`), in turns with the rest, each held bit for
+bit to the ring at its own depth.
+
 Each case holds the ring kernel to its plain version on the same tables
 (``marginalise_ring_reference``, ``map_ring_reference``: within 1e-5 of
-each value) and to the old kernel: M1 bit for bit at a window of one chunk
-(124 samples or fewer), within 1e-6 relative beyond; M2 simple bit for
-bit, and, on K3 v2's tables, the map's per-sample max K3 v2's tmax bit for
-bit. Then the two are timed in turns with the ring's other grid (its
+each value, 1e-12 in float64) and to the old kernel: M1 (M1 f64) bit for
+bit at a window of one chunk (124 samples or fewer, 128 in float64),
+within 1e-6 relative beyond (1e-12); M2 simple (M2 simple f64) bit for
+bit, and, on K3 v2's tables, the map's per-sample max K3 v2's (K3 v2
+f64's) tmax bit for bit. Then the two are timed in turns with the ring's other grid (its
 passes split over blocks or not, the other of ``ring_split``'s choice),
 held equal to it (ring,
 old, other, other, old, ring; CUDA events, ``reps`` launches a turn),
@@ -27,12 +42,13 @@ activity: CUDA events around a loop of launches also count the host's
 enqueue, which a kernel of tens of microseconds does not hide), with the
 bound (the bytes the function must
 move, inputs read once and outputs written once, at 3.35 TB/s, against
-O adds and 3 more operations a real node and sample at 67 TFLOP/s), the
-gather floor (real nodes x O x samples 4-byte reads at 33.5 TB/s), the
-ring, blocks per SM, ptxas's registers and spills, and F1's table build
-time and bytes. Requires CUDA; exits non-zero without it.
+O adds and 3 more operations a real node and sample at 67 TFLOP/s, at
+34 TFLOP/s in float64), the gather floor (real nodes x O x samples 4-byte
+reads, 8-byte in float64, at 33.5 TB/s), the ring, blocks per SM,
+ptxas's registers and spills, and F1's table build time and bytes.
+Requires CUDA; exits non-zero without it.
 
-    python3 -m quakemigrate_torch.experiments.exp_ring
+    python3 -m quakemigrate_torch.experiments.exp_ring [--double]
 
 """
 
@@ -52,19 +68,27 @@ from quakemigrate_torch.ops import cuda_migrate as cm
 REPS = 20
 # The ring kernels against their plain versions (the same sums; exp and
 # torch.exp may differ in the last place), and M1 ring against M1 beyond
-# one chunk (the chunks group the samples otherwise)
-RING_RTOL = 1e-5
-M1_RTOL = 1e-6
-# Mangled name of the ring kernels (their ptxas report)
+# one chunk (the chunks group the samples otherwise), per element type
+RING_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+M1_RTOL = {torch.float32: 1e-6, torch.float64: 1e-12}
+# Mangled name of the ring kernels (their ptxas report), and the
+# template argument of each element type in it
 KERNEL = "qm_ring_kernel"
+TYPE_CODE = {torch.float32: "f", torch.float64: "d"}
 HBM_BYTES_PER_S = exp_global_v2.HBM_BYTES_PER_S
 SMEM_BYTES_PER_S = exp_global_v2.SMEM_BYTES_PER_S
 FP32_FLOP_PER_S = exp_global_v2.FP32_FLOP_PER_S
+# The H100 SXM's float64 rate outside the tensor cores (data sheet)
+FP64_FLOP_PER_S = 34e12
+F64 = torch.float64
 
 F3_WINDOW = (450, 100)
-# Three chunks of M1 ring from a start of residue 1 mod 4
-F3_CHUNKS_WINDOW = (37, 2 * cm.RING_CHUNK + 1)
+# 249 samples from a start of residue 1 mod 4: three chunks of M1 ring's
+# 124 (the last of one sample), two of M1 ring f64's 128
+F3_CHUNKS_WINDOW = (37, 249)
 F1_FSMP, F1_NSAMPLES, F1_MAP_NSAMPLES, F1_WINDOW = 413, 625, 61, (100, 30)
+# The Icequake window in double: locate's pass 2 window and map
+ICE_FSMP, ICE_WINDOW, ICE_MAP_NSAMPLES = 413, (15, 30), 61
 
 
 def setup(detector, onsets_log, inv, label):
@@ -101,6 +125,51 @@ def m2_ring(s, split=None):
     return lambda: cm.migrate_map_ring_cuda(
         s.onsets_log, d.base, s.inv, d.fsmp, d.nsamples, d.n_nodes,
         s.tables, d._max_shift, split)
+
+
+def real_nodes(s, device):
+    """The flat indices of the plan's real nodes, the rows the ring
+    kernels write."""
+
+    plan = s.det.plan
+    return torch.from_numpy(np.unique(
+        plan.perm[plan.valid.ravel() > 0]).astype(np.int64)).to(device)
+
+
+def at_depth(fn, n_stages):
+    """``fn`` with the ring kernels ``n_stages`` deep: ``cm.ring_stages``
+    patched for the call, so the wrappers' checks, split and launch
+    follow that depth. For the depth sweep only."""
+
+    def call():
+        keep = cm.ring_stages
+        cm.ring_stages = lambda layout: n_stages
+        try:
+            return fn()
+        finally:
+            cm.ring_stages = keep
+    return call
+
+
+def depth_sweep(s, make, length, map_=False):
+    """The ring ``make()`` at each depth the case's layout holds but the
+    one the wrappers run (:func:`cm.ring_stages`), each held bit for bit
+    to it on the real nodes: ({"ring_d<n>": fn}, {n: blocks per SM})."""
+
+    layout = s.tables.layout
+    want = make()()
+    nodes = real_nodes(s, want.device)
+    fns, blocks = {}, {}
+    for n in cm.GLOBAL_V2_STAGES:
+        if n > layout.n_stages or n == cm.ring_stages(layout):
+            continue
+        fn = at_depth(make(), n)
+        check(bool(torch.equal(fn()[nodes], want[nodes])),
+              f"{s.label}: the ring differs at {n} stages")
+        fns[f"ring_d{n}"] = fn
+        blocks[n] = at_depth(lambda: cm.ring_blocks_per_sm(
+            layout, length, map_), n)()
+    return fns, blocks
 
 
 def m2_simple(s):
@@ -140,13 +209,16 @@ def bound(s, length, map_=False):
     """The bound of the ring kernels' function at ``length`` samples: the
     bytes each input read once (the uint16 residual entries of the real
     nodes, ``base``, their flat indices, the windows' table, of each
-    onset row the f32 columns from its least traveltime to its largest
-    plus the samples, inv_available) and the output written once (f32
-    [n_nodes], or [n_nodes, length] for the map) at the memory rate,
-    against O adds and 3 more operations (scale, exp, sum or store) a
-    real node and sample at the float32 rate; and the gather floor, the
-    real nodes x O x samples 4-byte reads at the shared-memory rate."""
+    onset row the columns from its least traveltime to its largest plus
+    the samples, inv_available) and the output written once ([n_nodes],
+    or [n_nodes, length] for the map) at the memory rate, against O adds
+    and 3 more operations (scale, exp, sum or store) a real node and
+    sample at the float32 rate (float64's in float64); and the gather
+    floor, the real nodes x O x samples reads of the element at the
+    shared-memory rate."""
 
+    item = s.det.dtype.itemsize
+    rate = FP64_FLOP_PER_S if item == 8 else FP32_FLOP_PER_S
     plan = s.det.plan
     live = plan.valid > 0
     n_real = int(live.sum())
@@ -157,24 +229,28 @@ def bound(s, length, map_=False):
         axis=(0, 2))
     hi = tt.max(axis=(0, 2))
     columns = int((hi - lo + length).sum())
-    out = 4 * plan.n_nodes * (length if map_ else 1)
+    out = item * plan.n_nodes * (length if map_ else 1)
     nbytes = (2 * n_real * n_onsets + 4 * plan.n_tiles * n_onsets
-              + 4 * n_real + 8 * n_onsets + 4 * columns + 4 + out)
+              + 4 * n_real + 8 * n_onsets + item * columns + item + out)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = n_real * length * (n_onsets + 3) / FP32_FLOP_PER_S * 1e3
+    ops_ms = n_real * length * (n_onsets + 3) / rate * 1e3
     return {"bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "smem_bound_ms": (4 * n_real * n_onsets * length
+            "smem_bound_ms": (item * n_real * n_onsets * length
                               / SMEM_BYTES_PER_S * 1e3),
             "output_ms": out / HBM_BYTES_PER_S * 1e3}
 
 
-def resources(shape, slots, map_):
+def resources(shape, slots, map_, dtype=torch.float32):
     """ptxas's registers and spills of the ring kernel at ``shape``, k
-    slots and form."""
+    slots, form and element type (the blocks per SM it is built for:
+    :func:`cm.ring_shapes`, one at 4 k slots in float64)."""
 
-    (w, npp), minb = shape, cm.RING_SHAPES[shape]
-    tag = f"ILi{w}ELi{npp}ELi{minb}ELi{slots}ELb{int(map_)}E"
+    (w, npp), minb = shape, cm.ring_shapes(dtype)[shape]
+    if dtype == F64 and slots == 4:
+        minb = 1
+    tag = (f"ILi{w}ELi{npp}ELi{minb}ELi{slots}ELb{int(map_)}E"
+           f"{TYPE_CODE[dtype]}E")
     found = [v for name, v in _build.kernel_resources(KERNEL).items()
              if tag in name]
     check(len(found) == 1, f"no ptxas report for {tag}")
@@ -185,50 +261,58 @@ def resources(shape, slots, map_):
 def ring_record(s, length, map_):
     layout = s.tables.layout
     return {"shape": list(layout.shape), "group": layout.group,
-            "n_stages": layout.n_stages, "stage_floats": layout.stage_floats,
+            "n_stages": cm.ring_stages(layout),
+            "layout_n_stages": layout.n_stages,
+            "stage_floats": layout.stage_floats,
             "smem": cm.ring_smem(layout),
             "blocks_per_sm": cm.ring_blocks_per_sm(layout, length, map_),
             "passes": int(s.tables.res.shape[1]),
-            **resources(layout.shape, cm.ring_slots(length), map_)}
+            "dtype": str(layout.dtype).replace("torch.", ""),
+            **resources(layout.shape, cm.ring_slots(length), map_,
+                        layout.dtype)}
 
 
-def m1_case(s, window, reps=REPS):
-    """M1 ring at ``window`` (start, length) on the case: held to its
-    plain version and to M1, timed in turns with M1. Returns a record."""
+def m1_case(s, window, reps=REPS, extra=None):
+    """M1 ring (M1 ring f64 on float64 tables) at ``window`` (start,
+    length) on the case: held to its plain version and to M1 (M1 f64),
+    timed in turns with M1, the other grid and ``extra`` ({name: fn},
+    not held here). Returns a record."""
 
     start, length = window
     d = s.det
+    dtype = s.tables.layout.dtype
+    chunk = cm.ring_chunk(dtype)
     split = cm.ring_split(s.tables.layout, d.plan.n_onsets)
     ring, old = m1_ring(s, start, length), m1(s, start, length)
     other = m1_ring(s, start, length, not split)
+    extra = extra or {}
     cm.reset_launches()
     got = ring()
     torch.cuda.synchronize()
-    check(cm.launches["migrate_marginalise_ring"] == 1,
+    key = cm.typed("migrate_marginalise_ring", dtype)
+    check(cm.launches[key] == 1,
           f"{s.label}: M1 ring did not launch ({cm.launches})")
     ref = cm.marginalise_ring_reference(
         s.onsets_log, d.base, s.inv, d.fsmp, start, length, d.n_nodes,
         s.tables)
     v1, v2 = old(), other()
     torch.cuda.synchronize()
-    nodes = torch.from_numpy(np.flatnonzero(np.isin(
-        np.arange(d.n_nodes), d.plan.perm[d.plan.valid.ravel() > 0]))).to(
-            got.device)
+    nodes = real_nodes(s, got.device)
     got, ref, v1, v2 = got[nodes], ref[nodes], v1[nodes], v2[nodes]
     rel = float(((got - ref).abs() / ref.abs()).max())
     equal = bool(torch.equal(got, v1))
     check(bool(torch.equal(got, v2)), f"{s.label}: M1 ring differs with "
           "and without its passes on the grid")
     rel_v1 = float(((got - v1).abs() / v1.abs()).max())
-    one_chunk = length <= cm.RING_CHUNK
-    check(bool(torch.isfinite(got).all()) and rel <= RING_RTOL,
+    one_chunk = length <= chunk
+    check(bool(torch.isfinite(got).all()) and got.dtype == dtype
+          and rel <= RING_RTOL[dtype],
           f"{s.label}: M1 ring {rel} from its plain version")
-    check(equal if one_chunk else rel_v1 <= M1_RTOL,
+    check(equal if one_chunk else rel_v1 <= M1_RTOL[dtype],
           f"{s.label}: M1 ring against M1: equal {equal}, {rel_v1}")
-    turns = ekb.in_turns({"ring": ring, "m1": old, "ring_other": other},
-                         reps)
-    kernel_ms = {name: device_ms(fn, reps) for name, fn in (
-        ("ring", ring), ("m1", old), ("ring_other", other))}
+    fns = {"ring": ring, "m1": old, "ring_other": other, **extra}
+    turns = ekb.in_turns(fns, reps)
+    kernel_ms = {name: device_ms(fn, reps) for name, fn in fns.items()}
     plain_ms = ekb.cuda_ms(lambda: cm.marginalise_ring_reference(
         s.onsets_log, d.base, s.inv, d.fsmp, start, length, d.n_nodes,
         s.tables), reps=1, warmup=0)
@@ -237,6 +321,8 @@ def m1_case(s, window, reps=REPS):
            "ms": float(np.mean(turns["ring"])),
            "m1_ms": float(np.mean(turns["m1"])),
            "other_split_ms": float(np.mean(turns["ring_other"])),
+           "extra_ms": {name: float(np.mean(turns[name]))
+                        for name in extra},
            "split": split, "turns_ms": turns,
            "kernel_ms": kernel_ms,
            "plain_ms": plain_ms, "max_rel_err": rel,
@@ -247,7 +333,7 @@ def m1_case(s, window, reps=REPS):
           f"in turns {turns['ring'][0]:.4f} / {turns['ring'][1]:.4f} ms, "
           f"M1 {turns['m1'][0]:.4f} / {turns['m1'][1]:.4f} ms, the ring "
           f"with split={not split} {turns['ring_other'][0]:.4f} / "
-          f"{turns['ring_other'][1]:.4f} ms (plain "
+          f"{turns['ring_other'][1]:.4f} ms, {rec['extra_ms']} (plain "
           f"{plain_ms:.4f}); the kernels alone (profiler) {kernel_ms}; "
           f"bound {rec['bound_ms']:.4f} by "
           f"{rec['bound_by']}, gather floor {rec['smem_bound_ms']:.4f}; "
@@ -256,26 +342,28 @@ def m1_case(s, window, reps=REPS):
     return rec
 
 
-def m2_case(s, reps=REPS, tmax=None):
-    """M2 ring over the case's scan: held to its plain version, to M2's
-    simple form bit for bit and, given K3 v2's combined ``tmax``, its
-    per-sample max to it bit for bit; timed in turns with M2 simple.
-    Returns a record."""
+def m2_case(s, reps=REPS, tmax=None, extra=None):
+    """M2 ring (M2 ring f64 on float64 tables) over the case's scan: held
+    to its plain version, to M2's simple form (M2 simple f64) bit for bit
+    and, given K3 v2's (K3 v2 f64's) combined ``tmax``, its per-sample max
+    to it bit for bit; timed in turns with M2 simple, the other grid and
+    ``extra`` ({name: fn}, not held here). Returns a record."""
 
     d = s.det
+    dtype = s.tables.layout.dtype
     split = cm.ring_split(s.tables.layout, d.plan.n_onsets)
     ring, old = m2_ring(s), m2_simple(s)
     other = m2_ring(s, not split)
+    extra = extra or {}
     cm.reset_launches()
     got = ring()
     torch.cuda.synchronize()
-    check(cm.launches["migrate_map_ring"] == 1,
+    key = cm.typed("migrate_map_ring", dtype)
+    check(cm.launches[key] == 1,
           f"{s.label}: M2 ring did not launch ({cm.launches})")
     ref = cm.map_ring_reference(s.onsets_log, d.base, s.inv, d.fsmp,
                                 d.nsamples, d.n_nodes, s.tables)
-    nodes = torch.from_numpy(np.unique(
-        d.plan.perm[d.plan.valid.ravel() > 0]).astype(np.int64)).to(
-            got.device)
+    nodes = real_nodes(s, got.device)
     rel = float(((got[nodes] - ref[nodes]).abs() / ref[nodes].abs()).max())
     abs_err = float((got[nodes] - ref[nodes]).abs().max())
     del ref
@@ -288,16 +376,15 @@ def m2_case(s, reps=REPS, tmax=None):
           "grid")
     max_equal = (None if tmax is None
                  else bool(torch.equal(got.max(dim=0).values, tmax)))
-    check(bool(torch.isfinite(got[nodes]).all()) and rel <= RING_RTOL
-          and equal and max_equal is not False,
+    check(bool(torch.isfinite(got[nodes]).all()) and got.dtype == dtype
+          and rel <= RING_RTOL[dtype] and equal and max_equal is not False,
           f"{s.label}: M2 ring {rel} from its plain version, equal to M2 "
           f"simple {equal}, max equal to K3 v2's tmax {max_equal}")
     del got
     torch.cuda.empty_cache()
-    turns = ekb.in_turns({"ring": ring, "m2_simple": old,
-                          "ring_other": other}, reps)
-    kernel_ms = {name: device_ms(fn, reps) for name, fn in (
-        ("ring", ring), ("m2_simple", old), ("ring_other", other))}
+    fns = {"ring": ring, "m2_simple": old, "ring_other": other, **extra}
+    turns = ekb.in_turns(fns, reps)
+    kernel_ms = {name: device_ms(fn, reps) for name, fn in fns.items()}
     plain_ms = ekb.cuda_ms(lambda: cm.map_ring_reference(
         s.onsets_log, d.base, s.inv, d.fsmp, d.nsamples, d.n_nodes,
         s.tables), reps=1, warmup=0)
@@ -306,6 +393,8 @@ def m2_case(s, reps=REPS, tmax=None):
            "ms": float(np.mean(turns["ring"])),
            "m2_simple_ms": float(np.mean(turns["m2_simple"])),
            "other_split_ms": float(np.mean(turns["ring_other"])),
+           "extra_ms": {name: float(np.mean(turns[name]))
+                        for name in extra},
            "split": split, "kernel_ms": kernel_ms,
            "turns_ms": turns, "plain_ms": plain_ms, "max_rel_err": rel,
            "max_abs_err": abs_err, "equal_to_m2_simple": equal,
@@ -316,8 +405,8 @@ def m2_case(s, reps=REPS, tmax=None):
           f"{turns['ring'][0]:.4f} / {turns['ring'][1]:.4f} ms, M2 simple "
           f"{turns['m2_simple'][0]:.4f} / {turns['m2_simple'][1]:.4f} ms, "
           f"the ring with split={not split} "
-          f"{turns['ring_other'][0]:.4f} / {turns['ring_other'][1]:.4f} ms "
-          f"(plain {plain_ms:.4f}); the kernels alone (profiler) "
+          f"{turns['ring_other'][0]:.4f} / {turns['ring_other'][1]:.4f} ms, "
+          f"{rec['extra_ms']} (plain {plain_ms:.4f}); the kernels alone (profiler) "
           f"{kernel_ms}; bound {rec['bound_ms']:.4f} by "
           f"{rec['bound_by']} (output {rec['output_ms']:.4f}), gather floor "
           f"{rec['smem_bound_ms']:.4f}; {rel:.2e} from its plain version, "
@@ -333,9 +422,9 @@ def k3_tmax(s):
     return cm.combine_brick_tiles(*s.det.launch(s.onsets_log, s.inv))[0]
 
 
-def f3_case(device):
-    """F3 on K3's route: CudaDetectGlobal on the plan (K3 v2's tables) and
-    seeded gamma onsets."""
+def f3_case(device, dtype=torch.float32):
+    """F3 on K3's route: CudaDetectGlobal on the plan (K3 v2's tables, K3
+    v2 f64's in float64) and seeded gamma onsets in ``dtype``."""
 
     rng = np.random.default_rng(2032)
     tt = exp_global_v2.f3_traveltimes(rng)
@@ -343,8 +432,25 @@ def f3_case(device):
                             exp_global_v2.F3_FSMP, exp_global_v2.F3_NSAMPLES,
                             device, rng)
     det = cm.CudaDetectGlobal(tt, g.node_count, g.fsmp, g.nsamples, device,
-                              plan=g.plan)
-    return setup(det, g.onsets_log, g.inv, "f3")
+                              plan=g.plan, dtype=dtype)
+    label = "f3" if dtype == torch.float32 else "f3 f64"
+    return setup(det, g.onsets_log.to(dtype), g.inv.to(dtype), label)
+
+
+def icequake_f64_case(device, nsamples, plan=None):
+    """The Icequake window in double (``workload``: 71 x 64 x 57 nodes, 24
+    onsets) on the "k3" route of ``precision="double"``:
+    CudaDetectGlobal(dtype=float64) on the plan (``plan``, or built), its
+    K3 v2 f64 tables, the onsets in float64."""
+
+    dims, tt, onsets = workload(nsamples, fsmp=ICE_FSMP)
+    det = cm.CudaDetectGlobal(tt, dims, ICE_FSMP, nsamples, device,
+                              plan=plan or cm.DetectPlan(tt, dims),
+                              dtype=F64)
+    onsets_log = torch.from_numpy(
+        np.log(np.clip(onsets.astype(np.float64), 0.01, None))).to(device)
+    inv = torch.full((1,), 1.0 / onsets.shape[0], dtype=F64, device=device)
+    return setup(det, onsets_log, inv, "icequake f64")
 
 
 def f1_case(device, nsamples, plan=None):
@@ -362,12 +468,41 @@ def f1_case(device, nsamples, plan=None):
     return setup(det, onsets_log, inv, "f1")
 
 
+def run_double(device):
+    """The float64 cases: F3 and the Icequake window in double."""
+
+    f3 = f3_case(device, F64)
+    records = {"f3_m1_f64": m1_case(f3, F3_WINDOW),
+               "f3_m1_f64_chunks": m1_case(f3, F3_CHUNKS_WINDOW, reps=5),
+               "f3_m2_f64": m2_case(f3, reps=10, tmax=k3_tmax(f3))}
+    del f3
+    torch.cuda.empty_cache()
+    ice = icequake_f64_case(device, ICE_MAP_NSAMPLES)
+    depths, blocks = depth_sweep(ice, lambda: m1_ring(ice, *ICE_WINDOW),
+                                 ICE_WINDOW[1])
+    records["icequake_m1_f64"] = m1_case(ice, ICE_WINDOW, extra=depths)
+    records["icequake_m1_f64"]["blocks_per_sm_by_depth"] = blocks
+    depths, blocks = depth_sweep(ice, lambda: m2_ring(ice),
+                                 ICE_MAP_NSAMPLES, map_=True)
+    records["icequake_m2_f64"] = m2_case(ice, reps=10, tmax=k3_tmax(ice),
+                                         extra=depths)
+    records["icequake_m2_f64"]["blocks_per_sm_by_depth"] = blocks
+    print(f"exp_ring icequake f64: blocks per SM at the other depths, M1 "
+          f"ring f64 {records['icequake_m1_f64']['blocks_per_sm_by_depth']}"
+          f", M2 ring f64 "
+          f"{records['icequake_m2_f64']['blocks_per_sm_by_depth']}")
+    return records
+
+
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         raise SystemExit("exp_ring: CUDA is not available")
     _build.load_library()
     device = torch.device("cuda")
     print(torch.cuda.get_device_name(0))
+    if "--double" in argv:
+        return run_double(device)
     f3 = f3_case(device)
     records = {"f3_m1": m1_case(f3, F3_WINDOW),
                "f3_m1_chunks": m1_case(f3, F3_CHUNKS_WINDOW, reps=5),

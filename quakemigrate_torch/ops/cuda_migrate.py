@@ -23,9 +23,10 @@ ring of onset windows and tables, locate's pass 2 and map on the routes
 whose plans K1 v2 does not stage (``CudaDetectGlobal``,
 ``CudaDetectVPU``), with plain versions that read the same tables
 (:func:`marginalise_ring_reference`, :func:`map_ring_reference`). K3, K3
-v2, M1 and M2's simple form also have float64 forms (the same sources on
-double), for ``QuakeScan(precision="double")``: their wrappers take
-float32 or float64 onsets and launch the form of the onsets' type.
+v2, M1, M2's simple form, M1 ring and M2 ring also have float64 forms
+(the same sources on double), for ``QuakeScan(precision="double")``:
+their wrappers take float32 or float64 onsets and launch the form of the
+onsets' type (M1 ring f64 and M2 ring f64 on K3 v2 f64's tables).
 
 Counterpart of quakemigrate_tpu.ops.pallas_migrate: ``CudaDetect`` of
 ``PallasDetectMXU`` (kernel ``_mxu_detect_kernel``), ``CudaDetectVPU`` of
@@ -140,6 +141,12 @@ GLOBAL_V2_SHAPES_F64 = {(16, 8): 1}
 RING_CHUNK = 124
 RING_SBLK = 128
 RING_SHAPES = {(16, 8): 2, (16, 16): 1}
+# M1 ring f64 and M2 ring f64 (MR_CHUNK_F64, MR_SHAPES_F64): the window
+# samples a block of M1 ring f64 takes (128: K3 v2 f64's windows of r + 129
+# doubles hold every read of a window that starts anywhere), and K3 v2
+# f64's one shape with its blocks per SM at 1 or 2 k slots (one at 4)
+RING_CHUNK_F64 = 128
+RING_SHAPES_F64 = {(16, 8): 2}
 
 # Shared memory of one SM on Hopper (228 KB), of which each resident
 # block reserves 1 KB
@@ -148,8 +155,8 @@ SMEM_BLOCK_RESERVE = 1024
 
 # Launches of K1, K1 v2, K2, K2 v2, K3, K3 v2, M1, M1 v2 and M2 (main and
 # simple form), of the float64 forms of K3, K3 v2, M1 and M2's simple
-# form, and of M1 ring and M2 ring, counted by their wrappers where they
-# launch
+# form, and of M1 ring and M2 ring and their float64 forms, counted by
+# their wrappers where they launch
 launches = {"migrate_detect": 0, "migrate_detect_v2": 0,
             "migrate_detect_vpu": 0, "migrate_detect_vpu_v2": 0,
             "migrate_detect_global": 0, "migrate_detect_global_v2": 0,
@@ -158,7 +165,8 @@ launches = {"migrate_detect": 0, "migrate_detect_v2": 0,
             "migrate_detect_global_f64": 0,
             "migrate_detect_global_v2_f64": 0,
             "migrate_marginalise_f64": 0, "migrate_map_f64": 0,
-            "migrate_marginalise_ring": 0, "migrate_map_ring": 0}
+            "migrate_marginalise_ring": 0, "migrate_map_ring": 0,
+            "migrate_marginalise_ring_f64": 0, "migrate_map_ring_f64": 0}
 
 # The element types of the onsets the float64-capable wrappers take
 FLOAT_DTYPES = (torch.float32, torch.float64)
@@ -1786,16 +1794,19 @@ def ring_shape(plan):
 def ring_refusal(plan, dtype=torch.float32):
     """
     Why M1 ring and M2 ring cannot take a :class:`DetectPlan` for onsets
-    of ``dtype``, in words, or None where they can: they are float32
-    kernels, the plan's tile must be a multiple of a shape's nodes a pass
+    of ``dtype``, in words, or None where they can. In float32 the plan's
+    tile must be a multiple of a shape's nodes a pass
     (:data:`RING_SHAPES`), and a ring of two stages of its widest window
     must fit the shape's budget, as for K3 v2 (:func:`global_v2_refusal`;
-    about 25,000 samples of residual span). Reads nothing from the card.
+    about 25,000 samples of residual span). In float64 M1 ring f64 and M2
+    ring f64 run on K3 v2 f64's tables, so they take what K3 v2 f64 takes
+    (:func:`global_v2_refusal` on float64: tile 256, about 11,800 samples
+    of residual span). Reads nothing from the card.
 
     """
 
-    if dtype != torch.float32:
-        return f"M1 ring and M2 ring have no {dtype} form"
+    if global_v2_itemsize(dtype) == 8:
+        return global_v2_refusal(plan, dtype)
     per_pass = min(w * n for w, n in RING_SHAPES)
     if plan.tile % per_pass:
         return (f"tile {plan.tile} is not a multiple of the ring's "
@@ -1830,36 +1841,74 @@ def build_ring_tables(plan, fsmp, device):
     return tables
 
 
+def ring_shapes(dtype=torch.float32):
+    """The shapes M1 ring and M2 ring are built for on ``dtype`` and their
+    blocks per SM: :data:`RING_SHAPES` in float32,
+    :data:`RING_SHAPES_F64` in float64."""
+
+    return RING_SHAPES_F64 if global_v2_itemsize(dtype) == 8 else RING_SHAPES
+
+
+def ring_chunk(dtype=torch.float32):
+    """The window samples a block of M1 ring takes on ``dtype``:
+    :data:`RING_CHUNK` (124) in float32, :data:`RING_CHUNK_F64` (128) in
+    float64."""
+
+    return RING_CHUNK_F64 if global_v2_itemsize(dtype) == 8 else RING_CHUNK
+
+
+def ring_stages(layout):
+    """The ring depth M1 ring and M2 ring run on a K3 v2 ``layout``. In
+    float64 (K3 v2 f64's tables, tiles of :data:`GLOBAL_V2_TILE` nodes)
+    no more stages than a block fills when it takes its passes in turn,
+    passes x ceil(O / G), and at least 2: the tables' entries depend on
+    G, not on the depth, and a stage no load fills only takes shared
+    memory (at the Icequake plan, one stage a pass, 2 of K3 v2 f64's 4,
+    so two blocks share an SM). In float32 the layout's own depth, the
+    one its times were taken at."""
+
+    if global_v2_itemsize(layout.dtype) == 8:
+        warps, npp = layout.shape
+        passes = GLOBAL_V2_TILE // (warps * npp)
+        filled = passes * -(-len(layout.win) // layout.group)
+        return min(layout.n_stages, max(GLOBAL_V2_STAGES[0], filled))
+    return layout.n_stages
+
+
 def ring_smem(layout):
     """Shared-memory bytes of one M1 ring or M2 ring block
     (csrc/migrate_marginalise_ring.cu: mr_smem_bytes): K3 v2's ring
-    (:func:`global_v2_smem`) without its fold scratch."""
+    (:func:`global_v2_smem`) at :func:`ring_stages` without its fold
+    scratch, in elements of the layout's ``dtype``."""
 
     warps, npp = layout.shape
-    stage = round_up(4 * layout.stage_floats + 2 * layout.group * warps * npp,
-                     128)
-    return layout.n_stages * stage + 16 * layout.n_stages
+    item = global_v2_itemsize(layout.dtype)
+    stage = round_up(item * layout.stage_floats
+                     + 2 * layout.group * warps * npp, 128)
+    n_stages = ring_stages(layout)
+    return n_stages * stage + 16 * n_stages
 
 
 def ring_split(layout, n_onsets):
     """Whether M1 ring and M2 ring put a tile's passes on the grid, one a
     block, for a ring ``layout`` and ``n_onsets``: where one pass alone
     fills the ring (its stages a pass, ceil(O / G), at least the ring's
-    depth), so a block still overlaps its copies with its gather; else
-    each block takes its passes in turn and loads the next pass's windows
-    while it gathers this one's, as K3 v2 does. (On the H100, PERF.md
-    section 6: the flat Icequake table's 1,012 tiles of one stage a pass
-    took 0.094 ms unsplit against 0.109-0.114 split; F1's 1,080 tiles of
-    six stages a pass 0.68 ms split against 0.70.)"""
+    depth, :func:`ring_stages`), so a block still overlaps its copies
+    with its gather; else each block takes its passes in turn and loads
+    the next pass's windows while it gathers this one's, as K3 v2 does. (On the H100, PERF.md section 6: the flat Icequake table's
+    1,012 tiles of one stage a pass took 0.094 ms unsplit against
+    0.109-0.114 split; F1's 1,080 tiles of six stages a pass 0.68 ms split
+    against 0.70.)"""
 
-    return -(-n_onsets // layout.group) >= layout.n_stages
+    return -(-n_onsets // layout.group) >= ring_stages(layout)
 
 
 def ring_slots(window_length):
     """The k slots a lane of M1 ring holds at this window length, or of
     M2 ring at this scan length (1, 2 or 4): the fewest that cover a
     block's samples, min(window_length, RING_CHUNK), at 32 lanes (M2
-    ring's blocks of 128 take 4 beyond 64 samples too)."""
+    ring's blocks of 128 take 4 beyond 64 samples too; the same in
+    float64, whose chunk of 128 needs 4 beyond 64 too)."""
 
     width = min(window_length, RING_CHUNK)
     return 1 if width <= 32 else 2 if width <= 64 else 4
@@ -1868,29 +1917,34 @@ def ring_slots(window_length):
 def _check_ring(onsets_log, base, inv_available, fsmp, nsamples, tables,
                 max_shift):
     """The checks of M1 ring's and M2 ring's wrappers: ``tables`` built
-    for this ``fsmp`` on a float32 layout of a shape the kernels are built
-    for, shapes and types that agree, tensors on one device, an onset
-    block long enough for the plan (the device's type is checked last,
-    :func:`_check_cuda`). Returns (n_onsets, n_tiles, tile)."""
+    for this ``fsmp`` on a layout of a shape the kernels are built for on
+    its ``dtype`` (:func:`ring_shapes`: float32 M1 ring and M2 ring,
+    float64 their f64 forms, on K3 v2 f64's tiles), onsets and
+    ``inv_available`` of that type, shapes that agree, tensors on one
+    device, an onset block long enough for the plan (the device's type is
+    checked last, :func:`_check_cuda`). Returns (n_onsets, n_tiles,
+    tile)."""
 
     t = tables
     layout = t.layout
     if t.fsmp != fsmp:
         raise ValueError(f"the tables were built for fsmp {t.fsmp}, not "
                          f"{fsmp}")
-    if layout.dtype != torch.float32 or layout.shape not in RING_SHAPES:
+    dtype = layout.dtype
+    if dtype not in FLOAT_DTYPES or layout.shape not in ring_shapes(dtype):
         raise ValueError(f"M1 ring and M2 ring take float32 layouts of the "
-                         f"shapes {tuple(RING_SHAPES)}, not {layout.shape} "
-                         f"({layout.dtype})")
+                         f"shapes {tuple(RING_SHAPES)} and float64 layouts "
+                         f"of {tuple(RING_SHAPES_F64)}, not {layout.shape} "
+                         f"({dtype})")
     if layout.n_stages not in GLOBAL_V2_STAGES:
         raise ValueError(f"n_stages ({layout.n_stages}) must be one of "
                          f"{GLOBAL_V2_STAGES}")
-    check_smem(ring_smem(layout), f"the ring's {layout.n_stages} stages of "
-               f"{layout.group} windows")
+    check_smem(ring_smem(layout), f"the ring's {ring_stages(layout)} "
+               f"stages of {layout.group} windows")
     device = onsets_log.device
-    for name, x, want in (("onsets_log", onsets_log, torch.float32),
+    for name, x, want in (("onsets_log", onsets_log, dtype),
                           ("base", base, torch.int32),
-                          ("inv_available", inv_available, torch.float32),
+                          ("inv_available", inv_available, dtype),
                           ("res", t.res, torch.uint16),
                           ("flat", t.flat, torch.int32),
                           ("win", t.win, torch.int32)):
@@ -1912,6 +1966,9 @@ def _check_ring(onsets_log, base, inv_available, fsmp, nsamples, tables,
             f"{tuple(base.shape)}, res {tuple(t.res.shape)}, flat "
             f"{tuple(t.flat.shape)}, win {tuple(t.win.shape)}, shape "
             f"{layout.shape}")
+    if global_v2_itemsize(dtype) == 8 and tile != GLOBAL_V2_TILE:
+        raise ValueError(f"M1 ring f64 and M2 ring f64 take K3 v2 f64's "
+                         f"tiles of {GLOBAL_V2_TILE} nodes, not {tile}")
     if nsamples < 1 or fsmp < 0:
         raise ValueError(f"bad geometry: fsmp {fsmp}, nsamples {nsamples}")
     _check_onset_length(onsets_log, fsmp, nsamples, max_shift)
@@ -1935,20 +1992,24 @@ def migrate_marginalise_ring_cuda(onsets_log, base, inv_available, fsmp,
     Launch M1 ring (``csrc/migrate_marginalise_ring.cu``) on tensors on
     the card: M1's function (:func:`migrate_marginalise_cuda`), the
     coalescence of every real node of the plan summed over the scan
-    samples ``[window_start, window_start + window_length)``, f32
-    [n_nodes] in flat node order (real nodes only are written), through
-    K3 v2's ``tables`` of the plan (:func:`global_v2_tables`, built for
-    this ``fsmp``; on :class:`CudaDetectVPU`'s route
+    samples ``[window_start, window_start + window_length)``, [n_nodes]
+    in flat node order (real nodes only are written), through K3 v2's
+    ``tables`` of the plan (:func:`global_v2_tables`, built for this
+    ``fsmp``; on :class:`CudaDetectVPU`'s route
     :func:`build_ring_tables`), the onset windows streamed through their
-    ring. A window longer than :data:`RING_CHUNK` samples is split into
-    chunks whose sums are added in chunk order; a window of one chunk
-    gives M1's result bit for bit. ``split`` puts the tile's passes on
-    the grid (one a block), else each block takes them in turn (None:
-    :func:`ring_split` of the tables' layout); the result is the same.
-    Raises on a window outside the scan, an onset block too short for the
-    plan, what the kernel does not take and CPU tensors; the plain
-    version is :func:`marginalise_ring_reference`. The launch is
-    asynchronous on the current stream.
+    ring. The onsets, ``inv_available`` and the result are of the tables'
+    ``layout.dtype``: float32 takes M1 ring, float64 (K3 v2 f64's tables)
+    M1 ring f64. A window longer than :func:`ring_chunk` samples (124,
+    128 in float64) is split into chunks whose sums are added in chunk
+    order; a window of one chunk gives M1's (M1 f64's) result bit for
+    bit. The ring is :func:`ring_stages` deep. ``split`` puts the tile's
+    passes on the grid (one a block), else each block takes them in turn
+    (None: :func:`ring_split` of the tables' layout); the result is the
+    same. Raises
+    on a window outside the scan, an onset block too short for the plan,
+    what the kernel does not take and CPU tensors; the plain version is
+    :func:`marginalise_ring_reference`. The launch is asynchronous on the
+    current stream.
 
     """
 
@@ -1962,25 +2023,26 @@ def migrate_marginalise_ring_cuda(onsets_log, base, inv_available, fsmp,
         )
     _check_cuda(onsets_log.device)
     layout = tables.layout
+    dtype = layout.dtype
     if split is None:
         split = ring_split(layout, n_onsets)
     rows, pitch = row_pitch(onsets_log)
-    out = torch.empty(n_nodes, dtype=torch.float32, device=onsets_log.device)
-    n_chunks = max(1, -(-window_length // RING_CHUNK))
-    partial = (torch.empty((n_chunks, n_nodes), dtype=torch.float32,
+    out = torch.empty(n_nodes, dtype=dtype, device=onsets_log.device)
+    n_chunks = max(1, -(-window_length // ring_chunk(dtype)))
+    partial = (torch.empty((n_chunks, n_nodes), dtype=dtype,
                            device=onsets_log.device) if n_chunks > 1
                else None)
     launch_kernel(
-        "qm_migrate_marginalise_ring", onsets_log.device,
+        typed("qm_migrate_marginalise_ring", dtype), onsets_log.device,
         rows.data_ptr(), pitch, base.data_ptr(), tables.res.data_ptr(),
         tables.flat.data_ptr(), tables.win.data_ptr(),
         inv_available.data_ptr(), out.data_ptr(),
         None if partial is None else partial.data_ptr(), n_chunks, n_nodes,
         n_onsets, n_tiles, tile, fsmp, window_start, window_length,
-        layout.group, layout.stage_floats, layout.n_stages, *layout.shape,
-        int(split),
+        layout.group, layout.stage_floats, ring_stages(layout),
+        *layout.shape, int(split),
     )
-    launches["migrate_marginalise_ring"] += 1
+    launches[typed("migrate_marginalise_ring", dtype)] += 1
     return out
 
 
@@ -1988,16 +2050,18 @@ def migrate_map_ring_cuda(onsets_log, base, inv_available, fsmp, nsamples,
                           n_nodes, tables, max_shift, split=None):
     """
     Launch M2 ring (``csrc/migrate_marginalise_ring.cu``) on tensors on
-    the card: the coalescence map of locate, f32 [n_nodes, nsamples] in
-    flat node order (the rows of real nodes written whole), ``map[n, t] =
+    the card: the coalescence map of locate, [n_nodes, nsamples] in flat
+    node order (the rows of real nodes written whole), ``map[n, t] =
     exp(inv_available * sum_o L[o, fsmp + tt[n, o] + t])`` each value
     computed as M2's simple form and K3 v2 compute it, so the map equals
     M2 simple bit for bit and its per-sample max K3 v2's tmax; through K3
     v2's ``tables`` of the plan and ``split`` as for
-    :func:`migrate_marginalise_ring_cuda`. Raises on an onset block too
-    short for the plan, what the kernel does not take and CPU tensors;
-    the plain version is :func:`map_ring_reference`. The launch is
-    asynchronous on the current stream.
+    :func:`migrate_marginalise_ring_cuda`, in the tables' type (float64:
+    M2 ring f64 on K3 v2 f64's tables, equal to M2 simple f64 and K3 v2
+    f64). Raises on an onset block too short for the plan, what the
+    kernel does not take and CPU tensors; the plain version is
+    :func:`map_ring_reference`. The launch is asynchronous on the current
+    stream.
 
     """
 
@@ -2007,28 +2071,30 @@ def migrate_map_ring_cuda(onsets_log, base, inv_available, fsmp, nsamples,
         raise ValueError(f"bad geometry: nsamples {nsamples}")
     _check_cuda(onsets_log.device)
     layout = tables.layout
+    dtype = layout.dtype
     if split is None:
         split = ring_split(layout, n_onsets)
     rows, pitch = row_pitch(onsets_log)
-    out = torch.empty((n_nodes, nsamples), dtype=torch.float32,
+    out = torch.empty((n_nodes, nsamples), dtype=dtype,
                       device=onsets_log.device)
     launch_kernel(
-        "qm_migrate_map_ring", onsets_log.device,
+        typed("qm_migrate_map_ring", dtype), onsets_log.device,
         rows.data_ptr(), pitch, base.data_ptr(), tables.res.data_ptr(),
         tables.flat.data_ptr(), tables.win.data_ptr(),
         inv_available.data_ptr(), out.data_ptr(), n_onsets, n_tiles, tile,
-        fsmp, nsamples, layout.group, layout.stage_floats, layout.n_stages,
-        *layout.shape, int(split),
+        fsmp, nsamples, layout.group, layout.stage_floats,
+        ring_stages(layout), *layout.shape, int(split),
     )
-    launches["migrate_map_ring"] += 1
+    launches[typed("migrate_map_ring", dtype)] += 1
     return out
 
 
 def ring_local(tables):
     """Each brick-order node's read offset in onset o's staged window, as
     the ring's tables hold it: the entry less the window's offset in its
-    stage, ``((fsmp + base[i, o]) & 3) + fine[i, o, n]``; int64 [n_tiles,
-    O, tile]."""
+    stage, ``((fsmp + base[i, o]) & (unit - 1)) + fine[i, o, n]`` (unit 4
+    floats or 2 doubles, :func:`global_v2_unit`); int64 [n_tiles, O,
+    tile]."""
 
     res = tables.res.long()
     n_tiles, passes, n_onsets, slice_ = res.shape
@@ -2052,17 +2118,19 @@ def marginalise_ring_reference(onsets_log, base, inv_available, fsmp,
                                window_start, window_length, n_nodes, tables,
                                max_elements=2**23):
     """
-    Plain PyTorch version of M1 ring through its ``tables`` (built for
-    this ``fsmp``), in the kernel's order: for each chunk c of
-    :data:`RING_CHUNK` samples of the window, from its first sample d =
-    ``window_start + c RING_CHUNK``, node n reads onset o at column
-    ``((fsmp + base[i, o]) & ~3) + (d & ~3) + (d & 3) +`` its entry less
-    the window's offset (:func:`ring_local`), summed in order o = 0..O-1;
-    ``exp(acc * inv_available)``; each lane's samples ``lane + 32 k`` (k <
-    :func:`ring_slots`) in k order, then the warp's xor tree (lane 0's
-    sum); the chunks added in chunk order; scattered through ``flat``.
-    Returns f32 [n_nodes], zero where no real node writes. Used by the
-    tests and the card's holds, not by the main path.
+    Plain PyTorch version of M1 ring (and M1 ring f64, on float64 tables)
+    through its ``tables`` (built for this ``fsmp``), in the kernel's
+    order: for each chunk c of :func:`ring_chunk` samples of the window
+    (124, or 128 in float64), from its first sample d = ``window_start +
+    c chunk``, node n reads onset o at column ``((fsmp + base[i, o]) &
+    ~(unit - 1)) + (d & ~(unit - 1)) + (d & (unit - 1)) +`` its entry less
+    the window's offset (:func:`ring_local`; unit 4 floats or 2 doubles),
+    summed in order o = 0..O-1; ``exp(acc * inv_available)``; each lane's
+    samples ``lane + 32 k`` (k < :func:`ring_slots`) in k order, then the
+    warp's xor tree (lane 0's sum); the chunks added in chunk order;
+    scattered through ``flat``. Returns [n_nodes] of the onsets' type,
+    zero where no real node writes. Used by the tests and the card's
+    holds, not by the main path.
 
     """
 
@@ -2071,18 +2139,21 @@ def marginalise_ring_reference(onsets_log, base, inv_available, fsmp,
                          f"not {fsmp}")
     local = ring_local(tables).to(onsets_log.device)
     flat = tables.flat.to(onsets_log.device)
-    lead = ((fsmp + base.long()) & ~3)
+    unit = global_v2_unit(tables.layout.dtype)
+    step = ring_chunk(tables.layout.dtype)
+    lead = ((fsmp + base.long()) & ~(unit - 1))
     n_tiles, tile = flat.shape
     slots = ring_slots(window_length)
     out = None
-    for c in range(max(1, -(-window_length // RING_CHUNK))):
-        d = window_start + c * RING_CHUNK
-        cw = min(RING_CHUNK, window_length - c * RING_CHUNK)
+    for c in range(max(1, -(-window_length // step))):
+        d = window_start + c * step
+        cw = min(step, window_length - c * step)
         lanes = torch.zeros((n_tiles, tile, 32 * slots),
                             dtype=onsets_log.dtype, device=onsets_log.device)
         if cw > 0:
             for t0, acc in plan_acc_chunks(
-                    onsets_log, lead + (d & ~3) + (d & 3), local, 0, cw,
+                    onsets_log, lead + (d & ~(unit - 1)) + (d & (unit - 1)),
+                    local, 0, cw,
                     max_elements):
                 lanes[t0:t0 + len(acc), :, :cw] = torch.exp(
                     acc * inv_available)
@@ -2101,14 +2172,15 @@ def marginalise_ring_reference(onsets_log, base, inv_available, fsmp,
 def map_ring_reference(onsets_log, base, inv_available, fsmp, nsamples,
                        n_nodes, tables, max_elements=2**23):
     """
-    Plain PyTorch version of M2 ring through its ``tables`` (built for
-    this ``fsmp``): node n reads onset o at column ``((fsmp + base[i, o])
-    & ~3) + s0 +`` its entry less the window's offset (:func:`ring_local`)
-    ``+ t`` for the block of 128 samples from s0, summed in order o =
-    0..O-1; ``exp(acc * inv_available)``, the product rounded on its own;
-    each real node's row through ``flat``. Returns f32 [n_nodes,
-    nsamples], zero in rows no real node writes. Used by the tests and
-    the card's holds, not by the main path.
+    Plain PyTorch version of M2 ring (and M2 ring f64, on float64 tables)
+    through its ``tables`` (built for this ``fsmp``): node n reads onset
+    o at column ``((fsmp + base[i, o]) & ~(unit - 1)) + s0 +`` its entry
+    less the window's offset (:func:`ring_local`; unit 4 floats or 2
+    doubles) ``+ t`` for the block of 128 samples from s0, summed in order
+    o = 0..O-1; ``exp(acc * inv_available)``, the product rounded on its
+    own; each real node's row through ``flat``. Returns [n_nodes,
+    nsamples] of the onsets' type, zero in rows no real node writes. Used
+    by the tests and the card's holds, not by the main path.
 
     """
 
@@ -2119,7 +2191,9 @@ def map_ring_reference(onsets_log, base, inv_available, fsmp, nsamples,
     flat = tables.flat.to(onsets_log.device)
     values = torch.empty(flat.shape + (nsamples,), dtype=onsets_log.dtype,
                          device=onsets_log.device)
-    for t0, acc in plan_acc_chunks(onsets_log, (fsmp + base.long()) & ~3,
+    unit = global_v2_unit(tables.layout.dtype)
+    for t0, acc in plan_acc_chunks(onsets_log,
+                                   (fsmp + base.long()) & ~(unit - 1),
                                    local, 0, nsamples, max_elements):
         values[t0:t0 + len(acc)] = torch.exp(acc * inv_available)
     return _ring_scatter(values, flat, (n_nodes, nsamples))
@@ -2128,13 +2202,18 @@ def map_ring_reference(onsets_log, base, inv_available, fsmp, nsamples,
 def ring_blocks_per_sm(layout, length, map_=False):
     """Resident blocks per SM of M1 ring at a window of ``length``
     samples, or of M2 ring (``map_``) at a scan of ``length`` samples
-    (their k slots, :func:`ring_slots`), at a ring layout, on the current
-    device."""
+    (their k slots, :func:`ring_slots`), at a ring layout and the depth
+    they run on it (:func:`ring_stages`), in the layout's type, on the
+    current device."""
 
-    return blocks_per_sm("qm_migrate_ring_blocks_per_sm",
+    name = ("qm_migrate_ring_f64_blocks_per_sm"
+            if global_v2_itemsize(layout.dtype) == 8
+            else "qm_migrate_ring_blocks_per_sm")
+    return blocks_per_sm(name,
                          torch.device("cuda", torch.cuda.current_device()),
                          *layout.shape, ring_slots(length), int(map_),
-                         layout.group, layout.stage_floats, layout.n_stages)
+                         layout.group, layout.stage_floats,
+                         ring_stages(layout))
 
 
 def vpu_v2_blocks_per_sm(tile, stride, n_stages, device):
@@ -2370,8 +2449,10 @@ class CudaDetectVPU(CudaDetect):
         """Locate's pass 2 on the plan for prepared onsets on the card:
         M1 ring (:func:`migrate_marginalise_ring_cuda`) on the ring's
         tables, or M1 (:func:`migrate_marginalise_cuda`, the int32
-        residuals ``fine``) where :attr:`ring_refusal` refuses the plan:
-        f32 [n_nodes] in flat node order. Raises on CPU tensors."""
+        residuals ``fine``) where :attr:`ring_refusal` refuses the plan,
+        each in the onsets' type (float64 on :class:`CudaDetectGlobal`:
+        M1 ring f64, M1 f64): [n_nodes] in flat node order. Raises on CPU
+        tensors."""
 
         ring = self.ring_tables()
         if ring is not None:
@@ -2389,8 +2470,9 @@ class CudaDetectVPU(CudaDetect):
         """Locate's map on the plan for prepared onsets on the card: M2
         ring (:func:`migrate_map_ring_cuda`) on the ring's tables, or M2's
         simple form (:func:`migrate_map_cuda`, the int32 residuals
-        ``fine``) where :attr:`ring_refusal` refuses the plan: f32
-        [n_nodes, nsamples] in flat node order. Raises on CPU tensors."""
+        ``fine``) where :attr:`ring_refusal` refuses the plan, each in the
+        onsets' type (float64: M2 ring f64, M2 simple f64): [n_nodes,
+        nsamples] in flat node order. Raises on CPU tensors."""
 
         ring = self.ring_tables()
         if ring is not None:
@@ -2438,15 +2520,16 @@ class CudaDetectGlobal(CudaDetect):
     With ``dtype`` float64 (``precision="double"``) every kernel of the
     route is its float64 form: K3 v2 f64 where its ring of doubles holds
     the plan's widest window (:func:`global_v2_refusal` on float64), else
-    K3 f64; M1 f64 and M2 simple f64 for locate.
+    K3 f64; for locate M1 ring f64 and M2 ring f64 on K3 v2 f64's tables,
+    or M1 f64 and M2 simple f64 where K3 v2 f64 refuses the plan.
     :meth:`reduce` on CPU tensors runs the plain version,
     :func:`quakemigrate_torch.ops.migrate.detect_reduce`, and counts no
     launch; :meth:`reduce_log` runs the kernel only. For locate it keeps
     the :class:`DetectPlan` (built once, at any span, for ``plan``
-    None): in float32, where K3 v2 takes the plan, :meth:`marginalise`
-    is M1 ring and :meth:`map` M2 ring, on K3 v2's own tables
-    (:attr:`tables`); elsewhere (:attr:`ring_refusal`: K3 v2's reason, or
-    float64) M1 and M2's simple form (or their f64 forms), which read the
+    None): where K3 v2 takes the plan, :meth:`marginalise` is M1 ring and
+    :meth:`map` M2 ring (their f64 forms in float64), on K3 v2's own
+    tables (:attr:`tables`); elsewhere (:attr:`ring_refusal`: K3 v2's
+    reason) M1 and M2's simple form (or their f64 forms), which read the
     onsets from global memory through the plan's int32 ``fine``.
 
     """
@@ -2496,10 +2579,9 @@ class CudaDetectGlobal(CudaDetect):
                 dtype=self.dtype)
             self.tables = global_v2_tables(plan, self.fsmp, self.device,
                                            self.layout)
-        # M1 ring and M2 ring run on K3 v2's tables, in float32
-        self.ring_refusal = (
-            ring_refusal(plan, self.dtype) if self.dtype != torch.float32
-            else self.v2_refusal)
+        # M1 ring and M2 ring (their f64 forms in float64) run on K3 v2's
+        # tables, where K3 v2 takes the plan
+        self.ring_refusal = self.v2_refusal
 
     def ring_tables(self):
         """The tables M1 ring and M2 ring read: K3 v2's (:attr:`tables`),

@@ -12,9 +12,10 @@ The JAX package's public device functions of migration
   :class:`~quakemigrate_torch.ops.cuda_migrate.CudaDetectGlobal`, K3 v2
   where its ring holds the table's widest window, else K3, and their
   float64 forms on float64 onsets; ``migrate_map`` runs M2 ring on K3
-  v2's tables of the same detector (M2's simple form where K3 v2 refuses
-  the table, and its f64 form on float64 onsets). A build or launch
-  failure raises: no plain version runs on CUDA tensors.
+  v2's tables of the same detector, M2 ring f64 on K3 v2 f64's on float64
+  onsets (M2's simple form, or M2 simple f64, where K3 v2 or K3 v2 f64
+  refuses the table). A build or launch failure raises: no plain version
+  runs on CUDA tensors.
 
 The kernels take the table as a grid of ``(N, 1, 1)`` nodes, tiled in
 runs of 256 consecutive flat nodes. Their plan is host work, so the
@@ -180,8 +181,9 @@ def migrate_map(
 ):
     """
     Migration retaining the full coalescence map, ``map4d_flat`` [N, S] in
-    flat node order and the onsets' type: on CUDA onsets M2 ring (or M2's
-    simple form, :attr:`CudaDetectGlobal.ring_refusal`) on the "k3"
+    flat node order and the onsets' type: on CUDA onsets M2 ring (M2 ring
+    f64 on float64 onsets; M2's simple form or its f64 form where
+    :attr:`CudaDetectGlobal.ring_refusal` refuses the table) on the "k3"
     route's detector, else the plain
     :func:`quakemigrate_torch.ops.migrate.migrate_map`.
 

@@ -225,8 +225,9 @@ class FlatSlab:
     def marginalise_rows(self, prepared, fsmp, nsamples, start, length):
         """The marginalisation of each of the slab's rows, padding rows
         included: the plain version on the CPU, the "k3" route's
-        marginalisation (M1 ring, or M1 where the ring refuses the plan)
-        on the plan of the rows on a CUDA device."""
+        marginalisation (M1 ring, or M1 where the ring refuses the plan;
+        their f64 forms on float64 onsets) on the plan of the rows on a
+        CUDA device."""
 
         onsets, mask, available = prepared
         tt = self.tensor(onsets.device)
@@ -285,8 +286,10 @@ class PlanSlab:
 
     def marginalise(self, prepared, fsmp, nsamples, start, length):
         """(values, flat indices) of the slab's real nodes: the route's
-        marginalisation (M1 v2, M1 ring, or M1) writes the slab's nodes
-        of an [n_nodes] buffer, and only those are read."""
+        marginalisation (M1 v2, M1 ring, or M1; M1 ring f64 on the slab's
+        own K3 v2 f64 tables, or M1 f64, in float64) writes the slab's
+        nodes of an [n_nodes] buffer (flat indices global), and only those
+        are read."""
 
         device = prepared[0].device
         marginal = self.detector(device, fsmp, nsamples).marginalise(
@@ -513,7 +516,8 @@ def make_sharded_marginalise(
     split over ``grid_axis`` (N_padded must divide evenly; see
     :func:`pad_nodes_for_mesh`) -- the caller drops the padded tail rows.
     The plain version runs on CPU devices, the "k3" route's
-    marginalisation (M1 ring, or M1) on CUDA devices.
+    marginalisation (M1 ring, or M1; their f64 forms on float64 onsets)
+    on CUDA devices.
 
     """
 

@@ -124,7 +124,8 @@ def detect_route(traveltimes, node_count, device, kernel="auto",
     - with ``precision="double"`` (the reference then keeps its XLA
       functions in float64, whatever ``kernel`` is),
       ``("k3", "precision='double'", plan)``: the float64 forms of the
-      route's kernels.
+      route's kernels (logged, with locate's, where K3 v2 f64 refuses the
+      plan).
 
     On the "k3" route ``CudaDetectGlobal`` runs K3 v2, the ring kernel on
     the plan's brick tiles, where its ring holds the plan's widest window
@@ -155,7 +156,9 @@ def plan_route(plan, device, kernel="auto", precision="single"):
         if k3_reason is None:
             return "k3", forced, plan
         reasons = f"{forced}, K3 v2{f64} ({k3_reason})"
-        logging.info(f"\t{reasons}; using {k3} on {device}.")
+        dtype = torch.float64 if double else torch.float32
+        logging.info(f"\t{reasons}; using {k3} on {device}, "
+                     f"{locate_kernels(plan, dtype)}.")
         return "k3", reasons, plan
     reason = v2_refusal(plan.n_onsets, plan.tile, plan.win_floats,
                         plan.r_span)
@@ -175,15 +178,17 @@ def plan_route(plan, device, kernel="auto", precision="single"):
 
 
 def locate_kernels(plan, dtype=torch.float32):
-    """Locate's kernels on the "k2_v2" and "k3" routes of ``plan``, in
-    words for the route's log line: M1 ring and M2 ring, or M1 and M2's
-    simple form with the reason the ring refuses the plan
-    (``ring_refusal``)."""
+    """Locate's kernels on the "k2_v2" and "k3" routes of ``plan`` for
+    onsets of ``dtype``, in words for the route's log line: M1 ring and M2
+    ring, or M1 and M2's simple form with the reason the ring refuses the
+    plan (``ring_refusal``); in float64 their f64 forms (M1 ring f64 and
+    M2 ring f64 wherever K3 v2 f64 takes the plan)."""
 
     reason = ring_refusal(plan, dtype)
+    f64 = " f64" if dtype == torch.float64 else ""
     if reason is None:
-        return "locate on M1 ring and M2 ring"
-    return f"locate on M1 and M2 simple ({reason})"
+        return f"locate on M1 ring{f64} and M2 ring{f64}"
+    return f"locate on M1{f64} and M2 simple{f64} ({reason})"
 
 
 def route_detector(route, plan, traveltimes, node_count, fsmp, nsamples,
@@ -594,9 +599,9 @@ class QuakeScan:
         "double" (the fused blocks, the onsets, the migration, the maps
         and the marginalisation), as the reference's. On the card
         "double" takes the "k3" route whatever ``kernel`` is (with
-        "mxu" the reference's notice is logged): K3 v2 f64, or K3 f64 on
-        a plan too wide for its ring of doubles, then M1 f64 and M2
-        simple f64 for locate (M1 ring and M2 ring are float32 only).
+        "mxu" the reference's notice is logged): K3 v2 f64, then M1 ring
+        f64 and M2 ring f64 on its tables for locate, or, on a plan too
+        wide for its ring of doubles, K3 f64, M1 f64 and M2 simple f64.
     mesh : quakemigrate_torch.parallel.Mesh, optional
         Shard the grid-node axis over this device mesh
         (``parallel.make_mesh``), as the reference shards it over its JAX

@@ -290,14 +290,40 @@ def _plan_case(nsamples=61):
     return detector, onsets_log, inv
 
 
-@pytest.mark.parametrize("which", ["marginalise", "map"])
-def test_wrappers_launch_the_f64_form(which, monkeypatch):
-    """Float64 onsets take the f64 C entry and count its launch (the
-    launch caught, as if on the card), into float64 outputs."""
+def _wide_case(nsamples=61, span=15_000):
+    """CudaDetectGlobal in float64 on a 4 x 4 x 4 toy with a residual span
+    past K3 v2 f64's ring of doubles (K3 f64's route), and its prepared
+    numpy-seeded onsets."""
 
-    detector, onsets_log, inv = _plan_case()
+    tt = np.zeros((64, 2), np.int32)
+    tt[1, 1] = span - 1
+    detector = cm.CudaDetectGlobal(tt, (4, 4, 4), 10, nsamples, "cpu",
+                                   dtype=F64)
+    rng = np.random.default_rng(2310)
+    onsets = rng.uniform(0.5, 3.0, size=(2, 10 + nsamples + span + 3))
+    onsets_log, inv = detector.prepare(_port(onsets), _port(np.ones(2)),
+                                       2.0)
+    return detector, onsets_log, inv
+
+
+@pytest.mark.parametrize("path", ["ring", "simple"])
+@pytest.mark.parametrize("which", ["marginalise", "map"])
+def test_wrappers_launch_the_f64_form(which, path, monkeypatch):
+    """Float64 onsets take the f64 C entry and count its launch (the
+    launch caught, as if on the card), into float64 outputs: M1 ring f64
+    and M2 ring f64 on a plan K3 v2 f64 takes (its tables), M1 f64 and M2
+    simple f64 on the wide-span toy K3 v2 f64 refuses."""
+
+    if path == "ring":
+        detector, onsets_log, inv = _plan_case()
+        assert detector.ring_refusal is None
+    else:
+        detector, onsets_log, inv = _wide_case()
+        assert detector.ring_refusal == detector.v2_refusal
+        assert "doubles" in detector.ring_refusal
     seen = []
     monkeypatch.setattr(cm, "launch_kernel", lambda *a: seen.append(a))
+    monkeypatch.setattr(cm, "_check_cuda", lambda device: None)
     monkeypatch.setattr(cm, "launches", dict(cm.launches))
     real_check = cm.check_kernel_args
 
@@ -313,16 +339,17 @@ def test_wrappers_launch_the_f64_form(which, monkeypatch):
                     detector.base.shape[0], detector.tile)
 
     monkeypatch.setattr(cm, "check_kernel_args", on_card)
+    ring = "_ring" if path == "ring" else ""
     if which == "marginalise":
         out = detector.marginalise(onsets_log, inv, 3, 40)
-        name, shape = "migrate_marginalise", (detector.n_nodes,)
+        name, shape = f"migrate_marginalise{ring}", (detector.n_nodes,)
     else:
         out = detector.map(onsets_log, inv)
-        name, shape = "migrate_map", (detector.n_nodes, 61)
+        name, shape = f"migrate_map{ring}", (detector.n_nodes, 61)
     (args,) = seen
     assert args[0] == f"qm_{name}_f64"
     assert len(args) - 2 == len(_build.SIGNATURES[args[0]]) - 1
-    assert cm.launches[f"{name}_f64"] == 1 and cm.launches[name] == 0
+    assert {k: n for k, n in cm.launches.items() if n} == {f"{name}_f64": 1}
     assert out.dtype == F64 and out.shape == shape
 
 

@@ -19,8 +19,9 @@ on the CPU:
   real node once and padding never, and at a window of one chunk equals
   the numpy emulation of M1 bit for bit (within 1e-6 beyond);
 - the routing: M1 ring and M2 ring on both routes, M1 and M2's simple
-  form on the wide-span toy, in float64 and at tile 64, with the
-  refusal's words on the detector and in the route's log line;
+  form on the wide-span toy and at tile 64, in float64 the ring's f64
+  forms where K3 v2 f64 takes the plan, with the refusal's words on the
+  detector and in the route's log line;
 - the wrappers: their checks, the CPU refusal, the arguments they hand
   the C entries, and those entries' signatures;
 - ``global_v2_tables`` at tile 512 against the plan, K3 v2 still refusing
@@ -387,21 +388,38 @@ def test_wide_span_toy_keeps_m1_and_m2_simple(kind, monkeypatch):
         "migrate_marginalise": 1, "migrate_map": 1}
 
 
-def test_float64_and_tile_64_keep_m1_and_m2_simple():
-    """The ring kernels are float32: CudaDetectGlobal in float64 keeps M1
-    f64 and M2 simple f64 (its K3 v2 f64 tables unused by locate); a
-    tile of 64 nodes is not a whole pass of any shape."""
+@pytest.mark.parametrize("case", ["float64", "float64 wide span",
+                                  "tile 64"])
+def test_float64_and_tile_64_keep_m1_and_m2_simple(case):
+    """``ring_refusal`` by type and tile: CudaDetectGlobal in float64 runs
+    M1 ring f64 and M2 ring f64 on its K3 v2 f64 tables; a span the ring
+    of doubles cannot hold (but float32's can) keeps M1 f64 and M2 simple
+    f64 with K3 v2 f64's words; a tile of 64 nodes is not a whole pass of
+    any float32 shape."""
 
-    tt = _traveltimes((8, 8, 4), 6, 30)
-    double = cm.CudaDetectGlobal(tt, (8, 8, 4), 5, 40, "cpu", dtype=F64)
-    assert double.tables is not None
-    assert double.ring_refusal == "M1 ring and M2 ring have no " \
-        "torch.float64 form" and double.ring_tables() is None
-    small = cm.CudaDetectVPU(tt, (8, 8, 4), 5, 40, "cpu", tile=64,
-                             brick_shape=(4, 4, 4))
-    assert small.ring_refusal == ("tile 64 is not a multiple of the "
-                                  "ring's 128 nodes a pass")
-    assert small.ring_tables() is None
+    if case == "float64":
+        tt = _traveltimes((8, 8, 4), 6, 30)
+        double = cm.CudaDetectGlobal(tt, (8, 8, 4), 5, 40, "cpu", dtype=F64)
+        assert double.tables is not None and double.ring_refusal is None
+        assert cm.ring_refusal(double.plan, F64) is None
+        assert double.ring_tables() is double.tables
+        assert double.tables.layout.dtype == F64
+    elif case == "float64 wide span":
+        tt = np.zeros((64, 2), np.int32)
+        tt[1, 1] = 15_000 - 1
+        double = cm.CudaDetectGlobal(tt, (4, 4, 4), 5, 40, "cpu", dtype=F64)
+        reason = cm.global_v2_refusal(double.plan, F64)
+        assert cm.ring_refusal(double.plan) is None
+        assert cm.ring_refusal(double.plan, F64) == reason
+        assert double.ring_refusal == reason and "doubles" in reason
+        assert double.ring_tables() is None
+    else:
+        tt = _traveltimes((8, 8, 4), 6, 30)
+        small = cm.CudaDetectVPU(tt, (8, 8, 4), 5, 40, "cpu", tile=64,
+                                 brick_shape=(4, 4, 4))
+        assert small.ring_refusal == ("tile 64 is not a multiple of the "
+                                      "ring's 128 nodes a pass")
+        assert small.ring_tables() is None
 
 
 def test_route_logs_locate_kernels(caplog):
@@ -423,6 +441,21 @@ def test_route_logs_locate_kernels(caplog):
             assert "locate on M1 ring and M2 ring" in line
         else:
             assert "locate on M1 and M2 simple (a ring of 2 stages" in line
+    # float64: F3-like plans take M1 ring f64 and M2 ring f64 (and
+    # "double" logs no line where K3 v2 f64 takes the plan); a span the
+    # ring of doubles cannot hold logs K3 f64 and M1 f64 with its words
+    f3 = cm.DetectPlan(_regional_traveltimes(), (40, 40, 16))
+    assert locate_kernels(f3, F64) == "locate on M1 ring f64 and M2 ring f64"
+    tt = np.zeros((64, 2), np.int32)
+    tt[1, 1] = 15_000 - 1
+    caplog.clear()
+    with caplog.at_level(logging.INFO):
+        got, _, plan = detect_route(tt, (4, 4, 4), CUDA, precision="double")
+    assert got == "k3"
+    (line,) = [r.getMessage() for r in caplog.records]
+    assert locate_kernels(plan, F64) in line and "using K3 f64" in line
+    assert ("locate on M1 f64 and M2 simple f64 (K3 v2's ring of 2 stages "
+            "of one window of") in line
 
 
 @pytest.mark.parametrize("geometry", ["k3", "k2_v2"])
@@ -461,9 +494,10 @@ def _bad(c, what):
     elif what == "float32 tensor":
         args["onsets_log"] = c["onsets_log"].double()
     elif what == "float32 layouts":
+        # a float64 layout of a shape the f64 forms are not built for
         t = c["tables"]
         args["tables"] = type(t)(**{**vars(t), "layout": type(t.layout)(
-            **{**vars(t.layout), "dtype": F64})})
+            **{**vars(t.layout), "dtype": F64, "shape": (16, 16)})})
     elif what == "inconsistent shapes":
         args["base"] = d.base[:, :-1].contiguous()
     return args
