@@ -86,6 +86,15 @@ Smoke run of quakemigrate_torch on one NVIDIA GPU.
    csrc/migrate_marginalise_v2.cu, and no other kernel; the .npy of
    [nx, ny, nz, 61] read back, finite; the spline hypocentre within one
    node of the two-pass run's), its per-event split printed. Then
+   plot_path: the same event located with plot_event_summary=True and
+   plot_event_video=True on the card and with device="cpu": the video
+   keeps the 4-D map, so on the card one M2 launch and no other kernel;
+   the .event held to the CPU run's within a digit, the kept map within
+   1e-5 of each value of the CPU run's; where matplotlib imports, the
+   event summary PDF and the event video GIF (a frame a sample) at the
+   JAX package's paths in both runs, else neither (the same device
+   work); the figures' status and sizes, the phase's wall and the map's
+   copy-back ms printed beside the card's name and power limit. Then
    ring_locate: the same event located on the "k3" route
    (kernel="xla": pass 1 on K3 v2), two-pass on M1 ring and on the map
    path on M2 ring, and again with the ring held back, on M1 and M2's
@@ -1633,7 +1642,7 @@ def archive_locate_path(device, root, detect, planted, origin, start, end,
     interval 0.12 s, the normalised trace, static threshold
     LOCATE_THRESHOLD); locate with iceland_locate.py's (centred STA/LTA,
     bandpass [10, 124, 4], P 0.01/0.25 s, S 0.05/0.5 s, GaussianPicker,
-    marginal window 0.06 s, cut waveforms), figures logged as not drawn.
+    marginal window 0.06 s, cut waveforms), no figures (plot_path's).
     Checks: exactly the planted event triggered, within the marginal
     window of its origin time; pass 1 on route k1_v2, one K1 v2 launch an
     event read and one M1 v2 launch an event that passes the
@@ -1673,7 +1682,8 @@ def archive_locate_path(device, root, detect, planted, origin, start, end,
                    marginal_window=LOCATE_MARGINAL_WINDOW,
                    min_event_interval=LOCATE_MIN_EVENT_INTERVAL,
                    normalise_coalescence=True, threshold_method="static",
-                   static_threshold=LOCATE_THRESHOLD)
+                   static_threshold=LOCATE_THRESHOLD,
+                   plot_trigger_summary=False)
     _, trigger_s = quiet(root, "trigger", lambda: trig.trigger(start, end))
     (data, _), _ = quiet(root, "read_scanmseed", lambda: read_scanmseed(
         run, start, end, 0.0, lut.unit_conversion_factor))
@@ -1699,9 +1709,8 @@ def archive_locate_path(device, root, detect, planted, origin, start, end,
     onset.bandpass_filters = {"P": [10, 124, 4], "S": [10, 124, 4]}
     onset.sta_lta_windows = {p: list(w) for p, w in STA_LTA.items()}
     picker = GaussianPicker(onset=onset)
-    picker.plot_picks = True
     scan = QuakeScan(detect.archive, lut, onset, str(runs), run_name,
-                     device=device, picker=picker)
+                     device=device, picker=picker, plot_event_summary=False)
     scan.marginal_window = LOCATE_MARGINAL_WINDOW
     scan.write_cut_waveforms = True
     seen = []
@@ -1910,7 +1919,7 @@ def archive_locate_path(device, root, detect, planted, origin, start, end,
     map_scan = QuakeScan(detect.archive, lut, onset, str(runs), "map_path",
                          device=device, picker=picker,
                          marginal_window=LOCATE_MARGINAL_WINDOW,
-                         write_coalescence=True)
+                         write_coalescence=True, plot_event_summary=False)
     map_seen = []
     map_scan.on_event = lambda event, pass1, handle: map_seen.append(
         (event, handle))
@@ -1949,6 +1958,8 @@ def archive_locate_path(device, root, detect, planted, origin, start, end,
                   map_node.tolist(), "node_distance_two_pass": map_dist,
                   "event_split_s": map_split}
     del map4d
+    plot_record = plot_path(device, root, detect.archive, lut, onset,
+                            trigger_file, planted)
     ring_locate = ring_locate_path(device, root, detect, trigger_file,
                                    onset, picker)
     return {
@@ -1971,6 +1982,7 @@ def archive_locate_path(device, root, detect, planted, origin, start, end,
         "m1_plain_ms": m1_plain_ms, **m1_bound, "m1_v2_bound": m1_v2_bound,
         "k1_v2_ms": k1_v2_ms, "k1_v2_bound": k1_v2_bound,
         "m1_f1": f1, "m1_windows": m1_windows, "map": map_record,
+        "plot": plot_record,
         # the example's plan and locate window, for map_path's kernel case
         "map_geometry": {
             "tt": tt, "node_count": NODE_COUNT, "fsmp": inp["fsmp"],
@@ -2002,7 +2014,8 @@ def ring_locate_path(device, root, detect, trigger_file, onset, picker):
             scan = QuakeScan(detect.archive, lut, onset, str(runs), name,
                              device=device, picker=picker,
                              marginal_window=LOCATE_MARGINAL_WINDOW,
-                             kernel="xla", write_coalescence=map_path)
+                             kernel="xla", write_coalescence=map_path,
+                             plot_event_summary=False)
             saved = cm.CudaDetectGlobal.ring_tables
             if not ring:
                 cm.CudaDetectGlobal.ring_tables = lambda self: None
@@ -2049,6 +2062,113 @@ def ring_locate_path(device, root, detect, trigger_file, onset, picker):
               f"byte-equal {equal}, X/Y/Z {xyz}"
               + (f", .npy equal {entry['npy_equal']}" if map_path else "")
               + f"; {ring_s:.3f} s and {old_s:.3f} s wall")
+    return record
+
+
+def plot_path(device, root, archive, lut, onset, trigger_file, planted):
+    """plot_path: QuakeScan.locate of archive_locate's event with
+    plot_event_summary=True and plot_event_video=True, on the card and
+    with device="cpu" (:func:`locate_card_and_cpu`, no plain version on a
+    CUDA tensor). On the card exactly one M2 launch (migrate_map_v2: the
+    video keeps the 4-D map through the route's map kernel) and nothing
+    else; the .event held to the CPU run's (:func:`hold_event`) and the
+    kept map4d to the CPU run's within MAP_RTOL of each value. Where
+    matplotlib imports, the event summary PDF and the GIF at their paths
+    in both runs, the GIF's frames one a sample of the kept map; where it
+    does not, neither file and the same device work. Prints the figures'
+    status, the phase's wall and the map's copy-back ms beside the card's
+    name and power limit. Returns a record."""
+
+    from quakemigrate_torch import plot
+    from quakemigrate_torch.signal import QuakeScan
+    from quakemigrate_torch.signal.pickers import GaussianPicker
+
+    t0 = time.perf_counter()
+    events, scans = {}, {}
+
+    def make(name, dev, **options):
+        scan = scans[name] = QuakeScan(
+            archive, lut, onset, str(root / "runs"), name, device=dev,
+            picker=GaussianPicker(onset=onset),
+            marginal_window=LOCATE_MARGINAL_WINDOW, **options)
+        scan.on_event = lambda event, pass1, handle: events.update(
+            {name: event})
+        return scan
+
+    card_dir, cpu_dir, event, record = locate_card_and_cpu(
+        root, "plot_path", make, trigger_file, {"migrate_map_v2": 1},
+        planted, lut, plot_event_summary=True, plot_event_video=True)
+    cpu_event = events["plot_path_cpu"]
+    check(event.map4d is not None and cpu_event.map4d is not None
+          and event.map4d.shape == cpu_event.map4d.shape,
+          "plot_path: the 4-D map was not kept")
+    map_rel = float((np.abs(event.map4d - cpu_event.map4d)
+                     / np.abs(cpu_event.map4d)).max())
+    check(bool(np.isfinite(event.map4d).all()) and map_rel <= MAP_RTOL,
+          f"plot_path: map4d {map_rel} relative to the CPU run's")
+
+    drawn = plot.available()
+    figures = {}
+    for label, run_dir in (("card", card_dir), ("cpu", cpu_dir)):
+        pdfs = sorted((run_dir / "locate" / "summaries").glob("*.pdf"))
+        gifs = sorted((run_dir / "locate" / "videos").glob("*.gif"))
+        entry = {"pdf": [p.name for p in pdfs], "gif": [p.name for p in gifs]}
+        if drawn:
+            from PIL import Image
+
+            check(len(pdfs) == len(gifs) == 1
+                  and pdfs[0].name == f"{run_dir.name}_{event.uid}"
+                  "_EventSummary.pdf"
+                  and gifs[0].name == f"{run_dir.name}_{event.uid}"
+                  "_Coalescence.gif",
+                  f"plot_path {label}: figures {entry}")
+            with Image.open(gifs[0]) as im:
+                frames = im.n_frames
+            check(frames == event.map4d.shape[-1],
+                  f"plot_path {label}: {frames} GIF frames for "
+                  f"{event.map4d.shape[-1]} samples")
+            entry.update(pdf_bytes=pdfs[0].stat().st_size,
+                         gif_bytes=gifs[0].stat().st_size,
+                         gif_frames=frames)
+        else:
+            # One warning in the locate's log, naming both options
+            log_text = (root / f"plot_path{'' if label == 'card' else '_cpu'}"
+                        ".log").read_text()
+            warned = [line for line in log_text.splitlines()
+                      if "matplotlib cannot be imported" in line]
+            entry["warnings"] = len(warned)
+            check(not pdfs and not gifs and len(warned) == 1
+                  and "plot_event_summary, plot_event_video" in warned[0],
+                  f"plot_path {label}: without matplotlib {entry}, "
+                  f"warnings {warned}")
+        figures[label] = entry
+    record.update(map_rel_err=map_rel, map_shape=list(event.map4d.shape),
+                  figures=figures, matplotlib=None)
+    if drawn:
+        import matplotlib
+
+        record["matplotlib"] = matplotlib.__version__
+    # The map's copy back, timed on the event's own inputs with the scan's
+    # detector, after the counted run
+    inp = event._marginalise_inputs
+    map_flat = scans["plot_path"]._locate_detector.map(
+        inp["onsets_log"], inp["inv_available"])
+    record["copy_back_ms"] = copy_back_ms(map_flat)
+    record["map_bytes"] = map_flat.numel() * map_flat.element_size()
+    del map_flat
+    record["phase_wall_s"] = time.perf_counter() - t0
+    print(f"plot_path: figures "
+          + (f"drawn (matplotlib {record['matplotlib']}): PDF "
+             f"{figures['card']['pdf_bytes']} B, GIF "
+             f"{figures['card']['gif_bytes']} B of "
+             f"{figures['card']['gif_frames']} frames" if drawn
+             else "not drawn (matplotlib absent; one warning in each "
+             "run's log)")
+          + f"; map4d {record['map_shape']} within {map_rel:.2e} of the "
+          f"CPU run's; phase {record['phase_wall_s']:.3f} s wall, the map's "
+          "copy "
+          f"back ({record['map_bytes']} B) {record['copy_back_ms']:.4f} ms; "
+          f"{nvidia_smi()}")
     return record
 
 
@@ -2505,7 +2625,7 @@ def vt_locate_mags_path(device, spacing_km=0.5, keep=None):
         trig = Trigger(lut, run_path=str(runs), run_name=run_name,
                        marginal_window=0.75, min_event_interval=1.5,
                        normalise_coalescence=True, threshold_method="static",
-                       static_threshold=1.85)
+                       static_threshold=1.85, plot_trigger_summary=False)
         _, trigger_s = quiet(root, "trigger", lambda: trig.trigger(
             start, end, region=[-17.15, 64.72, 0.0, -16.65, 64.93, 14.0]))
         events = read_triggered_events(scan.run, starttime=start,
@@ -2537,9 +2657,9 @@ def vt_locate_mags_path(device, spacing_km=0.5, keep=None):
                 mag_params={"A0": "Greenfield2018_bardarbunga",
                             "use_hyp_dist": True, "amp_feature": "S_amp",
                             "trace_filter": ".*H[NE]$", "noise_filter": 3.0},
-                plot_amplitudes=True)
+                plot_amplitudes=False)
             loc = QuakeScan(archive, lut, picker_onset, str(runs), name,
-                            device=dev,
+                            device=dev, plot_event_summary=False,
                             picker=GaussianPicker(onset=picker_onset),
                             mags=mags, marginal_window=1.0,
                             write_cut_waveforms=True,
@@ -4182,7 +4302,8 @@ def kurtosis_detect_path(device, root, lut, archive, planted, origin, start,
                    marginal_window=LOCATE_MARGINAL_WINDOW,
                    min_event_interval=LOCATE_MIN_EVENT_INTERVAL,
                    normalise_coalescence=True, threshold_method="static",
-                   static_threshold=KURTOSIS_THRESHOLD)
+                   static_threshold=KURTOSIS_THRESHOLD,
+                   plot_trigger_summary=False)
     _, trigger_s = quiet(root, "kurtosis_trigger",
                          lambda: trig.trigger(start, end))
     events = read_triggered_events(scan.run, starttime=start, endtime=end)
@@ -4195,7 +4316,8 @@ def kurtosis_detect_path(device, root, lut, archive, planted, origin, start,
 
     locate = QuakeScan(archive, lut, kurtosis_onset_for(), str(runs),
                        run_name, device=device,
-                       marginal_window=LOCATE_MARGINAL_WINDOW)
+                       marginal_window=LOCATE_MARGINAL_WINDOW,
+                       plot_event_summary=False)
     located = []
     locate.on_event = lambda event, pass1, handle: located.append(event)
     torch.cuda.synchronize()
@@ -4546,7 +4668,8 @@ def trigger_one(root, scan, lut, start, end, origin, label):
                    marginal_window=LOCATE_MARGINAL_WINDOW,
                    min_event_interval=LOCATE_MIN_EVENT_INTERVAL,
                    normalise_coalescence=True, threshold_method="static",
-                   static_threshold=LOCATE_THRESHOLD)
+                   static_threshold=LOCATE_THRESHOLD,
+                   plot_trigger_summary=False)
     quiet(root, f"{label}_trigger", lambda: trig.trigger(start, end))
     events = read_triggered_events(scan.run, starttime=start, endtime=end)
     check(len(events) == 1 and abs(events["CoaTime"][0] - origin)
@@ -4626,7 +4749,8 @@ def double_path(device, root, lut, archive, planted, origin, start, end):
         return QuakeScan(archive, lut, archive_onset(), str(root / "runs"),
                          name, device=dev, timestep=ARCHIVE_TIMESTEP,
                          marginal_window=LOCATE_MARGINAL_WINDOW,
-                         precision="double", **options)
+                         precision="double", plot_event_summary=False,
+                         **options)
 
     scan, record, windows = detect_and_hold(
         device, root, "double_detect", make, start, end, planted, "k3",
@@ -4804,7 +4928,7 @@ def standard_path(device, root, lut, archive, planted, origin, start, end):
             return QuakeScan(archive, lut, onset_of(), str(root / "runs"),
                              run, device=dev, timestep=ARCHIVE_TIMESTEP,
                              marginal_window=LOCATE_MARGINAL_WINDOW,
-                             **options, **extra)
+                             plot_event_summary=False, **options, **extra)
 
         label = f"standard_{name}"
         scan, rec, _ = detect_and_hold(
@@ -5291,7 +5415,8 @@ def mesh_path(device, root, lut, stations, origin):
         scan = QuakeScan(archive, lut, onset, str(root / "runs"),
                          f"mesh_locate_{label}", device=device,
                          mesh=meshes[label][0],
-                         marginal_window=LOCATE_MARGINAL_WINDOW)
+                         marginal_window=LOCATE_MARGINAL_WINDOW,
+                         plot_event_summary=False)
         torch.cuda.synchronize()
         cm.reset_launches()
         with NoPlainOnCuda("mesh_path"):
@@ -6543,8 +6668,12 @@ def main():
             "copy_back_ms", "nsamples", "max_equal_to_k1_v2",
             "window_sum_rel_err_m1_v2")},
         "library_ms": None,
+        # locate(plot_event_video=True): the video's map (plot_path)
+        "plot_path_launches": locate_record["plot"]["launches"][
+            "migrate_map_v2"],
         "vt": map_cases["vt"],
         "map_path": locate_record["map"],
+        "plot_path": locate_record["plot"],
         "vt_locate_mags": vt_record,
     }, {
         "name": "migrate_map",

@@ -5,8 +5,9 @@ NVIDIA GPU, in PyTorch with hand-written CUDA migration kernels.
 
 A port of the device path of :mod:`quakemigrate_tpu` (the JAX reference,
 which it is tested against). It is self-contained: it imports torch,
-numpy and scipy, and never jax, pandas, matplotlib or quakemigrate_tpu,
-so it runs on a machine that has none of them.
+numpy and scipy, and never jax, pandas or quakemigrate_tpu, so it runs on
+a machine that has none of them. matplotlib is optional: ``plot`` draws
+the JAX package's figures with it, imported only when a figure is drawn.
 
 The slices ported so far run from a waveform archive (miniSEED, SAC,
 GSE2 or SEG-Y) to the located events, on lookup tables built from

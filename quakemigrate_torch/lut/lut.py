@@ -495,6 +495,14 @@ class LUT(Grid3D):
 
     # -- misc ---------------------------------------------------------------------
 
+    def plot(self, fig, gs, slices=None, hypocentre=None, station_clr="k",
+             station_list=None):
+        """Grid cross-section figure with stations (see plot.lut)."""
+
+        from quakemigrate_torch.plot.lut import lut_plot
+
+        lut_plot(self, fig, gs, slices, hypocentre, station_clr, station_list)
+
     def __add__(self, other):
         """Merge the traveltime tables of a LUT on the same grid into this
         one (in place; returns it). Prints and returns None where the

@@ -22,6 +22,7 @@ import re
 
 import numpy as np
 
+import quakemigrate_torch.plot as plot
 from quakemigrate_torch.io.table import Table
 
 # logA0 curves of the form a*log10(dist/d0) + b*(dist-d0) + c,
@@ -114,7 +115,6 @@ class Magnitude:
             value = params.get(key, dict(default) if isinstance(default, dict)
                                else default)
             setattr(self, key, value)
-        self._plot_logged = False
 
     def __str__(self):
         lines = [
@@ -354,10 +354,15 @@ class Magnitude:
     def plot_amplitudes(
         self, magnitudes, event, run, unit_conversion_factor, noise_measure="RMS"
     ):
-        """The amplitude-vs-distance figure: ``plot/`` is not ported, so it
-        is logged once as not drawn."""
+        """Write the amplitude-vs-distance summary figure for this event
+        (where matplotlib imports)."""
 
-        if not self._plot_logged:
-            logging.info("\t\tAmplitude figures not drawn: plot/ is not "
-                         "ported.")
-            self._plot_logged = True
+        if not plot.available():
+            return
+        from quakemigrate_torch.plot.amplitudes import (
+            plot_amplitudes_vs_distance,
+        )
+
+        plot_amplitudes_vs_distance(
+            self, magnitudes, event, run, unit_conversion_factor, noise_measure
+        )

@@ -38,3 +38,6 @@ class PhasePicker(ABC):
         fpath.mkdir(exist_ok=True, parents=True)
 
         phase_picks.to_csv((fpath / f"{event_uid}").with_suffix(".picks"))
+
+    def plot(self, *args, **kwargs):
+        """Optional plot hook; implemented by subclasses."""

@@ -20,6 +20,7 @@ import logging
 import numpy as np
 from scipy.optimize import curve_fit
 
+import quakemigrate_torch.plot as plot
 import quakemigrate_torch.util as util
 from quakemigrate_torch.io.table import Table
 from .base import PhasePicker
@@ -33,9 +34,9 @@ _PICK_COLUMNS = [
 
 
 class GaussianPicker(PhasePicker):
-    """Phase picker based on Gaussian fits to the onset function.
-    ``plot_picks`` is accepted; the figures are not drawn (the port has no
-    ``plot``), which is logged once."""
+    """Phase picker based on Gaussian fits to the onset function. With
+    ``plot_picks``, a pick summary figure a station (``plot.phase_picks``)
+    where matplotlib imports."""
 
     DEFAULT_GAUSSIAN_FIT = _FAILED_FIT
 
@@ -60,7 +61,6 @@ class GaussianPicker(PhasePicker):
         self.plot_picks = kwargs.get("plot_picks", False)
         self.write_seed_ids = kwargs.get("write_seed_ids", False)
         self._fraction_tt = kwargs.get("fraction_tt")
-        self._plot_logged = False
 
     def __str__(self):
         lines = ["\tPhase picking by fitting a 1-D Gaussian to onsets"]
@@ -97,12 +97,13 @@ class GaussianPicker(PhasePicker):
             )
 
         records = []
-        gaussfits, pick_windows = {}, {}
+        gaussfits, pick_windows, ttimes_all = {}, {}, {}
         for station, station_onsets in onset_data.onsets.items():
             phases = list(station_onsets)
             traveltimes = {
                 phase: modelled_tt(phase, station) for phase in phases
             }
+            ttimes_all[station] = [traveltimes[phase] for phase in phases]
             windows = {
                 phase: self._pick_window(
                     event, onset_data, traveltimes[phase], fraction_tt
@@ -149,9 +150,11 @@ class GaussianPicker(PhasePicker):
         event.add_picks(picks, gaussfits=gaussfits, pick_windows=pick_windows)
         self.write(run, event.uid, picks)
 
-        if self.plot_picks and not self._plot_logged:
-            logging.info("\t\tPick figures not drawn: plot/ is not ported.")
-            self._plot_logged = True
+        if self.plot_picks and plot.available():
+            logging.info("\t\tPlotting picks...")
+            for station in onset_data.onsets:
+                self.plot(event, station, onset_data, picks,
+                          ttimes_all.get(station), run)
 
         return event, picks
 
@@ -280,6 +283,36 @@ class GaussianPicker(PhasePicker):
         if containing.size < 2:
             raise util.NoOnsetPeak(threshold)
         return containing[0], containing[-1] + 1
+
+    # -- plotting --------------------------------------------------------------------
+
+    @util.timeit()
+    def plot(self, event, station, onset_data, picks_df, traveltimes, run):
+        """Write the per-station pick summary figure. ``traveltimes`` is
+        the list of modelled traveltimes, one per phase (reference
+        pickers/gaussian.py:562-612)."""
+
+        from quakemigrate_torch.plot.phase_picks import pick_summary
+
+        outdir = run.path / f"locate/{run.subname}/pick_plots/{event.uid}"
+        outdir.mkdir(exist_ok=True, parents=True)
+
+        waveforms = onset_data.filtered_waveforms.select(station=station)
+        if not bool(waveforms):
+            return
+        fig = pick_summary(
+            event,
+            station,
+            waveforms,
+            picks_df.take(picks_df["Station"] == station),
+            onset_data.onsets[station],
+            onset_data.channel_maps,
+            traveltimes,
+            event.picks["pick_windows"][station],
+        )
+        plt = plot.pyplot()
+        plt.savefig((outdir / f"{event.uid}_{station}").with_suffix(".pdf"))
+        plt.close(fig)
 
     # -- options ------------------------------------------------------------------------
 

@@ -26,13 +26,16 @@ and plan) to find the origin time, and pass 2 (M1, the marginalisation
 over the marginal window) on the main thread; the location math, picks,
 local magnitudes and files of each event run on a pool of host threads,
 which wait on the CUDA event of M1's copy back and issue no work on the
-card. Where the 4-D coalescence map is to be written, locate's map path
-builds it instead (M2), takes pass 1's outputs from it, copies it back
-and marginalises it on the host.
+card. Where the 4-D coalescence map is to be written or drawn (the
+event video), locate's map path builds it instead (M2), takes pass 1's
+outputs from it, copies it back and marginalises it on the host. The
+figures (``plot``) are drawn on the post pool, one at a time.
 
 """
 
+import contextlib
 import logging
+import threading
 import time
 import warnings
 from collections import deque
@@ -43,6 +46,7 @@ import numpy as np
 import torch
 from scipy import ndimage
 
+import quakemigrate_torch.plot as plot
 import quakemigrate_torch.util as util
 from quakemigrate_torch.device import resolve_device
 from quakemigrate_torch.io import (
@@ -582,10 +586,14 @@ class QuakeScan:
         (4 bytes, or 8 under ``precision="double"``) are within
         ``locate_map_memory_limit`` (default 4e9), else it is logged as
         not written and locate takes the two-pass path.
-    plot_event_video, plot_event_summary
-        ``plot_event_video`` raises NotImplementedError in locate (plot/
-        is not ported); ``plot_event_summary`` is logged once as not
-        drawn.
+    plot_event_summary, plot_event_video, plot_all_stns, xy_files
+        Locate's figures, drawn as the JAX package draws them (``plot``):
+        the event summary PDF from the marginalised map, and the event
+        video, an animated GIF of the 4-D map, which
+        ``plot_event_video`` keeps as ``write_coalescence`` does (the map
+        path, within ``locate_map_memory_limit``; else the video is
+        skipped and logged). Where matplotlib cannot be imported, locate
+        logs one warning and draws nothing; the device work is the same.
     log, loglevel
         Logging to a file in the run directory, and its level.
     kernel : "auto", "mxu" or "xla", default "auto"
@@ -694,8 +702,7 @@ class QuakeScan:
         "run_subname": "",
         "plot_event_summary": True,
         "plot_event_video": False,
-        # Options of the reference's event summary figure, which the port
-        # does not draw (plot/ is not ported; plot_event_summary is logged)
+        # Options of the event summary figure
         "plot_all_stns": True,
         "xy_files": None,
         "write_cut_waveforms": False,
@@ -799,7 +806,10 @@ class QuakeScan:
         self._tt_flat = None
         self._locate_detector = None
         self._mesh_locate = None
-        self._summary_logged = False
+        # pyplot's state is not thread-safe: the post pool's figures are
+        # drawn one at a time
+        self._plot_lock = threading.Lock()
+        self._draw = False
 
         # The reference's deprecated parameter names (the properties at
         # the end of the class)
@@ -1240,12 +1250,6 @@ class QuakeScan:
     # locate
     # ------------------------------------------------------------------
 
-    # Options locate does not cover yet, and the ROADMAP.md item each
-    # waits for
-    _LOCATE_WAITS = {
-        "plot_event_video": "the event video (ROADMAP.md §1, plot/)",
-    }
-
     def locate(self, starttime=None, endtime=None, trigger_file=None):
         """
         Re-migrate short windows around triggered events on the full grid;
@@ -1265,7 +1269,7 @@ class QuakeScan:
             starttime, endtime = UTCDateTime(starttime), UTCDateTime(endtime)
             if starttime > endtime:
                 raise util.TimeSpanException
-        self._check_locate_options()
+        self._probe_figures()
 
         if trigger_file is not None:
             span = f"\n\tLocating events in {trigger_file}"
@@ -1284,14 +1288,20 @@ class QuakeScan:
             self._locate_events(starttime=starttime, endtime=endtime)
         logging.info(util.log_spacer)
 
-    def _check_locate_options(self):
-        """Raise NotImplementedError for an option locate does not cover,
-        naming the ROADMAP.md item it waits for."""
+    def _probe_figures(self):
+        """Whether locate draws its figures: matplotlib is probed once, and
+        where a figure option is on and it cannot be imported, one warning
+        names the options whose figures will not be drawn."""
 
-        for option, what in self._LOCATE_WAITS.items():
-            if getattr(self, option):
-                raise NotImplementedError(
-                    f"{option}: {what} is not ported yet")
+        options = [name for name, on in (
+            ("plot_event_summary", self.plot_event_summary),
+            ("plot_event_video", self.plot_event_video),
+            ("plot_picks", getattr(self.picker, "plot_picks", False)),
+            ("plot_amplitudes", self.mags is not None
+             and getattr(self.mags, "plot", False))) if on]
+        self._draw = plot.available()
+        if options and not self._draw:
+            plot.missing_warning("locate", options)
 
     def _locate_events(self, **kwargs):
         candidates = read_triggered_events(self.run, **kwargs)
@@ -1464,8 +1474,8 @@ class QuakeScan:
         and pass 1's result (``_pass1``).
 
         Two paths, as the JAX ``_compute`` chooses them. The map path,
-        where ``write_coalescence`` is set and the map's ``n_nodes x
-        nsamples`` x the element's bytes are within
+        where ``write_coalescence`` or ``plot_event_video`` is set and
+        the map's ``n_nodes x nsamples`` x the element's bytes are within
         ``locate_map_memory_limit``: the 4-D map (M2 on the card: the route's detector's ``map``; the plain
         ``migrate_map`` on the CPU), pass 1's outputs from it
         (``find_max_coa``, on the map's device), and the map copied back
@@ -1490,13 +1500,13 @@ class QuakeScan:
 
         n_nodes = int(np.prod(self.lut.node_count))
         map_bytes = n_nodes * nsamples * np.dtype(self._dtype).itemsize
-        retain_map = (self.write_coalescence
-                      and map_bytes <= self.locate_map_memory_limit)
-        if self.write_coalescence and not retain_map:
+        want_map = self.write_coalescence or self.plot_event_video
+        retain_map = want_map and map_bytes <= self.locate_map_memory_limit
+        if want_map and not retain_map:
             logging.info(
                 f"\t\tmap4d would need {map_bytes / 1e9:.1f} GB > "
                 "locate_map_memory_limit; using two-pass map-free "
-                "locate (no full map will be written)."
+                "locate (no full map / event video will be written)."
             )
 
         inputs = {"block": block, "mask": mask, "available": available,
@@ -1633,23 +1643,57 @@ class QuakeScan:
         t3 = time.perf_counter()
 
         logging.info(f"\t[{event.uid}] Making phase picks...")
-        event, _ = self.picker.pick_phases(event, self.lut, self.run)
+        # Where the picker or the magnitudes draw, that stage holds the
+        # lock the event figures hold; figure-free runs stay parallel
+        with self._figure_guard(getattr(self.picker, "plot_picks", False)):
+            event, _ = self.picker.pick_phases(event, self.lut, self.run)
         t4 = time.perf_counter()
 
         if self.mags is not None:
             logging.info(f"\t[{event.uid}] Calculating magnitude...")
-            event, _ = self.mags.calc_magnitude(event, self.lut, self.run)
+            with self._figure_guard(getattr(self.mags, "plot", False)):
+                event, _ = self.mags.calc_magnitude(event, self.lut,
+                                                    self.run)
             attrib["magnitudes"] = time.perf_counter() - t4
         t5 = time.perf_counter()
 
         event.write(self.run, self.lut)
-        if self.plot_event_summary and not self._summary_logged:
-            logging.info("\tEvent summary not drawn: plot/ is not ported.")
-            self._summary_logged = True
+        if self._draw:
+            with self._plot_lock:
+                self._write_event_figures(event, coa_map)
         self._write_event_waveforms(event)
         attrib.update(pass2_wait=t1 - t0, location=t2 - t1, picks=t4 - t3,
                       writes=(t3 - t2) + (time.perf_counter() - t5))
         return True
+
+    def _figure_guard(self, draws):
+        """The figure lock where a stage draws, else no lock."""
+
+        return (self._plot_lock if draws and self._draw
+                else contextlib.nullcontext())
+
+    def _write_event_figures(self, event, coa_map):
+        """The event summary from the marginalised map, and the event
+        video from the kept 4-D map (skipped and logged where the map was
+        not kept)."""
+
+        if self.plot_event_summary:
+            from quakemigrate_torch.plot.event import event_summary
+
+            event_summary(
+                self.run, event, coa_map, self.lut,
+                xy_files=self.xy_files, plot_all_stns=self.plot_all_stns,
+            )
+        if self.plot_event_video:
+            if event.map4d is None:
+                logging.info(
+                    "\tSkipping event video: map4d was not retained "
+                    "(its size exceeds locate_map_memory_limit)."
+                )
+            else:
+                from quakemigrate_torch.plot.video import event_video
+
+                event_video(self.run, event, self.lut)
 
     def _write_event_waveforms(self, event):
         """The cut waveforms asked for: raw, response-removed ("real") and

@@ -20,6 +20,7 @@ from datetime import time
 import numpy as np
 from scipy.ndimage import gaussian_filter1d
 
+import quakemigrate_torch.plot as plot
 import quakemigrate_torch.util as util
 from quakemigrate_torch.io import Run, read_scanmseed, write_triggered_events
 from quakemigrate_torch.io.table import Table
@@ -57,9 +58,10 @@ class Trigger:
     Key options (reference-compatible names): threshold_method with its
     static/mad/median_ratio parameters, marginal_window,
     min_event_interval (validated >= 2x marginal window),
-    normalise_coalescence, pad, COA smoothing, plotting toggles. The
-    trigger summary figure is not drawn (the port has no ``plot``):
-    ``plot_trigger_summary`` is logged once as such.
+    normalise_coalescence, pad, COA smoothing, plotting toggles. With
+    ``plot_trigger_summary`` each day's trigger summary figure is drawn
+    (``plot.trigger``) where matplotlib imports; where it does not, the
+    trigger logs one warning and writes its events all the same.
 
     """
 
@@ -78,6 +80,8 @@ class Trigger:
         "smoothing_kernel_sigma": 0.2,
         "smoothing_kernel_width": 4.0,
         "plot_trigger_summary": True,
+        "xy_files": None,
+        "plot_all_stns": True,
         "write_event_time_windows": False,
     }
 
@@ -92,7 +96,6 @@ class Trigger:
             setattr(self, option, kwargs.get(option, default))
         if kwargs.get("minimum_repeat"):
             self.minimum_repeat = kwargs["minimum_repeat"]
-        self._summary_logged = False
 
     def __str__(self):
         lines = [
@@ -131,13 +134,9 @@ class Trigger:
     def trigger(self, starttime, endtime, region=None, interactive_plot=False):
         """Run triggering over [starttime, endtime], one day at a time.
         ``region`` is [lo_x, lo_y, lo_z, hi_x, hi_y, hi_z] in input
-        coordinates; ``interactive_plot`` raises NotImplementedError (the
-        port draws no figure)."""
+        coordinates; with ``interactive_plot`` each summary figure is also
+        shown (``plt.show()``) after it is saved."""
 
-        if interactive_plot:
-            raise NotImplementedError(
-                "interactive_plot: the port has no plot module (ROADMAP.md "
-                "§1, plot/ is not ported)")
         starttime, endtime = UTCDateTime(starttime), UTCDateTime(endtime)
         if starttime > endtime:
             raise util.TimeSpanException
@@ -152,16 +151,22 @@ class Trigger:
         ):
             logging.info(line)
 
+        draw = self.plot_trigger_summary and plot.available()
+        if self.plot_trigger_summary and not draw:
+            plot.missing_warning("trigger", ["plot_trigger_summary"])
         cursor = starttime
         while cursor < endtime:
             day_after = UTCDateTime(cursor.date) + _SECONDS_PER_DAY
-            self._trigger_batch(cursor, min(day_after, endtime), region)
+            self._trigger_batch(cursor, min(day_after, endtime), region,
+                                draw, interactive_plot)
             cursor = day_after
 
         logging.info(util.log_spacer)
 
-    def _trigger_batch(self, batchstart, batchend, region):
-        """Read, threshold, refine, filter and write one day's batch."""
+    def _trigger_batch(self, batchstart, batchend, region, draw=False,
+                       interactive_plot=False):
+        """Read, threshold, refine, filter and write one day's batch, and
+        with ``draw`` its summary figure."""
 
         logging.info("\tReading in .scanmseed...")
         data, stats = read_scanmseed(
@@ -185,9 +190,12 @@ class Trigger:
                 "\tNo events triggered at this threshold - try a lower "
                 "detection threshold."
             )
+            events = discarded = candidates
         else:
             refined = self._refine_candidates(candidates)
-            events = self._filter_events(refined, batchstart, batchend, region)
+            keep = self._filter_mask(refined, batchstart, batchend, region)
+            events = refined.take(keep)
+            discarded = self._dropna(refined.take(~keep))
             logging.info(
                 f"\n\t\t{len(events)} event(s) triggered within the "
                 f"specified region between {batchstart} \n\t\tand {batchend}"
@@ -197,9 +205,28 @@ class Trigger:
                 self.run, events, batchstart, self.write_event_time_windows
             )
 
-        if self.plot_trigger_summary and not self._summary_logged:
-            logging.info("\n\tTrigger summary not drawn: plot/ is not ported.")
-            self._summary_logged = True
+        if draw:
+            logging.info("\n\tPlotting trigger summary...")
+            from quakemigrate_torch.plot.trigger import trigger_summary
+
+            trigger_summary(
+                events, batchstart, batchend, self.run,
+                self.marginal_window, self.min_event_interval, threshold,
+                self._threshold_method_string(),
+                self.normalise_coalescence, self.lut, data, region,
+                discarded, interactive_plot, xy_files=self.xy_files,
+                plot_all_stns=self.plot_all_stns,
+            )
+
+    def _threshold_method_string(self):
+        return {
+            "static": f"{self.static_threshold} (static)",
+            "mad": f"MAD ({self.mad_window_length} s / {self.mad_multiplier}x)",
+            "median_ratio": (
+                f"Median Ratio ({self.median_window_length} s / "
+                f"{self.median_multiplier}x)"
+            ),
+        }[self.threshold_method]
 
     # -- thresholding ------------------------------------------------------------
 
@@ -328,6 +355,14 @@ class Trigger:
     def _filter_events(self, events, starttime, endtime, region):
         """Keep events inside the batch time span and optional region box."""
 
+        return events.take(self._filter_mask(events, starttime, endtime,
+                                             region))
+
+    @staticmethod
+    def _filter_mask(events, starttime, endtime, region):
+        """The rows of ``events`` inside the batch time span and optional
+        region box."""
+
         keep = np.array([starttime <= t <= endtime
                          for t in events["CoaTime"]], dtype=bool)
         if region is not None:
@@ -336,7 +371,17 @@ class Trigger:
                                  ("COA_Z", lo_z, hi_z)):
                 values = np.asarray(events[axis], dtype=float)
                 keep &= (values >= lo) & (values <= hi)
-        return events.take(keep)
+        return keep
+
+    @staticmethod
+    def _dropna(table):
+        """The rows of ``table`` that hold no missing value (pandas'
+        ``dropna``)."""
+
+        return table.take(np.array(
+            [not any(v is None or (isinstance(v, float) and v != v)
+                     for v in row.values()) for row in table.rows()],
+            dtype=bool))
 
     # -- validated options -----------------------------------------------------
 

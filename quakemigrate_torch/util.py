@@ -450,6 +450,26 @@ class DateFormatter:
         return when.strftime(self.fmt).format(ms=fractional)
 
 
+def date2num(values):
+    """
+    matplotlib date numbers (days since 1970-01-01 UTC, float64) of an
+    array of datetime64 values, with ``matplotlib.dates.date2num``'s
+    arithmetic (whole seconds, then the rest in nanoseconds), so the two
+    agree bit for bit; NaT gives NaN.
+
+    """
+
+    d = np.asarray(values)
+    seconds = d.astype("datetime64[s]")
+    extra = (d - seconds).astype("timedelta64[ns]")
+    days = (seconds - np.datetime64("1970-01-01T00:00:00", "s")).astype(
+        np.float64)
+    days += extra.astype(np.float64) / 1.0e9
+    days = days / 86400.0
+    days[d.astype(np.int64) == np.datetime64("NaT").astype(np.int64)] = np.nan
+    return days
+
+
 def get_phase_component_strings(channel_maps):
     """
     Component-selector strings for the pick-summary figure from the

@@ -1,7 +1,7 @@
 # -*- coding: utf-8 -*-
 """
 The port's public surface against the JAX package's, live: every module
-of quakemigrate_tpu (but ``plot``) has its quakemigrate_torch module;
+of quakemigrate_tpu has its quakemigrate_torch module;
 each public name defined in it (a function, class or jitted function
 whose ``__module__`` is the module, or for a package one of its
 submodules; or a plain value: number, string, container, array) exists
@@ -27,15 +27,6 @@ import pytest
 import quakemigrate_tpu
 
 ALLOWLIST = {
-    "quakemigrate_tpu.plot":
-        "excluded: figures and the event video need matplotlib, which "
-        "the port does not import",
-    "quakemigrate_tpu.lut.lut.LUT.plot":
-        "excluded: a figure (matplotlib)",
-    "quakemigrate_tpu.signal.pickers.base.PhasePicker.plot":
-        "excluded: a figure (matplotlib)",
-    "quakemigrate_tpu.signal.pickers.gaussian.GaussianPicker.plot":
-        "excluded: a figure (matplotlib)",
     "quakemigrate_tpu.ops.pallas_migrate":
         "counterpart: quakemigrate_torch.ops.cuda_migrate",
     "quakemigrate_tpu.ops.scan_window.detect_window_fused_mxu":

@@ -20,8 +20,9 @@ the raw, real and Wood-Anderson cut waveforms and the 4-D map.
   JAX's (1e-9 relative: the same float64 numpy and scipy code);
 - the .amps and .event files equal to JAX's byte for byte;
 - the real and Wood-Anderson cut waveforms within 1e-6 relative;
-- the options that still raise: plot_event_video; RESP and SAC_PZ input
-  without the responses asked for; a ``mags`` that is not a LocalMag.
+- plot_event_video keeping the 4-D map and plot_amplitudes drawing the
+  amplitude figure; what still raises: RESP and SAC_PZ input without the
+  responses asked for, a ``mags`` that is not a LocalMag.
 
 """
 
@@ -473,10 +474,32 @@ def test_locate_event_attrib_has_magnitudes(runs):
 
 # -- what still raises --------------------------------------------------------
 
-def test_options_that_still_raise(workspace, tmp_path):
-    scan = port_scan(workspace, "refused", plot_event_video=True)
-    with pytest.raises(NotImplementedError, match="plot"):
-        scan.locate(START, END)
+def test_options_that_still_raise(runs, workspace, tmp_path, monkeypatch):
+    # plot_event_video, once refused, keeps the 4-D map for the event
+    # video (its drawing: tests/test_torch_plot.py), and LocalMag's
+    # plot_amplitudes draws the amplitude figure at the JAX package's path
+    import matplotlib.pyplot as plt
+
+    import quakemigrate_torch.plot.video as video
+
+    drawn, saved = [], []
+    monkeypatch.setattr(video, "event_video",
+                        lambda run, event, lut: drawn.append(event.map4d))
+    monkeypatch.setattr(plt, "savefig",
+                        lambda fname, *a, **k: saved.append(str(fname)))
+    mags = LocalMag(amp_params=dict(AMP_PARAMS), mag_params=dict(MAG_PARAMS))
+    scan = port_scan(workspace, "video", mags=mags, plot_event_video=True,
+                     plot_event_summary=False)
+    (trigger_file,) = (runs["port"] / "trigger" / "events").glob("*.csv")
+    scan.locate(trigger_file=str(trigger_file))
+    (map4d,) = drawn
+    assert map4d is not None and map4d.shape[:3] == tuple(
+        scan.lut.node_count)
+    (uid,) = [p.stem for p in (workspace["root"] / "runs" / "video"
+                               / "locate" / "events").glob("*.event")]
+    assert saved == [str(workspace["root"] / "runs" / "video" / "locate"
+                         / "amplitude_plots" / f"video_{uid}_AmpVsDistance"
+                         ".pdf")]
     with pytest.raises(util.MagsTypeError):
         port_scan(workspace, "refused", mags=object())
     # RESP and SAC_PZ are read now (tests/test_torch_formats.py): a

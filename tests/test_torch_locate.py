@@ -17,7 +17,7 @@ fixture), with cut waveforms.
 - pass 2's window [first, last) of trim_bounds (end-exclusive, the
   reference's quirk) and the per-event split;
 - locate_workers=0 and 4 giving the same files; a dataless event skipped;
-- the options locate does not cover raising NotImplementedError;
+- plot_event_video keeping the 4-D map for the event video;
 - cut waveforms in each format (MSEED, SAC, GSE2, SEG-Y) from an archive
   of int32 counts, read back by both packages equal to the MSEED ones.
 
@@ -329,12 +329,34 @@ def test_dataless_event_skipped(runs, workspace, tmp_path):
     {"write_coalescence": True, "plot_event_video": True},
     {"plot_event_video": True},
 ])
-def test_options_not_covered_raise(workspace, options):
-    scan = ws.port_scan(workspace, "refused", **options)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        scan.locate(ws.START, ws.END)
-    assert not (workspace["root"] / "runs" / "refused" / "locate"
-                / "events").exists()
+def test_options_not_covered_raise(runs, workspace, monkeypatch, options):
+    """plot_event_video, once refused, keeps the 4-D map (the map path:
+    no pass 2) and draws the event video from it, the map trimmed to the
+    marginal window (the drawing itself: tests/test_torch_plot.py)."""
+
+    import quakemigrate_torch.plot.video as video
+
+    drawn = []
+    monkeypatch.setattr(video, "event_video",
+                        lambda run, event, lut: drawn.append(
+                            (run.name, np.array(event.map4d))))
+    name = "video_map" if options.get("write_coalescence") else "video"
+    scan = ws.port_scan(workspace, name, **options)
+    seen = []
+    scan.on_event = lambda event, pass1, handle: seen.append((event, handle))
+    scan.locate(trigger_file=str(_trigger_file(runs)))
+    (event, handle), = seen
+    assert handle is None and event.map4d is not None
+    (run_name, map4d), = drawn
+    first, last = event.trim_bounds
+    assert run_name == name and map4d.shape == (
+        tuple(scan.lut.node_count) + (last - first,))
+    np.testing.assert_array_equal(map4d, event.map4d)
+    assert _only(workspace["root"] / "runs" / name, "events", ".event")
+    if options.get("write_coalescence"):
+        written = np.load(_only(workspace["root"] / "runs" / name,
+                                "coalescence_maps", ".npy"))
+        np.testing.assert_array_equal(written[..., first:last], map4d)
 
 
 @pytest.fixture(scope="module")

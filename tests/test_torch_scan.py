@@ -329,6 +329,18 @@ from quakemigrate_torch.experiments import exp_double
 from quakemigrate_torch.ops.scan_window import onset_front_end
 from quakemigrate_torch.signal.onsets import Onset, OnsetData
 assert "quakemigrate_torch.experiments.exp_double" in names
+from quakemigrate_torch import plot
+from quakemigrate_torch.plot import (
+    amplitudes_summary, event_summary, pick_summary, trigger_summary)
+from quakemigrate_torch.plot.amplitudes import (
+    label_stations, plot_amplitudes_vs_distance)
+from quakemigrate_torch.plot.lut import lut_plot
+from quakemigrate_torch.plot.video import event_video
+from quakemigrate_torch.plot.xy import plot_xy_files
+for module in ("plot", "plot.amplitudes", "plot.event", "plot.lut",
+               "plot.phase_picks", "plot.trigger", "plot.video", "plot.xy"):
+    assert f"quakemigrate_torch.{module}" in names, module
+assert not plot.available()
 assert not [m for m in sys.modules if blocked(m)]
 print(len(names))
 """

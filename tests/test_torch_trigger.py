@@ -268,14 +268,30 @@ def test_each_package_reads_the_others_file(runs, tmp_path):
                               endtime=UTCDateTime(ws.END))
 
 
-def test_trigger_options_validated():
+def test_trigger_options_validated(runs, tmp_path, monkeypatch):
+    """The options' checks; and interactive_plot, once refused, shows the
+    trigger summary after it is saved."""
+
+    import shutil
+
+    import matplotlib.pyplot as plt
+
     with pytest.raises(util.InvalidTriggerThresholdMethodException):
         _triggers()[0].threshold_method = "peak"
     port = _triggers()[0]
     with pytest.raises(ValueError, match="marginal window"):
         port.min_event_interval = 1.5
-    with pytest.raises(NotImplementedError, match="plot"):
-        port.trigger(ws.START, ws.END, interactive_plot=True)
+    shutil.copytree(runs["port"] / "detect", tmp_path / "shown" / "detect")
+    saved, shown = [], []
+    monkeypatch.setattr(plt, "savefig", lambda fname, *a, **k: saved.append(
+        (str(fname), plt.gcf())))
+    monkeypatch.setattr(plt, "show", lambda: shown.append(plt.gcf()))
+    Trigger(runs["scan"].lut, run_path=str(tmp_path), run_name="shown",
+            **ws.TRIGGER).trigger(ws.START, ws.END, interactive_plot=True)
+    summary = (tmp_path / "shown" / "trigger" / "summaries"
+               / "shown_2021_049_Trigger.pdf")
+    assert [path for path, _ in saved] == [str(summary)]
+    assert shown == [saved[0][1]]
 
 
 # -- detect(resume=True), the cases of tests/test_detect_resume.py ----------
