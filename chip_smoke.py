@@ -152,8 +152,10 @@ Smoke run of quakemigrate_torch on one NVIDIA GPU.
    windows on the "k3" route's K3 v2 (its detector built once for the
    batch) equal to 4 migrate_detect calls bit for bit, each within 1e-5
    (max) and 1e-4 (normalised) of the plain migrate_detect on the card,
-   the argmax tie-consistent; the same in float64 on K3 v2 f64, within
-   1e-12; migrate_map over 61 samples on M2 ring (and M2 ring f64) within
+   the argmax tie-consistent; the same in float64 on K3 v3 f64
+   (csrc/migrate_detect_global_v3.cu), within 1e-12, its per-tile max and
+   argmax bit for bit K3 v2 f64's, timed in turns with K3 v2 f64, K3 f64
+   and K3 v2; migrate_map over 61 samples on M2 ring (and M2 ring f64) within
    1e-5 (1e-12) of the plain map, each also held to M2 simple (M2 simple
    f64) and K3 v2's (K3 v2 f64's) tmax bit for bit and timed in turns
    with it; detect_reduce on a padded
@@ -206,7 +208,11 @@ Smoke run of quakemigrate_torch on one NVIDIA GPU.
    tables: M1 ring f64 and M2 ring f64 (the source on double) against M1
    f64 and M2 simple f64 (bit for bit at 100 samples and over 1,000,
    within 1e-12 over two chunks of 128, the map's max K3 v2 f64's tmax),
-   in turns with them. K3 v2 timed in turns with K3
+   in turns with them; and detect in double on the window's onsets: K3 v3
+   f64 (its streamed form at F3) held to the plain float64 reduction and
+   to K3 v2 f64 bit for bit in the per-tile max and argmax, in turns with
+   K3 v2 f64, K3 v2, K3 f64 and K3 (experiments/exp_double). K3 v2 timed
+   in turns with K3
    (csrc/migrate_detect_global.cu), with its bound, gather floor, ring,
    blocks per SM, registers and spills, and a sweep of its onsets a
    stage. Then K3 v2 at the
@@ -237,18 +243,21 @@ Smoke run of quakemigrate_torch on one NVIDIA GPU.
    once a window) and finds the planted source within a decimated node.
    double_path: a third synthetic Icequake workspace; QuakeScan with
    precision="double" over 10 s about the planted event: detect (the
-   fused STA/LTA window in float64 on the "k3" route, K3 v2 f64,
-   csrc/migrate_detect_global_v2.cu on double, once a window and
-   nothing else; each window held to the plain float64 reduction within
-   1e-12 and the .scanmseed to a device="cpu" float64 detect of 2
-   windows: one count), Trigger (exactly the planted event), locate
-   two-pass (K3 v2 f64 and M1 ring f64, csrc/migrate_marginalise_ring.cu
-   on double, on K3 v2 f64's tables) and on the map path (M2 ring f64),
+   fused STA/LTA window in float64 on the "k3" route, K3 v3 f64,
+   csrc/migrate_detect_global_v3.cu, on K3 v2 f64's tables, once a
+   window and nothing else; each window held to the plain float64
+   reduction within 1e-12, its max bit for bit K3 v2 f64's, and the
+   .scanmseed to a device="cpu" float64 detect of 2 windows: one count),
+   Trigger (exactly the planted event), locate two-pass (K3 v3 f64 and
+   M1 ring f64, csrc/migrate_marginalise_ring.cu on double, on K3 v2
+   f64's tables) and on the map path (M2 ring f64),
    nothing of M1 f64 or M2 simple f64, each against the same locate on
    the CPU in float64 (the .event within a written digit, the marginal
    and the 4-D map within 1e-12); then each float64 kernel at those
    shapes held to its plain version and timed in turns with its float32
-   form (experiments/exp_double): M1 ring f64 with M1 f64, M1 ring and
+   form (experiments/exp_double): K3 v3 f64 at the planted window with
+   K3 v2 f64 (bit for bit in the per-tile max and argmax), K3 v2, K3
+   f64 and K3; M1 ring f64 with M1 f64, M1 ring and
    M1 (bit for bit M1 f64 at locate's window), M2 ring f64 with M2
    simple f64, M2 ring and M2 simple (bit for bit M2 simple f64, its max
    K3 v2 f64's tmax). standard_path on the same
@@ -3753,9 +3762,17 @@ def f3_path(device):
     tmax bit for bit) and timed in turns with it (exp_ring), with its
     bound, gather floor, ring, registers and spills. K3 v2 timed in turns
     with K3 (CUDA events), with its bound, gather floor, ring, blocks per
-    SM, registers and spills, and a sweep of its onsets a stage."""
+    SM, registers and spills, and a sweep of its onsets a stage. In double
+    on the same window's onsets: M1 ring f64 and M2 ring f64 against M1
+    f64 and M2 simple f64 (exp_ring), and detect's K3 v3 f64 (its
+    streamed form) held to the plain float64 reduction and to K3 v2 f64,
+    in turns with K3 v2 f64, K3 v2, K3 f64 and K3 (exp_double)."""
 
-    from quakemigrate_torch.experiments import exp_global_v2, exp_ring
+    from quakemigrate_torch.experiments import (
+        exp_double,
+        exp_global_v2,
+        exp_ring,
+    )
     from quakemigrate_torch.experiments.exp_kernel_breakdown import in_turns
     from quakemigrate_torch.ops import cuda_migrate as cm
     from quakemigrate_torch.ops.migrate import (
@@ -3904,6 +3921,18 @@ def f3_path(device):
         "map": exp_ring.m2_case(case64, reps=10,
                                 tmax=exp_ring.k3_tmax(case64))}
     del case64, det64
+    # Detect in double on the window's onsets: K3 v3 f64 (the streamed
+    # form: G 3) held and in turns with K3 v2 f64, K3 v2, K3 f64 and K3
+    s64 = exp_double.setup(tt, F3_NODES, F3_FSMP, F3_NSAMPLES, device,
+                           onsets=combined.double().cpu().numpy(),
+                           n_masked=0, plan=plan)
+    s64.mask, s64.available = mask.double(), float(mask.sum())
+    for dtype, det in s64.det.items():
+        s64.prepared[dtype] = det.prepare(s64.onsets.to(dtype),
+                                          s64.mask.to(dtype), s64.available)
+    f3_double["k3"] = exp_double.detect_case(s64, "f3 double k3")
+    check(f3_double["k3"]["ok"], "f3: K3 v3 f64 does not hold")
+    del s64
     torch.cuda.empty_cache()
 
     case = exp_global_v2.setup(tt, F3_NODES, F3_FSMP, F3_NSAMPLES, device,
@@ -4521,13 +4550,15 @@ def window_case(scan, block):
 
 
 def hold_double_windows(label, scan, windows, results):
-    """Each float64 window's kernel held on the card (K3 v2 f64, or K3 f64
-    where its ring refuses the plan): the DetectScan's detector on the
-    window's prepared onsets against the plain float64 ``detect_reduce``
-    (exp_double.hold_detect: max and sum within DOUBLE_RTOL, the argmax
-    equal or tie-consistent), and the scan's max_coa and max_idx equal to
-    that launch's. These launches come after the path's counts were
-    read. ``scan`` is a DetectScan or a QuakeScan. Returns a record."""
+    """Each float64 window's kernel held on the card (K3 v3 f64, or K3 f64
+    where K3 v2 f64's ring refuses the plan): the DetectScan's detector on
+    the window's prepared onsets against the plain float64
+    ``detect_reduce`` (exp_double.hold_detect: max and sum within
+    DOUBLE_RTOL, the argmax equal or tie-consistent), the scan's max_coa
+    and max_idx equal to that launch's, and K3 v3 f64's per-tile max and
+    argmax equal to K3 v2 f64's (``v2_equal``). These launches come after
+    the path's counts were read. ``scan`` is a DetectScan or a QuakeScan.
+    Returns a record."""
 
     from types import SimpleNamespace as NS
 
@@ -4535,7 +4566,7 @@ def hold_double_windows(label, scan, windows, results):
 
     ds = getattr(scan, "detect_scan", scan)
     rec = {"max": 0.0, "sum": 0.0, "tie": 0.0, "max_abs_err": 0.0,
-           "argmax_equal": 1.0, "scan_equal": True}
+           "argmax_equal": 1.0, "scan_equal": True, "v2_equal": None}
     for w, (block, res) in enumerate(zip(windows, results)):
         tensors = block_tensors(block, ds.device)
         combined, available = ds.front_end(*tensors)
@@ -4550,9 +4581,19 @@ def hold_double_windows(label, scan, windows, results):
         held = exp_double.hold_detect(s, got)
         scan_equal = (np.array_equal(res[0], got[0].cpu().numpy())
                       and np.array_equal(res[2], got[1].cpu().numpy()))
-        check(held["ok"] and held["max"] <= DOUBLE_RTOL and scan_equal,
+        v2_equal = None
+        if detector.tables is not None:
+            v3 = detector.launch(onsets_log, inv)
+            v2 = detector.launch_v2(onsets_log, inv)
+            v2_equal = (torch.equal(v3[0], v2[0])
+                        and torch.equal(v3[1], v2[1]))
+            rec["v2_equal"] = v2_equal
+            del v3, v2
+        check(held["ok"] and held["max"] <= DOUBLE_RTOL and scan_equal
+              and v2_equal is not False,
               f"{label} window {w}: {held}, the scan's result equal to the "
-              f"kernel's {scan_equal}")
+              f"kernel's {scan_equal}, K3 v3 f64's max and argmax K3 v2 "
+              f"f64's {v2_equal}")
         for key in ("max", "sum", "tie", "max_abs_err"):
             rec[key] = max(rec[key], held[key])
         rec["argmax_equal"] = min(rec["argmax_equal"], held["argmax_equal"])
@@ -4726,17 +4767,19 @@ def locate_card_and_cpu(root, label, make_scan, trigger_file, kernels,
 def double_path(device, root, lut, archive, planted, origin, start, end):
     """double_path: QuakeScan(precision="double") on the card over the
     Icequake workspace: detect (the fused STA/LTA window in float64, the
-    "k3" route's K3 v2 f64 once a window and nothing else; each window's
-    kernel held to the plain float64 reduction within DOUBLE_RTOL and the
-    .scanmseed to the device="cpu" float64 run: one count, X/Y/Z equal
-    where the argmaxes are), Trigger (exactly the planted event), locate
-    two-pass (K3 v2 f64 and M1 ring f64 once each, on K3 v2 f64's tables,
-    nothing of M1 f64) and on the map path (M2 ring f64 once, nothing of
-    M2 simple f64), each against the same locate on the CPU in float64:
-    the .event within a digit, the marginal map and the 4-D map within
-    DOUBLE_RTOL. Then each float64 kernel at the main path's shapes (the
-    planted window's onsets; locate's) held to its plain version and timed
-    in turns with its float32 form (exp_double): M1 ring f64 through
+    "k3" route's K3 v3 f64 once a window and nothing else; each window's
+    kernel held to the plain float64 reduction within DOUBLE_RTOL and to
+    K3 v2 f64 bit for bit in the per-tile max and argmax, the .scanmseed
+    to the device="cpu" float64 run: one count, X/Y/Z equal where the
+    argmaxes are), Trigger (exactly the planted event), locate two-pass
+    (K3 v3 f64 and M1 ring f64 once each, on K3 v2 f64's tables, nothing
+    of K3 v2 f64 or M1 f64) and on the map path (M2 ring f64 once,
+    nothing of M2 simple f64), each against the same locate on the CPU in
+    float64: the .event within a digit, the marginal map and the 4-D map
+    within DOUBLE_RTOL. Then each float64 kernel at the main path's shapes
+    (the planted window's onsets; locate's) held to its plain version and
+    timed in turns with its float32 form (exp_double): K3 v3 f64 with its
+    yardstick K3 v2 f64, K3 v2, K3 f64 and K3; M1 ring f64 through
     exp_ring.m1_case in turns with M1 f64, M1 ring and M1, bit for bit M1
     f64 at locate's window (one chunk); M2 ring f64 through
     exp_ring.m2_case with M2 simple f64, M2 ring and M2 simple, bit for
@@ -4754,7 +4797,7 @@ def double_path(device, root, lut, archive, planted, origin, start, end):
 
     scan, record, windows = detect_and_hold(
         device, root, "double_detect", make, start, end, planted, "k3",
-        "migrate_detect_global_v2_f64", rtol=DOUBLE_RTOL,
+        "migrate_detect_global_v3_f64", rtol=DOUBLE_RTOL,
         rtol_n=DOUBLE_RTOL)
     check(scan.detect_scan.route_reason == "precision='double'"
           and windows[0][0][0].dtype == np.float64,
@@ -4767,7 +4810,7 @@ def double_path(device, root, lut, archive, planted, origin, start, end):
                                "double_detect")
     two_card, two_cpu, event, record["two_pass"] = locate_card_and_cpu(
         root, "double_locate", make, trigger_file,
-        {"migrate_detect_global_v2_f64": 1,
+        {"migrate_detect_global_v3_f64": 1,
          "migrate_marginalise_ring_f64": 1},
         planted, lut, write_marginal_coalescence=True)
     marg = [npy_of(d, "marginalised_coalescence_maps")
@@ -4794,6 +4837,12 @@ def double_path(device, root, lut, archive, planted, origin, start, end):
     # turns with their float32 forms on the same inputs
     s = window_case(scan, windows[record["planted_window"]][0])
     record["k3_case"] = exp_double.detect_case(s, "double k3 at the window")
+    check(record["exact"]["v2_equal"] is True
+          and record["k3_case"]["v3_launches"] == {
+              "migrate_detect_global_v3_f64": 1},
+          f"double_path: K3 v3 f64 against K3 v2 f64 "
+          f"{record['exact']['v2_equal']}, "
+          f"{record['k3_case']['v3_equal_to_v2']}")
     del s
     inp = event._marginalise_inputs
     i0, i1 = event.trim_bounds
@@ -5626,7 +5675,9 @@ def ops_path(device):
     migrate_detect calls bit for bit (max, normalised max, argmax) and
     each held to the plain migrate_detect on the card (:func:`hold_detect`:
     1e-5, 1e-4, tie-consistent), K3 v2 once a call and the detector built
-    once; the same in float64 on K3 v2 f64 (1e-12); migrate_map over
+    once; the same in float64 on K3 v3 f64 (1e-12; its per-tile max and
+    argmax K3 v2 f64's, timed in turns with K3 v2 f64, K3 f64 and K3 v2);
+    migrate_map over
     OPS_MAP_SAMPLES samples on M2 ring (on K3 v2's tables) and M2 ring
     f64 (on K3 v2 f64's) within MAP_RTOL (DOUBLE_RTOL) of the plain map;
     detect_reduce on a padded
@@ -5645,6 +5696,7 @@ def ops_path(device):
 
     from quakemigrate_torch import ops
     from quakemigrate_torch.experiments import exp_ring
+    from quakemigrate_torch.experiments.exp_kernel_breakdown import in_turns
     from quakemigrate_torch.ops import cuda_migrate as cm
     from quakemigrate_torch.ops import migrate as plain
     from quakemigrate_torch.ops import routed
@@ -5720,7 +5772,7 @@ def ops_path(device):
     torch.cuda.synchronize()
     launches = dict(cm.launches)
     expected = {"migrate_detect_global_v2": 2 * OPS_WINDOWS + 2,
-                "migrate_detect_global_v2_f64": 2 * OPS_WINDOWS,
+                "migrate_detect_global_v3_f64": 2 * OPS_WINDOWS,
                 "migrate_map_ring": 1, "migrate_map_ring_f64": 1,
                 "migrate_detect_global": 1, "migrate_detect_global_f64": 1}
     check(launches == {k: expected.get(k, 0) for k in launches},
@@ -5734,6 +5786,9 @@ def ops_path(device):
           and detectors["map_f64"].ring_refusal is None,
           "ops_path: K3 v2 refused the flat Icequake table, or took the "
           "wide one, or the ring refused the map's")
+    check(cm.global_v3_layout(detectors["f64"].layout).stage_passes == 2,
+          "ops_path: K3 v3 f64 does not take the flat table one stage an "
+          "item")
 
     # Held to the plain versions on the card (outside the guard)
     record = {"launches": launches, "nodes": n_nodes, "onsets": n_onsets,
@@ -5834,6 +5889,29 @@ def ops_path(device):
         times[key]["map_simple_ms"] = times[key]["map_ring"]["m2_simple_ms"]
         del ring_case
         del map_log
+    # K3 v3 f64 in turns with its yardstick K3 v2 f64, K3 f64 and K3 v2 on
+    # the first window, its per-tile max and argmax K3 v2 f64's
+    det64, det32 = detectors["f64"], detectors["f32"]
+    log64, inv64 = det64.prepare(f64["onsets"][0], f64["masks"][0],
+                                 f64["available"][0])
+    log32, inv32 = det32.prepare(onsets[0], masks[0], available[0])
+    v3, v2 = det64.launch(log64, inv64), det64.launch_v2(log64, inv64)
+    torch.cuda.synchronize()
+    v3_equal = torch.equal(v3[0], v2[0]) and torch.equal(v3[1], v2[1])
+    check(v3_equal, "ops_path: K3 v3 f64's max or argmax differs from K3 "
+          "v2 f64's")
+    del v3, v2
+    turns = in_turns({
+        "k3_v3_f64": lambda: det64.launch(log64, inv64),
+        "k3_v2_f64": lambda: det64.launch_v2(log64, inv64),
+        "k3_f64": lambda: det64.launch_v1(log64, inv64),
+        "k3_v2": lambda: det32.launch(log32, inv32)}, reps=20)
+    times["f64"].update(
+        turns_ms=turns, v3_equal_to_v2=v3_equal,
+        **{f"{k}_turns_ms": float(np.mean(v)) for k, v in turns.items()})
+    times["f64"]["k3_v3_ms"] = times["f64"]["k3_v3_f64_turns_ms"]
+    times["f64"]["k3_v2_ms"] = times["f64"]["k3_v2_f64_turns_ms"]
+    del log64, log32
     for key, o, m in (("wide", wide_onsets, wide_mask),
                       ("wide_f64", wide_onsets.double(), wide_mask.double())):
         det = detectors[key]
@@ -5847,6 +5925,7 @@ def ops_path(device):
     record["times"] = times
     del detectors
     routed.clear_cache()
+    print(f"ops_path f64: K3 v3 f64 in turns {turns}")
     for key in ("f32", "f64"):
         t = times[key]
         print(f"ops_path {key}: K3 v2 {t['k3_v2_ms']:.4f} ms (K3 "
@@ -6790,20 +6869,62 @@ def main():
     m1_case, m2_case = double_record["m1_case"], double_record["m2_case"]
     ring_m1, ring_m2 = m1_case["ring"], m2_case["ring"]
     double_launches = double_record["launches"]
+    f3_k3 = f3_record["double"]["k3"]
     kernels += [{
+        "name": "migrate_detect_global_v3_f64",
+        "route": "cuda",
+        "source": "quakemigrate_torch/csrc/migrate_detect_global_v3.cu",
+        "replaces": "quakemigrate_tpu/ops/migrate.py:124",
+        # the main path: QuakeScan(precision="double").detect over the
+        # archive (double_path), and its locate's pass 1; the routed
+        # ops.migrate_detect on float64 onsets (ops_path)
+        "launches": (double_launches["migrate_detect_global_v3_f64"]
+                     + double_record["two_pass"]["launches"][
+                         "migrate_detect_global_v3_f64"]),
+        "max_abs_err": max(double_record["exact"]["max_abs_err"],
+                           k3_case["k3_v3_f64"]["max_abs_err"]),
+        "max_rel_err": max(double_record["exact"]["max"],
+                           k3_case["k3_v3_f64"]["max"]),
+        # exp_double.detect_case at the planted window: in turns with K3
+        # v2 f64 (its yardstick), K3 f64, K3 v2 and K3
+        "ms": k3_case["ms"]["k3_v3_f64"],
+        "k3_v2_f64_ms": k3_case["ms"]["k3_v2_f64"],
+        "k3_f64_ms": k3_case["ms"]["k3_f64"],
+        "f32_ms": k3_case["ms"]["k3_v2"],
+        "turns_ms": k3_case["turns_ms"],
+        "plain_ms": k3_case["plain_ms"],
+        # the contract's bound (FP64 operations at FP64_FLOP_PER_S) and the
+        # 8-byte gather floor at the shared-memory rate
+        **k3_case["k3_v3_f64_bound"],
+        "fp64_flop_per_s": FP64_FLOP_PER_S,
+        "library_ms": None,
+        "ring": k3_case["v3_ring"],
+        "layout": k3_case["layout"],
+        "blocks_per_sm": k3_case["v3_blocks_per_sm"],
+        **k3_case["k3_v3_f64_resources"],
+        "equal_to_k3_v2_f64": {
+            "windows": double_record["exact"]["v2_equal"],
+            "planted_window": k3_case["v3_equal_to_v2"],
+            "f3": f3_k3["v3_equal_to_v2"]},
+        "f3": {k: f3_k3[k] for k in (
+            "ms", "turns_ms", "plain_ms", "k3_v3_f64", "k3_v3_f64_bound",
+            "v3_ring", "layout", "v3_blocks_per_sm",
+            "k3_v3_f64_resources")},
+        "double_path": {k: v for k, v in double_record.items()
+                        if k not in ("k3_case", "m1_case", "m2_case")},
+    }, {
         "name": "migrate_detect_global_v2_f64",
         "route": "cuda",
         "source": "quakemigrate_torch/csrc/migrate_detect_global_v2.cu",
         "replaces": "quakemigrate_tpu/ops/migrate.py:124",
-        # the main path: QuakeScan(precision="double").detect over the
-        # archive (double_path), and its locate's pass 1
-        "launches": (double_launches["migrate_detect_global_v2_f64"]
-                     + double_record["two_pass"]["launches"][
-                         "migrate_detect_global_v2_f64"]),
-        "max_abs_err": max(double_record["exact"]["max_abs_err"],
-                           k3_case["k3_v2_f64"]["max_abs_err"]),
-        "max_rel_err": max(double_record["exact"]["max"],
-                           k3_case["k3_v2_f64"]["max"]),
+        # redesigned as K3 v3 f64, on no path since: its launches in the
+        # planted window's case (its hold and turns), as K3 v3 f64's
+        # yardstick
+        "launches": k3_case["case_launches"]["migrate_detect_global_v2_f64"],
+        "f3_launches": f3_k3["case_launches"][
+            "migrate_detect_global_v2_f64"],
+        "max_abs_err": k3_case["k3_v2_f64"]["max_abs_err"],
+        "max_rel_err": k3_case["k3_v2_f64"]["max"],
         "ms": k3_case["ms"]["k3_v2_f64"],
         "f32_ms": k3_case["ms"]["k3_v2"],
         "turns_ms": k3_case["turns_ms"],
@@ -6814,8 +6935,8 @@ def main():
         "layout": k3_case["layout"],
         "blocks_per_sm": k3_case["blocks_per_sm"],
         **k3_case["k3_v2_f64_resources"],
-        "double_path": {k: v for k, v in double_record.items()
-                        if k not in ("k3_case", "m1_case", "m2_case")},
+        "f3": {"ms": f3_k3["ms"]["k3_v2_f64"],
+               "k3_v2_f64": f3_k3["k3_v2_f64"]},
     }, {
         "name": "migrate_detect_global_f64",
         "route": "cuda",
@@ -6970,10 +7091,15 @@ def main():
             "plain_ms": t32["plain_ms"], **t32["bound"],
             "errors": ops_record["detect_f32"], "slab": ops_record["slab"],
             **geometry},
-        "migrate_detect_global_v2_f64": {
-            "ms": t64["k3_v2_ms"], "call_ms": t64["call_ms"],
+        "migrate_detect_global_v3_f64": {
+            "ms": t64["k3_v3_ms"], "call_ms": t64["call_ms"],
             "plain_ms": t64["plain_ms"], **t64["bound"],
+            "turns_ms": t64["turns_ms"],
+            "equal_to_k3_v2_f64": t64["v3_equal_to_v2"],
             "errors": ops_record["detect_f64"]},
+        "migrate_detect_global_v2_f64": {
+            "ms": t64["k3_v2_ms"], "turns_ms": t64["turns_ms"],
+            "plain_ms": t64["plain_ms"], **t64["bound"]},
         "migrate_detect_global": {
             "ms": times["wide"]["k3_ms"], "icequake_ms": t32["k3_ms"],
             "plain_ms": times["wide"]["plain_ms"], **times["wide"]["bound"],

@@ -143,6 +143,11 @@ SIGNATURES = {
     "qm_migrate_detect_global_v2_f64": (
         [_VOID_P, _INT] + [_VOID_P] * 5 + _OUTS + [_INT] * 9 + [_VOID_P]
     ),
+    # L, ld, base, res, flat, win, inv_available, outs, O, tiles, fsmp,
+    # S, group, stage_floats, stage_passes, n_stages, npp, unroll, stream
+    "qm_migrate_detect_global_v3_f64": (
+        [_VOID_P, _INT] + [_VOID_P] * 5 + _OUTS + [_INT] * 10 + [_VOID_P]
+    ),
     # L, t_len, base, fine, valid, perm, inv_available, out, partial,
     # partial_rows, n_nodes, O, tiles, tile, col0, len, stream
     "qm_migrate_marginalise": (
@@ -201,6 +206,8 @@ SIGNATURES = {
     # (warps, npp, group, stage_floats, n_stages)
     "qm_migrate_detect_global_v2_blocks_per_sm": [_INT] * 5,
     "qm_migrate_detect_global_v2_f64_blocks_per_sm": [_INT] * 5,
+    # (npp, unroll, group, stage_floats, stage_passes, n_stages)
+    "qm_migrate_detect_global_v3_f64_blocks_per_sm": [_INT] * 6,
     # (O, a_sum, a_max, fuse) and (a_sum)
     "qm_migrate_detect_x16g_blocks_per_sm": [_INT] * 4,
     "qm_migrate_detect_x16g_v2_blocks_per_sm": [_INT],

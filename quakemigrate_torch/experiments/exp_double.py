@@ -1,8 +1,9 @@
 # -*- coding: utf-8 -*-
 """
-The float64 forms of the "k3" route's kernels, which
-``QuakeScan(precision="double")`` runs, on the card: K3 v2 f64 and K3 f64
-(``csrc/migrate_detect_global_v2.cu``, ``csrc/migrate_detect_global.cu``:
+The float64 kernels of the "k3" route, which
+``QuakeScan(precision="double")`` runs, on the card: K3 v3 f64, its
+yardstick K3 v2 f64 and K3 f64 (``csrc/migrate_detect_global_v3.cu``,
+``csrc/migrate_detect_global_v2.cu``, ``csrc/migrate_detect_global.cu``:
 the reference's ``detect_reduce`` in float64), M1 f64 and M2 simple f64
 (``csrc/migrate_marginalise.cu``: ``migrate_marginalise`` and
 ``migrate_map``). Each case holds the float64 kernel to its plain float64
@@ -11,7 +12,10 @@ float32 form on the same case (the onsets cast to float32):
 
 - detect at the Icequake window (71 x 64 x 57 nodes, 24 onsets, 625
   samples) and at F3 (40 x 40 x 16 nodes at 10 km, 24 onsets, 1,000
-  samples): K3 v2 f64, K3 v2, K3 f64, K3;
+  samples): K3 v3 f64, K3 v2 f64, K3 v2, K3 f64, K3 in turns, K3 v3
+  f64's tmax and targ bit for bit K3 v2 f64's;
+- detect on the Icequake window's table as the routed ``ops`` plan it
+  (runs of 256 flat nodes, ``ops/routed.py``): the same kernels;
 - detect on a plan too wide for K3 v2 f64's ring of doubles (a
   15,000-sample span on a 4 x 4 x 4 grid): K3 f64 and K3;
 - locate's pass 2 in double on the Icequake plan at 30 and 300 samples:
@@ -33,15 +37,21 @@ Bounds: the bytes the function moves (inputs read once, outputs written
 once) at 3.35 TB/s, and its operations at 34 TFLOP/s, the H100 SXM's
 float64 rate outside the tensor cores (NVIDIA's data sheet; its float32
 forms at 67 TFLOP/s): K3 f64, M1 f64 and M2 simple f64 on their int32
-traveltimes, K3 v2 f64 on its tables, the rings on theirs
-(``exp_ring.bound``, with the gather floor). Times are CUDA-event
-milliseconds per launch. Requires CUDA; exits non-zero
+traveltimes, K3 v3 f64 and K3 v2 f64 on their tables, with detect's
+gather floor (real nodes x O x S reads of the element at 33.5 TB/s), the
+rings on theirs (``exp_ring.bound``, with the gather floor). Times are
+CUDA-event milliseconds per launch. Requires CUDA; exits non-zero
 without it.
 
-    python3 -m quakemigrate_torch.experiments.exp_double
+    python3 -m quakemigrate_torch.experiments.exp_double [OPTION]
+
+Options: ``--detect``, the detect cases alone; ``--align``, the Icequake
+window's :func:`alignment_probe` alone; ``--forms``, :func:`form_probe`
+at the Icequake window and F3 alone.
 
 """
 
+import functools
 import json
 import sys
 from types import SimpleNamespace
@@ -64,9 +74,14 @@ HBM_BYTES_PER_S = 3.35e12
 # Peak rates outside the tensor cores (H100 SXM data sheet)
 FP32_FLOP_PER_S = 67e12
 FP64_FLOP_PER_S = 34e12
+# Shared-memory bandwidth of the H100 SXM (32 banks x 4 bytes x 132 SMs x
+# 1980 MHz): detect's gather floor
+SMEM_BYTES_PER_S = 33.5e12
 F64 = torch.float64
 # ptxas's names of the float64 kernels (mangled, with the element type)
-F64_KERNELS = {"k3_v2_f64": "qm_global_v2_kernelILi16ELi8ELi1EdE",
+F64_KERNELS = {"k3_v3_f64": "qm_global_v3_f64_kernelILi4ELi2EE",
+               "k3_v3_f64_streamed": "qm_global_v3_f64_kernelILi8ELi1EE",
+               "k3_v2_f64": "qm_global_v2_kernelILi16ELi8ELi1EdE",
                "k3_f64": "qm_migrate_detect_global_kernelIdE",
                "m1_f64": "qm_migrate_marginalise_kernelIdE",
                "m2_simple_f64": "qm_migrate_map_kernelIdE"}
@@ -75,14 +90,16 @@ WIDE_SPAN = 15_000
 
 
 def setup(tt, node_count, fsmp, nsamples, device, onsets=None, rng=None,
-          n_masked=2):
-    """A case on ``device``: the plan of ``tt``, float64 onsets (``onsets``,
+          n_masked=2, plan=None):
+    """A case on ``device``: the plan of ``tt`` (or ``plan``), float64
+    onsets (``onsets``,
     or gamma onsets from ``rng`` long enough for the plan) with
     ``n_masked`` rows masked out, and CudaDetectGlobal's float64 and
     float32 detectors on the plan with their prepared onsets."""
 
     device = torch.device(device)
-    plan = cm.DetectPlan(tt, node_count)
+    if plan is None:
+        plan = cm.DetectPlan(tt, node_count)
     if onsets is None:
         onsets = rng.gamma(2.0, 1.5, size=(
             plan.n_onsets, fsmp + nsamples + plan.max_shift + 7))
@@ -121,7 +138,9 @@ def detect_bound(s, itemsize=8, v2=True):
     the kernel's tables (K3 v2: the plan's base, uint16 residuals, flat
     table and windows; K3: the flat int32 traveltimes) and inv_available
     read once, the three [n_tiles, S] outputs written once; O adds and
-    four more operations a real node and sample."""
+    four more operations a real node and sample; and the gather floor,
+    the real nodes' O x S reads of ``itemsize`` bytes from shared
+    memory."""
 
     plan = s.plan
     n_onsets, t_len = s.onsets.shape
@@ -135,8 +154,10 @@ def detect_bound(s, itemsize=8, v2=True):
         tables = 4 * plan.n_nodes * n_onsets
     nbytes = (itemsize * n_onsets * t_len + tables + itemsize
               + (2 * itemsize + 4) * tiles * s.nsamples)
-    return roofline(nbytes, n_real * s.nsamples * (n_onsets + 4),
-                    _rate(itemsize))
+    return {**roofline(nbytes, n_real * s.nsamples * (n_onsets + 4),
+                       _rate(itemsize)),
+            "gather_floor_ms": itemsize * n_real * n_onsets * s.nsamples
+            / SMEM_BYTES_PER_S * 1e3}
 
 
 def _columns(s, length):
@@ -237,11 +258,20 @@ def resources(name):
             if k != "wgmma_serialized"}
 
 
+def v3_form(det):
+    """The F64_KERNELS name of K3 v3 f64's form on the detector's tables:
+    one stage an item, or streamed."""
+
+    ring = cm.global_v3_layout(det.layout)
+    return "k3_v3_f64" if ring.stage_passes == 2 else "k3_v3_f64_streamed"
+
+
 def detect_case(s, label, reps=REPS):
-    """Detect on the case: the route's float64 kernel (K3 v2 f64 where
-    its ring holds the plan, else K3 f64) and K3 f64 held to the plain
-    version, then timed in turns with their float32 forms. Returns a
-    record."""
+    """Detect on the case: the route's float64 kernel (K3 v3 f64 where K3
+    v2 f64's ring holds the plan, else K3 f64), its yardstick K3 v2 f64
+    and K3 f64 held to the plain version, K3 v3 f64's per-tile tmax and
+    targ to K3 v2 f64's bit for bit, then all timed in turns with the
+    float32 forms. Returns a record."""
 
     det, det32 = s.det[F64], s.det[torch.float32]
     log64, inv64 = s.prepared[F64]
@@ -258,26 +288,54 @@ def detect_case(s, label, reps=REPS):
     fns = {"k3_f64": lambda: det.launch_v1(log64, inv64),
            "k3": lambda: det32.launch_v1(log32, inv32)}
     if det.tables is not None:
-        record["k3_v2_f64"] = hold_detect(s, det.reduce_log(log64, inv64),
-                                          ref)
-        record.update(k3_v2_f64_bound=detect_bound(s, 8),
-                      k3_v2_bound=detect_bound(s, 4),
-                      layout={k: getattr(det.layout, k) for k in (
-                          "shape", "group", "n_stages", "stage_floats",
-                          "smem")},
-                      blocks_per_sm=cm.global_v2_blocks_per_sm(det.layout,
-                                                               s.device),
-                      k3_v2_f64_resources=resources("k3_v2_f64"))
-        fns = {"k3_v2_f64": lambda: det.launch(log64, inv64),
+        cm.reset_launches()
+        got = det.reduce_log(log64, inv64)
+        torch.cuda.synchronize()
+        launched = {k: n for k, n in cm.launches.items() if n}
+        record["k3_v3_f64"] = hold_detect(s, got, ref)
+        record["k3_v2_f64"] = hold_detect(s, cm.combine_brick_tiles(
+            *det.launch_v2(log64, inv64)), ref)
+        v3, v2 = det.launch(log64, inv64), det.launch_v2(log64, inv64)
+        torch.cuda.synchronize()
+        ring = cm.global_v3_layout(det.layout)
+        record.update(
+            v3_launches=launched,
+            v3_equal_to_v2={"tmax": torch.equal(v3[0], v2[0]),
+                            "targ": torch.equal(v3[1], v2[1]),
+                            "tsum": rel(v3[2], v2[2])},
+            k3_v3_f64_bound=detect_bound(s, 8),
+            k3_v2_f64_bound=detect_bound(s, 8),
+            k3_v2_bound=detect_bound(s, 4),
+            layout={k: getattr(det.layout, k) for k in (
+                "shape", "group", "n_stages", "stage_floats", "smem")},
+            v3_ring=vars(ring),
+            v3_blocks_per_sm=cm.global_v3_blocks_per_sm(det.layout,
+                                                        s.device),
+            blocks_per_sm=cm.global_v2_blocks_per_sm(det.layout, s.device),
+            k3_v3_f64_resources=resources(v3_form(det)),
+            k3_v2_f64_resources=resources("k3_v2_f64"))
+        record["k3_v3_f64"]["ok"] = bool(
+            record["k3_v3_f64"]["ok"] and launched == {
+                "migrate_detect_global_v3_f64": 1}
+            and record["v3_equal_to_v2"]["tmax"]
+            and record["v3_equal_to_v2"]["targ"]
+            and record["v3_equal_to_v2"]["tsum"] <= RTOL)
+        del got, v3, v2
+        fns = {"k3_v3_f64": lambda: det.launch(log64, inv64),
+               "k3_v2_f64": lambda: det.launch_v2(log64, inv64),
                "k3_v2": lambda: det32.launch(log32, inv32), **fns}
         if det32.tables is None:
             del fns["k3_v2"]
     turns = ekb.in_turns(fns, reps)
+    if det.tables is not None:
+        # The launches since K3 v3 f64's hold: K3 v2 f64's as its yardstick
+        record["case_launches"] = {k: n for k, n in cm.launches.items()
+                                   if n}
     record["turns_ms"] = turns
     record["ms"] = {name: float(np.mean(ms)) for name, ms in turns.items()}
     record["plain_ms"] = plain_ms(lambda: plain_detect(s))
-    record["ok"] = all(record[k]["ok"] for k in ("k3_f64", "k3_v2_f64")
-                       if k in record)
+    record["ok"] = all(record[k]["ok"] for k in (
+        "k3_f64", "k3_v2_f64", "k3_v3_f64") if k in record)
     print(f"{label}: " + json.dumps({k: v for k, v in record.items()
                                      if k != "turns_ms"}))
     return record
@@ -406,7 +464,7 @@ def map_case(s, reps=REPS):
     f32 = {"m2_simple_f32": _m2_simple(det32, p32)}
     if det32.ring_refusal is None:
         f32["m2_ring_f32"] = lambda: det32.map(*p32)
-    tmax = (cm.combine_brick_tiles(*det.launch(*p64))[0] if ring
+    tmax = (cm.combine_brick_tiles(*det.launch_v2(*p64))[0] if ring
             else None)
     record["ring"], record["ms"] = _in_turns(
         s, exp_ring.m2_case, "m2_simple", _m2_simple(det, p64), f32, reps,
@@ -441,16 +499,97 @@ def icequake_setup(nsamples, device):
                  onsets=onsets.astype(np.float64))
 
 
-def run(device="cuda"):
-    """Every case; returns {name: record}."""
+def flat_setup(nsamples, device):
+    """The Icequake window's traveltimes as a flat table, planned as the
+    routed ``ops`` functions plan it: an (N, 1, 1) grid of 256-node flat
+    runs."""
+
+    dims, tt, onsets = workload(nsamples, fsmp=ekb.FSMP)
+    grid = (tt.shape[0], 1, 1)
+    plan = cm.DetectPlan(tt, grid, tile=cm.GLOBAL_V2_TILE,
+                         brick_shape=(cm.GLOBAL_V2_TILE, 1, 1))
+    return setup(tt, grid, ekb.FSMP, nsamples, device,
+                 onsets=onsets.astype(np.float64), plan=plan)
+
+
+def alignment_probe(s, reps=REPS):
+    """Where a warp's shared-memory reads of a window start: K3 v3 f64,
+    K3 v2 f64 and K3 v2 on the case's tables as built (each read at the
+    node's entry, any element), and on copies of them whose entries are
+    rounded down to a multiple of 2 doubles (16 bytes) or of 128 bytes (16
+    doubles, 32 floats), in turns. The rounded tables read other samples,
+    so only their times are kept: the cost of a read's alignment in the
+    gather. Returns {name: mean ms}."""
+
+    det, det32 = s.det[F64], s.det[torch.float32]
+    log64, inv64 = s.prepared[F64]
+    log32, inv32 = s.prepared[torch.float32]
+
+    def rounded(tables, unit):
+        res = tables.res.to(torch.int32)
+        return SimpleNamespace(**{**vars(tables), "res": (
+            res - res % unit).to(torch.uint16).contiguous()})
+
+    fns = {}
+    for name, unit in (("as_built", 1), ("16_bytes", 2), ("128_bytes", 16)):
+        t64 = det.tables if unit == 1 else rounded(det.tables, unit)
+        t32 = det32.tables if unit == 1 else rounded(det32.tables,
+                                                     2 * unit)
+        fns[f"k3_v3_f64_{name}"] = functools.partial(
+            cm.migrate_detect_global_v3_f64_cuda, log64, det.base, inv64,
+            s.fsmp, s.nsamples, t64, det._max_shift)
+        fns[f"k3_v2_f64_{name}"] = functools.partial(
+            cm.migrate_detect_global_v2_cuda, log64, det.base, inv64, s.fsmp,
+            s.nsamples, t64, det._max_shift)
+        fns[f"k3_v2_{name}"] = functools.partial(
+            cm.migrate_detect_global_v2_cuda, log32, det32.base, inv32,
+            s.fsmp, s.nsamples, t32, det32._max_shift)
+    turns = ekb.in_turns(fns, reps)
+    ms = {name: float(np.mean(t)) for name, t in turns.items()}
+    print("alignment probe: " + json.dumps(ms))
+    return ms
+
+
+def form_probe(s, reps=REPS):
+    """K3 v3 f64 on the case in each form it is built for
+    (``GLOBAL_V3_FORMS``: nodes a warp a round and the onset loop's
+    unrolling) on its ring, in turns with K3 v2 f64; each held
+    to K3 v2 f64's max and argmax bit for bit. Returns {name: mean ms}."""
+
+    det = s.det[F64]
+    log64, inv64 = s.prepared[F64]
+    fns = {f"k3_v3_f64_npp{npp}_unroll{unroll}": functools.partial(
+        cm.migrate_detect_global_v3_f64_cuda, log64, det.base, inv64,
+        s.fsmp, s.nsamples, det.tables, det._max_shift, (npp, unroll))
+        for npp, unroll in cm.GLOBAL_V3_FORMS}
+    fns["k3_v2_f64"] = lambda: det.launch_v2(log64, inv64)
+    want = fns["k3_v2_f64"]()
+    for name in list(fns)[:-1]:
+        got = fns[name]()
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    turns = ekb.in_turns(fns, reps)
+    ms = {name: float(np.mean(t)) for name, t in turns.items()}
+    print("form probe: " + json.dumps(ms))
+    return ms
+
+
+def run(device="cuda", detect_only=False):
+    """Every case (the detect cases alone with ``detect_only``); returns
+    {name: record}."""
 
     rng = np.random.default_rng(2040)
     out = {}
     ice = icequake_setup(ICEQUAKE_NSAMPLES, device)
     out["icequake"] = detect_case(ice, "icequake")
     del ice
+    out["flat"] = detect_case(flat_setup(ICEQUAKE_NSAMPLES, device),
+                              "icequake flat table")
+    torch.cuda.empty_cache()
     out["f3"] = detect_case(setup(f3_traveltimes(rng), F3_NODES, F3_FSMP,
                                   F3_NSAMPLES, device, rng=rng), "f3")
+    if detect_only:
+        return out
     tt, dims = wide_traveltimes()
     out["wide"] = detect_case(setup(tt, dims, 200, 300, device, rng=rng,
                                     n_masked=0), f"span {WIDE_SPAN}")
@@ -462,11 +601,22 @@ def run(device="cuda"):
 
 
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         raise SystemExit("exp_double: CUDA is not available")
     _build.load_library()
     print(torch.cuda.get_device_name(0))
-    records = run()
+    print(json.dumps({name: resources(name) for name in F64_KERNELS}))
+    if "--align" in argv:
+        alignment_probe(icequake_setup(ICEQUAKE_NSAMPLES, "cuda"))
+        return
+    if "--forms" in argv:
+        form_probe(icequake_setup(ICEQUAKE_NSAMPLES, "cuda"))
+        rng = np.random.default_rng(2040)
+        form_probe(setup(f3_traveltimes(rng), F3_NODES, F3_FSMP,
+                         F3_NSAMPLES, "cuda", rng=rng))
+        return
+    records = run(detect_only="--detect" in argv)
     bad = [name for name, r in records.items() if not r["ok"]]
     if bad:
         raise SystemExit(f"exp_double: {bad} do not hold")

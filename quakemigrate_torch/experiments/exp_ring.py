@@ -417,7 +417,8 @@ def m2_case(s, reps=REPS, tmax=None, extra=None):
 
 def k3_tmax(s):
     """K3 v2's per-sample max on the case's detector (its tables), the
-    reference of M2 ring's max."""
+    reference of M2 ring's max; in float64 the route's K3 v3 f64, whose
+    max is K3 v2 f64's bit for bit."""
 
     return cm.combine_brick_tiles(*s.det.launch(s.onsets_log, s.inv))[0]
 

@@ -28,6 +28,12 @@ loads and stores (LDL, STL: register spills).
     python3 -m quakemigrate_torch.experiments.sass_loops --e1-v2
     python3 -m quakemigrate_torch.experiments.sass_loops --vpu
 
+``--compare DIR`` prints instead which kernels' machine code differs
+between this tree's library and the one the checkout at DIR (another
+commit of the repository) builds, kernel by kernel.
+
+    python3 -m quakemigrate_torch.experiments.sass_loops --compare DIR
+
 """
 
 import argparse
@@ -106,6 +112,15 @@ def _cuobjdump():
                      "CUDA_HOME")
 
 
+def kernels_sass(lib):
+    """``parse_sass`` of ``cuobjdump -sass`` of the library ``lib``."""
+
+    return parse_sass(subprocess.run(
+        [_cuobjdump(), "-sass", str(lib)], capture_output=True, text=True,
+        check=True,
+    ).stdout)
+
+
 def census(patterns):
     """Loops of every built kernel whose mangled name contains one of
     ``patterns``: {name: (instructions, [loop records with shared-memory
@@ -113,12 +128,8 @@ def census(patterns):
 
     from quakemigrate_torch import _build
 
-    text = subprocess.run(
-        [_cuobjdump(), "-sass", str(_build.build())], capture_output=True,
-        text=True, check=True,
-    ).stdout
     found = {}
-    for name, instrs in parse_sass(text).items():
+    for name, instrs in kernels_sass(_build.build()).items():
         if not any(p in name for p in patterns):
             continue
         recs = [rec for rec in loops(instrs)
@@ -155,6 +166,27 @@ def print_census(found):
                      f"{rec['n'] / rec['fadd']:.3f} a node-onset-sample"))
 
 
+def compare(other_root):
+    """This tree's kernels against those of the library that the checkout
+    at ``other_root`` builds (its own ``_build``, in a subprocess): {"same",
+    "differ", "only_here", "only_there": sorted kernel names}, a kernel
+    the same where its instructions are equal one for one."""
+
+    from quakemigrate_torch import _build
+
+    other_lib = subprocess.run(
+        [sys.executable, "-c", "from quakemigrate_torch import _build; "
+         "print(_build.build())"], cwd=other_root,
+        env={**os.environ, "PYTHONPATH": str(other_root)},
+        capture_output=True, text=True, check=True).stdout.split()[-1]
+    here, there = kernels_sass(_build.build()), kernels_sass(other_lib)
+    both = set(here) & set(there)
+    return {"same": sorted(k for k in both if here[k] == there[k]),
+            "differ": sorted(k for k in both if here[k] != there[k]),
+            "only_here": sorted(set(here) - set(there)),
+            "only_there": sorted(set(there) - set(here))}
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("patterns", nargs="*", default=DEFAULT_PATTERNS,
@@ -165,7 +197,17 @@ def main(argv=None):
                         help="also census K2 v1 and K2 v2")
     parser.add_argument("--global", dest="global_", action="store_true",
                         help="also census K3 and K3 v2")
+    parser.add_argument("--compare", metavar="DIR",
+                        help="compare every kernel's machine code with "
+                             "the library of the checkout at DIR")
     opts = parser.parse_args(argv)
+    if opts.compare:
+        diff = compare(opts.compare)
+        print({k: len(v) for k, v in diff.items()})
+        for key in ("differ", "only_here", "only_there"):
+            for name in diff[key]:
+                print(f"{key}: {name}")
+        return
     patterns = (list(opts.patterns) + list(E1_V2_PATTERNS if opts.e1_v2
                                             else ())
                 + list(VPU_PATTERNS if opts.vpu else ())

@@ -17,7 +17,10 @@ plan) and ``csrc/migrate_marginalise_v2.cu`` (M1 v2, M1 on K1 v2's
 tables), whose plain version is ``ops.migrate.migrate_marginalise``, and
 of M2, locate's coalescence map on the same two sources (its main form on
 M1 v2's staging, its simple form on M1's gather), whose plain version is
-``ops.migrate.migrate_map``; and of M1 ring and M2 ring
+``ops.migrate.migrate_map``; of ``csrc/migrate_detect_global_v3.cu`` (K3
+v3 f64, K3 v2 f64's function redesigned for doubles: a persistent ring
+that stages each item once on K3 v2 f64's tables, the route's kernel in
+float64); and of M1 ring and M2 ring
 (``csrc/migrate_marginalise_ring.cu``), the same two functions on K3 v2's
 ring of onset windows and tables, locate's pass 2 and map on the routes
 whose plans K1 v2 does not stage (``CudaDetectGlobal``,
@@ -131,6 +134,16 @@ GLOBAL_V2_WIDE_SHAPE = (16, 16)
 # shape built on double, two passes of 16 warps x 8 nodes, one block an SM
 # (its accumulators take twice float's registers)
 GLOBAL_V2_SHAPES_F64 = {(16, 8): 1}
+# K3 v3 f64 (csrc/migrate_detect_global_v3.cu: GW_FORMS, GW_WARPS): the
+# forms it is built for, (nodes a warp takes a round, the onset loop's
+# unrolling); the form it runs by the passes of residual slices a stage
+# holds: 2 where one stage holds a whole item (every window, both passes),
+# 1 where a stage holds G windows and one pass (the fastest of a sweep on
+# the H100 at the Icequake window and F3, recorded in PERF.md); 16 warps,
+# one persistent block an SM
+GLOBAL_V3_FORMS = ((4, 2), (8, 1), (8, 2), (4, 4), (2, 4))
+GLOBAL_V3_FORM = {2: (4, 2), 1: (8, 1)}
+GLOBAL_V3_WARPS = 16
 
 # M1 ring and M2 ring (csrc/migrate_marginalise_ring.cu: MR_CHUNK,
 # MR_SBLK, MR_SHAPES): the window samples a block of M1 ring takes (124,
@@ -155,8 +168,8 @@ SMEM_BLOCK_RESERVE = 1024
 
 # Launches of K1, K1 v2, K2, K2 v2, K3, K3 v2, M1, M1 v2 and M2 (main and
 # simple form), of the float64 forms of K3, K3 v2, M1 and M2's simple
-# form, and of M1 ring and M2 ring and their float64 forms, counted by
-# their wrappers where they launch
+# form, of K3 v3 f64, and of M1 ring and M2 ring and their float64 forms,
+# counted by their wrappers where they launch
 launches = {"migrate_detect": 0, "migrate_detect_v2": 0,
             "migrate_detect_vpu": 0, "migrate_detect_vpu_v2": 0,
             "migrate_detect_global": 0, "migrate_detect_global_v2": 0,
@@ -164,6 +177,7 @@ launches = {"migrate_detect": 0, "migrate_detect_v2": 0,
             "migrate_map": 0, "migrate_map_v2": 0,
             "migrate_detect_global_f64": 0,
             "migrate_detect_global_v2_f64": 0,
+            "migrate_detect_global_v3_f64": 0,
             "migrate_marginalise_f64": 0, "migrate_map_f64": 0,
             "migrate_marginalise_ring": 0, "migrate_map_ring": 0,
             "migrate_marginalise_ring_f64": 0, "migrate_map_ring_f64": 0}
@@ -1701,6 +1715,37 @@ def migrate_detect_global_v2_cuda(onsets_log, base, inv_available, fsmp,
     t = tables
     layout = t.layout
     dtype = layout.dtype
+    n_onsets, n_tiles = _check_global_v2(
+        onsets_log, base, inv_available, fsmp, nsamples, t, max_shift,
+        global_v2_smem(layout.shape, layout.stage_floats, layout.group,
+                       layout.n_stages, dtype),
+        f"K3 v2's {layout.n_stages} ring stages of {layout.group} windows")
+    device = onsets_log.device
+    rows, pitch = row_pitch(onsets_log)
+    outs = empty_outputs(n_tiles, nsamples, device, dtype)
+    launch_kernel(
+        typed("qm_migrate_detect_global_v2", dtype), device,
+        rows.data_ptr(), pitch, base.data_ptr(), t.res.data_ptr(),
+        t.flat.data_ptr(), t.win.data_ptr(), inv_available.data_ptr(),
+        *(x.data_ptr() for x in outs), n_onsets, n_tiles, fsmp, nsamples,
+        layout.group, layout.stage_floats, layout.n_stages, *layout.shape,
+    )
+    launches[typed("migrate_detect_global_v2", dtype)] += 1
+    return outs
+
+
+def _check_global_v2(onsets_log, base, inv_available, fsmp, nsamples,
+                     tables, max_shift, smem, what):
+    """The checks of K3 v2's wrapper (and K3 v3 f64's) before a launch on
+    ``tables`` (:func:`global_v2_tables`): built for this ``fsmp``, a
+    shape and depth K3 v2 is built for on the tables' type, the block's
+    ``smem`` bytes (``what`` they hold, in words), the tensors' devices,
+    types, contiguity and shapes, the geometry, a CUDA device. Returns
+    (n_onsets, n_tiles)."""
+
+    t = tables
+    layout = t.layout
+    dtype = layout.dtype
     shapes = global_v2_shapes(dtype)
     if t.fsmp != fsmp:
         raise ValueError(f"the tables were built for fsmp {t.fsmp}, not "
@@ -1713,10 +1758,7 @@ def migrate_detect_global_v2_cuda(onsets_log, base, inv_available, fsmp,
                          f"{GLOBAL_V2_STAGES}")
     if nsamples < 1 or -(-nsamples // GLOBAL_V2_SBLK) > 65535:
         raise ValueError(f"bad geometry: nsamples {nsamples}")
-    check_smem(global_v2_smem(layout.shape, layout.stage_floats,
-                              layout.group, layout.n_stages, dtype),
-               f"K3 v2's {layout.n_stages} ring stages of {layout.group} "
-               "windows")
+    check_smem(smem, what)
     device = onsets_log.device
     for name, x, want in (("onsets_log", onsets_log, dtype),
                           ("base", base, torch.int32),
@@ -1752,17 +1794,7 @@ def migrate_detect_global_v2_cuda(onsets_log, base, inv_available, fsmp,
         raise ValueError("the residual table must be 16-byte aligned")
     if device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {device}")
-    rows, pitch = row_pitch(onsets_log)
-    outs = empty_outputs(n_tiles, nsamples, device, dtype)
-    launch_kernel(
-        typed("qm_migrate_detect_global_v2", dtype), device,
-        rows.data_ptr(), pitch, base.data_ptr(), t.res.data_ptr(),
-        t.flat.data_ptr(), t.win.data_ptr(), inv_available.data_ptr(),
-        *(x.data_ptr() for x in outs), n_onsets, n_tiles, fsmp, nsamples,
-        layout.group, layout.stage_floats, layout.n_stages, *layout.shape,
-    )
-    launches[typed("migrate_detect_global_v2", dtype)] += 1
-    return outs
+    return n_onsets, n_tiles
 
 
 def global_v2_blocks_per_sm(layout, device):
@@ -1774,6 +1806,118 @@ def global_v2_blocks_per_sm(layout, device):
             else "qm_migrate_detect_global_v2_blocks_per_sm")
     return blocks_per_sm(name, device, *layout.shape, layout.group,
                          layout.stage_floats, layout.n_stages)
+
+
+def global_v3_smem(stage_floats, group, stage_passes, n_stages):
+    """
+    Shared-memory bytes of one K3 v3 f64 block
+    (csrc/migrate_detect_global_v3.cu: gw_smem_bytes): ``n_stages`` ring
+    stages, each ``stage_floats`` doubles of windows and ``stage_passes``
+    x ``group`` residual slices of 128 uint16 (rounded up to 128 bytes),
+    the scratch of the item's fold (16 warps x 128 samples of a max and a
+    sum of 8 bytes and a 4-byte argmax), ``n_stages`` + 1 mbarriers and
+    as many counters (8 bytes each).
+
+    """
+
+    slice_ = GLOBAL_V2_TILE // 2
+    stage = round_up(8 * stage_floats + 2 * stage_passes * group * slice_,
+                     128)
+    return (n_stages * stage + 20 * GLOBAL_V3_WARPS * GLOBAL_V2_SBLK
+            + 8 * (2 * n_stages + 2))
+
+
+def global_v3_layout(layout):
+    """
+    K3 v3 f64's ring on K3 v2 f64's tables, whose ring ``layout``
+    (:func:`global_v2_layout` in float64, shape (16, 8)) fixes each
+    window's offset in a stage: a namespace with ``stage_passes`` (2, one
+    stage an item, where the layout's one group holds every onset and two
+    such stages fit a block; else 1, a stage of G windows and one pass's
+    slices, K3 v2 f64's stage), ``npp`` and ``unroll``, its form
+    (:data:`GLOBAL_V3_FORM`), the deepest ``n_stages`` of
+    :data:`GLOBAL_V2_STAGES` that fits one block an SM and the block's
+    ``smem`` bytes; or None where none fits (not on a layout K3 v2 f64
+    takes: its stages plus 16 bytes of barriers). Reads nothing from the
+    card.
+
+    """
+
+    if layout.dtype != torch.float64 or layout.shape not in \
+            GLOBAL_V2_SHAPES_F64:
+        raise ValueError(f"K3 v3 f64 takes K3 v2 f64's layout (float64, "
+                         f"{tuple(GLOBAL_V2_SHAPES_F64)}), not "
+                         f"{layout.dtype} {layout.shape}")
+    n_onsets = len(layout.win)
+    budget = global_v2_budget(layout.shape, layout.dtype)
+    for passes in ((2, 1) if layout.group >= n_onsets else (1,)):
+        depths = [n for n in GLOBAL_V2_STAGES if global_v3_smem(
+            layout.stage_floats, layout.group, passes, n) <= budget]
+        if depths:
+            n_stages = max(depths)
+            npp, unroll = GLOBAL_V3_FORM[passes]
+            return SimpleNamespace(
+                stage_passes=passes, npp=npp, unroll=unroll,
+                n_stages=n_stages, smem=global_v3_smem(
+                    layout.stage_floats, layout.group, passes, n_stages))
+    return None
+
+
+def migrate_detect_global_v3_f64_cuda(onsets_log, base, inv_available, fsmp,
+                                      nsamples, tables, max_shift,
+                                      form=None):
+    """
+    Launch K3 v3 f64 (``csrc/migrate_detect_global_v3.cu``) on float64
+    tensors on the card: K3 v2 f64's function on K3 v2 f64's ``tables``
+    (:func:`global_v2_tables` in float64, built for this ``fsmp``), on a
+    persistent ring (:func:`global_v3_layout`) that stages an item (a
+    tile x 128 samples) once where one stage holds all its windows.
+    Checks as :func:`migrate_detect_global_v2_cuda`, and raises on float32
+    tables. ``form`` (one of :data:`GLOBAL_V3_FORMS`) overrides the
+    ring's (:data:`GLOBAL_V3_FORM`), for experiments. Returns (tmax, targ
+    int32 flat indices, tsum), each [n_tiles, nsamples], tmax and tsum
+    float64, asynchronously on the current stream; tmax is K3 v2 f64's
+    bit for bit, :func:`combine_brick_tiles` finishes the reduction. The
+    plain version is :func:`quakemigrate_torch.ops.migrate.detect_reduce`
+    in float64.
+
+    """
+
+    t = tables
+    ring = global_v3_layout(t.layout)
+    if ring is None:
+        raise ValueError("K3 v3 f64's ring of two stages does not fit a "
+                         "block's shared memory at this layout")
+    npp, unroll = (ring.npp, ring.unroll) if form is None else form
+    if (npp, unroll) not in GLOBAL_V3_FORMS:
+        raise ValueError(f"K3 v3 f64 is not built for the form {form}")
+    n_onsets, n_tiles = _check_global_v2(
+        onsets_log, base, inv_available, fsmp, nsamples, t, max_shift,
+        ring.smem, f"K3 v3 f64's {ring.n_stages} ring stages")
+    device = onsets_log.device
+    rows, pitch = row_pitch(onsets_log)
+    outs = empty_outputs(n_tiles, nsamples, device, torch.float64)
+    launch_kernel(
+        "qm_migrate_detect_global_v3_f64", device,
+        rows.data_ptr(), pitch, base.data_ptr(), t.res.data_ptr(),
+        t.flat.data_ptr(), t.win.data_ptr(), inv_available.data_ptr(),
+        *(x.data_ptr() for x in outs), n_onsets, n_tiles, fsmp, nsamples,
+        t.layout.group, t.layout.stage_floats, ring.stage_passes,
+        ring.n_stages, npp, unroll,
+    )
+    launches["migrate_detect_global_v3_f64"] += 1
+    return outs
+
+
+def global_v3_blocks_per_sm(layout, device):
+    """Resident blocks per SM of K3 v3 f64 on K3 v2 f64's ring
+    ``layout`` (one is what it is built for)."""
+
+    ring = global_v3_layout(layout)
+    return blocks_per_sm("qm_migrate_detect_global_v3_f64_blocks_per_sm",
+                         device, ring.npp, ring.unroll, layout.group,
+                         layout.stage_floats, ring.stage_passes,
+                         ring.n_stages)
 
 
 def ring_shape(plan):
@@ -2502,7 +2646,8 @@ class CudaDetectGlobal(CudaDetect):
     the plan before any launch (:func:`global_v2_refusal`, which
     ``detect_route`` logs):
 
-    - K3 v2 (:func:`migrate_detect_global_v2_cuda`) on every plan whose
+    - K3 v2 (:func:`migrate_detect_global_v2_cuda`; in float64 K3 v3 f64)
+      on every plan whose
       widest window fits a ring of two stages: the plan's BRICK tiles,
       the onset windows streamed through an mbarrier ring
       (:func:`global_v2_layout` at :func:`global_v2_shape`,
@@ -2518,10 +2663,13 @@ class CudaDetectGlobal(CudaDetect):
 
     :attr:`v2_refusal` says why K3 v2 was not taken (None where it was).
     With ``dtype`` float64 (``precision="double"``) every kernel of the
-    route is its float64 form: K3 v2 f64 where its ring of doubles holds
-    the plan's widest window (:func:`global_v2_refusal` on float64), else
-    K3 f64; for locate M1 ring f64 and M2 ring f64 on K3 v2 f64's tables,
-    or M1 f64 and M2 simple f64 where K3 v2 f64 refuses the plan.
+    route is a float64 one: K3 v3 f64
+    (:func:`migrate_detect_global_v3_f64_cuda`, the redesign of K3 v2 f64
+    on its tables) where K3 v2 f64's ring of doubles holds the plan's
+    widest window (:func:`global_v2_refusal` on float64), else K3 f64; for
+    locate M1 ring f64 and M2 ring f64 on K3 v2 f64's tables, or M1 f64
+    and M2 simple f64 where K3 v2 f64 refuses the plan. :meth:`launch_v2`
+    launches K3 v2 (K3 v2 f64 in float64), K3 v3 f64's yardstick.
     :meth:`reduce` on CPU tensors runs the plain version,
     :func:`quakemigrate_torch.ops.migrate.detect_reduce`, and counts no
     launch; :meth:`reduce_log` runs the kernel only. For locate it keeps
@@ -2622,11 +2770,22 @@ class CudaDetectGlobal(CudaDetect):
     def launch(self, onsets_log, inv_available):
         """The kernel, for prepared onsets on the card: (tmax, targ flat
         indices, tsum), each [n_tiles, nsamples], on the plan's brick
-        tiles (K3 v2) or on flat tiles (K3, where K3 v2 refuses the
-        plan)."""
+        tiles (K3 v2; K3 v3 f64 in float64) or on flat tiles (K3, where
+        K3 v2 refuses the plan)."""
 
         if self.tables is None:
             return self.launch_v1(onsets_log, inv_available)
+        if self.dtype == torch.float64:
+            return migrate_detect_global_v3_f64_cuda(
+                onsets_log, self.base, inv_available, self.fsmp,
+                self.nsamples, self.tables, self._max_shift)
+        return self.launch_v2(onsets_log, inv_available)
+
+    def launch_v2(self, onsets_log, inv_available):
+        """K3 v2 (K3 v2 f64 in float64) on the plan's tables, for
+        prepared onsets on the card; raises where K3 v2 refuses the
+        plan."""
+
         return migrate_detect_global_v2_cuda(
             onsets_log, self.base, inv_available, self.fsmp, self.nsamples,
             self.tables, self._max_shift)

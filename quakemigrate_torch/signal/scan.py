@@ -127,9 +127,9 @@ def detect_route(traveltimes, node_count, device, kernel="auto",
       device whatever the plan;
     - with ``precision="double"`` (the reference then keeps its XLA
       functions in float64, whatever ``kernel`` is),
-      ``("k3", "precision='double'", plan)``: the float64 forms of the
-      route's kernels (logged, with locate's, where K3 v2 f64 refuses the
-      plan).
+      ``("k3", "precision='double'", plan)``: the float64 kernels of the
+      route, K3 v3 f64 on K3 v2 f64's ring of doubles (logged, with
+      locate's, where that ring refuses the plan: K3 f64).
 
     On the "k3" route ``CudaDetectGlobal`` runs K3 v2, the ring kernel on
     the plan's brick tiles, where its ring holds the plan's widest window
@@ -153,13 +153,15 @@ def plan_route(plan, device, kernel="auto", precision="single"):
     k3_reason = global_v2_refusal(
         plan, torch.float64 if double else torch.float32)
     f64 = " f64" if double else ""
-    k3 = (f"K3 v2{f64}, the ring kernel on the brick plan"
+    # The ring kernel: K3 v2, in float64 K3 v3 f64 on K3 v2 f64's ring
+    ring = "K3 v3 f64" if double else "K3 v2"
+    k3 = (f"{ring}, the ring kernel on the brick plan"
           if k3_reason is None else f"K3{f64}, the global-memory kernel")
     if double or kernel == "xla":
         forced = "precision='double'" if double else "kernel='xla'"
         if k3_reason is None:
             return "k3", forced, plan
-        reasons = f"{forced}, K3 v2{f64} ({k3_reason})"
+        reasons = f"{forced}, {ring} ({k3_reason})"
         dtype = torch.float64 if double else torch.float32
         logging.info(f"\t{reasons}; using {k3} on {device}, "
                      f"{locate_kernels(plan, dtype)}.")
@@ -607,9 +609,10 @@ class QuakeScan:
         "double" (the fused blocks, the onsets, the migration, the maps
         and the marginalisation), as the reference's. On the card
         "double" takes the "k3" route whatever ``kernel`` is (with
-        "mxu" the reference's notice is logged): K3 v2 f64, then M1 ring
-        f64 and M2 ring f64 on its tables for locate, or, on a plan too
-        wide for its ring of doubles, K3 f64, M1 f64 and M2 simple f64.
+        "mxu" the reference's notice is logged): K3 v3 f64 on K3 v2
+        f64's tables, then M1 ring f64 and M2 ring f64 on them for
+        locate, or, on a plan too wide for that ring of doubles, K3 f64,
+        M1 f64 and M2 simple f64.
     mesh : quakemigrate_torch.parallel.Mesh, optional
         Shard the grid-node axis over this device mesh
         (``parallel.make_mesh``), as the reference shards it over its JAX
@@ -617,7 +620,7 @@ class QuakeScan:
         nodes, and the per-sample max, argmax and sum of the slabs are
         combined on the mesh's first device. On a CUDA mesh each slab runs
         the kernel of the scan's route (``detect_route``: K1 v2, K2 v2 or
-        K3 v2/K3, and their float64 forms with ``precision="double"``) on
+        K3 v2/K3, and the float64 kernels with ``precision="double"``) on
         a slab of the plan's tiles; on a CPU mesh the plain reduction on
         flat slabs of the table padded to whole ``tile``s. A "batch" axis
         dispatches detect's fused windows in batches

@@ -189,6 +189,7 @@ def test_v2_wrappers_refuse_what_the_kernel_does_not_take():
                                      "migrate_map_v2": 0,
                                      "migrate_detect_global_f64": 0,
                                      "migrate_detect_global_v2_f64": 0,
+                                     "migrate_detect_global_v3_f64": 0,
                                      "migrate_marginalise_f64": 0,
                                      "migrate_map_f64": 0,
                                      "migrate_marginalise_ring": 0,

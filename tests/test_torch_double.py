@@ -245,7 +245,7 @@ def test_f64_refusal_picks_k3_f64(caplog):
     assert reason is not None and "doubles" in reason
     with caplog.at_level(logging.INFO):
         route, why, _ = detect_route(tt, (4, 4, 4), CUDA, "auto", "double")
-    assert route == "k3" and why.startswith("precision='double', K3 v2 f64")
+    assert route == "k3" and why.startswith("precision='double', K3 v3 f64")
     assert "using K3 f64" in caplog.text
     detector = cm.CudaDetectGlobal(tt, (4, 4, 4), 10, 40, "cpu", plan=plan,
                                    dtype=F64)
