@@ -16,8 +16,8 @@ Smoke run of quakemigrate_torch on one NVIDIA GPU.
    no further from the float64 plain version than twice the float32
    plain version), timed with CUDA events beside the plain version and
    its bound. compat_path: core.compat.migrate on the card (the detect
-   route's M2: K1 v2's plan, and on 256 onsets K2 v2's, M2 ring; one
-   launch, nothing else) against device="cpu" within 1e-5,
+   route's map kernel: on K1 v2's plan M2 v2, and on 256 onsets K2 v2's,
+   M2 ring; one launch, nothing else) against device="cpu" within 1e-5,
    and find_max_coa on the card against the CPU (max and argmax equal,
    the normalised max within 1e-6).
 3. Holds the migrate-and-reduce kernels K1 (csrc/migrate_detect.cu) and
@@ -82,13 +82,15 @@ Smoke run of quakemigrate_torch on one NVIDIA GPU.
    the plain version, to its own plain version on its tables and to M1
    bit for bit, timed in turns with M1, its table's build time and bytes
    printed. Last, the map path: the same
-   event located again with write_coalescence=True (one M2 launch,
-   csrc/migrate_marginalise_v2.cu, and no other kernel; the .npy of
+   event located again with write_coalescence=True (one launch each of
+   M2 v2 and of its tables' kernel at the fresh detector's first map,
+   csrc/migrate_map_persistent.cu, and no other kernel; the .npy of
    [nx, ny, nz, 61] read back, finite; the spline hypocentre within one
    node of the two-pass run's), its per-event split printed. Then
    plot_path: the same event located with plot_event_summary=True and
    plot_event_video=True on the card and with device="cpu": the video
-   keeps the 4-D map, so on the card one M2 launch and no other kernel;
+   keeps the 4-D map, so on the card one launch each of M2 v2 and its
+   tables' kernel and no other kernel;
    the .event held to the CPU run's within a digit, the kept map within
    1e-5 of each value of the CPU run's; where matplotlib imports, the
    event summary PDF and the event video GIF (a frame a sample) at the
@@ -175,13 +177,20 @@ Smoke run of quakemigrate_torch on one NVIDIA GPU.
    port's reader. Where the device="cpu" locate of vt_locate_mags wrote
    .event, .picks and .amps files equal to the card's byte for byte, its
    exports are byte-equal to the card run's too.
-   map_path: M2 against the plain migrate_map on the card at the
-   Icequake locate window (61 samples, the Icequake plan) and the VT one
-   (201 samples, the VT plan): within 1e-5 of each value, its per-sample
-   max bit for bit K1 v2's tmax, its sum over a marginal window within
-   1e-6 of M1 v2's, its simple form (csrc/migrate_marginalise.cu) bit
-   for bit M2; M2, M1 v2 and K1 v2 timed in turns, the simple form, the
-   plain map and the map's copy back to a pinned buffer timed; then M2
+   map_path: the route's map kernel, M2 v2 (csrc/migrate_map_persistent.cu,
+   the redesign of M2, csrc/migrate_marginalise_v2.cu), against the
+   plain migrate_map on the card at the Icequake locate window (61
+   samples, the Icequake plan) and the VT one (201 samples, the VT
+   plan): within 1e-5 of each value, its per-sample max bit for bit K1
+   v2's tmax, its sum over a marginal window within 1e-6 of M1 v2's, M2
+   and the simple form (csrc/migrate_marginalise.cu) bit for bit M2 v2,
+   M2 v2 within 1e-5 of its own plain version, M2 v2's tables (built by
+   their kernel at the first map) equal to their plain build and timed
+   in turns with it; M2 v2, M2, M1 v2 and K1 v2 timed in turns (CUDA
+   events), M2 v2 and M2 in three more rounds of turns (M2 v2's median
+   must be the faster at both: it is the route's kernel) and by the
+   profiler's device time, the simple form, the plain map and the map's
+   copy back to a pinned buffer timed; then M2
    ring on F1's route (256 onsets, CudaDetectVPU; one launch, nothing
    else), held to the plain map, its own plain version and M2's simple
    form bit for bit, timed in turns with M2 simple.
@@ -208,10 +217,12 @@ Smoke run of quakemigrate_torch on one NVIDIA GPU.
    tables: M1 ring f64 and M2 ring f64 (the source on double) against M1
    f64 and M2 simple f64 (bit for bit at 100 samples and over 1,000,
    within 1e-12 over two chunks of 128, the map's max K3 v2 f64's tmax),
-   in turns with them; and detect in double on the window's onsets: K3 v3
-   f64 (its streamed form at F3) held to the plain float64 reduction and
-   to K3 v2 f64 bit for bit in the per-tile max and argmax, in turns with
-   K3 v2 f64, K3 v2, K3 f64 and K3 (experiments/exp_double). K3 v2 timed
+   in turns with them; and detect in double on the window's onsets: the
+   detector's window on K3 v2 f64 (one launch: F3's layout has several
+   groups, where K3 v3 f64's streamed form is the slower), K3 v3 f64
+   held to the plain float64 reduction and to K3 v2 f64 bit for bit in
+   the per-tile max and argmax, in turns with K3 v2 f64, K3 v2, K3 f64
+   and K3 (experiments/exp_double). K3 v2 timed
    in turns with K3
    (csrc/migrate_detect_global.cu), with its bound, gather floor, ring,
    blocks per SM, registers and spills, and a sweep of its onsets a
@@ -1953,10 +1964,9 @@ def archive_locate_path(device, root, detect, planted, origin, start, end,
           f".npy {map4d.shape} {map4d.dtype}; spline node "
           f"{map_node.tolist()} against the two-pass run's {node.tolist()} "
           f"({map_dist} nodes); per-event split, host s: {map_split}")
+    map_keys = ("migrate_map_persistent", "migrate_map_persistent_tables")
     check(map_scan.locate_route == "k1_v2" and map_handle is None
-          and map_launches["migrate_map_v2"] == 1
-          and all(n == 0 for k, n in map_launches.items()
-                  if k != "migrate_map_v2"),
+          and all(n == (k in map_keys) for k, n in map_launches.items()),
           f"map_path: route {map_scan.locate_route}, launches {map_launches}")
     check(map4d.shape == tuple(lut.node_count) + (inp["nsamples"],)
           and bool(np.isfinite(map4d).all()) and map_dist <= 1,
@@ -2078,9 +2088,10 @@ def plot_path(device, root, archive, lut, onset, trigger_file, planted):
     """plot_path: QuakeScan.locate of archive_locate's event with
     plot_event_summary=True and plot_event_video=True, on the card and
     with device="cpu" (:func:`locate_card_and_cpu`, no plain version on a
-    CUDA tensor). On the card exactly one M2 launch (migrate_map_v2: the
-    video keeps the 4-D map through the route's map kernel) and nothing
-    else; the .event held to the CPU run's (:func:`hold_event`) and the
+    CUDA tensor). On the card exactly one launch of the route's map
+    kernel (migrate_map_persistent, M2 v2: the video keeps the 4-D map)
+    and one of its tables' kernel (the fresh detector's first map), and
+    nothing else; the .event held to the CPU run's (:func:`hold_event`) and the
     kept map4d to the CPU run's within MAP_RTOL of each value. Where
     matplotlib imports, the event summary PDF and the GIF at their paths
     in both runs, the GIF's frames one a sample of the kept map; where it
@@ -2105,7 +2116,8 @@ def plot_path(device, root, archive, lut, onset, trigger_file, planted):
         return scan
 
     card_dir, cpu_dir, event, record = locate_card_and_cpu(
-        root, "plot_path", make, trigger_file, {"migrate_map_v2": 1},
+        root, "plot_path", make, trigger_file,
+        {"migrate_map_persistent": 1, "migrate_map_persistent_tables": 1},
         planted, lut, plot_event_summary=True, plot_event_video=True)
     cpu_event = events["plot_path_cpu"]
     check(event.map4d is not None and cpu_event.map4d is not None
@@ -2226,14 +2238,18 @@ def copy_back_ms(tensor, reps=5):
 
 
 def map_case(name, s, window, reps=20):
-    """M2 on the setup ``s`` (:func:`m1_setup`) over its whole scan: the
-    route's kernel (M2 on K1 v2's route, its simple form on K2 v2's)
-    against the plain migrate_map on the card, within MAP_RTOL of each
-    value. On K1 v2's route also: the map's per-sample max bit for bit
-    K1 v2's tmax (combined over tiles); its sum over the marginal window
-    ``(start, length)`` within MAP_SUM_RTOL of M1 v2's; M2's simple form
-    on the same plan bit for bit M2; and M2, M1 v2 (at the window) and K1
-    v2 timed in turns (M2, M1 v2, K1 v2, K1 v2, M1 v2, M2), the simple form
+    """The map on the setup ``s`` (:func:`m1_setup`) over its whole scan:
+    the route's kernel (M2 v2 on K1 v2's route, M2 ring on K2 v2's)
+    against the plain
+    migrate_map on the card, within MAP_RTOL of each value. On K1 v2's
+    route also: the map's per-sample max bit for bit K1 v2's tmax
+    (combined over tiles); its sum over the marginal window ``(start,
+    length)`` within MAP_SUM_RTOL of M1 v2's; M2 v2, M2 and M2's simple
+    form on the same plan bit for bit the route's map; M2 v2 within
+    MAP_RTOL of its plain version; M2 v2, M2, M1 v2 (at the window) and K1
+    v2 timed in turns (CUDA events); M2 v2 and M2 in three more rounds
+    of turns, whose medians must show M2 v2, the route's kernel, the
+    faster, and by the profiler's device time; the simple form
     alone. On K2 v2's route the route's kernel is M2 ring, held to its
     plain version on its tables and to M2's simple form bit for bit and
     timed in turns with it (exp_ring.m2_case). The route's one call runs
@@ -2271,6 +2287,8 @@ def map_case(name, s, window, reps=20):
               "max_abs_err": float((got - want).abs().max()),
               "window": [start, length], "launches": launches}
     if s.route == "k1_v2":
+        from quakemigrate_torch.experiments import exp_ring
+
         max_coa, _, _ = cm.combine_tiles(
             *detector.launch(s.onsets_log, s.inv), detector.perm,
             detector.tile)
@@ -2283,25 +2301,128 @@ def map_case(name, s, window, reps=20):
             detector.perm, s.inv, s.fsmp, s.nsamples, detector.n_nodes,
             detector._max_shift)
         simple_equal = bool(torch.equal(simple, got))
-        check(max_equal and sum_rel <= MAP_SUM_RTOL and simple_equal,
+        del simple
+        # M2 v2 and M2 on the same plan: each map bit for bit the route's,
+        # M2 v2 within MAP_RTOL of its plain version (its staging emulated
+        # on the card, migrate_map_persistent_reference)
+        t_len = s.onsets_log.shape[1]
+        tables = detector.map_tables(t_len)
+        check(tables is not None, f"map {name}: M2 v2 refuses the plan: "
+              f"{detector.map_refusal}")
+
+        def m2_v2():
+            return cm.migrate_map_persistent_cuda(
+                s.onsets_log, detector.base, s.inv, s.fsmp, s.nsamples,
+                detector.n_nodes, tables, detector._max_shift)
+
+        def m2_v1():
+            return detector.map_m2(s.onsets_log, s.inv)
+
+        # M2 v2's tables, built by their kernel at the route's first map:
+        # held bit for bit to the plain build on the same tables of K1 v2
+        # and timed in turns with it
+        build_args = (detector.fine16, detector.base, detector.valid,
+                      detector.perm, tables.woff, tables.layout, s.fsmp,
+                      t_len)
+        ref_res, ref_flat = cm.map_persistent_tables_reference(*build_args)
+        res_diff = (ref_res.view(torch.int16).int()
+                    - tables.res.view(torch.int16).int()).abs()
+        tables_err = max(int(res_diff.max()),
+                         int((ref_flat - tables.flat).abs().max()))
+        del ref_res, ref_flat, res_diff
+        check(tables_err == 0, f"map {name}: M2 v2's tables differ from "
+              f"their plain build by up to {tables_err}")
+        build_turns = ekb.in_turns({
+            "kernel": lambda: cm.map_persistent_tables_cuda(*build_args),
+            "plain": lambda: cm.map_persistent_tables_reference(
+                *build_args)}, reps)
+        build_bytes = sum(t.numel() * t.element_size() for t in (
+            detector.fine16, detector.base, detector.valid, detector.perm,
+            tables.woff, tables.res, tables.flat))
+        tables_record = {
+            "max_abs_err": tables_err,
+            "ms": float(np.mean(build_turns["kernel"])),
+            "plain_ms": float(np.mean(build_turns["plain"])),
+            "turns_ms": build_turns, "bytes": build_bytes,
+            "bound_ms": build_bytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "library_ms": None,
+            "build_s": tables.build_s, "table_bytes": tables.nbytes,
+            "first_call_launches": launches[
+                "migrate_map_persistent_tables"]}
+
+        # Launches of M2 v2 and M2 off the route's call: their holds and
+        # turns here (the yardstick's count)
+        before = dict(cm.launches)
+        equal = {}
+        for key, fn in (("m2_v2", m2_v2), ("m2", m2_v1)):
+            other = fn()
+            equal[key] = bool(torch.equal(other, got))
+            del other
+        emulated = cm.migrate_map_persistent_reference(
+            s.onsets_log, detector.base, s.inv, s.fsmp, s.nsamples,
+            detector.n_nodes, tables)
+        v2_rel = float(((got - emulated).abs() / emulated.abs()).max())
+        del emulated
+        check(max_equal and sum_rel <= MAP_SUM_RTOL and simple_equal
+              and all(equal.values()) and v2_rel <= MAP_RTOL,
               f"map {name}: max equal to K1 v2's tmax {max_equal}, window "
-              f"sum vs M1 v2 {sum_rel}, simple form equal {simple_equal}")
-        turns = ekb.in_turns({
-            "m2": m2,
-            "m1_v2": lambda: detector.marginalise(s.onsets_log, s.inv,
-                                                  start, length),
-            "k1_v2": lambda: detector.launch(s.onsets_log, s.inv)}, reps)
+              f"sum vs M1 v2 {sum_rel}, simple form equal {simple_equal}, "
+              f"M2 v2 and M2 equal {equal}, M2 v2 vs its plain version "
+              f"{v2_rel}")
+        fns = {"m2_v2": m2_v2, "m2": m2_v1,
+               "m1_v2": lambda: detector.marginalise(s.onsets_log, s.inv,
+                                                     start, length),
+               "k1_v2": lambda: detector.launch(s.onsets_log, s.inv)}
+        turns = ekb.in_turns(fns, reps)
+        # The route's test: M2 v2 against M2 in three more rounds of turns
+        # (CUDA events, M2 v2, M2, M2, M2 v2 each), their medians, which a
+        # stall of the host's enqueue in one turn does not move; beside
+        # them the kernels alone (torch.profiler's device time), printed
+        route_turns = {"m2_v2": [], "m2": []}
+        for _ in range(3):
+            for key, ms in ekb.in_turns({k: fns[k] for k in route_turns},
+                                        reps).items():
+                route_turns[key] += ms
+        route_ms = {k: float(np.median(v)) for k, v in route_turns.items()}
+        device_ms = {k: exp_ring.device_ms(fns[k], reps)
+                     for k in route_turns}
+        case_launches = {k: cm.launches[k] - before[k] for k in (
+            "migrate_map_persistent", "migrate_map_v2")}
+        check(route_ms["m2_v2"] < route_ms["m2"],
+              f"map {name}: M2 v2 takes the route but is not faster than "
+              f"M2 in turns: {route_turns}")
+        lay = tables.layout
         record.update(
-            ms=float(np.mean(turns["m2"])),
+            ms=float(np.mean(turns["m2_v2"])),
+            m2_v2_ms=float(np.mean(turns["m2_v2"])),
+            m2_ms=float(np.mean(turns["m2"])),
             m1_v2_ms=float(np.mean(turns["m1_v2"])),
             k1_v2_ms=float(np.mean(turns["k1_v2"])), turns_ms=turns,
+            route_ms=route_ms, route_turns_ms=route_turns,
+            device_ms=device_ms,
+            case_launches=case_launches,
             max_equal_to_k1_v2=max_equal, window_sum_rel_err_m1_v2=sum_rel,
-            simple_equal=simple_equal,
+            simple_equal=simple_equal, equal_to_route=equal,
+            m2_v2_rel_err_plain=v2_rel,
+            m2_v2={"layout": {k: getattr(lay, k) for k in (
+                       "shape", "run", "runs", "parts", "npi",
+                       "stage_floats", "n_stages", "smem")},
+                   "items": int(tables.items.numel()) * lay.runs,
+                   "table_build_s": tables.build_s,
+                   "table_bytes": tables.nbytes,
+                   "blocks_per_sm": cm.map_persistent_blocks_per_sm(
+                       lay, s.onsets_log.device),
+                   **next(iter(_build_resources(
+                       "qm_map_persistent_kernelILi{}ELi{}ELi{}ELi0E".format(
+                           *lay.shape)).values()))},
+            tables_kernel=tables_record,
+            m2_blocks_per_sm=cm.marginalise_v2_blocks_per_sm(
+                n_onsets, detector.tile, detector.win_floats, s.nsamples,
+                s.onsets_log.device),
             simple_ms=median_ms(lambda: cm.migrate_map_cuda(
                 s.onsets_log, detector.base, detector.fine, detector.valid,
                 detector.perm, s.inv, s.fsmp, s.nsamples, detector.n_nodes,
                 detector._max_shift), reps))
-        del simple
     else:
         from quakemigrate_torch.experiments import exp_ring
 
@@ -2316,12 +2437,22 @@ def map_case(name, s, window, reps=20):
     record["plain_ms"] = median_ms(plain, 1, turns=1, warmup=0)
     record["copy_back_ms"] = copy_back_ms(got)
     record.update(map_bound(s.tt, s.nsamples, detector.base))
-    extra = (f"; in turns M1 v2 {record['m1_v2_ms']:.4f} ms at {length} "
-             f"samples, K1 v2 {record['k1_v2_ms']:.4f} ms; max bit for bit "
+    extra = (f"; in turns M2 v2 {record['m2_v2_ms']:.4f} ms, M2 "
+             f"{record['m2_ms']:.4f}, M1 v2 {record['m1_v2_ms']:.4f} ms at "
+             f"{length} samples, K1 v2 {record['k1_v2_ms']:.4f} ms; M2 v2 "
+             f"against M2 in three more rounds, medians "
+             f"{record['route_ms']}; device (profiler) "
+             f"{record['device_ms']}; M2 v2 "
+             f"{record['m2_v2']}; max bit for bit "
              f"K1 v2's tmax {record['max_equal_to_k1_v2']}, window sum vs "
              f"M1 v2 {record['window_sum_rel_err_m1_v2']:.2e}, simple form "
              f"{record['simple_ms']:.4f} ms and equal "
-             f"{record['simple_equal']}" if s.route == "k1_v2" else
+             f"{record['simple_equal']}, M2 v2 and M2 equal "
+             f"{record['equal_to_route']}; M2 v2's tables' kernel "
+             f"{record['tables_kernel']['ms']:.4f} ms in turns with its "
+             f"plain build {record['tables_kernel']['plain_ms']:.4f}, "
+             f"differing by {record['tables_kernel']['max_abs_err']}"
+             if s.route == "k1_v2" else
              f"; M2 ring in turns with M2 simple {record['simple_ms']:.4f} "
              f"ms, equal {record['simple_equal']}; ring tables "
              f"{s.ring_build}")
@@ -3931,7 +4062,12 @@ def f3_path(device):
         s64.prepared[dtype] = det.prepare(s64.onsets.to(dtype),
                                           s64.mask.to(dtype), s64.available)
     f3_double["k3"] = exp_double.detect_case(s64, "f3 double k3")
-    check(f3_double["k3"]["ok"], "f3: K3 v3 f64 does not hold")
+    # F3's layout has several groups: the detector's window runs K3 v2
+    # f64, K3 v3 f64 (its streamed form) only as the yardstick
+    check(f3_double["k3"]["ok"] and f3_double["k3"]["v3_launches"] == {
+              "migrate_detect_global_v2_f64": 1},
+          f"f3: K3 v3 f64 or K3 v2 f64 does not hold, or the detector's "
+          f"window launched {f3_double['k3']['v3_launches']}")
     del s64
     torch.cuda.empty_cache()
 
@@ -5125,8 +5261,9 @@ def compat_path(device):
     """compat_path: core.compat's migrate and find_max_coa on the card (the
     default device) against device="cpu", at each of COMPAT_CASES: the
     route detect_route takes for the clipped traveltimes; migrate's map
-    within MAP_RTOL relative of the CPU's, with one launch of M2 on K1
-    v2's route (csrc/migrate_marginalise_v2.cu) or of M2 ring on K2 v2's
+    within MAP_RTOL relative of the CPU's, with one launch of the map
+    kernel on K1 v2's route (M2 v2, csrc/migrate_map_persistent.cu, and
+    one of its tables' kernel) or of M2 ring on K2 v2's
     (csrc/migrate_marginalise_ring.cu) and no other kernel; then
     find_max_coa of that map on the card and the CPU: the max and the
     argmax equal, the normalised max within COMPAT_NORM_RTOL. Returns the
@@ -5145,8 +5282,11 @@ def compat_path(device):
         route = detect_route(
             np.clip(tt.reshape(-1, n_onsets), 0, last).astype(np.int32),
             grid, device)[0]
-        kernel = ("migrate_map_v2" if route == "k1_v2"
-                  else "migrate_map_ring")
+        # on K1 v2's route M2 v2 and, at the detector's first map, its
+        # tables' kernel
+        kernels = ({"migrate_map_persistent": 1,
+                    "migrate_map_persistent_tables": 1} if route == "k1_v2"
+                   else {"migrate_map_ring": 1})
         torch.cuda.synchronize()
         cm.reset_launches()
         t0 = time.perf_counter()
@@ -5175,7 +5315,7 @@ def compat_path(device):
         check(card.shape == grid + (t_len - first - last,)
               and card.dtype == np.float64 and np.isfinite(card).all(),
               f"compat_path {name}: map {card.shape} {card.dtype}")
-        check(route == name and launches == {kernel: 1},
+        check(route == name and launches == kernels,
               f"compat_path {name}: route {route}, launches {launches}")
         check(err <= MAP_RTOL, f"compat_path {name}: map error {err}")
         check(record[name]["find_max_coa"]["max_equal"]
@@ -6730,30 +6870,81 @@ def main():
         "vt_locate_mags_launches": vt_record["launches"][
             "migrate_marginalise_v2"],
     }, {
-        "name": "migrate_map_v2",
+        "name": "migrate_map_persistent",
         "route": "cuda",
-        "source": "quakemigrate_torch/csrc/migrate_marginalise_v2.cu",
+        "source": "quakemigrate_torch/csrc/migrate_map_persistent.cu",
         "replaces": "quakemigrate_tpu/ops/migrate.py:264",
         # the main path: QuakeScan.locate(write_coalescence=True) over the
         # archive (archive_locate's map path)
-        "launches": locate_record["map"]["launches"]["migrate_map_v2"],
+        "launches": locate_record["map"]["launches"][
+            "migrate_map_persistent"],
+        "case_launches": {k: map_cases[k]["case_launches"][
+            "migrate_map_persistent"] for k in ("icequake", "vt")},
+        # bit for bit the route's map in map_case: the route's errors
         "max_abs_err": max(map_cases[k]["max_abs_err"]
                            for k in ("icequake", "vt")),
         "max_rel_err": max(map_cases[k]["max_rel_err"]
                            for k in ("icequake", "vt")),
+        "ms": map_cases["icequake"]["m2_v2_ms"],
         **{k: map_cases["icequake"][k] for k in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "smem_bound_ms",
-            "output_ms", "ops_ms", "m1_v2_ms", "k1_v2_ms", "turns_ms",
-            "copy_back_ms", "nsamples", "max_equal_to_k1_v2",
-            "window_sum_rel_err_m1_v2")},
+            "plain_ms", "bound_ms", "bound_by", "smem_bound_ms",
+            "output_ms", "ops_ms", "m2_ms", "m1_v2_ms", "k1_v2_ms",
+            "turns_ms", "route_ms", "route_turns_ms", "device_ms",
+            "copy_back_ms",
+            "nsamples", "max_equal_to_k1_v2", "window_sum_rel_err_m1_v2",
+            "equal_to_route", "m2_v2_rel_err_plain", "m2_v2")},
         "library_ms": None,
         # locate(plot_event_video=True): the video's map (plot_path)
         "plot_path_launches": locate_record["plot"]["launches"][
-            "migrate_map_v2"],
+            "migrate_map_persistent"],
         "vt": map_cases["vt"],
         "map_path": locate_record["map"],
         "plot_path": locate_record["plot"],
         "vt_locate_mags": vt_record,
+    }, {
+        "name": "migrate_map_persistent_tables",
+        "route": "cuda",
+        "source": "quakemigrate_torch/csrc/migrate_map_persistent.cu",
+        # M2 v2's tables of migrate_map's staging, built on the card from
+        # K1 v2's at a detector's first map
+        "replaces": "quakemigrate_tpu/ops/migrate.py:264",
+        # the main path: archive_locate's map path (a fresh detector)
+        "launches": locate_record["map"]["launches"][
+            "migrate_map_persistent_tables"],
+        **{k: map_cases["icequake"]["tables_kernel"][k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "turns_ms", "bytes", "build_s", "table_bytes",
+            "first_call_launches")},
+        "vt": map_cases["vt"]["tables_kernel"],
+        "plot_path_launches": locate_record["plot"]["launches"][
+            "migrate_map_persistent_tables"],
+        "compat_path_launches": compat_record["k1_v2"]["launches"][
+            "migrate_map_persistent_tables"],
+    }, {
+        "name": "migrate_map_v2",
+        "route": "cuda",
+        "source": "quakemigrate_torch/csrc/migrate_marginalise_v2.cu",
+        "replaces": "quakemigrate_tpu/ops/migrate.py:264",
+        # M2, redesigned as M2 v2: the map kernel of the plans M2 v2
+        # refuses, none on the main path; its launches in map_case as M2
+        # v2's yardstick (its hold and turns)
+        "launches": map_cases["icequake"]["case_launches"][
+            "migrate_map_v2"],
+        "main_path_launches": locate_record["map"]["launches"][
+            "migrate_map_v2"],
+        "case_launches": {k: map_cases[k]["case_launches"][
+            "migrate_map_v2"] for k in ("icequake", "vt")},
+        "max_abs_err": max(map_cases[k]["max_abs_err"]
+                           for k in ("icequake", "vt")),
+        "max_rel_err": max(map_cases[k]["max_rel_err"]
+                           for k in ("icequake", "vt")),
+        "ms": map_cases["icequake"]["m2_ms"],
+        **{k: map_cases["icequake"][k] for k in (
+            "plain_ms", "bound_ms", "bound_by", "smem_bound_ms",
+            "output_ms", "ops_ms", "m1_v2_ms", "k1_v2_ms", "turns_ms",
+            "device_ms", "nsamples", "m2_blocks_per_sm")},
+        "vt_ms": map_cases["vt"]["m2_ms"],
+        "library_ms": None,
     }, {
         "name": "migrate_map",
         "route": "cuda",
@@ -6917,10 +7108,13 @@ def main():
         "route": "cuda",
         "source": "quakemigrate_torch/csrc/migrate_detect_global_v2.cu",
         "replaces": "quakemigrate_tpu/ops/migrate.py:124",
-        # redesigned as K3 v3 f64, on no path since: its launches in the
-        # planted window's case (its hold and turns), as K3 v3 f64's
-        # yardstick
-        "launches": k3_case["case_launches"]["migrate_detect_global_v2_f64"],
+        # redesigned as K3 v3 f64; since the double route's repair the
+        # kernel of layouts of several groups: F3's window through the
+        # detector (f3_path), and K3 v3 f64's yardstick at the planted
+        # window (its hold and turns)
+        "launches": f3_k3["v3_launches"]["migrate_detect_global_v2_f64"],
+        "yardstick_launches": k3_case["case_launches"][
+            "migrate_detect_global_v2_f64"],
         "f3_launches": f3_k3["case_launches"][
             "migrate_detect_global_v2_f64"],
         "max_abs_err": k3_case["k3_v2_f64"]["max_abs_err"],
@@ -7071,7 +7265,7 @@ def main():
         "main_path_err": r1_record["main_path_err"],
         "cases": r1_record["cases"],
     })
-    for name, case in (("migrate_map_v2", "k1_v2"),
+    for name, case in (("migrate_map_persistent", "k1_v2"),
                        ("migrate_map_ring", "k2_v2")):
         kernels[next(i for i, k in enumerate(kernels)
                      if k["name"] == name)]["compat_path"] = (

@@ -190,6 +190,17 @@ SIGNATURES = {
     "qm_migrate_map_ring_f64": (
         [_VOID_P, _INT] + [_VOID_P] * 6 + [_INT] * 11 + [_VOID_P]
     ),
+    # L, ld, base, res, flat, items, woff, inv_available, map, counter, O,
+    # n_items, runs, parts, npi, fsmp, S, stage_floats, n_stages, nif, spn,
+    # minb, variant, stream
+    "qm_migrate_map_persistent": (
+        [_VOID_P, _INT] + [_VOID_P] * 8 + [_INT] * 13 + [_VOID_P]
+    ),
+    # fine16, base, valid, perm, woff, res, flat, O, tiles, tile, parts,
+    # npi, fsmp, t_len4, stream
+    "qm_migrate_map_persistent_tables": (
+        [_VOID_P] * 7 + [_INT] * 7 + [_VOID_P]
+    ),
     # occupancy queries: (O, r_span), (O, tile, win_floats) and
     # (O, r_span, layout)
     "qm_migrate_detect_blocks_per_sm": [_INT] * 2,
@@ -216,6 +227,8 @@ SIGNATURES = {
     # (warps, npp, slots, map, group, stage_floats, n_stages)
     "qm_migrate_ring_blocks_per_sm": [_INT] * 7,
     "qm_migrate_ring_f64_blocks_per_sm": [_INT] * 7,
+    # (nif, spn, minb, O, npi, stage_floats, n_stages)
+    "qm_migrate_map_persistent_blocks_per_sm": [_INT] * 7,
     # x, out, rows, n, nsta, nlta, stream
     "qm_recursive_stalta_f32": [_VOID_P, _VOID_P] + [_INT] * 4 + [_VOID_P],
     "qm_recursive_stalta_f64": [_VOID_P, _VOID_P] + [_INT] * 4 + [_VOID_P],

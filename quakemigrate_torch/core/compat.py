@@ -32,9 +32,9 @@ def migrate(onsets, traveltimes, first_idx, last_idx, available, threads=1,
     into a 4-D coalescence map (the reference's ``core.migrate``).
 
     On the card the map comes from the detector of the port's detect
-    route for these traveltimes (``signal.scan.detect_route``): M2 on K1
-    v2's plan, M2 ring on the K2 v2 and K3 routes (M2's simple form
-    where the ring refuses the plan); on the CPU
+    route for these traveltimes (``signal.scan.detect_route``): M2 v2 on
+    K1 v2's plan (M2 where M2 v2 refuses it), M2 ring on the K2 v2 and K3
+    routes (M2's simple form where the ring refuses the plan); on the CPU
     from the plain ``ops.migrate.migrate_map``. Traveltimes are clipped
     to ``[0, last_idx]``, as the reference and the JAX package clip them,
     so the kernels never read past an onset row. The map is float32 on

@@ -267,11 +267,12 @@ def v3_form(det):
 
 
 def detect_case(s, label, reps=REPS):
-    """Detect on the case: the route's float64 kernel (K3 v3 f64 where K3
-    v2 f64's ring holds the plan, else K3 f64), its yardstick K3 v2 f64
-    and K3 f64 held to the plain version, K3 v3 f64's per-tile tmax and
-    targ to K3 v2 f64's bit for bit, then all timed in turns with the
-    float32 forms. Returns a record."""
+    """Detect on the case: the route's float64 kernel (where K3 v2 f64's
+    ring holds the plan K3 v3 f64 if one stage holds an item, else K3 v2
+    f64; elsewhere K3 f64) and the other two held to the plain version,
+    K3 v3 f64's per-tile tmax and targ to K3 v2 f64's bit for bit, then
+    all timed in turns with the float32 forms. ``v3_launches`` counts the
+    route's one call. Returns a record."""
 
     det, det32 = s.det[F64], s.det[torch.float32]
     log64, inv64 = s.prepared[F64]
@@ -292,10 +293,15 @@ def detect_case(s, label, reps=REPS):
         got = det.reduce_log(log64, inv64)
         torch.cuda.synchronize()
         launched = {k: n for k, n in cm.launches.items() if n}
-        record["k3_v3_f64"] = hold_detect(s, got, ref)
+        route = ("migrate_detect_global_v3_f64" if det.v3_route
+                 else "migrate_detect_global_v2_f64")
+        record["route_kernel"] = route
+        record["k3_v3_f64"] = hold_detect(
+            s, got if det.v3_route else cm.combine_brick_tiles(
+                *det.launch_v3(log64, inv64)), ref)
         record["k3_v2_f64"] = hold_detect(s, cm.combine_brick_tiles(
             *det.launch_v2(log64, inv64)), ref)
-        v3, v2 = det.launch(log64, inv64), det.launch_v2(log64, inv64)
+        v3, v2 = det.launch_v3(log64, inv64), det.launch_v2(log64, inv64)
         torch.cuda.synchronize()
         ring = cm.global_v3_layout(det.layout)
         record.update(
@@ -315,13 +321,12 @@ def detect_case(s, label, reps=REPS):
             k3_v3_f64_resources=resources(v3_form(det)),
             k3_v2_f64_resources=resources("k3_v2_f64"))
         record["k3_v3_f64"]["ok"] = bool(
-            record["k3_v3_f64"]["ok"] and launched == {
-                "migrate_detect_global_v3_f64": 1}
+            record["k3_v3_f64"]["ok"] and launched == {route: 1}
             and record["v3_equal_to_v2"]["tmax"]
             and record["v3_equal_to_v2"]["targ"]
             and record["v3_equal_to_v2"]["tsum"] <= RTOL)
         del got, v3, v2
-        fns = {"k3_v3_f64": lambda: det.launch(log64, inv64),
+        fns = {"k3_v3_f64": lambda: det.launch_v3(log64, inv64),
                "k3_v2_f64": lambda: det.launch_v2(log64, inv64),
                "k3_v2": lambda: det32.launch(log32, inv32), **fns}
         if det32.tables is None:

@@ -161,6 +161,26 @@ RING_SHAPES = {(16, 8): 2, (16, 16): 1}
 RING_CHUNK_F64 = 128
 RING_SHAPES_F64 = {(16, 8): 2}
 
+# M2 v2 (csrc/migrate_map_persistent.cu: MP_WARPS, MP_SHAPES, MP_ABLATED),
+# the persistent map on K1 v2's route: 16 warps a block; the shapes it is
+# built for (nodes a warp's group, slots a lane, the blocks an SM its
+# registers allow); the shape a scan takes by the slots its run needs
+# (:func:`map_persistent_slots`; the fastest of a sweep on the H100 at the
+# Icequake and VT plans, PERF.md section 6); the shapes whose ablations
+# are built, and the ablations' codes; the ring depths it takes; and the
+# parts a tile is split into (at most the parts that leave each warp a
+# group of an item)
+MAP_PERSISTENT_WARPS = 16
+MAP_PERSISTENT_SHAPES = ((8, 1, 2), (8, 2, 2), (4, 4, 2), (4, 7, 1),
+                         (4, 8, 2))
+MAP_PERSISTENT_SHAPE = {1: (8, 1, 2), 2: (8, 2, 2), 4: (4, 4, 2),
+                        7: (4, 7, 1), 8: (4, 8, 2)}
+MAP_PERSISTENT_ABLATED = ((8, 2, 2), (4, 7, 1))
+MAP_PERSISTENT_VARIANTS = {"full": 0, "nostore": 1, "nogather": 2,
+                           "stage": 3}
+MAP_PERSISTENT_STAGES = (2, 3, 4)
+MAP_PERSISTENT_PARTS = 2
+
 # Shared memory of one SM on Hopper (228 KB), of which each resident
 # block reserves 1 KB
 SMEM_PER_SM = 233472
@@ -168,8 +188,9 @@ SMEM_BLOCK_RESERVE = 1024
 
 # Launches of K1, K1 v2, K2, K2 v2, K3, K3 v2, M1, M1 v2 and M2 (main and
 # simple form), of the float64 forms of K3, K3 v2, M1 and M2's simple
-# form, of K3 v3 f64, and of M1 ring and M2 ring and their float64 forms,
-# counted by their wrappers where they launch
+# form, of K3 v3 f64, of M1 ring and M2 ring and their float64 forms, and
+# of M2 v2 and its tables' kernel, counted by their wrappers where they
+# launch
 launches = {"migrate_detect": 0, "migrate_detect_v2": 0,
             "migrate_detect_vpu": 0, "migrate_detect_vpu_v2": 0,
             "migrate_detect_global": 0, "migrate_detect_global_v2": 0,
@@ -180,7 +201,9 @@ launches = {"migrate_detect": 0, "migrate_detect_v2": 0,
             "migrate_detect_global_v3_f64": 0,
             "migrate_marginalise_f64": 0, "migrate_map_f64": 0,
             "migrate_marginalise_ring": 0, "migrate_map_ring": 0,
-            "migrate_marginalise_ring_f64": 0, "migrate_map_ring_f64": 0}
+            "migrate_marginalise_ring_f64": 0, "migrate_map_ring_f64": 0,
+            "migrate_map_persistent": 0,
+            "migrate_map_persistent_tables": 0}
 
 # The element types of the onsets the float64-capable wrappers take
 FLOAT_DTYPES = (torch.float32, torch.float64)
@@ -1093,6 +1116,454 @@ def marginalise_v2_blocks_per_sm(n_onsets, tile, win_floats, window_length,
 
     return blocks_per_sm("qm_migrate_marginalise_v2_blocks_per_sm", device,
                          n_onsets, tile, win_floats, window_length)
+
+
+def map_persistent_slots(nsamples):
+    """The slots a lane of M2 v2 holds at a scan of ``nsamples`` samples
+    (1, 2, 4, 7 or 8, :data:`MAP_PERSISTENT_SHAPE`): the fewest of those
+    that cover one run of min(nsamples, 256) samples at 32 lanes; a
+    longer scan takes runs of 256."""
+
+    need = -(-min(nsamples, 32 * 8) // 32)
+    return min(n for n in MAP_PERSISTENT_SHAPE if n >= need)
+
+
+def map_persistent_smem(stage_floats, n_onsets, npi, n_stages):
+    """Shared-memory bytes of one M2 v2 block
+    (csrc/migrate_map_persistent.cu: mp_smem_bytes): ``n_stages`` stages
+    of a 16-byte header, ``stage_floats`` floats of windows, the item's
+    ``n_onsets`` x ``npi`` uint16 entries and its ``npi`` int32 flat
+    indices, rounded up to 128 bytes, and an mbarrier and two counters
+    (16 bytes) a stage."""
+
+    return n_stages * (round_up(16 + 4 * stage_floats + 2 * n_onsets * npi
+                                + 4 * npi, 128) + 16)
+
+
+def map_persistent_layout(r_spans, tile, nsamples, shape=None, parts=None,
+                          n_stages=None):
+    """
+    M2 v2's ring for a plan's per-onset residual spans, ``tile`` and a
+    scan of ``nsamples`` samples: a namespace with the ``shape`` (nodes a
+    warp's group, slots a lane, blocks an SM; by default
+    :data:`MAP_PERSISTENT_SHAPE` at :func:`map_persistent_slots`), the
+    ``run`` (32 x slots samples) and
+    ``runs`` a scan, ``parts`` a tile and ``npi`` nodes an item, ``woff``
+    int32 [O + 1] (onset o's window in a stage at ``woff[o]``,
+    round_up(r_o + 2 + run, 4) floats: the column's remainder of 0-3, the
+    residual span and the run's slots), ``stage_floats``, ``n_stages``
+    (by default the deepest of :data:`MAP_PERSISTENT_STAGES` with which
+    the shape's blocks share an SM, else fewer blocks) and the block's
+    ``smem`` bytes; or None where no ring of two stages fits a block.
+    ``parts`` defaults to :data:`MAP_PERSISTENT_PARTS`, no more than leave
+    each of the 16 warps a group of an item. Reads nothing from the card.
+
+    """
+
+    shape = (MAP_PERSISTENT_SHAPE[map_persistent_slots(nsamples)]
+             if shape is None else tuple(shape))
+    if shape not in MAP_PERSISTENT_SHAPES:
+        raise ValueError(f"M2 v2 is not built for the shape {shape}")
+    nif, spn, minb = shape
+    if parts is None:
+        parts = max(1, min(MAP_PERSISTENT_PARTS,
+                           tile // (MAP_PERSISTENT_WARPS * nif)))
+    if parts < 1 or tile % parts:
+        raise ValueError(f"{parts} parts do not split a tile of {tile}")
+    npi = tile // parts
+    if npi % 8 or npi % nif:
+        raise ValueError(f"{npi} nodes an item is not a multiple of 8 and "
+                         f"of the group's {nif} nodes")
+    run = 32 * spn
+    widths = np.asarray([round_up(int(r) + 2 + run, 4) for r in r_spans],
+                        dtype=np.int64)
+    woff = np.concatenate([[0], np.cumsum(widths)]).astype(np.int32)
+    stage_floats = int(woff[-1])
+    n_onsets = len(r_spans)
+    if stage_floats > np.iinfo(np.uint16).max + 1:
+        return None
+    if n_stages is None:
+        for per_sm in range(minb, 0, -1):
+            budget = min(SMEM_LIMIT,
+                         SMEM_PER_SM // per_sm - SMEM_BLOCK_RESERVE)
+            fits = [n for n in MAP_PERSISTENT_STAGES if map_persistent_smem(
+                stage_floats, n_onsets, npi, n) <= budget]
+            if fits:
+                n_stages = max(fits)
+                break
+        else:
+            return None
+    elif n_stages not in MAP_PERSISTENT_STAGES:
+        raise ValueError(f"n_stages must be one of {MAP_PERSISTENT_STAGES}")
+    smem = map_persistent_smem(stage_floats, n_onsets, npi, n_stages)
+    if smem > SMEM_LIMIT:
+        return None
+    return SimpleNamespace(
+        shape=shape, run=run, runs=-(-nsamples // run), parts=parts,
+        npi=npi, woff=woff, stage_floats=stage_floats, n_stages=n_stages,
+        smem=smem, nsamples=nsamples)
+
+
+def map_persistent_refusal(plan, nsamples):
+    """Why M2 v2 cannot take a :class:`DetectPlan` at a scan of
+    ``nsamples`` samples, in words, or None where it can: the plan needs
+    K1 v2's int16 residual table ``fine16``, a tile that is a multiple of
+    16, and a ring of two stages of its windows within a block's shared
+    memory (:func:`map_persistent_layout`). Reads nothing from the
+    card."""
+
+    if plan.fine16 is None:
+        return (f"the plan has no int16 residual table fine16 (its residual "
+                f"span exceeds {FINE16_MAX_SPAN})")
+    if plan.tile % (2 * NWARPS):
+        return f"tile ({plan.tile}) is not a multiple of {2 * NWARPS}"
+    if map_persistent_layout(plan.r_spans, plan.tile, nsamples) is None:
+        return (f"a ring of two stages of the windows (residual span "
+                f"{plan.r_span}) does not fit a block's {SMEM_LIMIT} bytes "
+                "of shared memory")
+    return None
+
+
+def map_persistent_items(valid, layout):
+    """The items of M2 v2's tables, int32: the ``tile x parts + part`` of
+    each part of a tile that holds a real node, on the host from the
+    plan's ``valid`` numpy [n_tiles, tile] (each tile's real nodes fill
+    the first places of the table's order)."""
+
+    n_real = (np.asarray(valid) > 0).sum(axis=1)
+    return np.flatnonzero((n_real[:, None] > layout.npi * np.arange(
+        layout.parts)).ravel()).astype(np.int32)
+
+
+def map_persistent_tables(fine16, base, valid, perm, layout, fsmp, t_len,
+                          items):
+    """
+    M2 v2's tables for scans from ``fsmp`` over onset rows of ``t_len``
+    samples (only ``t_len % 4`` matters), for the ring ``layout``
+    (:func:`map_persistent_layout`), built from K1 v2's tables of a
+    :class:`DetectPlan` where they lie (``fine16`` int16 [n_tiles, tile,
+    O], ``base`` int32 [n_tiles, O], ``valid`` float32 [n_tiles, tile],
+    ``perm`` int32 [n_tiles x tile]) and its ``items``
+    (:func:`map_persistent_items`): on the card by the tables' kernel
+    (:func:`map_persistent_tables_cuda`), on the CPU by its plain version
+    (:func:`map_persistent_tables_reference`). Each tile's nodes in the
+    table's order: the real nodes first, in brick order (a group of
+    consecutive entries is consecutive brick nodes, in the plan's bricks
+    of 8 x 8 x 4 z-runs of four consecutive flat rows), then the padding.
+    A namespace with ``res`` uint16 [n_tiles, parts, O, npi], entry
+    ``woff[o] + ((o t_len + fsmp + base[i, o]) & 3) + fine16[i, n, o]``
+    for the table's node n (the kernel copies onset o's window from the
+    16-byte unit of the rows that holds its first sample); ``flat`` int32
+    [n_tiles, parts, npi], its flat index or -1 for padding; ``items``
+    int32; ``woff`` int32 [O + 1]; the ``layout``, ``fsmp``, ``t_len4``
+    (t_len % 4), the build's host seconds ``build_s`` (on the card its
+    launch, with no wait for its end) and the tables' bytes ``nbytes``.
+    Raises where ``fine16`` is None.
+
+    """
+
+    if fine16 is None:
+        raise ValueError(
+            "the plan has no int16 residual table fine16 (its residual span "
+            f"exceeds {FINE16_MAX_SPAN}); M2 v2 cannot take it")
+    t0 = time.perf_counter()
+    device = fine16.device
+    woff = torch.from_numpy(layout.woff).to(device)
+    build = (map_persistent_tables_cuda if device.type == "cuda"
+             else map_persistent_tables_reference)
+    res, flat = build(fine16, base, valid, perm, woff, layout, fsmp, t_len)
+    tables = SimpleNamespace(
+        res=res, flat=flat, items=torch.from_numpy(
+            np.asarray(items, np.int32)).to(device),
+        woff=woff, layout=layout, fsmp=fsmp, t_len4=t_len % 4)
+    tables.build_s = time.perf_counter() - t0
+    tables.nbytes = sum(t.numel() * t.element_size() for t in (
+        tables.res, tables.flat, tables.items, tables.woff))
+    return tables
+
+
+def _check_map_persistent_build(fine16, base, valid, perm, woff, layout):
+    """The checks of M2 v2's tables' build: K1 v2's tables of one plan on
+    one device, of their dtypes and shapes, a tile of ``layout.parts``
+    parts of ``layout.npi``. Returns (n_tiles, tile, n_onsets)."""
+
+    device = fine16.device
+    for name, x, want in (("fine16", fine16, torch.int16),
+                          ("base", base, torch.int32),
+                          ("valid", valid, torch.float32),
+                          ("perm", perm, torch.int32),
+                          ("woff", woff, torch.int32)):
+        if x.device != device:
+            raise ValueError(f"{name} is on {x.device}, not {device}")
+        if x.dtype != want or not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {want} tensor")
+    n_tiles, tile, n_onsets = fine16.shape
+    if (base.shape != (n_tiles, n_onsets) or valid.shape != (n_tiles, tile)
+            or perm.numel() != n_tiles * tile
+            or woff.shape != (n_onsets + 1,)
+            or layout.parts * layout.npi != tile):
+        raise ValueError(
+            f"inconsistent shapes: fine16 {tuple(fine16.shape)}, base "
+            f"{tuple(base.shape)}, valid {tuple(valid.shape)}, perm "
+            f"{tuple(perm.shape)}, woff {tuple(woff.shape)}, "
+            f"{layout.parts} parts of {layout.npi}")
+    return n_tiles, tile, n_onsets
+
+
+def map_persistent_tables_cuda(fine16, base, valid, perm, woff, layout,
+                               fsmp, t_len):
+    """
+    Launch the kernel of M2 v2's tables
+    (``csrc/migrate_map_persistent.cu``: qm_map_persistent_tables_kernel,
+    a block a tile) on K1 v2's tables on the card: (``res`` uint16
+    [n_tiles, parts, O, npi], ``flat`` int32 [n_tiles, parts, npi]), as
+    :func:`map_persistent_tables` describes them, equal to its plain
+    version :func:`map_persistent_tables_reference`. Raises on CPU tensors
+    and on tables of other dtypes or shapes. The launch is asynchronous on
+    the current stream.
+
+    """
+
+    n_tiles, tile, n_onsets = _check_map_persistent_build(
+        fine16, base, valid, perm, woff, layout)
+    if fsmp < 0:
+        raise ValueError(f"bad fsmp {fsmp}")
+    device = fine16.device
+    _check_cuda(device)
+    shape = (n_tiles, layout.parts, layout.npi)
+    res = torch.empty(shape[:2] + (n_onsets, layout.npi), dtype=torch.uint16,
+                      device=device)
+    flat = torch.empty(shape, dtype=torch.int32, device=device)
+    launch_kernel(
+        "qm_migrate_map_persistent_tables", device, fine16.data_ptr(),
+        base.data_ptr(), valid.data_ptr(), perm.data_ptr(), woff.data_ptr(),
+        res.data_ptr(), flat.data_ptr(), n_onsets, n_tiles, tile,
+        layout.parts, layout.npi, fsmp, t_len % 4)
+    launches["migrate_map_persistent_tables"] += 1
+    return res, flat
+
+
+def map_persistent_tables_reference(fine16, base, valid, perm, woff, layout,
+                                    fsmp, t_len):
+    """Plain PyTorch version of :func:`map_persistent_tables_cuda` on
+    tensors on any device: each tile's order by a stable sort on
+    "padding", the entries by a gather and adds. Returns (res, flat)."""
+
+    n_tiles, tile, n_onsets = _check_map_persistent_build(
+        fine16, base, valid, perm, woff, layout)
+    device = fine16.device
+    shape = (n_tiles, layout.parts, layout.npi)
+    real = valid > 0
+    order = torch.argsort((~real).to(torch.int32), dim=1, stable=True)
+    fine = torch.gather(fine16, 1, order[:, :, None].expand(
+        -1, -1, n_onsets)).to(torch.int32)
+    onset = torch.arange(n_onsets, dtype=torch.int32, device=device)
+    lead = (onset * (t_len % 4) + fsmp + base) & 3
+    # int32 arithmetic: every entry lies below the stage's 2^16 floats
+    entry = fine + lead[:, None, :] + woff[:-1]
+    entry = entry.reshape(shape + (n_onsets,)).transpose(2, 3).contiguous()
+    # uint16 by its bits: int16 of the entries less 2^16 where they pass
+    # int16's range
+    res = torch.where(entry >= 2**15, entry - 2**16, entry).to(
+        torch.int16).view(torch.uint16)
+    flat = torch.where(real, perm.reshape(real.shape), -1)
+    flat = torch.gather(flat, 1, order).reshape(shape).contiguous()
+    return res, flat
+
+
+def _check_map_persistent_tables(tables, fsmp, nsamples, t_len):
+    """Raise unless M2 v2's ``tables`` were built for this ``fsmp``,
+    ``nsamples`` and onset rows of ``t_len``'s residue mod 4."""
+
+    t = tables
+    if (t.fsmp, t.layout.nsamples, t.t_len4) != (fsmp, nsamples, t_len % 4):
+        raise ValueError(
+            f"the tables were built for fsmp {t.fsmp}, {t.layout.nsamples} "
+            f"samples and rows of length {t.t_len4} mod 4, not {fsmp}, "
+            f"{nsamples} and {t_len % 4}")
+
+
+def _check_map_persistent(onsets_log, base, inv_available, fsmp, nsamples,
+                          tables, max_shift):
+    """The checks of M2 v2's wrapper before a launch on ``tables``
+    (:func:`map_persistent_tables`): built for this ``fsmp`` and
+    ``nsamples``, float32 onsets and ``inv_available``, shapes that agree,
+    tensors on one device, an onset block long enough for the plan, the
+    block's shared memory, a CUDA device last. Returns (n_onsets,
+    n_items)."""
+
+    t = tables
+    layout = t.layout
+    _check_map_persistent_tables(t, fsmp, nsamples, onsets_log.shape[-1])
+    if layout.shape not in MAP_PERSISTENT_SHAPES:
+        raise ValueError(f"M2 v2 is not built for the shape {layout.shape}")
+    if layout.n_stages not in MAP_PERSISTENT_STAGES:
+        raise ValueError(f"n_stages ({layout.n_stages}) must be one of "
+                         f"{MAP_PERSISTENT_STAGES}")
+    check_smem(layout.smem, f"M2 v2's {layout.n_stages} ring stages of "
+               f"{layout.stage_floats} floats of windows")
+    device = onsets_log.device
+    for name, x, want in (("onsets_log", onsets_log, torch.float32),
+                          ("base", base, torch.int32),
+                          ("inv_available", inv_available, torch.float32),
+                          ("res", t.res, torch.uint16),
+                          ("flat", t.flat, torch.int32),
+                          ("items", t.items, torch.int32),
+                          ("woff", t.woff, torch.int32)):
+        if x.device != device:
+            raise ValueError(f"{name} is on {x.device}, not {device}")
+        if x.dtype != want or not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {want} tensor")
+    n_onsets = onsets_log.shape[0]
+    n_tiles, parts, npi = t.flat.shape
+    if (base.shape != (n_tiles, n_onsets)
+            or t.res.shape != (n_tiles, parts, n_onsets, npi)
+            or (parts, npi) != (layout.parts, layout.npi)
+            or t.woff.shape != (n_onsets + 1,)
+            or t.items.dim() != 1 or inv_available.numel() != 1):
+        raise ValueError(
+            f"inconsistent shapes: onsets {tuple(onsets_log.shape)}, base "
+            f"{tuple(base.shape)}, res {tuple(t.res.shape)}, flat "
+            f"{tuple(t.flat.shape)}, items {tuple(t.items.shape)}, woff "
+            f"{tuple(t.woff.shape)}")
+    if nsamples < 1 or fsmp < 0:
+        raise ValueError(f"bad geometry: fsmp {fsmp}, nsamples {nsamples}")
+    _check_onset_length(onsets_log, fsmp, nsamples, max_shift)
+    if t.items.numel() * layout.runs == 0:
+        raise ValueError("the plan has no real node")
+    if t.res.data_ptr() % 16 or t.flat.data_ptr() % 16:
+        raise ValueError("the entry and flat tables must be 16-byte aligned")
+    _check_cuda(device)
+    return n_onsets, t.items.numel() * layout.runs
+
+
+def migrate_map_persistent_cuda(onsets_log, base, inv_available, fsmp,
+                                nsamples, n_nodes, tables, max_shift,
+                                variant="full"):
+    """
+    Launch M2 v2 (``csrc/migrate_map_persistent.cu``) on tensors on the
+    card: M2's map (:func:`migrate_map_v2_cuda`), f32 [n_nodes, nsamples]
+    in flat node order, bit for bit, through its ``tables``
+    (:func:`map_persistent_tables`, built for this ``fsmp`` and
+    ``nsamples``) on a persistent ring: as many blocks as the card holds
+    take the (tile part, run) items from a counter of the launch's own,
+    which the C entry zeroes on the current stream before the kernel
+    (no host wait). Its per-sample max is K1 v2's tmax bit for
+    bit. ``variant`` (one of :data:`MAP_PERSISTENT_VARIANTS`, the
+    ablations only at :data:`MAP_PERSISTENT_ABLATED`) is for experiments:
+    an ablation's map is not M2's. Raises on CPU tensors and on what the
+    kernel does not take (:func:`_check_map_persistent`); the plain
+    version is :func:`migrate_map_persistent_reference`. The launch is
+    asynchronous on the current stream.
+
+    """
+
+    n_onsets, n_items = _check_map_persistent(
+        onsets_log, base, inv_available, fsmp, nsamples, tables, max_shift)
+    layout = tables.layout
+    if variant not in MAP_PERSISTENT_VARIANTS or (
+            variant != "full" and layout.shape not in MAP_PERSISTENT_ABLATED):
+        raise ValueError(f"M2 v2 has no {variant!r} form at the shape "
+                         f"{layout.shape}")
+    device = onsets_log.device
+    # The kernel reads the rows where they lie, from 16-byte units
+    rows = onsets_log if onsets_log.data_ptr() % 16 == 0 else \
+        onsets_log.clone()
+    out = torch.empty((n_nodes, nsamples), dtype=torch.float32,
+                      device=device)
+    # The items' counter: the caching allocator hands a launch's block to
+    # no other stream while the launch may still run
+    counter = torch.empty(1, dtype=torch.int32, device=device)
+    launch_kernel(
+        "qm_migrate_map_persistent", device,
+        rows.data_ptr(), rows.shape[1], base.data_ptr(), tables.res.data_ptr(),
+        tables.flat.data_ptr(), tables.items.data_ptr(),
+        tables.woff.data_ptr(), inv_available.data_ptr(), out.data_ptr(),
+        counter.data_ptr(), n_onsets, n_items, layout.runs,
+        layout.parts,
+        layout.npi, fsmp, nsamples, layout.stage_floats, layout.n_stages,
+        *layout.shape, MAP_PERSISTENT_VARIANTS[variant],
+    )
+    launches["migrate_map_persistent"] += 1
+    return out
+
+
+def migrate_map_persistent_reference(onsets_log, base, inv_available, fsmp,
+                                     nsamples, n_nodes, tables,
+                                     max_elements=2**23):
+    """
+    Plain PyTorch version of M2 v2 through its ``tables`` (built for this
+    ``fsmp``, ``nsamples`` and rows of this length mod 4), staged as the
+    kernel stages them: for item k (entry k // runs of ``items``, a tile
+    part, and run k % runs from t0 = run x 32 slots), each onset's window
+    copied from the element ``(o t_len + fsmp + base[i, o] + t0) & ~3``
+    of the rows laid end to end into a stage of NaN at ``woff[o]``, cut to
+    the floats the run's samples read and at the rows' end; node n reads
+    onset o at its entry + t - t0, summed in order o = 0..O-1;
+    ``exp(acc * inv_available)``; each real node's row through ``flat``.
+    A read outside a copy gives NaN. Returns f32 [n_nodes, nsamples], zero
+    in rows no real node writes. Used by the tests and the card's holds,
+    not by the main path.
+
+    """
+
+    t = tables
+    layout = t.layout
+    n_onsets, t_len = onsets_log.shape
+    _check_map_persistent_tables(t, fsmp, nsamples, t_len)
+    device = onsets_log.device
+    rows = onsets_log.reshape(-1)
+    total = rows.numel()
+    woff = t.woff.tolist()
+    items = t.items.to(device).long()
+    npi = layout.npi
+    res = t.res.to(device).long().reshape(-1, n_onsets, npi)
+    flat = t.flat.to(device).reshape(-1, npi)
+    out = torch.zeros((n_nodes, nsamples), dtype=onsets_log.dtype,
+                      device=device)
+    step = max(1, max_elements // (npi * layout.run + layout.stage_floats))
+    for run in range(layout.runs):
+        t0 = run * layout.run
+        cw = min(layout.run, nsamples - t0)
+        cut = layout.run - round_up(cw, 4)
+        for c0 in range(0, len(items), step):
+            item = items[c0:c0 + step]
+            tile = item // layout.parts
+            first = fsmp + t0 + base.to(device)[tile].long()  # [m, O]
+            stage = torch.full((len(item), layout.stage_floats), np.nan,
+                               dtype=rows.dtype, device=device)
+            for o in range(n_onsets):
+                width = woff[o + 1] - woff[o]
+                a4 = (o * t_len + first[:, o]) & ~3
+                count = torch.clamp(total - a4, max=width - cut)
+                span = torch.arange(width, device=device)
+                take = span[None, :] < count[:, None]
+                src = rows[torch.clamp(a4[:, None] + span, max=total - 1)]
+                dst = stage[:, woff[o]:woff[o + 1]]
+                stage[:, woff[o]:woff[o + 1]] = torch.where(take, src, dst)
+            entries = res[item]  # [m, O, npi]
+            ts = torch.arange(cw, device=device)
+            acc = torch.zeros((len(item), npi, cw), dtype=rows.dtype,
+                              device=device)
+            for o in range(n_onsets):
+                at = entries[:, o, :, None] + ts
+                acc = acc + torch.gather(
+                    stage, 1, at.reshape(len(item), -1)).reshape(acc.shape)
+            values = torch.exp(acc * inv_available)
+            nodes = flat[item].reshape(-1)
+            real = nodes >= 0
+            out[nodes[real].long(), t0:t0 + cw] = values.reshape(
+                -1, cw)[real]
+    return out
+
+
+def map_persistent_blocks_per_sm(layout, device):
+    """Resident blocks per SM of M2 v2 at a ring ``layout`` (its full
+    form)."""
+
+    return blocks_per_sm("qm_migrate_map_persistent_blocks_per_sm", device,
+                         *layout.shape, len(layout.woff) - 1, layout.npi,
+                         layout.stage_floats, layout.n_stages)
 
 
 def migrate_detect_vpu_cuda(onsets_log, base, fine, valid, inv_available,
@@ -2383,7 +2854,8 @@ class CudaDetect:
     take: :func:`v2_refusal`), and ``launches`` counts it; for onsets on
     the CPU the plain version (:func:`detect_reduce_plan_reference`)
     runs. :meth:`marginalise`, locate's pass 2, runs M1 v2 on the same
-    tables, and :meth:`map`, locate's map path, M2.
+    tables, and :meth:`map`, locate's map path, M2 v2 on tables built from
+    them (M2, :meth:`map_m2`, its yardstick).
 
     ``dtype`` is the element type of the prepared onsets and of the
     outputs: float32 here and on :class:`CudaDetectVPU`'s route (other
@@ -2430,6 +2902,7 @@ class CudaDetect:
         self.fine16 = self._put(plan.fine16)
         self.span_off = self._put(plan.span_off)
         self.win_floats = plan.win_floats
+        self._map_tables = {}
 
     def __call__(self, onsets, mask, available):
         return self.reduce(onsets, mask, available)
@@ -2475,16 +2948,57 @@ class CudaDetect:
         )
 
     def map(self, onsets_log, inv_available):
+        """Locate's map on the plan for prepared onsets on the card: the
+        coalescence map f32 [n_nodes, nsamples] in flat node order, by M2
+        v2 (:func:`migrate_map_persistent_cuda`, on its tables built from
+        K1 v2's at the first call: :meth:`map_tables`), or by M2
+        (:meth:`map_m2`) where :attr:`map_refusal` refuses the plan; the
+        two maps are equal bit for bit. Raises on CPU tensors and on a
+        plan neither can stage."""
+
+        tables = self.map_tables(onsets_log.shape[-1])
+        if tables is None:
+            return self.map_m2(onsets_log, inv_available)
+        return migrate_map_persistent_cuda(
+            onsets_log, self.base, inv_available, self.fsmp, self.nsamples,
+            self.n_nodes, tables, self._max_shift)
+
+    def map_m2(self, onsets_log, inv_available):
         """M2 on the plan (:func:`migrate_map_v2_cuda`, K1 v2's tables) for
-        prepared onsets on the card: the coalescence map f32 [n_nodes,
-        nsamples] in flat node order. Raises on CPU tensors and on a plan
-        M2 cannot stage."""
+        prepared onsets on the card: M2 v2's yardstick and the map where
+        :attr:`map_refusal` refuses M2 v2. Raises on CPU tensors and on a
+        plan M2 cannot stage."""
 
         return migrate_map_v2_cuda(
             onsets_log, self.base, self.fine16, self.valid, self.perm,
             inv_available, self.span_off, self.win_floats, self.fsmp,
             self.nsamples, self.n_nodes, self._max_shift,
         )
+
+    @cached_property
+    def map_refusal(self):
+        """Why M2 v2 cannot take the plan at this scan
+        (:func:`map_persistent_refusal`), or None."""
+
+        return map_persistent_refusal(self.plan, self.nsamples)
+
+    def map_tables(self, t_len):
+        """M2 v2's tables of the plan for onset rows of ``t_len`` samples
+        (:func:`map_persistent_tables` at :func:`map_persistent_layout`:
+        on the card the tables' kernel on K1 v2's tables where they lie),
+        built at the first call for ``t_len % 4`` and kept; None where
+        :attr:`map_refusal` refuses the plan."""
+
+        if self.map_refusal is not None:
+            return None
+        if t_len % 4 not in self._map_tables:
+            layout = map_persistent_layout(self.plan.r_spans, self.tile,
+                                           self.nsamples)
+            self._map_tables[t_len % 4] = map_persistent_tables(
+                self.fine16, self.base, self.valid, self.perm, layout,
+                self.fsmp, t_len,
+                map_persistent_items(self.plan.valid, layout))
+        return self._map_tables[t_len % 4]
 
     def reduce_log(self, onsets_log, inv_available):
         """(max_coa, max_idx int32, coa_sum), each [nsamples], of prepared
@@ -2663,13 +3177,17 @@ class CudaDetectGlobal(CudaDetect):
 
     :attr:`v2_refusal` says why K3 v2 was not taken (None where it was).
     With ``dtype`` float64 (``precision="double"``) every kernel of the
-    route is a float64 one: K3 v3 f64
-    (:func:`migrate_detect_global_v3_f64_cuda`, the redesign of K3 v2 f64
-    on its tables) where K3 v2 f64's ring of doubles holds the plan's
-    widest window (:func:`global_v2_refusal` on float64), else K3 f64; for
+    route is a float64 one. Where K3 v2 f64's ring of doubles holds the
+    plan's widest window (:func:`global_v2_refusal` on float64), detect
+    runs on its tables: K3 v3 f64 (:func:`migrate_detect_global_v3_f64_cuda`,
+    the redesign of K3 v2 f64) where one stage holds an item, every window
+    and both passes (:attr:`v3_route`: the layout's one group, as at
+    Icequake), else K3 v2 f64 (a layout of several groups, as at F3, where
+    K3 v3 f64's streamed form was the slower). Elsewhere K3 f64. For
     locate M1 ring f64 and M2 ring f64 on K3 v2 f64's tables, or M1 f64
     and M2 simple f64 where K3 v2 f64 refuses the plan. :meth:`launch_v2`
-    launches K3 v2 (K3 v2 f64 in float64), K3 v3 f64's yardstick.
+    launches K3 v2 (K3 v2 f64 in float64) and :meth:`launch_v3` K3 v3 f64,
+    each the other's yardstick off its route.
     :meth:`reduce` on CPU tensors runs the plain version,
     :func:`quakemigrate_torch.ops.migrate.detect_reduce`, and counts no
     launch; :meth:`reduce_log` runs the kernel only. For locate it keeps
@@ -2770,16 +3288,39 @@ class CudaDetectGlobal(CudaDetect):
     def launch(self, onsets_log, inv_available):
         """The kernel, for prepared onsets on the card: (tmax, targ flat
         indices, tsum), each [n_tiles, nsamples], on the plan's brick
-        tiles (K3 v2; K3 v3 f64 in float64) or on flat tiles (K3, where
-        K3 v2 refuses the plan)."""
+        tiles (K3 v2; in float64 K3 v3 f64 where one stage holds an item,
+        :attr:`v3_route`, else K3 v2 f64) or on flat tiles (K3, where K3
+        v2 refuses the plan)."""
 
         if self.tables is None:
             return self.launch_v1(onsets_log, inv_available)
-        if self.dtype == torch.float64:
-            return migrate_detect_global_v3_f64_cuda(
-                onsets_log, self.base, inv_available, self.fsmp,
-                self.nsamples, self.tables, self._max_shift)
+        if self.v3_route:
+            return self.launch_v3(onsets_log, inv_available)
         return self.launch_v2(onsets_log, inv_available)
+
+    @cached_property
+    def v3_route(self):
+        """Whether :meth:`launch` runs K3 v3 f64: in float64, where K3 v2
+        f64's layout has one group that a stage of K3 v3 f64 holds with
+        both passes' slices (``global_v3_layout(...).stage_passes`` 2, the
+        Icequake plan); on layouts of several groups (F3) its streamed
+        form was slower than K3 v2 f64 on the H100 (PERF.md section 6),
+        so K3 v2 f64 runs there."""
+
+        if self.tables is None or self.dtype != torch.float64:
+            return False
+        ring = global_v3_layout(self.layout)
+        return ring is not None and ring.stage_passes == 2
+
+    def launch_v3(self, onsets_log, inv_available):
+        """K3 v3 f64 on the plan's K3 v2 f64 tables, for prepared float64
+        onsets on the card, on any layout it takes (its streamed form on a
+        layout of several groups: the yardstick there); raises on float32
+        tables."""
+
+        return migrate_detect_global_v3_f64_cuda(
+            onsets_log, self.base, inv_available, self.fsmp, self.nsamples,
+            self.tables, self._max_shift)
 
     def launch_v2(self, onsets_log, inv_available):
         """K3 v2 (K3 v2 f64 in float64) on the plan's tables, for

@@ -128,8 +128,9 @@ def detect_route(traveltimes, node_count, device, kernel="auto",
     - with ``precision="double"`` (the reference then keeps its XLA
       functions in float64, whatever ``kernel`` is),
       ``("k3", "precision='double'", plan)``: the float64 kernels of the
-      route, K3 v3 f64 on K3 v2 f64's ring of doubles (logged, with
-      locate's, where that ring refuses the plan: K3 f64).
+      route, K3 v3 f64 on K3 v2 f64's ring of doubles (K3 v2 f64 itself
+      where that ring has several groups; logged, with locate's, where
+      that ring refuses the plan: K3 f64).
 
     On the "k3" route ``CudaDetectGlobal`` runs K3 v2, the ring kernel on
     the plan's brick tiles, where its ring holds the plan's widest window
@@ -610,7 +611,8 @@ class QuakeScan:
         and the marginalisation), as the reference's. On the card
         "double" takes the "k3" route whatever ``kernel`` is (with
         "mxu" the reference's notice is logged): K3 v3 f64 on K3 v2
-        f64's tables, then M1 ring f64 and M2 ring f64 on them for
+        f64's tables (K3 v2 f64 where its ring has several groups of
+        onsets), then M1 ring f64 and M2 ring f64 on them for
         locate, or, on a plan too wide for that ring of doubles, K3 f64,
         M1 f64 and M2 simple f64.
     mesh : quakemigrate_torch.parallel.Mesh, optional

@@ -195,7 +195,9 @@ def test_v2_wrappers_refuse_what_the_kernel_does_not_take():
                                      "migrate_marginalise_ring": 0,
                                      "migrate_map_ring": 0,
                                      "migrate_marginalise_ring_f64": 0,
-                                     "migrate_map_ring_f64": 0}
+                                     "migrate_map_ring_f64": 0,
+                                     "migrate_map_persistent": 0,
+                                     "migrate_map_persistent_tables": 0}
     assert set(cb.launches.values()) == {0}
 
 

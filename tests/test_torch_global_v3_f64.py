@@ -25,7 +25,8 @@ the CPU, where no kernel runs:
   count, its refusals (float32 tables, mixed types, CPU tensors, tables
   built for another ``fsmp``), and the route: ``CudaDetectGlobal`` in
   float64 (``QuakeScan(precision="double")``'s detector and the routed
-  ``ops``' one) launching K3 v3 f64, K3 v2 f64 only as the yardstick;
+  ``ops``' one) launching K3 v3 f64 where one stage holds an item and
+  K3 v2 f64 on a layout of several groups, each the other's yardstick;
 - experiments/exp_double.py's detect bound and gather floor on the CPU,
   and its refusal without a card; sass_loops' comparison of two
   checkouts' machine code, kernel by kernel.
@@ -400,25 +401,59 @@ def caught(monkeypatch):
 @pytest.mark.parametrize("name", ["icequake", "f3"])
 def test_detector_launches_k3_v3_f64(name, caught):
     """CudaDetectGlobal in float64 launches K3 v3 f64 (its C entry, every
-    argument of its signature, its form and ring) and counts it; K3 v2
-    f64 runs only through launch_v2, its yardstick."""
+    argument of its signature, its form and ring) and counts it, on the
+    route where one stage holds an item (Icequake) and through launch_v3
+    on a layout of several groups (F3, whose route launches K3 v2 f64);
+    K3 v2 f64 runs through launch_v2 wherever the route does not take
+    it, its yardstick."""
 
     det, onsets_log, inv = _detector(name)
     ring = cm.global_v3_layout(det.layout)
+    route = ("migrate_detect_global_v3_f64" if name == "icequake"
+             else "migrate_detect_global_v2_f64")
     max_coa, max_idx, coa_sum = det.reduce_log(onsets_log, inv)
-    (args,) = caught
+    assert caught[0][0] == f"qm_{route}"
+    assert {k: n for k, n in cm.launches.items() if n} == {route: 1}
+    assert max_coa.dtype == coa_sum.dtype == F64
+    assert max_coa.shape == max_idx.shape == (det.nsamples,)
+    det.launch_v3(onsets_log, inv)
+    args = caught[1]
     assert args[0] == "qm_migrate_detect_global_v3_f64"
     assert len(args) - 2 == len(_build.SIGNATURES[args[0]]) - 1
     assert args[-6:] == (det.layout.group, det.layout.stage_floats,
                          ring.stage_passes, ring.n_stages, ring.npp,
                          ring.unroll)
-    assert {k: n for k, n in cm.launches.items() if n} == {
-        "migrate_detect_global_v3_f64": 1}
-    assert max_coa.dtype == coa_sum.dtype == F64
-    assert max_coa.shape == max_idx.shape == (det.nsamples,)
     det.launch_v2(onsets_log, inv)
-    assert caught[1][0] == "qm_migrate_detect_global_v2_f64"
-    assert cm.launches["migrate_detect_global_v2_f64"] == 1
+    assert caught[2][0] == "qm_migrate_detect_global_v2_f64"
+    assert cm.launches["migrate_detect_global_v3_f64"] == 1 + (
+        name == "icequake")
+    assert cm.launches["migrate_detect_global_v2_f64"] == 1 + (name == "f3")
+
+
+@pytest.mark.parametrize("name, passes, kernel", [
+    ("icequake", 2, "qm_migrate_detect_global_v3_f64"),
+    ("f3", 1, "qm_migrate_detect_global_v2_f64")])
+def test_double_route_by_stage_passes(name, passes, kernel, monkeypatch):
+    """The double route's kernel follows K3 v3 f64's layout: K3 v3 f64
+    where one stage holds an item (stage_passes 2: the layout's one
+    group), K3 v2 f64 on a layout of several groups (stage_passes 1),
+    where K3 v3 f64's streamed form was the slower on the H100; float32
+    keeps K3 v2."""
+
+    det, onsets_log, inv = _detector(name)
+    assert cm.global_v3_layout(det.layout).stage_passes == passes
+    assert det.v3_route == (passes == 2)
+    called = []
+    for wrapper in ("migrate_detect_global_v3_f64_cuda",
+                    "migrate_detect_global_v2_cuda"):
+        monkeypatch.setattr(cm, wrapper, lambda *a, name=wrapper, **k: (
+            called.append(name)))
+    det.launch(onsets_log, inv)
+    assert called == [{"qm_migrate_detect_global_v3_f64":
+                       "migrate_detect_global_v3_f64_cuda",
+                       "qm_migrate_detect_global_v2_f64":
+                       "migrate_detect_global_v2_cuda"}[kernel]]
+    assert not _detector(name, dtype=torch.float32)[0].v3_route
 
 
 def test_float32_detector_keeps_k3_v2(caught):

@@ -200,7 +200,7 @@ def test_m2_wrappers_hand_the_kernel_its_arguments(v2, monkeypatch):
     monkeypatch.setattr(cm, "launches", dict(cm.launches))
     before = dict(cm.launches)
     if v2:
-        out = detector.map(onsets_log, inv)
+        out = detector.map_m2(onsets_log, inv)
     else:
         out = migrate_map_cuda(onsets_log, detector.base, detector.fine,
                                detector.valid, detector.perm, inv, FSMP,
