@@ -386,11 +386,33 @@ Smoke run of quakemigrate_torch on one NVIDIA GPU.
    loads, adds and register spills (LDL, STL), and its instructions a
    node-onset-sample.
 
+The onset front ends of detect's fused window run on FE1 (STA/LTA) and
+FE2 (kurtosis), csrc/front_end.cu, wherever a fused detect window runs
+on the card: archive_detect, decimate_detect, double_path's detect and
+every mesh of mesh_path check one FE1 launch a window (counted from 0
+with the path's other kernels), kurtosis_detect one FE2 launch a window,
+the standard path's none; those detects run under NoPlainOnCuda, which
+also refuses the plain front ends (ops.scan_window.fused_onsets and
+fused_kurtosis_onsets) a CUDA tensor. archive_detect and kurtosis_detect
+also run one window with the scan's front end and with the plain front
+end called directly (torch.profiler's launches a window, CUDA-event ms
+in turns, the host's enqueue). front_end_path then holds FE1 and FE2 to
+their plain versions on the card on those paths' blocks and a
+30,000-sample block (archive_detect's, kurtosis_detect's, the archive
+block tiled, double_path's float64 block): FE1 over both positions and
+four transforms, FE2 at nsmooth 1, 5 and 12, each printing its share
+equal bit for bit and its largest difference, failing above 1e-6
+relative in float32 or 1e-13 in float64; FE1 against the CPU's plain
+version within FRONT_END_RTOL; and times both on each block in turns
+with their plain versions, with the profiler's device time and the
+bound.
+
 Every kernel line carries its launches on its path (each path run with
 the counts set to 0 just before it), its time and its plain version's,
 and its bound: the larger of the bytes it must move (inputs read once,
 outputs written once) over 3.35 TB/s and the operations of the function
-it computes over the peak for their type: float32 at 67 TFLOP/s, or
+it computes over the peak for their type: float32 at 67 TFLOP/s
+(float64 at 34), or
 bf16 products on the tensor cores at 989 TFLOP/s for the product
 layouts. The detect kernels also carry the floor of their shared-memory
 gather: the 4-byte reads the function needs, O per real node and sample,
@@ -531,6 +553,18 @@ KURTOSIS_THRESHOLD = 2.8
 # x^4 and the windows' differences cancel; the reference sums in float32
 # too), which is why the card must take the CPU's order to meet it.
 FRONT_END_RTOL = 1e-5
+# FE1 and FE2 (csrc/front_end.cu) against their plain versions on the card,
+# relative: they add in the plain versions' order and round where they
+# round, so equal bit for bit is expected; these bounds are what fails
+FE_RTOL = {torch.float32: 1e-6, torch.float64: 1e-13}
+# The day-scale block of front_end_path: the archive window's block tiled
+# to this many samples
+FE_DAY_SAMPLES = 30_000
+# Blocks the detect paths prepared, kept for front_end_path: "archive"
+# (archive_detect's peak window), "kurtosis" (kurtosis_detect's planted
+# window and its settings (nsmooth, taper_pad, min_onset_value)), "double"
+# (double_path's planted window, float64)
+FRONT_END_BLOCKS = {}
 # kurtosis_detect's device="cpu" QuakeScan.detect (the plain window over
 # all 259,008 nodes, ~10 s a window on the host): the windows before, at
 # and after the planted one
@@ -1202,6 +1236,7 @@ def archive_detect_path(device, f1_route, keep=None):
     import tempfile
 
     from quakemigrate_torch.io import Archive
+    from quakemigrate_torch.ops import cuda_front_end as cfe
     from quakemigrate_torch.ops import cuda_migrate as cm
     from quakemigrate_torch.seis import UTCDateTime, read
     from quakemigrate_torch.signal.onsets import pre_process
@@ -1236,8 +1271,11 @@ def archive_detect_path(device, f1_route, keep=None):
                          lambda: scan.detect(start, end))[1]
 
         cm.reset_launches()
-        wall = detect("cold")
+        cfe.reset_launches()
+        with NoPlainOnCuda("archive_detect"):
+            wall = detect("cold")
         launches = dict(cm.launches)
+        fe_launches = dict(cfe.launches)
         detect_scan = scan.detect_scan
         n_windows = len(windows)
         dispatched = sum(r is not None for _, r in windows.values())
@@ -1259,6 +1297,10 @@ def archive_detect_path(device, f1_route, keep=None):
         check(all(n == 0 for k, n in launches.items()
                   if k != "migrate_detect_v2"),
               f"archive_detect: another detect kernel ran ({launches})")
+        check(fe_launches == {"front_end_stalta": dispatched,
+                              "front_end_kurtosis": 0},
+              f"archive_detect: front-end launches {fe_launches} for "
+              f"{dispatched} windows")
 
         # Each window against the plain window on the card
         fsmp, lsmp = detect_scan.fsmp, detect_scan.lsmp
@@ -1292,7 +1334,10 @@ def archive_detect_path(device, f1_route, keep=None):
         print(f"archive_detect: every window vs the plain window: max_coa "
               f"{errs['max_coa']:.2e}, max_coa_n {errs['max_coa_n']:.2e}, "
               f"tie {errs['tie']:.2e}, argmax equal "
-              f"{min(errs['argmax_equal']):.4f} at least")
+              f"{min(errs['argmax_equal']):.4f} at least; FE1 launches "
+              f"{fe_launches}")
+        peak_window = max(windows, key=lambda i: windows[i][1][0].max())
+        FRONT_END_BLOCKS["archive"] = windows[peak_window][0]
 
         # The .scanmseed, read back by the port's reader
         day = start
@@ -1365,6 +1410,9 @@ def archive_detect_path(device, f1_route, keep=None):
         layer_ms["block"] = layer_ms["prepare"] - layer_ms["pre_process"]
         layer_ms["append"] = 1e3 * (warm["host_s"]["drain"]
                                     - warm["fetch_s"]) / n_windows
+        window = front_end_window("archive_detect", scan,
+                                  windows[peak_window][0])
+        window["scan_dispatch_s"] = warm["host_s"]["dispatch"] / n_windows
         print(f"archive_detect: host layers alone, ms a window: archive read "
               f"{layer_ms['read']:.3f}, pre-process {layer_ms['pre_process']:.3f}"
               f", block (prepare {layer_ms['prepare']:.3f} less pre-process) "
@@ -1383,6 +1431,7 @@ def archive_detect_path(device, f1_route, keep=None):
         "windows": n_windows, "dispatched": dispatched, "fsmp": fsmp,
         "lsmp": lsmp, "onsets": int(detect_scan.traveltimes.shape[1]),
         "route": detect_scan.route, "launches": launches,
+        "front_end_launches": fe_launches, "front_end_window": window,
         "cold": cold, "warm": {k: v for k, v in warm.items()
                                if k != "fetch_s"},
         "real_time_factor": ARCHIVE_SPAN_S / warm_wall,
@@ -1618,15 +1667,19 @@ def m1_case(name, s, window, reps=20):
 
 class NoPlainOnCuda:
     """Within the block, the plain versions that detect's and locate's CPU
-    paths call (and the ``extra`` (module, name) pairs) raise if they are
-    given CUDA tensors."""
+    paths call (the plain onset front ends of the fused window among them,
+    which the front ends' factories call on a CPU block) and the ``extra``
+    (module, name) pairs raise if they are given CUDA tensors."""
 
     def __init__(self, label="archive_locate", extra=()):
         from quakemigrate_torch.ops import cuda_migrate as cm
+        from quakemigrate_torch.ops import scan_window
         from quakemigrate_torch.signal import scan as scan_module
 
         self.label = label
         self.targets = [(scan_module, "detect_window"),
+                        (scan_window, "fused_onsets"),
+                        (scan_window, "fused_kurtosis_onsets"),
                         (scan_module, "migrate_detect"),
                         (scan_module, "migrate_marginalise"),
                         (scan_module, "migrate_map"),
@@ -2248,8 +2301,9 @@ def map_case(name, s, window, reps=20):
     form on the same plan bit for bit the route's map; M2 v2 within
     MAP_RTOL of its plain version; M2 v2, M2, M1 v2 (at the window) and K1
     v2 timed in turns (CUDA events); M2 v2 and M2 in three more rounds
-    of turns, whose medians must show M2 v2, the route's kernel, the
-    faster, and by the profiler's device time; the simple form
+    of turns enqueued behind a hold (the kernels back to back, without
+    the host's enqueue), whose medians must show M2 v2, the route's
+    kernel, the faster, and by the profiler's device time; the simple form
     alone. On K2 v2's route the route's kernel is M2 ring, held to its
     plain version on its tables and to M2's simple form bit for bit and
     timed in turns with it (exp_ring.m2_case). The route's one call runs
@@ -2375,13 +2429,15 @@ def map_case(name, s, window, reps=20):
                "k1_v2": lambda: detector.launch(s.onsets_log, s.inv)}
         turns = ekb.in_turns(fns, reps)
         # The route's test: M2 v2 against M2 in three more rounds of turns
-        # (CUDA events, M2 v2, M2, M2, M2 v2 each), their medians, which a
-        # stall of the host's enqueue in one turn does not move; beside
-        # them the kernels alone (torch.profiler's device time), printed
+        # (M2 v2, M2, M2, M2 v2 each), the calls enqueued behind a hold so
+        # that CUDA events time the kernels back to back and not the
+        # host's enqueue (M2 v2's ~0.08 ms is below its wrapper's), their
+        # medians; beside them the kernels alone (torch.profiler's device
+        # time), printed
         route_turns = {"m2_v2": [], "m2": []}
         for _ in range(3):
             for key, ms in ekb.in_turns({k: fns[k] for k in route_turns},
-                                        reps).items():
+                                        reps, queued=True).items():
                 route_turns[key] += ms
         route_ms = {k: float(np.median(v)) for k, v in route_turns.items()}
         device_ms = {k: exp_ring.device_ms(fns[k], reps)
@@ -2390,7 +2446,7 @@ def map_case(name, s, window, reps=20):
             "migrate_map_persistent", "migrate_map_v2")}
         check(route_ms["m2_v2"] < route_ms["m2"],
               f"map {name}: M2 v2 takes the route but is not faster than "
-              f"M2 in turns: {route_turns}")
+              f"M2 in queued turns: {route_turns}")
         lay = tables.layout
         record.update(
             ms=float(np.mean(turns["m2_v2"])),
@@ -2440,7 +2496,7 @@ def map_case(name, s, window, reps=20):
     extra = (f"; in turns M2 v2 {record['m2_v2_ms']:.4f} ms, M2 "
              f"{record['m2_ms']:.4f}, M1 v2 {record['m1_v2_ms']:.4f} ms at "
              f"{length} samples, K1 v2 {record['k1_v2_ms']:.4f} ms; M2 v2 "
-             f"against M2 in three more rounds, medians "
+             f"against M2 in three more rounds, queued, medians "
              f"{record['route_ms']}; device (profiler) "
              f"{record['device_ms']}; M2 v2 "
              f"{record['m2_v2']}; max bit for bit "
@@ -4361,6 +4417,7 @@ def kurtosis_detect_path(device, root, lut, archive, planted, origin, start,
     planted source. Returns a record."""
 
     from quakemigrate_torch.io import read_scanmseed, read_triggered_events
+    from quakemigrate_torch.ops import cuda_front_end as cfe
     from quakemigrate_torch.ops import cuda_migrate as cm
     from quakemigrate_torch.ops.scan_window import (
         detect_window_fused_kurtosis,
@@ -4377,19 +4434,25 @@ def kurtosis_detect_path(device, root, lut, archive, planted, origin, start,
         {i: (block, result)})
     torch.cuda.synchronize()
     cm.reset_launches()
-    _, wall = quiet(root, "kurtosis_detect", lambda: scan.detect(start, end))
+    cfe.reset_launches()
+    with NoPlainOnCuda("kurtosis_detect"):
+        _, wall = quiet(root, "kurtosis_detect",
+                        lambda: scan.detect(start, end))
     launches = dict(cm.launches)
+    fe_launches = dict(cfe.launches)
     detect_scan = scan.detect_scan
     n_windows = len(seen)
     print(f"kurtosis_detect: {n_windows} windows, route {detect_scan.route}, "
           f"fsmp {detect_scan.fsmp}, lsmp {detect_scan.lsmp}; {wall:.3f} s "
-          f"wall (cold); launches {launches}")
+          f"wall (cold); launches {launches}, front end {fe_launches}")
     check(detect_scan.route == "k1_v2"
           and n_windows == round(ARCHIVE_SPAN_S / ARCHIVE_TIMESTEP)
           and launches["migrate_detect_v2"] == n_windows
-          and sum(launches.values()) == n_windows,
+          and sum(launches.values()) == n_windows
+          and fe_launches == {"front_end_stalta": 0,
+                              "front_end_kurtosis": n_windows},
           f"kurtosis_detect: route {detect_scan.route}, {n_windows} windows, "
-          f"launches {launches}")
+          f"launches {launches}, front end {fe_launches}")
     nsmooth, taper_pad, min_onset = onset.fused_static_args(ARCHIVE_TIMESTEP)
     check(nsmooth == 12, f"kurtosis_detect: nsmooth {nsmooth}")
     fsmp = detect_scan.fsmp
@@ -4412,10 +4475,12 @@ def kurtosis_detect_path(device, root, lut, archive, planted, origin, start,
         "kurtosis_detect", blocks, [seen[i][1] for i in order], tt_dev,
         device, fsmp, nsamples, plain, coa_at_idx)
     planted_window = int(np.argmax([p[0] for p in peaks]))
+    FRONT_END_BLOCKS["kurtosis"] = (blocks[planted_window],
+                                    (nsmooth, taper_pad, min_onset))
     front = {}
     for w in sorted({0, planted_window}):
-        card, _ = fused_kurtosis_onsets(*on_card(blocks[w]), nsmooth,
-                                        taper_pad, min_onset)
+        # the card's front end is the path's: FE2
+        card, _ = detect_scan.front_end(*on_card(blocks[w]))
         cpu, _ = fused_kurtosis_onsets(
             *(torch.from_numpy(a) for a in blocks[w]), nsmooth, taper_pad,
             min_onset)
@@ -4433,9 +4498,13 @@ def kurtosis_detect_path(device, root, lut, archive, planted, origin, start,
                     "cpu_vs_f64": err(cpu, exact)}
         check(front[w]["card_vs_cpu"] <= FRONT_END_RTOL,
               f"kurtosis_detect: window {w}'s front end {front[w]}")
-    print(f"kurtosis_detect: the front end in float32 on the card against "
-          f"the CPU's, and each against float64 on the CPU, by window: "
-          f"{front}")
+    print(f"kurtosis_detect: the front end in float32 on the card (FE2) "
+          f"against the CPU's, and each against float64 on the CPU, by "
+          f"window: {front}")
+    window = front_end_window("kurtosis_detect", scan,
+                              blocks[planted_window])
+    window["scan_dispatch_s"] = sum(
+        row["dispatch"] for row in scan.detect_batch_attrib) / n_windows
 
     first = min(max(planted_window - 1, 0), n_windows - KURTOSIS_CPU_WINDOWS)
     cpu_run = hold_to_cpu_run(
@@ -4509,6 +4578,7 @@ def kurtosis_detect_path(device, root, lut, archive, planted, origin, start,
     check(loc_dist <= 1, f"kurtosis_detect: located {loc_dist} nodes from "
           "the planted source")
     return {"launches": launches["migrate_detect_v2"], "windows": n_windows,
+            "front_end_launches": fe_launches, "front_end_window": window,
             "wall_s": wall, "window_ms": list(detect_scan.window_ms),
             "vs_plain": {k: v for k, v in errs.items()
                          if k != "argmax_equal"},
@@ -4531,6 +4601,7 @@ def decimate_detect_path(device, root, lut, archive, planted, start, end):
     .scanmseed peak lies within one decimated node of the planted source.
     Returns a record."""
 
+    from quakemigrate_torch.ops import cuda_front_end as cfe
     from quakemigrate_torch.ops import cuda_migrate as cm
     from quakemigrate_torch.seis import read
     from quakemigrate_torch.signal.onsets import STALTAOnset
@@ -4547,19 +4618,26 @@ def decimate_detect_path(device, root, lut, archive, planted, start, end):
     lut.decimate([2, 2, 2], inplace=True)
     torch.cuda.synchronize()
     cm.reset_launches()
-    _, wall = quiet(root, "decimate_detect", lambda: scan.detect(start, end))
+    cfe.reset_launches()
+    with NoPlainOnCuda("decimate_detect"):
+        _, wall = quiet(root, "decimate_detect",
+                        lambda: scan.detect(start, end))
     launches = dict(cm.launches)
+    fe_launches = dict(cfe.launches)
     n_windows = round(ARCHIVE_SPAN_S / ARCHIVE_TIMESTEP)
     rows = scan.detect_scan.traveltimes.shape[0]
     print(f"decimate_detect: grid {counts.tolist()} -> "
           f"{lut.node_count.tolist()} ({full_rows} -> {rows} traveltime "
           f"rows), route {scan.detect_scan.route}; {wall:.3f} s wall; "
-          f"launches {launches}")
+          f"launches {launches}, front end {fe_launches}")
     check(rows == lut.n_nodes and scan.detect_scan.route == "k1_v2"
           and launches["migrate_detect_v2"] == n_windows
-          and sum(launches.values()) == n_windows,
+          and sum(launches.values()) == n_windows
+          and fe_launches == {"front_end_stalta": n_windows,
+                              "front_end_kurtosis": 0},
           f"decimate_detect: {rows} rows for {lut.n_nodes} nodes, route "
-          f"{scan.detect_scan.route}, launches {launches}")
+          f"{scan.detect_scan.route}, launches {launches}, front end "
+          f"{fe_launches}")
     path = (scan.run.path / "detect" / "scanmseed"
             / f"{start.year}_{start.julday:03d}.scanmseed")
     out = {tr.stats.station: tr for tr in read(path)}
@@ -4575,6 +4653,7 @@ def decimate_detect_path(device, root, lut, archive, planted, start, end):
     check(dist <= 1, f"decimate_detect: peak {dist} decimated nodes from "
           "the planted source")
     return {"launches": launches["migrate_detect_v2"], "wall_s": wall,
+            "front_end_launches": fe_launches,
             "node_count": lut.node_count.tolist(), "rows": rows,
             "window_ms": list(scan.detect_scan.window_ms),
             "peak_node_distance": dist}
@@ -4780,17 +4859,21 @@ def npy_of(run_dir, kind):
 
 
 def detect_and_hold(device, root, label, make_scan, start, end, planted,
-                    route, kernel, block_rtol=0.0, rtol=MAX_COA_RTOL,
-                    rtol_n=MAX_COA_N_RTOL):
+                    route, kernel, front_end=None, block_rtol=0.0,
+                    rtol=MAX_COA_RTOL, rtol_n=MAX_COA_N_RTOL):
     """QuakeScan.detect over [start, end) on the card with the scan that
-    ``make_scan(name, device)`` builds (no plain window on a CUDA tensor):
-    its route ``route``, ``kernel`` (a key of cuda_migrate.launches)
-    launched once a window and nothing else; then held to the same
+    ``make_scan(name, device)`` builds (no plain window or front end on a
+    CUDA tensor): its route ``route``, ``kernel`` (a key of
+    cuda_migrate.launches) launched once a window and nothing else, and
+    ``front_end`` (a key of cuda_front_end.launches, or None on the
+    standard path) once a window and the other front end never; then
+    held to the same
     detect with device="cpu" over CPU_HOLD_WINDOWS windows from the one
     before the planted window (:func:`hold_to_cpu_run`), and the
     planted window's peak within one node of the planted source. Returns
     (scan, record, the card's (block, result) by window)."""
 
+    from quakemigrate_torch.ops import cuda_front_end as cfe
     from quakemigrate_torch.ops import cuda_migrate as cm
 
     scan = make_scan(label, device)
@@ -4799,17 +4882,21 @@ def detect_and_hold(device, root, label, make_scan, start, end, planted,
         {i: (block, result)})
     torch.cuda.synchronize()
     cm.reset_launches()
+    cfe.reset_launches()
     with NoPlainOnCuda(label):
         _, wall = quiet(root, label, lambda: scan.detect(start, end))
     torch.cuda.synchronize()
     launches = dict(cm.launches)
+    fe_launches = dict(cfe.launches)
     ds = scan.detect_scan
     n_windows = len(seen)
     check(ds.route == route and n_windows == round(
         DOUBLE_SPAN_S / ARCHIVE_TIMESTEP) and launches[kernel] == n_windows
-        and sum(launches.values()) == n_windows,
+        and sum(launches.values()) == n_windows
+        and fe_launches == {k: n_windows if k == front_end else 0
+                            for k in cfe.launches},
         f"{label}: route {ds.route} ({ds.route_reason}), {n_windows} "
-        f"windows, launches {launches}")
+        f"windows, launches {launches}, front end {fe_launches}")
     order = sorted(seen)
     windows = [seen[i] for i in order]
     peaks = [float(res[0].max()) for _, res in windows]
@@ -4824,11 +4911,13 @@ def detect_and_hold(device, root, label, make_scan, start, end, planted,
         make_scan(f"{label}_cpu", "cpu"), n_windows=CPU_HOLD_WINDOWS,
         rtol=rtol, rtol_n=rtol_n, block_rtol=block_rtol)
     record = {"route": ds.route, "route_reason": ds.route_reason,
-              "windows": n_windows, "launches": launches, "wall_s": wall,
+              "windows": n_windows, "launches": launches,
+              "front_end_launches": fe_launches, "wall_s": wall,
               "window_ms": list(ds.window_ms), "cpu_run": cpu_run,
               "peak_node_distance": dist, "planted_window": planted_window}
     print(f"{label}: detect on the card {wall:.3f} s wall, route {ds.route} "
-          f"({ds.route_reason}); launches {launches}; planted window "
+          f"({ds.route_reason}); launches {launches}, front end "
+          f"{fe_launches}; planted window "
           f"{planted_window}, peak {dist} nodes from the planted source")
     return scan, record, windows
 
@@ -4933,12 +5022,13 @@ def double_path(device, root, lut, archive, planted, origin, start, end):
 
     scan, record, windows = detect_and_hold(
         device, root, "double_detect", make, start, end, planted, "k3",
-        "migrate_detect_global_v3_f64", rtol=DOUBLE_RTOL,
-        rtol_n=DOUBLE_RTOL)
+        "migrate_detect_global_v3_f64", front_end="front_end_stalta",
+        rtol=DOUBLE_RTOL, rtol_n=DOUBLE_RTOL)
     check(scan.detect_scan.route_reason == "precision='double'"
           and windows[0][0][0].dtype == np.float64,
           f"double_detect: {scan.detect_scan.route_reason}, blocks "
           f"{windows[0][0][0].dtype}")
+    FRONT_END_BLOCKS["double"] = windows[record["planted_window"]][0]
     record["exact"] = hold_double_windows(
         "double_detect", scan, [b for b, _ in windows],
         [r for _, r in windows])
@@ -5157,6 +5247,240 @@ def double_standard_paths(device):
         standard = standard_path(device, root, lut, archive, planted,
                                  origin, start, end)
     return double, standard
+
+
+def front_end_window(label, scan, block, reps=10):
+    """One detect window of ``scan`` (a QuakeScan after its detect) on
+    ``block``, the scan's own front end (FE1 or FE2) against the plain
+    front end called directly, the same detector after either: the device
+    kernels of a window (torch.profiler over ``reps`` windows, copies
+    apart, by name), the front-end kernel's launches counted by its
+    wrapper over the same windows, the window's CUDA-event ms in turns
+    (FE, plain, plain, FE; mean of ``reps``), and the host's enqueue of a
+    window (seconds, median of ``reps``, each from a synchronised
+    device). Observations, not a claim. Returns a record."""
+
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from quakemigrate_torch.experiments.exp_kernel_breakdown import in_turns
+    from quakemigrate_torch.ops import cuda_front_end as cfe
+    from quakemigrate_torch.ops import scan_window as sw
+    from quakemigrate_torch.ops.scan_window import detect_window_cuda
+
+    ds = scan.detect_scan
+    factory, settings = scan._front_end_settings()
+    plain = (sw.fused_kurtosis_onsets
+             if factory is sw.kurtosis_front_end else sw.fused_onsets)
+    tensors = block_tensors(block, ds.device)
+    detector = ds.detector(tensors[0].shape[-1] - ds.fsmp - ds.lsmp)
+    fronts = {"fe": ds.front_end,
+              "plain": lambda *b: plain(*b, *settings)}
+    fns = {key: (lambda front=front: detect_window_cuda(
+        front, tensors, detector, ds.n_nodes)) for key, front in fronts.items()}
+    record = {}
+    for key, fn in fns.items():
+        fn()
+        torch.cuda.synchronize()
+        before = sum(cfe.launches.values())
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        fe_launches = (sum(cfe.launches.values()) - before) / reps
+        names = Counter(e.name for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA)
+        copies = sum(c for n, c in names.items()
+                     if n.startswith(("Memcpy", "Memset")))
+        host = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            host.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        record[key] = {
+            "launches": (sum(names.values()) - copies) / reps,
+            "copies": copies / reps, "fe_launches": fe_launches,
+            "dispatch_s": float(np.median(host)),
+            "kernels": {n: c / reps for n, c in sorted(names.items())
+                        if not n.startswith(("Memcpy", "Memset"))}}
+    turns = in_turns(fns, reps)
+    for key in fns:
+        record[key]["turns_ms"] = turns[key]
+        record[key]["ms"] = float(np.mean(turns[key]))
+    print(f"{label}: a window with the scan's front end against the plain "
+          f"front end called directly: " + "; ".join(
+              f"{key} {r['launches']} kernels a window (profiler; front end "
+              f"{r['fe_launches']} by its wrapper), {r['ms']:.4f} ms, host "
+              f"enqueue {r['dispatch_s'] * 1e3:.4f} ms"
+              for key, r in record.items()))
+    print(f"{label}: the window's kernels with the scan's front end: "
+          f"{record['fe']['kernels']}")
+    return record
+
+
+def front_end_bound(kind, tensors, nsmooth=1, transform="energy"):
+    """FE1's or FE2's bound on a block: the block read once and the
+    combined onsets and the available count written once, at the memory
+    rate, against the arithmetic a sample of a row needs (FE1: the
+    transform's square, the running sum's addition, two differences, a
+    division and a multiplication for the ratio, the square, the weight
+    and the combine's addition; FE2: three products for the powers, four
+    additions, four differences, four divisions, the moments' 13 and the
+    gate's product, the gradient, the smoothing's 2 a sample of the box
+    where nsmooth > 1, 1 + cf and the combine's three) and three a
+    combined sample (the division by the live count, the square root, the
+    clip), at the card's rate for the dtype; compares and selects not
+    counted. Returns {"bound_ms", "bound_by", "bytes", "operations"}."""
+
+    channels = tensors[0]
+    n_slots, c_max, t = channels.shape
+    item = channels.element_size()
+    nbytes = (sum(a.numel() * a.element_size() for a in tensors)
+              + (n_slots * t + 1) * item)
+    if kind == "stalta":
+        per = 8 + (transform in ("energy", "env_squared"))
+    else:
+        per = 35 + (2 * nsmooth if nsmooth > 1 else 0)
+    ops = n_slots * c_max * t * per + n_slots * t * 3
+    bound_ms, bound_by = roofline(
+        nbytes, ops, FP64_FLOP_PER_S if item == 8 else FP32_FLOP_PER_S)
+    return {"bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "operations": ops}
+
+
+def hold_front_end(label, kernel, plain, rtol):
+    """``kernel()`` (FE1 or FE2) against ``plain()`` (its plain version)
+    on the card: the share of the combined onsets equal bit for bit, the
+    largest relative and absolute difference, the available counts equal.
+    Fails above ``rtol``. Returns a record."""
+
+    got, available = kernel()
+    want, want_available = plain()
+    torch.cuda.synchronize()
+    ints = torch.int64 if got.dtype == torch.float64 else torch.int32
+    bit_equal = float((got.view(ints) == want.view(ints)).double().mean())
+    diff = (got.double() - want.double()).abs()
+    rel = float((diff / want.double().abs()).max())
+    record = {"bit_equal": bit_equal, "max_rel": rel,
+              "max_abs_err": float(diff.max()),
+              "available_equal": float(available) == float(want_available)}
+    print(f"front_end {label}: bit-equal share {bit_equal:.6f}, largest "
+          f"relative difference {rel:.3e}, available equal "
+          f"{record['available_equal']}")
+    check(rel <= rtol and record["available_equal"],
+          f"front_end {label}: {record}")
+    return record
+
+
+def front_end_path(device, reps=20):
+    """front_end_path: FE1 and FE2 (csrc/front_end.cu) held to their plain
+    versions on the card, in the reference's order, over the CPU test's
+    cases at full size: archive_detect's block (float32, 2,038 samples),
+    kurtosis_detect's block, a 30,000-sample block (the archive block
+    tiled) and double_path's float64 block. FE1 over both positions and
+    the four transforms on the STA/LTA blocks; FE2 at nsmooth 1 and 5 and
+    kurtosis_detect's settings (nsmooth 12, its taper), on the STA/LTA
+    blocks with nkurt = nlta. Each hold prints the share equal bit for bit
+    and the largest difference and fails above FE_RTOL. FE1 on the
+    archive block also against the plain version on the CPU (within
+    FRONT_END_RTOL). Then each kernel timed at the path's settings on
+    each block: CUDA events in turns with the plain version (FE, plain,
+    plain, FE; mean of ``reps``), torch.profiler's device time of the
+    kernel alone, and :func:`front_end_bound`. No PyTorch call computes
+    either front end (library_ms None). Returns a record."""
+
+    from quakemigrate_torch.experiments import exp_ring
+    from quakemigrate_torch.experiments.exp_kernel_breakdown import in_turns
+    from quakemigrate_torch.ops import cuda_front_end as cfe
+    from quakemigrate_torch.ops import scan_window as sw
+
+    t_phase = time.perf_counter()
+    kurt_block, kurt_settings = FRONT_END_BLOCKS["kurtosis"]
+    archive = FRONT_END_BLOCKS["archive"]
+    reps_t = -(-FE_DAY_SAMPLES // archive[0].shape[-1])
+    day = (np.ascontiguousarray(np.tile(archive[0], (1, 1, reps_t))[
+        ..., :FE_DAY_SAMPLES]), *archive[1:])
+    blocks = {"archive": block_tensors(archive, device),
+              "kurtosis": block_tensors(kurt_block, device),
+              "day": block_tensors(day, device),
+              "double": block_tensors(FRONT_END_BLOCKS["double"], device)}
+    _, taper_pad, min_onset = kurt_settings
+    record = {"holds": {}, "times": {}, "shapes": {
+        k: list(b[0].shape) + [str(b[0].dtype)] for k, b in blocks.items()}}
+
+    def stalta(b, position="classic", transform="energy"):
+        args = (*b, position, transform, 0.4)
+        return (lambda: cfe.fused_onsets_cuda(*args),
+                lambda: sw.fused_onsets(*args))
+
+    def kurtosis_inputs(b):
+        return (*b[:3], b[3 if len(b) == 4 else 4])
+
+    def kurtosis(b, nsmooth, taper=taper_pad):
+        args = (*kurtosis_inputs(b), nsmooth, taper, min_onset)
+        return (lambda: cfe.fused_kurtosis_onsets_cuda(*args),
+                lambda: sw.fused_kurtosis_onsets(*args))
+
+    for name, b in blocks.items():
+        rtol = FE_RTOL[b[0].dtype]
+        if len(b) == 5:
+            for position in ("classic", "centred"):
+                for transform in ("energy", "abs", "env", "env_squared"):
+                    label = f"FE1 {name} {position} {transform}"
+                    record["holds"][label] = hold_front_end(
+                        label, *stalta(b, position, transform), rtol)
+        for nsmooth, taper in ((1, 0), (5, 20), (12, taper_pad)):
+            label = f"FE2 {name} nsmooth {nsmooth} taper {taper}"
+            record["holds"][label] = hold_front_end(
+                label, *kurtosis(b, nsmooth, taper), rtol)
+
+    card, _ = cfe.fused_onsets_cuda(*blocks["archive"], "classic", "energy",
+                                    0.4)
+    cpu, _ = sw.fused_onsets(*(torch.from_numpy(a) for a in archive),
+                             "classic", "energy", 0.4)
+    record["fe1_card_vs_cpu"] = float(
+        ((card.cpu().double() - cpu.double()).abs() / cpu.double().abs())
+        .max())
+    check(record["fe1_card_vs_cpu"] <= FRONT_END_RTOL,
+          f"front_end: FE1 on the card against the plain version on the CPU "
+          f"{record['fe1_card_vs_cpu']}")
+
+    for name, b in blocks.items():
+        kinds = (("kurtosis",) if len(b) == 4 else ("stalta", "kurtosis"))
+        for kind in kinds:
+            fe, plain = (stalta(b) if kind == "stalta"
+                         else kurtosis(b, kurt_settings[0]))
+            turns = in_turns({"fe": fe, "plain": plain}, reps)
+            inputs = b if kind == "stalta" else kurtosis_inputs(b)
+            entry = {"ms": float(np.mean(turns["fe"])),
+                     "plain_ms": float(np.mean(turns["plain"])),
+                     "turns_ms": turns,
+                     "device_ms": exp_ring.device_ms(fe, reps),
+                     **front_end_bound(kind, inputs, kurt_settings[0])}
+            record["times"][f"{kind} {name}"] = entry
+            print(f"front_end {'FE1' if kind == 'stalta' else 'FE2'} {name} "
+                  f"{record['shapes'][name]}: {entry['ms']:.4f} ms (device "
+                  f"{entry['device_ms']}; plain {entry['plain_ms']:.4f}; "
+                  f"bound {entry['bound_ms']:.6f} by {entry['bound_by']}, "
+                  f"{entry['bytes']} bytes, {entry['operations']} "
+                  f"operations)")
+    worst = {k: max(r["max_rel"] for l, r in record["holds"].items()
+                    if l.startswith(k)) for k in ("FE1", "FE2")}
+    record["max_abs_err"] = {k: max(r["max_abs_err"] for l, r in
+                                    record["holds"].items()
+                                    if l.startswith(k))
+                             for k in ("FE1", "FE2")}
+    record["bit_equal_min"] = min(r["bit_equal"]
+                                  for r in record["holds"].values())
+    record["phase_s"] = time.perf_counter() - t_phase
+    print(f"front_end: {len(record['holds'])} holds, the least bit-equal "
+          f"share {record['bit_equal_min']:.6f}, the largest relative "
+          f"difference {worst}; FE1 card against CPU "
+          f"{record['fe1_card_vs_cpu']:.2e}; phase {record['phase_s']:.1f} s")
+    return record
 
 
 def rel_err(got, ref):
@@ -5470,6 +5794,7 @@ def mesh_path(device, root, lut, stations, origin):
     import csv
 
     from quakemigrate_torch.io import Archive
+    from quakemigrate_torch.ops import cuda_front_end as cfe
     from quakemigrate_torch.ops import cuda_migrate as cm
     from quakemigrate_torch.parallel import make_mesh
     from quakemigrate_torch.seis import read
@@ -5502,25 +5827,33 @@ def mesh_path(device, root, lut, stations, origin):
             {i: (block, result)})
         torch.cuda.synchronize()
         cm.reset_launches()
+        cfe.reset_launches()
         with NoPlainOnCuda("mesh_path"):
             _, wall = quiet(root, f"mesh_{label}",
                             lambda: scan.detect(start, end))
         torch.cuda.synchronize()
         launches = {k: v for k, v in cm.launches.items() if v}
+        # FE1 once a window and device of the mesh's row: the one card
+        # stands for every device, so once a window
+        fe_launches = dict(cfe.launches)
         ms = list(scan.detect_scan.window_ms)
         runs[label] = (scan, seen)
         record[label] = {"slabs_a_window": slabs, "wall_s": wall,
-                         "launches": launches, "dispatch_ms": ms,
-                         "dispatches": len(ms)}
+                         "launches": launches,
+                         "front_end_launches": fe_launches,
+                         "dispatch_ms": ms, "dispatches": len(ms)}
         print(f"mesh_path {label}: {mesh}, route {scan.detect_scan.route}, "
               f"{len(seen)} windows in {len(ms)} dispatches, {wall:.3f} s "
-              f"wall, launches {launches}, device ms a dispatch "
-              f"{np.round(ms, 4).tolist()}")
+              f"wall, launches {launches}, front end {fe_launches}, device "
+              f"ms a dispatch {np.round(ms, 4).tolist()}")
         check(scan.detect_scan.route == "k1_v2" and len(seen) == n_windows
               and all(r is not None for _, r in seen.values())
-              and launches == {"migrate_detect_v2": slabs * n_windows},
+              and launches == {"migrate_detect_v2": slabs * n_windows}
+              and fe_launches == {"front_end_stalta": n_windows,
+                                  "front_end_kurtosis": 0},
               f"mesh_path {label}: route {scan.detect_scan.route}, "
-              f"{len(seen)} windows, launches {launches}")
+              f"{len(seen)} windows, launches {launches}, front end "
+              f"{fe_launches}")
 
     single, single_seen = runs["unsharded"]
     fsmp = single.detect_scan.fsmp
@@ -6310,6 +6643,9 @@ def main():
     kurtosis_record, decimate_record = kurtosis_decimate_path(device)
     torch.cuda.empty_cache()
     double_record, standard_record = double_standard_paths(device)
+    torch.cuda.empty_cache()
+    fe_record = front_end_path(device)
+    FRONT_END_BLOCKS.clear()
     torch.cuda.empty_cache()
 
     checks = breakdown_checks(device)
@@ -7265,6 +7601,43 @@ def main():
         "main_path_err": r1_record["main_path_err"],
         "cases": r1_record["cases"],
     })
+    # FE1 and FE2: launches on the main path (archive_detect's and
+    # kurtosis_detect's QuakeScan.detect), the other paths' beside them;
+    # times at the archive window's block (FE1) and kurtosis_detect's
+    # (FE2), the other blocks' under "times"
+    mesh = archive_record["mesh_path"]
+    for name, key, main_record, time_key, paths in (
+            ("front_end_stalta", "FE1", archive_record, "stalta archive", {
+                "decimate_detect": decimate_record["front_end_launches"],
+                "double_detect": double_record["front_end_launches"],
+                **{f"mesh_{label}": mesh[label]["front_end_launches"]
+                   for label in ("unsharded", "grid4", "batch2x2")}}),
+            ("front_end_kurtosis", "FE2", kurtosis_record,
+             "kurtosis kurtosis", {})):
+        main_time = fe_record["times"][time_key]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "quakemigrate_torch/csrc/front_end.cu",
+            "replaces": ("quakemigrate_tpu/ops/scan_window.py:123"
+                         if key == "FE1" else
+                         "quakemigrate_tpu/ops/scan_window.py:166"),
+            "launches": main_record["front_end_launches"][name],
+            "path_launches": {k: v[name] for k, v in paths.items()},
+            "max_abs_err": fe_record["max_abs_err"][key],
+            **{k: main_time[k] for k in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "device_ms")},
+            "library_ms": None,
+            "bit_equal_min": fe_record["bit_equal_min"],
+            "holds": {k: v for k, v in fe_record["holds"].items()
+                      if k.startswith(key)},
+            "times": {k: v for k, v in fe_record["times"].items()
+                      if k.startswith("stalta" if key == "FE1"
+                                      else "kurtosis")},
+            "shapes": fe_record["shapes"],
+            "window": main_record["front_end_window"],
+        })
+    kernels[-2]["card_vs_cpu"] = fe_record["fe1_card_vs_cpu"]
     for name, case in (("migrate_map_persistent", "k1_v2"),
                        ("migrate_map_ring", "k2_v2")):
         kernels[next(i for i, k in enumerate(kernels)

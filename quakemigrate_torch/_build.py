@@ -232,6 +232,14 @@ SIGNATURES = {
     # x, out, rows, n, nsta, nlta, stream
     "qm_recursive_stalta_f32": [_VOID_P, _VOID_P] + [_INT] * 4 + [_VOID_P],
     "qm_recursive_stalta_f64": [_VOID_P, _VOID_P] + [_INT] * 4 + [_VOID_P],
+    # channels, chan_mask, slot_mask, nsta, nlta, out, available, n_slots,
+    # c_max, t, centred, mode, min_onset (low, high halves), stream
+    "qm_front_end_stalta_f32": [_VOID_P] * 7 + [_INT] * 7 + [_VOID_P],
+    "qm_front_end_stalta_f64": [_VOID_P] * 7 + [_INT] * 7 + [_VOID_P],
+    # channels, chan_mask, slot_mask, nkurt, work, out, available, n_slots,
+    # c_max, t, nsmooth, taper_pad, min_onset (low, high halves), stream
+    "qm_front_end_kurtosis_f32": [_VOID_P] * 7 + [_INT] * 7 + [_VOID_P],
+    "qm_front_end_kurtosis_f64": [_VOID_P] * 7 + [_INT] * 7 + [_VOID_P],
     # err; returns a C string
     "qm_error_string": [_INT],
 }

@@ -94,14 +94,53 @@ def cuda_ms(fn, reps=REPS, warmup=WARMUP):
     return start.elapsed_time(end) / reps
 
 
-def in_turns(fns, reps=REPS, warmup=WARMUP):
-    """CUDA-event milliseconds of each callable of ``fns`` (name ->
-    callable), timed in turns a, b, ..., b, a: {name: [first, second]}."""
+# The first hold of queued_ms, in the card's clock cycles (~10 ms at the
+# H100's boost clock), doubled while the device drains the queue first
+HOLD_CYCLES = 20_000_000
+HOLD_TRIES = 4
 
+
+def queued_ms(fn, reps=REPS, warmup=WARMUP):
+    """Mean milliseconds of ``fn()``'s device work per call, from CUDA
+    events around ``reps`` calls that the host enqueues behind a spinning
+    kernel (``torch.cuda._sleep``): the calls then run back to back, and
+    the time is the kernels' and not the host's enqueue, which
+    :func:`cuda_ms` measures instead where the host is the slower. The
+    hold is doubled and the calls timed again while the start event has
+    completed before the last call was enqueued (the queue drained)."""
+
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    cycles = HOLD_CYCLES
+    for _ in range(HOLD_TRIES):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        drained = start.query()
+        end.synchronize()
+        if not drained:
+            return start.elapsed_time(end) / reps
+        cycles *= 2
+    raise RuntimeError(f"queued_ms: the device drained a hold of {cycles // 2}"
+                       f" cycles before {reps} calls were enqueued")
+
+
+def in_turns(fns, reps=REPS, warmup=WARMUP, queued=False):
+    """CUDA-event milliseconds of each callable of ``fns`` (name ->
+    callable), timed in turns a, b, ..., b, a: {name: [first, second]};
+    with ``queued``, the calls enqueued behind a hold (:func:`queued_ms`),
+    else as the host issues them (:func:`cuda_ms`)."""
+
+    timer = queued_ms if queued else cuda_ms
     order = list(fns) + list(fns)[::-1]
     ms = {name: [] for name in fns}
     for name in order:
-        ms[name].append(cuda_ms(fns[name], reps, warmup))
+        ms[name].append(timer(fns[name], reps, warmup))
     return ms
 
 

@@ -28,10 +28,13 @@ all the records on one JSON line, also written to ``--out`` where given.
 Requires CUDA; exits non-zero without it.
 
     python3 -m quakemigrate_torch.experiments.exp_map_v2 [--check] \
-        [--reps N] [--out PATH]
+        [--route N] [--reps N] [--out PATH]
 
 ``--check`` builds, holds each plan's route once and stops (a first run of
-a new build).
+a new build). ``--route N`` holds each plan's route, then times M2 v2
+against M2 in N rounds of turns by both clocks (CUDA events around the
+calls as the host issues them, and around calls enqueued behind a hold,
+``exp_kernel_breakdown.queued_ms``) with their medians, and stops.
 
 """
 
@@ -219,7 +222,29 @@ def variants(s):
     return out
 
 
-def run_plan(s, reps, check_only=False):
+def route_rounds(s, reps, rounds):
+    """M2 v2 against M2 in ``rounds`` rounds of turns, timed as the host
+    issues the calls ("issued") and enqueued behind a hold ("queued"):
+    {clock: {"turns_ms": {name: [...]}, "median_ms": {name: ms}}}."""
+
+    d = s.detector
+    fns = {"m2_v2": m2_v2(s),
+           "m2": lambda: d.map_m2(s.onsets_log, s.inv)}
+    out = {}
+    for clock, queued in (("issued", False), ("queued", True)):
+        turns = {k: [] for k in fns}
+        for _ in range(rounds):
+            for k, ms in ekb.in_turns(fns, reps, queued=queued).items():
+                turns[k] += ms
+        out[clock] = {"turns_ms": turns,
+                      "median_ms": {k: float(np.median(v))
+                                    for k, v in turns.items()},
+                      "faster_share": float(np.mean(
+                          np.array(turns["m2_v2"]) < np.array(turns["m2"])))}
+    return out
+
+
+def run_plan(s, reps, check_only=False, rounds=0):
     d = s.detector
     tables = d.map_tables(s.t_len)
     lay = tables.layout
@@ -238,6 +263,11 @@ def run_plan(s, reps, check_only=False):
               **resources(lay.shape), **bound(s), "hold": hold(s)}
     print(f"exp_map_v2 {s.name}: " + json.dumps(record))
     if check_only:
+        return record
+    if rounds:
+        record["route_rounds"] = route_rounds(s, reps, rounds)
+        print(f"exp_map_v2 {s.name}: M2 v2 against M2 in {rounds} rounds "
+              + json.dumps(record["route_rounds"]))
         return record
     start, length = s.window
     fns = {
@@ -321,6 +351,7 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--reps", type=int, default=REPS)
     parser.add_argument("--check", action="store_true")
+    parser.add_argument("--route", type=int, default=0)
     parser.add_argument("--plans", nargs="*", default=list(PLANS))
     parser.add_argument("--out", type=pathlib.Path)
     opts = parser.parse_args(argv)
@@ -332,7 +363,7 @@ def main(argv=None):
     records = []
     for name in opts.plans:
         s = setup(name)
-        records.append(run_plan(s, opts.reps, opts.check))
+        records.append(run_plan(s, opts.reps, opts.check, opts.route))
         del s
         torch.cuda.empty_cache()
     line = json.dumps({"card": smi, "exp_map_v2": records})

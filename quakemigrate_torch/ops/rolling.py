@@ -14,11 +14,14 @@ within blocks of 16, then the same over the block totals), so the plain
 detect path agrees with the reference to float32 rounding of the later
 steps (about 1e-7 relative) instead of the running sum's own error
 (about 1e-5 at 2,000 samples). On CUDA tensors it is ``torch.cumsum``,
-one launch, unless the caller asks for the reference's order: the
-kurtosis moments do, since after an event their windowed differences
-cancel and two orders then differ by ~4e-3 relative (``PERF.md`` §6),
-so only the same order gives the card the CPU's values. That order
-costs about 40 launches of one elementwise addition each.
+one launch, unless the caller asks for the reference's order: the plain
+front ends of the fused detect window do (the contract of FE1 and FE2,
+``csrc/front_end.cu``, which add in :func:`blocked_cumsum`'s order), and
+so do the kurtosis moments, since after an event their windowed
+differences cancel and two orders then differ by ~4e-3 relative
+(``PERF.md`` §6), so only the same order gives the card the CPU's
+values. That order costs about 40 launches of one elementwise addition
+each.
 
 """
 

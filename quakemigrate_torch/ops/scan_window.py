@@ -19,11 +19,15 @@ then the onset's per-slot arguments: ``nsta, nlta`` [n_slots] (STA/LTA
 window lengths in samples) or ``nkurt`` [n_slots] (kurtosis window
 lengths). A front end (:func:`stalta_front_end`,
 :func:`kurtosis_front_end`) maps such a block to (combined onsets
-[n_slots, T], available); :func:`detect_window` and
-:func:`detect_window_cuda` run any front end's window. The standard
-path's block is ``(onsets, available, slot_mask)``, the onsets computed
-before the window (:func:`onset_front_end`). Every window runs in its
-block's float type, float32 or float64.
+[n_slots, T], available): on a block on the card FE1 or FE2
+(``ops.cuda_front_end``, one launch a window), on a CPU block the plain
+version (:func:`fused_onsets`, :func:`fused_kurtosis_onsets`), which
+adds every running sum in the reference's order on any device, so that
+the kernels have an exact plain version on the card too.
+:func:`detect_window` and :func:`detect_window_cuda` run any front end's
+window. The standard path's block is ``(onsets, available, slot_mask)``,
+the onsets computed before the window (:func:`onset_front_end`). Every
+window runs in its block's float type, float32 or float64.
 
 """
 
@@ -40,7 +44,8 @@ def _sta_lta_dynamic(signal, nsta, nlta, position):
     """
     Batched STA/LTA with per-row window lengths (rows may belong to
     different phases); ``position`` is "classic" or "centred". Semantics
-    match ops.stalta.
+    match ops.stalta; the running sums are added in the reference's order
+    on every device (FE1's contract).
 
     """
 
@@ -55,15 +60,15 @@ def _sta_lta_dynamic(signal, nsta, nlta, position):
     frac = nlta_col.to(signal.dtype) / nsta_col.to(signal.dtype)
 
     if position == "classic":
-        sta = trailing_window_sums(signal, nsta)
-        lta = trailing_window_sums(signal, nlta)
+        sta = trailing_window_sums(signal, nsta, reference_order=True)
+        lta = trailing_window_sums(signal, nlta, reference_order=True)
         ratio = torch.where(
             lta < tiny, 1.0, sta / torch.clamp(lta, min=tiny) * frac
         )
         return torch.where(idx >= (nlta_col - 1), ratio, 1.0)
 
     # centred: lta trails, sta leads
-    padded = padded_cumsum(signal)
+    padded = padded_cumsum(signal, reference_order=True)
     hi = padded[..., 1:]
     lo_idx = torch.clamp(idx + 1 - nlta_col, min=0)
     lta = hi - torch.gather(padded, -1, lo_idx)
@@ -138,22 +143,37 @@ def fused_kurtosis_onsets(
 
 
 def stalta_front_end(position, transform, min_onset_value):
-    """The STA/LTA front end (:func:`fused_onsets`) of these settings, as
-    a function of a block ``(channels, chan_mask, slot_mask, nsta,
-    nlta)``."""
+    """The STA/LTA front end of these settings, as a function of a block
+    ``(channels, chan_mask, slot_mask, nsta, nlta)``: FE1
+    (``ops.cuda_front_end.fused_onsets_cuda``) on a block on the card, the
+    plain :func:`fused_onsets` on a CPU block."""
 
     def front_end(channels, chan_mask, slot_mask, nsta, nlta):
+        if channels.is_cuda:
+            from .cuda_front_end import fused_onsets_cuda
+
+            return fused_onsets_cuda(channels, chan_mask, slot_mask, nsta,
+                                     nlta, position, transform,
+                                     min_onset_value)
         return fused_onsets(channels, chan_mask, slot_mask, nsta, nlta,
                             position, transform, min_onset_value)
     return front_end
 
 
 def kurtosis_front_end(nsmooth, taper_pad, min_onset_value):
-    """The kurtosis front end (:func:`fused_kurtosis_onsets`) of these
-    settings (``KurtosisOnset.fused_static_args``), as a function of a
-    block ``(channels, chan_mask, slot_mask, nkurt)``."""
+    """The kurtosis front end of these settings
+    (``KurtosisOnset.fused_static_args``), as a function of a block
+    ``(channels, chan_mask, slot_mask, nkurt)``: FE2
+    (``ops.cuda_front_end.fused_kurtosis_onsets_cuda``) on a block on the
+    card, the plain :func:`fused_kurtosis_onsets` on a CPU block."""
 
     def front_end(channels, chan_mask, slot_mask, nkurt):
+        if channels.is_cuda:
+            from .cuda_front_end import fused_kurtosis_onsets_cuda
+
+            return fused_kurtosis_onsets_cuda(channels, chan_mask, slot_mask,
+                                              nkurt, nsmooth, taper_pad,
+                                              min_onset_value)
         return fused_kurtosis_onsets(channels, chan_mask, slot_mask, nkurt,
                                      nsmooth, taper_pad, min_onset_value)
     return front_end
@@ -213,14 +233,15 @@ def detect_window_fused(
     n_nodes_real=None, tile=DEFAULT_TILE,
 ):
     """
-    One STA/LTA detect window in plain PyTorch, with the flat-order
-    migration of ops.migrate. Returns (max_coa, max_norm_coa, max_idx),
-    each [S].
+    One STA/LTA detect window in plain PyTorch (the plain front end
+    :func:`fused_onsets` on any device), with the flat-order migration of
+    ops.migrate. Returns (max_coa, max_norm_coa, max_idx), each [S].
 
     """
 
     return detect_window(
-        stalta_front_end(position, transform, min_onset_value),
+        lambda *block: fused_onsets(*block, position, transform,
+                                    min_onset_value),
         (channels, chan_mask, slot_mask, nsta, nlta), traveltimes, fsmp,
         nsamples, n_nodes_real, tile,
     )
@@ -232,13 +253,16 @@ def detect_window_fused_kurtosis(
 ):
     """
     One kurtosis detect window in plain PyTorch (the JAX
-    ``detect_window_fused_kurtosis``), with the flat-order migration of
-    ops.migrate. Returns (max_coa, max_norm_coa, max_idx), each [S].
+    ``detect_window_fused_kurtosis``; the plain front end
+    :func:`fused_kurtosis_onsets` on any device), with the flat-order
+    migration of ops.migrate. Returns (max_coa, max_norm_coa, max_idx),
+    each [S].
 
     """
 
     return detect_window(
-        kurtosis_front_end(nsmooth, taper_pad, min_onset_value),
+        lambda *block: fused_kurtosis_onsets(*block, nsmooth, taper_pad,
+                                             min_onset_value),
         (channels, chan_mask, slot_mask, nkurt), traveltimes, fsmp, nsamples,
         n_nodes_real, tile,
     )

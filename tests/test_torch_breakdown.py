@@ -273,3 +273,66 @@ def test_breakdown_entry_point_requires_cuda():
     assert proc.returncode != 0
     assert "CUDA is not available" in proc.stderr
     assert exp_kernel_breakdown.NSAMPLES == 30_000
+
+
+class _FakeEvent:
+    """A CUDA event stand-in: ``query`` answers from a shared script."""
+
+    script = []
+
+    def __init__(self, enable_timing=False):
+        pass
+
+    def record(self):
+        pass
+
+    def query(self):
+        return _FakeEvent.script.pop(0)
+
+    def synchronize(self):
+        pass
+
+    def elapsed_time(self, other):
+        return 8.0
+
+
+@pytest.mark.parametrize("drains, raises", [(0, False), (2, False),
+                                             (4, True)])
+def test_queued_ms_doubles_the_hold_while_the_queue_drains(
+        monkeypatch, drains, raises):
+    """queued_ms enqueues its calls behind a hold, doubles the hold while
+    the start event completed before the last call was enqueued, and
+    raises after HOLD_TRIES drained holds."""
+
+    holds, calls = [], []
+    monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
+    monkeypatch.setattr(torch.cuda, "_sleep", holds.append)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    _FakeEvent.script = [True] * drains + [False]
+    ekb = exp_kernel_breakdown
+    if raises:
+        with pytest.raises(RuntimeError, match="drained"):
+            ekb.queued_ms(lambda: calls.append(1), reps=4, warmup=1)
+        assert len(holds) == ekb.HOLD_TRIES
+    else:
+        assert ekb.queued_ms(lambda: calls.append(1), reps=4,
+                             warmup=1) == 2.0
+        assert len(calls) == 1 + 4 * (drains + 1)
+    assert holds == [ekb.HOLD_CYCLES * 2 ** i for i in range(len(holds))]
+
+
+@pytest.mark.parametrize("queued", [False, True])
+def test_in_turns_order_and_clock(monkeypatch, queued):
+    """in_turns times a, b, b, a with the clock asked for."""
+
+    order = []
+    ekb = exp_kernel_breakdown
+    for name in ("cuda_ms", "queued_ms"):
+        monkeypatch.setattr(
+            ekb, name, lambda fn, reps, warmup, name=name:
+            order.append((fn(), name)) or float(len(order)))
+    ms = ekb.in_turns({"a": lambda: "a", "b": lambda: "b"}, 3, 1,
+                      queued=queued)
+    clock = "queued_ms" if queued else "cuda_ms"
+    assert order == [(k, clock) for k in "abba"]
+    assert ms == {"a": [1.0, 4.0], "b": [2.0, 3.0]}
