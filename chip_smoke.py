@@ -386,26 +386,30 @@ Smoke run of quakemigrate_torch on one NVIDIA GPU.
    loads, adds and register spills (LDL, STL), and its instructions a
    node-onset-sample.
 
-The onset front ends of detect's fused window run on FE1 (STA/LTA) and
-FE2 (kurtosis), csrc/front_end.cu, wherever a fused detect window runs
-on the card: archive_detect, decimate_detect, double_path's detect and
-every mesh of mesh_path check one FE1 launch a window (counted from 0
-with the path's other kernels), kurtosis_detect one FE2 launch a window,
-the standard path's none; those detects run under NoPlainOnCuda, which
-also refuses the plain front ends (ops.scan_window.fused_onsets and
+The onset front ends of detect's fused window run on FE1 v2 (STA/LTA)
+and FE2 v2 (kurtosis), csrc/front_end_v2.cu (a grid of row segments),
+wherever a fused detect window runs on the card:
+archive_detect, decimate_detect, double_path's detect and every mesh of
+mesh_path check one FE1 v2 launch a window (counted from 0 with the
+path's other kernels), kurtosis_detect one FE2 v2 launch a window, the
+standard path's none, and no launch of FE1 or FE2 (csrc/front_end.cu,
+their yardstick); those detects run under NoPlainOnCuda, which also
+refuses the plain front ends (ops.scan_window.fused_onsets and
 fused_kurtosis_onsets) a CUDA tensor. archive_detect and kurtosis_detect
-also run one window with the scan's front end and with the plain front
-end called directly (torch.profiler's launches a window, CUDA-event ms
-in turns, the host's enqueue). front_end_path then holds FE1 and FE2 to
-their plain versions on the card on those paths' blocks and a
-30,000-sample block (archive_detect's, kurtosis_detect's, the archive
-block tiled, double_path's float64 block): FE1 over both positions and
-four transforms, FE2 at nsmooth 1, 5 and 12, each printing its share
-equal bit for bit and its largest difference, failing above 1e-6
-relative in float32 or 1e-13 in float64; FE1 against the CPU's plain
-version within FRONT_END_RTOL; and times both on each block in turns
-with their plain versions, with the profiler's device time and the
-bound.
+also run one window with the scan's front end, with FE1 or FE2 and with
+the plain front end called directly (torch.profiler's launches a window,
+CUDA-event ms in turns, the host's enqueue). front_end_path then holds
+FE1 v2 and FE2 v2 to their plain versions on the card on those paths'
+blocks, a 30,000-sample block (the archive block tiled) and 120,000-sample
+blocks in float32 and float64, which FE2 cannot stage: FE1 over both
+positions and four transforms, FE2 at nsmooth 1, 5 and 12, each printing
+its share equal bit for bit and its largest difference; v2 fails unless
+equal bit for bit to the plain version and to v1 where v1 takes the
+block, v1 above 1e-6 relative in float32 or 1e-13 in float64; FE1 v2
+against the CPU's plain version within FRONT_END_RTOL; and times v2, v1
+and the plain version on each block in turns, with the profiler's device
+time, the wrappers' host enqueue, the bound, and v2's registers, spills
+and blocks per SM.
 
 Every kernel line carries its launches on its path (each path run with
 the counts set to 0 just before it), its time and its plain version's,
@@ -556,10 +560,14 @@ FRONT_END_RTOL = 1e-5
 # FE1 and FE2 (csrc/front_end.cu) against their plain versions on the card,
 # relative: they add in the plain versions' order and round where they
 # round, so equal bit for bit is expected; these bounds are what fails
+# (FE1 v2 and FE2 v2 fail unless equal bit for bit)
 FE_RTOL = {torch.float32: 1e-6, torch.float64: 1e-13}
 # The day-scale block of front_end_path: the archive window's block tiled
 # to this many samples
 FE_DAY_SAMPLES = 30_000
+# front_end_path's long blocks (the archive and double_path's blocks tiled;
+# a 120 s window at 1 kHz): FE2 cannot stage them, FE2 v2 takes them
+FE_LONG_SAMPLES = 120_000
 # Blocks the detect paths prepared, kept for front_end_path: "archive"
 # (archive_detect's peak window), "kurtosis" (kurtosis_detect's planted
 # window and its settings (nsmooth, taper_pad, min_onset_value)), "double"
@@ -1297,8 +1305,8 @@ def archive_detect_path(device, f1_route, keep=None):
         check(all(n == 0 for k, n in launches.items()
                   if k != "migrate_detect_v2"),
               f"archive_detect: another detect kernel ran ({launches})")
-        check(fe_launches == {"front_end_stalta": dispatched,
-                              "front_end_kurtosis": 0},
+        check(fe_launches == front_end_only("front_end_stalta_v2",
+                                            dispatched),
               f"archive_detect: front-end launches {fe_launches} for "
               f"{dispatched} windows")
 
@@ -4449,8 +4457,8 @@ def kurtosis_detect_path(device, root, lut, archive, planted, origin, start,
           and n_windows == round(ARCHIVE_SPAN_S / ARCHIVE_TIMESTEP)
           and launches["migrate_detect_v2"] == n_windows
           and sum(launches.values()) == n_windows
-          and fe_launches == {"front_end_stalta": 0,
-                              "front_end_kurtosis": n_windows},
+          and fe_launches == front_end_only("front_end_kurtosis_v2",
+                                            n_windows),
           f"kurtosis_detect: route {detect_scan.route}, {n_windows} windows, "
           f"launches {launches}, front end {fe_launches}")
     nsmooth, taper_pad, min_onset = onset.fused_static_args(ARCHIVE_TIMESTEP)
@@ -4633,8 +4641,8 @@ def decimate_detect_path(device, root, lut, archive, planted, start, end):
     check(rows == lut.n_nodes and scan.detect_scan.route == "k1_v2"
           and launches["migrate_detect_v2"] == n_windows
           and sum(launches.values()) == n_windows
-          and fe_launches == {"front_end_stalta": n_windows,
-                              "front_end_kurtosis": 0},
+          and fe_launches == front_end_only("front_end_stalta_v2",
+                                            n_windows),
           f"decimate_detect: {rows} rows for {lut.n_nodes} nodes, route "
           f"{scan.detect_scan.route}, launches {launches}, front end "
           f"{fe_launches}")
@@ -4705,6 +4713,16 @@ RING_RECORD_KEYS = (
     "equal_to_m1", "window", "n_stages", "layout_n_stages", "group", "smem",
     "blocks_per_sm", "passes", "registers", "spill_stores", "spill_loads")
 STANDARD_ONSET_RTOL = 1e-6
+
+
+def front_end_only(key, n):
+    """The front-end launch counts of a path whose windows ran ``key``
+    (a key of ops.cuda_front_end.launches, or None) ``n`` times and no
+    other front-end kernel."""
+
+    from quakemigrate_torch.ops import cuda_front_end as cfe
+
+    return {k: n if k == key else 0 for k in cfe.launches}
 
 
 def block_tensors(block, device):
@@ -4893,8 +4911,7 @@ def detect_and_hold(device, root, label, make_scan, start, end, planted,
     check(ds.route == route and n_windows == round(
         DOUBLE_SPAN_S / ARCHIVE_TIMESTEP) and launches[kernel] == n_windows
         and sum(launches.values()) == n_windows
-        and fe_launches == {k: n_windows if k == front_end else 0
-                            for k in cfe.launches},
+        and fe_launches == front_end_only(front_end, n_windows),
         f"{label}: route {ds.route} ({ds.route_reason}), {n_windows} "
         f"windows, launches {launches}, front end {fe_launches}")
     order = sorted(seen)
@@ -5022,7 +5039,7 @@ def double_path(device, root, lut, archive, planted, origin, start, end):
 
     scan, record, windows = detect_and_hold(
         device, root, "double_detect", make, start, end, planted, "k3",
-        "migrate_detect_global_v3_f64", front_end="front_end_stalta",
+        "migrate_detect_global_v3_f64", front_end="front_end_stalta_v2",
         rtol=DOUBLE_RTOL, rtol_n=DOUBLE_RTOL)
     check(scan.detect_scan.route_reason == "precision='double'"
           and windows[0][0][0].dtype == np.float64,
@@ -5251,14 +5268,15 @@ def double_standard_paths(device):
 
 def front_end_window(label, scan, block, reps=10):
     """One detect window of ``scan`` (a QuakeScan after its detect) on
-    ``block``, the scan's own front end (FE1 or FE2) against the plain
-    front end called directly, the same detector after either: the device
-    kernels of a window (torch.profiler over ``reps`` windows, copies
-    apart, by name), the front-end kernel's launches counted by its
-    wrapper over the same windows, the window's CUDA-event ms in turns
-    (FE, plain, plain, FE; mean of ``reps``), and the host's enqueue of a
-    window (seconds, median of ``reps``, each from a synchronised
-    device). Observations, not a claim. Returns a record."""
+    ``block``, the scan's own front end (FE1 v2 or FE2 v2) against FE1 or
+    FE2 (their yardstick) and the plain front end called directly, the
+    same detector after each: the device kernels of a window
+    (torch.profiler over ``reps`` windows, copies apart, by name), the
+    front-end kernels' launches counted by their wrappers over the same
+    windows, the window's CUDA-event ms in turns (FE, FE v1, plain, plain,
+    FE v1, FE; mean of ``reps``), and the host's enqueue of a window
+    (seconds, median of ``reps``, each from a synchronised device).
+    Observations, not a claim. Returns a record."""
 
     from collections import Counter
 
@@ -5275,7 +5293,10 @@ def front_end_window(label, scan, block, reps=10):
              if factory is sw.kurtosis_front_end else sw.fused_onsets)
     tensors = block_tensors(block, ds.device)
     detector = ds.detector(tensors[0].shape[-1] - ds.fsmp - ds.lsmp)
+    v1 = (cfe.fused_kurtosis_onsets_cuda
+          if factory is sw.kurtosis_front_end else cfe.fused_onsets_cuda)
     fronts = {"fe": ds.front_end,
+              "fe_v1": lambda *b: v1(*b, *settings),
               "plain": lambda *b: plain(*b, *settings)}
     fns = {key: (lambda front=front: detect_window_cuda(
         front, tensors, detector, ds.n_nodes)) for key, front in fronts.items()}
@@ -5351,14 +5372,15 @@ def front_end_bound(kind, tensors, nsmooth=1, transform="energy"):
             "operations": ops}
 
 
-def hold_front_end(label, kernel, plain, rtol):
-    """``kernel()`` (FE1 or FE2) against ``plain()`` (its plain version)
-    on the card: the share of the combined onsets equal bit for bit, the
-    largest relative and absolute difference, the available counts equal.
-    Fails above ``rtol``. Returns a record."""
+def hold_front_end(label, got, want, rtol, exact=False):
+    """``got`` (a front-end kernel's (combined, available)) against
+    ``want`` (its plain version's, or another form's) on the card: the
+    share of the combined onsets equal bit for bit, the largest relative
+    and absolute difference, the available counts equal. Fails above
+    ``rtol``, or with ``exact`` unless every value is equal bit for bit.
+    Returns a record."""
 
-    got, available = kernel()
-    want, want_available = plain()
+    (got, available), (want, want_available) = got, want
     torch.cuda.synchronize()
     ints = torch.int64 if got.dtype == torch.float64 else torch.int32
     bit_equal = float((got.view(ints) == want.view(ints)).double().mean())
@@ -5370,29 +5392,109 @@ def hold_front_end(label, kernel, plain, rtol):
     print(f"front_end {label}: bit-equal share {bit_equal:.6f}, largest "
           f"relative difference {rel:.3e}, available equal "
           f"{record['available_equal']}")
-    check(rel <= rtol and record["available_equal"],
+    check(rel <= rtol and record["available_equal"]
+          and (bit_equal == 1.0 or not exact),
           f"front_end {label}: {record}")
     return record
 
 
-def front_end_path(device, reps=20):
-    """front_end_path: FE1 and FE2 (csrc/front_end.cu) held to their plain
-    versions on the card, in the reference's order, over the CPU test's
-    cases at full size: archive_detect's block (float32, 2,038 samples),
-    kurtosis_detect's block, a 30,000-sample block (the archive block
-    tiled) and double_path's float64 block. FE1 over both positions and
-    the four transforms on the STA/LTA blocks; FE2 at nsmooth 1 and 5 and
-    kurtosis_detect's settings (nsmooth 12, its taper), on the STA/LTA
-    blocks with nkurt = nlta. Each hold prints the share equal bit for bit
-    and the largest difference and fails above FE_RTOL. FE1 on the
-    archive block also against the plain version on the CPU (within
-    FRONT_END_RTOL). Then each kernel timed at the path's settings on
-    each block: CUDA events in turns with the plain version (FE, plain,
-    plain, FE; mean of ``reps``), torch.profiler's device time of the
-    kernel alone, and :func:`front_end_bound`. No PyTorch call computes
-    either front end (library_ms None). Returns a record."""
+def front_end_resources(device):
+    """Registers and spills of FE1 v2 and FE2 v2 (each instance, from the
+    build's ptxas report) and their resident blocks per SM at three
+    channels (the occupancy API): {"FE1 v2 f32": {...}, ...}."""
 
-    from quakemigrate_torch.experiments import exp_ring
+    from quakemigrate_torch import _build
+    from quakemigrate_torch.ops.cuda_migrate import blocks_per_sm
+
+    out = {}
+    for name, entry in _build.kernel_resources("qm_fv").items():
+        kind = 1 if "qm_fv1" in name else 2
+        f64 = "IdE" in name
+        label = f"FE{kind} v2 {'f64' if f64 else 'f32'}"
+        out[label] = {k: v for k, v in entry.items()
+                      if k != "wgmma_serialized"}
+        out[label]["blocks_per_sm"] = blocks_per_sm(
+            "qm_front_end_v2_blocks_per_sm", device, kind - 1, int(f64), 3)
+    for name, entry in _build.kernel_resources("qm_fe").items():
+        label = (f"FE{1 if 'qm_fe1' in name else 2} "
+                 f"{'f64' if 'IdE' in name else 'f32'}")
+        out[label] = {k: v for k, v in entry.items()
+                      if k != "wgmma_serialized"}
+    print(f"front_end: registers, spills and blocks per SM {out}")
+    check(len(out) == 8 and all(
+        r["spill_stores"] == 0 and r["spill_loads"] == 0
+        for label, r in out.items() if " v2 " in label),
+        f"front_end: FE1 v2 and FE2 v2 instances spill or are missing: {out}")
+    return out
+
+
+def front_end_device_ms(fn, reps):
+    """torch.profiler's device time of ``fn()``'s hand kernels and of its
+    memsets (the workspace's flags FE1 v2 and FE2 v2 zero on the stream),
+    ms a call over ``reps`` calls after a warm-up call: {"kernel",
+    "memset"}."""
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def ms(keep):
+        us = sum(e.time_range.elapsed_us() for e in device if keep(e.name))
+        return us / reps / 1e3 if us > 0 else None
+
+    return {"kernel": ms(lambda n: "qm_" in n),
+            "memset": ms(lambda n: n.startswith("Memset"))}
+
+
+def enqueue_s(fn, reps):
+    """The host's enqueue of ``fn()`` (seconds, median of ``reps``, each
+    from a synchronised device)."""
+
+    host = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        host.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return float(np.median(host))
+
+
+def front_end_path(device, reps=20):
+    """front_end_path: FE1 v2 and FE2 v2 (csrc/front_end_v2.cu, the detect
+    paths' front ends) and FE1 and FE2 (csrc/front_end.cu, their
+    yardstick) held to their plain versions on the card, in the
+    reference's order, over the CPU tests' cases at full size:
+    archive_detect's block (float32, 2,038 samples), kurtosis_detect's
+    block, a 30,000-sample block (the archive block tiled), double_path's
+    float64 block, and blocks of 120,000 samples in float32 and float64
+    (the archive and double blocks tiled; FE2 cannot stage them). FE1
+    over both positions and the four transforms on the STA/LTA blocks;
+    FE2 at nsmooth 1 and 5 and kurtosis_detect's settings (nsmooth 12,
+    its taper), on the STA/LTA blocks with nkurt = nlta. Each hold prints
+    the share equal bit for bit and the largest difference; v2 must equal
+    the plain version bit for bit, and v1 where v1 takes the block (v1
+    fails above FE_RTOL). FE1 v2 on the archive block also against the
+    plain version on the CPU (within FRONT_END_RTOL). Then each kernel
+    timed at the path's settings on each block: CUDA events over wrapper
+    calls in turns (v2, v1, plain, plain, v1, v2; mean of ``reps``, half
+    as many at 120,000 samples), v2 and v1 again with the calls queued
+    behind a hold (their device time back to back, v2's memset
+    included), torch.profiler's device time of the kernels (and of v2's
+    memset; it can drop events, reading low), the wrappers' host
+    enqueue, and
+    :func:`front_end_bound`; and FE1 v2 and FE2 v2's registers, spills
+    and blocks per SM. No PyTorch call computes either front end
+    (library_ms None). v1's launches are counted over the path (the
+    yardstick's). Returns a record."""
+
     from quakemigrate_torch.experiments.exp_kernel_breakdown import in_turns
     from quakemigrate_torch.ops import cuda_front_end as cfe
     from quakemigrate_torch.ops import scan_window as sw
@@ -5400,86 +5502,143 @@ def front_end_path(device, reps=20):
     t_phase = time.perf_counter()
     kurt_block, kurt_settings = FRONT_END_BLOCKS["kurtosis"]
     archive = FRONT_END_BLOCKS["archive"]
-    reps_t = -(-FE_DAY_SAMPLES // archive[0].shape[-1])
-    day = (np.ascontiguousarray(np.tile(archive[0], (1, 1, reps_t))[
-        ..., :FE_DAY_SAMPLES]), *archive[1:])
+    double = FRONT_END_BLOCKS["double"]
+
+    def tiled(block, samples):
+        reps_t = -(-samples // block[0].shape[-1])
+        return (np.ascontiguousarray(np.tile(block[0], (1, 1, reps_t))[
+            ..., :samples]), *block[1:])
+
     blocks = {"archive": block_tensors(archive, device),
               "kurtosis": block_tensors(kurt_block, device),
-              "day": block_tensors(day, device),
-              "double": block_tensors(FRONT_END_BLOCKS["double"], device)}
+              "day": block_tensors(tiled(archive, FE_DAY_SAMPLES), device),
+              "double": block_tensors(double, device),
+              "long": block_tensors(tiled(archive, FE_LONG_SAMPLES), device),
+              "long_double": block_tensors(tiled(double, FE_LONG_SAMPLES),
+                                           device)}
     _, taper_pad, min_onset = kurt_settings
-    record = {"holds": {}, "times": {}, "shapes": {
+    record = {"holds": {}, "v2_vs_v1": {}, "times": {}, "shapes": {
         k: list(b[0].shape) + [str(b[0].dtype)] for k, b in blocks.items()}}
+
+    def v1_takes(b, powers):
+        n_slots, c_max, t = b[0].shape
+        return cfe.stage_bytes(t, powers * c_max, b[0].element_size()) <= (
+            cfe.MAX_STAGE_BYTES)
 
     def stalta(b, position="classic", transform="energy"):
         args = (*b, position, transform, 0.4)
-        return (lambda: cfe.fused_onsets_cuda(*args),
-                lambda: sw.fused_onsets(*args))
+        return {"v2": lambda: cfe.fused_onsets_cuda_v2(*args),
+                "v1": lambda: cfe.fused_onsets_cuda(*args),
+                "plain": lambda: sw.fused_onsets(*args)}
 
     def kurtosis_inputs(b):
         return (*b[:3], b[3 if len(b) == 4 else 4])
 
     def kurtosis(b, nsmooth, taper=taper_pad):
         args = (*kurtosis_inputs(b), nsmooth, taper, min_onset)
-        return (lambda: cfe.fused_kurtosis_onsets_cuda(*args),
-                lambda: sw.fused_kurtosis_onsets(*args))
+        return {"v2": lambda: cfe.fused_kurtosis_onsets_cuda_v2(*args),
+                "v1": lambda: cfe.fused_kurtosis_onsets_cuda(*args),
+                "plain": lambda: sw.fused_kurtosis_onsets(*args)}
 
+    def hold(label, fns, rtol, with_v1):
+        want = fns["plain"]()
+        got = fns["v2"]()
+        record["holds"][f"{label} v2"] = hold_front_end(
+            f"{label} v2", got, want, rtol, exact=True)
+        if with_v1:
+            v1 = fns["v1"]()
+            record["holds"][f"{label} v1"] = hold_front_end(
+                f"{label} v1", v1, want, rtol)
+            record["v2_vs_v1"][label] = hold_front_end(
+                f"{label} v2 against v1", got, v1, rtol, exact=True)
+
+    cfe.reset_launches()
     for name, b in blocks.items():
         rtol = FE_RTOL[b[0].dtype]
         if len(b) == 5:
             for position in ("classic", "centred"):
                 for transform in ("energy", "abs", "env", "env_squared"):
-                    label = f"FE1 {name} {position} {transform}"
-                    record["holds"][label] = hold_front_end(
-                        label, *stalta(b, position, transform), rtol)
+                    hold(f"FE1 {name} {position} {transform}",
+                         stalta(b, position, transform), rtol,
+                         v1_takes(b, 1))
         for nsmooth, taper in ((1, 0), (5, 20), (12, taper_pad)):
-            label = f"FE2 {name} nsmooth {nsmooth} taper {taper}"
-            record["holds"][label] = hold_front_end(
-                label, *kurtosis(b, nsmooth, taper), rtol)
+            hold(f"FE2 {name} nsmooth {nsmooth} taper {taper}",
+                 kurtosis(b, nsmooth, taper), rtol,
+                 v1_takes(kurtosis_inputs(b), 4))
 
-    card, _ = cfe.fused_onsets_cuda(*blocks["archive"], "classic", "energy",
-                                    0.4)
+    card, _ = cfe.fused_onsets_cuda_v2(*blocks["archive"], "classic",
+                                       "energy", 0.4)
     cpu, _ = sw.fused_onsets(*(torch.from_numpy(a) for a in archive),
                              "classic", "energy", 0.4)
     record["fe1_card_vs_cpu"] = float(
         ((card.cpu().double() - cpu.double()).abs() / cpu.double().abs())
         .max())
     check(record["fe1_card_vs_cpu"] <= FRONT_END_RTOL,
-          f"front_end: FE1 on the card against the plain version on the CPU "
-          f"{record['fe1_card_vs_cpu']}")
+          f"front_end: FE1 v2 on the card against the plain version on the "
+          f"CPU {record['fe1_card_vs_cpu']}")
 
     for name, b in blocks.items():
         kinds = (("kurtosis",) if len(b) == 4 else ("stalta", "kurtosis"))
         for kind in kinds:
-            fe, plain = (stalta(b) if kind == "stalta"
-                         else kurtosis(b, kurt_settings[0]))
-            turns = in_turns({"fe": fe, "plain": plain}, reps)
             inputs = b if kind == "stalta" else kurtosis_inputs(b)
-            entry = {"ms": float(np.mean(turns["fe"])),
-                     "plain_ms": float(np.mean(turns["plain"])),
-                     "turns_ms": turns,
-                     "device_ms": exp_ring.device_ms(fe, reps),
+            fns = (stalta(b) if kind == "stalta"
+                   else kurtosis(b, kurt_settings[0]))
+            if not v1_takes(inputs, 1 if kind == "stalta" else 4):
+                del fns["v1"]
+            n = reps if b[0].shape[-1] <= FE_DAY_SAMPLES else reps // 2
+            turns = in_turns(fns, n)
+            queued = in_turns({k: f for k, f in fns.items() if k != "plain"},
+                              n, queued=True)
+            entry = {"turns_ms": turns, "queued_turns_ms": queued,
+                     **{f"{k}_ms" if k != "v2" else "ms":
+                        float(np.mean(turns[k])) for k in fns},
+                     **{f"{k}_queued_ms" if k != "v2" else "queued_ms":
+                        float(np.mean(queued[k])) for k in queued},
                      **front_end_bound(kind, inputs, kurt_settings[0])}
+            for k in ("v2", "v1"):
+                if k in fns:
+                    dev = front_end_device_ms(fns[k], n)
+                    entry["device_ms" if k == "v2" else "v1_device_ms"] = (
+                        dev["kernel"])
+                    if k == "v2":
+                        entry["memset_ms"] = dev["memset"]
+                    entry["enqueue_s" if k == "v2" else "v1_enqueue_s"] = (
+                        enqueue_s(fns[k], n))
             record["times"][f"{kind} {name}"] = entry
             print(f"front_end {'FE1' if kind == 'stalta' else 'FE2'} {name} "
-                  f"{record['shapes'][name]}: {entry['ms']:.4f} ms (device "
-                  f"{entry['device_ms']}; plain {entry['plain_ms']:.4f}; "
-                  f"bound {entry['bound_ms']:.6f} by {entry['bound_by']}, "
-                  f"{entry['bytes']} bytes, {entry['operations']} "
-                  f"operations)")
-    worst = {k: max(r["max_rel"] for l, r in record["holds"].items()
-                    if l.startswith(k)) for k in ("FE1", "FE2")}
-    record["max_abs_err"] = {k: max(r["max_abs_err"] for l, r in
-                                    record["holds"].items()
-                                    if l.startswith(k))
-                             for k in ("FE1", "FE2")}
-    record["bit_equal_min"] = min(r["bit_equal"]
-                                  for r in record["holds"].values())
+                  f"{record['shapes'][name]}: v2 {entry['ms']:.4f} ms "
+                  f"(queued {entry['queued_ms']:.4f}; device "
+                  f"{entry['device_ms']}, memset "
+                  f"{entry['memset_ms']}; enqueue "
+                  f"{entry['enqueue_s'] * 1e3:.4f} ms); v1 "
+                  f"{entry.get('v1_ms')} (queued "
+                  f"{entry.get('v1_queued_ms')}; device "
+                  f"{entry.get('v1_device_ms')}; enqueue "
+                  f"{entry.get('v1_enqueue_s', float('nan')) * 1e3:.4f} ms); "
+                  f"plain "
+                  f"{entry['plain_ms']:.4f}; bound {entry['bound_ms']:.6f} "
+                  f"by {entry['bound_by']}, {entry['bytes']} bytes, "
+                  f"{entry['operations']} operations")
+    record["v1_launches"] = {k: cfe.launches[k] for k in (
+        "front_end_stalta", "front_end_kurtosis")}
+    record["resources"] = front_end_resources(device)
+    for version in ("v2", "v1"):
+        for key in ("FE1", "FE2"):
+            chosen = [r for label, r in record["holds"].items()
+                      if label.startswith(key) and label.endswith(
+                          f" {version}")]
+            record.setdefault("max_abs_err", {})[f"{key} {version}"] = max(
+                r["max_abs_err"] for r in chosen)
+            record.setdefault("bit_equal_min", {})[f"{key} {version}"] = min(
+                r["bit_equal"] for r in chosen)
     record["phase_s"] = time.perf_counter() - t_phase
-    print(f"front_end: {len(record['holds'])} holds, the least bit-equal "
-          f"share {record['bit_equal_min']:.6f}, the largest relative "
-          f"difference {worst}; FE1 card against CPU "
-          f"{record['fe1_card_vs_cpu']:.2e}; phase {record['phase_s']:.1f} s")
+    print(f"front_end: {len(record['holds'])} holds against the plain "
+          f"versions and {len(record['v2_vs_v1'])} of v2 against v1, the "
+          f"least bit-equal "
+          f"shares {record['bit_equal_min']}, the largest differences "
+          f"{record['max_abs_err']}; FE1 v2 card against CPU "
+          f"{record['fe1_card_vs_cpu']:.2e}; v1 launches "
+          f"{record['v1_launches']}; phase {record['phase_s']:.1f} s")
     return record
 
 
@@ -5849,8 +6008,8 @@ def mesh_path(device, root, lut, stations, origin):
         check(scan.detect_scan.route == "k1_v2" and len(seen) == n_windows
               and all(r is not None for _, r in seen.values())
               and launches == {"migrate_detect_v2": slabs * n_windows}
-              and fe_launches == {"front_end_stalta": n_windows,
-                                  "front_end_kurtosis": 0},
+              and fe_launches == front_end_only("front_end_stalta_v2",
+                                                n_windows),
               f"mesh_path {label}: route {scan.detect_scan.route}, "
               f"{len(seen)} windows, launches {launches}, front end "
               f"{fe_launches}")
@@ -7601,10 +7760,12 @@ def main():
         "main_path_err": r1_record["main_path_err"],
         "cases": r1_record["cases"],
     })
-    # FE1 and FE2: launches on the main path (archive_detect's and
+    # FE1 v2 and FE2 v2: launches on the main path (archive_detect's and
     # kurtosis_detect's QuakeScan.detect), the other paths' beside them;
-    # times at the archive window's block (FE1) and kurtosis_detect's
-    # (FE2), the other blocks' under "times"
+    # times at the archive window's block (FE1 v2) and kurtosis_detect's
+    # (FE2 v2), the other blocks' under "times". FE1 and FE2, their
+    # yardstick on no path: their launches over front_end_path, their
+    # times in the same turns.
     mesh = archive_record["mesh_path"]
     for name, key, main_record, time_key, paths in (
             ("front_end_stalta", "FE1", archive_record, "stalta archive", {
@@ -7615,29 +7776,55 @@ def main():
             ("front_end_kurtosis", "FE2", kurtosis_record,
              "kurtosis kurtosis", {})):
         main_time = fe_record["times"][time_key]
-        kernels.append({
-            "name": name,
+        common = {
             "route": "cuda",
-            "source": "quakemigrate_torch/csrc/front_end.cu",
             "replaces": ("quakemigrate_tpu/ops/scan_window.py:123"
                          if key == "FE1" else
                          "quakemigrate_tpu/ops/scan_window.py:166"),
-            "launches": main_record["front_end_launches"][name],
-            "path_launches": {k: v[name] for k, v in paths.items()},
-            "max_abs_err": fe_record["max_abs_err"][key],
-            **{k: main_time[k] for k in ("ms", "plain_ms", "bound_ms",
-                                         "bound_by", "device_ms")},
+            "plain_ms": main_time["plain_ms"],
+            **{k: main_time[k] for k in ("bound_ms", "bound_by")},
             "library_ms": None,
-            "bit_equal_min": fe_record["bit_equal_min"],
+            "shapes": fe_record["shapes"],
+        }
+        kernels.append({
+            "name": f"{name}_v2",
+            "source": "quakemigrate_torch/csrc/front_end_v2.cu",
+            **common,
+            "launches": main_record["front_end_launches"][f"{name}_v2"],
+            "path_launches": {k: v[f"{name}_v2"] for k, v in paths.items()},
+            "max_abs_err": fe_record["max_abs_err"][f"{key} v2"],
+            **{k: main_time[k] for k in ("ms", "queued_ms", "device_ms",
+                                         "memset_ms", "enqueue_s")},
+            "v1_ms": main_time.get("v1_ms"),
+            "bit_equal_min": fe_record["bit_equal_min"][f"{key} v2"],
             "holds": {k: v for k, v in fe_record["holds"].items()
-                      if k.startswith(key)},
+                      if k.startswith(key) and k.endswith(" v2")},
+            "against_v1": {k: v for k, v in fe_record["v2_vs_v1"].items()
+                           if k.startswith(key)},
             "times": {k: v for k, v in fe_record["times"].items()
                       if k.startswith("stalta" if key == "FE1"
                                       else "kurtosis")},
-            "shapes": fe_record["shapes"],
+            "resources": {k: v for k, v in fe_record["resources"].items()
+                          if k.startswith(f"{key} v2")},
             "window": main_record["front_end_window"],
         })
-    kernels[-2]["card_vs_cpu"] = fe_record["fe1_card_vs_cpu"]
+        kernels.append({
+            "name": name,
+            "source": "quakemigrate_torch/csrc/front_end.cu",
+            **common,
+            # the yardstick of FE1 v2 / FE2 v2 on no path: its launches
+            # over front_end_path
+            "launches": fe_record["v1_launches"][name],
+            "max_abs_err": fe_record["max_abs_err"][f"{key} v1"],
+            "ms": main_time["v1_ms"],
+            "queued_ms": main_time["v1_queued_ms"],
+            "device_ms": main_time["v1_device_ms"],
+            "enqueue_s": main_time["v1_enqueue_s"],
+            "bit_equal_min": fe_record["bit_equal_min"][f"{key} v1"],
+            "resources": {k: v for k, v in fe_record["resources"].items()
+                          if k.startswith(key) and " v2 " not in k},
+        })
+    kernels[-4]["card_vs_cpu"] = fe_record["fe1_card_vs_cpu"]
     for name, case in (("migrate_map_persistent", "k1_v2"),
                        ("migrate_map_ring", "k2_v2")):
         kernels[next(i for i, k in enumerate(kernels)

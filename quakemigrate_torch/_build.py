@@ -240,6 +240,20 @@ SIGNATURES = {
     # c_max, t, nsmooth, taper_pad, min_onset (low, high halves), stream
     "qm_front_end_kurtosis_f32": [_VOID_P] * 7 + [_INT] * 7 + [_VOID_P],
     "qm_front_end_kurtosis_f64": [_VOID_P] * 7 + [_INT] * 7 + [_VOID_P],
+    # channels, chan_mask, slot_mask, nsta, nlta, out, available,
+    # workspace, n_slots, c_max, t, centred, mode, min_onset (low, high
+    # halves), stream
+    "qm_front_end_stalta_v2_f32": [_VOID_P] * 8 + [_INT] * 7 + [_VOID_P],
+    "qm_front_end_stalta_v2_f64": [_VOID_P] * 8 + [_INT] * 7 + [_VOID_P],
+    # channels, chan_mask, slot_mask, nkurt, out, available, workspace,
+    # n_slots, c_max, t, nsmooth, taper_pad, min_onset (low, high halves),
+    # stream
+    "qm_front_end_kurtosis_v2_f32": [_VOID_P] * 7 + [_INT] * 7 + [_VOID_P],
+    "qm_front_end_kurtosis_v2_f64": [_VOID_P] * 7 + [_INT] * 7 + [_VOID_P],
+    # (kurtosis, n_slots, c_max, t, itemsize); returns long long bytes
+    "qm_front_end_v2_workspace_bytes": [_INT] * 5,
+    # (kurtosis, f64, c_max)
+    "qm_front_end_v2_blocks_per_sm": [_INT] * 3,
     # err; returns a C string
     "qm_error_string": [_INT],
 }
@@ -360,6 +374,7 @@ def load_library():
         fn.argtypes = argtypes
         fn.restype = _INT
     lib.qm_error_string.restype = ctypes.c_char_p
+    lib.qm_front_end_v2_workspace_bytes.restype = ctypes.c_longlong
     return lib
 
 

@@ -19,7 +19,7 @@ then the onset's per-slot arguments: ``nsta, nlta`` [n_slots] (STA/LTA
 window lengths in samples) or ``nkurt`` [n_slots] (kurtosis window
 lengths). A front end (:func:`stalta_front_end`,
 :func:`kurtosis_front_end`) maps such a block to (combined onsets
-[n_slots, T], available): on a block on the card FE1 or FE2
+[n_slots, T], available): on a block on the card FE1 v2 or FE2 v2
 (``ops.cuda_front_end``, one launch a window), on a CPU block the plain
 version (:func:`fused_onsets`, :func:`fused_kurtosis_onsets`), which
 adds every running sum in the reference's order on any device, so that
@@ -144,17 +144,17 @@ def fused_kurtosis_onsets(
 
 def stalta_front_end(position, transform, min_onset_value):
     """The STA/LTA front end of these settings, as a function of a block
-    ``(channels, chan_mask, slot_mask, nsta, nlta)``: FE1
-    (``ops.cuda_front_end.fused_onsets_cuda``) on a block on the card, the
-    plain :func:`fused_onsets` on a CPU block."""
+    ``(channels, chan_mask, slot_mask, nsta, nlta)``: FE1 v2
+    (``ops.cuda_front_end.fused_onsets_cuda_v2``) on a block on the card,
+    the plain :func:`fused_onsets` on a CPU block."""
 
     def front_end(channels, chan_mask, slot_mask, nsta, nlta):
         if channels.is_cuda:
-            from .cuda_front_end import fused_onsets_cuda
+            from .cuda_front_end import fused_onsets_cuda_v2
 
-            return fused_onsets_cuda(channels, chan_mask, slot_mask, nsta,
-                                     nlta, position, transform,
-                                     min_onset_value)
+            return fused_onsets_cuda_v2(channels, chan_mask, slot_mask,
+                                        nsta, nlta, position, transform,
+                                        min_onset_value)
         return fused_onsets(channels, chan_mask, slot_mask, nsta, nlta,
                             position, transform, min_onset_value)
     return front_end
@@ -163,17 +163,17 @@ def stalta_front_end(position, transform, min_onset_value):
 def kurtosis_front_end(nsmooth, taper_pad, min_onset_value):
     """The kurtosis front end of these settings
     (``KurtosisOnset.fused_static_args``), as a function of a block
-    ``(channels, chan_mask, slot_mask, nkurt)``: FE2
-    (``ops.cuda_front_end.fused_kurtosis_onsets_cuda``) on a block on the
-    card, the plain :func:`fused_kurtosis_onsets` on a CPU block."""
+    ``(channels, chan_mask, slot_mask, nkurt)``: FE2 v2
+    (``ops.cuda_front_end.fused_kurtosis_onsets_cuda_v2``) on a block on
+    the card, the plain :func:`fused_kurtosis_onsets` on a CPU block."""
 
     def front_end(channels, chan_mask, slot_mask, nkurt):
         if channels.is_cuda:
-            from .cuda_front_end import fused_kurtosis_onsets_cuda
+            from .cuda_front_end import fused_kurtosis_onsets_cuda_v2
 
-            return fused_kurtosis_onsets_cuda(channels, chan_mask, slot_mask,
-                                              nkurt, nsmooth, taper_pad,
-                                              min_onset_value)
+            return fused_kurtosis_onsets_cuda_v2(
+                channels, chan_mask, slot_mask, nkurt, nsmooth, taper_pad,
+                min_onset_value)
         return fused_kurtosis_onsets(channels, chan_mask, slot_mask, nkurt,
                                      nsmooth, taper_pad, min_onset_value)
     return front_end

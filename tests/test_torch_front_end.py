@@ -1,28 +1,37 @@
 # -*- coding: utf-8 -*-
 """
 The onset front ends of detect's fused window on the CPU: the plain
-versions of ops.scan_window (FE1's and FE2's contracts) against the JAX
-package, FE1 and FE2's own source against those plain versions, and the
+versions of ops.scan_window (the kernels' contracts) against the JAX
+package, the kernels' own sources against those plain versions, and the
 wrappers' refusals and routing.
 
 - ``fused_onsets`` (classic and centred; energy, abs, env, env_squared)
   and ``fused_kurtosis_onsets`` (``nsmooth`` 1 and 5) against JAX's on
   the same numpy-seeded blocks: float32 within 1e-5 relative, float64
   within 1e-9; per-slot windows that differ by phase, a dead channel and
-  a dead slot, T = 2,038 and T = 301 (neither a multiple of 16).
+  a dead slot, T = 2,038 and T = 301 (neither a multiple of 16); and
+  through ``kurtosis_front_end`` at 80,000 samples, longer than FE2 could
+  stage.
 - The window through ``detect_window`` with the front ends' factories
   against JAX's ``detect_window_fused`` and
   ``detect_window_fused_kurtosis`` at a small grid.
-- ``csrc/front_end.cu`` compiled for the CPU (tests/torch_front_end_host.py)
-  against the plain versions, bit for bit, on the same cases and on rows
-  of 13, 16, 17, 257 and 4,100 samples (one to three levels of the
-  blocked scan), window lengths longer than the row and 30,000 samples.
-  torch's CPU ``sqrt`` (MKL's) is not correctly rounded (1 ulp off in
-  about 0.3 % of the samples) and the card's is, so these comparisons
-  take the plain version with numpy's ``sqrt``, which is.
+- ``csrc/front_end.cu`` (FE1, FE2) and ``csrc/front_end_v2.cu`` (FE1 v2,
+  FE2 v2) compiled for the CPU (tests/torch_front_end_host.py) against
+  the plain versions, bit for bit, on the same cases and on rows of 13,
+  16, 17, 257 and 4,100 samples (one to three levels of the blocked
+  scan), window lengths longer than the row and 30,000 samples; FE1 v2
+  and FE2 v2 also across their 256-sample segments (rows of 16^k +- 1
+  samples, windows longer than a segment, a centred STA reaching the
+  segments ahead, a smoothing longer than a segment), at a block of 256
+  threads as on the card, and on long rows (FE2 v2 at 100,000 samples in
+  float32 and 40,000 in float64, FE1 v2 at 150,000 in float64). torch's
+  CPU ``sqrt`` (MKL's) is not correctly rounded (1 ulp off in about 0.3 %
+  of the samples) and the card's is, so these comparisons take the plain
+  version with numpy's ``sqrt``, which is.
 - The wrappers' refusals (a CPU tensor, another dtype, bad shapes,
-  window lengths below 1, a row too long to stage) and the routing: a
-  CPU block never reaches ``ops.cuda_front_end``'s launcher.
+  window lengths below 1; for FE1 and FE2 a row too long to stage) and
+  the routing: a CPU block never reaches ``ops.cuda_front_end``'s
+  launcher.
 
 """
 
@@ -56,6 +65,9 @@ MIN_ONSET = 0.4
 NSTA = (5, 12)
 NLTA = (60, 130)
 NKURT = (26, 51)
+# Threads of a block in the v2 source tests' shim (the kernels stride every
+# loop by the block's size; the card runs 256)
+V2_THREADS = 32
 
 
 def make_block(dtype, t_len, seed=7, lengths=(NSTA, NLTA)):
@@ -191,11 +203,34 @@ def test_window_through_the_factories_matches_jax(kind, dtype):
     np.testing.assert_array_equal(got[2], want[2])
 
 
+@pytest.mark.parametrize("dtype,t_len", [(np.float32, 80_000),
+                                         (np.float64, 40_000)])
+def test_kurtosis_front_end_beyond_fe2s_stage_matches_jax(dtype, t_len):
+    """``kurtosis_front_end`` on windows longer than FE2 could stage with
+    three channels (72,608 float32 samples, 36,320 float64), which FE2 v2
+    takes: on a CPU block the plain version, which the v2 source tests
+    hold FE2 v2 to bit for bit, against JAX's ``fused_kurtosis_onsets``
+    on two slots."""
+
+    block = _long_block(dtype, t_len, 250, 2500, 11)
+    kurt = block[:3] + (block[4],)
+    got, got_avail = kurtosis_front_end(12, 20, MIN_ONSET)(*_torch(kurt))
+    want, want_avail = j_scan_window.fused_kurtosis_onsets(*kurt, 12, 20,
+                                                           MIN_ONSET)
+    _assert_close(got.numpy(), want, RTOL[dtype])
+    assert float(got_avail) == float(want_avail) == 2.0
+
+
 # -- FE1 and FE2's source, compiled for the CPU, against the plain versions ---
 
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
     return host.build(tmp_path_factory.mktemp("front_end_host"))
+
+
+@pytest.fixture(scope="module")
+def host_lib_v2(tmp_path_factory):
+    return host.build_v2(tmp_path_factory.mktemp("front_end_v2_host"))
 
 
 @pytest.fixture
@@ -207,13 +242,13 @@ def exact_sqrt(monkeypatch):
         np.sqrt(x.numpy())))
 
 
-def _host_fe1(lib, block, position, transform):
+def _host_fe1(lib, block, position, transform, fe1=host.fe1, **kwargs):
     x = block[0]
     if transform in ("env", "env_squared"):
         n_slots, c_max, t_len = x.shape
         x = _envelope(torch.from_numpy(x.reshape(-1, t_len))).numpy().reshape(
             x.shape)
-    return host.fe1(lib, x, *block[1:], position, transform, MIN_ONSET)
+    return fe1(lib, x, *block[1:], position, transform, MIN_ONSET, **kwargs)
 
 
 def _assert_equal(got, want):
@@ -288,6 +323,142 @@ def test_front_end_source_gives_nan_for_a_length_below_one(host_lib):
     assert np.isfinite(got[[1, 2, 3, 5]]).all()
 
 
+@pytest.mark.parametrize("case", STALTA_CASES, ids=_id)
+def test_fe1_v2_source_equals_plain(host_lib_v2, exact_sqrt, case):
+    dtype, t_len, position, transform = case
+    block = make_block(dtype, t_len)
+    want, want_avail = fused_onsets(*_torch(block), position, transform,
+                                    MIN_ONSET)
+    got, got_avail = _host_fe1(host_lib_v2, block, position, transform,
+                               fe1=host.fe1_v2, threads=V2_THREADS)
+    _assert_equal(got, want.numpy())
+    assert got_avail == float(want_avail)
+
+
+@pytest.mark.parametrize("case", KURTOSIS_CASES, ids=_id)
+def test_fe2_v2_source_equals_plain(host_lib_v2, exact_sqrt, case):
+    dtype, t_len, nsmooth, taper_pad = case
+    block = make_block(dtype, t_len, lengths=(NKURT,))
+    want, want_avail = fused_kurtosis_onsets(*_torch(block), nsmooth,
+                                             taper_pad, MIN_ONSET)
+    got, got_avail = host.fe2_v2(host_lib_v2, *block, nsmooth, taper_pad,
+                                 MIN_ONSET, threads=V2_THREADS)
+    _assert_equal(got, want.numpy())
+    assert got_avail == float(want_avail)
+
+
+def _hold_v2(lib, block, nsmooth, taper_pad=3, threads=None, kinds=(
+        "classic", "centred", "kurtosis")):
+    """FE1 v2 (each position in ``kinds``, energy) and FE2 v2 (where
+    "kurtosis" is in ``kinds``, with nkurt the block's nlta) against the
+    plain versions, bit for bit."""
+
+    threads = V2_THREADS if threads is None else threads
+    for position in kinds:
+        if position == "kurtosis":
+            kurt_block = block[:3] + (block[4],)
+            want, want_avail = fused_kurtosis_onsets(
+                *_torch(kurt_block), nsmooth, taper_pad, MIN_ONSET)
+            got, got_avail = host.fe2_v2(lib, *kurt_block, nsmooth,
+                                         taper_pad, MIN_ONSET,
+                                         threads=threads)
+        else:
+            want, want_avail = fused_onsets(*_torch(block), position,
+                                            "energy", MIN_ONSET)
+            got, got_avail = _host_fe1(lib, block, position, "energy",
+                                       fe1=host.fe1_v2, threads=threads)
+        _assert_equal(got, want.numpy())
+        assert got_avail == float(want_avail)
+
+
+@pytest.mark.parametrize("case", EDGE_CASES, ids=_id)
+def test_front_end_v2_source_edges(host_lib_v2, exact_sqrt, case):
+    dtype, t_len, nsta, nlta, nsmooth = case
+    block = make_block(dtype, t_len, seed=t_len, lengths=(nsta, nlta))
+    _hold_v2(host_lib_v2, block, nsmooth)
+
+
+# FE1 v2 and FE2 v2 across their 256-sample segments: rows of 16^k +- 1
+# samples (the levels of the blocked scan appear and go), (nsta, nlta)
+# pairs for P and S slots where the LTA and the kurtosis window (nlta)
+# are longer than a segment, the centred STA reaches one or three
+# segments ahead, and a smoothing longer than a segment reads across it
+# (at 5,000 samples too long for FE2 v2 to stage a channel's taps in
+# float64)
+SEGMENT_CASES = [
+    (np.float32, 15, (1, 4), (2, 15), 3),
+    (np.float64, 255, (200, 16), (254, 255), 300),
+    (np.float32, 257, (256, 300), (256, 257), 600),
+    (np.float32, 4095, (257, 700), (300, 4000), 7),
+    (np.float64, 4097, (600, 17), (1000, 256), 258),
+    (np.float64, 6000, (25, 300), (700, 2000), 5000),
+    (np.float32, 65537, (25, 513), (9000, 300), 13),
+]
+
+
+@pytest.mark.parametrize("case", SEGMENT_CASES, ids=_id)
+def test_front_end_v2_source_across_segments(host_lib_v2, exact_sqrt, case):
+    dtype, t_len, nsta, nlta, nsmooth = case
+    block = make_block(dtype, t_len, seed=t_len + 1, lengths=(nsta, nlta))
+    _hold_v2(host_lib_v2, block, nsmooth, taper_pad=5)
+
+
+def test_front_end_v2_source_at_a_block_of_256_threads(host_lib_v2,
+                                                        exact_sqrt):
+    """The card's block size (FV_THREADS, a thread an output sample):
+    the other cases run 32 threads a block to keep the shim quick."""
+
+    block = make_block(np.float32, 1000, seed=3, lengths=((40, 300),
+                                                          (400, 90)))
+    _hold_v2(host_lib_v2, block, 12, threads=0)
+
+
+def _long_block(dtype, t_len, nsta, nlta, seed):
+    """Two slots of C_MAX channels (the second's channel 1 dead) with an
+    arrival in the middle: few slots keep the shim quick at long rows."""
+
+    rng = np.random.default_rng(seed)
+    channels = rng.normal(size=(2, C_MAX, t_len))
+    channels[:, :, t_len // 2:t_len // 2 + 40] *= 12.0
+    channels[1, 1] = 0.0
+    chan_mask = np.ones((2, C_MAX))
+    chan_mask[1, 1] = 0.0
+    return (channels.astype(dtype), chan_mask.astype(dtype),
+            np.ones(2, dtype), np.array([nsta, 2 * nsta], np.int32),
+            np.array([nlta, nlta + 77], np.int32))
+
+
+# Rows longer than FE1 and FE2 can stage (FE2 at 72,608 float32 and
+# 36,320 float64 samples with three channels, FE1 at 145,248 float64)
+LONG_CASES = [
+    (np.float32, 100_000, ("kurtosis",)),
+    (np.float64, 40_000, ("kurtosis",)),
+    (np.float64, 150_000, ("classic", "centred")),
+]
+
+
+@pytest.mark.parametrize("case", LONG_CASES, ids=_id)
+def test_front_end_v2_source_long_rows(host_lib_v2, exact_sqrt, case):
+    dtype, t_len, kinds = case
+    _hold_v2(host_lib_v2, _long_block(dtype, t_len, 250, 2500, t_len), 12,
+             kinds=kinds)
+
+
+def test_front_end_v2_source_gives_nan_for_a_length_below_one(host_lib_v2):
+    block = list(make_block(np.float32, 301))
+    block[3] = block[3].copy()
+    block[3][[0, 4]] = 0
+    got, available = _host_fe1(host_lib_v2, block, "classic", "energy",
+                               fe1=host.fe1_v2, threads=V2_THREADS)
+    assert np.isnan(got[0]).all() and (got[4] == 1.0).all()
+    assert np.isfinite(got[[1, 2, 3, 5]]).all() and available == 5.0
+    kurt = [*block[:3], np.array([-3, 26, 26, 51, 0, 51], np.int32)]
+    got, _ = host.fe2_v2(host_lib_v2, *kurt, 5, 0, MIN_ONSET,
+                         threads=V2_THREADS)
+    assert np.isnan(got[0]).all() and (got[4] == 1.0).all()
+    assert np.isfinite(got[[1, 2, 3, 5]]).all()
+
+
 # -- the wrappers ---------------------------------------------------------------
 
 def _fe1_args(block, **change):
@@ -335,28 +506,63 @@ REFUSALS = [
     ("fe2", "nsmooth 0", dict(nsmooth=0), ValueError, "nsmooth"),
     ("fe1", "position", dict(position="trailing"), ValueError, "position"),
     ("fe1", "transform", dict(transform="square"), ValueError, "transform"),
-    ("fe2", "too long to stage", dict(
-        channels=torch.zeros(6, 3, 100_000), chan_mask=torch.ones(6, 3)),
-     ValueError, "shared memory"),
 ]
+# FE1 and FE2's own limit: a row whose scan levels do not fit a block's
+# shared memory (FE1 v2 and FE2 v2 take it)
+TOO_LONG_TO_STAGE = ("fe2", "too long to stage", dict(
+    channels=torch.zeros(6, 3, 100_000), chan_mask=torch.ones(6, 3)),
+    ValueError, "shared memory")
 
 
 @pytest.mark.parametrize("refusal", REFUSALS, ids=lambda r: f"{r[0]}-{r[1]}")
 def test_wrappers_refuse(monkeypatch, refusal):
-    """Each refusal raises before anything launches (a launcher that
-    fails the test stands in for the kernel library)."""
+    """FE1 v2's and FE2 v2's wrappers (the detect paths'): each refusal
+    raises before anything launches (a launcher that fails the test
+    stands in for the kernel library)."""
 
+    _refuses(monkeypatch, refusal, "_v2")
+
+
+@pytest.mark.parametrize("refusal", REFUSALS + [TOO_LONG_TO_STAGE],
+                         ids=lambda r: f"{r[0]}-{r[1]}")
+def test_v1_wrappers_refuse(monkeypatch, refusal):
+    """FE1's and FE2's wrappers (the yardstick) make the same refusals,
+    and refuse a row whose scan levels they cannot stage."""
+
+    _refuses(monkeypatch, refusal, "")
+
+
+def _refuses(monkeypatch, refusal, version):
     which, _, change, error, match = refusal
     monkeypatch.setattr(cuda_front_end, "launch_kernel",
                         lambda *a: pytest.fail("launched"))
     if which == "fe1":
-        call = cuda_front_end.fused_onsets_cuda
+        call = getattr(cuda_front_end, "fused_onsets_cuda" + version)
         args = _fe1_args(_BLOCK, **change)
     else:
-        call = cuda_front_end.fused_kurtosis_onsets_cuda
+        call = getattr(cuda_front_end, "fused_kurtosis_onsets_cuda" + version)
         args = _fe2_args(_BLOCK, **change)
     with pytest.raises(error, match=match):
         call(**args)
+
+
+@pytest.mark.parametrize("dtype,t_len", [(torch.float32, 120_000),
+                                         (torch.float64, 40_000)])
+def test_v2_wrappers_take_rows_too_long_to_stage(dtype, t_len):
+    """FE1 v2 and FE2 v2 check such a block as any other: on CPU tensors
+    they get as far as refusing the device."""
+
+    change = dict(channels=torch.zeros(6, 3, t_len, dtype=dtype),
+                  chan_mask=torch.ones(6, 3, dtype=dtype),
+                  slot_mask=torch.ones(6, dtype=dtype))
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_front_end.fused_kurtosis_onsets_cuda(**_fe2_args(_BLOCK,
+                                                              **change))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cuda_front_end.fused_kurtosis_onsets_cuda_v2(**_fe2_args(_BLOCK,
+                                                                 **change))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cuda_front_end.fused_onsets_cuda_v2(**_fe1_args(_BLOCK, **change))
 
 
 def test_stage_bytes_follows_the_levels():
@@ -379,6 +585,7 @@ def test_cpu_blocks_never_reach_the_kernels(monkeypatch, kind):
         pytest.fail("a CPU block reached ops.cuda_front_end")
 
     for name in ("fused_onsets_cuda", "fused_kurtosis_onsets_cuda",
+                 "fused_onsets_cuda_v2", "fused_kurtosis_onsets_cuda_v2",
                  "launch_kernel"):
         monkeypatch.setattr(cuda_front_end, name, refuse)
     monkeypatch.setattr(cuda_migrate, "launch_kernel", refuse)
@@ -393,8 +600,7 @@ def test_cpu_blocks_never_reach_the_kernels(monkeypatch, kind):
         want = fused_kurtosis_onsets(*_torch(block), 5, 20, MIN_ONSET)
     got = front_end(*_torch(block))
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    assert cuda_front_end.launches == {"front_end_stalta": 0,
-                                       "front_end_kurtosis": 0}
+    assert set(cuda_front_end.launches.values()) == {0}
 
 
 def test_plain_windows_keep_the_plain_front_end(monkeypatch):
