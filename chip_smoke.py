@@ -411,6 +411,27 @@ and the plain version on each block in turns, with the profiler's device
 time, the wrappers' host enqueue, the bound, and v2's registers, spills
 and blocks per SM.
 
+Locate's onsets run on ON1 (the static STA/LTA) and ON2 (the kurtosis
+onset), csrc/locate_onsets.cu, one launch a phase of calculate_onsets
+with the per-station combine fused: archive_locate (and its map path,
+plot_path), vt_locate_mags, double_path's locates and standard_path's
+STA/LTA detects (two a window) count ON1 from 0 with cuda_migrate's
+kernels, kurtosis_detect's locate ON2, and NoPlainOnCuda refuses their
+plain versions a CUDA tensor; archive_locate prints locate_event_attrib's
+onsets span cold and warm, and archive_locate and kurtosis_detect time
+calculate_onsets on the event's data by the kernel's route and by the
+plain chain on the card (equal bit for bit; host wall, the profiler's
+device work, each phase's call in turns). compat_path holds
+core.compat's overlapping_sta_lta and centred_sta_lta on the card to
+device="cpu" (equal, one ON1 launch each). locate_onsets_path, after
+front_end_path, holds ON1 and ON2 bit for bit to their plain versions on
+the card at locate's Icequake and VT shapes, compat's rows (R1's cases),
+120,000 samples and rows shorter than every window, both output modes,
+float32 and float64, ON1's four transforms, ON2's nsmooth 1, 5 and 12;
+times each in turns with its plain chain (queued device time, the
+profiler's launches a call, the host's enqueue) beside its bound, and
+prints their registers, spills and blocks per SM.
+
 Every kernel line carries its launches on its path (each path run with
 the counts set to 0 just before it), its time and its plain version's,
 and its bound: the larger of the bytes it must move (inputs read once,
@@ -1676,18 +1697,26 @@ def m1_case(name, s, window, reps=20):
 class NoPlainOnCuda:
     """Within the block, the plain versions that detect's and locate's CPU
     paths call (the plain onset front ends of the fused window among them,
-    which the front ends' factories call on a CPU block) and the ``extra``
-    (module, name) pairs raise if they are given CUDA tensors."""
+    which the front ends' factories call on a CPU block, and the plain
+    versions of ON1 and ON2, which calculate_onsets calls on CPU tensors)
+    and the ``extra`` (module, name) pairs raise if they are given CUDA
+    tensors."""
 
     def __init__(self, label="archive_locate", extra=()):
         from quakemigrate_torch.ops import cuda_migrate as cm
-        from quakemigrate_torch.ops import scan_window
+        from quakemigrate_torch.ops import kurtosis, scan_window, stalta
         from quakemigrate_torch.signal import scan as scan_module
 
         self.label = label
         self.targets = [(scan_module, "detect_window"),
                         (scan_window, "fused_onsets"),
                         (scan_window, "fused_kurtosis_onsets"),
+                        (stalta, "overlapping_sta_lta_plain"),
+                        (stalta, "centred_sta_lta_plain"),
+                        (stalta, "station_sta_lta_plain"),
+                        (stalta, "combine_stations"),
+                        (kurtosis, "kurtosis_onset_plain"),
+                        (kurtosis, "station_kurtosis_onset_plain"),
                         (scan_module, "migrate_detect"),
                         (scan_module, "migrate_marginalise"),
                         (scan_module, "migrate_map"),
@@ -1745,6 +1774,7 @@ def archive_locate_path(device, root, detect, planted, origin, start, end,
     from quakemigrate_torch.io import read_scanmseed, read_triggered_events
     from quakemigrate_torch.io.table import read_csv
     from quakemigrate_torch.ops import cuda_migrate as cm
+    from quakemigrate_torch.ops import cuda_onsets as con
     from quakemigrate_torch.ops.migrate import (
         _prepare_onsets,
         migrate_detect,
@@ -1799,16 +1829,22 @@ def archive_locate_path(device, root, detect, planted, origin, start, end,
         (event, pass1, handle))
     torch.cuda.synchronize()
     cm.reset_launches()
+    con.reset_launches()
     with NoPlainOnCuda():
         _, locate_s = quiet(root, "locate",
                             lambda: scan.locate(starttime=start, endtime=end))
     torch.cuda.synchronize()
     launches = dict(cm.launches)
+    onset_launches = dict(con.launches)
     n_read = len(seen)
     n_gated = sum(handle is not None for _, _, handle in seen)
     print(f"archive_locate: locate {locate_s:.3f} s wall, route "
           f"{scan.locate_route}; {n_read} event(s) migrated, {n_gated} "
-          f"through the marginal-window gate; kernel launches {launches}")
+          f"through the marginal-window gate; kernel launches {launches}, "
+          f"onsets {onset_launches}")
+    check(onset_launches == onsets_only("onset_stalta", 2 * n_read),
+          f"archive_locate: onset launches {onset_launches} for {n_read} "
+          "event(s) of two phases")
     check(scan.locate_route == "k1_v2", f"archive_locate: route "
           f"{scan.locate_route}")
     check(n_read == len(events) and n_gated == n_read,
@@ -1911,14 +1947,25 @@ def archive_locate_path(device, root, detect, planted, origin, start, end,
                 for k in ("read_wait", "onsets", "pass1", "pass2",
                           "pass2_wait", "location", "picks", "writes")}
 
-    # The same locate again, warm: the plan and its tables are on the card
+    # The same locate again, warm: the plan and its tables are on the card;
+    # the event's waveform data kept for calculate_onsets' case
     cold_split = split()
     scan.on_event = None
+    event_data = []
+    calculate = onset.calculate_onsets
+    onset.calculate_onsets = lambda data, **kw: (
+        event_data.append(data) or calculate(data, **kw))
     _, warm_s = quiet(root, "locate_warm",
                       lambda: scan.locate(starttime=start, endtime=end))
+    del onset.calculate_onsets
     warm_split = split()
     print(f"archive_locate: per-event split, host s, cold ({locate_s:.3f} s "
           f"wall): {cold_split}; warm ({warm_s:.3f} s wall): {warm_split}")
+    print(f"archive_locate: locate_event_attrib's onsets span, host s an "
+          f"event, cold {cold_split['onsets']}, warm {warm_split['onsets']} "
+          f"({nvidia_smi()})")
+    onsets_record = onsets_case("archive_locate", onset, event_data[0],
+                                device)
 
     # M1 v2 and M1 in turns at the locate window, M1 v2 also at one chunk,
     # three chunks and archive_detect's window, and M1 at F1's geometry
@@ -2006,11 +2053,15 @@ def archive_locate_path(device, root, detect, planted, origin, start, end,
         (event, handle))
     torch.cuda.synchronize()
     cm.reset_launches()
+    con.reset_launches()
     with NoPlainOnCuda():
         _, map_s = quiet(root, "locate_map", lambda: map_scan.locate(
             trigger_file=str(trigger_file)))
     torch.cuda.synchronize()
     map_launches = dict(cm.launches)
+    map_onset_launches = dict(con.launches)
+    check(map_onset_launches == onsets_only("onset_stalta", 2),
+          f"map_path: onset launches {map_onset_launches}")
     (map_event, map_handle), = map_seen
     map_file = (runs / "map_path" / "locate" / "coalescence_maps"
                 / f"{map_event.uid}.npy")
@@ -2034,6 +2085,7 @@ def archive_locate_path(device, root, detect, planted, origin, start, end,
           f"map_path: .npy {map4d.shape}, {map_dist} nodes from the "
           "two-pass location")
     map_record = {"locate_s": map_s, "launches": map_launches,
+                  "onset_launches": map_onset_launches,
                   "npy_shape": list(map4d.shape), "spline_node":
                   map_node.tolist(), "node_distance_two_pass": map_dist,
                   "event_split_s": map_split}
@@ -2050,7 +2102,9 @@ def archive_locate_path(device, root, detect, planted, origin, start, end,
         "threshold": LOCATE_THRESHOLD,
         "events": len(events), "trigger_time": str(events["CoaTime"][0]),
         "origin": str(origin), "otime": str(event.otime),
-        "launches": launches, "route": scan.locate_route,
+        "launches": launches, "onset_launches": onset_launches,
+        "onsets": onsets_record, "onset_samples": inp["block"].shape[-1],
+        "route": scan.locate_route,
         "vs_plain": errs, "spline_node": node.tolist(),
         "planted": planted.tolist(), "node_distance": dist,
         "pick_residuals_s": residuals, "event_split_s": cold_split,
@@ -2178,7 +2232,8 @@ def plot_path(device, root, archive, lut, onset, trigger_file, planted):
 
     card_dir, cpu_dir, event, record = locate_card_and_cpu(
         root, "plot_path", make, trigger_file,
-        {"migrate_map_persistent": 1, "migrate_map_persistent_tables": 1},
+        {"migrate_map_persistent": 1, "migrate_map_persistent_tables": 1,
+         "onset_stalta": 2},
         planted, lut, plot_event_summary=True, plot_event_video=True)
     cpu_event = events["plot_path_cpu"]
     check(event.map4d is not None and cpu_event.map4d is not None
@@ -2787,6 +2842,7 @@ def vt_locate_mags_path(device, spacing_km=0.5, keep=None):
     )
     from quakemigrate_torch.io.table import read_csv
     from quakemigrate_torch.ops import cuda_migrate as cm
+    from quakemigrate_torch.ops import cuda_onsets as con
     from quakemigrate_torch.seis import UTCDateTime, read
     from quakemigrate_torch.signal import QuakeScan, Trigger
     from quakemigrate_torch.signal.local_mag import LocalMag
@@ -2872,23 +2928,27 @@ def vt_locate_mags_path(device, spacing_km=0.5, keep=None):
             loc.on_event = lambda event, pass1, handle: seen.append(event)
             torch.cuda.synchronize()
             cm.reset_launches()
+            con.reset_launches()
             with NoPlainOnCuda():
                 _, wall = quiet(root, f"locate_{name}", lambda: loc.locate(
                     trigger_file=str(trigger_file)))
             torch.cuda.synchronize()
-            return loc, seen, wall, dict(cm.launches)
+            return loc, seen, wall, {**cm.launches, **con.launches}
 
         loc, seen, locate_s, launches = locate(device, "vt_card")
         n = len(seen)
         print(f"vt_locate_mags: locate on the card {locate_s:.3f} s wall, "
               f"route {loc.locate_route}, {n} event(s), launches {launches}")
+        locate_kernels = {"migrate_detect_v2": n,
+                          "migrate_marginalise_v2": n,
+                          "onset_stalta": 2 * n}
         check(n == len(origins) and loc.locate_route == "k1_v2"
-              and launches["migrate_detect_v2"] == n
-              and launches["migrate_marginalise_v2"] == n
-              and all(v == 0 for k, v in launches.items() if k not in (
-                  "migrate_detect_v2", "migrate_marginalise_v2")),
+              and all(v == locate_kernels.get(k, 0)
+                      for k, v in launches.items()),
               f"vt_locate_mags: {n} events, route {loc.locate_route}, "
               f"launches {launches}")
+        record["onset_samples"] = seen[0]._marginalise_inputs[
+            "block"].shape[-1]
         cpu, cpu_seen, cpu_s, _ = locate("cpu", "vt_cpu")
         # The same locate on the card with the responses read from RESP and
         # from SAC_PZ
@@ -4426,6 +4486,7 @@ def kurtosis_detect_path(device, root, lut, archive, planted, origin, start,
 
     from quakemigrate_torch.io import read_scanmseed, read_triggered_events
     from quakemigrate_torch.ops import cuda_front_end as cfe
+    from quakemigrate_torch.ops import cuda_onsets as con
     from quakemigrate_torch.ops import cuda_migrate as cm
     from quakemigrate_torch.ops.scan_window import (
         detect_window_fused_kurtosis,
@@ -4562,20 +4623,29 @@ def kurtosis_detect_path(device, root, lut, archive, planted, origin, start,
                        plot_event_summary=False)
     located = []
     locate.on_event = lambda event, pass1, handle: located.append(event)
+    event_data = []
+    calculate = locate.onset.calculate_onsets
+    locate.onset.calculate_onsets = lambda data, **kw: (
+        event_data.append(data) or calculate(data, **kw))
     torch.cuda.synchronize()
     cm.reset_launches()
+    con.reset_launches()
     with NoPlainOnCuda():
         _, locate_s = quiet(root, "kurtosis_locate",
                             lambda: locate.locate(starttime=start,
                                                   endtime=end))
     torch.cuda.synchronize()
-    locate_launches = dict(cm.launches)
+    del locate.onset.calculate_onsets
+    locate_launches = {**cm.launches, **con.launches}
     check(len(located) == 1 and locate.locate_route == "k1_v2"
           and locate_launches["migrate_detect_v2"] == 1
           and locate_launches["migrate_marginalise_v2"] == 1
-          and sum(locate_launches.values()) == 2,
+          and locate_launches["onset_kurtosis"] == 2
+          and sum(locate_launches.values()) == 4,
           f"kurtosis_detect locate: {len(located)} events, route "
           f"{locate.locate_route}, launches {locate_launches}")
+    onsets_record = onsets_case("kurtosis_detect", locate.onset,
+                                event_data[0], device)
     event = located[0]
     node = lut.index2coord([event.hypocentre], inverse=True)[0]
     loc_dist = int(np.abs(node - planted).max())
@@ -4595,7 +4665,9 @@ def kurtosis_detect_path(device, root, lut, archive, planted, origin, start,
             "peak_node_distance": dist, "coa_n_peak": float(coa_n[peak]),
             "coa_n_away_max": float(coa_n[away].max()),
             "trigger_s": trigger_s, "locate_s": locate_s,
-            "locate_launches": locate_launches,
+            "locate_launches": locate_launches, "onsets": onsets_record,
+            "onset_samples": located[0]._marginalise_inputs[
+                "block"].shape[-1],
             "located_node_distance": loc_dist,
             "locate_split": locate.locate_event_attrib}
 
@@ -4713,6 +4785,15 @@ RING_RECORD_KEYS = (
     "equal_to_m1", "window", "n_stages", "layout_n_stages", "group", "smem",
     "blocks_per_sm", "passes", "registers", "spill_stores", "spill_loads")
 STANDARD_ONSET_RTOL = 1e-6
+
+
+def onsets_only(key, n):
+    """ON1's and ON2's launch counts of a run that launched ``key`` (a key
+    of ops.cuda_onsets.launches, or None) ``n`` times and no other."""
+
+    from quakemigrate_torch.ops import cuda_onsets as con
+
+    return {k: n if k == key else 0 for k in con.launches}
 
 
 def front_end_only(key, n):
@@ -4877,14 +4958,18 @@ def npy_of(run_dir, kind):
 
 
 def detect_and_hold(device, root, label, make_scan, start, end, planted,
-                    route, kernel, front_end=None, block_rtol=0.0,
-                    rtol=MAX_COA_RTOL, rtol_n=MAX_COA_N_RTOL):
+                    route, kernel, front_end=None, onsets=None,
+                    block_rtol=0.0, rtol=MAX_COA_RTOL,
+                    rtol_n=MAX_COA_N_RTOL):
     """QuakeScan.detect over [start, end) on the card with the scan that
     ``make_scan(name, device)`` builds (no plain window or front end on a
     CUDA tensor): its route ``route``, ``kernel`` (a key of
-    cuda_migrate.launches) launched once a window and nothing else, and
+    cuda_migrate.launches) launched once a window and nothing else,
     ``front_end`` (a key of cuda_front_end.launches, or None on the
-    standard path) once a window and the other front end never; then
+    standard path) once a window and the other front end never, and
+    ``onsets`` (a key of cuda_onsets.launches, or None: the fused path or
+    a user's onset) twice a window (calculate_onsets' two phases on the
+    standard path) and the other never; then
     held to the same
     detect with device="cpu" over CPU_HOLD_WINDOWS windows from the one
     before the planted window (:func:`hold_to_cpu_run`), and the
@@ -4893,6 +4978,7 @@ def detect_and_hold(device, root, label, make_scan, start, end, planted,
 
     from quakemigrate_torch.ops import cuda_front_end as cfe
     from quakemigrate_torch.ops import cuda_migrate as cm
+    from quakemigrate_torch.ops import cuda_onsets as con
 
     scan = make_scan(label, device)
     seen = {}
@@ -4901,19 +4987,23 @@ def detect_and_hold(device, root, label, make_scan, start, end, planted,
     torch.cuda.synchronize()
     cm.reset_launches()
     cfe.reset_launches()
+    con.reset_launches()
     with NoPlainOnCuda(label):
         _, wall = quiet(root, label, lambda: scan.detect(start, end))
     torch.cuda.synchronize()
     launches = dict(cm.launches)
     fe_launches = dict(cfe.launches)
+    onset_launches = dict(con.launches)
     ds = scan.detect_scan
     n_windows = len(seen)
     check(ds.route == route and n_windows == round(
         DOUBLE_SPAN_S / ARCHIVE_TIMESTEP) and launches[kernel] == n_windows
         and sum(launches.values()) == n_windows
-        and fe_launches == front_end_only(front_end, n_windows),
+        and fe_launches == front_end_only(front_end, n_windows)
+        and onset_launches == onsets_only(onsets, 2 * n_windows),
         f"{label}: route {ds.route} ({ds.route_reason}), {n_windows} "
-        f"windows, launches {launches}, front end {fe_launches}")
+        f"windows, launches {launches}, front end {fe_launches}, onsets "
+        f"{onset_launches}")
     order = sorted(seen)
     windows = [seen[i] for i in order]
     peaks = [float(res[0].max()) for _, res in windows]
@@ -4929,7 +5019,8 @@ def detect_and_hold(device, root, label, make_scan, start, end, planted,
         rtol=rtol, rtol_n=rtol_n, block_rtol=block_rtol)
     record = {"route": ds.route, "route_reason": ds.route_reason,
               "windows": n_windows, "launches": launches,
-              "front_end_launches": fe_launches, "wall_s": wall,
+              "front_end_launches": fe_launches,
+              "onset_launches": onset_launches, "wall_s": wall,
               "window_ms": list(ds.window_ms), "cpu_run": cpu_run,
               "peak_node_distance": dist, "planted_window": planted_window}
     print(f"{label}: detect on the card {wall:.3f} s wall, route {ds.route} "
@@ -4967,23 +5058,26 @@ def locate_card_and_cpu(root, label, make_scan, trigger_file, kernels,
                         planted, lut, **options):
     """QuakeScan.locate of ``trigger_file``'s event on the card (the
     scan ``make_scan(name, device, **options)`` builds; no plain version
-    on a CUDA tensor; launches exactly ``kernels``, {name: count}) and
+    on a CUDA tensor; launches exactly ``kernels``, {name: count} of
+    cuda_migrate's and ON1's and ON2's launches) and
     the same with device="cpu"; the .event held (:func:`hold_event`),
     the hypocentre within one node of the planted source. Returns
     (card run dir, CPU run dir, the card's event, record)."""
 
     from quakemigrate_torch.ops import cuda_migrate as cm
+    from quakemigrate_torch.ops import cuda_onsets as con
 
     scan = make_scan(label, "cuda", **options)
     seen = []
     scan.on_event = lambda event, pass1, handle: seen.append(event)
     torch.cuda.synchronize()
     cm.reset_launches()
+    con.reset_launches()
     with NoPlainOnCuda(label):
         _, wall = quiet(root, label, lambda: scan.locate(
             trigger_file=str(trigger_file)))
     torch.cuda.synchronize()
-    launches = dict(cm.launches)
+    launches = {**cm.launches, **con.launches}
     check(len(seen) == 1 and launches == {**{k: 0 for k in launches},
                                           **kernels},
           f"{label}: {len(seen)} events, route {scan.locate_route}, "
@@ -5054,15 +5148,16 @@ def double_path(device, root, lut, archive, planted, origin, start, end):
     two_card, two_cpu, event, record["two_pass"] = locate_card_and_cpu(
         root, "double_locate", make, trigger_file,
         {"migrate_detect_global_v3_f64": 1,
-         "migrate_marginalise_ring_f64": 1},
+         "migrate_marginalise_ring_f64": 1, "onset_stalta": 2},
         planted, lut, write_marginal_coalescence=True)
     marg = [npy_of(d, "marginalised_coalescence_maps")
             for d in (two_card, two_cpu)]
     record["two_pass"]["marginal_map_err"] = float(
         np.abs(marg[0] - marg[1]).max() / np.abs(marg[1]).max())
     map_card, map_cpu, map_event, record["map_path"] = locate_card_and_cpu(
-        root, "double_map", make, trigger_file, {"migrate_map_ring_f64": 1},
-        planted, lut, write_coalescence=True)
+        root, "double_map", make, trigger_file,
+        {"migrate_map_ring_f64": 1, "onset_stalta": 2}, planted, lut,
+        write_coalescence=True)
     maps = [npy_of(d, "coalescence_maps") for d in (map_card, map_cpu)]
     record["map_path"]["map_rel_err"] = float(
         (np.abs(maps[0] - maps[1]) / np.abs(maps[1])).max())
@@ -5209,13 +5304,13 @@ def standard_path(device, root, lut, archive, planted, origin, start, end):
         return onset
 
     variants = {
-        "custom": (lambda: custom(sampling_rate=RATE), {}, 0.0),
+        "custom": (lambda: custom(sampling_rate=RATE), {}, 0.0, None),
         "unfused": (archive_onset, {"fused_detect": False},
-                    STANDARD_ONSET_RTOL),
-        "classic": (classic, {}, STANDARD_ONSET_RTOL),
+                    STANDARD_ONSET_RTOL, "onset_stalta"),
+        "classic": (classic, {}, STANDARD_ONSET_RTOL, "onset_stalta"),
     }
     record = {}
-    for name, (onset_of, options, block_rtol) in variants.items():
+    for name, (onset_of, options, block_rtol, onsets) in variants.items():
         def make(run, dev, onset_of=onset_of, options=options, **extra):
             return QuakeScan(archive, lut, onset_of(), str(root / "runs"),
                              run, device=dev, timestep=ARCHIVE_TIMESTEP,
@@ -5225,7 +5320,7 @@ def standard_path(device, root, lut, archive, planted, origin, start, end):
         label = f"standard_{name}"
         scan, rec, _ = detect_and_hold(
             device, root, label, make, start, end, planted, "k1_v2",
-            "migrate_detect_v2", block_rtol=block_rtol)
+            "migrate_detect_v2", onsets=onsets, block_rtol=block_rtol)
         check(not scan._fused_active, f"{label}: took the fused window")
         if name == "custom":
             trigger_file = trigger_one(root, scan, lut, start, end, origin,
@@ -5642,6 +5737,403 @@ def front_end_path(device, reps=20):
     return record
 
 
+# locate_onsets_path: the Icequake example's stations (archive_locate's
+# 13) and VT's 12; rows of 120,000 samples (as front_end_path's) and a
+# row shorter than every window
+ICEQUAKE_STATIONS = 13
+VT_STATIONS = 12
+ONSET_SHORT_SAMPLES = 40
+
+
+def onset_rows(rng, shape, dtype, device):
+    """Rows of seeded noise with an arrival 40 times louder in the middle
+    (a tenth of the row, at least 3 samples), on ``device``."""
+
+    rows = rng.standard_normal(shape, dtype=np.dtype(str(dtype)[6:]))
+    t = shape[-1]
+    start, end = t // 2, t // 2 + max(t // 10, 3)
+    rows[..., start:end] *= 40.0
+    return torch.from_numpy(rows).to(dtype).to(device)
+
+
+def station_offsets(stations, per_station):
+    """Offsets of ``stations`` stations of ``per_station`` rows each."""
+
+    return [s * per_station for s in range(stations + 1)]
+
+
+def onset_bound(kurtosis, rows, units, t, itemsize, nsmooth=1,
+                transform=None, stations=False):
+    """ON1's (``kurtosis`` False) or ON2's bound on a call: the rows read
+    once and the onsets written once (``units`` rows of ``t`` samples) at
+    the memory rate, against the operations a sample of a row needs (ON1:
+    the transform's square or magnitude (none for ``transform`` None, the
+    rows mode's), the running sum's addition, two differences,
+    the division and the multiplication of the ratio; ON2: three products
+    for the powers, four additions, four differences, four divisions, the
+    moments' 13 and the gate's product, the gradient, the smoothing's two
+    a sample of the box where nsmooth > 1 and 1 + cf), in stations mode
+    two more (the square, the addition) and three a combined sample (the
+    division, the root, the clamp), at the card's rate for the dtype;
+    compares and selects not counted. Returns {"bound_ms", "bound_by",
+    "bytes", "operations"}."""
+
+    nbytes = (rows + units) * t * itemsize
+    if kurtosis:
+        per = 35 + (2 * nsmooth if nsmooth > 1 else 0)
+    else:
+        per = 5 + (transform in ("energy", "abs", "env_squared"))
+    ops = rows * t * per + ((rows * t * 2 + units * t * 3) if stations
+                            else 0)
+    bound_ms, bound_by = roofline(
+        nbytes, ops, FP64_FLOP_PER_S if itemsize == 8 else FP32_FLOP_PER_S)
+    return {"bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "operations": ops}
+
+
+def hold_onset(holds, label, got, want):
+    """A kernel's onsets ``got`` against its plain version's ``want`` on
+    the card: fails unless equal bit for bit."""
+
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(got, want))
+    diff = float((got.double() - want.double()).abs().max())
+    holds[label] = {"equal": equal, "max_abs_err": diff,
+                    "shape": list(got.shape), "dtype": str(got.dtype)}
+    check(equal, f"locate_onsets {label}: {diff} from its plain version")
+
+
+def kernels_per_call(fn, reps=5):
+    """torch.profiler's device work of ``fn()``, a call over ``reps``
+    calls after a warm-up call: kernels and copies (Memcpy, Memset)
+    launched, and the kernels' device ms."""
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    copies = [e for e in device if e.name.startswith(("Memcpy", "Memset"))]
+    kernels = [e for e in device if e not in copies]
+    return {"kernels": len(kernels) / reps, "copies": len(copies) / reps,
+            "kernel_ms": sum(e.time_range.elapsed_us()
+                             for e in kernels) / reps / 1e3}
+
+
+def onset_turns(label, kernel, plain, bound, reps=20):
+    """ON1's or ON2's call ``kernel`` and its plain chain ``plain`` on the
+    same inputs, timed in turns (kernel, plain, plain, kernel): the
+    kernel's device time enqueued behind a hold (``queued_ms``: its calls
+    back to back) and as the host issues its calls (``cuda_ms``), the
+    plain chain's as the host issues it (its hundreds of launches a call
+    fill the launch queue behind a hold, and the chain is bound by their
+    issue); the kernel's launches a call by its wrapper's count, the plain
+    chain's kernels and copies a call by the profiler (which drops events
+    at times: a floor), and the host's enqueue. Returns a record."""
+
+    from quakemigrate_torch.experiments.exp_kernel_breakdown import (
+        cuda_ms,
+        queued_ms,
+    )
+    from quakemigrate_torch.ops import cuda_onsets as con
+
+    turns = {"kernel": [], "kernel_issued": [], "plain": []}
+    for name in ("kernel", "plain", "plain", "kernel"):
+        if name == "kernel":
+            turns["kernel"].append(queued_ms(kernel, reps))
+            turns["kernel_issued"].append(cuda_ms(kernel, reps))
+        else:
+            turns["plain"].append(cuda_ms(plain, reps))
+    before = sum(con.launches.values())
+    enqueue = enqueue_s(kernel, reps)
+    record = {"ms": float(np.mean(turns["kernel"])),
+              "issued_ms": float(np.mean(turns["kernel_issued"])),
+              "plain_ms": float(np.mean(turns["plain"])),
+              "turns_ms": turns, **bound,
+              "launches_a_call": (sum(con.launches.values()) - before) / reps,
+              "plain_calls": kernels_per_call(plain),
+              "enqueue_s": enqueue,
+              "plain_enqueue_s": enqueue_s(plain, reps)}
+    print(f"locate_onsets {label}: {record['ms']:.4f} ms a call queued in "
+          f"turns {turns['kernel']}, {record['issued_ms']:.4f} as issued; "
+          f"plain chain {record['plain_ms']:.4f} as issued "
+          f"{turns['plain']}; bound {bound['bound_ms']:.6f} ms by "
+          f"{bound['bound_by']}; {record['launches_a_call']} launch a call "
+          f"against the plain chain's {record['plain_calls']}; host "
+          f"enqueue {record['enqueue_s'] * 1e3:.4f} ms against "
+          f"{record['plain_enqueue_s'] * 1e3:.4f}")
+    return record
+
+
+def onset_resources(device):
+    """Registers and spills of ON1 and ON2 (each instance, from the
+    build's ptxas report) and their resident blocks per SM (the occupancy
+    API): {"ON1 f32": {...}, ...}."""
+
+    from quakemigrate_torch import _build
+    from quakemigrate_torch.ops import cuda_onsets as con
+
+    out = {}
+    for name, entry in _build.kernel_resources("qm_on").items():
+        kurtosis = "qm_on2" in name
+        f64 = "IdE" in name
+        dtype = torch.float64 if f64 else torch.float32
+        label = f"ON{2 if kurtosis else 1} {'f64' if f64 else 'f32'}"
+        out[label] = {k: v for k, v in entry.items()
+                      if k != "wgmma_serialized"}
+        out[label]["blocks_per_sm"] = con.blocks_per_sm(kurtosis, dtype,
+                                                        device)
+    print(f"locate_onsets: registers, spills and blocks per SM {out}")
+    check(len(out) == 4, f"locate_onsets: instances missing: {out}")
+    return out
+
+
+def onsets_case(label, onset, data, device, reps=5):
+    """calculate_onsets of ``onset`` (STALTAOnset or KurtosisOnset) on an
+    event's waveform ``data`` on the card: by its kernel's route (one
+    launch a phase) and with each phase's entry sent to the plain chain on
+    the card, held equal bit for bit; the call's host wall (it ends in
+    the copy back) and the profiler's device work a call for both routes;
+    then each phase's entry alone, kernel against plain chain, in turns
+    (:func:`onset_turns`). Returns a record."""
+
+    from quakemigrate_torch.ops import kurtosis as kops
+    from quakemigrate_torch.ops import stalta as sops
+    from quakemigrate_torch.signal.onsets import kurtosis as onsets_kurtosis
+
+    if hasattr(onset, "kurtosis_windows"):
+        module, name = onsets_kurtosis, "station_kurtosis_onset"
+        plain = kops.station_kurtosis_onset_plain
+    else:
+        module, name = sops, "station_sta_lta"
+        plain = sops.station_sta_lta_plain
+    entry = getattr(module, name)
+    phases = []
+
+    def capture(*args, **kwargs):
+        phases.append(args)
+        return entry(*args, **kwargs)
+
+    def kernel_route():
+        return onset.calculate_onsets(data, device=device)[0]
+
+    def plain_route():
+        setattr(module, name, plain)
+        try:
+            return onset.calculate_onsets(data, device=device)[0]
+        finally:
+            setattr(module, name, entry)
+
+    setattr(module, name, capture)
+    try:
+        got = kernel_route()
+    finally:
+        setattr(module, name, entry)
+    want = plain_route()
+    equal = bool(torch.equal(got, want))
+    check(equal, f"{label} calculate_onsets: the kernel's route differs "
+          "from the plain chain's")
+
+    def wall(fn):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        return float(np.median(times))
+
+    record = {"equal_to_plain": equal, "onsets": list(got.shape),
+              "wall_s": wall(kernel_route), "plain_wall_s": wall(plain_route),
+              "device": kernels_per_call(kernel_route, reps),
+              "plain_device": kernels_per_call(plain_route, reps),
+              "phases": {}}
+    kurtosis = module is onsets_kurtosis
+    for args in phases:
+        traces, offsets = args[0], args[1]
+        key = f"{len(offsets) - 1} stations, {traces.shape[0]} rows"
+        bound = onset_bound(kurtosis, traces.shape[0], len(offsets) - 1,
+                            traces.shape[1], traces.element_size(),
+                            nsmooth=args[3] if kurtosis else 1,
+                            transform="energy" if kurtosis else args[5],
+                            stations=True)
+        record["phases"][key] = onset_turns(
+            f"{label} calculate_onsets' phase of {key}",
+            lambda: entry(*args), lambda: plain(*args), bound)
+    print(f"{label}: calculate_onsets on the card, {record['onsets']} "
+          f"onsets: kernel's route {record['wall_s']:.4f} s host wall, "
+          f"device {record['device']}; plain chain "
+          f"{record['plain_wall_s']:.4f} s, device "
+          f"{record['plain_device']}; equal bit for bit {equal} "
+          f"({nvidia_smi()})")
+    return record
+
+
+def locate_onsets_path(device, locate_samples, vt_samples, reps=20):
+    """locate_onsets_path: ON1 and ON2 (csrc/locate_onsets.cu) on the card
+    against their plain versions (the reference's order of additions)
+    bit for bit, at the shapes of their paths: locate at Icequake (13
+    stations, P one row a station and S two, the locate block's
+    ``locate_samples`` samples, float64; archive_locate's STA/LTA windows
+    and kurtosis_detect's), VT (12 stations, ``vt_samples``, env_squared),
+    core.compat's float32 rows (R1's cases: (26, 2,038), (256, 360,000)),
+    rows of 120,000 samples in float32 and float64 and rows shorter than
+    every window: ON1 classic and centred, the energy, abs, env and
+    env_squared transforms in stations mode, rows mode on the samples as
+    they are; ON2 at nsmooth 1, 5 and the onset's 12, both modes, float64
+    and float32. Then each timed in turns with its plain chain
+    (:func:`onset_turns`) at locate's S phase, compat's rows and 120,000
+    samples, and ON1's and ON2's registers, spills and blocks per SM.
+    Returns a record."""
+
+    from quakemigrate_torch import util
+    from quakemigrate_torch.ops import cuda_onsets as con
+    from quakemigrate_torch.ops import kurtosis as kops
+    from quakemigrate_torch.ops import stalta as sops
+
+    rng = np.random.default_rng(2060)
+    f32, f64 = torch.float32, torch.float64
+    stw = {p: util.time2sample(w[0], RATE) + 1 for p, w in STA_LTA.items()}
+    ltw = {p: util.time2sample(w[1], RATE) + 1 for p, w in STA_LTA.items()}
+    k_onset = kurtosis_onset_for()
+    nkurt = {p: k_onset._nkurt(p) for p in ("P", "S")}
+    nsmooth = k_onset.nsmooth
+    per_station = {"P": 1, "S": 2}
+    plain_rows = {"classic": sops.overlapping_sta_lta_plain,
+                  "centred": sops.centred_sta_lta_plain}
+    routed_rows = {"classic": sops.overlapping_sta_lta,
+                   "centred": sops.centred_sta_lta}
+    holds = {}
+    torch.cuda.synchronize()
+    con.reset_launches()
+
+    def on1_stations(label, x, offsets, nsta, nlta, positions, transforms,
+                     edges=None):
+        for position in positions:
+            for transform in transforms:
+                args = (x, offsets, nsta, nlta, position, transform, edges,
+                        0.4)
+                hold_onset(holds, f"ON1 {label} {position} {transform}",
+                           sops.station_sta_lta(*args),
+                           sops.station_sta_lta_plain(*args))
+
+    def on1_rows(label, x, nsta, nlta):
+        for position in ("classic", "centred"):
+            hold_onset(holds, f"ON1 rows {label} {position}",
+                       routed_rows[position](x, nsta, nlta),
+                       plain_rows[position](x, nsta, nlta))
+
+    def on2(label, x, offsets, n, smooths, edges=None):
+        for ns in smooths:
+            if offsets is None:
+                hold_onset(holds, f"ON2 rows {label} nsmooth {ns}",
+                           kops.kurtosis_onset(x, n, ns),
+                           kops.kurtosis_onset_plain(x, n, ns))
+            else:
+                args = (x, offsets, n, ns, edges, 0.4)
+                hold_onset(holds, f"ON2 {label} nsmooth {ns}",
+                           kops.station_kurtosis_onset(*args),
+                           kops.station_kurtosis_onset_plain(*args))
+
+    transforms = ("energy", "abs", "env", "env_squared")
+    ice = {}
+    for phase in ("P", "S"):
+        rows = ICEQUAKE_STATIONS * per_station[phase]
+        offsets = station_offsets(ICEQUAKE_STATIONS, per_station[phase])
+        x = onset_rows(rng, (rows, locate_samples), f64, device)
+        ice[phase] = (x, offsets)
+        on1_stations(f"icequake {phase}", x, offsets, stw[phase],
+                     ltw[phase], ("classic", "centred"), transforms)
+        on2(f"icequake {phase}", x, offsets, nkurt[phase],
+            (1, 5, nsmooth))
+    x, offsets = ice["S"]
+    on1_stations("icequake S edges", x, offsets, stw["S"], ltw["S"],
+                 ("centred",), ("energy",), (40, locate_samples - 30))
+    on2("icequake S edges", x, offsets, nkurt["S"], (nsmooth,),
+        (nkurt["S"] + 20, locate_samples - 1))
+    on1_rows("icequake S f64", x, stw["S"], ltw["S"])
+    on2("icequake S f64", x, None, nkurt["S"], (1, 5, nsmooth))
+    x32 = x.float()
+    on1_stations("icequake S f32", x32, offsets, stw["S"], ltw["S"],
+                 ("classic", "centred"), ("energy",))
+    on2("icequake S f32", x32, offsets, nkurt["S"], (5, nsmooth))
+    on2("icequake S f32", x32, None, nkurt["S"], (1, 5, nsmooth))
+    vt = onset_rows(rng, (2 * VT_STATIONS, vt_samples), f64, device)
+    vt_stw, vt_ltw = 11, 51  # vt_locate_mags' [0.2, 1.0] s at 50 Hz
+    on1_stations("vt S", vt, station_offsets(VT_STATIONS, 2), vt_stw,
+                 vt_ltw, ("classic", "centred"), ("env_squared",))
+    compat_rows = {shape: onset_rows(rng, shape, f32, device) ** 2
+                   for shape, _ in R1_CASES}
+    for shape, (nsta, nlta) in R1_CASES:
+        on1_rows(f"compat {shape}", compat_rows[shape], nsta, nlta)
+    for dtype in (f32, f64):
+        long = onset_rows(rng, (3, FE_LONG_SAMPLES), dtype, device)
+        name = f"{FE_LONG_SAMPLES} {str(dtype)[6:]}"
+        on1_stations(name, long, [0, 1, 3], 250, 2500,
+                     ("classic", "centred"), ("energy", "abs"))
+        on1_rows(name, long ** 2, 250, 2500)
+        on2(name, long, [0, 1, 3], 250, (nsmooth,))
+        on2(name, long, None, 250, (5,))
+        short = onset_rows(rng, (3, ONSET_SHORT_SAMPLES), dtype, device)
+        name = f"{ONSET_SHORT_SAMPLES} {str(dtype)[6:]}"
+        on1_stations(name, short, [0, 1, 3], stw["S"], ltw["S"],
+                     ("classic", "centred"), ("energy",))
+        on1_rows(name, short ** 2, stw["S"], ltw["S"])
+        on2(name, short, [0, 1, 3], nkurt["S"], (nsmooth,))
+        on2(name, short, None, nkurt["S"], (1, 6))
+    torch.cuda.synchronize()
+    hold_launches = dict(con.launches)
+    print(f"locate_onsets: {len(holds)} holds, each equal bit for bit to "
+          f"its plain version; launches {hold_launches}")
+
+    # Times in turns with the plain chain
+    times = {}
+    x, offsets = ice["S"]
+    args = (x, offsets, stw["S"], ltw["S"], "centred", "energy", None, 0.4)
+    times["ON1 locate S"] = onset_turns(
+        "ON1 locate S", lambda: sops.station_sta_lta(*args),
+        lambda: sops.station_sta_lta_plain(*args),
+        onset_bound(False, x.shape[0], len(offsets) - 1, locate_samples, 8,
+                    transform="energy", stations=True), reps)
+    kargs = (x, offsets, nkurt["S"], nsmooth, None, 0.4)
+    times["ON2 locate S"] = onset_turns(
+        "ON2 locate S", lambda: kops.station_kurtosis_onset(*kargs),
+        lambda: kops.station_kurtosis_onset_plain(*kargs),
+        onset_bound(True, x.shape[0], len(offsets) - 1, locate_samples, 8,
+                    nsmooth=nsmooth, stations=True), reps)
+    for shape, (nsta, nlta) in R1_CASES:
+        rows = compat_rows[shape]
+        times[f"ON1 compat {shape}"] = onset_turns(
+            f"ON1 compat {shape}",
+            lambda: sops.overlapping_sta_lta(rows, nsta, nlta),
+            lambda: sops.overlapping_sta_lta_plain(rows, nsta, nlta),
+            onset_bound(False, shape[0], shape[0], shape[1], 4),
+            reps if shape[1] < 10_000 else 5)
+    long = onset_rows(rng, (3, FE_LONG_SAMPLES), f64, device)
+    largs = (long, [0, 1, 3], 250, 2500, "classic", "energy", None, 0.4)
+    times[f"ON1 {FE_LONG_SAMPLES} f64"] = onset_turns(
+        f"ON1 {FE_LONG_SAMPLES} f64", lambda: sops.station_sta_lta(*largs),
+        lambda: sops.station_sta_lta_plain(*largs),
+        onset_bound(False, 3, 2, FE_LONG_SAMPLES, 8, transform="energy",
+                    stations=True), 5)
+    times[f"ON2 {FE_LONG_SAMPLES} f64"] = onset_turns(
+        f"ON2 {FE_LONG_SAMPLES} f64",
+        lambda: kops.kurtosis_onset(long, 250, nsmooth),
+        lambda: kops.kurtosis_onset_plain(long, 250, nsmooth),
+        onset_bound(True, 3, 3, FE_LONG_SAMPLES, 8, nsmooth=nsmooth), 5)
+    del long, rows, compat_rows, ice, vt
+    torch.cuda.empty_cache()
+    return {"holds": holds, "hold_launches": hold_launches, "times": times,
+            "resources": onset_resources(device),
+            "windows": {"stw": stw, "ltw": ltw, "nkurt": nkurt,
+                        "nsmooth": nsmooth},
+            "samples": {"locate": locate_samples, "vt": vt_samples}}
+
+
 def rel_err(got, ref):
     """Largest |got - ref| / |ref| (float64, on the host)."""
 
@@ -5749,11 +6241,15 @@ def compat_path(device):
     one of its tables' kernel) or of M2 ring on K2 v2's
     (csrc/migrate_marginalise_ring.cu) and no other kernel; then
     find_max_coa of that map on the card and the CPU: the max and the
-    argmax equal, the normalised max within COMPAT_NORM_RTOL. Returns the
+    argmax equal, the normalised max within COMPAT_NORM_RTOL; last
+    overlapping_sta_lta and centred_sta_lta on the card at R1's first case
+    (float32 rows of 2,038 samples): one ON1 launch each
+    (csrc/locate_onsets.cu), equal to device="cpu". Returns the
     record."""
 
     from quakemigrate_torch.core import compat
     from quakemigrate_torch.ops import cuda_migrate as cm
+    from quakemigrate_torch.ops import cuda_onsets as con
     from quakemigrate_torch.signal.scan import detect_route
 
     rng = np.random.default_rng(2051)
@@ -5805,6 +6301,26 @@ def compat_path(device):
               and record[name]["find_max_coa"]["argmax_equal"]
               and norm_err <= COMPAT_NORM_RTOL,
               f"compat_path {name}: find_max_coa {record[name]}")
+
+    # The static STA/LTAs on the card (ON1, one launch each, counted from
+    # 0) against device="cpu" (the plain version), equal
+    (shape, (nsta, nlta)) = R1_CASES[0]
+    signal = rng.standard_normal(shape) ** 2
+    for name in ("overlapping_sta_lta", "centred_sta_lta"):
+        torch.cuda.synchronize()
+        con.reset_launches()
+        card = getattr(compat, name)(signal, nsta, nlta)
+        launches = dict(con.launches)
+        cpu = getattr(compat, name)(signal, nsta, nlta, device="cpu")
+        equal = bool(np.array_equal(card, cpu))
+        record[name] = {"shape": list(shape), "launches": launches,
+                        "equal_to_cpu": equal,
+                        "max_abs_err": float(np.abs(card - cpu).max())}
+        print(f"compat_path {name} {shape} (nsta {nsta}, nlta {nlta}): "
+              f"launches {launches}, equal to device='cpu' {equal}")
+        check(equal and card.dtype == np.float64
+              and launches == onsets_only("onset_stalta", 1),
+              f"compat_path {name}: {record[name]}")
     return record
 
 
@@ -6806,6 +7322,8 @@ def main():
     fe_record = front_end_path(device)
     FRONT_END_BLOCKS.clear()
     torch.cuda.empty_cache()
+    onsets_record = locate_onsets_path(
+        device, locate_record["onset_samples"], vt_record["onset_samples"])
 
     checks = breakdown_checks(device)
     s_day = ekb.setup(device=device)
@@ -7878,6 +8396,60 @@ def main():
                               if k["name"] == name)]
         kernel["ops_path_launches"] = ops_record["launches"][name]
         kernel["ops_path"] = entry
+    # ON1 and ON2: launches on the main path (archive_locate's and
+    # kurtosis_detect's QuakeScan.locate, one a phase), the other paths'
+    # beside them; times at locate's S phase, the others under "times"
+    on_times = onsets_record["times"]
+    double_locate = double_record["two_pass"]["launches"]
+    for name, key, replaces, main_launches, paths, main_time in (
+            ("onset_stalta", "ON1", "quakemigrate_tpu/ops/stalta.py:39",
+             locate_record["onset_launches"]["onset_stalta"], {
+                 "map_path": locate_record["map"]["onset_launches"][
+                     "onset_stalta"],
+                 "plot_path": locate_record["plot"]["launches"].get(
+                     "onset_stalta", 0),
+                 "vt_locate_mags": vt_record["launches"]["onset_stalta"],
+                 "double_locate": double_locate.get("onset_stalta", 0),
+                 "double_map": double_record["map_path"]["launches"].get(
+                     "onset_stalta", 0),
+                 **{f"standard_{v}": standard_record[v]["onset_launches"][
+                     "onset_stalta"] for v in ("unfused", "classic")},
+                 **{f"compat_{f}": compat_record[f]["launches"][
+                     "onset_stalta"] for f in ("overlapping_sta_lta",
+                                               "centred_sta_lta")}},
+             on_times["ON1 locate S"]),
+            ("onset_kurtosis", "ON2", "quakemigrate_tpu/ops/kurtosis.py:69",
+             kurtosis_record["locate_launches"]["onset_kurtosis"], {},
+             on_times["ON2 locate S"])):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "quakemigrate_torch/csrc/locate_onsets.cu",
+            "replaces": replaces,
+            **({"also_replaces": "quakemigrate_tpu/ops/stalta.py:57"}
+               if key == "ON1" else {}),
+            "launches": main_launches,
+            "path_launches": paths,
+            "hold_launches": onsets_record["hold_launches"][name],
+            "max_abs_err": max(r["max_abs_err"] for label, r in
+                               onsets_record["holds"].items()
+                               if label.startswith(key)),
+            "holds": sum(label.startswith(key)
+                         for label in onsets_record["holds"]),
+            **{k: main_time[k] for k in (
+                "ms", "issued_ms", "plain_ms", "turns_ms", "bound_ms",
+                "bound_by", "bytes", "operations", "launches_a_call",
+                "plain_calls", "enqueue_s", "plain_enqueue_s")},
+            "library_ms": None,
+            "times": {k: v for k, v in on_times.items()
+                      if k.startswith(key)},
+            "resources": {k: v for k, v in onsets_record[
+                "resources"].items() if k.startswith(key)},
+            "calculate_onsets": (locate_record if key == "ON1"
+                                 else kurtosis_record)["onsets"],
+            "samples": onsets_record["samples"],
+            "windows": onsets_record["windows"],
+        })
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']}: no launch on its path")
     print(smi)

@@ -250,6 +250,17 @@ SIGNATURES = {
     # stream
     "qm_front_end_kurtosis_v2_f32": [_VOID_P] * 7 + [_INT] * 7 + [_VOID_P],
     "qm_front_end_kurtosis_v2_f64": [_VOID_P] * 7 + [_INT] * 7 + [_VOID_P],
+    # x, offsets, out, ws, units, t, ws_unit, nsta, nlta, centred, mode,
+    # lo_edge, hi_edge, frac (low, high halves), min_onset (low, high
+    # halves), stream
+    "qm_onset_stalta_f32": [_VOID_P] * 4 + [_INT] * 13 + [_VOID_P],
+    "qm_onset_stalta_f64": [_VOID_P] * 4 + [_INT] * 13 + [_VOID_P],
+    # x, offsets, out, ws, units, t, ws_unit, nkurt, nsmooth, lo_edge,
+    # hi_edge, min_onset (low, high halves), stream
+    "qm_onset_kurtosis_f32": [_VOID_P] * 4 + [_INT] * 9 + [_VOID_P],
+    "qm_onset_kurtosis_f64": [_VOID_P] * 4 + [_INT] * 9 + [_VOID_P],
+    # (kurtosis, f64)
+    "qm_onset_blocks_per_sm": [_INT] * 2,
     # (kurtosis, n_slots, c_max, t, itemsize); returns long long bytes
     "qm_front_end_v2_workspace_bytes": [_INT] * 5,
     # (kurtosis, f64, c_max)

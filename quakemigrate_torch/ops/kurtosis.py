@@ -19,11 +19,18 @@ smoothing is a sum of shifted rows, each scaled by ``1 / nsmooth``, in
 ``m`` covers ``[i - m // 2, i + m // 2 - 1]``). No convolution routine is
 used: cuDNN would run a float32 convolution in TF32.
 
+:func:`kurtosis_onset` and :func:`station_kurtosis_onset` (locate's onsets
+of a phase, with the per-station combine) run ON2 (``ops.cuda_onsets``)
+on a CUDA tensor and their plain versions on a CPU tensor; those divide
+only by tensors (a CUDA division by a Python number multiplies by its
+reciprocal), so on the card they are ON2's values bit for bit.
+
 """
 
 import torch
 
 from .rolling import trailing_window_sums
+from .stalta import combine_stations
 
 
 def _powers(x):
@@ -36,7 +43,7 @@ def _powers(x):
 
 def _kurtosis_from_sums(sums, n, dtype):
     """Fisher kurtosis (normal -> 0) from trailing sums of x, x^2, x^3
-    and x^4 over windows of ``n`` samples (a float or a [rows, 1]
+    and x^4 over windows of ``n`` samples (a 0-dim or a [rows, 1]
     tensor), with the reference's degenerate-window gate: a window whose
     variance is below 1e-12 of its mean square is flattened to 0."""
 
@@ -67,7 +74,8 @@ def rolling_kurtosis(signal, nkurt):
 
     sums = trailing_window_sums(_powers(signal), int(nkurt),
                                 reference_order=True)
-    kurt = _kurtosis_from_sums(sums, float(nkurt), signal.dtype)
+    n = torch.full((), float(nkurt), dtype=signal.dtype, device=signal.device)
+    kurt = _kurtosis_from_sums(sums, n, signal.dtype)
     valid = torch.arange(signal.shape[-1], device=signal.device) >= nkurt - 1
     return torch.where(valid, kurt, 0.0)
 
@@ -102,11 +110,55 @@ def kurtosis_onset(signal, nkurt, nsmooth=1):
     Kurtosis characteristic function: the positive gradient of the
     rolling kurtosis (optionally smoothed over ``nsmooth`` samples),
     shifted to baseline 1. Kurtosis is dimensionless, so the function is
-    scale-free across stations without further normalisation.
+    scale-free across stations without further normalisation. ON2 on a
+    CUDA tensor (``ops.cuda_onsets.kurtosis_onset_cuda``, which raises
+    where it cannot run), :func:`kurtosis_onset_plain` on a CPU tensor.
 
     """
 
+    if signal.is_cuda:
+        from .cuda_onsets import kurtosis_onset_cuda
+
+        return kurtosis_onset_cuda(signal, nkurt, nsmooth)
+    return kurtosis_onset_plain(signal, nkurt, nsmooth)
+
+
+def kurtosis_onset_plain(signal, nkurt, nsmooth=1):
+    """The plain version of :func:`kurtosis_onset` (and of ON2's rows), on
+    any device."""
+
     return _onset_from_kurtosis(rolling_kurtosis(signal, nkurt), nsmooth)
+
+
+def station_kurtosis_onset(traces, offsets, nkurt, nsmooth, edges,
+                           min_onset_value, out=None):
+    """
+    Locate's kurtosis onsets of a phase: each row of ``traces`` [rows, T]
+    through :func:`kurtosis_onset`, the samples of ``edges`` (lo, hi) set
+    to 1 and each station's rows, ``offsets`` [stations + 1], combined
+    (``ops.stalta.combine_stations``). Returns [stations, T] (written to
+    ``out`` where given). ON2 in one launch on a CUDA tensor
+    (``ops.cuda_onsets.station_kurtosis_onset_cuda``),
+    :func:`station_kurtosis_onset_plain` on a CPU tensor.
+
+    """
+
+    if traces.is_cuda:
+        from .cuda_onsets import station_kurtosis_onset_cuda
+
+        return station_kurtosis_onset_cuda(traces, offsets, nkurt, nsmooth,
+                                           edges, min_onset_value, out)
+    return station_kurtosis_onset_plain(traces, offsets, nkurt, nsmooth,
+                                        edges, min_onset_value, out)
+
+
+def station_kurtosis_onset_plain(traces, offsets, nkurt, nsmooth, edges,
+                                 min_onset_value, out=None):
+    """The plain version of :func:`station_kurtosis_onset` (and of ON2's
+    stations mode), on any device."""
+
+    return combine_stations(kurtosis_onset_plain(traces, nkurt, nsmooth),
+                            offsets, edges, min_onset_value, out)
 
 
 def kurtosis_cf_rows(signal, nkurt_rows, nsmooth):

@@ -15,6 +15,15 @@ leading dimensions. Semantics follow quakemigrate_tpu.ops.stalta:
   On a CUDA tensor it runs R1 (``ops.cuda_stalta``), on a CPU tensor its
   plain version, an affine-pair scan.
 
+The classic and centred forms run ON1 (``ops.cuda_onsets``) on a CUDA
+tensor, their plain versions (the ``_plain`` functions) on a CPU tensor;
+:func:`station_sta_lta` adds the transform and locate's per-station
+combine, one ON1 launch a call on the card. The plain versions add every
+running sum in the reference's order (``ops.rolling.blocked_cumsum``) on
+any device and divide only by tensors (a CUDA division by a Python number
+multiplies by its reciprocal), so on the card they are ON1's values bit
+for bit.
+
 """
 
 import torch
@@ -23,11 +32,25 @@ from . import rolling
 
 
 def overlapping_sta_lta(signal, nsta, nlta):
-    """Classic STA/LTA with overlapping windows (static ``nsta``/``nlta``)."""
+    """Classic STA/LTA with overlapping windows (static ``nsta``/``nlta``):
+    ON1 on a CUDA tensor (``ops.cuda_onsets.sta_lta_cuda``, which raises
+    where it cannot run), :func:`overlapping_sta_lta_plain` on a CPU
+    tensor."""
+
+    if signal.is_cuda:
+        from .cuda_onsets import sta_lta_cuda
+
+        return sta_lta_cuda(signal, nsta, nlta, "classic")
+    return overlapping_sta_lta_plain(signal, nsta, nlta)
+
+
+def overlapping_sta_lta_plain(signal, nsta, nlta):
+    """The plain version of :func:`overlapping_sta_lta` (and of ON1's
+    classic rows), on any device."""
 
     n = signal.shape[-1]
-    sta = rolling.trailing_window_sums(signal, nsta)
-    lta = rolling.trailing_window_sums(signal, nlta)
+    sta = rolling.trailing_window_sums(signal, nsta, reference_order=True)
+    lta = rolling.trailing_window_sums(signal, nlta, reference_order=True)
     frac = nlta / nsta
     tiny = torch.finfo(signal.dtype).tiny
     ratio = torch.where(
@@ -38,10 +61,22 @@ def overlapping_sta_lta(signal, nsta, nlta):
 
 
 def centred_sta_lta(signal, nsta, nlta):
-    """Centred STA/LTA: the STA window follows the LTA window."""
+    """Centred STA/LTA: the STA window follows the LTA window. ON1 on a
+    CUDA tensor, :func:`centred_sta_lta_plain` on a CPU tensor."""
+
+    if signal.is_cuda:
+        from .cuda_onsets import sta_lta_cuda
+
+        return sta_lta_cuda(signal, nsta, nlta, "centred")
+    return centred_sta_lta_plain(signal, nsta, nlta)
+
+
+def centred_sta_lta_plain(signal, nsta, nlta):
+    """The plain version of :func:`centred_sta_lta` (and of ON1's centred
+    rows), on any device."""
 
     n = signal.shape[-1]
-    padded = rolling.padded_cumsum(signal)
+    padded = rolling.padded_cumsum(signal, reference_order=True)
     idx = torch.arange(n, device=signal.device)
     # lta[i] = sum(signal[i-nlta+1..i]); sta[i] = sum(signal[i+1..i+nsta])
     hi = padded[..., 1:]
@@ -54,6 +89,75 @@ def centred_sta_lta(signal, nsta, nlta):
     )
     valid = (idx >= (nlta - 1)) & (idx < n - nsta)
     return torch.where(valid, ratio, 1.0)
+
+
+_PLAIN = {"classic": overlapping_sta_lta_plain,
+          "centred": centred_sta_lta_plain}
+
+
+def station_sta_lta(traces, offsets, nsta, nlta, position, transform, edges,
+                    min_onset_value, out=None):
+    """
+    Locate's STA/LTA onsets of a phase: each row of ``traces`` [rows, T]
+    transformed (:func:`signal_transform`), its STA/LTA at ``position``,
+    the samples of ``edges`` (lo, hi) set to 1 (``[0, lo)`` and ``[hi,
+    T)``; None: none) and each station's rows, ``offsets`` [stations + 1],
+    combined (the root of their mean square, clamped to
+    ``min_onset_value``). Returns [stations, T] (written to ``out`` where
+    given). ON1 in one launch on a CUDA tensor
+    (``ops.cuda_onsets.station_sta_lta_cuda``), :func:`station_sta_lta_plain`
+    on a CPU tensor.
+
+    """
+
+    if traces.is_cuda:
+        from .cuda_onsets import station_sta_lta_cuda
+
+        return station_sta_lta_cuda(traces, offsets, nsta, nlta, position,
+                                    transform, edges, min_onset_value, out)
+    return station_sta_lta_plain(traces, offsets, nsta, nlta, position,
+                                 transform, edges, min_onset_value, out)
+
+
+def station_sta_lta_plain(traces, offsets, nsta, nlta, position, transform,
+                          edges, min_onset_value, out=None):
+    """The plain version of :func:`station_sta_lta` (and of ON1's
+    stations mode), on any device."""
+
+    if position not in _PLAIN:
+        raise ValueError(f"Unknown STA/LTA position: {position}")
+    onsets = _PLAIN[position](signal_transform(traces, transform), nsta, nlta)
+    return combine_stations(onsets, offsets, edges, min_onset_value, out)
+
+
+def combine_stations(onsets, offsets, edges, min_onset_value, out=None):
+    """
+    The per-station epilogue of locate's onsets, after the reference's
+    ``calculate_onsets``: the samples of ``edges`` (lo, hi) of each row of
+    ``onsets`` [rows, T] set to 1 (None: none), then for each station's
+    rows ``[offsets[s], offsets[s + 1])`` the squares added in row order,
+    divided by the row count, the square root and the clamp to
+    ``min_onset_value``. Returns [stations, T] (``out`` where given).
+
+    """
+
+    if edges is not None:
+        lo, hi = edges
+        onsets = onsets.clone()
+        onsets[:, :lo] = 1.0
+        onsets[:, hi:] = 1.0
+    squares = onsets * onsets
+    rows = []
+    for first, end in zip(offsets[:-1], offsets[1:]):
+        acc = squares[first]
+        for r in range(first + 1, end):
+            acc = acc + squares[r]
+        rows.append(torch.clamp(torch.sqrt(acc / torch.full_like(
+            acc, end - first)), min=min_onset_value))
+    combined = torch.stack(rows)
+    if out is None:
+        return combined
+    return out.copy_(combined)
 
 
 def recursive_sta_lta(signal, nsta, nlta):

@@ -77,6 +77,15 @@ def gather_phase_waveforms(onset, data, phase, conditioned):
     return kept, availability
 
 
+def slice_edges(n_samples, head, tail):
+    """The samples of a row of ``n_samples`` that ``row[:head] = 1`` and
+    ``row[tail:] = 1`` set, as Python slices them (negative bounds count
+    from the end), as (lo, hi): the samples before lo and from hi."""
+
+    samples = range(n_samples)
+    return len(samples[:head]), n_samples - len(samples[tail:])
+
+
 class Onset(metaclass=abc.ABCMeta):
     """
     Base class for onset generators. Subclasses implement

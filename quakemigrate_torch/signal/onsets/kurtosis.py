@@ -8,9 +8,11 @@ as :class:`~quakemigrate_torch.signal.onsets.STALTAOnset` is.
 Pre-processing runs host-side as for the STA/LTA onset. For detect,
 :meth:`KurtosisOnset.prepare_device_inputs` builds the channel block of
 the fused kurtosis window (``ops.scan_window.fused_kurtosis_onsets``) and
-:meth:`KurtosisOnset.fused_static_args` its settings. For locate and the
-picker, :meth:`KurtosisOnset.calculate_onsets` computes the onsets as
-float64 torch ops (``ops.kurtosis``) on the device it is given.
+:meth:`KurtosisOnset.fused_static_args` its settings. For locate, the
+standard detect path and the picker, :meth:`KurtosisOnset.calculate_onsets`
+computes the onsets in float64 on the device it is given, one
+``ops.kurtosis.station_kurtosis_onset`` call a phase (on the card one ON2
+launch).
 
 """
 
@@ -21,9 +23,9 @@ import torch
 
 import quakemigrate_torch.util as util
 from quakemigrate_torch.device import resolve_device
-from quakemigrate_torch.ops.kurtosis import kurtosis_onset
+from quakemigrate_torch.ops.kurtosis import station_kurtosis_onset
 from quakemigrate_torch.seis import Stream
-from .base import Onset, OnsetData, gather_phase_waveforms
+from .base import Onset, OnsetData, gather_phase_waveforms, slice_edges
 from .stalta import pre_process
 
 
@@ -111,8 +113,11 @@ class KurtosisOnset(Onset):
     def calculate_onsets(self, data, timespan=None, device="cuda"):
         """
         Calculate kurtosis onsets for all requested stations and phases,
-        on ``device`` (float64 torch ops; the card unless the caller asks
-        for the CPU, and raises where CUDA is absent).
+        on ``device`` (float64; the card unless the caller asks for the
+        CPU, and raises where CUDA is absent): the phases' traces go to the
+        device in one copy, each phase's onsets, edges and per-station
+        combine is one call of ``ops.kurtosis.station_kurtosis_onset`` (one
+        ON2 launch on the card), and the onsets come back in one copy.
 
         Returns (onsets [n_onsets, nsamples] float64 tensor on ``device``,
         stacked in phase-major order over available station/phase pairs,
@@ -121,37 +126,43 @@ class KurtosisOnset(Onset):
         """
 
         device = resolve_device(device)
-        rows, keys = [], []
+        traces, keys, calls = [], [], []
         filtered_waveforms = Stream()
         availability = {}
 
         for phase in self.phases:
-            nkurt = self._nkurt(phase)
             kept, phase_avail = self._gather_phase_waveforms(data, phase)
             availability.update(phase_avail)
 
-            traces, station_slices = [], {}
+            first, offsets = len(traces), [0]
             for station, waveforms in kept.items():
-                lo = len(traces)
                 traces.extend(
                     np.asarray(tr.data, dtype=np.float64) for tr in waveforms
                 )
-                station_slices[station] = slice(lo, len(traces))
-            if not traces:
-                continue
-
-            # The whole phase's channel rows in one batch
-            batch = torch.from_numpy(np.stack(traces)).to(device)
-            cf_rows = kurtosis_onset(batch, nkurt, self.nsmooth)
-            for station, sl in station_slices.items():
-                rows.append(self._combine(cf_rows[sl], nkurt, timespan))
+                offsets.append(len(traces) - first)
                 keys.append((station, phase))
-                filtered_waveforms += kept[station]
+                filtered_waveforms += waveforms
+            if len(offsets) > 1:
+                calls.append((first, offsets, self._nkurt(phase)))
 
         if sum(availability.values()) == 0:
             raise util.DataAvailabilityException
 
-        onsets = torch.stack(rows, dim=0)
+        # The whole batch to the device in one copy; a launch a phase, each
+        # writing its stations' rows
+        batch = torch.from_numpy(np.stack(traces)).to(device)
+        n_samples = batch.shape[-1]
+        onsets = torch.empty((len(keys), n_samples), dtype=batch.dtype,
+                             device=device)
+        done = 0
+        for first, offsets, nkurt in calls:
+            stations = len(offsets) - 1
+            station_kurtosis_onset(
+                batch[first:first + offsets[-1]], offsets, nkurt,
+                self.nsmooth, self._edges(n_samples, nkurt, timespan),
+                self.min_onset_value, out=onsets[done:done + stations])
+            done += stations
+
         host = onsets.cpu().numpy()
         onsets_dict = {}
         for (station, phase), row in zip(keys, host):
@@ -229,17 +240,17 @@ class KurtosisOnset(Onset):
         return (self.nsmooth, self._taper_pad(timespan),
                 float(self.min_onset_value))
 
-    def _combine(self, onsets, nkurt, timespan):
-        """RMS-combine one station's characteristic-function rows [n, T]
-        (a tensor), the tapered edges first set to the baseline 1."""
+    def _edges(self, n_samples, nkurt, timespan):
+        """The tapered edges set to the baseline 1 before the combine, the
+        reference's ``onsets[:, :taper_pad + nkurt - 1]`` and
+        ``onsets[:, -max(taper_pad, 1):]``, as (lo, hi): the samples
+        before lo and from hi; None without a timespan."""
 
-        if timespan:
-            taper_pad = self._taper_pad(timespan)
-            onsets = onsets.clone()
-            onsets[:, : taper_pad + nkurt - 1] = 1.0
-            onsets[:, -max(taper_pad, 1):] = 1.0
-        onset = torch.sqrt(torch.sum(onsets**2, dim=0) / len(onsets))
-        return torch.clamp(onset, min=self.min_onset_value)
+        if not timespan:
+            return None
+        taper_pad = self._taper_pad(timespan)
+        return slice_edges(n_samples, taper_pad + nkurt - 1,
+                           -max(taper_pad, 1))
 
     def gaussian_halfwidth(self, phase):
         """Half the kurtosis window, in samples."""

@@ -8,10 +8,11 @@ Butterworth bandpass) runs host-side on the port's Stream objects. For
 detect, :meth:`STALTAOnset.prepare_device_inputs` places the waveforms
 into the fixed-shape channel block that ``DetectScan`` takes; the
 transform, STA/LTA, RMS combination and clipping run on the device inside
-the fused window (``ops.scan_window``). For locate and the picker,
-:meth:`STALTAOnset.calculate_onsets` computes the onsets of the available
-station/phase pairs as float64 torch ops (``ops.stalta``) on the device
-it is given. Window lengths, pads and the availability rules follow the
+the fused window (``ops.scan_window``). For locate, the standard
+detect path and the picker, :meth:`STALTAOnset.calculate_onsets` computes
+the onsets of the available station/phase pairs in float64 on the device
+it is given, one ``ops.stalta.station_sta_lta`` call a phase (on the card
+one ON1 launch). Window lengths, pads and the availability rules follow the
 reference: they set the scan geometry that output parity depends on.
 
 """
@@ -26,7 +27,7 @@ import quakemigrate_torch.util as util
 from quakemigrate_torch.device import resolve_device
 from quakemigrate_torch.ops import stalta as stalta_ops
 from quakemigrate_torch.seis import Stream
-from .base import Onset, OnsetData, gather_phase_waveforms
+from .base import Onset, OnsetData, gather_phase_waveforms, slice_edges
 
 
 def pre_process(stream, sampling_rate, resample, upfactor, filter_,
@@ -147,8 +148,12 @@ class STALTAOnset(Onset):
     def calculate_onsets(self, data, timespan=None, device="cuda"):
         """
         Calculate onset functions for all requested stations and phases,
-        on ``device`` (float64 torch ops; the card unless the caller asks
-        for the CPU, and raises where CUDA is absent).
+        on ``device`` (float64; the card unless the caller asks for the
+        CPU, and raises where CUDA is absent): the phases' traces go to the
+        device in one copy, each phase's transform, STA/LTA, taper-pad
+        nulling and per-station combine is one call of
+        ``ops.stalta.station_sta_lta`` (one ON1 launch on the card), and
+        the onsets come back in one copy.
 
         Returns (onsets [n_onsets, nsamples] float64 tensor on ``device``,
         stacked in phase-major order over available station/phase pairs,
@@ -157,7 +162,7 @@ class STALTAOnset(Onset):
         """
 
         device = resolve_device(device)
-        rows, keys = [], []
+        traces, keys, calls = [], [], []
         filtered_waveforms = Stream()
         availability = {}
 
@@ -167,37 +172,38 @@ class STALTAOnset(Onset):
             )
             availability.update(phase_avail)
 
-            # Transform + STA/LTA as one batched call per phase
-            station_slices = {}
-            phase_traces = []
+            first, offsets = len(traces), [0]
             for station, waveforms in kept.items():
-                lo = len(phase_traces)
-                phase_traces.extend(
+                traces.extend(
                     np.asarray(tr.data, dtype=np.float64) for tr in waveforms
                 )
-                station_slices[station] = slice(lo, len(phase_traces))
-                filtered_waveforms += waveforms
-
-            if not phase_traces:
-                continue
-
-            batch = torch.from_numpy(np.stack(phase_traces)).to(device)
-            phase_onsets = self._onsets_for_phase(batch, stw, ltw, timespan)
-
-            for station, sl in station_slices.items():
-                combined = torch.sqrt(
-                    torch.sum(phase_onsets[sl] ** 2, dim=0)
-                    / (sl.stop - sl.start)
-                )
-                rows.append(torch.clamp(combined, min=self.min_onset_value))
+                offsets.append(len(traces) - first)
                 keys.append((station, phase))
+                filtered_waveforms += waveforms
+            if len(offsets) > 1:
+                calls.append((first, offsets, stw, ltw))
 
         logging.debug(filtered_waveforms.__str__(extended=True))
 
         if not any(availability.values()):
             raise util.DataAvailabilityException
 
-        onsets = torch.stack(rows, dim=0)
+        # The whole batch to the device in one copy; a launch a phase, each
+        # writing its stations' rows
+        batch = torch.from_numpy(np.stack(traces)).to(device)
+        n_samples = batch.shape[-1]
+        onsets = torch.empty((len(keys), n_samples), dtype=batch.dtype,
+                             device=device)
+        done = 0
+        for first, offsets, stw, ltw in calls:
+            stations = len(offsets) - 1
+            stalta_ops.station_sta_lta(
+                batch[first:first + offsets[-1]], offsets, stw, ltw,
+                self.position, self.signal_transform,
+                self._taper_edges(n_samples, stw, ltw, timespan),
+                self.min_onset_value, out=onsets[done:done + stations])
+            done += stations
+
         host = onsets.cpu().numpy()
         onsets_dict = {}
         for (station, phase), row in zip(keys, host):
@@ -217,38 +223,19 @@ class STALTAOnset(Onset):
         )
         return onsets, onset_data
 
-    def _onsets_for_phase(self, traces, stw, ltw, timespan):
-        """
-        Per-component onset functions for a whole phase's trace batch
-        [n_traces, T]: transform + STA/LTA, then the taper-pad nulling.
+    def _taper_edges(self, n_samples, stw, ltw, timespan):
+        """The samples nulled (set to 1) at the array edges of a window of
+        ``timespan`` seconds, the reference's ``onsets[:, :taper_pad + ltw
+        - 1]`` and ``onsets[:, -(stw + taper_pad):]``, as (lo, hi): the
+        samples before lo and from hi; None without a timespan."""
 
-        """
-
-        if self.position == "centred":
-            onset_fn = stalta_ops.centred_sta_lta
-        elif self.position == "classic":
-            onset_fn = stalta_ops.overlapping_sta_lta
-        else:
-            raise ValueError(f"Unknown STA/LTA position: {self.position}")
-
-        transformed = stalta_ops.signal_transform(traces,
-                                                  self.signal_transform)
-        onsets = onset_fn(transformed, stw, ltw)
-        if timespan:
-            onsets = self._trim_taper_pad(onsets, stw, ltw, timespan)
-        return onsets
-
-    def _trim_taper_pad(self, onsets, stw, ltw, timespan):
-        """Null (set to 1) the tapered data windows at the array edges."""
-
+        if not timespan:
+            return None
         pre_pad, _ = self.pad(timespan)
         taper_pad = util.time2sample(pre_pad - self.pre_pad,
                                      self.sampling_rate)
-
-        onsets = onsets.clone()
-        onsets[:, : (taper_pad + ltw - 1)] = 1.0
-        onsets[:, -(stw + taper_pad):] = 1.0
-        return onsets
+        return slice_edges(n_samples, taper_pad + ltw - 1,
+                           -(stw + taper_pad))
 
     def gaussian_halfwidth(self, phase):
         """Phase-appropriate Gaussian half-width (samples) for the picker."""

@@ -4,8 +4,9 @@ The onset front ends' own sources compiled for the CPU, so the CPU tests
 can hold the kernels' code (their blocked scans, term order, indexing and,
 for FE1 v2 and FE2 v2, their tiles' publication and waits) to the plain
 versions bit for bit where there is no card and no nvcc:
-``quakemigrate_torch/csrc/front_end.cu`` (FE1, FE2; :func:`build`) and
-``csrc/front_end_v2.cu`` (FE1 v2, FE2 v2; :func:`build_v2`).
+``quakemigrate_torch/csrc/front_end.cu`` (FE1, FE2; :func:`build`),
+``csrc/front_end_v2.cu`` (FE1 v2, FE2 v2; :func:`build_v2`) and
+``csrc/locate_onsets.cu`` (ON1, ON2, locate's onsets; :func:`build_onsets`).
 
 A shim stands in for CUDA: a block's threads run as host threads
 (``FE_THREADS`` or ``FV_THREADS`` of them, or as many as
@@ -144,6 +145,10 @@ ENTRIES_V2 = [f"qm_front_end_{kind}_v2_{suffix}"
 # Shared memory the shim holds for FE1 v2 and FE2 v2 (a launch asks for
 # at most 16 bytes, 256 values and FV_BUDGET)
 V2_SMEM = 48 * 1024
+ENTRIES_ONSETS = [f"qm_onset_{kind}_{suffix}" for kind in ("stalta", "kurtosis")
+                  for suffix in ("f32", "f64")]
+# Shared memory the shim holds for ON1 and ON2 (a tile of ON_STAGE doubles)
+ONSETS_SMEM = 4352 * 8
 
 
 def _compile(directory, source, smem_name, smem, entries):
@@ -198,6 +203,15 @@ def build_v2(directory):
     getattr(lib, name).argtypes = _build.SIGNATURES[name]
     getattr(lib, name).restype = ctypes.c_longlong
     return lib
+
+
+def build_onsets(directory):
+    """Compile ON1 and ON2's source with the shim into ``directory``;
+    returns the loaded library (its four launches and ``emu_set_threads``
+    typed)."""
+
+    return _compile(directory, "locate_onsets.cu", "on_smem", ONSETS_SMEM,
+                    ENTRIES_ONSETS)
 
 
 def _ptr(a):
@@ -298,3 +312,51 @@ def fe2_v2(lib, channels, chan_mask, slot_mask, nkurt, nsmooth, taper_pad,
         *cuda_front_end._double_halves(min_onset_value), None)
     assert err == 0, err
     return out, available[0]
+
+
+def _onset_call(lib, kind, x, offsets, kurtosis, threads, settings):
+    """One launch of ON1 or ON2's code on rows ``x`` [rows, t] (offsets
+    None: rows mode); the workspace filled with -7 (the kernels write what
+    they read), the output with -9."""
+
+    from quakemigrate_torch.ops import cuda_onsets
+
+    x = np.ascontiguousarray(x)
+    rows, t = x.shape
+    units = rows if offsets is None else len(offsets) - 1
+    out = np.full((units, t), -9.0, x.dtype)
+    ws_unit = cuda_onsets.unit_values(t, kurtosis)
+    ws = np.full(units * ws_unit, -7.0, x.dtype)
+    offsets_c = (None if offsets is None
+                 else _ptr(np.ascontiguousarray(offsets, np.int32)))
+    lib.emu_set_threads(threads)
+    err = getattr(lib, f"qm_onset_{kind}_{_suffix(x.dtype)}")(
+        _ptr(x), offsets_c, _ptr(out), _ptr(ws), units, t, ws_unit,
+        *settings, None)
+    assert err == 0, err
+    return out
+
+
+def on1(lib, x, nsta, nlta, position, mode, offsets=None, edges=None,
+        min_onset_value=1.0, threads=0):
+    """ON1's code on numpy rows ``x`` [rows, t]: rows mode (``offsets``
+    None, the samples taken as they are: ``mode`` "env") or stations mode
+    (``mode`` the transform's, "energy", "abs" or "env" for a given
+    envelope); ``threads`` a block's threads (0: ON_THREADS)."""
+
+    lo, hi = edges if edges is not None else (0, x.shape[-1])
+    return _onset_call(lib, "stalta", x, offsets, False, threads, (
+        nsta, nlta, cuda_front_end._POSITIONS[position],
+        cuda_front_end._MODES[mode], lo, hi,
+        *cuda_front_end._double_halves(nlta / nsta),
+        *cuda_front_end._double_halves(min_onset_value)))
+
+
+def on2(lib, x, nkurt, nsmooth, offsets=None, edges=None,
+        min_onset_value=1.0, threads=0):
+    """ON2's code on numpy rows ``x`` [rows, t], as :func:`on1`."""
+
+    lo, hi = edges if edges is not None else (0, x.shape[-1])
+    return _onset_call(lib, "kurtosis", x, offsets, True, threads, (
+        nkurt, nsmooth, lo, hi,
+        *cuda_front_end._double_halves(min_onset_value)))
