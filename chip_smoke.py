@@ -411,26 +411,31 @@ and the plain version on each block in turns, with the profiler's device
 time, the wrappers' host enqueue, the bound, and v2's registers, spills
 and blocks per SM.
 
-Locate's onsets run on ON1 (the static STA/LTA) and ON2 (the kurtosis
-onset), csrc/locate_onsets.cu, one launch a phase of calculate_onsets
-with the per-station combine fused: archive_locate (and its map path,
-plot_path), vt_locate_mags, double_path's locates and standard_path's
-STA/LTA detects (two a window) count ON1 from 0 with cuda_migrate's
-kernels, kurtosis_detect's locate ON2, and NoPlainOnCuda refuses their
-plain versions a CUDA tensor; archive_locate prints locate_event_attrib's
-onsets span cold and warm, and archive_locate and kurtosis_detect time
-calculate_onsets on the event's data by the kernel's route and by the
-plain chain on the card (equal bit for bit; host wall, the profiler's
-device work, each phase's call in turns). compat_path holds
-core.compat's overlapping_sta_lta and centred_sta_lta on the card to
-device="cpu" (equal, one ON1 launch each). locate_onsets_path, after
-front_end_path, holds ON1 and ON2 bit for bit to their plain versions on
-the card at locate's Icequake and VT shapes, compat's rows (R1's cases),
-120,000 samples and rows shorter than every window, both output modes,
-float32 and float64, ON1's four transforms, ON2's nsmooth 1, 5 and 12;
-times each in turns with its plain chain (queued device time, the
-profiler's launches a call, the host's enqueue) beside its bound, and
-prints their registers, spills and blocks per SM.
+Locate's onsets run on ON1 v2 (the static STA/LTA) and ON2 v2 (the
+kurtosis onset), csrc/locate_onsets_v2.cu (a grid of row segments), one
+launch a phase of calculate_onsets with the per-station combine fused:
+archive_locate (and its map path, plot_path), vt_locate_mags,
+double_path's locates and standard_path's STA/LTA detects (two a window)
+count ON1 v2 from 0 with cuda_migrate's kernels, kurtosis_detect's locate
+ON2 v2, none of ON1 or ON2 (csrc/locate_onsets.cu, their yardstick), and
+NoPlainOnCuda refuses their plain versions a CUDA tensor; archive_locate
+prints locate_event_attrib's onsets span cold and warm, and
+archive_locate and kurtosis_detect time calculate_onsets on the event's
+data by the kernel's route and by the plain chain on the card (equal bit
+for bit; host wall, the profiler's device work, each phase's call by v2,
+v1 and the plain chain in turns). compat_path holds core.compat's
+overlapping_sta_lta and centred_sta_lta on the card to device="cpu"
+(equal, one ON1 v2 launch each). locate_onsets_path, after
+front_end_path, holds ON1 v2 and ON2 v2 (through the routed functions)
+and ON1 and ON2 (through their wrappers) bit for bit to their plain
+versions on the card at locate's Icequake and VT shapes, compat's rows
+(R1's cases), 120,000 samples and rows shorter than every window, both
+output modes, float32 and float64, ON1's four transforms, ON2's nsmooth
+1, 5 and 12; times v2, v1 and the plain chain in turns (queued device
+time, as issued, the profiler's launches a call, the host's enqueue)
+beside the bound at locate's S phase, compat's rows and 120,000 samples
+in both types, and prints the four kernels' registers, spills and blocks
+per SM.
 
 Every kernel line carries its launches on its path (each path run with
 the counts set to 0 just before it), its time and its plain version's,
@@ -1698,7 +1703,8 @@ class NoPlainOnCuda:
     """Within the block, the plain versions that detect's and locate's CPU
     paths call (the plain onset front ends of the fused window among them,
     which the front ends' factories call on a CPU block, and the plain
-    versions of ON1 and ON2, which calculate_onsets calls on CPU tensors)
+    versions of ON1 v2 and ON2 v2, which calculate_onsets calls on CPU
+    tensors)
     and the ``extra`` (module, name) pairs raise if they are given CUDA
     tensors."""
 
@@ -1842,7 +1848,7 @@ def archive_locate_path(device, root, detect, planted, origin, start, end,
           f"{scan.locate_route}; {n_read} event(s) migrated, {n_gated} "
           f"through the marginal-window gate; kernel launches {launches}, "
           f"onsets {onset_launches}")
-    check(onset_launches == onsets_only("onset_stalta", 2 * n_read),
+    check(onset_launches == onsets_only("onset_stalta_v2", 2 * n_read),
           f"archive_locate: onset launches {onset_launches} for {n_read} "
           "event(s) of two phases")
     check(scan.locate_route == "k1_v2", f"archive_locate: route "
@@ -2060,7 +2066,7 @@ def archive_locate_path(device, root, detect, planted, origin, start, end,
     torch.cuda.synchronize()
     map_launches = dict(cm.launches)
     map_onset_launches = dict(con.launches)
-    check(map_onset_launches == onsets_only("onset_stalta", 2),
+    check(map_onset_launches == onsets_only("onset_stalta_v2", 2),
           f"map_path: onset launches {map_onset_launches}")
     (map_event, map_handle), = map_seen
     map_file = (runs / "map_path" / "locate" / "coalescence_maps"
@@ -2233,7 +2239,7 @@ def plot_path(device, root, archive, lut, onset, trigger_file, planted):
     card_dir, cpu_dir, event, record = locate_card_and_cpu(
         root, "plot_path", make, trigger_file,
         {"migrate_map_persistent": 1, "migrate_map_persistent_tables": 1,
-         "onset_stalta": 2},
+         "onset_stalta_v2": 2},
         planted, lut, plot_event_summary=True, plot_event_video=True)
     cpu_event = events["plot_path_cpu"]
     check(event.map4d is not None and cpu_event.map4d is not None
@@ -2941,7 +2947,7 @@ def vt_locate_mags_path(device, spacing_km=0.5, keep=None):
               f"route {loc.locate_route}, {n} event(s), launches {launches}")
         locate_kernels = {"migrate_detect_v2": n,
                           "migrate_marginalise_v2": n,
-                          "onset_stalta": 2 * n}
+                          "onset_stalta_v2": 2 * n}
         check(n == len(origins) and loc.locate_route == "k1_v2"
               and all(v == locate_kernels.get(k, 0)
                       for k, v in launches.items()),
@@ -4640,7 +4646,7 @@ def kurtosis_detect_path(device, root, lut, archive, planted, origin, start,
     check(len(located) == 1 and locate.locate_route == "k1_v2"
           and locate_launches["migrate_detect_v2"] == 1
           and locate_launches["migrate_marginalise_v2"] == 1
-          and locate_launches["onset_kurtosis"] == 2
+          and locate_launches["onset_kurtosis_v2"] == 2
           and sum(locate_launches.values()) == 4,
           f"kurtosis_detect locate: {len(located)} events, route "
           f"{locate.locate_route}, launches {locate_launches}")
@@ -4788,8 +4794,9 @@ STANDARD_ONSET_RTOL = 1e-6
 
 
 def onsets_only(key, n):
-    """ON1's and ON2's launch counts of a run that launched ``key`` (a key
-    of ops.cuda_onsets.launches, or None) ``n`` times and no other."""
+    """The onsets' launch counts (ON1, ON2, ON1 v2, ON2 v2) of a run that
+    launched ``key`` (a key of ops.cuda_onsets.launches, or None) ``n``
+    times and no other."""
 
     from quakemigrate_torch.ops import cuda_onsets as con
 
@@ -5059,7 +5066,7 @@ def locate_card_and_cpu(root, label, make_scan, trigger_file, kernels,
     """QuakeScan.locate of ``trigger_file``'s event on the card (the
     scan ``make_scan(name, device, **options)`` builds; no plain version
     on a CUDA tensor; launches exactly ``kernels``, {name: count} of
-    cuda_migrate's and ON1's and ON2's launches) and
+    cuda_migrate's and the onsets' launches) and
     the same with device="cpu"; the .event held (:func:`hold_event`),
     the hypocentre within one node of the planted source. Returns
     (card run dir, CPU run dir, the card's event, record)."""
@@ -5148,7 +5155,7 @@ def double_path(device, root, lut, archive, planted, origin, start, end):
     two_card, two_cpu, event, record["two_pass"] = locate_card_and_cpu(
         root, "double_locate", make, trigger_file,
         {"migrate_detect_global_v3_f64": 1,
-         "migrate_marginalise_ring_f64": 1, "onset_stalta": 2},
+         "migrate_marginalise_ring_f64": 1, "onset_stalta_v2": 2},
         planted, lut, write_marginal_coalescence=True)
     marg = [npy_of(d, "marginalised_coalescence_maps")
             for d in (two_card, two_cpu)]
@@ -5156,7 +5163,7 @@ def double_path(device, root, lut, archive, planted, origin, start, end):
         np.abs(marg[0] - marg[1]).max() / np.abs(marg[1]).max())
     map_card, map_cpu, map_event, record["map_path"] = locate_card_and_cpu(
         root, "double_map", make, trigger_file,
-        {"migrate_map_ring_f64": 1, "onset_stalta": 2}, planted, lut,
+        {"migrate_map_ring_f64": 1, "onset_stalta_v2": 2}, planted, lut,
         write_coalescence=True)
     maps = [npy_of(d, "coalescence_maps") for d in (map_card, map_cpu)]
     record["map_path"]["map_rel_err"] = float(
@@ -5306,8 +5313,8 @@ def standard_path(device, root, lut, archive, planted, origin, start, end):
     variants = {
         "custom": (lambda: custom(sampling_rate=RATE), {}, 0.0, None),
         "unfused": (archive_onset, {"fused_detect": False},
-                    STANDARD_ONSET_RTOL, "onset_stalta"),
-        "classic": (classic, {}, STANDARD_ONSET_RTOL, "onset_stalta"),
+                    STANDARD_ONSET_RTOL, "onset_stalta_v2"),
+        "classic": (classic, {}, STANDARD_ONSET_RTOL, "onset_stalta_v2"),
     }
     record = {}
     for name, (onset_of, options, block_rtol, onsets) in variants.items():
@@ -5825,16 +5832,18 @@ def kernels_per_call(fn, reps=5):
                              for e in kernels) / reps / 1e3}
 
 
-def onset_turns(label, kernel, plain, bound, reps=20):
-    """ON1's or ON2's call ``kernel`` and its plain chain ``plain`` on the
-    same inputs, timed in turns (kernel, plain, plain, kernel): the
-    kernel's device time enqueued behind a hold (``queued_ms``: its calls
-    back to back) and as the host issues its calls (``cuda_ms``), the
-    plain chain's as the host issues it (its hundreds of launches a call
-    fill the launch queue behind a hold, and the chain is bound by their
-    issue); the kernel's launches a call by its wrapper's count, the plain
-    chain's kernels and copies a call by the profiler (which drops events
-    at times: a floor), and the host's enqueue. Returns a record."""
+def onset_turns(label, kernel, plain, bound, reps=20, v1=None):
+    """ON1 v2's or ON2 v2's call ``kernel``, ON1's or ON2's ``v1`` (where
+    given) and their plain chain ``plain`` on the same inputs, timed in
+    turns (v2, v1, plain, plain, v1, v2): each kernel's device time
+    enqueued behind a hold (``queued_ms``: its calls back to back) and as
+    the host issues its calls (``cuda_ms``), the plain chain's as the host
+    issues it (its hundreds of launches a call fill the launch queue
+    behind a hold, and the chain is bound by their issue); v2's launches a
+    call by its wrapper's count, the plain chain's kernels and copies a
+    call by the profiler (which drops events at times: a floor), and the
+    host's enqueue of each. Returns a record (``ms``, ``issued_ms``,
+    ``enqueue_s``: v2's; ``v1_*``: v1's)."""
 
     from quakemigrate_torch.experiments.exp_kernel_breakdown import (
         cuda_ms,
@@ -5842,13 +5851,16 @@ def onset_turns(label, kernel, plain, bound, reps=20):
     )
     from quakemigrate_torch.ops import cuda_onsets as con
 
-    turns = {"kernel": [], "kernel_issued": [], "plain": []}
-    for name in ("kernel", "plain", "plain", "kernel"):
-        if name == "kernel":
-            turns["kernel"].append(queued_ms(kernel, reps))
-            turns["kernel_issued"].append(cuda_ms(kernel, reps))
-        else:
+    calls = {"kernel": kernel, "v1": v1}
+    order = ["kernel", "v1", "plain", "plain", "v1", "kernel"]
+    turns = {"kernel": [], "kernel_issued": [], "v1": [], "v1_issued": [],
+             "plain": []}
+    for name in order:
+        if name == "plain":
             turns["plain"].append(cuda_ms(plain, reps))
+        elif calls[name] is not None:
+            turns[name].append(queued_ms(calls[name], reps))
+            turns[f"{name}_issued"].append(cuda_ms(calls[name], reps))
     before = sum(con.launches.values())
     enqueue = enqueue_s(kernel, reps)
     record = {"ms": float(np.mean(turns["kernel"])),
@@ -5859,9 +5871,17 @@ def onset_turns(label, kernel, plain, bound, reps=20):
               "plain_calls": kernels_per_call(plain),
               "enqueue_s": enqueue,
               "plain_enqueue_s": enqueue_s(plain, reps)}
-    print(f"locate_onsets {label}: {record['ms']:.4f} ms a call queued in "
-          f"turns {turns['kernel']}, {record['issued_ms']:.4f} as issued; "
-          f"plain chain {record['plain_ms']:.4f} as issued "
+    if v1 is not None:
+        record.update({"v1_ms": float(np.mean(turns["v1"])),
+                       "v1_issued_ms": float(np.mean(turns["v1_issued"])),
+                       "v1_enqueue_s": enqueue_s(v1, reps)})
+    v1_text = (f"; v1 {record['v1_ms']:.4f} queued {turns['v1']}, "
+               f"{record['v1_issued_ms']:.4f} as issued, enqueue "
+               f"{record['v1_enqueue_s'] * 1e3:.4f} ms" if v1 is not None
+               else "")
+    print(f"locate_onsets {label}: v2 {record['ms']:.4f} ms a call queued "
+          f"in turns {turns['kernel']}, {record['issued_ms']:.4f} as "
+          f"issued{v1_text}; plain chain {record['plain_ms']:.4f} as issued "
           f"{turns['plain']}; bound {bound['bound_ms']:.6f} ms by "
           f"{bound['bound_by']}; {record['launches_a_call']} launch a call "
           f"against the plain chain's {record['plain_calls']}; host "
@@ -5871,25 +5891,34 @@ def onset_turns(label, kernel, plain, bound, reps=20):
 
 
 def onset_resources(device):
-    """Registers and spills of ON1 and ON2 (each instance, from the
-    build's ptxas report) and their resident blocks per SM (the occupancy
-    API): {"ON1 f32": {...}, ...}."""
+    """Registers and spills of ON1, ON2, ON1 v2 and ON2 v2 (each instance,
+    from the build's ptxas report) and their resident blocks per SM (the
+    occupancy API; v2's at its long rows' shared memory): {"ON1 f32":
+    {...}, ..., "ON1 v2 f32": {...}, ...}. Fails where a v2 instance
+    spills."""
 
     from quakemigrate_torch import _build
     from quakemigrate_torch.ops import cuda_onsets as con
 
     out = {}
-    for name, entry in _build.kernel_resources("qm_on").items():
-        kurtosis = "qm_on2" in name
-        f64 = "IdE" in name
-        dtype = torch.float64 if f64 else torch.float32
-        label = f"ON{2 if kurtosis else 1} {'f64' if f64 else 'f32'}"
-        out[label] = {k: v for k, v in entry.items()
-                      if k != "wgmma_serialized"}
-        out[label]["blocks_per_sm"] = con.blocks_per_sm(kurtosis, dtype,
-                                                        device)
+    for prefix, version in (("qm_on", 1), ("qm_ov", 2)):
+        for name, entry in _build.kernel_resources(prefix).items():
+            kurtosis = f"{prefix}2" in name
+            f64 = "IdE" in name
+            dtype = torch.float64 if f64 else torch.float32
+            label = (f"ON{2 if kurtosis else 1}"
+                     f"{' v2' if version == 2 else ''} "
+                     f"{'f64' if f64 else 'f32'}")
+            out[label] = {k: v for k, v in entry.items()
+                          if k != "wgmma_serialized"}
+            out[label]["blocks_per_sm"] = con.blocks_per_sm(
+                kurtosis, dtype, device, version)
     print(f"locate_onsets: registers, spills and blocks per SM {out}")
-    check(len(out) == 4, f"locate_onsets: instances missing: {out}")
+    check(len(out) == 8, f"locate_onsets: instances missing: {out}")
+    # a spilling build of ON2 v2 float64 gave wrong onsets on the card
+    check(all(v["spill_stores"] == 0 and v["spill_loads"] == 0
+              for k, v in out.items() if " v2 " in k),
+          f"locate_onsets: a v2 instance spills: {out}")
     return out
 
 
@@ -5900,8 +5929,10 @@ def onsets_case(label, onset, data, device, reps=5):
     the card, held equal bit for bit; the call's host wall (it ends in
     the copy back) and the profiler's device work a call for both routes;
     then each phase's entry alone, kernel against plain chain, in turns
-    (:func:`onset_turns`). Returns a record."""
+    (:func:`onset_turns`, ON1 v2 or ON2 v2 with ON1 or ON2). Returns a
+    record."""
 
+    from quakemigrate_torch.ops import cuda_onsets as con
     from quakemigrate_torch.ops import kurtosis as kops
     from quakemigrate_torch.ops import stalta as sops
     from quakemigrate_torch.signal.onsets import kurtosis as onsets_kurtosis
@@ -5909,9 +5940,11 @@ def onsets_case(label, onset, data, device, reps=5):
     if hasattr(onset, "kurtosis_windows"):
         module, name = onsets_kurtosis, "station_kurtosis_onset"
         plain = kops.station_kurtosis_onset_plain
+        v1 = con.station_kurtosis_onset_cuda
     else:
         module, name = sops, "station_sta_lta"
         plain = sops.station_sta_lta_plain
+        v1 = con.station_sta_lta_cuda
     entry = getattr(module, name)
     phases = []
 
@@ -5963,7 +5996,8 @@ def onsets_case(label, onset, data, device, reps=5):
                             stations=True)
         record["phases"][key] = onset_turns(
             f"{label} calculate_onsets' phase of {key}",
-            lambda: entry(*args), lambda: plain(*args), bound)
+            lambda: entry(*args), lambda: plain(*args), bound,
+            v1=lambda: v1(*args))
     print(f"{label}: calculate_onsets on the card, {record['onsets']} "
           f"onsets: kernel's route {record['wall_s']:.4f} s host wall, "
           f"device {record['device']}; plain chain "
@@ -5974,21 +6008,23 @@ def onsets_case(label, onset, data, device, reps=5):
 
 
 def locate_onsets_path(device, locate_samples, vt_samples, reps=20):
-    """locate_onsets_path: ON1 and ON2 (csrc/locate_onsets.cu) on the card
-    against their plain versions (the reference's order of additions)
-    bit for bit, at the shapes of their paths: locate at Icequake (13
-    stations, P one row a station and S two, the locate block's
-    ``locate_samples`` samples, float64; archive_locate's STA/LTA windows
-    and kurtosis_detect's), VT (12 stations, ``vt_samples``, env_squared),
-    core.compat's float32 rows (R1's cases: (26, 2,038), (256, 360,000)),
-    rows of 120,000 samples in float32 and float64 and rows shorter than
-    every window: ON1 classic and centred, the energy, abs, env and
-    env_squared transforms in stations mode, rows mode on the samples as
-    they are; ON2 at nsmooth 1, 5 and the onset's 12, both modes, float64
-    and float32. Then each timed in turns with its plain chain
-    (:func:`onset_turns`) at locate's S phase, compat's rows and 120,000
-    samples, and ON1's and ON2's registers, spills and blocks per SM.
-    Returns a record."""
+    """locate_onsets_path: ON1 v2 and ON2 v2 (csrc/locate_onsets_v2.cu,
+    through the routed ops functions) and ON1 and ON2
+    (csrc/locate_onsets.cu, their yardstick, through their wrappers) on
+    the card against their plain versions (the reference's order of
+    additions) bit for bit, each at every hold, at the shapes of their
+    paths: locate at Icequake (13 stations, P one row a station and S two,
+    the locate block's ``locate_samples`` samples, float64;
+    archive_locate's STA/LTA windows and kurtosis_detect's), VT (12
+    stations, ``vt_samples``, env_squared), core.compat's float32 rows
+    (R1's cases: (26, 2,038), (256, 360,000)), rows of 120,000 samples in
+    float32 and float64 and rows shorter than every window: ON1 classic and
+    centred, the energy, abs, env and env_squared transforms in stations
+    mode, rows mode on the samples as they are; ON2 at nsmooth 1, 5 and the
+    onset's 12, both modes, float64 and float32. Then v2, v1 and the plain
+    chain timed in turns (:func:`onset_turns`) at locate's S phase,
+    compat's rows and 120,000 samples in both types, and the four kernels'
+    registers, spills and blocks per SM. Returns a record."""
 
     from quakemigrate_torch import util
     from quakemigrate_torch.ops import cuda_onsets as con
@@ -6011,33 +6047,44 @@ def locate_onsets_path(device, locate_samples, vt_samples, reps=20):
     torch.cuda.synchronize()
     con.reset_launches()
 
+    def hold_both(label, want, v2, v1):
+        """v2 (the routed function) and v1 (its wrapper) against the plain
+        version's ``want``."""
+
+        hold_onset(holds, f"ON{label[0]} v2 {label[1:]}", v2(), want)
+        hold_onset(holds, f"ON{label[0]} v1 {label[1:]}", v1(), want)
+
     def on1_stations(label, x, offsets, nsta, nlta, positions, transforms,
                      edges=None):
         for position in positions:
             for transform in transforms:
                 args = (x, offsets, nsta, nlta, position, transform, edges,
                         0.4)
-                hold_onset(holds, f"ON1 {label} {position} {transform}",
-                           sops.station_sta_lta(*args),
-                           sops.station_sta_lta_plain(*args))
+                hold_both(f"1{label} {position} {transform}",
+                          sops.station_sta_lta_plain(*args),
+                          lambda: sops.station_sta_lta(*args),
+                          lambda: con.station_sta_lta_cuda(*args))
 
     def on1_rows(label, x, nsta, nlta):
         for position in ("classic", "centred"):
-            hold_onset(holds, f"ON1 rows {label} {position}",
-                       routed_rows[position](x, nsta, nlta),
-                       plain_rows[position](x, nsta, nlta))
+            hold_both(f"1rows {label} {position}",
+                      plain_rows[position](x, nsta, nlta),
+                      lambda: routed_rows[position](x, nsta, nlta),
+                      lambda: con.sta_lta_cuda(x, nsta, nlta, position))
 
     def on2(label, x, offsets, n, smooths, edges=None):
         for ns in smooths:
             if offsets is None:
-                hold_onset(holds, f"ON2 rows {label} nsmooth {ns}",
-                           kops.kurtosis_onset(x, n, ns),
-                           kops.kurtosis_onset_plain(x, n, ns))
+                hold_both(f"2rows {label} nsmooth {ns}",
+                          kops.kurtosis_onset_plain(x, n, ns),
+                          lambda: kops.kurtosis_onset(x, n, ns),
+                          lambda: con.kurtosis_onset_cuda(x, n, ns))
             else:
                 args = (x, offsets, n, ns, edges, 0.4)
-                hold_onset(holds, f"ON2 {label} nsmooth {ns}",
-                           kops.station_kurtosis_onset(*args),
-                           kops.station_kurtosis_onset_plain(*args))
+                hold_both(f"2{label} nsmooth {ns}",
+                          kops.station_kurtosis_onset_plain(*args),
+                          lambda: kops.station_kurtosis_onset(*args),
+                          lambda: con.station_kurtosis_onset_cuda(*args))
 
     transforms = ("energy", "abs", "env", "env_squared")
     ice = {}
@@ -6070,8 +6117,10 @@ def locate_onsets_path(device, locate_samples, vt_samples, reps=20):
                    for shape, _ in R1_CASES}
     for shape, (nsta, nlta) in R1_CASES:
         on1_rows(f"compat {shape}", compat_rows[shape], nsta, nlta)
+    longs = {}
     for dtype in (f32, f64):
         long = onset_rows(rng, (3, FE_LONG_SAMPLES), dtype, device)
+        longs[dtype] = long
         name = f"{FE_LONG_SAMPLES} {str(dtype)[6:]}"
         on1_stations(name, long, [0, 1, 3], 250, 2500,
                      ("classic", "centred"), ("energy", "abs"))
@@ -6089,8 +6138,12 @@ def locate_onsets_path(device, locate_samples, vt_samples, reps=20):
     hold_launches = dict(con.launches)
     print(f"locate_onsets: {len(holds)} holds, each equal bit for bit to "
           f"its plain version; launches {hold_launches}")
+    check(hold_launches["onset_stalta_v2"] == hold_launches["onset_stalta"]
+          and hold_launches["onset_kurtosis_v2"]
+          == hold_launches["onset_kurtosis"],
+          f"locate_onsets: v2 and v1 launches differ: {hold_launches}")
 
-    # Times in turns with the plain chain
+    # v2, v1 and the plain chain timed in turns
     times = {}
     x, offsets = ice["S"]
     args = (x, offsets, stw["S"], ltw["S"], "centred", "energy", None, 0.4)
@@ -6098,13 +6151,15 @@ def locate_onsets_path(device, locate_samples, vt_samples, reps=20):
         "ON1 locate S", lambda: sops.station_sta_lta(*args),
         lambda: sops.station_sta_lta_plain(*args),
         onset_bound(False, x.shape[0], len(offsets) - 1, locate_samples, 8,
-                    transform="energy", stations=True), reps)
+                    transform="energy", stations=True), reps,
+        v1=lambda: con.station_sta_lta_cuda(*args))
     kargs = (x, offsets, nkurt["S"], nsmooth, None, 0.4)
     times["ON2 locate S"] = onset_turns(
         "ON2 locate S", lambda: kops.station_kurtosis_onset(*kargs),
         lambda: kops.station_kurtosis_onset_plain(*kargs),
         onset_bound(True, x.shape[0], len(offsets) - 1, locate_samples, 8,
-                    nsmooth=nsmooth, stations=True), reps)
+                    nsmooth=nsmooth, stations=True), reps,
+        v1=lambda: con.station_kurtosis_onset_cuda(*kargs))
     for shape, (nsta, nlta) in R1_CASES:
         rows = compat_rows[shape]
         times[f"ON1 compat {shape}"] = onset_turns(
@@ -6112,20 +6167,25 @@ def locate_onsets_path(device, locate_samples, vt_samples, reps=20):
             lambda: sops.overlapping_sta_lta(rows, nsta, nlta),
             lambda: sops.overlapping_sta_lta_plain(rows, nsta, nlta),
             onset_bound(False, shape[0], shape[0], shape[1], 4),
-            reps if shape[1] < 10_000 else 5)
-    long = onset_rows(rng, (3, FE_LONG_SAMPLES), f64, device)
-    largs = (long, [0, 1, 3], 250, 2500, "classic", "energy", None, 0.4)
-    times[f"ON1 {FE_LONG_SAMPLES} f64"] = onset_turns(
-        f"ON1 {FE_LONG_SAMPLES} f64", lambda: sops.station_sta_lta(*largs),
-        lambda: sops.station_sta_lta_plain(*largs),
-        onset_bound(False, 3, 2, FE_LONG_SAMPLES, 8, transform="energy",
-                    stations=True), 5)
-    times[f"ON2 {FE_LONG_SAMPLES} f64"] = onset_turns(
-        f"ON2 {FE_LONG_SAMPLES} f64",
-        lambda: kops.kurtosis_onset(long, 250, nsmooth),
-        lambda: kops.kurtosis_onset_plain(long, 250, nsmooth),
-        onset_bound(True, 3, 3, FE_LONG_SAMPLES, 8, nsmooth=nsmooth), 5)
-    del long, rows, compat_rows, ice, vt
+            reps if shape[1] < 10_000 else 5,
+            v1=lambda: con.sta_lta_cuda(rows, nsta, nlta, "classic"))
+    for dtype, long in longs.items():
+        name = f"{FE_LONG_SAMPLES} {str(dtype)[6:]}"
+        size = long.element_size()
+        largs = (long, [0, 1, 3], 250, 2500, "classic", "energy", None, 0.4)
+        times[f"ON1 {name}"] = onset_turns(
+            f"ON1 {name}", lambda: sops.station_sta_lta(*largs),
+            lambda: sops.station_sta_lta_plain(*largs),
+            onset_bound(False, 3, 2, FE_LONG_SAMPLES, size,
+                        transform="energy", stations=True), 5,
+            v1=lambda: con.station_sta_lta_cuda(*largs))
+        times[f"ON2 {name}"] = onset_turns(
+            f"ON2 {name}",
+            lambda: kops.kurtosis_onset(long, 250, nsmooth),
+            lambda: kops.kurtosis_onset_plain(long, 250, nsmooth),
+            onset_bound(True, 3, 3, FE_LONG_SAMPLES, size, nsmooth=nsmooth),
+            5, v1=lambda: con.kurtosis_onset_cuda(long, 250, nsmooth))
+    del long, longs, rows, compat_rows, ice, vt
     torch.cuda.empty_cache()
     return {"holds": holds, "hold_launches": hold_launches, "times": times,
             "resources": onset_resources(device),
@@ -6243,8 +6303,8 @@ def compat_path(device):
     find_max_coa of that map on the card and the CPU: the max and the
     argmax equal, the normalised max within COMPAT_NORM_RTOL; last
     overlapping_sta_lta and centred_sta_lta on the card at R1's first case
-    (float32 rows of 2,038 samples): one ON1 launch each
-    (csrc/locate_onsets.cu), equal to device="cpu". Returns the
+    (float32 rows of 2,038 samples): one ON1 v2 launch each
+    (csrc/locate_onsets_v2.cu), equal to device="cpu". Returns the
     record."""
 
     from quakemigrate_torch.core import compat
@@ -6302,8 +6362,8 @@ def compat_path(device):
               and norm_err <= COMPAT_NORM_RTOL,
               f"compat_path {name}: find_max_coa {record[name]}")
 
-    # The static STA/LTAs on the card (ON1, one launch each, counted from
-    # 0) against device="cpu" (the plain version), equal
+    # The static STA/LTAs on the card (ON1 v2, one launch each, counted
+    # from 0) against device="cpu" (the plain version), equal
     (shape, (nsta, nlta)) = R1_CASES[0]
     signal = rng.standard_normal(shape) ** 2
     for name in ("overlapping_sta_lta", "centred_sta_lta"):
@@ -6319,7 +6379,7 @@ def compat_path(device):
         print(f"compat_path {name} {shape} (nsta {nsta}, nlta {nlta}): "
               f"launches {launches}, equal to device='cpu' {equal}")
         check(equal and card.dtype == np.float64
-              and launches == onsets_only("onset_stalta", 1),
+              and launches == onsets_only("onset_stalta_v2", 1),
               f"compat_path {name}: {record[name]}")
     return record
 
@@ -8396,60 +8456,84 @@ def main():
                               if k["name"] == name)]
         kernel["ops_path_launches"] = ops_record["launches"][name]
         kernel["ops_path"] = entry
-    # ON1 and ON2: launches on the main path (archive_locate's and
+    # ON1 v2 and ON2 v2: launches on the main path (archive_locate's and
     # kurtosis_detect's QuakeScan.locate, one a phase), the other paths'
-    # beside them; times at locate's S phase, the others under "times"
+    # beside them; ON1 and ON2, their yardstick on no path: their launches
+    # over locate_onsets_path's holds. Times at locate's S phase (v2's and
+    # v1's from the same turns), the others under "times"
     on_times = onsets_record["times"]
     double_locate = double_record["two_pass"]["launches"]
-    for name, key, replaces, main_launches, paths, main_time in (
+    stalta_v2 = "onset_stalta_v2"
+    stalta_paths = {
+        "map_path": locate_record["map"]["onset_launches"][stalta_v2],
+        "plot_path": locate_record["plot"]["launches"].get(stalta_v2, 0),
+        "vt_locate_mags": vt_record["launches"][stalta_v2],
+        "double_locate": double_locate.get(stalta_v2, 0),
+        "double_map": double_record["map_path"]["launches"].get(
+            stalta_v2, 0),
+        **{f"standard_{v}": standard_record[v]["onset_launches"][stalta_v2]
+           for v in ("unfused", "classic")},
+        **{f"compat_{f}": compat_record[f]["launches"][stalta_v2]
+           for f in ("overlapping_sta_lta", "centred_sta_lta")}}
+    for name, key, replaces, main_launches, paths in (
             ("onset_stalta", "ON1", "quakemigrate_tpu/ops/stalta.py:39",
-             locate_record["onset_launches"]["onset_stalta"], {
-                 "map_path": locate_record["map"]["onset_launches"][
-                     "onset_stalta"],
-                 "plot_path": locate_record["plot"]["launches"].get(
-                     "onset_stalta", 0),
-                 "vt_locate_mags": vt_record["launches"]["onset_stalta"],
-                 "double_locate": double_locate.get("onset_stalta", 0),
-                 "double_map": double_record["map_path"]["launches"].get(
-                     "onset_stalta", 0),
-                 **{f"standard_{v}": standard_record[v]["onset_launches"][
-                     "onset_stalta"] for v in ("unfused", "classic")},
-                 **{f"compat_{f}": compat_record[f]["launches"][
-                     "onset_stalta"] for f in ("overlapping_sta_lta",
-                                               "centred_sta_lta")}},
-             on_times["ON1 locate S"]),
+             locate_record["onset_launches"][stalta_v2], stalta_paths),
             ("onset_kurtosis", "ON2", "quakemigrate_tpu/ops/kurtosis.py:69",
-             kurtosis_record["locate_launches"]["onset_kurtosis"], {},
-             on_times["ON2 locate S"])):
-        kernels.append({
-            "name": name,
-            "route": "cuda",
-            "source": "quakemigrate_torch/csrc/locate_onsets.cu",
-            "replaces": replaces,
-            **({"also_replaces": "quakemigrate_tpu/ops/stalta.py:57"}
-               if key == "ON1" else {}),
-            "launches": main_launches,
-            "path_launches": paths,
-            "hold_launches": onsets_record["hold_launches"][name],
-            "max_abs_err": max(r["max_abs_err"] for label, r in
-                               onsets_record["holds"].items()
-                               if label.startswith(key)),
-            "holds": sum(label.startswith(key)
-                         for label in onsets_record["holds"]),
-            **{k: main_time[k] for k in (
-                "ms", "issued_ms", "plain_ms", "turns_ms", "bound_ms",
-                "bound_by", "bytes", "operations", "launches_a_call",
-                "plain_calls", "enqueue_s", "plain_enqueue_s")},
-            "library_ms": None,
-            "times": {k: v for k, v in on_times.items()
-                      if k.startswith(key)},
-            "resources": {k: v for k, v in onsets_record[
-                "resources"].items() if k.startswith(key)},
-            "calculate_onsets": (locate_record if key == "ON1"
-                                 else kurtosis_record)["onsets"],
-            "samples": onsets_record["samples"],
-            "windows": onsets_record["windows"],
-        })
+             kurtosis_record["locate_launches"]["onset_kurtosis_v2"], {})):
+        main_time = on_times[f"{key} locate S"]
+        for version in (2, 1):
+            tag = f"{key} v{version}"
+            kernel_name = name + ("_v2" if version == 2 else "")
+            prefix = "" if version == 2 else "v1_"
+            entry = {
+                "name": kernel_name,
+                "route": "cuda",
+                "source": ("quakemigrate_torch/csrc/locate_onsets_v2.cu"
+                           if version == 2 else
+                           "quakemigrate_torch/csrc/locate_onsets.cu"),
+                "replaces": replaces,
+                **({"also_replaces": "quakemigrate_tpu/ops/stalta.py:57"}
+                   if key == "ON1" else {}),
+                "launches": (main_launches if version == 2
+                             else onsets_record["hold_launches"][name]),
+                "hold_launches": onsets_record["hold_launches"][
+                    kernel_name],
+                "max_abs_err": max(r["max_abs_err"] for label, r in
+                                   onsets_record["holds"].items()
+                                   if label.startswith(tag + " ")),
+                "holds": sum(label.startswith(tag + " ")
+                             for label in onsets_record["holds"]),
+                "ms": main_time[f"{prefix}ms"],
+                "issued_ms": main_time[f"{prefix}issued_ms"],
+                "enqueue_s": main_time[f"{prefix}enqueue_s"],
+                **{k: main_time[k] for k in (
+                    "plain_ms", "turns_ms", "bound_ms", "bound_by",
+                    "bytes", "operations", "plain_calls",
+                    "plain_enqueue_s")},
+                "library_ms": None,
+                "times": {k: {kk: v[kk] for kk in (
+                    f"{prefix}ms", f"{prefix}issued_ms",
+                    f"{prefix}enqueue_s", "plain_ms", "bound_ms",
+                    "bound_by")} for k, v in on_times.items()
+                    if k.startswith(key + " ")},
+                "resources": {k: v for k, v in onsets_record[
+                    "resources"].items()
+                    if k.startswith(key) and (" v2 " in k) == (
+                        version == 2)},
+                "samples": onsets_record["samples"],
+                "windows": onsets_record["windows"],
+            }
+            if version == 2:
+                entry["path_launches"] = paths
+                entry["launches_a_call"] = main_time["launches_a_call"]
+                entry["calculate_onsets"] = (
+                    locate_record if key == "ON1" else kurtosis_record)[
+                    "onsets"]
+            else:
+                # the yardstick of v2 on no path: its launches over
+                # locate_onsets_path's holds
+                entry["yardstick_of"] = kernel_name + "_v2"
+            kernels.append(entry)
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']}: no launch on its path")
     print(smi)

@@ -261,6 +261,19 @@ SIGNATURES = {
     "qm_onset_kurtosis_f64": [_VOID_P] * 4 + [_INT] * 9 + [_VOID_P],
     # (kurtosis, f64)
     "qm_onset_blocks_per_sm": [_INT] * 2,
+    # x, offsets, out, workspace, units, rows, t, nsta, nlta, centred, mode,
+    # lo_edge, hi_edge, frac (low, high halves), min_onset (low, high
+    # halves), stream
+    "qm_onset_stalta_v2_f32": [_VOID_P] * 4 + [_INT] * 13 + [_VOID_P],
+    "qm_onset_stalta_v2_f64": [_VOID_P] * 4 + [_INT] * 13 + [_VOID_P],
+    # x, offsets, out, workspace, units, rows, t, nkurt, nsmooth, lo_edge,
+    # hi_edge, min_onset (low, high halves), stream
+    "qm_onset_kurtosis_v2_f32": [_VOID_P] * 4 + [_INT] * 9 + [_VOID_P],
+    "qm_onset_kurtosis_v2_f64": [_VOID_P] * 4 + [_INT] * 9 + [_VOID_P],
+    # (kurtosis, units, rows, t, itemsize); returns long long bytes
+    "qm_onset_v2_workspace_bytes": [_INT] * 5,
+    # (kurtosis, f64)
+    "qm_onset_v2_blocks_per_sm": [_INT] * 2,
     # (kurtosis, n_slots, c_max, t, itemsize); returns long long bytes
     "qm_front_end_v2_workspace_bytes": [_INT] * 5,
     # (kurtosis, f64, c_max)
@@ -386,6 +399,7 @@ def load_library():
         fn.restype = _INT
     lib.qm_error_string.restype = ctypes.c_char_p
     lib.qm_front_end_v2_workspace_bytes.restype = ctypes.c_longlong
+    lib.qm_onset_v2_workspace_bytes.restype = ctypes.c_longlong
     return lib
 
 

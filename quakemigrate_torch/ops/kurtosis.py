@@ -20,10 +20,11 @@ smoothing is a sum of shifted rows, each scaled by ``1 / nsmooth``, in
 used: cuDNN would run a float32 convolution in TF32.
 
 :func:`kurtosis_onset` and :func:`station_kurtosis_onset` (locate's onsets
-of a phase, with the per-station combine) run ON2 (``ops.cuda_onsets``)
+of a phase, with the per-station combine) run ON2 v2 (``ops.cuda_onsets``)
 on a CUDA tensor and their plain versions on a CPU tensor; those divide
 only by tensors (a CUDA division by a Python number multiplies by its
-reciprocal), so on the card they are ON2's values bit for bit.
+reciprocal), so on the card they are ON2 v2's (and ON2's) values bit for
+bit.
 
 """
 
@@ -110,22 +111,22 @@ def kurtosis_onset(signal, nkurt, nsmooth=1):
     Kurtosis characteristic function: the positive gradient of the
     rolling kurtosis (optionally smoothed over ``nsmooth`` samples),
     shifted to baseline 1. Kurtosis is dimensionless, so the function is
-    scale-free across stations without further normalisation. ON2 on a
-    CUDA tensor (``ops.cuda_onsets.kurtosis_onset_cuda``, which raises
+    scale-free across stations without further normalisation. ON2 v2 on a
+    CUDA tensor (``ops.cuda_onsets.kurtosis_onset_cuda_v2``, which raises
     where it cannot run), :func:`kurtosis_onset_plain` on a CPU tensor.
 
     """
 
     if signal.is_cuda:
-        from .cuda_onsets import kurtosis_onset_cuda
+        from .cuda_onsets import kurtosis_onset_cuda_v2
 
-        return kurtosis_onset_cuda(signal, nkurt, nsmooth)
+        return kurtosis_onset_cuda_v2(signal, nkurt, nsmooth)
     return kurtosis_onset_plain(signal, nkurt, nsmooth)
 
 
 def kurtosis_onset_plain(signal, nkurt, nsmooth=1):
-    """The plain version of :func:`kurtosis_onset` (and of ON2's rows), on
-    any device."""
+    """The plain version of :func:`kurtosis_onset` (and of ON2 v2's and
+    ON2's rows), on any device."""
 
     return _onset_from_kurtosis(rolling_kurtosis(signal, nkurt), nsmooth)
 
@@ -137,25 +138,25 @@ def station_kurtosis_onset(traces, offsets, nkurt, nsmooth, edges,
     through :func:`kurtosis_onset`, the samples of ``edges`` (lo, hi) set
     to 1 and each station's rows, ``offsets`` [stations + 1], combined
     (``ops.stalta.combine_stations``). Returns [stations, T] (written to
-    ``out`` where given). ON2 in one launch on a CUDA tensor
-    (``ops.cuda_onsets.station_kurtosis_onset_cuda``),
+    ``out`` where given). ON2 v2 in one launch on a CUDA tensor
+    (``ops.cuda_onsets.station_kurtosis_onset_cuda_v2``),
     :func:`station_kurtosis_onset_plain` on a CPU tensor.
 
     """
 
     if traces.is_cuda:
-        from .cuda_onsets import station_kurtosis_onset_cuda
+        from .cuda_onsets import station_kurtosis_onset_cuda_v2
 
-        return station_kurtosis_onset_cuda(traces, offsets, nkurt, nsmooth,
-                                           edges, min_onset_value, out)
+        return station_kurtosis_onset_cuda_v2(traces, offsets, nkurt, nsmooth,
+                                              edges, min_onset_value, out)
     return station_kurtosis_onset_plain(traces, offsets, nkurt, nsmooth,
                                         edges, min_onset_value, out)
 
 
 def station_kurtosis_onset_plain(traces, offsets, nkurt, nsmooth, edges,
                                  min_onset_value, out=None):
-    """The plain version of :func:`station_kurtosis_onset` (and of ON2's
-    stations mode), on any device."""
+    """The plain version of :func:`station_kurtosis_onset` (and of ON2 v2's
+    and ON2's stations mode), on any device."""
 
     return combine_stations(kurtosis_onset_plain(traces, nkurt, nsmooth),
                             offsets, edges, min_onset_value, out)

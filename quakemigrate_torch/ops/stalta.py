@@ -15,14 +15,14 @@ leading dimensions. Semantics follow quakemigrate_tpu.ops.stalta:
   On a CUDA tensor it runs R1 (``ops.cuda_stalta``), on a CPU tensor its
   plain version, an affine-pair scan.
 
-The classic and centred forms run ON1 (``ops.cuda_onsets``) on a CUDA
+The classic and centred forms run ON1 v2 (``ops.cuda_onsets``) on a CUDA
 tensor, their plain versions (the ``_plain`` functions) on a CPU tensor;
 :func:`station_sta_lta` adds the transform and locate's per-station
-combine, one ON1 launch a call on the card. The plain versions add every
-running sum in the reference's order (``ops.rolling.blocked_cumsum``) on
-any device and divide only by tensors (a CUDA division by a Python number
-multiplies by its reciprocal), so on the card they are ON1's values bit
-for bit.
+combine, one ON1 v2 launch a call on the card. The plain versions add
+every running sum in the reference's order (``ops.rolling.blocked_cumsum``)
+on any device and divide only by tensors (a CUDA division by a Python
+number multiplies by its reciprocal), so on the card they are ON1 v2's
+(and ON1's) values bit for bit.
 
 """
 
@@ -33,20 +33,20 @@ from . import rolling
 
 def overlapping_sta_lta(signal, nsta, nlta):
     """Classic STA/LTA with overlapping windows (static ``nsta``/``nlta``):
-    ON1 on a CUDA tensor (``ops.cuda_onsets.sta_lta_cuda``, which raises
-    where it cannot run), :func:`overlapping_sta_lta_plain` on a CPU
+    ON1 v2 on a CUDA tensor (``ops.cuda_onsets.sta_lta_cuda_v2``, which
+    raises where it cannot run), :func:`overlapping_sta_lta_plain` on a CPU
     tensor."""
 
     if signal.is_cuda:
-        from .cuda_onsets import sta_lta_cuda
+        from .cuda_onsets import sta_lta_cuda_v2
 
-        return sta_lta_cuda(signal, nsta, nlta, "classic")
+        return sta_lta_cuda_v2(signal, nsta, nlta, "classic")
     return overlapping_sta_lta_plain(signal, nsta, nlta)
 
 
 def overlapping_sta_lta_plain(signal, nsta, nlta):
-    """The plain version of :func:`overlapping_sta_lta` (and of ON1's
-    classic rows), on any device."""
+    """The plain version of :func:`overlapping_sta_lta` (and of ON1 v2's
+    and ON1's classic rows), on any device."""
 
     n = signal.shape[-1]
     sta = rolling.trailing_window_sums(signal, nsta, reference_order=True)
@@ -61,19 +61,19 @@ def overlapping_sta_lta_plain(signal, nsta, nlta):
 
 
 def centred_sta_lta(signal, nsta, nlta):
-    """Centred STA/LTA: the STA window follows the LTA window. ON1 on a
+    """Centred STA/LTA: the STA window follows the LTA window. ON1 v2 on a
     CUDA tensor, :func:`centred_sta_lta_plain` on a CPU tensor."""
 
     if signal.is_cuda:
-        from .cuda_onsets import sta_lta_cuda
+        from .cuda_onsets import sta_lta_cuda_v2
 
-        return sta_lta_cuda(signal, nsta, nlta, "centred")
+        return sta_lta_cuda_v2(signal, nsta, nlta, "centred")
     return centred_sta_lta_plain(signal, nsta, nlta)
 
 
 def centred_sta_lta_plain(signal, nsta, nlta):
-    """The plain version of :func:`centred_sta_lta` (and of ON1's centred
-    rows), on any device."""
+    """The plain version of :func:`centred_sta_lta` (and of ON1 v2's and
+    ON1's centred rows), on any device."""
 
     n = signal.shape[-1]
     padded = rolling.padded_cumsum(signal, reference_order=True)
@@ -104,25 +104,26 @@ def station_sta_lta(traces, offsets, nsta, nlta, position, transform, edges,
     T)``; None: none) and each station's rows, ``offsets`` [stations + 1],
     combined (the root of their mean square, clamped to
     ``min_onset_value``). Returns [stations, T] (written to ``out`` where
-    given). ON1 in one launch on a CUDA tensor
-    (``ops.cuda_onsets.station_sta_lta_cuda``), :func:`station_sta_lta_plain`
-    on a CPU tensor.
+    given). ON1 v2 in one launch on a CUDA tensor
+    (``ops.cuda_onsets.station_sta_lta_cuda_v2``),
+    :func:`station_sta_lta_plain` on a CPU tensor.
 
     """
 
     if traces.is_cuda:
-        from .cuda_onsets import station_sta_lta_cuda
+        from .cuda_onsets import station_sta_lta_cuda_v2
 
-        return station_sta_lta_cuda(traces, offsets, nsta, nlta, position,
-                                    transform, edges, min_onset_value, out)
+        return station_sta_lta_cuda_v2(traces, offsets, nsta, nlta, position,
+                                       transform, edges, min_onset_value,
+                                       out)
     return station_sta_lta_plain(traces, offsets, nsta, nlta, position,
                                  transform, edges, min_onset_value, out)
 
 
 def station_sta_lta_plain(traces, offsets, nsta, nlta, position, transform,
                           edges, min_onset_value, out=None):
-    """The plain version of :func:`station_sta_lta` (and of ON1's
-    stations mode), on any device."""
+    """The plain version of :func:`station_sta_lta` (and of ON1 v2's and
+    ON1's stations mode), on any device."""
 
     if position not in _PLAIN:
         raise ValueError(f"Unknown STA/LTA position: {position}")

@@ -12,7 +12,7 @@ the fused kurtosis window (``ops.scan_window.fused_kurtosis_onsets``) and
 standard detect path and the picker, :meth:`KurtosisOnset.calculate_onsets`
 computes the onsets in float64 on the device it is given, one
 ``ops.kurtosis.station_kurtosis_onset`` call a phase (on the card one ON2
-launch).
+v2 launch).
 
 """
 
@@ -117,7 +117,7 @@ class KurtosisOnset(Onset):
         CPU, and raises where CUDA is absent): the phases' traces go to the
         device in one copy, each phase's onsets, edges and per-station
         combine is one call of ``ops.kurtosis.station_kurtosis_onset`` (one
-        ON2 launch on the card), and the onsets come back in one copy.
+        ON2 v2 launch on the card), and the onsets come back in one copy.
 
         Returns (onsets [n_onsets, nsamples] float64 tensor on ``device``,
         stacked in phase-major order over available station/phase pairs,

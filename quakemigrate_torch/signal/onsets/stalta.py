@@ -12,8 +12,8 @@ the fused window (``ops.scan_window``). For locate, the standard
 detect path and the picker, :meth:`STALTAOnset.calculate_onsets` computes
 the onsets of the available station/phase pairs in float64 on the device
 it is given, one ``ops.stalta.station_sta_lta`` call a phase (on the card
-one ON1 launch). Window lengths, pads and the availability rules follow the
-reference: they set the scan geometry that output parity depends on.
+one ON1 v2 launch). Window lengths, pads and the availability rules follow
+the reference: they set the scan geometry that output parity depends on.
 
 """
 
@@ -152,7 +152,7 @@ class STALTAOnset(Onset):
         CPU, and raises where CUDA is absent): the phases' traces go to the
         device in one copy, each phase's transform, STA/LTA, taper-pad
         nulling and per-station combine is one call of
-        ``ops.stalta.station_sta_lta`` (one ON1 launch on the card), and
+        ``ops.stalta.station_sta_lta`` (one ON1 v2 launch on the card), and
         the onsets come back in one copy.
 
         Returns (onsets [n_onsets, nsamples] float64 tensor on ``device``,

@@ -313,7 +313,9 @@ def test_wrappers_equal_plain(on_host, dtype):
     _assert_equal(got, kurtosis.station_kurtosis_onset_plain(
         x, OFFSETS, 51, 5, None, MIN_ONSET))
     assert (out[0] == -5.0).all() and (out[4] == -5.0).all()
-    assert cuda_onsets.launches == {"onset_stalta": 6, "onset_kurtosis": 2}
+    assert cuda_onsets.launches == {"onset_stalta": 6, "onset_kurtosis": 2,
+                                    "onset_stalta_v2": 0,
+                                    "onset_kurtosis_v2": 0}
 
 
 @pytest.fixture(scope="module")
@@ -562,13 +564,16 @@ def test_row_wrappers_refuse(monkeypatch, call, error, match):
 def test_cpu_tensors_never_reach_the_kernels(monkeypatch):
     """The routed functions, core.compat with device="cpu" and
     calculate_onsets' entries take the plain versions on CPU tensors:
-    neither a wrapper nor the launcher runs, and no launch is counted."""
+    neither a wrapper (v1's or v2's) nor the launcher runs, and no launch
+    is counted."""
 
     def refuse(*args, **kwargs):
         pytest.fail("a CPU tensor reached ops.cuda_onsets")
 
     for name in ("sta_lta_cuda", "station_sta_lta_cuda",
                  "kurtosis_onset_cuda", "station_kurtosis_onset_cuda",
+                 "sta_lta_cuda_v2", "station_sta_lta_cuda_v2",
+                 "kurtosis_onset_cuda_v2", "station_kurtosis_onset_cuda_v2",
                  "launch_kernel"):
         monkeypatch.setattr(cuda_onsets, name, refuse)
     cuda_onsets.reset_launches()

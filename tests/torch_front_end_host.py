@@ -45,12 +45,15 @@ CUDA_RUNTIME = r"""
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 typedef void* cudaStream_t;
-enum cudaDeviceAttr { cudaDevAttrMaxSharedMemoryPerBlockOptin = 97 };
+enum cudaDeviceAttr {
+  cudaDevAttrMultiProcessorCount = 16,
+  cudaDevAttrMaxSharedMemoryPerBlockOptin = 97
+};
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 inline std::atomic<bool> emu_failed{false};
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
-inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
-  *v = %(smem)d;
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr a, int) {
+  *v = a == cudaDevAttrMultiProcessorCount ? %(sms)d : %(smem)d;
   return 0;
 }
 template <class K>
@@ -107,6 +110,8 @@ inline void fv_release(int* p, int v) {
 inline void fv_wait(const int* flag, int at_least) {
   if (__atomic_load_n(flag, __ATOMIC_ACQUIRE) < at_least) emu_failed = true;
 }
+inline void ov_release(int* p, int v) { fv_release(p, v); }
+inline void ov_wait(const int* flag, int at_least) { fv_wait(flag, at_least); }
 alignas(16) unsigned char %(smem_name)s[%(smem)d];
 inline int emu_threads = 0;
 extern "C" void emu_set_threads(int n) { emu_threads = n; }
@@ -149,6 +154,15 @@ ENTRIES_ONSETS = [f"qm_onset_{kind}_{suffix}" for kind in ("stalta", "kurtosis")
                   for suffix in ("f32", "f64")]
 # Shared memory the shim holds for ON1 and ON2 (a tile of ON_STAGE doubles)
 ONSETS_SMEM = 4352 * 8
+ENTRIES_ONSETS_V2 = [f"qm_onset_{kind}_v2_{suffix}"
+                     for kind in ("stalta", "kurtosis")
+                     for suffix in ("f32", "f64")]
+# Shared memory the shim holds for ON1 v2 and ON2 v2 (a launch asks for at
+# most ~110 KB)
+ONSETS_V2_SMEM = 128 * 1024
+# SMs the shim reports (the H100's), from which ON1 v2 and ON2 v2 pick
+# their short rows' segments
+SMS = 132
 
 
 def _compile(directory, source, smem_name, smem, entries):
@@ -164,7 +178,7 @@ def _compile(directory, source, smem_name, smem, entries):
     lib_path = directory / f"{stem}_host_{digest.hexdigest()[:12]}.so"
     if not lib_path.is_file():
         (directory / "cuda_runtime.h").write_text(CUDA_RUNTIME % {
-            "smem": smem})
+            "smem": smem, "sms": SMS})
         unit = directory / f"{stem}_host.cpp"
         unit.write_text('#include "cuda_runtime.h"\n'
                         + SHIM % {"smem": smem, "smem_name": smem_name}
@@ -212,6 +226,19 @@ def build_onsets(directory):
 
     return _compile(directory, "locate_onsets.cu", "on_smem", ONSETS_SMEM,
                     ENTRIES_ONSETS)
+
+
+def build_onsets_v2(directory):
+    """Compile ON1 v2 and ON2 v2's source with the shim into
+    ``directory``; returns the loaded library (its four launches, its
+    workspace size and ``emu_set_threads`` typed)."""
+
+    lib = _compile(directory, "locate_onsets_v2.cu", "ov_smem",
+                   ONSETS_V2_SMEM, ENTRIES_ONSETS_V2)
+    name = "qm_onset_v2_workspace_bytes"
+    getattr(lib, name).argtypes = _build.SIGNATURES[name]
+    getattr(lib, name).restype = ctypes.c_longlong
+    return lib
 
 
 def _ptr(a):
@@ -358,5 +385,52 @@ def on2(lib, x, nkurt, nsmooth, offsets=None, edges=None,
 
     lo, hi = edges if edges is not None else (0, x.shape[-1])
     return _onset_call(lib, "kurtosis", x, offsets, True, threads, (
+        nkurt, nsmooth, lo, hi,
+        *cuda_front_end._double_halves(min_onset_value)))
+
+
+def _onset_v2_call(lib, kind, x, offsets, kurtosis, threads, settings):
+    """One launch of ON1 v2 or ON2 v2's code on rows ``x`` [rows, t]
+    (offsets None: rows mode); the workspace, where the rows need one,
+    filled with a byte pattern (the kernels zero what they wait on and
+    write what they read), the output with -9."""
+
+    x = np.ascontiguousarray(x)
+    rows, t = x.shape
+    units = rows if offsets is None else len(offsets) - 1
+    out = np.full((units, t), -9.0, x.dtype)
+    nbytes = lib.qm_onset_v2_workspace_bytes(int(kurtosis), units, rows, t,
+                                             x.itemsize)
+    assert nbytes >= 0, nbytes
+    ws = np.full(max(nbytes, 16), 0x5A, np.uint8) if nbytes else None
+    offsets_c = (None if offsets is None
+                 else _ptr(np.ascontiguousarray(offsets, np.int32)))
+    lib.emu_set_threads(threads)
+    err = getattr(lib, f"qm_onset_{kind}_v2_{_suffix(x.dtype)}")(
+        _ptr(x), offsets_c, _ptr(out), None if ws is None else _ptr(ws),
+        units, rows, t, *settings, None)
+    assert err == 0, err
+    return out
+
+
+def on1_v2(lib, x, nsta, nlta, position, mode, offsets=None, edges=None,
+           min_onset_value=1.0, threads=0):
+    """ON1 v2's code on numpy rows ``x`` [rows, t], as :func:`on1`;
+    ``threads`` a block's threads (0: OV_THREADS)."""
+
+    lo, hi = edges if edges is not None else (0, x.shape[-1])
+    return _onset_v2_call(lib, "stalta", x, offsets, False, threads, (
+        nsta, nlta, cuda_front_end._POSITIONS[position],
+        cuda_front_end._MODES[mode], lo, hi,
+        *cuda_front_end._double_halves(nlta / nsta),
+        *cuda_front_end._double_halves(min_onset_value)))
+
+
+def on2_v2(lib, x, nkurt, nsmooth, offsets=None, edges=None,
+           min_onset_value=1.0, threads=0):
+    """ON2 v2's code on numpy rows ``x`` [rows, t], as :func:`on2`."""
+
+    lo, hi = edges if edges is not None else (0, x.shape[-1])
+    return _onset_v2_call(lib, "kurtosis", x, offsets, True, threads, (
         nkurt, nsmooth, lo, hi,
         *cuda_front_end._double_halves(min_onset_value)))
